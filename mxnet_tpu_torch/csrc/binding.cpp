@@ -1,0 +1,65 @@
+// Python binding of the port's CUDA kernels: the only source that includes
+// PyTorch's headers. It turns tensors into pointers and calls the plain C
+// launchers in the .cu files. The Python wrappers (mxnet_tpu_torch/ops/cuda)
+// check device, dtype, shape and contiguity and allocate the outputs; the
+// launchers run on the stream they are given and return cudaGetLastError().
+#include <torch/extension.h>
+
+#include <optional>
+
+extern "C" {
+int mxt_layernorm_fwd(const void* x, const void* gamma, const void* beta,
+                      void* y, int64_t rows, int cols, float eps, int dtype,
+                      void* stream);
+int mxt_flash_fwd(const void* q, const void* k, const void* v,
+                  const int32_t* valid_len, void* o, float* lse,
+                  int batch_heads, int heads, int tq, int tk, int d,
+                  float scale, int causal, void* stream);
+const char* mxt_cuda_error_string(int err);
+}
+
+namespace {
+
+void check_launch(int err, const char* what) {
+  TORCH_CHECK(err == 0, what, " launch failed: ", mxt_cuda_error_string(err));
+}
+
+int dtype_code(const torch::Tensor& x) {
+  switch (x.scalar_type()) {
+    case torch::kFloat32: return 0;
+    case torch::kBFloat16: return 1;
+    default: TORCH_CHECK(false, "layernorm kernel: unsupported dtype ", x.scalar_type());
+  }
+  return -1;
+}
+
+void layernorm_fwd(const torch::Tensor& x, const torch::Tensor& gamma,
+                   const torch::Tensor& beta, torch::Tensor& y, double eps,
+                   int64_t stream) {
+  check_launch(mxt_layernorm_fwd(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                                 y.data_ptr(), x.size(0), (int)x.size(1),
+                                 (float)eps, dtype_code(x),
+                                 reinterpret_cast<void*>(stream)),
+               "layernorm_fwd");
+}
+
+void flash_fwd(const torch::Tensor& q, const torch::Tensor& k,
+               const torch::Tensor& v, const std::optional<torch::Tensor>& valid_len,
+               torch::Tensor& o, const std::optional<torch::Tensor>& lse,
+               int64_t heads, double scale, bool causal, int64_t stream) {
+  check_launch(
+      mxt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    valid_len ? valid_len->data_ptr<int32_t>() : nullptr,
+                    o.data_ptr(), lse ? lse->data_ptr<float>() : nullptr,
+                    (int)(q.size(0) * q.size(1)), (int)heads, (int)q.size(2),
+                    (int)k.size(2), (int)q.size(3), (float)scale, causal ? 1 : 0,
+                    reinterpret_cast<void*>(stream)),
+      "flash_fwd");
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("layernorm_fwd", &layernorm_fwd, "row LayerNorm forward (CUDA)");
+  m.def("flash_fwd", &flash_fwd, "flash-attention forward (CUDA)");
+}

@@ -1,0 +1,226 @@
+"""Block / HybridBlock (ref: python/mxnet/gluon/block.py; the JAX package's
+``mxnet_tpu/gluon/block.py``).
+
+Both are ``torch.nn.Module``s, and a layer still writes
+``hybrid_forward(F, x, ..., **params)`` with ``F`` the port's functional ops.
+Name scopes and prefixes follow the JAX package exactly (an auto-named root
+gets ``<classname><n>_``, children nest under their parent's prefix), so a
+model's parameter names match the JAX package's one to one up to the root's
+counter. The port runs eagerly: there is no trace, and ``hybridize`` is a
+no-op kept for API parity.
+"""
+from __future__ import annotations
+
+import re
+import threading
+from collections import OrderedDict
+
+import torch
+
+from .. import ops
+from ..base import resolve_device
+from .parameter import Parameter, ParameterDict
+
+_naming = threading.local()
+# serving_fn's parameter override: {id(Parameter): tensor} while a pure call
+# runs on this thread, else absent
+_param_store = threading.local()
+
+
+def _auto_name(hint):
+    if not hasattr(_naming, "counters"):
+        _naming.counters = {}
+    cnt = _naming.counters.get(hint, 0)
+    _naming.counters[hint] = cnt + 1
+    return "%s%d_" % (hint, cnt)
+
+
+class _BlockScope:
+    _tls = threading.local()
+
+    def __init__(self, block):
+        self._block = block
+        self._counter = {}
+
+    @staticmethod
+    def current():
+        stack = getattr(_BlockScope._tls, "stack", None)
+        return stack[-1] if stack else None
+
+    @staticmethod
+    def create(prefix, params, hint):
+        current = _BlockScope.current()
+        if current is None:
+            if prefix is None:
+                prefix = _auto_name(hint)
+            if params is None:
+                params = ParameterDict(prefix)
+            else:
+                params = ParameterDict(params.prefix, params)
+            return prefix, params
+        if prefix is None:
+            cnt = current._counter.get(hint, 0)
+            current._counter[hint] = cnt + 1
+            prefix = "%s%d_" % (hint, cnt)
+        full_prefix = current._block.prefix + prefix
+        if params is None:
+            params = ParameterDict(full_prefix)
+        else:
+            params = ParameterDict(params.prefix, params)
+        return full_prefix, params
+
+    def __enter__(self):
+        if not hasattr(_BlockScope._tls, "stack"):
+            _BlockScope._tls.stack = []
+        _BlockScope._tls.stack.append(self)
+        return self
+
+    def __exit__(self, *a):
+        _BlockScope._tls.stack.pop()
+
+
+def param_value(param):
+    """A parameter's tensor as the current call sees it: the serving_fn
+    override when one is active on this thread, else ``param.data()``. Used
+    for weight tying across blocks (BERT's MLM decoder)."""
+    store = getattr(_param_store, "params", None)
+    if store is not None:
+        return store[id(param)]
+    return param.data()
+
+
+class Block(torch.nn.Module):
+    """(ref: gluon/block.py:Block)"""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__()
+        self._prefix, self._params = _BlockScope.create(prefix, params,
+                                                        self._alias())
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+        self._scope = _BlockScope(self)
+        self._children = OrderedDict()
+        self._reg_params = OrderedDict()
+
+    def _alias(self):
+        return self.__class__.__name__.lower()
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    @property
+    def name(self):
+        return self._name
+
+    @property
+    def params(self):
+        return self._params
+
+    def name_scope(self):
+        return self._scope
+
+    def __setattr__(self, name, value):
+        if isinstance(value, Block):
+            children = self.__dict__.get("_children")
+            if children is not None:
+                children[name] = value
+        elif isinstance(value, Parameter):
+            reg = self.__dict__.get("_reg_params")
+            if reg is not None:
+                reg[name] = value
+        super().__setattr__(name, value)
+
+    def register_child(self, block, name=None):
+        name = name or str(len(self._children))
+        self._children[name] = block
+        self.add_module(name, block)
+        return block
+
+    def collect_params(self, select=None):
+        ret = ParameterDict(self._params.prefix)
+        pattern = re.compile(select) if select else None
+        ret.update({k: v for k, v in self._own_items()
+                    if pattern is None or pattern.match(k)})
+        for child in self._children.values():
+            ret.update(child.collect_params(select=select))
+        return ret
+
+    def _own_items(self):
+        items = list(self._params.items())
+        seen = {id(p) for _, p in items}
+        items += [(p.name, p) for p in self._reg_params.values()
+                  if id(p) not in seen]
+        return items
+
+    def initialize(self, init=None, device=None, generator=None,
+                   force_reinit=False):
+        """Initialize every parameter on ``device`` (default: the current
+        CUDA device; raises without one unless ``device='cpu'``). Random
+        draws come from ``generator``, by default a generator on that device
+        seeded with 0."""
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        self.collect_params().initialize(init, device, generator,
+                                         force_reinit)
+
+    def hybridize(self, active=True, **kwargs):
+        """No-op: the port runs eagerly (CUDA graphs are later work)."""
+
+    def cast(self, dtype):
+        for child in self._children.values():
+            child.cast(dtype)
+        for p in self._reg_params.values():
+            p.cast(dtype)
+
+    def forward(self, *args, **kwargs):
+        raise NotImplementedError
+
+
+class HybridBlock(Block):
+    """(ref: gluon/block.py:HybridBlock)"""
+
+    def infer_shape(self, *args):
+        """Layer hook: set deferred parameter shapes from input shapes."""
+
+    def _ensure_params(self, *args):
+        need = [p for p in self._reg_params.values() if p._data is None]
+        if need:
+            self.infer_shape(*[a for a in args
+                               if isinstance(a, torch.Tensor)])
+            for p in need:
+                if p._deferred_init is not None and p._shape_known():
+                    p._finish_deferred_init()
+
+    def forward(self, *args, **kwargs):
+        self._ensure_params(*args)
+        pkwargs = {n: param_value(p) for n, p in self._reg_params.items()}
+        return self.hybrid_forward(ops.F, *args, **pkwargs, **kwargs)
+
+    def hybrid_forward(self, F, *args, **kwargs):
+        raise NotImplementedError
+
+    def serving_fn(self):
+        """The eval-mode function of this block for the serving pool:
+        ``fn(param_tensors, *inputs) -> outputs``, with the parameters read
+        from ``param_tensors`` (in ``collect_params()`` order) instead of
+        the Parameters, and the current tensors."""
+        plist = list(self.collect_params().values())
+        for p in plist:
+            if p._data is None and not (p._deferred_init is not None
+                                        and p._shape_known()):
+                raise RuntimeError(
+                    "serving_fn: parameter %r has no materialized shape — run "
+                    "one forward (or initialize with explicit shapes) before "
+                    "serving" % p.name)
+
+        def pure(pa, *xs):
+            prev = getattr(_param_store, "params", None)
+            _param_store.params = {id(p): a for p, a in zip(plist, pa)}
+            try:
+                return self(*xs)
+            finally:
+                _param_store.params = prev
+
+        return pure, [p.data() for p in plist]

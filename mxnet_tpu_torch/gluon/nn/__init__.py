@@ -1,0 +1,5 @@
+from .basic_layers import *  # noqa: F401,F403
+from .basic_layers import __all__ as _b
+from ..block import Block, HybridBlock  # noqa: F401
+
+__all__ = list(_b) + ["Block", "HybridBlock"]

@@ -1,0 +1,181 @@
+"""Parameter / ParameterDict over torch tensors (ref:
+python/mxnet/gluon/parameter.py; the JAX package's
+``mxnet_tpu/gluon/parameter.py``).
+
+A Parameter owns one tensor on one device. Deferred initialization works as
+in MXNet: a dimension declared 0 is inferred at the first forward.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import torch
+
+from .. import initializer as init_mod
+from ..base import resolve_device, resolve_dtype
+
+
+class DeferredInitializationError(RuntimeError):
+    pass
+
+
+class Parameter:
+    def __init__(self, name, grad_req="write", shape=None, dtype="float32",
+                 init=None, allow_deferred_init=False):
+        self.name = name
+        self.grad_req = grad_req
+        self._shape = tuple(shape) if shape is not None else None
+        self.dtype = resolve_dtype(dtype)
+        self.init = init
+        self.allow_deferred_init = allow_deferred_init
+        self._data = None
+        self._deferred_init = None  # (initializer, device, generator)
+
+    @property
+    def shape(self):
+        return self._shape
+
+    @shape.setter
+    def shape(self, new_shape):
+        new_shape = tuple(new_shape)
+        if self._shape is not None and (
+                len(self._shape) != len(new_shape)
+                or any(s not in (0, n) for s, n in zip(self._shape, new_shape))):
+            raise ValueError("inferred shape %s incompatible with declared %s "
+                             "for %s" % (new_shape, self._shape, self.name))
+        self._shape = new_shape
+
+    def _shape_known(self):
+        return self._shape is not None and all(s > 0 for s in self._shape)
+
+    def initialize(self, init=None, device=None, default_init=None,
+                   generator=None, force_reinit=False):
+        if self._data is not None and not force_reinit:
+            return
+        if isinstance(init, str):
+            init = init_mod.create(init)
+        own = init_mod.create(self.init) if isinstance(self.init, str) \
+            else self.init
+        self._deferred_init = (init or own or default_init
+                               or init_mod.Uniform(),
+                               resolve_device(device), generator)
+        if self._shape_known():
+            self._finish_deferred_init()
+        elif not self.allow_deferred_init:
+            raise ValueError("shape of Parameter %s unknown and deferred init "
+                             "not allowed" % self.name)
+
+    def _finish_deferred_init(self):
+        if self._deferred_init is None:
+            return
+        initializer, device, generator = self._deferred_init
+        self._data = initializer(self.name, self._shape, self.dtype, device,
+                                 generator)
+        self._deferred_init = None
+
+    def data(self):
+        if self._data is None:
+            if self._deferred_init is not None and self._shape_known():
+                self._finish_deferred_init()
+            else:
+                raise DeferredInitializationError(
+                    "Parameter %s not initialized (call .initialize(), and "
+                    "ensure its shape is inferable)" % self.name)
+        return self._data
+
+    @property
+    def device(self):
+        return None if self._data is None else self._data.device
+
+    def set_data(self, data):
+        """Replace the value, cast to this parameter's dtype, on its device
+        (or on the value's device when the parameter holds none yet)."""
+        if not isinstance(data, torch.Tensor):
+            data = torch.as_tensor(data)
+        if self._shape_known() and tuple(data.shape) != self._shape:
+            raise ValueError("Parameter %r: cannot set_data with shape %s; "
+                             "parameter shape is %s"
+                             % (self.name, tuple(data.shape), self._shape))
+        device = data.device if self._data is None else self._data.device
+        self._data = data.to(device=device, dtype=self.dtype)
+        self._shape = tuple(data.shape)
+        self._deferred_init = None
+
+    def reset_device(self, device):
+        if self._data is not None:
+            self._data = self._data.to(resolve_device(device))
+
+    def cast(self, dtype):
+        self.dtype = resolve_dtype(dtype)
+        if self._data is not None:
+            self._data = self._data.to(self.dtype)
+
+    def __repr__(self):
+        return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self._shape,
+                                                      self.dtype)
+
+
+class ParameterDict:
+    def __init__(self, prefix="", shared=None):
+        self._prefix = prefix
+        self._params = OrderedDict()
+        self._shared = shared
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    def items(self):
+        return self._params.items()
+
+    def keys(self):
+        return self._params.keys()
+
+    def values(self):
+        return self._params.values()
+
+    def __iter__(self):
+        return iter(self._params)
+
+    def __getitem__(self, key):
+        return self._params[key]
+
+    def __contains__(self, key):
+        return key in self._params
+
+    def __len__(self):
+        return len(self._params)
+
+    def get(self, name, **kwargs):
+        """Create-or-retrieve (ref: gluon/parameter.py:ParameterDict.get)."""
+        name = self._prefix + name
+        if name in self._params:
+            param = self._params[name]
+            shape = kwargs.get("shape")
+            if shape is not None and param.shape is not None:
+                param.shape = shape
+            return param
+        if self._shared is not None and name in self._shared:
+            self._params[name] = self._shared[name]
+            return self._shared[name]
+        param = Parameter(name, **kwargs)
+        self._params[name] = param
+        return param
+
+    def update(self, other):
+        for k, v in other.items():
+            self._params[k] = v
+
+    def initialize(self, init=None, device=None, generator=None,
+                   force_reinit=False):
+        for p in self.values():
+            p.initialize(None, device, default_init=init, generator=generator,
+                         force_reinit=force_reinit)
+
+    def reset_device(self, device):
+        for p in self.values():
+            p.reset_device(device)
+
+    def __repr__(self):
+        return "ParameterDict(%s)\n" % self._prefix + "\n".join(
+            repr(p) for p in self.values())

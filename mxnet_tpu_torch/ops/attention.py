@@ -1,0 +1,84 @@
+"""Attention seam (counterpart of ``mxnet_tpu/ops/attention.py``).
+
+Models call ``F.scaled_dot_attention``. It routes to the flash-attention
+forward (``ops/cuda/flash_attention.py``) when the sequence is long enough,
+the mask is absent or a declared key-padding prefix, and the operands are
+bfloat16 with a head dim the kernel takes; everything else takes the dense
+path, which keeps the JAX package's ``_dense_attention_fwd`` numerics.
+
+The flash threshold is the port's own. It starts at the JAX package's
+static pre-sweep value, 256, so BERT at seq 512 goes through the kernel;
+``chip_smoke.py`` times dense against flash at seq 128 and 512 on the card,
+and the real crossover is to be set from those measurements.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..base import register_op
+from .cuda.flash_attention import HEAD_DIMS, flash_attention
+
+FLASH_MIN_LEN = 256
+FLASH_DTYPES = (torch.bfloat16,)
+
+
+def _mask_bias(mask, causal, T, S, device):
+    """Key-padding mask and causal triangle as one additive fp32 bias (0
+    keep, -1e30 drop), or None."""
+    bias = None
+    if mask is not None:
+        bias = torch.where(mask.to(torch.bool), 0.0, -1e30).to(
+            device=device, dtype=torch.float32)
+    if causal:
+        rows = torch.arange(T, device=device)[:, None]
+        cols = torch.arange(S, device=device)[None, :]
+        cb = torch.where(rows >= cols, 0.0, -1e30)[None, None]
+        bias = cb if bias is None else bias + cb
+    return bias
+
+
+def dense_attention(q, k, v, mask=None, causal=False, scale=None):
+    """softmax(scale * q k^T + bias) v with the JAX package's dense numerics:
+    products accumulate in fp32 (here by upcasting the operands), the scale
+    applies to the fp32 logits, softmax is fp32, and p is cast to v's dtype
+    before the second product."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = scale * torch.matmul(q.float(), k.float().transpose(-1, -2))
+    bias = _mask_bias(mask, causal, q.shape[-2], k.shape[-2], q.device)
+    if bias is not None:
+        s = s + bias
+    p = torch.softmax(s, dim=-1)
+    out = torch.matmul(p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+def _prefix_mask_to_valid_len(mask):
+    """(B, ..., Tk) prefix key-padding mask → (B,) int32 valid lengths. A
+    prefix mask is row-constant, so any one row's sum is the length."""
+    rows = mask.reshape(mask.shape[0], -1, mask.shape[-1])[:, 0, :]
+    return rows.to(torch.int32).sum(dim=-1, dtype=torch.int32)
+
+
+def takes_flash(q, mask, prefix_mask):
+    """The seam's routing rule (static: shapes, dtype and the caller's
+    declaration, never the data)."""
+    return (q.shape[2] >= FLASH_MIN_LEN and q.dtype in FLASH_DTYPES
+            and q.shape[3] in HEAD_DIMS and (mask is None or prefix_mask))
+
+
+@register_op("scaled_dot_attention")
+def scaled_dot_attention(q, k, v, mask=None, *, causal=False, scale=None,
+                         prefix_mask=False):
+    """q, k, v: (B, H, T, D); mask broadcastable to (B, H, Tq, Tk), 1 = keep.
+
+    ``prefix_mask=True`` declares that ``mask`` is a key-padding prefix
+    (mask[b, ..., t] = t < valid_len[b]); then the flash path applies with
+    the valid length recovered from the mask."""
+    if takes_flash(q, mask, prefix_mask):
+        vl = None if mask is None else _prefix_mask_to_valid_len(mask)
+        return flash_attention(q, k, v, causal=causal, scale=scale,
+                               kv_valid_len=vl)
+    return dense_attention(q, k, v, mask, causal=causal, scale=scale)

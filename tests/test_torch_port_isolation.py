@@ -1,0 +1,73 @@
+"""The port stands alone: no file of ``mxnet_tpu_torch/`` and not
+``chip_smoke.py`` imports JAX or the JAX package; the package imports with
+JAX blocked; and without CUDA every entry point refuses to run unless the
+caller asks for the CPU."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "mxnet_tpu_torch")
+
+
+def _port_sources():
+    for root, dirs, files in os.walk(PORT):
+        if "_build" in dirs:  # build outputs, not sources
+            dirs.remove("_build")
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(_port_sources()),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_import(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "mxnet_tpu"}, roots
+
+
+def test_package_imports_with_jax_blocked():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['mxnet_tpu'] = None; "
+            "import mxnet_tpu_torch, mxnet_tpu_torch.models.bert, "
+            "mxnet_tpu_torch.serve, mxnet_tpu_torch.ops.cuda._build; "
+            "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_without_cuda_entry_points_raise(monkeypatch):
+    from mxnet_tpu_torch.base import DeviceError, resolve_device
+    from mxnet_tpu_torch.models.bert import BERTModel
+    from mxnet_tpu_torch.serve import ModelServer
+    from torch_port_helpers import SMALL_BERT
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceError):
+        resolve_device()
+    with pytest.raises(DeviceError):
+        resolve_device("cuda")
+    model = BERTModel(**SMALL_BERT)
+    with pytest.raises(DeviceError):
+        model.initialize()
+    model.initialize(device="cpu")
+    with pytest.raises(DeviceError):
+        ModelServer(model, [((8,), "int32")] * 2 + [((), "int32")],
+                    buckets=(1,))

@@ -1,0 +1,99 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+On the CPU each wrapper takes its kernel's plain PyTorch version (the CUDA
+kernels run only on the card, where ``chip_smoke.py`` holds them against
+these same plain versions); the JAX side runs its Pallas kernels in
+interpret mode, as tests/test_kernels.py does. Tolerances: fp32 1e-4, bf16
+0.05 absolute (tests/test_kernels.py).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu.ops.pallas.flash_attention import _flash_fwd
+from mxnet_tpu.ops.pallas.layernorm import fused_layernorm as jax_ln
+from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+from mxnet_tpu_torch.ops.cuda import layernorm as ln
+
+_DT = {"float32": (jnp.float32, torch.float32, 1e-4),
+       "bfloat16": (jnp.bfloat16, torch.bfloat16, 0.05)}
+
+
+def _pair(arr, dtype):
+    """The same numpy values as a JAX array and a torch CPU tensor."""
+    jdt, tdt, _ = _DT[dtype]
+    return jnp.asarray(arr, jdt), torch.from_numpy(arr).to(tdt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [256, 200])
+@pytest.mark.parametrize("eps", [1e-5, 1e-12])
+def test_layernorm_matches_pallas(dtype, C, eps):
+    rng = np.random.RandomState(C)
+    x = (rng.randn(64, C) * 3 + 1).astype(np.float32)
+    g = rng.randn(C).astype(np.float32)
+    b = rng.randn(C).astype(np.float32)
+    jx, tx = _pair(x, dtype)
+    want = jax_ln(jx, jnp.asarray(g), jnp.asarray(b), eps, interpret=True)
+    got = ln.fused_layernorm(tx, torch.from_numpy(g), torch.from_numpy(b), eps)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=_DT[dtype][2], rtol=0)
+
+
+def test_layernorm_wrapper_counts_only_kernel_launches():
+    x = torch.randn(8, 32)
+    before = ln.fused_layernorm.launches
+    ln.fused_layernorm(x, torch.ones(32), torch.zeros(32))
+    assert ln.fused_layernorm.launches == before  # CPU: plain version
+
+
+def _qkv(seed, B, H, T, D, dtype):
+    rng = np.random.RandomState(seed)
+    arrs = [rng.randn(B, H, T, D).astype(np.float32) for _ in range(3)]
+    return [_pair(a, dtype) for a in arrs]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("with_vl", [False, True])
+@pytest.mark.parametrize("return_lse", [False, True])
+def test_flash_forward_matches_pallas(causal, with_vl, return_lse):
+    B, H, T, D = 3, 2, 128, 64
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(1, B, H, T, D, "float32")
+    vl = np.array([0, 37, 128], np.int32) if with_vl else None
+    scale = 1.0 / D ** 0.5
+    want = _flash_fwd(jq, jk, jv, None if vl is None else jnp.asarray(vl),
+                      scale, causal, 64, 64, interpret=True,
+                      return_lse=return_lse)
+    got = fa.flash_attention(tq, tk, tv, causal=causal, scale=scale,
+                             kv_valid_len=None if vl is None
+                             else torch.from_numpy(vl),
+                             return_lse=return_lse)
+    if return_lse:
+        (want, want_lse), (got, got_lse) = want, got
+        assert got_lse.shape == want_lse.shape == (B * H, T, 1)
+        np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                                   rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=0)
+    if with_vl:  # vl = 0 gives exact zeros, as the TPU kernel does
+        assert not got[0].any()
+
+
+@pytest.mark.parametrize("T,D", [(200, 64), (128, 128)])
+def test_flash_forward_bf16_ragged_and_wide_head(T, D):
+    """T = 200 (no power-of-two tile divides it) and D = 128; the Pallas
+    kernel takes T = 200 as one whole block."""
+    B, H = 2, 2
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(2, B, H, T, D, "bfloat16")
+    vl = np.array([T, 77], np.int32)
+    scale = 1.0 / D ** 0.5
+    want = _flash_fwd(jq, jk, jv, jnp.asarray(vl), scale, False, T, T,
+                      interpret=True)
+    got = fa.flash_attention(tq, tk, tv, scale=scale,
+                             kv_valid_len=torch.from_numpy(vl))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=0.05, rtol=0)

@@ -1,0 +1,68 @@
+"""Shared pieces of the PyTorch port's parity tests (tests/test_torch_port_*).
+
+Inputs are made from a seed with numpy and handed to both packages; the JAX
+package runs on the CPU as its own tests run it. Tolerances follow
+tests/test_kernels.py: fp32 1e-4, bf16 0.05 absolute.
+"""
+import jax
+import jax._src.core as _jax_core
+import numpy as np
+import pytest
+
+# a small BERT: 2 layers, 128 units, 2 heads of 64, FFN 256
+SMALL_BERT = dict(vocab_size=1000, units=128, hidden_size=256, num_layers=2,
+                  num_heads=2, max_length=64)
+SEQ = 64
+
+
+@pytest.fixture
+def jax_trace_state(monkeypatch):
+    """The JAX package reads ``jax.core.trace_state_clean``, which newer
+    jax releases keep only under ``jax._src.core``; expose it there for the
+    duration of a test (the package itself is left as it is)."""
+    if not hasattr(jax.core, "trace_state_clean"):
+        monkeypatch.setattr(jax.core, "trace_state_clean",
+                            _jax_core.trace_state_clean, raising=False)
+
+
+def bert_inputs(seed, batch, seq=SEQ, vocab=SMALL_BERT["vocab_size"]):
+    """(tokens, token_types, valid_length) int32, valid lengths in [1, seq]."""
+    rng = np.random.RandomState(seed)
+    tok = rng.randint(0, vocab, (batch, seq)).astype(np.int32)
+    tt = rng.randint(0, 2, (batch, seq)).astype(np.int32)
+    vl = rng.randint(1, seq + 1, (batch,)).astype(np.int32)
+    vl[0] = seq
+    return tok, tt, vl
+
+
+def jax_bert(bf16):
+    """The JAX package's small BERT, initialized, optionally bf16 via amp."""
+    from mxnet_tpu import amp
+    from mxnet_tpu.models.bert import BERTModel
+
+    model = BERTModel(**SMALL_BERT)
+    model.initialize()
+    if bf16:
+        amp.convert_hybrid_block(model, "bfloat16")
+    return model
+
+
+def jax_params(model):
+    return {p.name: np.asarray(p.data()._data)
+            for p in model.collect_params().values()}
+
+
+def port_bert_from(jmodel):
+    """The port's small BERT on the CPU, weights carried from ``jmodel``."""
+    from mxnet_tpu_torch.convert import from_jax_params
+    from mxnet_tpu_torch.models.bert import BERTModel
+
+    return from_jax_params(BERTModel(**SMALL_BERT), jax_params(jmodel))
+
+
+def assert_rows_close(a, b, vl, atol, rtol=0.0):
+    """Compare (B, T, ...) outputs on each example's real rows only."""
+    for i, n in enumerate(vl):
+        np.testing.assert_allclose(np.asarray(b[i, :n], np.float32),
+                                   np.asarray(a[i, :n], np.float32),
+                                   atol=atol, rtol=rtol)
