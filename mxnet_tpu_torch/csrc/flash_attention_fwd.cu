@@ -29,58 +29,17 @@
 //   multiple of 64) is zero-filled and masked, so no divisibility rule.
 // wgmma, TMA and a pipelined K/V ring are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
+using namespace flash;
+
 constexpr int kBM = 64;     // query rows per block
 constexpr int kBN = 64;     // keys per K/V tile
-constexpr int kWarps = 4;   // 16 query rows per warp
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> bf16x2, `lo` in the low half (the lower column index)
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Fragment layout of mma.m16n8k16 (lane = 4*g + t): A holds rows g and g+8,
-// columns 2t, 2t+1 and 2t+8, 2t+9; B holds k rows 2t, 2t+1 and 2t+8, 2t+9 of
-// column g; C holds rows g and g+8, columns 2t and 2t+1.
 template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
@@ -115,14 +74,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + (size_t)bh * tk * D;
 
   uint32_t qa[kChunks][4];
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const int col = c * 16 + 2 * t;
-    qa[c][0] = r0 < tq ? load_pair(qb + (size_t)r0 * D + col) : 0u;
-    qa[c][1] = r1 < tq ? load_pair(qb + (size_t)r1 * D + col) : 0u;
-    qa[c][2] = r0 < tq ? load_pair(qb + (size_t)r0 * D + col + 8) : 0u;
-    qa[c][3] = r1 < tq ? load_pair(qb + (size_t)r1 * D + col + 8) : 0u;
-  }
+  load_a_rows<D>(qa, qb, r0, r1, tq, t);
 
   float acc[kDTiles][4];
 #pragma unroll
@@ -131,18 +83,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   float l0 = 0.f, l1 = 0.f;              // this lane's share of the denominators
 
   for (int n0 = 0; n0 < kv_end; n0 += kBN) {
-    for (int i = threadIdx.x; i < kBN * (D / 8); i += kWarps * 32) {
-      const int row = i / (D / 8);
-      const int c8 = (i % (D / 8)) * 8;
-      uint4 kx = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vx = kx;
-      if (n0 + row < tk) {
-        kx = *reinterpret_cast<const uint4*>(kb + (size_t)(n0 + row) * D + c8);
-        vx = *reinterpret_cast<const uint4*>(vb + (size_t)(n0 + row) * D + c8);
-      }
-      *reinterpret_cast<uint4*>(ks + row * kPitch + c8) = kx;
-      *reinterpret_cast<uint4*>(vs + row * kPitch + c8) = vx;
-    }
+    load_tile<D, kBN>(ks, kb, n0, tk);
+    load_tile<D, kBN>(vs, vb, n0, tk);
     __syncthreads();
 
     float s[kNTiles][4];

@@ -7,7 +7,8 @@ Name scopes and prefixes follow the JAX package exactly (an auto-named root
 gets ``<classname><n>_``, children nest under their parent's prefix), so a
 model's parameter names match the JAX package's one to one up to the root's
 counter. The port runs eagerly: there is no trace, and ``hybridize`` is a
-no-op kept for API parity.
+no-op kept for API parity. A forward builds a torch autograd graph only
+inside ``autograd.record()``, as in MXNet.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from collections import OrderedDict
 
 import torch
 
-from .. import ops
+from .. import autograd, ops
 from ..base import resolve_device
 from .parameter import Parameter, ParameterDict
 
@@ -195,8 +196,9 @@ class HybridBlock(Block):
 
     def forward(self, *args, **kwargs):
         self._ensure_params(*args)
-        pkwargs = {n: param_value(p) for n, p in self._reg_params.items()}
-        return self.hybrid_forward(ops.F, *args, **pkwargs, **kwargs)
+        with torch.set_grad_enabled(autograd.is_recording()):
+            pkwargs = {n: param_value(p) for n, p in self._reg_params.items()}
+            return self.hybrid_forward(ops.F, *args, **pkwargs, **kwargs)
 
     def hybrid_forward(self, F, *args, **kwargs):
         raise NotImplementedError

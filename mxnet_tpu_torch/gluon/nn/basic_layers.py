@@ -3,6 +3,7 @@ JAX package's ``mxnet_tpu/gluon/nn/basic_layers.py``), with the same
 parameter names and defaults."""
 from __future__ import annotations
 
+from ... import autograd
 from ..block import HybridBlock
 
 __all__ = ["HybridSequential", "Dense", "Dropout", "Embedding", "LayerNorm",
@@ -68,12 +69,19 @@ class Dense(HybridBlock):
 
 
 class Dropout(HybridBlock):
+    """Inverted dropout while ``autograd`` is in training mode (inside
+    ``record()``), the identity otherwise; the mask comes from
+    ``random.generator(x.device)``."""
+
     def __init__(self, rate, axes=(), **kwargs):
         super().__init__(**kwargs)
+        if axes:
+            raise NotImplementedError("Dropout with shared axes is not "
+                                      "ported yet")
         self._rate = rate
 
     def hybrid_forward(self, F, x):
-        return F.Dropout(x, p=self._rate)
+        return F.Dropout(x, p=self._rate, training=autograd.is_training())
 
 
 class Embedding(HybridBlock):

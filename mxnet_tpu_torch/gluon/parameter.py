@@ -4,6 +4,13 @@ python/mxnet/gluon/parameter.py; the JAX package's
 
 A Parameter owns one tensor on one device. Deferred initialization works as
 in MXNet: a dimension declared 0 is inferred at the first forward.
+
+The tensor is a leaf that requires grad unless ``grad_req`` is ``"null"``,
+and stays one through ``set_data``, ``cast`` and ``reset_device``; it
+carries a gradient of zeros from the start, as MXNet's ``attach_grad``
+does. ``autograd.backward`` stores gradients by ``grad_req``: ``"write"``
+replaces the gradient, ``"add"`` adds to it (torch itself would always
+add).
 """
 from __future__ import annotations
 
@@ -11,8 +18,11 @@ from collections import OrderedDict
 
 import torch
 
+from .. import autograd
 from .. import initializer as init_mod
 from ..base import resolve_device, resolve_dtype
+
+GRAD_REQS = ("write", "add", "null")
 
 
 class DeferredInitializationError(RuntimeError):
@@ -23,13 +33,36 @@ class Parameter:
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  init=None, allow_deferred_init=False):
         self.name = name
+        self._data = None
+        self._grad_req = "null"
         self.grad_req = grad_req
         self._shape = tuple(shape) if shape is not None else None
         self.dtype = resolve_dtype(dtype)
         self.init = init
         self.allow_deferred_init = allow_deferred_init
-        self._data = None
         self._deferred_init = None  # (initializer, device, generator)
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in GRAD_REQS:
+            raise ValueError("grad_req must be one of %s, got %r"
+                             % (GRAD_REQS, req))
+        self._grad_req = req
+        if self._data is not None:
+            self._attach(self._data)
+
+    def _attach(self, tensor):
+        """Hold ``tensor`` (detached) as this parameter's leaf, requiring
+        grad with a zero gradient unless ``grad_req`` is ``"null"``."""
+        leaf = tensor.detach()
+        if self._grad_req != "null":
+            leaf.requires_grad_(True)
+            leaf.grad = torch.zeros_like(leaf)
+        self._data = leaf
 
     @property
     def shape(self):
@@ -69,8 +102,8 @@ class Parameter:
         if self._deferred_init is None:
             return
         initializer, device, generator = self._deferred_init
-        self._data = initializer(self.name, self._shape, self.dtype, device,
-                                 generator)
+        self._attach(initializer(self.name, self._shape, self.dtype, device,
+                                 generator))
         self._deferred_init = None
 
     def data(self):
@@ -81,7 +114,28 @@ class Parameter:
                 raise DeferredInitializationError(
                     "Parameter %s not initialized (call .initialize(), and "
                     "ensure its shape is inferable)" % self.name)
+        autograd.read_param(self, self._data)
         return self._data
+
+    def grad(self):
+        """The gradient tensor (None when ``grad_req`` is ``"null"``)."""
+        return self.data().grad
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def zero_grad(self):
+        """Reset the gradient to zeros (a fresh tensor: a gradient may be
+        shared with another parameter's)."""
+        if self._data is not None and self._data.grad is not None:
+            self._data.grad = torch.zeros_like(self._data)
+
+    def _store_grad(self, g):
+        """Store a gradient from ``autograd.backward`` by ``grad_req``."""
+        if self._grad_req == "add" and self._data.grad is not None:
+            self._data.grad = self._data.grad + g
+        else:
+            self._data.grad = g
 
     @property
     def device(self):
@@ -97,18 +151,21 @@ class Parameter:
                              "parameter shape is %s"
                              % (self.name, tuple(data.shape), self._shape))
         device = data.device if self._data is None else self._data.device
-        self._data = data.to(device=device, dtype=self.dtype)
+        value = data.to(device=device, dtype=self.dtype)
+        # the optimizer updates the stored tensor in place: never alias the
+        # caller's
+        self._attach(value.clone() if value is data else value)
         self._shape = tuple(data.shape)
         self._deferred_init = None
 
     def reset_device(self, device):
         if self._data is not None:
-            self._data = self._data.to(resolve_device(device))
+            self._attach(self._data.to(resolve_device(device)))
 
     def cast(self, dtype):
         self.dtype = resolve_dtype(dtype)
         if self._data is not None:
-            self._data = self._data.to(self.dtype)
+            self._attach(self._data.to(self.dtype))
 
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self._shape,
@@ -171,6 +228,10 @@ class ParameterDict:
         for p in self.values():
             p.initialize(None, device, default_init=init, generator=generator,
                          force_reinit=force_reinit)
+
+    def zero_grad(self):
+        for p in self.values():
+            p.zero_grad()
 
     def reset_device(self, device):
         for p in self.values():

@@ -1,10 +1,14 @@
 """Attention seam (counterpart of ``mxnet_tpu/ops/attention.py``).
 
 Models call ``F.scaled_dot_attention``. It routes to the flash-attention
-forward (``ops/cuda/flash_attention.py``) when the sequence is long enough,
+kernels (``ops/cuda/flash_attention.py``) when the sequence is long enough,
 the mask is absent or a declared key-padding prefix, and the operands are
 bfloat16 with a head dim the kernel takes; everything else takes the dense
-path, which keeps the JAX package's ``_dense_attention_fwd`` numerics.
+path, which keeps the JAX package's ``_dense_attention_fwd`` numerics and
+its hand-written backward ``_dense_attention_bwd``. When autograd records
+(a grad-enabled call with an operand that requires grad), the flash path
+takes the differentiable op, whose forward also writes the logsumexp;
+otherwise, as in serving, it launches the forward alone.
 
 The flash threshold is the port's own. It starts at the JAX package's
 static pre-sweep value, 256, so BERT at seq 512 goes through the kernel;
@@ -18,7 +22,8 @@ import math
 import torch
 
 from ..base import register_op
-from .cuda.flash_attention import HEAD_DIMS, flash_attention
+from .cuda.flash_attention import (HEAD_DIMS, flash_attention,
+                                   flash_attention_with_grad)
 
 FLASH_MIN_LEN = 256
 FLASH_DTYPES = (torch.bfloat16,)
@@ -39,20 +44,47 @@ def _mask_bias(mask, causal, T, S, device):
     return bias
 
 
+class _DenseAttention(torch.autograd.Function):
+    """The JAX package's ``_dense_attention_core`` with its hand-written
+    VJP. Products take bf16 operands and accumulate in fp32 (here by
+    upcasting the operands: a product of two bf16 values is exact in
+    fp32)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        # scale applies to the fp32 logits; softmax in fp32; p cast to v's
+        # dtype before the second product
+        s = scale * torch.matmul(q.float(), k.float().transpose(-1, -2))
+        if bias is not None:
+            s = s + bias
+        pb = torch.softmax(s, dim=-1).to(v.dtype)
+        ctx.save_for_backward(q, k, v, pb)
+        ctx.scale = scale
+        return torch.matmul(pb.float(), v.float()).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, do):
+        # softmax-grad math in fp32, then one cast of ds * scale down to q's
+        # dtype before the dq and dk products; p stays in v's dtype for dv
+        q, k, v, pb = ctx.saved_tensors
+        do = do.to(v.dtype).float()
+        pf = pb.float()
+        dv = torch.matmul(pf.transpose(-1, -2), do).to(v.dtype)
+        dp = torch.matmul(do, v.float().transpose(-1, -2))
+        ds = pf * (dp - (dp * pf).sum(dim=-1, keepdim=True))
+        dsb = (ds * ctx.scale).to(q.dtype).float()
+        dq = torch.matmul(dsb, k.float()).to(q.dtype)
+        dk = torch.matmul(dsb.transpose(-1, -2), q.float()).to(k.dtype)
+        return dq, dk, dv, None, None
+
+
 def dense_attention(q, k, v, mask=None, causal=False, scale=None):
-    """softmax(scale * q k^T + bias) v with the JAX package's dense numerics:
-    products accumulate in fp32 (here by upcasting the operands), the scale
-    applies to the fp32 logits, softmax is fp32, and p is cast to v's dtype
-    before the second product."""
+    """softmax(scale * q k^T + bias) v with the JAX package's dense numerics
+    (:class:`_DenseAttention`), differentiable in q, k and v."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    s = scale * torch.matmul(q.float(), k.float().transpose(-1, -2))
     bias = _mask_bias(mask, causal, q.shape[-2], k.shape[-2], q.device)
-    if bias is not None:
-        s = s + bias
-    p = torch.softmax(s, dim=-1)
-    out = torch.matmul(p.to(v.dtype).float(), v.float())
-    return out.to(q.dtype)
+    return _DenseAttention.apply(q, k, v, bias, float(scale))
 
 
 def _prefix_mask_to_valid_len(mask):
@@ -79,6 +111,10 @@ def scaled_dot_attention(q, k, v, mask=None, *, causal=False, scale=None,
     the valid length recovered from the mask."""
     if takes_flash(q, mask, prefix_mask):
         vl = None if mask is None else _prefix_mask_to_valid_len(mask)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return flash_attention_with_grad(q, k, v, causal=causal,
+                                             scale=scale, kv_valid_len=vl)
         return flash_attention(q, k, v, causal=causal, scale=scale,
                                kv_valid_len=vl)
     return dense_attention(q, k, v, mask, causal=causal, scale=scale)

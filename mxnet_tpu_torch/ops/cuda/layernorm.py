@@ -5,6 +5,11 @@ The kernel is ``mxnet_tpu_torch/csrc/layernorm.cu`` (why it is shaped as it
 is, and what bounds it, is written there). :func:`fused_layernorm` takes the
 plain version for a CPU tensor and launches the kernel for a CUDA tensor, or
 raises; it never falls back from the card to the plain version.
+
+:func:`layernorm` is the differentiable op (the JAX ``layernorm``
+``custom_vjp``): the kernel forward, and the JAX package's analytic backward
+``_ln_bwd``, which is XLA outside any Pallas kernel there and PyTorch ops
+here (:func:`layernorm_bwd`).
 """
 from __future__ import annotations
 
@@ -63,3 +68,42 @@ def fused_layernorm(x, gamma, beta, eps=1e-5):
 
 
 fused_layernorm.launches = 0  # kernel launches since the last reset
+
+
+def layernorm_bwd(x, gamma, dy, eps):
+    """The JAX package's ``_ln_bwd`` in PyTorch: fp32 statistics recomputed
+    from x, dx in x's dtype, dgamma and dbeta (sums over rows) in gamma's
+    dtype."""
+    xf = x.float()
+    dyf = dy.float()
+    gf = gamma.float()
+    m = xf.mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt((xf - m).square().mean(dim=-1, keepdim=True) + eps)
+    xhat = (xf - m) * inv
+    dg = (dyf * xhat).sum(dim=0)
+    db = dyf.sum(dim=0)
+    t = dyf * gf
+    dx = inv * (t - t.mean(dim=-1, keepdim=True)
+                - xhat * (t * xhat).mean(dim=-1, keepdim=True))
+    return dx.to(x.dtype), dg.to(gamma.dtype), db.to(gamma.dtype)
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return fused_layernorm(x, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma = ctx.saved_tensors
+        # a profiler range, so a trace can sum this backward's kernels
+        with torch.profiler.record_function("mxnet_tpu_torch::layernorm_bwd"):
+            dx, dg, db = layernorm_bwd(x, gamma, dy, ctx.eps)
+        return dx, dg, db, None
+
+
+def layernorm(x, gamma, beta, eps=1e-5):
+    """:func:`fused_layernorm`, differentiable in x, gamma and beta."""
+    return _LayerNorm.apply(x, gamma, beta, eps)

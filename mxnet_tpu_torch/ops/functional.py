@@ -1,19 +1,23 @@
-"""Functional ops BERT inference needs (counterpart of
+"""Functional ops BERT inference and training need (counterpart of
 ``mxnet_tpu/ops/functional.py``), as eager PyTorch.
 
 ``hybrid_forward(F, ...)`` receives this module as ``F``. Each op keeps the
 JAX op's name, arguments and dtype rules. The dense products go to
-``torch.matmul``, as the JAX package left them to XLA; LayerNorm goes to the
-port's CUDA kernel for CUDA tensors (``ops/cuda/layernorm.py``), and the
-attention seam lives in ``ops/attention.py``.
+``torch.matmul``, as the JAX package left them to XLA; LayerNorm and the
+sparse-label softmax cross-entropy go to the port's CUDA kernels for CUDA
+tensors (``ops/cuda/layernorm.py``, ``ops/cuda/softmax_xent.py``), and the
+attention seam lives in ``ops/attention.py``. Every op is differentiable
+under ``autograd.record()``.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import random as _random
 from ..base import register_op, resolve_device, resolve_dtype
 from .attention import scaled_dot_attention  # noqa: F401  (F.scaled_dot_attention)
-from .cuda.layernorm import fused_layernorm
+from .cuda.layernorm import layernorm
+from .cuda.softmax_xent import softmax_xent
 
 
 @register_op("FullyConnected")
@@ -32,11 +36,32 @@ def FullyConnected(x, weight, bias=None, *, num_hidden=None, no_bias=False,
     return y
 
 
+class _Embedding(torch.autograd.Function):
+    """Row gather whose backward sums the rows' gradients in fp32 and casts
+    once to the table's dtype. A bf16 accumulator (or bf16 atomics on the
+    card) drops increments once a row is hit thousands of times, as BERT's
+    token-type row 0 is (every token of the batch)."""
+
+    @staticmethod
+    def forward(ctx, flat, weight):
+        ctx.save_for_backward(flat)
+        ctx.table = (weight.shape, weight.dtype)
+        return weight.index_select(0, flat)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (flat,) = ctx.saved_tensors
+        shape, dtype = ctx.table
+        acc = torch.zeros(shape, dtype=torch.float32, device=grad.device)
+        acc.index_add_(0, flat, grad.to(torch.float32))
+        return None, acc.to(dtype)
+
+
 @register_op("Embedding")
 def Embedding(indices, weight, *, input_dim=None, output_dim=None, dtype=None,
               sparse_grad=False):
     flat = indices.reshape(-1).to(torch.int64)
-    return weight.index_select(0, flat).reshape(
+    return _Embedding.apply(flat, weight).reshape(
         tuple(indices.shape) + (weight.shape[1],))
 
 
@@ -51,17 +76,21 @@ def LayerNorm(x, gamma, beta, *, axis=-1, eps=1e-5):
                          % (tuple(gamma.shape),))
     xt = x.movedim(axis, -1)
     C = xt.shape[-1]
-    y = fused_layernorm(xt.reshape(-1, C).contiguous(), gamma, beta, eps)
+    y = layernorm(xt.reshape(-1, C).contiguous(), gamma, beta, eps)
     return y.reshape(xt.shape).movedim(-1, axis)
 
 
 @register_op("Dropout")
 def Dropout(x, *, p=0.5, training=False, mode="training"):
-    """Identity: the port serves in eval mode only (training is the next
-    slice)."""
-    if training and p > 0.0:
-        raise NotImplementedError("training-mode dropout is not ported yet")
-    return x
+    """Inverted dropout in training mode, the identity otherwise: the JAX
+    op's ``where(mask, x / keep, 0)`` in x's dtype, with the keep mask drawn
+    from ``random.generator(x.device)``."""
+    if not training or p <= 0.0:
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, device=x.device,
+                      generator=_random.generator(x.device)) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 
 @register_op("Activation")
@@ -139,3 +168,49 @@ def dot(a, b, *, transpose_a=False, transpose_b=False):
 @register_op("cast")
 def cast(x, *, dtype):
     return x.to(resolve_dtype(dtype))
+
+
+def _dims(axis):
+    return tuple(axis) if isinstance(axis, (tuple, list)) else axis
+
+
+@register_op("sum")
+def sum(x, *, axis=None, keepdims=False):
+    if axis is None:
+        return x.sum()
+    return x.sum(dim=_dims(axis), keepdim=keepdims)
+
+
+@register_op("mean")
+def mean(x, *, axis=None, keepdims=False):
+    if axis is None:
+        return x.mean()
+    return x.mean(dim=_dims(axis), keepdim=keepdims)
+
+
+@register_op("pick")
+def pick(x, index, *, axis=-1, keepdims=False):
+    idx = index.to(torch.int64).unsqueeze(axis)
+    out = torch.take_along_dim(x, idx, dim=axis)
+    return out if keepdims else out.squeeze(axis)
+
+
+@register_op("log_softmax")
+def log_softmax(x, *, axis=-1):
+    return torch.log_softmax(x, dim=axis)
+
+
+@register_op("softmax_xent_rows")
+def softmax_xent_rows(logits, labels, *, axis=-1):
+    """Per-row sparse-label NLL under softmax: logits (..., V) along
+    ``axis``, int labels shaped like logits minus that axis; fp32 NLLs in
+    the labels' shape. The rows go through the softmax-xent kernel wrapper
+    (``ops/cuda/softmax_xent.py``), fp32 inside whatever the logits'
+    dtype, as the JAX op's kernel gate does."""
+    axis = axis % logits.dim()
+    if axis != logits.dim() - 1:
+        logits = logits.movedim(axis, -1)
+    rows_shape = logits.shape[:-1]
+    flat = logits.reshape(-1, logits.shape[-1])
+    lab = labels.to(torch.int32).reshape(-1)
+    return softmax_xent(flat, lab).reshape(rows_shape)

@@ -1,0 +1,44 @@
+"""Random state (counterpart of ``mxnet_tpu/random.py``), the part this
+slice needs: :func:`seed` and the per-device ``torch.Generator`` that
+random draws on a device (``Dropout``'s mask) come from.
+
+As in the JAX package the state is per thread: one seed, and on each device
+a generator seeded from it at first use. The bits differ from JAX's
+threefry for the same seed; tests hand both packages the same numbers, or
+compare distributions.
+"""
+from __future__ import annotations
+
+import threading
+
+import torch
+
+__all__ = ["seed", "generator"]
+
+_state = threading.local()
+
+
+def _generators():
+    if not hasattr(_state, "generators"):
+        _state.seed = 0
+        _state.generators = {}
+    return _state.generators
+
+
+def seed(seed_state):
+    """Seed this thread's generators, on every device."""
+    _generators().clear()
+    _state.seed = int(seed_state)
+
+
+def generator(device):
+    """The generator of ``device`` on this thread (made at first use from
+    the current seed)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    gens = _generators()
+    gen = gens.get(dev)
+    if gen is None:
+        gen = gens[dev] = torch.Generator(device=dev).manual_seed(_state.seed)
+    return gen
