@@ -15,10 +15,13 @@ Run from the root of a checkout on a machine with a CUDA card. It
 4. holds the softmax cross-entropy forward and backward kernels against
    their plain versions ((1280, 30522) bf16, (16, 2), (37, 1000) fp32, a
    label in the last column);
-5. holds the flash-attention dq and dk/dv kernels against their plain
-   versions (every key valid at (16, 12, 512, 64), valid lengths with 0,
-   causal, ragged T = 200, head dim 128), and checks that dk and dv rows
-   past the valid length are exactly zero;
+5. holds the flash-attention backward kernel (dq, dk and dv from one
+   kernel and its dq pass) against its plain version (every key valid at
+   (16, 12, 512, 64), valid lengths with 0, causal, ragged T = 200, head
+   dim 128, 30 key tiles adding into each dq row at T = 2048), checks that
+   dk and dv rows past the valid length are exactly zero, and runs the
+   bert512 case twice to read how far dq moves between runs (its partial
+   sums land in no fixed order);
 6. serves BERT-base (full width, bf16, random weights from a seed) through
    ``ModelServer(buckets=(1, 4, 8))`` at seq 512: 16 requests with valid
    lengths spread over 1..512; every served row must match a direct forward
@@ -33,9 +36,9 @@ Run from the root of a checkout on a machine with a CUDA card. It
    0.01, dropout 0.1, MLM + NSP loss) through ``autograd.record``,
    ``autograd.backward`` and ``gluon.Trainer.step``: the loss stays finite
    and the weights move; the kernel counters rise by exactly 26 LayerNorm,
-   12 flash forward, 12 dq, 12 dk/dv, 2 softmax-xent forward and 2 backward
-   launches a step; one step's loss and every gradient agree with the same
-   step run with the plain versions (no kernel may launch in that one),
+   12 flash forward, 12 flash backward, 2 softmax-xent forward and 2
+   backward launches a step; one step's loss and every gradient agree with
+   the same step run with the plain versions (no kernel may launch in it),
    and the same plain step with planted faults (LayerNorm gamma 1 % high,
    dk/dv missing a query tile) must fail the gradient limit; it times the
    step (samples/s);
@@ -43,8 +46,10 @@ Run from the root of a checkout on a machine with a CUDA card. It
    attention takes the dense path and its hand-written backward;
 9. times each kernel (CUDA-graph replay) at the bert512 step's shapes
    against its plain version, its PyTorch library yardstick and its bound
-   (the two forward kernels also at a served bucket-8 forward's shapes),
-   and dense against flash attention at seq 128 and 512;
+   (the two forward kernels also at a served bucket-8 forward's shapes;
+   the flash backward also at head dim 128), dense against flash attention
+   at seq 128 and 512, and dense against flash forward plus backward at
+   seq 64, 128, 256 and 512;
 10. breaks one serving forward at the largest bucket down (host wall, the
     executor's whole dispatch, a new thread's first dispatches, kernel time
     by class from torch.profiler, hence the device's idle share), then one
@@ -120,8 +125,8 @@ TIMED_STEPS = 6
 # kernel launches a training step (26 LayerNorms: embeddings, 2 x 12
 # layers, the MLM head; 12 attention layers; MLM and NSP losses)
 STEP_LAUNCHES = {"layernorm": 26, "flash_attention_fwd": 12,
-                 "flash_attention_dq": 12, "flash_attention_dkv": 12,
-                 "softmax_xent_fwd": 2, "softmax_xent_bwd": 2}
+                 "flash_attention_bwd": 12, "softmax_xent_fwd": 2,
+                 "softmax_xent_bwd": 2}
 
 
 class SmokeFailure(RuntimeError):
@@ -212,8 +217,7 @@ def kernel_counters():
 
     return {"layernorm": ln.fused_layernorm,
             "flash_attention_fwd": fa.flash_attention,
-            "flash_attention_dq": fa.flash_attention_dq,
-            "flash_attention_dkv": fa.flash_attention_dkv,
+            "flash_attention_bwd": fa.flash_attention_bwd,
             "softmax_xent_fwd": sx.softmax_xent_fwd,
             "softmax_xent_bwd": sx.softmax_xent_bwd}
 
@@ -249,8 +253,7 @@ class plain_versions:
                 (ln, "fused_layernorm", ln.layernorm_plain),
                 (attention, "flash_attention", flash_plain),
                 (fa, "flash_attention", flash_plain),
-                (fa, "flash_attention_dq", fa.flash_attention_dq_plain),
-                (fa, "flash_attention_dkv", fa.flash_attention_dkv_plain),
+                (fa, "flash_attention_bwd", fa.flash_attention_bwd_plain),
                 (sx, "softmax_xent_fwd", sx.softmax_xent_fwd_plain),
                 (sx, "softmax_xent_bwd", sx.softmax_xent_bwd_plain)):
             self._saved.append((mod, name, getattr(mod, name)))
@@ -428,10 +431,12 @@ def flash_bwd_inputs(dev, g, B, H, T, D, vl=None, causal=False):
 
 
 def phase_flash_bwd(dev):
-    """The flash dq and dk/dv kernels against their plain versions; the
-    first case is the main path's shape with every key valid. Rows of dk
-    and dv past an example's valid length must be exactly zero, and dq of
-    a vl = 0 example too."""
+    """The flash backward kernel against its plain version; the first case
+    is the main path's shape with every key valid. Rows of dk and dv past an
+    example's valid length must be exactly zero, and dq of a vl = 0 example
+    too. The bert512 case runs again on the same inputs: dq's partial sums
+    land in no fixed order, and the two runs must agree within the same
+    limit."""
     import torch
     from mxnet_tpu_torch.ops.cuda import flash_attention as fa
 
@@ -446,6 +451,8 @@ def phase_flash_bwd(dev):
         ("ragged T=200", (3, 4, 200, 64), False, [200, 0, 77]),
         ("D=128", (2, 8, 256, 128), False, [256, 100]),
         ("D=128 causal ragged", (2, 4, 200, 128), True, [200, 150]),
+        # 30 key tiles of 64 add into each dq row
+        ("T=2048 vl", (1, 4, 2048, 64), False, [1900]),
     ]
     for name, (B, H, T, D), causal, vl in cases:
         vlt = None if vl is None else torch.tensor(vl, dtype=torch.int32,
@@ -454,11 +461,9 @@ def phase_flash_bwd(dev):
                                                    causal)
         args = (q, k, v, do, lse, delta)
         kw = {"kv_valid_len": vlt, "causal": causal}
-        dq = fa.flash_attention_dq(*args, **kw)
-        dk, dv = fa.flash_attention_dkv(*args, **kw)
+        dq, dk, dv = fa.flash_attention_bwd(*args, **kw)
         torch.cuda.synchronize()
-        ref_dq = fa.flash_attention_dq_plain(*args, **kw)
-        ref_dk, ref_dv = fa.flash_attention_dkv_plain(*args, **kw)
+        ref_dq, ref_dk, ref_dv = fa.flash_attention_bwd_plain(*args, **kw)
         mdq, mdk, mdv = flash_bwd_magnitudes(*args, vl=vlt, causal=causal)
         what = "flash bwd %s %s causal=%s vl=%s" % (name, (B, H, T, D),
                                                     causal, vl)
@@ -473,6 +478,18 @@ def phase_flash_bwd(dev):
                   "%s: dk/dv rows past vl=%d not exactly zero" % (what, n))
             if n == 0:
                 check(not bool(dq[b].any()), "%s: vl=0 dq not zero" % what)
+        if not readings:
+            # the same inputs again: only the order of dq's sums differs
+            dq2, dk2, dv2 = fa.flash_attention_bwd(*args, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+                  "%s: dk/dv differ between two runs" % what)
+            rerun = held(dq2, dq, FLASH_BWD_TOL, what + " dq run 2 vs run 1",
+                         mdq)
+            reading["dq_rerun"] = rerun
+            print("%s: max |dq run 2 - dq run 1| %.3g; %d of %d elements "
+                  "differ" % (what, rerun["max_abs_err"],
+                              int((dq2 != dq).sum()), dq.numel()), flush=True)
         readings.append(reading)
     print("flash bwd: dk and dv rows past every valid length are exactly 0",
           flush=True)
@@ -779,29 +796,35 @@ def grad_rel_l2(params, grads, ref_grads):
 
 def dq_last_tile_dropped(q, k, v, do, lse, delta, kv_valid_len=None,
                          scale=None, causal=False):
-    """A planted fault: the plain dq with each example's last 64 valid keys
-    (one K/V tile at vl 512) left out of the sum."""
+    """A planted fault: the plain backward with each example's last 64
+    valid keys (one key tile of the dq sum at vl 512) left out of dq."""
     import torch
     from mxnet_tpu_torch.ops.cuda import flash_attention as fa
 
     vl = kv_valid_len if kv_valid_len is not None else torch.full(
         (q.shape[0],), k.shape[2], dtype=torch.int32, device=q.device)
-    return fa.flash_attention_dq_plain(q, k, v, do, lse, delta,
-                                       (vl - 64).clamp(min=0), scale, causal)
+    dq = fa.flash_attention_dq_plain(q, k, v, do, lse, delta,
+                                     (vl - 64).clamp(min=0), scale, causal)
+    dk, dv = fa.flash_attention_dkv_plain(q, k, v, do, lse, delta,
+                                          kv_valid_len, scale, causal)
+    return dq, dk, dv
 
 
 def dkv_last_query_tile_dropped(q, k, v, do, lse, delta, kv_valid_len=None,
                                 scale=None, causal=False):
-    """A planted fault: the plain dk/dv with the last 64 query rows left out
-    of the sums."""
+    """A planted fault: the plain backward with the last 64 query rows left
+    out of the dk and dv sums."""
     from mxnet_tpu_torch.ops.cuda import flash_attention as fa
 
     B, H, T, _ = q.shape
     n = T - 64
-    return fa.flash_attention_dkv_plain(
+    dq = fa.flash_attention_dq_plain(q, k, v, do, lse, delta, kv_valid_len,
+                                     scale, causal)
+    dk, dv = fa.flash_attention_dkv_plain(
         q[:, :, :n], k, v, do[:, :, :n],
         lse.reshape(B * H, T, 1)[:, :n].contiguous(),
         delta.reshape(B, H, T)[:, :, :n], kv_valid_len, scale, causal)
+    return dq, dk, dv
 
 
 def layernorm_gamma_high(x, gamma, beta, eps):
@@ -827,9 +850,9 @@ PLANTED_FAULTS = {
     "LayerNorm gamma 1% high": (
         {"fused_layernorm": layernorm_gamma_high}, True),
     "dk/dv drop the last query tile": (
-        {"flash_attention_dkv": dkv_last_query_tile_dropped}, True),
+        {"flash_attention_bwd": dkv_last_query_tile_dropped}, True),
     "dq drops the last K/V tile": (
-        {"flash_attention_dq": dq_last_tile_dropped}, False),
+        {"flash_attention_bwd": dq_last_tile_dropped}, False),
     "softmax-xent dx 1% high": ({"softmax_xent_bwd": xent_dx_high}, False),
     "none (the plain step again)": ({}, False),
 }
@@ -933,8 +956,8 @@ def phase_train(dev):
 
 def _train_kernel_class(name):
     for key, cls in (("flash_fwd_kernel", "flash_attention_fwd"),
-                     ("flash_dq_kernel", "flash_attention_dq"),
-                     ("flash_dkv_kernel", "flash_attention_dkv"),
+                     # the backward kernel and its dq pass
+                     ("flash_bwd_", "flash_attention_bwd"),
                      ("xent_fwd_kernel", "softmax_xent_fwd"),
                      ("xent_bwd_kernel", "softmax_xent_bwd"),
                      ("layernorm_fwd_kernel", "layernorm_fwd"),
@@ -964,6 +987,7 @@ def phase_train_breakdown(step, n_prof=2):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n_prof
     by_class, ranges, top = {}, {}, []
+    dq_pass = 0.0
     for ev in prof.key_averages():
         if ev.key.startswith("mxnet_tpu_torch::"):
             # a profiler range: its kernels' device time; its span on the
@@ -975,6 +999,8 @@ def phase_train_breakdown(step, n_prof=2):
             ms = ev.self_device_time_total / 1e3 / n_prof
             cls = _train_kernel_class(ev.key)
             by_class[cls] = by_class.get(cls, 0.0) + ms
+            if "flash_bwd_dq_kernel" in ev.key:
+                dq_pass += ms
             top.append((ms, ev.count // n_prof, ev.key[:90]))
     top.sort(reverse=True)
     busy = sum(by_class.values())
@@ -982,7 +1008,13 @@ def phase_train_breakdown(step, n_prof=2):
            "range_device_ms_per_step": ranges,
            "profiled_wall_ms_per_step": wall,
            "device_busy_ms_per_step": busy,
-           "device_idle_share": 1.0 - busy / wall}
+           "device_idle_share": 1.0 - busy / wall,
+           "flash_bwd_dq_pass_ms_per_step": dq_pass,
+           "flash_bwd_dq_pass_share": dq_pass / max(
+               by_class.get("flash_attention_bwd", 0.0), 1e-12)}
+    print("flash backward a step: %.4f ms, of which the dq pass %.4f ms "
+          "(%.1f%%)" % (by_class.get("flash_attention_bwd", 0.0), dq_pass,
+                        100 * out["flash_bwd_dq_pass_share"]), flush=True)
     print("bert512 step breakdown (torch.profiler, %d steps): kernel ms a "
           "step by class %s; device ms of the ranges %s; %.3f ms busy in "
           "%.3f ms of wall under the profiler: device idle %.1f%%"
@@ -1007,8 +1039,7 @@ def phase_bert128(dev):
     wall, losses = step.timed(TIMED_STEPS)
     launches = read_counters()
     check(all(np.isfinite(losses)), "non-finite bert128 loss")
-    want = dict(STEP_LAUNCHES, flash_attention_fwd=0, flash_attention_dq=0,
-                flash_attention_dkv=0)
+    want = dict(STEP_LAUNCHES, flash_attention_fwd=0, flash_attention_bwd=0)
     for name, n in want.items():
         check(launches[name] == n * TIMED_STEPS,
               "bert128 %s launches %d != %d x %d steps"
@@ -1064,6 +1095,15 @@ def _flash_fwd_bound(B, H, T, D, vl, lse):
     if lse:
         nbytes += 4 * B * H * T
     return ops / PEAK_BF16, nbytes / PEAK_BYTES
+
+
+def _flash_bwd_bound(B, H, T, D, vl):
+    """(operations, bytes) least times of the flash backward in bf16: the
+    five products over every query row and its example's valid keys
+    (10 * pairs), q, k, v, dO and dq, dk, dv once each, lse and delta."""
+    pairs = H * T * D * int(np.sum(vl))
+    nbytes = 7 * B * H * T * D * 2 + 2 * B * H * T * 4 + 4 * B
+    return 10 * pairs / PEAK_BF16, nbytes / PEAK_BYTES
 
 
 def phase_timing(dev, launches, steps, errs, serve_launches, forwards,
@@ -1172,7 +1212,7 @@ def phase_timing(dev, launches, steps, errs, serve_launches, forwards,
 
 
 def phase_train_timing(dev, launches, errs, steps):
-    """Records of the four training kernels at the bert512 step's shapes:
+    """Records of the three training kernels at the bert512 step's shapes:
     CUDA-graph replay of the kernel, its plain version and a PyTorch
     library call computing the same function, and the bound. A library
     backward is timed as forward + backward less the forward alone."""
@@ -1227,42 +1267,46 @@ def phase_train_timing(dev, launches, errs, steps):
            "backward less forward)")
     del x, xf, lse
 
-    # flash dq and dk/dv at (16, 12, 512, 64), every key valid
-    B, H, T, D = (BERT512["batch"], 12, BERT512["seq"], 64)
-    vl = torch.full((B,), T, dtype=torch.int32, device=dev)
-    q, k, v, do, lse, delta = flash_bwd_inputs(dev, g, B, H, T, D, vl)
-    args = (q, k, v, do, lse, delta)
-    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    mask = _sdpa_mask(np.full(B, T), T, dev)
-
-    def sdpa():
-        return TF.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
-
-    def sdpa_fwd_bwd():
-        return torch.autograd.grad(sdpa(), (qs, ks, vs), do)
-
-    dq_ms, dq_plain, dkv_ms, dkv_plain, lib_fwd_ms, lib_both = time_ms(
-        lambda: fa.flash_attention_dq(*args, kv_valid_len=vl),
-        lambda: fa.flash_attention_dq_plain(*args, kv_valid_len=vl),
-        lambda: fa.flash_attention_dkv(*args, kv_valid_len=vl),
-        lambda: fa.flash_attention_dkv_plain(*args, kv_valid_len=vl),
-        sdpa, sdpa_fwd_bwd)
-    pairs = H * T * D * int(vl.sum())  # query-key pairs this data needs, x D
-    io = 4 * B * H * T * D * 2 + 2 * B * H * T * 4
+    # the flash backward at (16, 12, 512, 64), every key valid, and the
+    # same at head dim 128 (16, 6, 512, 128)
     lib = "backward of scaled_dot_product_attention with the bool mask " \
-        "(forward + backward less forward), the dq and dk/dv pair's time"
-    record("flash_attention_dq",
-           "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
-           "mxnet_tpu/ops/pallas/flash_attention.py:288", dq_ms, dq_plain,
-           lib_both - lib_fwd_ms, 6 * pairs / PEAK_BF16,
-           (io + B * H * T * D * 2) / PEAK_BYTES, shape=[B, H, T, D],
-           dtype="bfloat16", library=lib)
-    record("flash_attention_dkv",
-           "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
-           "mxnet_tpu/ops/pallas/flash_attention.py:311", dkv_ms, dkv_plain,
-           lib_both - lib_fwd_ms, 8 * pairs / PEAK_BF16,
-           (io + 2 * B * H * T * D * 2) / PEAK_BYTES, shape=[B, H, T, D],
-           dtype="bfloat16", library=lib)
+        "(forward + backward less forward)"
+    at_d128 = None
+    for H, D in ((12, 64), (6, 128)):
+        B, T = BERT512["batch"], BERT512["seq"]
+        vl = torch.full((B,), T, dtype=torch.int32, device=dev)
+        q, k, v, do, lse, delta = flash_bwd_inputs(dev, g, B, H, T, D, vl)
+        args = (q, k, v, do, lse, delta)
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        mask = _sdpa_mask(np.full(B, T), T, dev)
+
+        def sdpa():
+            return TF.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa(), (qs, ks, vs), do)
+
+        ms, plain_ms, lib_fwd_ms, lib_both = time_ms(
+            lambda: fa.flash_attention_bwd(*args, kv_valid_len=vl),
+            lambda: fa.flash_attention_bwd_plain(*args, kv_valid_len=vl),
+            sdpa, sdpa_fwd_bwd)
+        t_ops, t_bytes = _flash_bwd_bound(B, H, T, D, vl.cpu().numpy())
+        if D == 64:
+            record("flash_attention_bwd",
+                   "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+                   "mxnet_tpu/ops/pallas/flash_attention.py:288 and :311",
+                   ms, plain_ms, lib_both - lib_fwd_ms, t_ops, t_bytes,
+                   shape=[B, H, T, D], dtype="bfloat16", library=lib)
+        else:
+            at_d128 = {"shape": [B, H, T, D], "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": lib_both - lib_fwd_ms,
+                       "bound_ms": max(t_ops, t_bytes) * 1e3}
+        del q, k, v, do, lse, delta, args, qs, ks, vs
+    records[-1]["head_dim_128"] = at_d128
+    print("time flash_attention_bwd at %s: kernel %.4f ms, plain %.4f ms, "
+          "library %.4f ms, bound %.4f ms" % (
+              at_d128["shape"], at_d128["ms"], at_d128["plain_ms"],
+              at_d128["library_ms"], at_d128["bound_ms"]), flush=True)
     for r in records:
         print("time %-20s kernel %.4f ms, plain %.4f ms, library %.4f ms, "
               "bound %.4f ms (%s), %g launches a step"
@@ -1270,6 +1314,44 @@ def phase_train_timing(dev, launches, errs, steps):
                  r["bound_ms"], r["bound_by"], r["launches_per_step"]),
               flush=True)
     return records
+
+
+def phase_train_crossover(dev):
+    """Dense against flash attention, forward plus backward, at seq 64, 128,
+    256 and 512 with 8192 tokens (the bert and bert512 steps' batches at 128
+    and 512), every key valid, (H 12, D 64, bf16): the training side of the
+    seam's length gate."""
+    import torch
+    from mxnet_tpu_torch.ops.attention import dense_attention
+    from mxnet_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_with_grad)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    H, D = 12, 64
+    out = []
+    for T in (64, 128, 256, 512):
+        B = 8192 // T
+        q, k, v, do = [torch.randn(B, H, T, D, device=dev, generator=g)
+                       .to(torch.bfloat16) for _ in range(4)]
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        mask = _sdpa_mask(np.full(B, T), T, dev).to(torch.float32)
+        lt = torch.full((B,), T, dtype=torch.int32, device=dev)
+
+        def dense():
+            return torch.autograd.grad(dense_attention(*leaves, mask), leaves,
+                                       do)
+
+        def flash():
+            return torch.autograd.grad(
+                flash_attention_with_grad(*leaves, kv_valid_len=lt), leaves,
+                do)
+
+        dense_ms, flash_ms = time_ms(dense, flash)
+        out.append({"seq": T, "batch": B, "dense_ms": dense_ms,
+                    "flash_ms": flash_ms})
+        print("attention forward + backward, seq %d batch %d: dense %.4f ms, "
+              "flash %.4f ms" % (T, B, dense_ms, flash_ms), flush=True)
+    return out
 
 
 def main():
@@ -1313,9 +1395,8 @@ def main():
         bwd0 = checks["flash_attention_bwd"][0]
         errs.update({"softmax_xent_fwd": xent0["fwd"]["max_abs_err"],
                      "softmax_xent_bwd": xent0["bwd"]["max_abs_err"],
-                     "flash_attention_dq": bwd0["dq"]["max_abs_err"],
-                     "flash_attention_dkv": max(bwd0["dk"]["max_abs_err"],
-                                                bwd0["dv"]["max_abs_err"])})
+                     "flash_attention_bwd": max(
+                         bwd0[n]["max_abs_err"] for n in ("dq", "dk", "dv"))})
         model, serve_launches, forwards, serve_vl, serving = phase_serve(dev)
         step, train = phase_train(dev)
         bert128 = phase_bert128(dev)
@@ -1324,10 +1405,15 @@ def main():
             serve_launches, forwards, serve_vl)
         records += phase_train_timing(dev, train["launches"], errs,
                                       train["steps_counted"])
+        train_crossover = phase_train_crossover(dev)
         # the profiler windows come last: once a profiler session has run,
         # an eager step's host wall may not return to what it was before
         breakdown = phase_breakdown(dev, model)
         train["breakdown"] = phase_train_breakdown(step)
+        for r in records:
+            if r["name"] == "flash_attention_bwd":
+                r["dq_pass_share"] = train["breakdown"][
+                    "flash_bwd_dq_pass_share"]
         wall, _ = step.timed(TIMED_STEPS)
         train["step_wall_ms_median_after_profiler"] = wall
         print("bert512 step after the profiler sessions: median wall %.3f ms"
@@ -1339,7 +1425,9 @@ def main():
     print(json.dumps({"checks": checks, "serving": serving,
                       "breakdown": breakdown, "train_bert512": train,
                       "train_bert128": bert128,
-                      "attention_dense_vs_flash": crossover, "card": card}))
+                      "attention_dense_vs_flash": crossover,
+                      "attention_fwd_bwd_dense_vs_flash": train_crossover,
+                      "card": card}))
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

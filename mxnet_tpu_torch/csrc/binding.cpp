@@ -15,16 +15,12 @@ int mxt_flash_fwd(const void* q, const void* k, const void* v,
                   const int32_t* valid_len, void* o, float* lse,
                   int batch_heads, int heads, int tq, int tk, int d,
                   float scale, int causal, void* stream);
-int mxt_flash_bwd_dq(const void* q, const void* k, const void* v,
-                     const void* dout, const float* lse, const float* delta,
-                     const int32_t* valid_len, void* dq, int batch_heads,
-                     int heads, int tq, int tk, int d, float scale, int causal,
-                     void* stream);
-int mxt_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      const int32_t* valid_len, void* dk, void* dv,
-                      int batch_heads, int heads, int tq, int tk, int d,
-                      float scale, int causal, void* stream);
+int mxt_flash_bwd(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  const int32_t* valid_len, float* dq_acc, void* dq, void* dk,
+                  void* dv, int batch_heads, int heads, int tq, int tk, int d,
+                  float scale, int causal, void* stream);
+int64_t mxt_flash_bwd_workspace(int batch_heads, int tq, int d);
 int mxt_xent_fwd(const void* x, const int32_t* labels, float* loss, float* lse,
                  int64_t rows, int V, int dtype, void* stream);
 int mxt_xent_bwd(const void* x, const int32_t* labels, const float* lse,
@@ -76,36 +72,26 @@ void flash_fwd(const torch::Tensor& q, const torch::Tensor& k,
       "flash_fwd");
 }
 
-void flash_bwd_dq(const torch::Tensor& q, const torch::Tensor& k,
-                  const torch::Tensor& v, const torch::Tensor& dout,
-                  const torch::Tensor& lse, const torch::Tensor& delta,
-                  const std::optional<torch::Tensor>& valid_len,
-                  torch::Tensor& dq, int64_t heads, double scale, bool causal,
-                  int64_t stream) {
+void flash_bwd(const torch::Tensor& q, const torch::Tensor& k,
+               const torch::Tensor& v, const torch::Tensor& dout,
+               const torch::Tensor& lse, const torch::Tensor& delta,
+               const std::optional<torch::Tensor>& valid_len,
+               torch::Tensor& dq_acc, torch::Tensor& dq, torch::Tensor& dk,
+               torch::Tensor& dv, int64_t heads, double scale, bool causal,
+               int64_t stream) {
   check_launch(
-      mxt_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                       lse.data_ptr<float>(), delta.data_ptr<float>(),
-                       optional_int32(valid_len), dq.data_ptr(),
-                       (int)(q.size(0) * q.size(1)), (int)heads, (int)q.size(2),
-                       (int)k.size(2), (int)q.size(3), (float)scale, causal ? 1 : 0,
-                       reinterpret_cast<void*>(stream)),
-      "flash_bwd_dq");
+      mxt_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                    lse.data_ptr<float>(), delta.data_ptr<float>(),
+                    optional_int32(valid_len), dq_acc.data_ptr<float>(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                    (int)(q.size(0) * q.size(1)), (int)heads, (int)q.size(2),
+                    (int)k.size(2), (int)q.size(3), (float)scale, causal ? 1 : 0,
+                    reinterpret_cast<void*>(stream)),
+      "flash_bwd");
 }
 
-void flash_bwd_dkv(const torch::Tensor& q, const torch::Tensor& k,
-                   const torch::Tensor& v, const torch::Tensor& dout,
-                   const torch::Tensor& lse, const torch::Tensor& delta,
-                   const std::optional<torch::Tensor>& valid_len,
-                   torch::Tensor& dk, torch::Tensor& dv, int64_t heads,
-                   double scale, bool causal, int64_t stream) {
-  check_launch(
-      mxt_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                        lse.data_ptr<float>(), delta.data_ptr<float>(),
-                        optional_int32(valid_len), dk.data_ptr(), dv.data_ptr(),
-                        (int)(q.size(0) * q.size(1)), (int)heads, (int)q.size(2),
-                        (int)k.size(2), (int)q.size(3), (float)scale,
-                        causal ? 1 : 0, reinterpret_cast<void*>(stream)),
-      "flash_bwd_dkv");
+int64_t flash_bwd_workspace(int64_t batch_heads, int64_t tq, int64_t d) {
+  return mxt_flash_bwd_workspace((int)batch_heads, (int)tq, (int)d);
 }
 
 void xent_fwd(const torch::Tensor& x, const torch::Tensor& labels,
@@ -132,8 +118,9 @@ void xent_bwd(const torch::Tensor& x, const torch::Tensor& labels,
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("layernorm_fwd", &layernorm_fwd, "row LayerNorm forward (CUDA)");
   m.def("flash_fwd", &flash_fwd, "flash-attention forward (CUDA)");
-  m.def("flash_bwd_dq", &flash_bwd_dq, "flash-attention backward, dq (CUDA)");
-  m.def("flash_bwd_dkv", &flash_bwd_dkv, "flash-attention backward, dk/dv (CUDA)");
+  m.def("flash_bwd", &flash_bwd, "flash-attention backward, dq, dk, dv (CUDA)");
+  m.def("flash_bwd_workspace", &flash_bwd_workspace,
+        "floats of the flash backward's fp32 dq workspace");
   m.def("xent_fwd", &xent_fwd, "softmax cross-entropy forward (CUDA)");
   m.def("xent_bwd", &xent_bwd, "softmax cross-entropy backward (CUDA)");
 }

@@ -1,25 +1,24 @@
 """Flash attention: the CUDA kernels and their plain PyTorch versions.
 
 Counterpart of ``mxnet_tpu/ops/pallas/flash_attention.py``: the forward
-``_flash_fwd`` and the backward ``_flash_bwd`` (its dq and dk/dv kernels),
-with all their flags: ``causal``, a per-example valid key length
-``kv_valid_len`` (tiles past it are skipped), and the per-row logsumexp the
-backward recomputes P from. The kernels are
+``_flash_fwd`` and the backward ``_flash_bwd`` (its dq and dk/dv kernels,
+one fused kernel here), with all their flags: ``causal``, a per-example
+valid key length ``kv_valid_len`` (tiles past it are skipped), and the
+per-row logsumexp the backward recomputes P from. The kernels are
 ``mxnet_tpu_torch/csrc/flash_attention_fwd.cu`` and
 ``flash_attention_bwd.cu`` (why they are shaped as they are, and what bounds
 them, is written there): bf16 q, k, v with fp32 accumulation, head dim 64 or
 128, any sequence length.
 
-:func:`flash_attention`, :func:`flash_attention_dq` and
-:func:`flash_attention_dkv` take the plain version for CPU tensors and
-launch the kernel for CUDA tensors, or raise; they never fall back from the
-card to the plain version. :func:`flash_attention_with_grad` is the
-differentiable op (a ``torch.autograd.Function`` mirroring the JAX
-``custom_vjp``): its forward keeps the lse, its backward forms
-delta = rowsum(dO * O) in PyTorch, as the JAX package does outside its
-kernels, and launches the dq and dk/dv kernels. Layouts are the JAX
-function's: q (B, H, Tq, D), k and v (B, H, Tk, D), lse (B*H, Tq, 1)
-float32, delta (B, H, Tq) float32.
+:func:`flash_attention` and :func:`flash_attention_bwd` take the plain
+version for CPU tensors and launch the kernel for CUDA tensors, or raise;
+they never fall back from the card to the plain version.
+:func:`flash_attention_with_grad` is the differentiable op (a
+``torch.autograd.Function`` mirroring the JAX ``custom_vjp``): its forward
+keeps the lse, its backward forms delta = rowsum(dO * O) in PyTorch, as the
+JAX package does outside its kernels, and launches the backward kernel.
+Layouts are the JAX function's: q (B, H, Tq, D), k and v (B, H, Tk, D), lse
+(B*H, Tq, 1) float32, delta (B, H, Tq) float32.
 """
 from __future__ import annotations
 
@@ -191,53 +190,49 @@ def _valid_len(kv_valid_len):
         kv_valid_len.to(torch.int32).contiguous()
 
 
-def flash_attention_dq(q, k, v, do, lse, delta, kv_valid_len=None,
-                       scale=None, causal=False):
-    """dq (B, H, Tq, D) in q's dtype from the forward's inputs, dO, its lse
-    and delta = rowsum(dO * O)."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return flash_attention_dq_plain(q, k, v, do, lse, delta, kv_valid_len,
-                                        scale, causal)
-    if q.device.type != "cuda":
-        raise ValueError("flash_attention_dq: no kernel for device %s"
-                         % q.device)
-    _check_bwd(q, k, v, do, lse, delta, kv_valid_len)
-    dq = torch.empty_like(q)
-    _build.extension().flash_bwd_dq(
-        q, k, v, do, lse, delta, _valid_len(kv_valid_len), dq, q.shape[1],
-        float(scale), bool(causal),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    flash_attention_dq.launches += 1
-    return dq
+def flash_attention_bwd_plain(q, k, v, do, lse, delta, kv_valid_len=None,
+                              scale=None, causal=False):
+    """(dq, dk, dv) from the dq and dk/dv plain versions: the backward
+    kernel's arithmetic in PyTorch."""
+    dq = flash_attention_dq_plain(q, k, v, do, lse, delta, kv_valid_len,
+                                  scale, causal)
+    dk, dv = flash_attention_dkv_plain(q, k, v, do, lse, delta, kv_valid_len,
+                                       scale, causal)
+    return dq, dk, dv
 
 
-def flash_attention_dkv(q, k, v, do, lse, delta, kv_valid_len=None,
+def flash_attention_bwd(q, k, v, do, lse, delta, kv_valid_len=None,
                         scale=None, causal=False):
-    """(dk, dv), each (B, H, Tk, D) in k's dtype, from the forward's inputs,
-    dO, its lse and delta = rowsum(dO * O)."""
+    """(dq, dk, dv), in the dtypes and shapes of q, k and v, from the
+    forward's inputs, dO, its lse and delta = rowsum(dO * O). On the card
+    one kernel computes all three, adding dq's fp32 partial sums into a
+    zeroed workspace (so dq is not bit-reproducible from run to run), and a
+    second pass rounds dq to bf16."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return flash_attention_dkv_plain(q, k, v, do, lse, delta,
+        return flash_attention_bwd_plain(q, k, v, do, lse, delta,
                                          kv_valid_len, scale, causal)
     if q.device.type != "cuda":
-        raise ValueError("flash_attention_dkv: no kernel for device %s"
+        raise ValueError("flash_attention_bwd: no kernel for device %s"
                          % q.device)
     _check_bwd(q, k, v, do, lse, delta, kv_valid_len)
+    B, H, Tq, D = q.shape
+    ext = _build.extension()
+    dq_acc = torch.zeros(ext.flash_bwd_workspace(B * H, Tq, D),
+                         dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _build.extension().flash_bwd_dkv(
-        q, k, v, do, lse, delta, _valid_len(kv_valid_len), dk, dv, q.shape[1],
-        float(scale), bool(causal),
+    ext.flash_bwd(
+        q, k, v, do, lse, delta, _valid_len(kv_valid_len), dq_acc, dq, dk, dv,
+        H, float(scale), bool(causal),
         torch.cuda.current_stream(q.device).cuda_stream)
-    flash_attention_dkv.launches += 1
-    return dk, dv
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
-flash_attention_dq.launches = 0
-flash_attention_dkv.launches = 0
+flash_attention_bwd.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -254,18 +249,16 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse, vl = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
         delta = (o.float() * do.float()).sum(dim=-1)
-        dq = flash_attention_dq(q, k, v, do, lse, delta, kv_valid_len=vl,
-                                scale=ctx.scale, causal=ctx.causal)
-        dk, dv = flash_attention_dkv(q, k, v, do, lse, delta,
-                                     kv_valid_len=vl, scale=ctx.scale,
-                                     causal=ctx.causal)
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, delta,
+                                         kv_valid_len=vl, scale=ctx.scale,
+                                         causal=ctx.causal)
         return dq, dk, dv, None, None, None
 
 
 def flash_attention_with_grad(q, k, v, causal=False, scale=None,
                               kv_valid_len=None):
     """:func:`flash_attention`, differentiable in q, k and v: the forward
-    launches with the lse, the backward launches the dq and dk/dv kernels."""
+    launches with the lse, the backward launches the backward kernel."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _FlashAttention.apply(q, k, v, _valid_len(kv_valid_len),

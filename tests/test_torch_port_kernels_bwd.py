@@ -1,6 +1,6 @@
 """The port's differentiable kernel ops against the JAX package's, forward
-and backward: softmax cross-entropy, flash attention (dq, dk/dv), the
-LayerNorm backward and the dense attention backward.
+and backward: softmax cross-entropy, flash attention (the fused dq, dk, dv
+backward), the LayerNorm backward and the dense attention backward.
 
 On the CPU each kernel wrapper takes its plain PyTorch version (the CUDA
 kernels run only on the card, where ``chip_smoke.py`` holds them against
@@ -175,12 +175,40 @@ def test_flash_backward_bf16_matches_pallas(causal, vl):
 
 def test_flash_backward_wrappers_count_only_kernel_launches():
     (_, q), (_, k), (_, v), (_, do) = _flash_case(0, 1, 1, 64, 64, "float32")
-    before = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
+    before = fa.flash_attention_bwd.launches
     out = fa.flash_attention_with_grad(
         *(t.requires_grad_() for t in (q, k, v)))
     out.backward(do)
-    assert (fa.flash_attention_dq.launches,
-            fa.flash_attention_dkv.launches) == before  # CPU: plain versions
+    assert fa.flash_attention_bwd.launches == before  # CPU: plain versions
+
+
+@pytest.mark.parametrize("causal,T,D,vl", [
+    (False, 128, 64, None),
+    (True, 128, 64, None),
+    (False, 128, 64, [0, 37, 128]),
+    (True, 128, 64, [100, 1, 128]),
+    (False, 200, 64, [200, 0, 77]),   # ragged T
+    (False, 128, 128, [128, 60, 5]),  # head dim 128
+])
+def test_flash_bwd_plain_is_dq_and_dkv_plain(causal, T, D, vl):
+    """The fused backward's plain version (and the wrapper on the CPU)
+    returns exactly the dq and dk/dv plain versions' tensors, bf16."""
+    B, H = 3, 2
+    (_, q), (_, k), (_, v), (_, do) = _flash_case(T + D, B, H, T, D,
+                                                  "bfloat16")
+    tvl = None if vl is None else torch.tensor(vl, dtype=torch.int32)
+    o, lse = fa.flash_attention_plain(q, k, v, kv_valid_len=tvl,
+                                      causal=causal, return_lse=True)
+    delta = (o.float() * do.float()).sum(dim=-1)
+    args = (q, k, v, do, lse, delta)
+    kw = {"kv_valid_len": tvl, "causal": causal}
+    want_dq = fa.flash_attention_dq_plain(*args, **kw)
+    want_dk, want_dv = fa.flash_attention_dkv_plain(*args, **kw)
+    for got in (fa.flash_attention_bwd_plain(*args, **kw),
+                fa.flash_attention_bwd(*args, **kw)):
+        assert len(got) == 3
+        for g, w in zip(got, (want_dq, want_dk, want_dv)):
+            assert g.dtype == torch.bfloat16 and torch.equal(g, w)
 
 
 def test_seam_takes_differentiable_flash_only_when_recording():

@@ -104,9 +104,8 @@ def _flash_bwd_f64(q, k, v, do, lse, delta, vl):
 
 
 def _flash_bwd_plain(args, vl, scale=SCALE):
-    dq = fa.flash_attention_dq_plain(*args, kv_valid_len=vl, scale=scale)
-    dk, dv = fa.flash_attention_dkv_plain(*args, kv_valid_len=vl, scale=scale)
-    return [dq, dk, dv]
+    return list(fa.flash_attention_bwd_plain(*args, kv_valid_len=vl,
+                                             scale=scale))
 
 
 FLASH_FAULTS = {
@@ -153,8 +152,8 @@ def test_flash_bwd_tolerance_catches_nonzero_dk_row_past_vl():
 
 
 def _planted_case(wrapper):
-    """(the wrapper's inputs, its plain version's outputs, a function from
-    outputs to the one held, the limit, the magnitude) at a small size."""
+    """(the wrapper's inputs, its plain version's outputs, the limit, the
+    magnitude of each output) at a small size."""
     from mxnet_tpu_torch.ops.cuda import layernorm as ln
 
     if wrapper == "fused_layernorm":
@@ -162,19 +161,17 @@ def _planted_case(wrapper):
         x = (torch.randn(64, 768, generator=g) * 2 + 0.5).to(torch.bfloat16)
         args = (x, torch.randn(768, generator=g), torch.randn(768, generator=g),
                 1e-12)
-        return args, ln.layernorm_plain(*args), lambda y: y, cs.BF16_TOL, None
+        return args, [ln.layernorm_plain(*args)], cs.BF16_TOL, [None]
     if wrapper == "softmax_xent_bwd":
         x, labels, dy = _xent_case()
         _, lse = sx.softmax_xent_fwd_plain(x, labels)
         args = (x, labels, lse, dy)
-        return (args, sx.softmax_xent_bwd_plain(*args), lambda y: y,
-                cs.XENT_DX_TOL["bfloat16"], None)
+        return (args, [sx.softmax_xent_bwd_plain(*args)],
+                cs.XENT_DX_TOL["bfloat16"], [None])
+    assert wrapper == "flash_attention_bwd"
     vl, args = _flash_case()
-    which = 0 if wrapper == "flash_attention_dq" else 1  # dq, or dk
-    pick = (lambda y: y) if which == 0 else (lambda y: y[0])
-    plain = getattr(fa, wrapper + "_plain")(*args, kv_valid_len=vl)
-    return ((*args, vl), plain, pick, cs.FLASH_BWD_TOL,
-            cs.flash_bwd_magnitudes(*args, vl=vl)[which])
+    return ((*args, vl), _flash_bwd_plain(args, vl), cs.FLASH_BWD_TOL,
+            list(cs.flash_bwd_magnitudes(*args, vl=vl)))
 
 
 @pytest.mark.parametrize("fault", [f for f, (o, _) in cs.PLANTED_FAULTS.items()
@@ -182,8 +179,15 @@ def _planted_case(wrapper):
 def test_planted_faults_fail_their_kernel_check(fault):
     """Each fault the training step is run with is one its kernel's own
     check on the card rejects, also those the step's gradient limit cannot
-    see."""
+    see: every output the fault changes fails its limit (the flash
+    backward's faults change dq alone, or dk and dv alone)."""
     (wrapper, faulty), = cs.PLANTED_FAULTS[fault][0].items()
-    args, plain, pick, tol, mag = _planted_case(wrapper)
-    with pytest.raises(cs.SmokeFailure):
-        cs.held(pick(faulty(*args)), pick(plain), tol, fault, mag)
+    args, plain, tol, mags = _planted_case(wrapper)
+    got = faulty(*args)
+    got = list(got) if isinstance(got, tuple) else [got]
+    changed = [i for i, (g, p) in enumerate(zip(got, plain))
+               if not torch.equal(g, p)]
+    assert changed
+    for i in changed:
+        with pytest.raises(cs.SmokeFailure):
+            cs.held(got[i], plain[i], tol, fault, mags[i])
