@@ -10,8 +10,10 @@ Run from the root of a checkout on a machine with a CUDA card. It
 2. holds the LayerNorm kernel against its plain PyTorch version (the
    bert512 step's (8192, 768) and (1280, 768) bf16 first);
 3. holds the flash-attention forward kernel against its plain version
-   (the bert512 step's (16, 12, 512, 64) with the logsumexp first; valid
-   lengths with 0, causal, ragged T = 200, head dim 128);
+   (the bert512 step's (16, 12, 512, 64) with the logsumexp first, run
+   twice: the two outputs must be identical; valid lengths with 0, causal,
+   ragged T = 200, head dim 128, T = 2048 with vl 1900, causal T = 192
+   with valid lengths, T = 1, head dim 128 causal, a negative scale);
 4. holds the softmax cross-entropy forward and backward kernels against
    their plain versions ((1280, 30522) bf16, (16, 2), (37, 1000) fp32, a
    label in the last column);
@@ -47,7 +49,8 @@ Run from the root of a checkout on a machine with a CUDA card. It
 9. times each kernel (CUDA-graph replay) at the bert512 step's shapes
    against its plain version, its PyTorch library yardstick and its bound
    (the two forward kernels also at a served bucket-8 forward's shapes;
-   the flash backward also at head dim 128), dense against flash attention
+   the flash forward and backward also at head dim 128, SDPA also without
+   a mask where every key is valid), dense against flash attention
    at seq 128 and 512, and dense against flash forward plus backward at
    seq 64, 128, 256 and 512;
 10. breaks one serving forward at the largest bucket down (host wall, the
@@ -339,19 +342,36 @@ def phase_flash(dev):
         ("lse", (4, 12, 512, 64), False, np.array([0, 1, 256, 512]), True),
         ("ragged T=200", (3, 4, 200, 64), False, np.array([200, 0, 77]), True),
         ("D=128", (2, 8, 256, 128), False, np.array([256, 100]), True),
+        # 30 K/V tiles through the ring into each row
+        ("T=2048 vl lse", (1, 4, 2048, 64), False, np.array([1900]), True),
+        # a 64-multiple that is not a 128-multiple: the last CTA's second
+        # warpgroup has no rows
+        ("causal vl T=192", (3, 4, 192, 64), True, np.array([192, 100, 0]),
+         False),
+        ("T=1", (2, 3, 1, 64), False, None, True),
+        ("D=128 causal lse", (2, 6, 512, 128), True, None, True),
     ]
     for name, (B, H, T, D), causal, vl, lse in cases:
         q, k, v = _qkv(dev, g, B, H, T, D)
         vlt = None if vl is None else torch.tensor(vl, dtype=torch.int32,
                                                    device=dev)
-        got = flash_attention(q, k, v, causal=causal, kv_valid_len=vlt,
-                              return_lse=lse)
+        kw = {"causal": causal, "kv_valid_len": vlt, "return_lse": lse}
+        got = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        ref = flash_attention_plain(q, k, v, kv_valid_len=vlt, causal=causal,
-                                    return_lse=lse)
+        ref = flash_attention_plain(q, k, v, **kw)
         what = "flash %s %s causal=%s vl=%s" % (
             name, (B, H, T, D), causal, None if vl is None else
             [int(n) for n in vl])
+        if not readings:
+            # the bert512 case again on the same inputs: the forward has no
+            # atomics and sums in a fixed order, so the runs agree bit for bit
+            again = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            runs = [r if lse else (r,) for r in (got, again)]
+            same = all(torch.equal(a, b) for a, b in zip(*runs))
+            print("%s: run 2 identical to run 1: %s" % (what, same),
+                  flush=True)
+            check(same, "%s: two runs on the same inputs differ" % what)
         if lse:
             (got, got_lse), (ref, ref_lse) = got, ref
             # fp32 row statistics; rows without a valid key hold -1e30
@@ -366,6 +386,13 @@ def phase_flash(dev):
         if vl is not None:
             for b in np.flatnonzero(np.asarray(vl) == 0):
                 check(not bool(got[b].any()), "%s: vl=0 row not zero" % what)
+    # a negative scale: the kernel scales the scores before their max
+    q, k, v = _qkv(dev, g, 2, 4, 256, 64)
+    got = flash_attention(q, k, v, scale=-0.125)
+    torch.cuda.synchronize()
+    readings.append(held(got, flash_attention_plain(q, k, v, scale=-0.125),
+                         FLASH_TOL, "flash scale -0.125 (2, 4, 256, 64)",
+                         flash_magnitude(q, k, v, scale=-0.125)))
     return readings
 
 
@@ -1149,40 +1176,54 @@ def phase_timing(dev, launches, steps, errs, serve_launches, forwards,
 
     # flash forward: the step's (16, 12, 512, 64), every key valid, with the
     # lse; a served bucket-8 forward's, with the valid lengths of the first
-    # full batch the server dispatched and no lse
+    # full batch the server dispatched and no lse; head dim 128 at
+    # (16, 6, 512, 128), every key valid, with the lse. Where every key is
+    # valid SDPA is also timed without a mask (the card's own flash
+    # backend, the stronger yardstick)
     H, D = 12, 64
     step_shape = (BERT512["batch"], H, BERT512["seq"], D)
+    d128_shape = (BERT512["batch"], 6, BERT512["seq"], 128)
     step_vl = np.full(step_shape[0], step_shape[2])
     B = BUCKETS[-1]
     vl = np.asarray(serve_vl[:B], np.int64)
-    fns = []
+    groups = []
     for shape, lens, lse in ((step_shape, step_vl, True),
-                             ((B, H, SEQ, D), vl, False)):
+                             ((B, H, SEQ, D), vl, False),
+                             (d128_shape, step_vl, True)):
         q, k, v = _qkv(dev, g, *shape)
         vlt = torch.tensor(lens, dtype=torch.int32, device=dev)
         mask = _sdpa_mask(lens, shape[2], dev)
-        fns += [lambda q=q, k=k, v=v, vlt=vlt, lse=lse: flash_attention(
-                    q, k, v, kv_valid_len=vlt, return_lse=lse),
-                lambda q=q, k=k, v=v, vlt=vlt, lse=lse: flash_attention_plain(
-                    q, k, v, kv_valid_len=vlt, return_lse=lse),
-                lambda q=q, k=k, v=v, mask=mask:
-                    TF.scaled_dot_product_attention(q, k, v, attn_mask=mask)]
-    t = time_ms(*fns)
-    serving = dict(zip(("ms", "plain_ms", "library_ms"), t[3:]),
+        group = [lambda q=q, k=k, v=v, vlt=vlt, lse=lse: flash_attention(
+                     q, k, v, kv_valid_len=vlt, return_lse=lse),
+                 lambda q=q, k=k, v=v, vlt=vlt, lse=lse: flash_attention_plain(
+                     q, k, v, kv_valid_len=vlt, return_lse=lse),
+                 lambda q=q, k=k, v=v, mask=mask:
+                     TF.scaled_dot_product_attention(q, k, v, attn_mask=mask)]
+        if (lens == shape[2]).all():
+            group.append(lambda q=q, k=k, v=v:
+                         TF.scaled_dot_product_attention(q, k, v))
+        groups.append(group)
+    t = iter(time_ms(*[fn for group in groups for fn in group]))
+    step_t, serve_t, d128_t = ([next(t) for _ in group] for group in groups)
+    serving = dict(zip(("ms", "plain_ms", "library_ms"), serve_t),
                    shape=[B, H, SEQ, D], valid_len=vl.tolist(),
                    bound_ms=max(_flash_fwd_bound(B, H, SEQ, D, vl, False))
                    * 1e3,
                    launches=serve_launches["flash_attention_fwd"],
                    launches_per_forward=serve_launches["flash_attention_fwd"]
                    / forwards)
+    d128 = dict(zip(("ms", "plain_ms", "library_ms", "library_unmasked_ms"),
+                    d128_t), shape=list(d128_shape),
+                bound_ms=max(_flash_fwd_bound(*d128_shape, step_vl, True))
+                * 1e3)
     records.append(kernel_record(
         "flash_attention_fwd", "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
         "mxnet_tpu/ops/pallas/flash_attention.py:147",
         launches["flash_attention_fwd"], steps, errs["flash_attention_fwd"],
-        *t[:3], *_flash_fwd_bound(*step_shape, step_vl, True),
+        *step_t[:3], *_flash_fwd_bound(*step_shape, step_vl, True),
         shape=list(step_shape), dtype="bfloat16", return_lse=True,
         library="scaled_dot_product_attention with the bool mask",
-        serving=serving))
+        library_unmasked_ms=step_t[3], serving=serving, head_dim_128=d128))
     for r in records:
         print("time %-20s kernel %.4f ms, plain %.4f ms, library %.4f ms, "
               "bound %.4f ms (%s) at %s; serving %s: %.4f / %.4f / %.4f ms"
@@ -1191,6 +1232,13 @@ def phase_timing(dev, launches, steps, errs, serve_launches, forwards,
                  r["serving"]["shape"], r["serving"]["ms"],
                  r["serving"]["plain_ms"], r["serving"]["library_ms"]),
               flush=True)
+    print("time flash_attention_fwd: SDPA without a mask %.4f ms at %s; at %s "
+          "kernel %.4f ms, plain %.4f ms, SDPA %.4f ms (without a mask %.4f "
+          "ms), bound %.4f ms" % (step_t[3], list(step_shape), d128["shape"],
+                                  d128["ms"], d128["plain_ms"],
+                                  d128["library_ms"],
+                                  d128["library_unmasked_ms"],
+                                  d128["bound_ms"]), flush=True)
 
     # dense against flash at seq 128 and 512 (B 8, H 12, D 64, bf16), all
     # keys valid and with the serving valid lengths scaled to the length

@@ -8,7 +8,10 @@ per-row logsumexp the backward recomputes P from. The kernels are
 ``mxnet_tpu_torch/csrc/flash_attention_fwd.cu`` and
 ``flash_attention_bwd.cu`` (why they are shaped as they are, and what bounds
 them, is written there): bf16 q, k, v with fp32 accumulation, head dim 64 or
-128, any sequence length.
+128, any sequence length. Both are Hopper designs on ``wgmma``: the forward
+streams K/V tiles through a cp.async ring (at head dim 64 two warpgroups of
+64 query rows share each tile); the backward is one fused kernel for dq, dk
+and dv.
 
 :func:`flash_attention` and :func:`flash_attention_bwd` take the plain
 version for CPU tensors and launch the kernel for CUDA tensors, or raise;

@@ -6,6 +6,8 @@ these same plain versions); the JAX side runs its Pallas kernels in
 interpret mode, as tests/test_kernels.py does. Tolerances: fp32 1e-4, bf16
 0.05 absolute (tests/test_kernels.py).
 """
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -97,3 +99,46 @@ def test_flash_forward_bf16_ragged_and_wide_head(T, D):
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), atol=0.05, rtol=0)
+
+
+@pytest.mark.parametrize("T,D,causal,vl,return_lse", [
+    (192, 64, True, [192, 100, 0], False),  # a 64- but not 128-multiple
+    (1, 64, False, None, True),
+    (256, 128, True, None, True),
+])
+def test_flash_forward_edge_shapes_match_pallas(T, D, causal, vl, return_lse):
+    """The shapes the card's kernel takes at its tile edges: the last
+    128-row query tile half empty, a single row and key, head dim 128 with
+    the causal edge; fp32, so the algorithm and not bf16 rounding is held."""
+    B, H = 3 if vl else 2, 2
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(3, B, H, T, D, "float32")
+    vl = None if vl is None else np.array(vl, np.int32)
+    block = min(T, 64)
+    scale = 1.0 / D ** 0.5
+    want = _flash_fwd(jq, jk, jv, None if vl is None else jnp.asarray(vl),
+                      scale, causal, block, block, interpret=True,
+                      return_lse=return_lse)
+    got = fa.flash_attention(tq, tk, tv, causal=causal, scale=scale,
+                             kv_valid_len=None if vl is None
+                             else torch.from_numpy(vl),
+                             return_lse=return_lse)
+    if return_lse:
+        (want, want_lse), (got, got_lse) = want, got
+        np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                                   rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=0)
+    if vl is not None:
+        assert not got[2].any()
+
+
+def test_flash_forward_kernel_source_is_wgmma_with_a_cp_async_ring():
+    """The forward kernel computes both products with wgmma (S = Q K^T with
+    both operands in shared memory, O += P V with P from registers) and
+    streams K and V through cp.async; no mma.sync or ldmatrix is left."""
+    src = open(os.path.join(os.path.dirname(fa.__file__), "..", "..", "csrc",
+                            "flash_attention_fwd.cu")).read()
+    assert "wgmma_ss<" in src and "wgmma_rs<" in src
+    assert "load_tile_async<" in src and "cp_async_wait<" in src
+    assert "mma.sync" not in src and "ldmatrix" not in src
+    assert "mma_16816" not in src

@@ -1,7 +1,9 @@
 """The tolerance ``chip_smoke.py`` holds each kernel to on the card, checked
 on the CPU: the plain version passes against itself, and small faults of
 the kind a kernel can have (a scale off by 1 %, one dropped key or key
-tile, a gamma off by 1 %) are caught in the long-row regime of the main
+tile, a gamma off by 1 %; and those of the forward's K/V ring: a stale
+slot, K and V from different tiles, one warpgroup's rows finishing with
+the other's row statistics) are caught in the long-row regime of the main
 path (every key valid at seq 512), where attention outputs are small. A
 scale off by 0.5 % is the size of the bf16 rounding of p, which the
 elementwise flash limit must allow; the logsumexp check catches it."""
@@ -21,26 +23,77 @@ def _flash(q, k, v, vl=T, scale=1.0 / 8, return_lse=False):
                                  return_lse=return_lse)
 
 
+def _tile_from(x, j, src, n=64):
+    """x with key tile j (n keys) replaced by key tile src."""
+    x = x.clone()
+    x[:, :, n * j:n * (j + 1)] = x[:, :, n * src:n * (src + 1)]
+    return x
+
+
+def _stats_of_first_warpgroup(q, k, v):
+    """The second warpgroup's 64 rows of every 128-row query tile finish
+    with the first warpgroup's running max and sum (the row 64 above): the
+    output is rescaled by exp(lse - lse of that row), and the lse is that
+    row's."""
+    out, lse = _flash(q, k, v, return_lse=True)
+    B, H, _, _ = q.shape
+    lse = lse.reshape(B, H, T // 128, 2, 64)
+    other = lse[:, :, :, :1].expand_as(lse)
+    scale = torch.exp(lse - other).reshape(B, H, T, 1)
+    return (out.float() * scale).to(out.dtype), other.reshape(B * H, T, 1)
+
+
+# each builds (output, lse) from the plain version on the CPU; a K/V ring
+# fault touches one tile of every head, at the kernel's tile widths (128
+# keys at head dim 64, 64 at head dim 128)
 FLASH_FAULTS = {
-    "none": {},
-    "scale x1.01": {"scale": 1.01 / 8},
-    "last key tile dropped": {"vl": T - 64},
-    "last key dropped": {"vl": T - 1},
+    "none": lambda q, k, v: _flash(q, k, v, return_lse=True),
+    "scale x1.01": lambda q, k, v: _flash(q, k, v, scale=1.01 / 8,
+                                          return_lse=True),
+    "last key tile dropped": lambda q, k, v: _flash(q, k, v, vl=T - 64,
+                                                    return_lse=True),
+    "last key dropped": lambda q, k, v: _flash(q, k, v, vl=T - 1,
+                                               return_lse=True),
+    "stale slot: tile 3 with tile 2's K and V": lambda q, k, v: _flash(
+        q, _tile_from(k, 3, 2), _tile_from(v, 3, 2), return_lse=True),
+    "K of tile 3 with V of tile 4": lambda q, k, v: _flash(
+        q, k, _tile_from(v, 3, 4), return_lse=True),
+    "stale slot: 128-key tile 2 with tile 1's K and V": lambda q, k, v:
+        _flash(q, _tile_from(k, 2, 1, 128), _tile_from(v, 2, 1, 128),
+               return_lse=True),
+    "K of 128-key tile 1 with V of tile 2": lambda q, k, v: _flash(
+        q, k, _tile_from(v, 1, 2, 128), return_lse=True),
+    "second warpgroup with the first's m and l": _stats_of_first_warpgroup,
 }
+# the faults that move the lse as well as the output
+LSE_FAULTS = ("stale slot: tile 3 with tile 2's K and V",
+              "stale slot: 128-key tile 2 with tile 1's K and V",
+              "second warpgroup with the first's m and l")
+
+
+def _qkv_ref():
+    q, k, v = cs._qkv("cpu", torch.Generator().manual_seed(0), 2, 4, T, 64)
+    return q, k, v, _flash(q, k, v, return_lse=True)
 
 
 @pytest.mark.parametrize("fault", list(FLASH_FAULTS))
 def test_flash_tolerance_catches_faults(fault):
-    q, k, v = cs._qkv("cpu", torch.Generator().manual_seed(0), 2, 4, T, 64)
-    ref = _flash(q, k, v)
+    q, k, v, (ref, _) = _qkv_ref()
     mag = cs.flash_magnitude(q, k, v, torch.full((2,), T, dtype=torch.int32))
     assert bool((mag >= ref.abs()).all())
-    got = _flash(q, k, v, **FLASH_FAULTS[fault])
+    got, _ = FLASH_FAULTS[fault](q, k, v)
     if fault == "none":
         assert cs.held(got, ref, cs.FLASH_TOL, fault, mag)["worst_ratio"] == 0
     else:
         with pytest.raises(cs.SmokeFailure):
             cs.held(got, ref, cs.FLASH_TOL, fault, mag)
+
+
+@pytest.mark.parametrize("fault", LSE_FAULTS)
+def test_lse_tolerance_catches_ring_faults(fault):
+    q, k, v, (_, ref) = _qkv_ref()
+    _, got = FLASH_FAULTS[fault](q, k, v)
+    assert cs.max_err(got, ref) > cs.LSE_TOL
 
 
 def test_lse_tolerance_catches_small_scale_fault():

@@ -19,65 +19,27 @@ the card's name and power limit.
 import ctypes
 import json
 import os
-import re
-import subprocess
 import sys
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(REPO, "mxnet_tpu_torch", "csrc", "flash_attention_bwd.cu")
-OUT = os.path.join(REPO, "mxnet_tpu_torch", "_build", "tiles")
-NVCC = "/usr/local/cuda/bin/nvcc"
+import cuda_variants as cv
+
+SRC = os.path.join(cv.CSRC, "flash_attention_bwd.cu")
 # (head dim, kStages, kMinBlocks); the shipped setting of each head dim is
 # the first of its candidates
 CANDIDATES = [
     (64, 3, 3), (64, 2, 3), (64, 2, 2), (64, 4, 2),
     (128, 2, 2), (128, 2, 1), (128, 3, 1),
 ]
-FIELD = r"(static constexpr int %s = D == 64 \? )(\d+) : (\d+);"
-
-
-def variant_source(text, cand):
-    D, stages, blocks = cand
-    for name, value in (("kStages", stages), ("kMinBlocks", blocks)):
-        def sub(m):
-            a, b = (value, m.group(3)) if D == 64 else (m.group(2), value)
-            return "%s%s : %s;" % (m.group(1), a, b)
-
-        text, n = re.subn(FIELD % name, sub, text)
-        if n != 1:
-            raise RuntimeError("BwdShape's %s not found in %s" % (name, SRC))
-    return text
 
 
 def build_all():
-    """Start one nvcc a candidate, all at once; {cand: (library, ptxas
-    lines)}."""
-    os.makedirs(OUT, exist_ok=True)
+    """{cand: (library, ptxas lines)}"""
     text = open(SRC).read()
-    procs = {}
-    for cand in CANDIDATES:
-        tag = "d%d_s%d_b%d" % cand
-        cu = os.path.join(OUT, tag + ".cu")
-        with open(cu, "w") as f:
-            f.write(variant_source(text, cand))
-        lib = os.path.join(OUT, tag + ".so")
-        cmd = [NVCC, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-               "-I", os.path.dirname(SRC), "-o", lib, cu]
-        procs[cand] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.STDOUT,
-                                             text=True))
-    built = {}
-    for cand, (lib, p) in procs.items():
-        log = p.communicate(timeout=600)[0]
-        if p.returncode != 0:
-            print("build failed for %s:\n%s" % (cand, log[-3000:]))
-            continue
-        # ptxas names each kernel, then gives its spills and registers
-        built[cand] = (lib, [ln.strip() for ln in log.splitlines()
-                             if "registers" in ln or "spill" in ln
-                             or "Compiling" in ln])
-    return built
+    tags = {"d%d_s%d_b%d" % cand: cand for cand in CANDIDATES}
+    built = cv.build_all({tag: cv.shape_variant(
+        text, cand[0], {"kStages": cand[1], "kMinBlocks": cand[2]})
+        for tag, cand in tags.items()})
+    return {tags[tag]: lib for tag, lib in built.items()}
 
 
 def bind(lib_path):
@@ -101,11 +63,11 @@ def main():
     import torch
     import torch.nn.functional as TF
 
-    if not torch.cuda.is_available() or not os.path.exists(NVCC):
-        print("cuda_flash_bwd_tiles: needs a CUDA card and %s" % NVCC,
+    if not torch.cuda.is_available() or not os.path.exists(cv.NVCC):
+        print("cuda_flash_bwd_tiles: needs a CUDA card and %s" % cv.NVCC,
               file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, cv.REPO)
     import chip_smoke as cs
     from mxnet_tpu_torch.ops.cuda import flash_attention as fa
 
@@ -173,11 +135,8 @@ def main():
                       D, cand[1], cand[2], ms, lib_ms, rec["bound_ms"], worst,
                       " | ".join(ptxas)), flush=True)
         del q, k, v, do, lse, delta, ref, mags, qs, ks, vs
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
     print(json.dumps({"tiles": results}))
-    print(smi.stdout.strip())
+    print(cv.card())
     return 0
 
 
