@@ -46,18 +46,42 @@ Run from the root of a checkout on a machine with a CUDA card. It
    step (samples/s);
 8. times the ``bert`` headline step (batch 64, seq 128, 20 masked), whose
    attention takes the dense path and its hand-written backward;
-9. times each kernel (CUDA-graph replay) at the bert512 step's shapes
+9. serves GPT-2 small (full width, bf16, random weights from a seed)
+   through ``GenerativeServer(slots=8, top_k=40, prefix_cache=True)`` in
+   two bursts of 12 requests (prompts of 8 to 900 tokens, at least four
+   over 256 so the causal flash runs and four of 128 or fewer, repeats
+   that hit the prefix cache, three sampled at temperature 0.8 with fixed
+   seeds; 64 new tokens each): (a) every greedy stream equals a batch-1
+   ``GPTModel.generate`` of the same model up to a step where the
+   reference's logit of its token leads that of the served token by less
+   than ``GREEDY_TIE_TOL``, and a stream that parts, driven again alone,
+   gives logits within ``GEN_TOL`` of the reference's at every step up to
+   the parting; (b) a prefix hit's stream equals its miss's; (c) a sampled
+   stream is the same in both bursts, among other companions; (d) a
+   prefill at buckets 256, 512 and 1024 with the kernels agrees with the
+   plain versions, and the
+   plain versions with a planted fault (a flash without its causal mask,
+   a LayerNorm gamma 1 % high) do not; (e) the counters rise by exactly 25
+   LayerNorm a prefill and a decode step and 12 flash a prefill at a
+   bucket of 256 or more, none for a prefix inject, and no training
+   kernel; (f) a weight swap through ``save_parameters`` makes a greedy
+   stream the second model's. It prints time to first token, the decode
+   step's host wall, tokens/s and peak memory;
+10. times each kernel (CUDA-graph replay) at the bert512 step's shapes
    against its plain version, its PyTorch library yardstick and its bound
    (the two forward kernels also at a served bucket-8 forward's shapes;
    the flash forward and backward also at head dim 128, SDPA also without
    a mask where every key is valid), dense against flash attention
-   at seq 128 and 512, and dense against flash forward plus backward at
-   seq 64, 128, 256 and 512;
-10. breaks one serving forward at the largest bucket down (host wall, the
+   at seq 128 and 512, dense against flash forward plus backward at
+   seq 64, 128, 256 and 512, and the GPT path's LayerNorm at (8, 768)
+   and causal flash forward at (1, 12, 256, 512 or 1024, 64), each first
+   held to its plain version;
+11. breaks one serving forward at the largest bucket down (host wall, the
     executor's whole dispatch, a new thread's first dispatches, kernel time
     by class from torch.profiler, hence the device's idle share), then one
     bert512 step (kernel time by class, the LayerNorm backward and the
-    optimizer step, the idle share), and times the step once more. The
+    optimizer step, the idle share), then a GPT prefill at bucket 512 and
+    a decode step of 8 slots, and times the step once more. The
     profiler windows come last: after one, an eager step's host wall may
     not return to what it was.
 
@@ -662,8 +686,6 @@ def phase_breakdown(dev, model):
     kernel time by class from torch.profiler, hence the device's idle
     share of the forward."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from mxnet_tpu_torch.serve import BucketedExecutor
 
@@ -702,24 +724,7 @@ def phase_breakdown(dev, model):
     for _ in range(10):
         timed_dispatch(dispatch)
 
-    n_prof = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            forward()
-        torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t0) * 1e3 / n_prof
-    by_class = {"gemm": 0.0, "flash": 0.0, "layernorm": 0.0, "other": 0.0}
-    top = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:  # operators; kernels only
-            continue
-        ms = ev.self_device_time_total / 1e3 / n_prof
-        by_class[_kernel_class(ev.key)] += ms
-        top.append((ms, ev.count // n_prof, ev.key[:90]))
-    top.sort(reverse=True)
-    busy = sum(by_class.values())
+    prof = _profile(forward, 3)
     wall = float(np.median(walls))
     # busy time and wall from the same profiled window; the profiler's own
     # host cost lengthens that wall, so the share leans high
@@ -727,20 +732,21 @@ def phase_breakdown(dev, model):
            "forward_wall_ms_median": wall,
            "dispatch_wall_ms_median": float(np.median(dispatch)),
            "new_thread_dispatch_ms": per_thread,
-           "kernel_ms_per_forward": by_class,
-           "profiled_wall_ms_per_forward": prof_wall,
-           "device_idle_share": 1.0 - busy / prof_wall}
+           "kernel_ms_per_forward": prof["kernel_ms"],
+           "profiled_wall_ms_per_forward": prof["profiled_wall_ms"],
+           "device_idle_share": prof["device_idle_share"]}
     print("breakdown of one bucket-%d forward: host wall %.3f ms, executor "
           "dispatch %.3f ms (medians of 10); a new thread's first three "
           "dispatches %s ms" % (B, wall, out["dispatch_wall_ms_median"],
                                 ["%.1f" % t for t in per_thread]), flush=True)
     print("kernel time per forward by class (torch.profiler): %s; %.3f ms "
           "busy in %.3f ms of wall under the profiler: device idle %.1f%%"
-          % ({k: round(v, 4) for k, v in by_class.items()}, busy, prof_wall,
+          % ({k: round(v, 4) for k, v in prof["kernel_ms"].items()},
+             prof["busy_ms"], prof["profiled_wall_ms"],
              100 * out["device_idle_share"]))
-    for ms, n, name in top[:15]:
+    for ms, n, name in prof["top"]:
         print("  %8.4f ms  x%-4d %s" % (ms, n, name))
-    check(busy > 0, "the profiler saw no kernel time")
+    check(prof["busy_ms"] > 0, "the profiler saw no kernel time")
     return out
 
 
@@ -1402,6 +1408,705 @@ def phase_train_crossover(dev):
     return out
 
 
+# ----------------------------------------------------------- GPT serving
+# GPT-2 small at its published widths (``mxnet_tpu/models/gpt.py:464``
+# ``gpt2_small``), random weights from a seed, bf16 via amp
+GPT_CONFIG = {"vocab_size": 50257, "units": 768, "num_layers": 12,
+              "num_heads": 12, "max_length": 1024}
+GPT_SLOTS = 8
+GPT_TOP_K = 40
+GPT_NEW_TOKENS = 64
+# per burst: (prompt length, temperature, seed); lengths over 256 prefill at
+# buckets 512 and 1024 (flash), 128 or less densely; None repeats an
+# earlier prompt (a prefix-cache hit)
+GPT_BURSTS = (
+    [(300, 0, 0), (16, 0, 0), (450, 0.8, 11), (48, 0, 0), (600, 0, 0),
+     (100, 0.8, 12), (900, 0, 0), (128, 0, 0), (200, 0, 0), (20, 0.8, 13),
+     (64, 0, 0), ("repeat", 1)],
+    [(20, 0.8, 13), (700, 0, 0), (32, 0, 0), (350, 0, 0), (100, 0.8, 12),
+     (80, 0, 0), (512, 0, 0), (8, 0, 0), ("repeat", 0), (450, 0.8, 11),
+     (120, 0, 0), (260, 0, 0)],
+)
+# a greedy stream may part from its batch-1 reference only at a step where
+# the reference's logit of its own token leads its logit of the served
+# token by less than this (twice the largest gap met at a parting on the
+# card, 0.031): the served step runs 8 slots (other GEMM tiles) over a
+# 1024-key cache, the reference one row over its own, both in bf16
+# through 12 layers. Where a stream parts, it is driven again alone and
+# the logits of every step up to the parting are held elementwise to the
+# reference's under GEN_TOL
+GREEDY_TIE_TOL = 0.0625
+# the prefill with the kernels against the same prefill with the plain
+# versions, elementwise: |kernel - plain| <= atol + rtol |plain| + mtol
+# rms, rms that of the plain tensor's row (its head's 64 values, or the
+# logits). Layer 0's K/V come from the first LayerNorm alone: a rounding
+# of its output that falls the other way moves a K or V by less than
+# 2e-3 before it is rounded to bf16, so the two differ by one bf16 step at
+# most (<= 2**-7 |plain|); a 1% gamma moves them by 1% (two to three
+# steps). Later layers and the logits also carry the flash kernel's
+# rounding of p through the layers, a few bf16 steps after 12 layers; a
+# flash without its causal mask moves them by several times their rms
+GEN_TOL_L0 = (2e-3, 2.0 ** -7, 0.0)
+GEN_TOL = (1e-3, 2.0 ** -5, 2.0 ** -3)
+GEN_PREFILL_LENS = (200, 300, 900)  # buckets 256, 512 and 1024
+
+
+def _gpt_requests(vocab):
+    """The two bursts: [(prompt int32, temperature, seed)] each. A sampled
+    request of burst 2 repeats one of burst 1 (same prompt, seed and
+    temperature) among other companions."""
+    rng = np.random.RandomState(SEED)
+    sampled, bursts = {}, []
+    for spec in GPT_BURSTS:
+        burst = []
+        for item in spec:
+            if item[0] == "repeat":
+                burst.append(bursts[0][item[1]] if bursts else burst[item[1]])
+                continue
+            n, temp, seed = item
+            if temp and (n, seed) in sampled:
+                burst.append(sampled[(n, seed)])
+                continue
+            req = (rng.randint(0, vocab, n).astype(np.int32), temp, seed)
+            if temp:
+                sampled[(n, seed)] = req
+            burst.append(req)
+        bursts.append(burst)
+    return bursts
+
+
+def _gpt_model(dev, seed):
+    import torch
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.models.gpt import GPTModel
+
+    model = GPTModel(dropout=0.1, **GPT_CONFIG)
+    model.initialize(device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(seed))
+    amp.convert_hybrid_block(model, "bfloat16")
+    return model
+
+
+def greedy_reference(model, prompt, n, dev):
+    """``GPTModel.generate(use_cache=True)`` at batch 1, step by step as it
+    runs (prefill, then ``step``), with the logits each generated token was
+    chosen from: (tokens, logits (n, V) fp32 on the device)."""
+    import torch
+    from mxnet_tpu_torch.base import next_pow2
+
+    T0 = len(prompt)
+    x = torch.from_numpy(np.asarray(prompt, np.int64)[None]).to(dev)
+    caches = model.init_cache(
+        1, capacity=min(GPT_CONFIG["max_length"], next_pow2(T0 + n)))
+    logits, caches = model.prefill(x, caches)
+    toks, rows = [], []
+    for i in range(n):
+        rows.append(logits.float())
+        nxt = torch.argmax(logits, dim=-1).reshape(1, 1)
+        toks.append(nxt)
+        if i + 1 < n:
+            logits, caches = model.step(nxt, caches, T0 + i)
+    return (torch.cat(toks).reshape(-1).cpu().numpy().tolist(),
+            torch.cat(rows))
+
+
+def top2_gaps(logits):
+    """The top-1 minus top-2 logit of each row, on the host."""
+    import torch
+
+    top2 = torch.topk(torch.as_tensor(logits).float(), 2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]).cpu().numpy()
+
+
+def compare_greedy(got, ref, logits, what):
+    """(tokens compared, the margin where the streams parted or None): equal
+    up to a step where the reference's logit of its token leads its logit
+    of the served token by less than GREEDY_TIE_TOL, after which the stream
+    is not compared. ``logits`` (n, V) are the reference's."""
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if a != b:
+            margin = float(logits[i][b] - logits[i][a])
+            check(margin < GREEDY_TIE_TOL,
+                  "%s: token %d is %d, the batch-1 reference's %d (margin "
+                  "%.4f >= %g)" % (what, i, a, b, margin, GREEDY_TIE_TOL))
+            return i + 1, margin
+    check(len(got) == len(ref), "%s: %d tokens, reference %d"
+          % (what, len(got), len(ref)))
+    return len(got), None
+
+
+def served_logits(srv, prompt, n):
+    """A greedy request of ``n`` tokens served alone, with the logits each
+    token was sampled from: (tokens, logits (n, V) fp32). A slot's row
+    depends on no other slot, so the tokens are those the request got
+    among companions."""
+    import torch
+    from mxnet_tpu_torch.serve import decoder
+
+    rows, sample = [], decoder.sample_tokens
+
+    def recording(logits, *args, **kwargs):
+        # a prefill's (1, V) row, or the live slot's row of a decode step
+        live = logits if logits.shape[0] == 1 else logits[srv._dev_active]
+        rows.append(live.float().clone())
+        return sample(logits, *args, **kwargs)
+
+    decoder.sample_tokens = recording
+    try:
+        with srv:
+            toks = srv.generate(prompt, max_new_tokens=n)
+    finally:
+        decoder.sample_tokens = sample
+    return toks, torch.cat(rows)
+
+
+def check_served_logits(srv, prompt, stream, ref_logits, n, what):
+    """Drive a greedy request again alone for its first ``n`` tokens: the
+    tokens must be ``stream``'s, and each step's logits within GEN_TOL of
+    the reference's. Returns (worst error/limit, max abs error)."""
+    toks, logits = served_logits(srv, prompt, n)
+    check(toks == list(stream[:n]), "%s: served alone, the first %d tokens "
+          "differ from those served among companions" % (what, n))
+    ratio = rms_ratio(logits, ref_logits[:n], GEN_TOL)
+    check(ratio <= 1.0, "%s: the served step's logits disagree with the "
+          "batch-1 reference's (error/limit %.3f)" % (what, ratio))
+    return ratio, max_err(logits, ref_logits[:n])
+
+
+def prefill_state(model, prompt, tp, dev):
+    """One prefill at bucket ``tp``: the last prompt position's logits
+    (fp32) and every layer's K and V over the prompt's positions."""
+    import torch
+    from mxnet_tpu_torch.ops import functional as F
+
+    x = np.zeros((1, tp), np.int64)
+    x[0, :len(prompt)] = prompt
+    with torch.no_grad():
+        logits, kvs = model.forward_collect_kv(
+            F, torch.from_numpy(x).to(dev))
+    n = len(prompt)
+    return (logits[0, n - 1].float(),
+            [(k[0, :, :n].float(), v[0, :, :n].float()) for k, v in kvs])
+
+
+def rms_ratio(a, b, tol):
+    """Worst |a - b| / (atol + rtol |b| + mtol rms), rms that of b's row
+    (its last axis)."""
+    import torch
+
+    atol, rtol, mtol = tol
+    rms = torch.sqrt((b * b).mean(dim=-1, keepdim=True))
+    return float(((a - b).abs() / (atol + rtol * b.abs() + mtol * rms)).max())
+
+
+def gen_worst_ratio(got, ref):
+    """Worst error/limit of a prefill state against another (GEN_TOL_L0 on
+    layer 0's K/V, GEN_TOL on the rest), and where it is."""
+    worst = [(rms_ratio(got[0], ref[0], GEN_TOL), "logits")]
+    for i, ((k, v), (rk, rv)) in enumerate(zip(got[1], ref[1])):
+        tol = GEN_TOL_L0 if i == 0 else GEN_TOL
+        worst += [(rms_ratio(k, rk, tol), "layer %d K" % i),
+                  (rms_ratio(v, rv, tol), "layer %d V" % i)]
+    return max(worst)
+
+
+def flash_causal_dropped(q, k, v, **kw):
+    """A planted fault: the plain flash attention without its causal
+    mask."""
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+
+    return fa.flash_attention_plain(q, k, v, **dict(kw, causal=False))
+
+
+GEN_FAULTS = {"flash without the causal mask": {
+                  "flash_attention": flash_causal_dropped},
+              "LayerNorm gamma 1% high": {
+                  "fused_layernorm": layernorm_gamma_high}}
+
+
+def phase_generate(dev):
+    """GPT-2 small served through GenerativeServer in two bursts (see the
+    module docstring): (a) greedy streams against batch-1 ``generate``,
+    (b) prefix hits against their misses, (c) sampled streams across
+    bursts, (d) a prefill at buckets 256, 512 and 1024 with the kernels
+    against the plain versions, planted faults above the limit, (f) a
+    weight swap. Returns (server, model, result); the launch counts are
+    checked apart (:func:`check_generate_launches`)."""
+    import tempfile
+
+    import torch
+    from mxnet_tpu_torch.base import next_pow2
+    from mxnet_tpu_torch.ops.cuda import _build
+    from mxnet_tpu_torch.serve import GenerativeServer
+
+    t0 = time.perf_counter()
+    model = _gpt_model(dev, SEED)
+    n_params = sum(p.data().numel() for p in model.collect_params().values())
+    srv = GenerativeServer(model, slots=GPT_SLOTS, top_k=GPT_TOP_K,
+                           prefix_cache=True, timeout_ms=600000.0,
+                           device=dev)
+    # the longest prompt of each pow2 bucket the bursts use
+    longest = {}
+    for burst in _gpt_requests(GPT_CONFIG["vocab_size"]):
+        for p, _, _ in burst:
+            b = next_pow2(len(p))
+            longest[b] = max(longest.get(b, 0), len(p))
+    buckets = sorted(longest)
+    srv.warmup(prompt_buckets=[longest[b] for b in buckets],
+               max_tokens=GPT_CONFIG["max_length"])
+    torch.cuda.synchronize()
+    print("gpt2_small: %d parameters, bf16 (norms fp32); GenerativeServer "
+          "slots %d, top_k %d, capacity %d; set-up and warmup (prompt "
+          "buckets %s) %.2f s" % (n_params, GPT_SLOTS, GPT_TOP_K,
+                                  srv.cache.capacity, buckets,
+                                  time.perf_counter() - t0), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    bursts = _gpt_requests(GPT_CONFIG["vocab_size"])
+    streams, timing = [], []
+    m0 = srv.stats()
+    # the main path, every counter at 0 just before it
+    reset_counters()
+    with srv:
+        for burst in bursts:
+            arrivals = [[] for _ in burst]
+            t_burst = time.perf_counter()
+            got = [srv.submit(p, max_new_tokens=GPT_NEW_TOKENS,
+                              temperature=temp, seed=seed)
+                   for p, temp, seed in burst]
+
+            def drain(stream, out):
+                for _ in stream:
+                    out.append(time.perf_counter())
+
+            readers = [threading.Thread(target=drain, args=(s, a))
+                       for s, a in zip(got, arrivals)]
+            for r in readers:
+                r.start()
+            for r in readers:
+                r.join(timeout=600)
+            wall = time.perf_counter() - t_burst
+            check(all(s.done() for s in got), "a stream did not finish")
+            streams.append([s.result(1) for s in got])
+            ttft = {"short": [], "long": []}
+            for (p, _, _), a in zip(burst, arrivals):
+                cls = "short" if len(p) <= 128 else "long"
+                ttft[cls].append((a[0] - t_burst) * 1e3)
+            n_tok = sum(len(s) for s in streams[-1])
+            timing.append({
+                "wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+                **{"ttft_%s_p%d_ms" % (c, q): float(np.percentile(v, q))
+                   for c, v in ttft.items() for q in (50, 99)}})
+            print("gpt burst %d: %d requests, %d tokens in %.3f s, %.1f "
+                  "tokens/s; time to first token short p50 %.2f p99 %.2f "
+                  "ms, long p50 %.2f p99 %.2f ms" % (
+                      len(timing), len(burst), n_tok, wall,
+                      timing[-1]["tokens_per_s"],
+                      timing[-1]["ttft_short_p50_ms"],
+                      timing[-1]["ttft_short_p99_ms"],
+                      timing[-1]["ttft_long_p50_ms"],
+                      timing[-1]["ttft_long_p99_ms"]), flush=True)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    stats = srv.stats()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prefills = stats["prefills"] - m0["prefills"]
+    steps = stats["decode_steps"] - m0["decode_steps"]
+    hits = stats["prefix_hits"] - m0["prefix_hits"]
+    # the misses: first sightings of each prompt, each a prefill at its
+    # pow2 bucket; flash runs at buckets of 256 and more
+    seen, flash_prefills = set(), 0
+    for burst in bursts:
+        for p, _, _ in burst:
+            if p.tobytes() not in seen:
+                seen.add(p.tobytes())
+                flash_prefills += next_pow2(len(p)) >= 256
+    print("gpt serving: %d prefills (%d at buckets >= 256), %d prefix hits, "
+          "%d decode steps; kernel launches %s; step host wall p50 %s p99 %s "
+          "ms; peak memory %.2f GB" % (
+              prefills, flash_prefills, hits, steps, launches,
+              stats["itl_p50_ms"], stats["itl_p99_ms"], peak_gb), flush=True)
+    check(stats["errors"] == 0 and stats["timeouts"] == 0,
+          "generative serving errors: %s" % stats)
+    check(prefills == len(seen) and hits == sum(map(len, bursts)) - len(seen),
+          "prefills %d / hits %d, expected %d / %d" % (
+              prefills, hits, len(seen), sum(map(len, bursts)) - len(seen)))
+    for burst, outs in zip(bursts, streams):
+        for (p, _, _), s in zip(burst, outs):
+            check(len(s) == GPT_NEW_TOKENS
+                  and all(0 <= t < GPT_CONFIG["vocab_size"] for t in s),
+                  "a stream of %d tokens or a token out of range" % len(s))
+
+    # (b) a prefix hit gives its miss's stream, (c) a sampled request its
+    # stream of the other burst
+    by_prompt = {}
+    for burst, outs in zip(bursts, streams):
+        for (p, temp, seed), s in zip(burst, outs):
+            by_prompt.setdefault((p.tobytes(), temp, seed), []).append(s)
+    repeats = [v for v in by_prompt.values() if len(v) > 1]
+    check(len(repeats) == 5, "expected 5 repeated requests, %d" % len(repeats))
+    for v in repeats:
+        check(all(s == v[0] for s in v[1:]),
+              "a repeated request's stream differs: %s" % v)
+    # (a) greedy streams against batch-1 generate
+    t0 = time.perf_counter()
+    compared, parted, gaps = 0, [], []
+    refs, recheck = {}, {}
+    for burst, outs in zip(bursts, streams):
+        for (p, temp, seed), s in zip(burst, outs):
+            if temp:
+                continue
+            if p.tobytes() not in refs:
+                refs[p.tobytes()] = greedy_reference(model, p,
+                                                     GPT_NEW_TOKENS, dev)
+            ref, ref_logits = refs[p.tobytes()]
+            n, margin = compare_greedy(s, ref, ref_logits,
+                                       "greedy stream (prompt %d)" % len(p))
+            compared += n
+            gaps.extend(top2_gaps(ref_logits[:n]).tolist())
+            if margin is not None:
+                parted.append(margin)
+                recheck[p.tobytes()] = (p, s, n)
+    p0, _, _ = bursts[0][0]
+    check(model.generate(p0[None], GPT_NEW_TOKENS, device=dev)[0, len(p0):]
+          .tolist() == refs[p0.tobytes()][0],
+          "the step-by-step reference differs from GPTModel.generate")
+    # every stream that parted, and the first greedy stream in any case,
+    # driven again alone: its logits up to the parting against the
+    # reference's, elementwise
+    recheck.setdefault(p0.tobytes(), (p0, streams[0][0], GPT_NEW_TOKENS))
+    served = [check_served_logits(srv, p, s, refs[p.tobytes()][1], n,
+                                  "greedy stream (prompt %d)" % len(p))
+              for p, s, n in recheck.values()]
+    logits_check = {"streams": len(served),
+                    "steps": sum(n for _, _, n in recheck.values()),
+                    "worst_ratio": max(r for r, _ in served),
+                    "max_abs_err": max(e for _, e in served)}
+    print("gpt greedy streams vs batch-1 generate: %d tokens compared over "
+          "%d streams, %d parted (margin < %g; largest %s; median top-1/"
+          "top-2 gap of the compared steps %.4f); served logits vs the "
+          "reference's over %d steps of %d streams: max abs err %.4g, worst "
+          "error/limit %.3f; %.2f s" % (
+              compared, sum(1 for b in bursts for _, t, _ in b if not t),
+              len(parted), GREEDY_TIE_TOL,
+              "%.4f" % max(parted) if parted else "none",
+              float(np.median(gaps)), logits_check["steps"],
+              logits_check["streams"], logits_check["max_abs_err"],
+              logits_check["worst_ratio"], time.perf_counter() - t0),
+          flush=True)
+
+    # (d) a prefill at buckets 256, 512 and 1024 with the kernels against
+    # the plain versions, and planted faults against the limit
+    rng = np.random.RandomState(SEED + 7)
+    prefills_vs_plain = []
+    for length in GEN_PREFILL_LENS:
+        prompt = rng.randint(0, GPT_CONFIG["vocab_size"],
+                             length).astype(np.int32)
+        tp = next_pow2(length)
+        got = prefill_state(model, prompt, tp, dev)
+        reset_counters()
+        with plain_versions():
+            ref = prefill_state(model, prompt, tp, dev)
+        check(not any(read_counters().values()),
+              "the plain prefill launched a kernel: %s" % read_counters())
+        check(bool(torch.isfinite(got[0]).all()), "non-finite prefill logits")
+        prefill = {"prompt": length, "bucket": tp,
+                   "max_abs_err_logits": max_err(got[0], ref[0]),
+                   "max_abs_err_kv": max(max_err(a, b) for x, y in
+                                         zip(got[1], ref[1])
+                                         for a, b in zip(x, y)),
+                   "worst": gen_worst_ratio(got, ref), "faults": {}}
+        for name, override in GEN_FAULTS.items():
+            with plain_versions(**override):
+                bad = prefill_state(model, prompt, tp, dev)
+            prefill["faults"][name] = gen_worst_ratio(bad, ref)
+        print("gpt prefill (%d tokens, bucket %d) with kernels vs plain "
+              "versions: max abs err logits %.4g, K/V %.4g; worst "
+              "error/limit %.3f at %s; planted faults %s" % (
+                  length, tp, prefill["max_abs_err_logits"],
+                  prefill["max_abs_err_kv"], *prefill["worst"],
+                  {k: "%.3f at %s" % v for k, v in prefill["faults"].items()}),
+              flush=True)
+        check(prefill["worst"][0] <= 1.0, "the prefill at bucket %d with the "
+              "kernels disagrees with the plain versions" % tp)
+        for name, (r, _) in prefill["faults"].items():
+            check(r > 1.0, "the prefill limit at bucket %d misses the planted "
+                  "fault %r" % (tp, name))
+        prefills_vs_plain.append(prefill)
+
+    # (f) a weight swap: a second model's parameters through a file
+    model2 = _gpt_model(dev, SEED + 1)
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+    path = os.path.join(tmp, "gpt2_seed1.params")
+    try:
+        model2.save_parameters(path)
+        epoch = srv.swap_parameters(path)
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+        os.rmdir(tmp)
+    check(len(srv.prefix) == 0, "the swap left the prefix cache filled")
+    p = bursts[0][1][0]  # a prompt the prefix cache held
+    misses = srv.prefix.misses
+    with srv:
+        swapped = srv.generate(p, max_new_tokens=GPT_NEW_TOKENS)
+    check(srv.prefix.misses == misses + 1, "a swapped server hit a stale "
+          "prefix entry")
+    ref2, logits2 = greedy_reference(model2, p, GPT_NEW_TOKENS, dev)
+    n_swap, margin_swap = compare_greedy(swapped, ref2, logits2,
+                                         "greedy stream after the swap")
+    swap_ratio, swap_err = check_served_logits(
+        srv, p, swapped, logits2, n_swap, "greedy stream after the swap")
+    check(swapped != streams[0][1],
+          "the swapped model generates the old model's stream")
+    print("gpt weight swap (epoch %d): the stream equals the second model's "
+          "generate over %d tokens (parted at a margin of %s); its logits "
+          "within %.3f of the limit (max abs err %.4g)"
+          % (epoch, n_swap, margin_swap, swap_ratio, swap_err), flush=True)
+    del model2
+    result = {"model": dict(GPT_CONFIG, dtype="bfloat16",
+                            parameters=n_params),
+              "slots": GPT_SLOTS, "top_k": GPT_TOP_K,
+              "max_new_tokens": GPT_NEW_TOKENS, "bursts": timing,
+              "prefills": prefills, "flash_prefills": flash_prefills,
+              "prefix_hits": hits, "decode_steps": steps,
+              "launches": launches,
+              "greedy_tokens_compared": compared, "parted": len(parted),
+              "parting_margins": parted,
+              "median_top2_gap": float(np.median(gaps)),
+              "greedy_tie_tol": GREEDY_TIE_TOL,
+              "served_logits_vs_reference": logits_check,
+              "prefill_vs_plain": prefills_vs_plain,
+              "swap": {"epoch": epoch, "tokens_compared": n_swap,
+                       "parting_margin": margin_swap,
+                       "logits_worst_ratio": swap_ratio,
+                       "logits_max_abs_err": swap_err},
+              "server_stats": stats, "peak_memory_gb": peak_gb}
+    return srv, model, result
+
+
+def check_generate_launches(gen):
+    """Exact launch counts of the serving run: 25 LayerNorm a prefill and a
+    decode step (a prefix inject launches none), 12 flash forward a
+    prefill at a bucket of 256 or more, no training kernel."""
+    n = gen["launches"]
+    want = {"layernorm": 25 * (gen["prefills"] + gen["decode_steps"]),
+            "flash_attention_fwd": 12 * gen["flash_prefills"]}
+    for name, count in n.items():
+        check(count == want.get(name, 0), "gpt serving: %s launches %d, "
+              "expected %d" % (name, count, want.get(name, 0)))
+
+
+def phase_generate_launches(dev, srv):
+    """Launches of single requests through the server: a prefill at bucket
+    512 and at 128 (max_new_tokens 1: no decode step), a prefix hit of the
+    first (no kernel), and one decode step (max_new_tokens 2)."""
+    rng = np.random.RandomState(SEED + 8)
+    long_p = rng.randint(0, GPT_CONFIG["vocab_size"], 400).astype(np.int32)
+    short_p = rng.randint(0, GPT_CONFIG["vocab_size"], 100).astype(np.int32)
+    out = {}
+    with srv:
+        for name, prompt, n_new in (("prefill bucket 512", long_p, 1),
+                                    ("prefix inject", long_p, 1),
+                                    ("prefill bucket 128", short_p, 1),
+                                    ("prefill 128 + one decode step",
+                                     short_p[::-1].copy(), 2)):
+            reset_counters()
+            srv.generate(prompt, max_new_tokens=n_new)
+            out[name] = read_counters()
+    want = {"prefill bucket 512": {"layernorm": 25,
+                                   "flash_attention_fwd": 12},
+            "prefix inject": {},
+            "prefill bucket 128": {"layernorm": 25},
+            "prefill 128 + one decode step": {"layernorm": 50}}
+    print("gpt launches of single requests: %s" % out, flush=True)
+    for name, counts in out.items():
+        for k, n in counts.items():
+            check(n == want[name].get(k, 0), "gpt %s: %s launches %d, "
+                  "expected %d" % (name, k, n, want[name].get(k, 0)))
+    return out
+
+
+def _flash_causal_bound(B, H, T, D):
+    """(operations, bytes) least times of a causal flash forward in bf16
+    without the lse: each query row against the keys up to it (two
+    products over T (T + 1) / 2 pairs), q, k, v read and o written once."""
+    ops = 4 * B * H * D * T * (T + 1) // 2
+    return ops / PEAK_BF16, 4 * B * H * T * D * 2 / PEAK_BYTES
+
+
+def phase_generate_timing(dev, records, gen):
+    """The two kernels of the generative path at its shapes, added to their
+    records under ``generate``: LayerNorm at a decode step's (8, 768) rows
+    (eps 1e-5), the causal flash forward of a prefill at buckets 256, 512
+    and 1024 (batch 1), each held to its plain version and then timed
+    against it, its library call and its bound. The launches a prefill and
+    a decode step are the single requests' readings."""
+    import torch
+    import torch.nn.functional as TF
+    from mxnet_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from mxnet_tpu_torch.ops.cuda.layernorm import (fused_layernorm,
+                                                    layernorm_plain)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rec = {r["name"]: r for r in records}
+    single = gen["single_requests"]
+    prefill_128, prefill_512 = (single["prefill bucket 128"],
+                                single["prefill bucket 512"])
+    with_step = single["prefill 128 + one decode step"]
+    inject = single["prefix inject"]
+    C = GPT_CONFIG["units"]
+    x = torch.randn(GPT_SLOTS, C, device=dev, generator=g).to(torch.bfloat16)
+    gamma = torch.randn(C, device=dev, generator=g)
+    beta = torch.randn(C, device=dev, generator=g)
+    gb, bb = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+    reading = held(fused_layernorm(x, gamma, beta, 1e-5),
+                   layernorm_plain(x, gamma, beta, 1e-5), BF16_TOL,
+                   "gpt layernorm (%d, %d) bf16 eps 1e-05" % (GPT_SLOTS, C))
+    t = time_ms(lambda: fused_layernorm(x, gamma, beta, 1e-5),
+                lambda: layernorm_plain(x, gamma, beta, 1e-5),
+                lambda: TF.layer_norm(x, (C,), gb, bb, 1e-5))
+    t_ops, t_bytes = _ln_bound(GPT_SLOTS, C, 2)
+    launches = gen["launches"]
+    rec["layernorm_fwd"]["generate"] = {
+        "launches": launches["layernorm"],
+        "launches_per_prefill": prefill_512["layernorm"],
+        "launches_per_decode_step": with_step["layernorm"]
+        - prefill_128["layernorm"],
+        "launches_per_prefix_inject": inject["layernorm"],
+        "decode_step": dict(zip(("ms", "plain_ms", "library_ms"), t),
+                            shape=[GPT_SLOTS, C], check=reading,
+                            max_abs_err=reading["max_abs_err"],
+                            bound_ms=max(t_ops, t_bytes) * 1e3,
+                            bound_by="operations" if t_ops >= t_bytes
+                            else "bytes")}
+    causal = []
+    H, D = GPT_CONFIG["num_heads"], GPT_CONFIG["units"] // \
+        GPT_CONFIG["num_heads"]
+    for T in (256, 512, 1024):
+        q, k, v = _qkv(dev, g, 1, H, T, D)
+        reading = held(flash_attention(q, k, v, causal=True),
+                       flash_attention_plain(q, k, v, causal=True),
+                       FLASH_TOL, "gpt flash causal (1, %d, %d, %d)"
+                       % (H, T, D),
+                       mag=flash_magnitude(q, k, v, causal=True))
+        t = time_ms(lambda: flash_attention(q, k, v, causal=True),
+                    lambda: flash_attention_plain(q, k, v, causal=True),
+                    lambda: TF.scaled_dot_product_attention(q, k, v,
+                                                            is_causal=True))
+        t_ops, t_bytes = _flash_causal_bound(1, H, T, D)
+        causal.append(dict(zip(("ms", "plain_ms", "library_ms"), t),
+                           shape=[1, H, T, D], check=reading,
+                           max_abs_err=reading["max_abs_err"],
+                           bound_ms=max(t_ops, t_bytes) * 1e3,
+                           bound_by="operations" if t_ops >= t_bytes
+                           else "bytes"))
+    rec["flash_attention_fwd"]["generate"] = {
+        "launches": launches["flash_attention_fwd"],
+        "launches_per_prefill_at_bucket_256_or_more":
+            prefill_512["flash_attention_fwd"],
+        "launches_per_prefill_below_256": prefill_128["flash_attention_fwd"],
+        "launches_per_decode_step": with_step["flash_attention_fwd"]
+        - prefill_128["flash_attention_fwd"],
+        "launches_per_prefix_inject": inject["flash_attention_fwd"],
+        "causal_prefill": causal,
+        "library": "scaled_dot_product_attention(is_causal=True)"}
+    for what, r in [("layernorm (%d, %d)" % (GPT_SLOTS, C),
+                     rec["layernorm_fwd"]["generate"]["decode_step"])] + [
+            ("flash causal %s" % c["shape"], c) for c in causal]:
+        print("time gpt %-28s kernel %.4f ms, plain %.4f ms, library %.4f ms,"
+              " bound %.5f ms (%s)" % (what, r["ms"], r["plain_ms"],
+                                       r["library_ms"], r["bound_ms"],
+                                       r["bound_by"]), flush=True)
+
+
+def _profile(fn, n):
+    """Kernel ms by class a call of ``fn`` over ``n`` calls under
+    torch.profiler, the profiled wall a call, the device's idle share of
+    it, and the top 15 kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    by_class = {"gemm": 0.0, "flash": 0.0, "layernorm": 0.0, "other": 0.0}
+    top = []
+    for ev in prof.key_averages():
+        # kernels only: a profiler range's device-side event is its span
+        if ev.device_type != DeviceType.CUDA \
+                or ev.key.startswith("mxnet_tpu_torch::"):
+            continue
+        ms = ev.self_device_time_total / 1e3 / n
+        by_class[_kernel_class(ev.key)] += ms
+        top.append((ms, ev.count // n, ev.key[:90]))
+    top.sort(reverse=True)
+    busy = sum(by_class.values())
+    return {"kernel_ms": by_class, "busy_ms": busy,
+            "profiled_wall_ms": wall, "device_idle_share": 1.0 - busy / wall,
+            "top": top[:15]}
+
+
+def phase_generate_breakdown(dev, model, n_prof=4):
+    """Where a 512-token prefill (bucket 512) and a decode step of 8 live
+    slots spend their time, on a new server driven tick by tick: kernel ms
+    by class, the profiled wall and the device's idle share; the decode
+    step's host wall before the profiler."""
+    import torch
+    from mxnet_tpu_torch.serve import GenerativeServer
+    from mxnet_tpu_torch.serve.decoder import GenerationStream
+
+    srv = GenerativeServer(model, slots=GPT_SLOTS, top_k=GPT_TOP_K,
+                           timeout_ms=600000.0, device=dev)
+    srv.cache.ensure_capacity(GPT_CONFIG["max_length"])
+    rng = np.random.RandomState(SEED + 10)
+    prompt = rng.randint(0, GPT_CONFIG["vocab_size"], 512).astype(np.int32)
+    slot = srv.cache.acquire(GenerationStream(prompt, 1, 0.0, 0, 0))
+    srv._prefill(slot, prompt, 0, 0.0)
+    torch.cuda.synchronize()
+    prefill = _profile(lambda: srv._prefill(slot, prompt, 0, 0.0), n_prof)
+    srv.cache.release(slot)
+    streams = [srv.submit(rng.randint(0, GPT_CONFIG["vocab_size"], 64),
+                          max_new_tokens=GPT_NEW_TOKENS)
+               for _ in range(GPT_SLOTS)]
+    # the dispatcher thread hands each request to the join queue
+    deadline = time.perf_counter() + 10.0
+    while len(srv._join_q) < GPT_SLOTS and time.perf_counter() < deadline:
+        time.sleep(0.001)
+    srv.step()  # admits all eight (the loop thread is not running)
+    check(srv.cache.num_active == GPT_SLOTS, "breakdown: %d slots live"
+          % srv.cache.num_active)
+    walls = []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        srv.step()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    decode = _profile(srv.step, n_prof)
+    decode["host_wall_ms_median"] = float(np.median(walls))
+    srv.stop()
+    check(all(s.done() for s in streams), "breakdown streams left running")
+    for what, r in (("prefill bucket 512", prefill),
+                    ("decode step, 8 slots", decode)):
+        print("gpt %s breakdown (torch.profiler, %d calls): kernel ms by "
+              "class %s; %.3f ms busy in %.3f ms of wall: device idle %.1f%%"
+              % (what, n_prof, {k: round(v, 4) for k, v in
+                                r["kernel_ms"].items()}, r["busy_ms"],
+                 r["profiled_wall_ms"], 100 * r["device_idle_share"]),
+              flush=True)
+        for ms, n, name in r["top"]:
+            print("  %8.4f ms  x%-4d %s" % (ms, n, name))
+        check(r["busy_ms"] > 0, "the profiler saw no kernel time")
+    print("gpt decode step host wall before the profiler: median %.3f ms of "
+          "8" % decode["host_wall_ms_median"], flush=True)
+    return {"prefill_bucket_512": prefill, "decode_step": decode}
+
+
 def main():
     try:
         import torch
@@ -1448,16 +2153,21 @@ def main():
         model, serve_launches, forwards, serve_vl, serving = phase_serve(dev)
         step, train = phase_train(dev)
         bert128 = phase_bert128(dev)
+        gen_srv, gen_model, gen = phase_generate(dev)
+        check_generate_launches(gen)
+        gen["single_requests"] = phase_generate_launches(dev, gen_srv)
         records, crossover = phase_timing(
             dev, train["launches"], train["steps_counted"], errs,
             serve_launches, forwards, serve_vl)
         records += phase_train_timing(dev, train["launches"], errs,
                                       train["steps_counted"])
         train_crossover = phase_train_crossover(dev)
+        phase_generate_timing(dev, records, gen)
         # the profiler windows come last: once a profiler session has run,
         # an eager step's host wall may not return to what it was before
         breakdown = phase_breakdown(dev, model)
         train["breakdown"] = phase_train_breakdown(step)
+        gen["breakdown"] = phase_generate_breakdown(dev, gen_model)
         for r in records:
             if r["name"] == "flash_attention_bwd":
                 r["dq_pass_share"] = train["breakdown"][
@@ -1472,7 +2182,7 @@ def main():
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"checks": checks, "serving": serving,
                       "breakdown": breakdown, "train_bert512": train,
-                      "train_bert128": bert128,
+                      "train_bert128": bert128, "generate": gen,
                       "attention_dense_vs_flash": crossover,
                       "attention_fwd_bwd_dense_vs_flash": train_crossover,
                       "card": card}))

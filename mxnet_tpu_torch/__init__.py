@@ -2,9 +2,12 @@
 
 A second package beside the JAX one, which stays the reference. It serves
 BERT (Gluon blocks and layers over torch tensors, the BERT model, the
-attention seam, the bucketed dynamic-batching ModelServer) and trains it
+attention seam, the bucketed dynamic-batching ModelServer), trains it
 (``autograd.record``/``backward``, the softmax cross-entropy loss, Adam and
-``gluon.Trainer``), with hand-written CUDA kernels (sm_90a) for the
+``gluon.Trainer``), serves GPT generatively (the GPT model, a paged KV
+cache and the continuous-batching GenerativeServer), and reads and writes
+the JAX package's parameter, trainer-state and checkpoint files
+(``checkpoint``), with hand-written CUDA kernels (sm_90a) for the
 LayerNorm, the flash-attention forward and backward, and the softmax
 cross-entropy forward and backward. Entry points run on the current CUDA
 device unless the caller passes ``device="cpu"``. The package imports
@@ -14,3 +17,4 @@ from . import base, context, util  # noqa: F401
 from .context import cpu, gpu, num_gpus  # noqa: F401
 from . import autograd, random, optimizer  # noqa: F401
 from . import ops, initializer, gluon, amp, convert, models, serve  # noqa: F401
+from . import checkpoint  # noqa: F401

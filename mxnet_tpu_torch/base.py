@@ -66,6 +66,15 @@ def resolve_device(device=None):
     return device
 
 
+def next_pow2(n):
+    """Smallest power of two >= n: the bucket rounding of decode cache
+    capacities and prompt lengths."""
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
 OP_REGISTRY: Dict[str, Callable] = {}
 
 

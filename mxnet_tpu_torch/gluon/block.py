@@ -9,6 +9,11 @@ model's parameter names match the JAX package's one to one up to the root's
 counter. The port runs eagerly: there is no trace, and ``hybridize`` is a
 no-op kept for API parity. A forward builds a torch autograd graph only
 inside ``autograd.record()``, as in MXNet.
+
+``save_parameters``/``load_parameters`` write and read the JAX package's
+parameter files (``util.save_npz_exact`` under structural names such as
+``blocks.0.attn.qkv.weight``), so a file either package writes loads in the
+other with identical bits.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import torch
 
 from .. import autograd, ops
 from ..base import resolve_device
+from ..util import load_npz_exact, save_npz_exact
 from .parameter import Parameter, ParameterDict
 
 _naming = threading.local()
@@ -153,6 +159,86 @@ class Block(torch.nn.Module):
         items += [(p.name, p) for p in self._reg_params.values()
                   if id(p) not in seen]
         return items
+
+    def _collect_params_with_prefix(self, prefix=""):
+        """Parameters keyed by structural names (``0.weight``,
+        ``blocks.1.ln1.gamma``) relative to this block. They do not depend
+        on the auto-numbered prefixes (``dense0_`` in one process,
+        ``dense20_`` in another), which is what makes parameter files
+        portable. A parameter shared between blocks appears under each of
+        its names."""
+        if prefix:
+            prefix += "."
+        ret = {}
+        bp = self._params.prefix
+        for gname, p in self._own_items():
+            local = gname[len(bp):] if bp and gname.startswith(bp) else gname
+            ret[prefix + local] = p
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def save_parameters(self, filename, deduplicate=False):
+        """Write every parameter under its structural name, dtype-exact
+        (bf16 stays bf16). With ``deduplicate`` a shared parameter is
+        written once, under its first name; any of its names loads it."""
+        params = self._collect_params_with_prefix()
+        uninit = [n for n, p in params.items() if p._data is None]
+        if uninit:
+            raise RuntimeError(
+                "save_parameters: parameters %s are not initialized "
+                "(deferred shapes: run one forward first)" % uninit[:5])
+        arrays, seen = {}, set()
+        for name, p in params.items():
+            if deduplicate and id(p) in seen:
+                continue
+            seen.add(id(p))
+            arrays[name] = p.data()
+        save_npz_exact(filename, arrays)
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Set the parameters from a file ``save_parameters`` wrote (either
+        package's). A parameter keeps its device; one that holds no value
+        yet goes to ``ctx`` (default: the current CUDA device). Each value
+        is cast to the parameter's dtype, or with ``cast_dtype`` and
+        ``dtype_source="saved"`` the parameter takes the file's dtype.
+        Files keyed by global names (the legacy ``ParameterDict.save``
+        format) are not read by the port."""
+        params = self._collect_params_with_prefix()
+        loaded = load_npz_exact(filename)
+        if loaded and params and not set(loaded) & set(params):
+            raise KeyError(
+                "%s holds none of this block's structural parameter names "
+                "(a file keyed by global names?): the legacy global-name "
+                "format is not ported yet (ROADMAP.md A.7)" % filename)
+        # a shared Parameter appears under several names; a deduplicated
+        # file holds only the first, so take the value from any of them
+        by_id = {}
+        for name, p in params.items():
+            by_id.setdefault(id(p), []).append(name)
+        device = None
+        for name, p in params.items():
+            key = name if name in loaded else next(
+                (a for a in by_id[id(p)] if a in loaded), None)
+            if key is None:
+                if not allow_missing:
+                    raise KeyError("Parameter %s missing in file %s"
+                                   % (name, filename))
+                continue
+            value = loaded[key]
+            if cast_dtype and dtype_source == "saved":
+                p.cast(value.dtype)
+            if p._data is None:
+                if device is None:
+                    device = resolve_device(ctx)
+                value = value.to(device)
+            p.set_data(value)
+        if not ignore_extra:
+            extra = set(loaded) - set(params)
+            if extra:
+                raise KeyError("Extra parameters in file: %s" % sorted(extra))
 
     def initialize(self, init=None, device=None, generator=None,
                    force_reinit=False):

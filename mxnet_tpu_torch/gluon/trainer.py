@@ -6,13 +6,56 @@ Every dense parameter goes through one multi-tensor optimizer step a call
 kvstore is the local one: ``"device"``, ``"local"`` or ``None``. Other
 kvstores, gradient compression and weight-update sharding raise
 ``NotImplementedError`` until the distributed part of the port lands
-(``ROADMAP.md`` A.12); saving and loading the trainer's state waits for
-checkpoint interchange (A.7).
+(``ROADMAP.md`` A.12).
+
+``save_states``/``load_states`` write and read the JAX Trainer's state
+file: a pickle of ``num_update``, ``update_count`` and ``arrays``, the
+state leaves in the order ``jax.tree_util.tree_flatten`` gives the JAX
+Trainer's ``_states`` dict. That order is the parameter indices sorted,
+then each state's leaves: a multi-precision state ``{"master", "state"}``
+gives its keys sorted (the fp32 master, then the inner state), and Adam's
+inner state is the tuple (mean, variance). Every leaf is an fp32 array.
 """
 from __future__ import annotations
 
+import io
+import pickle
+
+import numpy as np
+import torch
+
 from .. import optimizer as opt
 from .parameter import ParameterDict
+
+# what a state file may name when unpickled: numpy's array reconstruction,
+# and ml_dtypes' types (bf16 arrays from the JAX package), which load as raw
+# bytes to be refused with the array named, so ml_dtypes is never needed
+_PICKLE_GLOBALS = {("numpy._core.multiarray", "_reconstruct"),
+                   ("numpy.core.multiarray", "_reconstruct"),
+                   ("numpy._core.multiarray", "scalar"),
+                   ("numpy.core.multiarray", "scalar"),
+                   ("numpy", "ndarray"), ("numpy", "dtype")}
+
+
+class _StateUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.split(".")[0] == "ml_dtypes":
+            return np.void
+        if (module, name) not in _PICKLE_GLOBALS:
+            raise pickle.UnpicklingError(
+                "trainer state file names %s.%s, which it may not"
+                % (module, name))
+        return super().find_class(module, name)
+
+
+def _state_leaves(state):
+    """A state's tensors in ``jax.tree_util.tree_flatten`` order: dict
+    values by sorted key, tuple and list items in order."""
+    if isinstance(state, torch.Tensor):
+        return [state]
+    if isinstance(state, dict):
+        return [t for k in sorted(state) for t in _state_leaves(state[k])]
+    return [t for item in state for t in _state_leaves(item)]
 
 LOCAL_KVSTORES = ("device", "local", None)
 
@@ -76,10 +119,52 @@ class Trainer:
         for p in self._params:
             p.zero_grad()
 
+    def _leaves(self):
+        """[(parameter name, leaf tensor)] of every state, in file order."""
+        return [(self._params[i].name, t) for i in sorted(self._states)
+                for t in _state_leaves(self._states[i])]
+
     def save_states(self, fname):
-        raise NotImplementedError("trainer state checkpoints are not ported "
-                                  "yet (ROADMAP.md A.7)")
+        """Write the optimizer state in the JAX Trainer's format (see the
+        module docstring)."""
+        arrays = [t.detach().cpu().numpy() for _, t in self._leaves()]
+        with open(fname, "wb") as f:
+            pickle.dump({"num_update": self._optimizer.num_update,
+                         "update_count":
+                             dict(self._optimizer._index_update_count),
+                         "arrays": arrays}, f)
 
     def load_states(self, fname):
-        raise NotImplementedError("trainer state checkpoints are not ported "
-                                  "yet (ROADMAP.md A.7)")
+        """Read a state file either package wrote. The state of every
+        parameter is made first, then filled from the file's arrays in
+        order. Every array must be fp32 with its leaf's shape; a bf16 array
+        (the JAX package writes one only for an optimizer whose state takes
+        the weight's dtype) raises, naming the array, before any state
+        changes."""
+        with open(fname, "rb") as f:
+            blob = _StateUnpickler(io.BytesIO(f.read())).load()
+        for i, p in enumerate(self._params):
+            if i not in self._states and p._data is not None:
+                self._states[i] = self._optimizer.create_state(i, p.data())
+        leaves = self._leaves()
+        arrays = blob["arrays"]
+        if len(arrays) != len(leaves):
+            raise ValueError("%s holds %d state arrays, this trainer's "
+                             "optimizer state has %d"
+                             % (fname, len(arrays), len(leaves)))
+        for j, ((name, t), a) in enumerate(zip(leaves, arrays)):
+            what = "%s: arrays[%d] (a state of %s)" % (fname, j, name)
+            if a.dtype.kind == "V" or a.dtype != np.float32:
+                raise TypeError(
+                    "%s is %s, not float32; the port loads fp32 optimizer "
+                    "states only" % (what, "bfloat16 or another ml_dtypes "
+                                     "type" if a.dtype.kind == "V"
+                                     else a.dtype))
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError("%s has shape %s, the state %s"
+                                 % (what, a.shape, tuple(t.shape)))
+        with torch.no_grad():
+            for (_, t), a in zip(leaves, arrays):
+                t.copy_(torch.from_numpy(np.array(a, copy=True)))
+        self._optimizer.num_update = blob["num_update"]
+        self._optimizer._index_update_count = dict(blob["update_count"])

@@ -1,2 +1,3 @@
 """Models of the port."""
-from . import bert  # noqa: F401
+from . import bert, gpt  # noqa: F401
+from .gpt import GPTModel, gpt2_small, gpt_nano  # noqa: F401

@@ -10,6 +10,10 @@ its hand-written backward ``_dense_attention_bwd``. When autograd records
 takes the differentiable op, whose forward also writes the logsumexp;
 otherwise, as in serving, it launches the forward alone.
 
+``cache_write`` is the decode cache's write: it writes new K/V rows into
+a preallocated fixed-capacity cache in place, so a decode step allocates
+no KV page (the counterpart of the JAX package's buffer donation).
+
 The flash threshold is the port's own. It starts at the JAX package's
 static pre-sweep value, 256, so BERT at seq 512 goes through the kernel;
 ``chip_smoke.py`` times dense against flash at seq 128 and 512 on the card,
@@ -118,3 +122,30 @@ def scaled_dot_attention(q, k, v, mask=None, *, causal=False, scale=None,
         return flash_attention(q, k, v, causal=causal, scale=scale,
                                kv_valid_len=vl)
     return dense_attention(q, k, v, mask, causal=causal, scale=scale)
+
+
+@register_op("cache_write")
+def cache_write(cache, update, index):
+    """Write ``update`` (B, H, T, D) into the fixed-capacity KV cache
+    ``cache`` (B, H, C, D) at time offset ``index`` along axis 2, in place,
+    and return ``cache``.
+
+    ``index`` is a scalar (an int or a 0-d tensor: every row at one
+    offset, as prefill and the uniform decode loop write) or a per-row
+    ``(B,)`` tensor (continuous batching: each slot at its own position).
+    As ``lax.dynamic_update_slice`` under the JAX op, the start clamps to
+    ``[0, C - T]``; a tensor index is clamped on its device, with no host
+    read."""
+    T, C = update.shape[2], cache.shape[2]
+    update = update.to(cache.dtype)
+    if not isinstance(index, torch.Tensor):
+        start = min(max(int(index), 0), C - T)
+        cache[:, :, start:start + T].copy_(update)
+        return cache
+    start = torch.clamp(index.to(device=cache.device, dtype=torch.int64),
+                        0, C - T)
+    pos = start.reshape(-1, 1) + torch.arange(T, device=cache.device)
+    pos = pos.expand(cache.shape[0], T)  # a scalar start: every row
+    B, H, _, D = cache.shape
+    cache.scatter_(2, pos[:, None, :, None].expand(B, H, T, D), update)
+    return cache

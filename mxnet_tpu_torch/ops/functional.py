@@ -1,4 +1,4 @@
-"""Functional ops BERT inference and training need (counterpart of
+"""Functional ops BERT and GPT need (counterpart of
 ``mxnet_tpu/ops/functional.py``), as eager PyTorch.
 
 ``hybrid_forward(F, ...)`` receives this module as ``F``. Each op keeps the
@@ -15,7 +15,8 @@ import torch
 
 from .. import random as _random
 from ..base import register_op, resolve_device, resolve_dtype
-from .attention import scaled_dot_attention  # noqa: F401  (F.scaled_dot_attention)
+from .attention import (cache_write,  # noqa: F401  (F.cache_write,
+                        scaled_dot_attention)  # F.scaled_dot_attention)
 from .cuda.layernorm import layernorm
 from .cuda.softmax_xent import softmax_xent
 
@@ -154,6 +155,26 @@ def arange(start, stop=None, step=1.0, *, dtype="float32", ctx=None):
 def lesser(a, b):
     """Elementwise a < b as 0/1 in a's dtype (MXNet's comparison ops)."""
     return (a < b).to(a.dtype)
+
+
+@register_op("lesser_equal")
+def lesser_equal(a, b):
+    """Elementwise a <= b as 0/1 in a's dtype."""
+    return (a <= b).to(a.dtype)
+
+
+@register_op("argmax")
+def argmax(x, *, axis=None, keepdims=False):
+    """Index of the largest element (the first one on ties, as
+    ``jnp.argmax``), as float32: MXNet returns float indices."""
+    if axis is None:
+        return torch.argmax(x).to(torch.float32)
+    return torch.argmax(x, dim=axis, keepdim=keepdims).to(torch.float32)
+
+
+@register_op("concat")
+def concat(*xs, dim=1):
+    return torch.cat(xs, dim=dim)
 
 
 @register_op("dot")

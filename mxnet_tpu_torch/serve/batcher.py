@@ -1,13 +1,15 @@
 """Dynamic request batcher (counterpart of ``mxnet_tpu/serve/batcher.py``
-``DynamicBatcher``, without priority classes and request tracing).
+``DynamicBatcher``, without request tracing).
 
 Single requests land in a bounded thread-safe queue; a worker coalesces
 them into the largest batch that fits under a ``max_wait_ms`` deadline: the
 first request in a window starts the clock, late arrivals ride along until
 the batch fills or the deadline passes. Admission control sheds load at
-enqueue time (``ServerBusy``); each request carries its own timeout and
-fails with ``ServeTimeout`` if it expires in the queue. Dispatch is the
-callable the server wires in, run on a small dispatcher pool.
+enqueue time (``ServerBusy``), by priority class: a full queue makes room
+for a request by shedding a queued one of a lower class. Each request
+carries its own timeout and fails with ``ServeTimeout`` if it expires in
+the queue. Dispatch is the callable the server wires in, run on a small
+dispatcher pool.
 """
 from __future__ import annotations
 
@@ -30,15 +32,16 @@ class ServeTimeout(ServeError):
 
 
 class _Request:
-    __slots__ = ("inputs", "n", "t_submit", "deadline", "_event", "_result",
-                 "_error", "_done", "_lock")
+    __slots__ = ("inputs", "n", "t_submit", "deadline", "priority", "_event",
+                 "_result", "_error", "_done", "_lock")
 
-    def __init__(self, inputs, n, timeout_ms):
+    def __init__(self, inputs, n, timeout_ms, priority=0):
         self.inputs = inputs
         self.n = n  # rows this request contributes to a batch
         self.t_submit = time.perf_counter()
         self.deadline = (self.t_submit + timeout_ms / 1e3
                          if timeout_ms else None)
+        self.priority = int(priority)  # higher = more urgent
         self._event = threading.Event()
         self._result = None
         self._error = None
@@ -57,8 +60,9 @@ class _Request:
         self._event.set()
         return True
 
-    def expired(self, now):
-        return self.deadline is not None and now > self.deadline
+    def expired(self, now=None):
+        return self.deadline is not None \
+            and (now or time.perf_counter()) > self.deadline
 
     def result(self, timeout_s=None):
         if not self._event.wait(timeout_s):
@@ -104,10 +108,10 @@ class DynamicBatcher:
             self._worker.start()
         return self
 
-    def stop(self, drain=True, timeout_s=5.0):
+    def stop(self, drain=True, timeout_s=5.0, reason="server stopped"):
         """Stop the worker and the dispatcher pool. drain=True dispatches
         what is queued first; whatever is left after the bounded join is
-        rejected with ServeError, so no caller is left waiting."""
+        rejected with ServeError(reason), so no caller is left waiting."""
         with self._cond:
             self._stop = True
             pending = [] if drain else list(self._queue)
@@ -115,7 +119,7 @@ class DynamicBatcher:
                 self._queue.clear()
                 self._queued_rows = 0
             self._cond.notify_all()
-        err = ServeError("server stopped")
+        err = ServeError(reason)
         for r in pending:
             r.finish(error=err)
         worker, self._worker = self._worker, None
@@ -131,25 +135,55 @@ class DynamicBatcher:
         if pool is not None:
             pool.shutdown(wait=True)
 
-    def submit(self, inputs, n_rows, timeout_ms=None):
-        """Enqueue one request of ``n_rows`` rows; raises ServerBusy when the
-        queue is full."""
-        req = _Request(inputs, int(n_rows), timeout_ms)
+    def submit(self, inputs, n_rows, timeout_ms=None, priority=0):
+        """Enqueue one request of ``n_rows`` rows.
+
+        ``priority`` (higher = more urgent) orders the queue: dispatch
+        drains the highest class first, FIFO within a class. When the queue
+        is full and a request of a strictly lower class is waiting, the
+        lowest-class queued request with the least deadline slack (the one
+        most likely to miss its deadline anyway) is shed with ServerBusy
+        and the new request takes its place; otherwise the new request is
+        shed (ServerBusy raised here)."""
+        req = _Request(inputs, int(n_rows), timeout_ms, priority)
+        evicted = []
         with self._cond:
             if self._stop:
                 raise ServeError("server stopped")
-            if self._queued_rows + req.n > self._max_queue:
-                if self._metrics:
-                    self._metrics.record_shed()
-                raise ServerBusy("queue full (%d rows queued, max %d)"
-                                 % (self._queued_rows, self._max_queue))
-            self._queue.append(req)
+            while self._queued_rows + req.n > self._max_queue:
+                victim = min(
+                    self._queue,
+                    key=lambda r: (r.priority,
+                                   r.deadline if r.deadline is not None
+                                   else float("inf")),
+                    default=None)
+                if victim is None or victim.priority >= req.priority:
+                    if self._metrics:
+                        self._metrics.record_shed()
+                    raise ServerBusy("queue full (%d rows queued, max %d)"
+                                     % (self._queued_rows, self._max_queue))
+                self._queue.remove(victim)
+                self._queued_rows -= victim.n
+                evicted.append(victim)
+            # before the first request of a strictly lower class
+            idx = next((i for i, r in enumerate(self._queue)
+                        if r.priority < req.priority), len(self._queue))
+            self._queue.insert(idx, req)
             self._queued_rows += req.n
             if self._metrics:
                 self._metrics.record_admit()
                 self._metrics.record_queue_depth(self._queued_rows)
             self._cond.notify()
+        for v in evicted:
+            if v.finish(error=ServerBusy(
+                    "shed from the queue by a priority-%d arrival"
+                    % req.priority)) and self._metrics:
+                self._metrics.record_shed()
         return req
+
+    def queue_depth(self):
+        with self._cond:
+            return self._queued_rows
 
     def _take_batch(self):
         """Block until a deadline-ripe batch is ready; None on stop."""

@@ -1,5 +1,6 @@
 """Serving metrics (the latency/queue/shed/fill subset of
-``mxnet_tpu/serve/metrics.py`` ``ServeMetrics``).
+``mxnet_tpu/serve/metrics.py`` ``ServeMetrics``, and ``GenerativeMetrics``
+for token-level serving).
 
 Latency percentiles come from a bounded ring of the most recent ``window``
 request latencies, so a long-running server does not grow.
@@ -88,4 +89,100 @@ class ServeMetrics:
                 "latency_window": min(self._lat_n, self._window),
             }
             snap.update(self._percentiles())
+        return snap
+
+
+def _ring_percentiles(ring, n, prefix):
+    """Nearest-rank p50/p95/p99 over the retained window of a ring (the
+    estimator of ServeMetrics), rounded to the microsecond."""
+    out = {"%s_p50_ms" % prefix: None, "%s_p95_ms" % prefix: None,
+           "%s_p99_ms" % prefix: None}
+    if n == 0:
+        return out
+    vals = sorted(ring[:n])
+    for q in (50, 95, 99):
+        out["%s_p%d_ms" % (prefix, q)] = round(
+            vals[min(n - 1, int(q / 100 * (n - 1) + 0.5))], 3)
+    return out
+
+
+class GenerativeMetrics(ServeMetrics):
+    """ServeMetrics plus the token-level counters generative serving is
+    judged by (counterpart of the JAX package's ``GenerativeMetrics``):
+    tokens/s over decode-active wall time, time to first token (admission
+    to the first sampled token, by pow2 prompt bucket too), inter-token
+    latency (one decode step of the shared batch), prefill count and
+    in-flight fill (live slots over padded slots a step)."""
+
+    def __init__(self, name="serve", window=2048):
+        super().__init__(name, window)
+        self._ttft = [0.0] * self._window   # admission -> first token, ms
+        self._ttft_n = 0
+        self._itl = [0.0] * self._window    # per decode step, ms
+        self._itl_n = 0
+        self.tokens = 0                     # generated tokens, all requests
+        self.steps = 0                      # decode steps
+        self.prefills = 0                   # whole-prompt forwards
+        self._decode_s = 0.0                # decode-active wall time
+        self._active_slot_steps = 0         # live slots summed over steps
+        self._slot_steps = 0                # padded slots summed over steps
+        self._tokens_in_flight = 0
+        self._ttft_by_bucket = {}           # pow2 bucket -> [ring, n]
+
+    def record_first_token(self, ms, prompt_len=None):
+        with self._lock:
+            self._ttft[self._ttft_n % self._window] = float(ms)
+            self._ttft_n += 1
+            self.tokens += 1   # the first token is sampled by prefill
+            if prompt_len is not None:
+                b = 1
+                while b < int(prompt_len):
+                    b <<= 1
+                ent = self._ttft_by_bucket.setdefault(
+                    b, [[0.0] * self._window, 0])
+                ent[0][ent[1] % self._window] = float(ms)
+                ent[1] += 1
+
+    def record_prefill(self, n=1):
+        with self._lock:
+            self.prefills += n
+
+    def record_step(self, step_s, n_tokens, n_active, slots):
+        """One decode step: ``n_tokens`` emitted across ``n_active`` live
+        slots of ``slots``."""
+        with self._lock:
+            self._itl[self._itl_n % self._window] = float(step_s) * 1e3
+            self._itl_n += 1
+            self.steps += 1
+            self.tokens += int(n_tokens)
+            self._decode_s += float(step_s)
+            self._active_slot_steps += int(n_active)
+            self._slot_steps += int(slots)
+
+    def record_tokens_in_flight(self, n):
+        with self._lock:
+            self._tokens_in_flight = int(n)
+
+    def snapshot(self):
+        snap = super().snapshot()
+        with self._lock:
+            snap.update({
+                "tokens": self.tokens,
+                "decode_steps": self.steps,
+                "prefills": self.prefills,
+                "tokens_per_s": (round(self.tokens / self._decode_s, 1)
+                                 if self._decode_s > 0 else None),
+                "inflight_fill": (round(self._active_slot_steps
+                                        / self._slot_steps, 4)
+                                  if self._slot_steps else None),
+                "tokens_in_flight": self._tokens_in_flight,
+            })
+            snap.update(_ring_percentiles(
+                self._ttft, min(self._ttft_n, self._window), "ttft"))
+            snap.update(_ring_percentiles(
+                self._itl, min(self._itl_n, self._window), "itl"))
+            snap["ttft_by_bucket"] = {
+                str(b): {k[2:]: v for k, v in _ring_percentiles(
+                    ring, min(n, self._window), "b").items()}
+                for b, (ring, n) in sorted(self._ttft_by_bucket.items())}
         return snap

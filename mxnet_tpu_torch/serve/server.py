@@ -13,8 +13,10 @@ Single requests coalesce into the smallest fitting batch-size bucket under
 a deadline (batcher), run as one padded forward on the device
 (executor_pool), and are scattered back per request. The server runs on the
 current CUDA device unless ``device`` says otherwise; without CUDA and
-without ``device="cpu"`` it raises. Quantized serving, snapshots, weight
-hot-swap, bucket retuning and the metrics endpoint are not ported yet.
+without ``device="cpu"`` it raises. Quantized serving, snapshots, bucket
+retuning and the metrics endpoint are not ported yet, nor is this server's
+weight hot-swap; the generative server's is
+(``GenerativeServer.swap_parameters`` over ``checkpoint.validate_swap``).
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """The port stands alone: no file of ``mxnet_tpu_torch/`` and not
-``chip_smoke.py`` imports JAX or the JAX package; the package imports with
-JAX blocked; and without CUDA every entry point refuses to run unless the
-caller asks for the CPU."""
+``chip_smoke.py`` imports JAX or the JAX package; the package (the GPT
+model, the generative server and the checkpoint layer included) imports
+with JAX blocked; and without CUDA every entry point refuses to run unless
+the caller asks for the CPU."""
 import ast
 import os
 import subprocess
@@ -45,6 +46,8 @@ def test_package_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['mxnet_tpu'] = None; "
             "import mxnet_tpu_torch, mxnet_tpu_torch.models.bert, "
+            "mxnet_tpu_torch.models.gpt, mxnet_tpu_torch.serve.decoder, "
+            "mxnet_tpu_torch.checkpoint, "
             "mxnet_tpu_torch.serve, mxnet_tpu_torch.ops.cuda._build; "
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -56,8 +59,9 @@ def test_package_imports_with_jax_blocked():
 def test_without_cuda_entry_points_raise(monkeypatch):
     from mxnet_tpu_torch.base import DeviceError, resolve_device
     from mxnet_tpu_torch.models.bert import BERTModel
-    from mxnet_tpu_torch.serve import ModelServer
-    from torch_port_helpers import SMALL_BERT
+    from mxnet_tpu_torch.models.gpt import GPTModel
+    from mxnet_tpu_torch.serve import GenerativeServer, ModelServer
+    from torch_port_helpers import SMALL_BERT, SMALL_GPT
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(DeviceError):
@@ -71,3 +75,9 @@ def test_without_cuda_entry_points_raise(monkeypatch):
     with pytest.raises(DeviceError):
         ModelServer(model, [((8,), "int32")] * 2 + [((), "int32")],
                     buckets=(1,))
+    gpt = GPTModel(**dict(SMALL_GPT, num_layers=1))
+    gpt.initialize(device="cpu")
+    with pytest.raises(DeviceError):
+        GenerativeServer(gpt)
+    with pytest.raises(DeviceError):
+        gpt.generate([[1, 2]], max_new_tokens=1)

@@ -215,8 +215,6 @@ def test_trainer_refuses_what_is_not_ported():
     trainer = gluon.Trainer(params, "adam", kvstore="local")
     with pytest.raises(NotImplementedError, match="A.12"):
         trainer.set_weight_update_sharding(None)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        trainer.save_states("states")
     with pytest.raises(ValueError, match="unknown optimizer"):
         optimizer.create("adamax")
 

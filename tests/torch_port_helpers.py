@@ -13,6 +13,9 @@ import pytest
 SMALL_BERT = dict(vocab_size=1000, units=128, hidden_size=256, num_layers=2,
                   num_heads=2, max_length=64)
 SEQ = 64
+# a small GPT: 2 layers, 128 units, 2 heads of 64, FFN 512, vocab 256
+SMALL_GPT = dict(vocab_size=256, units=128, num_layers=2, num_heads=2,
+                 max_length=512, dropout=0.0)
 
 
 @pytest.fixture
@@ -23,6 +26,16 @@ def jax_trace_state(monkeypatch):
     if not hasattr(jax.core, "trace_state_clean"):
         monkeypatch.setattr(jax.core, "trace_state_clean",
                             _jax_core.trace_state_clean, raising=False)
+
+
+@pytest.fixture(scope="module")
+def jax_trace_state_module():
+    """``jax_trace_state`` for a module's shared fixtures."""
+    with pytest.MonkeyPatch.context() as mp:
+        if not hasattr(jax.core, "trace_state_clean"):
+            mp.setattr(jax.core, "trace_state_clean",
+                       _jax_core.trace_state_clean, raising=False)
+        yield
 
 
 def bert_inputs(seed, batch, seq=SEQ, vocab=SMALL_BERT["vocab_size"]):
@@ -66,3 +79,24 @@ def assert_rows_close(a, b, vl, atol, rtol=0.0):
         np.testing.assert_allclose(np.asarray(b[i, :n], np.float32),
                                    np.asarray(a[i, :n], np.float32),
                                    atol=atol, rtol=rtol)
+
+
+def jax_gpt(bf16=False, **overrides):
+    """The JAX package's small GPT, initialized, optionally bf16 via amp."""
+    from mxnet_tpu import amp
+    from mxnet_tpu.models.gpt import GPTModel
+
+    model = GPTModel(**dict(SMALL_GPT, **overrides))
+    model.initialize()
+    if bf16:
+        amp.convert_hybrid_block(model, "bfloat16")
+    return model
+
+
+def port_gpt_from(jmodel, **overrides):
+    """The port's small GPT on the CPU, weights carried from ``jmodel``."""
+    from mxnet_tpu_torch.convert import from_jax_params
+    from mxnet_tpu_torch.models.gpt import GPTModel
+
+    return from_jax_params(GPTModel(**dict(SMALL_GPT, **overrides)),
+                           jax_params(jmodel))
