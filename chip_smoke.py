@@ -7,8 +7,14 @@ Run from the root of a checkout on a machine with a CUDA card. It
 
 1. builds the port's CUDA kernels from ``mxnet_tpu_torch/csrc`` (into
    ``mxnet_tpu_torch/_build/``) and prints the build time;
-2. holds the LayerNorm kernel against its plain PyTorch version (the
-   bert512 step's (8192, 768) and (1280, 768) bf16 first);
+2. holds the LayerNorm forward kernel against its plain PyTorch version
+   (the bert512 step's (8192, 768) and (1280, 768) bf16 first; a decode
+   step's (8, 768) at eps 1e-5, a C that is not a multiple of 8, rows above
+   the in-register forms, an x off 16-byte alignment; a row's output at 8
+   rows equal to the same row's at 4096), and the LayerNorm backward kernel
+   (dx, dgamma, dbeta) against its plain version at the step's two shapes,
+   (8, 768), fp32 and the loop form's rows, each run twice: dgamma and
+   dbeta must be bit-equal;
 3. holds the flash-attention forward kernel against its plain version
    (the bert512 step's (16, 12, 512, 64) with the logsumexp first, run
    twice: the two outputs must be identical; valid lengths with 0, causal,
@@ -37,9 +43,10 @@ Run from the root of a checkout on a machine with a CUDA card. It
    seq 512, 80 masked positions, bf16 with fp32 masters, Adam lr 1e-4 wd
    0.01, dropout 0.1, MLM + NSP loss) through ``autograd.record``,
    ``autograd.backward`` and ``gluon.Trainer.step``: the loss stays finite
-   and the weights move; the kernel counters rise by exactly 26 LayerNorm,
-   12 flash forward, 12 flash backward, 2 softmax-xent forward and 2
-   backward launches a step; one step's loss and every gradient agree with
+   and the weights move; the kernel counters rise by exactly 26 LayerNorm
+   forward, 26 LayerNorm backward, 12 flash forward, 12 flash backward, 2
+   softmax-xent forward and 2 backward launches a step; one step's loss
+   and every gradient agree with
    the same step run with the plain versions (no kernel may launch in it),
    and the same plain step with planted faults (LayerNorm gamma 1 % high,
    dk/dv missing a query tile) must fail the gradient limit; it times the
@@ -69,7 +76,8 @@ Run from the root of a checkout on a machine with a CUDA card. It
    step's host wall, tokens/s and peak memory;
 10. times each kernel (CUDA-graph replay) at the bert512 step's shapes
    against its plain version, its PyTorch library yardstick and its bound
-   (the two forward kernels also at a served bucket-8 forward's shapes;
+   (the LayerNorm backward against aten's, also at the MLM head's rows;
+   the two forward kernels also at a served bucket-8 forward's shapes;
    the flash forward and backward also at head dim 128, SDPA also without
    a mask where every key is valid), dense against flash attention
    at seq 128 and 512, dense against flash forward plus backward at
@@ -135,6 +143,16 @@ XENT_DX_TOL = {"bfloat16": (1e-12, 2.0 ** -7, 0.0),
 # the terms' sizes, mag: scale |ds| |k| (dq), scale |ds|^T |q| (dk) and
 # p^T |dO| (dv), from the plain version
 FLASH_BWD_TOL = (1e-5, 2.0 ** -7, 2.0 ** -8)
+# LayerNorm backward: dx is rounded once to x's dtype (one step of |plain|:
+# 2**-7 in bf16) from fp32 values whose row means were summed in another
+# order, which moves them by a few fp32 steps of the terms' size, mag =
+# rstd (|t| + mean |t| + |xhat| mean |t xhat|) (layernorm_bwd_magnitudes).
+# dgamma and dbeta sum the rows in another order: some tens of fp32 steps
+# of the sum of the terms' sizes, mag = sum |dy xhat| or sum |dy|; a 1 %
+# error of dgamma reads far above it (tests/test_torch_port_smoke_tolerance)
+LN_BWD_DX_TOL = {"bfloat16": (1e-12, 2.0 ** -7, 1e-5),
+                 "float32": (1e-12, 1e-5, 1e-5)}
+LN_BWD_PARAM_TOL = (1e-12, 1e-5, 1e-5)
 # the training step with the kernels against the same step with the plain
 # versions: the loss (about 11 at random weights) and each parameter's
 # gradient in relative L2 norm, after bf16 through 12 layers both ways
@@ -149,9 +167,11 @@ BERT512 = {"batch": 16, "seq": 512, "masked": 80}
 BERT128 = {"batch": 64, "seq": 128, "masked": 20}
 TRAIN_STEPS = 3
 TIMED_STEPS = 6
-# kernel launches a training step (26 LayerNorms: embeddings, 2 x 12
-# layers, the MLM head; 12 attention layers; MLM and NSP losses)
-STEP_LAUNCHES = {"layernorm": 26, "flash_attention_fwd": 12,
+# kernel launches a training step (26 LayerNorms, forward and backward:
+# embeddings, 2 x 12 layers, the MLM head; 12 attention layers; MLM and
+# NSP losses)
+STEP_LAUNCHES = {"layernorm": 26, "layernorm_bwd": 26,
+                 "flash_attention_fwd": 12,
                  "flash_attention_bwd": 12, "softmax_xent_fwd": 2,
                  "softmax_xent_bwd": 2}
 
@@ -243,6 +263,7 @@ def kernel_counters():
     from mxnet_tpu_torch.ops.cuda import softmax_xent as sx
 
     return {"layernorm": ln.fused_layernorm,
+            "layernorm_bwd": ln.fused_layernorm_bwd,
             "flash_attention_fwd": fa.flash_attention,
             "flash_attention_bwd": fa.flash_attention_bwd,
             "softmax_xent_fwd": sx.softmax_xent_fwd,
@@ -278,6 +299,7 @@ class plain_versions:
         self._saved = []
         for mod, name, plain in (
                 (ln, "fused_layernorm", ln.layernorm_plain),
+                (ln, "fused_layernorm_bwd", ln.layernorm_bwd_plain),
                 (attention, "flash_attention", flash_plain),
                 (fa, "flash_attention", flash_plain),
                 (fa, "flash_attention_bwd", fa.flash_attention_bwd_plain),
@@ -301,33 +323,115 @@ def phase_build():
           flush=True)
 
 
-def phase_layernorm(dev):
+def _ln_inputs(dev, g, R, C, dtype, offset=0):
+    """x (R, C) in ``dtype`` (starting ``offset`` elements into its storage,
+    so a nonzero offset leaves it off 16-byte alignment), gamma and beta
+    (C,) fp32."""
     import torch
-    from mxnet_tpu_torch.ops.cuda.layernorm import (fused_layernorm,
-                                                    layernorm_plain)
+
+    flat = (torch.randn(R * C + offset, device=dev, generator=g) * 2
+            + 0.5).to(dtype)
+    x = flat[offset:].view(R, C)
+    return (x, torch.randn(C, device=dev, generator=g),
+            torch.randn(C, device=dev, generator=g))
+
+
+def layernorm_bwd_magnitudes(x, gamma, dy, eps):
+    """The sizes of the terms whose rounding the backward kernel's outputs
+    carry: rstd (|t| + mean |t| + |xhat| mean |t xhat|) for dx, t = dy
+    gamma, and the sums over rows of |dy xhat| and |dy| for dgamma and
+    dbeta, from fp32."""
+    xf, dyf = x.float(), dy.float()
+    m = xf.mean(dim=-1, keepdim=True)
+    rstd = ((xf - m).square().mean(dim=-1, keepdim=True) + eps).rsqrt()
+    xhat = (xf - m) * rstd
+    t = (dyf * gamma.float()).abs()
+    mdx = rstd * (t + t.mean(dim=-1, keepdim=True)
+                  + xhat.abs() * (t * xhat.abs()).mean(dim=-1, keepdim=True))
+    return mdx, (dyf * xhat).abs().sum(dim=0), dyf.abs().sum(dim=0)
+
+
+def phase_layernorm(dev):
+    """The LayerNorm forward and backward kernels against their plain
+    versions. Forward: the bert512 step's two shapes first (16 * 512 rows;
+    the MLM head's 16 * 80), a served bucket-8 forward's, fp32, a GPT decode
+    step's 8 rows at eps 1e-5 (the CTA form), a C that is not a multiple of
+    8, rows above the register forms (the loop form), an x off 16-byte
+    alignment; the register forms give a row the same output at 8 rows as
+    at 4096. Backward: the step's two shapes, the decode rows, fp32, and
+    the loop form's rows; dgamma and dbeta bit-equal over two calls, and a
+    row's dx the same at 8 rows as at 1280."""
+    import torch
+    from mxnet_tpu_torch.ops.cuda import layernorm as ln
 
     g = torch.Generator(device=dev).manual_seed(SEED)
-    readings = []
-    # the bert512 step's two shapes first (16 * 512 rows; the MLM head's
-    # 16 * 80), then a served bucket-8 forward's, then fp32
-    for (R, C), dtype, eps, tol in (((8192, 768), torch.bfloat16, 1e-12,
-                                     BF16_TOL),
-                                    ((1280, 768), torch.bfloat16, 1e-12,
-                                     BF16_TOL),
-                                    ((4096, 768), torch.bfloat16, 1e-12,
-                                     BF16_TOL),
-                                    ((1000, 1000), torch.float32, 1e-5,
-                                     FP32_TOL)):
-        x = (torch.randn(R, C, device=dev, generator=g) * 2 + 0.5).to(dtype)
-        gamma = torch.randn(C, device=dev, generator=g)
-        beta = torch.randn(C, device=dev, generator=g)
-        y = fused_layernorm(x, gamma, beta, eps)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    fwd = []
+    for (R, C), dtype, eps, offset in (((8192, 768), bf16, 1e-12, 0),
+                                       ((1280, 768), bf16, 1e-12, 0),
+                                       ((4096, 768), bf16, 1e-12, 0),
+                                       ((1000, 1000), fp32, 1e-5, 0),
+                                       ((8, 768), bf16, 1e-5, 0),
+                                       ((8, 1000), fp32, 1e-5, 0),
+                                       ((2048, 770), bf16, 1e-5, 0),
+                                       ((8, 770), bf16, 1e-5, 0),
+                                       ((4096, 8192), bf16, 1e-5, 0),
+                                       ((8, 8192), bf16, 1e-5, 0),
+                                       ((8, 16384), bf16, 1e-5, 0),
+                                       ((1024, 768), bf16, 1e-12, 1)):
+        x, gamma, beta = _ln_inputs(dev, g, R, C, dtype, offset)
+        y = ln.fused_layernorm(x, gamma, beta, eps)
         torch.cuda.synchronize()
-        ref = layernorm_plain(x, gamma, beta, eps)
+        ref = ln.layernorm_plain(x, gamma, beta, eps)
         check(y.dtype == dtype and y.shape == x.shape, "layernorm shape/dtype")
-        readings.append(held(y, ref, tol, "layernorm %s %s eps %g"
-                             % ((R, C), str(dtype)[6:], eps)))
-    return readings
+        fwd.append(held(y, ref, BF16_TOL if dtype == bf16 else FP32_TOL,
+                        "layernorm %s %s eps %g%s" % (
+                            (R, C), str(dtype)[6:], eps,
+                            " x at a %d-element offset" % offset
+                            if offset else "")))
+        if (R, C) == (4096, 768):
+            # 8 rows take the CTA form, 4096 the warp form
+            check(torch.equal(ln.fused_layernorm(x[:8].contiguous(), gamma,
+                                                 beta, eps), y[:8]),
+                  "layernorm: a row's output at 8 rows differs from 4096")
+    bwd = []
+    for (R, C), dtype, eps in (((8192, 768), bf16, 1e-12),
+                               ((1280, 768), bf16, 1e-12),
+                               ((8, 768), bf16, 1e-5),
+                               ((1000, 1000), fp32, 1e-5),
+                               ((2048, 770), bf16, 1e-5),
+                               ((4096, 8192), bf16, 1e-5),
+                               ((8, 8192), bf16, 1e-5)):
+        x, gamma, _ = _ln_inputs(dev, g, R, C, dtype)
+        dy = torch.randn(R, C, device=dev, generator=g).to(dtype)
+        dx, dg, db = ln.fused_layernorm_bwd(x, gamma, dy, eps)
+        dx2, dg2, db2 = ln.fused_layernorm_bwd(x, gamma, dy, eps)
+        torch.cuda.synchronize()
+        ref = ln.layernorm_bwd_plain(x, gamma, dy, eps)
+        mags = layernorm_bwd_magnitudes(x, gamma, dy, eps)
+        what = "layernorm bwd %s %s eps %g" % ((R, C), str(dtype)[6:], eps)
+        check(dx.dtype == dtype and dx.shape == x.shape
+              and dg.dtype == db.dtype == fp32 and dg.shape == db.shape
+              == gamma.shape, "%s: shape/dtype" % what)
+        reading = {n: held(got, want, tol, "%s %s" % (what, n), mag)
+                   for n, got, want, tol, mag in (
+                       ("dx", dx, ref[0], LN_BWD_DX_TOL[str(dtype)[6:]],
+                        mags[0]),
+                       ("dgamma", dg, ref[1], LN_BWD_PARAM_TOL, mags[1]),
+                       ("dbeta", db, ref[2], LN_BWD_PARAM_TOL, mags[2]))}
+        check(torch.equal(dg, dg2) and torch.equal(db, db2),
+              "%s: dgamma/dbeta differ between two calls" % what)
+        check(torch.equal(dx, dx2), "%s: dx differs between two calls" % what)
+        if (R, C) == (1280, 768):
+            # 8 rows take the CTA form, 1280 the warp form
+            check(torch.equal(ln.fused_layernorm_bwd(
+                x[:8].contiguous(), gamma, dy[:8].contiguous(), eps)[0],
+                dx[:8]), "layernorm bwd: a row's dx at 8 rows differs from "
+                "1280")
+        bwd.append(reading)
+    print("layernorm bwd: dx, dgamma and dbeta bit-equal over two calls at "
+          "every shape", flush=True)
+    return fwd, bwd
 
 
 def _qkv(dev, g, B, H, T, D):
@@ -672,7 +776,7 @@ def phase_serve(dev):
 def _kernel_class(name):
     if "flash_fwd_kernel" in name:
         return "flash"
-    if "layernorm_fwd_kernel" in name:
+    if "layernorm_" in name:
         return "layernorm"
     if any(s in name for s in ("gemm", "xmma", "cutlass", "nvjet")):
         return "gemm"
@@ -993,7 +1097,9 @@ def _train_kernel_class(name):
                      ("flash_bwd_", "flash_attention_bwd"),
                      ("xent_fwd_kernel", "softmax_xent_fwd"),
                      ("xent_bwd_kernel", "softmax_xent_bwd"),
-                     ("layernorm_fwd_kernel", "layernorm_fwd"),
+                     ("layernorm_fwd_", "layernorm_fwd"),
+                     # the backward kernel and its finishing kernel
+                     ("layernorm_bwd_", "layernorm_bwd"),
                      ("multi_tensor_apply", "adam (foreach)")):
         if key in name:
             return cls
@@ -1116,6 +1222,13 @@ def _ln_bound(R, C, esize):
     y written once, fp32 gamma and beta; about 8 fp32 operations an
     element."""
     return 8 * R * C / PEAK_FP32, (2 * R * C * esize + 2 * C * 4) / PEAK_BYTES
+
+
+def _ln_bwd_bound(R, C, esize):
+    """(operations, bytes) least times of a LayerNorm backward of (R, C):
+    x and dy read and dx written once, fp32 gamma read and dgamma and dbeta
+    written once; about 16 fp32 operations an element."""
+    return 16 * R * C / PEAK_FP32, (3 * R * C * esize + 3 * C * 4) / PEAK_BYTES
 
 
 def _flash_fwd_bound(B, H, T, D, vl, lse):
@@ -1266,13 +1379,14 @@ def phase_timing(dev, launches, steps, errs, serve_launches, forwards,
 
 
 def phase_train_timing(dev, launches, errs, steps):
-    """Records of the three training kernels at the bert512 step's shapes:
+    """Records of the four training kernels at the bert512 step's shapes:
     CUDA-graph replay of the kernel, its plain version and a PyTorch
     library call computing the same function, and the bound. A library
     backward is timed as forward + backward less the forward alone."""
     import torch
     import torch.nn.functional as TF
     from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    from mxnet_tpu_torch.ops.cuda import layernorm as ln
     from mxnet_tpu_torch.ops.cuda import softmax_xent as sx
 
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -1281,6 +1395,44 @@ def phase_train_timing(dev, launches, errs, steps):
     def record(name, source, replaces, *times, **extra):
         records.append(kernel_record(name, source, replaces, launches[name],
                                      steps, errs[name], *times, **extra))
+
+    # the LayerNorm backward at the step's (16 * 512, 768), eps 1e-12, and
+    # at the MLM head's (16 * 80, 768); its library call is aten's
+    # backward with bf16 gamma and beta, given the forward's saved mean and
+    # rstd (the kernel recomputes them)
+    C = 768
+    ln_t = []
+    for R in (BERT512["batch"] * BERT512["seq"],
+              BERT512["batch"] * BERT512["masked"]):
+        x = torch.randn(R, C, device=dev, generator=g).to(torch.bfloat16)
+        dy = torch.randn(R, C, device=dev, generator=g).to(torch.bfloat16)
+        gamma = torch.randn(C, device=dev, generator=g)
+        gb = gamma.to(torch.bfloat16)
+        bb = torch.zeros_like(gb)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x, [C], gb, bb, 1e-12)
+        ln_t.append((R, time_ms(
+            lambda x=x, dy=dy, gamma=gamma: ln.fused_layernorm_bwd(
+                x, gamma, dy, 1e-12),
+            lambda x=x, dy=dy, gamma=gamma: ln.layernorm_bwd_plain(
+                x, gamma, dy, 1e-12),
+            lambda x=x, dy=dy, gb=gb, bb=bb, mean=mean, rstd=rstd:
+                torch.ops.aten.native_layer_norm_backward(
+                    dy, x, [C], mean, rstd, gb, bb, [True, True, True]))))
+        del x, dy, mean, rstd
+    head = dict(zip(("ms", "plain_ms", "library_ms"), ln_t[1][1]),
+                shape=[ln_t[1][0], C],
+                bound_ms=max(_ln_bwd_bound(ln_t[1][0], C, 2)) * 1e3)
+    record("layernorm_bwd", "mxnet_tpu_torch/csrc/layernorm_bwd.cu",
+           "mxnet_tpu/ops/pallas/layernorm.py:40", *ln_t[0][1],
+           *_ln_bwd_bound(ln_t[0][0], C, 2), shape=[ln_t[0][0], C],
+           dtype="bfloat16", replaces_note="_ln_bwd, the custom_vjp's "
+           "backward: XLA in the JAX package, no pallas_call",
+           library="aten native_layer_norm_backward, bf16 gamma, the "
+           "forward's mean and rstd given", mlm_head=head)
+    print("time layernorm_bwd at %s: kernel %.4f ms, plain %.4f ms, library "
+          "%.4f ms, bound %.5f ms" % (head["shape"], head["ms"],
+                                      head["plain_ms"], head["library_ms"],
+                                      head["bound_ms"]), flush=True)
 
     # softmax-xent at the MLM head: (16 * 80, 30522) bf16 logits
     R, V = BERT512["batch"] * BERT512["masked"], VOCAB
@@ -2136,7 +2288,8 @@ def main():
     t_start = time.perf_counter()
     try:
         phase_build()
-        checks = {"layernorm": phase_layernorm(dev),
+        ln_fwd, ln_bwd = phase_layernorm(dev)
+        checks = {"layernorm": ln_fwd, "layernorm_bwd": ln_bwd,
                   "flash_attention_fwd": phase_flash(dev),
                   "softmax_xent": phase_xent(dev),
                   "flash_attention_bwd": phase_flash_bwd(dev)}
@@ -2146,7 +2299,9 @@ def main():
                 for k in ("layernorm", "flash_attention_fwd")}
         xent0 = checks["softmax_xent"][0]
         bwd0 = checks["flash_attention_bwd"][0]
-        errs.update({"softmax_xent_fwd": xent0["fwd"]["max_abs_err"],
+        errs.update({"layernorm_bwd": max(ln_bwd[0][n]["max_abs_err"]
+                                          for n in ("dx", "dgamma", "dbeta")),
+                     "softmax_xent_fwd": xent0["fwd"]["max_abs_err"],
                      "softmax_xent_bwd": xent0["bwd"]["max_abs_err"],
                      "flash_attention_bwd": max(
                          bwd0[n]["max_abs_err"] for n in ("dq", "dk", "dv"))})

@@ -11,6 +11,10 @@ extern "C" {
 int mxt_layernorm_fwd(const void* x, const void* gamma, const void* beta,
                       void* y, int64_t rows, int cols, float eps, int dtype,
                       void* stream);
+int64_t mxt_layernorm_bwd_parts(int64_t rows, int sms);
+int mxt_layernorm_bwd(const void* x, const void* gamma, const void* dy, void* dx,
+                      float* part, float* dgamma, float* dbeta, int64_t rows,
+                      int cols, int parts, float eps, int dtype, void* stream);
 int mxt_flash_fwd(const void* q, const void* k, const void* v,
                   const int32_t* valid_len, void* o, float* lse,
                   int batch_heads, int heads, int tq, int tk, int d,
@@ -56,6 +60,23 @@ void layernorm_fwd(const torch::Tensor& x, const torch::Tensor& gamma,
                                  (float)eps, dtype_code(x),
                                  reinterpret_cast<void*>(stream)),
                "layernorm_fwd");
+}
+
+int64_t layernorm_bwd_parts(int64_t rows, int64_t sms) {
+  return mxt_layernorm_bwd_parts(rows, (int)sms);
+}
+
+void layernorm_bwd(const torch::Tensor& x, const torch::Tensor& gamma,
+                   const torch::Tensor& dy, torch::Tensor& dx,
+                   torch::Tensor& part, torch::Tensor& dgamma,
+                   torch::Tensor& dbeta, double eps, int64_t stream) {
+  check_launch(mxt_layernorm_bwd(x.data_ptr(), gamma.data_ptr(), dy.data_ptr(),
+                                 dx.data_ptr(), part.data_ptr<float>(),
+                                 dgamma.data_ptr<float>(),
+                                 dbeta.data_ptr<float>(), x.size(0),
+                                 (int)x.size(1), (int)part.size(0), (float)eps,
+                                 dtype_code(x), reinterpret_cast<void*>(stream)),
+               "layernorm_bwd");
 }
 
 void flash_fwd(const torch::Tensor& q, const torch::Tensor& k,
@@ -117,6 +138,10 @@ void xent_bwd(const torch::Tensor& x, const torch::Tensor& labels,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("layernorm_fwd", &layernorm_fwd, "row LayerNorm forward (CUDA)");
+  m.def("layernorm_bwd_parts", &layernorm_bwd_parts,
+        "partial rows of the LayerNorm backward's dgamma/dbeta workspace");
+  m.def("layernorm_bwd", &layernorm_bwd,
+        "row LayerNorm backward, dx, dgamma, dbeta (CUDA)");
   m.def("flash_fwd", &flash_fwd, "flash-attention forward (CUDA)");
   m.def("flash_bwd", &flash_bwd, "flash-attention backward, dq, dk, dv (CUDA)");
   m.def("flash_bwd_workspace", &flash_bwd_workspace,

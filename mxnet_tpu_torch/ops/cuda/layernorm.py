@@ -1,15 +1,16 @@
-"""Row LayerNorm: the CUDA kernel and its plain PyTorch version.
+"""Row LayerNorm: the CUDA kernels and their plain PyTorch versions.
 
-Counterpart of ``mxnet_tpu/ops/pallas/layernorm.py`` ``fused_layernorm``.
-The kernel is ``mxnet_tpu_torch/csrc/layernorm.cu`` (why it is shaped as it
-is, and what bounds it, is written there). :func:`fused_layernorm` takes the
-plain version for a CPU tensor and launches the kernel for a CUDA tensor, or
-raises; it never falls back from the card to the plain version.
+Counterpart of ``mxnet_tpu/ops/pallas/layernorm.py``: the forward
+``fused_layernorm`` (kernel ``mxnet_tpu_torch/csrc/layernorm.cu``) and the
+analytic backward ``_ln_bwd``, which is XLA outside any Pallas kernel there
+and a kernel here (``csrc/layernorm_bwd.cu``); why each is shaped as it is,
+and what bounds it, is written in its source. :func:`fused_layernorm` and
+:func:`fused_layernorm_bwd` take the plain version for a CPU tensor and
+launch the kernel for a CUDA tensor, or raise; they never fall back from the
+card to the plain version.
 
 :func:`layernorm` is the differentiable op (the JAX ``layernorm``
-``custom_vjp``): the kernel forward, and the JAX package's analytic backward
-``_ln_bwd``, which is XLA outside any Pallas kernel there and PyTorch ops
-here (:func:`layernorm_bwd`).
+``custom_vjp``): the forward kernel, then the backward kernel.
 """
 from __future__ import annotations
 
@@ -31,14 +32,16 @@ def layernorm_plain(x, gamma, beta, eps=1e-5):
     return y.to(x.dtype)
 
 
-def _check(x, gamma, beta):
-    if x.dim() != 2:
-        raise ValueError("layernorm kernel takes x of shape (R, C), got %s"
-                         % (tuple(x.shape),))
+def _check(x, **params):
+    """x (R, C), C > 0, contiguous, of a kernel dtype; each of ``params``
+    (C,) on x's device."""
+    if x.dim() != 2 or x.shape[1] == 0:
+        raise ValueError("layernorm kernel takes x of shape (R, C), C > 0, "
+                         "got %s" % (tuple(x.shape),))
     if x.dtype not in DTYPES:
         raise TypeError("layernorm kernel takes %s, got %s" % (DTYPES, x.dtype))
     C = x.shape[1]
-    for name, t in (("gamma", gamma), ("beta", beta)):
+    for name, t in params.items():
         if t.device != x.device:
             raise ValueError("%s is on %s, x on %s" % (name, t.device, x.device))
         if tuple(t.shape) != (C,):
@@ -56,7 +59,7 @@ def fused_layernorm(x, gamma, beta, eps=1e-5):
         return layernorm_plain(x, gamma, beta, eps)
     if x.device.type != "cuda":
         raise ValueError("layernorm: no kernel for device %s" % x.device)
-    _check(x, gamma, beta)
+    _check(x, gamma=gamma, beta=beta)
     gamma = gamma.to(torch.float32).contiguous()
     beta = beta.to(torch.float32).contiguous()
     y = torch.empty_like(x)
@@ -70,7 +73,7 @@ def fused_layernorm(x, gamma, beta, eps=1e-5):
 fused_layernorm.launches = 0  # kernel launches since the last reset
 
 
-def layernorm_bwd(x, gamma, dy, eps):
+def layernorm_bwd_plain(x, gamma, dy, eps):
     """The JAX package's ``_ln_bwd`` in PyTorch: fp32 statistics recomputed
     from x, dx in x's dtype, dgamma and dbeta (sums over rows) in gamma's
     dtype."""
@@ -88,6 +91,38 @@ def layernorm_bwd(x, gamma, dy, eps):
     return dx.to(x.dtype), dg.to(gamma.dtype), db.to(gamma.dtype)
 
 
+def fused_layernorm_bwd(x, gamma, dy, eps=1e-5):
+    """(dx, dgamma, dbeta) of the LayerNorm of x (R, C) with gamma (C,) for
+    the output gradient dy (R, C): dx in x's dtype, dgamma and dbeta in
+    gamma's. On the card dgamma and dbeta are summed in a fixed order, so
+    two calls on the same inputs give bit-equal results."""
+    if x.device.type == "cpu":
+        return layernorm_bwd_plain(x, gamma, dy, eps)
+    if x.device.type != "cuda":
+        raise ValueError("layernorm_bwd: no kernel for device %s" % x.device)
+    _check(x, gamma=gamma)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError("layernorm_bwd: dy %s %s on %s, x %s %s on %s" % (
+            tuple(dy.shape), dy.dtype, dy.device, tuple(x.shape), x.dtype,
+            x.device))
+    R, C = x.shape
+    ext = _build.extension()
+    parts = ext.layernorm_bwd_parts(
+        R, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    part = torch.empty((parts, 2, C), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dg = torch.empty(C, dtype=torch.float32, device=x.device)
+    db = torch.empty(C, dtype=torch.float32, device=x.device)
+    ext.layernorm_bwd(x, gamma.to(torch.float32).contiguous(), dy.contiguous(),
+                      dx, part, dg, db, float(eps),
+                      torch.cuda.current_stream(x.device).cuda_stream)
+    fused_layernorm_bwd.launches += 1
+    return dx, dg.to(gamma.dtype), db.to(gamma.dtype)
+
+
+fused_layernorm_bwd.launches = 0  # kernel launches since the last reset
+
+
 class _LayerNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
@@ -100,7 +135,7 @@ class _LayerNorm(torch.autograd.Function):
         x, gamma = ctx.saved_tensors
         # a profiler range, so a trace can sum this backward's kernels
         with torch.profiler.record_function("mxnet_tpu_torch::layernorm_bwd"):
-            dx, dg, db = layernorm_bwd(x, gamma, dy, ctx.eps)
+            dx, dg, db = fused_layernorm_bwd(x, gamma, dy, ctx.eps)
         return dx, dg, db, None
 
 

@@ -118,10 +118,13 @@ def transpose(x, *, axes=None):
 
 @register_op("slice_axis")
 def slice_axis(x, *, axis, begin, end):
+    """``x[begin:end]`` along ``axis`` with Python's slice rules, as the JAX
+    op: a negative bound counts from the end, an ``end`` past the axis is
+    clamped, an empty range gives an empty tensor."""
     axis = axis % x.dim()
-    if end is None:
-        end = x.shape[axis]
-    return x.narrow(axis, begin, end - begin)
+    idx = [slice(None)] * x.dim()
+    idx[axis] = slice(begin, end)
+    return x[tuple(idx)]
 
 
 @register_op("squeeze")
@@ -135,8 +138,19 @@ def expand_dims(x, *, axis):
 
 
 @register_op("take")
-def take(a, indices, *, axis=0):
+def take(a, indices, *, axis=0, mode="clip"):
+    """Rows of ``a`` along ``axis`` at ``indices``. ``mode="clip"`` (MXNet's
+    and JAX's default) clamps each index to [0, n - 1] on the device, so no
+    index reaches ``index_select`` out of range (on a CUDA tensor that is a
+    device-side assert); ``"wrap"`` takes it modulo n."""
+    n = a.shape[axis]
     flat = indices.reshape(-1).to(torch.int64)
+    if mode == "clip":
+        flat = flat.clamp(0, n - 1)
+    elif mode == "wrap":
+        flat = flat.remainder(n)
+    else:
+        raise ValueError("take: mode %r is not 'clip' or 'wrap'" % (mode,))
     out = a.index_select(axis, flat)
     shape = list(a.shape)
     shape[axis:axis + 1] = list(indices.shape)
@@ -195,24 +209,49 @@ def _dims(axis):
     return tuple(axis) if isinstance(axis, (tuple, list)) else axis
 
 
+def _reduce(op, x, axis, keepdims):
+    if axis is None:
+        out = op(x)
+        return out.reshape((1,) * x.dim()) if keepdims else out
+    return op(x, dim=_dims(axis), keepdim=keepdims)
+
+
 @register_op("sum")
 def sum(x, *, axis=None, keepdims=False):
-    if axis is None:
-        return x.sum()
-    return x.sum(dim=_dims(axis), keepdim=keepdims)
+    return _reduce(torch.sum, x, axis, keepdims)
 
 
 @register_op("mean")
 def mean(x, *, axis=None, keepdims=False):
-    if axis is None:
-        return x.mean()
-    return x.mean(dim=_dims(axis), keepdim=keepdims)
+    """The mean; of an integer or bool tensor in fp32, as ``jnp.mean``."""
+    if not (x.is_floating_point() or x.is_complex()):
+        x = x.to(torch.float32)
+    return _reduce(torch.mean, x, axis, keepdims)
+
+
+def _fill_value(dtype):
+    """What ``jnp.take_along_axis`` gives for an index out of range: NaN
+    for floats, the most negative value for signed ints, the largest for
+    unsigned ones, True for bool."""
+    if dtype.is_floating_point or dtype.is_complex:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
 
 
 @register_op("pick")
 def pick(x, index, *, axis=-1, keepdims=False):
+    """x's element at ``index`` along ``axis``. An index in [-n, n) counts
+    from the end when negative; one outside gives the JAX op's fill value
+    (NaN in a float output) and never another row's element: the gather
+    reads the index modulo n and a ``where`` puts the fill value in."""
+    n = x.shape[axis]
     idx = index.to(torch.int64).unsqueeze(axis)
-    out = torch.take_along_dim(x, idx, dim=axis)
+    inside = (idx >= -n) & (idx < n)
+    out = torch.take_along_dim(x, idx.remainder(n), dim=axis)
+    out = torch.where(inside, out, _fill_value(x.dtype))
     return out if keepdims else out.squeeze(axis)
 
 

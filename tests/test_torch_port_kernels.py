@@ -29,11 +29,17 @@ def _pair(arr, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("C", [256, 200])
+@pytest.mark.parametrize("R,C", [
+    pytest.param(64, 256, id="256"),
+    pytest.param(64, 200, id="200"),
+    # a GPT decode step's rows, and a C that is not a multiple of 8
+    pytest.param(8, 768, id="8x768"),
+    pytest.param(64, 100, id="100"),
+])
 @pytest.mark.parametrize("eps", [1e-5, 1e-12])
-def test_layernorm_matches_pallas(dtype, C, eps):
+def test_layernorm_matches_pallas(dtype, R, C, eps):
     rng = np.random.RandomState(C)
-    x = (rng.randn(64, C) * 3 + 1).astype(np.float32)
+    x = (rng.randn(R, C) * 3 + 1).astype(np.float32)
     g = rng.randn(C).astype(np.float32)
     b = rng.randn(C).astype(np.float32)
     jx, tx = _pair(x, dtype)

@@ -227,28 +227,52 @@ def test_seam_takes_differentiable_flash_only_when_recording():
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 0.05)])
-@pytest.mark.parametrize("C", [256, 200])
-def test_layernorm_grads_match_pallas(dtype, tol, C):
+@pytest.mark.parametrize("R,C,eps", [
+    pytest.param(64, 256, 1e-12, id="256"),
+    pytest.param(64, 200, 1e-12, id="200"),
+    # a GPT decode step's rows at its eps, and a C that is not a multiple
+    # of 8
+    pytest.param(8, 768, 1e-5, id="8x768-eps1e-05"),
+    pytest.param(64, 100, 1e-12, id="100"),
+])
+def test_layernorm_grads_match_pallas(dtype, tol, R, C, eps):
     """The analytic backward (``_ln_bwd``) through both packages: dx in x's
     dtype, dgamma and dbeta in gamma's (fp32), fp32 within 1e-4 and bf16
     within 0.05 absolute (tests/test_kernels.py)."""
     rng = np.random.RandomState(C)
-    x = (rng.randn(64, C) * 3 + 1).astype(np.float32)
+    x = (rng.randn(R, C) * 3 + 1).astype(np.float32)
     gamma = rng.randn(C).astype(np.float32)
     beta = rng.randn(C).astype(np.float32)
-    dy = rng.randn(64, C).astype(np.float32)
+    dy = rng.randn(R, C).astype(np.float32)
     jx, tx = _pair(x, dtype)
     jdy, tdy = _pair(dy, dtype)
-    _, vjp = jax.vjp(lambda a, g, b: jax_ln(a, g, b, 1e-12, True), jx,
+    _, vjp = jax.vjp(lambda a, g, b: jax_ln(a, g, b, eps, True), jx,
                      jnp.asarray(gamma), jnp.asarray(beta))
     want = vjp(jdy)
     leaves = [tx.requires_grad_(), torch.from_numpy(gamma).requires_grad_(),
               torch.from_numpy(beta).requires_grad_()]
-    got = _grads(ln.layernorm(*leaves, 1e-12), leaves, tdy)
+    got = _grads(ln.layernorm(*leaves, eps), leaves, tdy)
     assert got[0].dtype == _TDT[dtype] and got[1].dtype == torch.float32
     for g, w in zip(got, want):
         np.testing.assert_allclose(_np(g), _np(w), atol=tol,
                                    rtol=tol if g.dim() == 1 else 0)
+
+
+def test_layernorm_bwd_wrapper_takes_plain_version_on_cpu():
+    """On the CPU the backward wrapper is its plain version (bit-equal
+    outputs) and counts no kernel launch."""
+    rng = np.random.RandomState(3)
+    x, dy = (torch.from_numpy(rng.randn(16, 96).astype(np.float32))
+             .to(torch.bfloat16) for _ in range(2))
+    gamma = torch.from_numpy(rng.randn(96).astype(np.float32))
+    before = ln.fused_layernorm_bwd.launches
+    got = ln.fused_layernorm_bwd(x, gamma, dy, 1e-5)
+    want = ln.layernorm_bwd_plain(x, gamma, dy, 1e-5)
+    assert ln.fused_layernorm_bwd.launches == before
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.float32,
+                                      torch.float32]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 # ---------------------------------------------------------- dense attention

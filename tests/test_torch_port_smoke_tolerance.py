@@ -12,7 +12,8 @@ import torch
 
 import chip_smoke as cs
 from mxnet_tpu_torch.ops.cuda.flash_attention import flash_attention_plain
-from mxnet_tpu_torch.ops.cuda.layernorm import layernorm_plain
+from mxnet_tpu_torch.ops.cuda.layernorm import (layernorm_bwd_plain,
+                                                layernorm_plain)
 
 T = 512
 
@@ -115,3 +116,28 @@ def test_layernorm_tolerance_catches_gamma_fault(dtype, tol):
     with pytest.raises(cs.SmokeFailure):
         cs.held(layernorm_plain(x, gamma * 1.01, beta, 1e-12), ref, tol,
                 "gamma x1.01")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layernorm_bwd_tolerance_catches_dgamma_fault(dtype):
+    """The backward check's limits pass the plain version against itself
+    and catch a dgamma 1 % high (and a dx 1 % high in fp32, where one step
+    of rounding is far below 1 %)."""
+    g = torch.Generator().manual_seed(0)
+    x, gamma, _ = cs._ln_inputs("cpu", g, 256, 768, dtype)
+    dy = torch.randn(256, 768, generator=g).to(dtype)
+    dx, dg, db = layernorm_bwd_plain(x, gamma, dy, 1e-12)
+    mdx, mdg, mdb = cs.layernorm_bwd_magnitudes(x, gamma, dy, 1e-12)
+    assert bool((mdg >= dg.abs()).all()) and bool((mdb >= db.abs()).all())
+    dx_tol = cs.LN_BWD_DX_TOL[str(dtype)[6:]]
+    for got, ref, tol, mag in ((dx, dx, dx_tol, mdx),
+                               (dg, dg, cs.LN_BWD_PARAM_TOL, mdg),
+                               (db, db, cs.LN_BWD_PARAM_TOL, mdb)):
+        assert cs.held(got, ref, tol, "no fault", mag)["worst_ratio"] == 0
+    with pytest.raises(cs.SmokeFailure):
+        cs.held(dg * 1.01, dg, cs.LN_BWD_PARAM_TOL, "dgamma x1.01", mdg)
+    with pytest.raises(cs.SmokeFailure):
+        cs.held(db * 1.01, db, cs.LN_BWD_PARAM_TOL, "dbeta x1.01", mdb)
+    if dtype == torch.float32:
+        with pytest.raises(cs.SmokeFailure):
+            cs.held(dx * 1.01, dx, dx_tol, "dx x1.01", mdx)
