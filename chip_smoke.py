@@ -174,6 +174,9 @@ STEP_LAUNCHES = {"layernorm": 26, "layernorm_bwd": 26,
                  "flash_attention_fwd": 12,
                  "flash_attention_bwd": 12, "softmax_xent_fwd": 2,
                  "softmax_xent_bwd": 2}
+# profiler ranges whose kernels are torch ops, so the profiler gives them
+# device time; kernels launched from the extension are not
+TORCH_OP_RANGES = ("mxnet_tpu_torch::optimizer_step",)
 
 
 class SmokeFailure(RuntimeError):
@@ -423,7 +426,7 @@ def phase_layernorm(dev):
               "%s: dgamma/dbeta differ between two calls" % what)
         check(torch.equal(dx, dx2), "%s: dx differs between two calls" % what)
         if (R, C) == (1280, 768):
-            # 8 rows take the CTA form, 1280 the warp form
+            # the warp form at both row counts: one CTA at 8 rows, 160
             check(torch.equal(ln.fused_layernorm_bwd(
                 x[:8].contiguous(), gamma, dy[:8].contiguous(), eps)[0],
                 dx[:8]), "layernorm bwd: a row's dx at 8 rows differs from "
@@ -1110,8 +1113,9 @@ def _train_kernel_class(name):
 
 def phase_train_breakdown(step, n_prof=2):
     """Where a bert512 step spends its time, from one torch.profiler
-    window: kernel time by class, the LayerNorm backward and the optimizer
-    step (their profiler ranges), and the device idle share."""
+    window: kernel time by class, the host time of the LayerNorm backward
+    and of the optimizer step (their profiler ranges), the optimizer
+    range's device time, and the device idle share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1125,15 +1129,19 @@ def phase_train_breakdown(step, n_prof=2):
             step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n_prof
-    by_class, ranges, top = {}, {}, []
+    by_class, ranges_host, ranges_device, top = {}, {}, {}, []
     dq_pass = 0.0
     for ev in prof.key_averages():
         if ev.key.startswith("mxnet_tpu_torch::"):
-            # a profiler range: its kernels' device time; its span on the
-            # device timeline (a CUDA-side event of the same name, gaps
-            # included) is not kernel time
+            # a profiler range: its host time, and, where its kernels come
+            # from torch ops, their device time; its span on the device
+            # timeline (a CUDA-side event of the same name, gaps included)
+            # is not kernel time
             if ev.device_type != DeviceType.CUDA:
-                ranges[ev.key] = ev.device_time_total / 1e3 / n_prof
+                ranges_host[ev.key] = ev.cpu_time_total / 1e3 / n_prof
+                if ev.key in TORCH_OP_RANGES:
+                    ranges_device[ev.key] = (ev.device_time_total / 1e3
+                                             / n_prof)
         elif ev.device_type == DeviceType.CUDA:
             ms = ev.self_device_time_total / 1e3 / n_prof
             cls = _train_kernel_class(ev.key)
@@ -1144,7 +1152,8 @@ def phase_train_breakdown(step, n_prof=2):
     top.sort(reverse=True)
     busy = sum(by_class.values())
     out = {"kernel_ms_per_step": by_class,
-           "range_device_ms_per_step": ranges,
+           "range_host_ms_per_step": ranges_host,
+           "range_device_ms_per_step": ranges_device,
            "profiled_wall_ms_per_step": wall,
            "device_busy_ms_per_step": busy,
            "device_idle_share": 1.0 - busy / wall,
@@ -1155,10 +1164,11 @@ def phase_train_breakdown(step, n_prof=2):
           "(%.1f%%)" % (by_class.get("flash_attention_bwd", 0.0), dq_pass,
                         100 * out["flash_bwd_dq_pass_share"]), flush=True)
     print("bert512 step breakdown (torch.profiler, %d steps): kernel ms a "
-          "step by class %s; device ms of the ranges %s; %.3f ms busy in "
-          "%.3f ms of wall under the profiler: device idle %.1f%%"
+          "step by class %s; host ms of the ranges %s, device ms %s; %.3f ms "
+          "busy in %.3f ms of wall under the profiler: device idle %.1f%%"
           % (n_prof, {k: round(v, 4) for k, v in sorted(by_class.items())},
-             {k: round(v, 4) for k, v in ranges.items()}, busy, wall,
+             {k: round(v, 4) for k, v in ranges_host.items()},
+             {k: round(v, 4) for k, v in ranges_device.items()}, busy, wall,
              100 * out["device_idle_share"]), flush=True)
     for ms, n, name in top[:20]:
         print("  %8.4f ms  x%-4d %s" % (ms, n, name))

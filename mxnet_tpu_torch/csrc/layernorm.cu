@@ -32,7 +32,32 @@ namespace {
 
 using namespace mxt_ln;
 
-constexpr int kFwdWarps = 2;  // warp form: rows (one a warp) a CTA
+constexpr int kFewRows = 1024;       // the CTA form below this many rows
+constexpr int kMaxCtaThreads = 1024;  // CTA form: vectors a row at most
+constexpr int kFwdWarps = 2;         // warp form: rows (one a warp) a CTA
+
+// CTA form: the row sum of one value a thread (thread t: vector t), in the
+// warp form's order. Every warp forms the same sum from `buf`, so one
+// barrier does. `buf` holds a float a thread and is not written again
+// before the next barrier.
+__device__ __forceinline__ float cta_row_sum(float v, float* buf, int nvec) {
+  buf[threadIdx.x] = v;
+  __syncthreads();
+  float s = 0.f;
+  for (int k = threadIdx.x & 31; k < nvec; k += 32) s += buf[k];
+  return warp_sum(s);
+}
+
+// CTA form: the same statistics from one vector a thread
+template <typename T>
+__device__ __forceinline__ void cta_row_stats(const uint4& v, bool valid,
+                                              int nvec, float inv_c, float eps,
+                                              float* buf0, float* buf1,
+                                              float& mean, float& rstd) {
+  mean = cta_row_sum(valid ? vec_sum<T>(v) : 0.f, buf0, nvec) * inv_c;
+  rstd = rsqrtf(cta_row_sum(valid ? vec_sq<T>(v, mean) : 0.f, buf1, nvec) *
+                    inv_c + eps);
+}
 
 // y = (x - mean) * rstd * gamma + beta for one 16-byte vector at column col
 template <typename T>

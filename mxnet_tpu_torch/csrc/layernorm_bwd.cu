@@ -12,22 +12,21 @@
 // ms at 3.35 TB/s), at about 16 operations an element.
 //
 // What the design does about it:
-// * dx row by row in one read, in the forward's row layouts
+// * dx row by row in one read, in the forward's warp and loop forms
 //   (layernorm_common.cuh): x and dy arrive once, as 16-byte vectors, into
 //   registers; the statistics (the forward's, in its order) and the two
-//   row means come from the registers; dx is written once. The CTA form
-//   takes fewer rows than the forward's (below kBwdFewRows): a CTA here
-//   walks several rows, three barriers each, where a warp of the warp form
-//   walks one (at 512 x 768 bf16, 0.0102 ms against 0.0063 on an H100).
+//   row means come from the registers; dx is written once. The warp form
+//   serves every row count: the one path that runs the backward, BERT
+//   training, gives it 1280 rows or more.
 // * dgamma and dbeta in two stages, in a fixed order, with no atomics, so
 //   two calls on the same inputs give bit-equal results: the grid is
-//   `parts` CTAs (two waves, 2 x the SM count, or fewer when the rows are
-//   few), each walking its rows in a grid-stride loop. Every row of a CTA
-//   puts a column on the same lane, so a lane keeps its columns' fp32
-//   partials in registers; the CTA adds its warps' partials in warp order
-//   in shared memory and writes one partial row of dgamma and one of dbeta
-//   (`part`, parts x 2C). The finishing kernel sums the partial rows column
-//   by column, each column's rows in a fixed order.
+//   `parts` CTAs (two waves, 2 x the SM count, or one a kBwdWarps rows
+//   when that is fewer), each walking its rows in a grid-stride loop.
+//   Every row of a CTA puts a column on the same lane, so a lane keeps its
+//   columns' fp32 partials in registers; the CTA adds its warps' partials
+//   in warp order in shared memory and writes one partial row of dgamma
+//   and one of dbeta (`part`, parts x 2C). The finishing kernel sums the
+//   partial rows column by column, each column's rows in a fixed order.
 // * the loop form (any other C) keeps its partial rows in `part` and adds
 //   each row into them, every column by the thread that owns it.
 
@@ -37,7 +36,6 @@ namespace {
 
 using namespace mxt_ln;
 
-constexpr int kBwdFewRows = 64;    // the CTA form below this many rows
 constexpr int kBwdWarps = 8;       // warp form: warps (rows in flight) a CTA
 constexpr int kWaves = 2;          // CTAs a call: kWaves x the SM count
 constexpr int kFinishSlices = 32;  // finishing kernel: row slices a column
@@ -168,57 +166,6 @@ layernorm_bwd_warp_kernel(const T* __restrict__ x, const float* __restrict__ gam
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kMaxCtaThreads)
-layernorm_bwd_cta_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                         const T* __restrict__ dy, T* __restrict__ dx,
-                         float* __restrict__ part, int64_t rows, int cols,
-                         float eps) {
-  constexpr int kN = kVecN<T>;
-  __shared__ float buf[4][kMaxCtaThreads];
-  const int nvec = cols / kN;
-  const int k = threadIdx.x;
-  const bool valid = k < nvec;
-  const float inv_c = 1.f / (float)cols;
-  float pg[kN], pb[kN];
-#pragma unroll
-  for (int j = 0; j < kN; ++j) pg[j] = pb[j] = 0.f;
-
-  // three barriers a row (buf 0, buf 1, buf 2 and 3); a buffer is written
-  // again only after the barrier that follows every read of it
-  for (int64_t row = blockIdx.x; row < rows; row += gridDim.x) {
-    const uint4 xv = valid ? __ldg(reinterpret_cast<const uint4*>(x + row * cols) + k)
-                           : make_uint4(0, 0, 0, 0);
-    const uint4 dv = valid ? __ldg(reinterpret_cast<const uint4*>(dy + row * cols) + k)
-                           : make_uint4(0, 0, 0, 0);
-    float mean, rstd;
-    cta_row_stats<T>(xv, valid, nvec, inv_c, eps, buf[0], buf[1], mean, rstd);
-    float a = 0.f, b = 0.f;
-    if (valid) vec_t_sums<T>(xv, dv, gamma, k * kN, mean, rstd, a, b);
-    buf[2][k] = a;
-    buf[3][k] = b;
-    __syncthreads();
-    float st = 0.f, stx = 0.f;
-    for (int i = threadIdx.x & 31; i < nvec; i += 32) {
-      st += buf[2][i];
-      stx += buf[3][i];
-    }
-    const float mt = warp_sum(st) * inv_c;
-    const float mtx = warp_sum(stx) * inv_c;
-    if (valid)
-      reinterpret_cast<uint4*>(dx + row * cols)[k] =
-          vec_dx<T>(xv, dv, gamma, k * kN, mean, rstd, mt, mtx, pg, pb);
-  }
-  if (valid) {
-    float* pr = part + (int64_t)blockIdx.x * 2 * cols + k * kN;
-#pragma unroll
-    for (int j = 0; j < kN; ++j) {
-      pr[j] = pg[j];
-      pr[cols + j] = pb[j];
-    }
-  }
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kLoopThreads)
 layernorm_bwd_loop_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                           const T* __restrict__ dy, T* __restrict__ dx,
@@ -333,7 +280,7 @@ void launch(const void* xv, const void* gv, const void* dyv, void* dxv, float* p
   const bool vec = cols % kN == 0 && aligned16(x) && aligned16(g) &&
                    aligned16(dy) && aligned16(dx) && aligned16(part);
   const int nvec = cols / kN;
-  if (vec && rows >= kBwdFewRows && nvec <= 32 * kMaxWarpVecs) {
+  if (vec && nvec <= 32 * kMaxWarpVecs) {
     switch ((nvec + 31) / 32) {
       case 1: launch_warp<T, 1>(x, g, dy, dx, part, rows, cols, parts, eps, s); break;
       case 2: launch_warp<T, 2>(x, g, dy, dx, part, rows, cols, parts, eps, s); break;
@@ -344,9 +291,6 @@ void launch(const void* xv, const void* gv, const void* dyv, void* dxv, float* p
       case 7: launch_warp<T, 7>(x, g, dy, dx, part, rows, cols, parts, eps, s); break;
       default: launch_warp<T, 8>(x, g, dy, dx, part, rows, cols, parts, eps, s); break;
     }
-  } else if (vec && rows < kBwdFewRows && nvec <= kMaxCtaThreads) {
-    layernorm_bwd_cta_kernel<T><<<parts, (nvec + 31) / 32 * 32, 0, s>>>(
-        x, g, dy, dx, part, rows, cols, eps);
   } else {
     layernorm_bwd_loop_kernel<T><<<parts, loop_threads<T>(cols), 0, s>>>(x, g, dy, dx, part, rows,
                                                            cols, eps);
@@ -359,8 +303,7 @@ void launch(const void* xv, const void* gv, const void* dyv, void* dxv, float* p
 // card with `sms` SMs: one a CTA of the grid.
 extern "C" int64_t mxt_layernorm_bwd_parts(int64_t rows, int sms) {
   if (rows <= 0) return 0;
-  const int64_t groups =
-      rows >= kBwdFewRows ? (rows + kBwdWarps - 1) / kBwdWarps : rows;
+  const int64_t groups = (rows + kBwdWarps - 1) / kBwdWarps;
   return groups < (int64_t)kWaves * sms ? groups : (int64_t)kWaves * sms;
 }
 

@@ -1,14 +1,15 @@
 // Pieces shared by the row LayerNorm forward (layernorm.cu) and backward
 // (layernorm_bwd.cu) for Hopper (sm_90a): 16-byte vectors of a row, the
-// three row layouts the host picks from, and the row sums in one order
-// whatever the layout.
+// row layouts the host picks from, and the row sums in one order.
 //
 // The layouts, for x of (R, C):
-// * warp form, R >= kFewRows: one warp a row. Lane l holds the row's
-//   16-byte vectors l, l + 32, ..., NV of them (NV <= kMaxWarpVecs, a
-//   template constant): at C = 768 bf16, 3 vectors a lane.
-// * CTA form, R < kFewRows: the threads of a CTA share a row, thread t
-//   holding vector t (at most kMaxCtaThreads vectors), so the whole row
+// * warp form: one warp a row. Lane l holds the row's 16-byte vectors l,
+//   l + 32, ..., NV of them (NV <= kMaxWarpVecs, a template constant, so
+//   C up to 2048 bf16 / 1024 fp32): at C = 768 bf16, 3 vectors a lane.
+//   The forward takes it at kFewRows rows or more, the backward at every
+//   row count.
+// * CTA form, the forward below kFewRows rows (layernorm.cu): the threads
+//   of a CTA share a row, thread t holding vector t, so the whole row
 //   arrives in one round of loads: at C = 768 bf16, 96 threads.
 // * loop form: any other row (C above the register forms, C not a
 //   multiple of the vector width, or x and y not sharing their 16-byte
@@ -18,8 +19,11 @@
 //
 // In both register forms a row sum is taken in one order: each vector's
 // elements in turn, then lane l adds the sums of vectors l, l + 32, ... in
-// turn, then the 32 lanes meet in a butterfly. So a row's statistics, and
-// its output, do not depend on how many rows come with it.
+// turn, then the 32 lanes meet in a butterfly. So where C fits the warp
+// form (2048 bf16 / 1024 fp32, a multiple of the vector width), a row's
+// statistics and output do not depend on how many rows come with it.
+// Above that the forward takes the CTA form at few rows and the loop form
+// at many, and the loop form sums in another order.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,9 +32,7 @@
 
 namespace mxt_ln {
 
-constexpr int kFewRows = 1024;
 constexpr int kMaxWarpVecs = 8;
-constexpr int kMaxCtaThreads = 1024;
 constexpr int kLoopThreads = 256;
 
 // elements of T in one 16-byte vector
@@ -137,18 +139,6 @@ __device__ __forceinline__ float vec_sq(const uint4& u, float mean) {
   return q;
 }
 
-// CTA form: the row sum of one value a thread (thread t: vector t), in the
-// warp form's order. Every warp forms the same sum from `buf`, so one
-// barrier does. `buf` holds a float a thread and is not written again
-// before the next barrier.
-__device__ __forceinline__ float cta_row_sum(float v, float* buf, int nvec) {
-  buf[threadIdx.x] = v;
-  __syncthreads();
-  float s = 0.f;
-  for (int k = threadIdx.x & 31; k < nvec; k += 32) s += buf[k];
-  return warp_sum(s);
-}
-
 // warp form: the row's fp32 mean, then rsqrt of the mean squared centred
 // value + eps (the TPU kernel's order), from the lane's NV vectors
 template <typename T, int NV>
@@ -165,17 +155,6 @@ __device__ __forceinline__ void warp_row_stats(const uint4 (&v)[NV], int lane,
   for (int i = 0; i < NV; ++i)
     if (lane + 32 * i < nvec) q += vec_sq<T>(v[i], mean);
   rstd = rsqrtf(warp_sum(q) * inv_c + eps);
-}
-
-// CTA form: the same statistics from one vector a thread
-template <typename T>
-__device__ __forceinline__ void cta_row_stats(const uint4& v, bool valid,
-                                              int nvec, float inv_c, float eps,
-                                              float* buf0, float* buf1,
-                                              float& mean, float& rstd) {
-  mean = cta_row_sum(valid ? vec_sum<T>(v) : 0.f, buf0, nvec) * inv_c;
-  rstd = rsqrtf(cta_row_sum(valid ? vec_sq<T>(v, mean) : 0.f, buf1, nvec) *
-                    inv_c + eps);
 }
 
 // loop form: a CTA's sum of one value a thread; `red` holds 32 floats and

@@ -133,7 +133,9 @@ class _LayerNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, gamma = ctx.saved_tensors
-        # a profiler range, so a trace can sum this backward's kernels
+        # a profiler range: the backward's host time. Its kernels come from
+        # the extension, not from torch ops, so the range holds no device
+        # time; a trace reads that from the kernels' names (layernorm_bwd_)
         with torch.profiler.record_function("mxnet_tpu_torch::layernorm_bwd"):
             dx, dg, db = fused_layernorm_bwd(x, gamma, dy, ctx.eps)
         return dx, dg, db, None

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """The port's LayerNorm kernels over row counts, beside their library calls
-and, where given, an earlier version of the forward, in one process.
+and, where given, earlier versions of them, in one process.
 
     python3 tools/cuda_layernorm_bench.py [--parent-src OLD_layernorm.cu]
+        [--parent-bwd-src OLD_layernorm_bwd.cu]
 
 Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit. It builds ``mxnet_tpu_torch/csrc/layernorm.cu`` and
-``layernorm_bwd.cu`` (and the ``--parent-src`` file, a ``layernorm.cu`` of
-an earlier commit with the same C launcher) with ``nvcc`` into shared
-libraries under ``mxnet_tpu_torch/_build/tiles/`` (ptxas registers and
-spills printed), loads each with ctypes, and then:
+``layernorm_bwd.cu`` (and the ``--parent-src`` and ``--parent-bwd-src``
+files, a ``layernorm.cu`` and a ``layernorm_bwd.cu`` of an earlier commit
+with the same C launchers, each with the ``layernorm_common.cuh`` beside
+it) with ``nvcc`` into shared libraries under
+``mxnet_tpu_torch/_build/tiles/`` (ptxas registers and spills printed),
+loads each with ctypes, and then:
 
 * forward, bf16 at C = 768 over 8 to 8192 rows (a decode step's 8, GPT
   prefill buckets, the CTA form's edge at 1023/1024, the MLM head's 1280,
@@ -50,11 +53,21 @@ BWD_ROWS = (8192, 1280, 512, 8)
 C = 768
 
 
+def source(path):
+    """The source at ``path`` with the ``layernorm_common.cuh`` of its own
+    directory inlined, so an earlier commit's file builds with its own
+    header."""
+    text = open(path).read()
+    header = os.path.join(os.path.dirname(path), "layernorm_common.cuh")
+    if os.path.exists(header):
+        text = text.replace('#include "layernorm_common.cuh"',
+                            open(header).read())
+    return text
+
+
 def variant(text, spec):
-    """``text`` with its header inlined and each ``constexpr int NAME =
-    n;`` of ``spec`` ("NAME=VALUE,...") set to VALUE."""
-    header = open(os.path.join(cv.CSRC, "layernorm_common.cuh")).read()
-    text = text.replace('#include "layernorm_common.cuh"', header)
+    """``text`` (its header inlined) with each ``constexpr int NAME = n;``
+    of ``spec`` ("NAME=VALUE,...") set to VALUE."""
     for item in spec.split(","):
         name, value = item.split("=")
         text, n = re.subn(r"constexpr int %s = \d+;" % name,
@@ -111,6 +124,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent-src", help="an earlier layernorm.cu to time "
                     "beside the forward")
+    ap.add_argument("--parent-bwd-src", help="an earlier layernorm_bwd.cu "
+                    "to time beside the backward")
     ap.add_argument("--fwd-variant", action="append", default=[])
     ap.add_argument("--bwd-variant", action="append", default=[])
     args = ap.parse_args()
@@ -119,14 +134,16 @@ def main():
         return 2
     from mxnet_tpu_torch.ops.cuda import layernorm as ln
 
-    fwd_src = open(os.path.join(cv.CSRC, "layernorm.cu")).read()
-    bwd_src = open(os.path.join(cv.CSRC, "layernorm_bwd.cu")).read()
+    fwd_src = source(os.path.join(cv.CSRC, "layernorm.cu"))
+    bwd_src = source(os.path.join(cv.CSRC, "layernorm_bwd.cu"))
     # {name: source}: the forward builds, then the backward builds
     fwd_srcs = {"new": fwd_src}
     if args.parent_src:
-        fwd_srcs = {"parent": open(args.parent_src).read(), "new": fwd_src}
+        fwd_srcs = {"parent": source(args.parent_src), "new": fwd_src}
     fwd_srcs.update({v: variant(fwd_src, v) for v in args.fwd_variant})
     bwd_srcs = {"new": bwd_src}
+    if args.parent_bwd_src:
+        bwd_srcs = {"parent": source(args.parent_bwd_src), "new": bwd_src}
     bwd_srcs.update({v: variant(bwd_src, v) for v in args.bwd_variant})
     tags = {}
     for kind, srcs in (("fwd", fwd_srcs), ("bwd", bwd_srcs)):
