@@ -11,7 +11,8 @@ Run from the root of a checkout on a machine with a CUDA card. It
    (the bert512 step's (8192, 768) and (1280, 768) bf16 first; a decode
    step's (8, 768) at eps 1e-5, a C that is not a multiple of 8, rows above
    the in-register forms, an x off 16-byte alignment; a row's output at 8
-   rows equal to the same row's at 4096), and the LayerNorm backward kernel
+   rows equal to the same row's at 4096; the fp32 rows of the int8 paths:
+   (4096, 768) and (256-1024, 768)), and the LayerNorm backward kernel
    (dx, dgamma, dbeta) against its plain version at the step's two shapes,
    (8, 768), fp32 and the loop form's rows, each run twice: dgamma and
    dbeta must be bit-equal;
@@ -19,7 +20,10 @@ Run from the root of a checkout on a machine with a CUDA card. It
    (the bert512 step's (16, 12, 512, 64) with the logsumexp first, run
    twice: the two outputs must be identical; valid lengths with 0, causal,
    ragged T = 200, head dim 128, T = 2048 with vl 1900, causal T = 192
-   with valid lengths, T = 1, head dim 128 causal, a negative scale);
+   with valid lengths, T = 1, head dim 128 causal, a negative scale), and
+   its fp32 form (the quantized paths' attention) at the int8 BERT
+   forward's (8, 12, 512, 64) with valid lengths (twice, identical), the
+   int8 GPT prefills' causal (1, 12, 256-1024, 64) and the tile edges;
 4. holds the softmax cross-entropy forward and backward kernels against
    their plain versions ((1280, 30522) bf16, (16, 2), (37, 1000) fp32, a
    label in the last column);
@@ -73,8 +77,32 @@ Run from the root of a checkout on a machine with a CUDA card. It
    bucket of 256 or more, none for a prefix inject, and no training
    kernel; (f) a weight swap through ``save_parameters`` makes a greedy
    stream the second model's. It prints time to first token, the decode
-   step's host wall, tokens/s and peak memory;
-10. times each kernel (CUDA-graph replay) at the bert512 step's shapes
+   step's host wall, tokens/s and peak memory; every decode step replays
+   its CUDA graph (one replay a step, no capture after warmup);
+10. holds each GPT decode step's CUDA graph against the same step run
+   eagerly (``phase_graph``), bf16 and int8, greedy and sampled, after a
+   capacity migration and after a weight swap, each from one saved state
+   of 8 filled slots: tokens and logits bitwise equal, one replay a step
+   and no capture in the steady state, 25 LayerNorm launches a step under
+   replay as eagerly; prints a step's host wall each way;
+11. holds ``F.quantized_fully_connected`` at the quantized models'
+   shapes against an fp64 product of the same quantized operands
+   (``phase_lowbit``): int8 bit for bit, e5m2 within the fp32 summation
+   bound, e4m3 within ``LOWBIT_SUM_TOL``;
+12. serves GPT-2 small with int8 weights and int8 KV pages through
+   ``GenerativeServer(quantize="int8")`` in the same two bursts
+   (``phase_generate_quant``): exact launches (25 LayerNorm a prefill and
+   a step, 12 of the flash forward's fp32 form a prefill at a bucket of
+   256 or more: the quantized q/k/v are fp32), the KV bytes at most 0.55x
+   a bf16 cache's; the quantized step, and prefills at buckets 256, 512
+   and 1024, with the kernels against the plain versions, planted faults
+   above the limits; then e4m3 and e5m2 weights, one short burst each;
+   serves BERT-base with int8 weights through ``ModelServer(quantize=
+   "int8")`` at seq 512 (``phase_serve_quant``) in batches that fill
+   their bucket: every served row equal to a direct quantized forward,
+   25 LayerNorm and 12 fp32 flash launches a forward, a bucket-8 forward
+   with the kernels against the plain versions, planted faults above;
+13. times each kernel (CUDA-graph replay) at the bert512 step's shapes
    against its plain version, its PyTorch library yardstick and its bound
    (the LayerNorm backward against aten's, also at the MLM head's rows;
    the two forward kernels also at a served bucket-8 forward's shapes;
@@ -82,14 +110,17 @@ Run from the root of a checkout on a machine with a CUDA card. It
    a mask where every key is valid), dense against flash attention
    at seq 128 and 512, dense against flash forward plus backward at
    seq 64, 128, 256 and 512, and the GPT path's LayerNorm at (8, 768)
-   and causal flash forward at (1, 12, 256, 512 or 1024, 64), each first
-   held to its plain version;
-11. breaks one serving forward at the largest bucket down (host wall, the
+   and causal flash forward at (1, 12, 256, 512 or 1024, 64), the
+   int8 path's LayerNorm at (8, 768) fp32 and the flash forward's fp32
+   form at the int8 BERT and GPT shapes, each first held to its plain
+   version;
+14. breaks one serving forward at the largest bucket down (host wall, the
     executor's whole dispatch, a new thread's first dispatches, kernel time
     by class from torch.profiler, hence the device's idle share), then one
     bert512 step (kernel time by class, the LayerNorm backward and the
     optimizer step, the idle share), then a GPT prefill at bucket 512 and
-    a decode step of 8 slots, and times the step once more. The
+    a decode step of 8 slots, through its graph and eagerly, bf16 and
+    int8, and times the step once more. The
     profiler windows come last: after one, an eager step's host wall may
     not return to what it was.
 
@@ -261,16 +292,9 @@ def held(got, ref, tol, what, mag=None):
 
 def kernel_counters():
     """{name: the wrapper whose ``launches`` counts that kernel}."""
-    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
-    from mxnet_tpu_torch.ops.cuda import layernorm as ln
-    from mxnet_tpu_torch.ops.cuda import softmax_xent as sx
+    from mxnet_tpu_torch.ops.cuda import launch_counters
 
-    return {"layernorm": ln.fused_layernorm,
-            "layernorm_bwd": ln.fused_layernorm_bwd,
-            "flash_attention_fwd": fa.flash_attention,
-            "flash_attention_bwd": fa.flash_attention_bwd,
-            "softmax_xent_fwd": sx.softmax_xent_fwd,
-            "softmax_xent_bwd": sx.softmax_xent_bwd}
+    return launch_counters()
 
 
 def reset_counters():
@@ -305,6 +329,7 @@ class plain_versions:
                 (ln, "fused_layernorm_bwd", ln.layernorm_bwd_plain),
                 (attention, "flash_attention", flash_plain),
                 (fa, "flash_attention", flash_plain),
+                (fa, "flash_attention_f32", flash_plain),
                 (fa, "flash_attention_bwd", fa.flash_attention_bwd_plain),
                 (sx, "softmax_xent_fwd", sx.softmax_xent_fwd_plain),
                 (sx, "softmax_xent_bwd", sx.softmax_xent_bwd_plain)):
@@ -360,8 +385,9 @@ def phase_layernorm(dev):
     the MLM head's 16 * 80), a served bucket-8 forward's, fp32, a GPT decode
     step's 8 rows at eps 1e-5 (the CTA form), a C that is not a multiple of
     8, rows above the register forms (the loop form), an x off 16-byte
-    alignment; the register forms give a row the same output at 8 rows as
-    at 4096. Backward: the step's two shapes, the decode rows, fp32, and
+    alignment, the fp32 rows the int8 paths give it (BERT's bucket-8
+    forward, GPT's prefills at buckets 256-1024); in bf16 the register
+    forms give a row the same output at 8 rows as at 4096. Backward: the step's two shapes, the decode rows, fp32, and
     the loop form's rows; dgamma and dbeta bit-equal over two calls, and a
     row's dx the same at 8 rows as at 1280."""
     import torch
@@ -381,7 +407,13 @@ def phase_layernorm(dev):
                                        ((4096, 8192), bf16, 1e-5, 0),
                                        ((8, 8192), bf16, 1e-5, 0),
                                        ((8, 16384), bf16, 1e-5, 0),
-                                       ((1024, 768), bf16, 1e-12, 1)):
+                                       ((1024, 768), bf16, 1e-12, 1),
+                                       # the int8 paths' fp32 rows: BERT's
+                                       # bucket-8 forward, GPT's prefills
+                                       ((4096, 768), fp32, 1e-12, 0),
+                                       ((1024, 768), fp32, 1e-5, 0),
+                                       ((512, 768), fp32, 1e-5, 0),
+                                       ((256, 768), fp32, 1e-5, 0)):
         x, gamma, beta = _ln_inputs(dev, g, R, C, dtype, offset)
         y = ln.fused_layernorm(x, gamma, beta, eps)
         torch.cuda.synchronize()
@@ -392,7 +424,7 @@ def phase_layernorm(dev):
                             (R, C), str(dtype)[6:], eps,
                             " x at a %d-element offset" % offset
                             if offset else "")))
-        if (R, C) == (4096, 768):
+        if (R, C) == (4096, 768) and dtype == bf16:
             # 8 rows take the CTA form, 4096 the warp form
             check(torch.equal(ln.fused_layernorm(x[:8].contiguous(), gamma,
                                                  beta, eps), y[:8]),
@@ -437,11 +469,11 @@ def phase_layernorm(dev):
     return fwd, bwd
 
 
-def _qkv(dev, g, B, H, T, D):
+def _qkv(dev, g, B, H, T, D, dtype=None):
     import torch
 
     return [torch.randn(B, H, T, D, device=dev, generator=g)
-            .to(torch.bfloat16) for _ in range(3)]
+            .to(dtype or torch.bfloat16) for _ in range(3)]
 
 
 def flash_magnitude(q, k, v, vl=None, causal=False, scale=None):
@@ -524,6 +556,94 @@ def phase_flash(dev):
     readings.append(held(got, flash_attention_plain(q, k, v, scale=-0.125),
                          FLASH_TOL, "flash scale -0.125 (2, 4, 256, 64)",
                          flash_magnitude(q, k, v, scale=-0.125)))
+    return readings
+
+
+# the flash forward's fp32 form against its plain version: both take fp32
+# products and an fp32 softmax, in different orders (the kernel's online
+# rescale, expf against torch.exp), so they differ by some fp32 steps of
+# the sum of the terms' sizes, mag = (p @ |v|) / l, and of |plain|
+FLASH_F32_TOL = (1e-6, 1e-5, 1e-5)
+
+
+def phase_flash_f32(dev):
+    """The flash forward's fp32 form (the quantized models' attention)
+    against its plain version: the int8 BERT bucket-8 forward's shape
+    first, twice (bit-identical), the int8 GPT prefills' causal shapes at
+    buckets 256, 512 and 1024, then the tile edges."""
+    import torch
+    from mxnet_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention, flash_attention_f32, flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    rng = np.random.RandomState(SEED + 21)
+    readings = []
+    cases = [
+        ("bert int8 vl", (BUCKETS[-1], 12, SEQ, 64), False,
+         rng.choice([0, 1, 37, 256, 512], BUCKETS[-1]), False),
+        ("gpt int8 prefill", (1, 12, 256, 64), True, None, False),
+        ("gpt int8 prefill", (1, 12, 512, 64), True, None, False),
+        ("gpt int8 prefill", (1, 12, 1024, 64), True, None, False),
+        ("ragged T=200", (3, 4, 200, 64), False, np.array([200, 0, 77]), True),
+        ("T=2048 vl lse", (1, 4, 2048, 64), False, np.array([1900]), True),
+        ("causal vl T=192", (3, 4, 192, 64), True, np.array([192, 100, 0]),
+         False),
+        ("T=1", (2, 3, 1, 64), False, None, True),
+        ("D=128 causal vl lse", (2, 6, 512, 128), True, np.array([300, 512]),
+         True),
+    ]
+    before = flash_attention.launches
+    for name, (B, H, T, D), causal, vl, lse in cases:
+        q, k, v = _qkv(dev, g, B, H, T, D, torch.float32)
+        vlt = None if vl is None else torch.tensor(vl, dtype=torch.int32,
+                                                   device=dev)
+        kw = {"causal": causal, "kv_valid_len": vlt, "return_lse": lse}
+        n0 = flash_attention_f32.launches
+        got = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(flash_attention_f32.launches == n0 + 1,
+              "fp32 flash: the fp32 form did not launch")
+        ref = flash_attention_plain(q, k, v, **kw)
+        what = "flash fp32 %s %s causal=%s vl=%s" % (
+            name, (B, H, T, D), causal, None if vl is None else
+            [int(n) for n in vl])
+        if not readings:
+            again = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            same = torch.equal(got, again)
+            print("%s: run 2 identical to run 1: %s" % (what, same),
+                  flush=True)
+            check(same, "%s: two runs on the same inputs differ" % what)
+        if lse:
+            (got, got_lse), (ref, ref_lse) = got, ref
+            lse_err = max_err(got_lse, ref_lse)
+            print("%s: max |lse - plain lse| %.3g (limit %g)"
+                  % (what, lse_err, LSE_TOL))
+            check(lse_err <= LSE_TOL, "%s: lse disagrees" % what)
+        check(got.shape == q.shape and got.dtype == torch.float32,
+              "%s: shape/dtype" % what)
+        readings.append(held(got, ref, FLASH_F32_TOL, what,
+                             flash_magnitude(q, k, v, vlt, causal)))
+        if vl is not None:
+            for b in np.flatnonzero(np.asarray(vl) == 0):
+                check(not bool(got[b].any()), "%s: vl=0 row not zero" % what)
+    q, k, v = _qkv(dev, g, 2, 4, 256, 64, torch.float32)
+    got = flash_attention(q, k, v, scale=-0.125)
+    torch.cuda.synchronize()
+    readings.append(held(got, flash_attention_plain(q, k, v, scale=-0.125),
+                         FLASH_F32_TOL, "flash fp32 scale -0.125 "
+                         "(2, 4, 256, 64)",
+                         flash_magnitude(q, k, v, scale=-0.125)))
+    # a view that starts off a 16-byte boundary is refused, not read
+    flat = torch.zeros(2 * 4 * 256 * 64 + 1, device=dev)
+    bad = flat[1:].view(2, 4, 256, 64)
+    try:
+        flash_attention(bad, bad, bad)
+        check(False, "fp32 flash took a misaligned q")
+    except ValueError:
+        pass
+    check(flash_attention.launches == before,
+          "fp32 operands launched the bf16 flash kernel")
     return readings
 
 
@@ -777,7 +897,7 @@ def phase_serve(dev):
 
 
 def _kernel_class(name):
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_kernel" in name or "flash_fwd_f32_kernel" in name:
         return "flash"
     if "layernorm_" in name:
         return "layernorm"
@@ -1701,24 +1821,29 @@ def served_logits(srv, prompt, n):
     """A greedy request of ``n`` tokens served alone, with the logits each
     token was sampled from: (tokens, logits (n, V) fp32). A slot's row
     depends on no other slot, so the tokens are those the request got
-    among companions."""
+    among companions. The prefill's row is read where its first token is
+    sampled, each decode step's live row from the step's output (a
+    replayed graph's output buffer, read before the next step)."""
     import torch
-    from mxnet_tpu_torch.serve import decoder
 
-    rows, sample = [], decoder.sample_tokens
+    rows = []
+    sample_one, run_step = srv._sample_one, srv._run_step
 
-    def recording(logits, *args, **kwargs):
-        # a prefill's (1, V) row, or the live slot's row of a decode step
-        live = logits if logits.shape[0] == 1 else logits[srv._dev_active]
-        rows.append(live.float().clone())
-        return sample(logits, *args, **kwargs)
+    def first(last, *args):
+        rows.append(last[None].float().clone())
+        return sample_one(last, *args)
 
-    decoder.sample_tokens = recording
+    def step(*args, **kwargs):
+        logits = run_step(*args, **kwargs)
+        rows.append(logits[srv._dev_active].float().clone())
+        return logits
+
+    srv._sample_one, srv._run_step = first, step
     try:
         with srv:
             toks = srv.generate(prompt, max_new_tokens=n)
     finally:
-        decoder.sample_tokens = sample
+        del srv._sample_one, srv._run_step
     return toks, torch.cat(rows)
 
 
@@ -1786,53 +1911,30 @@ GEN_FAULTS = {"flash without the causal mask": {
                   "fused_layernorm": layernorm_gamma_high}}
 
 
-def phase_generate(dev):
-    """GPT-2 small served through GenerativeServer in two bursts (see the
-    module docstring): (a) greedy streams against batch-1 ``generate``,
-    (b) prefix hits against their misses, (c) sampled streams across
-    bursts, (d) a prefill at buckets 256, 512 and 1024 with the kernels
-    against the plain versions, planted faults above the limit, (f) a
-    weight swap. Returns (server, model, result); the launch counts are
-    checked apart (:func:`check_generate_launches`)."""
-    import tempfile
-
-    import torch
+def warm_prompts(bursts):
+    """The longest prompt length of each pow2 bucket the bursts use: the
+    prompt lengths a server's warmup prefills."""
     from mxnet_tpu_torch.base import next_pow2
-    from mxnet_tpu_torch.ops.cuda import _build
-    from mxnet_tpu_torch.serve import GenerativeServer
 
-    t0 = time.perf_counter()
-    model = _gpt_model(dev, SEED)
-    n_params = sum(p.data().numel() for p in model.collect_params().values())
-    srv = GenerativeServer(model, slots=GPT_SLOTS, top_k=GPT_TOP_K,
-                           prefix_cache=True, timeout_ms=600000.0,
-                           device=dev)
-    # the longest prompt of each pow2 bucket the bursts use
     longest = {}
-    for burst in _gpt_requests(GPT_CONFIG["vocab_size"]):
+    for burst in bursts:
         for p, _, _ in burst:
             b = next_pow2(len(p))
             longest[b] = max(longest.get(b, 0), len(p))
-    buckets = sorted(longest)
-    srv.warmup(prompt_buckets=[longest[b] for b in buckets],
-               max_tokens=GPT_CONFIG["max_length"])
-    torch.cuda.synchronize()
-    print("gpt2_small: %d parameters, bf16 (norms fp32); GenerativeServer "
-          "slots %d, top_k %d, capacity %d; set-up and warmup (prompt "
-          "buckets %s) %.2f s" % (n_params, GPT_SLOTS, GPT_TOP_K,
-                                  srv.cache.capacity, buckets,
-                                  time.perf_counter() - t0), flush=True)
-    torch.cuda.reset_peak_memory_stats()
-    bursts = _gpt_requests(GPT_CONFIG["vocab_size"])
+    return [longest[b] for b in sorted(longest)]
+
+
+def serve_bursts(srv, bursts, new_tokens, what):
+    """Each burst's requests submitted at once to the running server and
+    drained by one reader thread each: (the streams' tokens per burst,
+    per burst its wall, tokens/s and time to first token of the short (128
+    tokens or fewer) and long prompts)."""
     streams, timing = [], []
-    m0 = srv.stats()
-    # the main path, every counter at 0 just before it
-    reset_counters()
     with srv:
         for burst in bursts:
             arrivals = [[] for _ in burst]
             t_burst = time.perf_counter()
-            got = [srv.submit(p, max_new_tokens=GPT_NEW_TOKENS,
+            got = [srv.submit(p, max_new_tokens=new_tokens,
                               temperature=temp, seed=seed)
                    for p, temp, seed in burst]
 
@@ -1857,16 +1959,51 @@ def phase_generate(dev):
             timing.append({
                 "wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
                 **{"ttft_%s_p%d_ms" % (c, q): float(np.percentile(v, q))
-                   for c, v in ttft.items() for q in (50, 99)}})
-            print("gpt burst %d: %d requests, %d tokens in %.3f s, %.1f "
-                  "tokens/s; time to first token short p50 %.2f p99 %.2f "
-                  "ms, long p50 %.2f p99 %.2f ms" % (
-                      len(timing), len(burst), n_tok, wall,
+                   for c, v in ttft.items() if v for q in (50, 99)}})
+            print("%s burst %d: %d requests, %d tokens in %.3f s, %.1f "
+                  "tokens/s; time to first token %s" % (
+                      what, len(timing), len(burst), n_tok, wall,
                       timing[-1]["tokens_per_s"],
-                      timing[-1]["ttft_short_p50_ms"],
-                      timing[-1]["ttft_short_p99_ms"],
-                      timing[-1]["ttft_long_p50_ms"],
-                      timing[-1]["ttft_long_p99_ms"]), flush=True)
+                      {k: round(v, 2) for k, v in timing[-1].items()
+                       if k.startswith("ttft")}), flush=True)
+    return streams, timing
+
+
+def phase_generate(dev):
+    """GPT-2 small served through GenerativeServer in two bursts (see the
+    module docstring): (a) greedy streams against batch-1 ``generate``,
+    (b) prefix hits against their misses, (c) sampled streams across
+    bursts, (d) a prefill at buckets 256, 512 and 1024 with the kernels
+    against the plain versions, planted faults above the limit, (f) a
+    weight swap. Returns (server, model, result); the launch counts are
+    checked apart (:func:`check_generate_launches`)."""
+    import tempfile
+
+    import torch
+    from mxnet_tpu_torch.base import next_pow2
+    from mxnet_tpu_torch.ops.cuda import _build
+    from mxnet_tpu_torch.serve import GenerativeServer
+
+    t0 = time.perf_counter()
+    model = _gpt_model(dev, SEED)
+    n_params = sum(p.data().numel() for p in model.collect_params().values())
+    srv = GenerativeServer(model, slots=GPT_SLOTS, top_k=GPT_TOP_K,
+                           prefix_cache=True, timeout_ms=600000.0,
+                           device=dev)
+    buckets = warm_prompts(_gpt_requests(GPT_CONFIG["vocab_size"]))
+    srv.warmup(prompt_buckets=buckets, max_tokens=GPT_CONFIG["max_length"])
+    torch.cuda.synchronize()
+    print("gpt2_small: %d parameters, bf16 (norms fp32); GenerativeServer "
+          "slots %d, top_k %d, capacity %d; set-up and warmup (prompts "
+          "of %s tokens) %.2f s" % (n_params, GPT_SLOTS, GPT_TOP_K,
+                                  srv.cache.capacity, buckets,
+                                  time.perf_counter() - t0), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    bursts = _gpt_requests(GPT_CONFIG["vocab_size"])
+    m0 = srv.stats()
+    # the main path, every counter at 0 just before it
+    reset_counters()
+    streams, timing = serve_bursts(srv, bursts, GPT_NEW_TOKENS, "gpt")
     torch.cuda.synchronize()
     launches = read_counters()
     stats = srv.stats()
@@ -1874,6 +2011,15 @@ def phase_generate(dev):
     prefills = stats["prefills"] - m0["prefills"]
     steps = stats["decode_steps"] - m0["decode_steps"]
     hits = stats["prefix_hits"] - m0["prefix_hits"]
+    graphs = {"captures": stats["step_captures"] - m0["step_captures"],
+              "replays": stats["step_replays"] - m0["step_replays"],
+              "programs": stats["step_programs"]}
+    print("gpt decode step programs: %s over %d decode steps"
+          % (graphs, steps), flush=True)
+    check(graphs["captures"] == 0 and graphs["replays"] == steps,
+          "gpt serving: %d captures and %d replays over %d decode steps "
+          "(warmup captures; one replay a step)"
+          % (graphs["captures"], graphs["replays"], steps))
     # the misses: first sightings of each prompt, each a prefill at its
     # pow2 bucket; flash runs at buckets of 256 and more
     seen, flash_prefills = set(), 0
@@ -2032,7 +2178,7 @@ def phase_generate(dev):
               "max_new_tokens": GPT_NEW_TOKENS, "bursts": timing,
               "prefills": prefills, "flash_prefills": flash_prefills,
               "prefix_hits": hits, "decode_steps": steps,
-              "launches": launches,
+              "launches": launches, "step_programs": graphs,
               "greedy_tokens_compared": compared, "parted": len(parted),
               "parting_margins": parted,
               "median_top2_gap": float(np.median(gaps)),
@@ -2087,6 +2233,19 @@ def phase_generate_launches(dev, srv):
             check(n == want[name].get(k, 0), "gpt %s: %s launches %d, "
                   "expected %d" % (name, k, n, want[name].get(k, 0)))
     return out
+
+
+def _flash_fwd_f32_bound(B, H, T, D, vl, causal=False):
+    """(operations, bytes) least times of the flash forward's fp32 form
+    without the lse: two fp32 products over the (query, key) pairs this
+    run's data keeps (each example's valid keys; T (T + 1) / 2 a head when
+    causal), q read and o written whole, the kept rows of k and v."""
+    if causal:
+        pairs, keys = B * H * T * (T + 1) // 2, B * T
+    else:
+        pairs, keys = H * T * int(np.sum(vl)), int(np.sum(vl))
+    nbytes = 4 * (2 * B * H * T * D + 2 * H * D * keys) + 4 * B
+    return 4 * D * pairs / PEAK_FP32, nbytes / PEAK_BYTES
 
 
 def _flash_causal_bound(B, H, T, D):
@@ -2183,10 +2342,858 @@ def phase_generate_timing(dev, records, gen):
                                        r["bound_by"]), flush=True)
 
 
+# ------------------------------------------------- decode step programs
+# each check runs GRAPH_STEPS decode steps each way from one saved state of
+# 8 slots filled with GRAPH_PROMPTS (capacity 512 with 64 new tokens)
+GRAPH_STEPS = 6
+GRAPH_PROMPTS = (24, 40, 64, 100, 130, 200, 260, 300)
+GRAPH_TIMED = 10  # host-wall samples of a step, each way
+# LayerNorm launches a GPT decode step: ln1 and ln2 of each layer, ln_f
+STEP_LN = 2 * GPT_CONFIG["num_layers"] + 1
+
+
+def fill_slots(srv, prompts, temps, new_tokens):
+    """Every slot taken by one request, prefilled and not yet decoded: the
+    requests are submitted, the admission thread hands them over, and the
+    server admits them (its loop is not running)."""
+    streams = [srv.submit(p, max_new_tokens=new_tokens, temperature=t,
+                          seed=i) for i, (p, t) in enumerate(zip(prompts,
+                                                                 temps))]
+    deadline = time.perf_counter() + 30.0
+    while len(srv._join_q) < len(prompts) and time.perf_counter() < deadline:
+        time.sleep(0.001)
+    srv._admit_pending()
+    check(srv.cache.num_active == len(prompts), "%d of %d slots filled"
+          % (srv.cache.num_active, len(prompts)))
+    return streams
+
+
+def step_buffers(srv):
+    """The tensors a decode step writes: input tokens, valid lengths, the
+    K/V pages and (quantized) their scales."""
+    c = srv.cache
+    bufs = [srv._tok, c.valid] + c.k + c.v
+    return bufs + c.k_scale + c.v_scale if c.quantize else bufs
+
+
+def save_state(srv):
+    return [t.clone() for t in step_buffers(srv)]
+
+
+def restore_state(srv, saved):
+    for dst, src in zip(step_buffers(srv), saved):
+        dst.copy_(src)
+
+
+def run_steps(srv, n, eager):
+    """n decode steps through the step programs (or eagerly): each step's
+    logits (fp32) and next tokens, copied off before the next step."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        logits = srv._run_step(eager=eager)
+        out.append((logits.float().clone(), srv._tok.clone()))
+    torch.cuda.synchronize()
+    return out
+
+
+def graph_against_eager(srv, what, n=GRAPH_STEPS):
+    """From one saved state: n steps through the programs (the first run
+    may capture), n again (the steady state: no capture, one replay a
+    step), and n eager steps. Tokens and logits must be bitwise equal, and
+    the LayerNorm launches exact (STEP_LN a step) both ways. Returns (the
+    reading, the steady run's steps); the state is restored."""
+    import torch
+
+    steps = srv._steps
+    saved = save_state(srv)
+    c0 = steps.captures
+    first = run_steps(srv, n, False)
+    first_captures = steps.captures - c0
+    restore_state(srv, saved)
+    c1, r1 = steps.captures, steps.replays
+    reset_counters()
+    graph = run_steps(srv, n, False)
+    g_launch = read_counters()
+    captures, replays = steps.captures - c1, steps.replays - r1
+    restore_state(srv, saved)
+    reset_counters()
+    eager = run_steps(srv, n, True)
+    e_launch = read_counters()
+    restore_state(srv, saved)
+
+    def same(a, b):
+        return all(torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+                   for x, y in zip(a, b))
+
+    reading = {"steps": n, "key": list(map(str, (srv.cache.capacity,
+                                                srv._sampling,
+                                                srv._quantize))),
+               "first_run_captures": first_captures,
+               "steady_captures": captures, "steady_replays": replays,
+               "graph_equals_eager": same(graph, eager),
+               "capturing_run_equals_steady": same(first, graph),
+               "max_abs_logit_diff": max(float((x[0] - y[0]).abs().max())
+                                         for x, y in zip(graph, eager)),
+               "launches_graph": g_launch, "launches_eager": e_launch}
+    print("%s: graph vs eager over %d steps: bitwise equal %s (capturing "
+          "run %s), max |logit diff| %.3g; captures %d then %d, replays %d; "
+          "LayerNorm launches graph %d, eager %d" % (
+              what, n, reading["graph_equals_eager"],
+              reading["capturing_run_equals_steady"],
+              reading["max_abs_logit_diff"], first_captures, captures,
+              replays, g_launch["layernorm"], e_launch["layernorm"]),
+          flush=True)
+    check(reading["graph_equals_eager"], "%s: the captured steps differ from "
+          "the eager ones" % what)
+    check(reading["capturing_run_equals_steady"], "%s: the run that captured "
+          "differs from the steady one" % what)
+    check(captures == 0 and replays == n, "%s: %d captures and %d replays "
+          "over %d steady steps" % (what, captures, replays, n))
+    check(g_launch["layernorm"] == STEP_LN * n and g_launch == e_launch,
+          "%s: launches under replay %s, eager %s, expected %d LayerNorm"
+          % (what, g_launch, e_launch, STEP_LN * n))
+    return reading, graph
+
+
+def step_walls(srv, n=GRAPH_TIMED):
+    """Host wall (ms) of a decode step with its one readback, through the
+    programs and eagerly in turns from one saved state, and the step's
+    device-stream time from CUDA events (for a replay, the kernels back to
+    back; for the eager step, the stream's span, idle gaps included):
+    medians."""
+    import torch
+
+    saved = save_state(srv)
+    out = {"graph": [], "eager": [], "graph_events": [], "eager_events": []}
+    for _ in range(n):
+        for way, eager in (("graph", False), ("eager", True)):
+            restore_state(srv, saved)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            srv._run_step(eager=eager)
+            end.record()
+            srv._tok.cpu()
+            out[way].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            out[way + "_events"].append(start.elapsed_time(end))
+    restore_state(srv, saved)
+    return {k: float(np.median(v)) for k, v in out.items()}
+
+
+def _swap_file(dev, seed, quantize):
+    """A second model's parameters (quantized like the served one) saved
+    to a file under the build directory; returns its path."""
+    import tempfile
+
+    from mxnet_tpu_torch.ops.cuda import _build
+    from mxnet_tpu_torch.quantization import quantize_model
+
+    other = _gpt_model(dev, seed)
+    if quantize:
+        quantize_model(other, mode=quantize)
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    path = os.path.join(tempfile.mkdtemp(dir=_build.BUILD_DIR),
+                        "gpt2_seed%d.params" % seed)
+    other.save_parameters(path)
+    return path
+
+
+def phase_graph(dev):
+    """The decode step through its CUDA graphs against the same step run
+    eagerly, bf16 and int8: 8 slots filled, then from one saved state
+    greedy, sampled (every other slot at temperature 0.8), after a capacity
+    migration (512 -> 1024: every program dropped) and after a weight swap
+    (no program dropped; the replay must give the new weights' logits).
+    Then the host wall of a step each way."""
+    import shutil
+
+    import torch
+    from mxnet_tpu_torch.serve import GenerativeServer
+
+    rng = np.random.RandomState(SEED + 11)
+    prompts = [rng.randint(0, GPT_CONFIG["vocab_size"], n).astype(np.int32)
+               for n in GRAPH_PROMPTS]
+    sampled = [0.8 if i % 2 else 0.0 for i in range(GPT_SLOTS)]
+    out = {}
+    for mode in (None, "int8"):
+        name = "gpt decode step %s" % (mode or "bf16")
+        model = _gpt_model(dev, SEED + 12)
+        srv = GenerativeServer(model, slots=GPT_SLOTS, top_k=GPT_TOP_K,
+                               prefix_cache=False, timeout_ms=600000.0,
+                               device=dev, quantize=mode)
+        fill_slots(srv, prompts, [0.0] * GPT_SLOTS, GPT_NEW_TOKENS)
+        r = {"greedy": graph_against_eager(srv, name + " greedy")[0]}
+        srv._temps[:] = sampled
+        srv._ctl_dirty = True
+        r["sampled"] = graph_against_eager(srv, name + " sampled")[0]
+        cap, drops = srv.cache.capacity, srv._steps.drops
+        srv.cache.ensure_capacity(GPT_CONFIG["max_length"])
+        r["after_migration"] = graph_against_eager(
+            srv, name + " sampled, capacity %d -> %d"
+            % (cap, srv.cache.capacity))[0]
+        check(srv._steps.drops == drops + 1 and srv.cache.capacity > cap,
+              "%s: the migration did not drop the programs" % name)
+        path = _swap_file(dev, SEED + 13, mode)
+        try:
+            saved = save_state(srv)
+            old = run_steps(srv, 1, False)[0][0]
+            restore_state(srv, saved)
+            captures, drops = srv._steps.captures, srv._steps.drops
+            epoch = srv.swap_parameters(path)
+        finally:
+            shutil.rmtree(os.path.dirname(path))
+        r["after_swap"], steps = graph_against_eager(
+            srv, name + " after a weight swap (epoch %d)" % epoch)
+        check(not torch.equal(steps[0][0], old),
+              "%s: the replayed step still serves the old weights" % name)
+        check(srv._steps.captures == captures and srv._steps.drops == drops,
+              "%s: the swap made or dropped programs" % name)
+        r["host_wall_ms"] = step_walls(srv)
+        r["programs"] = {"captures": srv._steps.captures,
+                         "replays": srv._steps.replays,
+                         "drops": srv._steps.drops,
+                         "keys": [list(map(str, k))
+                                  for k in srv._steps.keys()]}
+        print("%s: host wall of a step with its readback, median of %d: "
+              "graph %.3f ms, eager %.3f ms; CUDA-event span graph %.3f ms, "
+              "eager %.3f ms" % (name, GRAPH_TIMED,
+                                 r["host_wall_ms"]["graph"],
+                                 r["host_wall_ms"]["eager"],
+                                 r["host_wall_ms"]["graph_events"],
+                                 r["host_wall_ms"]["eager_events"]),
+              flush=True)
+        srv.stop()
+        out[mode or "bf16"] = r
+        del srv, model
+        torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------ quantized serving
+# the quantized decode step with the kernels against the same step with the
+# plain versions, elementwise on the logits (rms_ratio: atol + rtol |plain|
+# + mtol rms). The step runs in fp32 after its first quantized Dense, so
+# the LayerNorm kernel and its plain version differ by a few fp32 steps;
+# where one of those flips an activation's rounding at .5, a quantized
+# Dense's output moves by one step x_scale * w_scale * |w|, which reaches
+# the logits diluted by the layers after it
+QUANT_STEP_TOL = (1e-4, 2.0 ** -10, 2.0 ** -8)
+# a whole int8 prefill or BERT forward with the kernels against the plain
+# versions, each tensor in relative L2 norm. Each quantized Dense rounds
+# its input to a step of the tensor's amax / 127, and a rounding that falls
+# the other way at .5 moves a whole row, which attention spreads to the
+# later rows and the next Dense layers to more roundings: from the second
+# layer on the two runs differ by quantization noise throughout (printed;
+# some percent on the card). So the limit grows with depth: the tensors
+# before any quantized rounding can part (GPT's layer-0 K and V, BERT's
+# embedding LayerNorm) within 2e-3, where a 1% gamma reads 1%; the next
+# (GPT's layer-1 K and V, BERT's first cell), where the first roundings
+# part, within 1e-2; every later tensor within 8e-2, about twice that
+# noise, which a flash without its mask exceeds many times over
+QUANT_REL_TOLS = (2e-3, 1e-2, 8e-2)
+QUANT_FP8_BURST = ((20, 0, 0), (64, 0.8, 21), (130, 0, 0), (300, 0, 0))
+QUANT_FP8_NEW = 16
+
+
+def layernorm_eps_high(x, gamma, beta, eps):
+    """A planted fault: the plain LayerNorm with eps 1e-3 for 1e-5."""
+    from mxnet_tpu_torch.ops.cuda import layernorm as ln
+
+    return ln.layernorm_plain(x, gamma, beta, 1e-3)
+
+
+QUANT_FAULTS = {"LayerNorm gamma 1% high": {
+                    "fused_layernorm": layernorm_gamma_high},
+                "LayerNorm eps 1e-3": {"fused_layernorm": layernorm_eps_high}}
+
+
+def graded_ratio(tensors):
+    """Worst relative L2 error / limit over (name, got, ref, limit), and
+    its name."""
+    return max((float((a - b).norm() / b.norm()) / tol, name)
+               for name, a, b, tol in tensors)
+
+
+def quant_prefill_tensors(got, ref):
+    """(name, got, ref, limit) of a prefill state's logits and every
+    layer's K and V (QUANT_REL_TOLS by depth)."""
+    first, second, deep = QUANT_REL_TOLS
+    out = [("logits", got[0], ref[0], deep)]
+    for i, ((k, v), (rk, rv)) in enumerate(zip(got[1], ref[1])):
+        tol = first if i == 0 else second if i == 1 else deep
+        out += [("layer %d K" % i, k, rk, tol), ("layer %d V" % i, v, rv,
+                                                   tol)]
+    return out
+
+
+def phase_generate_quant(dev):
+    """GPT-2 small with int8 weights and int8 KV pages through
+    GenerativeServer(quantize="int8"): the two bursts of phase_generate
+    (every counter at 0 just before them), exact LayerNorm launches, 12
+    launches of the flash forward's fp32 form a prefill at a bucket of 256
+    or more (the quantized q/k/v are fp32) and none of the bf16 one, one
+    replay a decode step and no capture, the KV bytes at most 0.55x a bf16
+    cache's; the quantized step and prefills at buckets 256, 512 and 1024
+    with the kernels against the plain versions, planted faults above the
+    limit; then e4m3 and e5m2 weights, one short burst each. Returns (the
+    quantized model, the result)."""
+    import torch
+    from mxnet_tpu_torch.base import next_pow2
+    from mxnet_tpu_torch.quantization import fp8_supported
+    from mxnet_tpu_torch.serve import GenerativeServer
+
+    t0 = time.perf_counter()
+    model = _gpt_model(dev, SEED)
+    srv = GenerativeServer(model, slots=GPT_SLOTS, top_k=GPT_TOP_K,
+                           prefix_cache=True, timeout_ms=600000.0,
+                           device=dev, quantize="int8")
+    bursts = _gpt_requests(GPT_CONFIG["vocab_size"])
+    srv.warmup(prompt_buckets=warm_prompts(bursts),
+               max_tokens=GPT_CONFIG["max_length"])
+    torch.cuda.synchronize()
+    print("gpt2_small int8 (weights per channel, activations per tensor, "
+          "KV pages int8): set-up and warmup %.2f s"
+          % (time.perf_counter() - t0), flush=True)
+    m0 = srv.stats()
+    # the quantized main path, every counter at 0 just before it
+    reset_counters()
+    streams, timing = serve_bursts(srv, bursts, GPT_NEW_TOKENS, "gpt int8")
+    torch.cuda.synchronize()
+    launches = read_counters()
+    stats = srv.stats()
+    prefills = stats["prefills"] - m0["prefills"]
+    steps = stats["decode_steps"] - m0["decode_steps"]
+    hits = stats["prefix_hits"] - m0["prefix_hits"]
+    captures = stats["step_captures"] - m0["step_captures"]
+    replays = stats["step_replays"] - m0["step_replays"]
+    seen = {p.tobytes(): len(p) for b in bursts for p, _, _ in b}
+    at_256 = sum(next_pow2(n) >= 256 for n in seen.values())
+    kv_ratio = srv.cache.nbytes() / srv.cache.nbytes_unquantized(itemsize=2)
+    print("gpt int8 serving: %d prefills (%d at buckets >= 256), %d prefix "
+          "hits, %d decode steps; kernel launches %s (flash fp32 form: %d "
+          "at %d prefills of bucket >= 256, the quantized q/k/v are fp32); "
+          "step programs %d captures, %d replays; "
+          "step host wall p50 %s p99 %s ms; KV bytes %d = %.4f x bf16"
+          % (prefills, at_256, hits, steps, launches,
+             launches["flash_attention_fwd_f32"], at_256, captures, replays,
+             stats["itl_p50_ms"], stats["itl_p99_ms"], srv.cache.nbytes(),
+             kv_ratio), flush=True)
+    check(stats["errors"] == 0 and stats["timeouts"] == 0,
+          "int8 serving errors: %s" % stats)
+    check(prefills == len(seen) and hits == sum(map(len, bursts)) - len(seen),
+          "int8: prefills %d / hits %d" % (prefills, hits))
+    for outs in streams:
+        for s in outs:
+            check(len(s) == GPT_NEW_TOKENS
+                  and all(0 <= t < GPT_CONFIG["vocab_size"] for t in s),
+                  "int8: a stream of %d tokens or a token out of range"
+                  % len(s))
+    want = {"layernorm": STEP_LN * (prefills + steps),
+            "flash_attention_fwd_f32": GPT_CONFIG["num_layers"] * at_256}
+    for k, n in launches.items():
+        check(n == want.get(k, 0), "int8 serving: %s launches %d, expected "
+              "%d" % (k, n, want.get(k, 0)))
+    check(captures == 0 and replays == steps, "int8: %d captures and %d "
+          "replays over %d decode steps" % (captures, replays, steps))
+    check(at_256 > 0, "the int8 bursts hold no prompt of bucket >= 256")
+    check(kv_ratio <= 0.55, "int8 KV pages take %.4f x the bf16 bytes"
+          % kv_ratio)
+
+    del srv
+
+    # the quantized step with the kernels against the plain versions, on a
+    # new server (a stopped one admits nothing) of the same model
+    srv = GenerativeServer(model, slots=GPT_SLOTS, top_k=GPT_TOP_K,
+                           prefix_cache=False, timeout_ms=600000.0,
+                           device=dev, quantize="int8")
+    rng = np.random.RandomState(SEED + 15)
+    prompts = [rng.randint(0, GPT_CONFIG["vocab_size"], n).astype(np.int32)
+               for n in GRAPH_PROMPTS]
+    fill_slots(srv, prompts, [0.0] * GPT_SLOTS, GPT_NEW_TOKENS)
+    saved = save_state(srv)
+
+    def step_logits():
+        logits = srv._run_step(eager=True).float().clone()
+        restore_state(srv, saved)
+        return logits
+
+    got = step_logits()
+    reset_counters()
+    with plain_versions():
+        ref = step_logits()
+    check(not any(read_counters().values()),
+          "the plain quantized step launched a kernel: %s" % read_counters())
+    check(bool(torch.isfinite(got).all()), "non-finite int8 step logits")
+    vs_plain = {"worst_ratio": rms_ratio(got, ref, QUANT_STEP_TOL),
+                "max_abs_err": max_err(got, ref), "faults": {}}
+    for name, override in QUANT_FAULTS.items():
+        with plain_versions(**override):
+            vs_plain["faults"][name] = rms_ratio(step_logits(), ref,
+                                                 QUANT_STEP_TOL)
+    print("gpt int8 decode step with kernels vs plain versions: max abs err "
+          "%.4g, worst error/limit %.3f (limit %s); planted faults %s" % (
+              vs_plain["max_abs_err"], vs_plain["worst_ratio"],
+              QUANT_STEP_TOL, {k: round(v, 3) for k, v in
+                               vs_plain["faults"].items()}), flush=True)
+    check(vs_plain["worst_ratio"] <= 1.0, "the int8 step with the kernels "
+          "disagrees with the plain versions")
+    for name, r in vs_plain["faults"].items():
+        check(r > 1.0, "the int8 step limit misses the planted fault %r"
+              % name)
+    srv.stop()
+    del srv
+
+    # int8 prefills at buckets 256, 512 and 1024 with the kernels (the
+    # LayerNorm's fp32 rows, the flash forward's fp32 form) against the
+    # plain versions, and planted faults against the limits
+    # (QUANT_REL_TOLS)
+    rng = np.random.RandomState(SEED + 22)
+    prefills_vs_plain = []
+    for length in GEN_PREFILL_LENS:
+        prompt = rng.randint(0, GPT_CONFIG["vocab_size"],
+                             length).astype(np.int32)
+        tp = next_pow2(length)
+        got = prefill_state(model, prompt, tp, dev)
+        reset_counters()
+        with plain_versions():
+            ref = prefill_state(model, prompt, tp, dev)
+        check(not any(read_counters().values()), "the plain int8 prefill "
+              "launched a kernel: %s" % read_counters())
+        check(bool(torch.isfinite(got[0]).all()),
+              "non-finite int8 prefill logits")
+        prefill = {"prompt": length, "bucket": tp,
+                   "max_abs_err_logits": max_err(got[0], ref[0]),
+                   "max_abs_err_kv": max(max_err(a, b) for x, y in
+                                         zip(got[1], ref[1])
+                                         for a, b in zip(x, y)),
+                   "rel_l2": {n: float((a - b).norm() / b.norm()) for n, a, b, _
+                              in quant_prefill_tensors(got, ref)},
+                   "worst": graded_ratio(quant_prefill_tensors(got, ref)),
+                   "faults": {}}
+        for name, override in GEN_FAULTS.items():
+            with plain_versions(**override):
+                bad = prefill_state(model, prompt, tp, dev)
+            prefill["faults"][name] = graded_ratio(
+                quant_prefill_tensors(bad, ref))
+        rel = prefill["rel_l2"]
+        print("gpt int8 prefill (%d tokens, bucket %d) with kernels vs plain "
+              "versions: max abs err logits %.4g, K/V %.4g; relative L2 "
+              "layer 0 %.3g, layer 1 %.3g, layers 2-%d %.3g, logits %.3g; "
+              "worst error/limit %.3f at %s (limits %s); planted faults %s"
+              % (length, tp, prefill["max_abs_err_logits"],
+                 prefill["max_abs_err_kv"],
+                 max(v for k, v in rel.items() if k.startswith("layer 0 ")),
+                 max(v for k, v in rel.items() if k.startswith("layer 1 ")),
+                 GPT_CONFIG["num_layers"] - 1,
+                 max([v for k, v in rel.items() if k.startswith("layer ")
+                      and int(k.split()[1]) >= 2] or [0.0]),
+                 rel["logits"], *prefill["worst"], QUANT_REL_TOLS,
+                 {k: "%.3f at %s" % v for k, v in
+                  prefill["faults"].items()}), flush=True)
+        check(prefill["worst"][0] <= 1.0, "the int8 prefill at bucket %d "
+              "with the kernels disagrees with the plain versions" % tp)
+        for name, (r, _) in prefill["faults"].items():
+            check(r > 1.0, "the int8 prefill limit at bucket %d misses the "
+                  "planted fault %r" % (tp, name))
+        prefills_vs_plain.append(prefill)
+
+    fp8 = {}
+    for mode in ("e4m3", "e5m2"):
+        check(fp8_supported(mode), "fp8 %s is not supported here" % mode)
+        m = _gpt_model(dev, SEED + 14)
+        s = GenerativeServer(m, slots=GPT_SLOTS, top_k=GPT_TOP_K,
+                             timeout_ms=600000.0, device=dev, quantize=mode)
+        burst = [(np.random.RandomState(SEED + 16 + i).randint(
+            0, GPT_CONFIG["vocab_size"], n).astype(np.int32), t, sd)
+            for i, (n, t, sd) in enumerate(QUANT_FP8_BURST)]
+        s.warmup(prompt_buckets=warm_prompts([burst]),
+                 max_tokens=max(n for n, _, _ in QUANT_FP8_BURST)
+                 + QUANT_FP8_NEW)
+        qdt = m.blocks[0].attn.qkv.qweight.data().dtype
+        got, t = serve_bursts(s, [burst], QUANT_FP8_NEW, "gpt %s" % mode)
+        st = s.stats()
+        check(st["errors"] == 0 and all(
+            len(x) == QUANT_FP8_NEW
+            and all(0 <= v < GPT_CONFIG["vocab_size"] for v in x)
+            for x in got[0]), "%s serving: %s" % (mode, st))
+        fp8[mode] = {"weight_dtype": str(qdt), "burst": t[0],
+                     "step_replays": st["step_replays"],
+                     "decode_steps": st["decode_steps"]}
+        print("gpt %s: weights %s" % (mode, qdt), flush=True)
+        s.stop()
+        del s, m
+        torch.cuda.empty_cache()
+    return model, {"mode": "int8", "bursts": timing, "prefills": prefills,
+                   "prefix_hits": hits, "decode_steps": steps,
+                   "launches": launches, "flash_prefills_at_256": at_256,
+                   "step_programs": {"captures": captures,
+                                     "replays": replays},
+                   "kv_ratio_vs_bf16": kv_ratio,
+                   "step_vs_plain": vs_plain,
+                   "prefill_vs_plain": prefills_vs_plain,
+                   "server_stats": stats,
+                   "fp8": fp8}
+
+
+# the quantized Dense layers' products: (rows, in, out) of GPT-2 small's
+# decode step (8 slots) and a prefill at bucket 256, and of BERT-base's
+# bucket-8 forward (its 4096 rows, the pooler's 8, the NSP head's 2 outputs)
+LOWBIT_SHAPES = ((8, 768, 2304), (8, 768, 768), (8, 768, 3072),
+                 (8, 3072, 768), (256, 768, 2304), (256, 3072, 768),
+                 (4096, 768, 768), (4096, 768, 3072), (8, 768, 2))
+# the limit of an fp8 product's error, in units of sum |term|: e5m2 goes
+# through an fp32 matmul, held to the fp32 error bound of a sum of K terms
+# in any order, K 2**-24 (None); e4m3 goes through the tensor cores'
+# fp8 products, whose sums keep fewer bits than fp32 (the card reads up to
+# 7.7e-5 at K = 768, 1.7x the fp32 bound): held to 2**-12, which a wrong
+# operand, layout or scale still exceeds by orders of magnitude
+LOWBIT_SUM_TOL = {"e4m3": 2.0 ** -12, "e5m2": None}
+
+
+def phase_lowbit(dev):
+    """F.quantized_fully_connected on the card against the dequantized
+    product computed apart, in fp64 from the same quantized operands (exact:
+    every partial sum of products of int8 or fp8 values fits fp64's 53
+    bits): int8 bit for bit (the int32 sum exact, then the same fp32
+    rescale and bias); e5m2 within the fp32 error bound of a sum of K
+    terms in any order, K 2**-24 sum |term|; e4m3 within its
+    ``LOWBIT_SUM_TOL``. Prints each fp8 mode's worst error in units of
+    sum |term|."""
+    import torch
+    from mxnet_tpu_torch.ops import functional as F
+    from mxnet_tpu_torch.ops.lowbit import (_dtype_qparams, _quantize_act,
+                                            quantize_weight)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    out = {}
+    for mode in ("int8", "e4m3", "e5m2"):
+        worst, worst_rel = 0.0, 0.0
+        for M, K, N in LOWBIT_SHAPES:
+            w = torch.randn(N, K, device=dev, generator=g) * 0.05
+            x = torch.randn(M, K, device=dev, generator=g)
+            bias = torch.randn(N, device=dev, generator=g)
+            qw, ws = quantize_weight(w, axis=0, mode=mode)
+            y = F.quantized_fully_connected(x, qw, ws, bias)
+            qx, xs = _quantize_act(x, None, qw.dtype,
+                                   *_dtype_qparams(qw.dtype))
+            ref = qx.double() @ qw.double().t()
+            what = "%s product (%d, %d) x (%d, %d)" % (mode, M, K, K, N)
+            check(y.shape == (M, N) and y.dtype == torch.float32,
+                  "%s: shape/dtype" % what)
+            if mode == "int8":
+                want = (ref.to(torch.int32).to(torch.float32)
+                        * (xs * ws.reshape(-1)) + bias)
+                check(torch.equal(y, want), "%s differs from the exact "
+                      "integer product" % what)
+                continue
+            # y = acc * s + bias: the error of acc in units of the bound,
+            # with the rescale's own rounding (one fp32 step of |acc s| and
+            # of |y|) inside it
+            s_ = (xs * ws.reshape(-1)).double()
+            terms = (qx.double().abs() @ qw.double().abs().t()) * s_.abs()
+            rounding = 2.0 ** -23 * ((ref * s_).abs() + y.double().abs())
+            err = (y.double() - (ref * s_ + bias.double())).abs()
+            tol = LOWBIT_SUM_TOL[mode] or K * 2.0 ** -24
+            r = float((err / (tol * terms + rounding).clamp_min(1e-30)).max())
+            worst = max(worst, r)
+            worst_rel = max(worst_rel, float(
+                ((err - rounding).clamp_min(0) / terms.clamp_min(1e-30))
+                .max()))
+            check(r <= 1.0, "%s: error %.3g of its limit" % (what, r))
+        out[mode] = {"shapes": [list(t) for t in LOWBIT_SHAPES],
+                     "worst_ratio": worst, "worst_of_sum_abs_terms":
+                     worst_rel, "limit": LOWBIT_SUM_TOL.get(mode)}
+        print("%s quantized_fully_connected at %d shapes: %s" % (
+            mode, len(LOWBIT_SHAPES), "bit-equal to the exact integer product"
+            if mode == "int8" else "worst error %.3g of sum |term| (%s), "
+            "%.3g of the limit" % (worst_rel, "limit 2**-12"
+                                   if LOWBIT_SUM_TOL[mode] else
+                                   "limit K 2**-24", worst)), flush=True)
+    return out
+
+
+def flash_valid_len_dropped(q, k, v, **kw):
+    """A planted fault: the plain flash attention over every key, the
+    padding too."""
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+
+    return fa.flash_attention_plain(q, k, v, **dict(kw, kv_valid_len=None))
+
+
+BERT_QUANT_FAULTS = {"flash without the valid length": {
+                         "flash_attention": flash_valid_len_dropped},
+                     "LayerNorm gamma 1% high": {
+                         "fused_layernorm": layernorm_gamma_high}}
+
+
+def bert_layer_outputs(model, ins):
+    """A BERT forward of ``ins``: [(name, fp32 tensor)] of the embedding
+    LayerNorm's output, every encoder cell's and the model's outputs."""
+    import torch
+
+    seen = []
+
+    def keep(name):
+        return lambda mod, args, out: seen.append((name, out.float()))
+
+    hooks = [model.encoder.ln.register_forward_hook(keep(
+        "embedding LayerNorm"))]
+    hooks += [cell.register_forward_hook(keep("cell %d" % i))
+              for i, cell in enumerate(model.encoder.cells)]
+    try:
+        with torch.inference_mode():
+            outs = model(*ins)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen + [("output %d" % i, o.float()) for i, o in enumerate(outs)]
+
+
+def phase_serve_quant(dev):
+    """BERT-base with int8 weights through ModelServer(buckets=(1, 4, 8),
+    quantize="int8") at seq 512: the 16 requests of phase_serve as
+    batches that fill their bucket (1, 4, 8, 1, 1, 1 rows: a pad row would
+    join the per-tensor activation scale), each served batch equal to a
+    direct quantized forward of the same rows, exact launches (25 LayerNorm
+    and 12 of the flash forward's fp32 form a forward: the quantized q/k/v
+    are fp32); then a bucket-8 forward with the kernels against the plain
+    versions, planted faults above the limit."""
+    import torch
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.models.bert import bert_base
+    from mxnet_tpu_torch.serve import ModelServer
+
+    model = bert_base(dropout=0.1, max_length=SEQ)
+    model.initialize(device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 20))
+    amp.convert_hybrid_block(model, "bfloat16")
+    specs = [((SEQ,), "int32"), ((SEQ,), "int32"), ((), "int32")]
+    t0 = time.perf_counter()
+    srv = ModelServer(model, specs, buckets=BUCKETS, max_wait_ms=1.0,
+                      timeout_ms=120000.0, device=dev, quantize="int8")
+    torch.cuda.synchronize()
+    print("bert_base int8: set-up, quantization and warmup %.2f s"
+          % (time.perf_counter() - t0), flush=True)
+    tok, tt, vl = _bert_requests()
+    groups = [(0, 1), (1, 5), (5, 13), (13, 14), (14, 15), (15, 16)]
+    with srv:
+        b0 = srv.metrics.batches
+        reset_counters()
+        t0 = time.perf_counter()
+        served = [srv.predict(tok[a:b], tt[a:b], vl[a:b]) for a, b in groups]
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        forwards = srv.metrics.batches - b0
+        stats = srv.stats()
+    worst = 0.0
+    with torch.inference_mode():
+        for (a, b), outs in zip(groups, served):
+            ins = [torch.from_numpy(x[a:b]).to(dev) for x in (tok, tt, vl)]
+            direct = [o.float().cpu().numpy() for o in model(*ins)]
+            for o, d in zip(outs, direct):
+                check(np.isfinite(o).all(), "non-finite int8 BERT output")
+                worst = max(worst, float(np.abs(o.astype(np.float32)
+                                                - d).max()))
+    print("bert int8 served %d rows in %d forwards (%.1f ms); launches %s "
+          "(flash: the fp32 form, the quantized q/k/v are fp32); served rows "
+          "vs a direct "
+          "quantized forward: max abs %.3g" % (N_REQUESTS, forwards,
+                                               wall * 1e3, launches, worst),
+          flush=True)
+    check(stats["errors"] == 0 and forwards == len(groups),
+          "int8 BERT serving: %d forwards, %s" % (forwards, stats))
+    want = {"layernorm": 25 * forwards,
+            "flash_attention_fwd_f32": 12 * forwards}
+    check(all(n == want.get(k, 0) for k, n in launches.items()),
+          "int8 BERT launches %s over %d forwards" % (launches, forwards))
+    check(worst == 0.0, "int8 BERT served rows differ from a direct "
+          "quantized forward")
+    # a bucket-8 forward (the LayerNorm's fp32 (4096, 768) rows, the flash
+    # forward's fp32 form at (8, 12, 512, 64)) with the kernels against the
+    # plain versions: the embedding LayerNorm's output, every cell's and
+    # the model's outputs (QUANT_REL_TOLS by depth)
+    ins = [torch.from_numpy(x[5:13]).to(dev) for x in (tok, tt, vl)]
+    got = bert_layer_outputs(model, ins)
+    reset_counters()
+    with plain_versions():
+        ref = bert_layer_outputs(model, ins)
+    check(not any(read_counters().values()),
+          "the plain int8 BERT forward launched a kernel: %s"
+          % read_counters())
+
+    def graded(outs):
+        first, second, deep = QUANT_REL_TOLS
+        return [(n, a, b, first if n == "embedding LayerNorm" else second
+                 if n == "cell 0" else deep)
+                for (n, a), (_, b) in zip(outs, ref)]
+
+    vs_plain = {"rel_l2": {n: float((a - b).norm() / b.norm())
+                           for n, a, b, _ in graded(got)},
+                "worst": graded_ratio(graded(got)),
+                "max_abs_err": max(max_err(a, b) for (_, a), (_, b) in
+                                   zip(got, ref)),
+                "faults": {}}
+    for name, override in BERT_QUANT_FAULTS.items():
+        with plain_versions(**override):
+            vs_plain["faults"][name] = graded_ratio(graded(
+                bert_layer_outputs(model, ins)))
+    rel = vs_plain["rel_l2"]
+    print("bert int8 bucket-8 forward with kernels vs plain versions: max "
+          "abs err %.4g; relative L2 embedding LayerNorm %.3g, cell 0 %.3g, "
+          "later cells and outputs %.3g; worst error/limit %.3f at %s (limits "
+          "%s); planted faults %s" % (
+              vs_plain["max_abs_err"], rel["embedding LayerNorm"],
+              rel["cell 0"], max(v for k, v in rel.items() if k not in (
+                  "embedding LayerNorm", "cell 0")), *vs_plain["worst"],
+              QUANT_REL_TOLS, {k: "%.3f at %s" % v for k, v in
+                               vs_plain["faults"].items()}), flush=True)
+    check(vs_plain["worst"][0] <= 1.0, "the int8 BERT forward with the "
+          "kernels disagrees with the plain versions")
+    for name, (r, _) in vs_plain["faults"].items():
+        check(r > 1.0, "the int8 BERT limit misses the planted fault %r"
+              % name)
+    out = {"forwards": forwards, "wall_ms": wall * 1e3, "launches": launches,
+           "served_vs_direct_max_abs": worst, "forward_vs_plain": vs_plain,
+           "server_stats": stats}
+    srv.stop()
+    del srv, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fine_class(name):
+    """A decode step's kernels by kind: the classes of _kernel_class, with
+    "other" split into reductions, elementwise passes, index and scatter
+    kernels, copies and the sampler's top-k."""
+    cls = _kernel_class(name)
+    if cls != "other":
+        return cls
+    for key, fine in (("reduce", "reduce"), ("scatter", "index"),
+                      ("gather", "index"), ("index", "index"),
+                      ("elementwise", "elementwise"), ("Memcpy", "copy"),
+                      ("Memset", "copy"), ("copy", "copy"),
+                      ("topk", "topk"), ("sort", "topk"), ("radix", "topk")):
+        if key in name:
+            return fine
+    return "other"
+
+
+def phase_quant_timing(dev, records, quant):
+    """The LayerNorm kernel on the quantized decode path, added to its
+    record under ``generate_int8``: after the first quantized Dense the
+    rows are fp32, so a decode step's (8, 768) fp32 rows (eps 1e-5), held
+    to the plain version and timed against it, ``F.layer_norm`` and the
+    bound; the launches are the int8 serving run's. Then the record of the
+    flash forward's fp32 form, which only the quantized paths launch."""
+    import torch
+    import torch.nn.functional as TF
+    from mxnet_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_f32, flash_attention_plain)
+    from mxnet_tpu_torch.ops.cuda.layernorm import (fused_layernorm,
+                                                    layernorm_plain)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    C = GPT_CONFIG["units"]
+    x = torch.randn(GPT_SLOTS, C, device=dev, generator=g)
+    gamma = torch.randn(C, device=dev, generator=g)
+    beta = torch.randn(C, device=dev, generator=g)
+    reading = held(fused_layernorm(x, gamma, beta, 1e-5),
+                   layernorm_plain(x, gamma, beta, 1e-5), FP32_TOL,
+                   "gpt int8 path layernorm (%d, %d) fp32 eps 1e-05"
+                   % (GPT_SLOTS, C))
+    t = time_ms(lambda: fused_layernorm(x, gamma, beta, 1e-5),
+                lambda: layernorm_plain(x, gamma, beta, 1e-5),
+                lambda: TF.layer_norm(x, (C,), gamma, beta, 1e-5))
+    t_ops, t_bytes = _ln_bound(GPT_SLOTS, C, 4)
+    rec = {r["name"]: r for r in records}["layernorm_fwd"]
+    rec["generate_int8"] = {
+        "launches": quant["launches"]["layernorm"],
+        "prefills": quant["prefills"], "decode_steps": quant["decode_steps"],
+        "decode_step": dict(zip(("ms", "plain_ms", "library_ms"), t),
+                            shape=[GPT_SLOTS, C], dtype="float32",
+                            check=reading,
+                            max_abs_err=reading["max_abs_err"],
+                            bound_ms=max(t_ops, t_bytes) * 1e3,
+                            bound_by="operations" if t_ops >= t_bytes
+                            else "bytes")}
+    r = rec["generate_int8"]["decode_step"]
+    print("time gpt int8 path layernorm (%d, %d) fp32: kernel %.4f ms, plain "
+          "%.4f ms, library %.4f ms, bound %.5f ms (%s)" % (
+              GPT_SLOTS, C, r["ms"], r["plain_ms"], r["library_ms"],
+              r["bound_ms"], r["bound_by"]), flush=True)
+
+    # the flash forward's fp32 form: its record at the int8 BERT bucket-8
+    # forward's shape with the served rows' valid lengths, and the int8 GPT
+    # prefills' causal shapes beside it; the launches are the two int8
+    # serving runs'
+    H, D = GPT_CONFIG["num_heads"], C // GPT_CONFIG["num_heads"]
+    B = BUCKETS[-1]
+    vl = _bert_requests()[2][5:5 + B]
+    q, k, v = _qkv(dev, g, B, H, SEQ, D, torch.float32)
+    vlt = torch.tensor(vl, dtype=torch.int32, device=dev)
+    reading = held(flash_attention_f32(q, k, v, kv_valid_len=vlt),
+                   flash_attention_plain(q, k, v, kv_valid_len=vlt),
+                   FLASH_F32_TOL, "bert int8 flash fp32 %s vl %s"
+                   % ((B, H, SEQ, D), [int(n) for n in vl]),
+                   mag=flash_magnitude(q, k, v, vlt))
+    mask = _sdpa_mask(vl, SEQ, dev)
+    t = time_ms(lambda: flash_attention_f32(q, k, v, kv_valid_len=vlt),
+                lambda: flash_attention_plain(q, k, v, kv_valid_len=vlt),
+                lambda: TF.scaled_dot_product_attention(q, k, v,
+                                                        attn_mask=mask))
+    t_ops, t_bytes = _flash_fwd_f32_bound(B, H, SEQ, D, vl)
+    bert = quant["bert_int8_serving"]
+    n = quant["launches"]["flash_attention_fwd_f32"] \
+        + bert["launches"]["flash_attention_fwd_f32"]
+    calls = quant["flash_prefills_at_256"] + bert["forwards"]
+    causal = []
+    for T in (256, 512, 1024):
+        q, k, v = _qkv(dev, g, 1, H, T, D, torch.float32)
+        r = held(flash_attention_f32(q, k, v, causal=True),
+                 flash_attention_plain(q, k, v, causal=True), FLASH_F32_TOL,
+                 "gpt int8 flash fp32 causal (1, %d, %d, %d)" % (H, T, D),
+                 mag=flash_magnitude(q, k, v, causal=True))
+        tc = time_ms(lambda: flash_attention_f32(q, k, v, causal=True),
+                     lambda: flash_attention_plain(q, k, v, causal=True),
+                     lambda: TF.scaled_dot_product_attention(
+                         q, k, v, is_causal=True))
+        c_ops, c_bytes = _flash_fwd_f32_bound(1, H, T, D, None, causal=True)
+        causal.append(dict(zip(("ms", "plain_ms", "library_ms"), tc),
+                           shape=[1, H, T, D], check=r,
+                           max_abs_err=r["max_abs_err"],
+                           bound_ms=max(c_ops, c_bytes) * 1e3,
+                           bound_by="operations" if c_ops >= c_bytes
+                           else "bytes"))
+    records.append(kernel_record(
+        "flash_attention_fwd_f32",
+        "mxnet_tpu_torch/csrc/flash_attention_fwd_f32.cu",
+        "mxnet_tpu/ops/pallas/flash_attention.py:147", n, calls,
+        reading["max_abs_err"], *t, t_ops, t_bytes,
+        shape=[B, H, SEQ, D], dtype="float32", valid_len=[int(x) for x in vl],
+        check=reading, main_path="the int8 GPT serving bursts' prefills at "
+        "buckets >= 256 and the int8 BERT serving run's forwards",
+        launches_gpt_int8=quant["launches"]["flash_attention_fwd_f32"],
+        launches_bert_int8=bert["launches"]["flash_attention_fwd_f32"],
+        causal_prefill=causal,
+        library="scaled_dot_product_attention (fp32, boolean mask)"))
+    for what, r in [("bert (%d, %d, %d, %d) vl" % (B, H, SEQ, D),
+                     records[-1])] + [("gpt causal %s" % c["shape"], c)
+                                      for c in causal]:
+        print("time int8 path flash fp32 %-26s kernel %.4f ms, plain %.4f "
+              "ms, library %.4f ms, bound %.5f ms (%s)" % (
+                  what, r["ms"], r["plain_ms"], r["library_ms"],
+                  r["bound_ms"], r["bound_by"]), flush=True)
+
+
 def _profile(fn, n):
     """Kernel ms by class a call of ``fn`` over ``n`` calls under
-    torch.profiler, the profiled wall a call, the device's idle share of
-    it, and the top 15 kernels."""
+    torch.profiler (also by finer kind), the profiled wall a call, the
+    device's idle share of it, and the top 15 kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2199,6 +3206,7 @@ def _profile(fn, n):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
     by_class = {"gemm": 0.0, "flash": 0.0, "layernorm": 0.0, "other": 0.0}
+    by_kind, launches = {}, 0
     top = []
     for ev in prof.key_averages():
         # kernels only: a profiler range's device-side event is its span
@@ -2207,25 +3215,33 @@ def _profile(fn, n):
             continue
         ms = ev.self_device_time_total / 1e3 / n
         by_class[_kernel_class(ev.key)] += ms
+        kind = _fine_class(ev.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+        launches += ev.count
         top.append((ms, ev.count // n, ev.key[:90]))
     top.sort(reverse=True)
     busy = sum(by_class.values())
-    return {"kernel_ms": by_class, "busy_ms": busy,
+    return {"kernel_ms": by_class, "kernel_ms_by_kind": by_kind,
+            "kernels_per_call": launches / n, "busy_ms": busy,
             "profiled_wall_ms": wall, "device_idle_share": 1.0 - busy / wall,
             "top": top[:15]}
 
 
-def phase_generate_breakdown(dev, model, n_prof=4):
+def phase_generate_breakdown(dev, model, quantize=None, n_prof=4):
     """Where a 512-token prefill (bucket 512) and a decode step of 8 live
     slots spend their time, on a new server driven tick by tick: kernel ms
     by class, the profiled wall and the device's idle share; the decode
-    step's host wall before the profiler."""
+    step through its graph (a scheduler tick) and the same step run
+    eagerly (with its readback); the decode step's host wall before the
+    profiler."""
     import torch
     from mxnet_tpu_torch.serve import GenerativeServer
     from mxnet_tpu_torch.serve.decoder import GenerationStream
 
+    what = "gpt %s" % (quantize or "bf16")
     srv = GenerativeServer(model, slots=GPT_SLOTS, top_k=GPT_TOP_K,
-                           timeout_ms=600000.0, device=dev)
+                           timeout_ms=600000.0, device=dev,
+                           quantize=quantize)
     srv.cache.ensure_capacity(GPT_CONFIG["max_length"])
     rng = np.random.RandomState(SEED + 10)
     prompt = rng.randint(0, GPT_CONFIG["vocab_size"], 512).astype(np.int32)
@@ -2251,22 +3267,28 @@ def phase_generate_breakdown(dev, model, n_prof=4):
         walls.append((time.perf_counter() - t0) * 1e3)
     decode = _profile(srv.step, n_prof)
     decode["host_wall_ms_median"] = float(np.median(walls))
+    eager = _profile(lambda: (srv._run_step(eager=True), srv._tok.cpu()),
+                     n_prof)
     srv.stop()
     check(all(s.done() for s in streams), "breakdown streams left running")
-    for what, r in (("prefill bucket 512", prefill),
-                    ("decode step, 8 slots", decode)):
-        print("gpt %s breakdown (torch.profiler, %d calls): kernel ms by "
-              "class %s; %.3f ms busy in %.3f ms of wall: device idle %.1f%%"
-              % (what, n_prof, {k: round(v, 4) for k, v in
-                                r["kernel_ms"].items()}, r["busy_ms"],
-                 r["profiled_wall_ms"], 100 * r["device_idle_share"]),
-              flush=True)
-        for ms, n, name in r["top"]:
-            print("  %8.4f ms  x%-4d %s" % (ms, n, name))
+    for name, r in (("prefill bucket 512", prefill),
+                    ("decode step, 8 slots, graph", decode),
+                    ("decode step, 8 slots, eager", eager)):
+        print("%s %s breakdown (torch.profiler, %d calls): kernel ms by "
+              "class %s, by kind %s; %.1f kernels a call; %.3f ms busy in "
+              "%.3f ms of wall: device idle %.1f%%"
+              % (what, name, n_prof, {k: round(v, 4) for k, v in
+                                      r["kernel_ms"].items()},
+                 {k: round(v, 4) for k, v in r["kernel_ms_by_kind"].items()},
+                 r["kernels_per_call"], r["busy_ms"], r["profiled_wall_ms"],
+                 100 * r["device_idle_share"]), flush=True)
+        for ms, n, kname in r["top"]:
+            print("  %8.4f ms  x%-4d %s" % (ms, n, kname))
         check(r["busy_ms"] > 0, "the profiler saw no kernel time")
-    print("gpt decode step host wall before the profiler: median %.3f ms of "
-          "8" % decode["host_wall_ms_median"], flush=True)
-    return {"prefill_bucket_512": prefill, "decode_step": decode}
+    print("%s decode step host wall before the profiler: median %.3f ms of "
+          "8" % (what, decode["host_wall_ms_median"]), flush=True)
+    return {"prefill_bucket_512": prefill, "decode_step": decode,
+            "decode_step_eager": eager}
 
 
 def main():
@@ -2301,12 +3323,14 @@ def main():
         ln_fwd, ln_bwd = phase_layernorm(dev)
         checks = {"layernorm": ln_fwd, "layernorm_bwd": ln_bwd,
                   "flash_attention_fwd": phase_flash(dev),
+                  "flash_attention_fwd_f32": phase_flash_f32(dev),
                   "softmax_xent": phase_xent(dev),
                   "flash_attention_bwd": phase_flash_bwd(dev)}
         # each record carries the error of its case at the bert512 step's
         # shape, the first of each phase
         errs = {k: checks[k][0]["max_abs_err"]
-                for k in ("layernorm", "flash_attention_fwd")}
+                for k in ("layernorm", "flash_attention_fwd",
+                          "flash_attention_fwd_f32")}
         xent0 = checks["softmax_xent"][0]
         bwd0 = checks["flash_attention_bwd"][0]
         errs.update({"layernorm_bwd": max(ln_bwd[0][n]["max_abs_err"]
@@ -2321,6 +3345,13 @@ def main():
         gen_srv, gen_model, gen = phase_generate(dev)
         check_generate_launches(gen)
         gen["single_requests"] = phase_generate_launches(dev, gen_srv)
+        gen_srv.stop()
+        del gen_srv
+        graphs = phase_graph(dev)
+        lowbit = phase_lowbit(dev)
+        quant_model, quant = phase_generate_quant(dev)
+        quant["products"] = lowbit
+        quant["bert_int8_serving"] = phase_serve_quant(dev)
         records, crossover = phase_timing(
             dev, train["launches"], train["steps_counted"], errs,
             serve_launches, forwards, serve_vl)
@@ -2328,11 +3359,14 @@ def main():
                                       train["steps_counted"])
         train_crossover = phase_train_crossover(dev)
         phase_generate_timing(dev, records, gen)
+        phase_quant_timing(dev, records, quant)
         # the profiler windows come last: once a profiler session has run,
         # an eager step's host wall may not return to what it was before
         breakdown = phase_breakdown(dev, model)
         train["breakdown"] = phase_train_breakdown(step)
         gen["breakdown"] = phase_generate_breakdown(dev, gen_model)
+        quant["breakdown"] = phase_generate_breakdown(dev, quant_model,
+                                                      quantize="int8")
         for r in records:
             if r["name"] == "flash_attention_bwd":
                 r["dq_pass_share"] = train["breakdown"][
@@ -2348,6 +3382,7 @@ def main():
     print(json.dumps({"checks": checks, "serving": serving,
                       "breakdown": breakdown, "train_bert512": train,
                       "train_bert128": bert128, "generate": gen,
+                      "decode_step_graphs": graphs, "quantized": quant,
                       "attention_dense_vs_flash": crossover,
                       "attention_fwd_bwd_dense_vs_flash": train_crossover,
                       "card": card}))

@@ -7,7 +7,8 @@ attention seam, the bucketed dynamic-batching ModelServer), trains it
 ``gluon.Trainer``), serves GPT generatively (the GPT model, a paged KV
 cache and the continuous-batching GenerativeServer), and reads and writes
 the JAX package's parameter, trainer-state and checkpoint files
-(``checkpoint``), with hand-written CUDA kernels (sm_90a) for the
+(``checkpoint``), serves quantized (``quant``: int8 and fp8 weights, int8
+KV pages), with hand-written CUDA kernels (sm_90a) for the
 LayerNorm, the flash-attention forward and backward, and the softmax
 cross-entropy forward and backward. Entry points run on the current CUDA
 device unless the caller passes ``device="cpu"``. The package imports
@@ -17,4 +18,4 @@ from . import base, context, util  # noqa: F401
 from .context import cpu, gpu, num_gpus  # noqa: F401
 from . import autograd, random, optimizer  # noqa: F401
 from . import ops, initializer, gluon, amp, convert, models, serve  # noqa: F401
-from . import checkpoint  # noqa: F401
+from . import checkpoint, quantization, quant  # noqa: F401

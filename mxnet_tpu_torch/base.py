@@ -26,6 +26,8 @@ _DTYPE_ALIASES = {
     "int32": torch.int32,
     "int64": torch.int64,
     "bool": torch.bool,
+    "float8_e4m3fn": torch.float8_e4m3fn,
+    "float8_e5m2": torch.float8_e5m2,
 }
 
 

@@ -19,6 +19,10 @@ int mxt_flash_fwd(const void* q, const void* k, const void* v,
                   const int32_t* valid_len, void* o, float* lse,
                   int batch_heads, int heads, int tq, int tk, int d,
                   float scale, int causal, void* stream);
+int mxt_flash_fwd_f32(const float* q, const float* k, const float* v,
+                      const int32_t* valid_len, float* o, float* lse,
+                      int batch_heads, int heads, int tq, int tk, int d,
+                      float scale, int causal, void* stream);
 int mxt_flash_bwd(const void* q, const void* k, const void* v,
                   const void* dout, const float* lse, const float* delta,
                   const int32_t* valid_len, float* dq_acc, void* dq, void* dk,
@@ -93,6 +97,23 @@ void flash_fwd(const torch::Tensor& q, const torch::Tensor& k,
       "flash_fwd");
 }
 
+void flash_fwd_f32(const torch::Tensor& q, const torch::Tensor& k,
+                   const torch::Tensor& v,
+                   const std::optional<torch::Tensor>& valid_len,
+                   torch::Tensor& o, const std::optional<torch::Tensor>& lse,
+                   int64_t heads, double scale, bool causal, int64_t stream) {
+  check_launch(
+      mxt_flash_fwd_f32(q.data_ptr<float>(), k.data_ptr<float>(),
+                        v.data_ptr<float>(), optional_int32(valid_len),
+                        o.data_ptr<float>(),
+                        lse ? lse->data_ptr<float>() : nullptr,
+                        (int)(q.size(0) * q.size(1)), (int)heads,
+                        (int)q.size(2), (int)k.size(2), (int)q.size(3),
+                        (float)scale, causal ? 1 : 0,
+                        reinterpret_cast<void*>(stream)),
+      "flash_fwd_f32");
+}
+
 void flash_bwd(const torch::Tensor& q, const torch::Tensor& k,
                const torch::Tensor& v, const torch::Tensor& dout,
                const torch::Tensor& lse, const torch::Tensor& delta,
@@ -143,6 +164,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("layernorm_bwd", &layernorm_bwd,
         "row LayerNorm backward, dx, dgamma, dbeta (CUDA)");
   m.def("flash_fwd", &flash_fwd, "flash-attention forward (CUDA)");
+  m.def("flash_fwd_f32", &flash_fwd_f32,
+        "flash-attention forward, fp32 operands (CUDA)");
   m.def("flash_bwd", &flash_bwd, "flash-attention backward, dq, dk, dv (CUDA)");
   m.def("flash_bwd_workspace", &flash_bwd_workspace,
         "floats of the flash backward's fp32 dq workspace");

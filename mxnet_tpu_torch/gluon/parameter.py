@@ -158,6 +158,17 @@ class Parameter:
         self._shape = tuple(data.shape)
         self._deferred_init = None
 
+    def copy_data(self, data):
+        """Write ``data`` (this parameter's shape) into the live tensor in
+        place, cast to its dtype: whatever holds the tensor's storage (a
+        captured CUDA graph) reads the new value."""
+        if tuple(data.shape) != tuple(self.data().shape):
+            raise ValueError("Parameter %r: cannot copy_data with shape %s; "
+                             "parameter shape is %s"
+                             % (self.name, tuple(data.shape), self._shape))
+        with torch.no_grad():
+            self._data.copy_(data)
+
     def reset_device(self, device):
         if self._data is not None:
             self._attach(self._data.to(resolve_device(device)))

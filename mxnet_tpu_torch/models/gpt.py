@@ -13,7 +13,8 @@ allocates (B, H, capacity, D) buffers once, every step writes its K/V into
 them in place (``F.cache_write``) and attends to the live prefix, so no
 buffer changes shape across steps. ``prefill`` fills a cache from the whole
 prompt in one forward; ``decode_step_fixed`` is the per-slot-position step
-``serve.GenerativeServer`` runs for all its slots at once.
+``serve.GenerativeServer`` runs for all its slots at once, and
+``decode_step_fixed_quant`` the same step over int8 KV pages.
 """
 from __future__ import annotations
 
@@ -78,11 +79,18 @@ class _CausalSelfAttention(HybridBlock):
         attention masks to the live prefix ``pos <= start + row``, an
         arbitrary mask, so it takes the dense path. Returns (out (B, T, C),
         k_cache, v_cache)."""
-        B, T, C = x.shape
         q, k_new, v_new = self._qkv_heads(F, x)
         k_cache = F.cache_write(k_cache, k_new, start)
         v_cache = F.cache_write(v_cache, v_new, start)
-        cap = k_cache.shape[2]
+        mask = self._live_mask(F, x, k_cache.shape[2], start)
+        out = F.scaled_dot_attention(q, k_cache, v_cache, mask)
+        return self.attn_out(self._merge_heads(F, out)), k_cache, v_cache
+
+    @staticmethod
+    def _live_mask(F, x, cap, start):
+        """(B or 1, 1, T, cap) mask of the live prefix ``pos <= start +
+        row`` for the T rows of ``x`` written at ``start``."""
+        T = x.shape[1]
         pos = F.reshape(F.arange(0, cap, dtype="int32", ctx=x.device),
                         shape=(1, 1, 1, cap))
         rows = F.reshape(F.arange(0, T, dtype="int32", ctx=x.device),
@@ -91,9 +99,25 @@ class _CausalSelfAttention(HybridBlock):
             limit = rows + start
         else:  # (B,) per-slot positions
             limit = rows + F.reshape(start, shape=(-1, 1, 1, 1))
-        mask = F.lesser_equal(pos, limit)
-        out = F.scaled_dot_attention(q, k_cache, v_cache, mask)
-        return self.attn_out(self._merge_heads(F, out)), k_cache, v_cache
+        return F.lesser_equal(pos, limit)
+
+    def step_cached_quant(self, F, x, k_cache, k_scale, v_cache, v_scale,
+                          start):
+        """:meth:`step_cached` against int8 KV pages: the new K/V are
+        quantized on write and the fused write and read
+        (``F.quant_cache_write_read``, running per-page-per-head scale)
+        hands attention the fp32 pages from the values it wrote, with no
+        separate int8 to fp32 pass. Pages and scales are written in place.
+        Returns (out, k_cache, k_scale, v_cache, v_scale)."""
+        q, k_new, v_new = self._qkv_heads(F, x)
+        k_cache, k_scale, k_deq = F.quant_cache_write_read(
+            k_cache, k_scale, k_new, start)
+        v_cache, v_scale, v_deq = F.quant_cache_write_read(
+            v_cache, v_scale, v_new, start)
+        mask = self._live_mask(F, x, k_cache.shape[2], start)
+        out = F.scaled_dot_attention(q, k_deq, v_deq, mask)
+        return (self.attn_out(self._merge_heads(F, out)),
+                k_cache, k_scale, v_cache, v_scale)
 
 
 class _GPTBlock(HybridBlock):
@@ -130,6 +154,12 @@ class _GPTBlock(HybridBlock):
         a, k_cache, v_cache = self.attn.step_cached(F, self.ln1(x), k_cache,
                                                     v_cache, start)
         return self._ffn(x + a), k_cache, v_cache
+
+    def step_cached_quant(self, F, x, k_cache, k_scale, v_cache, v_scale,
+                          start):
+        a, k_cache, k_scale, v_cache, v_scale = self.attn.step_cached_quant(
+            F, self.ln1(x), k_cache, k_scale, v_cache, v_scale, start)
+        return self._ffn(x + a), k_cache, k_scale, v_cache, v_scale
 
 
 class GPTModel(HybridBlock):
@@ -274,6 +304,24 @@ class GPTModel(HybridBlock):
         logits = F.dot(F.reshape(x, shape=(x.shape[0], self._units)),
                        F.transpose(w))
         return logits, nk, nv
+
+    def decode_step_fixed_quant(self, F, tokens, k_caches, k_scales,
+                                v_caches, v_scales, valid_len):
+        """:meth:`decode_step_fixed` over int8 KV pages with
+        per-page-per-head scales (``k_scales``/``v_scales`` per layer
+        (B, H, 1, 1) fp32), pages and scales written in place. Returns
+        (logits, k_caches, k_scales, v_caches, v_scales)."""
+        x = self.word_embed(F.reshape(tokens, shape=(-1, 1)))  # (B, 1, C)
+        pw = param_value(self.pos_embed.weight)
+        x = x + F.expand_dims(F.take(pw, valid_len), axis=1)
+        for blk, kc, ks, vc, vs in zip(self.blocks, k_caches, k_scales,
+                                       v_caches, v_scales):
+            x = blk.step_cached_quant(F, x, kc, ks, vc, vs, valid_len)[0]
+        x = self.ln_f(x)
+        w = param_value(self.word_embed.weight)
+        logits = F.dot(F.reshape(x, shape=(x.shape[0], self._units)),
+                       F.transpose(w))
+        return logits, k_caches, k_scales, v_caches, v_scales
 
     def generate(self, prompt, max_new_tokens=16, use_cache=True,
                  device=None):

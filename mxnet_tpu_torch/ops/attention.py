@@ -2,9 +2,11 @@
 
 Models call ``F.scaled_dot_attention``. It routes to the flash-attention
 kernels (``ops/cuda/flash_attention.py``) when the sequence is long enough,
-the mask is absent or a declared key-padding prefix, and the operands are
-bfloat16 with a head dim the kernel takes; everything else takes the dense
-path, which keeps the JAX package's ``_dense_attention_fwd`` numerics and
+the mask is absent or a declared key-padding prefix, the head dim is one
+the kernels take, and the operands are bfloat16, or float32 when autograd
+does not record (the forward kernel's fp32 form, which the quantized
+models' fp32 activations take, has no backward); everything else takes the
+dense path, which keeps the JAX package's ``_dense_attention_fwd`` numerics and
 its hand-written backward ``_dense_attention_bwd``. When autograd records
 (a grad-enabled call with an operand that requires grad), the flash path
 takes the differentiable op, whose forward also writes the logsumexp;
@@ -13,6 +15,9 @@ otherwise, as in serving, it launches the forward alone.
 ``cache_write`` is the decode cache's write: it writes new K/V rows into
 a preallocated fixed-capacity cache in place, so a decode step allocates
 no KV page (the counterpart of the JAX package's buffer donation).
+``quant_cache_write``, ``quant_cache_write_read`` and ``dequant_cache``
+are its int8 counterparts for quantized pages with a running
+per-page-per-head scale, also written in place.
 
 The flash threshold is the port's own. It starts at the JAX package's
 static pre-sweep value, 256, so BERT at seq 512 goes through the kernel;
@@ -28,9 +33,11 @@ import torch
 from ..base import register_op
 from .cuda.flash_attention import (HEAD_DIMS, flash_attention,
                                    flash_attention_with_grad)
+from .lowbit import _const
 
 FLASH_MIN_LEN = 256
-FLASH_DTYPES = (torch.bfloat16,)
+FLASH_DTYPES = (torch.bfloat16, torch.float32)  # the forward's two forms
+FLASH_GRAD_DTYPES = (torch.bfloat16,)            # the backward kernel's
 
 
 def _mask_bias(mask, causal, T, S, device):
@@ -98,10 +105,11 @@ def _prefix_mask_to_valid_len(mask):
     return rows.to(torch.int32).sum(dim=-1, dtype=torch.int32)
 
 
-def takes_flash(q, mask, prefix_mask):
-    """The seam's routing rule (static: shapes, dtype and the caller's
-    declaration, never the data)."""
-    return (q.shape[2] >= FLASH_MIN_LEN and q.dtype in FLASH_DTYPES
+def takes_flash(q, mask, prefix_mask, grad=False):
+    """The seam's routing rule (static: shapes, dtype, whether autograd
+    records and the caller's declaration, never the data)."""
+    dtypes = FLASH_GRAD_DTYPES if grad else FLASH_DTYPES
+    return (q.shape[2] >= FLASH_MIN_LEN and q.dtype in dtypes
             and q.shape[3] in HEAD_DIMS and (mask is None or prefix_mask))
 
 
@@ -113,15 +121,36 @@ def scaled_dot_attention(q, k, v, mask=None, *, causal=False, scale=None,
     ``prefix_mask=True`` declares that ``mask`` is a key-padding prefix
     (mask[b, ..., t] = t < valid_len[b]); then the flash path applies with
     the valid length recovered from the mask."""
-    if takes_flash(q, mask, prefix_mask):
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    if takes_flash(q, mask, prefix_mask, grad):
         vl = None if mask is None else _prefix_mask_to_valid_len(mask)
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                        or v.requires_grad):
+        if grad:
             return flash_attention_with_grad(q, k, v, causal=causal,
                                              scale=scale, kv_valid_len=vl)
         return flash_attention(q, k, v, causal=causal, scale=scale,
                                kv_valid_len=vl)
     return dense_attention(q, k, v, mask, causal=causal, scale=scale)
+
+
+def _write_time(cache, update, index):
+    """Write ``update`` (B, H, T, D) into ``cache`` (B, H, C, D) along axis
+    2 at ``index``, in place: an int or 0-d tensor (every row at one
+    offset) or a per-row ``(B,)`` tensor. As ``lax.dynamic_update_slice``,
+    the start clamps to ``[0, C - T]``; a tensor index is clamped on its
+    device, with no host read."""
+    T, C = update.shape[2], cache.shape[2]
+    if not isinstance(index, torch.Tensor):
+        start = min(max(int(index), 0), C - T)
+        cache[:, :, start:start + T].copy_(update)
+        return cache
+    start = torch.clamp(index.to(device=cache.device, dtype=torch.int64),
+                        0, C - T)
+    pos = start.reshape(-1, 1) + torch.arange(T, device=cache.device)
+    pos = pos.expand(cache.shape[0], T)  # a scalar start: every row
+    B, H, _, D = cache.shape
+    cache.scatter_(2, pos[:, None, :, None].expand(B, H, T, D), update)
+    return cache
 
 
 @register_op("cache_write")
@@ -136,16 +165,74 @@ def cache_write(cache, update, index):
     As ``lax.dynamic_update_slice`` under the JAX op, the start clamps to
     ``[0, C - T]``; a tensor index is clamped on its device, with no host
     read."""
-    T, C = update.shape[2], cache.shape[2]
-    update = update.to(cache.dtype)
-    if not isinstance(index, torch.Tensor):
-        start = min(max(int(index), 0), C - T)
-        cache[:, :, start:start + T].copy_(update)
-        return cache
-    start = torch.clamp(index.to(device=cache.device, dtype=torch.int64),
-                        0, C - T)
-    pos = start.reshape(-1, 1) + torch.arange(T, device=cache.device)
-    pos = pos.expand(cache.shape[0], T)  # a scalar start: every row
-    B, H, _, D = cache.shape
-    cache.scatter_(2, pos[:, None, :, None].expand(B, H, T, D), update)
-    return cache
+    return _write_time(cache, update.to(cache.dtype), index)
+
+
+def _requant_page(cache, scale, update, index):
+    """The shared arithmetic of the int8 page ops: the running-max scale
+    ``new_scale = max(scale, max(amax(update) / 127, 1e-8))`` per (row,
+    head), the page requantized by ``ratio = scale / new_scale`` (0 for a
+    page never written, whose scale is 0), the update quantized at the new
+    scale and written into the requantized page. Returns (the page as
+    integer-valued fp32 (B, H, C, D), new_scale)."""
+    update = update.to(torch.float32)
+    amax = update.abs().amax(dim=(2, 3), keepdim=True)
+    step = torch.maximum(amax / _const(amax, 127.0), _const(amax, 1e-8))
+    new_scale = torch.maximum(scale, step)
+    ratio = scale / new_scale
+    requant = torch.clamp(torch.round(cache.to(torch.float32) * ratio),
+                          -127, 127)
+    qupd = torch.clamp(torch.round(update / new_scale), -127, 127)
+    return _write_time(requant, qupd, index), new_scale
+
+
+def quantize_page(page, plen):
+    """A prompt's fp K or V page (1, H, tp, D) as int8 with a fresh
+    per-head scale (1, H, 1, 1) fp32, positions ``>= plen`` masked out of
+    the amax (padding must not widen the scale), as the JAX server's
+    ``_quantize_pages``. A fresh scale, not a running max: a prefill or a
+    prefix inject restarts the slot's page. Returns (q, scale)."""
+    tp = page.shape[2]
+    keep = (torch.arange(tp, device=page.device) < plen).to(torch.float32)
+    a = page.to(torch.float32) * keep.reshape(1, 1, tp, 1)
+    amax = a.abs().amax(dim=(2, 3), keepdim=True)
+    scale = torch.maximum(amax / _const(amax, 127.0), _const(amax, 1e-8))
+    q = torch.clamp(torch.round(a / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+@register_op("quant_cache_write")
+def quant_cache_write(cache, scale, update, index):
+    """:func:`cache_write` for the int8 paged KV cache: ``update``
+    (B, H, T, D) fp is quantized on write into ``cache`` (B, H, C, D) int8
+    with the per-page-per-head scale ``scale`` (B, H, 1, 1) fp32; both are
+    written in place and returned as ``(cache, scale)``.
+
+    The scale is a running per-(page, head) max, never decreasing, so the
+    written positions only rescale down (ratio <= 1), and the whole page is
+    requantized each write: an exact no-op where the scale did not move
+    (an int8 value times 1.0 rounds to itself)."""
+    page, new_scale = _requant_page(cache, scale, update, index)
+    cache.copy_(page.to(torch.int8))
+    scale.copy_(new_scale)
+    return cache, scale
+
+
+@register_op("quant_cache_write_read")
+def quant_cache_write_read(cache, scale, update, index):
+    """:func:`quant_cache_write` fused with the :func:`dequant_cache` read
+    of the page it wrote: returns ``(cache, scale, deq)``, ``deq``
+    (B, H, C, D) fp32 for attention, computed from the integer-valued fp32
+    page the write made, so the int8 round trip never happens. Bit-equal
+    to the unfused pair: int8 holds those integers exactly."""
+    page, new_scale = _requant_page(cache, scale, update, index)
+    cache.copy_(page.to(torch.int8))
+    scale.copy_(new_scale)
+    return cache, scale, page * new_scale
+
+
+@register_op("dequant_cache")
+def dequant_cache(cache, scale):
+    """int8 KV pages to fp32 for attention: ``cache`` (B, H, C, D) int8
+    times ``scale`` (B, H, 1, 1) fp32."""
+    return cache.to(torch.float32) * scale

@@ -22,7 +22,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
 SOURCE_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("binding.cpp", "layernorm.cu", "layernorm_bwd.cu",
-           "flash_attention_fwd.cu", "flash_attention_bwd.cu",
+           "flash_attention_fwd.cu", "flash_attention_fwd_f32.cu",
+           "flash_attention_bwd.cu",
            "softmax_xent.cu")
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xptxas=-v")

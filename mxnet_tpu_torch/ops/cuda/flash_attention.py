@@ -11,11 +11,16 @@ them, is written there): bf16 q, k, v with fp32 accumulation, head dim 64 or
 128, any sequence length. Both are Hopper designs on ``wgmma``: the forward
 streams K/V tiles through a cp.async ring (at head dim 64 two warpgroups of
 64 query rows share each tile); the backward is one fused kernel for dq, dk
-and dv.
+and dv. The TPU forward takes its operands in their own dtype, so fp32 q,
+k, v (the quantized models' attention) go to the forward's fp32 form,
+``flash_attention_fwd_f32.cu``: fp32 products on the CUDA cores, launched
+and counted by :func:`flash_attention_f32`. It has no backward: a
+differentiable fp32 attention takes the dense path (``ops/attention.py``).
 
-:func:`flash_attention` and :func:`flash_attention_bwd` take the plain
-version for CPU tensors and launch the kernel for CUDA tensors, or raise;
-they never fall back from the card to the plain version.
+:func:`flash_attention`, :func:`flash_attention_f32` and
+:func:`flash_attention_bwd` take the plain version for CPU tensors and
+launch the kernel for CUDA tensors, or raise; they never fall back from
+the card to the plain version.
 :func:`flash_attention_with_grad` is the differentiable op (a
 ``torch.autograd.Function`` mirroring the JAX ``custom_vjp``): its forward
 keeps the lse, its backward forms delta = rowsum(dO * O) in PyTorch, as the
@@ -114,7 +119,7 @@ def flash_attention_dkv_plain(q, k, v, do, lse, delta, kv_valid_len=None,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check(q, k, v, kv_valid_len):
+def _check(q, k, v, kv_valid_len, dtype=torch.bfloat16):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash kernel takes 4-D q, k, v (B, H, T, D)")
     B, H, Tq, D = q.shape
@@ -125,9 +130,9 @@ def _check(q, k, v, kv_valid_len):
         raise ValueError("flash kernel takes head dim in %s, got %d"
                          % (HEAD_DIMS, D))
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError("flash kernel takes bfloat16 %s, got %s"
-                            % (name, t.dtype))
+        if t.dtype != dtype:
+            raise TypeError("flash kernel takes %s %s, got %s"
+                            % (dtype, name, t.dtype))
         if t.device != q.device:
             raise ValueError("%s is on %s, q on %s" % (name, t.device, q.device))
         if not t.is_contiguous():
@@ -147,9 +152,14 @@ def flash_attention(q, k, v, causal=False, scale=None, kv_valid_len=None,
                     return_lse=False):
     """Attention of q over k, v; see the module docstring. Returns the
     output (B, H, Tq, D) in q's dtype, and with ``return_lse`` also the
-    logsumexp (B*H, Tq, 1) float32."""
+    logsumexp (B*H, Tq, 1) float32. float32 operands go to
+    :func:`flash_attention_f32`."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.dtype == torch.float32:
+        return flash_attention_f32(q, k, v, causal=causal, scale=scale,
+                                   kv_valid_len=kv_valid_len,
+                                   return_lse=return_lse)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_valid_len, scale, causal,
                                      return_lse)
@@ -170,6 +180,37 @@ def flash_attention(q, k, v, causal=False, scale=None, kv_valid_len=None,
 
 
 flash_attention.launches = 0  # kernel launches since the last reset
+
+
+def flash_attention_f32(q, k, v, causal=False, scale=None, kv_valid_len=None,
+                        return_lse=False):
+    """:func:`flash_attention` for float32 q, k and v through the forward
+    kernel's fp32 form, whose launches it counts apart. q, k and v must
+    also start on a 16-byte boundary (the kernel reads them as float4)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, kv_valid_len, scale, causal,
+                                     return_lse)
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_f32: no kernel for device %s"
+                         % q.device)
+    _check(q, k, v, kv_valid_len, torch.float32)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError("flash kernel takes a 16-byte aligned %s" % name)
+    B, H, Tq, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B * H, Tq, 1), dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    _build.extension().flash_fwd_f32(
+        q, k, v, _valid_len(kv_valid_len), out, lse, H, float(scale),
+        bool(causal), torch.cuda.current_stream(q.device).cuda_stream)
+    flash_attention_f32.launches += 1
+    return (out, lse) if return_lse else out
+
+
+flash_attention_f32.launches = 0
 
 
 def _check_bwd(q, k, v, do, lse, delta, kv_valid_len):

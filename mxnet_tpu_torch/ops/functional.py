@@ -5,8 +5,10 @@
 JAX op's name, arguments and dtype rules. The dense products go to
 ``torch.matmul``, as the JAX package left them to XLA; LayerNorm and the
 sparse-label softmax cross-entropy go to the port's CUDA kernels for CUDA
-tensors (``ops/cuda/layernorm.py``, ``ops/cuda/softmax_xent.py``), and the
-attention seam lives in ``ops/attention.py``. Every op is differentiable
+tensors (``ops/cuda/layernorm.py``, ``ops/cuda/softmax_xent.py``), the
+attention seam and the KV-cache writes live in ``ops/attention.py``, and
+the low-bit ops (``contrib_quantize``, ``contrib_dequantize``,
+``quantized_fully_connected``) in ``ops/lowbit.py``. Every op is differentiable
 under ``autograd.record()``.
 """
 from __future__ import annotations
@@ -15,9 +17,13 @@ import torch
 
 from .. import random as _random
 from ..base import register_op, resolve_device, resolve_dtype
-from .attention import (cache_write,  # noqa: F401  (F.cache_write,
-                        scaled_dot_attention)  # F.scaled_dot_attention)
+from .attention import (cache_write, dequant_cache,  # noqa: F401
+                        quant_cache_write, quant_cache_write_read,
+                        scaled_dot_attention)
 from .cuda.layernorm import layernorm
+from .lowbit import dequantize as contrib_dequantize  # noqa: F401
+from .lowbit import quantize as contrib_quantize  # noqa: F401
+from .lowbit import quantized_fully_connected  # noqa: F401
 from .cuda.softmax_xent import softmax_xent
 
 
@@ -197,7 +203,10 @@ def dot(a, b, *, transpose_a=False, transpose_b=False):
         a = a.t()
     if transpose_b:
         b = b.t()
-    return torch.matmul(a, b)
+    # mixed dtypes promote as in jnp.dot: a quantized model's fp32
+    # activations against its bf16 tied LM head give fp32 logits
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(dt), b.to(dt))
 
 
 @register_op("cast")

@@ -8,13 +8,19 @@ N transformer blocks (each writing its slots' K/V in place at their own
 positions), logits and sampling, all on the device; the host reads back
 one (slots,) token tensor a step.
 
-The JAX package traces each step into one fused XLA program; here a step
-runs eagerly on the card (one CUDA graph a step is later work, ROADMAP.md
-A.13). Prefill is apart from decode: a joining request's whole prompt runs
+The JAX package traces each step into one fused XLA program; here each
+step is one CUDA graph, captured at the first step of its key (capacity,
+greedy or sampled) and replayed after (``step_graph.py``).
+Prefill is apart from decode: a joining request's whole prompt runs
 through one forward at its pow2 prompt-length bucket, which writes its
 cache page and gives the first token. An identical prompt hits the
 ``PrefixCache`` instead: the stored pages are copied into the slot and the
 forward is skipped.
+
+With ``quantize="int8"`` (or ``"e4m3"``/``"e5m2"``) the model's Dense
+layers are quantized in place and the KV cache keeps int8 pages with
+per-page-per-head scales (``decode_step_fixed_quant``); prefix entries keep
+fp pages, dequantized on extract and requantized on inject, as in JAX.
 
 Admission goes through ``DynamicBatcher``'s bounded queue, with its
 priority classes and preemptive shedding; a request's deadline keeps
@@ -48,9 +54,12 @@ import torch
 from ..base import next_pow2, resolve_device
 from ..checkpoint import validate_swap
 from ..ops import functional as F
+from ..ops.attention import quantize_page
+from ..quantization import quantize_model
 from .batcher import DynamicBatcher, ServeError, ServeTimeout
 from .kv_cache import PagedKVCache, PrefixCache
 from .metrics import GenerativeMetrics
+from .step_graph import StepPrograms
 
 __all__ = ["sample_tokens", "GenerationStream", "GenerativeServer"]
 
@@ -58,7 +67,6 @@ _DONE = object()
 _M32 = 0xFFFFFFFF
 # what the slice does not carry: option -> the ROADMAP.md item it waits for
 _NOT_PORTED = {
-    "quantize": "A.10 (quantized serving, int8 KV pages)",
     "draft": "A.8 (serve/speculative.py, speculative decode)",
     "prefill_chunk": "A.8 (chunked prefill)",
     "metrics_port": "A.16 (observability, the /metrics endpoint)",
@@ -187,7 +195,8 @@ class GenerativeServer:
     model : block with the fixed-capacity decode protocol
         ``decode_state_spec()``, ``forward_collect_kv(F, tokens)`` and
         ``decode_step_fixed(F, tokens, k_caches, v_caches, valid_len)``
-        (``models.gpt.GPTModel``). Initialized; its parameters move to
+        (``decode_step_fixed_quant`` too when quantized;
+        ``models.gpt.GPTModel``). Initialized; its parameters move to
         ``device`` and their dtype is the cache's.
     slots : int
         In-flight request pages: the padded decode batch. One step serves
@@ -206,7 +215,12 @@ class GenerativeServer:
     device : str | torch.device | Context | None
         Where the model runs; None is the current CUDA device (and raises
         ``DeviceError`` without one).
-    quantize, draft, prefill_chunk, metrics_port
+    quantize : None or 'int8' / 'e4m3' / 'e5m2'
+        Quantized serving: ``quantization.quantize_model`` quantizes the
+        model's Dense layers in place, and the KV cache keeps int8 pages
+        with per-page-per-head scales. fp8 modes need
+        ``quantization.fp8_supported``.
+    draft, prefill_chunk, metrics_port
         Not ported yet: any value but None raises ``ServeError`` naming
         the ROADMAP.md item.
     """
@@ -216,14 +230,25 @@ class GenerativeServer:
                  prefix_cache=True, name=None, device=None,
                  metrics_port=None, quantize=None, draft=None,
                  prefill_chunk=None):
-        for option, value in (("quantize", quantize), ("draft", draft),
+        for option, value in (("draft", draft),
                               ("prefill_chunk", prefill_chunk),
                               ("metrics_port", metrics_port)):
             if value is not None:
                 raise ServeError("%s= is not ported yet (ROADMAP.md %s)"
                                  % (option, _NOT_PORTED[option]))
+        self._quantize = quantize or None
+        if self._quantize is not None \
+                and not hasattr(model, "decode_step_fixed_quant"):
+            raise ServeError("quantize=%r: model %s has no "
+                             "decode_step_fixed_quant (the int8 paged-KV "
+                             "decode protocol of models.gpt.GPTModel)"
+                             % (quantize, type(model).__name__))
         self.device = resolve_device(device)
         model.collect_params().reset_device(self.device)
+        if self._quantize is not None:
+            # before anything reads the parameter list; a quantized model
+            # keeps its quantized layers
+            quantize_model(model, mode=self._quantize)
         spec = model.decode_state_spec()
         self.model = model
         self.name = name or ("generate:%s" % type(model).__name__.lower())
@@ -235,21 +260,32 @@ class GenerativeServer:
         # writes them under it: a step sees all-old or all-new weights
         self._params_lock = threading.Lock()
         self._swap_epoch = 0
+        self._plist = list(model.collect_params().values())
         self.cache = PagedKVCache(
             spec["layers"], spec["heads"], spec["head_dim"], self.slots,
-            spec["max_length"], dtype=spec["dtype"], device=self.device)
+            spec["max_length"], dtype=spec["dtype"], device=self.device,
+            quantize=self._quantize is not None)
         self.prefix = PrefixCache() if prefix_cache else None
         self.metrics = GenerativeMetrics(self.name)
-        # device state beside the cache: each slot's current input token,
-        # and the sampling controls (host copies, uploaded when they change)
-        self._tok = torch.zeros((self.slots,), dtype=torch.int32,
-                                device=self.device)
+        # device state beside the cache, static buffers the step programs
+        # read and write in place: each slot's current input token (the
+        # step writes the next one there), and the sampling controls (host
+        # copies, copied in when they change)
+        dev = self.device
+        self._tok = torch.zeros((self.slots,), dtype=torch.int32, device=dev)
         self._seeds = np.zeros((self.slots,), np.int64)
         self._temps = np.zeros((self.slots,), np.float32)
-        self._dev_seeds = self._dev_temps = None
-        self._dev_active = self._dev_active_i32 = None
+        self._dev_seeds = torch.zeros((self.slots,), dtype=torch.int64,
+                                      device=dev)
+        self._dev_temps = torch.zeros((self.slots,), dtype=torch.float32,
+                                      device=dev)
+        self._dev_active = torch.zeros((self.slots,), dtype=torch.bool,
+                                       device=dev)
+        self._dev_active_i32 = torch.zeros((self.slots,), dtype=torch.int32,
+                                           device=dev)
         self._sampling = False    # any live slot with a temperature > 0
         self._ctl_dirty = True
+        self._steps = StepPrograms(dev)
         self._warm = False
         # host bookkeeping per slot
         self._slot_req = [None] * self.slots   # admission handle (deadline)
@@ -308,16 +344,18 @@ class GenerativeServer:
         """Weight hot-swap: the file is checked against the live model
         (``checkpoint.validate_swap``: missing, extra, reshaped or
         another dtype raises ``SwapError`` and the old weights keep
-        serving), copied to the device, then flipped under the dispatch
-        lock. The prefix cache is flushed, since its pages came from the
-        old weights; streams in flight keep the pages they have and
-        finish. Returns the new swap epoch."""
+        serving), copied to the device, then copied into the live
+        parameter tensors in place under the dispatch lock, so the
+        captured step programs, which hold those tensors' storage, serve
+        the new weights. The prefix cache is flushed, since its pages came
+        from the old weights; streams in flight keep the pages they have
+        and finish. Returns the new swap epoch."""
         picked = validate_swap(self.model, params_file)
         params = self.model._collect_params_with_prefix()
         staged = {n: a.to(self.device) for n, a in picked.items()}
         with self._params_lock:
             for name, arr in staged.items():
-                params[name].set_data(arr)
+                params[name].copy_data(arr)
             self._swap_epoch += 1
             if self.prefix is not None:
                 self.prefix.clear()
@@ -473,9 +511,8 @@ class GenerativeServer:
         with self._params_lock, torch.no_grad(), \
                 torch.profiler.record_function("mxnet_tpu_torch::prefill"):
             logits, kvs = self.model.forward_collect_kv(F, tokens)
-            for kc, vc, (k, v) in zip(self.cache.k, self.cache.v, kvs):
-                kc[slot, :, :tp].copy_(k[0])
-                vc[slot, :, :tp].copy_(v[0])
+            self._write_pages(slot, [k for k, _ in kvs],
+                              [v for _, v in kvs], n, tp)
             self.cache.valid[slot] = n
             last = logits[0, n - 1]
             first = self._sample_one(last, seed, n, temperature)
@@ -490,22 +527,50 @@ class GenerativeServer:
         n = min(k_stack.shape[2], self.cache.capacity)
         with torch.no_grad(), torch.profiler.record_function(
                 "mxnet_tpu_torch::prefix_inject"):
-            for kc, vc, ks, vs in zip(self.cache.k, self.cache.v, k_stack,
-                                      v_stack):
-                kc[slot, :, :n].copy_(ks[:, :n])
-                vc[slot, :, :n].copy_(vs[:, :n])
+            dev = self.device
+            self._write_pages(slot,
+                              [ks[None, :, :n].to(dev) for ks in k_stack],
+                              [vs[None, :, :n].to(dev) for vs in v_stack],
+                              plen, n)
             self.cache.valid[slot] = plen
             first = self._sample_one(last.to(self.device), seed, plen,
                                      temperature)
             self._tok[slot] = first[0]
         return first
 
+    def _write_pages(self, slot, ks, vs, plen, tp):
+        """Per layer, K and V (1, H, tp, D) into the slot's first ``tp``
+        positions; quantized, as int8 with a fresh per-head scale from the
+        first ``plen`` positions."""
+        c = self.cache
+        if not c.quantize:
+            for kc, vc, k, v in zip(c.k, c.v, ks, vs):
+                kc[slot, :, :tp].copy_(k[0])
+                vc[slot, :, :tp].copy_(v[0])
+            return
+        for pages, scales, new in ((c.k, c.k_scale, ks), (c.v, c.v_scale, vs)):
+            for page, scale, a in zip(pages, scales, new):
+                q, sc = quantize_page(a, plen)
+                page[slot, :, :tp].copy_(q[0])
+                scale[slot].copy_(sc[0])
+
     def _extract(self, slot, tp):
         """Copies of the slot's first ``tp`` positions, (L, H, tp, D)
-        each for K and V."""
+        each for K and V; a quantized cache's pages dequantized to fp32
+        (inject requantizes them exactly: the largest element gives the
+        same scale again)."""
+        c = self.cache
+
+        def page(p, scales, i):
+            if not c.quantize:
+                return p[slot, :, :tp]
+            return p[slot, :, :tp].to(torch.float32) * scales[i][slot]
+
         with torch.no_grad():
-            return (torch.stack([kc[slot, :, :tp] for kc in self.cache.k]),
-                    torch.stack([vc[slot, :, :tp] for vc in self.cache.v]))
+            return (torch.stack([page(p, c.k_scale, i)
+                                 for i, p in enumerate(c.k)]),
+                    torch.stack([page(p, c.v_scale, i)
+                                 for i, p in enumerate(c.v)]))
 
     def _join(self, req, stream):
         n = int(stream.prompt.size)
@@ -550,36 +615,77 @@ class GenerativeServer:
         self._deliver(slot, first)
 
     # ------------------------------------------------------------- decoding
+    def _upload_controls(self):
+        """The host's slot controls into the static device buffers, in
+        place (outside any step program)."""
+        self._dev_active.copy_(torch.tensor(self.cache.active_mask()))
+        self._dev_active_i32.copy_(self._dev_active)
+        self._dev_seeds.copy_(torch.from_numpy(self._seeds))
+        self._dev_temps.copy_(torch.from_numpy(self._temps))
+        self._sampling = bool((self._temps > 0).any())
+        self._ctl_dirty = False
+
+    def _step_state(self):
+        """The tensors a decode step reads and writes in place."""
+        c = self.cache
+        state = {"tok": self._tok, "valid": c.valid,
+                 "active": self._dev_active,
+                 "active_i32": self._dev_active_i32,
+                 "seeds": self._dev_seeds, "temps": self._dev_temps,
+                 "k": c.k, "v": c.v}
+        if c.quantize:
+            state.update(k_scale=c.k_scale, v_scale=c.v_scale)
+        return state
+
+    def _step_body(self, sampling):
+        """The decode step over a state dict (:meth:`_step_state`): every
+        slot writes its K/V at its position and samples its next token
+        into ``tok``; only live slots advance ``valid``, so a free slot's
+        page holds what it held. Returns the logits (slots, V)."""
+        model, top_k = self.model, self.top_k
+
+        def body(st):
+            valid = st["valid"]
+            if "k_scale" in st:
+                logits = model.decode_step_fixed_quant(
+                    F, st["tok"], st["k"], st["k_scale"], st["v"],
+                    st["v_scale"], valid)[0]
+            else:
+                logits = model.decode_step_fixed(F, st["tok"], st["k"],
+                                                 st["v"], valid)[0]
+            # the generated token's position is valid + 1 (prefill used the
+            # prompt length for the first token)
+            nxt = sample_tokens(logits, st["seeds"], valid + 1, st["temps"],
+                                top_k, sampling)
+            valid += st["active_i32"]
+            st["tok"].copy_(torch.where(st["active"], nxt, 0))
+            return logits
+
+        return body
+
+    def _run_step(self, eager=False):
+        """One decode step for every slot through the step program of its
+        key (capacity, sampling); ``eager`` runs the same step
+        without the program (a check compares the two). Returns the logits
+        (slots, V); the next tokens are in ``_tok``."""
+        if self._ctl_dirty:
+            self._upload_controls()
+        key = (self.cache.capacity, self._sampling)
+        with self._params_lock, torch.no_grad(), \
+                torch.profiler.record_function(
+                    "mxnet_tpu_torch::decode_step"):
+            return self._steps.run(
+                key, self._step_body(self._sampling), self._step_state(),
+                params=[p.data() for p in self._plist], eager=eager)
+
     def _decode_once(self):
         active = self.cache.active_mask()
         n_active = sum(active)
         if n_active == 0:
             return 0
-        if self._ctl_dirty:
-            dev = self.device
-            self._dev_active = torch.tensor(active, device=dev)
-            self._dev_active_i32 = self._dev_active.to(torch.int32)
-            self._dev_seeds = torch.from_numpy(self._seeds).to(dev)
-            self._dev_temps = torch.from_numpy(self._temps).to(dev)
-            self._sampling = bool((self._temps > 0).any())
-            self._ctl_dirty = False
         t0 = time.perf_counter()
-        with self._params_lock, torch.no_grad(), \
-                torch.profiler.record_function(
-                    "mxnet_tpu_torch::decode_step"):
-            valid = self.cache.valid
-            # every slot writes K/V at its position; only live slots
-            # advance, so a free slot's page holds what it held
-            logits, _, _ = self.model.decode_step_fixed(
-                F, self._tok, self.cache.k, self.cache.v, valid)
-            # the generated token's position is valid + 1 (prefill used the
-            # prompt length for the first token)
-            nxt = sample_tokens(logits, self._dev_seeds, valid + 1,
-                                self._dev_temps, self.top_k, self._sampling)
-            nxt = torch.where(self._dev_active, nxt, 0)
-            valid += self._dev_active_i32
-            self._tok = nxt
-        nxt_host = nxt.cpu().numpy()   # the one host readback a step
+        self._run_step()
+        nxt_host = self._tok.cpu().numpy()   # the one host readback a step
         dt = time.perf_counter() - t0
         self._warm = True
         self.metrics.record_step(dt, n_active, n_active, self.slots)
@@ -625,8 +731,9 @@ class GenerativeServer:
         """Run each path once before traffic (and before :meth:`start`:
         it drives the slots itself), on throwaway slots: a prefill
         (and with the prefix cache, its page extract and inject) for each
-        prompt-length bucket, and one masked decode step, at the capacity
-        that fits ``max_tokens``."""
+        prompt-length bucket, and a greedy and a sampled decode step, which
+        capture the two step programs at the capacity that fits
+        ``max_tokens``."""
         need = max(int(max_tokens or 0),
                    max([int(b) for b in prompt_buckets], default=1) + 1)
         self.cache.ensure_capacity(need)
@@ -641,11 +748,14 @@ class GenerativeServer:
                 ks, vs = self._extract(slot, tp)
                 self._inject(slot, (ks, vs, int(b), last), 0, 0.0)
             self.cache.release(slot)
-        dummy = GenerationStream([1], 1, 0.0, 0, 0)
+        dummy = GenerationStream([1], 2, 0.0, 0, 0)
         slot = self.cache.acquire(dummy)
         if slot is not None:
-            self._remaining[slot] = 1
-            self._decode_once()
+            self._remaining[slot] = 2
+            for temperature in (0.0, 1.0):
+                self._temps[slot] = temperature
+                self._ctl_dirty = True
+                self._decode_once()
             if self.cache.owner(slot) is dummy:
                 self._retire(slot)
         return self
@@ -667,6 +777,11 @@ class GenerativeServer:
             prefix_entries=(len(self.prefix) if self.prefix is not None
                             else None),
             kv_cache_bytes=self.cache.nbytes(),
+            kv_cache_bytes_unquantized=self.cache.nbytes_unquantized(),
+            quantize=self._quantize,
+            step_programs=len(self._steps.keys()),
+            step_captures=self._steps.captures,
+            step_replays=self._steps.replays,
             device=str(self.device),
             running=(self._loop_thread is not None
                      and self._loop_thread.is_alive()),

@@ -1,5 +1,5 @@
 """Paged KV-cache state for continuous-batching generative decode
-(counterpart of ``mxnet_tpu/serve/kv_cache.py``, unquantized pages).
+(counterpart of ``mxnet_tpu/serve/kv_cache.py``).
 
 Every in-flight request shares per-layer ``(slots, heads, capacity,
 head_dim)`` buffers on the device. A request owns one slot page; its K/V are
@@ -9,7 +9,13 @@ decode step to the next and a step allocates no page.
 
 Capacity is bucketed in powers of two: a request that needs more room than
 the current bucket grows the buffers to the next one (zero-padded along the
-time axis, one copy per layer), a rare migration.
+time axis, one copy per layer), a rare migration. A migration replaces the
+page tensors, so whatever holds their storage (a captured decode step) is
+stale after it.
+
+With ``quantize=True`` the pages are int8 with a per-page-per-head fp32
+scale (``k_scale``/``v_scale``, (slots, H, 1, 1) per layer): about half the
+bf16 bytes.
 
 ``PrefixCache`` is the prompt cache: a finished prefill is kept under its
 prompt's tokens, and a later identical prompt copies the stored pages into
@@ -50,20 +56,32 @@ class PagedKVCache:
         K/V element dtype (the model's parameter dtype).
     device : torch.device
         Where the buffers live.
+    quantize : bool
+        Keep the pages as int8 with per-page-per-head fp32 scales
+        (``k_scale``/``v_scale``); they quantize on write with a running-max
+        scale (``F.quant_cache_write``) and dequantize on read in the decode
+        step. The scales do not depend on the capacity: they are made with
+        the first pages and carried, unchanged, through every migration.
     """
 
     def __init__(self, layers, heads, head_dim, slots, max_capacity,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device="cpu", quantize=False):
         self.layers = int(layers)
         self.heads = int(heads)
         self.head_dim = int(head_dim)
         self.slots = int(slots)
         self.max_capacity = int(max_capacity)
-        self.dtype = dtype
+        self.quantize = bool(quantize)
+        self.dtype = torch.int8 if self.quantize else dtype
+        # the element size an unquantized cache of the model's dtype would
+        # take: the denominator of the bytes-saved ratio
+        self._ref_itemsize = torch.empty((), dtype=dtype).element_size()
         self.device = torch.device(device)
         self.capacity = 0
         self.k = None     # list[L] of (slots, H, capacity, D) tensors
         self.v = None
+        self.k_scale = None  # list[L] of (slots, H, 1, 1) fp32 (quantized)
+        self.v_scale = None
         self.valid = torch.zeros((self.slots,), dtype=torch.int32,
                                  device=self.device)
         self._free = list(range(self.slots))
@@ -98,6 +116,14 @@ class PagedKVCache:
         if self.k is None:
             self.k = [grown(None) for _ in range(self.layers)]
             self.v = [grown(None) for _ in range(self.layers)]
+            if self.quantize:
+                sshape = (self.slots, self.heads, 1, 1)
+                self.k_scale = [torch.zeros(sshape, dtype=torch.float32,
+                                            device=self.device)
+                                for _ in range(self.layers)]
+                self.v_scale = [torch.zeros(sshape, dtype=torch.float32,
+                                            device=self.device)
+                                for _ in range(self.layers)]
         else:
             self.k = [grown(k) for k in self.k]
             self.v = [grown(v) for v in self.v]
@@ -138,10 +164,23 @@ class PagedKVCache:
         return [o is not None for o in self._owner]
 
     def nbytes(self):
-        """Bytes of the K and V buffers."""
+        """Bytes of the K and V buffers (and their scales)."""
         if self.k is None:
             return 0
-        return sum(t.numel() * t.element_size() for t in self.k + self.v)
+        bufs = self.k + self.v
+        if self.quantize:
+            bufs = bufs + self.k_scale + self.v_scale
+        return sum(t.numel() * t.element_size() for t in bufs)
+
+    def nbytes_unquantized(self, itemsize=None):
+        """What the same geometry would take unquantized: ``itemsize``
+        bytes an element (default: the model dtype's; 2 compares with a
+        bf16 cache)."""
+        if self.k is None:
+            return 0
+        elems = 2 * self.layers * self.slots * self.heads \
+            * self.capacity * self.head_dim
+        return elems * (self._ref_itemsize if itemsize is None else itemsize)
 
 
 class _BoundedStore(dict):
@@ -164,11 +203,13 @@ class PrefixCache:
 
     Entries are ``(k_stack, v_stack, prompt_len, last_logits)`` with
     ``k_stack``/``v_stack`` of shape (layers, heads, padded_prompt_len,
-    head_dim) in the cache's dtype. The server keeps them on its device
-    (the JAX package keeps host copies); ``export_prefixes`` hands out CPU
-    copies. A hit skips the whole-prompt forward: the stored pages are
-    copied into the request's slot and the first token is sampled from the
-    stored logits with the request's own seed and temperature.
+    head_dim) in the cache's dtype (fp32 for a quantized cache: its pages
+    are stored dequantized and requantized on inject, as in JAX). The
+    server keeps them on its device (the JAX package keeps host copies);
+    ``export_prefixes`` hands out CPU copies. A hit skips the whole-prompt
+    forward: the stored pages are copied into the request's slot and the
+    first token is sampled from the stored logits with the request's own
+    seed and temperature.
 
     Bounded at ``cap`` prompts, the oldest entry out first.
     """

@@ -13,10 +13,12 @@ Single requests coalesce into the smallest fitting batch-size bucket under
 a deadline (batcher), run as one padded forward on the device
 (executor_pool), and are scattered back per request. The server runs on the
 current CUDA device unless ``device`` says otherwise; without CUDA and
-without ``device="cpu"`` it raises. Quantized serving, snapshots, bucket
-retuning and the metrics endpoint are not ported yet, nor is this server's
-weight hot-swap; the generative server's is
-(``GenerativeServer.swap_parameters`` over ``checkpoint.validate_swap``).
+without ``device="cpu"`` it raises. ``quantize="int8"`` (or an fp8 mode)
+serves the model with quantized Dense layers, optionally calibrated.
+Snapshots, bucket retuning, the metrics endpoint and a per-bucket CUDA
+graph are not ported yet, nor is this server's weight hot-swap; the
+generative server's is (``GenerativeServer.swap_parameters`` over
+``checkpoint.validate_swap``).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import time
 import numpy as np
 
 from ..base import resolve_device
+from ..quantization import quantize_model
 from .batcher import DynamicBatcher, ServeError, ServeTimeout
 from .executor_pool import BucketedExecutor
 from .metrics import ServeMetrics
@@ -53,11 +56,21 @@ class ModelServer:
         Default per-request deadline.
     device : str | torch.device | Context | None
         Where the model runs; None is the current CUDA device.
+    quantize : None or 'int8' / 'e4m3' / 'e5m2'
+        Serve with quantized weights: ``quantization.quantize_model`` swaps
+        every Dense for its quantized twin before the executor pool is
+        built.
+    calib_mode, calib_data
+        Activation-scale calibration of the quantized layers (``"naive"``
+        or ``"entropy"``) against ``calib_data`` (batches of the model's
+        inputs, e.g. a warm-up batch shaped like real traffic); ignored
+        unless ``quantize`` is set.
     """
 
     def __init__(self, model, input_specs, buckets=DEFAULT_BUCKETS,
                  max_wait_ms=2.0, max_queue=256, timeout_ms=1000.0,
-                 device=None, name=None, warmup=True):
+                 device=None, name=None, warmup=True, quantize=None,
+                 calib_mode="none", calib_data=None):
         self.device = resolve_device(device)
         self.name = name or ("serve:%s" % type(model).__name__.lower())
         self.model = model
@@ -67,6 +80,10 @@ class ModelServer:
         self.timeout_ms = float(timeout_ms)
         self.metrics = ServeMetrics(self.name)
         model.collect_params().reset_device(self.device)
+        self.quantize = quantize or None
+        if self.quantize is not None:
+            quantize_model(model, mode=self.quantize, calib_mode=calib_mode,
+                           calib_data=calib_data)
         fn, _ = model.serving_fn()
         plist = list(model.collect_params().values())
         self._pool = BucketedExecutor(
@@ -185,5 +202,5 @@ class ModelServer:
         """Snapshot: batcher/latency metrics plus the bucket set."""
         snap = self.metrics.snapshot()
         snap.update(buckets=list(self.buckets), device=str(self.device),
-                    running=self._started)
+                    quantize=self.quantize, running=self._started)
         return snap

@@ -1,0 +1,163 @@
+"""One replayable program per decode-step key (counterpart of the JAX
+package's one compiled decode step per capacity,
+``mxnet_tpu/serve/decoder.py`` ``_decode_fns``).
+
+``GenerativeServer`` runs every decode step through :class:`StepPrograms`.
+A key is (capacity, sampling): the greedy and the sampled step are two
+programs, since the sampler's host branch (``sample_tokens``'s ``sampling``
+flag) cannot live inside one graph. (Whether the server is quantized is
+fixed for its life, so it is no part of the key.) On a CUDA device each key
+is one ``torch.cuda.CUDAGraph``, captured at its first use and replayed at
+every step after; on the CPU the same object runs the step eagerly, with
+the same keys, counts and buffer checks, so they can be tested there.
+
+The step reads and writes static buffers only: the server hands
+:meth:`StepPrograms.run` the step's state (a dict of tensors: its input
+tokens, ``valid``, the sampling controls, the K/V pages and their scales)
+and the model's parameters, and the step updates them in place (the next
+tokens into the token buffer, ``valid += active``). A graph is valid only
+while those buffers are the tensors it was captured on, so every run
+compares their addresses with the captured ones; a capacity migration (new
+page tensors) or a parameter that was given a new tensor drops every
+program, and each key is captured again at its next use. A weight swap
+that copies into the live parameters keeps them.
+
+Capture. A graph needs eager warm-up runs before capture (lazy library
+set-up, on a side stream). Those runs would write the pages, ``valid`` and
+the scales of the live slots, so they run on clones of the state: the
+live buffers are only read, and capture itself executes nothing. So a
+capture in the middle of serving leaves every live stream as it was, and
+the first replay after it is the step that stream would have taken.
+
+Launch counts. The kernels' launch counters are host-side integers, which
+a replay does not tick. The counts at capture are recorded per program
+and added back at every replay (the warm-up and capture's own counts are
+taken out), so a step counts its kernels exactly as an eager step does.
+
+Memory. All graphs share one memory pool (a new one after a drop); they
+never replay concurrently, and a program's output (the logits) is read
+only before the next replay of any program: the caller runs
+:meth:`StepPrograms.run` under its one dispatch lock (the server's
+``_params_lock``), which is also what serialises the programs' bookkeeping.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops.cuda import launch_counters
+
+__all__ = ["StepPrograms"]
+
+WARMUP_RUNS = 2
+
+
+def _tensors(state):
+    for value in state.values():
+        if isinstance(value, torch.Tensor):
+            yield value
+        else:
+            yield from value
+
+
+def _counters():
+    # a wrapper swapped for its plain version (a check that runs the model
+    # without the kernels) counts nothing
+    return {name: fn for name, fn in launch_counters().items()
+            if hasattr(fn, "launches")}
+
+
+def _clone(state):
+    return {k: v.clone() if isinstance(v, torch.Tensor)
+            else [t.clone() for t in v] for k, v in state.items()}
+
+
+class _Program:
+    __slots__ = ("graph", "out", "deltas")
+
+    def __init__(self, graph=None, out=None, deltas=None):
+        self.graph = graph
+        self.out = out
+        self.deltas = deltas or {}
+
+
+class StepPrograms:
+    """The decode step's programs of one server, keyed.
+
+    ``captures`` counts programs made (captured on CUDA, set up on the
+    CPU), ``replays`` steps run through a program, ``drops`` the times the
+    buffers moved and every program was dropped."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.graphed = self.device.type == "cuda"
+        self._programs = {}
+        self._addresses = None
+        self._pool = None
+        self.captures = 0
+        self.replays = 0
+        self.drops = 0
+
+    def keys(self):
+        return list(self._programs)
+
+    def run(self, key, body, state, params=(), eager=False):
+        """One step: ``body(state)`` (which returns the logits) through the
+        program of ``key``, or eagerly when ``eager``. ``params`` are the
+        tensors the step reads besides ``state`` (the weights): their
+        addresses join the buffers' check. Returns the logits, which a
+        graph's next replay overwrites."""
+        if eager:
+            return body(state)
+        addresses = tuple(t.data_ptr() for t in _tensors(state)) \
+            + tuple(t.data_ptr() for t in params)
+        if self._addresses != addresses:
+            if self._programs:
+                # the pool goes with the last graph that used it: the
+                # next capture takes a new one
+                self._programs.clear()
+                self._pool = None
+                self.drops += 1
+            self._addresses = addresses
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._capture(body, state) if self.graphed \
+                else _Program()
+            self._programs[key] = prog
+            self.captures += 1
+        self.replays += 1
+        if prog.graph is None:
+            return body(state)
+        prog.graph.replay()
+        counters = _counters()
+        for name, n in prog.deltas.items():
+            if name in counters:
+                counters[name].launches += n
+        return prog.out
+
+    def _capture(self, body, state):
+        counters = _counters()
+        before = {name: fn.launches for name, fn in counters.items()}
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        scratch = _clone(state)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_RUNS):
+                body(scratch)
+        cur.wait_stream(side)
+        del scratch
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        mid = {name: fn.launches for name, fn in counters.items()}
+        # thread_local: the server's other threads (admission, readers) do
+        # host work while the step thread captures
+        with torch.cuda.graph(graph, pool=self._pool,
+                              capture_error_mode="thread_local"):
+            out = body(state)
+        deltas = {name: fn.launches - mid[name]
+                  for name, fn in counters.items()
+                  if fn.launches != mid[name]}
+        for name, fn in counters.items():
+            fn.launches = before[name]
+        return _Program(graph, out, deltas)

@@ -49,13 +49,14 @@ def test_prefix_mask_to_valid_len_matches_jax():
     (256, 64, torch.bfloat16, True, True),
     (256, 128, torch.bfloat16, True, True),
     (255, 64, torch.bfloat16, True, False),   # below the threshold
-    (256, 64, torch.float32, True, False),    # the kernel takes bf16 only
+    (256, 64, torch.float32, True, True),     # the forward's fp32 form
     (256, 32, torch.bfloat16, True, False),   # nor head dim 32
     (256, 64, torch.bfloat16, False, False),  # arbitrary mask: dense
 ])
 def test_seam_routes_to_flash(monkeypatch, T, D, dtype, prefix, flash):
-    """Long bf16 sequences with a declared prefix mask take the flash path,
-    with the recovered valid lengths; on real rows it agrees with dense."""
+    """Long bf16 or fp32 sequences with a declared prefix mask take the
+    flash path, with the recovered valid lengths; on real rows it agrees
+    with dense."""
     calls = []
     real = tattn.flash_attention
 
@@ -77,3 +78,28 @@ def test_seam_routes_to_flash(monkeypatch, T, D, dtype, prefix, flash):
     np.testing.assert_allclose(out.float().numpy(), dense.float().numpy(),
                                atol=0.05 if dtype == torch.bfloat16 else 1e-5,
                                rtol=0)
+
+
+@pytest.mark.parametrize("dtype,flash", [(torch.bfloat16, True),
+                                         (torch.float32, False)])
+def test_seam_under_autograd_takes_flash_for_bf16_only(monkeypatch, dtype,
+                                                       flash):
+    """A recorded attention needs the backward kernel, which takes bf16:
+    fp32 operands that require grad take the dense path, and its gradient
+    agrees with the flash plain version's."""
+    calls = []
+    real = tattn.flash_attention_with_grad
+
+    def spy(q, k, v, **kw):
+        calls.append(kw)
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(tattn, "flash_attention_with_grad", spy)
+    rng = np.random.RandomState(5)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, 256, 64).astype(np.float32))
+               .to(dtype).requires_grad_() for _ in range(3))
+    out = tattn.scaled_dot_attention(q, k, v, causal=True)
+    assert len(calls) == int(flash)
+    out.float().square().sum().backward()
+    assert all(t.grad is not None and t.grad.dtype == dtype
+               for t in (q, k, v))

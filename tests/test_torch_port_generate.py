@@ -5,7 +5,8 @@ one of them 300 tokens; then the port's own contract: prefix hits, capacity
 growth mid-flight, refusal of a request longer than max_length, sampling
 that depends only on (seed, position), priority preemption in the admission
 queue, a queue timeout on the stream, stats, and the options the port does
-not carry. One JAX server run is shared by the module."""
+not carry (quantized serving, which it does carry, is held in
+tests/test_torch_port_quant_generate.py). One JAX server run is shared by the module."""
 import time
 
 import numpy as np
@@ -260,8 +261,8 @@ def test_stats_carry_the_jax_keys_the_slice_covers(shared):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("quantize", "int8", "A.10"), ("draft", object(), "A.8"),
-    ("prefill_chunk", 64, "A.8"), ("metrics_port", 0, "A.16")])
+    ("draft", object(), "A.8"), ("prefill_chunk", 64, "A.8"),
+    ("metrics_port", 0, "A.16")])
 def test_options_the_slice_does_not_carry_raise(shared, option, value, item):
     with pytest.raises(ServeError, match=item):
         _server(shared["port_model"], **{option: value})

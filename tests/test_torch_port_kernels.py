@@ -148,3 +148,34 @@ def test_flash_forward_kernel_source_is_wgmma_with_a_cp_async_ring():
     assert "load_tile_async<" in src and "cp_async_wait<" in src
     assert "mma.sync" not in src and "ldmatrix" not in src
     assert "mma_16816" not in src
+
+
+@pytest.mark.parametrize("B,H,T,D,causal,vl", [
+    (1, 2, 256, 64, True, None),        # a quantized GPT prefill's bucket
+    (2, 2, 130, 64, False, [130, 45]),  # BERT's key padding, a ragged tile
+    (2, 1, 96, 128, True, [96, 0]),     # head dim 128, vl 0
+])
+def test_flash_forward_f32_form_matches_pallas(B, H, T, D, causal, vl):
+    """fp32 operands (the quantized models' attention) go through the
+    forward kernel's fp32 form, counted apart from the bf16 kernel; on the
+    CPU both wrappers take the plain version and count nothing."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(4, B, H, T, D, "float32")
+    vl = None if vl is None else np.array(vl, np.int32)
+    block = min(T, 64) if T % 64 == 0 else T
+    scale = 1.0 / D ** 0.5
+    want, want_lse = _flash_fwd(
+        jq, jk, jv, None if vl is None else jnp.asarray(vl), scale, causal,
+        block, block, interpret=True, return_lse=True)
+    before = (fa.flash_attention.launches, fa.flash_attention_f32.launches)
+    got, got_lse = fa.flash_attention(
+        tq, tk, tv, causal=causal, scale=scale, return_lse=True,
+        kv_valid_len=None if vl is None else torch.from_numpy(vl))
+    assert got.dtype == torch.float32 and got.shape == tq.shape
+    assert (fa.flash_attention.launches,
+            fa.flash_attention_f32.launches) == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=0)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                               rtol=1e-5, atol=1e-4)
+    if vl is not None and vl[-1] == 0:
+        assert not got[-1].any()

@@ -141,3 +141,20 @@ def test_layernorm_bwd_tolerance_catches_dgamma_fault(dtype):
     if dtype == torch.float32:
         with pytest.raises(cs.SmokeFailure):
             cs.held(dx * 1.01, dx, dx_tol, "dx x1.01", mdx)
+
+
+@pytest.mark.parametrize("fault", list(FLASH_FAULTS))
+def test_flash_f32_tolerance_catches_faults(fault):
+    """The same faults on fp32 operands, against the limit the flash
+    forward's fp32 form is held to (the quantized paths' attention)."""
+    q, k, v = cs._qkv("cpu", torch.Generator().manual_seed(1), 2, 4, T, 64,
+                      torch.float32)
+    ref, _ = _flash(q, k, v, return_lse=True)
+    mag = cs.flash_magnitude(q, k, v, torch.full((2,), T, dtype=torch.int32))
+    got, _ = FLASH_FAULTS[fault](q, k, v)
+    if fault == "none":
+        assert cs.held(got, ref, cs.FLASH_F32_TOL, fault,
+                       mag)["worst_ratio"] == 0
+    else:
+        with pytest.raises(cs.SmokeFailure):
+            cs.held(got, ref, cs.FLASH_F32_TOL, fault, mag)
