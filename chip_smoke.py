@@ -21,9 +21,15 @@ Run from the root of a checkout on a machine with a CUDA card. It
    twice: the two outputs must be identical; valid lengths with 0, causal,
    ragged T = 200, head dim 128, T = 2048 with vl 1900, causal T = 192
    with valid lengths, T = 1, head dim 128 causal, a negative scale), and
-   its fp32 form (the quantized paths' attention) at the int8 BERT
-   forward's (8, 12, 512, 64) with valid lengths (twice, identical), the
-   int8 GPT prefills' causal (1, 12, 256-1024, 64) and the tile edges;
+   its fp32 form (the quantized paths' attention, 3xTF32 on the tensor
+   cores) at the int8 BERT forward's (8, 12, 512, 64) with valid lengths
+   (twice, identical), the int8 GPT prefills' causal (1, 12, 256-1024, 64),
+   the int8 BERT forwards at buckets 1 (split; each served valid length,
+   the one over 256 keys twice, identical) and 4 with the served valid
+   lengths, the tile edges and the split key range (batch-1 causal at T = 640, 700,
+   2000 and 2048, head dim 128, valid lengths 1 and 0 in a split batch;
+   the causal 512 twice, identical), and a planted reading: the plain
+   version on TF32-rounded operands must read above the limit;
 4. holds the softmax cross-entropy forward and backward kernels against
    their plain versions ((1280, 30522) bf16, (16, 2), (37, 1000) fp32, a
    label in the last column);
@@ -120,7 +126,8 @@ Run from the root of a checkout on a machine with a CUDA card. It
     bert512 step (kernel time by class, the LayerNorm backward and the
     optimizer step, the idle share), then a GPT prefill at bucket 512 and
     a decode step of 8 slots, through its graph and eagerly, bf16 and
-    int8, and times the step once more. The
+    int8, then the int8 BERT bucket-8 forward, and times the step once
+    more. The
     profiler windows come last: after one, an eager step's host wall may
     not return to what it was.
 
@@ -146,6 +153,11 @@ SEED = 0
 # FLOP/s outside the tensor cores, HBM3 bytes/s
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
+# TF32 on the tensor cores; 3xTF32 (three TF32 products for one product
+# close to fp32: the flash forward's fp32 form) runs at a third of it, the
+# card's fastest fp32-accurate rate
+PEAK_TF32 = 495e12
+PEAK_3XTF32 = PEAK_TF32 / 3
 PEAK_BYTES = 3.35e12
 # a kernel against its plain version, elementwise: |kernel - plain| <=
 # atol + rtol * |plain| + mtol * mag. LayerNorm, bf16: rtol 2**-6 is two
@@ -270,6 +282,16 @@ def held(got, ref, tol, what, mag=None):
     pass)."""
     import torch
 
+    reading = error_reading(got, ref, tol, what, mag)
+    check(bool(torch.isfinite(got).all()), "%s: non-finite output" % what)
+    check(reading["worst_ratio"] <= 1.0,
+          "%s: kernel disagrees with its plain version" % what)
+    return reading
+
+
+def error_reading(got, ref, tol, what, mag=None):
+    """:func:`held`'s reading, printed, without its check (a planted
+    fault's)."""
     atol, rtol, mtol = tol
     got, ref = got.float(), ref.float()
     err = (got - ref).abs()
@@ -284,9 +306,6 @@ def held(got, ref, tol, what, mag=None):
           "%.3f (limit %g + %g |plain| + %g mag)" % (
               what, reading["max_abs_err"], reading["max_abs_plain"],
               reading["worst_ratio"], atol, rtol, mtol), flush=True)
-    check(bool(torch.isfinite(got).all()), "%s: non-finite output" % what)
-    check(reading["worst_ratio"] <= 1.0,
-          "%s: kernel disagrees with its plain version" % what)
     return reading
 
 
@@ -566,34 +585,86 @@ def phase_flash(dev):
 FLASH_F32_TOL = (1e-6, 1e-5, 1e-5)
 
 
+def tf32_rounded(x):
+    """fp32 ``x`` rounded to TF32 (10 mantissa bits, to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32``): the operands of one TF32 product,
+    made in torch with no global flag flipped."""
+    import torch
+
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
 def phase_flash_f32(dev):
     """The flash forward's fp32 form (the quantized models' attention)
     against its plain version: the int8 BERT bucket-8 forward's shape
     first, twice (bit-identical), the int8 GPT prefills' causal shapes at
-    buckets 256, 512 and 1024, then the tile edges."""
+    buckets 256, 512 and 1024, the int8 BERT forwards at buckets 1 (split,
+    each served valid length; the one over 256 keys, whose second split
+    the combine pass merges, twice) and 4 (unsplit) with the served valid
+    lengths, then the tile edges and the split key range
+    (a grid under a wave: the causal prefill at 512 twice, bit-identical).
+    Then a planted reading: the plain version on TF32-rounded operands must
+    read above the limit that 3xTF32 is held to."""
     import torch
     from mxnet_tpu_torch.ops.cuda.flash_attention import (
-        flash_attention, flash_attention_f32, flash_attention_plain)
+        F32_TILES, _sms, f32_tile, flash_attention, flash_attention_f32,
+        flash_attention_plain, flash_f32_splits)
 
     g = torch.Generator(device=dev).manual_seed(SEED + 21)
     rng = np.random.RandomState(SEED + 21)
+    served_vl = _bert_requests()[2]
     readings = []
+    # name, (B, H, T, D), causal, valid lengths, lse, the key range split,
+    # run twice
     cases = [
         ("bert int8 vl", (BUCKETS[-1], 12, SEQ, 64), False,
-         rng.choice([0, 1, 37, 256, 512], BUCKETS[-1]), False),
-        ("gpt int8 prefill", (1, 12, 256, 64), True, None, False),
-        ("gpt int8 prefill", (1, 12, 512, 64), True, None, False),
-        ("gpt int8 prefill", (1, 12, 1024, 64), True, None, False),
-        ("ragged T=200", (3, 4, 200, 64), False, np.array([200, 0, 77]), True),
-        ("T=2048 vl lse", (1, 4, 2048, 64), False, np.array([1900]), True),
-        ("causal vl T=192", (3, 4, 192, 64), True, np.array([192, 100, 0]),
+         rng.choice([0, 1, 37, 256, 512], BUCKETS[-1]), False, False, True),
+        ("gpt int8 prefill", (1, 12, 256, 64), True, None, False, True,
          False),
-        ("T=1", (2, 3, 1, 64), False, None, True),
+        ("gpt int8 prefill", (1, 12, 512, 64), True, None, False, True, True),
+        ("gpt int8 prefill", (1, 12, 1024, 64), True, None, False, True,
+         False),
+    ] + [
+        ("bert int8 bucket %d vl" % (b - a), (b - a, 12, SEQ, 64), False,
+         served_vl[a:b], False, b - a == 1, b - a == 1 and served_vl[a] > 256)
+        for a, b in BERT_INT8_GROUPS if b - a < BUCKETS[-1]
+    ] + [
+        ("ragged T=200", (3, 4, 200, 64), False, np.array([200, 0, 77]), True,
+         True, False),
+        ("T=2048 vl lse", (1, 4, 2048, 64), False, np.array([1900]), True,
+         True, False),
+        ("causal vl T=192", (3, 4, 192, 64), True, np.array([192, 100, 0]),
+         False, True, False),
+        ("T=1", (2, 3, 1, 64), False, None, True, False, False),
         ("D=128 causal vl lse", (2, 6, 512, 128), True, np.array([300, 512]),
-         True),
+         True, True, False),
+        # the split key range: batch-1 causal prefills, one CTA's run of
+        # key tiles ending inside the sequence; head dim 128; vl 1 and 0
+        ("split causal", (1, 12, 640, 64), True, None, True, True, False),
+        ("split causal", (1, 12, 700, 64), True, None, True, True, False),
+        ("split causal", (1, 4, 2048, 64), True, None, False, True, False),
+        ("split causal", (1, 3, 2000, 64), True, None, True, True, False),
+        ("split D=128 causal vl", (1, 12, 512, 128), True, np.array([300]),
+         True, True, False),
+        ("split vl 1 and 0", (3, 4, 512, 64), False, np.array([1, 0, 333]),
+         True, True, False),
     ]
     before = flash_attention.launches
-    for name, (B, H, T, D), causal, vl, lse in cases:
+    sms = _sms(dev)
+    # the tile the built kernel reports (its occupancy included) is the one
+    # the CPU tests of the split choice assume
+    for D, tile in F32_TILES.items():
+        print("fp32 flash tile at head dim %d: %s (query rows, keys, CTAs an "
+              "SM); %d SMs" % (D, f32_tile(D), sms), flush=True)
+        check(f32_tile(D) == tile, "fp32 flash tile at head dim %d is %s, "
+              "F32_TILES says %s" % (D, f32_tile(D), tile))
+    for name, (B, H, T, D), causal, vl, lse, split, twice in cases:
+        splits, chunk = flash_f32_splits(B * H, T, T, causal, sms, D,
+                                         tile=f32_tile(D))
+        check((splits > 1) == split, "fp32 flash %s %s: %d splits, %s "
+              "expected" % (name, (B, H, T, D), splits,
+                            "more" if split else "1"))
         q, k, v = _qkv(dev, g, B, H, T, D, torch.float32)
         vlt = None if vl is None else torch.tensor(vl, dtype=torch.int32,
                                                    device=dev)
@@ -604,10 +675,10 @@ def phase_flash_f32(dev):
         check(flash_attention_f32.launches == n0 + 1,
               "fp32 flash: the fp32 form did not launch")
         ref = flash_attention_plain(q, k, v, **kw)
-        what = "flash fp32 %s %s causal=%s vl=%s" % (
-            name, (B, H, T, D), causal, None if vl is None else
-            [int(n) for n in vl])
-        if not readings:
+        what = "flash fp32 %s %s causal=%s vl=%s, %d splits of <= %d key " \
+            "tiles" % (name, (B, H, T, D), causal, None if vl is None else
+                       [int(n) for n in vl], splits, chunk)
+        if twice:
             again = flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
             same = torch.equal(got, again)
@@ -620,6 +691,10 @@ def phase_flash_f32(dev):
             print("%s: max |lse - plain lse| %.3g (limit %g)"
                   % (what, lse_err, LSE_TOL))
             check(lse_err <= LSE_TOL, "%s: lse disagrees" % what)
+            if vl is not None:
+                for b in np.flatnonzero(np.asarray(vl) == 0):
+                    check(bool((got_lse.view(B, H, T)[b] == -1e30).all()),
+                          "%s: vl=0 lse not -1e30" % what)
         check(got.shape == q.shape and got.dtype == torch.float32,
               "%s: shape/dtype" % what)
         readings.append(held(got, ref, FLASH_F32_TOL, what,
@@ -644,6 +719,20 @@ def phase_flash_f32(dev):
         pass
     check(flash_attention.launches == before,
           "fp32 operands launched the bf16 flash kernel")
+    # planted: one TF32 product instead of three, at the int8 BERT bucket-8
+    # shape, must read above the limit
+    q, k, v = _qkv(dev, g, BUCKETS[-1], 12, SEQ, 64, torch.float32)
+    vlt = torch.tensor(cases[0][3], dtype=torch.int32, device=dev)
+    ref = flash_attention_plain(q, k, v, kv_valid_len=vlt)
+    planted = error_reading(
+        flash_attention_plain(tf32_rounded(q), tf32_rounded(k),
+                              tf32_rounded(v), kv_valid_len=vlt), ref,
+        FLASH_F32_TOL, "planted fault: flash fp32 plain on TF32-rounded "
+        "operands %s" % ((BUCKETS[-1], 12, SEQ, 64),),
+        flash_magnitude(q, k, v, vlt))
+    check(planted["worst_ratio"] > 1.0,
+          "the fp32 flash limit misses one TF32 product for three")
+    readings[0]["planted_tf32_worst_ratio"] = planted["worst_ratio"]
     return readings
 
 
@@ -783,6 +872,12 @@ def _bert_requests():
     return tok, tt, vl
 
 
+# the int8 BERT serving run's batches of _bert_requests, each filling its
+# bucket (1, 4, 8, 1, 1, 1 rows): a pad row would join the per-tensor
+# activation scale
+BERT_INT8_GROUPS = ((0, 1), (1, 5), (5, 13), (13, 14), (14, 15), (15, 16))
+
+
 def phase_serve(dev):
     """BERT-base served through ModelServer in two bursts of requests;
     returns the model, the kernel launch counts of the serving run, the
@@ -897,7 +992,7 @@ def phase_serve(dev):
 
 
 def _kernel_class(name):
-    if "flash_fwd_kernel" in name or "flash_fwd_f32_kernel" in name:
+    if "flash_fwd_kernel" in name or "flash_fwd_f32_" in name:
         return "flash"
     if "layernorm_" in name:
         return "layernorm"
@@ -2237,15 +2332,19 @@ def phase_generate_launches(dev, srv):
 
 def _flash_fwd_f32_bound(B, H, T, D, vl, causal=False):
     """(operations, bytes) least times of the flash forward's fp32 form
-    without the lse: two fp32 products over the (query, key) pairs this
-    run's data keeps (each example's valid keys; T (T + 1) / 2 a head when
-    causal), q read and o written whole, the kept rows of k and v."""
+    without the lse: two fp32-accurate products over the (query, key)
+    pairs this run's data keeps (each example's valid keys; T (T + 1) / 2
+    a head when causal), at the card's fastest fp32-accurate rate, 3xTF32
+    on the tensor cores (PEAK_3XTF32, 165 TFLOP/s; on the CUDA cores,
+    PEAK_FP32, it would be 67 TFLOP/s, so a 3xTF32 kernel never reads over
+    100% of this bound); q read and o written whole, the kept rows of k
+    and v."""
     if causal:
         pairs, keys = B * H * T * (T + 1) // 2, B * T
     else:
         pairs, keys = H * T * int(np.sum(vl)), int(np.sum(vl))
     nbytes = 4 * (2 * B * H * T * D + 2 * H * D * keys) + 4 * B
-    return 4 * D * pairs / PEAK_FP32, nbytes / PEAK_BYTES
+    return 4 * D * pairs / PEAK_3XTF32, nbytes / PEAK_BYTES
 
 
 def _flash_causal_bound(B, H, T, D):
@@ -2956,12 +3055,12 @@ def bert_layer_outputs(model, ins):
 
 def phase_serve_quant(dev):
     """BERT-base with int8 weights through ModelServer(buckets=(1, 4, 8),
-    quantize="int8") at seq 512: the 16 requests of phase_serve as
-    batches that fill their bucket (1, 4, 8, 1, 1, 1 rows: a pad row would
-    join the per-tensor activation scale), each served batch equal to a
-    direct quantized forward of the same rows, exact launches (25 LayerNorm
-    and 12 of the flash forward's fp32 form a forward: the quantized q/k/v
-    are fp32); then a bucket-8 forward with the kernels against the plain
+    quantize="int8") at seq 512: the 16 requests of phase_serve in
+    ``BERT_INT8_GROUPS``, each served batch equal to a direct quantized
+    forward of the same rows, exact launches (25 LayerNorm and 12 of the
+    flash forward's fp32 form a forward: the quantized q/k/v are fp32),
+    each direct forward's first attention against the plain version on its
+    own q/k/v; then a bucket-8 forward with the kernels against the plain
     versions, planted faults above the limit."""
     import torch
     from mxnet_tpu_torch import amp
@@ -2980,7 +3079,7 @@ def phase_serve_quant(dev):
     print("bert_base int8: set-up, quantization and warmup %.2f s"
           % (time.perf_counter() - t0), flush=True)
     tok, tt, vl = _bert_requests()
-    groups = [(0, 1), (1, 5), (5, 13), (13, 14), (14, 15), (15, 16)]
+    groups = BERT_INT8_GROUPS
     with srv:
         b0 = srv.metrics.batches
         reset_counters()
@@ -2991,14 +3090,45 @@ def phase_serve_quant(dev):
         forwards = srv.metrics.batches - b0
         stats = srv.stats()
     worst = 0.0
-    with torch.inference_mode():
-        for (a, b), outs in zip(groups, served):
-            ins = [torch.from_numpy(x[a:b]).to(dev) for x in (tok, tt, vl)]
-            direct = [o.float().cpu().numpy() for o in model(*ins)]
-            for o, d in zip(outs, direct):
-                check(np.isfinite(o).all(), "non-finite int8 BERT output")
-                worst = max(worst, float(np.abs(o.astype(np.float32)
-                                                - d).max()))
+    # each direct forward's first attention (the flash forward's fp32 form
+    # on the quantized q/k/v, at the served bucket and valid lengths) is
+    # kept and then held against the plain version on the same inputs
+    from mxnet_tpu_torch.ops import attention
+    from mxnet_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_plain)
+
+    launch, first, attn_readings = attention.flash_attention, [], []
+
+    def keep_first(q, k, v, **kw):
+        out = launch(q, k, v, **kw)
+        if not first:
+            first.append((q, k, v, kw, out))
+        return out
+
+    attention.flash_attention = keep_first
+    try:
+        with torch.inference_mode():
+            for (a, b), outs in zip(groups, served):
+                ins = [torch.from_numpy(x[a:b]).to(dev)
+                       for x in (tok, tt, vl)]
+                first.clear()
+                direct = [o.float().cpu().numpy() for o in model(*ins)]
+                for o, d in zip(outs, direct):
+                    check(np.isfinite(o).all(), "non-finite int8 BERT output")
+                    worst = max(worst, float(np.abs(o.astype(np.float32)
+                                                    - d).max()))
+                q, k, v, kw, out = first[0]
+                check(q.dtype == torch.float32, "int8 BERT attention is %s"
+                      % q.dtype)
+                attn_readings.append(held(
+                    out, flash_attention_plain(q, k, v, **kw),
+                    FLASH_F32_TOL, "bert int8 served forward %s: first "
+                    "attention %s vl %s" % ((a, b), tuple(q.shape),
+                                            kw["kv_valid_len"].tolist()),
+                    flash_magnitude(q, k, v, kw["kv_valid_len"],
+                                    kw["causal"], kw["scale"])))
+    finally:
+        attention.flash_attention = launch
     print("bert int8 served %d rows in %d forwards (%.1f ms); launches %s "
           "(flash: the fp32 form, the quantized q/k/v are fp32); served rows "
           "vs a direct "
@@ -3058,12 +3188,40 @@ def phase_serve_quant(dev):
         check(r > 1.0, "the int8 BERT limit misses the planted fault %r"
               % name)
     out = {"forwards": forwards, "wall_ms": wall * 1e3, "launches": launches,
-           "served_vs_direct_max_abs": worst, "forward_vs_plain": vs_plain,
+           "served_vs_direct_max_abs": worst,
+           "served_attention_vs_plain": attn_readings,
+           "forward_vs_plain": vs_plain,
            "server_stats": stats}
     srv.stop()
-    del srv, model
+    del srv
     torch.cuda.empty_cache()
-    return out
+    return out, (model, ins)
+
+
+def phase_serve_quant_breakdown(model, ins, n_prof=4):
+    """Where the int8 BERT bucket-8 forward at seq 512 (the served rows'
+    valid lengths) spends its device time: kernel ms by class and kind
+    from torch.profiler, the fp32 flash form under "flash"."""
+    import torch
+
+    def forward():
+        with torch.inference_mode():
+            model(*ins)
+
+    forward()
+    torch.cuda.synchronize()
+    r = _profile(forward, n_prof)
+    print("bert int8 bucket-8 forward breakdown (torch.profiler, %d calls): "
+          "kernel ms by class %s, by kind %s; %.1f kernels a call; %.3f ms "
+          "busy in %.3f ms of wall: device idle %.1f%%"
+          % (n_prof, {k: round(v, 4) for k, v in r["kernel_ms"].items()},
+             {k: round(v, 4) for k, v in r["kernel_ms_by_kind"].items()},
+             r["kernels_per_call"], r["busy_ms"], r["profiled_wall_ms"],
+             100 * r["device_idle_share"]), flush=True)
+    for ms, n, kname in r["top"]:
+        print("  %8.4f ms  x%-4d %s" % (ms, n, kname))
+    check(r["busy_ms"] > 0, "the profiler saw no kernel time")
+    return r
 
 
 def _fine_class(name):
@@ -3093,7 +3251,8 @@ def phase_quant_timing(dev, records, quant):
     import torch
     import torch.nn.functional as TF
     from mxnet_tpu_torch.ops.cuda.flash_attention import (
-        flash_attention_f32, flash_attention_plain)
+        _sms, f32_tile, flash_attention_f32, flash_attention_plain,
+        flash_f32_splits)
     from mxnet_tpu_torch.ops.cuda.layernorm import (fused_layernorm,
                                                     layernorm_plain)
 
@@ -3175,7 +3334,8 @@ def phase_quant_timing(dev, records, quant):
         "mxnet_tpu/ops/pallas/flash_attention.py:147", n, calls,
         reading["max_abs_err"], *t, t_ops, t_bytes,
         shape=[B, H, SEQ, D], dtype="float32", valid_len=[int(x) for x in vl],
-        check=reading, main_path="the int8 GPT serving bursts' prefills at "
+        check=reading,
+        main_path="the int8 GPT serving bursts' prefills at "
         "buckets >= 256 and the int8 BERT serving run's forwards",
         launches_gpt_int8=quant["launches"]["flash_attention_fwd_f32"],
         launches_bert_int8=bert["launches"]["flash_attention_fwd_f32"],
@@ -3185,9 +3345,13 @@ def phase_quant_timing(dev, records, quant):
                      records[-1])] + [("gpt causal %s" % c["shape"], c)
                                       for c in causal]:
         print("time int8 path flash fp32 %-26s kernel %.4f ms, plain %.4f "
-              "ms, library %.4f ms, bound %.5f ms (%s)" % (
+              "ms, library %.4f ms, bound %.5f ms (%s); (splits, key tiles "
+              "a split) %s" % (
                   what, r["ms"], r["plain_ms"], r["library_ms"],
-                  r["bound_ms"], r["bound_by"]), flush=True)
+                  r["bound_ms"], r["bound_by"], flash_f32_splits(
+                      r["shape"][0] * H, r["shape"][2], r["shape"][2],
+                      what.startswith("gpt"), _sms(dev), D,
+                      tile=f32_tile(D))), flush=True)
 
 
 def _profile(fn, n):
@@ -3351,7 +3515,7 @@ def main():
         lowbit = phase_lowbit(dev)
         quant_model, quant = phase_generate_quant(dev)
         quant["products"] = lowbit
-        quant["bert_int8_serving"] = phase_serve_quant(dev)
+        quant["bert_int8_serving"], bert_int8 = phase_serve_quant(dev)
         records, crossover = phase_timing(
             dev, train["launches"], train["steps_counted"], errs,
             serve_launches, forwards, serve_vl)
@@ -3367,6 +3531,9 @@ def main():
         gen["breakdown"] = phase_generate_breakdown(dev, gen_model)
         quant["breakdown"] = phase_generate_breakdown(dev, quant_model,
                                                       quantize="int8")
+        quant["bert_int8_serving"]["breakdown_bucket_8"] = \
+            phase_serve_quant_breakdown(*bert_int8)
+        del bert_int8
         for r in records:
             if r["name"] == "flash_attention_bwd":
                 r["dq_pass_share"] = train["breakdown"][

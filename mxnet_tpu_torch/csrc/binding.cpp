@@ -6,6 +6,7 @@
 #include <torch/extension.h>
 
 #include <optional>
+#include <vector>
 
 extern "C" {
 int mxt_layernorm_fwd(const void* x, const void* gamma, const void* beta,
@@ -21,8 +22,10 @@ int mxt_flash_fwd(const void* q, const void* k, const void* v,
                   float scale, int causal, void* stream);
 int mxt_flash_fwd_f32(const float* q, const float* k, const float* v,
                       const int32_t* valid_len, float* o, float* lse,
-                      int batch_heads, int heads, int tq, int tk, int d,
-                      float scale, int causal, void* stream);
+                      float* work, int batch_heads, int heads, int tq, int tk,
+                      int d, float scale, int causal, int splits, int chunk,
+                      void* stream);
+int mxt_flash_fwd_f32_tile(int d, int* rows, int* keys, int* per_sm);
 int mxt_flash_bwd(const void* q, const void* k, const void* v,
                   const void* dout, const float* lse, const float* delta,
                   const int32_t* valid_len, float* dq_acc, void* dq, void* dk,
@@ -101,17 +104,27 @@ void flash_fwd_f32(const torch::Tensor& q, const torch::Tensor& k,
                    const torch::Tensor& v,
                    const std::optional<torch::Tensor>& valid_len,
                    torch::Tensor& o, const std::optional<torch::Tensor>& lse,
-                   int64_t heads, double scale, bool causal, int64_t stream) {
+                   const std::optional<torch::Tensor>& work, int64_t heads,
+                   double scale, bool causal, int64_t splits, int64_t chunk,
+                   int64_t stream) {
   check_launch(
       mxt_flash_fwd_f32(q.data_ptr<float>(), k.data_ptr<float>(),
                         v.data_ptr<float>(), optional_int32(valid_len),
                         o.data_ptr<float>(),
                         lse ? lse->data_ptr<float>() : nullptr,
+                        work ? work->data_ptr<float>() : nullptr,
                         (int)(q.size(0) * q.size(1)), (int)heads,
                         (int)q.size(2), (int)k.size(2), (int)q.size(3),
-                        (float)scale, causal ? 1 : 0,
+                        (float)scale, causal ? 1 : 0, (int)splits, (int)chunk,
                         reinterpret_cast<void*>(stream)),
       "flash_fwd_f32");
+}
+
+std::vector<int64_t> flash_fwd_f32_tile(int64_t d) {
+  int rows = 0, keys = 0, per_sm = 0;
+  check_launch(mxt_flash_fwd_f32_tile((int)d, &rows, &keys, &per_sm),
+               "flash_fwd_f32_tile");
+  return {rows, keys, per_sm};
 }
 
 void flash_bwd(const torch::Tensor& q, const torch::Tensor& k,
@@ -166,6 +179,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_fwd", &flash_fwd, "flash-attention forward (CUDA)");
   m.def("flash_fwd_f32", &flash_fwd_f32,
         "flash-attention forward, fp32 operands (CUDA)");
+  m.def("flash_fwd_f32_tile", &flash_fwd_f32_tile,
+        "(query rows a CTA, keys a K/V tile, CTAs an SM) of the fp32 "
+        "forward");
   m.def("flash_bwd", &flash_bwd, "flash-attention backward, dq, dk, dv (CUDA)");
   m.def("flash_bwd_workspace", &flash_bwd_workspace,
         "floats of the flash backward's fp32 dq workspace");

@@ -13,9 +13,11 @@ streams K/V tiles through a cp.async ring (at head dim 64 two warpgroups of
 64 query rows share each tile); the backward is one fused kernel for dq, dk
 and dv. The TPU forward takes its operands in their own dtype, so fp32 q,
 k, v (the quantized models' attention) go to the forward's fp32 form,
-``flash_attention_fwd_f32.cu``: fp32 products on the CUDA cores, launched
-and counted by :func:`flash_attention_f32`. It has no backward: a
-differentiable fp32 attention takes the dense path (``ops/attention.py``).
+``flash_attention_fwd_f32.cu``: 3xTF32 products on the tensor cores, with
+the key range split over several CTAs when the grid is under a wave (the
+split is :func:`flash_f32_splits`, plain Python), launched and counted by
+:func:`flash_attention_f32`. It has no backward: a differentiable fp32
+attention takes the dense path (``ops/attention.py``).
 
 :func:`flash_attention`, :func:`flash_attention_f32` and
 :func:`flash_attention_bwd` take the plain version for CPU tensors and
@@ -30,6 +32,8 @@ Layouts are the JAX function's: q (B, H, Tq, D), k and v (B, H, Tk, D), lse
 """
 from __future__ import annotations
 
+import functools
+import heapq
 import math
 
 import torch
@@ -38,6 +42,17 @@ from . import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)  # the kernel's template instances
+# the fp32 form's tile for each head dim, as flash_attention_fwd_f32.cu has
+# it: query rows a CTA, keys a K/V tile, and the CTAs an SM holds at once
+# (by their shared memory); the wrapper takes the built kernel's own report
+# (f32_tile), chip_smoke.py checks that it is this
+F32_TILES = {64: (128, 64, 1), 128: (128, 16, 1)}
+F32_MAX_SPLITS = 16
+# the split choice's cost model, in key tiles of one CTA: a CTA's fixed work
+# (Q in and split, its epilogue) and the combine pass, fitted to the split
+# sweeps of tools/cuda_flash_f32_bench.py on an H100 (PERF.md)
+F32_CTA_COST = 0.85
+F32_COMBINE_COST = 1.0
 
 
 def _scores_plain(q, k, kv_valid_len, scale, causal):
@@ -182,11 +197,104 @@ def flash_attention(q, k, v, causal=False, scale=None, kv_valid_len=None,
 flash_attention.launches = 0  # kernel launches since the last reset
 
 
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def f32_key_tiles(tq, kv_len, causal, tile):
+    """The key tiles each query tile of the fp32 form runs (the kernel's
+    ``key_tiles``): up to the valid length, and with ``causal`` up to the
+    query tile's last row. ``tile`` is (query rows, keys, CTAs an SM)."""
+    rows, keys = tile[:2]
+    return [_ceil(max(min(kv_len, (i + 1) * rows) if causal else kv_len, 0),
+                  keys) for i in range(_ceil(tq, rows))]
+
+
+def flash_f32_splits(batch_heads, tq, tk, causal, sms, head_dim=64,
+                     tile=None):
+    """(splits, chunk) of the fp32 form: query tile i runs its key tiles
+    in runs of ``chunk``, ceil(tiles_i / chunk) CTAs, at most ``splits``.
+    One split (the whole range a CTA) when the grid of ceil(tq / rows) *
+    batch_heads CTAs already fills the ``sms`` SMs. Else each candidate
+    split count is costed as the time its CTAs take on the card's slots
+    (sms * CTAs an SM), handed out in launch order to the first free slot,
+    each CTA its key tiles plus ``F32_CTA_COST``, plus ``F32_COMBINE_COST``
+    for the combine pass; the cheapest wins, the fewer splits on a tie. A
+    long (causal: late) query tile so gets more CTAs than a short one, and
+    the card's slots about the same number of (query, key) pairs: the
+    kernel computes a causal diagonal tile whole, so a key tile is the
+    unit of pairs. Every example counts all ``tk`` keys: the valid
+    lengths are on the card. ``tile`` (query rows, keys, CTAs an SM)
+    defaults to ``F32_TILES[head_dim]``."""
+    tile = tuple(tile or F32_TILES[head_dim])
+    return _f32_splits(batch_heads, tq, tk, bool(causal), sms, tile)
+
+
+def _makespan(loads, slots):
+    """When the last of ``loads`` ends, each started in order on the first
+    free of ``slots``."""
+    if len(loads) <= slots:
+        return max(loads, default=0.0)
+    ends = [0.0] * slots
+    for load in loads:
+        heapq.heappush(ends, heapq.heappop(ends) + load)
+    return max(ends)
+
+
+@functools.lru_cache(maxsize=1024)
+def _f32_splits(batch_heads, tq, tk, causal, sms, tile):
+    rows, _, per_sm = tile
+    tiles = f32_key_tiles(tq, tk, causal, tile)
+    most = max(tiles + [1])
+    if _ceil(tq, rows) * batch_heads >= sms:
+        return 1, most
+    best, best_cost = (1, most), None
+    for s in range(1, min(most, F32_MAX_SPLITS) + 1):
+        chunk = _ceil(most, s)
+        splits = _ceil(most, chunk)
+        if splits != s:
+            continue
+        # CTAs in launch order: query tile fastest, then batch * head, then
+        # split; one with no run exits at once
+        loads = [min(chunk, n - z * chunk) + F32_CTA_COST
+                 for z in range(splits) for _ in range(batch_heads)
+                 for n in tiles if z * chunk < n or (z == 0 and n == 0)]
+        cost = _makespan(loads, sms * per_sm) + \
+            (F32_COMBINE_COST if splits > 1 else 0.0)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = (splits, chunk), cost
+    return best
+
+
+_sm_count = {}
+_f32_tiles = {}
+
+
+def _sms(device):
+    if device.index not in _sm_count:
+        _sm_count[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sm_count[device.index]
+
+
+def f32_tile(head_dim):
+    """(query rows a CTA, keys a K/V tile, CTAs an SM) of the built fp32
+    kernel at ``head_dim``, as it reports them (the last is the card's
+    occupancy for it)."""
+    if head_dim not in _f32_tiles:
+        _f32_tiles[head_dim] = tuple(
+            _build.extension().flash_fwd_f32_tile(head_dim))
+    return _f32_tiles[head_dim]
+
+
 def flash_attention_f32(q, k, v, causal=False, scale=None, kv_valid_len=None,
                         return_lse=False):
     """:func:`flash_attention` for float32 q, k and v through the forward
-    kernel's fp32 form, whose launches it counts apart. q, k and v must
-    also start on a 16-byte boundary (the kernel reads them as float4)."""
+    kernel's fp32 form, whose launches it counts apart (one a call, its
+    combine pass included). q, k and v must also start on a 16-byte
+    boundary (the kernel reads them as float4). Where the grid is under a
+    wave the key range is split (:func:`flash_f32_splits`) and a workspace of
+    splits * B*H * Tq * (D + 2) floats holds the partial results."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -199,13 +307,19 @@ def flash_attention_f32(q, k, v, causal=False, scale=None, kv_valid_len=None,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError("flash kernel takes a 16-byte aligned %s" % name)
-    B, H, Tq, _ = q.shape
+    B, H, Tq, D = q.shape
+    ext = _build.extension()
+    splits, chunk = flash_f32_splits(B * H, Tq, k.shape[2], causal,
+                                     _sms(q.device), D, tile=f32_tile(D))
     out = torch.empty_like(q)
     lse = torch.empty((B * H, Tq, 1), dtype=torch.float32, device=q.device) \
         if return_lse else None
-    _build.extension().flash_fwd_f32(
-        q, k, v, _valid_len(kv_valid_len), out, lse, H, float(scale),
-        bool(causal), torch.cuda.current_stream(q.device).cuda_stream)
+    work = torch.empty(splits * B * H * Tq * (D + 2), dtype=torch.float32,
+                       device=q.device) if splits > 1 else None
+    ext.flash_fwd_f32(
+        q, k, v, _valid_len(kv_valid_len), out, lse, work, H, float(scale),
+        bool(causal), splits, chunk,
+        torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention_f32.launches += 1
     return (out, lse) if return_lse else out
 

@@ -27,7 +27,7 @@ import threading
 
 import torch
 
-from ..base import next_pow2
+from ..base import next_pow2, resolve_device
 
 __all__ = ["CacheError", "PagedKVCache", "PrefixCache"]
 
@@ -54,8 +54,9 @@ class PagedKVCache:
         Ceiling of the time axis (the model's ``max_length``).
     dtype : torch.dtype
         K/V element dtype (the model's parameter dtype).
-    device : torch.device
-        Where the buffers live.
+    device : torch.device, optional
+        Where the buffers live: the current CUDA device unless another is
+        given (``base.resolve_device``).
     quantize : bool
         Keep the pages as int8 with per-page-per-head fp32 scales
         (``k_scale``/``v_scale``); they quantize on write with a running-max
@@ -65,7 +66,7 @@ class PagedKVCache:
     """
 
     def __init__(self, layers, heads, head_dim, slots, max_capacity,
-                 dtype=torch.float32, device="cpu", quantize=False):
+                 dtype=torch.float32, device=None, quantize=False):
         self.layers = int(layers)
         self.heads = int(heads)
         self.head_dim = int(head_dim)
@@ -76,7 +77,7 @@ class PagedKVCache:
         # the element size an unquantized cache of the model's dtype would
         # take: the denominator of the bytes-saved ratio
         self._ref_itemsize = torch.empty((), dtype=dtype).element_size()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.capacity = 0
         self.k = None     # list[L] of (slots, H, capacity, D) tensors
         self.v = None

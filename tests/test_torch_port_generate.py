@@ -125,9 +125,19 @@ def test_request_longer_than_max_length_refused_at_submit(shared):
     srv.stop()
 
 
+def test_paged_cache_defaults_to_the_card():
+    """Like every entry point, the cache runs on the card unless asked
+    for the CPU: without a card its default device raises."""
+    if torch.cuda.is_available():
+        assert PagedKVCache(1, 1, 4, 1, 8).device.type == "cuda"
+    else:
+        with pytest.raises(DeviceError):
+            PagedKVCache(1, 1, 4, 1, 8)
+
+
 def test_paged_cache_slots_and_buckets():
     c = PagedKVCache(layers=2, heads=2, head_dim=4, slots=3,
-                     max_capacity=64)
+                     max_capacity=64, device="cpu")
     assert (c.capacity_bucket(5), c.capacity_bucket(33)) == (8, 64)
     with pytest.raises(CacheError):
         c.capacity_bucket(65)
