@@ -90,7 +90,34 @@ Run from the root of a checkout on a machine with a CUDA card. It
    capacity migration and after a weight swap, each from one saved state
    of 8 filled slots: tokens and logits bitwise equal, one replay a step
    and no capture in the steady state, 25 LayerNorm launches a step under
-   replay as eagerly; prints a step's host wall each way;
+   replay as eagerly; prints a step's host wall each way; then the verify
+   step (greedy and sampled), a 2-layer draft's round and a prefill chunk
+   (greedy and sampled) each against its eager run the same way
+   (``spec_programs_against_eager``: 25, 20 and 25 LayerNorm launches);
+10a. serves GPT-2 small with speculative decode (``phase_speculative``,
+   ``spec_k=4``): one burst of 12 requests (six repetitive prompts, a
+   pattern of 16-64 tokens repeated to 200-900 tokens, and six random
+   ones; greedy and sampled, 64 new tokens) through a plain server, whose
+   logits are recorded, then with ``NGramDraft``, with the target as its
+   own ``ModelDraft`` (greedy requests; its accept rate at least
+   ``SELF_DRAFT_ACCEPT_FLOOR``) and with a 2-layer ``ModelDraft`` at the
+   same widths; each stream equals the plain server's up to a step where
+   the plain server's own token led by less than ``GREEDY_TIE_TOL``
+   (greedy: logits; sampled: the sampler's scores at the same (seed,
+   position)), a parted greedy stream driven again alone; exact launches
+   (25 LayerNorm a prefill and a verify step, 12 flash a prefill at a
+   bucket of 256 or more, none in a verify step; the 2-layer draft 20
+   LayerNorm a round, 5 and 2 flash a fill at a bucket of 256 or more), no
+   capture after warmup, one verify and one draft replay a round; then
+   int8 with ``NGramDraft`` against the plain int8 server under
+   ``INT8_TIE_TOL``. It prints the accept rates, the verify step's host
+   wall against the plain step's and tokens/s with and without a draft;
+10b. joins a 900-token prompt to four streams in flight with
+   ``prefill_chunk=256`` (``phase_chunked_prefill``), tick by tick, bf16
+   and int8: 4 chunks, each stream in flight gains a token on at least 3
+   of the 4 chunk ticks, every stream equal to the unchunked server's
+   under the same rule, exact launches; it prints the longest tick while
+   the prompt joins, chunked against unchunked, and ``itl_prefill``;
 11. holds ``F.quantized_fully_connected`` at the quantized models'
    shapes against an fp64 product of the same quantized operands
    (``phase_lowbit``): int8 bit for bit, e5m2 within the fp32 summation
@@ -126,8 +153,9 @@ Run from the root of a checkout on a machine with a CUDA card. It
     bert512 step (kernel time by class, the LayerNorm backward and the
     optimizer step, the idle share), then a GPT prefill at bucket 512 and
     a decode step of 8 slots, through its graph and eagerly, bf16 and
-    int8, then the int8 BERT bucket-8 forward, and times the step once
-    more. The
+    int8, then the int8 BERT bucket-8 forward, then a speculative tick
+    with NGramDraft, a 2-layer draft's round and tick, and a chunk tick,
+    and times the step once more. The
     profiler windows come last: after one, an eager step's host wall may
     not return to what it was.
 
@@ -2484,75 +2512,18 @@ def restore_state(srv, saved):
         dst.copy_(src)
 
 
-def run_steps(srv, n, eager):
-    """n decode steps through the step programs (or eagerly): each step's
-    logits (fp32) and next tokens, copied off before the next step."""
-    import torch
-
-    out = []
-    for _ in range(n):
-        logits = srv._run_step(eager=eager)
-        out.append((logits.float().clone(), srv._tok.clone()))
-    torch.cuda.synchronize()
-    return out
-
-
 def graph_against_eager(srv, what, n=GRAPH_STEPS):
-    """From one saved state: n steps through the programs (the first run
-    may capture), n again (the steady state: no capture, one replay a
-    step), and n eager steps. Tokens and logits must be bitwise equal, and
-    the LayerNorm launches exact (STEP_LN a step) both ways. Returns (the
+    """:func:`program_against_eager` for the decode step: its logits (fp32)
+    and next tokens, STEP_LN LayerNorm launches a step. Returns (the
     reading, the steady run's steps); the state is restored."""
-    import torch
+    def step(eager):
+        logits = srv._run_step(eager=eager)
+        return [logits.float().clone(), srv._tok.clone()]
 
-    steps = srv._steps
-    saved = save_state(srv)
-    c0 = steps.captures
-    first = run_steps(srv, n, False)
-    first_captures = steps.captures - c0
-    restore_state(srv, saved)
-    c1, r1 = steps.captures, steps.replays
-    reset_counters()
-    graph = run_steps(srv, n, False)
-    g_launch = read_counters()
-    captures, replays = steps.captures - c1, steps.replays - r1
-    restore_state(srv, saved)
-    reset_counters()
-    eager = run_steps(srv, n, True)
-    e_launch = read_counters()
-    restore_state(srv, saved)
-
-    def same(a, b):
-        return all(torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
-                   for x, y in zip(a, b))
-
-    reading = {"steps": n, "key": list(map(str, (srv.cache.capacity,
-                                                srv._sampling,
-                                                srv._quantize))),
-               "first_run_captures": first_captures,
-               "steady_captures": captures, "steady_replays": replays,
-               "graph_equals_eager": same(graph, eager),
-               "capturing_run_equals_steady": same(first, graph),
-               "max_abs_logit_diff": max(float((x[0] - y[0]).abs().max())
-                                         for x, y in zip(graph, eager)),
-               "launches_graph": g_launch, "launches_eager": e_launch}
-    print("%s: graph vs eager over %d steps: bitwise equal %s (capturing "
-          "run %s), max |logit diff| %.3g; captures %d then %d, replays %d; "
-          "LayerNorm launches graph %d, eager %d" % (
-              what, n, reading["graph_equals_eager"],
-              reading["capturing_run_equals_steady"],
-              reading["max_abs_logit_diff"], first_captures, captures,
-              replays, g_launch["layernorm"], e_launch["layernorm"]),
-          flush=True)
-    check(reading["graph_equals_eager"], "%s: the captured steps differ from "
-          "the eager ones" % what)
-    check(reading["capturing_run_equals_steady"], "%s: the run that captured "
-          "differs from the steady one" % what)
-    check(captures == 0 and replays == n, "%s: %d captures and %d replays "
-          "over %d steady steps" % (what, captures, replays, n))
-    check(g_launch["layernorm"] == STEP_LN * n and g_launch == e_launch,
-          "%s: launches under replay %s, eager %s, expected %d LayerNorm"
-          % (what, g_launch, e_launch, STEP_LN * n))
+    reading, graph = program_against_eager(what, srv._steps, step,
+                                           step_buffers(srv), STEP_LN, n)
+    reading["key"] = list(map(str, (srv.cache.capacity, srv._sampling,
+                                    srv._quantize)))
     return reading, graph
 
 
@@ -2608,7 +2579,9 @@ def phase_graph(dev):
     greedy, sampled (every other slot at temperature 0.8), after a capacity
     migration (512 -> 1024: every program dropped) and after a weight swap
     (no program dropped; the replay must give the new weights' logits).
-    Then the host wall of a step each way."""
+    Then the host wall of a step each way, and the verify step, the draft
+    round and a prefill chunk against their eager runs
+    (:func:`spec_programs_against_eager`)."""
     import shutil
 
     import torch
@@ -2640,7 +2613,7 @@ def phase_graph(dev):
         path = _swap_file(dev, SEED + 13, mode)
         try:
             saved = save_state(srv)
-            old = run_steps(srv, 1, False)[0][0]
+            old = srv._run_step().float().clone()
             restore_state(srv, saved)
             captures, drops = srv._steps.captures, srv._steps.drops
             epoch = srv.swap_parameters(path)
@@ -2653,6 +2626,8 @@ def phase_graph(dev):
         check(srv._steps.captures == captures and srv._steps.drops == drops,
               "%s: the swap made or dropped programs" % name)
         r["host_wall_ms"] = step_walls(srv)
+        r["speculative"] = spec_programs_against_eager(dev, model, mode,
+                                                       prompts)
         r["programs"] = {"captures": srv._steps.captures,
                          "replays": srv._steps.replays,
                          "drops": srv._steps.drops,
@@ -2670,6 +2645,853 @@ def phase_graph(dev):
         out[mode or "bf16"] = r
         del srv, model
         torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------- speculative decode
+# the verify window (tokens scored a verify step)
+SPEC_K = 4
+# the speculative burst: six repetitive prompts, a pattern of 16-64 tokens
+# repeated to 200-900 tokens ((pattern, length, temperature, seed)), and the
+# first six requests of phase_generate's first burst (random prompts); 64
+# new tokens each
+SPEC_REPEATS = ((16, 200, 0, 0), (32, 450, 0.8, 31), (64, 900, 0, 0),
+                (24, 300, 0, 0), (48, 600, 0.8, 32), (40, 260, 0, 0))
+SPEC_DRAFT_LAYERS = 2
+# LayerNorm launches of the 2-layer draft: a round is SPEC_K decode steps
+# (two a layer and ln_f each), a fill one forward
+DRAFT_ROUND_LN = SPEC_K * (2 * SPEC_DRAFT_LAYERS + 1)
+DRAFT_FILL_LN = 2 * SPEC_DRAFT_LAYERS + 1
+# the greedy accept rate of a draft that is the target itself: each draft
+# is the target's own greedy token, computed by the plain step (8 rows)
+# where the verify step computes it among 8 x SPEC_K rows, so a bf16 draft
+# differs from the verify's sample only at a near-tie of the two bf16
+# computations (and of the K/V each wrote, rounded apart). With random
+# weights the logits lie close (a bf16 step is 2**-7 of them), so such
+# ties are common: 0.9412 (384 of 408 drafts) on the card; the floor is
+# 0.9, where a draft that is not the target's greedy token (a 2-layer
+# one reads 0) is far below
+SELF_DRAFT_ACCEPT_FLOOR = 0.9
+# int8: a speculative stream against the plain int8 server's may part
+# where the plain server's token led by less than this. An int8 step's
+# logits move with the rest of its batch: each quantized Dense quantizes
+# its activations with one scale over every row of the step (the verify's
+# 8 x SPEC_K rows, the drafts and free slots included; the plain step's
+# 8), and a drafted row that is later rejected may raise its page's
+# running-max scale (as in the JAX package), so the two differ by the
+# int8 step's quantization noise, not by bf16 rounding. Twice the largest
+# margin met at an int8 parting on the card (0.0714, a chunked stream;
+# 0.0629 a speculative one)
+INT8_TIE_TOL = 0.15
+# chunked prefill: four streams decode while a 900-token prompt joins in
+# chunks of 256
+CHUNK = 256
+CHUNK_INFLIGHT = (20, 40, 60, 100)
+CHUNK_JOINER = 900
+
+
+def _spec_requests(vocab):
+    """[(prompt int32, temperature, seed)]: the six repetitive prompts,
+    then six random ones."""
+    rng = np.random.RandomState(SEED + 30)
+    reqs = [(np.resize(rng.randint(0, vocab, pat), n).astype(np.int32),
+             temp, seed) for pat, n, temp, seed in SPEC_REPEATS]
+    return reqs + _gpt_requests(vocab)[0][:6]
+
+
+def _gen_server(model, dev, **kw):
+    from mxnet_tpu_torch.serve import GenerativeServer
+
+    kw.setdefault("prefix_cache", False)
+    return GenerativeServer(model, slots=GPT_SLOTS, top_k=GPT_TOP_K,
+                            timeout_ms=600000.0, device=dev, **kw)
+
+
+def _draft_model(dev, seed):
+    """A 2-layer GPT at GPT-2 small's widths (vocab 50257, max_length
+    1024), random weights from a seed, bf16 via amp."""
+    import torch
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.models.gpt import GPTModel
+
+    model = GPTModel(dropout=0.1, **dict(GPT_CONFIG,
+                                         num_layers=SPEC_DRAFT_LAYERS))
+    model.initialize(device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(seed))
+    amp.convert_hybrid_block(model, "bfloat16")
+    return model
+
+
+def _req_key(prompt, temp, seed):
+    """A request's key: (prompt bytes, temperature, seed)."""
+    return (np.asarray(prompt, np.int32).tobytes(), float(temp), int(seed))
+
+
+def _stream_key(stream):
+    return _req_key(stream.prompt, stream.temperature, stream.seed)
+
+
+class record_logits:
+    """Within the block, the logits a plain server sampled each token of
+    each stream from, fp32 on the device: {(prompt bytes, temperature,
+    seed): [one (V,) row a token]} (the prefill's last row, then the
+    stream's row of each decode step). Two device copies a step."""
+
+    def __init__(self, srv):
+        self.srv = srv
+        self.rows = {}
+
+    def __enter__(self):
+        srv, rows = self.srv, self.rows
+        prefill, run_step = srv._prefill, srv._run_step
+
+        def pre(slot, *args, **kwargs):
+            out = prefill(slot, *args, **kwargs)
+            rows.setdefault(_stream_key(srv.cache.owner(slot)), []).append(
+                out[1].float().clone())
+            return out
+
+        def step(*args, **kwargs):
+            logits = run_step(*args, **kwargs)
+            full = logits.float().clone()
+            for s in np.flatnonzero(srv._active_mask()):
+                rows[_stream_key(srv.cache.owner(int(s)))].append(
+                    full[int(s)])
+            return logits
+
+        srv._prefill, srv._run_step = pre, step
+        return self
+
+    def __exit__(self, *exc):
+        del self.srv._prefill, self.srv._run_step
+
+
+def sampler_margin(row, a, b, temp, seed, position):
+    """How far the plain server's logits ``row`` at a step would have to
+    move for it to take the token ``a`` a stream took instead of its own
+    ``b``, in logit units: for a greedy step the logits' difference; for a
+    sampled one, either ``a``'s sampler score (logit / temp plus its Gumbel
+    noise at (seed, position), the same on both servers) rises past
+    ``b``'s, once ``a`` is inside the top-k cut, or ``b`` falls below the
+    cut (then ``a`` may win among the rest)."""
+    import torch
+    from mxnet_tpu_torch.serve.decoder import gumbel_noise
+
+    lg = row.float()
+    if temp <= 0:
+        return float(lg[b] - lg[a])
+    noise = gumbel_noise(torch.tensor([seed], device=lg.device),
+                         torch.tensor([position], device=lg.device),
+                         lg.numel())[0]
+    score = lg / temp + noise
+    kth = float(torch.topk(lg, GPT_TOP_K).values[-1])
+    below = max(kth - float(lg[a]), 0.0)   # a's way into the top-k
+    by_score = max(float((score[b] - score[a]) * temp), below)
+    by_cut = max(float(lg[b]) - kth, below)
+    return min(by_score, by_cut)
+
+
+def compare_to_plain(got, plain, rows, req, what, tol=GREEDY_TIE_TOL):
+    """(tokens compared, the margin where ``got`` parted from the plain
+    server's stream or None): equal up to a step where the plain server's
+    own token led the other by less than ``tol`` (:func:`sampler_margin`),
+    after which the stream is not compared."""
+    prompt, temp, seed = req
+    for i, (a, b) in enumerate(zip(got, plain)):
+        if a != b:
+            margin = sampler_margin(rows[i], a, b, temp, seed,
+                                    len(prompt) + i)
+            check(margin < tol,
+                  "%s: token %d is %d, the plain server's %d (margin %.4f "
+                  ">= %g)" % (what, i, a, b, margin, tol))
+            return i + 1, margin
+    check(len(got) == len(plain), "%s: %d tokens, the plain server's %d"
+          % (what, len(got), len(plain)))
+    return len(got), None
+
+
+def reopen(srv):
+    """Admission of a server that ``with srv:`` stopped, reopened without
+    its loop: the caller drives the ticks (``stop()`` closes it again)."""
+    srv._stop_flag = False
+
+
+def redrive_parted(plain_srv, req, plain, got, n, what):
+    """A bf16 greedy stream that parted from the plain server's at token
+    n - 1, the plain one driven again alone (its step runs every slot, so
+    a slot's row does not depend on the others): the same tokens, and its
+    own logits put the two tokens within GREEDY_TIE_TOL. Returns that
+    margin."""
+    toks, logits = served_logits(plain_srv, req[0], n)
+    check(toks == list(plain[:n]), "%s: the plain server, driven alone, "
+          "gives other tokens than among companions" % what)
+    row = logits[n - 1]
+    margin = float(row[plain[n - 1]] - row[got[n - 1]])
+    check(margin < GREEDY_TIE_TOL, "%s: driven alone, the plain server's "
+          "token leads by %.4f >= %g" % (what, margin, GREEDY_TIE_TOL))
+    return margin
+
+
+def compare_streams(reqs, got, plain, rows, what, plain_srv=None,
+                    tol=GREEDY_TIE_TOL):
+    """Every stream of ``got`` against the plain server's (compare_to_plain);
+    a parted bf16 greedy stream is also re-driven alone on ``plain_srv``.
+    Returns {compared, parted, margins}."""
+    out = {"compared": 0, "parted": 0, "margins": [], "tol": tol}
+    for req, g, p in zip(reqs, got, plain):
+        label = "%s (prompt %d, temperature %g)" % (what, len(req[0]),
+                                                    req[1])
+        n, margin = compare_to_plain(g, p, rows[_req_key(*req)], req,
+                                     label, tol)
+        out["compared"] += n
+        if margin is not None:
+            out["parted"] += 1
+            out["margins"].append(margin)
+            if plain_srv is not None and not req[1]:
+                out.setdefault("redriven_margins", []).append(
+                    redrive_parted(plain_srv, req, p, g, n, label))
+    return out
+
+
+def timed_row0(spec, plain):
+    """The verify step's first row against the plain step, slot by slot of
+    the same prompt, each from its server's saved state (the same prompts
+    prefilled): max and mean |logit| difference, and whether the argmax is
+    the same everywhere; the states are restored."""
+    import torch
+
+    out = {}
+    for srv, run in ((spec, lambda: spec._run_verify()[:, 0]),
+                     (plain, lambda: plain._run_step())):
+        bufs = step_buffers(srv)
+        saved = [t.clone() for t in bufs]
+        logits = run().float().clone()
+        out[srv is spec] = {srv.cache.owner(s).prompt.tobytes(): logits[s]
+                            for s in srv.cache.active_slots}
+        for dst, src in zip(bufs, saved):
+            dst.copy_(src)
+    a = torch.stack([out[True][k] for k in sorted(out[False])])
+    b = torch.stack([out[False][k] for k in sorted(out[False])])
+    diff = (a - b).abs()
+    return {"max_abs_diff": float(diff.max()),
+            "mean_abs_diff": float(diff.mean()),
+            "max_abs_logit": float(b.abs().max()),
+            "argmax_equal": bool(torch.equal(a.argmax(-1), b.argmax(-1)))}
+
+
+def timed_rounds(srv, run, n=GRAPH_TIMED):
+    """Host wall (ms) of ``run`` with its readback, from one saved state,
+    median of n."""
+    import torch
+
+    bufs = step_buffers(srv) + [srv._emit, srv._drafts]
+    saved = [t.clone() for t in bufs]
+    walls = []
+    for _ in range(n):
+        for dst, src in zip(bufs, saved):
+            dst.copy_(src)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    for dst, src in zip(bufs, saved):
+        dst.copy_(src)
+    return float(np.median(walls))
+
+
+def phase_speculative(dev):
+    """Speculative decode of GPT-2 small (see the module docstring): the
+    burst of SPEC_REPEATS and six random prompts through a plain server
+    (its logits recorded), then with NGramDraft, a ModelDraft of the target
+    itself (greedy requests), a 2-layer ModelDraft, and int8 with
+    NGramDraft against a plain int8 server; each speculative run is a main
+    path with every counter at 0 just before it. Returns (the result, the
+    bf16 and int8 plain servers with their models)."""
+    import torch
+    from mxnet_tpu_torch.base import next_pow2
+    from mxnet_tpu_torch.serve import ModelDraft, NGramDraft
+
+    t0 = time.perf_counter()
+    vocab = GPT_CONFIG["vocab_size"]
+    reqs = _spec_requests(vocab)
+    greedy = [r for r in reqs if not r[1]]
+    buckets = warm_prompts([reqs])
+    max_tokens = GPT_CONFIG["max_length"] - SPEC_K + 1
+    out = {"spec_k": SPEC_K, "requests": len(reqs)}
+    plains = {}
+
+    def spec_run(srv, burst, what):
+        srv.warmup(prompt_buckets=warm_prompts([burst]),
+                   max_tokens=max_tokens)
+        torch.cuda.synchronize()
+        m0 = srv.stats()
+        draft_steps = getattr(srv._draft, "_steps", None)
+        d0 = (draft_steps.captures, draft_steps.replays) if draft_steps \
+            else (0, 0)
+        # this path's run, every counter at 0 just before it
+        reset_counters()
+        streams, timing = serve_bursts(srv, [burst], GPT_NEW_TOKENS, what)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        st = srv.stats()
+        rounds = st["spec_rounds"] - m0["spec_rounds"]
+        r = {"launches": launches, "rounds": rounds,
+             "prefills": st["prefills"] - m0["prefills"],
+             "tokens_per_s": timing[0]["tokens_per_s"],
+             "wall_s": timing[0]["wall_s"], "tokens": timing[0]["tokens"],
+             "drafted": st["drafted_tokens"] - m0["drafted_tokens"],
+             "accepted": st["accepted_tokens"] - m0["accepted_tokens"],
+             "captures": st["step_captures"] - m0["step_captures"],
+             "replays": st["step_replays"] - m0["step_replays"],
+             "itl_p50_ms": st["itl_p50_ms"]}
+        r["accept_rate"] = r["accepted"] / max(r["drafted"], 1)
+        if draft_steps:
+            r["draft_captures"] = draft_steps.captures - d0[0]
+            r["draft_replays"] = draft_steps.replays - d0[1]
+        check(st["errors"] == 0 and st["timeouts"] == 0,
+              "%s: serving errors %s" % (what, st))
+        check(r["captures"] == 0 and r["replays"] == rounds > 0,
+              "%s: %d captures and %d verify replays over %d rounds"
+              % (what, r["captures"], r["replays"], rounds))
+        if draft_steps:
+            check(r["draft_captures"] == 0 and r["draft_replays"] == rounds,
+                  "%s: the draft's program: %d captures, %d replays over %d "
+                  "rounds" % (what, r["draft_captures"], r["draft_replays"],
+                              rounds))
+        for s in streams[0]:
+            check(len(s) == GPT_NEW_TOKENS
+                  and all(0 <= t < vocab for t in s),
+                  "%s: a stream of %d tokens or a token out of range"
+                  % (what, len(s)))
+        print("%s: %d rounds, %d prefills, accept rate %.4f (%d of %d "
+              "drafts), %.1f tokens/s; verify programs %d captures, %d "
+              "replays; kernel launches %s" % (
+                  what, rounds, r["prefills"], r["accept_rate"],
+                  r["accepted"], r["drafted"], r["tokens_per_s"],
+                  r["captures"], r["replays"], launches), flush=True)
+        return streams[0], r
+
+    for mode in (None, "int8"):
+        name = mode or "bf16"
+        model = _gpt_model(dev, SEED)
+        plain = _gen_server(model, dev, quantize=mode)
+        plain.warmup(prompt_buckets=buckets,
+                     max_tokens=GPT_CONFIG["max_length"])
+        with record_logits(plain) as rec:
+            base, base_t = serve_bursts(plain, [reqs], GPT_NEW_TOKENS,
+                                        "gpt %s plain (logits recorded)"
+                                        % name)
+        plains[name] = (plain, model)
+        res = {"plain_tokens_per_s": base_t[0]["tokens_per_s"]}
+        srv = _gen_server(model, dev, quantize=mode, draft=NGramDraft(),
+                          spec_k=SPEC_K)
+        got, r = spec_run(srv, reqs, "gpt %s NGramDraft" % name)
+        flash = "flash_attention_fwd_f32" if mode else "flash_attention_fwd"
+        at_256 = sum(next_pow2(len(p)) >= 256 for p, _, _ in reqs)
+        want = {"layernorm": STEP_LN * (r["prefills"] + r["rounds"]),
+                flash: GPT_CONFIG["num_layers"] * at_256}
+        for k, n in r["launches"].items():
+            check(n == want.get(k, 0), "%s NGramDraft: %s launches %d, "
+                  "expected %d" % (name, k, n, want.get(k, 0)))
+        r["vs_plain"] = compare_streams(
+            reqs, got, base[0], rec.rows, "gpt %s NGramDraft" % name,
+            plain_srv=None if mode else plain,
+            tol=INT8_TIE_TOL if mode else GREEDY_TIE_TOL)
+        print("gpt %s NGramDraft vs the plain server: %s" % (
+            name, r["vs_plain"]), flush=True)
+        # one verify step and one plain step from 8 live slots, the same
+        # prompts on both: the verify's first row against the plain step,
+        # launches, and host walls with the readback
+        for s in (srv, plain):
+            reopen(s)
+            fill_slots(s, [p for p, _, _ in reqs[:GPT_SLOTS]],
+                       [0.0] * GPT_SLOTS, GPT_NEW_TOKENS)
+        srv._propose(srv._active_mask())
+        # the same token at the same position, computed among 8 x SPEC_K
+        # rows (int8: under another activation scale, into pages whose
+        # scale the drafts' rows may raise)
+        r["verify_row0_vs_plain_step"] = timed_row0(srv, plain)
+        saved = save_state(srv)
+        reset_counters()
+        srv._run_verify()
+        torch.cuda.synchronize()
+        r["launches_per_verify_step"] = read_counters()
+        restore_state(srv, saved)
+        check(r["launches_per_verify_step"]["layernorm"] == STEP_LN
+              and not r["launches_per_verify_step"][flash],
+              "%s: a verify step launched %s, expected %d LayerNorm and no "
+              "flash" % (name, r["launches_per_verify_step"], STEP_LN))
+        r["verify_host_wall_ms"] = timed_rounds(
+            srv, lambda: (srv._run_verify(), srv._emit.cpu()))
+        r["plain_step_host_wall_ms"] = timed_rounds(
+            plain, lambda: (plain._run_step(), plain._tok.cpu()))
+        print("gpt %s: the verify step's first row against the plain step "
+              "on the same 8 prompts: %s" % (
+                  name, r["verify_row0_vs_plain_step"]), flush=True)
+        srv.stop()
+        plain.stop()
+        print("gpt %s: verify step (8 slots x %d rows) host wall %.3f ms, "
+              "plain step %.3f ms (medians of %d, readback included); "
+              "tokens/s %.1f with NGramDraft, %.1f plain" % (
+                  name, SPEC_K, r["verify_host_wall_ms"],
+                  r["plain_step_host_wall_ms"], GRAPH_TIMED,
+                  r["tokens_per_s"], res["plain_tokens_per_s"]), flush=True)
+        res["ngram"] = r
+        del srv
+        if mode is None:
+            # a ModelDraft of the target itself, greedy requests: every
+            # draft is the target's own greedy token
+            srv = _gen_server(model, dev, draft=model, spec_k=SPEC_K)
+            got, r = spec_run(srv, greedy, "gpt bf16 ModelDraft(target)")
+            r["vs_plain"] = compare_streams(
+                greedy, got, [s for s, q in zip(base[0], reqs) if not q[1]],
+                rec.rows, "gpt bf16 ModelDraft(target)", plain_srv=plain)
+            check(r["accept_rate"] >= SELF_DRAFT_ACCEPT_FLOOR,
+                  "the target as its own draft accepts %.4f of its greedy "
+                  "drafts (floor %g)" % (r["accept_rate"],
+                                         SELF_DRAFT_ACCEPT_FLOOR))
+            res["self_draft"] = r
+            srv.stop()
+            del srv
+            # a 2-layer draft at the same widths
+            draft = ModelDraft(_draft_model(dev, SEED + 20))
+            srv = _gen_server(model, dev, draft=draft, spec_k=SPEC_K)
+            got, r = spec_run(srv, reqs, "gpt bf16 ModelDraft(2 layers)")
+            fills = len(reqs)
+            fill_256 = sum(min(next_pow2(len(p)), srv.cache.capacity) >= 256
+                           for p, _, _ in reqs)
+            want = {"layernorm": STEP_LN * (r["prefills"] + r["rounds"])
+                    + DRAFT_FILL_LN * fills + DRAFT_ROUND_LN * r["rounds"],
+                    "flash_attention_fwd": GPT_CONFIG["num_layers"] * at_256
+                    + SPEC_DRAFT_LAYERS * fill_256}
+            for k, n in r["launches"].items():
+                check(n == want.get(k, 0), "2-layer draft: %s launches %d, "
+                      "expected %d" % (k, n, want.get(k, 0)))
+            r["vs_plain"] = compare_streams(
+                reqs, got, base[0], rec.rows, "gpt bf16 ModelDraft(2 layers)",
+                plain_srv=plain)
+            # one draft round and one fill at bucket 512, alone
+            reopen(srv)
+            fill_slots(srv, [p for p, _, _ in reqs[:GPT_SLOTS]],
+                       [0.0] * GPT_SLOTS, GPT_NEW_TOKENS)
+            reset_counters()
+            srv._propose(srv._active_mask())
+            torch.cuda.synchronize()
+            r["launches_per_draft_round"] = read_counters()
+            reset_counters()
+            draft.join(0, reqs[1][0])   # 450 tokens: bucket 512
+            torch.cuda.synchronize()
+            r["launches_per_draft_fill_512"] = read_counters()
+            check(r["launches_per_draft_round"]["layernorm"]
+                  == DRAFT_ROUND_LN
+                  and not r["launches_per_draft_round"][
+                      "flash_attention_fwd"],
+                  "a draft round launched %s, expected %d LayerNorm"
+                  % (r["launches_per_draft_round"], DRAFT_ROUND_LN))
+            check(r["launches_per_draft_fill_512"]["flash_attention_fwd"]
+                  == SPEC_DRAFT_LAYERS
+                  and r["launches_per_draft_fill_512"]["layernorm"]
+                  == DRAFT_FILL_LN,
+                  "a draft fill at bucket 512 launched %s"
+                  % r["launches_per_draft_fill_512"])
+            r["draft_round_host_wall_ms"] = timed_rounds(
+                srv, lambda: (srv._propose(srv._active_mask()),
+                              srv._drafts.cpu()))
+            srv.stop()
+            print("gpt bf16 ModelDraft(2 layers): launches a round %s, a "
+                  "fill at bucket 512 %s; round host wall %.3f ms; vs the "
+                  "plain server %s" % (
+                      r["launches_per_draft_round"],
+                      r["launches_per_draft_fill_512"],
+                      r["draft_round_host_wall_ms"], r["vs_plain"]),
+                  flush=True)
+            res["draft_2_layers"] = r
+            del srv, draft
+        out[name] = res
+        torch.cuda.empty_cache()
+    out["set_up_and_run_s"] = time.perf_counter() - t0
+    print("phase_speculative: %.1f s" % out["set_up_and_run_s"], flush=True)
+    return out, plains
+
+
+def print_spec_summary(spec, chunked, card):
+    """The speculative and chunked readings on one line with the card's
+    name and power limit."""
+    bf, q = spec["bf16"], spec["int8"]
+    print("speculative decode and chunked prefill on %s: accept rate "
+          "NGramDraft bf16 %.4f int8 %.4f, the target as its own draft %.4f, "
+          "2-layer draft %.4f; verify / plain step host wall bf16 %.3f / "
+          "%.3f ms, int8 %.3f / %.3f ms; tokens/s with / without NGramDraft "
+          "bf16 %.1f / %.1f, int8 %.1f / %.1f; the longest tick while 900 "
+          "tokens join, chunked / unchunked: bf16 %.3f / %.3f ms, int8 %.3f "
+          "/ %.3f ms; itl_prefill p50 bf16 %s ms, int8 %s ms" % (
+              card, bf["ngram"]["accept_rate"], q["ngram"]["accept_rate"],
+              bf["self_draft"]["accept_rate"],
+              bf["draft_2_layers"]["accept_rate"],
+              bf["ngram"]["verify_host_wall_ms"],
+              bf["ngram"]["plain_step_host_wall_ms"],
+              q["ngram"]["verify_host_wall_ms"],
+              q["ngram"]["plain_step_host_wall_ms"],
+              bf["ngram"]["tokens_per_s"], bf["plain_tokens_per_s"],
+              q["ngram"]["tokens_per_s"], q["plain_tokens_per_s"],
+              chunked["bf16"]["stall_ms_chunked"],
+              chunked["bf16"]["stall_ms_unchunked"],
+              chunked["int8"]["stall_ms_chunked"],
+              chunked["int8"]["stall_ms_unchunked"],
+              chunked["bf16"]["itl_prefill_p50_ms"],
+              chunked["int8"]["itl_prefill_p50_ms"]), flush=True)
+
+
+def tick_drive(srv, inflight, joiner, new, seeds=(0, 1, 2, 3)):
+    """Tick by tick from this thread: the in-flight prompts submitted and
+    admitted, two ticks, then the joiner submitted; then ticks, each timed
+    (host wall, its readback included), until every stream finishes.
+    Returns (the streams' tokens, the joiner's last, and per tick: wall,
+    chunks run, tokens gained by each in-flight stream, joiner tokens)."""
+    import torch
+
+    streams = [srv.submit(p, max_new_tokens=new, seed=s)
+               for p, s in zip(inflight, seeds)]
+    deadline = time.perf_counter() + 30.0
+    while len(srv._join_q) < len(inflight) \
+            and time.perf_counter() < deadline:
+        time.sleep(0.001)
+    srv.step()
+    srv.step()
+    late = srv.submit(joiner, max_new_tokens=new, seed=9)
+    while not srv._join_q and time.perf_counter() < deadline + 30.0:
+        time.sleep(0.001)
+    ticks = []
+    for _ in range(4 * new):
+        before = [len(s.tokens) for s in streams]
+        c0 = srv.metrics.prefill_chunks
+        t0 = time.perf_counter()
+        srv.step()
+        torch.cuda.synchronize()
+        ticks.append({"wall_ms": (time.perf_counter() - t0) * 1e3,
+                      "chunks": srv.metrics.prefill_chunks - c0,
+                      "gains": [len(s.tokens) - b
+                                for s, b in zip(streams, before)],
+                      "joiner_tokens": len(late.tokens)})
+        if late.done() and all(s.done() for s in streams):
+            break
+    streams.append(late)
+    check(all(s.done() for s in streams), "tick drive: streams left")
+    return [s.result(1) for s in streams], ticks
+
+
+def phase_chunked_prefill(dev, plains):
+    """Chunked prefill (prefill_chunk=256): four streams decoding, then a
+    900-token prompt joins; the same ticks on the plain server of
+    phase_speculative (its logits recorded), bf16 and int8. Each chunked
+    run is a main path with every counter at 0 just before it."""
+    import torch
+
+    rng = np.random.RandomState(SEED + 40)
+    vocab = GPT_CONFIG["vocab_size"]
+    inflight = [rng.randint(0, vocab, n).astype(np.int32)
+                for n in CHUNK_INFLIGHT]
+    joiner = rng.randint(0, vocab, CHUNK_JOINER).astype(np.int32)
+    reqs = [(p, 0.0, s) for p, s in zip(inflight, range(4))] + [
+        (joiner, 0.0, 9)]
+    n_chunks = -(-CHUNK_JOINER // CHUNK)
+    out = {"prefill_chunk": CHUNK, "joiner": CHUNK_JOINER,
+           "inflight": list(CHUNK_INFLIGHT)}
+    for name in ("bf16", "int8"):
+        plain, model = plains[name]
+        mode = None if name == "bf16" else "int8"
+        flash = "flash_attention_fwd_f32" if mode else "flash_attention_fwd"
+        srv = _gen_server(model, dev, quantize=mode, prefill_chunk=CHUNK)
+        srv.warmup(prompt_buckets=warm_prompts([[(p, 0, 0)
+                                                 for p in inflight]]),
+                   max_tokens=GPT_CONFIG["max_length"])
+        torch.cuda.synchronize()
+        m0 = srv.stats()
+        # this path's run, every counter at 0 just before it
+        reset_counters()
+        got, ticks = tick_drive(srv, inflight, joiner, GPT_NEW_TOKENS)
+        launches = read_counters()
+        st = srv.stats()
+        chunks = st["prefill_chunks"] - m0["prefill_chunks"]
+        steps = st["decode_steps"] - m0["decode_steps"]
+        prefills = st["prefills"] - m0["prefills"]
+        check(chunks == n_chunks, "%s: %d chunks for %d tokens, expected %d"
+              % (name, chunks, CHUNK_JOINER, n_chunks))
+        check(st["step_captures"] == m0["step_captures"],
+              "%s: the chunked run captured a program" % name)
+        # prefills: the four whole (short) prompts and the chunked one
+        want = {"layernorm": STEP_LN * (prefills - 1 + chunks + steps)}
+        for k, n in launches.items():
+            check(n == want.get(k, 0), "%s chunked: %s launches %d, "
+                  "expected %d" % (name, k, n, want.get(k, 0)))
+        chunk_ticks = [t for t in ticks if t["chunks"]]
+        for i in range(len(inflight)):
+            gained = sum(t["gains"][i] > 0 for t in chunk_ticks)
+            check(gained >= 3, "%s: in-flight stream %d gained a token on "
+                  "%d of the %d chunk ticks" % (name, i, gained,
+                                                len(chunk_ticks)))
+        reopen(plain)
+        with record_logits(plain) as rec:
+            ref, ref_ticks = tick_drive(plain, inflight, joiner,
+                                        GPT_NEW_TOKENS)
+        cmp = compare_streams(reqs, got, ref, rec.rows,
+                              "gpt %s chunked" % name,
+                              plain_srv=plain if mode is None else None,
+                              tol=INT8_TIE_TOL if mode else GREEDY_TIE_TOL)
+
+        def joining(ts):
+            # the ticks from the joiner's submission to its first token
+            end = next(i for i, t in enumerate(ts) if t["joiner_tokens"])
+            return ts[:end + 1]
+
+        r = {"chunks": chunks, "launches": launches, "vs_unchunked": cmp,
+             "chunk_tick_walls_ms": [t["wall_ms"] for t in chunk_ticks],
+             "gains_on_chunk_ticks": [t["gains"] for t in chunk_ticks],
+             "stall_ms_chunked": max(t["wall_ms"] for t in joining(ticks)),
+             "stall_ms_unchunked": max(t["wall_ms"]
+                                       for t in joining(ref_ticks)),
+             "tick_ms_median_after_join": float(np.median(
+                 [t["wall_ms"] for t in ticks[len(joining(ticks)):][:20]])),
+             "itl_prefill_p50_ms": st["itl_prefill_p50_ms"],
+             "itl_prefill_p99_ms": st["itl_prefill_p99_ms"],
+             "itl_p50_ms": st["itl_p50_ms"]}
+        print("gpt %s chunked prefill (%d tokens joining 4 streams, chunks "
+              "of %d): %d chunks; chunk ticks %s ms; in-flight tokens "
+              "gained on them %s; longest tick while it joins: chunked "
+              "%.3f ms, unchunked %.3f ms; itl_prefill p50 %s p99 %s ms, "
+              "itl p50 %s ms; vs the unchunked server %s; launches %s"
+              % (name, CHUNK_JOINER, CHUNK, chunks,
+                 [round(w, 3) for w in r["chunk_tick_walls_ms"]],
+                 r["gains_on_chunk_ticks"], r["stall_ms_chunked"],
+                 r["stall_ms_unchunked"], r["itl_prefill_p50_ms"],
+                 r["itl_prefill_p99_ms"], r["itl_p50_ms"], cmp, launches),
+              flush=True)
+        out[name] = r
+        srv.stop()
+        plain.stop()
+        del srv
+    return out
+
+
+def program_against_eager(what, steps, run, buffers, ln_per_run,
+                          n=GRAPH_STEPS):
+    """A step through its programs against the same step run eagerly:
+    from one saved state of ``buffers``, n runs through the programs (the
+    first may capture), n again (the steady state: no capture, one replay
+    a run) and n eager runs; ``run(eager)`` returns the tensors to compare
+    (copies, the logits first), which must be bitwise equal, with
+    ``ln_per_run`` LayerNorm launches a run both ways. Returns (the
+    reading, the steady runs); the state is restored."""
+    import torch
+
+    saved = [t.clone() for t in buffers]
+
+    def restore():
+        for dst, src in zip(buffers, saved):
+            dst.copy_(src)
+
+    def runs(eager):
+        got = [run(eager) for _ in range(n)]
+        torch.cuda.synchronize()
+        return got
+
+    def same(a, b):
+        return all(torch.equal(x, y) for ra, rb in zip(a, b)
+                   for x, y in zip(ra, rb))
+
+    c0 = steps.captures
+    first = runs(False)
+    first_captures = steps.captures - c0
+    restore()
+    c1, r1 = steps.captures, steps.replays
+    reset_counters()
+    graph = runs(False)
+    g_launch = read_counters()
+    captures, replays = steps.captures - c1, steps.replays - r1
+    restore()
+    reset_counters()
+    eager = runs(True)
+    e_launch = read_counters()
+    restore()
+    reading = {"runs": n, "first_run_captures": first_captures,
+               "steady_captures": captures, "steady_replays": replays,
+               "graph_equals_eager": same(graph, eager),
+               "capturing_run_equals_steady": same(first, graph),
+               "max_abs_logit_diff": max(float((x[0] - y[0]).abs().max())
+                                         for x, y in zip(graph, eager)),
+               "launches_graph": g_launch, "launches_eager": e_launch}
+    print("%s: graph vs eager over %d runs: bitwise equal %s (capturing run "
+          "%s), max |logit diff| %.3g; captures %d then %d, replays %d; "
+          "LayerNorm launches graph %d, eager %d" % (
+              what, n, reading["graph_equals_eager"],
+              reading["capturing_run_equals_steady"],
+              reading["max_abs_logit_diff"], first_captures, captures,
+              replays, g_launch["layernorm"], e_launch["layernorm"]),
+          flush=True)
+    check(reading["graph_equals_eager"], "%s: the captured runs differ from "
+          "the eager ones" % what)
+    check(reading["capturing_run_equals_steady"], "%s: the run that "
+          "captured differs from the steady one" % what)
+    check(captures == 0 and replays == n, "%s: %d captures and %d replays "
+          "over %d steady runs" % (what, captures, replays, n))
+    check(g_launch["layernorm"] == ln_per_run * n and g_launch == e_launch,
+          "%s: launches under replay %s, eager %s, expected %d LayerNorm"
+          % (what, g_launch, e_launch, ln_per_run * n))
+    return reading, graph
+
+
+def spec_programs_against_eager(dev, model, mode, prompts):
+    """The verify step (greedy and sampled), the 2-layer draft's round and
+    a prefill chunk (greedy and sampled) through their CUDA graphs against
+    the same runs eagerly, on a server with a ModelDraft and
+    prefill_chunk=CHUNK: 7 slots filled, the 8th taking the chunks."""
+    import torch
+    from mxnet_tpu_torch.serve import ModelDraft
+
+    name = "gpt %s" % (mode or "bf16")
+    draft = ModelDraft(_draft_model(dev, SEED + 21))
+    srv = _gen_server(model, dev, quantize=mode, draft=draft, spec_k=SPEC_K,
+                      prefill_chunk=CHUNK)
+    fill_slots(srv, prompts[:GPT_SLOTS - 1], [0.0] * (GPT_SLOTS - 1),
+               GPT_NEW_TOKENS)
+    srv._propose(srv._active_mask())
+    c = srv.cache
+    out = {}
+
+    def verify(eager):
+        logits = srv._run_verify(eager=eager).float().clone()
+        return [logits, srv._emit.clone(), srv._tok.clone()]
+
+    target_bufs = step_buffers(srv) + [srv._emit, srv._drafts]
+    out["verify_greedy"] = program_against_eager(
+        name + " verify greedy", srv._steps, verify, target_bufs, STEP_LN)[0]
+    srv._temps[:] = [0.8 if i % 2 else 0.0 for i in range(GPT_SLOTS)]
+    srv._ctl_dirty = True
+    out["verify_sampled"] = program_against_eager(
+        name + " verify sampled", srv._steps, verify, target_bufs,
+        STEP_LN)[0]
+
+    def draft_round(eager):
+        logits = draft.propose(None, SPEC_K, eager=eager).float().clone()
+        return [logits, srv._drafts.clone()]
+
+    out["draft_round"] = program_against_eager(
+        name + " draft round (2 layers)", draft._steps, draft_round,
+        draft.cache.k + draft.cache.v + [srv._drafts], DRAFT_ROUND_LN)[0]
+
+    slot = c.acquire("chunk probe")
+    prompt = np.random.RandomState(SEED + 23).randint(
+        0, GPT_CONFIG["vocab_size"], 700)
+    srv._chunk_tokens.copy_(torch.from_numpy(
+        prompt[None, CHUNK:2 * CHUNK].astype(np.int64)))
+    srv._chunk_ctl.copy_(torch.tensor([slot, CHUNK, prompt.size, 5]))
+
+    def chunk(sampling):
+        def run(eager):
+            logits = srv._run_chunk(sampling, eager=eager).float().clone()
+            pages = c.k + c.v + (c.k_scale + c.v_scale if mode else [])
+            return [logits, srv._tok.clone(), c.valid.clone()] + [
+                t[slot].clone() for t in pages]
+        return run
+
+    for sampling in (False, True):
+        srv._chunk_temp.fill_(0.8 if sampling else 0.0)
+        out["chunk_%s" % ("sampled" if sampling else "greedy")] = \
+            program_against_eager(
+                "%s chunk %s (tokens %d-%d of %d)" % (
+                    name, "sampled" if sampling else "greedy", CHUNK,
+                    2 * CHUNK, prompt.size), srv._steps, chunk(sampling),
+                step_buffers(srv), STEP_LN, n=3)[0]
+    c.release(slot)
+    out["keys"] = [list(map(str, k)) for k in srv._steps.keys()]
+    srv.stop()
+    del srv, draft
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_speculative_breakdown(dev, n_prof=4):
+    """Where a speculative round and a chunk tick spend their time, under
+    torch.profiler, 8 slots live: a scheduler tick with NGramDraft (the
+    host's proposals, the verify step, the readback and delivery), a
+    2-layer ModelDraft round (its program and the drafts' readback), and a
+    chunk tick of a chunked server (a chunk of 256 into the 8th slot, then
+    the decode step of the 7 others, its readback); the host wall of each
+    before the profiler."""
+    import torch
+    from mxnet_tpu_torch.serve import ModelDraft, NGramDraft
+
+    model = _gpt_model(dev, SEED)
+    prompts = [p for p, _, _ in _spec_requests(GPT_CONFIG["vocab_size"])]
+    max_tokens = GPT_CONFIG["max_length"] - SPEC_K + 1
+    out = {}
+
+    def measure(what, srv, fn):
+        walls = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        r = _profile(fn, n_prof)
+        r["host_wall_ms_median"] = float(np.median(walls))
+        print("%s breakdown (torch.profiler, %d calls): kernel ms by class "
+              "%s; %.1f kernels a call; %.3f ms busy in %.3f ms of wall: "
+              "device idle %.1f%%; host wall before the profiler %.3f ms"
+              % (what, n_prof, {k: round(v, 4) for k, v in
+                                r["kernel_ms"].items()},
+                 r["kernels_per_call"], r["busy_ms"], r["profiled_wall_ms"],
+                 100 * r["device_idle_share"], r["host_wall_ms_median"]),
+              flush=True)
+        for ms, n, kname in r["top"][:8]:
+            print("  %8.4f ms  x%-4d %s" % (ms, n, kname))
+        check(r["busy_ms"] > 0, "the profiler saw no kernel time")
+        return r
+
+    srv = _gen_server(model, dev, draft=NGramDraft(), spec_k=SPEC_K)
+    srv.warmup(max_tokens=max_tokens)
+    fill_slots(srv, prompts[:GPT_SLOTS], [0.0] * GPT_SLOTS, GPT_NEW_TOKENS)
+    out["ngram_round"] = measure("gpt bf16 NGramDraft round (a tick)", srv,
+                                 srv.step)
+    out["ngram_round"]["accept_rate"] = srv.stats()["accept_rate"]
+    srv.stop()
+    draft = ModelDraft(_draft_model(dev, SEED + 20))
+    srv = _gen_server(model, dev, draft=draft, spec_k=SPEC_K)
+    srv.warmup(max_tokens=max_tokens)
+    fill_slots(srv, prompts[:GPT_SLOTS], [0.0] * GPT_SLOTS, GPT_NEW_TOKENS)
+    out["draft_round"] = measure(
+        "gpt bf16 ModelDraft(2 layers) round", srv,
+        lambda: (srv._propose(srv._active_mask()), srv._drafts.cpu()))
+    out["model_draft_tick"] = measure(
+        "gpt bf16 ModelDraft(2 layers) tick (round, verify, delivery)", srv,
+        srv.step)
+    srv.stop()
+    del srv, draft
+    srv = _gen_server(model, dev, prefill_chunk=CHUNK)
+    srv.warmup(max_tokens=GPT_CONFIG["max_length"])
+    fill_slots(srv, prompts[:GPT_SLOTS - 1], [0.0] * (GPT_SLOTS - 1),
+               GPT_NEW_TOKENS)
+    slot = srv.cache.acquire("chunk probe")
+    joiner = np.random.RandomState(SEED + 24).randint(
+        0, GPT_CONFIG["vocab_size"], CHUNK_JOINER)
+    srv._chunk_tokens.copy_(torch.from_numpy(
+        joiner[None, CHUNK:2 * CHUNK].astype(np.int64)))
+    srv._chunk_ctl.copy_(torch.tensor([slot, CHUNK, joiner.size, 0]))
+    srv._chunk_temp.fill_(0.0)
+    srv._ctl_dirty = True
+
+    def chunk_tick():
+        srv._run_chunk(False)
+        srv._run_step()
+        srv._tok.cpu()
+
+    out["chunk_tick"] = measure("gpt bf16 chunk tick (a chunk of %d, then "
+                                "the decode step of 7 slots)" % CHUNK, srv,
+                                chunk_tick)
+    srv.cache.release(slot)
+    srv.stop()
+    del srv
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3512,6 +4334,10 @@ def main():
         gen_srv.stop()
         del gen_srv
         graphs = phase_graph(dev)
+        spec, plains = phase_speculative(dev)
+        chunked = phase_chunked_prefill(dev, plains)
+        del plains
+        print_spec_summary(spec, chunked, card)
         lowbit = phase_lowbit(dev)
         quant_model, quant = phase_generate_quant(dev)
         quant["products"] = lowbit
@@ -3533,6 +4359,7 @@ def main():
                                                       quantize="int8")
         quant["bert_int8_serving"]["breakdown_bucket_8"] = \
             phase_serve_quant_breakdown(*bert_int8)
+        spec["breakdown"] = phase_speculative_breakdown(dev)
         del bert_int8
         for r in records:
             if r["name"] == "flash_attention_bwd":
@@ -3550,6 +4377,7 @@ def main():
                       "breakdown": breakdown, "train_bert512": train,
                       "train_bert128": bert128, "generate": gen,
                       "decode_step_graphs": graphs, "quantized": quant,
+                      "speculative": spec, "chunked_prefill": chunked,
                       "attention_dense_vs_flash": crossover,
                       "attention_fwd_bwd_dense_vs_flash": train_crossover,
                       "card": card}))

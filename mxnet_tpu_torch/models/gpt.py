@@ -323,6 +323,54 @@ class GPTModel(HybridBlock):
                        F.transpose(w))
         return logits, k_caches, k_scales, v_caches, v_scales
 
+    def _window_embed(self, F, tokens, valid_len):
+        """(B, K) tokens embedded at positions ``valid_len + j``, row j."""
+        K = tokens.shape[1]
+        x = self.word_embed(tokens)                        # (B, K, C)
+        pw = param_value(self.pos_embed.weight)
+        pos = (F.reshape(valid_len, shape=(-1, 1))
+               + F.reshape(F.arange(0, K, dtype="int32", ctx=tokens.device),
+                           shape=(1, -1)))
+        return x + F.take(pw, pos)
+
+    def _window_logits(self, F, x):
+        B, K, _ = x.shape
+        x = self.ln_f(x)
+        w = param_value(self.word_embed.weight)
+        logits = F.dot(F.reshape(x, shape=(B * K, self._units)),
+                       F.transpose(w))
+        return F.reshape(logits, shape=(B, K, -1))
+
+    def decode_step_speculative(self, F, tokens, k_caches, v_caches,
+                                valid_len):
+        """Speculative verify step: tokens (B, K) int, each slot's current
+        input token followed by K - 1 drafted tokens, at positions
+        ``valid_len .. valid_len + K - 1`` of that slot's page. Row j's K/V
+        are written in place at ``valid_len + j`` and it attends to
+        ``pos <= valid_len + j`` (the live prefix and the drafts before
+        it). Returns (logits (B, K, V), k_caches, v_caches); logits[:, j]
+        score the token at position ``valid_len + j + 1``. K = 1 is
+        :meth:`decode_step_fixed` bit for bit. Rejected rows need no
+        rollback: the caller advances ``valid_len`` past the accepted ones
+        only, and the next window overwrites the rest."""
+        x = self._window_embed(F, tokens, valid_len)
+        for blk, kc, vc in zip(self.blocks, k_caches, v_caches):
+            x = blk.step_cached(F, x, kc, vc, valid_len)[0]
+        return self._window_logits(F, x), k_caches, v_caches
+
+    def decode_step_speculative_quant(self, F, tokens, k_caches, k_scales,
+                                      v_caches, v_scales, valid_len):
+        """:meth:`decode_step_speculative` over int8 KV pages (the scales of
+        :meth:`decode_step_fixed_quant`), pages and scales written in
+        place. Returns (logits (B, K, V), k_caches, k_scales, v_caches,
+        v_scales)."""
+        x = self._window_embed(F, tokens, valid_len)
+        for blk, kc, ks, vc, vs in zip(self.blocks, k_caches, k_scales,
+                                       v_caches, v_scales):
+            x = blk.step_cached_quant(F, x, kc, ks, vc, vs, valid_len)[0]
+        return (self._window_logits(F, x), k_caches, k_scales, v_caches,
+                v_scales)
+
     def generate(self, prompt, max_new_tokens=16, use_cache=True,
                  device=None):
         """Greedy decode: prompt (B, T0) int -> (B, T0 + max_new) int64, on

@@ -9,13 +9,24 @@ positions), logits and sampling, all on the device; the host reads back
 one (slots,) token tensor a step.
 
 The JAX package traces each step into one fused XLA program; here each
-step is one CUDA graph, captured at the first step of its key (capacity,
-greedy or sampled) and replayed after (``step_graph.py``).
-Prefill is apart from decode: a joining request's whole prompt runs
-through one forward at its pow2 prompt-length bucket, which writes its
-cache page and gives the first token. An identical prompt hits the
-``PrefixCache`` instead: the stored pages are copied into the slot and the
-forward is skipped.
+step is one CUDA graph, captured at the first step of its key (the kind of
+step, its shape, greedy or sampled) and replayed after
+(``step_graph.py``). Prefill is apart from decode: a joining request's
+whole prompt runs through one forward at its pow2 prompt-length bucket,
+which writes its cache page and gives the first token. An identical prompt
+hits the ``PrefixCache`` instead: the stored pages are copied into the slot
+and the forward is skipped.
+
+Speculative decode (``draft=``): each tick a draft (``NGramDraft`` on the
+host, or ``ModelDraft``, a smaller model, in one program of its own)
+proposes ``spec_k - 1`` tokens a slot into a static drafts buffer, and one
+verify step (``decode_step_speculative``) scores every slot's window of
+the current token and its drafts; each slot emits its accepted drafts and
+the target's sample at the first mismatch, 1 to ``spec_k`` tokens, read
+back with one copy. Chunked prefill (``prefill_chunk=``): a prompt longer
+than the chunk owns its slot at once but fills its page one chunk a tick
+through the same wide step, before that tick's decode step, so the streams
+in flight wait for one chunk at most, never for a whole prompt.
 
 With ``quantize="int8"`` (or ``"e4m3"``/``"e5m2"``) the model's Dense
 layers are quantized in place and the KV cache keeps int8 pages with
@@ -59,6 +70,7 @@ from ..quantization import quantize_model
 from .batcher import DynamicBatcher, ServeError, ServeTimeout
 from .kv_cache import PagedKVCache, PrefixCache
 from .metrics import GenerativeMetrics
+from .speculative import ModelDraft
 from .step_graph import StepPrograms
 
 __all__ = ["sample_tokens", "GenerationStream", "GenerativeServer"]
@@ -67,8 +79,6 @@ _DONE = object()
 _M32 = 0xFFFFFFFF
 # what the slice does not carry: option -> the ROADMAP.md item it waits for
 _NOT_PORTED = {
-    "draft": "A.8 (serve/speculative.py, speculative decode)",
-    "prefill_chunk": "A.8 (chunked prefill)",
     "metrics_port": "A.16 (observability, the /metrics endpoint)",
 }
 
@@ -220,7 +230,25 @@ class GenerativeServer:
         model's Dense layers in place, and the KV cache keeps int8 pages
         with per-page-per-head scales. fp8 modes need
         ``quantization.fp8_supported``.
-    draft, prefill_chunk, metrics_port
+    draft : None, a draft object or a model
+        Speculative decode: ``serve.NGramDraft()`` (host-side pattern
+        matcher), ``serve.ModelDraft(m)`` or a bare model (wrapped in
+        ``ModelDraft``; it must cover the target's ``max_length``). Each
+        tick the draft proposes ``spec_k - 1`` tokens a slot and one verify
+        step scores them all; greedy streams are the plain greedy streams,
+        sampled streams take the same token at each (seed, position) as
+        plain decode. The model needs ``decode_step_speculative``
+        (``decode_step_speculative_quant`` too when quantized).
+    spec_k : int
+        The verify window a slot (tokens scored a verify step) when a
+        ``draft`` is set; 1 is plain decode through the verify step.
+    prefill_chunk : None or int
+        Chunked prefill: a prompt longer than ``next_pow2(max(8, n))``
+        tokens fills its page one chunk of that many positions a tick,
+        before the tick's decode step, and bypasses the prefix cache. At
+        least ``spec_k`` when a draft is set (a verify window of a slot
+        waiting for its chunks must land where the next chunk writes).
+    metrics_port
         Not ported yet: any value but None raises ``ServeError`` naming
         the ROADMAP.md item.
     """
@@ -228,14 +256,11 @@ class GenerativeServer:
     def __init__(self, model, slots=8, top_k=0, eos_id=None,
                  max_wait_ms=1.0, max_queue=64, timeout_ms=30000.0,
                  prefix_cache=True, name=None, device=None,
-                 metrics_port=None, quantize=None, draft=None,
+                 metrics_port=None, quantize=None, draft=None, spec_k=4,
                  prefill_chunk=None):
-        for option, value in (("draft", draft),
-                              ("prefill_chunk", prefill_chunk),
-                              ("metrics_port", metrics_port)):
-            if value is not None:
-                raise ServeError("%s= is not ported yet (ROADMAP.md %s)"
-                                 % (option, _NOT_PORTED[option]))
+        if metrics_port is not None:
+            raise ServeError("metrics_port= is not ported yet (ROADMAP.md "
+                             "%s)" % _NOT_PORTED["metrics_port"])
         self._quantize = quantize or None
         if self._quantize is not None \
                 and not hasattr(model, "decode_step_fixed_quant"):
@@ -243,6 +268,25 @@ class GenerativeServer:
                              "decode_step_fixed_quant (the int8 paged-KV "
                              "decode protocol of models.gpt.GPTModel)"
                              % (quantize, type(model).__name__))
+        if draft is not None and not hasattr(draft, "propose"):
+            draft = ModelDraft(draft)   # a bare model
+        wide = "decode_step_speculative" + (
+            "_quant" if self._quantize is not None else "")
+        for option, value in (("draft", draft),
+                              ("prefill_chunk", prefill_chunk)):
+            if value is not None and not hasattr(model, wide):
+                raise ServeError("%s=: model %s has no %s (the wide-window "
+                                 "step of models.gpt.GPTModel)"
+                                 % (option, type(model).__name__, wide))
+        self.spec_k = max(1, int(spec_k))
+        self._prefill_chunk = None
+        if prefill_chunk is not None:
+            self._prefill_chunk = next_pow2(max(8, int(prefill_chunk)))
+            if draft is not None and self._prefill_chunk < self.spec_k:
+                raise ServeError(
+                    "prefill_chunk=%d < spec_k=%d: a verify window must fit "
+                    "behind the chunk frontier"
+                    % (self._prefill_chunk, self.spec_k))
         self.device = resolve_device(device)
         model.collect_params().reset_device(self.device)
         if self._quantize is not None:
@@ -286,6 +330,30 @@ class GenerativeServer:
         self._sampling = False    # any live slot with a temperature > 0
         self._ctl_dirty = True
         self._steps = StepPrograms(dev)
+        # speculative decode: the drafts a verify step reads (the draft
+        # writes them in place) and its output, each slot's emitted tokens
+        # with their count in the last column (one readback a round); a
+        # window writes K/V through valid + spec_k - 1, a margin the
+        # capacity keeps past the generation budget
+        self._draft = draft
+        self._spec_margin = self.spec_k - 1 if draft is not None else 0
+        self._drafts = torch.zeros((self.slots, self.spec_k - 1),
+                                   dtype=torch.int32, device=dev)
+        self._emit = torch.zeros((self.slots, self.spec_k + 1),
+                                 dtype=torch.int32, device=dev)
+        # chunked prefill: slot -> job, in arrival order; a slot in the
+        # middle of its chunks is owned but masked out of decode. A chunk
+        # step reads its tokens and (slot, pos0, prompt length, seed,
+        # temperature) from these buffers
+        self._chunk_jobs = {}
+        tc = self._prefill_chunk or 1
+        self._chunk_tokens = torch.zeros((1, tc), dtype=torch.int64,
+                                         device=dev)
+        self._chunk_ctl = torch.zeros((4,), dtype=torch.int64, device=dev)
+        self._chunk_temp = torch.zeros((1,), dtype=torch.float32,
+                                       device=dev)
+        if draft is not None:
+            draft.bind(self)
         self._warm = False
         # host bookkeeping per slot
         self._slot_req = [None] * self.slots   # admission handle (deadline)
@@ -410,7 +478,9 @@ class GenerativeServer:
         stream = GenerationStream(prompt, max_new_tokens, temperature, seed,
                                   priority)
         tmo = self.timeout_ms if timeout_ms is None else float(timeout_ms)
-        self.cache.capacity_bucket(stream.prompt.size + stream.max_new_tokens)
+        # an impossible request fails here, not after a queue wait
+        self.cache.capacity_bucket(stream.prompt.size + stream.max_new_tokens
+                                   + self._spec_margin)
         self._batcher.start()
         req = self._batcher.submit(stream, 1, timeout_ms=tmo,
                                    priority=priority)
@@ -444,11 +514,13 @@ class GenerativeServer:
     # ------------------------------------------------------------ scheduler
     def step(self):
         """One scheduler tick: admit pending joins (a prefill or a prefix
-        inject each), then one decode step for the whole in-flight batch,
-        and deliver each live slot's token. Returns the number of slots
-        that advanced (0 = idle)."""
+        inject each, or a chunk job for a long prompt), at most one
+        prefill chunk, then one decode (or verify) step for the whole
+        in-flight batch, and deliver each live slot's tokens. Returns the
+        number of slots that advanced plus the chunks run (0 = idle)."""
         self._admit_pending()
-        return self._decode_once()
+        chunked = self._chunk_once()
+        return self._decode_once() + chunked
 
     def _loop(self):
         while not self._stop_flag:
@@ -574,8 +646,19 @@ class GenerativeServer:
 
     def _join(self, req, stream):
         n = int(stream.prompt.size)
-        self.cache.ensure_capacity(n + stream.max_new_tokens)
+        self.cache.ensure_capacity(n + stream.max_new_tokens
+                                   + self._spec_margin)
+        if self._draft is not None:
+            self._draft.ensure_capacity()
         slot = self.cache.acquire(stream)
+        if self._prefill_chunk is not None and n > self._prefill_chunk:
+            # chunked: the slot is owned now and filled one chunk a tick
+            # (_chunk_once), masked out of decode until its final chunk
+            # samples the first token. Partial pages are never stored, so
+            # the prefix cache is bypassed
+            self._chunk_jobs[slot] = {"req": req, "stream": stream, "pos": 0}
+            self._ctl_dirty = True
+            return
         try:
             hit = self.prefix.get(stream.prompt) \
                 if self.prefix is not None else None
@@ -600,33 +683,49 @@ class GenerativeServer:
         except BaseException:
             self.cache.release(slot)
             raise
+        self._activate(slot, req, stream, first)
+
+    def _activate(self, slot, req, stream, first):
+        """A slot whose prompt is in its page and whose first token is
+        sampled joins decode: the draft fills its own page, the slot's
+        controls are set and the first token is delivered."""
         self._warm = True
         now = time.perf_counter()
         if not req.finish(result=stream):
             # timed out in the instant admission landed: roll back
             self.cache.release(slot)
+            self._ctl_dirty = True
             return
+        if self._draft is not None:
+            self._draft.join(slot, stream.prompt)
         self._slot_req[slot] = req
         self._remaining[slot] = stream.max_new_tokens
         self._seeds[slot] = stream.seed
         self._temps[slot] = stream.temperature
         self._ctl_dirty = True
-        self.metrics.record_first_token((now - req.t_submit) * 1e3, n)
+        self.metrics.record_first_token((now - req.t_submit) * 1e3,
+                                        int(stream.prompt.size))
         self._deliver(slot, first)
 
     # ------------------------------------------------------------- decoding
+    def _active_mask(self):
+        """(slots,) bool list of the slots that decode: owned, and not in
+        the middle of a chunked prefill."""
+        return [live and s not in self._chunk_jobs
+                for s, live in enumerate(self.cache.active_mask())]
+
     def _upload_controls(self):
         """The host's slot controls into the static device buffers, in
         place (outside any step program)."""
-        self._dev_active.copy_(torch.tensor(self.cache.active_mask()))
+        self._dev_active.copy_(torch.tensor(self._active_mask()))
         self._dev_active_i32.copy_(self._dev_active)
         self._dev_seeds.copy_(torch.from_numpy(self._seeds))
         self._dev_temps.copy_(torch.from_numpy(self._temps))
         self._sampling = bool((self._temps > 0).any())
         self._ctl_dirty = False
 
-    def _step_state(self):
-        """The tensors a decode step reads and writes in place."""
+    def _step_state(self, kind="decode"):
+        """The tensors a step of ``kind`` reads and writes in place."""
         c = self.cache
         state = {"tok": self._tok, "valid": c.valid,
                  "active": self._dev_active,
@@ -635,6 +734,12 @@ class GenerativeServer:
                  "k": c.k, "v": c.v}
         if c.quantize:
             state.update(k_scale=c.k_scale, v_scale=c.v_scale)
+        if kind == "verify":
+            state.update(drafts=self._drafts, emit=self._emit)
+        elif kind == "chunk":
+            state.update(chunk_tokens=self._chunk_tokens,
+                         chunk_ctl=self._chunk_ctl,
+                         chunk_temp=self._chunk_temp)
         return state
 
     def _step_body(self, sampling):
@@ -663,36 +768,242 @@ class GenerativeServer:
 
         return body
 
+    def _wide(self, pages, tokens, valid):
+        """The model's wide-window step (``decode_step_speculative``, or
+        its int8 form) over ``pages`` (a dict with ``k``, ``v`` and, when
+        quantized, their scales), written in place: logits (B, K, V)."""
+        if "k_scale" in pages:
+            return self.model.decode_step_speculative_quant(
+                F, tokens, pages["k"], pages["k_scale"], pages["v"],
+                pages["v_scale"], valid)[0]
+        return self.model.decode_step_speculative(F, tokens, pages["k"],
+                                                  pages["v"], valid)[0]
+
+    def _verify_body(self, sampling):
+        """The verify step: each slot's window [current token, drafts]
+        through the wide step at ``valid``; row j sampled at position
+        ``valid + 1 + j`` (where plain decode samples that token); the
+        accepted length ``al`` is the run of samples equal to their
+        drafts, a live slot emits ``al + 1`` tokens (its accepted drafts
+        and the sample after them), advances ``valid`` by as many and
+        takes the sample at row ``al`` as its next input. The emitted
+        tokens and their count go to ``emit`` (slots, spec_k + 1). Returns
+        the logits (slots, spec_k, V)."""
+        top_k, K = self.top_k, self.spec_k
+
+        def body(st):
+            tok, valid, drafts, act = (st["tok"], st["valid"], st["drafts"],
+                                       st["active"])
+            logits = self._wide(st, torch.cat([tok[:, None], drafts], dim=1),
+                                valid)
+            S, _, V = logits.shape
+            rows = torch.arange(K, dtype=torch.int32, device=valid.device)
+            pos = valid[:, None] + 1 + rows[None]
+            y = sample_tokens(logits.reshape(S * K, V),
+                              st["seeds"].repeat_interleave(K),
+                              pos.reshape(-1),
+                              st["temps"].repeat_interleave(K), top_k,
+                              sampling).reshape(S, K)
+            if K > 1:
+                match = (y[:, :K - 1] == drafts).to(torch.int32)
+                al = torch.cumprod(match, dim=1).sum(dim=1,
+                                                     dtype=torch.int32)
+            else:
+                al = torch.zeros_like(valid)
+            n_emit = torch.where(act, al + 1, 0)
+            st["emit"][:, :K].copy_(
+                torch.where((rows[None] <= al[:, None]) & act[:, None], y, 0))
+            st["emit"][:, K].copy_(n_emit)
+            valid += n_emit
+            tok.copy_(torch.where(act, y.gather(1, al[:, None].long())[:, 0],
+                                  0))
+            return logits
+
+        return body
+
+    def _chunk_body(self, sampling):
+        """One prefill chunk: the page of the slot ``chunk_ctl`` names
+        (gathered from the pages by a device index, so one program serves
+        every slot) through the wide step at offset ``pos0``, the chunk's
+        rows attending to the positions before them, and scattered back.
+        ``valid[slot]`` goes to ``min(pos0 + tc, plen)``: a chunk that is
+        not the last parks it at the chunk frontier, where a decode step's
+        write for the masked slot is overwritten by the next chunk. Every
+        chunk samples a first token at position ``plen`` from row
+        ``clip(plen - 1 - pos0, 0, tc - 1)`` into ``tok[slot]``; the final
+        chunk's is the prompt's last position. Returns the logits
+        (1, tc, V)."""
+        tc, top_k = self._prefill_chunk, self.top_k
+
+        def body(st):
+            ctl = st["chunk_ctl"]
+            slot, plen, seed = ctl[0:1], ctl[2:3], ctl[3:4]
+            pos0 = ctl[1:2].to(torch.int32)
+            names = ("k", "v") + (("k_scale", "v_scale") if "k_scale" in st
+                                  else ())
+            page = {n: [t.index_select(0, slot) for t in st[n]]
+                    for n in names}
+            if "k_scale" in st:
+                # a fresh scale on the first chunk: a reused slot must not
+                # keep the last stream's running max
+                fresh = (pos0 == 0).reshape(1, 1, 1, 1)
+                for n in ("k_scale", "v_scale"):
+                    page[n] = [torch.where(fresh, 0.0, t) for t in page[n]]
+            logits = self._wide(page, st["chunk_tokens"], pos0)
+            for n in names:
+                for dst, src in zip(st[n], page[n]):
+                    dst.index_copy_(0, slot, src)
+            st["valid"].index_copy_(
+                0, slot, torch.minimum(pos0 + tc, plen.to(torch.int32)))
+            row = torch.clamp(plen - 1 - pos0, 0, tc - 1)
+            first = sample_tokens(logits[0].index_select(0, row), seed, plen,
+                                  st["chunk_temp"], top_k, sampling)
+            st["tok"].index_copy_(0, slot, first)
+            return logits
+
+        return body
+
+    def _run(self, kind, key, body, eager):
+        with self._params_lock, torch.no_grad(), \
+                torch.profiler.record_function("mxnet_tpu_torch::%s_step"
+                                               % kind):
+            return self._steps.run(
+                key, body, self._step_state(kind),
+                params=[p.data() for p in self._plist], eager=eager)
+
     def _run_step(self, eager=False):
         """One decode step for every slot through the step program of its
-        key (capacity, sampling); ``eager`` runs the same step
+        key ("decode", capacity, sampling); ``eager`` runs the same step
         without the program (a check compares the two). Returns the logits
         (slots, V); the next tokens are in ``_tok``."""
         if self._ctl_dirty:
             self._upload_controls()
-        key = (self.cache.capacity, self._sampling)
-        with self._params_lock, torch.no_grad(), \
-                torch.profiler.record_function(
-                    "mxnet_tpu_torch::decode_step"):
-            return self._steps.run(
-                key, self._step_body(self._sampling), self._step_state(),
-                params=[p.data() for p in self._plist], eager=eager)
+        return self._run("decode", ("decode", self.cache.capacity,
+                                    self._sampling),
+                         self._step_body(self._sampling), eager)
+
+    def _run_verify(self, eager=False):
+        """One verify step over the drafts in ``_drafts``, through the
+        program of ("verify", capacity, spec_k, sampling). Returns the
+        logits (slots, spec_k, V); the emitted tokens are in ``_emit``."""
+        if self._ctl_dirty:
+            self._upload_controls()
+        return self._run("verify", ("verify", self.cache.capacity,
+                                    self.spec_k, self._sampling),
+                         self._verify_body(self._sampling), eager)
+
+    def _run_chunk(self, sampling, eager=False):
+        """One prefill chunk from the chunk buffers, through the program
+        of ("chunk", tc, capacity, sampling). Returns the logits."""
+        return self._run("chunk", ("chunk", self._prefill_chunk,
+                                   self.cache.capacity, sampling),
+                         self._chunk_body(sampling), eager)
 
     def _decode_once(self):
-        active = self.cache.active_mask()
+        active = self._active_mask()
         n_active = sum(active)
         if n_active == 0:
             return 0
+        if self._draft is not None:
+            return self._speculate_once(active, n_active)
         t0 = time.perf_counter()
         self._run_step()
         nxt_host = self._tok.cpu().numpy()   # the one host readback a step
         dt = time.perf_counter() - t0
         self._warm = True
-        self.metrics.record_step(dt, n_active, n_active, self.slots)
+        self.metrics.record_step(dt, n_active, n_active, self.slots,
+                                 under_prefill=bool(self._chunk_jobs))
         now = time.perf_counter()
         for slot in np.flatnonzero(active):
             self._deliver(int(slot), int(nxt_host[slot]), now)
         return n_active
+
+    def _propose(self, active):
+        """The draft's proposals for the live slots into ``_drafts``."""
+        draft = self._draft
+        hists = None
+        if draft.needs_history:
+            hists = []
+            for s, live in enumerate(active):
+                o = self.cache.owner(s) if live else None
+                hists.append(o.prompt.tolist() + o.tokens if o is not None
+                             else [])
+        with self._params_lock:
+            draft.propose(hists, self.spec_k)
+
+    def _speculate_once(self, active, n_active):
+        """One speculation round: the draft proposes spec_k - 1 tokens a
+        slot, one verify step scores every window, and each live slot
+        receives its accepted drafts and the sample after them (1 to
+        spec_k tokens), read back in one copy. Rejected positions need no
+        scrub: ``valid`` advances past the accepted tokens only, and the
+        next window overwrites the rest."""
+        k = self.spec_k
+        self._propose(active)
+        t0 = time.perf_counter()
+        self._run_verify()
+        out = self._emit.cpu().numpy()   # the one host readback a round
+        dt = time.perf_counter() - t0
+        emit, n_emit = out[:, :k], out[:, k]
+        emitted = int(n_emit.sum())
+        self._warm = True
+        self.metrics.record_step(dt, emitted, n_active, self.slots,
+                                 under_prefill=bool(self._chunk_jobs))
+        self.metrics.record_spec_round(n_active * (k - 1),
+                                       emitted - n_active)
+        now = time.perf_counter()
+        for slot in np.flatnonzero(active):
+            slot = int(slot)
+            stream = self.cache.owner(slot)
+            for tok in emit[slot, :n_emit[slot]]:
+                if self.cache.owner(slot) is not stream:
+                    break   # retired in the middle of its window
+                self._deliver(slot, int(tok), now)
+        return n_active
+
+    def _chunk_once(self):
+        """At most one prefill chunk, first in first out across the jobs:
+        ``prefill_chunk`` prompt positions of the oldest job into its page
+        (:meth:`_chunk_body`). The final chunk's first token activates the
+        slot; a job whose deadline passed releases it."""
+        if not self._chunk_jobs:
+            return 0
+        slot, job = next(iter(self._chunk_jobs.items()))
+        req, stream = job["req"], job["stream"]
+        now = time.perf_counter()
+        if req.done() or req.expired(now):
+            del self._chunk_jobs[slot]
+            self.cache.release(slot)
+            self._ctl_dirty = True
+            err = ServeTimeout("timed out after %.1fms mid-prefill"
+                               % ((now - req.t_submit) * 1e3))
+            if req.finish(error=err):
+                stream._finish(err)
+                self.metrics.record_timeout()
+            with self._join_cond:
+                self._join_cond.notify_all()
+            return 1
+        tc = self._prefill_chunk
+        plen = int(stream.prompt.size)
+        pos0 = job["pos"]
+        chunk = np.zeros((1, tc), np.int64)
+        seg = stream.prompt[pos0:pos0 + tc]
+        chunk[0, :seg.size] = seg
+        self._chunk_tokens.copy_(torch.from_numpy(chunk))
+        self._chunk_ctl.copy_(torch.tensor([slot, pos0, plen, stream.seed]))
+        self._chunk_temp.fill_(stream.temperature)
+        self._run_chunk(stream.temperature > 0)
+        self.metrics.record_chunk()
+        job["pos"] = pos0 + tc
+        if job["pos"] < plen:
+            return 1
+        del self._chunk_jobs[slot]
+        first = int(self._tok[slot])   # the first token's host readback
+        self.metrics.record_prefill()
+        self._activate(slot, req, stream, first)
+        with self._join_cond:
+            self._join_cond.notify_all()
+        return 1
 
     def _deliver(self, slot, tok, now=None):
         """Hand one token to a slot's stream; retire the request when it
@@ -719,6 +1030,9 @@ class GenerativeServer:
             if error is None and req is not None:
                 self.metrics.record_latency(
                     (time.perf_counter() - req.t_submit) * 1e3)
+        job = self._chunk_jobs.pop(slot, None)
+        if job is not None and error is not None:
+            job["req"].finish(error=error)
         self._slot_req[slot] = None
         self._temps[slot] = 0.0
         self._ctl_dirty = True
@@ -733,10 +1047,13 @@ class GenerativeServer:
         (and with the prefix cache, its page extract and inject) for each
         prompt-length bucket, and a greedy and a sampled decode step, which
         capture the two step programs at the capacity that fits
-        ``max_tokens``."""
+        ``max_tokens``. With a draft, the draft's fills and its round, and
+        the verify programs instead of the decode ones; with chunked
+        prefill, a greedy and a sampled chunk. Steady state then captures
+        nothing."""
         need = max(int(max_tokens or 0),
                    max([int(b) for b in prompt_buckets], default=1) + 1)
-        self.cache.ensure_capacity(need)
+        self.cache.ensure_capacity(need + self._spec_margin)
         for b in prompt_buckets:
             dummy = GenerationStream([1] * int(b), 1, 0.0, 0, 0)
             slot = self.cache.acquire(dummy)
@@ -748,10 +1065,18 @@ class GenerativeServer:
                 ks, vs = self._extract(slot, tp)
                 self._inject(slot, (ks, vs, int(b), last), 0, 0.0)
             self.cache.release(slot)
+        if self._draft is not None:
+            self._draft.warm([min(next_pow2(int(b)), self.cache.capacity)
+                              for b in prompt_buckets])
+        if self._prefill_chunk is not None \
+                and self.cache.capacity >= self._prefill_chunk:
+            self._warm_chunk()
         dummy = GenerationStream([1], 2, 0.0, 0, 0)
         slot = self.cache.acquire(dummy)
         if slot is not None:
-            self._remaining[slot] = 2
+            # a verify round may emit several tokens: the budget outlasts
+            # the two steps
+            self._remaining[slot] = 2 * self.spec_k
             for temperature in (0.0, 1.0):
                 self._temps[slot] = temperature
                 self._ctl_dirty = True
@@ -759,6 +1084,21 @@ class GenerativeServer:
             if self.cache.owner(slot) is dummy:
                 self._retire(slot)
         return self
+
+    def _warm_chunk(self):
+        """A greedy and a sampled chunk on a throwaway slot (a single final
+        chunk: pos0 0, a prompt of one chunk), which capture the two chunk
+        programs at the current capacity."""
+        tc = self._prefill_chunk
+        slot = self.cache.acquire(GenerationStream([1] * tc, 1, 0.0, 0, 0))
+        if slot is None:
+            return
+        self._chunk_tokens.zero_()
+        self._chunk_ctl.copy_(torch.tensor([slot, 0, tc, 0]))
+        for temperature in (0.0, 1.0):
+            self._chunk_temp.fill_(temperature)
+            self._run_chunk(temperature > 0)
+        self.cache.release(slot)
 
     # ------------------------------------------------------------- stats
     def stats(self):
@@ -779,9 +1119,20 @@ class GenerativeServer:
             kv_cache_bytes=self.cache.nbytes(),
             kv_cache_bytes_unquantized=self.cache.nbytes_unquantized(),
             quantize=self._quantize,
+            spec_k=self.spec_k if self._draft is not None else None,
+            draft=(type(self._draft).__name__ if self._draft is not None
+                   else None),
+            prefill_chunk=self._prefill_chunk,
+            chunk_queue_depth=len(self._chunk_jobs),
             step_programs=len(self._steps.keys()),
             step_captures=self._steps.captures,
             step_replays=self._steps.replays,
+            draft_step_captures=(self._draft._steps.captures
+                                 if isinstance(self._draft, ModelDraft)
+                                 else None),
+            draft_step_replays=(self._draft._steps.replays
+                                if isinstance(self._draft, ModelDraft)
+                                else None),
             device=str(self.device),
             running=(self._loop_thread is not None
                      and self._loop_thread.is_alive()),

@@ -111,8 +111,11 @@ class GenerativeMetrics(ServeMetrics):
     judged by (counterpart of the JAX package's ``GenerativeMetrics``):
     tokens/s over decode-active wall time, time to first token (admission
     to the first sampled token, by pow2 prompt bucket too), inter-token
-    latency (one decode step of the shared batch), prefill count and
-    in-flight fill (live slots over padded slots a step)."""
+    latency (one decode step of the shared batch; the steps taken while a
+    chunked prefill is in flight also in their own ``itl_prefill`` ring),
+    prefill and prefill-chunk counts, in-flight fill (live slots over
+    padded slots a step) and the speculative rounds' drafted and accepted
+    tokens."""
 
     def __init__(self, name="serve", window=2048):
         super().__init__(name, window)
@@ -120,9 +123,18 @@ class GenerativeMetrics(ServeMetrics):
         self._ttft_n = 0
         self._itl = [0.0] * self._window    # per decode step, ms
         self._itl_n = 0
+        self._itl_pf = [0.0] * self._window  # steps under chunked prefill
+        self._itl_pf_n = 0
         self.tokens = 0                     # generated tokens, all requests
         self.steps = 0                      # decode steps
         self.prefills = 0                   # whole-prompt forwards
+        self.prefill_chunks = 0             # chunked-prefill steps
+        # speculative decode: drafted = proposals offered to a verify step
+        # (live slots x (spec_k - 1) a round), accepted = those the target
+        # kept; their ratio is the accept rate
+        self.spec_rounds = 0
+        self.drafted_tokens = 0
+        self.accepted_tokens = 0
         self._decode_s = 0.0                # decode-active wall time
         self._active_slot_steps = 0         # live slots summed over steps
         self._slot_steps = 0                # padded slots summed over steps
@@ -147,17 +159,34 @@ class GenerativeMetrics(ServeMetrics):
         with self._lock:
             self.prefills += n
 
-    def record_step(self, step_s, n_tokens, n_active, slots):
-        """One decode step: ``n_tokens`` emitted across ``n_active`` live
-        slots of ``slots``."""
+    def record_chunk(self, n=1):
+        with self._lock:
+            self.prefill_chunks += n
+
+    def record_step(self, step_s, n_tokens, n_active, slots,
+                    under_prefill=False):
+        """One decode (or verify) step: ``n_tokens`` emitted across
+        ``n_active`` live slots of ``slots``. ``under_prefill`` marks a step
+        taken while a chunked prefill was in flight: its ITL also lands in
+        the ``itl_prefill`` ring, the stall chunking bounds."""
         with self._lock:
             self._itl[self._itl_n % self._window] = float(step_s) * 1e3
             self._itl_n += 1
+            if under_prefill:
+                self._itl_pf[self._itl_pf_n % self._window] = \
+                    float(step_s) * 1e3
+                self._itl_pf_n += 1
             self.steps += 1
             self.tokens += int(n_tokens)
             self._decode_s += float(step_s)
             self._active_slot_steps += int(n_active)
             self._slot_steps += int(slots)
+
+    def record_spec_round(self, drafted, accepted):
+        with self._lock:
+            self.spec_rounds += 1
+            self.drafted_tokens += int(drafted)
+            self.accepted_tokens += int(accepted)
 
     def record_tokens_in_flight(self, n):
         with self._lock:
@@ -170,17 +199,27 @@ class GenerativeMetrics(ServeMetrics):
                 "tokens": self.tokens,
                 "decode_steps": self.steps,
                 "prefills": self.prefills,
+                "prefill_chunks": self.prefill_chunks,
                 "tokens_per_s": (round(self.tokens / self._decode_s, 1)
                                  if self._decode_s > 0 else None),
                 "inflight_fill": (round(self._active_slot_steps
                                         / self._slot_steps, 4)
                                   if self._slot_steps else None),
                 "tokens_in_flight": self._tokens_in_flight,
+                "spec_rounds": self.spec_rounds,
+                "drafted_tokens": self.drafted_tokens,
+                "accepted_tokens": self.accepted_tokens,
+                "accept_rate": (round(self.accepted_tokens
+                                      / self.drafted_tokens, 4)
+                                if self.drafted_tokens else None),
             })
             snap.update(_ring_percentiles(
                 self._ttft, min(self._ttft_n, self._window), "ttft"))
             snap.update(_ring_percentiles(
                 self._itl, min(self._itl_n, self._window), "itl"))
+            snap.update(_ring_percentiles(
+                self._itl_pf, min(self._itl_pf_n, self._window),
+                "itl_prefill"))
             snap["ttft_by_bucket"] = {
                 str(b): {k[2:]: v for k, v in _ring_percentiles(
                     ring, min(n, self._window), "b").items()}

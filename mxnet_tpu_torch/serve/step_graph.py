@@ -1,26 +1,41 @@
-"""One replayable program per decode-step key (counterpart of the JAX
-package's one compiled decode step per capacity,
-``mxnet_tpu/serve/decoder.py`` ``_decode_fns``).
+"""One replayable program per step key (counterpart of the JAX package's
+one compiled program per decode-loop key, ``mxnet_tpu/serve/decoder.py``
+``_decode_fns``, ``_verify_fns`` and ``_chunk_fns``).
 
-``GenerativeServer`` runs every decode step through :class:`StepPrograms`.
-A key is (capacity, sampling): the greedy and the sampled step are two
-programs, since the sampler's host branch (``sample_tokens``'s ``sampling``
-flag) cannot live inside one graph. (Whether the server is quantized is
-fixed for its life, so it is no part of the key.) On a CUDA device each key
-is one ``torch.cuda.CUDAGraph``, captured at its first use and replayed at
-every step after; on the CPU the same object runs the step eagerly, with
-the same keys, counts and buffer checks, so they can be tested there.
+``GenerativeServer`` runs every step of its decode loop through
+:class:`StepPrograms`. A key is a kind and its shape:
 
-The step reads and writes static buffers only: the server hands
-:meth:`StepPrograms.run` the step's state (a dict of tensors: its input
-tokens, ``valid``, the sampling controls, the K/V pages and their scales)
-and the model's parameters, and the step updates them in place (the next
-tokens into the token buffer, ``valid += active``). A graph is valid only
+- ``("decode", capacity, sampling)``: the decode step of every slot;
+- ``("verify", capacity, spec_k, sampling)``: the speculative verify step,
+  a window of ``spec_k`` rows a slot;
+- ``("chunk", tc, capacity, sampling)``: one chunk of ``tc`` prompt
+  positions of a chunked prefill, into the page of a slot the program
+  reads from a device buffer (so one program serves every slot).
+
+The greedy and the sampled step are two programs, since the sampler's host
+branch (``sample_tokens``'s ``sampling`` flag) cannot live inside one
+graph. (Whether the server is quantized is fixed for its life, so it is no
+part of the key.) A ``ModelDraft`` runs its k-step draft round through a
+:class:`StepPrograms` of its own, keyed ``("draft", capacity)``. On a CUDA
+device each key is one ``torch.cuda.CUDAGraph``, captured at its first use
+and replayed at every step after; on the CPU the same object runs the step
+eagerly, with the same keys, counts and buffer checks, so they can be
+tested there.
+
+A step reads and writes static buffers only: the caller hands
+:meth:`StepPrograms.run` the step's state (a dict of named tensors or
+lists of tensors: its input tokens, ``valid``, the sampling controls, the
+K/V pages and their scales, the drafts, the output buffers) and the
+model's parameters, and the step updates them in place (the next tokens
+into the token buffer, ``valid += active``). Host values a step needs (the
+n-gram drafts, a chunk's tokens and slot) are copied into such a buffer
+before the run, never handed over as new tensors. A graph is valid only
 while those buffers are the tensors it was captured on, so every run
-compares their addresses with the captured ones; a capacity migration (new
-page tensors) or a parameter that was given a new tensor drops every
-program, and each key is captured again at its next use. A weight swap
-that copies into the live parameters keeps them.
+compares the address of each named buffer with the one last seen under
+that name, whatever the key; a capacity migration (new page tensors) or a
+parameter that was given a new tensor drops every program, and each key
+is captured again at its next use. A weight swap that copies into the live
+parameters keeps them.
 
 Capture. A graph needs eager warm-up runs before capture (lazy library
 set-up, on a side stream). Those runs would write the pages, ``valid`` and
@@ -34,11 +49,12 @@ a replay does not tick. The counts at capture are recorded per program
 and added back at every replay (the warm-up and capture's own counts are
 taken out), so a step counts its kernels exactly as an eager step does.
 
-Memory. All graphs share one memory pool (a new one after a drop); they
-never replay concurrently, and a program's output (the logits) is read
-only before the next replay of any program: the caller runs
-:meth:`StepPrograms.run` under its one dispatch lock (the server's
-``_params_lock``), which is also what serialises the programs' bookkeeping.
+Memory. All graphs of one :class:`StepPrograms` share one memory pool (a
+new one after a drop); they never replay concurrently, and a program's
+output (the logits) is read only before the next replay of any program:
+the caller runs :meth:`StepPrograms.run` under its one dispatch lock (the
+server's ``_params_lock``), which is also what serialises the programs'
+bookkeeping.
 """
 from __future__ import annotations
 
@@ -51,12 +67,16 @@ __all__ = ["StepPrograms"]
 WARMUP_RUNS = 2
 
 
-def _tensors(state):
-    for value in state.values():
+def _addresses(state, params):
+    """{buffer name: its address} of a state dict and the parameters."""
+    out = {}
+    for name, value in state.items():
         if isinstance(value, torch.Tensor):
-            yield value
+            out[name] = value.data_ptr()
         else:
-            yield from value
+            out.update(((name, i), t.data_ptr()) for i, t in enumerate(value))
+    out.update((("params", i), t.data_ptr()) for i, t in enumerate(params))
+    return out
 
 
 def _counters():
@@ -81,7 +101,7 @@ class _Program:
 
 
 class StepPrograms:
-    """The decode step's programs of one server, keyed.
+    """The step programs of one server (or of its draft), keyed.
 
     ``captures`` counts programs made (captured on CUDA, set up on the
     CPU), ``replays`` steps run through a program, ``drops`` the times the
@@ -91,7 +111,7 @@ class StepPrograms:
         self.device = torch.device(device)
         self.graphed = self.device.type == "cuda"
         self._programs = {}
-        self._addresses = None
+        self._addresses = {}
         self._pool = None
         self.captures = 0
         self.replays = 0
@@ -108,16 +128,17 @@ class StepPrograms:
         graph's next replay overwrites."""
         if eager:
             return body(state)
-        addresses = tuple(t.data_ptr() for t in _tensors(state)) \
-            + tuple(t.data_ptr() for t in params)
-        if self._addresses != addresses:
+        addresses = _addresses(state, params)
+        known = self._addresses
+        if any(known.get(n, a) != a for n, a in addresses.items()):
             if self._programs:
                 # the pool goes with the last graph that used it: the
                 # next capture takes a new one
                 self._programs.clear()
                 self._pool = None
                 self.drops += 1
-            self._addresses = addresses
+            known.clear()
+        known.update(addresses)
         prog = self._programs.get(key)
         if prog is None:
             prog = self._capture(body, state) if self.graphed \

@@ -1,6 +1,6 @@
 """The decode step's programs (``serve/step_graph.py``) on the CPU, where
 the same program object runs the step eagerly: one program per
-(capacity, sampling) key, quantized or not, and none made in steady state, one
+("decode", capacity, sampling) key, quantized or not, and none made in steady state, one
 replay a decode tick, every program dropped and made again when a
 capacity migration moves the pages, a weight swap that writes into the
 live parameter tensors (their addresses kept, the next step on the new
@@ -65,7 +65,8 @@ def test_one_program_per_key_and_none_made_in_steady_state(shared, quantize):
     srv.warmup(max_tokens=16)
     steps = srv._steps
     # warmup makes the greedy and the sampled program at capacity 16
-    assert sorted(steps.keys()) == [(16, False), (16, True)]
+    assert sorted(steps.keys()) == [("decode", 16, False),
+                                    ("decode", 16, True)]
     assert steps.captures == 2 and steps.replays == 2
     s = _join(srv, shared["prompts"][0])
     _pump(srv, [s])
@@ -90,11 +91,11 @@ def test_a_migration_drops_and_remakes_the_programs(shared):
     s1 = _join(srv, shared["prompts"][0])
     srv.step()
     steps = srv._steps
-    assert steps.keys() == [(16, False)] and steps.captures == 1
+    assert steps.keys() == [("decode", 16, False)] and steps.captures == 1
     s2 = _join(srv, shared["prompts"][1])
     _pump(srv, [s1, s2])
     assert srv.cache.migrations == 1 and steps.drops == 1
-    assert steps.keys() == [(32, False)] and steps.captures == 2
+    assert steps.keys() == [("decode", 32, False)] and steps.captures == 2
     assert s1.result(1) == shared["want"][0]
     assert s2.result(1) == shared["want"][1]
     srv.stop()

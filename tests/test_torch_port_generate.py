@@ -6,7 +6,9 @@ growth mid-flight, refusal of a request longer than max_length, sampling
 that depends only on (seed, position), priority preemption in the admission
 queue, a queue timeout on the stream, stats, and the options the port does
 not carry (quantized serving, which it does carry, is held in
-tests/test_torch_port_quant_generate.py). One JAX server run is shared by the module."""
+tests/test_torch_port_quant_generate.py; speculative decode and chunked
+prefill in tests/test_torch_port_speculative.py and
+_chunked_prefill.py). One JAX server run is shared by the module."""
 import time
 
 import numpy as np
@@ -264,15 +266,19 @@ def test_stats_carry_the_jax_keys_the_slice_covers(shared):
                 "prefix_hits", "prefix_misses", "prefix_entries", "slots",
                 "capacity", "in_flight", "tokens_in_flight", "swap_epoch",
                 "cache_migrations", "kv_cache_bytes", "ttft_by_bucket",
-                "completed", "shed", "timeouts", "errors", "p50_ms"):
+                "completed", "shed", "timeouts", "errors", "p50_ms",
+                "spec_rounds", "drafted_tokens", "accepted_tokens",
+                "accept_rate", "prefill_chunks", "prefill_chunk",
+                "itl_prefill_p50_ms", "spec_k", "draft"):
         assert key in snap, key
     assert snap["tokens_per_s"] > 0 and 0 < snap["inflight_fill"] <= 1
+    # no draft and no chunking: the speculative and chunk keys read empty
+    assert (snap["spec_rounds"], snap["prefill_chunks"]) == (0, 0)
+    assert snap["accept_rate"] is None and snap["prefill_chunk"] is None
     assert health["warm"] and health["kind"] == "generative"
 
 
-@pytest.mark.parametrize("option,value,item", [
-    ("draft", object(), "A.8"), ("prefill_chunk", 64, "A.8"),
-    ("metrics_port", 0, "A.16")])
+@pytest.mark.parametrize("option,value,item", [("metrics_port", 0, "A.16")])
 def test_options_the_slice_does_not_carry_raise(shared, option, value, item):
     with pytest.raises(ServeError, match=item):
         _server(shared["port_model"], **{option: value})
