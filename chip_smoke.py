@@ -31,8 +31,9 @@ Run from the root of a checkout on a machine with a CUDA card. It
    the causal 512 twice, identical), and a planted reading: the plain
    version on TF32-rounded operands must read above the limit;
 4. holds the softmax cross-entropy forward and backward kernels against
-   their plain versions ((1280, 30522) bf16, (16, 2), (37, 1000) fp32, a
-   label in the last column);
+   their plain versions ((1280, 30522) bf16, (16, 2), (37, 1000) fp32, and
+   a padded vocabulary sliced to V: (64, 50257) bf16 rows 50264 apart,
+   (37, 1000) fp32 rows 1003 apart; a label in the last column);
 5. holds the flash-attention backward kernel (dq, dk and dv from one
    kernel and its dq pass) against its plain version (every key valid at
    (16, 12, 512, 64), valid lengths with 0, causal, ragged T = 200, head
@@ -63,6 +64,19 @@ Run from the root of a checkout on a machine with a CUDA card. It
    step (samples/s);
 8. times the ``bert`` headline step (batch 64, seq 128, 20 masked), whose
    attention takes the dense path and its hand-written backward;
+8a. trains GPT-2 small (full width, bf16 via amp, dropout 0.1, random
+   weights from a seed) as a user of the JAX package writes it
+   (``phase_gpt_train``): batch 8 of 1025 random tokens, input the first
+   1024 and target the last 1024, next-token ``SoftmaxCrossEntropyLoss``
+   over the (8, 1024, 50257) logits, Adam lr 1e-4 wd 0.01 with fp32
+   masters: finite losses, weights that move, exactly 25 LayerNorm forward
+   and backward, 12 causal flash forward (with the lse) and backward and 1
+   softmax-xent forward and backward launches a step; one step against the
+   same step with the plain versions (loss, each gradient's and its worst
+   row's relative L2), and that plain step with planted faults (the flash
+   backward without its first key tile, the softmax-xent dx without each
+   row's unaligned tail) above the limits and the plain step run again
+   within them; the step's host wall, tokens/s and peak memory;
 9. serves GPT-2 small (full width, bf16, random weights from a seed)
    through ``GenerativeServer(slots=8, top_k=40, prefix_cache=True)`` in
    two bursts of 12 requests (prompts of 8 to 900 tokens, at least four
@@ -135,6 +149,16 @@ Run from the root of a checkout on a machine with a CUDA card. It
    their bucket: every served row equal to a direct quantized forward,
    25 LayerNorm and 12 fp32 flash launches a forward, a bucket-8 forward
    with the kernels against the plain versions, planted faults above;
+12a. snapshots a warmed bf16 ``GenerativeServer`` (prefix cache,
+   ``prefill_chunk=256``, ``NGramDraft``) and a warmed int8 one, and loads
+   each with ``serve.load(prefix, snapshot=True, model=gpt2_small())``
+   (``phase_snapshot``): load captures exactly the listed step programs
+   (and runs no eager bucket), a
+   request and burst 1 of ``phase_generate`` after it capture nothing, the
+   parameters are bit-equal, the streams equal a plain server's under the
+   tie-margin rule, an edited fingerprint warns once and still serves; it
+   prints the time from ``serve.load`` to the first token beside a cold
+   replica's from the same artifact and a cold server's;
 13. times each kernel (CUDA-graph replay) at the bert512 step's shapes
    against its plain version, its PyTorch library yardstick and its bound
    (the LayerNorm backward against aten's, also at the MLM head's rows;
@@ -145,13 +169,17 @@ Run from the root of a checkout on a machine with a CUDA card. It
    seq 64, 128, 256 and 512, and the GPT path's LayerNorm at (8, 768)
    and causal flash forward at (1, 12, 256, 512 or 1024, 64), the
    int8 path's LayerNorm at (8, 768) fp32 and the flash forward's fp32
-   form at the int8 BERT and GPT shapes, each first held to its plain
-   version;
+   form at the int8 BERT and GPT shapes, and the six kernels of the GPT-2
+   training step at its shapes (``phase_gpt_train_timing``: LayerNorm
+   forward and backward at (8192, 768), the causal flash forward with the
+   lse and backward at (8, 12, 1024, 64), softmax-xent forward and backward
+   at (8192, 50257)), each first held to its plain version;
 14. breaks one serving forward at the largest bucket down (host wall, the
     executor's whole dispatch, a new thread's first dispatches, kernel time
     by class from torch.profiler, hence the device's idle share), then one
     bert512 step (kernel time by class, the LayerNorm backward and the
-    optimizer step, the idle share), then a GPT prefill at bucket 512 and
+    optimizer step, the idle share), then the GPT-2 training step the
+    same way, then a GPT prefill at bucket 512 and
     a decode step of 8 slots, through its graph and eagerly, bf16 and
     int8, then the int8 BERT bucket-8 forward, then a speculative tick
     with NGramDraft, a 2-layer draft's round and tick, and a chunk tick,
@@ -232,6 +260,7 @@ LN_BWD_PARAM_TOL = (1e-12, 1e-5, 1e-5)
 STEP_LOSS_TOL = 1e-2
 STEP_GRAD_TOL = 2e-2
 VOCAB = 30522
+GPT_VOCAB = 50257
 # bench.py's two BERT-base pretraining modes: bert512 (the main path,
 # BERT phase 2) and bert (the headline)
 BERT512 = {"batch": 16, "seq": 512, "masked": 80}
@@ -766,21 +795,29 @@ def phase_flash_f32(dev):
 
 def phase_xent(dev):
     """The softmax-xent forward and backward kernels against their plain
-    versions; the first case is the main path's MLM head."""
+    versions; the first case is the main path's MLM head. The last two are
+    a padded vocabulary sliced to V (rows ``pad`` elements wider than V, read
+    at their own stride, not copied)."""
     import torch
     from mxnet_tpu_torch.ops.cuda import softmax_xent as sx
 
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     readings = []
-    for (R, V), dtype in (((1280, VOCAB), torch.bfloat16),
-                          ((16, 2), torch.bfloat16),
-                          ((37, 1000), torch.float32)):
-        x = (torch.randn(R, V, device=dev, generator=g) * 3).to(dtype)
+    for (R, V), dtype, pad in (((1280, VOCAB), torch.bfloat16, 0),
+                               ((16, 2), torch.bfloat16, 0),
+                               ((37, 1000), torch.float32, 0),
+                               ((64, GPT_VOCAB), torch.bfloat16, 7),
+                               ((37, 1000), torch.float32, 3)):
+        x = (torch.randn(R, V + pad, device=dev, generator=g)
+             * 3).to(dtype)[:, :V]
+        check((pad > 0) != x.is_contiguous(), "softmax-xent: the padded "
+              "case's logits are a strided view")
         labels = torch.randint(0, V, (R,), device=dev, generator=g,
                                dtype=torch.int32)
         labels[0] = V - 1  # a label in the last column
         dy = torch.randn(R, device=dev, generator=g)
-        what = "softmax-xent (%d, %d) %s" % (R, V, str(dtype)[6:])
+        what = "softmax-xent (%d, %d) %s%s" % (
+            R, V, str(dtype)[6:], " rows %d apart" % (V + pad) if pad else "")
         loss, lse = sx.softmax_xent_fwd(x, labels)
         torch.cuda.synchronize()
         ref_loss, ref_lse = sx.softmax_xent_fwd_plain(x, labels)
@@ -1354,8 +1391,8 @@ def _train_kernel_class(name):
     return "other"
 
 
-def phase_train_breakdown(step, n_prof=2):
-    """Where a bert512 step spends its time, from one torch.profiler
+def phase_train_breakdown(step, n_prof=2, label="bert512 step"):
+    """Where a training step spends its time, from one torch.profiler
     window: kernel time by class, the host time of the LayerNorm backward
     and of the optimizer step (their profiler ranges), the optimizer
     range's device time, and the device idle share."""
@@ -1406,10 +1443,11 @@ def phase_train_breakdown(step, n_prof=2):
     print("flash backward a step: %.4f ms, of which the dq pass %.4f ms "
           "(%.1f%%)" % (by_class.get("flash_attention_bwd", 0.0), dq_pass,
                         100 * out["flash_bwd_dq_pass_share"]), flush=True)
-    print("bert512 step breakdown (torch.profiler, %d steps): kernel ms a "
+    print("%s breakdown (torch.profiler, %d steps): kernel ms a "
           "step by class %s; host ms of the ranges %s, device ms %s; %.3f ms "
           "busy in %.3f ms of wall under the profiler: device idle %.1f%%"
-          % (n_prof, {k: round(v, 4) for k, v in sorted(by_class.items())},
+          % (label, n_prof,
+             {k: round(v, 4) for k, v in sorted(by_class.items())},
              {k: round(v, 4) for k, v in ranges_host.items()},
              {k: round(v, 4) for k, v in ranges_device.items()}, busy, wall,
              100 * out["device_idle_share"]), flush=True)
@@ -1816,7 +1854,7 @@ def phase_train_crossover(dev):
 # ----------------------------------------------------------- GPT serving
 # GPT-2 small at its published widths (``mxnet_tpu/models/gpt.py:464``
 # ``gpt2_small``), random weights from a seed, bf16 via amp
-GPT_CONFIG = {"vocab_size": 50257, "units": 768, "num_layers": 12,
+GPT_CONFIG = {"vocab_size": GPT_VOCAB, "units": 768, "num_layers": 12,
               "num_heads": 12, "max_length": 1024}
 GPT_SLOTS = 8
 GPT_TOP_K = 40
@@ -4277,6 +4315,701 @@ def phase_generate_breakdown(dev, model, quantize=None, n_prof=4):
             "decode_step_eager": eager}
 
 
+# ----------------------------------------------------------- GPT training
+# GPT-2 small (GPT_CONFIG, dropout 0.1) trained as a user of the JAX package
+# writes it (tests/test_models.py test_gpt_training_descends, with
+# gluon.loss.SoftmaxCrossEntropyLoss as mxnet_tpu/gluon/loss.py routes it),
+# at bench.py's bert recipe: bf16 via amp, Adam lr 1e-4 wd 0.01 with fp32
+# masters; batch 8 of 1025 random tokens, input the first 1024 and target
+# the last 1024
+GPT_TRAIN = {"batch": 8, "seq": 1024}
+GPT_TRAIN_STEPS = 3
+# kernel launches a step: 25 LayerNorms forward and backward (2 x 12
+# layers and ln_f), 12 causal flash forwards with the lse and backwards,
+# one softmax-xent over the (8192, 50257) logits each way
+GPT_STEP_LAUNCHES = {"layernorm": 25, "layernorm_bwd": 25,
+                     "flash_attention_fwd": 12, "flash_attention_bwd": 12,
+                     "softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
+# the GPT step with the kernels against the same step with the plain
+# versions: the loss (BERT's limit, STEP_LOSS_TOL), each gradient's
+# relative L2, and the
+# worst row's relative L2 of each gradient (a row: one output unit of a
+# weight, one token's embedding), where a fault confined to a few vocabulary
+# columns of the logits' gradient shows. Honest readings on an H100 (PERF.md
+# section 2): loss 5e-6 to 5e-5, gradient 0.017 (the position embedding,
+# bf16 through 12 layers and 1024 positions: BERT's 2e-2 would leave a
+# margin of 1.2x, so 3e-2), worst row 0.115-0.162 (a qkv weight's row);
+# planted faults (GPT_PLANTED_FAULTS): the first key tile dropped from the
+# flash backward reads 0.535 and 3.6, each row's unaligned tail dropped from
+# the softmax-xent dx 0.0156 and 0.875 (the last vocabulary rows of the
+# tied embedding), so 0.3 for a row
+GPT_STEP_GRAD_TOL = 3e-2
+GPT_STEP_ROW_TOL = 0.3
+
+
+class GPTTrainStep:
+    """GPT-2 small language-model training through the port's entry points:
+    ``GPTModel`` in bf16 via amp, next-token ``SoftmaxCrossEntropyLoss``
+    over the (B, T, V) logits (the mean over T a sample),
+    ``autograd.record`` / ``backward`` and ``gluon.Trainer`` with Adam.
+    Dropout draws from ``mxnet_tpu_torch.random``'s generator of the card
+    (``random.seed`` restarts it)."""
+
+    timed = TrainStep.timed
+
+    def __init__(self, dev):
+        import torch
+        from mxnet_tpu_torch import amp, gluon
+        from mxnet_tpu_torch.models.gpt import GPTModel
+
+        self.model = GPTModel(dropout=0.1, **GPT_CONFIG)
+        self.model.initialize(
+            device=dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED))
+        amp.convert_hybrid_block(self.model, "bfloat16")
+        self.params = list(self.model.collect_params().values())
+        self.trainer = gluon.Trainer(
+            self.model.collect_params(), "adam",
+            {"learning_rate": 1e-4, "wd": 0.01, "multi_precision": True})
+        self.loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        B, T = GPT_TRAIN["batch"], GPT_TRAIN["seq"]
+        seq = np.random.default_rng(SEED).integers(
+            0, GPT_CONFIG["vocab_size"], (B, T + 1)).astype(np.int32)
+        self.inp = torch.from_numpy(np.ascontiguousarray(seq[:, :T])).to(dev)
+        self.tgt = torch.from_numpy(np.ascontiguousarray(seq[:, 1:])).to(dev)
+
+    def __call__(self, update=True):
+        """One step; returns the per-sample loss (B,)."""
+        from mxnet_tpu_torch import autograd
+
+        with autograd.record():
+            loss = self.loss_fn(self.model(self.inp), self.tgt)
+        autograd.backward(loss)
+        if update:
+            self.trainer.step(GPT_TRAIN["batch"])
+        return loss.detach()
+
+
+def grad_row_rel_l2(params, grads, ref_grads):
+    """[(the worst row's |g - ref| / |ref| in L2, name)] of each parameter,
+    worst first; a row is a slice along the first axis (a 1-D parameter is
+    one row)."""
+    rel = []
+    for p, g, ref in zip(params, grads, ref_grads):
+        g = g.float().reshape(g.shape[0], -1) if g.dim() > 1 \
+            else g.float().reshape(1, -1)
+        ref = ref.float().reshape(g.shape)
+        num = (g - ref).norm(dim=1)
+        den = ref.norm(dim=1)
+        # an exact zero row of the reference must stay one
+        r = num / den.clamp(min=1e-30) * (den > 0) + num * (den <= 0)
+        rel.append((float(r.max()), p.name))
+    return sorted(rel, reverse=True)
+
+
+def flash_bwd_keys_dropped(q, k, v, do, lse, delta, drop, kv_valid_len=None,
+                           scale=None, causal=False):
+    """The plain backward with the (query, key) pairs where ``drop(rows,
+    cols)`` is true left out of dq, dk and dv (a planted fault)."""
+    import torch
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+
+    B, H, T, D = q.shape
+    if scale is None:
+        scale = 1.0 / D ** 0.5
+    s, keep = fa._scores_plain(q, k, kv_valid_len, scale, causal)
+    rows = torch.arange(T, device=q.device)[:, None]
+    cols = torch.arange(k.shape[2], device=q.device)[None, :]
+    keep = keep & ~drop(rows, cols)
+    p = torch.where(keep, torch.exp(s - lse.reshape(B, H, T, 1)), 0.0)
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - delta.reshape(B, H, T, 1))
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * scale
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
+                      q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_first_key_tile_dropped(*args, **kw):
+    """A planted fault: the first key tile (keys 0-63, which every causal
+    query row sees) left out of dq, dk and dv."""
+    return flash_bwd_keys_dropped(*args, drop=lambda r, c: c < 64, **kw)
+
+
+def xent_dx_tail_dropped(x, labels, lse, dy):
+    """A planted fault: the plain softmax-xent backward with each row's
+    unaligned tail (the elements after its last whole 16-byte vector, as the
+    kernel's ``split_row`` splits the row) left at 0."""
+    import torch
+    from mxnet_tpu_torch.ops.cuda import softmax_xent as sx
+
+    dx = sx.softmax_xent_bwd_plain(x, labels, lse, dy)
+    R, V = x.shape
+    per = 16 // x.element_size()
+    start = x.data_ptr() // x.element_size() + x.stride(0) * torch.arange(
+        R, device=x.device, dtype=torch.int64)
+    head = torch.clamp((-start) % per, max=V)
+    body_end = head + (V - head) // per * per
+    cols = torch.arange(V, device=x.device)
+    return torch.where(cols[None, :] >= body_end[:, None],
+                       torch.zeros((), dtype=dx.dtype, device=x.device), dx)
+
+
+# faults planted into the plain-version GPT step, each the wrappers it
+# replaces: the step's limits must catch every one, and must pass the plain
+# step run again (no wrapper replaced)
+GPT_PLANTED_FAULTS = {
+    "flash bwd drops the first key tile": {
+        "flash_attention_bwd": flash_bwd_first_key_tile_dropped},
+    "softmax-xent dx drops each row's unaligned tail": {
+        "softmax_xent_bwd": xent_dx_tail_dropped},
+    "none (the plain step again)": {},
+}
+
+
+def phase_gpt_train(dev):
+    """The GPT-2 small step: a few steps with finite losses that move the
+    weights, exact launch counts a step, one step against the same step
+    with the plain versions (and that plain step with planted faults), the
+    step's wall, tokens/s and peak memory."""
+    import torch
+    from mxnet_tpu_torch import random as mx_random
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    step = GPTTrainStep(dev)
+    B, T = GPT_TRAIN["batch"], GPT_TRAIN["seq"]
+    n_params = sum(p.data().numel() for p in step.params)
+    watch = [step.model.word_embed.weight, step.model.pos_embed.weight,
+             step.model.ln_f.gamma, step.model.blocks[0].attn.qkv.weight]
+    before = [p.data().detach().clone() for p in watch]
+    torch.cuda.synchronize()
+    print("gpt2 train step: %d parameters, batch %d, seq %d, vocab %d; "
+          "set-up %.2f s" % (n_params, B, T, GPT_CONFIG["vocab_size"],
+                             time.perf_counter() - t0), flush=True)
+
+    # (a), (b): the main path, with every counter at 0 just before it
+    mx_random.seed(SEED)
+    reset_counters()
+    losses = [float(step().mean()) for _ in range(GPT_TRAIN_STEPS)]
+    launches = read_counters()
+    print("gpt2 train losses %s; kernel launches in %d steps: %s"
+          % (["%.4f" % x for x in losses], GPT_TRAIN_STEPS, launches),
+          flush=True)
+    check(all(np.isfinite(losses)), "non-finite gpt2 training loss")
+    for p, b in zip(watch, before):
+        check(not torch.equal(p.data(), b), "gpt2: %s did not move" % p.name)
+    del before
+    for name, n in GPT_STEP_LAUNCHES.items():
+        check(launches[name] == n * GPT_TRAIN_STEPS,
+              "gpt2 %s launches %d != %d x %d steps"
+              % (name, launches[name], n, GPT_TRAIN_STEPS))
+    check(launches["flash_attention_fwd_f32"] == 0,
+          "gpt2 step launched the fp32 flash form")
+
+    # (c): one step with the kernels and the same step with the plain
+    # versions, from the same weights and the same dropout draws
+    mx_random.seed(SEED)
+    loss_k = step(update=False).float()
+    grads_k = _grads(step.params)
+    for p, gk in zip(step.params, grads_k):
+        check(bool(torch.isfinite(gk).all()), "gpt2 %s: non-finite grad"
+              % p.name)
+    mx_random.seed(SEED)
+    reset_counters()
+    with plain_versions():
+        loss_p = step(update=False).float()
+    check(not any(read_counters().values()),
+          "the plain-version gpt2 step launched a kernel: %s"
+          % read_counters())
+    grads_p = _grads(step.params)
+
+    def reading(loss, grads):
+        return {"loss_err": float((loss.mean() - loss_p.mean()).abs()),
+                "worst_grad_rel_l2": [[r, n] for r, n in grad_rel_l2(
+                    step.params, grads, grads_p)[:3]],
+                "worst_row_rel_l2": [[r, n] for r, n in grad_row_rel_l2(
+                    step.params, grads, grads_p)[:3]]}
+
+    honest = reading(loss_k, grads_k)
+    del grads_k
+    print("gpt2 step with kernels vs plain versions: loss %.6f vs %.6f "
+          "(|diff| %.3g, limit %g); worst gradient relative L2 %s (limit "
+          "%g); worst row relative L2 %s (limit %g)"
+          % (float(loss_k.mean()), float(loss_p.mean()), honest["loss_err"],
+             STEP_LOSS_TOL, ["%.3g %s" % tuple(r)
+                                 for r in honest["worst_grad_rel_l2"]],
+             GPT_STEP_GRAD_TOL, ["%.3g %s" % tuple(r)
+                                 for r in honest["worst_row_rel_l2"]],
+             GPT_STEP_ROW_TOL), flush=True)
+
+    def within(r):
+        return (r["loss_err"] <= STEP_LOSS_TOL
+                and r["worst_grad_rel_l2"][0][0] <= GPT_STEP_GRAD_TOL
+                and r["worst_row_rel_l2"][0][0] <= GPT_STEP_ROW_TOL)
+
+    check(within(honest), "gpt2 step disagrees with the plain versions: %s"
+          % honest)
+    faults = {}
+    for name, override in GPT_PLANTED_FAULTS.items():
+        mx_random.seed(SEED)
+        with plain_versions(**override):
+            loss_f = step(update=False).float()
+        faults[name] = reading(loss_f, _grads(step.params))
+        faults[name]["caught"] = not within(faults[name])
+        print("gpt2 step, planted fault %r vs plain versions: loss |diff| "
+              "%.3g, worst gradient relative L2 %s, worst row %s; caught %s"
+              % (name, faults[name]["loss_err"],
+                 ["%.3g %s" % tuple(r)
+                  for r in faults[name]["worst_grad_rel_l2"]],
+                 ["%.3g %s" % tuple(r)
+                  for r in faults[name]["worst_row_rel_l2"]],
+                 faults[name]["caught"]), flush=True)
+        check(faults[name]["caught"] == bool(override),
+              "the gpt2 step's limits %s %r" % (
+                  "miss the planted fault" if override else "refuse", name))
+    del grads_p
+
+    # (d): the step's wall after warm-up, and its tokens/s
+    step.timed(1)
+    wall, timed_losses = step.timed(TIMED_STEPS)
+    check(all(np.isfinite(timed_losses)), "non-finite gpt2 training loss")
+    result = {"recipe": dict(GPT_TRAIN, config=GPT_CONFIG, dropout=0.1),
+              "losses": losses + timed_losses, "launches": launches,
+              "steps_counted": GPT_TRAIN_STEPS,
+              "loss_vs_plain": [float(loss_k.mean()), float(loss_p.mean())],
+              "vs_plain": honest, "planted_faults": faults,
+              "step_wall_ms_median": wall,
+              "tokens_per_s": B * T / wall * 1e3,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("gpt2 train step: median host wall %.3f ms over %d steps, %.1f "
+          "tokens/s; peak memory %.2f GB" % (
+              wall, TIMED_STEPS, result["tokens_per_s"],
+              result["peak_memory_gb"]), flush=True)
+    return step, result
+
+
+def phase_gpt_train_timing(dev, records, gpt_train):
+    """The six kernels of the GPT step at its shapes, each held to its
+    plain version and timed against it, its library call and its bound,
+    added to their records under ``gpt_train`` with the step's launches:
+    LayerNorm forward and backward at (8192, 768) eps 1e-5, the causal
+    flash forward with the lse and the causal flash backward at
+    (8, 12, 1024, 64), the softmax-xent forward and backward at
+    (8192, 50257) bf16. A library backward is timed as forward + backward
+    less the forward alone."""
+    import torch
+    import torch.nn.functional as TF
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    from mxnet_tpu_torch.ops.cuda import layernorm as ln
+    from mxnet_tpu_torch.ops.cuda import softmax_xent as sx
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    rec = {r["name"]: r for r in records}
+    launches, steps = gpt_train["launches"], gpt_train["steps_counted"]
+    B, T = GPT_TRAIN["batch"], GPT_TRAIN["seq"]
+    C, V = GPT_CONFIG["units"], GPT_CONFIG["vocab_size"]
+    H = GPT_CONFIG["num_heads"]
+    D = C // H
+    R = B * T
+
+    def entry(name, times, bounds, shape, reading, **extra):
+        t_ops, t_bytes = bounds
+        out = dict(zip(("ms", "plain_ms", "library_ms"), times),
+                   launches=launches[name],
+                   launches_per_step=launches[name] / steps, shape=shape,
+                   max_abs_err=reading["max_abs_err"], check=reading,
+                   bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        out.update(extra)
+        key = {"layernorm": "layernorm_fwd"}.get(name, name)
+        rec[key]["gpt_train"] = out
+        print("time gpt2 train %-20s at %s: kernel %.4f ms, plain %.4f ms, "
+              "library %.4f ms, bound %.4f ms (%s), %g launches a step"
+              % (key, shape, out["ms"], out["plain_ms"], out["library_ms"],
+                 out["bound_ms"], out["bound_by"], out["launches_per_step"]),
+              flush=True)
+
+    # LayerNorm forward and backward at (8192, 768), eps 1e-5 (GPT-2's)
+    x = torch.randn(R, C, device=dev, generator=g).to(torch.bfloat16)
+    dy = torch.randn(R, C, device=dev, generator=g).to(torch.bfloat16)
+    gamma = torch.randn(C, device=dev, generator=g)
+    beta = torch.randn(C, device=dev, generator=g)
+    gb, bb = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+    what = "gpt2 train layernorm (%d, %d) bf16" % (R, C)
+    fwd = held(ln.fused_layernorm(x, gamma, beta, 1e-5),
+               ln.layernorm_plain(x, gamma, beta, 1e-5), BF16_TOL, what)
+    entry("layernorm", time_ms(
+        lambda: ln.fused_layernorm(x, gamma, beta, 1e-5),
+        lambda: ln.layernorm_plain(x, gamma, beta, 1e-5),
+        lambda: TF.layer_norm(x, (C,), gb, bb, 1e-5)),
+        _ln_bound(R, C, 2), [R, C], fwd, library="F.layer_norm, bf16 "
+        "gamma and beta")
+    dx, dgamma, dbeta = ln.fused_layernorm_bwd(x, gamma, dy, 1e-5)
+    torch.cuda.synchronize()
+    ref = ln.layernorm_bwd_plain(x, gamma, dy, 1e-5)
+    mags = layernorm_bwd_magnitudes(x, gamma, dy, 1e-5)
+    bwd = {n: held(got, want, tol, what + " backward " + n, mag)
+           for n, got, want, tol, mag in (
+               ("dx", dx, ref[0], LN_BWD_DX_TOL["bfloat16"], mags[0]),
+               ("dgamma", dgamma, ref[1], LN_BWD_PARAM_TOL, mags[1]),
+               ("dbeta", dbeta, ref[2], LN_BWD_PARAM_TOL, mags[2]))}
+    bwd["max_abs_err"] = max(r["max_abs_err"] for r in bwd.values())
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [C], gb, bb, 1e-5)
+    entry("layernorm_bwd", time_ms(
+        lambda: ln.fused_layernorm_bwd(x, gamma, dy, 1e-5),
+        lambda: ln.layernorm_bwd_plain(x, gamma, dy, 1e-5),
+        lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, x, [C], mean, rstd, gb, bb, [True, True, True])),
+        _ln_bwd_bound(R, C, 2), [R, C], bwd,
+        library="aten native_layer_norm_backward, bf16 gamma, the "
+        "forward's mean and rstd given")
+    del x, dy, dx, dgamma, dbeta, ref, mags, mean, rstd
+
+    # the causal flash forward with the lse and the causal flash backward
+    # at (8, 12, 1024, 64)
+    q, k, v, do, lse, delta = flash_bwd_inputs(dev, g, B, H, T, D,
+                                               causal=True)
+    what = "gpt2 train flash causal %s" % ([B, H, T, D],)
+    o_k, lse_k = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    o_p, lse_p = fa.flash_attention_plain(q, k, v, causal=True,
+                                          return_lse=True)
+    fwd = held(o_k, o_p, FLASH_TOL, what + " forward",
+               flash_magnitude(q, k, v, causal=True))
+    fwd["lse"] = held(lse_k, lse_p, (LSE_TOL, 0.0, 0.0), what + " lse")
+    del o_k, lse_k, o_p, lse_p
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa():
+        return TF.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(), (qs, ks, vs), do)
+
+    t_fwd, t_fwd_plain, lib_fwd, lib_both = time_ms(
+        lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True),
+        lambda: fa.flash_attention_plain(q, k, v, causal=True,
+                                         return_lse=True),
+        sdpa, sdpa_fwd_bwd)
+    f_ops, f_bytes = _flash_causal_bound(B, H, T, D)
+    entry("flash_attention_fwd", (t_fwd, t_fwd_plain, lib_fwd),
+          (f_ops, f_bytes + 4 * B * H * T / PEAK_BYTES), [B, H, T, D], fwd,
+          causal=True, return_lse=True,
+          library="scaled_dot_product_attention(is_causal=True)")
+    args = (q, k, v, do, lse, delta)
+    dq, dk, dv = fa.flash_attention_bwd(*args, causal=True)
+    torch.cuda.synchronize()
+    rdq, rdk, rdv = fa.flash_attention_bwd_plain(*args, causal=True)
+    mdq, mdk, mdv = flash_bwd_magnitudes(*args, causal=True)
+    bwd = {"dq": held(dq, rdq, FLASH_BWD_TOL, what + " dq", mdq),
+           "dk": held(dk, rdk, FLASH_BWD_TOL, what + " dk", mdk),
+           "dv": held(dv, rdv, FLASH_BWD_TOL, what + " dv", mdv)}
+    bwd["max_abs_err"] = max(r["max_abs_err"] for r in bwd.values())
+    del dq, dk, dv, rdq, rdk, rdv, mdq, mdk, mdv
+    t_bwd, t_bwd_plain = time_ms(
+        lambda: fa.flash_attention_bwd(*args, causal=True),
+        lambda: fa.flash_attention_bwd_plain(*args, causal=True))
+    pairs = B * H * T * (T + 1) // 2 * D
+    entry("flash_attention_bwd", (t_bwd, t_bwd_plain, lib_both - lib_fwd),
+          (10 * pairs / PEAK_BF16,
+           (7 * B * H * T * D * 2 + 2 * B * H * T * 4) / PEAK_BYTES),
+          [B, H, T, D], bwd, causal=True,
+          library="backward of scaled_dot_product_attention(is_causal="
+          "True) (forward + backward less forward)")
+    del q, k, v, do, lse, delta, args, qs, ks, vs
+
+    # softmax-xent at the LM head: (8192, 50257) bf16 logits, dy = 1 / T
+    # (the mean over T of SoftmaxCrossEntropyLoss, then the sum over B)
+    x = (torch.randn(R, V, device=dev, generator=g) * 3).to(torch.bfloat16)
+    labels = torch.randint(0, V, (R,), device=dev, generator=g,
+                           dtype=torch.int32)
+    labels[0] = V - 1
+    dy = torch.full((R,), 1.0 / T, device=dev)
+    what = "gpt2 train softmax-xent (%d, %d) bf16" % (R, V)
+    loss, lse = sx.softmax_xent_fwd(x, labels)
+    torch.cuda.synchronize()
+    ref_loss, ref_lse = sx.softmax_xent_fwd_plain(x, labels)
+    fwd = held(loss, ref_loss, XENT_TOL, what + " loss")
+    fwd["lse"] = held(lse, ref_lse, XENT_TOL, what + " lse")
+    dx = sx.softmax_xent_bwd(x, labels, ref_lse, dy)
+    torch.cuda.synchronize()
+    bwd = held(dx, sx.softmax_xent_bwd_plain(x, labels, ref_lse, dy),
+               XENT_DX_TOL["bfloat16"], what + " dx")
+    del loss, lse, ref_loss, dx
+    xf = x.float().requires_grad_()
+    lab64 = labels.long()
+
+    def lib_fwd_x():
+        return TF.cross_entropy(xf, lab64, reduction="none")
+
+    def lib_fwd_bwd_x():
+        return torch.autograd.grad(lib_fwd_x(), xf, dy)
+
+    ms, plain_ms, lib_ms, lib_both = time_ms(
+        lambda: sx.softmax_xent_fwd(x, labels),
+        lambda: sx.softmax_xent_fwd_plain(x, labels),
+        lib_fwd_x, lib_fwd_bwd_x)
+    ops = 5 * R * V
+    xbytes = R * V * x.element_size()
+    entry("softmax_xent_fwd", (ms, plain_ms, lib_ms),
+          (ops / PEAK_FP32, (xbytes + 3 * R * 4) / PEAK_BYTES), [R, V], fwd,
+          library="F.cross_entropy(reduction='none') on fp32 logits")
+    bwd_ms, bwd_plain_ms = time_ms(
+        lambda: sx.softmax_xent_bwd(x, labels, ref_lse, dy),
+        lambda: sx.softmax_xent_bwd_plain(x, labels, ref_lse, dy))
+    entry("softmax_xent_bwd", (bwd_ms, bwd_plain_ms, lib_both - lib_ms),
+          (ops / PEAK_FP32, (2 * xbytes + 3 * R * 4) / PEAK_BYTES), [R, V],
+          bwd, library="backward of F.cross_entropy on fp32 logits "
+          "(forward + backward less forward)")
+    del x, xf, ref_lse
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ snapshots
+def snapshot_expected_keys(manifest, spec_k):
+    """The step programs a load must capture for a manifest's entries: each
+    decode, verify and chunk entry's greedy and sampled programs (or those
+    its ``sampling`` lists), at the snapshot's capacity."""
+    keys = set()
+    for fe in manifest["executables"].values():
+        for s in fe.get("sampling", (False, True)):
+            if fe["kind"] == "decode":
+                keys.add(("decode", fe["capacity"], s))
+            elif fe["kind"] == "verify":
+                keys.add(("verify", fe["capacity"], spec_k, s))
+            elif fe["kind"] == "chunk":
+                keys.add(("chunk", fe["tp"], fe["capacity"], s))
+    return keys
+
+
+def first_token_ms(make, prompt):
+    """``make()`` (a server) and one greedy request through it: (ms from
+    the call to the server's return, ms to the request's first token, the
+    server's step captures once the request is done)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv = make()
+    torch.cuda.synchronize()
+    built = (time.perf_counter() - t0) * 1e3
+    with srv:
+        stream = srv.submit(prompt, max_new_tokens=GPT_NEW_TOKENS)
+        next(iter(stream))
+        ms = (time.perf_counter() - t0) * 1e3
+        stream.result(600)
+    return built, ms, srv.stats()["step_captures"]
+
+
+def phase_snapshot(dev):
+    """Serving snapshots of GPT-2 small (``serve.snapshot``,
+    ``serve.load(snapshot=True)``): a warmed bf16 server (prefix cache,
+    ``prefill_chunk=256``, ``NGramDraft``) and a warmed int8 one, each
+    serving burst 1 of ``phase_generate``, snapshotted, and loaded on a bare
+    ``gpt2_small()`` skeleton: load captures exactly the listed programs, a
+    request and the burst after it capture nothing, the parameters are
+    bit-equal, the streams (the original's and the loaded one's) equal a
+    plain server's of the same weights and mode (no prefix cache, draft or
+    chunks; its logits recorded) under the tie-margin rule,
+    ``GREEDY_TIE_TOL`` (bf16) or ``INT8_TIE_TOL`` (int8); a manifest with an
+    edited
+    fingerprint warns once and still serves. Prints the time from
+    ``serve.load`` to the first token beside a cold replica's from the same
+    artifact with no program listed, and a cold server's of the model
+    already in memory (no warmup, its first request)."""
+    import shutil
+    import tempfile
+
+    vocab = GPT_CONFIG["vocab_size"]
+    burst, keys = [], set()
+    for prompt, temp, seed in _gpt_requests(vocab)[0]:
+        # the repeat (a prefix hit, greedy) gets a seed of its own: its
+        # logits are recorded under its own key, its tokens are the same
+        while _req_key(prompt, temp, seed) in keys:
+            seed += 1
+        keys.add(_req_key(prompt, temp, seed))
+        burst.append((prompt, temp, seed))
+    buckets = warm_prompts([burst])
+    # the load's first request: the burst's first greedy one
+    first = next(r for r in burst if not r[1])
+    out = {}
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_work")
+    os.makedirs(work, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="snapshots-", dir=work)
+    try:
+        for mode in (None, "int8"):
+            out[mode or "bf16"] = snapshot_case(dev, mode, burst, buckets,
+                                                first, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def snapshot_case(dev, mode, burst, buckets, first, tmp):
+    """:func:`phase_snapshot` for one server (bf16 or int8)."""
+    import warnings
+
+    import torch
+    from mxnet_tpu_torch import serve
+    from mxnet_tpu_torch.cache import snapshot as snap
+    from mxnet_tpu_torch.models.gpt import gpt2_small
+    from mxnet_tpu_torch.serve import NGramDraft
+
+    name = mode or "bf16"
+    what = "gpt %s snapshot" % name
+    model = _gpt_model(dev, SEED + 40)
+    kw = {"quantize": mode, "prefix_cache": True}
+    if mode is None:
+        kw.update(prefill_chunk=CHUNK, draft=NGramDraft(), spec_k=SPEC_K)
+    # the reference: a plain server of the same weights (no prefix cache,
+    # no draft, no chunks), its logits recorded
+    ref_srv = _gen_server(model, dev, quantize=mode)
+    ref_srv.warmup(prompt_buckets=buckets,
+                   max_tokens=GPT_CONFIG["max_length"])
+    with record_logits(ref_srv) as rec:
+        ref, _ = serve_bursts(ref_srv, [burst], GPT_NEW_TOKENS,
+                              what + " reference (plain, logits recorded)")
+    del ref_srv
+    orig = _gen_server(model, dev, **kw)
+    orig.warmup(prompt_buckets=buckets,
+                max_tokens=GPT_CONFIG["max_length"] - SPEC_K + 1)
+    got_orig, _ = serve_bursts(orig, [burst], GPT_NEW_TOKENS,
+                               what + " original")
+    tol = INT8_TIE_TOL if mode else GREEDY_TIE_TOL
+    prefix = os.path.join(tmp, name)
+    t0 = time.perf_counter()
+    path = serve.snapshot(orig, prefix)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    with open(path) as fh:
+        manifest = json.load(fh)
+    expected = snapshot_expected_keys(manifest, SPEC_K)
+    # the entries load captures programs for; the eager ones are only kept
+    captured = [k for k, fe in manifest["executables"].items()
+                if fe["kind"] in ("decode", "verify", "chunk", "draftstep")]
+    check(set(orig._steps.keys()) == expected,
+          "%s: the manifest lists %s, the server holds %s"
+          % (what, sorted(map(str, expected)),
+             sorted(map(str, orig._steps.keys()))))
+    draft = {"draft": NGramDraft()} if mode is None else {}
+
+    def load(prefix=prefix, draft=draft):
+        return serve.load(prefix, snapshot=True, model=gpt2_small(),
+                          device=dev, timeout_ms=600000.0, **draft)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        srv = load()
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+    warned = [str(w.message) for w in caught
+              if issubclass(w.category, RuntimeWarning)]
+    check(not warned, "%s: load warned %s" % (what, warned))
+    st = srv.stats()
+    check(set(srv._steps.keys()) == expected
+          and st["step_captures"] == len(expected)
+          and st["snapshot_programs"] == len(captured),
+          "%s: load made %s (%d captures, %d programs), the manifest "
+          "lists %s (%d entries)" % (
+              what, sorted(map(str, srv._steps.keys())),
+              st["step_captures"], st["snapshot_programs"],
+              sorted(map(str, expected)), len(captured)))
+    want_p = orig.model._collect_params_with_prefix()
+    got_p = srv.model._collect_params_with_prefix()
+    check(sorted(want_p) == sorted(got_p) and all(
+        got_p[n].data().dtype == p.data().dtype
+        and torch.equal(got_p[n].data(), p.data())
+        for n, p in want_p.items()),
+        "%s: the loaded parameters are not bit-equal" % what)
+    # the load's first request, then the burst: nothing is captured
+    captures0 = st["step_captures"]
+    got, timing = serve_bursts(srv, [[first], burst], GPT_NEW_TOKENS,
+                               what + " loaded")
+    first_toks, got, timing = got[0][0], got[1:], timing[1:]
+    st = srv.stats()
+    check(st["step_captures"] == captures0 and st["errors"] == 0,
+          "%s: %d programs captured in traffic after load, %d errors"
+          % (what, st["step_captures"] - captures0, st["errors"]))
+    vs_ref = compare_streams(burst, got[0], ref[0], rec.rows,
+                             what + " loaded", tol=tol)
+    orig_vs_ref = compare_streams(burst, got_orig[0], ref[0], rec.rows,
+                                  what + " original", tol=tol)
+    same = sum(a == b for a, b in zip(got[0], got_orig[0]))
+    del srv
+    torch.cuda.empty_cache()
+    # the time from serve.load to the first token; a cold replica's from
+    # the same artifact with no program listed (the checkpoint and config a
+    # replica without a snapshot reads too, then its first request
+    # captures what it needs); and a cold server's of the model already in
+    # memory, from its construction (no warmup) to its first request's
+    warm_built, warm_ms, warm_captures = first_token_ms(load, first[0])
+    cold_prefix = prefix + "-cold"
+    os.symlink(os.path.abspath(snap._params_path(prefix, 0)),
+               snap._params_path(cold_prefix, 0))
+    snap.atomic_write(snap._manifest_path(cold_prefix), json.dumps(
+        dict(manifest, executables={})).encode())
+    file_built, file_ms, file_captures = first_token_ms(
+        lambda: load(cold_prefix), first[0])
+    cold_built, cold_ms, cold_captures = first_token_ms(
+        lambda: _gen_server(model, dev, **dict(
+            kw, draft=NGramDraft() if mode is None else None)),
+        first[0])
+    torch.cuda.empty_cache()
+    # a manifest with an edited fingerprint: one warning, and it serves
+    manifest["fingerprint"] += "-edited"
+    snap.atomic_write(path, json.dumps(manifest).encode())
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        stale = load()
+    warned = [str(w.message) for w in caught
+              if issubclass(w.category, RuntimeWarning)]
+    check(len(warned) == 1 and "was made by" in warned[0],
+          "%s: an edited fingerprint gave the warnings %s"
+          % (what, warned))
+    with stale:
+        stale_toks = stale.generate(first[0],
+                                    max_new_tokens=GPT_NEW_TOKENS)
+    first_row = ref[0][burst.index(first)]
+    rows = rec.rows[_req_key(*first)]
+    compare_to_plain(first_toks, first_row, rows, first,
+                     what + " loaded, first request", tol)
+    compare_to_plain(stale_toks, first_row, rows, first,
+                     what + " loaded from the edited manifest", tol)
+    del stale
+    print("%s: %d programs listed (%d step programs), saved in %.1f ms, "
+          "loaded in %.1f ms; serve.load to the first token %.1f ms (the "
+          "load %.1f ms of it, %d captures in the request); a cold replica "
+          "from the same artifact with no program listed %.1f ms (its load "
+          "%.1f ms, %d captures in the request); a cold server of the model "
+          "in memory %.1f ms (its construction %.1f ms, %d captures); %d of "
+          "%d streams equal to the original's; against the reference %s"
+          % (what, len(manifest["executables"]), len(expected), save_ms,
+             load_ms, warm_ms, warm_built, warm_captures - len(expected),
+             file_ms, file_built, file_captures, cold_ms, cold_built,
+             cold_captures, same, len(burst),
+             {k: v for k, v in vs_ref.items() if k != "margins"}),
+          flush=True)
+    return {
+        "programs_listed": len(manifest["executables"]),
+        "step_programs_captured_at_load": len(expected),
+        "keys": sorted(manifest["executables"]),
+        "save_ms": save_ms, "load_ms": load_ms,
+        "load_to_first_token_ms": warm_ms, "load_of_it_ms": warm_built,
+        "cold_first_token_ms": cold_ms, "cold_construction_ms": cold_built,
+        "captures_in_first_request_after_load": warm_captures
+        - len(expected),
+        "cold_captures_in_first_request": cold_captures,
+        "cold_from_artifact_first_token_ms": file_ms,
+        "cold_from_artifact_load_ms": file_built,
+        "cold_from_artifact_captures_in_first_request": file_captures,
+        "loaded_vs_reference": vs_ref,
+        "original_vs_reference": orig_vs_ref,
+        "streams_equal_to_original": same, "streams": len(burst),
+        "tokens_per_s": timing[0]["tokens_per_s"]}
+
+
 def main():
     try:
         import torch
@@ -4328,6 +5061,7 @@ def main():
         model, serve_launches, forwards, serve_vl, serving = phase_serve(dev)
         step, train = phase_train(dev)
         bert128 = phase_bert128(dev)
+        gpt_step, gpt_train = phase_gpt_train(dev)
         gen_srv, gen_model, gen = phase_generate(dev)
         check_generate_launches(gen)
         gen["single_requests"] = phase_generate_launches(dev, gen_srv)
@@ -4342,6 +5076,7 @@ def main():
         quant_model, quant = phase_generate_quant(dev)
         quant["products"] = lowbit
         quant["bert_int8_serving"], bert_int8 = phase_serve_quant(dev)
+        snapshots = phase_snapshot(dev)
         records, crossover = phase_timing(
             dev, train["launches"], train["steps_counted"], errs,
             serve_launches, forwards, serve_vl)
@@ -4350,10 +5085,14 @@ def main():
         train_crossover = phase_train_crossover(dev)
         phase_generate_timing(dev, records, gen)
         phase_quant_timing(dev, records, quant)
+        phase_gpt_train_timing(dev, records, gpt_train)
         # the profiler windows come last: once a profiler session has run,
         # an eager step's host wall may not return to what it was before
         breakdown = phase_breakdown(dev, model)
         train["breakdown"] = phase_train_breakdown(step)
+        gpt_train["breakdown"] = phase_train_breakdown(
+            gpt_step, label="gpt2 train step")
+        del gpt_step
         gen["breakdown"] = phase_generate_breakdown(dev, gen_model)
         quant["breakdown"] = phase_generate_breakdown(dev, quant_model,
                                                       quantize="int8")
@@ -4375,7 +5114,8 @@ def main():
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"checks": checks, "serving": serving,
                       "breakdown": breakdown, "train_bert512": train,
-                      "train_bert128": bert128, "generate": gen,
+                      "train_bert128": bert128, "train_gpt2": gpt_train,
+                      "generate": gen, "snapshots": snapshots,
                       "decode_step_graphs": graphs, "quantized": quant,
                       "speculative": spec, "chunked_prefill": chunked,
                       "attention_dense_vs_flash": crossover,

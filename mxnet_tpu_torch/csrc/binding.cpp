@@ -33,10 +33,10 @@ int mxt_flash_bwd(const void* q, const void* k, const void* v,
                   float scale, int causal, void* stream);
 int64_t mxt_flash_bwd_workspace(int batch_heads, int tq, int d);
 int mxt_xent_fwd(const void* x, const int32_t* labels, float* loss, float* lse,
-                 int64_t rows, int V, int dtype, void* stream);
+                 int64_t rows, int V, int64_t ldx, int dtype, void* stream);
 int mxt_xent_bwd(const void* x, const int32_t* labels, const float* lse,
-                 const float* dy, void* dx, int64_t rows, int V, int dtype,
-                 void* stream);
+                 const float* dy, void* dx, int64_t rows, int V, int64_t ldx,
+                 int64_t ldd, int dtype, void* stream);
 const char* mxt_cuda_error_string(int err);
 }
 
@@ -153,8 +153,8 @@ void xent_fwd(const torch::Tensor& x, const torch::Tensor& labels,
               torch::Tensor& loss, torch::Tensor& lse, int64_t stream) {
   check_launch(mxt_xent_fwd(x.data_ptr(), labels.data_ptr<int32_t>(),
                             loss.data_ptr<float>(), lse.data_ptr<float>(),
-                            x.size(0), (int)x.size(1), dtype_code(x),
-                            reinterpret_cast<void*>(stream)),
+                            x.size(0), (int)x.size(1), x.stride(0),
+                            dtype_code(x), reinterpret_cast<void*>(stream)),
                "xent_fwd");
 }
 
@@ -164,7 +164,8 @@ void xent_bwd(const torch::Tensor& x, const torch::Tensor& labels,
   check_launch(mxt_xent_bwd(x.data_ptr(), labels.data_ptr<int32_t>(),
                             lse.data_ptr<float>(), dy.data_ptr<float>(),
                             dx.data_ptr(), x.size(0), (int)x.size(1),
-                            dtype_code(x), reinterpret_cast<void*>(stream)),
+                            x.stride(0), dx.stride(0), dtype_code(x),
+                            reinterpret_cast<void*>(stream)),
                "xent_bwd");
 }
 

@@ -19,7 +19,9 @@
 //   only every eighth row, so each row takes its unaligned head and tail
 //   element by element and the rest as vectors: any V works (2, 1000,
 //   30522, 50257), with no padding to a lane multiple (the TPU kernel's
-//   `_pad_lanes` -1e30 padding is a TPU layout rule);
+//   `_pad_lanes` -1e30 padding is a TPU layout rule). Each row is found by
+//   its own stride (`ldx`, `ldd` elements), so a view of wider rows, such
+//   as a padded vocabulary sliced to V, is read where it lies;
 // * the forward keeps an online (max, sum of exp) pair: each 16-byte vector
 //   is reduced against its own max, then merged, so the row is read from
 //   device memory once; the pairs meet by warp shuffles and one shared
@@ -78,12 +80,13 @@ __device__ __forceinline__ void split_row(const T* x, const T* y, int V,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 xent_fwd_kernel(const T* __restrict__ x, const int32_t* __restrict__ labels,
-                float* __restrict__ loss, float* __restrict__ lse, int V) {
+                float* __restrict__ loss, float* __restrict__ lse, int V,
+                int64_t ldx) {
   constexpr int kN = kVecN<T>;
   __shared__ float ms[kThreads / 32];
   __shared__ float ss[kThreads / 32];
   const int64_t row = blockIdx.x;
-  const T* xr = x + row * V;
+  const T* xr = x + row * ldx;
   int head, nvec;
   split_row<T>(xr, nullptr, V, head, nvec);
 
@@ -137,11 +140,11 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 xent_bwd_kernel(const T* __restrict__ x, const int32_t* __restrict__ labels,
                 const float* __restrict__ lse, const float* __restrict__ dy,
-                T* __restrict__ dx, int V) {
+                T* __restrict__ dx, int V, int64_t ldx, int64_t ldd) {
   constexpr int kN = kVecN<T>;
   const int64_t row = blockIdx.x;
-  const T* xr = x + row * V;
-  T* dr = dx + row * V;
+  const T* xr = x + row * ldx;
+  T* dr = dx + row * ldd;
   int head, nvec;
   split_row<T>(xr, dr, V, head, nvec);
   const float l = lse[row];
@@ -169,46 +172,53 @@ xent_bwd_kernel(const T* __restrict__ x, const int32_t* __restrict__ labels,
 
 template <typename T>
 int launch_fwd(const void* x, const int32_t* labels, float* loss, float* lse,
-               int64_t rows, int V, cudaStream_t stream) {
+               int64_t rows, int V, int64_t ldx, cudaStream_t stream) {
   xent_fwd_kernel<T><<<(unsigned)rows, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), labels, loss, lse, V);
+      static_cast<const T*>(x), labels, loss, lse, V, ldx);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_bwd(const void* x, const int32_t* labels, const float* lse,
-               const float* dy, void* dx, int64_t rows, int V,
-               cudaStream_t stream) {
+               const float* dy, void* dx, int64_t rows, int V, int64_t ldx,
+               int64_t ldd, cudaStream_t stream) {
   xent_bwd_kernel<T><<<(unsigned)rows, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), labels, lse, dy, static_cast<T*>(dx), V);
+      static_cast<const T*>(x), labels, lse, dy, static_cast<T*>(dx), V, ldx,
+      ldd);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x: (rows, V) contiguous, dtype 0 float32 or 1 bfloat16; labels: (rows,)
-// int32; loss, lse, dy: (rows,) float32; dx: like x. Each returns the
+// x: (rows, V) with unit column stride and row stride ldx >= V, dtype 0
+// float32 or 1 bfloat16; labels: (rows,) int32; loss, lse, dy: (rows,)
+// float32; dx: (rows, V) in x's dtype, row stride ldd. Each returns the
 // cudaError_t of its launch.
 extern "C" int mxt_xent_fwd(const void* x, const int32_t* labels, float* loss,
-                            float* lse, int64_t rows, int V, int dtype,
-                            void* stream) {
+                            float* lse, int64_t rows, int V, int64_t ldx,
+                            int dtype, void* stream) {
   if (rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_fwd<float>(x, labels, loss, lse, rows, V, s);
-    case 1: return launch_fwd<__nv_bfloat16>(x, labels, loss, lse, rows, V, s);
+    case 0: return launch_fwd<float>(x, labels, loss, lse, rows, V, ldx, s);
+    case 1:
+      return launch_fwd<__nv_bfloat16>(x, labels, loss, lse, rows, V, ldx, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 extern "C" int mxt_xent_bwd(const void* x, const int32_t* labels,
                             const float* lse, const float* dy, void* dx,
-                            int64_t rows, int V, int dtype, void* stream) {
+                            int64_t rows, int V, int64_t ldx, int64_t ldd,
+                            int dtype, void* stream) {
   if (rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_bwd<float>(x, labels, lse, dy, dx, rows, V, s);
-    case 1: return launch_bwd<__nv_bfloat16>(x, labels, lse, dy, dx, rows, V, s);
+    case 0:
+      return launch_bwd<float>(x, labels, lse, dy, dx, rows, V, ldx, ldd, s);
+    case 1:
+      return launch_bwd<__nv_bfloat16>(x, labels, lse, dy, dx, rows, V, ldx,
+                                       ldd, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

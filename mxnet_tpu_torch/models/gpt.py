@@ -220,12 +220,13 @@ class GPTModel(HybridBlock):
     def decode_state_spec(self):
         """The cache contract for decode schedulers (serve.GenerativeServer):
         per layer, K/V buffers are (slots, heads, capacity, head_dim) of
-        ``dtype`` on ``device``."""
+        ``dtype`` on ``device``; the logits are ``vocab_size`` wide."""
         H = self.blocks[0].attn._heads
         w = self.word_embed.weight.data()
         return {"layers": len(self.blocks), "heads": H,
                 "head_dim": self._units // H, "max_length": self._max_len,
-                "dtype": w.dtype, "device": w.device}
+                "vocab_size": w.shape[0], "dtype": w.dtype,
+                "device": w.device}
 
     def init_cache(self, batch_size, capacity=None, dtype=None):
         """Fixed-capacity decode cache on the parameters' device: per layer

@@ -5,7 +5,8 @@ the per-row NLL of int labels under softmax(logits), fp32 whatever the
 logits' dtype, with a backward that reuses the forward's saved logsumexp.
 The kernels are ``mxnet_tpu_torch/csrc/softmax_xent.cu`` (why they are
 shaped as they are, and what bounds them, is written there): any V, fp32 or
-bf16 logits, no padding of V.
+bf16 logits, no padding of V, rows at any stride of at least V (a padded
+vocabulary sliced to V is read where it lies, not copied).
 
 :func:`softmax_xent_fwd` and :func:`softmax_xent_bwd` take the plain
 version for CPU tensors and launch the kernel for CUDA tensors, or raise;
@@ -59,8 +60,11 @@ def _check(x, labels):
     if x.dtype not in DTYPES:
         raise TypeError("softmax-xent kernel takes %s logits, got %s"
                         % (DTYPES, x.dtype))
-    if not x.is_contiguous():
-        raise ValueError("softmax-xent kernel takes contiguous logits")
+    R, V = x.shape
+    if (V > 1 and x.stride(1) != 1) or (R > 1 and x.stride(0) < V):
+        raise ValueError("softmax-xent kernel takes logits whose rows are "
+                         "contiguous and do not overlap, got strides %s"
+                         % (x.stride(),))
     if x.shape[1] >= 2 ** 31:
         raise ValueError("softmax-xent kernel takes V < 2**31")
     if tuple(labels.shape) != (x.shape[0],) or labels.dtype != torch.int32:
@@ -93,8 +97,8 @@ def softmax_xent_fwd(x, labels):
 
 
 def softmax_xent_bwd(x, labels, lse, dy):
-    """dx (R, V) in x's dtype from the logits, labels, the forward's lse and
-    the loss gradient dy (R,) float32."""
+    """dx (R, V), contiguous, in x's dtype from the logits, labels, the
+    forward's lse and the loss gradient dy (R,) float32."""
     if x.device.type == "cpu":
         return softmax_xent_bwd_plain(x, labels, lse, dy)
     _on_card(x)
@@ -105,7 +109,7 @@ def softmax_xent_bwd(x, labels, lse, dy):
             raise ValueError("softmax-xent backward takes a contiguous "
                              "float32 %s of shape (%d,) on %s"
                              % (name, x.shape[0], x.device))
-    dx = torch.empty_like(x)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     _build.extension().xent_bwd(
         x, labels, lse, dy, dx,
         torch.cuda.current_stream(x.device).cuda_stream)
@@ -133,6 +137,8 @@ class _SoftmaxXent(torch.autograd.Function):
 
 def softmax_xent(logits, labels):
     """Per-row NLL (R,) float32 of int labels (R,) under softmax(logits
-    (R, V)); differentiable in ``logits``."""
-    return _SoftmaxXent.apply(logits.contiguous(),
-                              labels.to(torch.int32).contiguous())
+    (R, V)); differentiable in ``logits``. The logits are handed on as they
+    are, never copied (a copy of a language model's logits is another
+    0.8 GB): the kernels read rows at the view's own row stride, and a view
+    whose columns are strided raises in the kernel's check."""
+    return _SoftmaxXent.apply(logits, labels.to(torch.int32).contiguous())

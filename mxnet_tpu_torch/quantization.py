@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .base import resolve_device
 from .gluon import nn
 from .gluon.block import HybridBlock
 from .ops.lowbit import (_FP8_DTYPES, _QMAX, dequantize,  # noqa: F401
@@ -50,16 +51,17 @@ def stats():
 
 
 def _probe_device():
-    return torch.device("cuda", torch.cuda.current_device()) \
-        if torch.cuda.is_available() else torch.device("cpu")
+    # the port's default device: the card, or DeviceError without one
+    return resolve_device(None)
 
 
 def fp8_supported(mode="e4m3", device=None):
     """True when the port can compute the ``mode`` product (``e4m3`` or
-    ``e5m2``) on ``device`` (default: the current CUDA device, else the
-    CPU): its route runs once on a tiny product there, cached per mode and
-    device type, as the JAX package probes its backend once. ``int8`` is
-    always True."""
+    ``e5m2``) on ``device`` (default: the current CUDA device; without one
+    it raises ``DeviceError`` unless ``device="cpu"`` is asked for): its
+    route runs once on a tiny product there, cached per mode and device
+    type, as the JAX package probes its backend once. ``int8`` is always
+    True."""
     if mode == "int8":
         return True
     if mode not in _FP8_DTYPES:
@@ -217,10 +219,13 @@ def _quantized_layers(block, out):
 
 
 def _param_device(block):
+    """The device of the block's first materialized parameter; for a bare
+    skeleton the port's default device (the card, ``DeviceError`` without
+    one), never the CPU unasked."""
     for p in block.collect_params().values():
         if p.device is not None:
             return p.device
-    return torch.device("cpu")
+    return resolve_device(None)
 
 
 def _as_input(x, device):

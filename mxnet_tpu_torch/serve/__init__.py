@@ -2,7 +2,11 @@
 dynamic-batching ModelServer (DynamicBatcher, BucketedExecutor,
 ServeMetrics) and the continuous-batching GenerativeServer over a paged KV
 cache (PagedKVCache, PrefixCache, GenerativeMetrics), with speculative
-decode through a draft (NGramDraft, ModelDraft) and chunked prefill."""
+decode through a draft (NGramDraft, ModelDraft) and chunked prefill;
+``snapshot`` and ``load(snapshot=True)`` for a warm restart, ``stats()``
+over the live servers."""
+import weakref
+
 from .batcher import (DynamicBatcher, ServeError, ServerBusy,  # noqa: F401
                       ServeTimeout)
 from .decoder import (GenerationStream, GenerativeServer,  # noqa: F401
@@ -12,3 +16,50 @@ from .kv_cache import CacheError, PagedKVCache, PrefixCache  # noqa: F401
 from .metrics import GenerativeMetrics, ServeMetrics  # noqa: F401
 from .server import DEFAULT_BUCKETS, ModelServer  # noqa: F401
 from .speculative import ModelDraft, NGramDraft  # noqa: F401
+
+# live servers for the aggregate stats(); weak, so a dropped server never
+# lingers
+_SERVERS = weakref.WeakSet()
+
+
+def _register(server):
+    _SERVERS.add(server)
+
+
+def load(prefix, snapshot=False, model=None, **server_kwargs):
+    """Warm-start a served model. ``snapshot=True``: a ready
+    ``GenerativeServer`` from an artifact ``serve.snapshot`` wrote (this
+    package's or the JAX package's), every program it lists captured
+    before the first request (``mxnet_tpu_torch.cache.snapshot``);
+    ``model=`` is the skeleton, extra kwargs reach the server's
+    constructor. The default, loading an export layout into a
+    ``SymbolBlock`` (``checkpoint.load_for_serving``), needs ``symbol``
+    (ROADMAP.md A.14) and raises."""
+    if snapshot:
+        from ..cache.snapshot import load_snapshot
+
+        return load_snapshot(prefix, model=model, **server_kwargs)
+    raise ServeError("serve.load without snapshot=True reads an export "
+                     "layout into a SymbolBlock: not ported (ROADMAP.md "
+                     "A.14, checkpoint.load_for_serving)")
+
+
+def snapshot(server, prefix, epoch=0):
+    """Write the serving artifact of a live, warmed ``GenerativeServer``:
+    its checkpoint, config and the list of its programs (see
+    ``load(prefix, snapshot=True)``). A ``ModelServer`` raises
+    ``ServeError``: its artifact needs ``save_for_serving``, which needs
+    ``symbol`` (ROADMAP.md A.14), and a graph per bucket (A.9)."""
+    from ..cache.snapshot import save_snapshot
+
+    return save_snapshot(server, prefix, epoch=epoch)
+
+
+def stats():
+    """Every live server's ``stats()``, keyed by its name, and the
+    process-wide count of step programs made (captured on the card), the
+    port's counterpart of the JAX package's ``decode_compile_counter``."""
+    from .step_graph import capture_counter
+
+    return {"step_capture_counter": capture_counter.count,
+            "servers": {s.name: s.stats() for s in list(_SERVERS)}}

@@ -354,6 +354,11 @@ class GenerativeServer:
                                        device=dev)
         if draft is not None:
             draft.bind(self)
+        # the eager paths' buckets served or listed by a loaded snapshot,
+        # (kind, tp, capacity): what a snapshot lists beside the step
+        # programs; and the step programs a snapshot's load captured
+        self._eager_served = set()
+        self._snapshot_programs = 0
         self._warm = False
         # host bookkeeping per slot
         self._slot_req = [None] * self.slots   # admission handle (deadline)
@@ -365,6 +370,9 @@ class GenerativeServer:
             max_queue=max_queue, num_dispatchers=1, metrics=self.metrics)
         self._loop_thread = None
         self._stop_flag = False
+        from . import _register
+
+        _register(self)
 
     # ------------------------------------------------------------ lifecycle
     def start(self):
@@ -589,6 +597,7 @@ class GenerativeServer:
             last = logits[0, n - 1]
             first = self._sample_one(last, seed, n, temperature)
             self._tok[slot] = first[0]
+        self._eager_served.add(("prefill", tp, self.cache.capacity))
         return first, last, tp
 
     def _inject(self, slot, hit, seed, temperature):
@@ -608,6 +617,7 @@ class GenerativeServer:
             first = self._sample_one(last.to(self.device), seed, plen,
                                      temperature)
             self._tok[slot] = first[0]
+        self._eager_served.add(("inject", n, self.cache.capacity))
         return first
 
     def _write_pages(self, slot, ks, vs, plen, tp):
@@ -632,6 +642,7 @@ class GenerativeServer:
         (inject requantizes them exactly: the largest element gives the
         same scale again)."""
         c = self.cache
+        self._eager_served.add(("extract", tp, c.capacity))
 
         def page(p, scales, i):
             if not c.quantize:
@@ -1100,6 +1111,110 @@ class GenerativeServer:
             self._run_chunk(temperature > 0)
         self.cache.release(slot)
 
+    # ------------------------------------------------ snapshot interface
+    def export_executables(self):
+        """The server's programs for a snapshot manifest, under the JAX
+        package's keys: [{key, kind, tp, capacity, sampling}]. The live step
+        programs (``decode@c<capacity>``, ``verify@c<capacity>``,
+        ``chunk@t<chunk>c<capacity>``; ``sampling`` lists which of the
+        greedy and the sampled program is live), the prompt buckets the
+        eager paths have served (``prefill``, ``inject``, ``extract`` at
+        ``@t<bucket>c<capacity>``) and the draft's. No entry carries a
+        compiled program: a CUDA graph cannot leave its process, so load
+        captures each listed program again."""
+        out = {}
+        for key in self._steps.keys():
+            kind, sampling = key[0], key[-1]
+            if kind == "chunk":
+                tp, cap = key[1], key[2]
+                name = "chunk@t%dc%d" % (tp, cap)
+            else:
+                tp, cap = 0, key[1]
+                name = "%s@c%d" % (kind, cap)
+            e = out.setdefault(name, {"key": name, "kind": kind,
+                                      "tp": int(tp), "capacity": int(cap),
+                                      "sampling": []})
+            e["sampling"] = sorted(e["sampling"] + [bool(sampling)])
+        for kind, tp, cap in sorted(self._eager_served):
+            name = "%s@t%dc%d" % (kind, tp, cap)
+            out[name] = {"key": name, "kind": kind, "tp": int(tp),
+                         "capacity": int(cap)}
+        if self._draft is not None:
+            out.update((e["key"], e) for e in self._draft.export_executables())
+        return [out[k] for k in sorted(out)]
+
+    def preload_executable(self, kind, tp, capacity, compiled=None,
+                           sampling=None):
+        """Make the program of one snapshot entry before traffic, on a
+        throwaway slot, as :meth:`warmup` does: a step program (``decode``,
+        ``verify``, ``chunk``) is captured for each of ``sampling``
+        (default both greedy and sampled); ``draftstep`` goes to the draft.
+        An eager entry (``prefill``, ``inject``, ``extract``,
+        ``draftfill``) has nothing to compile or capture: it is only kept,
+        so that this server's own snapshot lists it again. ``compiled`` is
+        the JAX package's serialized executable, which the port cannot take
+        (a CUDA graph holds one process's device addresses): it must be
+        None."""
+        if compiled is not None:
+            raise ServeError("preload_executable(%r): the port captures its "
+                             "programs and takes no serialized executable"
+                             % kind)
+        if kind in ("draftstep", "draftfill", "verify") \
+                and self._draft is None:
+            raise ServeError("snapshot carries %r programs but this server "
+                             "has no draft configured" % kind)
+        if kind in ("draftstep", "draftfill"):
+            self._draft.preload_executable(kind, tp, capacity)
+            if kind == "draftstep":
+                self._snapshot_programs += 1
+            return
+        if kind in ("prefill", "inject", "extract"):
+            self._eager_served.add((kind, tp, capacity))
+            return
+        if kind not in ("decode", "verify", "chunk"):
+            raise ServeError("unknown snapshot program kind %r" % kind)
+        if kind == "chunk" and tp != self._prefill_chunk:
+            raise ServeError("chunk program of %d positions, but this "
+                             "server's prefill_chunk is %r"
+                             % (tp, self._prefill_chunk))
+        self.cache.ensure_capacity(capacity)
+        if self.cache.capacity != capacity:
+            raise ServeError("a program at capacity %d, but the cache is at "
+                             "%d" % (capacity, self.cache.capacity))
+        slot = self.cache.acquire(GenerationStream([1] * max(1, tp), 1, 0.0,
+                                                   0, 0))
+        if slot is None:
+            raise ServeError("no free slot to make the %r program on: "
+                             "preload before traffic" % kind)
+        try:
+            if kind == "chunk":
+                self._chunk_tokens.zero_()
+                self._chunk_ctl.copy_(torch.tensor([slot, 0, tp, 0]))
+            for s in (False, True) if sampling is None else sampling:
+                if kind == "chunk":
+                    self._chunk_temp.fill_(1.0 if s else 0.0)
+                    self._run_chunk(bool(s))
+                    continue
+                self._temps[slot] = 1.0 if s else 0.0
+                self._ctl_dirty = True
+                if kind == "decode":
+                    self._run_step()
+                else:
+                    self._run_verify()
+        finally:
+            self._temps[slot] = 0.0
+            self._ctl_dirty = True
+            self.cache.release(slot)
+        self._snapshot_programs += 1
+
+    def snapshot(self, prefix, epoch=0):
+        """Write this server's serving artifact (checkpoint, config and the
+        list of its programs); see ``serve.snapshot`` and
+        ``mxnet_tpu_torch.cache.snapshot``. Returns the manifest path."""
+        from ..cache.snapshot import save_snapshot
+
+        return save_snapshot(self, prefix, epoch=epoch)
+
     # ------------------------------------------------------------- stats
     def stats(self):
         """Generative counters on top of the queue and latency metrics."""
@@ -1125,6 +1240,7 @@ class GenerativeServer:
             prefill_chunk=self._prefill_chunk,
             chunk_queue_depth=len(self._chunk_jobs),
             step_programs=len(self._steps.keys()),
+            snapshot_programs=self._snapshot_programs,
             step_captures=self._steps.captures,
             step_replays=self._steps.replays,
             draft_step_captures=(self._draft._steps.captures

@@ -93,6 +93,9 @@ class ModelServer:
             max_wait_ms=max_wait_ms, max_queue=max_queue, metrics=self.metrics)
         self._started = False
         self._start_lock = threading.Lock()
+        from . import _register
+
+        _register(self)
         if warmup:
             self.warmup()
 

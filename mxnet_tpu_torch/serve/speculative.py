@@ -90,6 +90,13 @@ class NGramDraft:
     def warm(self, tp_buckets=()):
         pass
 
+    def export_executables(self):
+        """No programs: the proposals are made on the host."""
+        return []
+
+    def preload_executable(self, kind, tp, capacity):
+        raise ServeError("NGramDraft has no programs (kind %r)" % kind)
+
     def propose(self, histories, k):
         """(slots, k - 1) int32 host proposals, copied into the server's
         drafts buffer; a row without history (a slot not decoding)
@@ -118,6 +125,7 @@ class ModelDraft:
         self.cache = None
         self._steps = None
         self._plist = None
+        self._fills = set()   # (tp, capacity) of the fills run
 
     def bind(self, server):
         spec = self.model.decode_state_spec()
@@ -162,6 +170,7 @@ class ModelDraft:
             for kc, vc, (k, v) in zip(self.cache.k, self.cache.v, kvs):
                 kc[slot, :, :tp].copy_(k[0])
                 vc[slot, :, :tp].copy_(v[0])
+        self._fills.add((tp, self.cache.capacity))
 
     # ------------------------------------------------------ the round
     def _state(self):
@@ -199,6 +208,37 @@ class ModelDraft:
             return self._steps.run(
                 ("draft", self.cache.capacity), self._body(k), self._state(),
                 params=[p.data() for p in self._plist], eager=eager)
+
+    # ----------------------------------------------- snapshot interface
+    def export_executables(self):
+        """The draft's programs for a snapshot manifest, under the JAX
+        package's keys: its live round programs (``draftstep@c<capacity>``)
+        and the prompt buckets its fill has served
+        (``draftfill@t<bucket>c<capacity>``)."""
+        out = [{"key": "draftstep@c%d" % key[1], "kind": "draftstep",
+                "tp": 0, "capacity": int(key[1])}
+               for key in self._steps.keys()]
+        out += [{"key": "draftfill@t%dc%d" % (tp, cap), "kind": "draftfill",
+                 "tp": int(tp), "capacity": int(cap)}
+                for tp, cap in sorted(self._fills)]
+        return out
+
+    def preload_executable(self, kind, tp, capacity):
+        """Make one snapshot entry's program before traffic: the round's
+        program at ``capacity``, captured on slot 0 (a throwaway page, as
+        in :meth:`warm`). A fill (``draftfill``) is eager and has nothing to
+        make: it is only kept, so that the next snapshot lists it again."""
+        if kind not in ("draftstep", "draftfill"):
+            raise ServeError("unknown draft program kind %r" % kind)
+        self.ensure_capacity()
+        if self.cache.capacity != capacity:
+            raise ServeError("a draft program at capacity %d, but the "
+                             "draft's cache is at %d"
+                             % (capacity, self.cache.capacity))
+        if kind == "draftfill":
+            self._fills.add((int(tp), int(capacity)))
+        else:
+            self.propose(None, self._server.spec_k)
 
     def warm(self, tp_buckets=()):
         """Before traffic: a fill at each prompt bucket and the round's

@@ -62,9 +62,19 @@ import torch
 
 from ..ops.cuda import launch_counters
 
-__all__ = ["StepPrograms"]
+__all__ = ["StepPrograms", "capture_counter"]
 
 WARMUP_RUNS = 2
+
+
+class _Counter:
+    """Programs made in this process, by every :class:`StepPrograms`
+    (``serve.stats()`` reads it)."""
+
+    count = 0
+
+
+capture_counter = _Counter()
 
 
 def _addresses(state, params):
@@ -145,6 +155,7 @@ class StepPrograms:
                 else _Program()
             self._programs[key] = prog
             self.captures += 1
+            capture_counter.count += 1
         self.replays += 1
         if prog.graph is None:
             return body(state)

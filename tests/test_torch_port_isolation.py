@@ -1,8 +1,8 @@
 """The port stands alone: no file of ``mxnet_tpu_torch/`` and not
 ``chip_smoke.py`` imports JAX or the JAX package; the package (the GPT
-model, the generative server and the checkpoint layer included) imports
-with JAX blocked; and without CUDA every entry point refuses to run unless
-the caller asks for the CPU."""
+model, the generative server, the checkpoint layer and the snapshots
+included) imports with JAX blocked; and without CUDA every entry point
+refuses to run unless the caller asks for the CPU."""
 import ast
 import os
 import subprocess
@@ -48,7 +48,8 @@ def test_package_imports_with_jax_blocked():
             "import mxnet_tpu_torch, mxnet_tpu_torch.models.bert, "
             "mxnet_tpu_torch.models.gpt, mxnet_tpu_torch.serve.decoder, "
             "mxnet_tpu_torch.checkpoint, "
-            "mxnet_tpu_torch.serve, mxnet_tpu_torch.ops.cuda._build; "
+            "mxnet_tpu_torch.serve, mxnet_tpu_torch.ops.cuda._build, "
+            "mxnet_tpu_torch.cache.snapshot; "
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,

@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Some of ``chip_smoke.py``'s phases alone on one NVIDIA card, to read
+their numbers without the whole run:
+
+    python3 tools/cuda_phases.py [--keep-going] GROUP...
+
+Each GROUP runs these phases of ``chip_smoke.py``, after the kernels are
+built:
+
+- ``kernels``: every kernel against its plain version (``phase_layernorm``,
+  ``phase_flash``, ``phase_flash_f32``, ``phase_xent``, ``phase_flash_bwd``);
+- ``spec``: ``phase_speculative``, ``phase_chunked_prefill``, the
+  speculative programs of ``phase_graph`` (bf16 and int8) and
+  ``phase_speculative_breakdown``;
+- ``gpt_train``: ``phase_gpt_train``, ``phase_gpt_train_timing`` and the
+  step's torch.profiler breakdown;
+- ``snapshot``: ``phase_snapshot``.
+
+The readings go to ``chiprun_out/cuda_phases.json``. ``--keep-going``
+prints a failed check and goes on (to read every number of a first run);
+without it the first failed check ends the run with exit code 1.
+"""
+import json
+import os
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.path.join(REPO, "chiprun_out", "cuda_phases.json")
+GPT_KERNELS = ("layernorm_fwd", "layernorm_bwd", "flash_attention_fwd",
+               "flash_attention_bwd", "softmax_xent_fwd", "softmax_xent_bwd")
+
+
+def run_kernels(cs, dev):
+    ln_fwd, ln_bwd = cs.phase_layernorm(dev)
+    return {"layernorm": ln_fwd, "layernorm_bwd": ln_bwd,
+            "flash_attention_fwd": cs.phase_flash(dev),
+            "flash_attention_fwd_f32": cs.phase_flash_f32(dev),
+            "softmax_xent": cs.phase_xent(dev),
+            "flash_attention_bwd": cs.phase_flash_bwd(dev)}
+
+
+def run_spec(cs, dev):
+    import numpy as np
+
+    spec, plains = cs.phase_speculative(dev)
+    chunked = cs.phase_chunked_prefill(dev, plains)
+    del plains
+    model = cs._gpt_model(dev, cs.SEED + 12)
+    rng = np.random.RandomState(cs.SEED + 11)
+    prompts = [rng.randint(0, cs.GPT_CONFIG["vocab_size"], n).astype(
+        np.int32) for n in cs.GRAPH_PROMPTS]
+    programs = {mode or "bf16": cs.spec_programs_against_eager(
+        dev, model, mode, prompts) for mode in (None, "int8")}
+    return {"speculative": spec, "chunked_prefill": chunked,
+            "programs": programs,
+            "breakdown": cs.phase_speculative_breakdown(dev)}
+
+
+def run_gpt_train(cs, dev):
+    step, out = cs.phase_gpt_train(dev)
+    records = [{"name": n} for n in GPT_KERNELS]
+    cs.phase_gpt_train_timing(dev, records, out)
+    out["kernels"] = records
+    out["breakdown"] = cs.phase_train_breakdown(step,
+                                                label="gpt2 train step")
+    return out
+
+
+GROUPS = {"kernels": run_kernels, "spec": run_spec,
+          "gpt_train": run_gpt_train,
+          "snapshot": lambda cs, dev: cs.phase_snapshot(dev)}
+
+
+def main(argv):
+    groups = [a for a in argv if a != "--keep-going"]
+    if not groups or any(g not in GROUPS for g in groups):
+        print("usage: cuda_phases.py [--keep-going] GROUP... (GROUP one of "
+              "%s)" % ", ".join(GROUPS), file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("cuda_phases: no CUDA device; nothing run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+
+    failed = []
+    if "--keep-going" in argv:
+        def check(cond, what):
+            if not cond:
+                print("CHECK FAILED: %s" % what, flush=True)
+                failed.append(what)
+
+        cs.check = check
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    out = {"device": torch.cuda.get_device_name(0)}
+    try:
+        cs.phase_build()
+        for g in groups:
+            out[g] = GROUPS[g](cs, dev)
+    except cs.SmokeFailure as e:
+        print("cuda_phases FAILED: %s" % e, file=sys.stderr)
+        return 1
+    out["failed_checks"] = failed
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    with open(OUT, "w") as f:
+        json.dump(out, f, default=str)
+    print("failed checks: %d; %.1f s" % (len(failed),
+                                         time.perf_counter() - t0))
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
