@@ -49,7 +49,19 @@ Run from the root of a checkout on a machine with a CUDA card. It
    kernel may launch); the LayerNorm and flash
    counters must rise by 25 and 12 per forward, and no training kernel may
    launch; it serves two bursts and prints each one's p50/p99 latency and
-   req/s;
+   req/s; every bucket is one CUDA graph, captured at warmup (three
+   captures, none in traffic);
+6a. holds the served BERT buckets' graphs (``phase_serve_graph``, bf16
+   here and int8 after step 12): each bucket's replay bitwise equal to an
+   eager forward of the same padded batch (a replay on stale input buffers,
+   planted, must differ), 25 LayerNorm and 12 flash launches a replay, the
+   host wall of a bucket-8 dispatch through its graph and eagerly and the
+   graph's device time; a ``swap_parameters`` in the middle of a burst
+   (no failed request, no capture, each batch bitwise the old or the new
+   weights' eager forward, every request after the swap returned on the
+   new weights; a swap that rebinds the parameters, planted, must show),
+   a refused file that keeps the old weights, and ``retune_buckets`` on
+   the measured request sizes capturing exactly the new set;
 7. trains BERT-base at the ``bert512`` recipe of ``bench.py`` (batch 16,
    seq 512, 80 masked positions, bf16 with fp32 masters, Adam lr 1e-4 wd
    0.01, dropout 0.1, MLM + NSP loss) through ``autograd.record``,
@@ -77,6 +89,16 @@ Run from the root of a checkout on a machine with a CUDA card. It
    backward without its first key tile, the softmax-xent dx without each
    row's unaligned tail) above the limits and the plain step run again
    within them; the step's host wall, tokens/s and peak memory;
+8b. takes one ``Trainer.step`` of each of the fifteen optimizers over
+   GPT-2 small's parameters (bf16, fp32 masters) from the same seeded
+   gradients (``phase_optimizers``), each against the same port code on
+   the CPU in fp32 (``OPTIM_STEP_TOL``; SGLD with its noise as zeros, then
+   its noise's moments; a LAMB reference without its trust ratio, planted,
+   must read above the limit), and trains GPT-2 small three steps with
+   SGD under a cosine schedule with warmup and three with LAMB
+   (``phase_gpt_train_optimizers``: finite losses, weights that move, the
+   scheduler's rate at each step, exact launches, the step's host wall;
+   the optimizer's device time comes in step 14);
 9. serves GPT-2 small (full width, bf16, random weights from a seed)
    through ``GenerativeServer(slots=8, top_k=40, prefix_cache=True)`` in
    two bursts of 12 requests (prompts of 8 to 900 tokens, at least four
@@ -99,6 +121,11 @@ Run from the root of a checkout on a machine with a CUDA card. It
    stream the second model's. It prints time to first token, the decode
    step's host wall, tokens/s and peak memory; every decode step replays
    its CUDA graph (one replay a step, no capture after warmup);
+9a. serves, on a fresh graphed GPT-2 server, a prompt with the id vocab +
+   43 and one with -1 beside a good stream (``phase_bad_ids``): no device
+   assert and no error, the good stream equal to its solo run, the first
+   bad stream all token 0 and the -1 stream equal to its prompt with
+   vocab - 1 in its place (``jnp.take``'s fill mode, as on the CPU);
 10. holds each GPT decode step's CUDA graph against the same step run
    eagerly (``phase_graph``), bf16 and int8, greedy and sampled, after a
    capacity migration and after a weight swap, each from one saved state
@@ -179,7 +206,8 @@ Run from the root of a checkout on a machine with a CUDA card. It
     by class from torch.profiler, hence the device's idle share), then one
     bert512 step (kernel time by class, the LayerNorm backward and the
     optimizer step, the idle share), then the GPT-2 training step the
-    same way, then a GPT prefill at bucket 512 and
+    same way, with Adam, SGD and LAMB (the optimizer range's device time
+    of each on one line), then a GPT prefill at bucket 512 and
     a decode step of 8 slots, through its graph and eagerly, bf16 and
     int8, then the int8 BERT bucket-8 forward, then a speculative tick
     with NGramDraft, a 2-layer draft's round and tick, and a chunk tick,
@@ -194,6 +222,7 @@ checkout, it exits nonzero and prints no result.
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -294,8 +323,10 @@ def time_ms(*fns, rounds=3, iters=20):
     the host's launch cost (larger than a small kernel's run) stays out.
     The graphs take turns for ``rounds`` rounds, so a clock change hits
     all of them, and each keeps its median round. One callable gives a
-    number, several a list."""
+    number, several a list. No garbage collection runs inside a capture
+    (it may destroy an earlier phase's graph, which invalidates it)."""
     import torch
+    from mxnet_tpu_torch.serve.step_graph import collector_paused
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -307,7 +338,7 @@ def time_ms(*fns, rounds=3, iters=20):
     graphs = []
     for fn in fns:
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with collector_paused(), torch.cuda.graph(graph):
             for _ in range(iters):
                 fn()
         graphs.append(graph)
@@ -964,8 +995,11 @@ def phase_serve(dev):
     srv = ModelServer(model, specs, buckets=BUCKETS, max_wait_ms=5.0,
                       timeout_ms=120000.0, device=dev)
     torch.cuda.synchronize()
-    print("server warmup (%s buckets): %.2f s" % (list(BUCKETS),
-                                                  time.perf_counter() - t0))
+    warm = srv.stats()
+    print("server warmup (%s buckets, one CUDA graph each): %.2f s; %s"
+          % (list(BUCKETS), time.perf_counter() - t0,
+             {k: warm[k] for k in GRAPH_KEYS}))
+    check_warm_graphs(warm, BUCKETS, "bf16 BERT server")
     tok, tt, vl = _bert_requests()
 
     bursts, outputs = [], []
@@ -996,8 +1030,12 @@ def phase_serve(dev):
         launches = {k: counts[k] for k in ("layernorm", "flash_attention_fwd")}
         forwards = srv.metrics.batches - batches0
         stats = srv.stats()
-    print("served %d requests in %d forwards, fill %.3f"
+    print("served %d requests in %d forwards (graph replays), fill %.3f"
           % (2 * N_REQUESTS, forwards, stats["batch_fill_ratio"]), flush=True)
+    check(stats["captures"] == warm["captures"] and stats["drops"] == 0
+          and stats["replays"] == warm["replays"] + forwards,
+          "bf16 BERT traffic captured a graph or ran without one: %s"
+          % {k: stats[k] for k in GRAPH_KEYS})
     print("kernel launches in the serving run: %s" % launches)
     check(stats["errors"] == 0 and stats["completed"] >= 2 * N_REQUESTS,
           "serving errors: %s" % stats)
@@ -1053,7 +1091,7 @@ def phase_serve(dev):
     check(worst_plain <= MODEL_TOL, "kernels disagree with plain versions "
           "inside the model")
     return model, launches, forwards, vl, {"bursts": bursts,
-                                           "server_stats": stats}
+                                           "server_stats": stats}, srv
 
 
 def _kernel_class(name):
@@ -1067,9 +1105,10 @@ def _kernel_class(name):
 
 
 def phase_breakdown(dev, model):
-    """Where one serving forward at the largest bucket spends its time: the
-    host wall of the forward and of the executor's whole dispatch (pad,
-    copy in, forward, copy out), a fresh thread's first dispatches, and the
+    """Where one eager serving forward at the largest bucket spends its
+    time: the host wall of the forward and of the executor's whole eager
+    dispatch (pad, copy in, forward, copy out), a fresh thread's first
+    dispatches, and the
     kernel time by class from torch.profiler, hence the device's idle
     share of the forward."""
     import torch
@@ -1095,9 +1134,9 @@ def phase_breakdown(dev, model):
     plist = list(model.collect_params().values())
     pool = BucketedExecutor(fn, lambda: [p.data() for p in plist], (B,), dev)
 
-    def timed_dispatch(into):
+    def timed_dispatch(into):  # eager: phase_serve_graph times the graphs
         t0 = time.perf_counter()
-        pool.run([tok, tt, vl])
+        pool.run([tok, tt, vl], eager=True)
         into.append((time.perf_counter() - t0) * 1e3)
 
     # a thread's first dispatch against its later ones (the server's
@@ -1383,7 +1422,7 @@ def _train_kernel_class(name):
                      ("layernorm_fwd_", "layernorm_fwd"),
                      # the backward kernel and its finishing kernel
                      ("layernorm_bwd_", "layernorm_bwd"),
-                     ("multi_tensor_apply", "adam (foreach)")):
+                     ("multi_tensor_apply", "optimizer (foreach)")):
         if key in name:
             return cls
     if any(s in name for s in ("gemm", "xmma", "cutlass", "nvjet")):
@@ -3936,6 +3975,7 @@ def phase_serve_quant(dev):
     srv = ModelServer(model, specs, buckets=BUCKETS, max_wait_ms=1.0,
                       timeout_ms=120000.0, device=dev, quantize="int8")
     torch.cuda.synchronize()
+    check_warm_graphs(srv.stats(), BUCKETS, "int8 BERT server")
     print("bert_base int8: set-up, quantization and warmup %.2f s"
           % (time.perf_counter() - t0), flush=True)
     tok, tt, vl = _bert_requests()
@@ -3997,6 +4037,10 @@ def phase_serve_quant(dev):
           flush=True)
     check(stats["errors"] == 0 and forwards == len(groups),
           "int8 BERT serving: %d forwards, %s" % (forwards, stats))
+    check(stats["captures"] == len(BUCKETS) and stats["drops"] == 0
+          and stats["replays"] == len(BUCKETS) + forwards,
+          "int8 BERT traffic captured a graph or ran without one: %s"
+          % {k: stats[k] for k in GRAPH_KEYS})
     want = {"layernorm": 25 * forwards,
             "flash_attention_fwd_f32": 12 * forwards}
     check(all(n == want.get(k, 0) for k, n in launches.items()),
@@ -4052,10 +4096,7 @@ def phase_serve_quant(dev):
            "served_attention_vs_plain": attn_readings,
            "forward_vs_plain": vs_plain,
            "server_stats": stats}
-    srv.stop()
-    del srv
-    torch.cuda.empty_cache()
-    return out, (model, ins)
+    return out, (model, ins), srv
 
 
 def phase_serve_quant_breakdown(model, ins, n_prof=4):
@@ -4351,13 +4392,14 @@ class GPTTrainStep:
     """GPT-2 small language-model training through the port's entry points:
     ``GPTModel`` in bf16 via amp, next-token ``SoftmaxCrossEntropyLoss``
     over the (B, T, V) logits (the mean over T a sample),
-    ``autograd.record`` / ``backward`` and ``gluon.Trainer`` with Adam.
-    Dropout draws from ``mxnet_tpu_torch.random``'s generator of the card
+    ``autograd.record`` / ``backward`` and ``gluon.Trainer`` (Adam unless
+    another optimizer is given). Dropout draws from
+    ``mxnet_tpu_torch.random``'s generator of the card
     (``random.seed`` restarts it)."""
 
     timed = TrainStep.timed
 
-    def __init__(self, dev):
+    def __init__(self, dev, optimizer="adam", optimizer_params=None):
         import torch
         from mxnet_tpu_torch import amp, gluon
         from mxnet_tpu_torch.models.gpt import GPTModel
@@ -4369,8 +4411,8 @@ class GPTTrainStep:
         amp.convert_hybrid_block(self.model, "bfloat16")
         self.params = list(self.model.collect_params().values())
         self.trainer = gluon.Trainer(
-            self.model.collect_params(), "adam",
-            {"learning_rate": 1e-4, "wd": 0.01, "multi_precision": True})
+            self.model.collect_params(), optimizer, optimizer_params or {
+                "learning_rate": 1e-4, "wd": 0.01, "multi_precision": True})
         self.loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
         B, T = GPT_TRAIN["batch"], GPT_TRAIN["seq"]
         seq = np.random.default_rng(SEED).integers(
@@ -5010,6 +5052,685 @@ def snapshot_case(dev, mode, burst, buckets, first, tmp):
         "tokens_per_s": timing[0]["tokens_per_s"]}
 
 
+# ---------------------------------------------------------------------------
+# ModelServer: one CUDA graph per bucket, weight swap, bucket retune
+
+
+GRAPH_KEYS = ("captures", "replays", "drops", "programs")
+GRAPH_WALLS = 10      # host-wall samples of a bucket-8 dispatch, each way
+GRAPH_REPLAYS = 20    # graph replays timed with CUDA events
+
+
+def check_warm_graphs(stats, buckets, what):
+    """Warmup made exactly one program (a CUDA graph on the card) a bucket,
+    ran each once and dropped none."""
+    check(stats["captures"] == len(buckets) and stats["drops"] == 0
+          and stats["replays"] == len(buckets)
+          and stats["programs"] == sorted(buckets),
+          "%s warmup: %s, buckets %s" % (
+              what, {k: stats[k] for k in GRAPH_KEYS}, list(buckets)))
+
+
+def outputs_equal(a, b):
+    """Two lists of numpy outputs, bitwise equal."""
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype and np.array_equal(x, y)
+        for x, y in zip(a, b))
+
+
+def stale_replay(pool, ins):
+    """A planted fault: the batch's bucket program run without the batch
+    copied into its input buffers (they hold the last dispatch's)."""
+    from mxnet_tpu_torch.serve.executor_pool import to_numpy
+
+    n = len(ins[0])
+    prog = pool._programs[pool.pick_bucket(n)]
+    if prog.graph is None:
+        outs = pool._forward(pool._params_fn(), prog.dev)
+    else:
+        prog.graph.replay()
+        outs = prog.outs
+    return [to_numpy(o)[:n] for o in outs]
+
+
+def rebinding_swap(srv, path):
+    """A planted fault: the swap's weights given to the parameters as new
+    tensors (``set_data``) where the server copies them into the live
+    ones."""
+    from mxnet_tpu_torch.checkpoint import validate_swap
+
+    picked = validate_swap(srv.model, path)
+    params = srv.model._collect_params_with_prefix()
+    with srv._params_lock:
+        for name, arr in picked.items():
+            params[name].set_data(arr.to(srv.device))
+        srv._swap_epoch += 1
+
+
+def bucket_device_ms(pool, bucket):
+    """Device ms of one replay of the bucket's graph (CUDA events over
+    ``GRAPH_REPLAYS`` replays), and the CUDA-event span of one eager
+    forward of the same buffers (its launch gaps included)."""
+    import torch
+
+    prog = pool._programs[bucket]
+    params = pool._params_fn()
+    spans = []
+    for run in (prog.graph.replay,
+                lambda: pool._forward(params, prog.dev)):
+        run()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(GRAPH_REPLAYS):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        spans.append(start.elapsed_time(end) / GRAPH_REPLAYS)
+    return spans
+
+
+def _bert_swap_files(dev, seed, quantize):
+    """Another BERT-base's parameters (bf16 via amp, quantized like the
+    served model) in a file under the build directory, and a file that
+    lacks one of them; returns (good path, bad path)."""
+    import tempfile
+
+    import torch
+    from mxnet_tpu_torch import amp, checkpoint
+    from mxnet_tpu_torch.models.bert import bert_base
+    from mxnet_tpu_torch.ops.cuda import _build
+    from mxnet_tpu_torch.quantization import quantize_model
+
+    other = bert_base(dropout=0.1, max_length=SEQ)
+    other.initialize(device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    amp.convert_hybrid_block(other, "bfloat16")
+    if quantize:
+        quantize_model(other, mode=quantize)
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+    good = os.path.join(tmp, "bert_seed%d.params" % seed)
+    other.save_parameters(good)
+    arrays = {n: p.data() for n, p in
+              other._collect_params_with_prefix().items()}
+    arrays.pop(sorted(arrays)[0])
+    bad = os.path.join(tmp, "bert_missing_one.params")
+    checkpoint.save_arrays(bad, arrays)
+    return good, bad
+
+
+def swap_burst(srv, reqs, path):
+    """The requests ``reqs`` one by one, a ``swap_parameters(path)`` from a
+    second thread half way through. Returns every dispatch as (the swap
+    epoch it ran under, its rows, its outputs), each request's result with
+    whether it was submitted after the swap returned, and the errors."""
+    run = srv._pool.run
+    records = []
+
+    def recording_run(ins, n_real=None, eager=False):
+        # called under the server's dispatch lock: the epoch read here is
+        # the one the batch ran under
+        outs = run(ins, n_real=n_real, eager=eager)
+        records.append((srv._swap_epoch, [np.array(x) for x in ins], outs))
+        return outs
+
+    done = []
+    swapper = threading.Thread(
+        target=lambda: done.append(srv.swap_parameters(path)))
+    srv._pool.run = recording_run
+    try:
+        # a half before the swap, a quarter while it runs, a quarter after
+        # it returned
+        handles = []
+        for i, r in enumerate(reqs):
+            if i == len(reqs) // 2:
+                swapper.start()
+            if i == 3 * len(reqs) // 4:
+                swapper.join(timeout=300)
+                check(not swapper.is_alive() and done,
+                      "the swap did not return")
+            handles.append((bool(done), srv.submit(*r)))
+            time.sleep(0.002)
+        results, errors = [], []
+        for after, h in handles:
+            try:
+                results.append((after, h.result(timeout_s=300)))
+            except Exception as e:  # every request must succeed
+                errors.append(repr(e))
+    finally:
+        del srv._pool.run
+    return records, results, errors
+
+
+def phase_serve_graph(dev, srv, what, quantize=None):
+    """One CUDA graph a ModelServer bucket (``srv``: phase_serve's bf16
+    BERT-base server or phase_serve_quant's int8 one, after its traffic):
+    each bucket's replay bitwise equal to an eager forward of the same
+    padded batch (and a replay on stale input buffers caught), exact
+    launches under replay, the host wall of a bucket-8 dispatch each way
+    and its device time; a weight swap in a burst (no failed request, no
+    capture, each batch bitwise the old or the new weights' eager forward,
+    every request after the swap returned on the new weights; a swap that
+    rebinds a parameter caught), a refused file, and ``retune_buckets()``
+    on the measured histogram capturing exactly the new set."""
+    import torch
+    from mxnet_tpu_torch.checkpoint import SwapError
+
+    pool = srv._pool
+    tok, tt, vl = _bert_requests()
+    flash = "flash_attention_fwd_f32" if quantize else "flash_attention_fwd"
+    stats0 = srv.stats()
+    check(stats0["captures"] == len(BUCKETS) and stats0["drops"] == 0,
+          "%s: the graphs after traffic %s" % (
+              what, {k: stats0[k] for k in GRAPH_KEYS}))
+    # (a) each bucket's replay against an eager forward of the same padded
+    # batch (the bucket partly filled: pad rows in), bitwise; exact launches
+    batches = {b: [x[:max(1, b - 1)] for x in (tok, tt, vl)] for b in BUCKETS}
+    reset_counters()
+    with srv._params_lock:
+        replayed = {b: pool.run(ins) for b, ins in batches.items()}
+    launches = read_counters()
+    with srv._params_lock:
+        eager = {b: pool.run(ins, eager=True) for b, ins in batches.items()}
+        # the planted fault: bucket 8 replayed on bucket 8's buffers as the
+        # last dispatch left them (another batch), held to this one's
+        other = [x[8:15] for x in (tok, tt, vl)]
+        pool.run(other)
+        stale = stale_replay(pool, batches[BUCKETS[-1]])
+    equal = {b: outputs_equal(replayed[b], eager[b]) for b in BUCKETS}
+    stale_caught = not outputs_equal(stale, eager[BUCKETS[-1]])
+    print("%s: each bucket's graph replay vs an eager forward of the same "
+          "padded batch, bitwise equal %s; planted fault (a replay on "
+          "stale input buffers) caught %s; launches over the %d replays %s"
+          % (what, equal, stale_caught, len(BUCKETS), launches), flush=True)
+    check(all(equal.values()), "%s: a bucket's graph replay differs from "
+          "its eager forward: %s" % (what, equal))
+    check(stale_caught, "%s: the replay check misses a replay on stale "
+          "input buffers" % what)
+    want = {"layernorm": 25 * len(BUCKETS), flash: 12 * len(BUCKETS)}
+    check(all(n == want.get(k, 0) for k, n in launches.items()),
+          "%s: graph replay launches %s, want %s" % (what, launches, want))
+
+    # (b) host wall of a bucket-8 dispatch, graph against eager, in turns;
+    # the graph's device time
+    b8 = [x[:8] for x in (tok, tt, vl)]
+    walls = {"graph": [], "eager": []}
+    for _ in range(GRAPH_WALLS):
+        for mode in ("graph", "eager"):
+            with srv._params_lock:
+                t0 = time.perf_counter()
+                pool.run(b8, eager=mode == "eager")
+                walls[mode].append((time.perf_counter() - t0) * 1e3)
+    with srv._params_lock:
+        graph_ms, eager_span_ms = bucket_device_ms(pool, 8)
+    timing = {"graph_dispatch_wall_ms_median": float(np.median(
+                  walls["graph"])),
+              "eager_dispatch_wall_ms_median": float(np.median(
+                  walls["eager"])),
+              "graph_replay_device_ms": graph_ms,
+              "eager_forward_event_span_ms": eager_span_ms}
+    timing["card"] = card_line()
+    print("%s bucket-8 dispatch (pad, copy in, forward, copy out), medians "
+          "of %d in turns: graph %.3f ms, eager %.3f ms of host wall; the "
+          "graph's replay %.3f ms on the device, an eager forward's CUDA-"
+          "event span %.3f ms; %s" % (what, GRAPH_WALLS, *timing.values()),
+          flush=True)
+
+    # (c) a weight swap in the middle of a burst
+    good, bad = _bert_swap_files(dev, SEED + 40, quantize)
+    old = os.path.join(os.path.dirname(good), "served.params")
+    srv.model.save_parameters(old)
+    epoch0 = srv.health()["swap_epoch"]
+    before = srv.stats()
+    reqs = [(tok[i], tt[i], vl[i]) for i in range(N_REQUESTS)]
+    with srv:
+        records, results, errors = swap_burst(srv, reqs, good)
+    after = srv.stats()
+    check(not errors and after["errors"] == before["errors"],
+          "%s: requests failed across the swap: %s" % (what, errors))
+    check(after["captures"] == before["captures"] and after["drops"] == 0,
+          "%s: the swap made or dropped a graph: %s" % (
+              what, {k: after[k] for k in GRAPH_KEYS}))
+    epochs = sorted(set(e for e, _, _ in records))
+    check(epochs in ([epoch0, epoch0 + 1], [epoch0 + 1]),
+          "%s: dispatches ran under epochs %s" % (what, epochs))
+    # each batch against an eager forward of its rows under the weights of
+    # its epoch: the new ones now, the old ones after swapping them back
+    mixed = []
+    with srv._params_lock:
+        for e, ins, outs in records:
+            if e == epoch0 + 1 and not outputs_equal(
+                    outs, pool.run(ins, eager=True)):
+                mixed.append(("new", len(ins[0])))
+    srv.swap_parameters(old)
+    with srv._params_lock:
+        for e, ins, outs in records:
+            if e == epoch0 and not outputs_equal(
+                    outs, pool.run(ins, eager=True)):
+                mixed.append(("old", len(ins[0])))
+    # every request submitted after the swap returned ran on the new weights
+    by_row = {}
+    for e, ins, outs in records:
+        for i in range(len(ins[0])):
+            by_row.setdefault(ins[0][i].tobytes(), set()).add(e)
+    late = [r for (was_after, _), r in zip(results, reqs) if was_after]
+    late_old = sum(1 for r in late if epoch0 in by_row[r[0].tobytes()])
+    print("%s weight swap in a burst of %d requests: %d dispatches (%d on "
+          "the old weights, %d on the new), %d failed requests, batches "
+          "not bitwise one epoch's eager forward %s, %d of the %d requests "
+          "after the swap returned on the old weights; graphs %s"
+          % (what, len(reqs), len(records),
+             sum(1 for e, _, _ in records if e == epoch0),
+             sum(1 for e, _, _ in records if e == epoch0 + 1), len(errors),
+             mixed, late_old, len(late),
+             {k: after[k] for k in GRAPH_KEYS}), flush=True)
+    check(not mixed, "%s: a batch is neither the old nor the new weights' "
+          "forward: %s" % (what, mixed))
+    check(late and late_old == 0, "%s: a request after the swap ran on the "
+          "old weights (%d of %d)" % (what, late_old, len(late)))
+    # a refused file keeps the weights: the next answer is the old one
+    try:
+        srv.swap_parameters(bad)
+        refused = False
+    except SwapError:
+        refused = True
+    one = [x[:1] for x in (tok, tt, vl)]
+    with srv._params_lock:
+        kept = outputs_equal(pool.run(one), pool.run(one, eager=True))
+    check(refused and srv.health()["swap_epoch"] == epoch0 + 2 and kept,
+          "%s: a bad file was not refused cleanly (refused %s, epoch %d)"
+          % (what, refused, srv.health()["swap_epoch"]))
+    # the planted fault: a swap that rebinds the parameters must show as a
+    # capture (or a mismatch) at the next dispatch
+    rebinding_swap(srv, good)
+    with srv._params_lock:
+        rebound = outputs_equal(pool.run(one), pool.run(one, eager=True))
+    caught = srv.stats()["captures"] != after["captures"] or not rebound
+    print("%s: a refused file keeps the old weights (%s); planted fault (a "
+          "swap that rebinds the parameters) caught %s: graphs %s"
+          % (what, refused and kept, caught,
+             {k: srv.stats()[k] for k in GRAPH_KEYS}), flush=True)
+    check(caught, "%s: the swap checks miss a rebinding swap" % what)
+
+    # (d) retune to the measured request sizes: exactly the new set captured
+    hist = srv.metrics.request_rows()
+    srv.retune_buckets(max_buckets=2)
+    tuned = srv.stats()
+    print("%s retune_buckets(max_buckets=2) on the request-size histogram "
+          "%s: buckets %s -> %s, graphs %s" % (
+              what, hist, list(BUCKETS), list(srv.buckets),
+              {k: tuned[k] for k in GRAPH_KEYS}), flush=True)
+    check(srv.buckets != BUCKETS, "%s: the retune kept %s" % (what, BUCKETS))
+    check_warm_graphs(tuned, srv.buckets, "%s retuned" % what)
+    with srv._params_lock:
+        retuned_equal = all(outputs_equal(
+            srv._pool.run([x[:b] for x in (tok, tt, vl)]),
+            srv._pool.run([x[:b] for x in (tok, tt, vl)], eager=True))
+            for b in srv.buckets)
+    check(retuned_equal and srv.stats()["captures"] == len(srv.buckets),
+          "%s: a retuned bucket's replay differs from eager" % what)
+    srv.stop()
+    shutil.rmtree(os.path.dirname(good))
+    torch.cuda.empty_cache()
+    return {"replay_vs_eager_bitwise": equal,
+            "stale_buffers_fault_caught": stale_caught,
+            "launches_over_replays": launches, "timing": timing,
+            "swap": {"dispatches": len(records), "failed": len(errors),
+                     "mixed": mixed, "late_on_old": late_old,
+                     "rebinding_fault_caught": caught,
+                     "bad_file_refused": refused},
+            "retune": {"histogram": {str(k): v for k, v in hist.items()},
+                       "buckets": list(srv.buckets),
+                       "graphs": {k: tuned[k] for k in GRAPH_KEYS}}}
+
+
+# ---------------------------------------------------------------------------
+# C.5 on the card: ids outside the table beside a good stream
+
+BAD_ID_NEW_TOKENS = 16
+
+
+def phase_bad_ids(dev, model):
+    """GPT-2 small (bf16, graphed decode) serves a prompt with the id
+    vocab + 43 and one with -1 beside a good stream: no device assert, no
+    error, the good stream equal to its solo run, the first bad stream all
+    token 0 (its NaN logits' argmax, as on the CPU and in the JAX
+    package) and the -1 stream equal to the same prompt with vocab - 1 in
+    its place."""
+    import torch
+
+    V = GPT_CONFIG["vocab_size"]
+    rng = np.random.RandomState(SEED + 30)
+    good = rng.randint(0, V, 40).astype(np.int32)
+    past = rng.randint(0, V, 24).astype(np.int32)
+    past[7] = V + 43
+    neg = rng.randint(0, V, 24).astype(np.int32)
+    neg[5] = -1
+    wrapped = neg.copy()
+    wrapped[5] = V - 1
+    srv = _gen_server(model, dev)
+    srv.warmup(prompt_buckets=(32, 64), max_tokens=64 + BAD_ID_NEW_TOKENS)
+    n = BAD_ID_NEW_TOKENS
+    with srv:
+        solo = srv.submit(good, max_new_tokens=n).result(600)
+        solo_wrapped = srv.submit(wrapped, max_new_tokens=n).result(600)
+        handles = [srv.submit(p, max_new_tokens=n) for p in (good, past, neg)]
+        got = [h.result(600) for h in handles]
+        stats = srv.stats()
+    torch.cuda.synchronize()  # a device assert would raise here
+    out = {"good_equals_solo": got[0] == solo,
+           "past_end_tokens": got[1],
+           "negative_equals_wrapped": got[2] == solo_wrapped,
+           "errors": stats["errors"]}
+    print("C.5 on the card: a stream with id %d and one with -1 beside a "
+          "good one: errors %d; good stream equal to its solo run %s; the "
+          "past-the-end stream %s; the -1 stream equal to the prompt with "
+          "%d %s" % (V + 43, stats["errors"], out["good_equals_solo"],
+                     got[1], V - 1, out["negative_equals_wrapped"]),
+          flush=True)
+    check(stats["errors"] == 0, "bad ids: %d errors" % stats["errors"])
+    check(out["good_equals_solo"], "bad ids: the good stream changed")
+    check(got[1] == [0] * n, "bad ids: the past-the-end stream gave %s"
+          % got[1])
+    check(out["negative_equals_wrapped"], "bad ids: the -1 stream is not "
+          "the wrapped prompt's")
+    srv.stop()
+    del srv
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The optimizers on GPT-2 small's parameters
+
+# each optimizer with settings that reach its every branch (the parity
+# tests use the same table)
+OPTIMIZER_KW = {
+    "sgd": dict(momentum=0.9, learning_rate=0.1),
+    "nag": dict(momentum=0.9, learning_rate=0.1),
+    "adam": dict(learning_rate=0.01),
+    "adamw": dict(learning_rate=0.01),
+    "adagrad": dict(learning_rate=0.1),
+    "adadelta": dict(),
+    "rmsprop": dict(learning_rate=0.01, centered=True),
+    "ftrl": dict(learning_rate=0.1, lamda1=0.01),
+    "lamb": dict(learning_rate=0.01, lower_bound=0.1, upper_bound=10.0),
+    "signum": dict(learning_rate=0.01, wd_lh=0.01),
+    "adamax": dict(learning_rate=0.01),
+    "ftml": dict(learning_rate=0.01),
+    "dcasgd": dict(learning_rate=0.1, momentum=0.9),
+    "lars": dict(learning_rate=0.1, momentum=0.9, eta=0.01),
+    "sgld": dict(learning_rate=0.01),
+}
+# one Trainer.step on the card (bf16 weights, fp32 masters) against the same
+# port code on the CPU in fp32 from the same fp32 values: per tensor,
+# max |card update - CPU update| / max |CPU update|. The two run the same
+# fp32 ops; CUDA's kernels contract and divide in other ways, and LAMB's
+# and LARS's norms sum in another order
+OPTIM_STEP_TOL = 1e-4
+OPTIM_GRAD_SCALE = 1e-2
+# the parameters held against the CPU (all of them step on the card): the
+# embeddings (the tied head), ln_f, and the first and the last block
+OPTIM_CPU_PREFIXES = ("word_embed", "pos_embed", "ln_f", "blocks.0.",
+                      "blocks.11.")
+
+
+class sgld_noise_off:
+    """Within the block, SGLD draws its noise as zeros."""
+
+    def __enter__(self):
+        from mxnet_tpu_torch import optimizer as topt
+
+        self._noise = topt.SGLD._noise
+        topt.SGLD._noise = lambda opt, w: w.new_zeros(w.shape)
+        return self
+
+    def __exit__(self, *exc):
+        from mxnet_tpu_torch import optimizer as topt
+
+        topt.SGLD._noise = self._noise
+
+
+class lamb_without_trust_ratio:
+    """A planted fault: within the block, every trust ratio is 1 (LAMB
+    steps as AdamW)."""
+
+    def __enter__(self):
+        import torch
+        from mxnet_tpu_torch import optimizer as topt
+
+        self._scales = topt._trust_scales
+        topt._trust_scales = lambda wn, on, lrs, *a, **kw: list(torch.tensor(
+            lrs, dtype=torch.float32, device=wn[0].device).unbind())
+        return self
+
+    def __exit__(self, *exc):
+        from mxnet_tpu_torch import optimizer as topt
+
+        topt._trust_scales = self._scales
+
+
+def _update_error(card, ref, start):
+    """max |card update - reference update| / max |reference update|."""
+    d_ref = ref - start
+    return float((card - start - d_ref).abs().max()
+                 / d_ref.abs().max().clamp(min=1e-30))
+
+
+def phase_optimizers(dev):
+    """One ``Trainer.step`` of each of the fifteen optimizers over GPT-2
+    small's parameters (bf16 weights, fp32 masters) from the same seeded
+    gradients, each held against the port's same step on the CPU in fp32
+    (``OPTIM_CPU_PREFIXES``' tensors, ``OPTIM_STEP_TOL``), SGLD with its
+    noise as zeros and then its noise's moments; a LAMB reference without
+    its trust ratio (a planted fault) above the limit; each step's span on
+    the card (CUDA events)."""
+    import torch
+    from mxnet_tpu_torch import amp, gluon
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.models.gpt import GPTModel
+
+    model = GPTModel(dropout=0.0, **GPT_CONFIG)
+    model.initialize(device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 50))
+    amp.convert_hybrid_block(model, "bfloat16")
+    # the Trainer's order (its state indices), with the structural names
+    struct = {id(p): n for n, p in model._collect_params_with_prefix().items()}
+    params = list(model.collect_params().values())
+    named = [(struct[id(p)], p) for p in params]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    start = [p.data().detach().clone() for p in params]
+    grads = [(torch.randn(p.shape, device=dev, generator=gen)
+              * OPTIM_GRAD_SCALE).to(p.dtype) for p in params]
+    held_idx = [i for i, (n, _) in enumerate(named)
+                if n.startswith(OPTIM_CPU_PREFIXES)]
+    start_cpu = [start[i].float().cpu() for i in held_idx]
+    grads_cpu = [grads[i].float().cpu() for i in held_idx]
+    n_params = sum(p.data().numel() for p in params)
+    n_held = sum(t.numel() for t in start_cpu)
+    print("optimizers on gpt2 small: %d tensors, %d parameters (bf16, fp32 "
+          "masters); %d tensors, %d parameters held against the CPU"
+          % (len(params), n_params, len(held_idx), n_held), flush=True)
+
+    def card_step(name, noise=False):
+        """One Trainer.step from ``start``; returns the fp32 weights (the
+        masters) of the held tensors, on the CPU, and the CUDA-event span
+        of a second step (host launches included)."""
+        with torch.no_grad():
+            for p, w, g in zip(params, start, grads):
+                p.data().copy_(w)
+                p.data().grad = g.clone()
+        tr = gluon.Trainer(model.collect_params(), name, dict(
+            OPTIMIZER_KW[name], wd=0.01, multi_precision=True))
+        check(len(tr._params) == len(params), "a GPT-2 parameter is frozen")
+        if noise:
+            tr.step(1)
+        else:
+            with sgld_noise_off():
+                tr.step(1)
+        out = []
+        for i in held_idx:
+            s = tr._states[i]
+            w = s["master"] if isinstance(s, dict) else params[i].data()
+            out.append(w.detach().to("cpu", torch.float32, copy=True))
+        # a second step, its states made: the span of a steady step
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        tr.step(1)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return out, ev[0].elapsed_time(ev[1])
+
+    def cpu_step(name):
+        opt = topt.create(name, **dict(OPTIMIZER_KW[name], wd=0.01))
+        ws = [w.clone() for w in start_cpu]
+        states = [opt.create_state(i, w) for i, w in enumerate(ws)]
+        with sgld_noise_off():
+            opt.fused_update(ws, grads_cpu, states)
+        return ws
+
+    results = {}
+    for name in sorted(OPTIMIZER_KW):
+        card, span = card_step(name)
+        ref = cpu_step(name)
+        errs = [_update_error(c, r, s)
+                for c, r, s in zip(card, ref, start_cpu)]
+        worst = max(range(len(errs)), key=errs.__getitem__)
+        results[name] = {"worst_update_error": errs[worst],
+                         "worst_tensor": named[held_idx[worst]][0],
+                         "step_event_span_ms": span}
+        if name == "lamb":
+            with lamb_without_trust_ratio():
+                planted = cpu_step(name)
+            results[name]["planted_no_trust_ratio"] = max(
+                _update_error(c, r, s)
+                for c, r, s in zip(card, planted, start_cpu))
+        if name == "sgld":
+            noisy, _ = card_step(name, noise=True)
+            noise = torch.cat([(a - b).reshape(-1)
+                               for a, b in zip(noisy, card)])
+            lr = OPTIMIZER_KW["sgld"]["learning_rate"]
+            results[name]["noise_mean"] = float(noise.mean())
+            results[name]["noise_std_over_sqrt_lr"] = float(
+                noise.std() / lr ** 0.5)
+        del card, ref
+        print("optimizer %-8s one step over gpt2 small: card vs CPU worst "
+              "update error %.3g (%s, limit %g); step span on the card "
+              "%.3f ms%s" % (
+                  name, errs[worst], results[name]["worst_tensor"],
+                  OPTIM_STEP_TOL, span,
+                  "; planted fault (no trust ratio) reads %.3g"
+                  % results[name]["planted_no_trust_ratio"]
+                  if name == "lamb" else "; noise mean %.3g, std/sqrt(lr) "
+                  "%.4f" % (results[name]["noise_mean"],
+                            results[name]["noise_std_over_sqrt_lr"])
+                  if name == "sgld" else ""), flush=True)
+    for name, r in results.items():
+        check(r["worst_update_error"] <= OPTIM_STEP_TOL,
+              "optimizer %s on the card disagrees with the CPU: %s"
+              % (name, r))
+    check(results["lamb"]["planted_no_trust_ratio"] > OPTIM_STEP_TOL,
+          "the optimizer limit misses a LAMB step without its trust ratio")
+    check(abs(results["sgld"]["noise_mean"]) < 5 * (
+        OPTIMIZER_KW["sgld"]["learning_rate"] / n_held) ** 0.5
+        and abs(results["sgld"]["noise_std_over_sqrt_lr"] - 1) < 0.01,
+        "SGLD's noise on the card is not N(0, lr): %s" % results["sgld"])
+    del model, params, start, grads
+    torch.cuda.empty_cache()
+    return results
+
+
+GPT_OPTIM_RUNS = {
+    "sgd_cosine": ("sgd", {"momentum": 0.9, "wd": 0.01}),
+    "lamb": ("lamb", {"learning_rate": 1e-3, "wd": 0.01}),
+}
+GPT_COSINE = dict(max_update=20, base_lr=0.05, warmup_steps=2,
+                  warmup_begin_lr=0.005)
+
+
+def phase_gpt_train_optimizers(dev):
+    """Three GPT-2 small training steps (``phase_gpt_train``'s recipe) with
+    SGD (momentum 0.9) under a CosineScheduler with warmup, and three with
+    LAMB: finite losses, weights that move, each step's learning rate the
+    scheduler's, exact launches; then the step's host wall. Returns the
+    two steps (for the profiler breakdown) and the readings."""
+    import torch
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.lr_scheduler import CosineScheduler
+
+    steps, out = {}, {}
+    for label, (name, kw) in GPT_OPTIM_RUNS.items():
+        kw = dict(kw, multi_precision=True)
+        sched = None
+        if label == "sgd_cosine":
+            sched = CosineScheduler(**GPT_COSINE)
+            kw["lr_scheduler"] = CosineScheduler(**GPT_COSINE)
+        step = GPTTrainStep(dev, name, kw)
+        watch = [step.model.word_embed.weight, step.model.ln_f.gamma,
+                 step.model.blocks[0].attn.qkv.weight]
+        before = [p.data().detach().clone() for p in watch]
+        mx_random.seed(SEED)
+        reset_counters()
+        losses, rates = [], []
+        for _ in range(GPT_TRAIN_STEPS):
+            rate = step.trainer.learning_rate
+            n = step.trainer.optimizer.num_update
+            rates.append(rate)
+            if sched is not None:
+                check(rate == sched(n), "gpt2 %s: learning rate %r at "
+                      "update %d, the scheduler says %r"
+                      % (label, rate, n, sched(n)))
+            losses.append(float(step().mean()))
+        launches = read_counters()
+        check(all(np.isfinite(losses)), "gpt2 %s: non-finite loss" % label)
+        for p, b in zip(watch, before):
+            check(not torch.equal(p.data(), b), "gpt2 %s: %s did not move"
+                  % (label, p.name))
+        for k, v in GPT_STEP_LAUNCHES.items():
+            check(launches[k] == v * GPT_TRAIN_STEPS,
+                  "gpt2 %s %s launches %d != %d x %d steps"
+                  % (label, k, launches[k], v, GPT_TRAIN_STEPS))
+        wall, timed = step.timed(GPT_TRAIN_STEPS)
+        check(all(np.isfinite(timed)), "gpt2 %s: non-finite loss" % label)
+        out[label] = {"losses": losses + timed, "learning_rates": rates,
+                      "launches": launches, "step_wall_ms_median": wall}
+        print("gpt2 train %s: losses %s, learning rates %s, launches %s; "
+              "median host wall %.3f ms a step" % (
+                  label, ["%.4f" % x for x in losses + timed],
+                  ["%.5g" % r for r in rates], launches, wall), flush=True)
+        steps[label] = step
+        del before
+    return steps, out
+
+
+def card_line():
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` gives them."""
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+    except OSError as e:
+        return "nvidia-smi failed: %s" % e
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
+        "nvidia-smi failed: %s" % smi.stderr.strip()
+
+
+def print_optimizer_summary(optim, gpt_train, card):
+    """The GPT-2 step's optimizer range on the device (torch.profiler)
+    under Adam, SGD with the cosine schedule and LAMB, with each step's
+    host wall, on one line with the card."""
+    key = "mxnet_tpu_torch::optimizer_step"
+    rows = [("adam", gpt_train)] + list(optim["gpt2_steps"].items())
+    print("gpt2 train step on %s: %s" % (card, "; ".join(
+        "%s: host wall %.3f ms, optimizer range %.3f ms on the device" % (
+            label, r["step_wall_ms_median"],
+            r["breakdown"]["range_device_ms_per_step"].get(key, 0.0))
+        for label, r in rows)), flush=True)
+
+
 def main():
     try:
         import torch
@@ -5028,11 +5749,7 @@ def main():
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
-        "nvidia-smi failed: %s" % smi.stderr.strip()
+    card = card_line()
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                      torch.cuda.get_device_name(0)),
           flush=True)
@@ -5058,15 +5775,22 @@ def main():
                      "softmax_xent_bwd": xent0["bwd"]["max_abs_err"],
                      "flash_attention_bwd": max(
                          bwd0[n]["max_abs_err"] for n in ("dq", "dk", "dv"))})
-        model, serve_launches, forwards, serve_vl, serving = phase_serve(dev)
+        model, serve_launches, forwards, serve_vl, serving, bert_srv = \
+            phase_serve(dev)
+        serve_graph = {"bf16": phase_serve_graph(dev, bert_srv,
+                                                 "bf16 BERT server")}
+        del bert_srv
         step, train = phase_train(dev)
         bert128 = phase_bert128(dev)
         gpt_step, gpt_train = phase_gpt_train(dev)
+        optim = {"one_step": phase_optimizers(dev)}
+        optim_steps, optim["gpt2_steps"] = phase_gpt_train_optimizers(dev)
         gen_srv, gen_model, gen = phase_generate(dev)
         check_generate_launches(gen)
         gen["single_requests"] = phase_generate_launches(dev, gen_srv)
         gen_srv.stop()
         del gen_srv
+        bad_ids = phase_bad_ids(dev, gen_model)
         graphs = phase_graph(dev)
         spec, plains = phase_speculative(dev)
         chunked = phase_chunked_prefill(dev, plains)
@@ -5075,7 +5799,10 @@ def main():
         lowbit = phase_lowbit(dev)
         quant_model, quant = phase_generate_quant(dev)
         quant["products"] = lowbit
-        quant["bert_int8_serving"], bert_int8 = phase_serve_quant(dev)
+        quant["bert_int8_serving"], bert_int8, qsrv = phase_serve_quant(dev)
+        serve_graph["int8"] = phase_serve_graph(dev, qsrv, "int8 BERT server",
+                                                "int8")
+        del qsrv
         snapshots = phase_snapshot(dev)
         records, crossover = phase_timing(
             dev, train["launches"], train["steps_counted"], errs,
@@ -5093,6 +5820,11 @@ def main():
         gpt_train["breakdown"] = phase_train_breakdown(
             gpt_step, label="gpt2 train step")
         del gpt_step
+        for label, st in optim_steps.items():
+            optim["gpt2_steps"][label]["breakdown"] = phase_train_breakdown(
+                st, label="gpt2 train step, %s" % label)
+        del optim_steps
+        print_optimizer_summary(optim, gpt_train, card)
         gen["breakdown"] = phase_generate_breakdown(dev, gen_model)
         quant["breakdown"] = phase_generate_breakdown(dev, quant_model,
                                                       quantize="int8")
@@ -5116,6 +5848,8 @@ def main():
                       "breakdown": breakdown, "train_bert512": train,
                       "train_bert128": bert128, "train_gpt2": gpt_train,
                       "generate": gen, "snapshots": snapshots,
+                      "serve_graph": serve_graph, "optimizers": optim,
+                      "bad_ids": bad_ids,
                       "decode_step_graphs": graphs, "quantized": quant,
                       "speculative": spec, "chunked_prefill": chunked,
                       "attention_dense_vs_flash": crossover,

@@ -28,7 +28,7 @@ Layout, for ``prefix = "export/m"``::
     m-0000.params       checkpoint (``save_parameters``, dtype-exact npz)
 
 A ModelServer artifact needs ``checkpoint.save_for_serving``, which needs
-``symbol`` (ROADMAP.md A.14), and a graph per bucket (A.9): not ported.
+``symbol`` (ROADMAP.md A.14): not ported.
 """
 from __future__ import annotations
 
@@ -122,7 +122,7 @@ def save_snapshot(server, prefix, epoch=0):
         raise ServeError(
             "serve.snapshot of a ModelServer is not ported: its artifact "
             "needs checkpoint.save_for_serving, which needs symbol "
-            "(ROADMAP.md A.14), and a graph per bucket (A.9)")
+            "(ROADMAP.md A.14)")
     if not isinstance(server, GenerativeServer):
         raise TypeError("serve.snapshot takes a GenerativeServer, got %r"
                         % type(server).__name__)
@@ -188,7 +188,7 @@ def load_snapshot(prefix, model=None, **server_kwargs):
     if manifest["kind"] == "model":
         raise ServeError(
             "snapshot %r is a ModelServer artifact: loading one is not "
-            "ported (ROADMAP.md A.9, A.14)" % prefix)
+            "ported (ROADMAP.md A.14)" % prefix)
     if manifest["kind"] != "generative":
         raise ValueError("unknown snapshot kind %r" % manifest["kind"])
     if model is None:

@@ -2,8 +2,11 @@
 ``mxnet_tpu/gluon/trainer.py``), on one device.
 
 Every dense parameter goes through one multi-tensor optimizer step a call
-(``Optimizer.fused_update``), which updates the weights in place. The
-kvstore is the local one: ``"device"``, ``"local"`` or ``None``. Other
+(``Optimizer.fused_update``), which updates the weights in place; a
+parameter without a gradient raises ``RuntimeError`` naming it, or is
+skipped with ``ignore_stale_grad=True``. ``optimizer_params`` may carry an
+``lr_scheduler``, which ``learning_rate`` reads. The kvstore is the local
+one: ``"device"``, ``"local"`` or ``None``. Other
 kvstores, gradient compression and weight-update sharding raise
 ``NotImplementedError`` until the distributed part of the port lands
 (``ROADMAP.md`` A.12).
@@ -13,8 +16,10 @@ file: a pickle of ``num_update``, ``update_count`` and ``arrays``, the
 state leaves in the order ``jax.tree_util.tree_flatten`` gives the JAX
 Trainer's ``_states`` dict. That order is the parameter indices sorted,
 then each state's leaves: a multi-precision state ``{"master", "state"}``
-gives its keys sorted (the fp32 master, then the inner state), and Adam's
-inner state is the tuple (mean, variance). Every leaf is an fp32 array.
+gives its keys sorted (the fp32 master, then the inner state), and the
+inner state is the optimizer's (Adam's the tuple (mean, variance); see
+``optimizer.py``). Every leaf is an fp32 array but SGLD's uint32
+pseudo-state.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import optimizer as opt
+from ..util import tree_leaves
 from .parameter import ParameterDict
 
 # what a state file may name when unpickled: numpy's array reconstruction,
@@ -47,15 +53,6 @@ class _StateUnpickler(pickle.Unpickler):
                 % (module, name))
         return super().find_class(module, name)
 
-
-def _state_leaves(state):
-    """A state's tensors in ``jax.tree_util.tree_flatten`` order: dict
-    values by sorted key, tuple and list items in order."""
-    if isinstance(state, torch.Tensor):
-        return [state]
-    if isinstance(state, dict):
-        return [t for k in sorted(state) for t in _state_leaves(state[k])]
-    return [t for item in state for t in _state_leaves(item)]
 
 LOCAL_KVSTORES = ("device", "local", None)
 
@@ -97,20 +94,34 @@ class Trainer:
         raise NotImplementedError("weight-update sharding is not ported yet "
                                   "(ROADMAP.md A.12)")
 
-    def step(self, batch_size):
+    @property
+    def optimizer(self):
+        return self._optimizer
+
+    def step(self, batch_size, ignore_stale_grad=False):
         """One optimizer step with gradients rescaled by 1/batch_size (one
         device: there is nothing to all-reduce first)."""
-        self.update(batch_size)
+        self.update(batch_size, ignore_stale_grad)
 
-    def update(self, batch_size):
+    def update(self, batch_size, ignore_stale_grad=False):
+        """The optimizer step alone. A parameter without a gradient raises
+        ``RuntimeError``, or is left as it is with ``ignore_stale_grad``."""
         self._optimizer.rescale_grad = self._scale / batch_size
         idx, ws, gs, ss = [], [], [], []
         for i, p in enumerate(self._params):
+            if p._data is None:
+                continue
+            g = p.grad()
+            if g is None:
+                if ignore_stale_grad:
+                    continue
+                raise RuntimeError("gradient of %s not attached; call "
+                                   "attach_grad/initialize" % p.name)
             if i not in self._states:
                 self._states[i] = self._optimizer.create_state(i, p.data())
             idx.append(i)
             ws.append(p.data())
-            gs.append(p.grad())
+            gs.append(g)
             ss.append(self._states[i])
         for i, s in zip(idx, self._optimizer.fused_update(ws, gs, ss, idx)):
             self._states[i] = s
@@ -122,7 +133,7 @@ class Trainer:
     def _leaves(self):
         """[(parameter name, leaf tensor)] of every state, in file order."""
         return [(self._params[i].name, t) for i in sorted(self._states)
-                for t in _state_leaves(self._states[i])]
+                for t in tree_leaves(self._states[i])]
 
     def save_states(self, fname):
         """Write the optimizer state in the JAX Trainer's format (see the
@@ -137,10 +148,10 @@ class Trainer:
     def load_states(self, fname):
         """Read a state file either package wrote. The state of every
         parameter is made first, then filled from the file's arrays in
-        order. Every array must be fp32 with its leaf's shape; a bf16 array
-        (the JAX package writes one only for an optimizer whose state takes
-        the weight's dtype) raises, naming the array, before any state
-        changes."""
+        order. Every array must have its leaf's dtype and shape; a bf16
+        array (the JAX package writes one only for an optimizer whose state
+        takes the weight's dtype) raises, naming the array, before any
+        state changes."""
         with open(fname, "rb") as f:
             blob = _StateUnpickler(io.BytesIO(f.read())).load()
         for i, p in enumerate(self._params):
@@ -154,12 +165,13 @@ class Trainer:
                              % (fname, len(arrays), len(leaves)))
         for j, ((name, t), a) in enumerate(zip(leaves, arrays)):
             what = "%s: arrays[%d] (a state of %s)" % (fname, j, name)
-            if a.dtype.kind == "V" or a.dtype != np.float32:
+            want = np.dtype(str(t.dtype).replace("torch.", ""))
+            if a.dtype.kind == "V" or a.dtype != want:
                 raise TypeError(
-                    "%s is %s, not float32; the port loads fp32 optimizer "
-                    "states only" % (what, "bfloat16 or another ml_dtypes "
+                    "%s is %s, not %s; the port loads its optimizer's state "
+                    "dtypes only" % (what, "bfloat16 or another ml_dtypes "
                                      "type" if a.dtype.kind == "V"
-                                     else a.dtype))
+                                     else a.dtype, want))
             if tuple(a.shape) != tuple(t.shape):
                 raise ValueError("%s has shape %s, the state %s"
                                  % (what, a.shape, tuple(t.shape)))

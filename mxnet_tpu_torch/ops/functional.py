@@ -44,23 +44,36 @@ def FullyConnected(x, weight, bias=None, *, num_hidden=None, no_bias=False,
 
 
 class _Embedding(torch.autograd.Function):
-    """Row gather whose backward sums the rows' gradients in fp32 and casts
-    once to the table's dtype. A bf16 accumulator (or bf16 atomics on the
-    card) drops increments once a row is hit thousands of times, as BERT's
-    token-type row 0 is (every token of the batch)."""
+    """Row gather with ``jnp.take``'s default (fill) mode: an id in [-n, 0)
+    takes row ``id + n``, an id outside [-n, n) gives a NaN row. The index
+    is wrapped and clamped on the device and the NaN rows masked in, with
+    no host read, so a step inside a captured CUDA graph may meet any id
+    and never an out-of-range gather.
+
+    The backward adds each valid row's gradient into its (wrapped) row in
+    fp32 and casts once to the table's dtype; an out-of-range id adds
+    nothing, as the JAX VJP of the fill mode drops it. A bf16 accumulator
+    (or bf16 atomics on the card) drops increments once a row is hit
+    thousands of times, as BERT's token-type row 0 is (every token of the
+    batch)."""
 
     @staticmethod
     def forward(ctx, flat, weight):
-        ctx.save_for_backward(flat)
+        n = weight.shape[0]
+        valid = (flat >= -n) & (flat < n)
+        rows = torch.where(flat < 0, flat + n, flat).clamp_(0, n - 1)
+        ctx.save_for_backward(rows, valid)
         ctx.table = (weight.shape, weight.dtype)
-        return weight.index_select(0, flat)
+        return weight.index_select(0, rows).masked_fill_(
+            ~valid[:, None], float("nan"))
 
     @staticmethod
     def backward(ctx, grad):
-        (flat,) = ctx.saved_tensors
+        rows, valid = ctx.saved_tensors
         shape, dtype = ctx.table
         acc = torch.zeros(shape, dtype=torch.float32, device=grad.device)
-        acc.index_add_(0, flat, grad.to(torch.float32))
+        acc.index_add_(0, rows, torch.where(valid[:, None],
+                                            grad.to(torch.float32), 0.0))
         return None, acc.to(dtype)
 
 

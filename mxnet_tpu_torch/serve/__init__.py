@@ -1,6 +1,7 @@
 """Serving of the port (counterpart of ``mxnet_tpu/serve``): the
-dynamic-batching ModelServer (DynamicBatcher, BucketedExecutor,
-ServeMetrics) and the continuous-batching GenerativeServer over a paged KV
+dynamic-batching ModelServer (DynamicBatcher, BucketedExecutor with one
+CUDA graph per bucket, ServeMetrics; ``health``, ``swap_parameters`` and
+``retune_buckets``) and the continuous-batching GenerativeServer over a paged KV
 cache (PagedKVCache, PrefixCache, GenerativeMetrics), with speculative
 decode through a draft (NGramDraft, ModelDraft) and chunked prefill;
 ``snapshot`` and ``load(snapshot=True)`` for a warm restart, ``stats()``
@@ -49,7 +50,7 @@ def snapshot(server, prefix, epoch=0):
     its checkpoint, config and the list of its programs (see
     ``load(prefix, snapshot=True)``). A ``ModelServer`` raises
     ``ServeError``: its artifact needs ``save_for_serving``, which needs
-    ``symbol`` (ROADMAP.md A.14), and a graph per bucket (A.9)."""
+    ``symbol`` (ROADMAP.md A.14)."""
     from ..cache.snapshot import save_snapshot
 
     return save_snapshot(server, prefix, epoch=epoch)

@@ -171,7 +171,7 @@ class DynamicBatcher:
             self._queue.insert(idx, req)
             self._queued_rows += req.n
             if self._metrics:
-                self._metrics.record_admit()
+                self._metrics.record_admit(rows=req.n)
                 self._metrics.record_queue_depth(self._queued_rows)
             self._cond.notify()
         for v in evicted:

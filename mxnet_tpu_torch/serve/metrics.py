@@ -1,9 +1,14 @@
-"""Serving metrics (the latency/queue/shed/fill subset of
-``mxnet_tpu/serve/metrics.py`` ``ServeMetrics``, and ``GenerativeMetrics``
-for token-level serving).
+"""Serving metrics (``mxnet_tpu/serve/metrics.py`` ``ServeMetrics`` without
+its profiler counter tracks, and ``GenerativeMetrics`` for token-level
+serving).
 
 Latency percentiles come from a bounded ring of the most recent ``window``
-request latencies, so a long-running server does not grow.
+request latencies, so a long-running server does not grow. The measured
+request-size histogram (``request_rows``) and the per-bucket
+``{batches, rows, pad_rows}`` histograms are bounded too: request sizes are
+capped by the largest bucket and batches land on configured buckets only.
+``ModelServer.retune_buckets`` fits a bucket set to the first, ``health``
+reads the two load gauges.
 """
 from __future__ import annotations
 
@@ -25,11 +30,37 @@ class ServeMetrics:
         self.batches = 0                  # dispatched batches
         self.batched_rows = 0             # real rows across batches
         self.bucket_rows = 0              # padded bucket rows across batches
+        self.pad_rows = 0                 # bucket_rows - batched_rows
+        self.row_bytes = None             # bytes per input row (server-set)
+        self._request_rows = {}           # rows -> admitted requests
+        self._bucket_hist = {}            # bucket -> {batches, rows, pad_rows}
         self._queue_depth = 0
+        # admitted but not yet delivered (tokens, or rows for batch
+        # serving): with queue_depth, the load a router reads
+        self._tokens_in_flight = 0
 
-    def record_admit(self, n=1):
+    def record_admit(self, n=1, rows=None):
         with self._lock:
             self.requests += n
+            if rows is not None:
+                r = int(rows)
+                self._request_rows[r] = self._request_rows.get(r, 0) + 1
+
+    def record_tokens_in_flight(self, n):
+        with self._lock:
+            self._tokens_in_flight = int(n)
+
+    def load_gauges(self):
+        """``{"queue_depth", "tokens_in_flight"}``, the gauges ``health``
+        reports."""
+        with self._lock:
+            return {"queue_depth": self._queue_depth,
+                    "tokens_in_flight": self._tokens_in_flight}
+
+    def request_rows(self):
+        """The measured request-size histogram ``{rows: count}``."""
+        with self._lock:
+            return dict(self._request_rows)
 
     def record_queue_depth(self, depth):
         with self._lock:
@@ -52,6 +83,13 @@ class ServeMetrics:
             self.batches += 1
             self.batched_rows += int(n_real)
             self.bucket_rows += int(bucket)
+            pad = max(0, int(bucket) - int(n_real))
+            self.pad_rows += pad
+            h = self._bucket_hist.setdefault(
+                int(bucket), {"batches": 0, "rows": 0, "pad_rows": 0})
+            h["batches"] += 1
+            h["rows"] += int(n_real)
+            h["pad_rows"] += pad
 
     def record_latency(self, ms):
         with self._lock:
@@ -82,11 +120,19 @@ class ServeMetrics:
                 "errors": self.errors,
                 "batches": self.batches,
                 "queue_depth": self._queue_depth,
+                "tokens_in_flight": self._tokens_in_flight,
                 "batch_fill_ratio": (self.batched_rows / self.bucket_rows
                                      if self.bucket_rows else None),
                 "mean_batch_size": (self.batched_rows / self.batches
                                     if self.batches else None),
                 "latency_window": min(self._lat_n, self._window),
+                "pad_rows_total": self.pad_rows,
+                "pad_waste_bytes": (self.pad_rows * self.row_bytes
+                                    if self.row_bytes else None),
+                "request_rows": {str(r): c for r, c in
+                                 sorted(self._request_rows.items())},
+                "bucket_hist": {str(b): dict(h) for b, h in
+                                sorted(self._bucket_hist.items())},
             }
             snap.update(self._percentiles())
         return snap
@@ -138,7 +184,6 @@ class GenerativeMetrics(ServeMetrics):
         self._decode_s = 0.0                # decode-active wall time
         self._active_slot_steps = 0         # live slots summed over steps
         self._slot_steps = 0                # padded slots summed over steps
-        self._tokens_in_flight = 0
         self._ttft_by_bucket = {}           # pow2 bucket -> [ring, n]
 
     def record_first_token(self, ms, prompt_len=None):
@@ -188,10 +233,6 @@ class GenerativeMetrics(ServeMetrics):
             self.drafted_tokens += int(drafted)
             self.accepted_tokens += int(accepted)
 
-    def record_tokens_in_flight(self, n):
-        with self._lock:
-            self._tokens_in_flight = int(n)
-
     def snapshot(self):
         snap = super().snapshot()
         with self._lock:
@@ -205,7 +246,6 @@ class GenerativeMetrics(ServeMetrics):
                 "inflight_fill": (round(self._active_slot_steps
                                         / self._slot_steps, 4)
                                   if self._slot_steps else None),
-                "tokens_in_flight": self._tokens_in_flight,
                 "spec_rounds": self.spec_rounds,
                 "drafted_tokens": self.drafted_tokens,
                 "accepted_tokens": self.accepted_tokens,

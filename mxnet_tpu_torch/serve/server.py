@@ -7,18 +7,29 @@
     with srv:
         seq, pooled, nsp = srv.predict(tokens, types, valid_len)
         handle = srv.submit(tokens, types, valid_len)   # .result(timeout_s)
-        srv.stats()
+        srv.stats(); srv.health()
+    srv.swap_parameters("new.params")   # copies into the live weights
+    srv.retune_buckets()                # fit to the measured request sizes
 
 Single requests coalesce into the smallest fitting batch-size bucket under
 a deadline (batcher), run as one padded forward on the device
-(executor_pool), and are scattered back per request. The server runs on the
-current CUDA device unless ``device`` says otherwise; without CUDA and
-without ``device="cpu"`` it raises. ``quantize="int8"`` (or an fp8 mode)
-serves the model with quantized Dense layers, optionally calibrated.
-Snapshots, bucket retuning, the metrics endpoint and a per-bucket CUDA
-graph are not ported yet, nor is this server's weight hot-swap; the
-generative server's is (``GenerativeServer.swap_parameters`` over
-``checkpoint.validate_swap``).
+(executor_pool: on a CUDA device each bucket is one CUDA graph, captured
+at warmup and replayed at every dispatch), and are scattered back per
+request. The server runs on the current CUDA device unless ``device``
+says otherwise; without CUDA and without ``device="cpu"`` it raises.
+``quantize="int8"`` (or an fp8 mode) serves the model with quantized
+Dense layers, optionally calibrated.
+
+``swap_parameters`` copies a checked file into the live parameter tensors
+(quantized ``qweight``/``w_scale`` too) under the dispatch lock, so the
+captured graphs serve the new weights and no batch sees a mix.
+``retune_buckets`` rebuilds the pool and the batcher on a new bucket set
+(by default fit to ``metrics.request_rows()``) and captures exactly it.
+Fault drills assign ``srv.inject_fault = lambda batch_idx: ...``, which
+may raise on chosen batches: their requests get the error, the server
+keeps serving. ``snapshot`` is not ported (it needs ``save_for_serving``,
+hence ``symbol``: ROADMAP.md A.14), nor are ``devices=`` replicas (A.12)
+and the metrics endpoint (A.16).
 """
 from __future__ import annotations
 
@@ -28,6 +39,8 @@ import time
 import numpy as np
 
 from ..base import resolve_device
+from ..checkpoint import validate_swap
+from ..ir.tune import fit_buckets
 from ..quantization import quantize_model
 from .batcher import DynamicBatcher, ServeError, ServeTimeout
 from .executor_pool import BucketedExecutor
@@ -78,19 +91,25 @@ class ModelServer:
         self._specs = [(tuple(shape), np.dtype(dt))
                        for shape, dt in input_specs]
         self.timeout_ms = float(timeout_ms)
+        self._max_wait_ms = max_wait_ms
+        self._max_queue = max_queue
         self.metrics = ServeMetrics(self.name)
+        # bytes one request row holds over all inputs: pad rows -> bytes
+        self.metrics.row_bytes = sum(
+            int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+            for shape, dt in self._specs)
         model.collect_params().reset_device(self.device)
         self.quantize = quantize or None
         if self.quantize is not None:
             quantize_model(model, mode=self.quantize, calib_mode=calib_mode,
                            calib_data=calib_data)
-        fn, _ = model.serving_fn()
-        plist = list(model.collect_params().values())
-        self._pool = BucketedExecutor(
-            fn, lambda: [p.data() for p in plist], self.buckets, self.device)
-        self._batcher = DynamicBatcher(
-            self._dispatch, max_batch=self.buckets[-1],
-            max_wait_ms=max_wait_ms, max_queue=max_queue, metrics=self.metrics)
+        # the dispatch lock: a dispatch holds it from the input copy to
+        # the output copy-out, a swap while it copies the new weights in
+        self._params_lock = threading.Lock()
+        self._swap_epoch = 0
+        self._batch_idx = 0
+        self.inject_fault = None  # drill hook: callable(batch_idx) may raise
+        self._build()
         self._started = False
         self._start_lock = threading.Lock()
         from . import _register
@@ -99,11 +118,23 @@ class ModelServer:
         if warmup:
             self.warmup()
 
+    def _build(self):
+        """The executor pool and the batcher for ``self.buckets``."""
+        fn, _ = self.model.serving_fn()
+        plist = list(self.model.collect_params().values())
+        self._pool = BucketedExecutor(
+            fn, lambda: [p.data() for p in plist], self.buckets, self.device)
+        self._batcher = DynamicBatcher(
+            self._dispatch, max_batch=self.buckets[-1],
+            max_wait_ms=self._max_wait_ms, max_queue=self._max_queue,
+            metrics=self.metrics)
+
     def warmup(self):
-        """Run every bucket once before taking traffic; also proves the
-        outputs are row-aligned (padding is sound only when each output
-        carries the batch on axis 0)."""
-        self._pool.warmup(self._specs)
+        """Make every bucket's program (on CUDA: capture its graph) before
+        taking traffic; also proves the outputs are row-aligned (padding is
+        sound only when each output carries the batch on axis 0)."""
+        with self._params_lock:
+            self._pool.warmup(self._specs)
         if not self._pool.row_aligned:
             raise ServeError("model outputs do not all carry the batch on "
                              "axis 0 — padded serving cannot slice rows")
@@ -115,10 +146,74 @@ class ModelServer:
             self._started = True
         return self
 
-    def stop(self, drain=True, timeout_s=5.0):
+    def stop(self, drain=True, timeout_s=5.0, reason="server stopped"):
+        """Stop serving. ``drain=True`` dispatches what is queued first;
+        whatever is left after the bounded join is rejected with
+        ``ServeError(reason)``. start() after stop() starts afresh."""
         with self._start_lock:
             self._started = False
-            self._batcher.stop(drain=drain, timeout_s=timeout_s)
+            self._batcher.stop(drain=drain, timeout_s=timeout_s,
+                               reason=reason)
+
+    def health(self):
+        """Cheap liveness payload, the JAX server's keys: warm flag, the
+        two load gauges (queued rows) and the swap epoch."""
+        queue = self._batcher.queue_depth()
+        self.metrics.record_tokens_in_flight(queue)
+        return {"warm": bool(self._pool.row_aligned),
+                "running": self._started,
+                "kind": "model",
+                "queue_depth": queue,
+                "tokens_in_flight": queue,
+                "swap_epoch": self._swap_epoch}
+
+    def swap_parameters(self, params_file):
+        """Weight hot-swap: the file is checked against the live model
+        (``checkpoint.validate_swap``: missing, extra, reshaped or another
+        dtype, quantized ``qweight``/``w_scale`` pages included, raises
+        ``SwapError`` and the old weights keep serving), copied to the
+        device, then copied into the live parameter tensors under the
+        dispatch lock, so the bucket graphs, which hold those tensors'
+        storage, serve the new weights without a capture, and a batch runs
+        on all-old or all-new weights. Returns the new swap epoch."""
+        picked = validate_swap(self.model, params_file)
+        params = self.model._collect_params_with_prefix()
+        staged = {n: a.to(self.device) for n, a in picked.items()}
+        with self._params_lock:
+            for name, arr in staged.items():
+                params[name].copy_data(arr)
+            self._swap_epoch += 1
+        return self._swap_epoch
+
+    def retune_buckets(self, buckets=None, max_buckets=6):
+        """Rebuild the server on a new bucket set. ``buckets=None`` fits
+        one to the measured request-size histogram (``ir.tune.fit_buckets``
+        over ``metrics.request_rows()``, covering the current largest
+        bucket). Drains in-flight work, builds a new pool and batcher,
+        warms them up (capturing exactly the new buckets) and resumes if
+        the server was running; the metrics carry over."""
+        if buckets is None:
+            hist = self.metrics.request_rows()
+            if not hist:
+                raise ServeError(
+                    "no request-size history to fit buckets to: serve "
+                    "traffic first or pass buckets= explicitly")
+            buckets = fit_buckets(hist, max_buckets=max_buckets,
+                                  max_size=self.buckets[-1])
+        new = tuple(sorted(set(int(b) for b in buckets)))
+        if not new:
+            raise ServeError("retune_buckets needs a non-empty bucket set")
+        if new == self.buckets:
+            return self
+        was_started = self._started
+        if was_started:
+            self.stop()
+        self.buckets = new
+        self._build()
+        self.warmup()
+        if was_started:
+            self.start()
+        return self
 
     def __enter__(self):
         return self.start()
@@ -183,10 +278,15 @@ class ModelServer:
     def _dispatch(self, requests, total_rows):
         """Batcher callback: coalesce, one bucket forward, scatter results;
         finishes every request."""
+        idx = self._batch_idx  # one dispatcher thread: no race
+        self._batch_idx += 1
         try:
+            if self.inject_fault is not None:
+                self.inject_fault(idx)
             ins = [np.concatenate([r.inputs[i] for r in requests], axis=0)
                    for i in range(len(self._specs))]
-            outs = self._pool.run(ins, n_real=total_rows)
+            with self._params_lock:
+                outs = self._pool.run(ins, n_real=total_rows)
             self.metrics.record_batch(total_rows,
                                       self._pool.pick_bucket(total_rows))
             now = time.perf_counter()
@@ -202,8 +302,10 @@ class ModelServer:
                 r.finish(error=e)
 
     def stats(self):
-        """Snapshot: batcher/latency metrics plus the bucket set."""
+        """Snapshot: batcher/latency metrics, the bucket set and the pool's
+        program counters (``captures``, ``replays``, ``drops``)."""
         snap = self.metrics.snapshot()
         snap.update(buckets=list(self.buckets), device=str(self.device),
-                    quantize=self.quantize, running=self._started)
+                    quantize=self.quantize, running=self._started,
+                    swap_epoch=self._swap_epoch, **self._pool.stats())
         return snap

@@ -58,6 +58,9 @@ bookkeeping.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
+
 import torch
 
 from ..ops.cuda import launch_counters
@@ -87,6 +90,21 @@ def _addresses(state, params):
             out.update(((name, i), t.data_ptr()) for i, t in enumerate(value))
     out.update((("params", i), t.data_ptr()) for i, t in enumerate(params))
     return out
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """No cyclic garbage collection inside the block. A collection during a
+    capture may free a dead server's CUDA graph (a server and its batcher
+    hold each other), and destroying a graph while a stream captures
+    invalidates the capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _counters():
@@ -184,8 +202,8 @@ class StepPrograms:
         mid = {name: fn.launches for name, fn in counters.items()}
         # thread_local: the server's other threads (admission, readers) do
         # host work while the step thread captures
-        with torch.cuda.graph(graph, pool=self._pool,
-                              capture_error_mode="thread_local"):
+        with collector_paused(), torch.cuda.graph(
+                graph, pool=self._pool, capture_error_mode="thread_local"):
             out = body(state)
         deltas = {name: fn.launches - mid[name]
                   for name, fn in counters.items()

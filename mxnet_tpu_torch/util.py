@@ -102,3 +102,17 @@ def load_npz_exact(filename):
         else:
             raise TypeError("entry %r has unsupported dtype %r" % (k, name))
     return out
+
+
+def tree_leaves(tree, like=None):
+    """The leaves of a nested structure of tensors in ``jax.tree_util``
+    order (dict values by sorted key, list and tuple items in order), cut
+    at the leaves of ``like`` (default: ``tree`` itself): with ``like`` a
+    tree of parameters and ``tree`` their optimizer states, each
+    parameter's whole state is one leaf."""
+    like = tree if like is None else like
+    if isinstance(like, dict):
+        return [x for k in sorted(like) for x in tree_leaves(tree[k], like[k])]
+    if isinstance(like, (list, tuple)):
+        return [x for t, s in zip(tree, like) for x in tree_leaves(t, s)]
+    return [tree]

@@ -1,10 +1,13 @@
 """Checkpoints cross between the packages: parameter files (fp32 and bf16,
 bit-exact both ways, deduplicated aliases), ``checkpoint.validate_swap``'s
-verdicts, arrays, whole checkpoints, and Trainer state files (Adam with
-``multi_precision``: the next step after a load matches the other
-package's within 1e-6 in fp32); and the GenerativeServer's weight swap."""
+verdicts, arrays, whole checkpoints, and Trainer state files of each of
+the fifteen optimizers (``multi_precision``: every leaf with its layout
+and dtype, and the next step after a load matches the other package's
+within 1e-6 in fp32; SGLD's noise drawn as zeros in both); and the
+GenerativeServer's weight swap."""
 import pickle
 
+import jax
 import ml_dtypes
 import numpy as np
 import pytest
@@ -16,10 +19,12 @@ from mxnet_tpu import checkpoint as jckpt
 from mxnet_tpu import gluon as jgluon
 from mxnet_tpu import util as jutil
 from mxnet_tpu_torch import autograd, checkpoint, gluon
+from mxnet_tpu_torch.util import tree_leaves
 from mxnet_tpu_torch.models.gpt import GPTModel
 from mxnet_tpu_torch.serve import GenerativeServer
-from torch_port_helpers import (SMALL_GPT, jax_gpt, jax_trace_state,  # noqa: F401
-                                port_gpt_from)
+from torch_port_helpers import (JAX_DOUBLE_DONATION, OPTIMIZER_KW,  # noqa: F401
+                                SMALL_GPT, jax_gpt, jax_trace_state,
+                                port_gpt_from, sgld_without_noise)
 
 ADAM = {"learning_rate": 1e-2, "wd": 0.01, "multi_precision": True}
 
@@ -205,20 +210,27 @@ def _mlp(nn, bf16):
     return net
 
 
-def _jax_mlp(bf16):
+def _opt_kw(opt):
+    return ADAM if opt == "adam" else dict(
+        OPTIMIZER_KW[opt], wd=0.01, multi_precision=True)
+
+
+def _jax_mlp(bf16, opt="adam"):
     net = _mlp(jgluon.nn, bf16)
     net.initialize()
     if bf16:
         net.cast("bfloat16")
-    return net, jgluon.Trainer(net.collect_params(), "adam", ADAM)
+    trainer = jgluon.Trainer(net.collect_params(), opt, _opt_kw(opt))
+    trainer._fused_opt = opt not in JAX_DOUBLE_DONATION
+    return net, trainer
 
 
-def _port_mlp(bf16=False):
+def _port_mlp(bf16=False, opt="adam"):
     net = _mlp(gluon.nn, bf16)
     net.initialize(device="cpu")
     if bf16:
         net.cast("bfloat16")
-    return net, gluon.Trainer(net.collect_params(), "adam", ADAM)
+    return net, gluon.Trainer(net.collect_params(), opt, _opt_kw(opt))
 
 
 def _x(seed):
@@ -245,10 +257,10 @@ def _leaves(trainer):
     return [t for _, t in trainer._leaves()]
 
 
-def _port_mlp_from_files(jnet, jtr, tmp_path, bf16=False):
+def _port_mlp_from_files(jnet, jtr, tmp_path, bf16=False, opt="adam"):
     jnet.save_parameters(str(tmp_path / "j.params"))
     jtr.save_states(str(tmp_path / "j.states"))
-    tnet, ttr = _port_mlp(bf16)
+    tnet, ttr = _port_mlp(bf16, opt)
     tnet.load_parameters(str(tmp_path / "j.params"))
     ttr.load_states(str(tmp_path / "j.states"))
     return tnet, ttr
@@ -261,48 +273,56 @@ def _assert_same_after_next_step(jnet, jtr, tnet, ttr):
         np.testing.assert_allclose(
             _port_structural(tnet)[name].detach().numpy(), np.asarray(arr),
             atol=1e-6, rtol=0, err_msg=name)
-    flat = jtr._states
-    jleaves = [np.asarray(a) for i in sorted(flat) for a in flat[i]]
+    jleaves = [np.asarray(a) for a in jax.tree_util.tree_leaves(jtr._states)]
+    assert len(jleaves) == len(_leaves(ttr))
     for a, b in zip(_leaves(ttr), jleaves):
+        assert a.numpy().dtype == b.dtype
         np.testing.assert_allclose(a.numpy(), b, atol=1e-6, rtol=0)
     assert ttr._optimizer.num_update == jtr._optimizer.num_update == 2
     assert ttr._optimizer._index_update_count == \
         jtr._optimizer._index_update_count
 
 
+@pytest.mark.parametrize("opt", sorted(OPTIMIZER_KW))
 def test_trainer_states_from_jax_give_the_jax_next_step(
-        jax_trace_state, tmp_path):  # noqa: F811
-    jnet, jtr = _jax_mlp(False)
+        opt, jax_trace_state, sgld_without_noise, tmp_path):  # noqa: F811
+    jnet, jtr = _jax_mlp(False, opt)
     _jax_step(jnet, jtr, _x(0))
-    tnet, ttr = _port_mlp_from_files(jnet, jtr, tmp_path)
+    tnet, ttr = _port_mlp_from_files(jnet, jtr, tmp_path, opt=opt)
     _assert_same_after_next_step(jnet, jtr, tnet, ttr)
 
 
+@pytest.mark.parametrize("opt", sorted(OPTIMIZER_KW))
 def test_trainer_states_from_the_port_give_the_jax_next_step(
-        jax_trace_state, tmp_path):  # noqa: F811
-    tnet, ttr = _port_mlp()
+        opt, jax_trace_state, sgld_without_noise, tmp_path):  # noqa: F811
+    tnet, ttr = _port_mlp(opt=opt)
     _port_step(tnet, ttr, _x(0))
     tnet.save_parameters(str(tmp_path / "t.params"))
     ttr.save_states(str(tmp_path / "t.states"))
-    jnet, jtr = _jax_mlp(False)
+    jnet, jtr = _jax_mlp(False, opt)
     jnet.load_parameters(str(tmp_path / "t.params"))
     jtr.load_states(str(tmp_path / "t.states"))
     _assert_same_after_next_step(jnet, jtr, tnet, ttr)
 
 
-def test_trainer_state_order_with_fp32_masters(jax_trace_state,  # noqa: F811
-                                               tmp_path):
+@pytest.mark.parametrize("opt", sorted(OPTIMIZER_KW))
+def test_trainer_state_order_with_fp32_masters(opt,  # noqa: F811
+                                               jax_trace_state, tmp_path):
     """bf16 weights with fp32 masters: each state is {"master", "state":
-    (mean, variance)}, flattened as master, mean, variance per parameter.
-    The port takes each array to its place and writes the same file."""
-    jnet, jtr = _jax_mlp(True)
+    the optimizer's state}, flattened as the master, then the inner
+    state's leaves (Adam's mean and variance) per parameter. The port
+    takes each array to its place, with its dtype, and writes the same
+    file."""
+    jnet, jtr = _jax_mlp(True, opt)
     _jax_step(jnet, jtr, _x(0))
-    tnet, ttr = _port_mlp_from_files(jnet, jtr, tmp_path, bf16=True)
+    tnet, ttr = _port_mlp_from_files(jnet, jtr, tmp_path, bf16=True, opt=opt)
     for i, s in ttr._states.items():
         js = jtr._states[i]
         np.testing.assert_array_equal(s["master"].numpy(),
                                       np.asarray(js["master"]))
-        for a, b in zip(s["state"], js["state"]):
+        inner = jax.tree_util.tree_leaves(js["state"])
+        assert len(tree_leaves(s["state"])) == len(inner)
+        for a, b in zip(tree_leaves(s["state"]), inner):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     ttr.save_states(str(tmp_path / "t.states"))
     with open(str(tmp_path / "j.states"), "rb") as f:
@@ -311,9 +331,13 @@ def test_trainer_state_order_with_fp32_masters(jax_trace_state,  # noqa: F811
         got = pickle.load(f)
     assert got["num_update"] == want["num_update"]
     assert got["update_count"] == want["update_count"]
-    assert len(got["arrays"]) == len(want["arrays"]) == 3 * 4
+    assert len(got["arrays"]) == len(want["arrays"]) == len(
+        jax.tree_util.tree_leaves(jtr._states))
+    if opt == "adam":
+        assert len(got["arrays"]) == 3 * 4
     for a, b in zip(got["arrays"], want["arrays"]):
-        assert a.dtype == b.dtype == np.float32
+        assert a.dtype == b.dtype == (np.uint32 if opt == "sgld" and a.shape
+                                      == (2,) else np.float32)
         np.testing.assert_array_equal(a, b)
 
 

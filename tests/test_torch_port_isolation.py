@@ -1,7 +1,8 @@
 """The port stands alone: no file of ``mxnet_tpu_torch/`` and not
 ``chip_smoke.py`` imports JAX or the JAX package; the package (the GPT
-model, the generative server, the checkpoint layer and the snapshots
-included) imports with JAX blocked; and without CUDA every entry point
+model, the generative server, the checkpoint layer, the snapshots, the
+optimizers, the LR schedulers, ``ir.tune`` and ``parallel`` included)
+imports with JAX blocked; and without CUDA every entry point
 refuses to run unless the caller asks for the CPU."""
 import ast
 import os
@@ -49,7 +50,9 @@ def test_package_imports_with_jax_blocked():
             "mxnet_tpu_torch.models.gpt, mxnet_tpu_torch.serve.decoder, "
             "mxnet_tpu_torch.checkpoint, "
             "mxnet_tpu_torch.serve, mxnet_tpu_torch.ops.cuda._build, "
-            "mxnet_tpu_torch.cache.snapshot; "
+            "mxnet_tpu_torch.cache.snapshot, mxnet_tpu_torch.optimizer, "
+            "mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.ir.tune, "
+            "mxnet_tpu_torch.parallel.data_parallel; "
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,

@@ -100,3 +100,39 @@ def test_pick_out_of_range_matches_jax(dtype, axis, indices, keepdims):
     idx = np.asarray(indices, np.int32)
     want, got = _both("pick", [x, idx], axis=axis, keepdims=keepdims)
     _assert_same(want, got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ids", [
+    [1, -1, 4, -5],                    # the ROADMAP probe on 4 rows
+    [[0, -6, 6, 2], [-1, 9, -7, 5]],   # [-n, 0), >= n and < -n on 6 rows
+    [3, -3, 100, -100, 0, 5],          # a row hit twice, once wrapped
+])
+def test_embedding_out_of_range_ids_match_jax(ids, dtype):
+    """``F.Embedding`` on ids outside the table equals ``jnp.take``'s fill
+    mode, bit for bit: an id in [-n, 0) takes row id + n, an id outside
+    [-n, n) a NaN row; the gradient adds each valid id's rows into its
+    wrapped row and nothing for the others. Each row is hit by at most
+    two ids, so the JAX package's bf16 sum (C.2) rounds as the port's
+    fp32 one does."""
+    import jax
+
+    idx = np.asarray(ids, np.int32)
+    n = 4 if idx.ndim == 1 and len(idx) == 4 else 6
+    rng = np.random.RandomState(7)
+    w = rng.randn(n, 8).astype(np.float32)
+    g = rng.randn(*idx.shape, 8).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = getattr(torch, dtype)
+    jw, jg = jnp.asarray(w, jdt), jnp.asarray(g, jdt)
+    want, vjp = jax.vjp(lambda t: JF.Embedding(jnp.asarray(idx), t), jw)
+    (want_dw,) = vjp(jg)
+    tw = torch.tensor(w).to(tdt).requires_grad_()
+    got = TF.Embedding(torch.from_numpy(idx), tw)
+    got.backward(torch.tensor(g).to(tdt))
+    assert got.dtype == tdt and tw.grad.dtype == tdt
+    _assert_same(np.asarray(want, np.float32), got.detach().float().numpy())
+    _assert_same(np.asarray(want_dw, np.float32), tw.grad.float().numpy())
+    bad = (idx < -n) | (idx >= n)
+    assert np.isnan(got.detach().float().numpy()[bad]).all()
+    assert not np.isnan(got.detach().float().numpy()[~bad]).any()

@@ -215,8 +215,10 @@ def test_trainer_refuses_what_is_not_ported():
     trainer = gluon.Trainer(params, "adam", kvstore="local")
     with pytest.raises(NotImplementedError, match="A.12"):
         trainer.set_weight_update_sharding(None)
+    # every optimizer the JAX package registers is ported; a name neither
+    # package registers is refused
     with pytest.raises(ValueError, match="unknown optimizer"):
-        optimizer.create("adamax")
+        optimizer.create("nadam")
 
 
 def test_trainer_skips_null_params_and_sets_learning_rate():

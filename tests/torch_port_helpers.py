@@ -8,6 +8,10 @@ import jax
 import jax._src.core as _jax_core
 import numpy as np
 import pytest
+import torch
+
+# the fifteen optimizers, each with settings that reach its every branch
+from chip_smoke import OPTIMIZER_KW  # noqa: F401
 
 # a small BERT: 2 layers, 128 units, 2 heads of 64, FFN 256
 SMALL_BERT = dict(vocab_size=1000, units=128, hidden_size=256, num_layers=2,
@@ -16,6 +20,23 @@ SEQ = 64
 # a small GPT: 2 layers, 128 units, 2 heads of 64, FFN 512, vocab 256
 SMALL_GPT = dict(vocab_size=256, units=128, num_layers=2, num_heads=2,
                  max_length=512, dropout=0.0)
+# the JAX package's fused_update donates one buffer twice for these fresh
+# states (FTML's is one zeros array three times, fp32 DCASGD's holds the
+# weight itself): a JAX Trainer stepping them takes its per-parameter path
+JAX_DOUBLE_DONATION = ("ftml", "dcasgd")
+
+
+@pytest.fixture
+def sgld_without_noise(monkeypatch):
+    """SGLD's noise drawn as zeros in both packages (their streams, threefry
+    and Philox, cannot match)."""
+    import jax.numpy as jnp
+    from mxnet_tpu_torch import optimizer as topt
+
+    monkeypatch.setattr(jax.random, "normal",
+                        lambda key, shape, dtype: jnp.zeros(shape, dtype))
+    monkeypatch.setattr(topt.SGLD, "_noise",
+                        lambda self, w: torch.zeros_like(w))
 
 
 @pytest.fixture

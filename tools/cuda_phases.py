@@ -14,7 +14,14 @@ built:
   ``phase_speculative_breakdown``;
 - ``gpt_train``: ``phase_gpt_train``, ``phase_gpt_train_timing`` and the
   step's torch.profiler breakdown;
-- ``snapshot``: ``phase_snapshot``.
+- ``snapshot``: ``phase_snapshot``;
+- ``serve_graph``: ``phase_serve`` and ``phase_serve_graph`` (bf16), then
+  ``phase_serve_quant`` and ``phase_serve_graph`` (int8): the ModelServer's
+  graph per bucket, a weight swap in a burst, a bucket retune; and
+  ``phase_bad_ids`` (ids outside the table beside a good stream);
+- ``optim``: ``phase_optimizers`` (the fifteen optimizers over GPT-2
+  small's parameters against the CPU), ``phase_gpt_train_optimizers``
+  (SGD with a cosine schedule and LAMB) and their steps' breakdowns.
 
 The readings go to ``chiprun_out/cuda_phases.json``. ``--keep-going``
 prints a failed check and goes on (to read every number of a first run);
@@ -67,9 +74,31 @@ def run_gpt_train(cs, dev):
     return out
 
 
+def run_serve_graph(cs, dev):
+    out = {}
+    srv = cs.phase_serve(dev)[-1]
+    out["bf16"] = cs.phase_serve_graph(dev, srv, "bf16 BERT server")
+    del srv
+    srv = cs.phase_serve_quant(dev)[-1]
+    out["int8"] = cs.phase_serve_graph(dev, srv, "int8 BERT server", "int8")
+    del srv
+    out["bad_ids"] = cs.phase_bad_ids(dev, cs._gpt_model(dev, cs.SEED))
+    return out
+
+
+def run_optim(cs, dev):
+    out = {"one_step": cs.phase_optimizers(dev)}
+    steps, out["gpt2_steps"] = cs.phase_gpt_train_optimizers(dev)
+    for label, step in steps.items():
+        out["gpt2_steps"][label]["breakdown"] = cs.phase_train_breakdown(
+            step, label="gpt2 train step, %s" % label)
+    return out
+
+
 GROUPS = {"kernels": run_kernels, "spec": run_spec,
           "gpt_train": run_gpt_train,
-          "snapshot": lambda cs, dev: cs.phase_snapshot(dev)}
+          "snapshot": lambda cs, dev: cs.phase_snapshot(dev),
+          "serve_graph": run_serve_graph, "optim": run_optim}
 
 
 def main(argv):
