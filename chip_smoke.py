@@ -186,6 +186,31 @@ Run from the root of a checkout on a machine with a CUDA card. It
    tie-margin rule, an edited fingerprint warns once and still serves; it
    prints the time from ``serve.load`` to the first token beside a cold
    replica's from the same artifact and a cold server's;
+12b. trains ResNet-50 v1 (``resnet50_v1(classes=1000)``, random weights
+   from a seed) at ``bench.py``'s ``resnet50`` recipe
+   (``phase_resnet_train``): a fixed batch of 128 fp32 images of 224x224
+   cast to bf16 at entry, amp bf16, ``SoftmaxCrossEntropyLoss``, SGD lr
+   0.1 momentum 0.9 wd 1e-4 with fp32 masters through ``autograd.record``,
+   ``backward`` and ``gluon.Trainer``: 10 steps whose loss falls, exactly
+   one softmax-xent forward and backward launch a step and no other
+   kernel; one step against the same step with the plain versions (loss,
+   each gradient's and its worst row's relative L2, each BatchNorm moving
+   statistic), two planted faults (BatchNorm's statistics from half the
+   batch; the softmax-xent dx without each row's last 8 columns) above the
+   limits and the plain step again within them; the bf16 step against the
+   fp32 step from the zero-init residual start; BatchNorm's moving
+   variance at N*H*W = 2 (biased, where an unbiased one reads 2x); the
+   step's wall by CUDA events and by the host, images/s, peak memory, and
+   again with ``cudnn.benchmark`` on; serves it (``phase_resnet_serve``)
+   through ``ModelServer(buckets=(1, 8, 32))`` in bf16 and int8 (naive
+   calibration): one graph a bucket bitwise equal to an eager run, no
+   capture in traffic, served rows against a direct forward, a bucket-32
+   replay's device time, the int8 convolution at the model's 20 shapes
+   equal to the exact product, the top-1 agreement of int8 with bf16;
+   and runs vgg16_bn, alexnet, squeezenet1.1, mobilenet1.0,
+   mobilenetv2_1.0, densenet121, inceptionv3, resnet18_v2 and
+   resnet50_v1b forward and backward at batch 8 against the same weights
+   on the CPU (``phase_vision_zoo``);
 13. times each kernel (CUDA-graph replay) at the bert512 step's shapes
    against its plain version, its PyTorch library yardstick and its bound
    (the LayerNorm backward against aten's, also at the MLM head's rows;
@@ -200,7 +225,9 @@ Run from the root of a checkout on a machine with a CUDA card. It
    training step at its shapes (``phase_gpt_train_timing``: LayerNorm
    forward and backward at (8192, 768), the causal flash forward with the
    lse and backward at (8, 12, 1024, 64), softmax-xent forward and backward
-   at (8192, 50257)), each first held to its plain version;
+   at (8192, 50257)), and the two softmax-xent kernels at ResNet-50's
+   (128, 1000) bf16 logits (``phase_resnet_timing``), each first held to
+   its plain version;
 14. breaks one serving forward at the largest bucket down (host wall, the
     executor's whole dispatch, a new thread's first dispatches, kernel time
     by class from torch.profiler, hence the device's idle share), then one
@@ -211,7 +238,9 @@ Run from the root of a checkout on a machine with a CUDA card. It
     a decode step of 8 slots, through its graph and eagerly, bf16 and
     int8, then the int8 BERT bucket-8 forward, then a speculative tick
     with NGramDraft, a 2-layer draft's round and tick, and a chunk tick,
-    and times the step once more. The
+    the ResNet-50 step (cuDNN's convolutions, BatchNorm, relu and the
+    residual add, pooling, layout transforms, SGD's foreach, the
+    softmax-xent kernels), and times the bert512 step once more. The
     profiler windows come last: after one, an eager step's host wall may
     not return to what it was.
 
@@ -5705,6 +5734,929 @@ def phase_gpt_train_optimizers(dev):
     return steps, out
 
 
+# ------------------------------------------------------------ vision
+# bench.py's resnet50 mode: ResNet-50 v1, 1000 classes, batch 128 of
+# 224x224 images (fp32, cast to bf16 at entry), amp bf16 with fp32 masters,
+# SGD lr 0.1 momentum 0.9 wd 1e-4
+RESNET = {"batch": 128, "size": 224, "classes": 1000}
+RESNET_SGD = {"learning_rate": 0.1, "momentum": 0.9, "multi_precision": True,
+              "wd": 1e-4}
+RESNET_STEPS = 10      # the main path: steps on one fixed batch
+RESNET_TIMED = 10
+# kernel launches a step: the one softmax-xent over the (128, 1000) logits
+# each way, and no other kernel of the port
+RESNET_STEP_LAUNCHES = {"softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
+# yardsticks, not targets: bench.py's cost count (23.52 GFLOP an image of
+# training, so 3.01 TFLOP a step of 128) and BASELINE.md's A100 rate
+RESNET_FLOP_PER_IMAGE = 23.52e9
+RESNET_A100_IMG_S = 2900.0
+# the step with the kernels against the same step with the plain versions:
+# only the loss's backward differs (the softmax-xent kernels against their
+# plain fp32 arithmetic, a few fp32 steps apart), then bf16 through 50
+# layers and cuDNN's algorithms, some of whose weight gradients add in no
+# fixed order: the loss (as BERT's and GPT-2's), each gradient's relative
+# L2 and its worst row's (GPT-2's limits), each moving statistic's relative
+# L2 (the forward does not reach the loss kernels: it differs only by
+# such an order). A conv bias before a training BatchNorm has no gradient
+# but rounding's: not held.
+RESNET_LOSS_TOL = 1e-2
+RESNET_GRAD_TOL = 2e-2
+RESNET_ROW_TOL = 0.3
+RESNET_STAT_TOL = 1e-3
+# the bf16 step against the fp32 step (TF32 off) from the same bf16-rounded
+# weights. At bench.py's random start ResNet-50 v1 is chaotic: at batch 2-8
+# on the CPU the bf16 and fp32 gradients are unrelated (relative L2 about
+# 1.2, the loss apart by 4%), as a 1e-6 change of the input moves the fp32
+# gradients by a few percent. From the zero-init residual start (each
+# residual body's last BatchNorm gamma at 0: every block its shortcut, the
+# gradients moved 3e-6 by the same change) the comparison means something:
+# on the CPU at batch 4-8 bf16 moves each gradient by 0.09-0.20 and the
+# whole by 0.08-0.16 in relative L2 (bf16 activations and cotangents
+# through BatchNorm's backward, whose subtracted means cancel most of each
+# term), the loss by 1e-4. Limits: the loss within 1e-2, the whole
+# gradient within 0.2, each gradient within 0.25
+RESNET_BF16_LOSS_TOL = 1e-2
+RESNET_BF16_WHOLE_TOL = 0.2
+RESNET_BF16_GRAD_TOL = 0.25
+# served logits against a direct forward of the same requests at another
+# batch (bf16: cuDNN takes other algorithms at another batch size), within
+# this share of the largest logit; int8 rows (exact int32 products,
+# calibrated static scales, fp32 in between) within 1e-3
+RESNET_SERVE_TOL = {"bf16": 0.05, "int8": 1e-3}
+RESNET_BUCKETS = (1, 8, 32)
+RESNET_REQUESTS = 48
+# the other families, one forward and backward each at batch 8 and its
+# input size, on the card (fp32, TF32 off) against the same weights and
+# inputs on the CPU: the logits within 1e-3 of the largest (fp32 through
+# up to 120 layers, cuDNN's convolution algorithms against the CPU's;
+# read 2.2e-7 to 2.3e-6 on an H100), each gradient within 2e-2 in
+# relative L2. A gradient reaches the first layers through every ReLU and
+# max-pool choice, and where two candidates of a window (or a
+# pre-activation and 0) differ by less than the two libraries' rounding
+# the gradient goes another way: the first run read 1.6e-6 (alexnet) to
+# 5.6e-3 (vgg16_bn's first convolution) against a first guess of 1e-3
+ZOO_FAMILIES = (("vgg16_bn", 224), ("alexnet", 224), ("squeezenet1.1", 224),
+                ("mobilenet1.0", 224), ("mobilenetv2_1.0", 224),
+                ("densenet121", 224), ("inceptionv3", 299),
+                ("resnet18_v2", 224), ("resnet50_v1b", 224))
+ZOO_BATCH = 8
+ZOO_LOGIT_TOL = 1e-3
+ZOO_GRAD_TOL = 2e-2
+
+
+def _bias_before_bn(net):
+    """The conv biases that feed a BatchNorm (the next block of their
+    HybridSequential): their gradient is rounding alone in training."""
+    from mxnet_tpu_torch.gluon import nn
+
+    out = set()
+
+    def walk(block):
+        kids = list(block._children.values())
+        for a, b in zip(kids, kids[1:]):
+            if isinstance(a, nn.Conv2D) and isinstance(b, nn.BatchNorm) \
+                    and a.bias is not None:
+                out.add(a.bias.name)
+        for k in kids:
+            walk(k)
+
+    walk(net)
+    return out
+
+
+def residual_gammas(net):
+    """The gamma of each residual body's last BatchNorm (the zero-init
+    residual start sets them to 0: Goyal et al., 2017)."""
+    from mxnet_tpu_torch.gluon import nn
+
+    out = []
+    for block in net.modules():
+        body = getattr(block, "body", None)
+        if isinstance(body, nn.HybridSequential) and len(body) \
+                and isinstance(body[len(body) - 1], nn.BatchNorm):
+            out.append(body[len(body) - 1].gamma)
+    return out
+
+
+class ResNetTrainStep:
+    """ResNet-50 v1 training through the port's entry points, as a user of
+    the JAX package writes bench.py's recipe: ``resnet50_v1(classes=1000)``,
+    one forward to shape the deferred parameters, amp bf16 (or fp32), the
+    input cast at entry, ``autograd.record``, ``SoftmaxCrossEntropyLoss``,
+    ``autograd.backward`` and ``gluon.Trainer("sgd")`` (RESNET_SGD), on one
+    fixed batch from the seed."""
+
+    timed = TrainStep.timed
+
+    def __init__(self, dev, dtype="bfloat16", weights=None):
+        import torch
+        from mxnet_tpu_torch import amp, gluon
+        from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+        B, S = RESNET["batch"], RESNET["size"]
+        self.net = resnet50_v1(classes=RESNET["classes"])
+        self.net.initialize(
+            device=dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED))
+        with torch.no_grad():
+            self.net(torch.zeros(1, 3, S, S, device=dev))
+        if dtype == "bfloat16":
+            amp.convert_hybrid_block(self.net, "bfloat16")
+        self.dtype = getattr(torch, dtype)
+        self.named = self.net._collect_params_with_prefix()
+        if weights is not None:  # another step's weights, in this dtype
+            for name, p in self.named.items():
+                p.set_data(weights[name].data().detach().to(p.dtype))
+        self.params = [p for p in self.net.collect_params().values()
+                       if p.grad_req != "null"]
+        self.stats = [p for p in self.net.collect_params().values()
+                      if p.name.endswith(("running_mean", "running_var"))]
+        self.trainer = gluon.Trainer(self.net.collect_params(), "sgd",
+                                     RESNET_SGD)
+        self.loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        rng = np.random.default_rng(SEED)
+        self.x = torch.from_numpy(rng.normal(size=(B, 3, S, S)).astype(
+            np.float32)).to(dev)
+        self.y = torch.from_numpy(rng.integers(
+            0, RESNET["classes"], (B,)).astype(np.int32)).to(dev)
+
+    def __call__(self, update=True):
+        """One step; returns the per-sample loss."""
+        from mxnet_tpu_torch import autograd
+
+        with autograd.record():
+            loss = self.loss_fn(self.net(self.x.to(self.dtype)), self.y)
+        autograd.backward(loss)
+        if update:
+            self.trainer.step(RESNET["batch"])
+        return loss.detach()
+
+    def saved_stats(self):
+        return [p.data().detach().clone() for p in self.stats]
+
+    def restore_stats(self, saved):
+        """Write the moving statistics back in place (a training forward
+        moves them)."""
+        import torch
+
+        with torch.no_grad():
+            for p, s in zip(self.stats, saved):
+                p.data().copy_(s)
+
+
+def batchnorm_first_half(real, x, gamma, beta, moving_mean, moving_var,
+                         **kw):
+    """A planted fault in BatchNorm's training path: the batch statistics
+    (the normalization's and the moving ones') from the first half of the
+    batch only. Outside training it is ``real``, the op itself."""
+    import torch
+
+    if not kw.get("training") or kw.get("use_global_stats"):
+        return real(x, gamma, beta, moving_mean, moving_var, **kw)
+    dims = [d for d in range(x.dim()) if d != 1]
+    var, mean = torch.var_mean(x[:max(1, x.shape[0] // 2)].float(),
+                               dim=dims, unbiased=False)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    y = ((x.float() - mean.reshape(shape))
+         * torch.rsqrt(var.reshape(shape) + kw.get("eps", 1e-5))
+         * gamma.float().reshape(shape) + beta.float().reshape(shape))
+    m = kw.get("momentum", 0.9)
+    mean, var = mean.detach(), var.detach()
+    return (y.to(x.dtype), m * moving_mean + (1 - m) * mean,
+            m * moving_var + (1 - m) * var)
+
+
+def xent_dx_last_columns_dropped(x, labels, lse, dy):
+    """A planted fault in the softmax-xent plain version: each row's last
+    8 columns of dx left at 0 (the last 8 classes never learn)."""
+    from mxnet_tpu_torch.ops.cuda import softmax_xent as sx
+
+    dx = sx.softmax_xent_bwd_plain(x, labels, lse, dy).clone()
+    dx[:, -8:] = 0
+    return dx
+
+
+class batchnorm_fault:
+    """Within the block, ``F.BatchNorm`` is ``fault(real_op, ...)`` (a
+    planted fault)."""
+
+    def __init__(self, fault):
+        self.fault = fault
+
+    def __enter__(self):
+        from mxnet_tpu_torch.ops import functional as F
+
+        self.real = real = F.BatchNorm
+        F.BatchNorm = lambda *a, **kw: self.fault(real, *a, **kw)
+        return self
+
+    def __exit__(self, *exc):
+        from mxnet_tpu_torch.ops import functional as F
+
+        F.BatchNorm = self.real
+
+
+RESNET_FAULTS = {
+    "BatchNorm statistics from the first half of the batch": (
+        batchnorm_first_half, {}),
+    "softmax-xent dx drops each row's last 8 columns": (
+        None, {"softmax_xent_bwd": xent_dx_last_columns_dropped}),
+    "none (the plain step again)": (None, {}),
+}
+
+
+def resnet_reading(step, loss, grads, stats, ref):
+    """The step's loss, gradients and moving statistics against ``ref``'s
+    (loss, grads, stats): the loss's |diff|, the worst three gradients'
+    relative L2 and worst rows (conv biases before a BatchNorm left out),
+    the worst moving statistic's relative L2."""
+    skip = _bias_before_bn(step.net)
+    keep = [i for i, p in enumerate(step.params) if p.name not in skip]
+    params = [step.params[i] for i in keep]
+    g = [grads[i] for i in keep]
+    r = [ref[1][i] for i in keep]
+    st = sorted(((float((a.float() - b.float()).norm()
+                        / b.float().norm().clamp(min=1e-30)), p.name)
+                 for p, a, b in zip(step.stats, stats, ref[2])),
+                reverse=True)
+    return {"loss_err": float((loss.mean() - ref[0].mean()).abs()),
+            "worst_grad_rel_l2": [[v, n] for v, n in grad_rel_l2(
+                params, g, r)[:3]],
+            "worst_row_rel_l2": [[v, n] for v, n in grad_row_rel_l2(
+                params, g, r)[:3]],
+            "worst_stat_rel_l2": [list(s) for s in st[:3]],
+            "held_params": len(params), "skipped_conv_biases": len(skip)}
+
+
+def resnet_within(r):
+    return (r["loss_err"] <= RESNET_LOSS_TOL
+            and r["worst_grad_rel_l2"][0][0] <= RESNET_GRAD_TOL
+            and r["worst_row_rel_l2"][0][0] <= RESNET_ROW_TOL
+            and r["worst_stat_rel_l2"][0][0] <= RESNET_STAT_TOL)
+
+
+def _one_step(step, saved, **faults):
+    """One step without the update from the saved moving statistics, with
+    the kernels (no argument) or the plain versions (``plain=True`` and
+    the wrappers ``faults`` names, with ``bn`` a planted BatchNorm):
+    (loss, grads, moving statistics after it)."""
+    plain = faults.pop("plain", False)
+    bn = faults.pop("bn", None)
+    step.restore_stats(saved)
+    if plain:
+        with plain_versions(**faults):
+            if bn is None:
+                loss = step(update=False).float()
+            else:
+                with batchnorm_fault(bn):
+                    loss = step(update=False).float()
+    else:
+        loss = step(update=False).float()
+    out = (loss, _grads(step.params), step.saved_stats())
+    step.restore_stats(saved)
+    return out
+
+
+def device_step_ms(step, n):
+    """Median wall of ``n`` steps measured with CUDA events around each
+    (the device's clock, from the first launch's enqueue to the last
+    kernel's end), and the median host wall of the same steps."""
+    import torch
+
+    dev_ms, host_ms = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(start.elapsed_time(end))
+    return float(np.median(dev_ms)), float(np.median(host_ms))
+
+
+def batchnorm_probe(dev):
+    """BatchNorm's moving variance on the card at N*H*W = 2, where the
+    unbiased variance is twice the biased one: the port's new moving
+    variance must be MXNet's (biased, momentum 0.5 here) within 1e-6, and
+    torch's own training batch_norm (unbiased, a planted reading) must
+    not."""
+    import torch
+    from mxnet_tpu_torch.ops import functional as F
+
+    rng = np.random.default_rng(SEED + 31)
+    x = rng.normal(size=(2, 16, 1, 1)).astype(np.float32)
+    mm = rng.normal(size=16).astype(np.float32) * 0.1
+    mv = rng.uniform(0.5, 1.5, 16).astype(np.float32)
+    want = 0.5 * mv + 0.5 * x.reshape(2, 16).var(axis=0)
+    t = [torch.from_numpy(a).to(dev) for a in (x, mm, mv)]
+    g = torch.ones(16, device=dev)
+    b = torch.zeros(16, device=dev)
+    _, _, got = F.BatchNorm(t[0].to(torch.bfloat16), g, b, t[1], t[2],
+                            training=True, momentum=0.5)
+    xb = t[0].to(torch.bfloat16).float().cpu().numpy().reshape(2, 16)
+    want_b = 0.5 * mv + 0.5 * xb.var(axis=0)
+    err = float(np.abs(got.cpu().numpy() - want_b).max())
+    rv = t[2].clone()
+    torch.nn.functional.batch_norm(t[0], t[1].clone(), rv, g, b, True, 0.5)
+    planted = float(np.abs(rv.cpu().numpy() - want).max())
+    print("BatchNorm probe at N*H*W = 2 on the card: new moving variance "
+          "|port - biased| %.3g (limit 1e-6); torch's unbiased batch_norm "
+          "|.| %.3g (must exceed it)" % (err, planted), flush=True)
+    check(err <= 1e-6, "BatchNorm's moving variance is not the biased one")
+    check(planted > 1e-6, "the probe cannot see an unbiased variance")
+    return {"max_abs_err": err, "unbiased_planted_err": planted}
+
+
+def phase_resnet_train(dev):
+    """ResNet-50 v1 trained at bench.py's recipe on the card: the main
+    path (RESNET_STEPS steps on one fixed batch: the loss falls, exact
+    softmax-xent launches), one step with the kernels against the same
+    step with the plain versions and with planted faults, the bf16 step
+    against the fp32 step, the BatchNorm probe, the step's wall by CUDA
+    events and by the host, images/s, peak memory, and the step with
+    ``cudnn.benchmark`` on."""
+    import torch
+    from mxnet_tpu_torch import random as mx_random
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    step = ResNetTrainStep(dev)
+    B = RESNET["batch"]
+    n_params = sum(p.data().numel() for p in step.params)
+    torch.cuda.synchronize()
+    print("resnet50_v1 train step: %d trained parameters, batch %d at %dx%d,"
+          " bf16 (fp32 masters and BatchNorm); set-up %.2f s"
+          % (n_params, B, RESNET["size"], RESNET["size"],
+             time.perf_counter() - t0), flush=True)
+    watch = [step.params[0], step.params[-1]]
+    before = [p.data().detach().clone() for p in watch]
+
+    # the main path, with every counter at 0 just before it
+    mx_random.seed(SEED)
+    reset_counters()
+    t0 = time.perf_counter()
+    losses = [float(step().mean()) for _ in range(RESNET_STEPS)]
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = read_counters()
+    print("resnet50 losses over %d steps on one batch: %s; kernel launches: "
+          "%s (%.2f s)" % (RESNET_STEPS, ["%.4f" % v for v in losses],
+                           launches, main_s), flush=True)
+    check(all(np.isfinite(losses)), "non-finite resnet50 loss")
+    check(losses[-1] < losses[0], "the resnet50 loss did not fall: %s"
+          % losses)
+    for p, b in zip(watch, before):
+        check(not torch.equal(p.data(), b), "resnet50: %s did not move"
+              % p.name)
+    del before
+    for name, n in launches.items():
+        want = RESNET_STEP_LAUNCHES.get(name, 0) * RESNET_STEPS
+        check(n == want, "resnet50 %s launches %d != %d" % (name, n, want))
+
+    # one step with the kernels against the plain versions, and planted
+    # faults in the plain step
+    saved = step.saved_stats()
+    kern = _one_step(step, saved)
+    for p, g in zip(step.params, kern[1]):
+        check(bool(torch.isfinite(g).all()), "resnet50 %s: non-finite grad"
+              % p.name)
+    reset_counters()
+    plain = _one_step(step, saved, plain=True)
+    check(not any(read_counters().values()),
+          "the plain-version resnet50 step launched a kernel: %s"
+          % read_counters())
+    honest = resnet_reading(step, *kern, plain)
+    print("resnet50 step with kernels vs plain versions: loss |diff| %.3g "
+          "(limit %g); worst gradient relative L2 %s (limit %g); worst row "
+          "%s (limit %g); worst moving statistic %s (limit %g); %d "
+          "parameters held, %d conv biases before a BatchNorm not held"
+          % (honest["loss_err"], RESNET_LOSS_TOL,
+             ["%.3g %s" % tuple(r) for r in honest["worst_grad_rel_l2"]],
+             RESNET_GRAD_TOL,
+             ["%.3g %s" % tuple(r) for r in honest["worst_row_rel_l2"]],
+             RESNET_ROW_TOL,
+             ["%.3g %s" % tuple(r) for r in honest["worst_stat_rel_l2"]],
+             RESNET_STAT_TOL, honest["held_params"],
+             honest["skipped_conv_biases"]), flush=True)
+    check(resnet_within(honest), "resnet50 step disagrees with the plain "
+          "versions: %s" % honest)
+    faults = {}
+    for name, (bn, wrappers) in RESNET_FAULTS.items():
+        got = _one_step(step, saved, plain=True, bn=bn, **wrappers)
+        faults[name] = resnet_reading(step, *got, plain)
+        faults[name]["caught"] = not resnet_within(faults[name])
+        print("resnet50 step, planted fault %r: loss |diff| %.3g, worst "
+              "gradient %s, worst row %s, worst statistic %s; caught %s"
+              % (name, faults[name]["loss_err"],
+                 ["%.3g %s" % tuple(r)
+                  for r in faults[name]["worst_grad_rel_l2"][:1]],
+                 ["%.3g %s" % tuple(r)
+                  for r in faults[name]["worst_row_rel_l2"][:1]],
+                 ["%.3g %s" % tuple(r)
+                  for r in faults[name]["worst_stat_rel_l2"][:1]],
+                 faults[name]["caught"]), flush=True)
+        check(faults[name]["caught"] == (bn is not None or bool(wrappers)),
+              "the resnet50 step's limits %s %r" % (
+                  "miss the planted fault" if bn is not None or wrappers
+                  else "refuse", name))
+    del plain
+
+    # the bf16 step against the fp32 step (TF32 off) from the same
+    # bf16-rounded weights, at the zero-init residual start (RESNET_BF16_*)
+    gammas = residual_gammas(step.net)
+    kept = [g.data().detach().clone() for g in gammas]
+    with torch.no_grad():
+        for g in gammas:
+            g.data().zero_()
+    step.restore_stats(saved)
+    low = (step(update=False).float(), _grads(step.params))
+    f32 = ResNetTrainStep(dev, "float32", weights=step.named)
+    f32.restore_stats(saved)
+    ref = (f32(update=False).float(), _grads(f32.params))
+    with torch.no_grad():
+        for g, k in zip(gammas, kept):
+            g.data().copy_(k)
+    step.restore_stats(saved)
+    skip = _bias_before_bn(step.net)
+    # the two nets' parameters by structural name (their roots' auto names
+    # differ)
+    local = {id(p): n for n, p in step.named.items()}
+    by_name = {n: g for n, p in f32.named.items()
+               for q, g in zip(f32.params, ref[1]) if q is p}
+    pairs = [(p.name, g.float(), by_name[local[id(p)]])
+             for p, g in zip(step.params, low[1]) if p.name not in skip]
+    rel = sorted(((float((g - r).norm() / r.norm().clamp(min=1e-30)), n)
+                  for n, g, r in pairs if r.norm() > 0), reverse=True)
+    whole = float(torch.cat([(g - r).reshape(-1) for _, g, r in pairs])
+                  .norm() / torch.cat([r.reshape(-1) for _, _, r in pairs])
+                  .norm())
+    loss_rel = float((low[0].mean() - ref[0].mean()).abs()
+                     / ref[0].mean().abs())
+    bf16_vs_fp32 = {"loss": [float(low[0].mean()), float(ref[0].mean())],
+                    "loss_rel_err": loss_rel, "whole_grad_rel_l2": whole,
+                    "worst_grad_rel_l2": [list(r) for r in rel[:5]],
+                    "median_grad_rel_l2": float(np.median([r[0]
+                                                           for r in rel])),
+                    "zeroed_gammas": len(gammas)}
+    print("resnet50 bf16 step vs fp32 step (zero-init residual start, %d "
+          "gammas at 0): loss %.5f vs %.5f (relative %.3g, limit %g); "
+          "gradient relative L2 of the whole %.3g (limit %g), median %.3g, "
+          "worst %s (limit %g)"
+          % (len(gammas), bf16_vs_fp32["loss"][0], bf16_vs_fp32["loss"][1],
+             loss_rel, RESNET_BF16_LOSS_TOL, whole, RESNET_BF16_WHOLE_TOL,
+             bf16_vs_fp32["median_grad_rel_l2"],
+             ["%.3g %s" % tuple(r) for r in rel[:3]], RESNET_BF16_GRAD_TOL),
+          flush=True)
+    check(loss_rel <= RESNET_BF16_LOSS_TOL and whole <= RESNET_BF16_WHOLE_TOL
+          and rel[0][0] <= RESNET_BF16_GRAD_TOL,
+          "the resnet50 bf16 step leaves the fp32 step's")
+    del f32, ref, low, by_name, kern
+    torch.cuda.empty_cache()
+    probe = batchnorm_probe(dev)
+
+    # the step's wall, images/s and peak memory, then cudnn.benchmark on
+    step.timed(2)
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    dev_ms, host_ms = device_step_ms(step, RESNET_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    result = {"recipe": dict(RESNET, sgd=RESNET_SGD, dtype="bfloat16"),
+              "losses": losses, "launches": launches,
+              "steps_counted": RESNET_STEPS, "vs_plain": honest,
+              "planted_faults": faults, "bf16_vs_fp32": bf16_vs_fp32,
+              "batchnorm_probe": probe,
+              "step_ms_cuda_events_median": dev_ms,
+              "step_ms_host_median": host_ms,
+              "images_per_s": B / host_ms * 1e3,
+              "peak_memory_gb": peak,
+              "allocated_before_steps_gb": held_gb,
+              "yardsticks": {
+                  "bench_flop_per_step": RESNET_FLOP_PER_IMAGE * B,
+                  "bound_ms_at_989_tflops": RESNET_FLOP_PER_IMAGE * B
+                  / PEAK_BF16 * 1e3,
+                  "a100_baseline_step_ms": B / RESNET_A100_IMG_S * 1e3}}
+    print("resnet50 train step: median %.3f ms by CUDA events, %.3f ms by "
+          "the host over %d steps; %.1f images/s; peak memory %.2f GB "
+          "(%.2f GB allocated before the steps: the model, its optimizer "
+          "state and whatever earlier phases hold) (yardsticks: %.2f ms at "
+          "989 TFLOP/s for bench.py's 23.52 GFLOP an image, %.1f ms a step "
+          "at the A100 baseline's 2900 images/s)"
+          % (dev_ms, host_ms, RESNET_TIMED, result["images_per_s"], peak,
+             held_gb,
+             result["yardsticks"]["bound_ms_at_989_tflops"],
+             result["yardsticks"]["a100_baseline_step_ms"]), flush=True)
+    torch.backends.cudnn.benchmark = True
+    try:
+        step.timed(3)
+        bench_dev, bench_host = device_step_ms(step, RESNET_TIMED)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    result["cudnn_benchmark"] = {"step_ms_cuda_events_median": bench_dev,
+                                 "step_ms_host_median": bench_host,
+                                 "images_per_s": B / bench_host * 1e3}
+    print("resnet50 train step with cudnn.benchmark on: median %.3f ms by "
+          "CUDA events, %.3f ms by the host (%.1f images/s)"
+          % (bench_dev, bench_host, B / bench_host * 1e3), flush=True)
+    return step, result
+
+
+def _vision_kernel_class(name):
+    for key, cls in (("xent_fwd_kernel", "softmax_xent_fwd"),
+                     ("xent_bwd_kernel", "softmax_xent_bwd"),
+                     ("multi_tensor_apply", "optimizer (foreach)"),
+                     ("dgrad", "conv dgrad"), ("wgrad", "conv wgrad"),
+                     ("fprop", "conv forward"),
+                     ("batch_norm", "batchnorm"), ("bn_", "batchnorm"),
+                     ("welford", "batchnorm"),
+                     ("max_pool", "pooling"), ("avg_pool", "pooling"),
+                     ("nchwToNhwc", "layout"), ("nhwcToNchw", "layout"),
+                     ("threshold", "relu+add"), ("clamp_min", "relu+add"),
+                     ("AddFunctor", "relu+add"), ("add_kernel", "relu+add")):
+        if key in name:
+            return cls
+    if any(s in name for s in ("conv", "implicit", "winograd")):
+        return "conv (other)"
+    if any(s in name for s in ("gemm", "xmma", "cutlass", "nvjet")):
+        return "gemm"
+    if "reduce_kernel" in name:
+        return "reduction"
+    return "other"
+
+
+def phase_resnet_breakdown(step, n_prof=2):
+    """Where the ResNet-50 step's time goes, from one torch.profiler
+    window after the timed steps: kernel ms a step by class (cuDNN's
+    convolution forward, dgrad and wgrad, BatchNorm, relu and the residual
+    add, pooling, the optimizer's foreach, the softmax-xent kernels), the
+    profiled wall and the device's idle share, and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n_prof
+    by_class, top = {}, []
+    for ev in prof.key_averages():
+        # kernels only: a profiler range's device-side event is its span
+        if ev.device_type != DeviceType.CUDA \
+                or ev.key.startswith("mxnet_tpu_torch::"):
+            continue
+        ms = ev.self_device_time_total / 1e3 / n_prof
+        cls = _vision_kernel_class(ev.key)
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+        top.append((ms, ev.count // n_prof, cls, ev.key[:80]))
+    top.sort(reverse=True)
+    busy = sum(by_class.values())
+    out = {"kernel_ms_per_step": by_class, "profiled_wall_ms_per_step": wall,
+           "device_busy_ms_per_step": busy,
+           "device_idle_share": 1.0 - busy / wall, "top": top[:15]}
+    print("resnet50 train step breakdown (torch.profiler, %d steps): kernel"
+          " ms a step by class %s; %.3f ms busy in %.3f ms of wall: device "
+          "idle %.1f%%" % (n_prof, {k: round(v, 3) for k, v in sorted(
+              by_class.items())}, busy, wall, 100 * out["device_idle_share"]),
+          flush=True)
+    for ms, n, cls, name in top[:15]:
+        print("  %8.4f ms  x%-4d %-20s %s" % (ms, n, cls, name))
+    check(busy > 0, "the profiler saw no kernel time")
+    return out
+
+
+def phase_resnet_timing(dev, records, resnet):
+    """The softmax-xent kernels at the ResNet-50 step's shape, (128, 1000)
+    bf16 logits with dy = 1 (the loss summed by the backward, then the
+    trainer's 1 / batch), each held to its plain version and timed
+    against it, ``F.cross_entropy`` and its bound, added to their records
+    under ``resnet50_train`` with the main path's launches."""
+    import torch
+    import torch.nn.functional as TF
+    from mxnet_tpu_torch.ops.cuda import softmax_xent as sx
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    rec = {r["name"]: r for r in records}
+    R, V = RESNET["batch"], RESNET["classes"]
+    launches, steps = resnet["launches"], resnet["steps_counted"]
+    x = (torch.randn(R, V, device=dev, generator=g) * 3).to(torch.bfloat16)
+    labels = torch.randint(0, V, (R,), device=dev, generator=g,
+                           dtype=torch.int32)
+    labels[0] = V - 1
+    dy = torch.ones(R, device=dev)
+    what = "resnet50 train softmax-xent (%d, %d) bf16" % (R, V)
+    loss, lse = sx.softmax_xent_fwd(x, labels)
+    torch.cuda.synchronize()
+    ref_loss, ref_lse = sx.softmax_xent_fwd_plain(x, labels)
+    fwd = held(loss, ref_loss, XENT_TOL, what + " loss")
+    fwd["lse"] = held(lse, ref_lse, XENT_TOL, what + " lse")
+    dx = sx.softmax_xent_bwd(x, labels, ref_lse, dy)
+    torch.cuda.synchronize()
+    bwd = held(dx, sx.softmax_xent_bwd_plain(x, labels, ref_lse, dy),
+               XENT_DX_TOL["bfloat16"], what + " dx")
+    xf = x.float().requires_grad_()
+    lab64 = labels.long()
+
+    def lib_fwd():
+        return TF.cross_entropy(xf, lab64, reduction="none")
+
+    def lib_fwd_bwd():
+        return torch.autograd.grad(lib_fwd(), xf, dy)
+
+    ms, plain_ms, lib_ms, lib_both = time_ms(
+        lambda: sx.softmax_xent_fwd(x, labels),
+        lambda: sx.softmax_xent_fwd_plain(x, labels), lib_fwd, lib_fwd_bwd)
+    bwd_ms, bwd_plain_ms = time_ms(
+        lambda: sx.softmax_xent_bwd(x, labels, ref_lse, dy),
+        lambda: sx.softmax_xent_bwd_plain(x, labels, ref_lse, dy))
+    ops = 5 * R * V
+    xbytes = R * V * x.element_size()
+    for name, t, plain_t, lib_t, reading, nbytes, lib in (
+            ("softmax_xent_fwd", ms, plain_ms, lib_ms, fwd,
+             xbytes + 3 * R * 4,
+             "F.cross_entropy(reduction='none') on fp32 logits"),
+            ("softmax_xent_bwd", bwd_ms, bwd_plain_ms, lib_both - lib_ms,
+             bwd, 2 * xbytes + 3 * R * 4,
+             "backward of F.cross_entropy on fp32 logits (forward + "
+             "backward less forward)")):
+        t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+        out = {"ms": t, "plain_ms": plain_t, "library_ms": lib_t,
+               "launches": launches[name],
+               "launches_per_step": launches[name] / steps, "shape": [R, V],
+               "max_abs_err": reading["max_abs_err"], "check": reading,
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "library": lib}
+        rec[name]["resnet50_train"] = out
+        print("time resnet50 train %-17s at %s: kernel %.4f ms, plain %.4f "
+              "ms, library %.4f ms, bound %.4f ms (%s), %g launches a step"
+              % (name, [R, V], t, plain_t, lib_t, out["bound_ms"],
+                 out["bound_by"], out["launches_per_step"]), flush=True)
+
+
+def _bf16_entry(net):
+    """``net`` behind a cast of its fp32 input to bf16 (bench.py's entry
+    cast), as one block for a server."""
+    from mxnet_tpu_torch.gluon import nn
+
+    wrap = nn.HybridSequential()
+    wrap.add(nn.HybridLambda(lambda F, x: F.cast(x, dtype="bfloat16")), net)
+    return wrap
+
+
+def _serving_resnet(dev, source):
+    """A new bf16 resnet50_v1 holding ``source``'s weights and moving
+    statistics (a trained step's net), behind the bf16 entry cast."""
+    import torch
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    S = RESNET["size"]
+    net = resnet50_v1(classes=RESNET["classes"])
+    net.initialize(device=dev)
+    with torch.no_grad():
+        net(torch.zeros(1, 3, S, S, device=dev))
+    amp.convert_hybrid_block(net, "bfloat16")
+    theirs = source._collect_params_with_prefix()
+    for name, p in net._collect_params_with_prefix().items():
+        p.set_data(theirs[name].data().detach().clone().to(p.dtype))
+    return _bf16_entry(net)
+
+
+def _serve_burst(srv, reqs):
+    """Submit every request, wait for all: (rows in order, stats delta of
+    the graph keys, forwards)."""
+    b0 = srv.metrics.batches
+    handles = [srv.submit(r) for r in reqs]
+    rows = [h.result(timeout_s=300)[0] for h in handles]
+    return np.concatenate(rows), srv.metrics.batches - b0
+
+
+def quant_conv_exact(dev, model, n=8):
+    """The int8 quantized convolution at every distinct shape of the
+    quantized ResNet-50 (its layers' inputs at batch ``n``, found by one
+    forward): ``quantized_conv_acc`` on random int8 operands of those
+    shapes equals the fp64 convolution of the same operands, read as
+    integers (exact: every sum is an integer below 2**53)."""
+    import torch
+    from mxnet_tpu_torch.ops import lowbit
+    from mxnet_tpu_torch.quantization import QuantizedConv2D
+
+    shapes = {}
+    hooks = []
+    for block in model.modules():
+        if isinstance(block, QuantizedConv2D):
+            def hook(b, args, out, block=block):
+                k = block._conv_kw
+                shapes.setdefault((tuple(args[0].shape), tuple(
+                    block.qweight.shape), tuple(k["stride"]),
+                    tuple(k["pad"])), block)
+            hooks.append(block.register_forward_hook(hook))
+    try:
+        with torch.inference_mode():
+            model(torch.zeros(n, 3, RESNET["size"], RESNET["size"],
+                              device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+    g = torch.Generator(device=dev).manual_seed(SEED + 51)
+    worst = 0
+    for (xs, ws, stride, pad), block in sorted(shapes.items()):
+        qx = torch.randint(-127, 128, xs, device=dev, generator=g,
+                           dtype=torch.int8)
+        qw = block.qweight.data()
+        acc = lowbit.quantized_conv_acc(qx, qw, stride, pad)
+        ref = torch.nn.functional.conv2d(qx.double(), qw.double(),
+                                         stride=stride, padding=pad)
+        diff = int((acc.to(torch.int64) - ref.to(torch.int64)).abs().max())
+        worst = max(worst, diff)
+        check(acc.dtype == torch.int32 and diff == 0,
+              "int8 quantized conv at %s x %s differs from the exact "
+              "product by %d" % (xs, ws, diff))
+    print("int8 quantized conv at %d distinct ResNet-50 shapes (batch %d): "
+          "equal to the exact product of the same operands" % (len(shapes),
+                                                               n), flush=True)
+    return {"shapes": len(shapes), "max_abs_err": worst}
+
+
+def phase_resnet_serve(dev, source):
+    """ResNet-50 (``source``'s trained weights, eval mode: the moving
+    statistics) served through ``ModelServer(buckets=(1, 8, 32))`` in bf16
+    and then int8 (naive calibration): one CUDA graph a bucket, each
+    bucket's replay bitwise equal to an eager run of the same padded
+    batch, no capture in traffic, served rows against a direct forward,
+    the int8 convolution at the model's shapes against the exact product,
+    and the top-1 agreement of int8 with bf16."""
+    import torch
+    from mxnet_tpu_torch.serve import ModelServer
+
+    S = RESNET["size"]
+    specs = [((3, S, S), "float32")]
+    rng = np.random.default_rng(SEED + 61)
+    reqs = rng.normal(size=(RESNET_REQUESTS, 3, S, S)).astype(np.float32)
+    calib = rng.normal(size=(8, 3, S, S)).astype(np.float32)
+    out = {}
+    tops = {}
+    for mode in ("bf16", "int8"):
+        model = _serving_resnet(dev, source)
+        t0 = time.perf_counter()
+        srv = ModelServer(model, specs, buckets=RESNET_BUCKETS,
+                          max_wait_ms=5.0, timeout_ms=300000.0, device=dev,
+                          quantize=None if mode == "bf16" else "int8",
+                          calib_mode="none" if mode == "bf16" else "naive",
+                          calib_data=None if mode == "bf16" else [calib])
+        torch.cuda.synchronize()
+        warm = srv.stats()
+        what = "%s ResNet-50 server" % mode
+        print("%s warmup (buckets %s, one CUDA graph each): %.2f s; %s"
+              % (what, list(RESNET_BUCKETS), time.perf_counter() - t0,
+                 {k: warm[k] for k in GRAPH_KEYS}), flush=True)
+        check_warm_graphs(warm, RESNET_BUCKETS, what)
+        eq = {}
+        for b in RESNET_BUCKETS:
+            ins = [reqs[:b]]
+            graph_out = srv._pool.run(ins)
+            eager_out = srv._pool.run(ins, eager=True)
+            eq[b] = outputs_equal(graph_out, eager_out)
+            check(eq[b], "%s bucket %d: graph replay differs from eager"
+                  % (what, b))
+        replay_ms, eager_ms = bucket_device_ms(srv._pool, RESNET_BUCKETS[-1])
+        print("%s bucket %d on the device: a graph replay %.3f ms, an eager "
+              "forward's span %.3f ms" % (what, RESNET_BUCKETS[-1], replay_ms,
+                                          eager_ms), flush=True)
+        with srv:
+            stats0 = srv.stats()
+            reset_counters()
+            t0 = time.perf_counter()
+            served, forwards = _serve_burst(srv, list(reqs))
+            wall = time.perf_counter() - t0
+            counts = read_counters()
+            stats = srv.stats()
+        check(stats["captures"] == stats0["captures"] and stats["drops"] == 0
+              and stats["replays"] == stats0["replays"] + forwards,
+              "%s traffic captured a graph or ran without one: %s"
+              % (what, {k: stats[k] for k in GRAPH_KEYS}))
+        check(stats["errors"] == 0, "%s errors: %s" % (what, stats))
+        check(not any(counts.values()), "%s launched a port kernel: %s"
+              % (what, counts))
+        with torch.inference_mode():
+            direct = np.concatenate([
+                model(torch.from_numpy(reqs[i:i + 16]).to(dev)).float()
+                .cpu().numpy() for i in range(0, len(reqs), 16)])
+        check(served.shape == (RESNET_REQUESTS, RESNET["classes"])
+              and np.isfinite(served).all(), "%s served rows" % what)
+        err = float(np.abs(served - direct).max() / np.abs(direct).max())
+        tops[mode] = direct.argmax(axis=1)
+        agree = float((served.argmax(axis=1) == tops[mode]).mean())
+        print("%s: %d requests in %d forwards (%.1f ms wall, %.1f req/s); "
+              "served rows vs a direct forward: max |diff| / max |logit| "
+              "%.3g (limit %g), top-1 equal on %.3f"
+              % (what, RESNET_REQUESTS, forwards, wall * 1e3,
+                 RESNET_REQUESTS / wall, err, RESNET_SERVE_TOL[mode], agree),
+              flush=True)
+        check(err <= RESNET_SERVE_TOL[mode], "%s rows disagree with a "
+              "direct forward" % what)
+        out[mode] = {"graph_equals_eager": eq, "forwards": forwards,
+                     "bucket_%d_replay_ms" % RESNET_BUCKETS[-1]: replay_ms,
+                     "bucket_%d_eager_span_ms" % RESNET_BUCKETS[-1]: eager_ms,
+                     "wall_ms": wall * 1e3, "rows_vs_direct": err,
+                     "top1_served_vs_direct": agree,
+                     "server_stats": {k: stats[k] for k in GRAPH_KEYS}}
+        if mode == "int8":
+            out[mode]["quant_conv_exact"] = quant_conv_exact(dev, model)
+        del srv, model
+        torch.cuda.empty_cache()
+    out["int8_top1_agreement_with_bf16"] = float(
+        (tops["int8"] == tops["bf16"]).mean())
+    print("ResNet-50 int8 top-1 agreement with bf16 on %d requests: %.3f"
+          % (RESNET_REQUESTS, out["int8_top1_agreement_with_bf16"]),
+          flush=True)
+    return out
+
+
+def _zoo_run(net, x, cot, dev):
+    """One forward and backward of ``net`` in predict mode (BatchNorm with
+    its moving statistics, dropout off) on ``dev``: (logits, {name:
+    gradient})."""
+    import torch
+    from mxnet_tpu_torch import autograd
+
+    with autograd.record(train_mode=False):
+        y = net(x.to(dev))
+    autograd.backward(y, cot.to(dev))
+    named = net._collect_params_with_prefix()
+    return y.detach().cpu(), {n: p.grad().detach().cpu() for n, p in
+                              named.items() if p.grad_req != "null"}
+
+
+def phase_vision_zoo(dev):
+    """Every other family of the zoo, one forward and backward at batch 8
+    and its input size on the card (fp32, TF32 off) against the same
+    weights and inputs on the CPU (ZOO_LOGIT_TOL, ZOO_GRAD_TOL). Predict
+    mode: at random weights a training BatchNorm at batch 8 makes a deep
+    network chaotic (tests/test_torch_port_resnet_step.py), which no
+    tolerance between two libraries could hold; BatchNorm's training path
+    is the ResNet-50 step's."""
+    import torch
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+
+    cpu = torch.device("cpu")
+    out = {}
+    for i, (name, size) in enumerate(ZOO_FAMILIES):
+        t0 = time.perf_counter()
+        host = get_model(name, classes=1000)
+        host.initialize(device=cpu,
+                        generator=torch.Generator().manual_seed(SEED + i))
+        with torch.no_grad():
+            host(torch.zeros(1, 3, size, size))
+        card = get_model(name, classes=1000)
+        theirs = host._collect_params_with_prefix()
+        for n, p in card._collect_params_with_prefix().items():
+            p.set_data(theirs[n].data().detach().clone().to(dev))
+        rng = np.random.default_rng(SEED + 71 + i)
+        x = torch.from_numpy(rng.normal(
+            size=(ZOO_BATCH, 3, size, size)).astype(np.float32))
+        cot = torch.from_numpy(rng.normal(size=(ZOO_BATCH, 1000)).astype(
+            np.float32))
+        y_card, g_card = _zoo_run(card, x, cot, dev)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        y_host, g_host = _zoo_run(host, x, cot, cpu)
+        logit_err = float((y_card - y_host).abs().max()
+                          / y_host.abs().max().clamp(min=1e-30))
+        rel = sorted(((float((g_card[n] - g_host[n]).norm()
+                             / g_host[n].norm().clamp(min=1e-30)), n)
+                      for n in g_host if g_host[n].norm() > 0),
+                     reverse=True)
+        out[name] = {"input": [ZOO_BATCH, 3, size, size],
+                     "logit_rel_err": logit_err,
+                     "worst_grad_rel_l2": [list(r) for r in rel[:3]],
+                     "params": len(g_host),
+                     "seconds": time.perf_counter() - t0,
+                     "card_seconds": t_card}
+        print("zoo %-16s batch %d at %dx%d: logits max |card - cpu| / max "
+              "|cpu| %.3g (limit %g); worst gradient relative L2 %s (limit "
+              "%g) over %d parameters; %.1f s (card %.1f s)"
+              % (name, ZOO_BATCH, size, size, logit_err, ZOO_LOGIT_TOL,
+                 ["%.3g %s" % tuple(r) for r in rel[:2]], ZOO_GRAD_TOL,
+                 len(g_host), out[name]["seconds"], t_card), flush=True)
+        check(torch.isfinite(y_card).all() and y_card.shape == (
+            ZOO_BATCH, 1000), "zoo %s: logits" % name)
+        check(logit_err <= ZOO_LOGIT_TOL, "zoo %s: logits disagree with "
+              "the CPU's" % name)
+        check(rel[0][0] <= ZOO_GRAD_TOL, "zoo %s: gradients disagree with "
+              "the CPU's" % name)
+        del host, card, g_card, g_host
+        torch.cuda.empty_cache()
+    return out
+
+
 def card_line():
     """The card's name and power limit, as ``nvidia-smi --query-gpu=
     name,power.limit --format=csv,noheader`` gives them."""
@@ -5804,6 +6756,20 @@ def main():
                                                 "int8")
         del qsrv
         snapshots = phase_snapshot(dev)
+        vision_s = {}
+        t0 = time.perf_counter()
+        resnet_step, resnet = phase_resnet_train(dev)
+        vision_s["phase_resnet_train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resnet["serving"] = phase_resnet_serve(dev, resnet_step.net)
+        vision_s["phase_resnet_serve"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        zoo = phase_vision_zoo(dev)
+        vision_s["phase_vision_zoo"] = time.perf_counter() - t0
+        resnet["phase_seconds"] = vision_s
+        print("vision phases: %s, %.1f s together" % (
+            {k: round(v, 1) for k, v in vision_s.items()},
+            sum(vision_s.values())), flush=True)
         records, crossover = phase_timing(
             dev, train["launches"], train["steps_counted"], errs,
             serve_launches, forwards, serve_vl)
@@ -5813,6 +6779,7 @@ def main():
         phase_generate_timing(dev, records, gen)
         phase_quant_timing(dev, records, quant)
         phase_gpt_train_timing(dev, records, gpt_train)
+        phase_resnet_timing(dev, records, resnet)
         # the profiler windows come last: once a profiler session has run,
         # an eager step's host wall may not return to what it was before
         breakdown = phase_breakdown(dev, model)
@@ -5820,6 +6787,8 @@ def main():
         gpt_train["breakdown"] = phase_train_breakdown(
             gpt_step, label="gpt2 train step")
         del gpt_step
+        resnet["breakdown"] = phase_resnet_breakdown(resnet_step)
+        del resnet_step
         for label, st in optim_steps.items():
             optim["gpt2_steps"][label]["breakdown"] = phase_train_breakdown(
                 st, label="gpt2 train step, %s" % label)
@@ -5849,7 +6818,8 @@ def main():
                       "train_bert128": bert128, "train_gpt2": gpt_train,
                       "generate": gen, "snapshots": snapshots,
                       "serve_graph": serve_graph, "optimizers": optim,
-                      "bad_ids": bad_ids,
+                      "bad_ids": bad_ids, "train_resnet50": resnet,
+                      "vision_zoo": zoo,
                       "decode_step_graphs": graphs, "quantized": quant,
                       "speculative": spec, "chunked_prefill": chunked,
                       "attention_dense_vs_flash": crossover,

@@ -8,7 +8,8 @@ attention seam, the bucketed dynamic-batching ModelServer), trains it
 cache and the continuous-batching GenerativeServer), and reads and writes
 the JAX package's parameter, trainer-state and checkpoint files
 (``checkpoint``), serves quantized (``quant``: int8 and fp8 weights, int8
-KV pages), with hand-written CUDA kernels (sm_90a) for the
+KV pages), runs the vision layers and model zoo (ResNet-50 trained and
+served, int8 convolutions), with hand-written CUDA kernels (sm_90a) for the
 LayerNorm, the flash-attention forward and backward, and the softmax
 cross-entropy forward and backward. Entry points run on the current CUDA
 device unless the caller passes ``device="cpu"``. The package imports

@@ -1,6 +1,7 @@
 """Mixed precision (counterpart of ``mxnet_tpu/amp.py``
 ``convert_hybrid_block``): cast a block's parameters to bfloat16 and keep
-the normalization parameters in float32."""
+the normalization parameters (BatchNorm's moving statistics among them) in
+float32."""
 from __future__ import annotations
 
 import torch
@@ -13,9 +14,10 @@ def convert_hybrid_block(block, target_dtype="bfloat16"):
 
 
 def _fix_norms(block):
-    from .gluon.nn.basic_layers import LayerNorm
+    from .gluon.nn.basic_layers import (BatchNorm, GroupNorm, InstanceNorm,
+                                        LayerNorm)
 
-    if isinstance(block, LayerNorm):
+    if isinstance(block, (BatchNorm, LayerNorm, InstanceNorm, GroupNorm)):
         for p in block._reg_params.values():
             p.cast(torch.float32)
     for child in block._children.values():

@@ -1,0 +1,368 @@
+"""ResNet V1/V2/V1b (ref: python/mxnet/gluon/model_zoo/vision/resnet.py;
+the JAX package's ``mxnet_tpu/gluon/model_zoo/vision/resnet.py``).
+
+The reference's architecture, blocks, name scopes and parameter names, so
+a parameter file crosses between the two packages by structural name. NCHW
+layout; the convolutions are cuDNN's on the card.
+"""
+from __future__ import annotations
+
+from ...block import HybridBlock
+from ... import nn
+
+__all__ = ["ResNetV1", "ResNetV2", "get_resnet",
+           "resnet18_v1", "resnet34_v1", "resnet50_v1", "resnet101_v1", "resnet152_v1",
+           "resnet18_v2", "resnet34_v2", "resnet50_v2", "resnet101_v2", "resnet152_v2",
+           "resnet18_v1b", "resnet34_v1b", "resnet50_v1b", "resnet101_v1b",
+           "resnet152_v1b"]
+
+
+def _conv3x3(channels, stride, in_channels):
+    return nn.Conv2D(channels, kernel_size=3, strides=stride, padding=1,
+                     use_bias=False, in_channels=in_channels)
+
+
+class BasicBlockV1(HybridBlock):
+    def __init__(self, channels, stride, downsample=False, in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self.body = nn.HybridSequential(prefix="")
+        self.body.add(_conv3x3(channels, stride, in_channels))
+        self.body.add(nn.BatchNorm())
+        self.body.add(nn.Activation("relu"))
+        self.body.add(_conv3x3(channels, 1, channels))
+        self.body.add(nn.BatchNorm())
+        if downsample:
+            self.downsample = nn.HybridSequential(prefix="")
+            self.downsample.add(nn.Conv2D(channels, kernel_size=1, strides=stride,
+                                          use_bias=False, in_channels=in_channels))
+            self.downsample.add(nn.BatchNorm())
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.Activation(residual + x, act_type="relu")
+
+
+class BottleneckV1(HybridBlock):
+    def __init__(self, channels, stride, downsample=False, in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self.body = nn.HybridSequential(prefix="")
+        self.body.add(nn.Conv2D(channels // 4, kernel_size=1, strides=stride))
+        self.body.add(nn.BatchNorm())
+        self.body.add(nn.Activation("relu"))
+        self.body.add(_conv3x3(channels // 4, 1, channels // 4))
+        self.body.add(nn.BatchNorm())
+        self.body.add(nn.Activation("relu"))
+        self.body.add(nn.Conv2D(channels, kernel_size=1, strides=1))
+        self.body.add(nn.BatchNorm())
+        if downsample:
+            self.downsample = nn.HybridSequential(prefix="")
+            self.downsample.add(nn.Conv2D(channels, kernel_size=1, strides=stride,
+                                          use_bias=False, in_channels=in_channels))
+            self.downsample.add(nn.BatchNorm())
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.Activation(x + residual, act_type="relu")
+
+
+class BottleneckV1b(HybridBlock):
+    """Torchvision-style ("v1.5") bottleneck: stride on the 3x3 conv rather
+    than the first 1x1, all convs bias-free — the layout torchvision's
+    pretrained resnet50/101/152 weights were trained with. GluonCV ships this
+    as resnet*_v1b for exactly this interop reason (ref: gluoncv
+    model_zoo/resnetv1b.py), the target of torchvision checkpoints (their
+    converter is not ported yet)."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self.body = nn.HybridSequential(prefix="")
+        self.body.add(nn.Conv2D(channels // 4, kernel_size=1, strides=1,
+                                use_bias=False))
+        self.body.add(nn.BatchNorm())
+        self.body.add(nn.Activation("relu"))
+        self.body.add(_conv3x3(channels // 4, stride, channels // 4))
+        self.body.add(nn.BatchNorm())
+        self.body.add(nn.Activation("relu"))
+        self.body.add(nn.Conv2D(channels, kernel_size=1, strides=1,
+                                use_bias=False))
+        self.body.add(nn.BatchNorm())
+        if downsample:
+            self.downsample = nn.HybridSequential(prefix="")
+            self.downsample.add(nn.Conv2D(channels, kernel_size=1,
+                                          strides=stride, use_bias=False,
+                                          in_channels=in_channels))
+            self.downsample.add(nn.BatchNorm())
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.Activation(x + residual, act_type="relu")
+
+
+class BasicBlockV2(HybridBlock):
+    def __init__(self, channels, stride, downsample=False, in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self.bn1 = nn.BatchNorm()
+        self.conv1 = _conv3x3(channels, stride, in_channels)
+        self.bn2 = nn.BatchNorm()
+        self.conv2 = _conv3x3(channels, 1, channels)
+        if downsample:
+            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                        in_channels=in_channels)
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.bn1(x)
+        x = F.Activation(x, act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.bn2(x)
+        x = F.Activation(x, act_type="relu")
+        x = self.conv2(x)
+        return x + residual
+
+
+class BottleneckV2(HybridBlock):
+    def __init__(self, channels, stride, downsample=False, in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self.bn1 = nn.BatchNorm()
+        self.conv1 = nn.Conv2D(channels // 4, kernel_size=1, strides=1, use_bias=False)
+        self.bn2 = nn.BatchNorm()
+        self.conv2 = _conv3x3(channels // 4, stride, channels // 4)
+        self.bn3 = nn.BatchNorm()
+        self.conv3 = nn.Conv2D(channels, kernel_size=1, strides=1, use_bias=False)
+        if downsample:
+            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                        in_channels=in_channels)
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.bn1(x)
+        x = F.Activation(x, act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.bn2(x)
+        x = F.Activation(x, act_type="relu")
+        x = self.conv2(x)
+        x = self.bn3(x)
+        x = F.Activation(x, act_type="relu")
+        x = self.conv3(x)
+        return x + residual
+
+
+class _S2DStem(HybridBlock):
+    """The ``stem_s2d=True`` stem: the ``nn.Conv2D(C0, 7, 2, 3,
+    use_bias=False)`` stem's parameter ('weight', (C0, in_c, 7, 7)) under
+    the prefix ``conv0_``, so the parameter files of both stems are one.
+    The JAX package computes it as a space-to-depth rewrite that re-lays
+    the TPU's input lanes; that is not applicable on cuDNN, and the port
+    computes the same 7x7 stride-2 convolution directly."""
+
+    def __init__(self, channels, in_channels=3, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(channels, in_channels, 7, 7),
+                allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        self.weight.shape = (self.weight.shape[0], x.shape[1], 7, 7)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Convolution(x, weight, stride=2, pad=3)
+
+
+class ResNetV1(HybridBlock):
+    def __init__(self, block, layers, channels, classes=1000, thumbnail=False,
+                 stem_s2d=False, **kwargs):
+        super().__init__(**kwargs)
+        assert len(layers) == len(channels) - 1
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 0))
+            else:
+                self.features.add(_S2DStem(channels[0], prefix="conv0_")
+                                  if stem_s2d else
+                                  nn.Conv2D(channels[0], 7, 2, 3, use_bias=False))
+                self.features.add(nn.BatchNorm())
+                self.features.add(nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(3, 2, 1))
+            for i, num_layer in enumerate(layers):
+                stride = 1 if i == 0 else 2
+                self.features.add(self._make_layer(block, num_layer, channels[i + 1],
+                                                   stride, i + 1, in_channels=channels[i]))
+            self.features.add(nn.GlobalAvgPool2D())
+            self.output = nn.Dense(classes, in_units=channels[-1])
+
+    def _make_layer(self, block, layers, channels, stride, stage_index, in_channels=0):
+        layer = nn.HybridSequential(prefix="stage%d_" % stage_index)
+        with layer.name_scope():
+            layer.add(block(channels, stride, channels != in_channels,
+                            in_channels=in_channels, prefix=""))
+            for _ in range(layers - 1):
+                layer.add(block(channels, 1, False, in_channels=channels, prefix=""))
+        return layer
+
+    def hybrid_forward(self, F, x):
+        x = self.features(x)
+        return self.output(x)
+
+
+class ResNetV2(HybridBlock):
+    def __init__(self, block, layers, channels, classes=1000, thumbnail=False,
+                 stem_s2d=False, **kwargs):
+        super().__init__(**kwargs)
+        assert len(layers) == len(channels) - 1
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            self.features.add(nn.BatchNorm(scale=False, center=False))
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 0))
+            else:
+                self.features.add(_S2DStem(channels[0], prefix="conv0_")
+                                  if stem_s2d else
+                                  nn.Conv2D(channels[0], 7, 2, 3, use_bias=False))
+                self.features.add(nn.BatchNorm())
+                self.features.add(nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(3, 2, 1))
+            in_channels = channels[0]
+            for i, num_layer in enumerate(layers):
+                stride = 1 if i == 0 else 2
+                self.features.add(self._make_layer(block, num_layer, channels[i + 1],
+                                                   stride, i + 1, in_channels=in_channels))
+                in_channels = channels[i + 1]
+            self.features.add(nn.BatchNorm())
+            self.features.add(nn.Activation("relu"))
+            self.features.add(nn.GlobalAvgPool2D())
+            self.features.add(nn.Flatten())
+            self.output = nn.Dense(classes, in_units=in_channels)
+
+    def _make_layer(self, block, layers, channels, stride, stage_index, in_channels=0):
+        layer = nn.HybridSequential(prefix="stage%d_" % stage_index)
+        with layer.name_scope():
+            layer.add(block(channels, stride, channels != in_channels,
+                            in_channels=in_channels, prefix=""))
+            for _ in range(layers - 1):
+                layer.add(block(channels, 1, False, in_channels=channels, prefix=""))
+        return layer
+
+    def hybrid_forward(self, F, x):
+        x = self.features(x)
+        return self.output(x)
+
+
+resnet_spec = {
+    18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
+    34: ("basic_block", [3, 4, 6, 3], [64, 64, 128, 256, 512]),
+    50: ("bottle_neck", [3, 4, 6, 3], [64, 256, 512, 1024, 2048]),
+    101: ("bottle_neck", [3, 4, 23, 3], [64, 256, 512, 1024, 2048]),
+    152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048]),
+}
+resnet_net_versions = [ResNetV1, ResNetV2]
+resnet_block_versions = [
+    {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1},
+    {"basic_block": BasicBlockV2, "bottle_neck": BottleneckV2},
+]
+
+
+def get_resnet(version, num_layers, pretrained=False, ctx=None, **kwargs):
+    """(ref: python/mxnet/gluon/model_zoo/vision/resnet.py:get_resnet)
+    ResNet ``version`` 1 or 2 of ``num_layers`` 18-152; kwargs reach the
+    ResNetV1/V2 constructor (``classes``, ``thumbnail``, ``stem_s2d``).
+    ``pretrained`` is a path to a native parameter file, or False."""
+    from ..convert import build_with_pretrained
+    block_type, layers, channels = resnet_spec[num_layers]
+    return build_with_pretrained(
+        lambda **kw: resnet_net_versions[version - 1](
+            resnet_block_versions[version - 1][block_type], layers, channels,
+            **kw), pretrained, ctx=ctx, **kwargs)
+
+
+def _resnet_v1b(num_layers, pretrained=False, ctx=None, **kwargs):
+    from ..convert import build_with_pretrained
+    block_type, layers, channels = resnet_spec[num_layers]
+    blocks = {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1b}
+    return build_with_pretrained(
+        lambda **kw: ResNetV1(blocks[block_type], layers, channels, **kw),
+        pretrained, ctx=ctx, **kwargs)
+
+
+def resnet18_v1b(**kwargs):
+    return _resnet_v1b(18, **kwargs)
+
+
+def resnet34_v1b(**kwargs):
+    return _resnet_v1b(34, **kwargs)
+
+
+def resnet50_v1b(**kwargs):
+    return _resnet_v1b(50, **kwargs)
+
+
+def resnet101_v1b(**kwargs):
+    return _resnet_v1b(101, **kwargs)
+
+
+def resnet152_v1b(**kwargs):
+    return _resnet_v1b(152, **kwargs)
+
+
+def resnet18_v1(**kwargs):
+    return get_resnet(1, 18, **kwargs)
+
+
+def resnet34_v1(**kwargs):
+    return get_resnet(1, 34, **kwargs)
+
+
+def resnet50_v1(**kwargs):
+    return get_resnet(1, 50, **kwargs)
+
+
+def resnet101_v1(**kwargs):
+    return get_resnet(1, 101, **kwargs)
+
+
+def resnet152_v1(**kwargs):
+    return get_resnet(1, 152, **kwargs)
+
+
+def resnet18_v2(**kwargs):
+    return get_resnet(2, 18, **kwargs)
+
+
+def resnet34_v2(**kwargs):
+    return get_resnet(2, 34, **kwargs)
+
+
+def resnet50_v2(**kwargs):
+    return get_resnet(2, 50, **kwargs)
+
+
+def resnet101_v2(**kwargs):
+    return get_resnet(2, 101, **kwargs)
+
+
+def resnet152_v2(**kwargs):
+    return get_resnet(2, 152, **kwargs)

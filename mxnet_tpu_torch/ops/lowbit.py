@@ -1,8 +1,8 @@
 """The low-bit arithmetic of quantized inference (counterpart of the op
 part of ``mxnet_tpu/quantization.py``): symmetric quantize / dequantize,
 per-slice weight quantization, and the quantized fully-connected product,
-registered as the ``F`` ops ``contrib_quantize``, ``contrib_dequantize``
-and ``quantized_fully_connected``.
+registered as the ``F`` ops ``contrib_quantize``, ``contrib_dequantize``,
+``quantized_fully_connected`` and ``quantized_conv``.
 
 The products are library GEMMs, as the JAX package leaves them to XLA's
 ``dot_general`` outside any Pallas kernel; each mode has one fixed route,
@@ -23,6 +23,12 @@ multiple of 16) after the activation's scale is taken, so padding changes
 neither the scale nor the kept rows, and passes the weight as the
 column-major view ``qweight.t()``, never a copy.
 
+A quantized convolution is the same product over the columns of its
+quantized input (:func:`im2col`: every window of the padded input as a
+row, built from views of any dtype, so the int8 values are never widened),
+one product per group: ``torch.nn.functional.conv2d`` has no int8 form on
+the card, and the JAX op accumulates int8 exactly in int32 as this does.
+
 A division by a constant is written as a division by a 0-d tensor in the
 operand's dtype on its device. On the card a Python scalar divisor is
 turned into a multiply by its reciprocal, which can differ from the JAX
@@ -31,7 +37,10 @@ dtype keeps JAX's weak-type rule (a bf16 amax is divided in bf16).
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as TF
 
 from ..base import register_op
 
@@ -175,3 +184,70 @@ def quantized_fully_connected(x, qweight, w_scale, bias=None, *,
     return y
 
 
+
+
+def _ntuple(v, n):
+    return (v,) * n if isinstance(v, int) else tuple(v)
+
+
+def im2col(x, kernel, stride, pad, dilate):
+    """The windows of ``x`` (N, C, *S), zero-padded by ``pad`` on both
+    sides of each spatial axis, as rows: ((N * prod(out), C * prod(kernel)),
+    out), a row's columns in (C, k...) order, the order of an (O, C, k...)
+    weight flattened. Views of ``x`` and one copy, in x's dtype."""
+    nd = x.dim() - 2
+    flat = []
+    for p in reversed(pad):
+        flat += [p, p]
+    x = TF.pad(x, flat)
+    for i in range(nd):
+        x = x.unfold(2 + i, (kernel[i] - 1) * dilate[i] + 1, stride[i])
+    x = x[(Ellipsis,) + tuple(slice(None, None, d) for d in dilate)]
+    N, C = x.shape[:2]
+    out = tuple(x.shape[2:2 + nd])
+    perm = (0,) + tuple(range(2, 2 + nd)) + (1,) + tuple(
+        range(2 + nd, 2 + 2 * nd))
+    return x.permute(perm).reshape(N * math.prod(out),
+                                   C * math.prod(kernel)), out
+
+
+def quantized_conv_acc(qx, qweight, stride=1, pad=0, dilate=1, num_group=1):
+    """The quantized convolution's accumulator: qx (N, C, *S) and qweight
+    (O, C / groups, k...) of one low-bit dtype; (N, O, *out) int32 for
+    int8, fp32 for fp8, through :func:`lowbit_matmul` per group."""
+    nd = qx.dim() - 2
+    kernel = tuple(qweight.shape[2:])
+    rows, out = im2col(qx, kernel, _ntuple(stride, nd), _ntuple(pad, nd),
+                       _ntuple(dilate, nd))
+    O, G = qweight.shape[0], num_group
+    w = qweight.reshape(O, -1)
+    if G == 1:
+        acc = lowbit_matmul(rows, w)
+    else:
+        K = w.shape[1]
+        rows = rows.reshape(rows.shape[0], G, K)
+        Og = O // G
+        acc = torch.cat([lowbit_matmul(rows[:, g], w[g * Og:(g + 1) * Og])
+                         for g in range(G)], dim=1)
+    acc = acc.reshape((qx.shape[0],) + out + (O,))
+    return acc.permute((0, nd + 1) + tuple(range(1, nd + 1)))
+
+
+@register_op("quantized_conv")
+def quantized_conv(x, qweight, w_scale, bias=None, *, stride=1, pad=0,
+                   dilate=1, num_group=1, x_scale=None):
+    """x fp -> quantized per tensor (dynamic, or static with a calibrated
+    ``x_scale``); the low-bit convolution with qweight (O, I / groups,
+    k...) int8/fp8 (:func:`quantized_conv_acc`); fp32 rescale by
+    ``x_scale * w_scale`` per output channel (w_scale (O, 1, ...) fp32) and
+    bias. Returns fp32 (N, O, *out)."""
+    nd = x.dim() - 2
+    qmax, integral = _dtype_qparams(qweight.dtype)
+    qx, x_scale = _quantize_act(x, x_scale, qweight.dtype, qmax, integral)
+    acc = quantized_conv_acc(qx, qweight, stride, pad, dilate, num_group)
+    shape = (1, -1) + (1,) * nd
+    y = acc.to(torch.float32) * (x_scale * w_scale.reshape(-1)).reshape(
+        shape)
+    if bias is not None:
+        y = y + bias.reshape(shape)
+    return y

@@ -3,15 +3,13 @@
 Symmetric per-channel quantized weights and dynamic (or calibrated static)
 per-tensor quantized activations, accumulated in int32 for int8 and in
 fp32 for fp8, then rescaled in fp32: the JAX package's recipe, op for op.
-``quantize_model`` swaps the eligible ``Dense`` layers in place for
-:class:`QuantizedDense`, whose quantized weights are grad-less Parameters
-under the JAX names (``qweight``, ``w_scale``, ``bias``), so parameter files
-cross between the packages bit for bit. The arithmetic (quantize,
-dequantize, the low-bit products and the route each dtype takes) lives in
+``quantize_model`` swaps the eligible ``Dense`` and ``Conv2D`` layers in
+place for :class:`QuantizedDense` and :class:`QuantizedConv2D`, whose
+quantized weights are grad-less Parameters under the JAX names
+(``qweight``, ``w_scale``, ``bias``), so parameter files cross between the
+packages bit for bit. The arithmetic (quantize, dequantize, the low-bit
+products and the route each dtype takes) lives in
 :mod:`mxnet_tpu_torch.ops.lowbit`, as ``F`` ops.
-
-Only ``Dense`` is swapped: the port has no ``Conv2D`` yet, so
-``QuantizedConv2D`` and ``quantized_conv`` wait for it (ROADMAP.md A.11).
 """
 from __future__ import annotations
 
@@ -23,12 +21,13 @@ from .gluon import nn
 from .gluon.block import HybridBlock
 from .ops.lowbit import (_FP8_DTYPES, _QMAX, dequantize,  # noqa: F401
                          lowbit_matmul, quant_dtype, quantize,
-                         quantize_weight, quantized_fully_connected)
+                         quantize_weight, quantized_conv,
+                         quantized_fully_connected)
 
 __all__ = ["quantize", "dequantize", "quantize_weight",
-           "quantized_fully_connected", "QuantizedDense", "quantize_model",
-           "calibrate_model", "fp8_supported", "quant_dtype", "stats",
-           "lowbit_matmul"]
+           "quantized_fully_connected", "quantized_conv", "QuantizedDense",
+           "QuantizedConv2D", "quantize_model", "calibrate_model",
+           "fp8_supported", "quant_dtype", "stats", "lowbit_matmul"]
 
 # capability-probe cache: (mode, device type) -> bool
 _FP8_SUPPORT = {}
@@ -209,9 +208,54 @@ class QuantizedDense(HybridBlock):
         return y
 
 
+class QuantizedConv2D(HybridBlock):
+    """Inference-only Conv2D with pre-quantized per-output-channel weights
+    (ref: quantized_conv.cc): ``qweight`` (O, I / groups, kh, kw),
+    ``w_scale`` (O, 1, 1, 1) fp32 and ``bias`` fp32, grad-less Parameters
+    under the Conv2D's prefix (see :class:`QuantizedDense`). The output is
+    fp32, as in the JAX package."""
+
+    def __init__(self, conv, mode="int8", **kwargs):
+        super().__init__(prefix=conv.prefix, **kwargs)
+        w = conv.weight.data().detach().to(torch.float32)
+        _check_mode(mode, w.device)
+        qw, ws = quantize_weight(w, axis=0, mode=mode)
+        self._mode = mode
+        self.qweight = self.params.get("qweight", shape=tuple(qw.shape),
+                                       dtype=quant_dtype(mode),
+                                       grad_req="null")
+        self.qweight.set_data(qw)
+        self.w_scale = self.params.get("w_scale", shape=tuple(ws.shape),
+                                       dtype="float32", grad_req="null")
+        self.w_scale.set_data(ws.to(torch.float32))
+        if getattr(conv, "bias", None) is not None:
+            b = conv.bias.data().detach().to(torch.float32)
+            self.bias = self.params.get("bias", shape=tuple(b.shape),
+                                        dtype="float32", grad_req="null")
+            self.bias.set_data(b)
+        k = conv._kwargs
+        self._conv_kw = dict(stride=k["stride"], pad=k["pad"],
+                             dilate=k["dilate"], num_group=k["num_group"])
+        self._act = conv.act
+        self._x_scale = None      # static activation scale (0-d fp32)
+        self._collector = None
+
+    def hybrid_forward(self, F, x, qweight, w_scale, bias=None):
+        if self._collector is not None:
+            self._collector.collect(x)
+        y = F.quantized_conv(x, qweight, w_scale, bias,
+                             x_scale=self._x_scale, **self._conv_kw)
+        if self._act is not None:
+            y = self._act(y)
+        return y
+
+
+_QUANTIZED = (QuantizedDense, QuantizedConv2D)
+
+
 def _quantized_layers(block, out):
     for child in block._children.values():
-        if isinstance(child, QuantizedDense):
+        if isinstance(child, _QUANTIZED):
             out.append(child)
         else:
             _quantized_layers(child, out)
@@ -285,11 +329,17 @@ def calibrate_model(block, calib_data, mode="naive", num_bins=8001):
 def _swap_children(block, exclude, mode):
     swapped = []
     for name, child in list(block._children.items()):
-        if isinstance(child, QuantizedDense):
+        if isinstance(child, _QUANTIZED):
             continue              # idempotent
-        if isinstance(child, nn.Dense) \
-                and not any(e in child.prefix for e in exclude):
-            q = QuantizedDense(child, mode=mode)
+        q = None
+        if not any(e in child.prefix for e in exclude):
+            if isinstance(child, nn.Dense):
+                q = QuantizedDense(child, mode=mode)
+            elif isinstance(child, nn.Conv2D):
+                # as in the JAX package, a convolution is quantized to int8
+                # in every mode: fp8 targets the Dense products
+                q = QuantizedConv2D(child, mode="int8")
+        if q is not None:
             setattr(block, name, q)
             swapped.append(q)
         else:
@@ -299,13 +349,14 @@ def _swap_children(block, exclude, mode):
 
 def quantize_model(block, exclude=(), mode="int8", calib_mode="none",
                    calib_data=None, num_bins=8001):
-    """Replace the ``Dense`` children with :class:`QuantizedDense` in
-    place, skipping prefixes that contain any substring of ``exclude``;
+    """Replace the ``Dense`` and ``Conv2D`` children with
+    :class:`QuantizedDense` and :class:`QuantizedConv2D` (int8 whatever
+    ``mode``) in place, skipping prefixes that contain any substring of
+    ``exclude``;
     optionally calibrate static activation ranges (``calib_mode`` none,
     naive or entropy, against ``calib_data``). ``mode``: int8, or e4m3/e5m2
     where :func:`fp8_supported` says so. Safe to call on a quantized model
-    (its quantized layers are kept). Only Dense is swapped: the port has
-    no Conv2D yet (ROADMAP.md A.11)."""
+    (its quantized layers are kept)."""
     _check_mode(mode, _param_device(block))
     swapped = _swap_children(block, exclude, mode)
     if swapped:

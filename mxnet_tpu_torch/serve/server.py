@@ -18,7 +18,7 @@ at warmup and replayed at every dispatch), and are scattered back per
 request. The server runs on the current CUDA device unless ``device``
 says otherwise; without CUDA and without ``device="cpu"`` it raises.
 ``quantize="int8"`` (or an fp8 mode) serves the model with quantized
-Dense layers, optionally calibrated.
+Dense and Conv2D layers, optionally calibrated.
 
 ``swap_parameters`` copies a checked file into the live parameter tensors
 (quantized ``qweight``/``w_scale`` too) under the dispatch lock, so the
@@ -71,8 +71,8 @@ class ModelServer:
         Where the model runs; None is the current CUDA device.
     quantize : None or 'int8' / 'e4m3' / 'e5m2'
         Serve with quantized weights: ``quantization.quantize_model`` swaps
-        every Dense for its quantized twin before the executor pool is
-        built.
+        every Dense and Conv2D for its quantized twin before the executor
+        pool is built.
     calib_mode, calib_data
         Activation-scale calibration of the quantized layers (``"naive"``
         or ``"entropy"``) against ``calib_data`` (batches of the model's

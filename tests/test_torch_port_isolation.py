@@ -1,9 +1,10 @@
 """The port stands alone: no file of ``mxnet_tpu_torch/`` and not
 ``chip_smoke.py`` imports JAX or the JAX package; the package (the GPT
 model, the generative server, the checkpoint layer, the snapshots, the
-optimizers, the LR schedulers, ``ir.tune`` and ``parallel`` included)
-imports with JAX blocked; and without CUDA every entry point
-refuses to run unless the caller asks for the CPU."""
+optimizers, the LR schedulers, ``ir.tune``, ``parallel``, the vision
+layers and the model zoo included) imports with JAX blocked; and without
+CUDA every entry point refuses to run unless the caller asks for the
+CPU."""
 import ast
 import os
 import subprocess
@@ -52,7 +53,11 @@ def test_package_imports_with_jax_blocked():
             "mxnet_tpu_torch.serve, mxnet_tpu_torch.ops.cuda._build, "
             "mxnet_tpu_torch.cache.snapshot, mxnet_tpu_torch.optimizer, "
             "mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.ir.tune, "
-            "mxnet_tpu_torch.parallel.data_parallel; "
+            "mxnet_tpu_torch.parallel.data_parallel, "
+            "mxnet_tpu_torch.gluon.nn.conv_layers, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision, "
+            "mxnet_tpu_torch.gluon.model_zoo.convert, "
+            "mxnet_tpu_torch.quantization, mxnet_tpu_torch.ops.lowbit; "
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
@@ -85,3 +90,11 @@ def test_without_cuda_entry_points_raise(monkeypatch):
         GenerativeServer(gpt)
     with pytest.raises(DeviceError):
         gpt.generate([[1, 2]], max_new_tokens=1)
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    net = vision.resnet18_v1(classes=4)
+    with pytest.raises(DeviceError):
+        net.initialize()
+    net.initialize(device="cpu")
+    with pytest.raises(DeviceError):
+        ModelServer(net, [((3, 32, 32), "float32")], buckets=(1,))

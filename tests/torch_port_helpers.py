@@ -40,6 +40,18 @@ def sgld_without_noise(monkeypatch):
 
 
 @pytest.fixture
+def few_threads():
+    """torch's CPU ops on 2 threads for the test, then the count it had:
+    the suite runs one worker a core or so, and a worker's intra-op
+    threads on every core contend with the others' (the vision files'
+    small convolutions ran many times slower so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
 def jax_trace_state(monkeypatch):
     """The JAX package reads ``jax.core.trace_state_clean``, which newer
     jax releases keep only under ``jax._src.core``; expose it there for the
@@ -121,3 +133,54 @@ def port_gpt_from(jmodel, **overrides):
 
     return from_jax_params(GPTModel(**dict(SMALL_GPT, **overrides)),
                            jax_params(jmodel))
+
+
+def f32(a):
+    """A tensor, an NDArray or a jax array as fp32 numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().numpy().copy()
+    return np.asarray(a.asnumpy() if hasattr(a, "asnumpy") else a,
+                      np.float32)
+
+
+def rel_l2(a, b):
+    """|a - b| / |b| in L2."""
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def local_params(model):
+    """{name under the model's root prefix: Parameter}."""
+    return {p.name[len(model.prefix):]: p
+            for p in model.collect_params().values()}
+
+
+def jax_class_step(model, trainer, x, y):
+    """One JAX Gluon step of a classifier: ``SoftmaxCrossEntropyLoss`` of
+    model(x) against int labels y inside ``record()``, ``backward``,
+    ``trainer.step``; (per-sample loss, {name: gradient})."""
+    import mxnet_tpu as mx
+    from mxnet_tpu import autograd as jag
+    from mxnet_tpu import gluon as jgluon
+
+    loss_fn = jgluon.loss.SoftmaxCrossEntropyLoss()
+    with jag.record():
+        loss = loss_fn(model(x), mx.nd.array(y, dtype="int32"))
+    jag.backward(loss)
+    grads = {n: f32(p.grad()) for n, p in local_params(model).items()
+             if p.grad_req != "null"}
+    trainer.step(x.shape[0])
+    return f32(loss), grads
+
+
+def port_class_step(model, trainer, x, y):
+    """:func:`jax_class_step` through the port."""
+    from mxnet_tpu_torch import autograd, gluon
+
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    with autograd.record():
+        loss = loss_fn(model(x), torch.from_numpy(y))
+    autograd.backward(loss)
+    grads = {n: f32(p.grad()) for n, p in local_params(model).items()
+             if p.grad_req != "null"}
+    trainer.step(x.shape[0])
+    return f32(loss), grads

@@ -21,7 +21,12 @@ built:
   ``phase_bad_ids`` (ids outside the table beside a good stream);
 - ``optim``: ``phase_optimizers`` (the fifteen optimizers over GPT-2
   small's parameters against the CPU), ``phase_gpt_train_optimizers``
-  (SGD with a cosine schedule and LAMB) and their steps' breakdowns.
+  (SGD with a cosine schedule and LAMB) and their steps' breakdowns;
+- ``vision``: ``phase_resnet_train`` (ResNet-50 at bench.py's recipe),
+  ``phase_resnet_timing`` (the softmax-xent kernels at its (128, 1000)
+  logits), ``phase_resnet_serve`` (bf16 and int8 ModelServers),
+  ``phase_vision_zoo`` (the other families against the CPU) and the
+  ResNet-50 step's breakdown.
 
 The readings go to ``chiprun_out/cuda_phases.json``. ``--keep-going``
 prints a failed check and goes on (to read every number of a first run);
@@ -95,10 +100,22 @@ def run_optim(cs, dev):
     return out
 
 
+def run_vision(cs, dev):
+    step, out = cs.phase_resnet_train(dev)
+    records = [{"name": "softmax_xent_fwd"}, {"name": "softmax_xent_bwd"}]
+    cs.phase_resnet_timing(dev, records, out)
+    out["kernels"] = records
+    out["serving"] = cs.phase_resnet_serve(dev, step.net)
+    out["zoo"] = cs.phase_vision_zoo(dev)
+    out["breakdown"] = cs.phase_resnet_breakdown(step)
+    return out
+
+
 GROUPS = {"kernels": run_kernels, "spec": run_spec,
           "gpt_train": run_gpt_train,
           "snapshot": lambda cs, dev: cs.phase_snapshot(dev),
-          "serve_graph": run_serve_graph, "optim": run_optim}
+          "serve_graph": run_serve_graph, "optim": run_optim,
+          "vision": run_vision}
 
 
 def main(argv):
