@@ -89,6 +89,25 @@ Run from the root of a checkout on a machine with a CUDA card. It
    backward without its first key tile, the softmax-xent dx without each
    row's unaligned tail) above the limits and the plain step run again
    within them; the step's host wall, tokens/s and peak memory;
+8c. trains the same GPT-2 small three steps in MXNet's imperative idiom
+   (``phase_nd_train``: ``nd.array`` tokens, ``loss = loss_fn(net(x), y)``
+   under ``autograd.record()``, ``loss.backward()``, ``trainer.step(8)``,
+   ``loss.mean().asscalar()``) beside the tensor path twice from the same
+   state and dropout draws: the first loss bitwise the tensor path's, each
+   step equal to it bit for bit wherever the tensor path reproduces
+   itself (its flash dq sums in no fixed order) and no further from it
+   than its own second run elsewhere, the same kernel launches a step,
+   the host wall of a step both ways; runs every ``nd`` op of
+   ``tools/nd_op_cases.py`` on the card against the CPU, forward and
+   gradient, and ``nd.LayerNorm``, ``nd.softmax_cross_entropy`` and a
+   causal T = 1024 ``nd.scaled_dot_attention``, which must launch their
+   forward and backward kernels and agree with their plain versions
+   (``phase_nd_ops``); and holds a WGAN-GP critic's gradient-penalty
+   gradients (``autograd.grad(create_graph=True)``, input 768, hidden
+   3072) to the CPU's, checks that the same through ``nd.LayerNorm``
+   raises ``SecondOrderError`` on the card, and that a planted unguarded
+   LayerNorm Function's silent second order reads above the limit
+   (``phase_create_graph``);
 8b. takes one ``Trainer.step`` of each of the fifteen optimizers over
    GPT-2 small's parameters (bf16, fp32 masters) from the same seeded
    gradients (``phase_optimizers``), each against the same port code on
@@ -1016,7 +1035,8 @@ def phase_serve(dev):
     model.initialize(device=dev,
                      generator=torch.Generator(device=dev).manual_seed(SEED))
     amp.convert_hybrid_block(model, "bfloat16")
-    n_params = sum(p.data().numel() for p in model.collect_params().values())
+    n_params = sum(p._tensor().numel()
+                   for p in model.collect_params().values())
     print("bert_base: %d parameters, bf16 (norms fp32), seq %d" % (n_params,
                                                                    SEQ))
     specs = [((SEQ,), "int32"), ((SEQ,), "int32"), ((), "int32")]
@@ -1161,7 +1181,8 @@ def phase_breakdown(dev, model):
         walls.append((time.perf_counter() - t0) * 1e3)
     fn, _ = model.serving_fn()
     plist = list(model.collect_params().values())
-    pool = BucketedExecutor(fn, lambda: [p.data() for p in plist], (B,), dev)
+    pool = BucketedExecutor(fn, lambda: [p._tensor() for p in plist], (B,),
+                            dev)
 
     def timed_dispatch(into):  # eager: phase_serve_graph times the graphs
         t0 = time.perf_counter()
@@ -1269,7 +1290,7 @@ class TrainStep:
 
 
 def _grads(params):
-    return [p.grad().detach().clone() for p in params]
+    return [p._tensor().grad.detach().clone() for p in params]
 
 
 def grad_rel_l2(params, grads, ref_grads):
@@ -1355,10 +1376,10 @@ def phase_train(dev):
 
     t0 = time.perf_counter()
     step = TrainStep(dev, BERT512)
-    n_params = sum(p.data().numel() for p in step.params)
+    n_params = sum(p._tensor().numel() for p in step.params)
     watch = [step.model.word_embed.weight, step.model.encoder.ln.gamma,
              step.model.encoder.cells[0].attention.qkv.weight]
-    before = [p.data().detach().clone() for p in watch]
+    before = [p._tensor().detach().clone() for p in watch]
     torch.cuda.synchronize()
     print("bert512 step: %d parameters, batch %d, seq %d, %d masked; set-up "
           "%.2f s" % (n_params, BERT512["batch"], BERT512["seq"],
@@ -1372,7 +1393,7 @@ def phase_train(dev):
           % (["%.4f" % x for x in losses], TRAIN_STEPS, launches), flush=True)
     check(all(np.isfinite(losses)), "non-finite training loss")
     for p, b in zip(watch, before):
-        check(not torch.equal(p.data(), b), "a weight did not move")
+        check(not torch.equal(p._tensor(), b), "a weight did not move")
     for name, n in STEP_LAUNCHES.items():
         check(launches[name] == n * TRAIN_STEPS,
               "%s launches %d != %d x %d steps" % (name, launches[name], n,
@@ -2215,7 +2236,8 @@ def phase_generate(dev):
 
     t0 = time.perf_counter()
     model = _gpt_model(dev, SEED)
-    n_params = sum(p.data().numel() for p in model.collect_params().values())
+    n_params = sum(p._tensor().numel()
+                   for p in model.collect_params().values())
     srv = GenerativeServer(model, slots=GPT_SLOTS, top_k=GPT_TOP_K,
                            prefix_cache=True, timeout_ms=600000.0,
                            device=dev)
@@ -3841,7 +3863,7 @@ def phase_generate_quant(dev):
         s.warmup(prompt_buckets=warm_prompts([burst]),
                  max_tokens=max(n for n, _, _ in QUANT_FP8_BURST)
                  + QUANT_FP8_NEW)
-        qdt = m.blocks[0].attn.qkv.qweight.data().dtype
+        qdt = m.blocks[0].attn.qkv.qweight._tensor().dtype
         got, t = serve_bursts(s, [burst], QUANT_FP8_NEW, "gpt %s" % mode)
         st = s.stats()
         check(st["errors"] == 0 and all(
@@ -4551,10 +4573,10 @@ def phase_gpt_train(dev):
     torch.cuda.reset_peak_memory_stats()
     step = GPTTrainStep(dev)
     B, T = GPT_TRAIN["batch"], GPT_TRAIN["seq"]
-    n_params = sum(p.data().numel() for p in step.params)
+    n_params = sum(p._tensor().numel() for p in step.params)
     watch = [step.model.word_embed.weight, step.model.pos_embed.weight,
              step.model.ln_f.gamma, step.model.blocks[0].attn.qkv.weight]
-    before = [p.data().detach().clone() for p in watch]
+    before = [p._tensor().detach().clone() for p in watch]
     torch.cuda.synchronize()
     print("gpt2 train step: %d parameters, batch %d, seq %d, vocab %d; "
           "set-up %.2f s" % (n_params, B, T, GPT_CONFIG["vocab_size"],
@@ -4570,7 +4592,8 @@ def phase_gpt_train(dev):
           flush=True)
     check(all(np.isfinite(losses)), "non-finite gpt2 training loss")
     for p, b in zip(watch, before):
-        check(not torch.equal(p.data(), b), "gpt2: %s did not move" % p.name)
+        check(not torch.equal(p._tensor(), b),
+              "gpt2: %s did not move" % p.name)
     del before
     for name, n in GPT_STEP_LAUNCHES.items():
         check(launches[name] == n * GPT_TRAIN_STEPS,
@@ -4990,8 +5013,8 @@ def snapshot_case(dev, mode, burst, buckets, first, tmp):
     want_p = orig.model._collect_params_with_prefix()
     got_p = srv.model._collect_params_with_prefix()
     check(sorted(want_p) == sorted(got_p) and all(
-        got_p[n].data().dtype == p.data().dtype
-        and torch.equal(got_p[n].data(), p.data())
+        got_p[n]._tensor().dtype == p._tensor().dtype
+        and torch.equal(got_p[n]._tensor(), p._tensor())
         for n, p in want_p.items()),
         "%s: the loaded parameters are not bit-equal" % what)
     # the load's first request, then the burst: nothing is captured
@@ -5181,7 +5204,7 @@ def _bert_swap_files(dev, seed, quantize):
     tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
     good = os.path.join(tmp, "bert_seed%d.params" % seed)
     other.save_parameters(good)
-    arrays = {n: p.data() for n, p in
+    arrays = {n: p._tensor() for n, p in
               other._collect_params_with_prefix().items()}
     arrays.pop(sorted(arrays)[0])
     bad = os.path.join(tmp, "bert_missing_one.params")
@@ -5569,14 +5592,14 @@ def phase_optimizers(dev):
     params = list(model.collect_params().values())
     named = [(struct[id(p)], p) for p in params]
     gen = torch.Generator(device=dev).manual_seed(SEED + 51)
-    start = [p.data().detach().clone() for p in params]
+    start = [p._tensor().detach().clone() for p in params]
     grads = [(torch.randn(p.shape, device=dev, generator=gen)
               * OPTIM_GRAD_SCALE).to(p.dtype) for p in params]
     held_idx = [i for i, (n, _) in enumerate(named)
                 if n.startswith(OPTIM_CPU_PREFIXES)]
     start_cpu = [start[i].float().cpu() for i in held_idx]
     grads_cpu = [grads[i].float().cpu() for i in held_idx]
-    n_params = sum(p.data().numel() for p in params)
+    n_params = sum(p._tensor().numel() for p in params)
     n_held = sum(t.numel() for t in start_cpu)
     print("optimizers on gpt2 small: %d tensors, %d parameters (bf16, fp32 "
           "masters); %d tensors, %d parameters held against the CPU"
@@ -5588,8 +5611,8 @@ def phase_optimizers(dev):
         of a second step (host launches included)."""
         with torch.no_grad():
             for p, w, g in zip(params, start, grads):
-                p.data().copy_(w)
-                p.data().grad = g.clone()
+                p._tensor().copy_(w)
+                p._tensor().grad = g.clone()
         tr = gluon.Trainer(model.collect_params(), name, dict(
             OPTIMIZER_KW[name], wd=0.01, multi_precision=True))
         check(len(tr._params) == len(params), "a GPT-2 parameter is frozen")
@@ -5601,7 +5624,7 @@ def phase_optimizers(dev):
         out = []
         for i in held_idx:
             s = tr._states[i]
-            w = s["master"] if isinstance(s, dict) else params[i].data()
+            w = s["master"] if isinstance(s, dict) else params[i]._tensor()
             out.append(w.detach().to("cpu", torch.float32, copy=True))
         # a second step, its states made: the span of a steady step
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -5699,7 +5722,7 @@ def phase_gpt_train_optimizers(dev):
         step = GPTTrainStep(dev, name, kw)
         watch = [step.model.word_embed.weight, step.model.ln_f.gamma,
                  step.model.blocks[0].attn.qkv.weight]
-        before = [p.data().detach().clone() for p in watch]
+        before = [p._tensor().detach().clone() for p in watch]
         mx_random.seed(SEED)
         reset_counters()
         losses, rates = [], []
@@ -5715,7 +5738,7 @@ def phase_gpt_train_optimizers(dev):
         launches = read_counters()
         check(all(np.isfinite(losses)), "gpt2 %s: non-finite loss" % label)
         for p, b in zip(watch, before):
-            check(not torch.equal(p.data(), b), "gpt2 %s: %s did not move"
+            check(not torch.equal(p._tensor(), b), "gpt2 %s: %s did not move"
                   % (label, p.name))
         for k, v in GPT_STEP_LAUNCHES.items():
             check(launches[k] == v * GPT_TRAIN_STEPS,
@@ -5866,7 +5889,7 @@ class ResNetTrainStep:
         self.named = self.net._collect_params_with_prefix()
         if weights is not None:  # another step's weights, in this dtype
             for name, p in self.named.items():
-                p.set_data(weights[name].data().detach().to(p.dtype))
+                p.set_data(weights[name]._tensor().detach().to(p.dtype))
         self.params = [p for p in self.net.collect_params().values()
                        if p.grad_req != "null"]
         self.stats = [p for p in self.net.collect_params().values()
@@ -5892,7 +5915,7 @@ class ResNetTrainStep:
         return loss.detach()
 
     def saved_stats(self):
-        return [p.data().detach().clone() for p in self.stats]
+        return [p._tensor().detach().clone() for p in self.stats]
 
     def restore_stats(self, saved):
         """Write the moving statistics back in place (a training forward
@@ -5901,7 +5924,7 @@ class ResNetTrainStep:
 
         with torch.no_grad():
             for p, s in zip(self.stats, saved):
-                p.data().copy_(s)
+                p._tensor().copy_(s)
 
 
 def batchnorm_first_half(real, x, gamma, beta, moving_mean, moving_var,
@@ -6085,14 +6108,14 @@ def phase_resnet_train(dev):
     torch.cuda.reset_peak_memory_stats()
     step = ResNetTrainStep(dev)
     B = RESNET["batch"]
-    n_params = sum(p.data().numel() for p in step.params)
+    n_params = sum(p._tensor().numel() for p in step.params)
     torch.cuda.synchronize()
     print("resnet50_v1 train step: %d trained parameters, batch %d at %dx%d,"
           " bf16 (fp32 masters and BatchNorm); set-up %.2f s"
           % (n_params, B, RESNET["size"], RESNET["size"],
              time.perf_counter() - t0), flush=True)
     watch = [step.params[0], step.params[-1]]
-    before = [p.data().detach().clone() for p in watch]
+    before = [p._tensor().detach().clone() for p in watch]
 
     # the main path, with every counter at 0 just before it
     mx_random.seed(SEED)
@@ -6109,7 +6132,7 @@ def phase_resnet_train(dev):
     check(losses[-1] < losses[0], "the resnet50 loss did not fall: %s"
           % losses)
     for p, b in zip(watch, before):
-        check(not torch.equal(p.data(), b), "resnet50: %s did not move"
+        check(not torch.equal(p._tensor(), b), "resnet50: %s did not move"
               % p.name)
     del before
     for name, n in launches.items():
@@ -6167,10 +6190,10 @@ def phase_resnet_train(dev):
     # the bf16 step against the fp32 step (TF32 off) from the same
     # bf16-rounded weights, at the zero-init residual start (RESNET_BF16_*)
     gammas = residual_gammas(step.net)
-    kept = [g.data().detach().clone() for g in gammas]
+    kept = [g._tensor().detach().clone() for g in gammas]
     with torch.no_grad():
         for g in gammas:
-            g.data().zero_()
+            g._tensor().zero_()
     step.restore_stats(saved)
     low = (step(update=False).float(), _grads(step.params))
     f32 = ResNetTrainStep(dev, "float32", weights=step.named)
@@ -6178,7 +6201,7 @@ def phase_resnet_train(dev):
     ref = (f32(update=False).float(), _grads(f32.params))
     with torch.no_grad():
         for g, k in zip(gammas, kept):
-            g.data().copy_(k)
+            g._tensor().copy_(k)
     step.restore_stats(saved)
     skip = _bias_before_bn(step.net)
     # the two nets' parameters by structural name (their roots' auto names
@@ -6425,7 +6448,7 @@ def _serving_resnet(dev, source):
     amp.convert_hybrid_block(net, "bfloat16")
     theirs = source._collect_params_with_prefix()
     for name, p in net._collect_params_with_prefix().items():
-        p.set_data(theirs[name].data().detach().clone().to(p.dtype))
+        p.set_data(theirs[name]._tensor().detach().clone().to(p.dtype))
     return _bf16_entry(net)
 
 
@@ -6470,7 +6493,7 @@ def quant_conv_exact(dev, model, n=8):
     for (xs, ws, stride, pad), block in sorted(shapes.items()):
         qx = torch.randint(-127, 128, xs, device=dev, generator=g,
                            dtype=torch.int8)
-        qw = block.qweight.data()
+        qw = block.qweight._tensor()
         acc = lowbit.quantized_conv_acc(qx, qw, stride, pad)
         ref = torch.nn.functional.conv2d(qx.double(), qw.double(),
                                          stride=stride, padding=pad)
@@ -6591,7 +6614,7 @@ def _zoo_run(net, x, cot, dev):
         y = net(x.to(dev))
     autograd.backward(y, cot.to(dev))
     named = net._collect_params_with_prefix()
-    return y.detach().cpu(), {n: p.grad().detach().cpu() for n, p in
+    return y.detach().cpu(), {n: p._tensor().grad.detach().cpu() for n, p in
                               named.items() if p.grad_req != "null"}
 
 
@@ -6618,7 +6641,7 @@ def phase_vision_zoo(dev):
         card = get_model(name, classes=1000)
         theirs = host._collect_params_with_prefix()
         for n, p in card._collect_params_with_prefix().items():
-            p.set_data(theirs[n].data().detach().clone().to(dev))
+            p.set_data(theirs[n]._tensor().detach().clone().to(dev))
         rng = np.random.default_rng(SEED + 71 + i)
         x = torch.from_numpy(rng.normal(
             size=(ZOO_BATCH, 3, size, size)).astype(np.float32))
@@ -6655,6 +6678,410 @@ def phase_vision_zoo(dev):
         del host, card, g_card, g_host
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------- nd
+
+
+def _nd_step(nd_mod, step, ctx):
+    """One step of ``step``'s model and trainer written as an MXNet user
+    writes it: tokens through ``nd.array``, the loss recorded, then
+    ``loss.backward()``, ``trainer.step`` and ``loss.mean().asscalar()``."""
+    from mxnet_tpu_torch import autograd
+
+    x = nd_mod.array(step.inp_np, ctx=ctx, dtype="int32")
+    y = nd_mod.array(step.tgt_np, ctx=ctx, dtype="int32")
+    with autograd.record():
+        loss = step.loss_fn(step.model(x), y)
+    loss.backward()
+    step.trainer.step(GPT_TRAIN["batch"])
+    mean = loss.mean().asscalar()
+    return loss, mean
+
+
+def _param_gap(a, b):
+    """max |a - b| over every parameter of two steps' models, and the
+    count of parameters that differ at all."""
+    import torch
+
+    worst, n = 0.0, 0
+    for p, q in zip(a.params, b.params):
+        pa, pb = p._tensor().detach(), q._tensor().detach()
+        if not torch.equal(pa, pb):
+            n += 1
+            worst = max(worst, max_err(pa, pb))
+    return worst, n
+
+
+def phase_nd_train(dev):
+    """GPT-2 small at ``GPT_TRAIN``'s recipe (batch 8 x 1024, dropout 0.1,
+    bf16, Adam with fp32 masters, full width) trained for three steps in
+    MXNet's imperative idiom (``_nd_step``), from the state and generator
+    seed ``phase_gpt_train`` starts from, beside the same steps through the
+    tensor path twice (A and C). The flash backward's dq sums in no fixed
+    order, so the tensor path is not bit-reproducible from run to run;
+    the NDArray step (B) must equal A bit for bit wherever C does, and
+    elsewhere differ from A by no more than C does (within 4x, over every
+    parameter). The first step's loss (before any update) must be bitwise
+    A's, every step's kernel launches ``GPT_STEP_LAUNCHES``, and the host
+    wall of a step is printed for both paths: the NDArray layer's cost."""
+    import torch
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.context import context_from_device
+
+    ctx = context_from_device(dev)
+    steps = {k: GPTTrainStep(dev) for k in "ABC"}
+    seq = np.random.default_rng(SEED).integers(
+        0, GPT_CONFIG["vocab_size"],
+        (GPT_TRAIN["batch"], GPT_TRAIN["seq"] + 1)).astype(np.int32)
+    steps["B"].inp_np = np.ascontiguousarray(seq[:, :-1])
+    steps["B"].tgt_np = np.ascontiguousarray(seq[:, 1:])
+    check(torch.equal(torch.from_numpy(steps["B"].inp_np).to(dev),
+                      steps["A"].inp), "nd tokens differ from the step's")
+    walls = {"tensor": [], "nd": []}
+    rows = []
+    for i in range(GPT_TRAIN_STEPS):
+        losses = {}
+        for k in "AC":
+            mx_random.seed(SEED + i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses[k] = steps[k]()
+            float(losses[k].mean())
+            torch.cuda.synchronize()
+            if k == "A":
+                walls["tensor"].append((time.perf_counter() - t0) * 1e3)
+        mx_random.seed(SEED + i)
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        loss_b, mean_b = _nd_step(nd, steps["B"], ctx)
+        torch.cuda.synchronize()
+        walls["nd"].append((time.perf_counter() - t0) * 1e3)
+        launches = read_counters()
+        gap_ba, n_ba = _param_gap(steps["B"], steps["A"])
+        gap_ca, n_ca = _param_gap(steps["C"], steps["A"])
+        lb = loss_b._data.detach()
+        row = {"step": i, "loss_nd": mean_b,
+               "loss_tensor": float(losses["A"].mean()),
+               "loss_bitwise": bool(torch.equal(lb, losses["A"])),
+               "loss_c_bitwise": bool(torch.equal(losses["C"],
+                                                  losses["A"])),
+               "params_differing_nd": n_ba, "max_param_gap_nd": gap_ba,
+               "params_differing_c": n_ca, "max_param_gap_c": gap_ca,
+               "launches": launches}
+        rows.append(row)
+        print("nd train step %d: loss %.6f (tensor path %.6f, bitwise %s; "
+              "second tensor run bitwise %s); parameters differing from the "
+              "tensor path: NDArray %d (max %.3g), second tensor run %d (max "
+              "%.3g); launches %s" % (
+                  i, mean_b, row["loss_tensor"], row["loss_bitwise"],
+                  row["loss_c_bitwise"], n_ba, gap_ba, n_ca, gap_ca,
+                  launches), flush=True)
+        check(isinstance(loss_b, nd.NDArray), "the nd loss is no NDArray")
+        if i == 0:
+            check(row["loss_bitwise"], "nd step 0: the loss is not the "
+                  "tensor path's bit for bit")
+        if n_ca == 0 and row["loss_c_bitwise"]:
+            check(n_ba == 0 and row["loss_bitwise"],
+                  "nd step %d differs from a tensor path that reproduced "
+                  "itself" % i)
+        else:
+            check(gap_ba <= 4 * gap_ca and n_ba <= 4 * max(n_ca, 1),
+                  "nd step %d: gap %.3g over %d parameters, beyond the "
+                  "tensor path's own %.3g over %d" % (i, gap_ba, n_ba,
+                                                       gap_ca, n_ca))
+        for name, n in GPT_STEP_LAUNCHES.items():
+            check(launches[name] == n, "nd step %d: %s launches %d != %d"
+                  % (i, name, launches[name], n))
+        check(launches["flash_attention_fwd_f32"] == 0,
+              "nd step launched the fp32 flash form")
+    # the first step of the phase (the tensor path's) also pays the
+    # phase's first launches: the medians are of the later steps
+    out = {"steps": rows,
+           "host_wall_ms": {k: v for k, v in walls.items()},
+           "host_wall_ms_median_after_first": {
+               k: float(np.median(v[1:])) for k, v in walls.items()}}
+    print("nd train: host wall a step %s ms (tensor path) vs %s ms "
+          "(NDArray idiom), medians after the first step %.3f vs %.3f ms; "
+          "%s" % (["%.2f" % w for w in walls["tensor"]],
+                  ["%.2f" % w for w in walls["nd"]],
+                  out["host_wall_ms_median_after_first"]["tensor"],
+                  out["host_wall_ms_median_after_first"]["nd"], card_line()),
+          flush=True)
+    del steps
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rel(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+# the kernel-backed nd ops against their plain versions on the card:
+# relative L2 of each output and gradient; bf16 outputs are rounded once
+# to bf16 on each side (2**-8 relative a value), fp32 ones sum in another
+# order
+ND_KERNEL_REL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+# their inputs: a GPT-2 step's LayerNorm rows (8 x 1024 of 768), 2048 of
+# its logits rows (of GPT_CONFIG's vocabulary), a causal flash at T = 1024
+ND_KERNEL_SHAPES = {"layernorm": (8, 1024, 768), "xent_rows": 2048,
+                    "flash": (2, 12, 1024, 64)}
+
+
+def _nd_kernel_case(nd, autograd, name, fn, inputs, dtype):
+    """fn(*inputs) recorded and backward with random head weights, as the
+    kernel path and inside ``plain_versions()``; the launches of the first,
+    the readings and the errors."""
+    import torch
+
+    def run():
+        arrs = [nd.NDArray(t.clone()) for t in inputs]
+        for a in arrs:
+            if a._data.is_floating_point():
+                a.attach_grad()
+        with autograd.record():
+            out = fn(*arrs)
+        w = torch.randn(out.shape, device=out._data.device,
+                        generator=torch.Generator(out._data.device)
+                        .manual_seed(SEED)).to(out._data.dtype)
+        out.backward(nd.NDArray(w))
+        return [out._data.detach()] + [a.grad._data for a in arrs
+                                       if a.grad is not None]
+
+    reset_counters()
+    got = run()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    with plain_versions():
+        reset_counters()
+        ref = run()
+        plain_launches = sum(read_counters().values())
+    errs = [_rel(g, r) for g, r in zip(got, ref)]
+    tol = ND_KERNEL_REL[dtype]
+    print("nd.%s on the card: launches %s, relative L2 against the plain "
+          "versions (output, then each input's gradient) %s (limit %g)"
+          % (name, {k: v for k, v in launches.items() if v},
+             ["%.3g" % e for e in errs], tol), flush=True)
+    check(plain_launches == 0, "nd.%s plain run launched a kernel" % name)
+    check(max(errs) <= tol, "nd.%s disagrees with its plain version" % name)
+    return {"launches": launches, "rel_l2": errs, "limit": tol}
+
+
+def phase_nd_ops(dev):
+    """Every case of ``tools/nd_op_cases.py`` through the port's ``nd`` on
+    the card and on the CPU from the same seeded numpy inputs: outputs,
+    input arrays after the call (the updates' in-place states) and
+    gradients, at ``card_tol`` (ten times the CPU parity tolerance; TF32
+    off). Then the three ``nd`` ops that reach kernels, at a GPT-2 step's
+    sizes, must launch their forward and backward kernels and agree with
+    their plain versions on the card."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from tools.nd_op_cases import CASES, assert_same, card_tol, run_case
+
+    t0 = time.perf_counter()
+    ctx = mx.context.context_from_device(dev)
+    failures = []
+    for case in CASES:
+        try:
+            with mx.cpu():
+                ref = run_case(mx.nd, mx.autograd, case,
+                               lambda x: mx.nd.array(x, dtype=x.dtype.name))
+            with ctx:
+                got = run_case(mx.nd, mx.autograd, case,
+                               lambda x: mx.nd.array(x, dtype=x.dtype.name))
+            for g, r, what in zip(got, ref, ("output", "input after",
+                                             "grad")):
+                assert_same(g, r, card_tol(case), "%s %s" % (case.id, what))
+        except Exception as e:  # every case is read before the check
+            failures.append("%s: %s" % (case.id, str(e).splitlines()[0]
+                                        if str(e) else type(e).__name__))
+    torch.cuda.synchronize()
+    print("nd ops: %d cases on the card against the CPU, %d failed%s "
+          "(%.1f s)" % (len(CASES), len(failures),
+                        "".join("\n  " + f for f in failures),
+                        time.perf_counter() - t0), flush=True)
+    check(not failures, "nd ops disagree card against CPU: %s"
+          % failures[:5])
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    shapes = ND_KERNEL_SHAPES
+    C = shapes["layernorm"][-1]
+    x = torch.randn(*shapes["layernorm"], device=dev, generator=g)
+    gamma = torch.randn(C, device=dev, generator=g)
+    beta = torch.randn(C, device=dev, generator=g)
+    V = GPT_CONFIG["vocab_size"]
+    logits = torch.randn(shapes["xent_rows"], V, device=dev, generator=g)
+    labels = torch.randint(0, V, (shapes["xent_rows"],), device=dev,
+                           generator=g, dtype=torch.int32)
+    qkv = [torch.randn(*shapes["flash"], device=dev, generator=g).to(
+        torch.bfloat16) for _ in range(3)]
+    kernel_ops = {
+        "LayerNorm": _nd_kernel_case(
+            mx.nd, mx.autograd, "LayerNorm",
+            lambda a, gm, b: mx.nd.LayerNorm(a, gm, b),
+            [x, gamma, beta], "float32"),
+        "softmax_cross_entropy": _nd_kernel_case(
+            mx.nd, mx.autograd, "softmax_cross_entropy",
+            lambda a, y: mx.nd.softmax_cross_entropy(a, y).reshape(1),
+            [logits, labels], "float32"),
+        "scaled_dot_attention": _nd_kernel_case(
+            mx.nd, mx.autograd, "scaled_dot_attention",
+            lambda q, k, v: mx.nd.scaled_dot_attention(q, k, v,
+                                                       causal=True),
+            qkv, "bfloat16")}
+    want = {"LayerNorm": ("layernorm", "layernorm_bwd"),
+            "softmax_cross_entropy": ("softmax_xent_fwd",
+                                      "softmax_xent_bwd"),
+            "scaled_dot_attention": ("flash_attention_fwd",
+                                     "flash_attention_bwd")}
+    for op, names in want.items():
+        got = kernel_ops[op]["launches"]
+        check(all(got[n] == 1 for n in names) and sum(got.values()) == 2,
+              "nd.%s launched %s, not one each of %s" % (op, got, names))
+    return {"cases": len(CASES), "failures": failures,
+            "card_tol_factor": 10, "tf32": False,
+            "kernel_ops": kernel_ops,
+            "seconds": time.perf_counter() - t0}
+
+
+class _UnguardedLayerNorm:
+    """A planted copy of the LayerNorm Function as it was before the
+    second-order guard: its backward calls the kernel whatever the grad
+    mode, so under ``create_graph`` its gradient carries no graph and the
+    second-order terms through it vanish without an error."""
+
+    @staticmethod
+    def make():
+        import torch
+        from mxnet_tpu_torch.ops.cuda import layernorm as ln
+
+        class Fn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, gamma, beta, eps):
+                ctx.save_for_backward(x, gamma)
+                ctx.eps = eps
+                return ln.fused_layernorm(x, gamma, beta, eps)
+
+            @staticmethod
+            def backward(ctx, dy):
+                x, gamma = ctx.saved_tensors
+                dx, dg, db = ln.fused_layernorm_bwd(x, gamma, dy, ctx.eps)
+                return dx, dg, db, None
+
+        return lambda x, gamma, beta, eps=1e-5: Fn.apply(x, gamma, beta, eps)
+
+
+# the WGAN-GP critic: input 768, hidden 3072 (tanh), output 1, batch 64
+CRITIC = {"in": 768, "hidden": 3072, "batch": 64}
+# the penalty's parameter gradients, card against CPU, relative L2 (fp32,
+# TF32 off: products of length 768 and 3072 summed in another order)
+CRITIC_TOL = 1e-4
+
+
+def _critic(dev, with_ln, seed):
+    import torch
+    from mxnet_tpu_torch import gluon
+
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(CRITIC["hidden"], in_units=CRITIC["in"]))
+    if with_ln:
+        net.add(gluon.nn.LayerNorm(in_channels=CRITIC["hidden"]))
+    net.add(gluon.nn.Activation("tanh"))
+    net.add(gluon.nn.Dense(1, in_units=CRITIC["hidden"]))
+    net.initialize(device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(seed))
+    return net
+
+
+def _penalty_grads(net, xnp, ctx):
+    """The gradient penalty ((|dD/dx| - 1)^2).mean() of critic ``net`` at
+    ``xnp``, through ``autograd.grad(create_graph=True)``, and its
+    gradients with respect to the critic's parameters."""
+    from mxnet_tpu_torch import autograd, nd
+
+    x = nd.array(xnp, ctx=ctx)
+    with autograd.record():
+        out = net(x)
+        (gx,) = autograd.grad(out.sum(), [x], create_graph=True)
+        norm = nd.sqrt((gx * gx).sum(axis=1))
+        pen = ((norm - 1.0) * (norm - 1.0)).mean()
+    pen.backward()
+    return float(pen.asscalar()), [p._tensor().grad.detach().float().cpu()
+                                   for p in net.collect_params().values()]
+
+
+def _copy_to_cpu(net_card, net_cpu):
+    for a, b in zip(net_card.collect_params().values(),
+                    net_cpu.collect_params().values()):
+        b.set_data(a._tensor().detach().cpu())
+
+
+def phase_create_graph(dev):
+    """``autograd.grad(create_graph=True)`` on the card: the WGAN-GP
+    critic's penalty gradients against the same on the CPU (``CRITIC_TOL``);
+    the same through ``nd.LayerNorm`` must raise ``SecondOrderError``; and
+    a planted copy of the unguarded LayerNorm Function gives penalty
+    gradients that the tolerance catches (the fault this guard repairs)."""
+    import torch
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.context import context_from_device, cpu
+    from mxnet_tpu_torch.ops.cuda import SecondOrderError
+
+    ctx = context_from_device(dev)
+    xnp = np.random.RandomState(SEED + 31).randn(
+        CRITIC["batch"], CRITIC["in"]).astype(np.float32)
+
+    def card_and_cpu(with_ln):
+        card = _critic(dev, with_ln, SEED + 32)
+        host = _critic(torch.device("cpu"), with_ln, SEED + 32)
+        _copy_to_cpu(card, host)
+        return card, host
+
+    card, host = card_and_cpu(False)
+    pen_card, g_card = _penalty_grads(card, xnp, ctx)
+    pen_cpu, g_cpu = _penalty_grads(host, xnp, cpu())
+    errs = [_rel(a, b) for a, b in zip(g_card, g_cpu)]
+    print("create_graph: WGAN-GP penalty %.6f on the card, %.6f on the CPU; "
+          "parameter gradients relative L2 %s (limit %g)"
+          % (pen_card, pen_cpu, ["%.3g" % e for e in errs], CRITIC_TOL),
+          flush=True)
+    check(max(errs) <= CRITIC_TOL, "create_graph: the card's penalty "
+          "gradients disagree with the CPU's")
+    # dD/dx does not depend on the output bias: its gradient is zero
+    check(all(bool(g.abs().sum() > 0) for g in g_card[:-1]),
+          "create_graph: a zero penalty gradient")
+
+    card, host = card_and_cpu(True)
+    raised = None
+    try:
+        _penalty_grads(card, xnp, ctx)
+    except SecondOrderError as e:
+        raised = str(e)
+    print("create_graph through nd.LayerNorm on the card: %s"
+          % (raised or "no error"), flush=True)
+    check(raised is not None and "layernorm_bwd" in raised,
+          "create_graph through the LayerNorm kernel did not raise")
+    _, g_cpu = _penalty_grads(host, xnp, cpu())
+    saved = ops.functional.layernorm
+    ops.functional.layernorm = _UnguardedLayerNorm.make()
+    try:
+        for p in card.collect_params().values():
+            p.zero_grad()
+        _, g_planted = _penalty_grads(card, xnp, ctx)
+    finally:
+        ops.functional.layernorm = saved
+    planted = [_rel(a, b) for a, b in zip(g_planted, g_cpu)]
+    print("create_graph, planted unguarded LayerNorm: parameter gradients "
+          "relative L2 against the CPU %s (limit %g: must read above it)"
+          % (["%.3g" % e for e in planted], CRITIC_TOL), flush=True)
+    check(max(planted) > CRITIC_TOL, "the planted unguarded LayerNorm's "
+          "second order went unseen")
+    return {"penalty": [pen_card, pen_cpu], "rel_l2": errs,
+            "limit": CRITIC_TOL, "layernorm_raised": raised,
+            "planted_rel_l2": planted}
 
 
 def card_line():
@@ -6735,6 +7162,16 @@ def main():
         step, train = phase_train(dev)
         bert128 = phase_bert128(dev)
         gpt_step, gpt_train = phase_gpt_train(dev)
+        nd_phases = {}
+        for name, phase in (("phase_nd_train", phase_nd_train),
+                            ("phase_nd_ops", phase_nd_ops),
+                            ("phase_create_graph", phase_create_graph)):
+            t0 = time.perf_counter()
+            nd_phases[name] = phase(dev)
+            nd_phases[name]["phase_seconds"] = time.perf_counter() - t0
+        print("nd phases: %s s" % {k: round(v["phase_seconds"], 1)
+                                   for k, v in nd_phases.items()},
+              flush=True)
         optim = {"one_step": phase_optimizers(dev)}
         optim_steps, optim["gpt2_steps"] = phase_gpt_train_optimizers(dev)
         gen_srv, gen_model, gen = phase_generate(dev)
@@ -6819,7 +7256,7 @@ def main():
                       "generate": gen, "snapshots": snapshots,
                       "serve_graph": serve_graph, "optimizers": optim,
                       "bad_ids": bad_ids, "train_resnet50": resnet,
-                      "vision_zoo": zoo,
+                      "vision_zoo": zoo, "nd": nd_phases,
                       "decode_step_graphs": graphs, "quantized": quant,
                       "speculative": spec, "chunked_prefill": chunked,
                       "attention_dense_vs_flash": crossover,

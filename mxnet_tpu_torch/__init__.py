@@ -11,12 +11,19 @@ the JAX package's parameter, trainer-state and checkpoint files
 KV pages), runs the vision layers and model zoo (ResNet-50 trained and
 served, int8 convolutions), with hand-written CUDA kernels (sm_90a) for the
 LayerNorm, the flash-attention forward and backward, and the softmax
-cross-entropy forward and backward. Entry points run on the current CUDA
-device unless the caller passes ``device="cpu"``. The package imports
-neither JAX nor anything of ``mxnet_tpu``.
+cross-entropy forward and backward. ``mx.nd`` gives MXNet's imperative
+idiom over them (``NDArray``, the op namespace generated from the
+registry, ``autograd`` with ``attach_grad`` and higher orders), and Gluon
+blocks take and return NDArray. Entry points run on the current CUDA
+device unless the caller passes ``device="cpu"`` (or ``ctx=mx.cpu()``, or
+enters ``with mx.cpu():``). The package imports neither JAX nor anything
+of ``mxnet_tpu``.
 """
 from . import base, context, util  # noqa: F401
 from .context import cpu, gpu, num_gpus  # noqa: F401
 from . import autograd, random, optimizer  # noqa: F401
 from . import ops, initializer, gluon, amp, convert, models, serve  # noqa: F401
 from . import checkpoint, quantization, quant  # noqa: F401
+from . import ndarray, nd, linalg, test_utils  # noqa: F401
+from .context import Context, current_context  # noqa: F401
+from .ndarray import NDArray  # noqa: F401

@@ -80,9 +80,18 @@ def next_pow2(n):
 OP_REGISTRY: Dict[str, Callable] = {}
 
 
-def register_op(name=None):
-    """Register a functional op under ``name`` (default: the function's)."""
+def register_op(name=None, needs_training=False, nondiff=False):
+    """Register a functional op under ``name`` (default: the function's).
+    ``needs_training``: the op takes ``training=``, which ``nd`` fills from
+    ``autograd.is_training()`` when the caller gives none. ``nondiff``:
+    ``nd`` records no gradient through it, as the JAX package records none
+    through its ``nondiff`` ops (``topk``'s values, the optimizer
+    updates)."""
     def deco(fn):
+        if needs_training:
+            fn.needs_training = True
+        if nondiff:
+            fn.nondiff = True
         OP_REGISTRY[name or fn.__name__] = fn
         return fn
 

@@ -87,7 +87,7 @@ def validate_swap(block, params_file):
             continue
         used.add(key)
         arr = loaded[key]
-        live = p.data()
+        live = p._tensor()
         if tuple(arr.shape) != tuple(live.shape):
             problems.append("reshaped %r: file %s vs live %s"
                             % (name, tuple(arr.shape), tuple(live.shape)))

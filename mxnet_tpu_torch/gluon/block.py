@@ -7,13 +7,20 @@ Name scopes and prefixes follow the JAX package exactly (an auto-named root
 gets ``<classname><n>_``, children nest under their parent's prefix), so a
 model's parameter names match the JAX package's one to one up to the root's
 counter. The port runs eagerly: there is no trace, and ``hybridize`` is a
-no-op kept for API parity. A forward builds a torch autograd graph only
-inside ``autograd.record()``, as in MXNet.
+no-op kept for API parity (its capture is ``ROADMAP.md`` A.13). A forward
+builds a torch autograd graph only inside ``autograd.record()``, as in
+MXNet.
+
+A block called with NDArray arguments returns NDArrays, as the JAX
+package's does; called with tensors it returns tensors. The NDArray layer
+is only at the outermost call: the arguments are unwrapped once, the
+children see tensors, and the outputs are wrapped once.
 
 ``save_parameters``/``load_parameters`` write and read the JAX package's
 parameter files (``util.save_npz_exact`` under structural names such as
 ``blocks.0.attn.qkv.weight``), so a file either package writes loads in the
-other with identical bits.
+other with identical bits; ``load_parameters`` also reads the legacy files
+keyed by global names (``ParameterDict.save``).
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch
 
 from .. import autograd, ops
 from ..base import resolve_device
+from ..ndarray import NDArray, unwrap, wrap
 from ..util import load_npz_exact, save_npz_exact
 from .parameter import Parameter, ParameterDict
 
@@ -86,14 +94,19 @@ class _BlockScope:
         _BlockScope._tls.stack.pop()
 
 
+def _any_ndarray(args, kwargs):
+    return any(isinstance(a, NDArray) for a in args) or any(
+        isinstance(v, NDArray) for v in kwargs.values())
+
+
 def param_value(param):
     """A parameter's tensor as the current call sees it: the serving_fn
-    override when one is active on this thread, else ``param.data()``. Used
+    override when one is active on this thread, else ``param._tensor()``. Used
     for weight tying across blocks (BERT's MLM decoder)."""
     store = getattr(_param_store, "params", None)
     if store is not None:
         return store[id(param)]
-    return param.data()
+    return param._tensor()
 
 
 class Block(torch.nn.Module):
@@ -193,7 +206,7 @@ class Block(torch.nn.Module):
             if deduplicate and id(p) in seen:
                 continue
             seen.add(id(p))
-            arrays[name] = p.data()
+            arrays[name] = p._tensor()
         save_npz_exact(filename, arrays)
 
     def load_parameters(self, filename, ctx=None, allow_missing=False,
@@ -204,15 +217,14 @@ class Block(torch.nn.Module):
         yet goes to ``ctx`` (default: the current CUDA device). Each value
         is cast to the parameter's dtype, or with ``cast_dtype`` and
         ``dtype_source="saved"`` the parameter takes the file's dtype.
-        Files keyed by global names (the legacy ``ParameterDict.save``
-        format) are not read by the port."""
+        A file keyed by global names (the legacy ``ParameterDict.save``
+        format) is read by those names."""
         params = self._collect_params_with_prefix()
         loaded = load_npz_exact(filename)
         if loaded and params and not set(loaded) & set(params):
-            raise KeyError(
-                "%s holds none of this block's structural parameter names "
-                "(a file keyed by global names?): the legacy global-name "
-                "format is not ported yet (ROADMAP.md A.7)" % filename)
+            glob = {p.name: p for p in params.values()}
+            if set(loaded) & set(glob):
+                params = glob
         # a shared Parameter appears under several names; a deduplicated
         # file holds only the first, so take the value from any of them
         by_id = {}
@@ -280,6 +292,14 @@ class HybridBlock(Block):
                 if p._deferred_init is not None and p._shape_known():
                     p._finish_deferred_init()
 
+    def __call__(self, *args, **kwargs):
+        if _any_ndarray(args, kwargs):
+            rec = autograd.is_recording()
+            args = [unwrap(a, rec) for a in args]
+            kwargs = {k: unwrap(v, rec) for k, v in kwargs.items()}
+            return wrap(super().__call__(*args, **kwargs))
+        return super().__call__(*args, **kwargs)
+
     def forward(self, *args, **kwargs):
         self._ensure_params(*args)
         with torch.set_grad_enabled(autograd.is_recording()):
@@ -311,4 +331,4 @@ class HybridBlock(Block):
             finally:
                 _param_store.params = prev
 
-        return pure, [p.data() for p in plist]
+        return pure, [p._tensor() for p in plist]

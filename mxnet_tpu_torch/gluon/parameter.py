@@ -11,6 +11,15 @@ carries a gradient of zeros from the start, as MXNet's ``attach_grad``
 does. ``autograd.backward`` stores gradients by ``grad_req``: ``"write"``
 replaces the gradient, ``"add"`` adds to it (torch itself would always
 add).
+
+``data()``, ``grad()``, ``list_data()`` and ``list_grad()`` return NDArrays
+that wrap the live tensors without a copy, as in the JAX package; a write
+into ``data()``'s NDArray goes into the parameter. The port's own code
+reads the tensor through ``_tensor()``.
+
+``ParameterDict.save``/``load`` write and read the legacy files keyed by
+global parameter names (``<prefix>dense0_weight``), in the JAX package's
+exact npz format.
 """
 from __future__ import annotations
 
@@ -106,7 +115,9 @@ class Parameter:
                                  generator))
         self._deferred_init = None
 
-    def data(self):
+    def _tensor(self):
+        """The live tensor (what ``data()`` wraps); a read while recording
+        registers the parameter for ``autograd.backward``."""
         if self._data is None:
             if self._deferred_init is not None and self._shape_known():
                 self._finish_deferred_init()
@@ -114,12 +125,27 @@ class Parameter:
                 raise DeferredInitializationError(
                     "Parameter %s not initialized (call .initialize(), and "
                     "ensure its shape is inferable)" % self.name)
-        autograd.read_param(self, self._data)
+        autograd.read_variable(self, self._data)
         return self._data
 
-    def grad(self):
-        """The gradient tensor (None when ``grad_req`` is ``"null"``)."""
-        return self.data().grad
+    def data(self, ctx=None):
+        """The value as an NDArray over the live tensor."""
+        from ..ndarray import NDArray
+
+        nd = NDArray(self._tensor())
+        nd._param = self
+        return nd
+
+    def list_data(self):
+        return [self.data()]
+
+    def grad(self, ctx=None):
+        """The gradient as an NDArray (None when ``grad_req`` is
+        ``"null"``)."""
+        from ..ndarray import NDArray
+
+        g = self._tensor().grad
+        return None if g is None else NDArray(g)
 
     def list_grad(self):
         return [self.grad()]
@@ -144,6 +170,7 @@ class Parameter:
     def set_data(self, data):
         """Replace the value, cast to this parameter's dtype, on its device
         (or on the value's device when the parameter holds none yet)."""
+        data = getattr(data, "_data", data)  # an NDArray's tensor
         if not isinstance(data, torch.Tensor):
             data = torch.as_tensor(data)
         if self._shape_known() and tuple(data.shape) != self._shape:
@@ -162,7 +189,8 @@ class Parameter:
         """Write ``data`` (this parameter's shape) into the live tensor in
         place, cast to its dtype: whatever holds the tensor's storage (a
         captured CUDA graph) reads the new value."""
-        if tuple(data.shape) != tuple(self.data().shape):
+        data = getattr(data, "_data", data)
+        if tuple(data.shape) != tuple(self._tensor().shape):
             raise ValueError("Parameter %r: cannot copy_data with shape %s; "
                              "parameter shape is %s"
                              % (self.name, tuple(data.shape), self._shape))
@@ -243,6 +271,50 @@ class ParameterDict:
     def zero_grad(self):
         for p in self.values():
             p.zero_grad()
+
+    def save(self, filename, strip_prefix=""):
+        """Write every parameter under its global name (less
+        ``strip_prefix``), dtype-exact: the legacy ParameterDict file (ref:
+        gluon/parameter.py:ParameterDict.save)."""
+        from ..util import save_npz_exact
+
+        arrays = {}
+        for name, p in self.items():
+            if p._data is None:
+                continue
+            if strip_prefix and name.startswith(strip_prefix):
+                name = name[len(strip_prefix):]
+            arrays[name] = p._data
+        save_npz_exact(filename, arrays)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Set the parameters from a file :meth:`save` wrote (either
+        package's), names prefixed with ``restore_prefix``."""
+        from ..util import load_npz_exact
+
+        loaded = {restore_prefix + k: v
+                  for k, v in load_npz_exact(filename).items()}
+        if not allow_missing:
+            missing = [n for n in self.keys() if n not in loaded]
+            if missing:
+                raise KeyError("Parameters %s missing in file %s"
+                               % (missing[:5], filename))
+        if not ignore_extra:
+            extra = [n for n in loaded if n not in self._params]
+            if extra:
+                raise KeyError("Extra parameters in file %s: %s"
+                               % (filename, sorted(extra)[:5]))
+        device = None
+        for name, p in self.items():
+            if name not in loaded:
+                continue
+            value = loaded[name]
+            if p._data is None:
+                if device is None:
+                    device = resolve_device(ctx)
+                value = value.to(device)
+            p.set_data(value)
 
     def reset_device(self, device):
         for p in self.values():

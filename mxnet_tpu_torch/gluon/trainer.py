@@ -111,16 +111,16 @@ class Trainer:
         for i, p in enumerate(self._params):
             if p._data is None:
                 continue
-            g = p.grad()
+            g = p._data.grad
             if g is None:
                 if ignore_stale_grad:
                     continue
                 raise RuntimeError("gradient of %s not attached; call "
                                    "attach_grad/initialize" % p.name)
             if i not in self._states:
-                self._states[i] = self._optimizer.create_state(i, p.data())
+                self._states[i] = self._optimizer.create_state(i, p._tensor())
             idx.append(i)
-            ws.append(p.data())
+            ws.append(p._tensor())
             gs.append(g)
             ss.append(self._states[i])
         for i, s in zip(idx, self._optimizer.fused_update(ws, gs, ss, idx)):
@@ -156,7 +156,7 @@ class Trainer:
             blob = _StateUnpickler(io.BytesIO(f.read())).load()
         for i, p in enumerate(self._params):
             if i not in self._states and p._data is not None:
-                self._states[i] = self._optimizer.create_state(i, p.data())
+                self._states[i] = self._optimizer.create_state(i, p._tensor())
         leaves = self._leaves()
         arrays = blob["arrays"]
         if len(arrays) != len(leaves):

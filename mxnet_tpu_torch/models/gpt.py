@@ -222,7 +222,7 @@ class GPTModel(HybridBlock):
         per layer, K/V buffers are (slots, heads, capacity, head_dim) of
         ``dtype`` on ``device``; the logits are ``vocab_size`` wide."""
         H = self.blocks[0].attn._heads
-        w = self.word_embed.weight.data()
+        w = self.word_embed.weight._tensor()
         return {"layers": len(self.blocks), "heads": H,
                 "head_dim": self._units // H, "max_length": self._max_len,
                 "vocab_size": w.shape[0], "dtype": w.dtype,

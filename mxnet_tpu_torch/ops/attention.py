@@ -70,7 +70,7 @@ class _DenseAttention(torch.autograd.Function):
             s = s + bias
         pb = torch.softmax(s, dim=-1).to(v.dtype)
         ctx.save_for_backward(q, k, v, pb)
-        ctx.scale = scale
+        ctx.scale, ctx.bias = scale, bias
         return torch.matmul(pb.float(), v.float()).to(q.dtype)
 
     @staticmethod
@@ -78,6 +78,13 @@ class _DenseAttention(torch.autograd.Function):
         # softmax-grad math in fp32, then one cast of ds * scale down to q's
         # dtype before the dq and dk products; p stays in v's dtype for dv
         q, k, v, pb = ctx.saved_tensors
+        if torch.is_grad_enabled():  # autograd.grad(create_graph=True)
+            # the saved p carries no graph: recompute it from q and k
+            s = ctx.scale * torch.matmul(q.float(),
+                                         k.float().transpose(-1, -2))
+            if ctx.bias is not None:
+                s = s + ctx.bias
+            pb = torch.softmax(s, dim=-1).to(v.dtype)
         do = do.to(v.dtype).float()
         pf = pb.float()
         dv = torch.matmul(pf.transpose(-1, -2), do).to(v.dtype)
@@ -236,3 +243,11 @@ def dequant_cache(cache, scale):
     """int8 KV pages to fp32 for attention: ``cache`` (B, H, C, D) int8
     times ``scale`` (B, H, 1, 1) fp32."""
     return cache.to(torch.float32) * scale
+
+
+@register_op("masked_softmax")
+def masked_softmax(x, mask=None, *, axis=-1):
+    """Softmax along ``axis`` with masked-out positions (mask 0) at -1e30."""
+    if mask is not None:
+        x = torch.where(mask.to(torch.bool), x, -1e30)
+    return torch.softmax(x, dim=axis)

@@ -38,7 +38,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, no_second_order
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)  # the kernel's template instances
@@ -406,6 +406,15 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse, vl = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
+        if torch.is_grad_enabled():  # autograd.grad(create_graph=True)
+            no_second_order("flash_attention_bwd", q)
+            # the saved o and lse carry no graph: recompute them from q, k, v
+            o, lse = flash_attention_plain(q, k, v, vl, ctx.scale,
+                                           ctx.causal, return_lse=True)
+            delta = (o.float() * do.float()).sum(dim=-1)
+            return (*flash_attention_bwd_plain(
+                q, k, v, do, lse, delta, vl, ctx.scale, ctx.causal),
+                None, None, None)
         delta = (o.float() * do.float()).sum(dim=-1)
         dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, delta,
                                          kv_valid_len=vl, scale=ctx.scale,

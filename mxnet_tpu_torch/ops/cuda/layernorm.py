@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, no_second_order
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -133,6 +133,9 @@ class _LayerNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, gamma = ctx.saved_tensors
+        if torch.is_grad_enabled():  # autograd.grad(create_graph=True)
+            no_second_order("layernorm_bwd", x)
+            return (*layernorm_bwd_plain(x, gamma, dy, ctx.eps), None)
         # a profiler range: the backward's host time. Its kernels come from
         # the extension, not from torch ops, so the range holds no device
         # time; a trace reads that from the kernels' names (layernorm_bwd_)

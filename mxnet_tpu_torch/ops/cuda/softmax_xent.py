@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, no_second_order
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -132,6 +132,11 @@ class _SoftmaxXent(torch.autograd.Function):
     def backward(ctx, dloss):
         x, labels, lse = ctx.saved_tensors
         dy = dloss.to(torch.float32).contiguous()
+        if torch.is_grad_enabled():  # autograd.grad(create_graph=True)
+            no_second_order("softmax_xent_bwd", x)
+            # the saved lse carries no graph: recompute it from x
+            lse = torch.logsumexp(x.float(), dim=-1)
+            return softmax_xent_bwd_plain(x, labels, lse, dy), None
         return softmax_xent_bwd(x, labels, lse, dy), None
 
 

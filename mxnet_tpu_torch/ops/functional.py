@@ -20,6 +20,8 @@ XLA outside any Pallas kernel: a convolution is ``torch.nn.functional``'s
 """
 from __future__ import annotations
 
+import builtins
+
 import torch
 import torch.nn.functional as TF
 
@@ -109,7 +111,7 @@ def LayerNorm(x, gamma, beta, *, axis=-1, eps=1e-5):
     return y.reshape(xt.shape).movedim(-1, axis)
 
 
-@register_op("Dropout")
+@register_op("Dropout", needs_training=True)
 def Dropout(x, *, p=0.5, training=False, mode="training"):
     """Inverted dropout in training mode, the identity otherwise: the JAX
     op's ``where(mask, x / keep, 0)`` in x's dtype, with the keep mask drawn
@@ -297,7 +299,7 @@ def Pooling(x, *, kernel=1, pool_type="max", stride=None, pad=0,
                          count_include_pad=count_include_pad)
 
 
-@register_op("BatchNorm")
+@register_op("BatchNorm", needs_training=True)
 def BatchNorm(x, gamma, beta, moving_mean, moving_var, *, eps=1e-5,
               momentum=0.9, fix_gamma=False, use_global_stats=False, axis=1,
               training=False):
@@ -358,9 +360,49 @@ def GroupNorm(x, gamma, beta, *, num_groups=1, eps=1e-5):
     return xr.reshape(x.shape) * gamma.reshape(shape) + beta.reshape(shape)
 
 
+def mx_shape(in_shape, shape):
+    """MXNet's reshape codes resolved against ``in_shape`` (ref:
+    src/operator/tensor/matrix_op-inl.h InferReshapeShape): 0 copies the
+    input dim, -1 is inferred, -2 copies every remaining input dim, -3
+    merges two consecutive input dims, -4 splits one input dim into the
+    next two entries (one of them may be -1)."""
+    shape = tuple(shape)
+    if all(s > 0 or s == -1 for s in shape):
+        return shape
+    out, i, j = [], 0, 0
+    while j < len(shape):
+        s = shape[j]
+        if s == 0:
+            out.append(in_shape[i])
+            i += 1
+        elif s == -1:
+            out.append(-1)
+            i += 1
+        elif s == -2:
+            out.extend(in_shape[i:])
+            i = len(in_shape)
+        elif s == -3:
+            out.append(in_shape[i] * in_shape[i + 1])
+            i += 2
+        elif s == -4:
+            d1, d2 = shape[j + 1], shape[j + 2]
+            if d1 == -1:
+                d1 = in_shape[i] // d2
+            if d2 == -1:
+                d2 = in_shape[i] // d1
+            out.extend([d1, d2])
+            i += 1
+            j += 2
+        else:
+            out.append(s)
+            i += 1
+        j += 1
+    return tuple(out)
+
+
 @register_op("reshape")
 def reshape(x, *, shape):
-    return x.reshape(tuple(shape))
+    return x.reshape(mx_shape(tuple(x.shape), shape))
 
 
 @register_op("transpose")
@@ -376,8 +418,8 @@ def slice_axis(x, *, axis, begin, end):
     op: a negative bound counts from the end, an ``end`` past the axis is
     clamped, an empty range gives an empty tensor."""
     axis = axis % x.dim()
-    idx = [slice(None)] * x.dim()
-    idx[axis] = slice(begin, end)
+    idx = [builtins.slice(None)] * x.dim()
+    idx[axis] = builtins.slice(begin, end)
     return x[tuple(idx)]
 
 
@@ -447,14 +489,20 @@ def concat(*xs, dim=1):
 
 @register_op("dot")
 def dot(a, b, *, transpose_a=False, transpose_b=False):
-    if transpose_a:
-        a = a.t()
-    if transpose_b:
-        b = b.t()
+    """MXNet's dot: the last axis of a against the first axis of b
+    (``transpose_a`` moves a's first axis last, ``transpose_b`` b's last
+    axis first)."""
+    if transpose_a and a.dim() > 1:
+        a = a.movedim(0, -1)
+    if transpose_b and b.dim() > 1:
+        b = b.movedim(-1, 0)
     # mixed dtypes promote as in jnp.dot: a quantized model's fp32
     # activations against its bf16 tied LM head give fp32 logits
     dt = torch.promote_types(a.dtype, b.dtype)
-    return torch.matmul(a.to(dt), b.to(dt))
+    a, b = a.to(dt), b.to(dt)
+    if a.dim() <= 2 and b.dim() <= 2:
+        return torch.matmul(a, b)
+    return torch.tensordot(a, b, dims=1)
 
 
 @register_op("cast")
@@ -473,9 +521,20 @@ def _reduce(op, x, axis, keepdims):
     return op(x, dim=_dims(axis), keepdim=keepdims)
 
 
+def int_result(x, out):
+    """A reduction of an integer or bool x in the JAX package's dtype:
+    int32 for the narrow signed ints and bool, x's own otherwise (torch
+    widens them all to int64)."""
+    if x.is_floating_point() or x.is_complex():
+        return out
+    if x.dtype in (torch.bool, torch.int8, torch.int16, torch.uint8):
+        return out.to(torch.int32)
+    return out.to(x.dtype)
+
+
 @register_op("sum")
 def sum(x, *, axis=None, keepdims=False):
-    return _reduce(torch.sum, x, axis, keepdims)
+    return int_result(x, _reduce(torch.sum, x, axis, keepdims))
 
 
 @register_op("mean")
@@ -531,3 +590,769 @@ def softmax_xent_rows(logits, labels, *, axis=-1):
     flat = logits.reshape(-1, logits.shape[-1])
     lab = labels.to(torch.int32).reshape(-1)
     return softmax_xent(flat, lab).reshape(rows_shape)
+
+
+# ---------------------------------------------------------------- the rest
+# of the JAX registry's functional ops: the elementwise families (``jnp`` and
+# ``scipy.special`` there), comparisons, reductions, sorting, shape and
+# index ops, products and the sequence and resize layers. Each keeps the JAX
+# op's arguments and dtype rules; a python scalar operand takes the other
+# operand's dtype, as JAX's weak types do.
+
+
+def _t(a, like):
+    """A python scalar as a 0-d tensor on ``like``'s device: a 0-d operand
+    takes part in type promotion as a scalar does."""
+    if isinstance(a, torch.Tensor):
+        return a
+    return torch.tensor(a, device=like.device)
+
+
+def _pair_args(a, b):
+    if not isinstance(a, torch.Tensor):
+        a = _t(a, b)
+    elif not isinstance(b, torch.Tensor):
+        b = _t(b, a)
+    return a, b
+
+
+def _unary(name, f, keep_int=False):
+    """Register elementwise ``f``; with ``keep_int`` an integer input comes
+    back unchanged (``jnp.floor`` and kin keep ints)."""
+    def op(x):
+        if keep_int and not (x.is_floating_point() or x.is_complex()):
+            return x.clone()
+        return f(x)
+
+    op.__name__ = name
+    register_op(name)(op)
+    return op
+
+
+def _float_in(f):
+    """``f`` on x, an integer x first cast to float32 as jnp does for the
+    transcendental functions."""
+    def g(x):
+        if not (x.is_floating_point() or x.is_complex()):
+            x = x.to(torch.float32)
+        return f(x)
+
+    return g
+
+
+abs = _unary("abs", torch.abs)
+sign = _unary("sign", torch.sign)
+ceil = _unary("ceil", torch.ceil, keep_int=True)
+floor = _unary("floor", torch.floor, keep_int=True)
+trunc = _unary("trunc", torch.trunc, keep_int=True)
+round = _unary("round", torch.round, keep_int=True)
+rint = _unary("rint", _float_in(torch.round))  # jnp.rint: ints to float
+fix = _unary("fix", torch.trunc, keep_int=True)
+exp = _unary("exp", _float_in(torch.exp))
+expm1 = _unary("expm1", _float_in(torch.expm1))
+log = _unary("log", _float_in(torch.log))
+log1p = _unary("log1p", _float_in(torch.log1p))
+log2 = _unary("log2", _float_in(torch.log2))
+log10 = _unary("log10", _float_in(torch.log10))
+sqrt = _unary("sqrt", _float_in(torch.sqrt))
+rsqrt = _unary("rsqrt", _float_in(torch.rsqrt))
+cbrt = _unary("cbrt", _float_in(
+    lambda x: torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)))
+rcbrt = _unary("rcbrt", _float_in(
+    lambda x: 1.0 / (torch.sign(x) * torch.abs(x).pow(1.0 / 3.0))))
+square = _unary("square", torch.square)
+reciprocal = _unary("reciprocal", lambda x: 1.0 / x)
+negative = _unary("negative", torch.negative)
+sin = _unary("sin", _float_in(torch.sin))
+cos = _unary("cos", _float_in(torch.cos))
+tan = _unary("tan", _float_in(torch.tan))
+arcsin = _unary("arcsin", _float_in(torch.asin))
+arccos = _unary("arccos", _float_in(torch.acos))
+arctan = _unary("arctan", _float_in(torch.atan))
+sinh = _unary("sinh", _float_in(torch.sinh))
+cosh = _unary("cosh", _float_in(torch.cosh))
+tanh = _unary("tanh", _float_in(torch.tanh))
+arcsinh = _unary("arcsinh", _float_in(torch.asinh))
+arccosh = _unary("arccosh", _float_in(torch.acosh))
+arctanh = _unary("arctanh", _float_in(torch.atanh))
+degrees = _unary("degrees", _float_in(torch.rad2deg))
+radians = _unary("radians", _float_in(torch.deg2rad))
+erf = _unary("erf", _float_in(torch.erf))
+erfinv = _unary("erfinv", _float_in(torch.erfinv))
+gammaln = _unary("gammaln", _float_in(torch.lgamma))
+gamma = _unary("gamma", _float_in(lambda x: torch.exp(torch.lgamma(x))))
+digamma = _unary("digamma", _float_in(torch.digamma))
+softsign = _unary("softsign", lambda x: x / (1 + torch.abs(x)))
+relu = _unary("relu", torch.relu)
+softrelu = _unary("softrelu", _float_in(
+    lambda x: torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                             device=x.device))))
+logical_not = _unary("logical_not", torch.logical_not)
+isnan = _unary("isnan", torch.isnan)
+isinf = _unary("isinf", torch.isinf)
+isfinite = _unary("isfinite", torch.isfinite)
+
+
+@register_op("polygamma")
+def polygamma(n, x):
+    """The n-th derivative of digamma at x; n is an int order."""
+    return torch.polygamma(int(n), x)
+
+
+def _binary(name, f):
+    def op(a, b):
+        a, b = _pair_args(a, b)
+        return f(a, b)
+
+    op.__name__ = name
+    register_op(name)(op)
+    return op
+
+
+def _true_divide(a, b):
+    return torch.true_divide(a, b)
+
+
+add = _binary("add", torch.add)
+subtract = _binary("subtract", torch.sub)
+multiply = _binary("multiply", torch.mul)
+divide = _binary("divide", _true_divide)
+mod = _binary("mod", torch.remainder)  # Python's sign, as jnp.mod
+power = _binary("power", torch.pow)
+maximum = _binary("maximum", torch.maximum)
+minimum = _binary("minimum", torch.minimum)
+hypot = _binary("hypot", lambda a, b: torch.hypot(*_floats(a, b)))
+arctan2 = _binary("arctan2", lambda a, b: torch.atan2(*_floats(a, b)))
+
+
+def _floats(a, b):
+    dt = torch.promote_types(a.dtype, b.dtype)
+    if not dt.is_floating_point:
+        dt = torch.float32
+    return a.to(dt), b.to(dt)
+
+
+def _compare(name, f):
+    """0/1 in the first operand's dtype (MXNet's comparison ops)."""
+    def op(a, b):
+        ref = a if isinstance(a, torch.Tensor) else None
+        a, b = _pair_args(a, b)
+        dt = ref.dtype if ref is not None else torch.promote_types(
+            a.dtype, b.dtype)
+        return f(a, b).to(dt)
+
+    op.__name__ = name
+    register_op(name)(op)
+    return op
+
+
+equal = _compare("equal", torch.eq)
+not_equal = _compare("not_equal", torch.ne)
+greater = _compare("greater", torch.gt)
+greater_equal = _compare("greater_equal", torch.ge)
+
+
+def _logical(name, f):
+    def op(a, b):
+        a, b = _pair_args(a, b)
+        return f(a, b).to(torch.float32)
+
+    op.__name__ = name
+    register_op(name)(op)
+    return op
+
+
+logical_and = _logical("logical_and", torch.logical_and)
+logical_or = _logical("logical_or", torch.logical_or)
+logical_xor = _logical("logical_xor", torch.logical_xor)
+
+for _n, _f in [
+        ("broadcast_add", add), ("broadcast_sub", subtract),
+        ("broadcast_mul", multiply), ("broadcast_div", divide),
+        ("broadcast_mod", mod), ("broadcast_power", power),
+        ("broadcast_maximum", maximum), ("broadcast_minimum", minimum),
+        ("broadcast_hypot", hypot), ("broadcast_equal", equal),
+        ("broadcast_not_equal", not_equal), ("broadcast_greater", greater),
+        ("broadcast_greater_equal", greater_equal),
+        ("broadcast_lesser", lesser),
+        ("broadcast_lesser_equal", lesser_equal),
+        ("broadcast_logical_and", logical_and),
+        ("broadcast_logical_or", logical_or),
+        ("broadcast_logical_xor", logical_xor)]:
+    register_op(_n)(_f)
+
+
+@register_op("where")
+def where(condition, x, y):
+    x, y = _pair_args(x, y)
+    return torch.where(condition.to(torch.bool), x, y)
+
+
+@register_op("smooth_l1")
+def smooth_l1(x, *, scalar=1.0):
+    s2 = scalar * scalar
+    return torch.where(torch.abs(x) < 1.0 / s2, 0.5 * s2 * x * x,
+                       torch.abs(x) - 0.5 / s2)
+
+
+# ---------------------------------------------------------------- reductions
+
+
+def _axes(x, axis):
+    if axis is None:
+        return tuple(range(x.dim()))
+    return (axis,) if isinstance(axis, int) else tuple(axis)
+
+
+@register_op("nansum")
+def nansum(x, *, axis=None, keepdims=False):
+    return int_result(x, torch.nansum(x, dim=_axes(x, axis),
+                                      keepdim=keepdims))
+
+
+def _prod(x, axis, keepdims):
+    out = x
+    for a in sorted((a % x.dim() for a in _axes(x, axis)), reverse=True):
+        out = torch.prod(out, dim=a, keepdim=keepdims)
+    return int_result(x, out)
+
+
+@register_op("prod")
+def prod(x, *, axis=None, keepdims=False):
+    return _prod(x, axis, keepdims)
+
+
+@register_op("nanprod")
+def nanprod(x, *, axis=None, keepdims=False):
+    if x.is_floating_point():
+        x = torch.where(torch.isnan(x), torch.ones((), dtype=x.dtype,
+                                                   device=x.device), x)
+    return _prod(x, axis, keepdims)
+
+
+@register_op("max")
+def max(x, *, axis=None, keepdims=False):
+    return torch.amax(x, dim=_axes(x, axis), keepdim=keepdims)
+
+
+@register_op("min")
+def min(x, *, axis=None, keepdims=False):
+    return torch.amin(x, dim=_axes(x, axis), keepdim=keepdims)
+
+
+@register_op("var")
+def var(x, *, axis=None, keepdims=False):
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    return torch.var(x, dim=_axes(x, axis), unbiased=False, keepdim=keepdims)
+
+
+@register_op("std")
+def std(x, *, axis=None, keepdims=False):
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    return torch.std(x, dim=_axes(x, axis), unbiased=False, keepdim=keepdims)
+
+
+@register_op("argmin")
+def argmin(x, *, axis=None, keepdims=False):
+    """Index of the smallest element (the first on ties), as float32."""
+    if axis is None:
+        return torch.argmin(x).to(torch.float32)
+    return torch.argmin(x, dim=axis, keepdim=keepdims).to(torch.float32)
+
+
+@register_op("norm")
+def norm(x, *, ord=2, axis=None, keepdims=False):
+    """The 2-norm as sqrt(sum(x ** 2)), the 1-norm as sum(|x|)."""
+    if ord == 2:
+        return torch.sqrt(torch.sum(torch.square(x), dim=_axes(x, axis),
+                                    keepdim=keepdims))
+    if ord == 1:
+        return torch.sum(torch.abs(x), dim=_axes(x, axis), keepdim=keepdims)
+    raise ValueError("norm only supports ord 1/2")
+
+
+def _scan(f, x, axis, dtype):
+    dt = resolve_dtype(dtype)
+    if axis is None:
+        x, axis = x.reshape(-1), 0
+    out = f(x, dim=axis, dtype=dt)
+    return out if dt is not None else int_result(x, out)
+
+
+@register_op("cumsum")
+def cumsum(x, *, axis=None, dtype=None):
+    return _scan(torch.cumsum, x, axis, dtype)
+
+
+@register_op("cumprod")
+def cumprod(x, *, axis=None, dtype=None):
+    return _scan(torch.cumprod, x, axis, dtype)
+
+
+@register_op("L2Normalization")
+def L2Normalization(x, *, eps=1e-10, mode="instance"):
+    if mode == "instance":
+        ax = tuple(range(1, x.dim()))
+    elif mode == "channel":
+        ax = (1,)
+    else:  # spatial
+        ax = tuple(range(2, x.dim()))
+    return x / torch.sqrt(torch.sum(torch.square(x), dim=ax, keepdim=True)
+                          + eps)
+
+
+def _sorted(x, axis, descending):
+    """(values, indices) along ``axis``, ties in index order."""
+    return torch.sort(x, dim=axis, descending=descending, stable=True)
+
+
+@register_op("topk", nondiff=True)
+def topk(x, *, axis=-1, k=1, ret_typ="indices", is_ascend=False,
+         dtype="float32"):
+    """The k largest (smallest with ``is_ascend``) along ``axis``, the
+    lower index first among ties (``lax.top_k``); indices as ``dtype``."""
+    vals, idx = _sorted(x, axis, not is_ascend)
+    vals = vals.narrow(axis, 0, k)
+    idx = idx.narrow(axis, 0, k).to(resolve_dtype(dtype))
+    if ret_typ == "value":
+        return vals
+    if ret_typ == "both":
+        return vals, idx
+    return idx
+
+
+@register_op("sort")
+def sort(x, *, axis=-1, is_ascend=True):
+    s = _sorted(x, axis, False)[0]
+    return s if is_ascend else torch.flip(s, dims=(axis,))
+
+
+@register_op("argsort")
+def argsort(x, *, axis=-1, is_ascend=True, dtype="float32"):
+    """The stable ascending order, reversed whole for descending (as the
+    JAX op: ties then come last index first)."""
+    i = _sorted(x, axis, False)[1]
+    if not is_ascend:
+        i = torch.flip(i, dims=(axis,))
+    return i.to(resolve_dtype(dtype))
+
+
+# ---------------------------------------------------------------- shape ops
+
+
+@register_op("swapaxes")
+def swapaxes(x, *, dim1=0, dim2=0):
+    return torch.swapaxes(x, dim1, dim2)
+
+
+@register_op("broadcast_to")
+def broadcast_to(x, *, shape):
+    shape = tuple(x.shape[i] if s == 0 else s for i, s in enumerate(shape))
+    return torch.broadcast_to(x, shape)
+
+
+@register_op("broadcast_like")
+def broadcast_like(x, y):
+    return torch.broadcast_to(x, y.shape)
+
+
+@register_op("tile")
+def tile(x, *, reps):
+    return torch.tile(x, (reps,) if isinstance(reps, int) else tuple(reps))
+
+
+@register_op("repeat")
+def repeat(x, *, repeats, axis=None):
+    return torch.repeat_interleave(x, repeats, dim=axis)
+
+
+@register_op("flip")
+def flip(x, *, axis):
+    return torch.flip(x, dims=(axis,) if isinstance(axis, int)
+                      else tuple(axis))
+
+
+register_op("reverse")(flip)
+
+
+@register_op("stack")
+def stack(*xs, axis=0):
+    return torch.stack(xs, dim=axis)
+
+
+@register_op("split")
+def split(x, *, num_outputs, axis=1, squeeze_axis=False):
+    n = x.shape[axis]
+    if n % num_outputs:
+        raise ValueError("split: axis of %d does not split into %d equal "
+                         "parts" % (n, num_outputs))
+    parts = torch.split(x, n // num_outputs, dim=axis)
+    if squeeze_axis:
+        parts = [p.squeeze(axis) for p in parts]
+    return tuple(parts)
+
+
+def basic_index(x, key):
+    """``x[key]`` for a tuple of ints, slices, ``None`` and ``...``; a
+    slice with a negative step, which torch's indexing refuses, is taken
+    with ``index_select``."""
+    keys = key if isinstance(key, tuple) else (key,)
+    if not any(isinstance(k, builtins.slice) and k.step is not None
+               and k.step < 0 for k in keys):
+        return x[key]
+    n_real = len([k for k in keys if k is not None and k is not Ellipsis])
+    out, axis = x, 0
+    for k in keys:
+        if k is Ellipsis:
+            axis += x.dim() - n_real
+        elif k is None:
+            out = out.unsqueeze(axis)
+            axis += 1
+        elif isinstance(k, builtins.slice):
+            idx = list(range(*k.indices(out.shape[axis])))
+            out = out.index_select(axis, torch.tensor(
+                idx, dtype=torch.int64, device=x.device))
+            axis += 1
+        else:
+            out = out.select(axis, k)
+    return out
+
+
+@register_op("slice")
+def slice(x, *, begin, end, step=None):
+    step = step or [None] * len(begin)
+    return basic_index(x, tuple(builtins.slice(b, e, s)
+                                for b, e, s in zip(begin, end, step)))
+
+
+@register_op("slice_like")
+def slice_like(x, y, *, axes=None):
+    idx = [builtins.slice(None)] * x.dim()
+    for ax in (axes if axes is not None else range(x.dim())):
+        idx[ax] = builtins.slice(0, y.shape[ax])
+    return x[tuple(idx)]
+
+
+@register_op("gather_nd")
+def gather_nd(data, indices):
+    """indices (M, ...) select along data's first M axes."""
+    idx = tuple(indices[i].to(torch.int64) for i in range(indices.shape[0]))
+    return data[idx]
+
+
+@register_op("scatter_nd")
+def scatter_nd(data, indices, *, shape):
+    idx = tuple(indices[i].to(torch.int64) for i in range(indices.shape[0]))
+    return torch.zeros(tuple(shape), dtype=data.dtype,
+                       device=data.device).index_put(idx, data)
+
+
+@register_op("one_hot")
+def one_hot(indices, *, depth, on_value=1.0, off_value=0.0,
+            dtype="float32"):
+    """An index outside [0, depth) gives a row of ``off_value``."""
+    cols = torch.arange(depth, device=indices.device)
+    oh = (indices.to(torch.int64)[..., None] == cols).to(
+        resolve_dtype(dtype))
+    return oh * (on_value - off_value) + off_value
+
+
+@register_op("diag")
+def diag(x, *, k=0):
+    if x.dim() <= 2:
+        return torch.diag(x, k)
+    return torch.diagonal(x, offset=k, dim1=0, dim2=1)
+
+
+@register_op("trace")
+def trace(x, *, offset=0, axis1=0, axis2=1):
+    return int_result(x, torch.diagonal(x, offset=offset, dim1=axis1,
+                                        dim2=axis2).sum(-1))
+
+
+@register_op("depth_to_space")
+def depth_to_space(x, *, block_size):
+    n, c, h, w = x.shape
+    b = block_size
+    y = x.reshape(n, b, b, c // (b * b), h, w).permute(0, 3, 4, 1, 5, 2)
+    return y.reshape(n, c // (b * b), h * b, w * b)
+
+
+@register_op("space_to_depth")
+def space_to_depth(x, *, block_size):
+    n, c, h, w = x.shape
+    b = block_size
+    y = x.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+    return y.reshape(n, c * b * b, h // b, w // b)
+
+
+# the JAX package asks for int64 with x64 off, which gives int32
+@register_op("_onnx_shape")
+def _onnx_shape(x):
+    return torch.tensor(tuple(x.shape), dtype=torch.int32, device=x.device)
+
+
+@register_op("shape_array")
+def shape_array(x):
+    return torch.tensor(tuple(x.shape), dtype=torch.int32, device=x.device)
+
+
+@register_op("size_array")
+def size_array(x):
+    return torch.tensor([x.numel()], dtype=torch.int32, device=x.device)
+
+
+@register_op("zeros_like")
+def zeros_like(x):
+    return torch.zeros_like(x)
+
+
+@register_op("ones_like")
+def ones_like(x):
+    return torch.ones_like(x)
+
+
+@register_op("BlockGrad")
+def BlockGrad(x):
+    return x.detach()
+
+
+stop_gradient = BlockGrad
+
+
+# ---------------------------------------------------------------- products
+
+
+def _same(a, b):
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
+@register_op("batch_dot")
+def batch_dot(a, b, *, transpose_a=False, transpose_b=False):
+    if transpose_a:
+        a = a.transpose(-1, -2)
+    if transpose_b:
+        b = b.transpose(-1, -2)
+    return torch.matmul(*_same(a, b))
+
+
+@register_op("matmul")
+def matmul(a, b):
+    return torch.matmul(*_same(a, b))
+
+
+@register_op("khatri_rao")
+def khatri_rao(*xs):
+    out = xs[0]
+    for m in xs[1:]:
+        out = torch.einsum("ir,jr->ijr", out, m).reshape(-1, out.shape[1])
+    return out
+
+
+# ---------------------------------------------------------------- nn
+
+
+@register_op("softmax")
+def softmax(x, *, axis=-1, temperature=None):
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    return torch.softmax(x, dim=axis)
+
+
+@register_op("softmax_cross_entropy")
+def softmax_cross_entropy(logits, labels):
+    """The summed sparse-label NLL, through the softmax-xent kernel
+    wrapper (``softmax_xent_rows``)."""
+    return torch.sum(softmax_xent_rows(logits, labels))
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """softmax forward; the incoming gradient goes to the logits unchanged
+    (MXNet's SoftmaxOutput: the caller supplies prob - one_hot)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.softmax(x, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+@register_op("SoftmaxOutput")
+def SoftmaxOutput(x, label=None, *, grad_scale=1.0, ignore_label=-1,
+                  use_ignore=False, preserve_shape=False, multi_output=False):
+    return _SoftmaxOutput.apply(x)
+
+
+@register_op("SequenceMask")
+def SequenceMask(x, sequence_length=None, *, use_sequence_length=False,
+                 value=0.0, axis=0):
+    if not use_sequence_length or sequence_length is None:
+        return x
+    T = x.shape[axis]
+    shape = [1] * x.dim()
+    shape[axis] = T
+    pos = torch.arange(T, device=x.device).reshape(shape)
+    lshape = [1] * x.dim()
+    batch_axis = 1 if axis == 0 else 0
+    lshape[batch_axis] = x.shape[batch_axis]
+    mask = pos < sequence_length.reshape(lshape)
+    return torch.where(mask, x, _scalar(x, value))
+
+
+@register_op("SequenceLast")
+def SequenceLast(x, sequence_length=None, *, use_sequence_length=False,
+                 axis=0):
+    xm = x.movedim(axis, 0)
+    if not use_sequence_length or sequence_length is None:
+        return xm[-1]
+    last = sequence_length.to(torch.int64) - 1
+    return xm[last, torch.arange(xm.shape[1], device=x.device)]
+
+
+@register_op("SequenceReverse")
+def SequenceReverse(x, sequence_length=None, *, use_sequence_length=False,
+                    axis=0):
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(x, dims=(axis,))
+    T = x.shape[axis]
+    xm = x.movedim(axis, 0)
+    pos = torch.arange(T, device=x.device)[:, None]
+    L = sequence_length.to(torch.int64)[None, :]
+    src = torch.where(pos < L, L - 1 - pos, pos)
+    out = xm[src, torch.arange(xm.shape[1], device=x.device)[None, :]]
+    return out.movedim(0, axis)
+
+
+@register_op("LRN")
+def LRN(x, *, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response norm across the channels of NCHW x."""
+    sq = torch.square(x)
+    half = nsize // 2
+    sqp = TF.pad(sq, (0, 0, 0, 0, half, half))
+    C = x.shape[1]
+    s = sqp[:, 0:C]
+    for i in range(1, nsize):
+        s = s + sqp[:, i:i + C]
+    return x / torch.pow(knorm + (alpha / nsize) * s, beta)
+
+
+@register_op("UpSampling")
+def UpSampling(x, *, scale=2, sample_type="nearest"):
+    if sample_type == "nearest":
+        return torch.repeat_interleave(
+            torch.repeat_interleave(x, scale, dim=2), scale, dim=3)
+    return TF.interpolate(x, scale_factor=scale, mode="bilinear",
+                          align_corners=False)
+
+
+def adaptive_avg_matrix(n_in, n_out):
+    """Row-averaging matrix of adaptive pooling, windows
+    [floor(i·n/o), ceil((i+1)·n/o))."""
+    import numpy as np
+
+    m = np.zeros((n_out, n_in), np.float32)
+    for i in range(n_out):
+        s, e = (i * n_in) // n_out, -((-(i + 1) * n_in) // n_out)
+        m[i, s:e] = 1.0 / (e - s)
+    return m
+
+
+@register_op("AdaptiveAvgPooling2D")
+def AdaptiveAvgPooling2D(x, *, output_size=None):
+    """(B, C, H, W) → (B, C, oh, ow) as two averaging products."""
+    if output_size is None or output_size == ():
+        return x
+    if isinstance(output_size, (tuple, list)):
+        oh, ow = (int(output_size[0]),
+                  int(output_size[1 if len(output_size) > 1 else 0]))
+    else:
+        oh = ow = int(output_size)
+    h, w = x.shape[2], x.shape[3]
+    left = torch.from_numpy(adaptive_avg_matrix(h, oh)).to(x.device, x.dtype)
+    right = torch.from_numpy(adaptive_avg_matrix(w, ow)).to(
+        x.device, x.dtype).t()
+    return torch.einsum("oh,bchw,wp->bcop", left, x, right)
+
+
+def _bilinear_gather(x, ys, xs):
+    """Sample NCHW x at float rows ``ys`` × cols ``xs`` (already in
+    [0, dim - 1]) with bilinear weights; an integer x in float32, rounded
+    back."""
+    H, W = x.shape[2], x.shape[3]
+    integral = not x.is_floating_point()
+    compute = torch.float32 if integral else x.dtype
+    y0 = torch.floor(ys).to(torch.int64)
+    x0 = torch.floor(xs).to(torch.int64)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    wy = (ys - y0).to(compute)[:, None]
+    wx = (xs - x0).to(compute)[None, :]
+    xc = x.to(compute)
+    v00 = xc[:, :, y0[:, None], x0[None, :]]
+    v01 = xc[:, :, y0[:, None], x1[None, :]]
+    v10 = xc[:, :, y1[:, None], x0[None, :]]
+    v11 = xc[:, :, y1[:, None], x1[None, :]]
+    top = v00 * (1 - wx) + v01 * wx
+    bot = v10 * (1 - wx) + v11 * wx
+    out = top * (1 - wy) + bot * wy
+    if integral:
+        out = torch.round(out).to(x.dtype)
+    return out
+
+
+def _linspace(a, b, n, device):
+    import numpy as np
+
+    return torch.from_numpy(np.linspace(a, b, n).astype(np.float32)).to(
+        device)
+
+
+@register_op("BilinearResize2D")
+def BilinearResize2D(x, *, height=None, width=None, scale_height=None,
+                     scale_width=None):
+    """Align-corners bilinear resize (output pixel i samples
+    i·(H-1)/(h-1)), MXNet's convention."""
+    H, W = x.shape[2], x.shape[3]
+    h = int(height) if height is not None else int(H * scale_height)
+    w = int(width) if width is not None else int(W * scale_width)
+    zero = torch.zeros(1, dtype=torch.float32, device=x.device)
+    ys = _linspace(0.0, H - 1.0, h, x.device) if h > 1 else zero
+    xs = _linspace(0.0, W - 1.0, w, x.device) if w > 1 else zero
+    return _bilinear_gather(x, ys, xs)
+
+
+@register_op("_resize_linear_asymmetric")
+def _resize_linear_asymmetric(x, *, height=None, width=None,
+                              scale_height=None, scale_width=None):
+    """ONNX's asymmetric linear Resize: source = output / scale."""
+    H, W = x.shape[2], x.shape[3]
+    h = int(height) if height is not None else int(H * scale_height)
+    w = int(width) if width is not None else int(W * scale_width)
+    sh = float(scale_height) if scale_height is not None else h / H
+    sw = float(scale_width) if scale_width is not None else w / W
+    ys = torch.clamp(torch.arange(h, dtype=torch.float32,
+                                  device=x.device) / sh, max=H - 1.0)
+    xs = torch.clamp(torch.arange(w, dtype=torch.float32,
+                                  device=x.device) / sw, max=W - 1.0)
+    return _bilinear_gather(x, ys, xs)
+
+
+@register_op("_resize_linear_half_pixel")
+def _resize_linear_half_pixel(x, *, height=None, width=None,
+                              scale_height=None, scale_width=None,
+                              pytorch_mode=False):
+    """Half-pixel-centre bilinear resize, no antialiasing (ONNX Resize's
+    default)."""
+    h = int(height) if height is not None else int(x.shape[2] * scale_height)
+    w = int(width) if width is not None else int(x.shape[3] * scale_width)
+    if pytorch_mode and (h == 1 or w == 1):
+        raise NotImplementedError(
+            "pytorch_half_pixel Resize with an output dim of 1 differs "
+            "from half_pixel and is not implemented")
+    return TF.interpolate(x, size=(h, w), mode="bilinear",
+                          align_corners=False, antialias=False)

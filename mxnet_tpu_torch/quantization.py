@@ -175,7 +175,7 @@ class QuantizedDense(HybridBlock):
 
     def __init__(self, dense, mode="int8", **kwargs):
         super().__init__(prefix=dense.prefix, **kwargs)
-        w = dense.weight.data().detach().to(torch.float32)
+        w = dense.weight._tensor().detach().to(torch.float32)
         _check_mode(mode, w.device)
         qw, ws = quantize_weight(w, axis=0, mode=mode)
         self._mode = mode
@@ -187,7 +187,7 @@ class QuantizedDense(HybridBlock):
                                        dtype="float32", grad_req="null")
         self.w_scale.set_data(ws.to(torch.float32))
         if getattr(dense, "bias", None) is not None:
-            b = dense.bias.data().detach().to(torch.float32)
+            b = dense.bias._tensor().detach().to(torch.float32)
             self.bias = self.params.get("bias", shape=tuple(b.shape),
                                         dtype="float32", grad_req="null")
             self.bias.set_data(b)
@@ -217,7 +217,7 @@ class QuantizedConv2D(HybridBlock):
 
     def __init__(self, conv, mode="int8", **kwargs):
         super().__init__(prefix=conv.prefix, **kwargs)
-        w = conv.weight.data().detach().to(torch.float32)
+        w = conv.weight._tensor().detach().to(torch.float32)
         _check_mode(mode, w.device)
         qw, ws = quantize_weight(w, axis=0, mode=mode)
         self._mode = mode
@@ -229,7 +229,7 @@ class QuantizedConv2D(HybridBlock):
                                        dtype="float32", grad_req="null")
         self.w_scale.set_data(ws.to(torch.float32))
         if getattr(conv, "bias", None) is not None:
-            b = conv.bias.data().detach().to(torch.float32)
+            b = conv.bias._tensor().detach().to(torch.float32)
             self.bias = self.params.get("bias", shape=tuple(b.shape),
                                         dtype="float32", grad_req="null")
             self.bias.set_data(b)
@@ -363,9 +363,9 @@ def quantize_model(block, exclude=(), mode="int8", calib_mode="none",
         qb = fb = 0
         layers = _quantized_layers(block, [])
         for q in layers:
-            qw = q.qweight.data()
+            qw = q.qweight._tensor()
             qb += qw.numel() * qw.element_size() \
-                + q.w_scale.data().numel() * 4
+                + q.w_scale._tensor().numel() * 4
             fb += qw.numel() * 4
         _QUANT_STATS["quantized_layers"] = len(layers)
         _QUANT_STATS["weight_bytes_quantized"] = int(qb)

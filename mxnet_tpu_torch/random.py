@@ -1,6 +1,6 @@
-"""Random state (counterpart of ``mxnet_tpu/random.py``), the part this
-slice needs: :func:`seed` and the per-device ``torch.Generator`` that
-random draws on a device (``Dropout``'s mask) come from.
+"""Random state (counterpart of ``mxnet_tpu/random.py``): :func:`seed` and
+the per-device ``torch.Generator`` that every random draw on a device
+(``Dropout``'s mask, ``nd.random``, the ``random_*`` ops) comes from.
 
 As in the JAX package the state is per thread: one seed, and on each device
 a generator seeded from it at first use. The bits differ from JAX's
@@ -25,18 +25,30 @@ def _generators():
     return _state.generators
 
 
-def seed(seed_state):
-    """Seed this thread's generators, on every device."""
-    _generators().clear()
-    _state.seed = int(seed_state)
+def seed(seed_state, ctx=None):
+    """Seed this thread's generators: on every device, or with ``ctx`` (a
+    Context or device) only that device's."""
+    gens = _generators()
+    if ctx is None:
+        gens.clear()
+        _state.seed = int(seed_state)
+        return
+    dev = ctx.torch_device() if hasattr(ctx, "torch_device") else ctx
+    dev = _key(dev)
+    gens[dev] = torch.Generator(device=dev).manual_seed(int(seed_state))
+
+
+def _key(device):
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def generator(device):
     """The generator of ``device`` on this thread (made at first use from
     the current seed)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    dev = _key(device)
     gens = _generators()
     gen = gens.get(dev)
     if gen is None:

@@ -880,7 +880,7 @@ class GenerativeServer:
                                                % kind):
             return self._steps.run(
                 key, body, self._step_state(kind),
-                params=[p.data() for p in self._plist], eager=eager)
+                params=[p._tensor() for p in self._plist], eager=eager)
 
     def _run_step(self, eager=False):
         """One decode step for every slot through the step program of its

@@ -123,7 +123,8 @@ class ModelServer:
         fn, _ = self.model.serving_fn()
         plist = list(self.model.collect_params().values())
         self._pool = BucketedExecutor(
-            fn, lambda: [p.data() for p in plist], self.buckets, self.device)
+            fn, lambda: [p._tensor() for p in plist], self.buckets,
+            self.device)
         self._batcher = DynamicBatcher(
             self._dispatch, max_batch=self.buckets[-1],
             max_wait_ms=self._max_wait_ms, max_queue=self._max_queue,

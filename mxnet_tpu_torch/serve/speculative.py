@@ -207,7 +207,7 @@ class ModelDraft:
                 "mxnet_tpu_torch::draft_step"):
             return self._steps.run(
                 ("draft", self.cache.capacity), self._body(k), self._state(),
-                params=[p.data() for p in self._plist], eager=eager)
+                params=[p._tensor() for p in self._plist], eager=eager)
 
     # ----------------------------------------------- snapshot interface
     def export_executables(self):

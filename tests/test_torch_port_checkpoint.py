@@ -45,7 +45,7 @@ def _jax_structural(model):
 
 
 def _port_structural(model):
-    return {n: p.data()
+    return {n: p._tensor()
             for n, p in model._collect_params_with_prefix().items()}
 
 
@@ -79,9 +79,9 @@ def test_load_casts_to_the_parameter_dtype_and_refuses_mismatches(
     tm = GPTModel(**SMALL_GPT)
     tm.initialize(device="cpu")
     tm.load_parameters(path)  # dtype_source "current": stays fp32
-    assert tm.word_embed.weight.data().dtype == torch.float32
+    assert tm.word_embed.weight._tensor().dtype == torch.float32
     np.testing.assert_array_equal(
-        tm.word_embed.weight.data().detach().numpy(),
+        tm.word_embed.weight._tensor().detach().numpy(),
         np.asarray(jm.word_embed.weight.data()._data, np.float32))
     small = GPTModel(**dict(SMALL_GPT, num_layers=1))
     with pytest.raises(KeyError, match="Extra parameters"):
@@ -122,7 +122,7 @@ def test_deduplicated_files_and_aliases_cross(jax_trace_state,  # noqa: F811
         ["0.bias", "0.weight", "1.bias", "1.weight"]
     tnet.load_parameters(path, ctx="cpu")
     assert tnet[0].weight is tnet[1].weight
-    np.testing.assert_array_equal(tnet[1].weight.data().detach().numpy(),
+    np.testing.assert_array_equal(tnet[1].weight._tensor().detach().numpy(),
                                   np.asarray(jnet[0].weight.data()._data))
     tnet.save_parameters(str(tmp_path / "port.params"), deduplicate=True)
     assert sorted(np.load(str(tmp_path / "port.params")).files) == keys \
@@ -133,7 +133,7 @@ def test_deduplicated_files_and_aliases_cross(jax_trace_state,  # noqa: F811
         "1.weight": np.ones((4, 3), np.float32),
         "1.bias": np.zeros(4, np.float32)})
     tnet.load_parameters(only_second)
-    assert float(tnet[0].weight.data().detach().sum()) == 12.0
+    assert float(tnet[0].weight._tensor().detach().sum()) == 12.0
 
 
 @pytest.mark.parametrize("problem", ["missing", "extra", "reshaped", "dtype",
@@ -247,7 +247,7 @@ def _jax_step(net, trainer, x):
 
 def _port_step(net, trainer, x):
     with autograd.record():
-        y = net(torch.from_numpy(x).to(net[0].weight.data().dtype))
+        y = net(torch.from_numpy(x).to(net[0].weight._tensor().dtype))
         loss = (y * y).sum()
     autograd.backward(loss)
     trainer.step(1)
@@ -386,7 +386,7 @@ def test_swap_parameters_flips_the_weights_and_flushes_prefixes(tmp_path):
         after = srv.generate(prompt, max_new_tokens=8)
         # a file that does not match is refused; the weights stay
         bad = str(tmp_path / "bad.params")
-        arrays = {n: p.data() for n, p in
+        arrays = {n: p._tensor() for n, p in
                   b._collect_params_with_prefix().items()}
         del arrays["ln_f.beta"]
         checkpoint.save_arrays(bad, arrays)

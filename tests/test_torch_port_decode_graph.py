@@ -121,15 +121,15 @@ def test_swap_writes_into_the_live_parameters(shared, tmp_path):
     s = _join(srv, p)
     _pump(srv, [s])
     assert s.result(1) == shared["want"][2]
-    ptrs = {n: q.data().data_ptr()
+    ptrs = {n: q._tensor().data_ptr()
             for n, q in model._collect_params_with_prefix().items()}
     captures = srv._steps.captures
     assert srv.swap_parameters(path) == 1
-    assert ptrs == {n: q.data().data_ptr()
+    assert ptrs == {n: q._tensor().data_ptr()
                     for n, q in model._collect_params_with_prefix().items()}
     for n, q in model._collect_params_with_prefix().items():
-        assert torch.equal(q.data(),
-                           other._collect_params_with_prefix()[n].data())
+        assert torch.equal(q._tensor(),
+                           other._collect_params_with_prefix()[n]._tensor())
     s = _join(srv, p)
     _pump(srv, [s])
     with torch.no_grad():

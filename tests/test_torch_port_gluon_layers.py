@@ -118,7 +118,7 @@ def test_conv_layers_match_jax(jax_trace_state, cls, shape, kw):  # noqa: F811
         if jp is None:
             assert tp is None
             continue
-        a, b = _np(tp.grad()), _np(jp.grad())
+        a, b = _np(tp._tensor().grad), _np(jp.grad())
         assert np.linalg.norm(a - b) <= 1e-4 * np.linalg.norm(b), name
 
 
@@ -194,17 +194,17 @@ def test_batchnorm_block_matches_jax(jax_trace_state, kw):  # noqa: F811
     rng = np.random.RandomState(5)
     x = (rng.randn(4, 3, 5, 6) * 2 + 1).astype(np.float32)
     jb, tb, jy, ty = _pair(lambda m: m.BatchNorm(**kw), x, record=True)
-    addr = (tb.running_mean.data().data_ptr(),
-            tb.running_var.data().data_ptr())
+    addr = (tb.running_mean._tensor().data_ptr(),
+            tb.running_var._tensor().data_ptr())
     jb2, tb2, jy0, ty0 = _pair(lambda m: m.BatchNorm(**kw), x)
     _close(ty0, jy0, "inference")
     _close(ty, jy, "training")
     for name in ("running_mean", "running_var"):
-        _close(getattr(tb, name).data(), getattr(jb, name).data(), name)
-    assert (tb.running_mean.data().data_ptr(),
-            tb.running_var.data().data_ptr()) == addr
+        _close(getattr(tb, name)._tensor(), getattr(jb, name).data(), name)
+    assert (tb.running_mean._tensor().data_ptr(),
+            tb.running_var._tensor().data_ptr()) == addr
     moved = not kw.get("use_global_stats")
-    assert moved == (not np.allclose(_np(tb.running_mean.data()), 0.0))
+    assert moved == (not np.allclose(_np(tb.running_mean._tensor()), 0.0))
     if tb.gamma.grad_req != "null":
         jw, tw = _heads(ty)
         jag.backward(jy, jw)
@@ -212,12 +212,13 @@ def test_batchnorm_block_matches_jax(jax_trace_state, kw):  # noqa: F811
     for name in ("gamma", "beta"):
         if getattr(tb, name).grad_req == "null":
             continue
-        a, b = _np(getattr(tb, name).grad()), _np(getattr(jb, name).grad())
+        a = _np(getattr(tb, name)._tensor().grad)
+        b = _np(getattr(jb, name).grad())
         assert np.linalg.norm(a - b) <= 1e-4 * np.linalg.norm(b), name
     # outside record(): the moving statistics normalize and do not move
-    before = tb.running_mean.data().clone()
+    before = tb.running_mean._tensor().clone()
     _close(tb(torch.from_numpy(x)), jb(mx.nd.array(x)), "inference after")
-    assert torch.equal(tb.running_mean.data(), before)
+    assert torch.equal(tb.running_mean._tensor(), before)
 
 
 @pytest.mark.parametrize("make", [
@@ -248,7 +249,7 @@ def test_norm_and_activation_blocks_match_jax(jax_trace_state, make):  # noqa: F
     jp = {p.name[len(jb.prefix):]: p for p in jb.collect_params().values()}
     for p in tb.collect_params().values():
         local = p.name[len(tb.prefix):]
-        a, b = _np(p.grad()), _np(jp[local].grad())
+        a, b = _np(p._tensor().grad), _np(jp[local].grad())
         assert np.linalg.norm(a - b) <= 1e-4 * max(np.linalg.norm(b), 1e-6), \
             local
 
@@ -283,7 +284,7 @@ def test_amp_keeps_every_norm_in_fp32():
     tamp.convert_hybrid_block(tb, "bfloat16")
     jd = {p.name[len(jb.prefix):]: str(p.data().dtype)
           for p in jb.collect_params().values()}
-    td = {p.name[len(tb.prefix):]: str(p.data().dtype).replace("torch.", "")
+    td = {p.name[len(tb.prefix):]: str(p._tensor().dtype).replace("torch.", "")
           for p in tb.collect_params().values()}
     assert td == jd
     assert td["batchnorm0_running_var"] == "float32"

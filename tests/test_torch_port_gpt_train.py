@@ -62,7 +62,8 @@ def _port_step(model, trainer, inp, tgt):
         logits = model(torch.from_numpy(inp))
         loss = loss_fn(logits, torch.from_numpy(tgt))
     autograd.backward(loss)
-    grads = {p.name[len(model.prefix):]: p.grad().float().numpy().copy()
+    grads = {p.name[len(model.prefix):]:
+             p._tensor().grad.float().numpy().copy()
              for p in model.collect_params().values()}
     trainer.step(inp.shape[0])
     return loss.detach().float().numpy(), grads

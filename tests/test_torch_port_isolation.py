@@ -1,8 +1,10 @@
-"""The port stands alone: no file of ``mxnet_tpu_torch/`` and not
-``chip_smoke.py`` imports JAX or the JAX package; the package (the GPT
+"""The port stands alone: no file of ``mxnet_tpu_torch/``, not
+``chip_smoke.py`` and not the case table it reads imports JAX or the JAX
+package; the package (the GPT
 model, the generative server, the checkpoint layer, the snapshots, the
 optimizers, the LR schedulers, ``ir.tune``, ``parallel``, the vision
-layers and the model zoo included) imports with JAX blocked; and without
+layers, the model zoo, NDArray and the ``nd`` namespace included) imports
+with JAX blocked; and without
 CUDA every entry point refuses to run unless the caller asks for the
 CPU."""
 import ast
@@ -25,6 +27,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "tools", "nd_op_cases.py")  # chip_smoke's
 
 
 def _imported_roots(path):
@@ -57,7 +60,12 @@ def test_package_imports_with_jax_blocked():
             "mxnet_tpu_torch.gluon.nn.conv_layers, "
             "mxnet_tpu_torch.gluon.model_zoo.vision, "
             "mxnet_tpu_torch.gluon.model_zoo.convert, "
-            "mxnet_tpu_torch.quantization, mxnet_tpu_torch.ops.lowbit; "
+            "mxnet_tpu_torch.quantization, mxnet_tpu_torch.ops.lowbit, "
+            "mxnet_tpu_torch.context, mxnet_tpu_torch.ndarray, "
+            "mxnet_tpu_torch.nd, mxnet_tpu_torch.nd.random, "
+            "mxnet_tpu_torch.nd.contrib, mxnet_tpu_torch.linalg, "
+            "mxnet_tpu_torch.test_utils, mxnet_tpu_torch.ops.extra, "
+            "mxnet_tpu_torch.ops.legacy_ops; "
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
@@ -98,3 +106,10 @@ def test_without_cuda_entry_points_raise(monkeypatch):
     net.initialize(device="cpu")
     with pytest.raises(DeviceError):
         ModelServer(net, [((3, 32, 32), "float32")], buckets=(1,))
+    from mxnet_tpu_torch import nd
+
+    for make in (lambda: nd.array([1.0]), lambda: nd.zeros((2,)),
+                 lambda: nd.random.normal(shape=(2,)),
+                 lambda: nd.random_uniform(shape=(2,))):
+        with pytest.raises(DeviceError):
+            make()

@@ -201,7 +201,7 @@ def _loss_and_grads(jnet, tnet, seed):
 def _assert_same_weights(jnet, tnet):
     for jp, tp in zip(jnet.collect_params().values(),
                       tnet.collect_params().values()):
-        _close(tp.data(), jp.data()._data, tp.name)
+        _close(tp._tensor(), jp.data()._data, tp.name)
 
 
 @pytest.mark.parametrize("ignore", [False, True])
@@ -219,8 +219,8 @@ def test_trainer_stale_gradient_matches_jax(ignore,  # noqa: F811
     jstale = list(jnet.collect_params().values())[1]
     tstale = list(tnet.collect_params().values())[1]
     jstale.data()._grad = None
-    tstale.data().grad = None
-    before = tstale.data().clone()
+    tstale._tensor().grad = None
+    before = tstale._tensor().clone()
     if not ignore:
         for tr, stale in ((jtr, jstale), (ttr, tstale)):
             with pytest.raises(RuntimeError, match="gradient of %s not "
@@ -229,7 +229,7 @@ def test_trainer_stale_gradient_matches_jax(ignore,  # noqa: F811
         return
     jtr.step(6, ignore_stale_grad=True)
     ttr.step(6, ignore_stale_grad=True)
-    assert torch.equal(tstale.data(), before)
+    assert torch.equal(tstale._tensor(), before)
     _assert_same_weights(jnet, tnet)
     assert sorted(ttr._states) == sorted(jtr._states) == [0, 2, 3]
 

@@ -144,14 +144,14 @@ def test_quantize_model_keeps_the_jax_names_dtypes_and_grad_req(
     tq.quantize_model(tm, mode=mode)
     jnames = {n: str(np.asarray(p.data()._data).dtype)
               for n, p in jm._collect_params_with_prefix().items()}
-    tnames = {n: str(p.data().dtype).replace("torch.", "")
+    tnames = {n: str(p._tensor().dtype).replace("torch.", "")
               for n, p in tm._collect_params_with_prefix().items()}
     assert tnames == jnames
     layers = tq._quantized_layers(tm, [])
     assert len(layers) == 4 * 2
     for layer in layers:
         for p in layer.collect_params().values():
-            assert p.grad_req == "null" and not p.data().requires_grad
+            assert p.grad_req == "null" and not p._tensor().requires_grad
     st = tq.stats()
     assert st["mode"] == mode and st["quantized_layers"] == 8
     assert st["weight_bytes_quantized"] < st["weight_bytes_fp32"]
@@ -211,7 +211,7 @@ def test_quantized_parameter_files_cross_both_ways(jax_trace_state, mode,
     jp = jm._collect_params_with_prefix()
     tp = tm._collect_params_with_prefix()
     for name, p in tp.items():
-        np.testing.assert_array_equal(_bits(p.data()),
+        np.testing.assert_array_equal(_bits(p._tensor()),
                                       _bits(jp[name].data()._data))
     # and back: the port's file into a fresh quantized JAX model
     tpath = str(tmp_path / "port.params")
@@ -221,13 +221,13 @@ def test_quantized_parameter_files_cross_both_ways(jax_trace_state, mode,
     jm2.load_parameters(tpath)
     for name, p in jm2._collect_params_with_prefix().items():
         np.testing.assert_array_equal(_bits(p.data()._data),
-                                      _bits(tp[name].data()))
+                                      _bits(tp[name]._tensor()))
     # from_jax_params carries them too
     tm3 = port_gpt_from(jax_gpt(True))
     tq.quantize_model(tm3, mode=mode)
     from_jax_params(tm3, jax_params(jm))
     for name, p in tm3._collect_params_with_prefix().items():
-        np.testing.assert_array_equal(_bits(p.data()),
+        np.testing.assert_array_equal(_bits(p._tensor()),
                                       _bits(jp[name].data()._data))
 
 

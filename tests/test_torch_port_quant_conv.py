@@ -132,18 +132,18 @@ def test_quantize_model_swaps_every_conv2d(jax_trace_state, mode):  # noqa: F811
     convs = [b for b in tm.modules() if isinstance(b, tq.QuantizedConv2D)]
     assert n_conv == len(convs) == 20
     assert not any(isinstance(b, tnn.Conv2D) for b in tm.modules())
-    assert all(c.qweight.data().dtype == torch.int8 for c in convs)
+    assert all(c.qweight._tensor().dtype == torch.int8 for c in convs)
     dense = [b for b in tm.modules() if isinstance(b, tq.QuantizedDense)]
     assert len(dense) == 1
-    assert dense[0].qweight.data().dtype == tq.quant_dtype(mode)
+    assert dense[0].qweight._tensor().dtype == tq.quant_dtype(mode)
     jn = {n: str(np.asarray(p.data()._data).dtype)
           for n, p in jm._collect_params_with_prefix().items()}
-    tn = {n: str(p.data().dtype).replace("torch.", "")
+    tn = {n: str(p._tensor().dtype).replace("torch.", "")
           for n, p in tm._collect_params_with_prefix().items()}
     assert tn == jn
     for layer in convs:
         for p in layer.collect_params().values():
-            assert p.grad_req == "null" and not p.data().requires_grad
+            assert p.grad_req == "null" and not p._tensor().requires_grad
     assert tq.stats()["quantized_layers"] == 21
     tq.quantize_model(tm, mode=mode)
     assert [b for b in tm.modules()
@@ -190,7 +190,7 @@ def test_calibrated_int8_resnet_matches_jax(jax_trace_state, tmp_path):  # noqa:
     tm.load_parameters(path)
     for n, p in tm._collect_params_with_prefix().items():
         jp = jm._collect_params_with_prefix()[n]
-        a = p.data().detach().cpu().reshape(-1)
+        a = p._tensor().detach().cpu().reshape(-1)
         assert np.array_equal(a.view(torch.uint8).numpy() if a.dtype ==
                               torch.int8 else a.numpy(),
                               np.asarray(jp.data()._data).reshape(-1)

@@ -72,7 +72,7 @@ def test_resnet_forward_matches_jax(jax_trace_state, version, depth):  # noqa: F
     stats = [n for n in jp if n.endswith(("running_mean", "running_var"))]
     assert len(stats) >= 2 * (2 * depth // 2)
     for n in stats:
-        assert _rel_l2(_f32(tp[n].data()), _f32(jp[n].data())) < 1e-4, n
+        assert _rel_l2(_f32(tp[n]._tensor()), _f32(jp[n].data())) < 1e-4, n
 
 
 def test_resnet18_v2_gradients_match_jax(jax_trace_state):  # noqa: F811

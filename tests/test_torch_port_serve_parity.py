@@ -163,7 +163,7 @@ def test_rebinding_a_parameter_drops_the_programs():
     tm.initialize(device="cpu")
     srv = ModelServer(tm, SPECS, buckets=(1, 4), device="cpu")
     p = next(iter(tm.collect_params().values()))
-    p.set_data(p.data().clone())
+    p.set_data(p._tensor().clone())
     with srv:
         srv.predict(*_requests()[0])
     st_ = srv.stats()

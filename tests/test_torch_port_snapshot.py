@@ -129,7 +129,7 @@ def _port_server(model, quantize=None, draft=None, **kw):
 
 
 def _params(model):
-    return {n: p.data().detach().clone()
+    return {n: p._tensor().detach().clone()
             for n, p in model._collect_params_with_prefix().items()}
 
 

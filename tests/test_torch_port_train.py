@@ -65,11 +65,11 @@ def test_backward_of_nonscalar_head_uses_ones():
     with autograd.record():
         y = net(x)
     autograd.backward(y)
-    got = net.weight.grad().clone()
+    got = net.weight._tensor().grad.clone()
     with autograd.record():
         y = net(x).sum()
     autograd.backward(y)
-    torch.testing.assert_close(got, net.weight.grad())
+    torch.testing.assert_close(got, net.weight._tensor().grad)
     torch.testing.assert_close(got, torch.ones(5, 3).t() @ x)
 
 
@@ -81,8 +81,8 @@ def test_grad_req_write_add_null(grad_req):
     net = _dense(grad_req)
     x = torch.randn(2, 4)
     w = net.weight
-    assert w.data().is_leaf
-    assert w.data().requires_grad == (grad_req != "null")
+    assert w._tensor().is_leaf
+    assert w._tensor().requires_grad == (grad_req != "null")
     grads = []
     for _ in range(2):
         with autograd.record():
@@ -90,30 +90,31 @@ def test_grad_req_write_add_null(grad_req):
         if grad_req == "null":
             with pytest.raises(RuntimeError):
                 autograd.backward(y)
-            assert w.grad() is None
+            assert w._tensor().grad is None
             return
         autograd.backward(y)
-        grads.append(w.grad().clone())
+        grads.append(w._tensor().grad.clone())
     once = 2.0 * torch.ones(2, 3).t() @ x
     torch.testing.assert_close(grads[0], once)
     torch.testing.assert_close(grads[1], once if grad_req == "write"
                                else 2 * once)
     w.zero_grad()
-    assert not w.grad().any()
+    assert not w._tensor().grad.any()
 
 
 def test_parameter_stays_a_leaf_through_cast_and_set_data():
     net = _dense()
     w = net.weight
     w.cast("bfloat16")
-    assert w.data().dtype == torch.bfloat16 and w.data().is_leaf
-    assert w.data().requires_grad and w.grad().dtype == torch.bfloat16
+    assert w._tensor().dtype == torch.bfloat16 and w._tensor().is_leaf
+    assert w._tensor().requires_grad
+    assert w._tensor().grad.dtype == torch.bfloat16
     src = torch.randn(3, 4)
     w.set_data(src)
-    assert w.data().is_leaf and w.data().requires_grad
+    assert w._tensor().is_leaf and w._tensor().requires_grad
     with torch.no_grad():
-        w.data().add_(1.0)  # the optimizer updates in place
-    assert not torch.equal(src.to(torch.bfloat16), w.data())  # no aliasing
+        w._tensor().add_(1.0)  # the optimizer updates in place
+    assert not torch.equal(src.to(torch.bfloat16), w._tensor())  # no aliasing
 
 
 # ---------------------------------------------------------- Dropout
@@ -226,14 +227,14 @@ def test_trainer_skips_null_params_and_sets_learning_rate():
     net.bias.grad_req = "null"
     trainer = gluon.Trainer(net.collect_params(), "adam",
                             {"learning_rate": 0.1})
-    bias = net.bias.data().clone()
-    weight = net.weight.data().detach().clone()
+    bias = net.bias._tensor().clone()
+    weight = net.weight._tensor().detach().clone()
     with autograd.record():
         loss = net(torch.randn(4, 4)).sum()
     autograd.backward(loss)
     trainer.step(4)
-    assert torch.equal(net.bias.data(), bias)
-    assert not torch.equal(net.weight.data(), weight)
+    assert torch.equal(net.bias._tensor(), bias)
+    assert not torch.equal(net.weight._tensor(), weight)
     trainer.set_learning_rate(0.01)
     assert trainer.learning_rate == 0.01
 
@@ -279,7 +280,8 @@ def _port_step(model, trainer, batch):
         _, _, nsp, mlm = model(tok, tt, vl, mp)
         loss = mlm_loss(mlm, mlm_y) + nsp_loss(nsp, nsp_y)
     autograd.backward(loss)
-    grads = {p.name[len(model.prefix):]: p.grad().float().numpy().copy()
+    grads = {p.name[len(model.prefix):]:
+             p._tensor().grad.float().numpy().copy()
              for p in model.collect_params().values()}
     trainer.step(tok.shape[0])
     return loss.detach().float().numpy(), grads
@@ -369,9 +371,9 @@ def test_amp_training_with_dropout_gives_every_gradient():
     assert loss.dtype == torch.float32 and loss.shape == (2,)
     autograd.backward(loss)
     for p in model.collect_params().values():
-        assert p.grad().any(), p.name
-        assert bool(torch.isfinite(p.grad()).all()), p.name
-    assert model.encoder.ln.gamma.grad().dtype == torch.float32
+        assert p._tensor().grad.any(), p.name
+        assert bool(torch.isfinite(p._tensor().grad).all()), p.name
+    assert model.encoder.ln.gamma._tensor().grad.dtype == torch.float32
     unseen = sorted(set(range(SMALL_BERT["vocab_size"]))
                     - set(tok.flatten().tolist()))
-    assert model.word_embed.weight.grad()[unseen].any()
+    assert model.word_embed.weight._tensor().grad[unseen].any()

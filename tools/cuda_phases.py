@@ -26,7 +26,11 @@ built:
   ``phase_resnet_timing`` (the softmax-xent kernels at its (128, 1000)
   logits), ``phase_resnet_serve`` (bf16 and int8 ModelServers),
   ``phase_vision_zoo`` (the other families against the CPU) and the
-  ResNet-50 step's breakdown.
+  ResNet-50 step's breakdown;
+- ``nd``: ``phase_nd_train`` (GPT-2 small in MXNet's imperative idiom
+  beside the tensor path), ``phase_nd_ops`` (every ``nd`` op on the card
+  against the CPU; the kernel-backed ``nd`` ops' launches) and
+  ``phase_create_graph`` (second order on the card).
 
 The readings go to ``chiprun_out/cuda_phases.json``. ``--keep-going``
 prints a failed check and goes on (to read every number of a first run);
@@ -111,11 +115,16 @@ def run_vision(cs, dev):
     return out
 
 
+def run_nd(cs, dev):
+    return {"train": cs.phase_nd_train(dev), "ops": cs.phase_nd_ops(dev),
+            "create_graph": cs.phase_create_graph(dev)}
+
+
 GROUPS = {"kernels": run_kernels, "spec": run_spec,
           "gpt_train": run_gpt_train,
           "snapshot": lambda cs, dev: cs.phase_snapshot(dev),
           "serve_graph": run_serve_graph, "optim": run_optim,
-          "vision": run_vision}
+          "vision": run_vision, "nd": run_nd}
 
 
 def main(argv):
