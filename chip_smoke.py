@@ -230,6 +230,30 @@ Run from the root of a checkout on a machine with a CUDA card. It
    mobilenetv2_1.0, densenet121, inceptionv3, resnet18_v2 and
    resnet50_v1b forward and backward at batch 8 against the same weights
    on the CPU (``phase_vision_zoo``);
+12c. runs the rest of BASELINE.md's configs at ``bench.py``'s recipes
+   (``run_a11``): trains ``lstm_ptb`` (vocabulary 10000, tied, dropout
+   0.5, bf16, SGD lr 1.0, batch 32 x bptt 35; ``phase_lstm_train``:
+   finite losses, weights that move, exactly one softmax-xent launch each
+   way a step and no other kernel, one step against the plain versions
+   with planted faults (the LSTM's forget and input gates swapped, the
+   softmax-xent dx without each row's last 8 columns), the step's wall,
+   tokens/s, and the recurrence alone against cuDNN's bf16 ``nn.LSTM``);
+   runs the PTB evaluation idiom in fp32 (``phase_lstm_infer``: 4 chunks
+   of 35 tokens with the states carried, equal to one forward over 140
+   and to the CPU); trains ``ssd_512`` (20 classes, bf16, SGD momentum,
+   batch 32 at 512 x 512 with 8 boxes an image; ``phase_ssd_train``: 10
+   steps on one batch whose loss falls, no kernel launches, images/s,
+   peak memory; at batch 2 in fp32 one step against the CPU's) and
+   detects at batch 8 (``phase_ssd_detect``: the card's ``box_nms``
+   keeps the CPU's entries on the same decoded boxes; the 5456-step NMS
+   loop timed); trains ``transformer_base`` (vocabulary 32000, bf16, Adam,
+   batch 32 of 64 + 64 tokens; ``phase_nmt_train``: exactly 30 LayerNorm
+   launches each way and one softmax-xent each way a step, no flash, one
+   step against the plain versions with planted faults (LayerNorm gamma
+   1 % high, the softmax-xent dx without its last 8 columns)) and
+   translates (``phase_nmt_translate``: greedy at batch 8 over the fixed
+   cache equal to greedy by re-forward, bf16 and fp32, 12 LayerNorm
+   launches an encode and 18 a decode step, ms a token; beam 4);
 13. times each kernel (CUDA-graph replay) at the bert512 step's shapes
    against its plain version, its PyTorch library yardstick and its bound
    (the LayerNorm backward against aten's, also at the MLM head's rows;
@@ -245,8 +269,10 @@ Run from the root of a checkout on a machine with a CUDA card. It
    forward and backward at (8192, 768), the causal flash forward with the
    lse and backward at (8, 12, 1024, 64), softmax-xent forward and backward
    at (8192, 50257)), and the two softmax-xent kernels at ResNet-50's
-   (128, 1000) bf16 logits (``phase_resnet_timing``), each first held to
-   its plain version;
+   (128, 1000) bf16 logits (``phase_resnet_timing``), the LayerNorm
+   forward and backward at the NMT step's (2048, 512) and softmax-xent at
+   the LSTM's (1120, 10000) and the NMT's (2048, 32000) bf16 logits
+   (``phase_a11_timing``), each first held to its plain version;
 14. breaks one serving forward at the largest bucket down (host wall, the
     executor's whole dispatch, a new thread's first dispatches, kernel time
     by class from torch.profiler, hence the device's idle share), then one
@@ -259,15 +285,16 @@ Run from the root of a checkout on a machine with a CUDA card. It
     with NGramDraft, a 2-layer draft's round and tick, and a chunk tick,
     the ResNet-50 step (cuDNN's convolutions, BatchNorm, relu and the
     residual add, pooling, layout transforms, SGD's foreach, the
-    softmax-xent kernels), and times the bert512 step once more. The
-    profiler windows come last: after one, an eager step's host wall may
-    not return to what it was.
+    softmax-xent kernels), the LSTM, SSD-512 and NMT steps, and times the
+    bert512 step once more. The profiler windows come last: after one, an
+    eager step's host wall may not return to what it was.
 
 It prints the card's name and power limit and one JSON line of kernel
 records, and ends with ``{"ok": true, "device": {...}}``. Any failed phase
 ends the run with a nonzero exit. Without a CUDA device, or outside a
 checkout, it exits nonzero and prints no result.
 """
+import contextlib
 import json
 import os
 import shutil
@@ -6309,12 +6336,13 @@ def _vision_kernel_class(name):
     return "other"
 
 
-def phase_resnet_breakdown(step, n_prof=2):
-    """Where the ResNet-50 step's time goes, from one torch.profiler
-    window after the timed steps: kernel ms a step by class (cuDNN's
-    convolution forward, dgrad and wgrad, BatchNorm, relu and the residual
-    add, pooling, the optimizer's foreach, the softmax-xent kernels), the
-    profiled wall and the device's idle share, and the top kernels."""
+def phase_resnet_breakdown(step, n_prof=2, label="resnet50 train step"):
+    """Where a vision step's time goes (ResNet-50's unless ``label`` names
+    another), from one torch.profiler window after the timed steps: kernel
+    ms a step by class (cuDNN's convolution forward, dgrad and wgrad,
+    BatchNorm, relu and the residual add, pooling, the optimizer's
+    foreach, the softmax-xent kernels), the profiled wall and the device's
+    idle share, and the top kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -6343,9 +6371,9 @@ def phase_resnet_breakdown(step, n_prof=2):
     out = {"kernel_ms_per_step": by_class, "profiled_wall_ms_per_step": wall,
            "device_busy_ms_per_step": busy,
            "device_idle_share": 1.0 - busy / wall, "top": top[:15]}
-    print("resnet50 train step breakdown (torch.profiler, %d steps): kernel"
-          " ms a step by class %s; %.3f ms busy in %.3f ms of wall: device "
-          "idle %.1f%%" % (n_prof, {k: round(v, 3) for k, v in sorted(
+    print("%s breakdown (torch.profiler, %d steps): kernel ms a step by "
+          "class %s; %.3f ms busy in %.3f ms of wall: device idle %.1f%%"
+          % (label, n_prof, {k: round(v, 3) for k, v in sorted(
               by_class.items())}, busy, wall, 100 * out["device_idle_share"]),
           flush=True)
     for ms, n, cls, name in top[:15]:
@@ -6875,12 +6903,15 @@ def phase_nd_ops(dev):
     the card and on the CPU from the same seeded numpy inputs: outputs,
     input arrays after the call (the updates' in-place states) and
     gradients, at ``card_tol`` (ten times the CPU parity tolerance; TF32
-    off). Then the three ``nd`` ops that reach kernels, at a GPT-2 step's
-    sizes, must launch their forward and backward kernels and agree with
-    their plain versions on the card."""
+    off), and every op but the in-place ones leaves its inputs as they
+    were on the card (``assert_inputs_kept``). Then the three ``nd`` ops
+    that reach kernels, at a GPT-2 step's sizes, must launch their forward
+    and backward kernels and agree with their plain versions on the
+    card."""
     import torch
     import mxnet_tpu_torch as mx
-    from tools.nd_op_cases import CASES, assert_same, card_tol, run_case
+    from tools.nd_op_cases import (CASES, assert_inputs_kept, assert_same,
+                                   card_tol, run_case)
 
     t0 = time.perf_counter()
     ctx = mx.context.context_from_device(dev)
@@ -6896,6 +6927,7 @@ def phase_nd_ops(dev):
             for g, r, what in zip(got, ref, ("output", "input after",
                                              "grad")):
                 assert_same(g, r, card_tol(case), "%s %s" % (case.id, what))
+            assert_inputs_kept(case, got[1])
         except Exception as e:  # every case is read before the check
             failures.append("%s: %s" % (case.id, str(e).splitlines()[0]
                                         if str(e) else type(e).__name__))
@@ -7084,6 +7116,1009 @@ def phase_create_graph(dev):
             "planted_rel_l2": planted}
 
 
+# ------------------------------------------------ A.11: LSTM PTB, SSD-512 and
+# Transformer NMT at bench.py's recipes
+LSTM_RECIPE = {"vocab": 10000, "batch": 32, "bptt": 35}
+NMT_RECIPE = {"vocab": 32000, "batch": 32, "src_len": 64, "tgt_len": 64,
+              "max_len": 128}
+SSD_RECIPE = {"batch": 32, "size": 512, "boxes": 8, "classes": 20}
+# BASELINE.md's MXNet figures on an A100, printed beside the card's as
+# context only
+A11_BASELINE = {"lstm": (45000.0, "tokens/s"), "ssd512": (230.0, "images/s"),
+                "nmt": (110000.0, "tokens/s")}
+A11_STEPS = 3          # the LSTM and NMT main paths
+A11_TIMED = 5
+SSD_STEPS = 10         # the SSD main path: steps on one fixed batch
+# kernel launches a step: the LSTM's loss is one softmax-xent over its
+# (1120, 10000) logits each way; the NMT's 12 encoder and 18 decoder
+# LayerNorms each way and one softmax-xent over (2048, 32000); attention
+# at 64 tokens is the dense path (under FLASH_MIN_LEN), so no flash
+LSTM_STEP_LAUNCHES = {"softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
+NMT_STEP_LAUNCHES = {"layernorm": 30, "layernorm_bwd": 30,
+                     "softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
+NMT_ENCODE_LN = 12
+NMT_DECODE_LN = 18     # 3 a decoder layer, each cached decode step
+# a step with the kernels against the same step with the plain versions:
+# GPT-2's limits (the loss STEP_LOSS_TOL, each gradient 2e-2 relative L2
+# as BERT's, the worst row 0.3)
+A11_GRAD_TOL = STEP_GRAD_TOL
+A11_ROW_TOL = GPT_STEP_ROW_TOL
+# the LSTM evaluation idiom in fp32: 4 chunks of bptt tokens with the
+# states carried against one forward over the 140 (GEMMs of other heights
+# may sum in other orders), and the card against the CPU
+LSTM_INFER_CHUNKS = 4
+LSTM_CHUNKED_TOL = 1e-5
+LSTM_CPU_TOL = 1e-4
+# SSD at batch 2 in fp32, the card against the CPU (the zoo's limits)
+SSD_CPU_BATCH = 2
+SSD_CPU_LOSS_TOL = 1e-3
+SSD_CPU_GRAD_TOL = 2e-2
+SSD_DETECT_BATCH = 8
+NMS_IOU_EDGE = 1e-6
+NMT_TRANSLATE = {"batch": 8, "max_len": 64, "beam": 4}
+# fp32 greedy decoding over the cache against re-forward: equal tokens;
+# a parting is allowed only where the re-forward's own top two logits are
+# closer than this (two fp32 sums in other orders), and is counted
+NMT_FP32_TIE = 1e-4
+
+
+class lstm_gates_swapped:
+    """A planted fault: within the block the fused LSTM step takes its
+    forget gate for the input gate and the input gate for the forget
+    gate."""
+
+    def __enter__(self):
+        from mxnet_tpu_torch.ops import rnn
+
+        self.real = real = rnn._lstm_step
+
+        def swapped(h, c, xw, whh_t, bhh):
+            import torch
+
+            i, f, g, o = xw.chunk(4, dim=-1)
+            xs = torch.cat([f, i, g, o], dim=-1)
+            w = whh_t.chunk(4, dim=-1)
+            b = bhh.chunk(4, dim=-1)
+            return real(h, c, xs, torch.cat([w[1], w[0], w[2], w[3]], -1),
+                        torch.cat([b[1], b[0], b[2], b[3]], -1))
+
+        rnn._lstm_step = swapped
+        return self
+
+    def __exit__(self, *exc):
+        from mxnet_tpu_torch.ops import rnn
+
+        rnn._lstm_step = self.real
+
+
+# faults planted into a plain-version step: (wrappers replaced, a patch of
+# the model code); the limits must catch each, and pass the plain step run
+# again. At vocabularies of 10000 and 32000 bf16 every logits row is whole
+# 16-byte vectors, so the unaligned-tail fault would change nothing: the
+# last 8 columns of dx are dropped instead
+_XENT_LAST_COLUMNS = ({"softmax_xent_bwd": xent_dx_last_columns_dropped},
+                      contextlib.nullcontext)
+LSTM_FAULTS = {
+    "LSTM forget and input gates swapped": ({}, lstm_gates_swapped),
+    "softmax-xent dx drops each row's last 8 columns": _XENT_LAST_COLUMNS,
+    "none (the plain step again)": ({}, contextlib.nullcontext),
+}
+NMT_FAULTS = {
+    "LayerNorm gamma 1% high": ({"fused_layernorm": layernorm_gamma_high},
+                                contextlib.nullcontext),
+    "softmax-xent dx drops each row's last 8 columns": _XENT_LAST_COLUMNS,
+    "none (the plain step again)": ({}, contextlib.nullcontext),
+}
+
+
+class LMTrainStep:
+    """A language-model step of ``bench.py``'s ``lstm`` or ``nmt`` recipe
+    through the port's entry points: the model from the seed in bf16 via
+    amp, ``autograd.record``, the mean of ``F.softmax_xent_rows`` over the
+    logits (bench.py's ``_xent_mean``), ``autograd.backward`` and
+    ``gluon.Trainer`` with fp32 masters, on one batch from the seed.
+    Dropout draws from ``mxnet_tpu_torch.random``'s generator of the
+    card."""
+
+    timed = TrainStep.timed
+
+    def __init__(self, dev, kind, dtype="bfloat16"):
+        import torch
+        from mxnet_tpu_torch import amp, gluon
+        from mxnet_tpu_torch.models.lstm_lm import lstm_ptb
+        from mxnet_tpu_torch.models.transformer import transformer_base
+
+        self.kind = kind
+        rng = np.random.default_rng(SEED)
+        if kind == "lstm":
+            r = LSTM_RECIPE
+            self.model = lstm_ptb(vocab_size=r["vocab"], tie_weights=True,
+                                  dropout=0.5)
+            shape = (r["bptt"], r["batch"])
+            self.inputs = [rng.integers(0, r["vocab"], shape)]
+            self.labels = rng.integers(0, r["vocab"], shape)
+            opt, kw = "sgd", {"learning_rate": 1.0}
+        else:
+            r = NMT_RECIPE
+            self.model = transformer_base(r["vocab"], r["vocab"],
+                                          max_len=r["max_len"], dropout=0.1)
+            self.inputs = [rng.integers(4, r["vocab"], (r["batch"], n))
+                           for n in (r["src_len"], r["tgt_len"])]
+            self.labels = rng.integers(4, r["vocab"],
+                                       (r["batch"], r["tgt_len"]))
+            opt, kw = "adam", {"learning_rate": 1e-4}
+        self.model.initialize(
+            device=dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED))
+        if dtype == "bfloat16":
+            amp.convert_hybrid_block(self.model, "bfloat16")
+            kw["multi_precision"] = True
+        self.params = [p for p in self.model.collect_params().values()
+                       if p.grad_req != "null"]
+        self.trainer = gluon.Trainer(self.model.collect_params(), opt, kw)
+        self.inputs = [torch.from_numpy(a.astype(np.int32)).to(dev)
+                       for a in self.inputs]
+        self.labels = torch.from_numpy(self.labels.astype(np.int32)).to(dev)
+        self.tokens = self.labels.numel()
+
+    def __call__(self, update=True):
+        """One step; returns the loss (1,)."""
+        from mxnet_tpu_torch import autograd
+        from mxnet_tpu_torch.ops import F
+
+        with autograd.record():
+            loss = F.softmax_xent_rows(self.model(*self.inputs),
+                                       self.labels).mean()
+        autograd.backward(loss)
+        if update:
+            self.trainer.step(1)
+        return loss.detach().reshape(1)
+
+
+def step_against_plain(step, faults, what, hold=True):
+    """One step with the kernels against the same step with the plain
+    versions (no kernel may launch in it), from the same weights and
+    dropout draws: the loss, each gradient's and its worst row's relative
+    L2 (the attention key biases left out); then the plain step with each
+    of ``faults``, which the limits must catch (and pass the plain step
+    run again). With ``hold=False`` the readings are printed and returned
+    and nothing is checked (``faults`` may then name kernels kept in the
+    plain step, to read each one's share). Returns (reading, the faults'
+    readings)."""
+    import torch
+    from mxnet_tpu_torch import random as mx_random
+
+    mx_random.seed(SEED)
+    loss_k = step(update=False).float()
+    grads_k = _grads(step.params)
+    for p, gk in zip(step.params, grads_k):
+        check(bool(torch.isfinite(gk).all()), "%s %s: non-finite grad"
+              % (what, p.name))
+    mx_random.seed(SEED)
+    reset_counters()
+    with plain_versions():
+        loss_p = step(update=False).float()
+    check(not any(read_counters().values()),
+          "the plain-version %s step launched a kernel: %s"
+          % (what, read_counters()))
+    grads_p = _grads(step.params)
+
+    # the attention key biases' gradients are 0 up to rounding (a softmax
+    # does not move under a shift of its logits), so their relative L2 is
+    # noise over noise: they are left out
+    held_ = [i for i, p in enumerate(step.params)
+             if not p.name.endswith("key_bias")]
+    params = [step.params[i] for i in held_]
+
+    def reading(loss, grads):
+        grads = [grads[i] for i in held_]
+        ref = [grads_p[i] for i in held_]
+        return {"loss_err": float((loss.mean() - loss_p.mean()).abs()),
+                "worst_grad_rel_l2": [[r, n] for r, n in grad_rel_l2(
+                    params, grads, ref)[:3]],
+                "worst_row_rel_l2": [[r, n] for r, n in grad_row_rel_l2(
+                    params, grads, ref)[:3]],
+                "held_params": len(params)}
+
+    def within(r):
+        return (r["loss_err"] <= STEP_LOSS_TOL
+                and r["worst_grad_rel_l2"][0][0] <= A11_GRAD_TOL
+                and r["worst_row_rel_l2"][0][0] <= A11_ROW_TOL)
+
+    def show(r):
+        return ("loss |diff| %.3g, worst gradient relative L2 %s, worst row "
+                "%s" % (r["loss_err"], ["%.3g %s" % tuple(x) for x in
+                                        r["worst_grad_rel_l2"]],
+                        ["%.3g %s" % tuple(x) for x in
+                         r["worst_row_rel_l2"]]))
+
+    honest = reading(loss_k, grads_k)
+    honest["loss"] = [float(loss_k.mean()), float(loss_p.mean())]
+    del grads_k
+    print("%s step with kernels vs plain versions: %s (limits %g, %g, %g%s)"
+          % (what, show(honest), STEP_LOSS_TOL, A11_GRAD_TOL, A11_ROW_TOL,
+             "" if hold else "; a reading, not held"), flush=True)
+    out = {}
+    check(within(honest) or not hold,
+          "%s step disagrees with the plain versions: %s" % (what, honest))
+    for name, (override, patch) in faults.items():
+        mx_random.seed(SEED)
+        with plain_versions(**override), patch():
+            loss_f = step(update=False).float()
+        out[name] = reading(loss_f, _grads(step.params))
+        out[name]["caught"] = not within(out[name])
+        planted = bool(override) or patch is not contextlib.nullcontext
+        print("%s step, %s %r vs plain versions: %s; outside the limits %s"
+              % (what, "planted fault" if hold else "with", name,
+                 show(out[name]), out[name]["caught"]), flush=True)
+        check(out[name]["caught"] == planted or not hold,
+              "the %s step's limits %s %r"
+              % (what, "miss the planted fault" if planted else "refuse",
+                 name))
+    return honest, out
+
+
+def lm_main_path(step, what, want):
+    """``A11_STEPS`` steps with every counter at 0 just before them:
+    finite losses, weights that move, the launches ``want`` a step and no
+    other kernel. Returns (losses, launches)."""
+    import torch
+    from mxnet_tpu_torch import random as mx_random
+
+    watch = [step.params[0], step.params[-1]]
+    before = [p._tensor().detach().clone() for p in watch]
+    mx_random.seed(SEED)
+    reset_counters()
+    losses = [float(step().mean()) for _ in range(A11_STEPS)]
+    torch.cuda.synchronize()
+    launches = read_counters()
+    print("%s train losses %s; kernel launches in %d steps: %s"
+          % (what, ["%.4f" % x for x in losses], A11_STEPS,
+             {k: v for k, v in launches.items() if v}), flush=True)
+    check(all(np.isfinite(losses)), "non-finite %s training loss" % what)
+    for p, b in zip(watch, before):
+        check(not torch.equal(p._tensor(), b), "%s: %s did not move"
+              % (what, p.name))
+    for name, n in launches.items():
+        check(n == want.get(name, 0) * A11_STEPS,
+              "%s %s launches %d != %d x %d steps"
+              % (what, name, n, want.get(name, 0), A11_STEPS))
+    return losses, launches
+
+
+def lm_step_timing(step, what, tokens, baseline):
+    """The step's median wall over ``A11_TIMED`` steps by CUDA events and
+    by the host, tokens/s, peak memory, beside BASELINE.md's A100
+    figure."""
+    import torch
+
+    step()
+    dev_ms, host_ms = device_step_ms(step, A11_TIMED)
+    out = {"step_device_ms_median": dev_ms, "step_wall_ms_median": host_ms,
+           "tokens_per_s": tokens / host_ms * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "baseline_a100": baseline}
+    print("%s train step: median %.3f ms by CUDA events, %.3f ms host wall "
+          "over %d steps; %.1f tokens/s (BASELINE.md's MXNet on an A100: "
+          "%g %s, context only); peak memory %.2f GB"
+          % (what, dev_ms, host_ms, A11_TIMED, out["tokens_per_s"],
+             baseline[0], baseline[1], out["peak_memory_gb"]), flush=True)
+    return out
+
+
+def phase_lstm_train(dev):
+    """``bench.py``'s ``lstm`` recipe: ``lstm_ptb(10000, tie_weights=True,
+    dropout=0.5)`` in bf16, SGD lr 1.0 with fp32 masters, batch 32 x bptt
+    35: the main path (exact launches), one step against the plain
+    versions with planted faults, the step's wall, and the recurrence
+    alone (the port's ``F.RNN``) against cuDNN's bf16 ``nn.LSTM`` at the
+    same shapes, forward and forward + backward."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    step = LMTrainStep(dev, "lstm")
+    print("lstm train step: %d parameters, batch %d x bptt %d, vocab %d; "
+          "set-up %.2f s" % (sum(p._tensor().numel() for p in step.params),
+                             LSTM_RECIPE["batch"], LSTM_RECIPE["bptt"],
+                             LSTM_RECIPE["vocab"],
+                             time.perf_counter() - t0), flush=True)
+    losses, launches = lm_main_path(step, "lstm", LSTM_STEP_LAUNCHES)
+    honest, faults = step_against_plain(step, LSTM_FAULTS, "lstm")
+    out = {"recipe": dict(LSTM_RECIPE, hidden=650, layers=2, dropout=0.5,
+                          tied=True, optimizer="sgd lr 1.0"),
+           "losses": losses, "launches": launches,
+           "steps_counted": A11_STEPS, "vs_plain": honest,
+           "planted_faults": faults}
+    out.update(lm_step_timing(step, "lstm", step.tokens,
+                              A11_BASELINE["lstm"]))
+    out["recurrence"] = lstm_recurrence_timing(dev, step.model)
+    return step, out
+
+
+def lstm_recurrence_timing(dev, model):
+    """The port's fused LSTM (``F.RNN``, the step's two layers in bf16
+    with fp32 c0) against cuDNN's bf16 ``nn.LSTM`` at (35, 32, 650) x 2
+    layers: median ms of 5 calls by CUDA events, forward and forward +
+    backward (every call eager: the port's recurrence is a loop of
+    launches). cuDNN rounds c to bf16 each step and is not the port's
+    function: a yardstick only."""
+    import torch
+    from mxnet_tpu_torch.ops import F
+
+    T, N, H = LSTM_RECIPE["bptt"], LSTM_RECIPE["batch"], model._num_hidden
+    L = model.rnn._num_layers
+    g = torch.Generator(device=dev).manual_seed(SEED + 51)
+    x = torch.randn(T, N, H, device=dev, generator=g).to(torch.bfloat16)
+    dout = torch.randn(T, N, H, device=dev, generator=g).to(torch.bfloat16)
+    weights = [getattr(model.rnn, n)._tensor().detach().clone()
+               .requires_grad_() for n in model.rnn._weight_names()]
+    zeros = torch.zeros(L, N, H, device=dev)
+    xg = x.clone().requires_grad_()
+
+    def port_fwd():
+        with torch.no_grad():
+            return F.RNN(x, zeros, zeros, *weights, num_layers=L)[0]
+
+    def port_both():
+        out = F.RNN(xg, zeros, zeros, *weights, num_layers=L)[0]
+        return torch.autograd.grad(out, [xg] + weights, dout)
+
+    lstm = torch.nn.LSTM(H, H, L).to(device=dev, dtype=torch.bfloat16)
+
+    def cudnn_fwd():
+        with torch.no_grad():
+            return lstm(x)[0]
+
+    def cudnn_both():
+        out = lstm(xg)[0]
+        return torch.autograd.grad(out, [xg] + list(lstm.parameters()),
+                                   dout)
+
+    def events(fn, n=5):
+        fn()
+        ts = []
+        for _ in range(n):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            torch.cuda.synchronize()
+            ts.append(s.elapsed_time(e))
+        return float(np.median(ts))
+
+    out = {"shape": [T, N, H], "layers": L,
+           "port_fwd_ms": events(port_fwd), "port_fwd_bwd_ms":
+           events(port_both), "cudnn_fwd_ms": events(cudnn_fwd),
+           "cudnn_fwd_bwd_ms": events(cudnn_both)}
+    print("lstm recurrence at %s x %d layers bf16: the port's F.RNN %.3f "
+          "ms forward, %.3f ms forward + backward; cuDNN nn.LSTM %.3f ms, "
+          "%.3f ms (CUDA events, eager)" % (
+              out["shape"], L, out["port_fwd_ms"], out["port_fwd_bwd_ms"],
+              out["cudnn_fwd_ms"], out["cudnn_fwd_bwd_ms"]), flush=True)
+    return out
+
+
+def phase_lstm_infer(dev):
+    """The PTB evaluation idiom in predict mode, fp32: ``begin_state``,
+    then ``LSTM_INFER_CHUNKS`` consecutive chunks of bptt tokens with the
+    states carried, against one forward over the whole sequence on the
+    card, and against the same chunks on the CPU; the chunked pass's
+    tokens/s."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models.lstm_lm import lstm_ptb
+
+    r = LSTM_RECIPE
+    T, N = r["bptt"], r["batch"]
+    model = lstm_ptb(vocab_size=r["vocab"], tie_weights=True, dropout=0.5)
+    model.initialize(device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 3))
+    tok = np.random.default_rng(SEED + 3).integers(
+        0, r["vocab"], (LSTM_INFER_CHUNKS * T, N)).astype(np.int32)
+
+    def chunked(m, device):
+        x = torch.from_numpy(tok).to(device)
+        states = m.begin_state(N, ctx=mx.context.context_from_device(
+            torch.device(device)))
+        outs = []
+        for i in range(LSTM_INFER_CHUNKS):
+            y, states = m(x[i * T:(i + 1) * T], states)
+            outs.append(y._data if isinstance(y, mx.NDArray) else y)
+        return torch.cat(outs)
+
+    reset_counters()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        got = chunked(model, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = chunked(model, dev)
+        torch.cuda.synchronize()
+        wall = min(wall, time.perf_counter() - t0)
+        whole = model(torch.from_numpy(tok).to(dev))
+    launches = read_counters()
+    cpu = lstm_ptb(vocab_size=r["vocab"], tie_weights=True, dropout=0.5)
+    cpu.initialize(device="cpu")
+    _copy_to_cpu(model, cpu)
+    with torch.no_grad():
+        ref = chunked(cpu, "cpu")
+    out = {"chunks": LSTM_INFER_CHUNKS, "tokens": int(tok.size),
+           "chunked_vs_whole_rel_l2": _rel(got, whole),
+           "card_vs_cpu_rel_l2": _rel(got.cpu(), ref),
+           "launches": launches, "wall_ms": wall * 1e3,
+           "tokens_per_s": tok.size / wall}
+    print("lstm evaluation, %d chunks of %d x %d fp32 with the states "
+          "carried: against one forward over %d tokens relative L2 %.3g "
+          "(limit %g), against the CPU %.3g (limit %g); %.1f ms, %.1f "
+          "tokens/s" % (LSTM_INFER_CHUNKS, T, N, LSTM_INFER_CHUNKS * T,
+                        out["chunked_vs_whole_rel_l2"], LSTM_CHUNKED_TOL,
+                        out["card_vs_cpu_rel_l2"], LSTM_CPU_TOL,
+                        out["wall_ms"], out["tokens_per_s"]), flush=True)
+    check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (
+        LSTM_INFER_CHUNKS * T, N, r["vocab"]), "lstm evaluation output")
+    check(out["chunked_vs_whole_rel_l2"] <= LSTM_CHUNKED_TOL,
+          "lstm chunked evaluation differs from one forward")
+    check(out["card_vs_cpu_rel_l2"] <= LSTM_CPU_TOL,
+          "lstm evaluation on the card differs from the CPU")
+    check(not any(launches.values()), "lstm evaluation launched %s"
+          % launches)
+    return out
+
+
+class SSDTrainStep:
+    """``bench.py``'s ``ssd512`` recipe through the port's entry points:
+    ``ssd_512(num_classes=20)`` from the seed, one forward of a zero
+    (1, 3, 512, 512) batch to shape the deferred parameters, amp bf16 (or
+    fp32), ``SSDLoss(20)`` on the fp32 predictions, the mean over the
+    images, SGD lr 1e-3 momentum 0.9 wd 5e-4 with fp32 masters, on one
+    fixed batch of ``batch`` images of 512 x 512 with 8 boxes each."""
+
+    timed = TrainStep.timed
+
+    def __init__(self, dev, batch=SSD_RECIPE["batch"], dtype="bfloat16"):
+        import torch
+        from mxnet_tpu_torch import amp, gluon
+        from mxnet_tpu_torch.models.ssd import SSDLoss, ssd_512
+
+        S, C = SSD_RECIPE["size"], SSD_RECIPE["classes"]
+        self.net = ssd_512(num_classes=C)
+        self.net.initialize(device=dev, generator=torch.Generator(
+            device=dev).manual_seed(SEED))
+        with torch.no_grad():
+            self.net(torch.zeros(1, 3, S, S, device=dev))
+        self.dtype = getattr(torch, dtype)
+        if dtype == "bfloat16":
+            amp.convert_hybrid_block(self.net, "bfloat16")
+        self.loss_blk = SSDLoss(C)
+        self.params = [p for p in self.net.collect_params().values()
+                       if p.grad_req != "null"]
+        self.trainer = gluon.Trainer(
+            self.net.collect_params(), "sgd",
+            {"learning_rate": 1e-3, "momentum": 0.9, "wd": 5e-4,
+             "multi_precision": dtype == "bfloat16"})
+        rng = np.random.default_rng(SEED)
+        B, M = batch, SSD_RECIPE["boxes"]
+        x = rng.normal(size=(B, 3, S, S)).astype(np.float32)
+        cls = rng.integers(0, C, (B, M, 1)).astype(np.float32)
+        lo = rng.uniform(0.0, 0.7, (B, M, 2)).astype(np.float32)
+        wh = rng.uniform(0.1, 0.3, (B, M, 2)).astype(np.float32)
+        labels = np.concatenate([cls, lo, np.minimum(lo + wh, 1.0)], -1)
+        self.x = torch.from_numpy(x).to(dev)
+        self.labels = torch.from_numpy(labels).to(dev)
+
+    def loss(self):
+        cls_preds, box_preds, anchors = self.net(self.x.to(self.dtype))
+        return self.loss_blk(cls_preds.float(), box_preds.float(),
+                             self.labels, anchors).mean()
+
+    def __call__(self, update=True):
+        from mxnet_tpu_torch import autograd
+
+        with autograd.record():
+            loss = self.loss()
+        autograd.backward(loss)
+        if update:
+            self.trainer.step(1)
+        return loss.detach().reshape(1)
+
+
+def phase_ssd_train(dev):
+    """``bench.py``'s ``ssd512`` recipe on the card: ``SSD_STEPS`` steps on
+    one fixed batch of 32 (the loss falls, no kernel launches), the step's
+    wall by CUDA events and by the host, images/s and peak memory; then at
+    batch 2 in fp32 one step on the card against the same step on the CPU
+    from the same weights: the loss and every gradient."""
+    import torch
+    from mxnet_tpu_torch import random as mx_random
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    step = SSDTrainStep(dev)
+    B = SSD_RECIPE["batch"]
+    torch.cuda.synchronize()
+    print("ssd512 train step: %d trained parameters, batch %d at 512x512, "
+          "%d boxes an image, bf16; set-up %.2f s"
+          % (sum(p._tensor().numel() for p in step.params), B,
+             SSD_RECIPE["boxes"], time.perf_counter() - t0), flush=True)
+    # a box head whose scale matches no box has no gradient but its weight
+    # decay: watch the base and the first class head
+    watch = [step.params[0], step.net.cls_heads[0].weight]
+    before = [p._tensor().detach().clone() for p in watch]
+    mx_random.seed(SEED)
+    reset_counters()
+    t0 = time.perf_counter()
+    losses = [float(step().mean()) for _ in range(SSD_STEPS)]
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = read_counters()
+    print("ssd512 losses over %d steps on one batch: %s; kernel launches: "
+          "%s (%.2f s)" % (SSD_STEPS, ["%.4f" % v for v in losses],
+                           {k: v for k, v in launches.items() if v},
+                           main_s), flush=True)
+    check(all(np.isfinite(losses)), "non-finite ssd512 loss")
+    check(losses[-1] < losses[0], "the ssd512 loss did not fall: %s"
+          % losses)
+    for p, b in zip(watch, before):
+        check(not torch.equal(p._tensor(), b), "ssd512: %s did not move"
+              % p.name)
+    check(not any(launches.values()), "the ssd512 step launched %s"
+          % launches)
+    dev_ms, host_ms = device_step_ms(step, A11_TIMED)
+    out = {"recipe": dict(SSD_RECIPE, optimizer="sgd lr 1e-3 momentum 0.9 "
+                          "wd 5e-4"),
+           "losses": losses, "launches": launches, "steps_counted": SSD_STEPS,
+           "step_device_ms_median": dev_ms, "step_wall_ms_median": host_ms,
+           "images_per_s": B / host_ms * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "baseline_a100": A11_BASELINE["ssd512"]}
+    print("ssd512 train step: median %.3f ms by CUDA events, %.3f ms host "
+          "wall over %d steps; %.1f images/s (BASELINE.md's MXNet on an "
+          "A100: %g images/s, context only); peak memory %.2f GB"
+          % (dev_ms, host_ms, A11_TIMED, out["images_per_s"],
+             A11_BASELINE["ssd512"][0], out["peak_memory_gb"]), flush=True)
+    out["vs_cpu"] = ssd_against_cpu(dev)
+    return step, out
+
+
+def ssd_against_cpu(dev):
+    """One fp32 SSD step at batch 2 on the card and on the CPU from the
+    same weights and images: the loss within ``SSD_CPU_LOSS_TOL`` and
+    every gradient within ``SSD_CPU_GRAD_TOL`` relative L2."""
+    import torch
+
+    card = SSDTrainStep(dev, batch=SSD_CPU_BATCH, dtype="float32")
+    cpu = SSDTrainStep(torch.device("cpu"), batch=SSD_CPU_BATCH,
+                       dtype="float32")
+    _copy_to_cpu(card.net, cpu.net)
+    loss_c = float(card(update=False).mean())
+    t0 = time.perf_counter()
+    loss_r = float(cpu(update=False).mean())
+    cpu_s = time.perf_counter() - t0
+    rel = grad_rel_l2(card.params, [g.cpu() for g in _grads(card.params)],
+                      _grads(cpu.params))
+    out = {"batch": SSD_CPU_BATCH, "loss": [loss_c, loss_r],
+           "loss_err": abs(loss_c - loss_r),
+           "worst_grad_rel_l2": [list(r) for r in rel[:3]],
+           "cpu_step_s": cpu_s}
+    print("ssd512 fp32 batch %d, card against CPU: loss %.6f vs %.6f "
+          "(|diff| %.3g, limit %g); worst gradient relative L2 %s (limit "
+          "%g); the CPU step %.1f s" % (
+              SSD_CPU_BATCH, loss_c, loss_r, out["loss_err"],
+              SSD_CPU_LOSS_TOL, ["%.3g %s" % tuple(r) for r in rel[:3]],
+              SSD_CPU_GRAD_TOL, cpu_s), flush=True)
+    check(out["loss_err"] <= SSD_CPU_LOSS_TOL,
+          "ssd512 loss on the card differs from the CPU")
+    check(rel[0][0] <= SSD_CPU_GRAD_TOL,
+          "ssd512 gradients on the card differ from the CPU")
+    return out
+
+
+def nms_deciding_iou(det, keep_ref, i, thresh):
+    """The largest IoU between entry ``i`` and the entries of its class
+    that score above it and that the reference keeps: what decides
+    whether ``i`` is suppressed."""
+    import torch
+    from mxnet_tpu_torch.ops.detection import _iou_corner
+
+    s = det[:, 1]
+    above = keep_ref & (det[:, 0] == det[i, 0]) & (
+        (s > s[i]) | ((s == s[i]) & (torch.arange(len(s)) < i)))
+    if not bool(above.any()):
+        return None
+    return float(_iou_corner(det[i:i + 1, 2:6], det[above, 2:6]).max())
+
+
+def phase_ssd_detect(dev, net):
+    """``detect`` at batch 8 on the trained SSD: the detections' shape and
+    values; on the same decoded boxes and scores the card's ``box_nms``
+    keeps the same entries as the CPU's, apart from entries whose
+    deciding IoU lies within ``NMS_IOU_EDGE`` of the threshold (counted);
+    the NMS loop's time by CUDA events and ``detect``'s wall."""
+    import torch
+    from mxnet_tpu_torch.ops import F
+    from mxnet_tpu_torch.ops import detection
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 61)
+    S, B = SSD_RECIPE["size"], SSD_DETECT_BATCH
+    x = torch.randn(B, 3, S, S, device=dev, generator=g)
+    thresh = 0.45
+    with torch.no_grad():
+        cls_preds, box_preds, anchors = net(x.to(torch.bfloat16))
+        prob = F.softmax(cls_preds, axis=-1).transpose(1, 2)
+        decoded = detection.decode_detections(prob, box_preds, anchors,
+                                              threshold=0.01)
+    n = anchors.shape[1]
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    det = net.detect(x.to(torch.bfloat16), nms_thresh=thresh,
+                     score_thresh=0.01, device=dev)
+    torch.cuda.synchronize()
+    detect_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counters()
+    check(tuple(det.shape) == (B, n, 6), "detect shape %s"
+          % (tuple(det.shape),))
+    check(bool(torch.isfinite(det).all()), "non-finite detections")
+    kept_card = detection.box_nms(decoded, overlap_thresh=thresh,
+                                  valid_thresh=0.01)[..., 1] > -1
+    cpu_dec = decoded.float().cpu()
+    kept_cpu = detection.box_nms(cpu_dec, overlap_thresh=thresh,
+                                 valid_thresh=0.01)[..., 1] > -1
+    kept_card = kept_card.cpu()
+    differ = (kept_card != kept_cpu).nonzero().tolist()
+    edge, far = 0, []
+    for b, i in differ:
+        iou = nms_deciding_iou(cpu_dec[b], kept_cpu[b], i, thresh)
+        if iou is not None and abs(iou - thresh) <= NMS_IOU_EDGE:
+            edge += 1
+        else:
+            far.append((b, i, iou))
+
+    def nms():
+        return detection.box_nms(decoded, overlap_thresh=thresh,
+                                 valid_thresh=0.01)
+
+    nms()
+    ts = []
+    for _ in range(3):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        nms()
+        e.record()
+        torch.cuda.synchronize()
+        ts.append(s.elapsed_time(e))
+    out = {"batch": B, "anchors": n, "kept": int(kept_card.sum()),
+           "valid": int((decoded[..., 1] > 0.01).sum()),
+           "differ_from_cpu": len(differ), "differ_at_edge": edge,
+           "nms_ms": float(np.median(ts)), "detect_wall_ms": detect_ms,
+           "launches": launches}
+    print("ssd512 detect at batch %d: %d of %d valid entries kept; card vs "
+          "CPU box_nms on the same boxes: %d entries differ, %d of them "
+          "with the deciding IoU within %g of %g; the NMS loop %.2f ms "
+          "(%d steps, CUDA events), detect %.1f ms host wall"
+          % (B, out["kept"], out["valid"], len(differ), edge, NMS_IOU_EDGE,
+             thresh, out["nms_ms"], n, detect_ms), flush=True)
+    check(not far, "card and CPU NMS keep other entries: %s" % far[:5])
+    check(not any(launches.values()), "detect launched %s" % launches)
+    check(out["kept"] > 0, "detect kept nothing")
+    return out
+
+
+def phase_nmt_train(dev):
+    """``bench.py``'s ``nmt`` recipe: ``transformer_base(32000, 32000,
+    max_len=128, dropout=0.1)`` in bf16, Adam lr 1e-4 with fp32 masters,
+    batch 32 of 64 + 64 tokens: the main path (exact launches: 30
+    LayerNorm each way, 1 + 1 softmax-xent, no flash), one bf16 step
+    against the plain versions (read), the same step in fp32 against the
+    plain versions with planted faults (held), the step's wall."""
+    import torch
+    from mxnet_tpu_torch.ops.cuda import layernorm as ln
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    step = LMTrainStep(dev, "nmt")
+    r = NMT_RECIPE
+    print("nmt train step: %d parameters, batch %d, %d + %d tokens, vocab "
+          "%d; set-up %.2f s" % (
+              sum(p._tensor().numel() for p in step.params), r["batch"],
+              r["src_len"], r["tgt_len"], r["vocab"],
+              time.perf_counter() - t0), flush=True)
+    losses, launches = lm_main_path(step, "nmt", NMT_STEP_LAUNCHES)
+    # in bf16 the step is read, not held: each of the 30 LayerNorms
+    # rounds its output to bf16 (the kernel's and the plain version's
+    # roundings part by an ulp here and there), and at the random start
+    # the attention's softmax backward cancels (near-uniform weights), so
+    # the query and key weights' gradients move 8-17% and rows of a ReLU
+    # FFN's weight far more. The plain step with one LayerNorm kernel kept
+    # reads each one's share (the forward's all of it, the backward's
+    # 1e-2). The same kernels in their fp32 forms are held at the same
+    # shapes
+    bf16, shares = step_against_plain(step, {
+        "the LayerNorm forward kernel": (
+            {"fused_layernorm": ln.fused_layernorm}, contextlib.nullcontext),
+        "the LayerNorm backward kernel": (
+            {"fused_layernorm_bwd": ln.fused_layernorm_bwd},
+            contextlib.nullcontext)}, "nmt bf16", hold=False)
+    bf16["one_kernel_kept"] = shares
+    fp32_step = LMTrainStep(dev, "nmt", dtype="float32")
+    honest, faults = step_against_plain(fp32_step, NMT_FAULTS, "nmt fp32")
+    del fp32_step
+    out = {"recipe": dict(r, units=512, layers="6+6", dropout=0.1,
+                          optimizer="adam lr 1e-4"),
+           "losses": losses, "launches": launches,
+           "steps_counted": A11_STEPS, "vs_plain": honest,
+           "vs_plain_bf16": bf16, "planted_faults": faults}
+    # tokens/s counts source and target tokens, as bench.py's nmt mode
+    out.update(lm_step_timing(step, "nmt", r["batch"] * (
+        r["src_len"] + r["tgt_len"]), A11_BASELINE["nmt"]))
+    return step, out
+
+
+def _greedy_parting(model, src, got, ref, tol, what):
+    """(rows compared, partings, their margins): each row of ``got`` (the
+    cached decode) equal to ``ref`` (re-forward) up to a step where the
+    re-forward's logit of its own token leads the cached token's by less
+    than ``tol``; that row is not compared after it."""
+    import torch
+
+    partings = []
+    n = min(got.shape[1], ref.shape[1])
+    for row in range(got.shape[0]):
+        a, b = got[row, :n].tolist(), ref[row, :n].tolist()
+        if a == b:
+            continue
+        i = next(k for k in range(n) if a[k] != b[k])
+        with torch.no_grad():
+            logits = model(src[row:row + 1], ref[row:row + 1, :i])[0, -1]
+        margin = float(logits[b[i]].float() - logits[a[i]].float())
+        partings.append(margin)
+        check(margin < tol, "%s row %d: token %d is %d, re-forward's %d "
+              "(margin %.3g >= %g)" % (what, row, i, a[i], b[i], margin,
+                                       tol))
+    return got.shape[0], partings
+
+
+def phase_nmt_translate(dev, model):
+    """``translate`` at batch 8, ``max_len`` 64, on the trained bf16 model
+    and on an fp32 one from the seed: greedy over the fixed cache equal to
+    greedy by re-forward (fp32: every token, partings only at an fp32 tie
+    under ``NMT_FP32_TIE``; bf16: up to a parting under
+    ``GREEDY_TIE_TOL``), exactly 12 LayerNorm launches for the encoder
+    and 18 a cached decode step, the time a token; ``beam=4`` on one
+    sentence."""
+    import torch
+    from mxnet_tpu_torch.models.transformer import transformer_base
+
+    r, tr = NMT_RECIPE, NMT_TRANSLATE
+    B, L = tr["batch"], tr["max_len"]
+    src = torch.from_numpy(np.random.default_rng(SEED + 7).integers(
+        4, r["vocab"], (B, r["src_len"])).astype(np.int32)).to(dev)
+    fp32 = transformer_base(r["vocab"], r["vocab"], max_len=r["max_len"],
+                            dropout=0.1)
+    fp32.initialize(device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 8))
+    out = {}
+    for label, m, tol in (("bf16", model, GREEDY_TIE_TOL),
+                          ("fp32", fp32, NMT_FP32_TIE)):
+        m.translate(src[:1], max_len=4, device=dev)  # warm
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        cached = m.translate(src, max_len=L, device=dev)
+        torch.cuda.synchronize()
+        cached_s = time.perf_counter() - t0
+        launches = read_counters()
+        steps = cached.shape[1] - 1
+        t0 = time.perf_counter()
+        ref = m.translate(src, max_len=L, use_cache=False, device=dev)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        rows, partings = _greedy_parting(m, src, cached, ref, tol,
+                                         "nmt %s greedy" % label)
+        res = {"tokens": [int(cached.shape[1]), int(ref.shape[1])],
+               "equal": bool(torch.equal(cached, ref)),
+               "partings": partings, "decode_steps": steps,
+               "launches": launches,
+               "cached_ms_per_token": cached_s * 1e3 / steps,
+               "reforward_ms_per_token": ref_s * 1e3 / max(
+                   ref.shape[1] - 1, 1)}
+        print("nmt %s translate batch %d, max_len %d: cached %s re-forward "
+              "(%d partings, margins %s, limit %g); %.3f ms a token cached, "
+              "%.3f ms by re-forward; launches %s" % (
+                  label, B, L, "equal to" if res["equal"] else "parts from",
+                  len(partings), ["%.3g" % p for p in partings], tol,
+                  res["cached_ms_per_token"],
+                  res["reforward_ms_per_token"],
+                  {k: v for k, v in launches.items() if v}), flush=True)
+        check(cached[:, 0].eq(2).all(), "translate does not start at bos")
+        want = {"layernorm": NMT_ENCODE_LN + NMT_DECODE_LN * steps}
+        for name, n in launches.items():
+            check(n == want.get(name, 0), "nmt %s translate %s launches %d "
+                  "!= %d" % (label, name, n, want.get(name, 0)))
+        out[label] = res
+    t0 = time.perf_counter()
+    beam = model.translate(src[:1], max_len=L, beam=tr["beam"],
+                           device=dev)
+    torch.cuda.synchronize()
+    out["beam"] = {"beam": tr["beam"], "tokens": int(beam.shape[1]),
+                   "wall_ms": (time.perf_counter() - t0) * 1e3}
+    print("nmt beam %d on one sentence: %d tokens in %.1f ms" % (
+        tr["beam"], beam.shape[1], out["beam"]["wall_ms"]), flush=True)
+    check(beam.shape[0] == 1 and 1 < beam.shape[1] <= L
+          and int(beam[0, 0]) == 2, "beam search output %s"
+          % (tuple(beam.shape),))
+    return out
+
+
+def phase_a11_timing(dev, records, lstm, nmt):
+    """The kernels at this slice's shapes, each held to its plain version
+    and timed against it, its library call and its bound, added to their
+    records under ``lstm_train`` / ``nmt_train`` with the path's launches
+    a step: LayerNorm forward and backward at the NMT step's (2048, 512)
+    bf16, softmax-xent forward and backward at the LSTM's (1120, 10000)
+    and the NMT's (2048, 32000) bf16 logits (dy = 1 / rows, the mean)."""
+    import torch
+    import torch.nn.functional as TF
+    from mxnet_tpu_torch.ops.cuda import layernorm as ln
+    from mxnet_tpu_torch.ops.cuda import softmax_xent as sx
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 71)
+    rec = {r["name"]: r for r in records}
+
+    def entry(tag, path, name, times, bounds, shape, reading, library):
+        t_ops, t_bytes = bounds
+        launches, steps = path["launches"], path["steps_counted"]
+        key = {"layernorm_fwd": "layernorm"}.get(name, name)
+        out = dict(zip(("ms", "plain_ms", "library_ms"), times),
+                   launches=launches[key],
+                   launches_per_step=launches[key] / steps, shape=shape,
+                   max_abs_err=reading["max_abs_err"], check=reading,
+                   bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   library=library)
+        rec[name][tag] = out
+        print("time %s %-17s at %s: kernel %.4f ms, plain %.4f ms, library "
+              "%.4f ms, bound %.4f ms (%s), %g launches a step"
+              % (tag, name, shape, out["ms"], out["plain_ms"],
+                 out["library_ms"], out["bound_ms"], out["bound_by"],
+                 out["launches_per_step"]), flush=True)
+
+    # LayerNorm at (2048, 512) bf16, eps 1e-5: C = 512 is a width no
+    # earlier path ran
+    R, C = NMT_RECIPE["batch"] * NMT_RECIPE["tgt_len"], 512
+    x = torch.randn(R, C, device=dev, generator=g).to(torch.bfloat16)
+    dy = torch.randn(R, C, device=dev, generator=g).to(torch.bfloat16)
+    gamma = torch.randn(C, device=dev, generator=g)
+    beta = torch.randn(C, device=dev, generator=g)
+    gb, bb = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+    what = "nmt layernorm (%d, %d) bf16" % (R, C)
+    fwd = held(ln.fused_layernorm(x, gamma, beta, 1e-5),
+               ln.layernorm_plain(x, gamma, beta, 1e-5), BF16_TOL, what)
+    entry("nmt_train", nmt, "layernorm_fwd", time_ms(
+        lambda: ln.fused_layernorm(x, gamma, beta, 1e-5),
+        lambda: ln.layernorm_plain(x, gamma, beta, 1e-5),
+        lambda: TF.layer_norm(x, (C,), gb, bb, 1e-5)),
+        _ln_bound(R, C, 2), [R, C], fwd, "F.layer_norm, bf16 gamma and "
+        "beta")
+    dx, dgamma, dbeta = ln.fused_layernorm_bwd(x, gamma, dy, 1e-5)
+    torch.cuda.synchronize()
+    ref = ln.layernorm_bwd_plain(x, gamma, dy, 1e-5)
+    mags = layernorm_bwd_magnitudes(x, gamma, dy, 1e-5)
+    bwd = {n: held(got, want, tol, what + " backward " + n, mag)
+           for n, got, want, tol, mag in (
+               ("dx", dx, ref[0], LN_BWD_DX_TOL["bfloat16"], mags[0]),
+               ("dgamma", dgamma, ref[1], LN_BWD_PARAM_TOL, mags[1]),
+               ("dbeta", dbeta, ref[2], LN_BWD_PARAM_TOL, mags[2]))}
+    bwd["max_abs_err"] = max(r["max_abs_err"] for r in bwd.values())
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [C], gb, bb, 1e-5)
+    entry("nmt_train", nmt, "layernorm_bwd", time_ms(
+        lambda: ln.fused_layernorm_bwd(x, gamma, dy, 1e-5),
+        lambda: ln.layernorm_bwd_plain(x, gamma, dy, 1e-5),
+        lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, x, [C], mean, rstd, gb, bb, [True, True, True])),
+        _ln_bwd_bound(R, C, 2), [R, C], bwd,
+        "aten native_layer_norm_backward, bf16 gamma, the forward's mean "
+        "and rstd given")
+    del x, dy, dx, dgamma, dbeta, ref, mags, mean, rstd
+
+    for tag, path, R, V in (
+            ("lstm_train", lstm, LSTM_RECIPE["batch"] * LSTM_RECIPE["bptt"],
+             LSTM_RECIPE["vocab"]),
+            ("nmt_train", nmt, NMT_RECIPE["batch"] * NMT_RECIPE["tgt_len"],
+             NMT_RECIPE["vocab"])):
+        x = (torch.randn(R, V, device=dev, generator=g) * 3).to(
+            torch.bfloat16)
+        labels = torch.randint(0, V, (R,), device=dev, generator=g,
+                               dtype=torch.int32)
+        labels[0] = V - 1
+        dy = torch.full((R,), 1.0 / R, device=dev)
+        what = "%s softmax-xent (%d, %d) bf16" % (tag, R, V)
+        loss, lse = sx.softmax_xent_fwd(x, labels)
+        torch.cuda.synchronize()
+        ref_loss, ref_lse = sx.softmax_xent_fwd_plain(x, labels)
+        fwd = held(loss, ref_loss, XENT_TOL, what + " loss")
+        fwd["lse"] = held(lse, ref_lse, XENT_TOL, what + " lse")
+        dx = sx.softmax_xent_bwd(x, labels, ref_lse, dy)
+        torch.cuda.synchronize()
+        bwd = held(dx, sx.softmax_xent_bwd_plain(x, labels, ref_lse, dy),
+                   XENT_DX_TOL["bfloat16"], what + " dx")
+        del loss, lse, ref_loss, dx
+        xf = x.float().requires_grad_()
+        lab64 = labels.long()
+
+        def lib_fwd():
+            return TF.cross_entropy(xf, lab64, reduction="none")
+
+        def lib_fwd_bwd():
+            return torch.autograd.grad(lib_fwd(), xf, dy)
+
+        ms, plain_ms, lib_ms, lib_both = time_ms(
+            lambda: sx.softmax_xent_fwd(x, labels),
+            lambda: sx.softmax_xent_fwd_plain(x, labels), lib_fwd,
+            lib_fwd_bwd)
+        bwd_ms, bwd_plain_ms = time_ms(
+            lambda: sx.softmax_xent_bwd(x, labels, ref_lse, dy),
+            lambda: sx.softmax_xent_bwd_plain(x, labels, ref_lse, dy))
+        ops = 5 * R * V
+        xbytes = R * V * x.element_size()
+        entry(tag, path, "softmax_xent_fwd", (ms, plain_ms, lib_ms),
+              (ops / PEAK_FP32, (xbytes + 3 * R * 4) / PEAK_BYTES), [R, V],
+              fwd, "F.cross_entropy(reduction='none') on fp32 logits")
+        entry(tag, path, "softmax_xent_bwd",
+              (bwd_ms, bwd_plain_ms, lib_both - lib_ms),
+              (ops / PEAK_FP32, (2 * xbytes + 3 * R * 4) / PEAK_BYTES),
+              [R, V], bwd, "backward of F.cross_entropy on fp32 logits "
+              "(forward + backward less forward)")
+        del x, xf, ref_lse
+    torch.cuda.empty_cache()
+
+
+def run_a11(dev):
+    """The six A.11 phases in order, each one's seconds: (the LSTM, SSD and
+    NMT steps for the breakdowns, the readings)."""
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    lstm_step, out["lstm_train"] = phase_lstm_train(dev)
+    seconds["phase_lstm_train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["lstm_infer"] = phase_lstm_infer(dev)
+    seconds["phase_lstm_infer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ssd_step, out["ssd_train"] = phase_ssd_train(dev)
+    seconds["phase_ssd_train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["ssd_detect"] = phase_ssd_detect(dev, ssd_step.net)
+    seconds["phase_ssd_detect"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nmt_step, out["nmt_train"] = phase_nmt_train(dev)
+    seconds["phase_nmt_train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["nmt_translate"] = phase_nmt_translate(dev, nmt_step.model)
+    seconds["phase_nmt_translate"] = time.perf_counter() - t0
+    out["phase_seconds"] = seconds
+    print("A.11 phases: %s, %.1f s together" % (
+        {k: round(v, 1) for k, v in seconds.items()},
+        sum(seconds.values())), flush=True)
+    return (lstm_step, ssd_step, nmt_step), out
+
+
+def a11_breakdowns(steps, out):
+    """One torch.profiler window of the LSTM, SSD and NMT steps (kernel
+    time by class, the device's idle share; the SSD step by the vision
+    classes)."""
+    lstm, ssd, nmt = steps
+    out["lstm_train"]["breakdown"] = phase_train_breakdown(
+        lstm, n_prof=1, label="lstm train step")
+    out["ssd_train"]["breakdown"] = phase_resnet_breakdown(
+        ssd, n_prof=1, label="ssd512 train step")
+    out["nmt_train"]["breakdown"] = phase_train_breakdown(
+        nmt, n_prof=1, label="nmt train step")
+
+
 def card_line():
     """The card's name and power limit, as ``nvidia-smi --query-gpu=
     name,power.limit --format=csv,noheader`` gives them."""
@@ -7207,6 +8242,7 @@ def main():
         print("vision phases: %s, %.1f s together" % (
             {k: round(v, 1) for k, v in vision_s.items()},
             sum(vision_s.values())), flush=True)
+        a11_steps, a11 = run_a11(dev)
         records, crossover = phase_timing(
             dev, train["launches"], train["steps_counted"], errs,
             serve_launches, forwards, serve_vl)
@@ -7217,6 +8253,7 @@ def main():
         phase_quant_timing(dev, records, quant)
         phase_gpt_train_timing(dev, records, gpt_train)
         phase_resnet_timing(dev, records, resnet)
+        phase_a11_timing(dev, records, a11["lstm_train"], a11["nmt_train"])
         # the profiler windows come last: once a profiler session has run,
         # an eager step's host wall may not return to what it was before
         breakdown = phase_breakdown(dev, model)
@@ -7226,6 +8263,8 @@ def main():
         del gpt_step
         resnet["breakdown"] = phase_resnet_breakdown(resnet_step)
         del resnet_step
+        a11_breakdowns(a11_steps, a11)
+        del a11_steps
         for label, st in optim_steps.items():
             optim["gpt2_steps"][label]["breakdown"] = phase_train_breakdown(
                 st, label="gpt2 train step, %s" % label)
@@ -7256,7 +8295,7 @@ def main():
                       "generate": gen, "snapshots": snapshots,
                       "serve_graph": serve_graph, "optimizers": optim,
                       "bad_ids": bad_ids, "train_resnet50": resnet,
-                      "vision_zoo": zoo, "nd": nd_phases,
+                      "vision_zoo": zoo, "nd": nd_phases, "a11": a11,
                       "decode_step_graphs": graphs, "quantized": quant,
                       "speculative": spec, "chunked_prefill": chunked,
                       "attention_dense_vs_flash": crossover,

@@ -14,10 +14,12 @@ LayerNorm, the flash-attention forward and backward, and the softmax
 cross-entropy forward and backward. ``mx.nd`` gives MXNet's imperative
 idiom over them (``NDArray``, the op namespace generated from the
 registry, ``autograd`` with ``attach_grad`` and higher orders), and Gluon
-blocks take and return NDArray. Entry points run on the current CUDA
-device unless the caller passes ``device="cpu"`` (or ``ctx=mx.cpu()``, or
-enters ``with mx.cpu():``). The package imports neither JAX nor anything
-of ``mxnet_tpu``.
+blocks take and return NDArray. It also runs the LSTM PTB language
+model over ``gluon.rnn``, SSD-512 with the multibox detection ops, and
+the Transformer NMT model with ``translate``. Entry points run on the
+current CUDA device unless the caller passes ``device="cpu"`` (or
+``ctx=mx.cpu()``, or enters ``with mx.cpu():``). The package imports
+neither JAX nor anything of ``mxnet_tpu``.
 """
 from . import base, context, util  # noqa: F401
 from .context import cpu, gpu, num_gpus  # noqa: F401

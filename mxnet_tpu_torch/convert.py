@@ -8,6 +8,10 @@ model's own root prefix, because the auto-name counter of the root
 (``bertmodel0_`` in one process, ``bertmodel3_`` in another) differs
 between processes; everything under the root must match exactly. A
 missing, extra or reshaped name raises, and each array keeps its dtype.
+Every parameter crosses this way, the ones without a gradient too: the
+BatchNorm running statistics, a recurrent layer's weights per (layer,
+direction), and a ``gluon.Constant`` such as the Transformer's
+``pos_enc``.
 """
 from __future__ import annotations
 

@@ -13,7 +13,8 @@ MXNet.
 
 A block called with NDArray arguments returns NDArrays, as the JAX
 package's does; called with tensors it returns tensors. The NDArray layer
-is only at the outermost call: the arguments are unwrapped once, the
+is only at the outermost call: the arguments (and the NDArrays in a list
+or tuple argument, a recurrent layer's states) are unwrapped once, the
 children see tensors, and the outputs are wrapped once.
 
 ``save_parameters``/``load_parameters`` write and read the JAX package's
@@ -94,9 +95,22 @@ class _BlockScope:
         _BlockScope._tls.stack.pop()
 
 
+def _is_nd(a):
+    """An NDArray, or a list or tuple holding one (a recurrent layer's
+    states)."""
+    return isinstance(a, NDArray) or (isinstance(a, (list, tuple)) and any(
+        isinstance(x, NDArray) for x in a))
+
+
 def _any_ndarray(args, kwargs):
-    return any(isinstance(a, NDArray) for a in args) or any(
-        isinstance(v, NDArray) for v in kwargs.values())
+    return any(_is_nd(a) for a in args) or any(
+        _is_nd(v) for v in kwargs.values())
+
+
+def _unwrap(a, rec):
+    if isinstance(a, (list, tuple)):
+        return type(a)(unwrap(x, rec) for x in a)
+    return unwrap(a, rec)
 
 
 def param_value(param):
@@ -295,8 +309,8 @@ class HybridBlock(Block):
     def __call__(self, *args, **kwargs):
         if _any_ndarray(args, kwargs):
             rec = autograd.is_recording()
-            args = [unwrap(a, rec) for a in args]
-            kwargs = {k: unwrap(v, rec) for k, v in kwargs.items()}
+            args = [_unwrap(a, rec) for a in args]
+            kwargs = {k: _unwrap(v, rec) for k, v in kwargs.items()}
             return wrap(super().__call__(*args, **kwargs))
         return super().__call__(*args, **kwargs)
 

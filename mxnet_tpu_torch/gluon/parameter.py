@@ -211,6 +211,29 @@ class Parameter:
                                                       self.dtype)
 
 
+class Constant(Parameter):
+    """A non-differentiable parameter holding a fixed value (ref:
+    gluon/parameter.py:Constant): ``grad_req`` is ``"null"``, so no
+    gradient reaches it and ``Trainer`` never updates it. It is passed to
+    ``hybrid_forward`` by name, saved and loaded with the other parameters,
+    and cast by ``amp`` with them, as in the JAX package. ``initialize``
+    sets it to its value whatever the initializer."""
+
+    def __init__(self, name, value):
+        value = torch.as_tensor(value)
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype)
+        self._value = value
+
+    def initialize(self, init=None, device=None, default_init=None,
+                   generator=None, force_reinit=False):
+        if self._data is not None and not force_reinit:
+            return
+        self._attach(self._value.to(device=resolve_device(device),
+                                    dtype=self.dtype))
+        self._deferred_init = None
+
+
 class ParameterDict:
     def __init__(self, prefix="", shared=None):
         self._prefix = prefix
@@ -257,6 +280,17 @@ class ParameterDict:
         param = Parameter(name, **kwargs)
         self._params[name] = param
         return param
+
+    def get_constant(self, name, value=None):
+        """Create-or-retrieve a :class:`Constant` (ref:
+        gluon/parameter.py:ParameterDict.get_constant)."""
+        name = self._prefix + name
+        if name not in self._params:
+            if value is None:
+                raise KeyError("no constant %s, and no value to create it"
+                               % name)
+            self._params[name] = Constant(name, value)
+        return self._params[name]
 
     def update(self, other):
         for k, v in other.items():

@@ -9,7 +9,11 @@ owns it, and ``nd.<name>`` raises ``NotImplementedError`` naming both.
 
 The optimizer ``*_update`` ops are pure in the registry; here, as in MXNet,
 they write the new states back into the state arrays passed in and honour
-``out=`` for the weight.
+``out=`` for the weight. Every other op leaves its input arrays as they
+were. The KV-cache writes (``cache_write``, ``quant_cache_write``,
+``quant_cache_write_read``) write in place at the tensor level, where the
+decode steps' captured graphs need fixed buffers; here they write into a
+copy and return it, as the JAX package's functional ops do.
 """
 from __future__ import annotations
 
@@ -36,10 +40,9 @@ _NOT_PORTED_BY_ITEM = {
         "interleaved_matmul_selfatt_qk", "interleaved_matmul_selfatt_valatt",
         "quantize_v2"),
     "A.17 (sparse)": ("_csr_dot",),
-    "A.11/A.17 (detection)": (
-        "_onnx_gather_nd", "_onnx_nms", "_onnx_scatter_nd",
-        "bipartite_matching", "box_iou", "box_nms", "multibox_detection",
-        "multibox_prior", "multibox_target", "yolo3_decode", "yolo3_target"),
+    "A.17 (detection)": (
+        "_onnx_gather_nd", "_onnx_nms", "_onnx_scatter_nd", "yolo3_decode",
+        "yolo3_target"),
     "A.11/A.17 (rcnn)": (
         "DeformableConvolution", "ModulatedDeformableConvolution",
         "MultiProposal", "PSROIPooling", "Proposal",
@@ -52,7 +55,6 @@ _NOT_PORTED_BY_ITEM = {
         "bilinear_sampler", "grid_generator", "space_to_depth_stem_conv",
         "spatial_transformer"),
     "A.11/A.17 (pose)": ("heatmap_to_coords", "pose_target"),
-    "A.11 (rnn)": ("RNN", "_rnn_init"),
     "A.11 (ctc)": ("CTCLoss", "ctc_loss"),
     "A.14 (symbol)": ("_arange", "_cond", "_const", "_filled", "_foreach",
                       "_item", "_while"),
@@ -87,6 +89,31 @@ for _name in list(_REG):
 for _name, _owner in NOT_PORTED.items():
     if not hasattr(_mod, _name):
         setattr(_mod, _name, not_ported(_name, _owner))
+
+# the arrays each KV-cache write writes into, by position and name: through
+# nd the write goes into a copy
+_CACHE_WRITES = {"cache_write": ("cache",),
+                 "quant_cache_write": ("cache", "scale"),
+                 "quant_cache_write_read": ("cache", "scale")}
+
+
+def _make_copying(opname, written):
+    def f(*args, **kwargs):
+        args, kwargs = list(args), dict(kwargs)
+        for i, name in enumerate(written):
+            if i < len(args):
+                args[i] = args[i].copy()
+            elif name in kwargs:
+                kwargs[name] = kwargs[name].copy()
+        return invoke(opname, args, kwargs)
+
+    f.__name__ = opname
+    f.__doc__ = _REG[opname].__doc__
+    return f
+
+
+for _name, _written in _CACHE_WRITES.items():
+    setattr(_mod, _name, _make_copying(_name, _written))
 
 # the positions of the states each update op writes back (after the weight)
 _UPDATE_STATE_ARGS = {
@@ -184,4 +211,4 @@ def sample_multinomial(data, *args, get_prob=False, **kwargs):
     return invoke("sample_multinomial", (data,) + args, kwargs)
 
 
-del _name, _owner, _pos, _layout
+del _name, _owner, _pos, _layout, _written

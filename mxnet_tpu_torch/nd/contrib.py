@@ -15,17 +15,20 @@ _PORTED = {
     "BilinearResize2D": "BilinearResize2D",
     "quantize": "contrib_quantize",
     "dequantize": "contrib_dequantize",
+    "box_iou": "box_iou", "box_nms": "box_nms",
+    "multibox_prior": "multibox_prior", "MultiBoxPrior": "multibox_prior",
+    "multibox_target": "multibox_target",
+    "MultiBoxTarget": "multibox_target",
+    "multibox_detection": "multibox_detection",
+    "MultiBoxDetection": "multibox_detection",
+    "bipartite_matching": "bipartite_matching",
 }
 _NOT_PORTED = {
-    "box_iou": "A.11/A.17", "box_nms": "A.11/A.17",
-    "multibox_prior": "A.11/A.17", "MultiBoxPrior": "A.11/A.17",
-    "multibox_target": "A.11/A.17", "MultiBoxTarget": "A.11/A.17",
-    "multibox_detection": "A.11/A.17", "MultiBoxDetection": "A.11/A.17",
     "DeformableConvolution": "A.11/A.17",
     "ModulatedDeformableConvolution": "A.11/A.17",
     "PSROIPooling": "A.11/A.17", "Proposal": "A.11/A.17",
     "MultiProposal": "A.11/A.17", "ROIAlign": "A.11/A.17",
-    "ROIPooling": "A.11/A.17", "bipartite_matching": "A.11/A.17",
+    "ROIPooling": "A.11/A.17",
     "arange_like": "A.17", "index_array": "A.17", "index_copy": "A.17",
     "allclose": "A.17", "div_sqrt_dim": "A.17",
     "gradientmultiplier": "A.17", "quantize_v2": "A.17",

@@ -1356,3 +1356,11 @@ def _resize_linear_half_pixel(x, *, height=None, width=None,
             "from half_pixel and is not implemented")
     return TF.interpolate(x, size=(h, w), mode="bilinear",
                           align_corners=False, antialias=False)
+
+
+# the fused recurrence and the detection ops live in their own modules, and
+# are ``F``'s as every op is
+from .rnn import RNN, _rnn_init  # noqa: E402,F401
+from .detection import (  # noqa: E402,F401
+    bipartite_matching, box_iou, box_nms, multibox_detection, multibox_prior,
+    multibox_target)

@@ -3,7 +3,8 @@
 package; the package (the GPT
 model, the generative server, the checkpoint layer, the snapshots, the
 optimizers, the LR schedulers, ``ir.tune``, ``parallel``, the vision
-layers, the model zoo, NDArray and the ``nd`` namespace included) imports
+layers, the model zoo, NDArray and the ``nd`` namespace, ``gluon.rnn``,
+the detection ops and the LSTM, SSD and Transformer models included) imports
 with JAX blocked; and without
 CUDA every entry point refuses to run unless the caller asks for the
 CPU."""
@@ -65,7 +66,10 @@ def test_package_imports_with_jax_blocked():
             "mxnet_tpu_torch.nd, mxnet_tpu_torch.nd.random, "
             "mxnet_tpu_torch.nd.contrib, mxnet_tpu_torch.linalg, "
             "mxnet_tpu_torch.test_utils, mxnet_tpu_torch.ops.extra, "
-            "mxnet_tpu_torch.ops.legacy_ops; "
+            "mxnet_tpu_torch.ops.legacy_ops, mxnet_tpu_torch.ops.rnn, "
+            "mxnet_tpu_torch.ops.detection, mxnet_tpu_torch.gluon.rnn, "
+            "mxnet_tpu_torch.models.lstm_lm, mxnet_tpu_torch.models.ssd, "
+            "mxnet_tpu_torch.models.transformer; "
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
@@ -106,6 +110,28 @@ def test_without_cuda_entry_points_raise(monkeypatch):
     net.initialize(device="cpu")
     with pytest.raises(DeviceError):
         ModelServer(net, [((3, 32, 32), "float32")], buckets=(1,))
+    from mxnet_tpu_torch.models.lstm_lm import RNNModel
+    from mxnet_tpu_torch.models.ssd import SSD
+    from mxnet_tpu_torch.models.transformer import TransformerModel
+
+    lm = RNNModel(vocab_size=20, num_embed=8, num_hidden=8, num_layers=1)
+    with pytest.raises(DeviceError):
+        lm.initialize()
+    ssd = SSD(num_classes=2, sizes=((0.2, 0.3),), ratios=((1, 2),))
+    with pytest.raises(DeviceError):
+        ssd.initialize()
+    ssd.initialize(device="cpu")
+    with pytest.raises(DeviceError):
+        ssd.detect(torch.zeros(1, 3, 32, 32))
+    nmt = TransformerModel(src_vocab=20, tgt_vocab=20, units=8, hidden=16,
+                           num_layers=1, num_heads=2, max_len=8)
+    with pytest.raises(DeviceError):
+        nmt.initialize()
+    nmt.initialize(device="cpu")
+    for kw in ({}, {"use_cache": False}, {"beam": 2}):
+        with pytest.raises(DeviceError):
+            nmt.translate(torch.ones(1, 3, dtype=torch.int32), max_len=3,
+                          **kw)
     from mxnet_tpu_torch import nd
 
     for make in (lambda: nd.array([1.0]), lambda: nd.zeros((2,)),

@@ -95,8 +95,7 @@ def test_every_jax_op_is_ported_or_listed():
     held = {c.op for c in CASES} | {c[0] for c in RANDOM_CASES} | {
         c[0] for c in SAMPLE_CASES}
     held_fns = {id(REG[n]) for n in held}
-    elsewhere = {"cache_write", "quant_cache_write", "quant_cache_write_read",
-                 "dequant_cache", "contrib_quantize", "contrib_dequantize",
+    elsewhere = {"dequant_cache", "contrib_quantize", "contrib_dequantize",
                  "quantized_fully_connected", "quantized_conv", "arange",
                  "_basic_index", "_sample_multinomial_prob",
                  "shuffle"}  # shuffle: test_multinomial_prob_and_shuffle
@@ -109,7 +108,7 @@ def test_nd_contrib_and_control_flow_name_their_items():
     import mxnet_tpu_torch as mx
 
     for name, item in (("foreach", "A.14"), ("while_loop", "A.14"),
-                       ("cond", "A.14"), ("box_nms", "A.11/A.17"),
+                       ("cond", "A.14"), ("ROIAlign", "A.11/A.17"),
                        ("fft", "A.17")):
         with pytest.raises(NotImplementedError, match=item):
             getattr(mx.nd.contrib, name)()

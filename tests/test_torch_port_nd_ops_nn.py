@@ -10,7 +10,7 @@ from torch_port_nd_parity import cases_between, cases_param, check_parity
 # torch on 2 threads: the suite runs a worker a core or so
 pytestmark = pytest.mark.usefixtures("few_threads")
 
-NN = cases_between("FullyConnected", "all_finite")
+NN = cases_between("FullyConnected", "cache_write")
 
 
 @cases_param(NN)

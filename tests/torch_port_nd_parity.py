@@ -4,11 +4,13 @@ inputs, forward and (where the case asks) the gradient of sum(out * w)
 with respect to its float inputs."""
 import pytest
 
-from tools.nd_op_cases import CASES, assert_same, run_case
+from tools.nd_op_cases import (CASES, assert_inputs_kept, assert_same,
+                               run_case)
 
 
 def check_parity(case):
-    """The port's op against the JAX package's, on the CPU."""
+    """The port's op against the JAX package's, on the CPU; and the port's
+    op leaves its inputs as they were, unless it writes them by design."""
     import mxnet_tpu as jmx
     import mxnet_tpu_torch as tmx
 
@@ -19,6 +21,7 @@ def check_parity(case):
                  lambda x: jmx.nd.array(x, dtype=x.dtype.name))
     for got, want, what in zip(t, j, ("output", "input after", "grad")):
         assert_same(got, want, case.tol, "%s %s" % (case.id, what))
+    assert_inputs_kept(case, t[1])
 
 
 def cases_param(cases):

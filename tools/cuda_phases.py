@@ -30,7 +30,13 @@ built:
 - ``nd``: ``phase_nd_train`` (GPT-2 small in MXNet's imperative idiom
   beside the tensor path), ``phase_nd_ops`` (every ``nd`` op on the card
   against the CPU; the kernel-backed ``nd`` ops' launches) and
-  ``phase_create_graph`` (second order on the card).
+  ``phase_create_graph`` (second order on the card);
+- ``a11``: ``phase_lstm_train``, ``phase_lstm_infer``,
+  ``phase_ssd_train``, ``phase_ssd_detect``, ``phase_nmt_train`` and
+  ``phase_nmt_translate`` (LSTM PTB, SSD-512 and Transformer NMT at
+  bench.py's recipes), ``phase_a11_timing`` (the LayerNorm and
+  softmax-xent kernels at their shapes) and the three steps'
+  breakdowns.
 
 The readings go to ``chiprun_out/cuda_phases.json``. ``--keep-going``
 prints a failed check and goes on (to read every number of a first run);
@@ -120,11 +126,21 @@ def run_nd(cs, dev):
             "create_graph": cs.phase_create_graph(dev)}
 
 
+def run_a11(cs, dev):
+    steps, out = cs.run_a11(dev)
+    records = [{"name": n} for n in ("layernorm_fwd", "layernorm_bwd",
+                                     "softmax_xent_fwd", "softmax_xent_bwd")]
+    cs.phase_a11_timing(dev, records, out["lstm_train"], out["nmt_train"])
+    out["kernels"] = records
+    cs.a11_breakdowns(steps, out)
+    return out
+
+
 GROUPS = {"kernels": run_kernels, "spec": run_spec,
           "gpt_train": run_gpt_train,
           "snapshot": lambda cs, dev: cs.phase_snapshot(dev),
           "serve_graph": run_serve_graph, "optim": run_optim,
-          "vision": run_vision, "nd": run_nd}
+          "vision": run_vision, "nd": run_nd, "a11": run_a11}
 
 
 def main(argv):

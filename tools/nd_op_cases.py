@@ -132,6 +132,27 @@ def run_case(nd, autograd, case, make, seed=0, grads=True):
             [val(arrs[i].grad) for i in pos])
 
 
+def writes_inputs(op):
+    """MXNet's in-place ops: the optimizer updates (``*_update*``) write
+    their states back, ``onehot_encode`` writes its ``out``. Every other
+    op leaves its inputs as they were."""
+    return "_update" in op or op == "onehot_encode"
+
+
+def assert_inputs_kept(case, after, seed=0):
+    """The input arrays after the call (``run_case``'s second list) equal
+    the case's inputs, bit for bit, unless the op writes its inputs by
+    design."""
+    if writes_inputs(case.op):
+        return
+    inputs = [x for x in build(case, seed) if isinstance(x, np.ndarray)]
+    assert len(after) == len(inputs), case.id
+    for k, (x, (_, v)) in enumerate(zip(inputs, after)):
+        np.testing.assert_array_equal(
+            v, x.astype(v.dtype), err_msg="%s wrote into its input %d"
+            % (case.id, k))
+
+
 def assert_same(got, want, tol, what):
     """Equal dtype names; floats within (rtol, atol) (or their absolute
     values, for a sign-free tolerance); others exact."""
@@ -572,6 +593,98 @@ _add(C("Correlation_patch", "Correlation", [F(1, 2, 5, 5), F(1, 2, 5, 5)],
         "stride2": 2, "is_multiply": False}))
 _add(C("scaled_dot_attention", "scaled_dot_attention",
        [F(1, 2, 5, 8), F(1, 2, 5, 8), F(1, 2, 5, 8)], {"causal": True}))
+
+# ---- the KV-cache writes (through nd they write into a copy), the fused
+# recurrence and the detection ops
+_add(C("cache_write", "cache_write", [F(2, 2, 6, 3), F(2, 2, 2, 3), S(3)],
+       grad=False))
+_add(C("cache_write_rows", "cache_write",
+       [F(2, 2, 6, 3), F(2, 2, 1, 3), A([1, 5], "int32")], grad=False))
+_QCACHE = I(2, 2, 6, 3, lo=-127, hi=128, dtype="int8")
+_QSCALE = F(2, 2, 1, 1, lo=0.01, hi=0.03)
+_add(C("quant_cache_write", "quant_cache_write",
+       [_QCACHE, _QSCALE, F(2, 2, 1, 3, lo=-4, hi=4), S(2)], grad=False))
+_add(C("quant_cache_write_read", "quant_cache_write_read",
+       [_QCACHE, _QSCALE, F(2, 2, 2, 3, lo=-1, hi=1), S(4)], grad=False))
+
+
+def _rnn_inputs(mode, T=4, N=2, C=3, H=3, layers=1, dirs=1):
+    """x (T, N, C), h0, c0 (layers*dirs, N, H) and the weights of each
+    (layer, direction): i2h_w, h2h_w, i2h_b, h2h_b."""
+    G = {"lstm": 4, "gru": 3}.get(mode, 1) * H
+    out = [F(T, N, C), F(layers * dirs, N, H), F(layers * dirs, N, H)]
+    for layer in range(layers):
+        c_in = C if layer == 0 else H * dirs
+        out += [F(G, c_in), F(G, H), F(G), F(G)] * dirs
+    return out
+
+
+_add(C("RNN_lstm", "RNN", _rnn_inputs("lstm"), {"mode": "lstm"}))
+_add(C("RNN_lstm_bi_2layer", "RNN",
+       _rnn_inputs("lstm", layers=2, dirs=2),
+       {"mode": "lstm", "num_layers": 2, "bidirectional": True}))
+_add(C("RNN_gru_bi", "RNN", _rnn_inputs("gru", dirs=2),
+       {"mode": "gru", "bidirectional": True}))
+_add(C("RNN_tanh_2layer", "RNN", _rnn_inputs("rnn_tanh", layers=2),
+       {"mode": "rnn_tanh", "num_layers": 2}))
+_add(C("RNN_relu", "RNN", _rnn_inputs("rnn_relu"), {"mode": "rnn_relu"}))
+_add(C("_rnn_init", "_rnn_init", [F(4, 2, 3)], {"num": 2, "hidden": 5},
+       grad=False))
+
+
+def _corner_boxes(rng, *shape):
+    lo = rng.uniform(0.0, 0.6, shape + (2,))
+    wh = rng.uniform(0.05, 0.4, shape + (2,))
+    return np.concatenate([lo, lo + wh], -1).astype(np.float32)
+
+
+_DRNG = np.random.RandomState(11)
+_BOX_A, _BOX_B = _corner_boxes(_DRNG, 2, 5), _corner_boxes(_DRNG, 2, 3)
+# detections [id, score, box]: eight boxes, two classes, near duplicates,
+# a score tie and an invalid entry
+_DET = np.concatenate([
+    _DRNG.randint(0, 2, (2, 8, 1)).astype(np.float32),
+    _DRNG.uniform(0.0, 1.0, (2, 8, 1)).astype(np.float32),
+    _corner_boxes(_DRNG, 2, 8)], -1)
+_DET[:, 3, 2:] = _DET[:, 2, 2:] + 0.01
+_DET[:, 5, 1] = _DET[:, 4, 1]
+_DET[0, 6, 1] = -1.0
+# 36 anchors (a 3 x 3 map, 4 a pixel) and two images of ground truth: a
+# padding row in each, and in the second two boxes with the same best
+# anchor
+_ANCH = np.array([[[cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2]
+                   for cy in (1 / 6, 1 / 2, 5 / 6) for cx in (1 / 6, 1 / 2,
+                                                                5 / 6)
+                   for w, h in ((0.3, 0.3), (0.5, 0.5), (0.42, 0.21),
+                                (0.21, 0.42))]], np.float32)
+_LAB = np.array([[[1, 0.1, 0.1, 0.45, 0.4], [0, 0.5, 0.55, 0.95, 0.9],
+                  [-1, 0, 0, 0, 0]],
+                 [[2, 0.3, 0.3, 0.7, 0.72], [0, 0.31, 0.29, 0.69, 0.7],
+                  [-1, 0, 0, 0, 0]]], np.float32)
+_add(C("box_iou", "box_iou", [A(_BOX_A), A(_BOX_B)], grad=False))
+_add(C("box_iou_center", "box_iou", [A(_BOX_A), A(_BOX_B)],
+       {"format": "center"}, grad=False))
+_add(C("box_nms", "box_nms", [A(_DET)],
+       {"overlap_thresh": 0.3, "valid_thresh": 0.05}, grad=False))
+_add(C("box_nms_force", "box_nms", [A(_DET[0])],
+       {"overlap_thresh": 0.2, "force_suppress": True,
+        "in_format": "center"}, grad=False))
+_add(C("multibox_prior", "multibox_prior", [F(1, 3, 4, 5)],
+       {"sizes": (0.3, 0.5), "ratios": (1, 2, 0.5)}, grad=False))
+_add(C("multibox_prior_clip", "multibox_prior", [F(1, 3, 3, 2)],
+       {"sizes": (0.9,), "ratios": (1, 3), "steps": (0.2, 0.25),
+        "offsets": (0.3, 0.6), "clip": True}, grad=False))
+_add(C("multibox_target", "multibox_target",
+       [A(_ANCH), A(_LAB), F(2, 4, 36, lo=0.0, hi=1.0)], grad=False))
+_add(C("multibox_detection", "multibox_detection",
+       [F(2, 4, 36, lo=0.0, hi=1.0), F(2, 144, lo=-0.5, hi=0.5), A(_ANCH)],
+       {"threshold": 0.3, "nms_threshold": 0.4}, grad=False))
+_add(C("bipartite_matching", "bipartite_matching", [F(2, 4, 3)],
+       {"threshold": 0.1}, grad=False))
+_add(C("bipartite_matching_ascend", "bipartite_matching",
+       [A([[[0.5, np.nan, 0.2], [np.inf, 0.3, -np.inf],
+            [0.2, 0.9, 0.1]]])],
+       {"threshold": 0.4, "is_ascend": True, "topk": 2}, grad=False))
 
 # ---- the legacy flat ops
 _add(C("all_finite", "all_finite", [A([1.0, np.inf])], grad=False))
