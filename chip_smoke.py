@@ -254,6 +254,38 @@ Run from the root of a checkout on a machine with a CUDA card. It
    translates (``phase_nmt_translate``: greedy at batch 8 over the fixed
    cache equal to greedy by re-forward, bf16 and fp32, 12 LayerNorm
    launches an encode and 18 a decode step, ms a token; beam 4);
+12d. converts pretrained weights (``phase_convert``): a seeded
+   torchvision-keyed ResNet-50 state dict (``tools/torch_resnet_ref.py``)
+   saved as ``.pth`` and loaded through ``get_model("resnet50_v1b",
+   pretrained=...)``, its fp32 logits at batch 8 within 1e-3 of the
+   largest logit of the torch model on the card; a HuggingFace-named
+   BERT-base state dict transplanted (fused qkv) and served at seq 512
+   through ``ModelServer`` (25 LayerNorm and 12 flash launches a forward,
+   rows within ``MODEL_TOL`` of the plain versions); a HuggingFace-named
+   GPT-2 small transplanted and greedy decoded after a 300-token prompt
+   (equal to the plain versions' stream under the tie rule);
+12e. trains GPT-2 small at ``phase_gpt_train``'s recipe through
+   ``dist.attach`` over an NCCL group of one rank, mesh ``{"dcn": 1,
+   "dp": 1}`` with every collective launched (``phase_dist_train``): ZeRO
+   0-3 uncompressed, two steps each (their parameters' distance from the
+   plain Trainer's, beside a second plain run's, as a reading); fp16, int8
+   and 2-bit compression x ZeRO 0-3, one step each, ``acc ==
+   deq(payload) + residual`` exactly in every bucket; exact launches,
+   bucket launches equal to the plan, no plan after the first, the first
+   bucket's whole exchange done on the device before the backward's last
+   gradient lands (CUDA events), the step's host enqueue, wall and device
+   span; at every ZeRO stage the exchanged gradients within GPT-2's
+   gradient limits of the plain step's, and a planted fault (each
+   bucket's last member zeroed) above them; at every ZeRO stage the
+   update from the plain step's gradients (exchange, sharded update,
+   ZeRO-3 release and gather) equal to the plain Trainer's (fp32 values'
+   steps within ``DIST_UPDATE_TOL`` relative L2, bf16 weights bitwise),
+   and a planted fault (the first weight block's update skipped) above
+   it; then
+   ``ModelServer(devices=[card, card])`` on BERT-base at seq 512
+   (``phase_serve_replicas``): one graph a bucket a replica, batches
+   alternating, rows bitwise a one-replica server's, no capture in
+   traffic, a swap reaching both replicas;
 13. times each kernel (CUDA-graph replay) at the bert512 step's shapes
    against its plain version, its PyTorch library yardstick and its bound
    (the LayerNorm backward against aten's, also at the MLM head's rows;
@@ -279,7 +311,8 @@ Run from the root of a checkout on a machine with a CUDA card. It
     bert512 step (kernel time by class, the LayerNorm backward and the
     optimizer step, the idle share), then the GPT-2 training step the
     same way, with Adam, SGD and LAMB (the optimizer range's device time
-    of each on one line), then a GPT prefill at bucket 512 and
+    of each on one line), and through ``dist.attach`` at ZeRO 0 and 1
+    (the exchange's ranges' host and device time), then a GPT prefill at bucket 512 and
     a decode step of 8 slots, through its graph and eagerly, bf16 and
     int8, then the int8 BERT bucket-8 forward, then a speculative tick
     with NGramDraft, a 2-layer draft's round and tick, and a chunk tick,
@@ -380,7 +413,10 @@ STEP_LAUNCHES = {"layernorm": 26, "layernorm_bwd": 26,
                  "softmax_xent_bwd": 2}
 # profiler ranges whose kernels are torch ops, so the profiler gives them
 # device time; kernels launched from the extension are not
-TORCH_OP_RANGES = ("mxnet_tpu_torch::optimizer_step",)
+TORCH_OP_RANGES = ("mxnet_tpu_torch::optimizer_step",
+                   "mxnet_tpu_torch::dist_bucket_launch",
+                   "mxnet_tpu_torch::dist_finish",
+                   "mxnet_tpu_torch::zero_gather")
 
 
 class SmokeFailure(RuntimeError):
@@ -8119,6 +8155,715 @@ def a11_breakdowns(steps, out):
         nmt, n_prof=1, label="nmt train step")
 
 
+# ---------------------------------------------------------------- slice 15
+# phase_convert: a torchvision ResNet-50 checkpoint converted into
+# resnet50_v1b (fp32 logits within CONVERT_LOGIT_TOL of the largest logit of
+# the torch reference model on the card), and HuggingFace-named BERT-base and
+# GPT-2 small state dicts transplanted and run (served / greedy decoded)
+CONVERT_BATCH = 8
+CONVERT_LOGIT_TOL = 1e-3
+CONVERT_GREEDY_TOKENS = 8
+CONVERT_PROMPT = 300  # a prefill past FLASH_MIN_LEN: the causal flash runs
+
+
+def _hf_bert_state(dev, seed, layers=12, units=768, inter=3072,
+                   vocab=VOCAB, pos=SEQ, types=2):
+    """A BertModel state dict with HuggingFace's key names (``bert.``
+    prefix), seeded normal values of BERT's scale on ``dev``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def w(*shape, one=False):
+        t = torch.randn(shape, generator=g, device=dev) * 0.02
+        return t + 1.0 if one else t
+
+    s = {"embeddings.word_embeddings.weight": w(vocab, units),
+         "embeddings.position_embeddings.weight": w(pos, units),
+         "embeddings.token_type_embeddings.weight": w(types, units),
+         "embeddings.LayerNorm.weight": w(units, one=True),
+         "embeddings.LayerNorm.bias": w(units),
+         "pooler.dense.weight": w(units, units), "pooler.dense.bias": w(units)}
+    for i in range(layers):
+        p = "encoder.layer.%d." % i
+        for n in ("query", "key", "value"):
+            s[p + "attention.self.%s.weight" % n] = w(units, units)
+            s[p + "attention.self.%s.bias" % n] = w(units)
+        s[p + "attention.output.dense.weight"] = w(units, units)
+        s[p + "attention.output.dense.bias"] = w(units)
+        s[p + "attention.output.LayerNorm.weight"] = w(units, one=True)
+        s[p + "attention.output.LayerNorm.bias"] = w(units)
+        s[p + "intermediate.dense.weight"] = w(inter, units)
+        s[p + "intermediate.dense.bias"] = w(inter)
+        s[p + "output.dense.weight"] = w(units, inter)
+        s[p + "output.dense.bias"] = w(units)
+        s[p + "output.LayerNorm.weight"] = w(units, one=True)
+        s[p + "output.LayerNorm.bias"] = w(units)
+    return {"bert." + k: v for k, v in s.items()}
+
+
+def _hf_gpt2_state(dev, seed, cfg):
+    """A GPT2LMHeadModel state dict with HuggingFace's key names
+    (``transformer.`` prefix, Conv1D weights (in, out)), seeded."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    E, L = cfg["units"], cfg["num_layers"]
+
+    def w(*shape, one=False):
+        t = torch.randn(shape, generator=g, device=dev) * 0.02
+        return t + 1.0 if one else t
+
+    s = {"wte.weight": w(cfg["vocab_size"], E),
+         "wpe.weight": w(cfg["max_length"], E) * 0.5,
+         "ln_f.weight": w(E, one=True), "ln_f.bias": w(E)}
+    for i in range(L):
+        p = "h.%d." % i
+        s[p + "ln_1.weight"], s[p + "ln_1.bias"] = w(E, one=True), w(E)
+        s[p + "attn.c_attn.weight"], s[p + "attn.c_attn.bias"] = \
+            w(E, 3 * E), w(3 * E)
+        s[p + "attn.c_proj.weight"], s[p + "attn.c_proj.bias"] = \
+            w(E, E), w(E)
+        s[p + "ln_2.weight"], s[p + "ln_2.bias"] = w(E, one=True), w(E)
+        s[p + "mlp.c_fc.weight"], s[p + "mlp.c_fc.bias"] = \
+            w(E, 4 * E), w(4 * E)
+        s[p + "mlp.c_proj.weight"], s[p + "mlp.c_proj.bias"] = \
+            w(4 * E, E), w(E)
+    return {"transformer." + k: v for k, v in s.items()}
+
+
+def _served_rows(srv, reqs):
+    """Each request of ``reqs`` alone through ``srv`` (one batch each),
+    in order: the outputs, one list a request."""
+    return [srv.predict(*r) for r in reqs]
+
+
+def phase_convert(dev):
+    """The converters at full width on the card: a torchvision ResNet-50
+    checkpoint through ``get_model("resnet50_v1b", pretrained=...)``
+    against the torch reference model, a HF BERT-base transplanted and
+    served at seq 512, a HF GPT-2 small transplanted and greedy decoded."""
+    import shutil
+    import tempfile
+
+    import torch
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.gluon.model_zoo import convert, vision
+    from mxnet_tpu_torch.models.bert import bert_base
+    from mxnet_tpu_torch.models.gpt import GPTModel
+    from mxnet_tpu_torch.ops.cuda import _build
+    from mxnet_tpu_torch.serve import ModelServer
+
+    out = {}
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import torch_resnet_ref as tref
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+    try:
+        # (a) torchvision ResNet-50 -> resnet50_v1b, fp32 logits
+        t0 = time.perf_counter()
+        torch.manual_seed(SEED)
+        ref = tref.randomize_bn_stats(tref.resnet50(num_classes=1000),
+                                      seed=SEED).to(dev).eval()
+        path = os.path.join(tmp, "resnet50.pth")
+        torch.save(ref.state_dict(), path)
+        net = vision.get_model("resnet50_v1b", pretrained=path,
+                               classes=1000, ctx=dev)
+        convert_s = time.perf_counter() - t0
+        x = torch.randn(CONVERT_BATCH, 3, 224, 224, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            SEED))
+        with torch.inference_mode():
+            want = ref(x).float()
+            got = net(x).float()
+        err = max_err(got, want)
+        big = float(want.abs().max())
+        out["resnet50"] = {"max_abs_err": err, "max_abs_logit": big,
+                           "limit": CONVERT_LOGIT_TOL * big,
+                           "convert_s": convert_s}
+        print("convert: torchvision resnet50 -> resnet50_v1b in %.2f s; "
+              "fp32 logits max |port - torch| %.3g, max |logit| %.3g "
+              "(limit %g x max)" % (convert_s, err, big, CONVERT_LOGIT_TOL),
+              flush=True)
+        check(bool(torch.isfinite(got).all()), "converted resnet50: "
+              "non-finite logits")
+        check(err <= CONVERT_LOGIT_TOL * big, "converted resnet50 logits "
+              "disagree with the torch model's")
+        del ref, net, got, want
+        torch.cuda.empty_cache()
+
+        # (b) HF BERT-base transplanted, served at seq 512
+        state = _hf_bert_state(dev, SEED + 50)
+        model = bert_base(dropout=0.1, max_length=SEQ)
+        model.initialize(device=dev, generator=torch.Generator(
+            device=dev).manual_seed(SEED))
+        convert.transplant_hf_bert(model, state)
+        p0 = "bert.encoder.layer.0.attention.self."
+        check(torch.equal(model.encoder.cells[0].attention.qkv.weight
+                          ._tensor().detach(),
+                          torch.cat([state[p0 + n + ".weight"]
+                                     for n in ("query", "key", "value")])),
+              "transplanted BERT: qkv is not [q; k; v]")
+        del state
+        amp.convert_hybrid_block(model, "bfloat16")
+        specs = [((SEQ,), "int32"), ((SEQ,), "int32"), ((), "int32")]
+        srv = ModelServer(model, specs, buckets=BUCKETS, max_wait_ms=5.0,
+                          timeout_ms=120000.0, device=dev)
+        check_warm_graphs(srv.stats(), BUCKETS, "transplanted BERT server")
+        tok, tt, vl = _bert_requests()
+        reqs = [(tok[i:i + 1], tt[i:i + 1], vl[i:i + 1])
+                for i in range(N_REQUESTS)]
+        with srv:
+            reset_counters()
+            b0 = srv.metrics.batches
+            served = _served_rows(srv, reqs)
+            counts = read_counters()
+            forwards = srv.metrics.batches - b0
+        check(counts["layernorm"] == 25 * forwards
+              and counts["flash_attention_fwd"] == 12 * forwards,
+              "transplanted BERT: launches %s in %d forwards"
+              % (counts, forwards))
+        ins = [torch.from_numpy(a).to(dev) for a in (tok, tt, vl)]
+        with plain_versions(), torch.inference_mode():
+            plain = [o.float().cpu().numpy() for o in model(*ins)]
+        worst = 0.0
+        for i, rows in enumerate(served):
+            n = int(vl[i])
+            for a, b in ((rows[0][0, :n], plain[0][i, :n]),
+                         (rows[1][0], plain[1][i]), (rows[2][0], plain[2][i])):
+                check(np.isfinite(a).all(), "transplanted BERT: non-finite "
+                      "served row")
+                worst = max(worst, float(np.abs(a - b).max()))
+        out["bert"] = {"forwards": forwards, "launches": counts,
+                       "served_vs_plain_max_abs": worst, "limit": MODEL_TOL}
+        print("convert: HF BERT-base transplanted, %d requests served in %d "
+              "forwards; launches %s; served rows vs the plain versions max "
+              "abs %.3g (limit %g)" % (N_REQUESTS, forwards, counts, worst,
+                                       MODEL_TOL), flush=True)
+        check(worst <= MODEL_TOL, "transplanted BERT: served rows disagree "
+              "with the plain versions")
+        srv.stop()
+        del srv, model
+        torch.cuda.empty_cache()
+
+        # (c) HF GPT-2 small transplanted, greedy decode
+        state = _hf_gpt2_state(dev, SEED + 51, GPT_CONFIG)
+        gpt = GPTModel(dropout=0.1, **GPT_CONFIG)
+        gpt.initialize(device=dev, generator=torch.Generator(
+            device=dev).manual_seed(SEED))
+        convert.transplant_hf_gpt2(gpt, state)
+        check(torch.equal(gpt.blocks[0].attn.qkv.weight._tensor().detach(),
+                          state["transformer.h.0.attn.c_attn.weight"].t()),
+              "transplanted GPT-2: c_attn is not transposed into qkv")
+        del state
+        amp.convert_hybrid_block(gpt, "bfloat16")
+        prompt = np.random.RandomState(SEED + 52).randint(
+            0, GPT_CONFIG["vocab_size"], CONVERT_PROMPT).tolist()
+        reset_counters()
+        toks, _ = greedy_reference(gpt, prompt, CONVERT_GREEDY_TOKENS, dev)
+        counts = read_counters()
+        with plain_versions():
+            ptoks, plogits = greedy_reference(gpt, prompt,
+                                              CONVERT_GREEDY_TOKENS, dev)
+        compared, margin = compare_greedy(toks, ptoks, plogits.cpu().numpy(),
+                                          "transplanted GPT-2 greedy")
+        out["gpt2"] = {"tokens": toks, "plain_tokens": ptoks,
+                       "compared": compared, "parted_margin": margin,
+                       "launches": counts}
+        print("convert: HF GPT-2 small transplanted, greedy %d tokens after "
+              "a %d-token prompt: %s; plain versions %s (equal over %d, "
+              "parted margin %s); launches %s" % (
+                  CONVERT_GREEDY_TOKENS, CONVERT_PROMPT, toks, ptoks,
+                  compared, margin, counts), flush=True)
+        check(counts["layernorm"] == 25 * CONVERT_GREEDY_TOKENS
+              and counts["flash_attention_fwd"] == 12,
+              "transplanted GPT-2: launches %s" % counts)
+        del gpt
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# phase_dist_train: the GPT-2 step (GPT_TRAIN) through dist.attach over an
+# NCCL group of one rank, mesh {"dcn": 1, "dp": 1}: every collective of the
+# hierarchy launches. Uncompressed, each ZeRO stage's DIST_STEPS steps must
+# land as close to the plain Trainer's as a second plain run does (the
+# phase_nd_train criterion: the flash dq sums in no fixed order);
+# compressed, one step each with acc == deq(payload) + residual exactly.
+DIST_STEPS = 2
+DIST_COMPRESSIONS = ("fp16", "int8", "2bit")
+# the dist update from given gradients against the plain Trainer's: at one
+# rank the exchange and the sharded update change no value
+DIST_UPDATE_TOL = 1e-6
+ADAM = {"learning_rate": 1e-4, "wd": 0.01, "multi_precision": True}
+
+
+def _param_snapshot(step):
+    return [p._tensor().detach().clone() for p in step.params]
+
+
+def _params_gap(params, ref):
+    """(max |a - b|, count of parameters that differ) over two snapshots."""
+    import torch
+
+    worst, n = 0.0, 0
+    for a, b in zip(params, ref):
+        if not torch.equal(a, b):
+            n += 1
+            worst = max(worst, max_err(a, b))
+    return worst, n
+
+
+def _dist_steps(step, init, n_steps, mesh=None, zero=0, compression=None,
+                fault=None):
+    """``n_steps`` GPT steps from ``init`` with a fresh Adam trainer, plain
+    (``mesh`` None) or through ``dist.attach``; returns (the parameters
+    after, per-step readings)."""
+    import torch
+    from mxnet_tpu_torch import dist, gluon
+    from mxnet_tpu_torch import random as mx_random
+
+    with torch.no_grad():
+        for p, s in zip(step.params, init):
+            p._tensor().copy_(s)
+    step.trainer = gluon.Trainer(step.model.collect_params(), "adam", ADAM)
+    handle, exact, saved_split = None, [], None
+    if mesh is not None:
+        handle = dist.attach(step.trainer, mesh, ici_axis="dp",
+                             dcn_axis="dcn", zero=zero,
+                             compression=({"type": compression}
+                                          if compression else None),
+                             average=True, record_events=True)
+        if compression:
+            quant, deq = handle.strategy._codec
+
+            def checked(acc):
+                payload, res = quant(acc)
+                exact.append(torch.equal(deq(payload) + res, acc))
+                return payload, res
+
+            handle.strategy._codec = (checked, deq)
+        if fault is not None:
+            saved_split = dist.GradientBucketer.split
+            dist.GradientBucketer.split = staticmethod(
+                lambda vec, like: fault(saved_split(vec, like)))
+    rows = []
+    try:
+        for i in range(n_steps):
+            mx_random.seed(SEED + i)
+            if handle is not None:
+                handle.gather_params()
+            torch.cuda.synchronize()
+            reset_counters()
+            b0 = dist.bucket_counter.count
+            c0 = dist.plan_counter.count
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            loss = step()
+            end.record()
+            enqueue = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            row = {"loss": float(loss.mean()), "launches": read_counters(),
+                   "host_enqueue_ms": enqueue,
+                   "host_wall_ms": (time.perf_counter() - t0) * 1e3,
+                   "device_ms": start.elapsed_time(end)}
+            if handle is not None:
+                ex = handle.exchanger
+                ev = ex.last_events
+                row.update(
+                    buckets=len(ex._plan),
+                    bucket_launches=dist.bucket_counter.count - b0,
+                    plans=dist.plan_counter.count - c0,
+                    overlap_window_ms=ex.overlap_window_ms,
+                    first_bucket_before_last_grad_ms=(
+                        ev["bucket_done"][0].elapsed_time(
+                            ev["grad_landed"][-1])
+                        if ev["bucket_done"] else None))
+            rows.append(row)
+        if handle is not None:
+            handle.gather_params()
+        params = _param_snapshot(step)
+    finally:
+        if saved_split is not None:
+            dist.GradientBucketer.split = saved_split
+        if handle is not None:
+            dist.detach(step.trainer)
+    if compression:
+        rows[-1]["codec_exact"] = bool(all(exact)) and len(exact) > 0
+    return params, rows
+
+
+def _dist_grads(step, init, mesh=None, zero=0, fault=None):
+    """One GPT step's gradients from ``init`` without the update: plain, or
+    exchanged through ``dist.attach`` at ZeRO ``zero`` and finished as
+    ``Trainer.allreduce_grads`` would (at ZeRO 2 and 3 the rank's blocks,
+    whole at one rank)."""
+    import torch
+    from mxnet_tpu_torch import dist, gluon
+    from mxnet_tpu_torch import random as mx_random
+
+    with torch.no_grad():
+        for p, s in zip(step.params, init):
+            p._tensor().copy_(s)
+    step.trainer = gluon.Trainer(step.model.collect_params(), "adam", ADAM)
+    handle = saved = None
+    if mesh is not None:
+        handle = dist.attach(step.trainer, mesh, ici_axis="dp",
+                             dcn_axis="dcn", average=True, zero=zero)
+        if fault is not None:
+            saved = dist.GradientBucketer.split
+            dist.GradientBucketer.split = staticmethod(
+                lambda vec, like: fault(saved(vec, like)))
+    try:
+        mx_random.seed(SEED)
+        if handle is not None:
+            handle.gather_params()
+        step(update=False)
+        if handle is None:
+            return _grads(step.params)
+        handle.finish()
+        return [handle.grad_shards.get(id(p), p._data.grad).detach().clone()
+                for p in step.params]
+    finally:
+        if saved is not None:
+            dist.GradientBucketer.split = saved
+        if handle is not None:
+            dist.detach(step.trainer)
+
+
+def _fp32_values(step):
+    """Each parameter's fp32 value after an update: its multi-precision
+    master, else the weight itself."""
+    states = step.trainer._whole_states()
+    slot = {id(p): i for i, p in enumerate(step.trainer._params)}
+    out = []
+    for p in step.params:
+        s = states.get(slot.get(id(p)))
+        out.append((s["master"] if isinstance(s, dict) and "master" in s
+                    else p._tensor()).detach().float().clone())
+    return out
+
+
+def _dist_update(step, init, grads, mesh=None, zero=0, fault=None):
+    """One Adam update from ``init`` with the given gradients, no backward:
+    the plain Trainer's, or through ``dist.attach`` at ZeRO ``zero`` (the
+    exchange, which ``finish()`` launches for every bucket, then the
+    sharded update and at ZeRO 3 the release and gather). Returns (the
+    weights, their fp32 values) after."""
+    import torch
+    from mxnet_tpu_torch import dist, gluon
+
+    with torch.no_grad():
+        for p, s in zip(step.params, init):
+            p._tensor().copy_(s)
+    step.trainer = gluon.Trainer(step.model.collect_params(), "adam", ADAM)
+    handle = None
+    if mesh is not None:
+        handle = dist.attach(step.trainer, mesh, ici_axis="dp",
+                             dcn_axis="dcn", average=True, zero=zero)
+    if fault is not None:
+        opt = step.trainer._optimizer
+        opt.fused_update = fault(opt.fused_update)
+    try:
+        if handle is not None:
+            handle.gather_params()
+        for p, g in zip(step.params, grads):
+            p._tensor().grad = g.clone()
+        step.trainer.step(GPT_TRAIN["batch"])
+        if handle is not None:
+            handle.gather_params()
+        return _param_snapshot(step), _fp32_values(step)
+    finally:
+        if handle is not None:
+            dist.detach(step.trainer)
+
+
+def first_block_kept(fused):
+    """A planted fault: the update skips the first weight's block (the
+    rank's block of it under ZeRO; weight and state keep their values)."""
+    def skipped(ws, gs, ss, idx=None):
+        idx = list(range(len(ws))) if idx is None else list(idx)
+        return [ss[0]] + fused(ws[1:], gs[1:], ss[1:], idx[1:])
+
+    return skipped
+
+
+def _update_gap(got, ref, init):
+    """(the worst parameter's |fp32 step - the plain one's| / |the plain
+    one| in L2, the count of bf16 weights not bitwise the plain's)."""
+    import torch
+
+    weights, values = got
+    ref_w, ref_v = ref
+    worst = 0.0
+    for v, rv, s in zip(values, ref_v, init):
+        den = float((rv - s.float()).norm())
+        num = float((v - rv).norm())
+        worst = max(worst, num / den if den > 0 else num)
+    return worst, sum(not torch.equal(a, b) for a, b in zip(weights, ref_w))
+
+
+def last_member_dropped(parts):
+    """A planted fault: a bucket's last member reads zeros instead of its
+    reduced gradient."""
+    import torch
+
+    parts[-1] = torch.zeros_like(parts[-1])
+    return parts
+
+
+def _check_dist_row(row, what):
+    for name, n in GPT_STEP_LAUNCHES.items():
+        check(row["launches"][name] == n, "%s: %s launches %d != %d"
+              % (what, name, row["launches"][name], n))
+    check(row["launches"]["flash_attention_fwd_f32"] == 0,
+          "%s launched the fp32 flash form" % what)
+    check(np.isfinite(row["loss"]), "%s: non-finite loss" % what)
+    if "buckets" in row:
+        check(row["bucket_launches"] == row["buckets"] and row["plans"] == 0,
+              "%s: %d bucket launches for a plan of %d, %d plans made"
+              % (what, row["bucket_launches"], row["buckets"], row["plans"]))
+        check((row["first_bucket_before_last_grad_ms"] or 0) > 0,
+              "%s: the first bucket's whole exchange did not end before the "
+              "backward's last gradient landed (%s ms)"
+              % (what, row["first_bucket_before_last_grad_ms"]))
+
+
+def phase_dist_train(dev):
+    """GPT-2 small trained through ``dist.attach`` at ZeRO 0-3 and each
+    compression over an NCCL group of one rank, held to the plain Trainer;
+    a planted bucket fault; then ``ModelServer(devices=[card, card])`` on
+    BERT-base at seq 512."""
+    import torch
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.parallel import distributed
+
+    t_phase = time.perf_counter()
+    distributed.init_process_group(device=dev)
+    mesh = parallel.make_mesh({"dcn": 1, "dp": 1})
+    step = GPTTrainStep(dev)
+    init = _param_snapshot(step)
+    out = {"mesh": mesh.shape, "backend": torch.distributed.get_backend(),
+           "card": card_line()}
+    ref, rows_a = _dist_steps(step, init, DIST_STEPS)
+    again, rows_c = _dist_steps(step, init, DIST_STEPS)
+    own_gap, own_n = _params_gap(again, ref)
+    del again
+    for r in rows_a + rows_c:
+        _check_dist_row(r, "plain gpt2 step")
+    out["plain"] = {"steps": rows_a, "second_run_gap": [own_gap, own_n]}
+    print("dist: plain gpt2 steps %s; a second plain run differs in %d "
+          "parameters (max %.3g)" % ([round(r["loss"], 5) for r in rows_a],
+                                     own_n, own_gap), flush=True)
+    out["zero"] = {}
+    for zero in (0, 1, 2, 3):
+        got, rows = _dist_steps(step, init, DIST_STEPS, mesh, zero)
+        gap, n = _params_gap(got, ref)
+        del got
+        for r in rows:
+            _check_dist_row(r, "dist gpt2 step, zero %d" % zero)
+        # a reading: Adam's steps are about the sign of each gradient, so
+        # the flash backward's run-to-run noise moves the parameters as
+        # much as a fault would; the checks with teeth follow
+        out["zero"][zero] = {"steps": rows, "gap": [gap, n]}
+        print("dist zero %d: losses %s, %d buckets, %d bucket launches a "
+              "step, first bucket's whole exchange done %.3f ms before the "
+              "last gradient; host enqueue %.1f ms, wall %.1f ms, device "
+              "%.1f ms a step; vs plain: %d parameters differ (max %.3g; the "
+              "plain run's own %d, %.3g)" % (
+                  zero, [round(r["loss"], 5) for r in rows],
+                  rows[-1]["buckets"], rows[-1]["bucket_launches"],
+                  rows[-1]["first_bucket_before_last_grad_ms"] or 0.0,
+                  rows[-1]["host_enqueue_ms"], rows[-1]["host_wall_ms"],
+                  rows[-1]["device_ms"], n, gap, own_n, own_gap), flush=True)
+    # at every ZeRO stage the exchanged gradients against the plain
+    # step's (GPT-2's gradient and row limits), honest and with a planted
+    # fault at ZeRO 0: each bucket's last member reads zeros
+    out["gradients"] = {}
+    plain_grads = _dist_grads(step, init)
+    cases = [("plain step again", None, 0, None)] + [
+        ("attached, zero %d" % z, mesh, z, None) for z in (0, 1, 2, 3)] + [
+        ("attached, zero 0, each bucket's last member dropped", mesh, 0,
+         last_member_dropped)]
+    for label, mesh_, zero, fault in cases:
+        grads = _dist_grads(step, init, mesh_, zero, fault)
+        r = {"worst_grad_rel_l2": grad_rel_l2(step.params, grads,
+                                              plain_grads)[0][0],
+             "worst_row_rel_l2": grad_row_rel_l2(step.params, grads,
+                                                 plain_grads)[0][0]}
+        del grads
+        r["within"] = (r["worst_grad_rel_l2"] <= GPT_STEP_GRAD_TOL
+                       and r["worst_row_rel_l2"] <= GPT_STEP_ROW_TOL)
+        out["gradients"][label] = r
+        print("dist gradients, %s, vs the plain step's: worst relative L2 "
+              "%.3g (limit %g), worst row %.3g (limit %g)" % (
+                  label, r["worst_grad_rel_l2"], GPT_STEP_GRAD_TOL,
+                  r["worst_row_rel_l2"], GPT_STEP_ROW_TOL), flush=True)
+        check(r["within"] == (fault is None), "dist gradients, %s: the "
+              "limits %s it" % (label, "refuse" if fault is None
+                                else "miss"))
+    # at every ZeRO stage the update from the plain step's gradients
+    # against the plain Trainer's (deterministic: the same gradients in),
+    # honest and with the first weight block's update skipped, planted
+    out["update"] = {}
+    plain_upd = _dist_update(step, init, plain_grads)
+    for zero in (0, 1, 2, 3):
+        for label, fault in (("", None),
+                             (", first block's update skipped",
+                              first_block_kept)):
+            worst, differ = _update_gap(
+                _dist_update(step, init, plain_grads, mesh, zero, fault),
+                plain_upd, init)
+            r = {"worst_step_rel_l2": worst, "bf16_weights_differ": differ,
+                 "within": worst <= DIST_UPDATE_TOL and differ == 0}
+            out["update"]["zero %d%s" % (zero, label)] = r
+            print("dist update, zero %d%s, vs the plain Trainer's from the "
+                  "same gradients: worst fp32 step relative L2 %.3g (limit "
+                  "%g), %d bf16 weights not bitwise equal" % (
+                      zero, label, worst, DIST_UPDATE_TOL, differ),
+                  flush=True)
+            check(r["within"] == (fault is None), "dist update, zero %d%s: "
+                  "the limit %s it" % (zero, label, "refuses" if fault is None
+                                       else "misses"))
+    del plain_grads, plain_upd
+    out["compressed"] = {}
+    for comp in DIST_COMPRESSIONS:
+        for zero in (0, 1, 2, 3):
+            _, rows = _dist_steps(step, init, 1, mesh, zero, comp)
+            _check_dist_row(rows[0], "dist %s zero %d" % (comp, zero))
+            out["compressed"]["%s_zero%d" % (comp, zero)] = rows[0]
+            check(rows[0]["codec_exact"], "dist %s zero %d: acc != "
+                  "deq(payload) + residual" % (comp, zero))
+    print("dist compressed steps (fp16/int8/2bit x zero 0-3): losses %s; "
+          "acc == deq(payload) + residual exactly in every bucket"
+          % {k: round(v["loss"], 5) for k, v in out["compressed"].items()},
+          flush=True)
+    del step, init, ref
+    torch.cuda.empty_cache()
+    distributed.shutdown()
+    out["replicas"] = phase_serve_replicas(dev)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    print("dist phase: %.1f s on %s" % (out["phase_seconds"], out["card"]),
+          flush=True)
+    return out
+
+
+def _host_ops(step, top=12):
+    """The host's busiest torch ops of one step (self CPU ms, calls) under
+    torch.profiler, printed: where the exchange's host time goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = sorted(((ev.self_cpu_time_total / 1e3, ev.count, ev.key)
+                   for ev in prof.key_averages()
+                   if not ev.key.startswith("mxnet_tpu_torch::")),
+                  reverse=True)[:top]
+    print("  host ops of one step (self CPU ms, calls): %s" % "; ".join(
+        "%s %.2f x%d" % (k[:40], ms, n) for ms, n, k in rows), flush=True)
+    return [[k, ms, n] for ms, n, k in rows]
+
+
+def phase_dist_breakdown(dev):
+    """The GPT-2 step through ``dist.attach`` (zero 0 and 1, NCCL at one
+    rank) under torch.profiler: kernel time by class, the host and device
+    time of the exchange's ranges, the idle share (the plain step's is
+    ``phase_train_breakdown``'s "gpt2 train step")."""
+    from mxnet_tpu_torch import dist, parallel
+    from mxnet_tpu_torch.parallel import distributed
+
+    distributed.init_process_group(device=dev)
+    out = {}
+    try:
+        mesh = parallel.make_mesh({"dcn": 1, "dp": 1})
+        step = GPTTrainStep(dev)
+        for zero in (0, 1):
+            dist.attach(step.trainer, mesh, ici_axis="dp", dcn_axis="dcn",
+                        zero=zero, average=True)
+            try:
+                out["zero%d" % zero] = phase_train_breakdown(
+                    step, label="gpt2 dist step, zero %d" % zero)
+                out["zero%d" % zero]["host_ops"] = _host_ops(step)
+            finally:
+                dist.detach(step.trainer)
+        del step
+    finally:
+        distributed.shutdown()
+    return out
+
+
+def phase_serve_replicas(dev):
+    """BERT-base at seq 512 through ``ModelServer(devices=[card, card])``:
+    two replicas with their own bucket graphs, batches alternating, rows
+    bitwise a one-replica server's on the same weights, no capture in
+    traffic, a swap reaching both replicas."""
+    import torch
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.models.bert import bert_base
+    from mxnet_tpu_torch.serve import ModelServer
+
+    model = bert_base(dropout=0.1, max_length=SEQ)
+    model.initialize(device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(SEED))
+    amp.convert_hybrid_block(model, "bfloat16")
+    specs = [((SEQ,), "int32"), ((SEQ,), "int32"), ((), "int32")]
+    one = ModelServer(model, specs, buckets=BUCKETS, max_wait_ms=5.0,
+                      timeout_ms=120000.0, device=dev)
+    two = ModelServer(model, specs, buckets=BUCKETS, max_wait_ms=5.0,
+                      timeout_ms=120000.0, devices=[dev, dev])
+    warm = two.stats()
+    for r in warm["replicas"]:
+        check_warm_graphs(r, BUCKETS, "replica server")
+    tok, tt, vl = _bert_requests()
+    reqs = [(tok[i:i + 1], tt[i:i + 1], vl[i:i + 1])
+            for i in range(N_REQUESTS)]
+
+    def same(a, b):
+        return outputs_equal(list(a), list(b))
+
+    with one, two:
+        want = _served_rows(one, reqs)
+        got = _served_rows(two, reqs)
+    st = two.stats()
+    batches = [r["batches"] for r in st["replicas"]]
+    equal = all(same(g, w) for g, w in zip(got, want))
+    check(equal, "replica server rows differ from one replica's")
+    check(batches == [N_REQUESTS // 2] * 2, "batches did not alternate "
+          "between the replicas: %s" % batches)
+    check([r["captures"] for r in st["replicas"]] ==
+          [r["captures"] for r in warm["replicas"]],
+          "the replica server captured in traffic")
+    good, bad = _bert_swap_files(dev, SEED + 53, None)
+    try:
+        two.swap_parameters(good)
+        with one, two:
+            after_one = _served_rows(one, reqs[:4])
+            after_two = _served_rows(two, reqs[:4])
+    finally:
+        import shutil
+
+        shutil.rmtree(os.path.dirname(good), ignore_errors=True)
+    swapped = all(same(a, b) for a, b in zip(after_two, after_one)) and \
+        not same(after_two[0], want[0])
+    out = {"batches": batches, "rows_equal": equal, "swap_reached_both":
+           swapped, "captures": [r["captures"] for r in st["replicas"]]}
+    print("replica server: 2 replicas on %s, batches %s, rows bitwise one "
+          "replica's %s, captures %s (none in traffic), a swap reached "
+          "both %s" % (dev, batches, equal, out["captures"], swapped),
+          flush=True)
+    check(swapped, "a swap did not reach both replicas")
+    one.stop()
+    two.stop()
+    return out
+
+
 def card_line():
     """The card's name and power limit, as ``nvidia-smi --query-gpu=
     name,power.limit --format=csv,noheader`` gives them."""
@@ -8243,6 +8988,10 @@ def main():
             {k: round(v, 1) for k, v in vision_s.items()},
             sum(vision_s.values())), flush=True)
         a11_steps, a11 = run_a11(dev)
+        t0 = time.perf_counter()
+        converted = phase_convert(dev)
+        converted["phase_seconds"] = time.perf_counter() - t0
+        dist_train = phase_dist_train(dev)
         records, crossover = phase_timing(
             dev, train["launches"], train["steps_counted"], errs,
             serve_launches, forwards, serve_vl)
@@ -8261,6 +9010,7 @@ def main():
         gpt_train["breakdown"] = phase_train_breakdown(
             gpt_step, label="gpt2 train step")
         del gpt_step
+        dist_train["breakdown"] = phase_dist_breakdown(dev)
         resnet["breakdown"] = phase_resnet_breakdown(resnet_step)
         del resnet_step
         a11_breakdowns(a11_steps, a11)
@@ -8296,6 +9046,7 @@ def main():
                       "serve_graph": serve_graph, "optimizers": optim,
                       "bad_ids": bad_ids, "train_resnet50": resnet,
                       "vision_zoo": zoo, "nd": nd_phases, "a11": a11,
+                      "convert": converted, "dist_train": dist_train,
                       "decode_step_graphs": graphs, "quantized": quant,
                       "speculative": spec, "chunked_prefill": chunked,
                       "attention_dense_vs_flash": crossover,

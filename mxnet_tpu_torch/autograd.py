@@ -11,11 +11,15 @@ ones (torch's own ``Tensor.backward()`` refuses one).
 
 The variables a backward reaches are the Parameters read and the NDArrays
 with a gradient buffer (``attach_grad``, :func:`mark_variables`) used
-inside the outermost ``record()`` scope on this thread. Gradients come from
-``torch.autograd.grad``, so torch's own ``.grad`` accumulation never takes
-part. :func:`grad` returns gradients without storing them, and with
-``create_graph=True`` records their computation for a higher order. The
-state is per thread, as in the JAX package.
+inside the outermost ``record()`` scope on this thread. :func:`backward`
+lets torch's engine accumulate into the parameters' gradient tensors
+(``torch.autograd.backward`` with ``inputs=``), each cleared first unless
+its ``grad_req`` is ``"add"``, so a parameter's
+``register_post_accumulate_grad_hook`` fires as its gradient lands (the
+bucketed exchange of ``mxnet_tpu_torch.dist`` starts there). :func:`grad`
+returns gradients without storing them, and with ``create_graph=True``
+records their computation for a higher order. The state is per thread, as
+in the JAX package.
 
 Not here: the compiled tape replay of the JAX package
 (``set_tape_compile``; ``ROADMAP.md`` A.13) and ``get_symbol`` (A.14).
@@ -41,7 +45,6 @@ class _State(threading.local):
 
 
 _st = _State()
-
 
 def read_variable(var, tensor):
     """Called by ``Parameter`` and by ``nd`` for an NDArray with a gradient
@@ -150,14 +153,33 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     if not entries:
         raise RuntimeError("backward: no variable with a gradient was read "
                            "inside autograd.record()")
-    grads = torch.autograd.grad(
-        heads, [t for _, t in entries], seeds, retain_graph=retain_graph,
-        allow_unused=True) if heads else [None] * len(entries)
-    for (var, _), g in zip(entries, grads):
-        if g is not None:
-            var._store_grad(g)
+    _accumulate(heads, seeds, entries, retain_graph)
     if not retain_graph:
         _st.params = {}
+
+
+def _accumulate(heads, seeds, entries, retain_graph):
+    """The gradients accumulated into the tensors' ``.grad`` by torch's
+    engine (a Parameter's hooks fire as each lands): cleared first unless
+    ``grad_req`` is ``"add"``; a variable the heads do not reach keeps its
+    gradient; an NDArray's gradient goes to its own buffer."""
+    from .gluon.parameter import Parameter
+
+    saved = []
+    for var, t in entries:
+        saved.append(t.grad)
+        if not (isinstance(var, Parameter) and var.grad_req == "add"):
+            t.grad = None
+    if heads:
+        torch.autograd.backward(heads, seeds, retain_graph=retain_graph,
+                                inputs=[t for _, t in entries])
+    for (var, t), old in zip(entries, saved):
+        if not isinstance(var, Parameter):
+            g, t.grad = t.grad, old
+            if g is not None:
+                var._store_grad(g)
+        elif t.grad is None:
+            t.grad = old
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,

@@ -43,7 +43,8 @@ _models = {
 def get_model(name, **kwargs):
     """(ref: model_zoo/vision/__init__.py:get_model) The network ``name``
     of the registry, built with ``kwargs`` (``classes`` and the family's
-    own). ``pretrained=<path>`` loads a native parameter file on ``ctx``
+    own). ``pretrained=<path>`` loads a native parameter file or converts
+    a torchvision checkpoint (``gluon.model_zoo.convert``) on ``ctx``
     (default: the current CUDA device); ``pretrained=True`` raises: no
     model store is reachable."""
     from ..convert import build_with_pretrained
@@ -53,5 +54,5 @@ def get_model(name, **kwargs):
     if name.lower() not in _models:
         raise ValueError("model %s not found; available: %s"
                          % (name, sorted(_models)))
-    return build_with_pretrained(_models[name.lower()], pretrained, ctx=ctx,
-                                 **kwargs)
+    return build_with_pretrained(_models[name.lower()], name.lower(),
+                                 pretrained, ctx=ctx, **kwargs)

@@ -290,13 +290,15 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, **kwargs):
     """(ref: python/mxnet/gluon/model_zoo/vision/resnet.py:get_resnet)
     ResNet ``version`` 1 or 2 of ``num_layers`` 18-152; kwargs reach the
     ResNetV1/V2 constructor (``classes``, ``thumbnail``, ``stem_s2d``).
-    ``pretrained`` is a path to a native parameter file, or False."""
+    ``pretrained`` is a path to a native parameter file or a torchvision
+    checkpoint, or False."""
     from ..convert import build_with_pretrained
     block_type, layers, channels = resnet_spec[num_layers]
     return build_with_pretrained(
         lambda **kw: resnet_net_versions[version - 1](
             resnet_block_versions[version - 1][block_type], layers, channels,
-            **kw), pretrained, ctx=ctx, **kwargs)
+            **kw), "resnet%d_v%d" % (num_layers, version), pretrained,
+        ctx=ctx, **kwargs)
 
 
 def _resnet_v1b(num_layers, pretrained=False, ctx=None, **kwargs):
@@ -305,7 +307,7 @@ def _resnet_v1b(num_layers, pretrained=False, ctx=None, **kwargs):
     blocks = {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1b}
     return build_with_pretrained(
         lambda **kw: ResNetV1(blocks[block_type], layers, channels, **kw),
-        pretrained, ctx=ctx, **kwargs)
+        "resnet%d_v1b" % num_layers, pretrained, ctx=ctx, **kwargs)
 
 
 def resnet18_v1b(**kwargs):

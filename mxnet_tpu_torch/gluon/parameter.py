@@ -156,13 +156,6 @@ class Parameter:
         if self._data is not None and self._data.grad is not None:
             self._data.grad = torch.zeros_like(self._data)
 
-    def _store_grad(self, g):
-        """Store a gradient from ``autograd.backward`` by ``grad_req``."""
-        if self._grad_req == "add" and self._data.grad is not None:
-            self._data.grad = self._data.grad + g
-        else:
-            self._data.grad = g
-
     @property
     def device(self):
         return None if self._data is None else self._data.device

@@ -39,7 +39,8 @@ from . import random as _random
 
 __all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "AdaGrad", "AdaDelta",
            "AdaMax", "FTML", "DCASGD", "LARS", "RMSProp", "Ftrl", "LAMB",
-           "Signum", "SGLD", "Updater", "create", "get_updater", "register"]
+           "Signum", "SGLD", "Updater", "create", "get_updater", "register",
+           "sharded_step"]
 
 LOW_PRECISION = (torch.bfloat16, torch.float16)
 _REGISTRY = {}
@@ -232,6 +233,46 @@ class Optimizer:
         raise NotImplementedError(
             "a row-sparse gradient takes the lazy row update, which waits "
             "for sparse.py (ROADMAP.md A.17)")
+
+
+def sharded_step(step, params, grads, group, nshard, rank,
+                 keep_sharded=False, full_shapes=None):
+    """ZeRO-1 weight-update sharding (Xu et al., arXiv 2004.13336; the
+    JAX package's ``_fused_stepper(mesh=, shard_axis=, keep_sharded=)``):
+    ``step(weights, grads)`` updates each weight only in this rank's block
+    along the first axis ``nshard`` divides (a weight no axis of which
+    divides is updated whole, alike on every rank), then the blocks are
+    all-gathered over ``group`` back into the weights. The states ``step``
+    holds are the blocks' states. A gradient may come whole or as the block
+    (ZeRO-2); with ``keep_sharded`` (ZeRO-3) the weights given are the
+    blocks themselves and nothing is gathered. ``full_shapes``: the
+    weights' whole shapes (default: their shapes). Returns what ``step``
+    returns."""
+    from .dist.zero import block, gather_block, shard_dim
+
+    if full_shapes is None:
+        full_shapes = [tuple(w.shape) for w in params]
+    ws, gs, back = [], [], []
+    for w, g, shape in zip(params, grads, full_shapes):
+        d = shard_dim(shape, nshard)
+        if d is None or keep_sharded:
+            wb = w
+        else:
+            wb = block(w, d, rank, nshard)
+            back.append((w, wb, d))
+        gb = g if d is None or tuple(g.shape) != tuple(shape) \
+            else block(g, d, rank, nshard)
+        ws.append(wb)
+        gs.append(gb)
+    new = step(ws, gs)
+    with torch.no_grad(), torch.profiler.record_function(
+            "mxnet_tpu_torch::zero_gather"):
+        works = [gather_block(w, wb, d, group, nshard, async_op=True)
+                 for w, wb, d in back]
+        for work in works:
+            if work is not None:
+                work.wait()
+    return new
 
 
 @register

@@ -27,9 +27,14 @@ captured graphs serve the new weights and no batch sees a mix.
 (by default fit to ``metrics.request_rows()``) and captures exactly it.
 Fault drills assign ``srv.inject_fault = lambda batch_idx: ...``, which
 may raise on chosen batches: their requests get the error, the server
-keeps serving. ``snapshot`` is not ported (it needs ``save_for_serving``,
-hence ``symbol``: ROADMAP.md A.14), nor are ``devices=`` replicas (A.12)
-and the metrics endpoint (A.16).
+keeps serving. ``devices=[...]`` serves one replica a listed device, each with its own
+bucket graphs: the first runs on the model's parameters, the others on
+copies on their devices (made again if a parameter is given a new
+tensor); batches go round-robin over the replicas, one dispatcher thread
+a replica, ``swap_parameters`` copies into every replica and ``stats()``
+counts each (``replicas``). ``snapshot`` is not ported (it needs
+``save_for_serving``, hence ``symbol``: ROADMAP.md A.14), nor is the
+metrics endpoint (A.16).
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from ..base import resolve_device
 from ..checkpoint import validate_swap
@@ -69,6 +75,10 @@ class ModelServer:
         Default per-request deadline.
     device : str | torch.device | Context | None
         Where the model runs; None is the current CUDA device.
+    devices : list or None
+        Replica devices (the JAX server's ``devices``): one replica each,
+        batches round-robin over them; the first is where the model's own
+        parameters go (``device`` is ignored then).
     quantize : None or 'int8' / 'e4m3' / 'e5m2'
         Serve with quantized weights: ``quantization.quantize_model`` swaps
         every Dense and Conv2D for its quantized twin before the executor
@@ -83,8 +93,10 @@ class ModelServer:
     def __init__(self, model, input_specs, buckets=DEFAULT_BUCKETS,
                  max_wait_ms=2.0, max_queue=256, timeout_ms=1000.0,
                  device=None, name=None, warmup=True, quantize=None,
-                 calib_mode="none", calib_data=None):
-        self.device = resolve_device(device)
+                 calib_mode="none", calib_data=None, devices=None):
+        self.devices = [resolve_device(d) for d in devices] if devices \
+            else [resolve_device(device)]
+        self.device = self.devices[0]
         self.name = name or ("serve:%s" % type(model).__name__.lower())
         self.model = model
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
@@ -103,11 +115,15 @@ class ModelServer:
         if self.quantize is not None:
             quantize_model(model, mode=self.quantize, calib_mode=calib_mode,
                            calib_data=calib_data)
-        # the dispatch lock: a dispatch holds it from the input copy to
-        # the output copy-out, a swap while it copies the new weights in
+        # the dispatch locks, one a replica: a dispatch holds its replica's
+        # from the input copy to the output copy-out, a swap holds them all
+        # while it copies the new weights in
         self._params_lock = threading.Lock()
+        self._replica_locks = [self._params_lock] + [
+            threading.Lock() for _ in self.devices[1:]]
         self._swap_epoch = 0
         self._batch_idx = 0
+        self._batch_lock = threading.Lock()
         self.inject_fault = None  # drill hook: callable(batch_idx) may raise
         self._build()
         self._started = False
@@ -119,24 +135,50 @@ class ModelServer:
             self.warmup()
 
     def _build(self):
-        """The executor pool and the batcher for ``self.buckets``."""
+        """The executor pools (one a replica) and the batcher for
+        ``self.buckets``."""
         fn, _ = self.model.serving_fn()
         plist = list(self.model.collect_params().values())
-        self._pool = BucketedExecutor(
+        self._plist = plist
+        self._copies = {}
+        self._pools = [BucketedExecutor(
             fn, lambda: [p._tensor() for p in plist], self.buckets,
-            self.device)
+            self.device)]
+        for r, dev in enumerate(self.devices[1:], 1):
+            self._pools.append(BucketedExecutor(
+                fn, self._replica_params_fn(r), self.buckets, dev))
+        self._pool = self._pools[0]
+        self._replica_batches = [0] * len(self._pools)
         self._batcher = DynamicBatcher(
             self._dispatch, max_batch=self.buckets[-1],
             max_wait_ms=self._max_wait_ms, max_queue=self._max_queue,
-            metrics=self.metrics)
+            metrics=self.metrics, num_dispatchers=len(self._pools))
+
+    def _replica_params_fn(self, r):
+        """Replica ``r``'s parameters: copies of the model's on its device,
+        made again when a parameter was given a new tensor."""
+        dev = self.devices[r]
+
+        def params_fn():
+            live = [p._tensor() for p in self._plist]
+            ptrs = [t.data_ptr() for t in live]
+            held = self._copies.get(r)
+            if held is None or held[0] != ptrs:
+                with torch.no_grad():
+                    held = self._copies[r] = (
+                        ptrs, [t.detach().to(dev, copy=True) for t in live])
+            return held[1]
+
+        return params_fn
 
     def warmup(self):
         """Make every bucket's program (on CUDA: capture its graph) before
         taking traffic; also proves the outputs are row-aligned (padding is
         sound only when each output carries the batch on axis 0)."""
-        with self._params_lock:
-            self._pool.warmup(self._specs)
-        if not self._pool.row_aligned:
+        for pool, lock in zip(self._pools, self._replica_locks):
+            with lock:
+                pool.warmup(self._specs)
+        if not all(pool.row_aligned for pool in self._pools):
             raise ServeError("model outputs do not all carry the batch on "
                              "axis 0 — padded serving cannot slice rows")
         return self
@@ -180,10 +222,23 @@ class ModelServer:
         picked = validate_swap(self.model, params_file)
         params = self.model._collect_params_with_prefix()
         staged = {n: a.to(self.device) for n, a in picked.items()}
-        with self._params_lock:
-            for name, arr in staged.items():
-                params[name].copy_data(arr)
+        index = {id(p): i for i, p in enumerate(self._plist)}
+        for lock in self._replica_locks:
+            lock.acquire()
+        try:
+            with torch.no_grad():
+                for name, arr in staged.items():
+                    params[name].copy_data(arr)
+                # every replica's copies take the same values
+                for r in range(1, len(self._pools)):
+                    self._pools[r]._params_fn()
+                    for name, arr in staged.items():
+                        i = index[id(params[name])]
+                        self._copies[r][1][i].copy_(arr)
             self._swap_epoch += 1
+        finally:
+            for lock in reversed(self._replica_locks):
+                lock.release()
         return self._swap_epoch
 
     def retune_buckets(self, buckets=None, max_buckets=6):
@@ -279,17 +334,21 @@ class ModelServer:
     def _dispatch(self, requests, total_rows):
         """Batcher callback: coalesce, one bucket forward, scatter results;
         finishes every request."""
-        idx = self._batch_idx  # one dispatcher thread: no race
-        self._batch_idx += 1
+        with self._batch_lock:
+            idx = self._batch_idx
+            self._batch_idx += 1
+        replica = idx % len(self._pools)  # round-robin over the replicas
         try:
             if self.inject_fault is not None:
                 self.inject_fault(idx)
             ins = [np.concatenate([r.inputs[i] for r in requests], axis=0)
                    for i in range(len(self._specs))]
-            with self._params_lock:
-                outs = self._pool.run(ins, n_real=total_rows)
+            pool = self._pools[replica]
+            with self._replica_locks[replica]:
+                outs = pool.run(ins, n_real=total_rows)
+                self._replica_batches[replica] += 1
             self.metrics.record_batch(total_rows,
-                                      self._pool.pick_bucket(total_rows))
+                                      pool.pick_bucket(total_rows))
             now = time.perf_counter()
             off = 0
             for r in requests:
@@ -303,10 +362,18 @@ class ModelServer:
                 r.finish(error=e)
 
     def stats(self):
-        """Snapshot: batcher/latency metrics, the bucket set and the pool's
-        program counters (``captures``, ``replays``, ``drops``)."""
+        """Snapshot: batcher/latency metrics, the bucket set, the pools'
+        program counters (``captures``, ``replays``, ``drops``: summed over
+        the replicas; ``programs``: the first replica's) and ``replicas``,
+        each replica's device, batches and counters."""
         snap = self.metrics.snapshot()
+        per = [dict(pool.stats(), device=str(dev), batches=n)
+               for pool, dev, n in zip(self._pools, self.devices,
+                                       self._replica_batches)]
         snap.update(buckets=list(self.buckets), device=str(self.device),
                     quantize=self.quantize, running=self._started,
-                    swap_epoch=self._swap_epoch, **self._pool.stats())
+                    swap_epoch=self._swap_epoch, replicas=per,
+                    programs=per[0]["programs"],
+                    **{k: sum(r[k] for r in per)
+                       for k in ("captures", "replays", "drops")})
         return snap

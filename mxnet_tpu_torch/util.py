@@ -116,3 +116,15 @@ def tree_leaves(tree, like=None):
     if isinstance(like, (list, tuple)):
         return [x for t, s in zip(tree, like) for x in tree_leaves(t, s)]
     return [tree]
+
+
+def map_state(state, fn):
+    """``state`` (nested tuples, lists and dicts of tensors) with ``fn``
+    applied to each tensor."""
+    if isinstance(state, torch.Tensor):
+        return fn(state)
+    if isinstance(state, dict):
+        return {k: map_state(v, fn) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(map_state(v, fn) for v in state)
+    return state

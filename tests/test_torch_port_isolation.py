@@ -4,7 +4,8 @@ package; the package (the GPT
 model, the generative server, the checkpoint layer, the snapshots, the
 optimizers, the LR schedulers, ``ir.tune``, ``parallel``, the vision
 layers, the model zoo, NDArray and the ``nd`` namespace, ``gluon.rnn``,
-the detection ops and the LSTM, SSD and Transformer models included) imports
+the detection ops and the LSTM, SSD and Transformer models, the kvstore,
+``dist``, ``parallel``, the converters and the model store included) imports
 with JAX blocked; and without
 CUDA every entry point refuses to run unless the caller asks for the
 CPU."""
@@ -29,6 +30,7 @@ def _port_sources():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tools", "nd_op_cases.py")  # chip_smoke's
+    yield os.path.join(REPO, "tools", "torch_resnet_ref.py")  # and this
 
 
 def _imported_roots(path):
@@ -69,7 +71,14 @@ def test_package_imports_with_jax_blocked():
             "mxnet_tpu_torch.ops.legacy_ops, mxnet_tpu_torch.ops.rnn, "
             "mxnet_tpu_torch.ops.detection, mxnet_tpu_torch.gluon.rnn, "
             "mxnet_tpu_torch.models.lstm_lm, mxnet_tpu_torch.models.ssd, "
-            "mxnet_tpu_torch.models.transformer; "
+            "mxnet_tpu_torch.models.transformer, mxnet_tpu_torch.kvstore, "
+            "mxnet_tpu_torch.dist, mxnet_tpu_torch.dist.hierarchical, "
+            "mxnet_tpu_torch.dist.bucketer, mxnet_tpu_torch.dist.zero, "
+            "mxnet_tpu_torch.dist.elastic, mxnet_tpu_torch.parallel, "
+            "mxnet_tpu_torch.parallel.mesh, "
+            "mxnet_tpu_torch.parallel.distributed, "
+            "mxnet_tpu_torch.parallel.resilience, "
+            "mxnet_tpu_torch.gluon.model_zoo.model_store; "
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
@@ -139,3 +148,15 @@ def test_without_cuda_entry_points_raise(monkeypatch):
                  lambda: nd.random_uniform(shape=(2,))):
         with pytest.raises(DeviceError):
             make()
+    from mxnet_tpu_torch.gluon.model_zoo import convert
+    from mxnet_tpu_torch.parallel import distributed
+
+    with pytest.raises(DeviceError):
+        distributed.init_process_group()
+    assert not distributed.is_initialized()
+    with pytest.raises(DeviceError):  # a converted value with no ctx
+        convert.apply_converted(vision.resnet18_v1(classes=4), {
+            "output.bias": torch.zeros(4).numpy()}, strict=False)
+    with pytest.raises(DeviceError):
+        ModelServer(net, [((3, 32, 32), "float32")], buckets=(1,),
+                    devices=["cpu", "cuda:0"])

@@ -120,6 +120,8 @@ def test_pretrained_true_raises_and_a_path_loads(jax_trace_state,  # noqa: F811
     if not torch.cuda.is_available():
         with pytest.raises(DeviceError):
             vision.get_model("squeezenet1.1", classes=5, pretrained=path)
-    with pytest.raises(NotImplementedError, match="converter"):
+    # a torch checkpoint goes through the torchvision converter
+    # (test_torch_port_convert.py): a missing one is a missing file
+    with pytest.raises(FileNotFoundError):
         vision.get_model("resnet18_v1", pretrained=str(tmp_path / "r.pth"),
                          ctx="cpu")

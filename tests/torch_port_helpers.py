@@ -184,3 +184,15 @@ def port_class_step(model, trainer, x, y):
              if p.grad_req != "null"}
     trainer.step(x.shape[0])
     return f32(loss), grads
+
+
+@pytest.fixture(scope="module", autouse=False)
+def jax_rng_kept():
+    """Leave the JAX package's global random stream as the module found it:
+    a later file in the same test worker that initializes a JAX model
+    unseeded draws the weights it would have drawn without this module."""
+    from mxnet_tpu import random as jrandom
+
+    state = jrandom.get_state()
+    yield
+    jrandom.set_state(state)

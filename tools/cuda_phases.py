@@ -36,7 +36,13 @@ built:
   ``phase_nmt_translate`` (LSTM PTB, SSD-512 and Transformer NMT at
   bench.py's recipes), ``phase_a11_timing`` (the LayerNorm and
   softmax-xent kernels at their shapes) and the three steps'
-  breakdowns.
+  breakdowns;
+- ``dist``: ``phase_convert`` (a torchvision ResNet-50 checkpoint
+  converted, HF BERT-base and GPT-2 small transplanted and run) and
+  ``phase_dist_train`` (the GPT-2 step through ``dist.attach`` over an
+  NCCL group of one rank at ZeRO 0-3 and each compression, a planted
+  bucket fault, and ``ModelServer(devices=[card, card])``) and
+  ``phase_dist_breakdown`` (the attached step under torch.profiler).
 
 The readings go to ``chiprun_out/cuda_phases.json``. ``--keep-going``
 prints a failed check and goes on (to read every number of a first run);
@@ -136,11 +142,19 @@ def run_a11(cs, dev):
     return out
 
 
+def run_dist(cs, dev):
+    out = {"convert": cs.phase_convert(dev),
+           "dist_train": cs.phase_dist_train(dev)}
+    out["dist_train"]["breakdown"] = cs.phase_dist_breakdown(dev)
+    return out
+
+
 GROUPS = {"kernels": run_kernels, "spec": run_spec,
           "gpt_train": run_gpt_train,
           "snapshot": lambda cs, dev: cs.phase_snapshot(dev),
           "serve_graph": run_serve_graph, "optim": run_optim,
-          "vision": run_vision, "nd": run_nd, "a11": run_a11}
+          "vision": run_vision, "nd": run_nd, "a11": run_a11,
+          "dist": run_dist}
 
 
 def main(argv):
