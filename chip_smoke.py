@@ -6880,8 +6880,9 @@ def phase_nd_train(dev):
 
 
 def _rel(a, b):
-    a, b = a.float(), b.float()
-    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+    """|a - b| / |b| in L2, in fp64 (an lse's error is under fp32's ulp)."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp(min=1e-300))
 
 
 # the kernel-backed nd ops against their plain versions on the card:
@@ -8864,6 +8865,530 @@ def phase_serve_replicas(dev):
     return out
 
 
+MP_RING = {"batch": 8, "heads": 12, "seq": 1024, "head_dim": 64, "n": 4}
+# the n = 4 ring replayed on one card against fp32 whole-sequence
+# attention: each of out, lse, dq, dk and dv no more than this many times
+# as far (relative L2) as the one whole-sequence flash kernel's own
+MP_RING_ERR_RATIO = 2.0
+MP_FFN = {"units": 768, "hidden": 3072, "tokens": 4096}
+MOE = {"units": 768, "experts": 8, "hidden": 3072, "tokens": 8 * 1024,
+       "capacity_factor": 2.0}
+# moe_ffn in bf16 against its plain per-expert math in fp32 on the same
+# inputs: bf16 rounds the FFN's hidden activations and the output, 2^-9
+# each; the limit leaves 4x
+MOE_REL_TOL = 2.0 ** -7
+PIPE = {"micro": 4, "batch": 2, "seq": 512}
+SYNC_BN_SHAPE = (32, 64, 56, 56)  # a ResNet-50 stage-1 BatchNorm's input
+# the 1F1B step at pp = 1 against the same microbatches' losses and
+# gradients accumulated in the same order without the schedule, in fp32
+PIPE_REL_TOL = 1e-6
+
+
+def _sp_steps(step, init, scope=None):
+    """GPT_TRAIN_STEPS GPT steps from ``init`` with a fresh Adam trainer,
+    inside ``scope`` (a sequence_parallel_scope) or plain; returns per step
+    (the per-sample loss, the launches) and the parameters after each."""
+    import contextlib
+
+    import torch
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch import random as mx_random
+
+    with torch.no_grad():
+        for p, s in zip(step.params, init):
+            p._tensor().copy_(s)
+    step.trainer = gluon.Trainer(step.model.collect_params(), "adam", ADAM)
+    rows, snaps = [], []
+    for i in range(GPT_TRAIN_STEPS):
+        mx_random.seed(SEED + i)
+        torch.cuda.synchronize()
+        reset_counters()
+        with scope if scope is not None else contextlib.nullcontext():
+            loss = step()
+        torch.cuda.synchronize()
+        rows.append({"loss": loss.clone(), "launches": read_counters()})
+        snaps.append(_param_snapshot(step))
+    return rows, snaps
+
+
+def _sp_grads(step, init, scope=None):
+    """One step's gradients from ``init`` (no update), inside ``scope`` or
+    plain."""
+    import contextlib
+
+    import torch
+    from mxnet_tpu_torch import random as mx_random
+
+    with torch.no_grad():
+        for p, s in zip(step.params, init):
+            p._tensor().copy_(s)
+    mx_random.seed(SEED)
+    with scope if scope is not None else contextlib.nullcontext():
+        step(update=False)
+    return _grads(step.params)
+
+
+def _sp_gpt(dev, mesh):
+    """The main path: GPT-2 small's step inside sequence_parallel_scope
+    over the sp = 1 mesh, ring and Ulysses, against the plain step. The
+    flash dq sums in no fixed order, so which parameters differ from a
+    run to the next moves by a few (a count is a reading, not a check):
+    held exactly are the first loss and, after the first step, the
+    parameters no dq reaches (the last block's attn_out, ln2 and FFN,
+    and ln_f); the gradients are held to the plain step's by GPT-2's
+    limits, beside a second plain run's reading."""
+    import torch
+    from mxnet_tpu_torch import parallel
+
+    step = GPTTrainStep(dev)
+    init = _param_snapshot(step)
+    last = step.model.blocks[-1]
+    names = {p.name for b in (last.attn.attn_out, last.ln2, last.ffn_1,
+                              last.ffn_2, step.model.ln_f)
+             for p in b.collect_params().values()}
+    fixed = [i for i, p in enumerate(step.params) if p.name in names]
+    plain, ref = _sp_steps(step, init)
+    _, again = _sp_steps(step, init)
+    own = [_params_gap(a, r)[1] for a, r in zip(again, ref)]
+    own_fixed = all(torch.equal(again[0][i], ref[0][i]) for i in fixed)
+    del again
+    plain_grads = _sp_grads(step, init)
+    own_grads = _sp_grads(step, init)
+    out = {"second_plain_run_differs": own, "unreached": len(fixed),
+           "second_plain_run_unreached_equal": own_fixed,
+           "second_plain_run_grads": _grad_reading(step, own_grads,
+                                                   plain_grads)}
+    del own_grads
+    check(len(fixed) == 10, "sp=1: %d parameters outside the dq's reach, "
+          "want 10" % len(fixed))
+    for impl in ("ring", "ulysses"):
+        scope = parallel.sequence_parallel_scope(mesh, impl=impl)
+        rows, snaps = _sp_steps(step, init, scope)
+        gap = [_params_gap(a, r)[1] for a, r in zip(snaps, ref)]
+        unreached = all(torch.equal(snaps[0][i], ref[0][i]) for i in fixed)
+        del snaps
+        first = bool(torch.equal(rows[0]["loss"], plain[0]["loss"]))
+        launches = [r["launches"] for r in rows]
+        grads = _grad_reading(step, _sp_grads(step, init, scope),
+                              plain_grads)
+        out[impl] = {"first_loss_bitwise": first, "differs": gap,
+                     "unreached_equal": unreached, "grads": grads,
+                     "losses": [float(r["loss"].mean()) for r in rows],
+                     "launches": launches}
+        print("model parallel: gpt2 step in sequence_parallel_scope(sp=1, "
+              "%s): losses %s (plain %s), first bit for bit %s; the %d "
+              "parameters no dq reaches equal after the first step %s (a "
+              "second plain run's %s); parameters differing after each "
+              "step %s (a second plain run's %s, a reading); gradients vs "
+              "the plain step's: worst %.3g, worst row %.3g (a second plain "
+              "run's %.3g, %.3g; limits %g, %g); launches a step %s" % (
+                  impl, ["%.5f" % x for x in out[impl]["losses"]],
+                  ["%.5f" % float(r["loss"].mean()) for r in plain], first,
+                  len(fixed), unreached, own_fixed, gap, own,
+                  grads["worst_grad_rel_l2"], grads["worst_row_rel_l2"],
+                  out["second_plain_run_grads"]["worst_grad_rel_l2"],
+                  out["second_plain_run_grads"]["worst_row_rel_l2"],
+                  GPT_STEP_GRAD_TOL, GPT_STEP_ROW_TOL, launches[0]),
+              flush=True)
+        check(first, "sp=1 %s: the first loss is not the plain step's" % impl)
+        check(unreached, "sp=1 %s: a parameter no dq reaches differs from "
+              "the plain step's after the first step" % impl)
+        check(grads["within"], "sp=1 %s: gradients outside GPT-2's limits: "
+              "%s" % (impl, grads))
+        for i, got in enumerate(launches):
+            for name, n in GPT_STEP_LAUNCHES.items():
+                check(got[name] == n, "sp=1 %s step %d: %s launches %d != %d"
+                      % (impl, i, name, got[name], n))
+    del step, init, ref, plain_grads
+    return out
+
+
+def _grad_reading(step, grads, ref):
+    r = {"worst_grad_rel_l2": grad_rel_l2(step.params, grads, ref)[0][0],
+         "worst_row_rel_l2": grad_row_rel_l2(step.params, grads, ref)[0][0]}
+    r["within"] = (r["worst_grad_rel_l2"] <= GPT_STEP_GRAD_TOL
+                   and r["worst_row_rel_l2"] <= GPT_STEP_ROW_TOL)
+    return r
+
+
+def _ring_case(q, k, v, do, causal, ref):
+    """The n = 4 ring replayed (every rank's schedule, no communication)
+    against the whole-sequence kernels, both held to ``ref``; with a
+    merge that drops one block's correction (planted)."""
+    import torch
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    from mxnet_tpu_torch.parallel.ring_attention import (merge_block,
+                                                         ring_replay)
+
+    n = MP_RING["n"]
+    B, H, T, _ = q.shape
+    reset_counters()
+    o_w, lse_w = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    delta = (o_w.float() * do.float()).sum(dim=-1)
+    g_w = fa.flash_attention_bwd(q, k, v, do, lse_w, delta, causal=causal)
+    whole_launches = read_counters()
+    torch.cuda.synchronize()
+    reset_counters()
+    o_r, lse_r, g_r = ring_replay(q, k, v, n, causal=causal, do=do,
+                                  flash=True)
+    torch.cuda.synchronize()
+    ring_launches = read_counters()
+    names = ("out", "lse", "dq", "dk", "dv")
+    whole = [o_w, lse_w.reshape(B, H, T)] + list(g_w)
+    ring = [o_r, lse_r] + list(g_r)
+    errs = {nm: [_rel(w, r), _rel(g, r)]
+            for nm, w, g, r in zip(names, whole, ring, ref)}
+    within = {nm: e[1] <= MP_RING_ERR_RATIO * e[0] for nm, e in errs.items()}
+
+    merges = []
+
+    def dropped(acc, lse_acc, o, lse):
+        if acc is not None:
+            merges.append(1)
+        if len(merges) != 1 or acc is None:
+            return merge_block(acc, lse_acc, o, lse)
+        new = torch.logaddexp(lse_acc, lse)  # the second block's weight left out
+        return acc * torch.exp(lse_acc - new)[..., None] + o.float(), new
+
+    o_f, _ = ring_replay(q, k, v, n, causal=causal, flash=True,
+                         merge=dropped)
+    fault = _rel(o_f, ref[0])
+    want = (n * (n + 1) // 2) if causal else n * n
+    case = {"causal": causal, "rel_l2_whole_ring": errs, "within": within,
+            "launches": ring_launches, "whole_launches": whole_launches,
+            "expected_launches": want, "skipped": n * n - want,
+            "planted_merge_fault_out_rel_l2": fault,
+            "planted_caught": fault > MP_RING_ERR_RATIO * errs["out"][0]}
+    print("model parallel: ring n=%d on %s causal=%s: relative L2 to fp32 "
+          "(whole kernel, ring) %s; launches %s (want %d each way, %d "
+          "skipped); planted merge fault out %.3g, caught %s" % (
+              n, tuple(q.shape), causal,
+              {k_: ["%.3g" % x for x in e] for k_, e in errs.items()},
+              {k_: v_ for k_, v_ in ring_launches.items() if v_}, want,
+              n * n - want, fault, case["planted_caught"]), flush=True)
+    check(all(within.values()), "ring n=%d causal=%s: farther than %gx the "
+          "whole kernel's error: %s" % (n, causal, MP_RING_ERR_RATIO, errs))
+    check(ring_launches["flash_attention_fwd"] == want
+          and ring_launches["flash_attention_bwd"] == want,
+          "ring n=%d causal=%s: launches %s, want %d each way"
+          % (n, causal, ring_launches, want))
+    check(case["planted_caught"], "ring: the planted merge fault passes")
+    return case
+
+
+def _ring_reference(q, k, v, do, causal):
+    """fp32 whole-sequence attention (``full_attention``) and its
+    gradients; the lse in fp64 (an fp32 logsumexp rounds as much as the
+    kernels do)."""
+    import math
+
+    import torch
+    from mxnet_tpu_torch.parallel import full_attention
+
+    qf, kf, vf = (t.float().requires_grad_(True) for t in (q, k, v))
+    o = full_attention(qf, kf, vf, causal=causal)
+    o.backward(do.float())
+    s = torch.matmul(q.double(), k.double().transpose(-1, -2)) / math.sqrt(
+        q.shape[-1])
+    if causal:
+        T = q.shape[2]
+        s = s.masked_fill(~torch.ones(T, T, dtype=torch.bool,
+                                      device=q.device).tril(), -math.inf)
+    lse = torch.logsumexp(s, dim=-1)
+    del s
+    return [o.detach(), lse, qf.grad, kf.grad, vf.grad]
+
+
+def _ring_n4(dev):
+    import torch
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    from mxnet_tpu_torch.parallel.ring_attention import ring_replay
+
+    B, H, T, D = (MP_RING[k] for k in ("batch", "heads", "seq", "head_dim"))
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    q, k, v, do = (torch.randn(B, H, T, D, device=dev, generator=g).to(
+        torch.bfloat16) for _ in range(4))
+    cases = []
+    for causal in (True, False):
+        ref = _ring_reference(q, k, v, do, causal)
+        cases.append(_ring_case(q, k, v, do, causal, ref))
+        del ref
+        torch.cuda.empty_cache()
+    def whole():
+        return fa.flash_attention(q, k, v, causal=True, return_lse=True)
+
+    def ring():
+        return ring_replay(q, k, v, MP_RING["n"], causal=True, flash=True)
+
+    # device time by graph replay, and the eager call between two events
+    # (the host's launches and the block copies included)
+    dev_ms = time_ms(whole, ring, rounds=3, iters=5)
+    whole()
+    ring()
+    eager_ms = [device_step_ms(whole, 5)[0], device_step_ms(ring, 5)[0]]
+    t0 = time.perf_counter()
+    ring()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    print("model parallel: causal forward at %s: whole kernel %.4f ms of "
+          "device (%.4f eager), the n=%d ring replayed on one card %.4f ms "
+          "of device (%.4f eager, %.3f ms of host enqueue); a reading, %s"
+          % ((B, H, T, D), dev_ms[0], eager_ms[0], MP_RING["n"], dev_ms[1],
+             eager_ms[1], enqueue_ms, card_line()), flush=True)
+    return {"cases": cases, "causal_forward_ms": {
+        "whole_device": dev_ms[0], "ring_replay_device": dev_ms[1],
+        "whole_eager": eager_ms[0], "ring_replay_eager": eager_ms[1],
+        "ring_replay_host_enqueue": enqueue_ms}}
+
+
+def _ffn_step_equal(dev, mesh):
+    """build_train_step with TRANSFORMER_RULES specs on {dp: 1, tp: 1}
+    against the unsharded step, a GPT-2 block's FFN at its widths."""
+    import torch
+    from mxnet_tpu_torch import optimizer as opt
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.parallel import tensor_parallel as tp
+
+    C, Hd, N = MP_FFN["units"], MP_FFN["hidden"], MP_FFN["tokens"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 43)
+    whole = {"ffn_1_weight": torch.randn(Hd, C, device=dev, generator=g)
+             * 0.02, "ffn_1_bias": torch.zeros(Hd, device=dev),
+             "ffn_2_weight": torch.randn(C, Hd, device=dev, generator=g)
+             * 0.02}
+    batch = (torch.randn(N, C, device=dev, generator=g),
+             torch.randn(N, C, device=dev, generator=g))
+
+    def loss_fn(params, b, key):
+        x, y = b
+        h = torch.nn.functional.gelu(x @ params["ffn_1_weight"].T
+                                     + params["ffn_1_bias"])
+        return ((h @ params["ffn_2_weight"].T - y) ** 2).mean()
+
+    specs = {k: tp.spec_for(k, tuple(v.shape), tp.TRANSFORMER_RULES, mesh)
+             for k, v in whole.items()}
+    runs = {}
+    for tag, kw in (("unsharded", {}), ("sharded", {
+            "mesh": mesh, "param_spec": specs,
+            "batch_spec": (parallel.P("dp"), parallel.P("dp"))})):
+        adam = opt.Adam(learning_rate=1e-3)
+        params = {k: v.clone() for k, v in whole.items()}
+        if tag == "sharded":
+            params = dict(zip(sorted(whole), tp.shard_params(
+                [(k, whole[k]) for k in sorted(whole)], mesh)))
+        init_states, _ = parallel.tree_optimizer_step(adam)
+        states = init_states(params)
+        step = parallel.build_train_step(loss_fn, adam, **kw)
+        losses = []
+        for i in range(2):
+            params, states, loss = step(params, states, 1 + i, None, batch)
+            losses.append(loss.clone())
+        runs[tag] = (params, losses)
+    (pu, lu), (ps, ls) = runs["unsharded"], runs["sharded"]
+    equal = all(torch.equal(a, b) for a, b in zip(lu, ls)) and all(
+        torch.equal(pu[k], ps[k]) for k in pu)
+    print("model parallel: build_train_step(param_spec=%s) on %s, 2 Adam "
+          "steps of a GPT-2 FFN (%d x %d, %d tokens): losses %s, equal to "
+          "the unsharded step's bit for bit: %s" % (
+              {k: tuple(v) for k, v in specs.items()}, mesh.shape, C, Hd, N,
+              [float(x) for x in ls], equal), flush=True)
+    check(any(tuple(s) for s in specs.values()),
+          "no spec split anything: the gather and scatter went unexercised")
+    check(equal, "build_train_step(param_spec=) at tp=1 differs from the "
+          "unsharded step")
+    return {"specs": {k: list(v) for k, v in specs.items()},
+            "losses": [float(x) for x in ls], "bitwise": equal}
+
+
+def _moe_plain(x, rw, w1, w2, capacity):
+    """Top-1 routing with the capacity, each expert's kept tokens through
+    its FFN in fp32, scaled by the gate: moe_ffn's math without the
+    one-hot dispatch."""
+    import torch
+
+    # the routing as moe_ffn computes it (the logits in x's dtype), so a
+    # near tie goes the same way
+    probs = torch.softmax(x @ rw, dim=-1)
+    expert = torch.argmax(probs, dim=-1)
+    gate = probs.amax(dim=-1).float()
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(rw.shape[1]):
+        idx = torch.nonzero(expert == e).flatten()[:capacity]
+        h = torch.relu(x[idx].float() @ w1[e].float())
+        y[idx] = (h @ w2[e].float()) * gate[idx, None]
+    return y
+
+
+def _moe_ep1(dev):
+    import torch
+    from mxnet_tpu_torch import parallel
+
+    mesh = parallel.make_mesh({"ep": 1})
+    C, E, Hd, N = (MOE[k] for k in ("units", "experts", "hidden", "tokens"))
+    g = torch.Generator(device=dev).manual_seed(SEED + 47)
+    x = torch.randn(N, C, device=dev, generator=g).to(torch.bfloat16)
+    rw = (torch.randn(C, E, device=dev, generator=g) * 0.05).to(
+        torch.bfloat16)
+    w1 = (torch.randn(E, C, Hd, device=dev, generator=g) * 0.02).to(
+        torch.bfloat16)
+    w2 = (torch.randn(E, Hd, C, device=dev, generator=g) * 0.02).to(
+        torch.bfloat16)
+    y, aux = parallel.moe_ffn(x, rw, w1, w2, mesh,
+                              capacity_factor=MOE["capacity_factor"])
+    cap = max(1, int(MOE["capacity_factor"] * N / E))
+    ref = _moe_plain(x, rw, w1, w2, cap)
+    rel = _rel(y, ref)
+    counts = torch.bincount(torch.argmax(torch.softmax(x @ rw, -1), -1),
+                            minlength=E).tolist()
+    # one_hot checks its indices on the host: no graph capture, events
+
+    def moe():
+        return parallel.moe_ffn(x, rw, w1, w2, mesh,
+                                capacity_factor=MOE["capacity_factor"])
+
+    moe()
+    ms = device_step_ms(moe, 5)[0]
+    print("model parallel: moe_ffn ep=1, %d tokens of %d, %d experts of "
+          "hidden %d, capacity %d (tokens an expert %s): relative L2 to the "
+          "plain fp32 math %.3g (limit %g), aux %.4f; %.3f ms (%s)" % (
+              N, C, E, Hd, cap, counts, rel, MOE_REL_TOL, float(aux), ms,
+              card_line()), flush=True)
+    check(bool(torch.isfinite(y).all()), "moe_ffn: non-finite output")
+    check(rel <= MOE_REL_TOL, "moe_ffn disagrees with its plain math: %.3g"
+          % rel)
+    return {"rel_l2": rel, "aux": float(aux), "capacity": cap,
+            "tokens_per_expert": counts, "ms": ms}
+
+
+def _pipe_pp1(dev):
+    """pipeline_train_step_1f1b at pp = 1 over PIPE["micro"] microbatches
+    of one GPT-2 block (fp32), against the same microbatches' losses and
+    gradients accumulated without the schedule."""
+    import torch
+    from mxnet_tpu_torch import autograd, parallel
+    from mxnet_tpu_torch.gluon.block import _param_store
+    from mxnet_tpu_torch.models.gpt import GPTModel
+
+    mesh = parallel.make_mesh({"pp": 1})
+    model = GPTModel(**dict(GPT_CONFIG, num_layers=1))
+    model.initialize(device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 53))
+    block = model.blocks[0]
+    plist = list(block.collect_params().values())
+    names = [p.name for p in plist]
+    M, Bm, T = PIPE["micro"], PIPE["batch"], PIPE["seq"]
+    C = GPT_CONFIG["units"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 59)
+    xs = torch.randn(M, Bm, T, C, device=dev, generator=g)
+    tg = torch.randn(M, Bm, T, C, device=dev, generator=g)
+
+    def stage_fn(params, x):
+        prev = getattr(_param_store, "params", None)
+        _param_store.params = {id(p): params[nm] for p, nm in zip(plist,
+                                                                    names)}
+        try:
+            with autograd.record(train_mode=False):
+                return block(x)
+        finally:
+            _param_store.params = prev
+
+    def mse(y, t):
+        return ((y - t) ** 2).mean()
+
+    stacked = {nm: p._tensor().detach()[None] for p, nm in zip(plist, names)}
+    reset_counters()
+    loss, grads = parallel.pipeline_train_step_1f1b(stage_fn, mse, stacked,
+                                                    xs, tg, mesh)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    live = {nm: p._tensor().detach().clone().requires_grad_(True)
+            for p, nm in zip(plist, names)}
+    ref_loss = torch.zeros((), device=dev)
+    for m in range(M):
+        lv = mse(stage_fn(live, xs[m]), tg[m])
+        (lv / M).backward()
+        ref_loss = ref_loss + lv.detach()
+    ref_loss = ref_loss / M
+    worst = max(_rel(grads[nm][0], live[nm].grad) for nm in names)
+    bitwise = all(torch.equal(grads[nm][0], live[nm].grad) for nm in names)
+    lrel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    print("model parallel: 1F1B at pp=1 over %d microbatches of (%d, %d, "
+          "%d) through one GPT-2 block (fp32): loss %.6f vs %.6f unscheduled "
+          "(relative %.3g), worst gradient relative L2 %.3g (limit %g), bit "
+          "for bit %s; launches %s" % (
+              M, Bm, T, C, float(loss), float(ref_loss), lrel, worst,
+              PIPE_REL_TOL, bitwise, {k: v for k, v in launches.items() if v}),
+          flush=True)
+    check(lrel <= PIPE_REL_TOL and worst <= PIPE_REL_TOL,
+          "1F1B at pp=1 differs from the unscheduled step")
+    return {"loss": float(loss), "loss_rel": lrel, "worst_grad_rel_l2": worst,
+            "bitwise": bitwise, "launches": launches}
+
+
+def _sync_bn_dp1(dev):
+    import torch
+    from mxnet_tpu_torch import autograd, parallel
+    from mxnet_tpu_torch.gluon.contrib.nn import SyncBatchNorm
+    from mxnet_tpu_torch.gluon.nn import BatchNorm
+
+    mesh = parallel.make_mesh({"dp": 1})
+    g = torch.Generator(device=dev).manual_seed(SEED + 61)
+    x = torch.randn(SYNC_BN_SHAPE, device=dev, generator=g).to(
+        torch.bfloat16)
+    w = torch.randn(x.shape, device=dev, generator=g).to(torch.bfloat16)
+    C = SYNC_BN_SHAPE[1]
+    got = []
+    for bn in (BatchNorm(in_channels=C), SyncBatchNorm(in_channels=C,
+                                                       mesh=mesh)):
+        bn.initialize(device=dev)
+        xi = x.clone().requires_grad_(True)
+        with autograd.record():
+            y = bn(xi)
+        (y.float() * w.float()).sum().backward()
+        got.append([y.detach(), xi.grad, bn.gamma._tensor().grad,
+                    bn.beta._tensor().grad, bn.running_mean._tensor().clone(),
+                    bn.running_var._tensor().clone()])
+    equal = all(torch.equal(a, b) for a, b in zip(*got))
+    print("model parallel: SyncBatchNorm at dp=1 on %s bf16: output, dx, "
+          "dgamma, dbeta and running statistics equal to BatchNorm's bit for "
+          "bit: %s" % (tuple(x.shape), equal), flush=True)
+    check(equal, "SyncBatchNorm at dp=1 differs from BatchNorm")
+    return {"bitwise": equal}
+
+
+def phase_model_parallel(dev):
+    """A.12's model-parallel half on one card, over an NCCL group of one
+    rank: the GPT-2 small step inside sequence_parallel_scope (ring and
+    Ulysses at sp = 1) against the plain step; the n = 4 ring replayed on
+    the card against the whole-sequence flash kernel; build_train_step
+    with TRANSFORMER_RULES specs at tp = 1, moe_ffn at ep = 1, 1F1B at
+    pp = 1 and SyncBatchNorm at dp = 1 against their plain forms."""
+    import torch
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.parallel import distributed
+
+    t_phase = time.perf_counter()
+    distributed.init_process_group(device=dev)
+    out = {"card": card_line(), "backend": torch.distributed.get_backend()}
+    try:
+        out["gpt2_sp1"] = _sp_gpt(dev, parallel.make_mesh({"sp": 1}))
+        torch.cuda.empty_cache()
+        out["ring_n4"] = _ring_n4(dev)
+        torch.cuda.empty_cache()
+        out["tp_step"] = _ffn_step_equal(dev, parallel.make_mesh(
+            {"dp": 1, "tp": 1}))
+        out["moe_ep1"] = _moe_ep1(dev)
+        torch.cuda.empty_cache()
+        out["pipeline_pp1"] = _pipe_pp1(dev)
+        out["sync_bn_dp1"] = _sync_bn_dp1(dev)
+        torch.cuda.empty_cache()
+    finally:
+        distributed.shutdown()
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    print("model parallel phase: %.1f s on %s" % (out["phase_seconds"],
+                                                  out["card"]), flush=True)
+    return out
+
+
 def card_line():
     """The card's name and power limit, as ``nvidia-smi --query-gpu=
     name,power.limit --format=csv,noheader`` gives them."""
@@ -8992,6 +9517,7 @@ def main():
         converted = phase_convert(dev)
         converted["phase_seconds"] = time.perf_counter() - t0
         dist_train = phase_dist_train(dev)
+        model_parallel = phase_model_parallel(dev)
         records, crossover = phase_timing(
             dev, train["launches"], train["steps_counted"], errs,
             serve_launches, forwards, serve_vl)
@@ -9047,6 +9573,7 @@ def main():
                       "bad_ids": bad_ids, "train_resnet50": resnet,
                       "vision_zoo": zoo, "nd": nd_phases, "a11": a11,
                       "convert": converted, "dist_train": dist_train,
+                      "model_parallel": model_parallel,
                       "decode_step_graphs": graphs, "quantized": quant,
                       "speculative": spec, "chunked_prefill": chunked,
                       "attention_dense_vs_flash": crossover,

@@ -16,16 +16,22 @@ idiom over them (``NDArray``, the op namespace generated from the
 registry, ``autograd`` with ``attach_grad`` and higher orders), and Gluon
 blocks take and return NDArray. It also runs the LSTM PTB language
 model over ``gluon.rnn``, SSD-512 with the multibox detection ops, and
-the Transformer NMT model with ``translate``. Entry points run on the
+the Transformer NMT model with ``translate``, trains data-parallel
+(``kvstore``, ``dist``, ``parallel``) and model-parallel (``parallel``:
+tensor, ring and Ulysses sequence, pipeline and expert parallelism) over
+``torch.distributed``. Entry points run on the
 current CUDA device unless the caller passes ``device="cpu"`` (or
 ``ctx=mx.cpu()``, or enters ``with mx.cpu():``). The package imports
 neither JAX nor anything of ``mxnet_tpu``.
 """
 from . import base, context, util  # noqa: F401
-from .context import cpu, gpu, num_gpus  # noqa: F401
-from . import autograd, random, optimizer  # noqa: F401
+from .base import MXNetError  # noqa: F401
+from .context import cpu, cpu_pinned, gpu, num_gpus  # noqa: F401
+from . import autograd, random, optimizer, lr_scheduler  # noqa: F401
 from . import ops, initializer, gluon, amp, convert, models, serve  # noqa: F401
+from . import init  # noqa: F401
 from . import checkpoint, quantization, quant  # noqa: F401
 from . import ndarray, nd, linalg, test_utils  # noqa: F401
+from . import kvstore, dist, parallel  # noqa: F401
 from .context import Context, current_context  # noqa: F401
-from .ndarray import NDArray  # noqa: F401
+from .ndarray import NDArray, waitall  # noqa: F401

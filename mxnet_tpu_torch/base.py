@@ -31,7 +31,11 @@ _DTYPE_ALIASES = {
 }
 
 
-class DeviceError(RuntimeError):
+class MXNetError(RuntimeError):
+    """The framework's error (``mx.MXNetError``)."""
+
+
+class DeviceError(MXNetError):
     """No CUDA device where one was required."""
 
 

@@ -28,13 +28,13 @@ class Context:
         if isinstance(device_type, Context):
             device_type, device_id = (device_type.device_type,
                                       device_type.device_id)
-        if device_type not in ("cpu", "gpu"):
+        if device_type not in ("cpu", "gpu", "cpu_pinned"):
             raise ValueError("unknown device type %r" % (device_type,))
         self.device_type = device_type
         self.device_id = int(device_id)
 
     def torch_device(self):
-        if self.device_type == "cpu":
+        if self.device_type in ("cpu", "cpu_pinned"):
             return torch.device("cpu")
         return torch.device("cuda", self.device_id)
 
@@ -74,6 +74,12 @@ class Context:
 
 def cpu(device_id=0):
     return Context("cpu", device_id)
+
+
+def cpu_pinned(device_id=0):
+    """Page-locked host memory in MXNet; here a CPU context (its tensors
+    are host tensors, which ``Tensor.pin_memory`` pins on demand)."""
+    return Context("cpu_pinned", device_id)
 
 
 def gpu(device_id=0):

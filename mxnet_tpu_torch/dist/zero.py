@@ -22,11 +22,11 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..parallel.mesh import P
+from ..parallel.mesh import P, spec_axes
 from .bucketer import _nbytes, default_bucket_mb
 from .hierarchical import _all_gather
 
-__all__ = ["shard_spec", "shard_dim", "block", "gather_block",
+__all__ = ["shard_spec", "shard_dim", "block", "gather_block", "gather_spec",
            "per_device_bytes", "global_bytes", "Zero3ParamManager"]
 
 
@@ -74,6 +74,42 @@ def gather_block(full, blk, d, group, n, async_op=False):
     return None
 
 
+def _steps(spec):
+    """(dimension, axis) of each all-gather that rebuilds a value placed by
+    ``spec``, in order: a dimension's axes innermost first."""
+    return [(d, a) for d, entry in enumerate(spec)
+            for a in reversed(spec_axes(entry))]
+
+
+def _whole_shape(blk, spec, mesh):
+    shape = list(blk.shape)
+    for d, a in _steps(spec):
+        shape[d] *= int(mesh.shape[a])
+    return tuple(shape)
+
+
+def gather_spec(full, blk, spec, mesh, async_op=False):
+    """All-gather every rank's ``blk`` (its block of a value placed by
+    ``spec`` over ``mesh``'s axes) into ``full``: :func:`gather_block`
+    over each named axis's group in turn. Only a value split over one
+    axis is gathered asynchronously."""
+    steps = _steps(spec)
+    if len(steps) == 1:
+        d, a = steps[0]
+        return gather_block(full, blk, d, mesh.group(a), int(mesh.shape[a]),
+                            async_op=async_op)
+    cur = blk
+    for i, (d, a) in enumerate(steps):
+        n = int(mesh.shape[a])
+        shape = list(cur.shape)
+        shape[d] *= n
+        nxt = full if i == len(steps) - 1 else torch.empty(
+            shape, dtype=cur.dtype, device=cur.device)
+        gather_block(nxt, cur, d, mesh.group(a), n)
+        cur = nxt
+    return _Work(None) if async_op else None
+
+
 class _Work:
     def __init__(self, fn):
         self._fn = fn
@@ -119,20 +155,40 @@ class Zero3ParamManager:
     fails loudly); :meth:`gather` rebuilds the whole values bucket by
     bucket (one all-gather a member, every bucket launched before the
     first is waited on) into the same tensors, and :meth:`release` drops
-    them again. The optimizer steps the blocks."""
+    them again. The optimizer steps the blocks.
 
-    def __init__(self, params, mesh, shard_axis="dp", bucket_mb=None):
+    ``specs`` places each parameter by its own spec over ``mesh``'s axes
+    (tensor and fully sharded parameters, ``build_train_step(
+    param_spec=)``; default: :func:`shard_spec` over ``shard_axis``), and
+    ``shards`` gives the blocks already cut (they are then the parameters'
+    storage at rest, stepped in place; the parameters' tensors start
+    empty)."""
+
+    def __init__(self, params, mesh, shard_axis="dp", bucket_mb=None,
+                 specs=None, shards=None):
         self.mesh = mesh
         self.shard_axis = shard_axis
-        self.nshard = int(mesh.shape[shard_axis])
-        self.rank = mesh.local_rank(shard_axis)
-        self.group = mesh.group(shard_axis)
-        self.params = [p for p in params
-                       if getattr(p, "_data", None) is not None]
+        self.nshard = int(mesh.shape.get(shard_axis, 1))
+        params = list(params)
+        keep = [i for i, p in enumerate(params)
+                if getattr(p, "_data", None) is not None]
+        self.params = [params[i] for i in keep]
         self.gathers = 0
         self.shards = {}
-        self.full_shapes = {id(p): tuple(p._data.shape)
-                            for p in self.params}
+        if shards is not None:
+            blocks = [shards[i] for i in keep]
+            self.specs = {id(p): P(*specs[i])
+                          for p, i in zip(self.params, keep)}
+            self.full_shapes = {id(p): _whole_shape(b, self.specs[id(p)],
+                                                    mesh)
+                                for p, b in zip(self.params, blocks)}
+        else:
+            self.full_shapes = {id(p): tuple(p._data.shape)
+                                for p in self.params}
+            self.specs = {id(p): (P(*specs[i]) if specs is not None else
+                                  shard_spec(self.full_shapes[id(p)],
+                                             self.nshard, shard_axis))
+                          for p, i in zip(self.params, keep)}
         cap = int((default_bucket_mb() if bucket_mb is None
                    else float(bucket_mb)) * (1 << 20))
         # the gradient bucketer's greedy partition over the parameters
@@ -146,20 +202,17 @@ class Zero3ParamManager:
             cur_b += b
         if cur:
             self.buckets.append(cur)
-        for p in self.params:
-            self.shards[id(p)] = self._cut(p)
-        self.gathered = True
-
-    def dim(self, p):
-        return shard_dim(self.full_shapes[id(p)], self.nshard)
+        for j, p in enumerate(self.params):
+            blk = self._cut(p) if shards is None else blocks[j]
+            blk._full_shape = self.full_shapes[id(p)]
+            self.shards[id(p)] = blk
+        self.gathered = shards is None
 
     def _cut(self, p):
-        d = self.dim(p)
-        t = p._data.detach()
-        blk = t.clone() if d is None else \
-            block(t, d, self.rank, self.nshard).clone()
-        blk._full_shape = self.full_shapes[id(p)]
-        return blk
+        from ..parallel.mesh import shard_array
+
+        return shard_array(p._data.detach(), self.mesh,
+                           *self.specs[id(p)]).clone()
 
     def shard(self, p):
         """This rank's block of ``p`` (the tensor the optimizer steps)."""
@@ -173,12 +226,12 @@ class Zero3ParamManager:
                 blk = self.shards[id(p)]
                 full = torch.empty(self.full_shapes[id(p)], dtype=blk.dtype,
                                    device=blk.device)
-                d = self.dim(p)
-                if d is None:
+                spec = self.specs[id(p)]
+                if not any(spec_axes(a) for a in spec):
                     full.copy_(blk)
                 else:
-                    works.append(gather_block(full, blk, d, self.group,
-                                              self.nshard, async_op=True))
+                    works.append(gather_spec(full, blk, spec, self.mesh,
+                                             async_op=True))
                 p._data.data = full
         self.gathers += 1
         if async_op:

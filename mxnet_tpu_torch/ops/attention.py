@@ -27,6 +27,7 @@ and the real crossover is to be set from those measurements.
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
@@ -112,12 +113,76 @@ def _prefix_mask_to_valid_len(mask):
     return rows.to(torch.int32).sum(dim=-1, dtype=torch.int32)
 
 
-def takes_flash(q, mask, prefix_mask, grad=False):
+def takes_flash(q, mask, prefix_mask, grad=False, length=None):
     """The seam's routing rule (static: shapes, dtype, whether autograd
-    records and the caller's declaration, never the data)."""
+    records and the caller's declaration, never the data). ``length``:
+    the sequence's whole length when ``q`` is a block of it (sequence
+    parallelism), default ``q``'s own."""
     dtypes = FLASH_GRAD_DTYPES if grad else FLASH_DTYPES
-    return (q.shape[2] >= FLASH_MIN_LEN and q.dtype in dtypes
+    T = q.shape[2] if length is None else length
+    return (T >= FLASH_MIN_LEN and q.dtype in dtypes
             and q.shape[3] in HEAD_DIMS and (mask is None or prefix_mask))
+
+
+_SP_SCOPE = threading.local()
+
+
+class sequence_parallel_scope:
+    """Route every ``F.scaled_dot_attention`` inside the scope through
+    sequence-parallel attention over ``mesh``'s ``axis_name`` axis:
+    ``impl="ring"`` (``parallel.ring_attention``, any head count) or
+    ``"ulysses"`` (``parallel.ulysses_attention``, H % axis == 0). Models
+    need no edits: every rank of the axis runs the same model on the same
+    sequence; inside the seam each rank takes its block of q, k and v,
+    the ring or the all-to-alls run over the axis's group, and the output
+    is gathered back, so the model sees the whole sequence's attention
+    (the gradients too). Exported as
+    ``mxnet_tpu_torch.parallel.sequence_parallel_scope``. The scope is read
+    at each call and is per thread."""
+
+    def __init__(self, mesh, axis_name="sp", impl="ring"):
+        if impl not in ("ring", "ulysses"):
+            raise ValueError("impl must be 'ring' or 'ulysses', got %r"
+                             % (impl,))
+        self._cfg = (mesh, axis_name, impl)
+
+    def __enter__(self):
+        stack = getattr(_SP_SCOPE, "stack", None)
+        if stack is None:
+            stack = _SP_SCOPE.stack = []
+        stack.append(self._cfg)
+        return self
+
+    def __exit__(self, *a):
+        _SP_SCOPE.stack.pop()
+
+
+def _current_sp_scope():
+    stack = getattr(_SP_SCOPE, "stack", None)
+    return stack[-1] if stack else None
+
+
+def _sequence_parallel(q, k, v, mask, causal, scale, sp):
+    mesh, axis_name, impl = sp
+    if mask is not None:
+        raise ValueError(
+            "sequence_parallel_scope: ring/ulysses attention supports "
+            "causal or unmasked only — key-padding masks would need "
+            "per-shard valid lengths (pad to full length instead)")
+    n_sp = int(mesh.shape[axis_name])
+    if q.shape[2] % n_sp or k.shape[2] % n_sp:
+        raise ValueError(
+            "sequence_parallel_scope: sequence length %d/%d must divide "
+            "the %r axis (%d) — incremental decode (T=1) and ragged "
+            "lengths cannot shard; run generation outside the scope"
+            % (q.shape[2], k.shape[2], axis_name, n_sp))
+    from ..parallel import ring_attention, ulysses_attention
+    from ..parallel.ring_attention import gather_sequence, shard_sequence
+
+    fn = ring_attention if impl == "ring" else ulysses_attention
+    q, k, v = (shard_sequence(t, mesh, axis_name) for t in (q, k, v))
+    out = fn(q, k, v, mesh, axis_name=axis_name, causal=causal, scale=scale)
+    return gather_sequence(out, mesh, axis_name)
 
 
 @register_op("scaled_dot_attention")
@@ -127,7 +192,24 @@ def scaled_dot_attention(q, k, v, mask=None, *, causal=False, scale=None,
 
     ``prefix_mask=True`` declares that ``mask`` is a key-padding prefix
     (mask[b, ..., t] = t < valid_len[b]); then the flash path applies with
-    the valid length recovered from the mask."""
+    the valid length recovered from the mask.
+
+    Inside ``parallel.sequence_parallel_scope(mesh, ...)`` the seam runs
+    ring or Ulysses attention over the scope's mesh axis: the model code
+    does not change, the sequence dimension splits."""
+    sp = _current_sp_scope()
+    if sp is not None:
+        return _sequence_parallel(q, k, v, mask, causal, scale, sp)
+    return local_attention(q, k, v, mask, causal=causal, scale=scale,
+                           prefix_mask=prefix_mask)
+
+
+def local_attention(q, k, v, mask=None, causal=False, scale=None,
+                    prefix_mask=False):
+    """The seam's routing on this rank alone: the flash kernels by
+    :func:`takes_flash`, else :func:`dense_attention` (what
+    :func:`scaled_dot_attention` runs outside a sequence-parallel scope,
+    and Ulysses attention runs on its heads inside one)."""
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad)
     if takes_flash(q, mask, prefix_mask, grad):

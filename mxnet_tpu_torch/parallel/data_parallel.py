@@ -6,9 +6,15 @@ every rank runs the step on its own block of the batch
 (:func:`shard_batch`) and the gradients are averaged over the mesh's
 ``dp`` group before one multi-tensor optimizer step, so every rank ends
 the step with the same weights, those of the whole batch's step.
-``shard_weight_update`` shards the update (ZeRO-1). Tensor-parallel and
-fully sharded parameters (``param_spec``) are the model-parallel half of
-ROADMAP.md A.12, not ported yet.
+``shard_weight_update`` shards the update (ZeRO-1). A parameter whose
+``param_spec`` splits it over mesh axes (tensor parallel, fully sharded)
+is held as this rank's block between steps: the step all-gathers it for
+the forward (``dist.zero.Zero3ParamManager``), drops the whole value after
+the backward and reduce-scatters its gradient back to the block. The
+forward itself runs on the whole weights on every rank: splitting the
+transformer blocks' math over ``tp`` (what GSPMD gives the JAX package
+for these specs) is ROADMAP.md A.12's next item; a model does it by hand
+with ``tensor_parallel.psum_region_entry``/``psum_region_exit``.
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ import torch
 import torch.distributed as dist
 
 from ..util import map_state, tree_leaves
-from .mesh import P
+from .mesh import P, spec_axes
 
 __all__ = ["tree_optimizer_step", "weight_update_spec", "build_train_step",
            "replicate_params", "shard_batch", "block_loss_fn"]
@@ -91,6 +97,11 @@ def build_train_step(loss_fn, optimizer, mesh=None, param_spec=None,
       (:func:`shard_batch`) over the axis ``batch_spec`` names (default
       ``dp``), the gradients and the loss are averaged over that axis's
       group, and the returned loss is the whole batch's;
+    - ``param_spec``: one spec for every leaf, or a structure of specs
+      shaped as ``params``; a leaf a spec splits over mesh axes is this
+      rank's block (``tensor_parallel.shard_params``), all-gathered for
+      the forward and its gradient reduce-scattered back (a spec naming
+      no axis of ``mesh`` raises);
     - ``remat``: recompute the forward in the backward
       (``torch.utils.checkpoint``);
     - ``shard_weight_update``: each rank updates its block of every leaf
@@ -103,12 +114,9 @@ def build_train_step(loss_fn, optimizer, mesh=None, param_spec=None,
     package's buffer donation; here nothing is copied either way)."""
     if shard_weight_update and mesh is None:
         raise ValueError("shard_weight_update=True requires a mesh")
-    if param_spec is not None and any(
-            tuple(s) for s in tree_leaves(param_spec)
-            if isinstance(s, tuple)):
-        raise NotImplementedError(
-            "sharded parameters (fsdp / tensor parallel) are the "
-            "model-parallel half of ROADMAP.md A.12, not ported yet")
+    if param_spec is not None and mesh is None:
+        raise ValueError("param_spec places parameters on a mesh: pass "
+                         "mesh=")
     _, apply = tree_optimizer_step(optimizer)
     axis = _batch_axis(batch_spec)
 
@@ -122,21 +130,45 @@ def build_train_step(loss_fn, optimizer, mesh=None, param_spec=None,
 
     def step(params, states, t, key, batch):
         leaves = tree_leaves(params)
-        live = [p.detach().requires_grad_(True) for p in leaves]
+        specs = _leaf_specs(param_spec, params, leaves, mesh)
+        split = [i for i, sp in enumerate(specs) if _axes(sp)]
+        whole, mgr = list(leaves), None
+        if split:
+            from ..dist.zero import Zero3ParamManager
+
+            slots = [_Slot(leaves[i]) for i in split]
+            mgr = Zero3ParamManager(slots, mesh,
+                                    specs=[specs[i] for i in split],
+                                    shards=[leaves[i] for i in split])
+            mgr.gather()
+            for i, slot in zip(split, slots):
+                whole[i] = slot._data
+        live = [p.detach().requires_grad_(True) for p in whole]
         with torch.enable_grad():
             loss = forward(_rebuild(params, live), batch, key)
             grads = list(torch.autograd.grad(loss, live, allow_unused=True))
         grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
+                 for p, g in zip(live, grads)]
+        del live, whole
+        if mgr is not None:
+            mgr.release()
+            for i in split:
+                grads[i] = _scatter_mean(grads[i], specs[i], mesh)
         loss = loss.detach()
-        if mesh is not None and mesh.shape[axis] > 1:
+        if mesh is not None and mesh.shape.get(axis, 1) > 1:
+            # each rank's gradient is its batch block's: the mean over the
+            # batch axis, but for a leaf split over that axis, which its
+            # reduce-scatter already averaged
             group, n = mesh.group(axis), mesh.shape[axis]
-            flat = torch.cat([g.reshape(-1).float() for g in grads]
+            mean = [i for i in range(len(grads)) if axis not in _axes(
+                specs[i])]
+            flat = torch.cat([grads[i].reshape(-1).float() for i in mean]
                              + [loss.reshape(1).float()])
             dist.all_reduce(flat, group=group)
             flat /= n
             off = 0
-            for i, g in enumerate(grads):
+            for i in mean:
+                g = grads[i]
                 grads[i] = flat[off:off + g.numel()].reshape(g.shape).to(
                     g.dtype)
                 off += g.numel()
@@ -148,18 +180,23 @@ def build_train_step(loss_fn, optimizer, mesh=None, param_spec=None,
 
             group, n = mesh.group(shard_axis), mesh.shape[shard_axis]
             r = mesh.local_rank(shard_axis)
+            # a leaf already split over the update's axis is updated
+            # whole: its block is all this rank holds
+            shapes = [() if shard_axis in _axes(sp) else tuple(w.shape)
+                      for w, sp in zip(leaves, specs)]
             sb = []
-            for w, s in zip(leaves, tree_leaves(states, params)):
-                d = shard_dim(tuple(w.shape), n)
+            for shape, s in zip(shapes, tree_leaves(states, params)):
+                d = shard_dim(shape, n)
                 # a whole state leaf (the first call's) becomes its block
                 sb.append(s if d is None else map_state(
-                    s, lambda x, d=d, shape=tuple(w.shape):
+                    s, lambda x, d=d, shape=shape:
                     block(x, d, r, n).clone() if tuple(x.shape) == shape
                     else x))
             k = len(leaves)
             sharded_step(lambda wb, gb: optimizer._apply(
                 wb, gb, sb, [float(lr)] * k, [float(optimizer.wd)] * k,
-                [int(t)] * k), leaves, grads, group, n, r)
+                [int(t)] * k), leaves, grads, group, n, r,
+                full_shapes=shapes)
             states = _rebuild(params, sb)
         else:
             apply(params, _rebuild(params, grads), states, lr, optimizer.wd,
@@ -167,6 +204,61 @@ def build_train_step(loss_fn, optimizer, mesh=None, param_spec=None,
         return params, states, loss
 
     return step
+
+
+class _Slot:
+    """A split leaf as the parameter manager sees a parameter: ``_data``
+    holds its whole value while gathered, nothing otherwise."""
+
+    def __init__(self, blk):
+        self._data = torch.empty(0, dtype=blk.dtype, device=blk.device)
+
+
+def _axes(spec):
+    return tuple(a for entry in spec for a in spec_axes(entry))
+
+
+def _leaf_specs(param_spec, params, leaves, mesh):
+    """One spec a leaf: ``param_spec`` is None (all whole), one spec for
+    every leaf, or a structure of specs shaped as ``params``. A spec that
+    does not fit its leaf's block on ``mesh`` raises."""
+    if param_spec is None:
+        return [P()] * len(leaves)
+    if isinstance(param_spec, P):
+        specs = [param_spec] * len(leaves)
+    else:
+        specs = [P(*s) for s in tree_leaves(param_spec, params)]
+    for i, (w, sp) in enumerate(zip(leaves, specs)):
+        if len(sp) > w.dim():
+            raise ValueError("param_spec %r has more entries than leaf %d "
+                             "has dimensions %s" % (sp, i, tuple(w.shape)))
+        for a in _axes(sp):
+            if a not in mesh.shape:
+                raise ValueError("param_spec %r names %r, not an axis of %r"
+                                 % (sp, a, mesh))
+    return specs
+
+
+def _scatter_mean(g, spec, mesh):
+    """The whole gradient ``g`` reduce-scattered to this rank's block under
+    ``spec`` (over each named axis's group in turn, outermost first) and
+    divided by the ranks it was summed over: the ranks of an axis other
+    than the batch's hold copies of one gradient, so this is their mean."""
+    from ..dist.hierarchical import _reduce_scatter
+
+    for d, entry in enumerate(spec):
+        for a in spec_axes(entry):
+            n = int(mesh.shape[a])
+            if g.shape[d] % n:
+                raise ValueError("dimension %d of %s does not split %d ways"
+                                 % (d, tuple(g.shape), n))
+            if n > 1:
+                x = g.movedim(d, 0).contiguous()
+                out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
+                                  dtype=x.dtype, device=x.device)
+                _reduce_scatter(out, x, group=mesh.group(a))
+                g = (out / n).movedim(0, d)
+    return g.contiguous()
 
 
 def replicate_params(params, mesh, axis=None):

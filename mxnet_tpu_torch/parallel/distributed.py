@@ -22,7 +22,7 @@ from ..base import resolve_device
 
 __all__ = ["init_process_group", "rank", "size", "local_devices",
            "global_mesh", "barrier", "device", "is_initialized",
-           "shutdown"]
+           "shutdown", "check_device", "AxisRing", "all_to_all"]
 
 _device = None
 
@@ -101,6 +101,23 @@ def device():
     return _device
 
 
+def check_device(*tensors):
+    """Raise ``DeviceError`` unless every tensor lies on this rank's device
+    (where its group's collectives run: a CUDA tensor in a gloo group of
+    CPU ranks, as on a machine without a card, is refused). Nothing is
+    checked before :func:`init_process_group`."""
+    from ..base import DeviceError
+
+    if _device is None:
+        return
+    for t in tensors:
+        d = t.device
+        if d.type != _device.type or (d.type == "cuda"
+                                      and d.index != _device.index):
+            raise DeviceError("a tensor on %s; this rank runs on %s"
+                              % (d, _device))
+
+
 def local_devices():
     return [_device] if _device is not None else []
 
@@ -116,3 +133,71 @@ def barrier():
     """Wait for every rank (nothing to wait for in a group of one)."""
     if size() > 1:
         dist.barrier()
+
+
+class AxisRing:
+    """This rank's two neighbours on a mesh axis's group, ``(i + 1) % n``
+    and ``(i - 1) % n``, and the point-to-point exchanges of the rings that
+    ride them (ring attention's K/V blocks, a pipeline's activations and
+    cotangents). On a ring of one rank every send is to itself and is its
+    receive: nothing is launched."""
+
+    def __init__(self, mesh, axis):
+        self.group = mesh.group(axis)
+        self.n = int(mesh.shape[axis])
+        self.index = mesh.local_rank(axis)
+        ranks = dist.get_process_group_ranks(self.group)
+        self.next = ranks[(self.index + 1) % self.n]
+        self.prev = ranks[(self.index - 1) % self.n]
+
+    def post(self, sends, recvs):
+        """Start ``sends`` ([(tensor, peer)]) and ``recvs`` ([(like,
+        peer)]) as one ``batch_isend_irecv``; returns (the requests, the
+        receive buffers in ``recvs``' order)."""
+        if self.n == 1:
+            return [], [t for t, _ in sends]
+        outs = [torch.empty_like(like) for like, _ in recvs]
+        ops = [dist.P2POp(dist.isend, t.contiguous(), peer, self.group)
+               for t, peer in sends]
+        ops += [dist.P2POp(dist.irecv, o, peer, self.group)
+                for o, (_, peer) in zip(outs, recvs)]
+        return (dist.batch_isend_irecv(ops) if ops else []), outs
+
+    def exchange(self, sends, recvs):
+        """:meth:`post`, waited for: the received tensors."""
+        reqs, outs = self.post(sends, recvs)
+        for r in reqs:
+            r.wait()
+        return outs
+
+
+def _all_to_all(x, group, n, split, cat):
+    if n == 1:
+        return x
+    xs = x.unflatten(split, (n, x.shape[split] // n)).movedim(split, 0)
+    xs = xs.contiguous()
+    out = torch.empty_like(xs)
+    dist.all_to_all_single(out, xs, group=group)
+    return out.movedim(0, cat).flatten(cat, cat + 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, split, cat):
+        ctx.args = (group, n, split, cat)
+        return _all_to_all(x, group, n, split, cat)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, split, cat = ctx.args
+        return _all_to_all(g, group, n, cat, split), None, None, None, None
+
+
+def all_to_all(x, mesh, axis, split, cat):
+    """``lax.all_to_all(tiled=True)`` over ``axis``'s group: ``x`` cut
+    into n blocks along ``split``, block j sent to rank j, the received
+    blocks concatenated along ``cat`` in source order
+    (``all_to_all_single``). Differentiable: the backward is the inverse
+    all-to-all."""
+    return _AllToAll.apply(x, mesh.group(axis), int(mesh.shape[axis]),
+                           split, cat)

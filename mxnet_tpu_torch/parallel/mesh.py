@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 __all__ = ["Mesh", "make_mesh", "use_mesh", "current_mesh", "P",
-           "PartitionSpec", "shard_array", "AXES"]
+           "PartitionSpec", "NamedSharding", "named_sharding", "replicated",
+           "shard_array", "spec_axes", "AXES"]
 
 AXES = ("dp", "fsdp", "tp", "sp", "pp", "ep")
 
@@ -38,6 +39,42 @@ class PartitionSpec(tuple):
 
 
 P = PartitionSpec
+
+
+class NamedSharding(tuple):
+    """A placement: ``(mesh, spec)``, what :func:`shard_array` and
+    ``tensor_parallel.shard_params`` read (the JAX package's
+    ``NamedSharding``)."""
+
+    def __new__(cls, mesh, spec):
+        return super().__new__(cls, (mesh, P(*spec)))
+
+    @property
+    def mesh(self):
+        return self[0]
+
+    @property
+    def spec(self):
+        return self[1]
+
+    def __repr__(self):
+        return "NamedSharding(%r, %r)" % (self.mesh, self.spec)
+
+
+def named_sharding(mesh, *spec):
+    return NamedSharding(mesh, spec)
+
+
+def replicated(mesh):
+    return NamedSharding(mesh, ())
+
+
+def spec_axes(entry):
+    """The mesh axes one entry of a spec names: () for None, a tuple's
+    axes (the first outermost), or the one axis."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
 
 
 class Mesh:
@@ -131,11 +168,14 @@ def current_mesh():
 def shard_array(x, mesh, *spec):
     """This rank's block of ``x`` (the whole value, on every rank) under
     ``spec``: a dimension named by an axis (or a tuple of axes, the first
-    outermost) is cut into that many equal blocks."""
+    outermost) is cut into that many equal blocks. ``mesh`` may be a
+    :class:`NamedSharding` (then no ``spec`` follows)."""
+    if isinstance(mesh, NamedSharding):
+        mesh, spec = mesh.mesh, tuple(mesh.spec)
     for d, axis in enumerate(spec):
-        if axis is None:
+        names = spec_axes(axis)
+        if not names:
             continue
-        names = axis if isinstance(axis, tuple) else (axis,)
         n, idx = 1, 0
         for a in names:
             idx = idx * mesh.shape[a] + mesh.local_rank(a)

@@ -20,11 +20,20 @@ from mxnet_tpu.serve import decoder as jax_decoder
 from mxnet_tpu_torch.serve import (GenerativeServer, NGramDraft, ServeError,
                                    ServeTimeout)
 from torch_port_helpers import (SMALL_GPT, jax_gpt,  # noqa: F401
-                                jax_trace_state_module, port_gpt_from)
+                                jax_rng_kept, jax_trace_state_module,
+                                port_gpt_from)
+from torch_port_helpers import few_threads  # noqa: F401
+
+# torch on 2 threads: the suite runs a worker a core or so
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 NEW = 8
 TC = 32
 LENGTHS = (100, 9, 33, 40)
+# the JAX model's weights: drawn from this seed, so every run holds the
+# same case whichever files ran before in the worker (unseeded, the share
+# of int8 page elements a rounding apart moved with the draw)
+SEED = 0
 
 
 def _prompts():
@@ -67,7 +76,8 @@ def _waves(prompts):
 
 
 @pytest.fixture(scope="module")
-def shared(jax_trace_state_module):  # noqa: F811
+def shared(jax_trace_state_module, jax_rng_kept):  # noqa: F811
+    mx.random.seed(SEED)
     jm = jax_gpt(False)
     prompts = _prompts()
     want = {}

@@ -23,8 +23,6 @@ serialized trajectories, ``DistKVStore`` sums, compression through the
 Trainer, and ``build_train_step``/``block_loss_fn``.
 """
 import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +37,7 @@ from mxnet_tpu import nd as jnd
 from mxnet_tpu import parallel as jparallel
 from jax.sharding import NamedSharding, PartitionSpec as JP
 from torch_port_helpers import jax_rng_kept, jax_trace_state_module  # noqa: F401
+from torch_port_helpers import run_ranks
 
 pytestmark = pytest.mark.usefixtures("jax_trace_state_module",
                                       "jax_rng_kept")
@@ -125,38 +124,7 @@ def ranks(tmp_path_factory, jax_trace_state_module):
     on 4 ranks, and the inputs."""
     workdir = tmp_path_factory.mktemp("dist4")
     inp = _inputs(workdir)
-    np.savez(workdir / "inputs.npz", **inp)
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("MXNET_DIST", "JAX", "XLA"))}
-    env["OMP_NUM_THREADS"] = "1"
-    procs = [subprocess.Popen([sys.executable, WORKER, str(r), str(WORLD),
-                               str(workdir)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, env=env, text=True)
-             for r in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=300)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, "rank %d failed:\n%s" % (r, log[-4000:])
-    res = [dict(np.load(workdir / ("rank%d.npz" % r))) for r in range(WORLD)]
-    out = {}
-    for r, d in enumerate(res):
-        for k, v in d.items():
-            case, _, key = k.partition("/")
-            if not key:
-                out.setdefault("top", [{} for _ in range(WORLD)])[r][case] = v
-                continue
-            out.setdefault(case, [{} for _ in range(WORLD)])[r][key] = v
-    for case, per in out.items():
-        for r, d in enumerate(per):
-            assert "error" not in d, "rank %d, case %s:\n%s" % (
-                r, case, d["error"])
-    return out, inp
+    return run_ranks(WORKER, workdir, inp, WORLD), inp
 
 
 def test_hierarchical_stacked_matches_numpy_and_jax(ranks):

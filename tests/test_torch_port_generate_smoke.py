@@ -12,6 +12,10 @@ import torch
 
 import chip_smoke as cs
 from mxnet_tpu_torch.serve import GenerativeServer
+from torch_port_helpers import few_threads  # noqa: F401
+
+# torch on 2 threads: the suite runs a worker a core or so
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 @pytest.fixture

@@ -16,6 +16,10 @@ from mxnet_tpu_torch.ops import attention as tattention
 from mxnet_tpu_torch.ops import functional as F
 from torch_port_helpers import (SMALL_GPT, jax_gpt, jax_trace_state,  # noqa: F401
                                 port_gpt_from)
+from torch_port_helpers import few_threads  # noqa: F401
+
+# torch on 2 threads: the suite runs a worker a core or so
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 def _tokens(seed, batch, T, vocab=SMALL_GPT["vocab_size"]):

@@ -11,6 +11,10 @@ import torch
 
 import chip_smoke as cs
 import mxnet_tpu_torch.models.gpt as gpt
+from torch_port_helpers import few_threads  # noqa: F401
+
+# torch on 2 threads: the suite runs a worker a core or so
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 KERNELS = ("layernorm_fwd", "layernorm_bwd", "flash_attention_fwd",
            "flash_attention_bwd", "softmax_xent_fwd", "softmax_xent_bwd")

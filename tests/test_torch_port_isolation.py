@@ -5,7 +5,9 @@ model, the generative server, the checkpoint layer, the snapshots, the
 optimizers, the LR schedulers, ``ir.tune``, ``parallel``, the vision
 layers, the model zoo, NDArray and the ``nd`` namespace, ``gluon.rnn``,
 the detection ops and the LSTM, SSD and Transformer models, the kvstore,
-``dist``, ``parallel``, the converters and the model store included) imports
+``dist``, ``parallel``, the converters and the model store, tensor,
+sequence, pipeline and expert parallelism and ``SyncBatchNorm``
+included) imports
 with JAX blocked; and without
 CUDA every entry point refuses to run unless the caller asks for the
 CPU."""
@@ -78,6 +80,12 @@ def test_package_imports_with_jax_blocked():
             "mxnet_tpu_torch.parallel.mesh, "
             "mxnet_tpu_torch.parallel.distributed, "
             "mxnet_tpu_torch.parallel.resilience, "
+            "mxnet_tpu_torch.parallel.tensor_parallel, "
+            "mxnet_tpu_torch.parallel.ring_attention, "
+            "mxnet_tpu_torch.parallel.ulysses, "
+            "mxnet_tpu_torch.parallel.pipeline, "
+            "mxnet_tpu_torch.parallel.expert_parallel, "
+            "mxnet_tpu_torch.gluon.contrib.nn, mxnet_tpu_torch.init, "
             "mxnet_tpu_torch.gluon.model_zoo.model_store; "
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -160,3 +168,47 @@ def test_without_cuda_entry_points_raise(monkeypatch):
     with pytest.raises(DeviceError):
         ModelServer(net, [((3, 32, 32), "float32")], buckets=(1,),
                     devices=["cpu", "cuda:0"])
+
+
+def test_model_parallel_on_cuda_tensors_raises_without_a_card(monkeypatch):
+    """A rank of a gloo group of CPU ranks (no card) given CUDA tensors:
+    ``ring_attention``, ``moe_ffn`` and ``sequence_parallel_scope`` refuse
+    them before any collective, and a ring step on the card's tensors
+    (``ring_replay``, what the ring runs a rank's blocks through) reaches
+    the flash kernel's build, which raises without CUDA: no step falls
+    back to the plain versions."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from mxnet_tpu_torch.base import DeviceError
+    from mxnet_tpu_torch.ops import F
+    from mxnet_tpu_torch.parallel import (distributed, moe_ffn,
+                                          ring_attention,
+                                          sequence_parallel_scope)
+    from mxnet_tpu_torch.parallel.ring_attention import ring_replay
+
+    class Mesh:
+        shape = {"sp": 1, "ep": 1}
+
+        def group(self, axis):
+            return None
+
+        def local_rank(self, axis):
+            return 0
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(distributed, "_device", torch.device("cpu"))
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        q = torch.zeros(1, 2, 256, 64, dtype=torch.bfloat16, device="cuda")
+        x = torch.zeros(8, 16, device="cuda")
+        with pytest.raises(DeviceError):
+            ring_attention(q, q, q, Mesh(), causal=True)
+        with pytest.raises(DeviceError):
+            moe_ffn(x, torch.zeros(16, 4, device="cuda"),
+                    torch.zeros(4, 16, 8, device="cuda"),
+                    torch.zeros(4, 8, 16, device="cuda"), Mesh())
+        with sequence_parallel_scope(Mesh()):
+            with pytest.raises(DeviceError):
+                F.scaled_dot_attention(q, q, q, causal=True)
+        for causal in (False, True):
+            with pytest.raises(DeviceError, match="CUDA device"):
+                ring_replay(q, q, q, 1, causal=causal)

@@ -30,6 +30,10 @@ from mxnet_tpu_torch.serve import GenerativeServer, ServeError
 from torch_port_helpers import (SMALL_GPT, jax_gpt,  # noqa: F401
                                 jax_trace_state, jax_trace_state_module,
                                 port_gpt_from)
+from torch_port_helpers import few_threads  # noqa: F401
+
+# torch on 2 threads: the suite runs a worker a core or so
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 NEW = 8
 LENGTHS = (3, 17, 40, 9)

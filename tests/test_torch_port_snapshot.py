@@ -26,6 +26,10 @@ from mxnet_tpu_torch.models.gpt import GPTModel as PortGPT
 from mxnet_tpu_torch.serve import GenerativeServer, ModelDraft, ServeError
 from torch_port_helpers import (SMALL_GPT, jax_gpt,  # noqa: F401
                                 jax_trace_state_module, port_gpt_from)
+from torch_port_helpers import few_threads  # noqa: F401
+
+# torch on 2 threads: the suite runs a worker a core or so
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 NEW = 6
 LENGTHS = (5, 17, 40)

@@ -13,6 +13,10 @@ import pytest
 import torch
 
 import chip_smoke as cs
+from torch_port_helpers import few_threads  # noqa: F401
+
+# torch on 2 threads: the suite runs a worker a core or so
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 @pytest.fixture

@@ -29,12 +29,15 @@ from mxnet_tpu_torch.convert import from_jax_params
 from mxnet_tpu_torch.models.ssd import SSD, SSDLoss, ssd_512
 from mxnet_tpu_torch.ops import F
 from torch_port_helpers import jax_params, jax_trace_state_module  # noqa: F401
-from torch_port_helpers import few_threads  # noqa: F401
+from torch_port_helpers import few_threads, jax_rng_kept  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("few_threads")
+pytestmark = pytest.mark.usefixtures("few_threads", "jax_rng_kept")
 
 SMALL = dict(num_classes=3, sizes=((0.2, 0.3), (0.5, 0.6)),
              ratios=((1, 2),) * 2)
+# the JAX model's initial weights: drawn from this seed, so the case is the
+# same whichever files ran before in the worker
+SEED = 0
 
 
 def _np(a):
@@ -58,8 +61,9 @@ def _rel_l2(got, want):
 
 
 @pytest.fixture(scope="module")
-def pair(jax_trace_state_module):  # noqa: F811
+def pair(jax_trace_state_module, jax_rng_kept):  # noqa: F811
     jm = JSSD(**SMALL)
+    jmx.random.seed(SEED)
     jm.initialize()
     rng = np.random.RandomState(0)
     x = rng.randn(2, 3, 64, 64).astype(np.float32)

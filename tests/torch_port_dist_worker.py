@@ -456,7 +456,9 @@ CASES = [("hier", case_hierarchical), ("ef", case_error_feedback),
          ("elastic", case_elastic)]
 
 
-def main(argv):
+def main(argv, cases=None):
+    """Run ``cases`` (default ``CASES``) on this rank."""
+    cases = CASES if cases is None else cases
     rank, world, workdir = int(argv[0]), int(argv[1]), argv[2]
     torch.set_num_threads(1)
     os.environ["MXNET_DIST_BUCKET_MB"] = "2.5"
@@ -468,7 +470,7 @@ def main(argv):
     results = {"env_bucket_mb": np.array(env_cap),
                "rank_size": np.array([distributed.rank(),
                                       distributed.size()])}
-    for name, fn in CASES:
+    for name, fn in cases:
         out = {}
         try:
             if fn.__code__.co_argcount == 4:

@@ -196,3 +196,47 @@ def jax_rng_kept():
     state = jrandom.get_state()
     yield
     jrandom.set_state(state)
+
+
+def run_ranks(worker, workdir, inp, world):
+    """Write ``inp`` to ``workdir``/inputs.npz, run ``world`` processes of
+    the multi-rank ``worker`` (``tests/torch_port_dist_worker.py``'s
+    protocol: ``worker RANK WORLD WORKDIR``, a gloo group through a file
+    store in ``workdir``) and return {case: [rank 0's results, ...]}; a
+    rank that failed, or a case that raised on one, fails the caller."""
+    import os
+    import subprocess
+    import sys
+
+    np.savez(workdir / "inputs.npz", **inp)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("MXNET_DIST", "JAX", "XLA"))}
+    env["OMP_NUM_THREADS"] = "1"
+    procs = [subprocess.Popen([sys.executable, worker, str(r), str(world),
+                               str(workdir)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, env=env, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, "rank %d failed:\n%s" % (r, log[-4000:])
+    res = [dict(np.load(workdir / ("rank%d.npz" % r))) for r in range(world)]
+    out = {}
+    for r, d in enumerate(res):
+        for k, v in d.items():
+            case, _, key = k.partition("/")
+            if not key:
+                out.setdefault("top", [{} for _ in range(world)])[r][case] = v
+                continue
+            out.setdefault(case, [{} for _ in range(world)])[r][key] = v
+    for case, per in out.items():
+        for r, d in enumerate(per):
+            assert "error" not in d, "rank %d, case %s:\n%s" % (
+                r, case, d["error"])
+    return out

@@ -42,7 +42,13 @@ built:
   ``phase_dist_train`` (the GPT-2 step through ``dist.attach`` over an
   NCCL group of one rank at ZeRO 0-3 and each compression, a planted
   bucket fault, and ``ModelServer(devices=[card, card])``) and
-  ``phase_dist_breakdown`` (the attached step under torch.profiler).
+  ``phase_dist_breakdown`` (the attached step under torch.profiler);
+- ``mp``: ``phase_model_parallel`` (the GPT-2 step inside
+  ``sequence_parallel_scope`` at sp = 1, ring and Ulysses, against the
+  plain step; the n = 4 ring replayed on the card against the
+  whole-sequence flash kernel, with a planted merge fault; the
+  ``param_spec`` train step at tp = 1, ``moe_ffn`` at ep = 1, 1F1B at
+  pp = 1 and ``SyncBatchNorm`` at dp = 1 against their plain forms).
 
 The readings go to ``chiprun_out/cuda_phases.json``. ``--keep-going``
 prints a failed check and goes on (to read every number of a first run);
@@ -154,7 +160,8 @@ GROUPS = {"kernels": run_kernels, "spec": run_spec,
           "snapshot": lambda cs, dev: cs.phase_snapshot(dev),
           "serve_graph": run_serve_graph, "optim": run_optim,
           "vision": run_vision, "nd": run_nd, "a11": run_a11,
-          "dist": run_dist}
+          "dist": run_dist,
+          "mp": lambda cs, dev: cs.phase_model_parallel(dev)}
 
 
 def main(argv):
