@@ -9389,6 +9389,666 @@ def phase_model_parallel(dev):
     return out
 
 
+# Megatron compute sharding replayed on one card (tensor_parallel.tp_scope
+# .replay): GPT-2 small's forward and backward at tp = 4, every rank's
+# share on the card, the regions' sums over the replayed ranks
+TP_REPLAY = 4
+# the split step against an fp32 reference: the loss, the logits and each
+# gradient no more than this many times as far (relative L2) as the
+# unsplit bf16 step's own
+TP_ERR_RATIO = 2.0
+# BERT-base's MLM head at tp = 2: the vocabulary-parallel loss over the
+# two (rows, 15261) halves of its 30522 logits
+TP_XENT = {"rows": 1280, "vocab": VOCAB, "n": 2}
+
+
+def _tp_gpt_run(model, inp, tgt, scope=None):
+    """One forward and backward of ``model`` on (inp, tgt) (the per-token
+    loss's mean over T a sample), inside ``scope``; returns (the per-sample
+    loss, the logits, each parameter's gradient, the launches)."""
+    import contextlib
+
+    import torch
+    from mxnet_tpu_torch import autograd, gluon
+
+    params = list(model.collect_params().values())
+    for p in params:
+        p.zero_grad()
+    torch.cuda.synchronize()
+    reset_counters()
+    with autograd.record(train_mode=False):
+        with scope if scope is not None else contextlib.nullcontext():
+            logits = model(inp)
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(logits, tgt)
+    autograd.backward(loss)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    return (loss.detach(), logits.detach(), _grads(params), launches)
+
+
+def _tp_ratio_reading(got, base, ref, names):
+    """{name: [the unsplit bf16 step's relative L2 to the fp32 reference,
+    the split step's, their ratio]} over loss, logits and gradients."""
+    out = {}
+    for nm, g, b, r in zip(names, got, base, ref):
+        eb, eg = _rel(b, r), _rel(g, r)
+        out[nm] = [eb, eg, eg / eb if eb > 0 else (0.0 if eg == 0 else
+                                                   float("inf"))]
+    return out
+
+
+def _tp_gpt_replay(dev):
+    """GPT-2 small's forward and backward at tp = 4 replayed on one card
+    (bf16, batch GPT_TRAIN, no dropout): 3 local heads of 12 a rank, the
+    FFN's 768 of 3072 columns, the vocabulary (50257) whole, against the
+    unsplit bf16 step and an fp32 reference on the plain versions."""
+    import torch
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.models.gpt import GPTModel
+    from mxnet_tpu_torch.parallel import tensor_parallel as tp
+
+    cfg = dict(GPT_CONFIG, dropout=0.0)
+    model = GPTModel(**cfg)
+    model.initialize(device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 71))
+    amp.convert_hybrid_block(model, "bfloat16")
+    params = list(model.collect_params().values())
+    B, T = GPT_TRAIN["batch"], GPT_TRAIN["seq"]
+    seq = np.random.default_rng(SEED + 71).integers(
+        0, cfg["vocab_size"], (B, T + 1)).astype(np.int32)
+    inp = torch.from_numpy(np.ascontiguousarray(seq[:, :T])).to(dev)
+    tgt = torch.from_numpy(np.ascontiguousarray(seq[:, 1:])).to(dev)
+
+    class Axis:
+        shape = {"tp": TP_REPLAY}
+
+    specs = [(p._tensor(), tp.spec_for(p.name, tuple(p.shape),
+                                       tp.TRANSFORMER_RULES, Axis))
+             for p in params]
+    n_split = sum(1 for _, sp in specs if tuple(sp))
+    base = _tp_gpt_run(model, inp, tgt)
+    tp.reset_counters()
+    got = _tp_gpt_run(model, inp, tgt, tp.tp_scope.replay(TP_REPLAY, specs))
+    paths = dict(tp.counters)
+    ref32 = GPTModel(**cfg)
+    ref32.initialize(device=dev)
+    with torch.no_grad():
+        for p, q in zip(ref32.collect_params().values(), params):
+            p._tensor().copy_(q._tensor().float())
+    with plain_versions():
+        ref = _tp_gpt_run(ref32, inp, tgt)
+    del ref32
+    names = ["loss", "logits"] + [p.name for p in params]
+    reading = _tp_ratio_reading([got[0], got[1]] + got[2],
+                                [base[0], base[1]] + base[2],
+                                [ref[0], ref[1]] + ref[2], names)
+    del base, ref
+    torch.cuda.empty_cache()
+    worst = max(reading.items(), key=lambda kv: kv[1][2])
+    hl = cfg["num_heads"] // TP_REPLAY
+    want = {"flash_attention_fwd": TP_REPLAY * cfg["num_layers"],
+            "flash_attention_bwd": TP_REPLAY * cfg["num_layers"],
+            "layernorm": 2 * cfg["num_layers"] + 1,
+            "layernorm_bwd": 2 * cfg["num_layers"] + 1,
+            "softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
+    launches = got[3]
+    flash_ms = _local_head_flash_ms(dev, B, T, cfg["num_heads"], hl,
+                                    cfg["units"] // cfg["num_heads"])
+    print("tp compute: gpt2 small forward and backward at tp=%d replayed "
+          "on one card (%d x %d bf16, %d local heads of %d, flash at %s, "
+          "%d split leaves): relative L2 to fp32 (unsplit, split, ratio) "
+          "loss %s, logits %s, worst %s %s (limit %gx); paths %s; launches "
+          "%s" % (TP_REPLAY, B, T, hl, cfg["num_heads"], (B, hl, T,
+                                                         cfg["units"]
+                                                         // cfg["num_heads"]),
+                  n_split, ["%.3g" % x for x in reading["loss"]],
+                  ["%.3g" % x for x in reading["logits"]], worst[0],
+                  ["%.3g" % x for x in worst[1]], TP_ERR_RATIO, paths,
+                  {k: v for k, v in launches.items() if v}), flush=True)
+    # the attentions and FFNs split; the embedding and the tied head too
+    # when the axis divides the vocabulary (GPT-2's 50257 it does not)
+    vocab_split = cfg["vocab_size"] % TP_REPLAY == 0
+    check(paths["gathered"] == 0 and paths["gathered_leaves"] == 0
+          and paths["split"] == 2 * cfg["num_layers"] + 2 * vocab_split,
+          "tp=%d replay: blocks took the gathered path: %s"
+          % (TP_REPLAY, paths))
+    check(all(v[2] <= TP_ERR_RATIO for v in reading.values()),
+          "tp=%d replay: farther than %gx the unsplit step's error from "
+          "fp32: %s %s" % (TP_REPLAY, TP_ERR_RATIO, worst[0], worst[1]))
+    for name, n in want.items():
+        check(launches[name] == n, "tp=%d replay: %s launches %d != %d"
+              % (TP_REPLAY, name, launches[name], n))
+    return {"errors": reading, "worst": list(worst), "paths": paths,
+            "launches": launches, "split_leaves": n_split,
+            "local_heads": hl, "flash_ms": flash_ms}
+
+
+def _local_head_flash_ms(dev, B, T, H, hl, D):
+    """Device ms (graph replay) of the causal flash forward with the lse
+    and of the backward at a rank's H/n heads and at all H heads."""
+    import torch
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 79)
+    out = {}
+    for h in (hl, H):
+        q, k, v, do = (torch.randn(B, h, T, D, device=dev, generator=g).to(
+            torch.bfloat16) for _ in range(4))
+        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        delta = (o.float() * do.float()).sum(dim=-1)
+        fwd, bwd = time_ms(
+            lambda: fa.flash_attention(q, k, v, causal=True,
+                                       return_lse=True),
+            lambda: fa.flash_attention_bwd(q, k, v, do, lse, delta,
+                                           causal=True))
+        out["%d_heads" % h] = {"forward": fwd, "backward": bwd}
+    print("tp compute: causal flash at (%d, h, %d, %d), device ms by graph "
+          "replay: %s, on %s" % (B, T, D, out, card_line()), flush=True)
+    return out
+
+
+def forgot_last_lse(losses, lses):
+    """A vocabulary merge that leaves the last rank's lse out (planted)."""
+    import torch
+
+    lse = torch.logsumexp(torch.stack(lses[:-1]), dim=0)
+    picked = sum(a - b for a, b in zip(lses, losses))
+    return lse - picked, lse
+
+
+def _tp_xent(dev):
+    """BERT-base's MLM head at tp = 2: the vocabulary-parallel loss and dx
+    over the two halves of (rows, 30522) bf16 logits against the unsplit
+    kernel, both held to an fp64 reference; a merge that forgets the last
+    rank's lse (planted) must be caught."""
+    import torch
+    from mxnet_tpu_torch.ops.cuda import softmax_xent as sx
+    from mxnet_tpu_torch.parallel import tensor_parallel as tp
+
+    R, V, n = TP_XENT["rows"], TP_XENT["vocab"], TP_XENT["n"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 73)
+    x = (torch.randn(R, V, device=dev, generator=g) * 3).to(torch.bfloat16)
+    labels = torch.randint(0, V, (R,), device=dev, generator=g,
+                           dtype=torch.int32)
+    dy = torch.rand(R, device=dev, generator=g)
+    size = V // n
+    parts = [x[:, r * size:(r + 1) * size].contiguous() for r in range(n)]
+    xd = x.double()
+    lse_ref = torch.logsumexp(xd, dim=1)
+    loss_ref = lse_ref - xd.gather(1, labels.long()[:, None])[:, 0]
+    dx_ref = (torch.exp(xd - lse_ref[:, None]) - torch.nn.functional.one_hot(
+        labels.long(), V).double()) * dy.double()[:, None]
+    reset_counters()
+    loss_w, lse_w = sx.softmax_xent_fwd(x, labels)
+    dx_w = sx.softmax_xent_bwd(x, labels, lse_w, dy)
+    whole_launches = read_counters()
+    torch.cuda.synchronize()
+
+    def split(merge):
+        ps = [p.clone().requires_grad_(True) for p in parts]
+        loss = tp.vocab_parallel_xent(ps, labels, [r * size
+                                                   for r in range(n)],
+                                      merge=merge)
+        loss.backward(dy)
+        return loss.detach(), torch.cat([p.grad for p in ps], dim=1)
+
+    reset_counters()
+    loss_s, dx_s = split(tp.merge_xent)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    errs = {"loss": [_rel(loss_w, loss_ref), _rel(loss_s, loss_ref)],
+            "dx": [_rel(dx_w, dx_ref), _rel(dx_s, dx_ref)]}
+    within = {k: e[1] <= TP_ERR_RATIO * e[0] for k, e in errs.items()}
+    loss_f, _ = split(forgot_last_lse)
+    fault = _rel(loss_f, loss_ref)
+    caught = fault > TP_ERR_RATIO * errs["loss"][0]
+    labels_in = [int(((labels >= r * size) & (labels < (r + 1) * size))
+                     .sum()) for r in range(n)]
+    half, lab0 = parts[0], labels  # rank 0's block: no shift
+    _, lse0 = sx.softmax_xent_fwd(half, lab0)
+    xent_ms = dict(zip(
+        ("whole_forward", "whole_backward", "block_forward",
+         "block_backward"), time_ms(
+            lambda: sx.softmax_xent_fwd(x, labels),
+            lambda: sx.softmax_xent_bwd(x, labels, lse_w, dy),
+            lambda: sx.softmax_xent_fwd(half, lab0),
+            lambda: sx.softmax_xent_bwd(half, lab0, lse0, dy))))
+    print("tp compute: vocabulary-parallel softmax-xent over %d x (%d of "
+          "%d) bf16 (labels a block %s): relative L2 to fp64 (unsplit "
+          "kernel, split) %s (limit %gx); launches %s (unsplit %s); planted "
+          "merge without the last lse: loss %.3g, caught %s; device ms by "
+          "graph replay %s, on %s" % (
+              R, size, V, labels_in,
+              {k: ["%.3g" % v for v in e] for k, e in errs.items()},
+              TP_ERR_RATIO, {k: v for k, v in launches.items() if v},
+              {k: v for k, v in whole_launches.items() if v}, fault, caught,
+              xent_ms, card_line()), flush=True)
+    check(all(within.values()), "vocabulary-parallel xent farther than %gx "
+          "the unsplit kernel's error: %s" % (TP_ERR_RATIO, errs))
+    check(launches["softmax_xent_fwd"] == n and launches["softmax_xent_bwd"]
+          == n, "vocabulary-parallel xent: launches %s, want %d each way"
+          % (launches, n))
+    check(caught, "vocabulary-parallel xent: the planted merge fault passes")
+    return {"errors": errs, "within": within, "launches": launches,
+            "labels_a_block": labels_in, "planted_loss_rel_l2": fault,
+            "planted_caught": caught, "ms": xent_ms}
+
+
+def _tp_train_step(dev, mesh):
+    """build_train_step with TRANSFORMER_RULES specs at {dp: 1, tp: 1} on
+    the GPT-2 small step (block_loss_fn: the blocks take the split path)
+    against the same step without specs, two Adam steps each, as
+    ``_sp_gpt`` holds the sequence-parallel step: the first loss bit for
+    bit, the parameters no dq reaches equal after the first step."""
+    import torch
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch import optimizer as opt
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.parallel import tensor_parallel as tp
+
+    step = GPTTrainStep(dev)
+    loss_fn, plist = parallel.block_loss_fn(
+        step.model, gluon.loss.SoftmaxCrossEntropyLoss())
+    init = [p._tensor().detach().clone() for p in plist]
+    specs = [tp.spec_for(p.name, tuple(p.shape), tp.TRANSFORMER_RULES, mesh)
+             for p in plist]
+    last = step.model.blocks[-1]
+    fixed_names = {p.name for b in (last.attn.attn_out, last.ln2, last.ffn_1,
+                                    last.ffn_2, step.model.ln_f)
+                   for p in b.collect_params().values()}
+    fixed = [i for i, p in enumerate(plist) if p.name in fixed_names]
+    runs = {}
+    for tag, spec in (("plain", None), ("split", specs)):
+        adam = opt.Adam(**ADAM)
+        params = [a.clone() for a in init]
+        init_states, _ = parallel.tree_optimizer_step(adam)
+        states = init_states(params)
+        fn = parallel.build_train_step(loss_fn, adam, mesh=mesh,
+                                       param_spec=spec)
+        mx_random.seed(SEED)
+        losses, snaps, launches = [], [], []
+        tp.reset_counters()
+        for i in range(2):
+            torch.cuda.synchronize()
+            reset_counters()
+            params, states, loss = fn(params, states, 1 + i, None,
+                                      (step.inp, step.tgt))
+            torch.cuda.synchronize()
+            launches.append(read_counters())
+            losses.append(loss.clone())
+            snaps.append([a.clone() for a in params])
+        runs[tag] = (losses, snaps, launches, dict(tp.counters))
+        del params, states
+    (lp, sp_, _, _), (ls, ss, ln, paths) = runs["plain"], runs["split"]
+    first = bool(torch.equal(lp[0], ls[0]))
+    unreached = all(torch.equal(ss[0][i], sp_[0][i]) for i in fixed)
+    differs = [sum(not torch.equal(a, b) for a, b in zip(x, y))
+               for x, y in zip(ss, sp_)]
+    print("tp compute: build_train_step(TRANSFORMER_RULES specs) on %s, the "
+          "gpt2 small step through the split path (paths %s): losses %s "
+          "(plain %s), first bit for bit %s; the %d parameters no dq reaches "
+          "equal after the first step %s; parameters differing after each "
+          "step %s (a reading); launches a step %s" % (
+              mesh.shape, paths, [float(x) for x in ls],
+              [float(x) for x in lp], first, len(fixed), unreached, differs,
+              ln[0]), flush=True)
+    check(paths["gathered"] == 0 and paths["gathered_leaves"] == 0 and
+          paths["split"] == 2 * (2 * GPT_CONFIG["num_layers"] + 2),
+          "tp=1 step: not every block took the split path: %s" % paths)
+    check(first, "tp=1 step: the first loss is not the plain step's")
+    check(unreached, "tp=1 step: a parameter no dq reaches differs from the "
+          "plain step's after the first step")
+    for i, got in enumerate(ln):
+        for name, n in GPT_STEP_LAUNCHES.items():
+            check(got[name] == n, "tp=1 step %d: %s launches %d != %d"
+                  % (i, name, got[name], n))
+    del step, runs
+    return {"paths": paths, "first_loss_bitwise": first,
+            "unreached_equal": unreached, "differs": differs,
+            "losses": [float(x) for x in ls], "launches": ln}
+
+
+def phase_tp_compute(dev):
+    """A.12's last item on one card: Megatron compute sharding, the GPT-2
+    small step replayed at tp = 4, BERT-base's MLM head through the
+    vocabulary-parallel loss at tp = 2, and build_train_step's split path
+    at {dp: 1, tp: 1} over an NCCL group of one rank against the plain
+    step."""
+    import torch
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.parallel import distributed
+
+    t_phase = time.perf_counter()
+    out = {"card": card_line()}
+    out["gpt2_tp4_replay"] = _tp_gpt_replay(dev)
+    torch.cuda.empty_cache()
+    out["bert_mlm_xent_tp2"] = _tp_xent(dev)
+    torch.cuda.empty_cache()
+    distributed.init_process_group(device=dev)
+    try:
+        out["train_step_tp1"] = _tp_train_step(
+            dev, parallel.make_mesh({"dp": 1, "tp": 1}))
+    finally:
+        distributed.shutdown()
+    torch.cuda.empty_cache()
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    print("tp compute phase: %.1f s on %s" % (out["phase_seconds"],
+                                              out["card"]), flush=True)
+    return out
+
+
+HYB_STEPS = 3
+
+
+class _LMLoss:
+    """GPT_TRAIN's step as a Gluon user writes it: one HybridBlock holding
+    the model and its loss (``hybrid_forward`` returns the per-sample
+    loss), a Trainer over the model's parameters."""
+
+    def __init__(self, dev):
+        from mxnet_tpu_torch import gluon
+        from mxnet_tpu_torch.gluon.block import HybridBlock
+
+        base = GPTTrainStep(dev)
+
+        class Net(HybridBlock):
+            def __init__(self, model, loss):
+                super().__init__(prefix="lmloss_")
+                self.model, self.loss = model, loss
+
+            def hybrid_forward(self, F, x, y):
+                return self.loss(self.model(x), y)
+
+        self.model, self.inp, self.tgt = base.model, base.inp, base.tgt
+        self.net = Net(base.model, gluon.loss.SoftmaxCrossEntropyLoss())
+        self.params = base.params
+        self.trainer = None
+        self.gluon = gluon
+
+    def fresh_trainer(self, init):
+        import torch
+
+        with torch.no_grad():
+            for p, s in zip(self.params, init):
+                p._tensor().copy_(s)
+        self.trainer = self.gluon.Trainer(self.model.collect_params(),
+                                          "adam", dict(ADAM))
+
+    def __call__(self):
+        from mxnet_tpu_torch import autograd, nd
+
+        x, y = nd.NDArray(self.inp), nd.NDArray(self.tgt)
+        with autograd.record():
+            loss = self.net(x, y)
+        loss.backward()
+        self.trainer.step(GPT_TRAIN["batch"])
+        return loss._data.detach()
+
+
+def _hyb_run(step, init, n, hybrid):
+    """``n`` steps from ``init`` with a fresh Adam trainer, the generators
+    seeded once; per step the loss, the launches and the host wall, the
+    parameters after each step, and the first step's gradients."""
+    import torch
+    from mxnet_tpu_torch import random as mx_random
+
+    step.fresh_trainer(init)
+    step.net.hybridize(active=hybrid)
+    mx_random.seed(SEED)
+    rows, snaps = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        rows.append({"loss": loss.clone(), "launches": read_counters(),
+                     "host_wall_ms": (time.perf_counter() - t0) * 1e3})
+        snaps.append(_param_snapshot(step))
+        if len(rows) == 1:
+            grads = _grads(step.params)
+    return rows, snaps, grads
+
+
+HYB_OPT_REPS = 10
+
+
+def _hyb_interleave(step):
+    """Keys of one hybridized block interleaved, with the weights fixed (a
+    rate of 0 set before): the batch and its first half forwarded under
+    one ``record``, a predict call on its first quarter between those
+    forwards and the one backward; eager, then hybridized twice, the
+    generators seeded alike before each run. Returns each run's losses,
+    gradients and the block's counts in it. Each program has a memory
+    pool of its own, so no key's graph may overwrite another's saved
+    activations, and ``random.seed`` drops the programs, so the second
+    hybridized run draws the first's masks."""
+    import torch
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch import random as mx_random
+
+    b = GPT_TRAIN["batch"]
+    x, y = step.inp, step.tgt
+
+    def once():
+        before = step.net.hybrid_stats()
+        mx_random.seed(SEED)
+        with autograd.record():
+            la = step.net(nd.NDArray(x), nd.NDArray(y))
+            lb = step.net(nd.NDArray(x[:b // 2]), nd.NDArray(y[:b // 2]))
+        q = max(1, b // 4)
+        step.net(nd.NDArray(x[:q]), nd.NDArray(y[:q]))  # a predict key
+        autograd.backward([la, lb])
+        torch.cuda.synchronize()
+        return {"losses": [la._data.detach().clone(),
+                           lb._data.detach().clone()],
+                "grads": _grads(step.params),
+                "stats": {k: v - before[k]
+                          for k, v in step.net.hybrid_stats().items()}}
+
+    step.net.hybridize(active=False)
+    runs = [once()]
+    step.net.hybridize()
+    runs += [once(), once()]
+    return runs
+
+
+def _optimizer_program_reading(step, dev):
+    """The GPT-2 step's Adam update (``ADAM``, fp32 masters) on clones of
+    the weights and gradients: eager (``fused_update``) against the step
+    program's graph replay (``optimizer.StepProgram``), each timed by CUDA
+    events over HYB_OPT_REPS runs back to back after one more. A reading
+    (None on the CPU)."""
+    import torch
+    from mxnet_tpu_torch import optimizer as opt_mod
+
+    if dev.type != "cuda":
+        return None
+    ws = [p._tensor().detach().clone() for p in step.params]
+    gs = [p._tensor().grad.detach().clone() for p in step.params]
+    idx = list(range(len(ws)))
+    out = {}
+    for label in ("eager", "program"):
+        opt = opt_mod.Adam(**ADAM)
+        states = [opt.create_state(i, w) for i, w in zip(idx, ws)]
+        if label == "eager":
+            def run():
+                opt.fused_update(ws, gs, states, idx)
+        else:
+            prog = opt_mod.StepProgram(opt)
+            prog.run(ws, gs, states, idx)
+            run = prog.graph.replay
+        run()
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(HYB_OPT_REPS):
+            run()
+        t1.record()
+        t1.synchronize()
+        out[label + "_ms"] = t0.elapsed_time(t1) / HYB_OPT_REPS
+        del states
+    out["groups"] = len(prog._groups)
+    return out
+
+
+def phase_hybridize(dev):
+    """A.13's capture on the GPT-2 small step at GPT_TRAIN's recipe (8 x
+    1024, bf16, dropout 0.1, Adam): ``net.hybridize()``,
+    ``autograd.record``, ``loss.backward()``, ``trainer.step``, against
+    the eager step from the same weights and generators: the first loss
+    bit for bit, the parameters no dq reaches equal after the first step,
+    the first step's gradients within GPT-2's limits of the eager step's
+    (beside a second eager run's reading), the launches a step the eager
+    step's, one forward, backward and optimizer capture and no recapture;
+    then a learning rate of 0 set after capture (the weights stay) and two
+    replays on the same weights and batch (new dropout masks: the losses
+    differ); then the keys interleaved (:func:`_hyb_interleave`: losses
+    bit for bit the eager ones and, seeded again, the first hybridized
+    run's, after a drop and 3 recaptures; gradients within GPT-2's limits
+    of the eager ones; 3 forward and 2 backward captures and replays),
+    and the Adam update eager against its step program (a reading). The
+    count of parameters that differ from the eager run's
+    after HYB_STEPS steps is a reading beside a second eager run's: the
+    flash dq sums in no fixed order, the count sits near all 148 and moves
+    by one or two from a run to the next, so one exchangeable sample is
+    no bound on another (146 against 145, 148 against 146 on an H100)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    step = _LMLoss(dev)
+    init = _param_snapshot(step)
+    last = step.model.blocks[-1]
+    names = {p.name for b in (last.attn.attn_out, last.ln2, last.ffn_1,
+                              last.ffn_2, step.model.ln_f)
+             for p in b.collect_params().values()}
+    fixed = [i for i, p in enumerate(step.params) if p.name in names]
+    eager, ref, ref_grads = _hyb_run(step, init, HYB_STEPS, False)
+    _, again, again_grads = _hyb_run(step, init, HYB_STEPS, False)
+    own = _params_gap(again[-1], ref[-1])[1]
+    own_grads = _grad_reading(step, again_grads, ref_grads)
+    del again, again_grads
+    rows, snaps, grads = _hyb_run(step, init, HYB_STEPS, True)
+    grad_reading = _grad_reading(step, grads, ref_grads)
+    del grads, ref_grads
+    stats, gstats = step.net.hybrid_stats(), step.trainer.graph_stats()
+    gap = _params_gap(snaps[-1], ref[-1])[1]
+    first = bool(torch.equal(rows[0]["loss"], eager[0]["loss"]))
+    unreached = all(torch.equal(snaps[0][i], ref[0][i]) for i in fixed)
+    before = snaps[-1]
+    del snaps, ref
+    step.trainer.set_learning_rate(0.0)
+    extra = []
+    for _ in range(2):
+        reset_counters()
+        extra.append(step())
+    torch.cuda.synchronize()
+    after = _param_snapshot(step)
+    lr_took = all(torch.equal(a, b) for a, b in zip(after, before))
+    masks_differ = not torch.equal(extra[0], extra[1])
+    stats_end = step.net.hybrid_stats()
+    gstats_end = step.trainer.graph_stats()
+    inter = _hyb_interleave(step)
+    e, h1, h2 = inter
+    inter_out = {
+        "losses_bitwise": all(torch.equal(a, b) for a, b in zip(
+            h1["losses"], e["losses"])),
+        "seeded_again_bitwise": all(torch.equal(a, b) for a, b in zip(
+            h2["losses"], h1["losses"])),
+        "grads": _grad_reading(step, h1["grads"], e["grads"]),
+        "grads_seeded_again": _grad_reading(step, h2["grads"], e["grads"]),
+        "stats": h1["stats"], "stats_seeded_again": h2["stats"]}
+    del inter, e, h1, h2
+    opt_reading = _optimizer_program_reading(step, dev)
+    step.net.hybridize(active=False)
+    wall_e = float(np.median([r["host_wall_ms"] for r in eager[1:]]))
+    wall_h = float(np.median([r["host_wall_ms"] for r in rows[1:]]))
+    out = {"card": card_line(), "first_loss_bitwise": first,
+           "unreached_equal": unreached, "differs": gap,
+           "second_eager_run_differs": own, "grads": grad_reading,
+           "second_eager_run_grads": own_grads,
+           "losses": [float(r["loss"].mean()) for r in rows],
+           "eager_losses": [float(r["loss"].mean()) for r in eager],
+           "launches": [r["launches"] for r in rows],
+           "block_stats": stats, "trainer_stats": gstats,
+           "block_stats_end": stats_end, "trainer_stats_end": gstats_end,
+           "lr_change_took": lr_took, "replay_masks_differ": masks_differ,
+           "host_wall_ms_median": {"eager": wall_e, "hybridized": wall_h},
+           "interleaved": inter_out, "optimizer_update_ms": opt_reading}
+    print("hybridize: gpt2 small step (%s): losses %s (eager %s), first bit "
+          "for bit %s; the %d parameters no dq reaches equal after the first "
+          "step %s; first step's gradients vs eager: worst %.3g, worst row "
+          "%.3g (a second eager run's %.3g, %.3g; limits %g, %g); parameters "
+          "differing after %d steps %d (a second eager run's %d, a "
+          "reading); block %s, trainer %s; lr 0 after capture kept the "
+          "weights %s; two replays on the same weights, losses %.6f and %.6f "
+          "(masks differ %s); host wall a step (median of %d) eager %.3f ms, "
+          "hybridized %.3f ms, a reading on %s" % (
+              GPT_TRAIN, ["%.5f" % x for x in out["losses"]],
+              ["%.5f" % x for x in out["eager_losses"]], first, len(fixed),
+              unreached, grad_reading["worst_grad_rel_l2"],
+              grad_reading["worst_row_rel_l2"],
+              own_grads["worst_grad_rel_l2"], own_grads["worst_row_rel_l2"],
+              GPT_STEP_GRAD_TOL, GPT_STEP_ROW_TOL, HYB_STEPS, gap, own,
+              stats, gstats, lr_took,
+              float(extra[0].mean()), float(extra[1].mean()), masks_differ,
+              HYB_STEPS - 1, wall_e, wall_h, out["card"]), flush=True)
+    check(first, "hybridize: the first loss is not the eager step's")
+    check(unreached, "hybridize: a parameter no dq reaches differs from the "
+          "eager step's after the first step")
+    check(grad_reading["within"], "hybridize: the first step's gradients "
+          "outside GPT-2's limits of the eager step's: %s" % grad_reading)
+    for i, got in enumerate(out["launches"]):
+        for name, n in GPT_STEP_LAUNCHES.items():
+            check(got[name] == n, "hybridize step %d: %s launches %d != %d"
+                  % (i, name, got[name], n))
+    check(stats["forward_captures"] == 1 and stats["backward_captures"] == 1
+          and stats["recaptures"] == 0 and stats["forward_replays"] ==
+          HYB_STEPS and stats["backward_replays"] == HYB_STEPS,
+          "hybridize: block programs %s" % stats)
+    check(gstats == {"captures": 1, "replays": HYB_STEPS, "recaptures": 0},
+          "hybridize: optimizer program %s" % gstats)
+    check(stats_end["recaptures"] == 0 and gstats_end["recaptures"] == 0,
+          "hybridize: recaptured after the lr change: %s %s"
+          % (stats_end, gstats_end))
+    check(lr_took, "hybridize: a learning rate of 0 set after capture did "
+          "not stop the update")
+    check(masks_differ, "hybridize: two replays drew the same dropout masks")
+    si, s2 = inter_out["stats"], inter_out["stats_seeded_again"]
+    print("hybridize: keys interleaved (the batch and its half recorded, a "
+          "predict call on a quarter before the one backward): losses bit "
+          "for bit the eager ones %s, seeded again bit for bit %s; "
+          "gradients vs eager: worst %.3g, worst row %.3g (seeded again "
+          "%.3g, %.3g); block counts in the runs %s, %s; Adam update on "
+          "%s: %s" % (
+              inter_out["losses_bitwise"], inter_out["seeded_again_bitwise"],
+              inter_out["grads"]["worst_grad_rel_l2"],
+              inter_out["grads"]["worst_row_rel_l2"],
+              inter_out["grads_seeded_again"]["worst_grad_rel_l2"],
+              inter_out["grads_seeded_again"]["worst_row_rel_l2"], si, s2,
+              out["card"], opt_reading), flush=True)
+    check(inter_out["losses_bitwise"], "hybridize: interleaved keys' losses "
+          "are not the eager ones")
+    check(inter_out["grads"]["within"] and
+          inter_out["grads_seeded_again"]["within"],
+          "hybridize: interleaved keys' gradients outside GPT-2's limits of "
+          "the eager ones: %s" % inter_out)
+    check((si["forward_captures"], si["backward_captures"],
+           si["forward_replays"], si["backward_replays"]) == (3, 2, 3, 2),
+          "hybridize: interleaved keys' programs %s" % si)
+    check(inter_out["seeded_again_bitwise"] and s2["drops"] == 1
+          and s2["recaptures"] == s2["forward_captures"] == 3,
+          "hybridize: random.seed did not drop the programs (%s then %s) or "
+          "the masks differ" % (si, s2))
+    del step
+    torch.cuda.empty_cache()
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    print("hybridize phase: %.1f s on %s" % (out["phase_seconds"],
+                                             out["card"]), flush=True)
+    return out
+
+
 def card_line():
     """The card's name and power limit, as ``nvidia-smi --query-gpu=
     name,power.limit --format=csv,noheader`` gives them."""
@@ -9518,6 +10178,8 @@ def main():
         converted["phase_seconds"] = time.perf_counter() - t0
         dist_train = phase_dist_train(dev)
         model_parallel = phase_model_parallel(dev)
+        tp_compute = phase_tp_compute(dev)
+        hybridize = phase_hybridize(dev)
         records, crossover = phase_timing(
             dev, train["launches"], train["steps_counted"], errs,
             serve_launches, forwards, serve_vl)
@@ -9574,6 +10236,7 @@ def main():
                       "vision_zoo": zoo, "nd": nd_phases, "a11": a11,
                       "convert": converted, "dist_train": dist_train,
                       "model_parallel": model_parallel,
+                      "tp_compute": tp_compute, "hybridize": hybridize,
                       "decode_step_graphs": graphs, "quantized": quant,
                       "speculative": spec, "chunked_prefill": chunked,
                       "attention_dense_vs_flash": crossover,

@@ -85,6 +85,25 @@ class _RecordScope:
         return wrapped
 
 
+class _Mode:
+    """Recording and the training flag set (and torch's grad mode with
+    recording) without starting a new variable list: a program's body
+    runs in the mode of the call it stands for."""
+
+    def __init__(self, recording, training):
+        self._mode = (recording, training)
+
+    def __enter__(self):
+        self._prev = (_st.recording, _st.training)
+        _st.recording, _st.training = self._mode
+        self._grad = torch.set_grad_enabled(self._mode[0])
+        self._grad.__enter__()
+
+    def __exit__(self, *exc):
+        self._grad.__exit__(*exc)
+        _st.recording, _st.training = self._prev
+
+
 def record(train_mode=True):
     """Record the graph of what runs inside, for :func:`backward`."""
     return _RecordScope(True, train_mode)

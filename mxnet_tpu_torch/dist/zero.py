@@ -155,40 +155,20 @@ class Zero3ParamManager:
     fails loudly); :meth:`gather` rebuilds the whole values bucket by
     bucket (one all-gather a member, every bucket launched before the
     first is waited on) into the same tensors, and :meth:`release` drops
-    them again. The optimizer steps the blocks.
+    them again. The optimizer steps the blocks. A parameter is placed by
+    :func:`shard_spec` over ``shard_axis``."""
 
-    ``specs`` places each parameter by its own spec over ``mesh``'s axes
-    (tensor and fully sharded parameters, ``build_train_step(
-    param_spec=)``; default: :func:`shard_spec` over ``shard_axis``), and
-    ``shards`` gives the blocks already cut (they are then the parameters'
-    storage at rest, stepped in place; the parameters' tensors start
-    empty)."""
-
-    def __init__(self, params, mesh, shard_axis="dp", bucket_mb=None,
-                 specs=None, shards=None):
+    def __init__(self, params, mesh, shard_axis="dp", bucket_mb=None):
         self.mesh = mesh
         self.shard_axis = shard_axis
         self.nshard = int(mesh.shape.get(shard_axis, 1))
-        params = list(params)
-        keep = [i for i, p in enumerate(params)
-                if getattr(p, "_data", None) is not None]
-        self.params = [params[i] for i in keep]
+        self.params = [p for p in params
+                       if getattr(p, "_data", None) is not None]
         self.gathers = 0
         self.shards = {}
-        if shards is not None:
-            blocks = [shards[i] for i in keep]
-            self.specs = {id(p): P(*specs[i])
-                          for p, i in zip(self.params, keep)}
-            self.full_shapes = {id(p): _whole_shape(b, self.specs[id(p)],
-                                                    mesh)
-                                for p, b in zip(self.params, blocks)}
-        else:
-            self.full_shapes = {id(p): tuple(p._data.shape)
-                                for p in self.params}
-            self.specs = {id(p): (P(*specs[i]) if specs is not None else
-                                  shard_spec(self.full_shapes[id(p)],
-                                             self.nshard, shard_axis))
-                          for p, i in zip(self.params, keep)}
+        self.full_shapes = {id(p): tuple(p._data.shape) for p in self.params}
+        self.specs = {id(p): shard_spec(self.full_shapes[id(p)], self.nshard,
+                                        shard_axis) for p in self.params}
         cap = int((default_bucket_mb() if bucket_mb is None
                    else float(bucket_mb)) * (1 << 20))
         # the gradient bucketer's greedy partition over the parameters
@@ -202,11 +182,11 @@ class Zero3ParamManager:
             cur_b += b
         if cur:
             self.buckets.append(cur)
-        for j, p in enumerate(self.params):
-            blk = self._cut(p) if shards is None else blocks[j]
+        for p in self.params:
+            blk = self._cut(p)
             blk._full_shape = self.full_shapes[id(p)]
             self.shards[id(p)] = blk
-        self.gathered = shards is None
+        self.gathered = True
 
     def _cut(self, p):
         from ..parallel.mesh import shard_array

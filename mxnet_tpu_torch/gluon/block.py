@@ -6,10 +6,10 @@ Both are ``torch.nn.Module``s, and a layer still writes
 Name scopes and prefixes follow the JAX package exactly (an auto-named root
 gets ``<classname><n>_``, children nest under their parent's prefix), so a
 model's parameter names match the JAX package's one to one up to the root's
-counter. The port runs eagerly: there is no trace, and ``hybridize`` is a
-no-op kept for API parity (its capture is ``ROADMAP.md`` A.13). A forward
-builds a torch autograd graph only inside ``autograd.record()``, as in
-MXNet.
+counter. The port runs eagerly: there is no trace. ``hybridize()`` runs a
+block's calls through CUDA graphs of its forward and backward
+(``gluon/hybrid.py``). A forward builds a torch autograd graph only inside
+``autograd.record()``, as in MXNet.
 
 A block called with NDArray arguments returns NDArrays, as the JAX
 package's does; called with tensors it returns tensors. The NDArray layer
@@ -34,6 +34,8 @@ import torch
 from .. import autograd, ops
 from ..base import resolve_device
 from ..ndarray import NDArray, unwrap, wrap
+from ..parallel import tensor_parallel as _tp
+from . import hybrid as _hybrid
 from ..util import load_npz_exact, save_npz_exact
 from .parameter import Parameter, ParameterDict
 
@@ -113,14 +115,25 @@ def _unwrap(a, rec):
     return unwrap(a, rec)
 
 
-def param_value(param):
-    """A parameter's tensor as the current call sees it: the serving_fn
-    override when one is active on this thread, else ``param._tensor()``. Used
-    for weight tying across blocks (BERT's MLM decoder)."""
+def param_block(param):
+    """A parameter's tensor as the current call holds it: the serving_fn
+    override when one is active on this thread, else ``param._tensor()``.
+    Inside a ``tensor_parallel.tp_scope`` that may be this rank's block of
+    a split leaf, which only a split layer reads as it is."""
     store = getattr(_param_store, "params", None)
     if store is not None:
         return store[id(param)]
     return param._tensor()
+
+
+def param_value(param):
+    """A parameter's whole tensor as the current call sees it
+    (:func:`param_block`; inside a ``tp_scope`` a split leaf's block is
+    all-gathered). Used for weight tying across blocks (BERT's MLM
+    decoder)."""
+    t = param_block(param)
+    scope = _tp.current_scope()
+    return t if scope is None else scope.whole(t)
 
 
 class Block(torch.nn.Module):
@@ -279,7 +292,9 @@ class Block(torch.nn.Module):
                                          force_reinit)
 
     def hybridize(self, active=True, **kwargs):
-        """No-op: the port runs eagerly (CUDA graphs are later work)."""
+        """Hybridize every HybridBlock below (``HybridBlock.hybridize``)."""
+        for child in self._children.values():
+            child.hybridize(active, **kwargs)
 
     def cast(self, dtype):
         for child in self._children.values():
@@ -293,6 +308,44 @@ class Block(torch.nn.Module):
 
 class HybridBlock(Block):
     """(ref: gluon/block.py:HybridBlock)"""
+
+    _programs = None  # gluon.hybrid.BlockPrograms once hybridized
+    _active = False
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  validate=False, **kwargs):
+        """Run this block's calls through CUDA graphs of its forward and,
+        under ``autograd.record``, its backward (``gluon/hybrid.py``):
+        one program a key (the training flag, whether the call
+        differentiates, the inputs' signature), its children inside it.
+        ``hybridize``, ``hybridize(False)`` and ``cast`` drop the
+        programs. On the CPU the calls run eagerly with the same keys and
+        counts. ``static_alloc`` and ``static_shape`` are what a CUDA graph
+        is anyway; ``validate`` (the JAX package's trace-time lint) has no
+        counterpart yet (``ROADMAP.md`` A.16)."""
+        from .hybrid import BlockPrograms
+
+        if self._programs is None:
+            self._programs = BlockPrograms(self)
+        else:
+            self._programs.drop()
+        self._active = bool(active)
+        for p in self.collect_params().values():
+            p._hybridized = self._active
+        super().hybridize(active, static_alloc=static_alloc,
+                          static_shape=static_shape, validate=validate,
+                          **kwargs)
+
+    def hybrid_stats(self):
+        """The counts of this block's programs (``BlockPrograms.stats``),
+        or None when it was never hybridized."""
+        return None if self._programs is None else dict(
+            self._programs.stats)
+
+    def cast(self, dtype):
+        if self._programs is not None:
+            self._programs.drop()
+        super().cast(dtype)
 
     def infer_shape(self, *args):
         """Layer hook: set deferred parameter shapes from input shapes."""
@@ -316,6 +369,16 @@ class HybridBlock(Block):
 
     def forward(self, *args, **kwargs):
         self._ensure_params(*args)
+        if self._active and not _hybrid.inside_program() and all(
+                p._data is not None for p in self.collect_params().values()):
+            if kwargs:
+                raise TypeError("a hybridized %s takes its inputs "
+                                "positionally, got %s" % (
+                                    type(self).__name__, sorted(kwargs)))
+            return self._programs(args)
+        return self._eager_forward(*args, **kwargs)
+
+    def _eager_forward(self, *args, **kwargs):
         with torch.set_grad_enabled(autograd.is_recording()):
             pkwargs = {n: param_value(p) for n, p in self._reg_params.items()}
             return self.hybrid_forward(ops.F, *args, **pkwargs, **kwargs)

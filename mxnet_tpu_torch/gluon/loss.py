@@ -11,6 +11,7 @@ import math
 import torch
 import torch.nn.functional as TF
 
+from ..parallel import tensor_parallel as _tp
 from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
@@ -105,7 +106,10 @@ class SoftmaxCrossEntropyLoss(Loss):
     """(ref: loss.py:SoftmaxCrossEntropyLoss). The sparse-label raw-logits
     case (language-model and classification training) goes through
     ``F.softmax_xent_rows`` and so through the softmax-xent kernels; the
-    other two keep the log_softmax formulation, as the JAX package does."""
+    other two keep the log_softmax formulation, as the JAX package does.
+    Logits that a model inside a ``tensor_parallel.tp_scope`` split along
+    the vocabulary go through ``tensor_parallel.vocab_parallel_xent`` on
+    the blocks."""
 
     def __init__(self, axis=-1, sparse_label=True, from_logits=False,
                  weight=None, batch_axis=0, **kwargs):
@@ -116,7 +120,11 @@ class SoftmaxCrossEntropyLoss(Loss):
 
     def hybrid_forward(self, F, pred, label, sample_weight=None):
         if self._sparse_label and not self._from_logits:
-            loss = F.softmax_xent_rows(pred, label, axis=self._axis)
+            # logits a tensor-parallel head split along the vocabulary
+            # take the vocabulary-parallel loss on their blocks
+            loss = _tp.xent_rows(pred, label, self._axis)
+            if loss is None:
+                loss = F.softmax_xent_rows(pred, label, axis=self._axis)
         elif self._sparse_label:
             loss = -F.pick(pred, label, axis=self._axis, keepdims=False)
         else:

@@ -39,6 +39,10 @@ class DeferredInitializationError(RuntimeError):
 
 
 class Parameter:
+    # set by HybridBlock.hybridize: the Trainer steps a set of such
+    # parameters through one captured optimizer step
+    _hybridized = False
+
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  init=None, allow_deferred_init=False):
         self.name = name

@@ -27,6 +27,13 @@ all-gathered; the optimizer state holds only the rank's blocks.
 either way. ``update_on_kvstore`` is taken for the reference's signature;
 the update always runs in the trainer, as in the JAX package.
 
+When every parameter belongs to a hybridized block (``hybridize()``) and
+the optimizer allows it (``Optimizer.graph_safe``: SGD, NAG, Adam, AdamW,
+AdaGrad, AdaDelta, RMSProp, Ftrl), a local whole update runs as one
+``optimizer.StepProgram``: a CUDA graph of the fused step, its rates and
+update counts written into device buffers before each replay
+(:meth:`graph_stats`). The others step eagerly.
+
 ``save_states``/``load_states`` write and read the JAX Trainer's state
 file: a pickle of ``num_update``, ``update_count`` and ``arrays``, the
 state leaves in the order ``jax.tree_util.tree_flatten`` gives the JAX
@@ -113,6 +120,7 @@ class Trainer:
                                     for i, p in enumerate(self._params)}
         self._states = {}
         self._scale = self._optimizer.rescale_grad
+        self._program = None  # optimizer.StepProgram, when hybridized
 
     @property
     def learning_rate(self):
@@ -247,7 +255,11 @@ class Trainer:
             ws.append(w)
             gs.append(g)
             ss.append(self._states[i])
-        if self._layout_fn() is None:
+        if self._graphed(idx):
+            if self._program is None:
+                self._program = opt.StepProgram(self._optimizer)
+            new = self._program.run(ws, gs, ss, idx)
+        elif self._layout_fn() is None:
             new = self._optimizer.fused_update(ws, gs, ss, idx)
         else:
             mesh, axis = self._wu_mesh, self._wu_axis
@@ -266,6 +278,23 @@ class Trainer:
             # the blocks moved: the whole weights are stale until the
             # next gather_params()
             manager.release()
+
+    def _graphed(self, idx):
+        """Whether this step runs as the optimizer's step program: every
+        parameter stepped belongs to a hybridized block, the optimizer can
+        be captured, and the update is local and whole."""
+        return (self._optimizer.graph_safe and self._dist is None
+                and self._layout_fn() is None and bool(idx) and all(
+                    self._params[i]._hybridized
+                    for i in idx))
+
+    def graph_stats(self):
+        """The step program's counts (``optimizer.StepProgram``), or None
+        when no step ran through one."""
+        p = self._program
+        return None if p is None else {"captures": p.captures,
+                                       "replays": p.replays,
+                                       "recaptures": p.recaptures}
 
     def zero_grad(self):
         for p in self._params:

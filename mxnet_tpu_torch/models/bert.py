@@ -5,12 +5,18 @@ tied MLM decoder and NSP head, with the same block structure and parameter
 names. Attention goes through the ``F.scaled_dot_attention`` seam with the
 BERT mask declared a prefix mask, so long sequences take the flash kernel;
 every LayerNorm goes through the LayerNorm kernel.
+
+Inside a ``tensor_parallel.tp_scope`` the attention, the FFN, a
+vocabulary-split ``word_embed`` and the tied MLM decoder split their
+math over the scope's ranks as the GPT blocks do (``models/gpt.py``); the
+decoder's bias stays whole, each rank adding its slice.
 """
 from __future__ import annotations
 
 from .. import initializer as init_mod
 from ..gluon import nn
-from ..gluon.block import HybridBlock, param_value
+from ..gluon.block import HybridBlock, param_block, param_value
+from ..parallel import tensor_parallel as tp
 
 __all__ = ["BERTModel", "BERTEncoder", "bert_base"]
 
@@ -31,10 +37,18 @@ class BERTAttention(HybridBlock):
             self.dropout = nn.Dropout(dropout) if dropout else None
 
     def hybrid_forward(self, F, x, mask=None):
-        B, T, C = x.shape[0], x.shape[1], x.shape[2]
-        H = self._num_heads
-        D = C // H
-        qkv = self.qkv(x)  # (B, T, 3C)
+        out, _ = tp.attention(x, self.qkv, self.attn_out, self._num_heads,
+                              lambda h, H: self._attend(F, h, mask, H))
+        if self.dropout is not None:
+            out = self.dropout(out)
+        return out
+
+    def _attend(self, F, qkv, mask, H):
+        """(B, T, 3 H D) fused q/k/v of H heads -> the attention (B, T,
+        H D), before the output projection."""
+        B, T = qkv.shape[0], qkv.shape[1]
+        D = qkv.shape[2] // (3 * H)
+        C = H * D
         qkv = F.reshape(qkv, shape=(B, T, 3, H, D))
         qkv = F.transpose(qkv, axes=(2, 0, 3, 1, 4))  # (3, B, H, T, D)
         # contiguous heads: the flash kernel reads (B, H, T, D) rows
@@ -45,11 +59,7 @@ class BERTAttention(HybridBlock):
         v = F.squeeze(F.slice_axis(qkv, axis=0, begin=2, end=3),
                       axis=0).contiguous()
         out = F.scaled_dot_attention(q, k, v, mask, prefix_mask=True)
-        out = F.reshape(F.transpose(out, axes=(0, 2, 1, 3)), shape=(B, T, C))
-        out = self.attn_out(out)
-        if self.dropout is not None:
-            out = self.dropout(out)
-        return out
+        return F.reshape(F.transpose(out, axes=(0, 2, 1, 3)), shape=(B, T, C))
 
 
 class BERTPositionwiseFFN(HybridBlock):
@@ -65,7 +75,7 @@ class BERTPositionwiseFFN(HybridBlock):
             self.dropout = nn.Dropout(dropout) if dropout else None
 
     def hybrid_forward(self, F, x):
-        x = self.ffn_2(self.activation(self.ffn_1(x)))
+        x = tp.ffn(x, self.ffn_1, self.activation, self.ffn_2)
         if self.dropout is not None:
             x = self.dropout(x)
         return x
@@ -163,7 +173,10 @@ class BERTModel(HybridBlock):
 
     def hybrid_forward(self, F, inputs, token_types=None, valid_length=None,
                        masked_positions=None, decoder_bias=None):
-        x = self.word_embed(inputs)
+        w = param_block(self.word_embed.weight)
+        scope = tp.split_scope(lambda: [(w, tp.COLUMN)])
+        x = self.word_embed(inputs) if scope is None else \
+            scope.embed(F, inputs, w)
         if token_types is not None:
             x = x + self.token_type_embed(token_types)
         mask = self._make_mask(F, inputs, valid_length)
@@ -179,8 +192,13 @@ class BERTModel(HybridBlock):
             h = _gather_positions(F, seq, masked_positions)
             h = self.decoder_ln(self.decoder_transform(h))
             # tied decoder: logits = h @ word_embed.T + bias
-            tied = param_value(self.word_embed.weight)
-            logits = F.dot(h, F.transpose(tied)) + decoder_bias
+            scope = tp.split_scope(lambda: [(w, tp.COLUMN)])
+            if scope is not None:  # column-parallel over the vocabulary
+                logits = scope.vocab_logits(F, h, w, decoder_bias,
+                                            flat=False)
+            else:
+                tied = param_value(self.word_embed.weight)
+                logits = F.dot(h, F.transpose(tied)) + decoder_bias
             outputs.append(logits)
         return tuple(outputs) if len(outputs) > 1 else outputs[0]
 

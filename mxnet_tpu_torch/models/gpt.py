@@ -15,6 +15,11 @@ buffer changes shape across steps. ``prefill`` fills a cache from the whole
 prompt in one forward; ``decode_step_fixed`` is the per-slot-position step
 ``serve.GenerativeServer`` runs for all its slots at once, and
 ``decode_step_fixed_quant`` the same step over int8 KV pages.
+
+Inside a ``tensor_parallel.tp_scope`` (``build_train_step(param_spec=)``
+enters one) a block whose leaves ``TRANSFORMER_RULES`` split computes its
+share only: its heads, its FFN columns, its vocabulary rows (the module
+docstring of ``parallel/tensor_parallel.py`` says how).
 """
 from __future__ import annotations
 
@@ -23,8 +28,9 @@ import torch
 from .. import initializer as init_mod
 from ..base import next_pow2, resolve_device
 from ..gluon import nn
-from ..gluon.block import HybridBlock, param_value
+from ..gluon.block import HybridBlock, param_block, param_value
 from ..ops import functional as nd
+from ..parallel import tensor_parallel as tp
 
 __all__ = ["GPTModel", "gpt2_small", "gpt_nano"]
 
@@ -45,9 +51,13 @@ class _CausalSelfAttention(HybridBlock):
             self.dropout = nn.Dropout(dropout) if dropout else None
 
     def _qkv_heads(self, F, x):
-        B, T, C = x.shape
-        H = self._heads
-        h = F.reshape(self.qkv(x), shape=(B, T, 3, H, C // H))
+        return self._split_heads(F, self.qkv(x), self._heads)
+
+    def _split_heads(self, F, h, H):
+        """(B, T, 3 H D) fused q/k/v of H heads -> [q, k, v], each
+        (B, H, T, D)."""
+        B, T, C3 = h.shape
+        h = F.reshape(h, shape=(B, T, 3, H, C3 // (3 * H)))
         h = F.transpose(h, axes=(2, 0, 3, 1, 4))  # (3, B, H, T, D)
         # contiguous heads: the flash kernel and the cache read (B, H, T, D)
         # rows
@@ -61,12 +71,21 @@ class _CausalSelfAttention(HybridBlock):
 
     def forward_kv(self, F, x):
         """Causal self-attention that also returns the per-head K/V
-        (B, H, T, D), which prefill writes into the decode cache."""
-        q, k, v = self._qkv_heads(F, x)
-        out = F.scaled_dot_attention(q, k, v, causal=True)
-        out = self.attn_out(self._merge_heads(F, out))
+        (B, H, T, D), which prefill writes into the decode cache; inside a
+        tp scope that splits it, on each rank's H/n heads
+        (``tensor_parallel.attention``), K/V those of every rank's
+        heads."""
+        def attend(h, H):
+            q, k, v = self._split_heads(F, h, H)
+            out = F.scaled_dot_attention(q, k, v, causal=True)
+            return self._merge_heads(F, out), k, v
+
+        out, kvs = tp.attention(x, self.qkv, self.attn_out, self._heads,
+                                attend)
         if self.dropout is not None:
             out = self.dropout(out)
+        k, v = (t[0] if len(t) == 1 else F.concat(*t, dim=1)
+                for t in zip(*kvs))
         return out, k, v
 
     def hybrid_forward(self, F, x):
@@ -138,7 +157,7 @@ class _GPTBlock(HybridBlock):
             self.dropout = nn.Dropout(dropout) if dropout else None
 
     def _ffn(self, x):
-        h = self.ffn_2(self.act(self.ffn_1(self.ln2(x))))
+        h = tp.ffn(self.ln2(x), self.ffn_1, self.act, self.ffn_2)
         if self.dropout is not None:
             h = self.dropout(h)
         return x + h
@@ -196,7 +215,10 @@ class GPTModel(HybridBlock):
     def _embed(self, F, tokens, position0=0):
         T = tokens.shape[1]
         self._check_len(position0 + T)
-        x = self.word_embed(tokens)
+        w = param_block(self.word_embed.weight)
+        scope = tp.split_scope(lambda: [(w, tp.COLUMN)])
+        x = self.word_embed(tokens) if scope is None else \
+            scope.embed(F, tokens, w)
         pw = param_value(self.pos_embed.weight)
         x = x + F.slice_axis(pw, axis=0, begin=position0,
                              end=position0 + T)
@@ -206,6 +228,10 @@ class GPTModel(HybridBlock):
 
     def _lm_logits(self, F, x):
         x = self.ln_f(x)
+        blk = param_block(self.word_embed.weight)
+        scope = tp.split_scope(lambda: [(blk, tp.COLUMN)])
+        if scope is not None:  # column-parallel over the vocabulary
+            return scope.vocab_logits(F, x, blk)
         w = param_value(self.word_embed.weight)  # (V, C), the tied head
         B, T, C = x.shape
         logits = F.dot(F.reshape(x, shape=(B * T, C)), F.transpose(w))

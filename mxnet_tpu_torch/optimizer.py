@@ -40,7 +40,7 @@ from . import random as _random
 __all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "AdaGrad", "AdaDelta",
            "AdaMax", "FTML", "DCASGD", "LARS", "RMSProp", "Ftrl", "LAMB",
            "Signum", "SGLD", "Updater", "create", "get_updater", "register",
-           "sharded_step"]
+           "sharded_step", "StepProgram"]
 
 LOW_PRECISION = (torch.bfloat16, torch.float16)
 _REGISTRY = {}
@@ -73,8 +73,50 @@ def _zeros(weight):
 
 def _bias_corrections(beta, ts):
     """``1 - beta ** t`` for each update count, in fp32 as the JAX package
-    takes it."""
+    takes it (in a step program, one 0-d device tensor for a group's
+    count, :class:`_GroupCount`)."""
+    if isinstance(ts, _GroupCount):
+        return ts.derived(("bias", beta),
+                          lambda host: _bias_corrections(beta, host))
     return [float(_f32(1) - _f32(beta) ** _f32(t)) for t in ts]
+
+
+class _DeviceCounts:
+    """A step program's update counts, one for each group of parameters
+    that step alike: the host values, and for each number the step
+    derives from them (:meth:`derived`) a (groups,) device buffer written
+    before each run, so a captured step reads the new values."""
+
+    def __init__(self, host, device):
+        self.host = list(host)
+        self.device = device
+        self.buffers = {}
+
+    def derived(self, key, fn):
+        got = self.buffers.get(key)
+        if got is None:
+            buf = torch.tensor(fn(self.host), dtype=torch.float32,
+                               device=self.device)
+            got = self.buffers[key] = (buf, fn, buf.unbind())
+        return got[2]
+
+    def write(self, host):
+        self.host[:] = host
+        for buf, fn, _ in self.buffers.values():
+            buf.copy_(torch.tensor(fn(host), dtype=torch.float32),
+                      non_blocking=False)
+
+
+class _GroupCount:
+    """One group's update count in a step program: what the step derives
+    from it is one 0-d device tensor, which a ``torch._foreach_*`` op
+    applies to the whole group in one multi-tensor launch."""
+
+    def __init__(self, counts, g):
+        self.counts, self.g = counts, g
+
+    def derived(self, key, fn):
+        return self.counts.derived(key, fn)[self.g]
 
 
 def _as_tensor(values, like):
@@ -104,6 +146,10 @@ def _adam_direction(opt, ms, vs, ts):
 
 
 class Optimizer:
+    # whether _foreach_step reads its host numbers only as the rates, the
+    # decays and _bias_corrections, so StepProgram can capture it
+    graph_safe = False
+
     def __init__(self, learning_rate=0.01, wd=0.0, rescale_grad=1.0,
                  clip_gradient=None, lr_scheduler=None, param_idx2name=None,
                  begin_num_update=0, multi_precision=False):
@@ -235,6 +281,97 @@ class Optimizer:
             "for sparse.py (ROADMAP.md A.17)")
 
 
+class StepProgram:
+    """One optimizer's fused multi-tensor step over one parameter set as
+    one CUDA graph (the JAX package's one fused update program,
+    ``mxnet_tpu/optimizer.py`` ``_fused_stepper``). The rates, decays and
+    the numbers derived from the update counts (Adam's bias corrections)
+    live in device buffers written before each run, so a scheduler's
+    boundary or ``set_learning_rate`` moves them; the gradients are
+    copied into static buffers (they are new tensors every backward); the
+    weights and states are updated where they lie. The parameters are
+    stepped in groups of equal rate, decay and update count, each number
+    one 0-d device tensor a group, so every ``torch._foreach_*`` op of a
+    group is one multi-tensor launch (a list of per-parameter 0-d tensors
+    would take a launch a parameter); a rate multiplier that joins or
+    splits groups captures again. The rescale and the clip are fixed at
+    capture: another value captures again, as does a weight or state
+    given a new tensor. The warm-up runs on clones of the weights, states
+    and gradients. On the CPU the same object runs the same step eagerly
+    on the buffers. ``captures``, ``replays`` and ``recaptures`` count."""
+
+    def __init__(self, optimizer):
+        self.opt = optimizer
+        self.graph = None
+        self.key = None
+        self.captures = self.replays = self.recaptures = 0
+        self._addresses = None
+
+    def run(self, params, grads, states, indices):
+        from .capture import capture_graph
+        from .util import map_state, tree_leaves
+
+        opt = self.opt
+        for i in indices:
+            opt._update_count(i)
+        lrs = [opt._get_lr(i) for i in indices]
+        wds = [opt._get_wd(i) for i in indices]
+        ts = [opt._index_update_count[i] for i in indices]
+        dev = params[0].device
+        groups = {}
+        for j, v in enumerate(zip(lrs, wds, ts)):
+            groups.setdefault(v, []).append(j)
+        groups = tuple(tuple(g) for g in groups.values())
+        lrs, wds, ts = ([v[g[0]] for g in groups] for v in (lrs, wds, ts))
+        key = (tuple(indices), groups, opt.rescale_grad, opt.clip_gradient,
+               tuple((tuple(g.shape), g.dtype) for g in grads))
+        addresses = [t.data_ptr() for t in params + tree_leaves(states)]
+        if key != self.key or addresses != self._addresses:
+            self.recaptures += int(self.key is not None)
+            self.key, self._addresses = key, addresses
+            self.graph = None
+            self._groups = groups
+            self._scal = torch.zeros(2, len(groups), dtype=torch.float32,
+                                     device=dev)
+            self._counts = _DeviceCounts(ts, dev)
+            self._grads = [torch.empty_like(g) for g in grads]
+            body = self._body(params, states)
+            self._write(lrs, wds, ts)
+            if dev.type == "cuda":
+                torch._foreach_copy_(self._grads, list(grads))
+                ws = [w.clone() for w in params]
+                ss = [map_state(x, torch.clone) for x in states]
+                self.graph = capture_graph(
+                    body, dev, torch.cuda.graph_pool_handle(),
+                    warmup=self._body(ws, ss))
+            self.captures += 1
+        else:
+            self._write(lrs, wds, ts)
+        torch._foreach_copy_(self._grads, list(grads))
+        self.replays += 1
+        if self.graph is None:
+            self._body(params, states)()
+        else:
+            self.graph.replay()
+        return list(states)
+
+    def _write(self, lrs, wds, ts):
+        self._scal.copy_(torch.tensor([lrs, wds], dtype=torch.float32))
+        self._counts.write(ts)
+
+    def _body(self, params, states):
+        lr, wd = (r.unbind() for r in self._scal)
+
+        def step():
+            for g, js in enumerate(self._groups):
+                self.opt._apply([params[j] for j in js],
+                                [self._grads[j] for j in js],
+                                [states[j] for j in js], lr[g], wd[g],
+                                _GroupCount(self._counts, g))
+
+        return step
+
+
 def sharded_step(step, params, grads, group, nshard, rank,
                  keep_sharded=False, full_shapes=None):
     """ZeRO-1 weight-update sharding (Xu et al., arXiv 2004.13336; the
@@ -280,6 +417,8 @@ class SGD(Optimizer):
     """(ref: src/operator/optimizer_op.cc:sgd_mom_update). The state is the
     momentum, or nothing without momentum."""
 
+    graph_safe = True
+
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
@@ -322,6 +461,8 @@ class Adam(Optimizer):
     to the gradient, and the bias corrections are taken in fp32, as in the
     JAX package's ``Adam._step``. The state is (mean, variance)."""
 
+    graph_safe = True
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
@@ -359,6 +500,8 @@ class AdamW(Adam):
 class AdaGrad(Optimizer):
     """The state is the running sum of squared gradients."""
 
+    graph_safe = True
+
     def __init__(self, eps=1e-7, **kwargs):
         super().__init__(**kwargs)
         self.float_stable_eps = eps
@@ -380,6 +523,8 @@ class AdaGrad(Optimizer):
 class AdaDelta(Optimizer):
     """The state is (the running mean of g², that of the squared steps); the
     learning rate takes no part."""
+
+    graph_safe = True
 
     def __init__(self, rho=0.9, epsilon=1e-5, **kwargs):
         super().__init__(**kwargs)
@@ -408,6 +553,8 @@ class AdaDelta(Optimizer):
 @register
 class RMSProp(Optimizer):
     """The state is (n,), or (n, mean g, momentum) when ``centered``."""
+
+    graph_safe = True
 
     def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
                  epsilon=1e-8, centered=False, **kwargs):
@@ -449,6 +596,8 @@ class RMSProp(Optimizer):
 class Ftrl(Optimizer):
     """Follow the regularized leader; the state is (z, n). The weight decay
     joins the denominator, not the gradient."""
+
+    graph_safe = True
 
     def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1.0, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)

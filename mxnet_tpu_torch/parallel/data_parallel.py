@@ -8,21 +8,25 @@ every rank runs the step on its own block of the batch
 the step with the same weights, those of the whole batch's step.
 ``shard_weight_update`` shards the update (ZeRO-1). A parameter whose
 ``param_spec`` splits it over mesh axes (tensor parallel, fully sharded)
-is held as this rank's block between steps: the step all-gathers it for
-the forward (``dist.zero.Zero3ParamManager``), drops the whole value after
-the backward and reduce-scatters its gradient back to the block. The
-forward itself runs on the whole weights on every rank: splitting the
-transformer blocks' math over ``tp`` (what GSPMD gives the JAX package
-for these specs) is ROADMAP.md A.12's next item; a model does it by hand
-with ``tensor_parallel.psum_region_entry``/``psum_region_exit``.
+is held as this rank's block between steps, and the step runs the model
+inside a ``tensor_parallel.tp_scope`` that names the blocks. A loss from
+:func:`block_loss_fn` hands the model the blocks: the port's GPT and BERT
+blocks split their math over ``tp`` on them (a leaf a split layer
+consumes is never gathered, and its gradient is this rank's block,
+exact), and any other read of a block all-gathers it, its gradient
+reduce-scattered back and divided by the ranks it was summed over. Any
+other loss function gets every split leaf gathered so.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.distributed as dist
 
 from ..util import map_state, tree_leaves
 from .mesh import P, spec_axes
+from .tensor_parallel import step_seed, tp_scope
 
 __all__ = ["tree_optimizer_step", "weight_update_spec", "build_train_step",
            "replicate_params", "shard_batch", "block_loss_fn"]
@@ -99,9 +103,9 @@ def build_train_step(loss_fn, optimizer, mesh=None, param_spec=None,
       group, and the returned loss is the whole batch's;
     - ``param_spec``: one spec for every leaf, or a structure of specs
       shaped as ``params``; a leaf a spec splits over mesh axes is this
-      rank's block (``tensor_parallel.shard_params``), all-gathered for
-      the forward and its gradient reduce-scattered back (a spec naming
-      no axis of ``mesh`` raises);
+      rank's block (``tensor_parallel.shard_params``), consumed as a
+      block by a split layer or all-gathered for its reader, as the
+      module docstring says (a spec naming no axis of ``mesh`` raises);
     - ``remat``: recompute the forward in the backward
       (``torch.utils.checkpoint``);
     - ``shard_weight_update``: each rank updates its block of every leaf
@@ -132,28 +136,18 @@ def build_train_step(loss_fn, optimizer, mesh=None, param_spec=None,
         leaves = tree_leaves(params)
         specs = _leaf_specs(param_spec, params, leaves, mesh)
         split = [i for i, sp in enumerate(specs) if _axes(sp)]
-        whole, mgr = list(leaves), None
-        if split:
-            from ..dist.zero import Zero3ParamManager
-
-            slots = [_Slot(leaves[i]) for i in split]
-            mgr = Zero3ParamManager(slots, mesh,
-                                    specs=[specs[i] for i in split],
-                                    shards=[leaves[i] for i in split])
-            mgr.gather()
-            for i, slot in zip(split, slots):
-                whole[i] = slot._data
-        live = [p.detach().requires_grad_(True) for p in whole]
-        with torch.enable_grad():
-            loss = forward(_rebuild(params, live), batch, key)
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        scope = tp_scope(mesh, [(live[i], specs[i]) for i in split])
+        with torch.enable_grad(), scope, _dropout_stream(mesh, t, leaves):
+            args = live
+            if not getattr(loss_fn, "_reads_param_blocks", False):
+                # a plain loss function reads whole tensors
+                args = [scope.whole(a) for a in live]
+            loss = forward(_rebuild(params, args), batch, key)
             grads = list(torch.autograd.grad(loss, live, allow_unused=True))
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(live, grads)]
-        del live, whole
-        if mgr is not None:
-            mgr.release()
-            for i in split:
-                grads[i] = _scatter_mean(grads[i], specs[i], mesh)
+        del live, args
         loss = loss.detach()
         if mesh is not None and mesh.shape.get(axis, 1) > 1:
             # each rank's gradient is its batch block's: the mean over the
@@ -206,12 +200,16 @@ def build_train_step(loss_fn, optimizer, mesh=None, param_spec=None,
     return step
 
 
-class _Slot:
-    """A split leaf as the parameter manager sees a parameter: ``_data``
-    holds its whole value while gathered, nothing otherwise."""
+def _dropout_stream(mesh, t, leaves):
+    """A step over a mesh draws its dropout masks from a generator of
+    ``tensor_parallel.step_seed``: alike across ``tp``, apart across the
+    other axes."""
+    if mesh is None or not leaves:
+        return contextlib.nullcontext()
+    from .. import random as _random
 
-    def __init__(self, blk):
-        self._data = torch.empty(0, dtype=blk.dtype, device=blk.device)
+    return _random.fork(leaves[0].device, step_seed(
+        mesh, t, _random.current_seed()))
 
 
 def _axes(spec):
@@ -289,27 +287,34 @@ def shard_batch(batch, mesh, axis="dp"):
     return cut(batch)
 
 
-def block_loss_fn(block, loss_block, training=True):
-    """A Gluon block and loss as ``loss_fn(param_tensors, (x, y), key)``
+def block_loss_fn(block, loss_block, training=True, out_index=None):
+    """A Gluon block and loss as ``loss_fn(param_tensors, batch, key)``
     for :func:`build_train_step`, the mean of the loss over the batch;
     ``param_tensors`` in ``block.collect_params()`` order (returned as
-    the second value). ``key`` is unused: dropout draws from the port's
-    generators."""
+    the second value). ``batch`` is ``(x, y)``, or ``(*inputs, y)`` for a
+    block of several inputs; ``out_index`` picks one output of a block
+    that returns a tuple (BERT's MLM logits: -1). ``key`` is unused:
+    dropout draws from the port's generators. The model reads the
+    parameters as :func:`build_train_step` holds them, so the port's
+    GPT and BERT split their math over ``tp``."""
     from .. import autograd
     from ..gluon.block import _param_store
 
     plist = list(block.collect_params().values())
 
     def loss_fn(param_arrays, batch, key=None):
-        x, y = batch
+        *inputs, y = batch
         prev = getattr(_param_store, "params", None)
         _param_store.params = {id(p): a for p, a in zip(plist, param_arrays)}
         try:
             with autograd.record(train_mode=training):
-                out = block(x)
+                out = block(*inputs)
+                if out_index is not None:
+                    out = out[out_index]
                 loss = loss_block(out, y)
         finally:
             _param_store.params = prev
         return loss.mean()
 
+    loss_fn._reads_param_blocks = True
     return loss_fn, plist

@@ -29,6 +29,7 @@ from ..util import tree_leaves
 from .data_parallel import _rebuild
 from .distributed import AxisRing
 from .mesh import P, shard_array, use_mesh
+from .tensor_parallel import tp_scope
 
 __all__ = ["pipeline_apply", "pipeline_apply_interleaved",
            "pipeline_train_step_1f1b", "stack_stage_params",
@@ -266,7 +267,8 @@ def pipeline_train_step_1f1b(stage_fn, loss_fn, stage_params, microbatches,
     structure of specs leading with ``axis_name`` that also splits the
     stage weights over a tensor axis; ``stage_fn`` then closes its tp
     math itself (``psum_region_entry``/``psum_region_exit``; the mesh is
-    entered while it runs). Returns (the loss, the mean over
+    entered while it runs), or runs the port's GPT or BERT blocks, which
+    split theirs (a ``tensor_parallel.tp_scope`` names the blocks). Returns (the loss, the mean over
     microbatches, and this rank's block of the stacked gradients)."""
     if param_spec is not None:
         # every leaf must split its leading (stage) axis over axis_name, or
@@ -297,7 +299,10 @@ def pipeline_train_step_1f1b(stage_fn, loss_fn, stage_params, microbatches,
                            device=microbatches.device)
     fx = gx = None
     like = microbatches[0]
-    with use_mesh(mesh):
+    # a stage_fn of the port's GPT or BERT blocks splits its math over the
+    # tensor axis the specs name (tensor_parallel.tp_scope)
+    scope = tp_scope(mesh, [(t, P(*sp[1:])) for t, sp in zip(live, specs)])
+    with use_mesh(mesh), scope:
         for slots in _1f1b_schedule(S, n_micro):
             f, b, f_send, b_send = slots[stage]
             sends = []

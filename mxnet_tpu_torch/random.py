@@ -10,10 +10,11 @@ compare distributions.
 from __future__ import annotations
 
 import threading
+from contextlib import contextmanager
 
 import torch
 
-__all__ = ["seed", "generator"]
+__all__ = ["seed", "generator", "fork", "current_seed"]
 
 _state = threading.local()
 
@@ -54,3 +55,27 @@ def generator(device):
     if gen is None:
         gen = gens[dev] = torch.Generator(device=dev).manual_seed(_state.seed)
     return gen
+
+
+def current_seed():
+    """The seed this thread's generators start from."""
+    _generators()
+    return _state.seed
+
+
+@contextmanager
+def fork(device, seed_state):
+    """Inside the block, this thread's draws on ``device`` come from a new
+    generator seeded with ``seed_state``; the one before comes back after
+    it, as it was."""
+    dev = _key(device)
+    gens = _generators()
+    saved = gens.get(dev)
+    gens[dev] = torch.Generator(device=dev).manual_seed(int(seed_state))
+    try:
+        yield gens[dev]
+    finally:
+        if saved is None:
+            gens.pop(dev, None)
+        else:
+            gens[dev] = saved

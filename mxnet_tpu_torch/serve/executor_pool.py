@@ -24,7 +24,7 @@ each bucket is captured again at its next use. A weight swap that copies
 into the live parameters keeps them. The kernels' launch counters are
 host integers that a replay does not tick: the counts at capture are
 recorded per bucket and added back at every replay (the warm-up runs and
-the capture's own counts are taken out), as ``serve/step_graph.py`` does.
+the capture's own counts are taken out), as ``capture.py`` does.
 
 On the CPU the same object runs each dispatch eagerly on the static
 buffers, with the same programs, counters and address checks, so they can
@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..base import resolve_dtype
-from .step_graph import WARMUP_RUNS, _counters, collector_paused
+from ..capture import add_launches, capture_graph
 
 
 class PoolError(RuntimeError):
@@ -151,35 +151,17 @@ class BucketedExecutor:
         return prog
 
     def _capture(self, prog, bucket, params):
-        counters = _counters()
-        before = {name: fn.launches for name, fn in counters.items()}
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):  # lazy library set-up, off the capture
-            for _ in range(WARMUP_RUNS):
-                self._forward(params, prog.dev)
-        cur.wait_stream(side)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        mid = {name: fn.launches for name, fn in counters.items()}
         try:
             # thread_local: the server's admission thread does host work
             # while the dispatcher captures
-            with collector_paused(), torch.cuda.graph(
-                    graph, pool=self._pool,
-                    capture_error_mode="thread_local"):
-                outs = self._forward(params, prog.dev)
+            got = capture_graph(lambda: self._forward(params, prog.dev),
+                                self.device, self._pool)
         except RuntimeError as e:
             raise PoolError("capturing bucket %d failed: %s" % (bucket, e)) \
                 from e
-        prog.deltas = {name: fn.launches - mid[name]
-                       for name, fn in counters.items()
-                       if fn.launches != mid[name]}
-        for name, fn in counters.items():
-            fn.launches = before[name]
-        prog.graph, prog.outs = graph, outs
+        prog.graph, prog.outs, prog.deltas = got.graph, got.out, got.deltas
 
     def _replay(self, prog, params, inputs, n):
         for i, (x, (_, dt)) in enumerate(zip(inputs, self._in_specs)):
@@ -192,10 +174,7 @@ class BucketedExecutor:
         if prog.graph is None:
             return self._forward(params, prog.dev)
         prog.graph.replay()
-        counters = _counters()
-        for name, k in prog.deltas.items():
-            if name in counters:
-                counters[name].launches += k
+        add_launches(prog.deltas)
         return prog.outs
 
     def run(self, inputs, n_real=None, eager=False):

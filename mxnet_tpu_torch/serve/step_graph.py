@@ -37,17 +37,13 @@ parameter that was given a new tensor drops every program, and each key
 is captured again at its next use. A weight swap that copies into the live
 parameters keeps them.
 
-Capture. A graph needs eager warm-up runs before capture (lazy library
-set-up, on a side stream). Those runs would write the pages, ``valid`` and
-the scales of the live slots, so they run on clones of the state: the
-live buffers are only read, and capture itself executes nothing. So a
-capture in the middle of serving leaves every live stream as it was, and
-the first replay after it is the step that stream would have taken.
-
-Launch counts. The kernels' launch counters are host-side integers, which
-a replay does not tick. The counts at capture are recorded per program
-and added back at every replay (the warm-up and capture's own counts are
-taken out), so a step counts its kernels exactly as an eager step does.
+Capture, the address check and the launch counts are the shared
+module's (``mxnet_tpu_torch/capture.py``): the warm-up runs on clones of
+the state (the live buffers are only read, and capture itself executes
+nothing), so a capture in the middle of serving leaves every live stream
+as it was, and the first replay after it is the step that stream would
+have taken; a replay adds back the launches its capture counted, so a
+step counts its kernels exactly as an eager step does.
 
 Memory. All graphs of one :class:`StepPrograms` share one memory pool (a
 new one after a drop); they never replay concurrently, and a program's
@@ -58,26 +54,12 @@ bookkeeping.
 """
 from __future__ import annotations
 
-import contextlib
-import gc
-
 import torch
 
-from ..ops.cuda import launch_counters
+from ..capture import (AddressBook, Graph, capture_counter,  # noqa: F401
+                       capture_graph, clone_state, collector_paused)
 
 __all__ = ["StepPrograms", "capture_counter"]
-
-WARMUP_RUNS = 2
-
-
-class _Counter:
-    """Programs made in this process, by every :class:`StepPrograms`
-    (``serve.stats()`` reads it)."""
-
-    count = 0
-
-
-capture_counter = _Counter()
 
 
 def _addresses(state, params):
@@ -92,42 +74,6 @@ def _addresses(state, params):
     return out
 
 
-@contextlib.contextmanager
-def collector_paused():
-    """No cyclic garbage collection inside the block. A collection during a
-    capture may free a dead server's CUDA graph (a server and its batcher
-    hold each other), and destroying a graph while a stream captures
-    invalidates the capture."""
-    enabled = gc.isenabled()
-    gc.disable()
-    try:
-        yield
-    finally:
-        if enabled:
-            gc.enable()
-
-
-def _counters():
-    # a wrapper swapped for its plain version (a check that runs the model
-    # without the kernels) counts nothing
-    return {name: fn for name, fn in launch_counters().items()
-            if hasattr(fn, "launches")}
-
-
-def _clone(state):
-    return {k: v.clone() if isinstance(v, torch.Tensor)
-            else [t.clone() for t in v] for k, v in state.items()}
-
-
-class _Program:
-    __slots__ = ("graph", "out", "deltas")
-
-    def __init__(self, graph=None, out=None, deltas=None):
-        self.graph = graph
-        self.out = out
-        self.deltas = deltas or {}
-
-
 class StepPrograms:
     """The step programs of one server (or of its draft), keyed.
 
@@ -139,7 +85,7 @@ class StepPrograms:
         self.device = torch.device(device)
         self.graphed = self.device.type == "cuda"
         self._programs = {}
-        self._addresses = {}
+        self._addresses = AddressBook()
         self._pool = None
         self.captures = 0
         self.replays = 0
@@ -156,58 +102,29 @@ class StepPrograms:
         graph's next replay overwrites."""
         if eager:
             return body(state)
-        addresses = _addresses(state, params)
-        known = self._addresses
-        if any(known.get(n, a) != a for n, a in addresses.items()):
-            if self._programs:
-                # the pool goes with the last graph that used it: the
-                # next capture takes a new one
-                self._programs.clear()
-                self._pool = None
-                self.drops += 1
-            known.clear()
-        known.update(addresses)
+        if self._addresses.moved(_addresses(state, params)) and \
+                self._programs:
+            # the pool goes with the last graph that used it: the next
+            # capture takes a new one
+            self._programs.clear()
+            self._pool = None
+            self.drops += 1
         prog = self._programs.get(key)
         if prog is None:
-            prog = self._capture(body, state) if self.graphed \
-                else _Program()
+            prog = self._capture(body, state) if self.graphed else Graph()
             self._programs[key] = prog
             self.captures += 1
             capture_counter.count += 1
         self.replays += 1
         if prog.graph is None:
             return body(state)
-        prog.graph.replay()
-        counters = _counters()
-        for name, n in prog.deltas.items():
-            if name in counters:
-                counters[name].launches += n
-        return prog.out
+        return prog.replay()
 
     def _capture(self, body, state):
-        counters = _counters()
-        before = {name: fn.launches for name, fn in counters.items()}
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        scratch = _clone(state)
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_RUNS):
-                body(scratch)
-        cur.wait_stream(side)
-        del scratch
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        mid = {name: fn.launches for name, fn in counters.items()}
+        scratch = clone_state(state)
         # thread_local: the server's other threads (admission, readers) do
         # host work while the step thread captures
-        with collector_paused(), torch.cuda.graph(
-                graph, pool=self._pool, capture_error_mode="thread_local"):
-            out = body(state)
-        deltas = {name: fn.launches - mid[name]
-                  for name, fn in counters.items()
-                  if fn.launches != mid[name]}
-        for name, fn in counters.items():
-            fn.launches = before[name]
-        return _Program(graph, out, deltas)
+        return capture_graph(lambda: body(state), self.device, self._pool,
+                             warmup=lambda: body(scratch))

@@ -6,8 +6,8 @@ optimizers, the LR schedulers, ``ir.tune``, ``parallel``, the vision
 layers, the model zoo, NDArray and the ``nd`` namespace, ``gluon.rnn``,
 the detection ops and the LSTM, SSD and Transformer models, the kvstore,
 ``dist``, ``parallel``, the converters and the model store, tensor,
-sequence, pipeline and expert parallelism and ``SyncBatchNorm``
-included) imports
+sequence, pipeline and expert parallelism and ``SyncBatchNorm``, the
+shared capture module and ``hybridize``'s programs included) imports
 with JAX blocked; and without
 CUDA every entry point refuses to run unless the caller asks for the
 CPU."""
@@ -86,7 +86,9 @@ def test_package_imports_with_jax_blocked():
             "mxnet_tpu_torch.parallel.pipeline, "
             "mxnet_tpu_torch.parallel.expert_parallel, "
             "mxnet_tpu_torch.gluon.contrib.nn, mxnet_tpu_torch.init, "
-            "mxnet_tpu_torch.gluon.model_zoo.model_store; "
+            "mxnet_tpu_torch.gluon.model_zoo.model_store, "
+            "mxnet_tpu_torch.capture, mxnet_tpu_torch.gluon.hybrid, "
+            "mxnet_tpu_torch.serve.step_graph; "
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
@@ -212,3 +214,30 @@ def test_model_parallel_on_cuda_tensors_raises_without_a_card(monkeypatch):
         for causal in (False, True):
             with pytest.raises(DeviceError, match="CUDA device"):
                 ring_replay(q, q, q, 1, causal=causal)
+
+
+def test_split_and_hybridized_paths_on_cuda_tensors_raise_without_a_card(
+        monkeypatch):
+    """Without a card, CUDA tensors: the vocabulary-parallel loss (the
+    split head's loss inside a tp_scope) reaches the softmax-xent
+    kernel's build, which raises, and a hybridized block refuses the
+    call; neither falls back to the plain versions."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from mxnet_tpu_torch.base import DeviceError
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.parallel import tensor_parallel as tp
+
+    net = nn.Dense(4, in_units=8)
+    net.initialize(device="cpu")
+    net.hybridize()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        x = torch.zeros(4, 8, device="cuda")
+        labels = torch.zeros(4, dtype=torch.int32, device="cuda")
+        with tp.tp_scope.replay(2, []) as scope:
+            with pytest.raises(DeviceError, match="CUDA"):
+                tp.vocab_parallel_xent([x, x], labels, [0, 8],
+                                       merge=scope.xent_merge)
+        with pytest.raises(DeviceError, match="CUDA"):
+            net(x)

@@ -23,7 +23,13 @@ rank's block against the matching block of the JAX result:
   package's at those meshes;
 - ``moe_ffn`` at ep = 4 and {dp: 2, ep: 2};
 - ``SyncBatchNorm`` on four quarter batches against the JAX BatchNorm on
-  the whole batch.
+  the whole batch;
+- Megatron compute sharding inside ``tensor_parallel.tp_scope``: a 4-head
+  GPT at tp = 4 and gpt_nano at tp = 2 split their heads, FFN columns and
+  vocabulary (gpt_nano at tp = 4 reads its attention leaves whole), GPT
+  and BERT steps on {dp: 2, tp: 2} against the JAX single-device step,
+  the vocabulary-parallel loss and embedding, the dropout rule, and a
+  1F1B pipeline of GPT blocks on {tp: 2, pp: 2}.
 
 Tolerances are the JAX tests' own: 1e-5 relative for losses, 1e-5 or
 1e-4 absolute for outputs and 2e-5 to 2e-4 for gradients, each named at
@@ -44,6 +50,8 @@ from mxnet_tpu import _trace
 from mxnet_tpu import autograd as jautograd
 from mxnet_tpu import gluon as jgluon
 from mxnet_tpu import parallel as jparallel
+from mxnet_tpu.models.bert import BERTModel as JBERTModel
+from mxnet_tpu.models.gpt import GPTModel as JGPTModel
 from mxnet_tpu.models.gpt import gpt_nano as jgpt_nano
 from mxnet_tpu.parallel import tensor_parallel as jtp
 from mxnet_tpu.parallel.expert_parallel import moe_ffn as jmoe
@@ -73,6 +81,19 @@ def _mesh(axes):
 def _jax_gpt():
     mx.random.seed(SEED)
     net = jgpt_nano()
+    net.initialize()
+    return net
+
+
+GPT4 = dict(vocab_size=256, units=64, num_layers=2, num_heads=4,
+            max_length=64, dropout=0.0)
+BERT4 = dict(vocab_size=256, units=64, hidden_size=128, num_layers=2,
+             num_heads=4, max_length=64, dropout=0.0)
+
+
+def _jax_net(cls, cfg, seed):
+    mx.random.seed(seed)
+    net = cls(**cfg)
     net.initialize()
     return net
 
@@ -121,6 +142,31 @@ def _inputs():
     inp["bn_w"] = _f32(rng, 16, 3, 4, 4)
     for name, p in _jax_gpt().collect_params().items():
         inp["gpt/" + name] = np.asarray(p.data().asnumpy())
+    for tag, net in (("gpt4", _jax_net(JGPTModel, GPT4, SEED + 1)),
+                     ("bert4", _jax_net(JBERTModel, BERT4, SEED + 2))):
+        for name, p in net.collect_params().items():
+            inp[tag + "/" + name] = np.asarray(p.data().asnumpy())
+    inp["st_gpt_x"] = rng.integers(0, 256, (4, 8)).astype(np.int32)
+    inp["st_gpt_y"] = rng.integers(0, 256, (4, 8)).astype(np.int32)
+    inp["st_bert_ids"] = rng.integers(0, 256, (4, 8)).astype(np.int32)
+    inp["st_bert_types"] = rng.integers(0, 2, (4, 8)).astype(np.int32)
+    inp["st_bert_vl"] = np.array([8, 5, 7, 3], np.int32)
+    inp["st_bert_pos"] = np.array([[0, 3, 7], [1, 2, 4], [0, 5, 6],
+                                   [0, 1, 2]], np.int32)
+    # a label in each quarter of the vocabulary
+    inp["st_bert_labels"] = np.array([[3, 70, 130], [200, 255, 0],
+                                      [64, 127, 191], [192, 1, 100]],
+                                     np.int32)
+    inp["vx_logits"] = _f32(rng, 6, 64, scale=3.0)
+    inp["vx_labels"] = np.array([3, 20, 40, 63, 16, 47], np.int32)
+    inp["vx_ct"] = _f32(rng, 6)
+    inp["ve_w"] = _f32(rng, 64, 8)
+    # every quarter, a negative id (it wraps) and one past the table
+    inp["ve_ids"] = np.array([[0, 17, 35, 63, -1], [48, 64, 15, 16, 31]],
+                             np.int32)
+    inp["ve_ct"] = _f32(rng, 2, 5, 8)
+    inp["pg_xs"] = _f32(rng, 4, 2, 8, 64)
+    inp["pg_tg"] = _f32(rng, 4, 2, 8, 64)
     return inp
 
 
@@ -617,3 +663,214 @@ def test_moe_tie_takes_the_first_expert():
     h = np.maximum(x @ w1[1], 0) @ w2[1]
     p = torch.softmax(torch.from_numpy(x @ rw), -1).numpy()
     _close(ty.numpy(), h * p.max(-1, keepdims=True), 1e-5, 0, "expert 1")
+
+
+# ----------------------------------------------- Megatron compute sharding
+def _jax_logits(jnet, toks):
+    plist = list(jnet.collect_params().values())
+
+    def fwd(arrays, t):
+        with _trace.trace_scope(jax.random.PRNGKey(0), False) as tc:
+            tc.param_store = {id(p): a for p, a in zip(plist, arrays)}
+            return jnet._call_traced(t)
+
+    return np.asarray(jax.jit(fwd)([p.data()._data for p in plist], toks))
+
+
+def test_tp_split_forward_matches_jax(ranks):
+    """The 4-head GPT (units 64) at tp = 4 and gpt_nano at tp = 2 split
+    every leaf TRANSFORMER_RULES splits (heads, FFN columns, vocabulary)
+    and gather none; gpt_nano at tp = 4, whose 2 heads the axis does not
+    divide, reads its attention leaves whole (counted). The logits within
+    the JAX test's 2e-4 relative, 2e-5 absolute of the JAX package's
+    replicated forward."""
+    out, inp = ranks
+    toks = jnp.asarray(inp["gpt_toks"])
+    want = {"h4": _jax_logits(_jax_net(JGPTModel, GPT4, SEED + 1), toks),
+            "nano2": _jax_logits(_jax_gpt(), toks)}
+    want["nano4"] = want["nano2"]
+    for o in out["gpt_split"]:
+        for tag, ref in want.items():
+            _close(o[tag + "_logits"], ref, 2e-5, 2e-4, tag)
+        for tag in ("h4", "nano2"):
+            # 2 attentions, 2 FFNs, the embedding and the tied head
+            assert (int(o[tag + "_split"]), int(o[tag + "_gathered"]),
+                    int(o[tag + "_gathered_leaves"])) == (6, 0, 0), tag
+        # the attentions read qkv's weight and bias and attn_out's weight
+        # whole; the FFNs and the vocabulary split
+        assert (int(o["nano4_split"]), int(o["nano4_gathered"]),
+                int(o["nano4_gathered_leaves"])) == (4, 2, 6)
+
+
+def _jax_bert_loss(jnet):
+    plist = list(jnet.collect_params().values())
+    xent = jgluon.loss.SoftmaxCrossEntropyLoss()
+
+    def loss_fn(arrays, batch, key):
+        ids, types, vl, pos, labels = batch
+        with _trace.trace_scope(key, False) as tc:
+            tc.param_store = {id(p): a for p, a in zip(plist, arrays)}
+            logits = jnet._call_traced(ids, types, vl, pos)[-1]
+            loss = xent._call_traced(logits, labels)
+        return jnp.mean(loss)
+
+    return loss_fn, plist
+
+
+def _jax_steps(loss_fn, plist, batch, steps=2, momentum=0.0):
+    sgd = mx.optimizer.SGD(learning_rate=0.1, momentum=momentum)
+    params = [p.data()._data for p in plist]
+    init_states, _ = jparallel.tree_optimizer_step(sgd)
+    states = init_states(params)
+    step = jparallel.build_train_step(loss_fn, sgd, donate=False)
+    losses = []
+    for i in range(steps):
+        params, states, loss = step(params, states, jnp.int32(1 + i),
+                                    jax.random.PRNGKey(0), batch)
+        losses.append(float(loss))
+    return [np.asarray(a) for a in params], losses
+
+
+def test_tp_split_steps_match_single_device(ranks):
+    """GPT (4 heads) and BERT (4 heads) on {dp: 2, tp: 2}: two SGD steps
+    of build_train_step(param_spec=TRANSFORMER_RULES specs), the split
+    leaves consumed split (none gathered), and the GPT's with momentum and
+    the update sharded over dp (ZeRO-1), against the JAX package's
+    single-device step (the loss within 1e-5 relative; each stored block
+    within 1e-4 relative, 2e-5 absolute of the JAX step's block: the
+    blocks are the JAX package's)."""
+    out, inp = ranks
+    jmesh = _mesh({"dp": 2, "tp": 2})
+    gnet = _jax_net(JGPTModel, GPT4, SEED + 1)
+    gloss, gplist = jparallel.block_loss_fn(
+        gnet, jgluon.loss.SoftmaxCrossEntropyLoss(), training=False)
+    bnet = _jax_net(JBERTModel, BERT4, SEED + 2)
+    bloss, bplist = _jax_bert_loss(bnet)
+    gb = (inp["st_gpt_x"], inp["st_gpt_y"])
+    runs = {"gpt": (_jax_steps(gloss, gplist, gb), gplist),
+            "gpt_zero": (_jax_steps(gloss, gplist, gb, momentum=0.9),
+                         gplist),
+            "bert": (_jax_steps(bloss, bplist, tuple(
+                inp["st_bert_" + k] for k in ("ids", "types", "vl", "pos",
+                                              "labels"))), bplist)}
+    for tag, ((params, losses), plist) in runs.items():
+        jspecs = [tuple(jtp.spec_for(p.name, p.data().shape,
+                                     jtp.TRANSFORMER_RULES, jmesh))
+                  for p in plist]
+        for r, o in enumerate(out["split_steps"]):
+            assert list(o[tag + "_specs"]) == [str(s) for s in jspecs]
+            assert int(o[tag + "_gathered_leaves"]) == 0
+            assert int(o[tag + "_gathered"]) == 0
+            assert int(o[tag + "_split"]) > 0
+            _close(o[tag + "_losses"], losses, 0, 1e-5, tag + " loss")
+            for j, (a, sp) in enumerate(zip(params, jspecs)):
+                want = a
+                if "tp" in sp:
+                    want = _block(a, r % 2, 2, sp.index("tp"))
+                _close(o["%s_p%d" % (tag, j)], want, 2e-5, 1e-4,
+                       "%s %s" % (tag, plist[j].name))
+
+
+def test_vocab_parallel_loss_and_embedding_match_jax(ranks):
+    """tp = 4, a label in every quarter: the merged loss within 1e-5 of
+    the JAX loss over the whole vocabulary and each rank's dx block
+    within 1e-6; the split embedding's rows (ids in every quarter, one
+    negative, one past the table's end: NaN) equal jnp.take's, the
+    table's gradient block within 1e-6."""
+    out, inp = ranks
+    x, lab = jnp.asarray(inp["vx_logits"]), jnp.asarray(inp["vx_labels"])
+
+    def xent(x):
+        return jax.nn.logsumexp(x, -1) - jnp.take_along_axis(
+            x, lab[:, None], -1)[:, 0]
+
+    loss, pull = jax.vjp(xent, x)
+    dx, = pull(jnp.asarray(inp["vx_ct"]))
+    w, ids = jnp.asarray(inp["ve_w"]), jnp.asarray(inp["ve_ids"])
+    rows, pull = jax.vjp(lambda w_: jnp.take(w_, ids, axis=0), w)
+    dw, = pull(jnp.asarray(inp["ve_ct"]))
+    assert np.isnan(np.asarray(rows)).any()
+    for r, o in enumerate(out["vocab"]):
+        _close(o["loss"], loss, 1e-5, 1e-5, "loss")
+        _close(o["dx"], _block(dx, r, 4, 1), 1e-6, 0, "dx")
+        np.testing.assert_array_equal(o["rows"], np.asarray(rows))
+        _close(o["dw"], _block(dw, r, 4, 0), 1e-6, 0, "dw")
+
+
+def test_tp_dropout_rule():
+    """Pinned in a group: see test_tp_dropout_rule_in_a_group."""
+    from mxnet_tpu_torch.parallel.tensor_parallel import step_seed
+
+    class Mesh:
+        axis_names = ("dp", "tp")
+        shape = {"dp": 2, "tp": 2}
+
+        def __init__(self, dp, t):
+            self.at = {"dp": dp, "tp": t}
+
+        def local_rank(self, a):
+            return self.at[a]
+
+    seeds = {(d, t_): step_seed(Mesh(d, t_), 3, 0)
+             for d in range(2) for t_ in range(2)}
+    assert seeds[0, 0] == seeds[0, 1] and seeds[1, 0] == seeds[1, 1]
+    assert seeds[0, 0] != seeds[1, 0]
+    assert step_seed(Mesh(0, 0), 4, 0) != seeds[0, 0]
+
+
+def test_tp_dropout_rule_in_a_group(ranks):
+    """{dp: 2, tp: 2}: a replicated activation's dropout mask is the same
+    on the two ranks of a tensor group and differs across data groups
+    and across steps."""
+    out, _ = ranks
+    m = [o["masks"] for o in out["dropout"]]
+    # rank r sits at (dp, tp) = (r // 2, r % 2)
+    np.testing.assert_array_equal(m[0], m[1])
+    np.testing.assert_array_equal(m[2], m[3])
+    assert (m[0] != m[2]).any()
+    assert (m[0][0] != m[0][1]).any()
+
+
+def test_pipeline_of_gpt_blocks_splits_over_tp(ranks):
+    """1F1B over two GPT blocks (4 heads) on {tp: 2, pp: 2} with
+    TRANSFORMER_RULES specs: each stage splits its attention and FFN
+    (none of its leaves gathered); the loss within 1e-5 relative and each
+    rank's gradient blocks within 2e-5 of the JAX package's two blocks
+    applied in turn to each microbatch (which {dp: 2, pp: 2}, unsplit,
+    also matches)."""
+    out, inp = ranks
+    jnet = _jax_net(JGPTModel, GPT4, SEED + 1)
+    blks = list(jnet.blocks)
+    plists = [list(b.collect_params().values()) for b in blks]
+    names = [p.name[len(blks[0].prefix):] for p in plists[0]]
+    xs, tg = jnp.asarray(inp["pg_xs"]), jnp.asarray(inp["pg_tg"])
+
+    def loss(arrays):
+        tot = 0.0
+        for m in range(xs.shape[0]):
+            y = xs[m]
+            for b, pl, arr in zip(blks, plists, arrays):
+                with _trace.trace_scope(jax.random.PRNGKey(0), False) as tc:
+                    tc.param_store = {id(p): a for p, a in zip(pl, arr)}
+                    y = b._call_traced(y)
+            tot = tot + jnp.mean((y - tg[m]) ** 2)
+        return tot / xs.shape[0]
+
+    lv, g = jax.jit(jax.value_and_grad(loss))(
+        [[p.data()._data for p in pl] for pl in plists])
+    stacked = {nm: np.stack([np.asarray(g[0][j]), np.asarray(g[1][j])])
+               for j, nm in enumerate(names)}
+    for r, o in enumerate(out["pipeline_gpt"]):
+        split, gathered, leaves = (int(v) for v in o["tp_counters"])
+        assert split > 0 and gathered == 0 and leaves == 0
+        outer, pp = r // 2, r % 2
+        specs = dict(zip(sorted(names), o["specs"]))
+        for tag in ("tp", "dp"):
+            _close(o[tag + "_loss"], lv, 0, 1e-5, tag + " loss")
+        for nm in names:
+            want = stacked[nm][pp:pp + 1]
+            _close(o["dp_g_" + nm], want, 2e-5, 0, "dp x pp " + nm)
+            sp = eval(specs[nm])
+            if "tp" in sp:
+                want = _block(want, outer, 2, sp.index("tp"))
+            _close(o["tp_g_" + nm], want, 2e-5, 0, "tp x pp " + nm)

@@ -1,9 +1,11 @@
-"""A CPU rehearsal of ``chip_smoke.py``'s ``phase_model_parallel`` at
-small sizes, over a gloo group of one rank: a small GPT (2 layers, 128
-units, 2 heads of 64, batch 1 of 256 tokens, one step) in
-``sequence_parallel_scope``, the n = 4 ring replayed at (1, 2, 256, 64),
-the FFN step, ``moe_ffn``, 1F1B and ``SyncBatchNorm``. The kernels do not launch on the CPU, so their
-launch counts read 0: those checks, and only those, fail here."""
+"""A CPU rehearsal of ``chip_smoke.py``'s ``phase_model_parallel`` and
+``phase_tp_compute`` at small sizes, over a gloo group of one rank: a
+small GPT (2 layers, 128 units, 2 heads of 64, batch 1 of 256 tokens, one
+step) in ``sequence_parallel_scope``, the n = 4 ring replayed at (1, 2,
+256, 64), the FFN step, ``moe_ffn``, 1F1B and ``SyncBatchNorm``; then
+the tp = 4 replay, the vocabulary-parallel loss and the tp = 1 step. The
+kernels do not launch on the CPU, so their launch counts read 0: those
+checks, and only those, fail here."""
 import pytest
 import torch
 
@@ -62,4 +64,26 @@ def test_model_parallel_phase_on_the_cpu(small):
     assert r["moe_ep1"]["rel_l2"] <= cs.MOE_REL_TOL
     assert r["pipeline_pp1"]["worst_grad_rel_l2"] <= cs.PIPE_REL_TOL
     # the launch counts, and only they, read 0 on the CPU
+    assert small and all("launch" in w for w in small)
+
+
+def test_tp_compute_phase_on_the_cpu(small, monkeypatch):
+    """``phase_tp_compute`` at 4 heads of 32 (so tp = 4 splits them), a
+    vocabulary the axis does not divide (as GPT-2's) and a (16, 2 x 500)
+    MLM head: the replay within twice the unsplit error of fp32, the
+    planted merge fault caught, the tp = 1 step's first loss bit for bit;
+    only the launch counts fail."""
+    monkeypatch.setattr(cs, "GPT_CONFIG", dict(cs.GPT_CONFIG, num_heads=4))
+    monkeypatch.setattr(cs, "GPT_TRAIN", {"batch": 2, "seq": 64})
+    monkeypatch.setattr(cs, "TP_XENT", {"rows": 16, "vocab": 1000, "n": 2})
+    r = cs.phase_tp_compute(torch.device("cpu"))
+    assert not torch.distributed.is_initialized()
+    rep = r["gpt2_tp4_replay"]
+    assert rep["paths"] == {"split": 4, "gathered": 0, "gathered_leaves": 0}
+    assert all(v[2] <= cs.TP_ERR_RATIO for v in rep["errors"].values())
+    x = r["bert_mlm_xent_tp2"]
+    assert all(x["within"].values()) and x["planted_caught"]
+    st = r["train_step_tp1"]
+    assert st["first_loss_bitwise"] and st["unreached_equal"]
+    assert st["paths"]["gathered_leaves"] == 0
     assert small and all("launch" in w for w in small)

@@ -19,12 +19,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from mxnet_tpu_torch import autograd, parallel  # noqa: E402
+from mxnet_tpu_torch import autograd, gluon, parallel  # noqa: E402
 from mxnet_tpu_torch import optimizer as opt  # noqa: E402
 from mxnet_tpu_torch.convert import from_jax_params  # noqa: E402
 from mxnet_tpu_torch.gluon.block import _param_store  # noqa: E402
 from mxnet_tpu_torch.gluon.contrib.nn import SyncBatchNorm  # noqa: E402
-from mxnet_tpu_torch.models.gpt import gpt_nano  # noqa: E402
+from mxnet_tpu_torch.models.bert import BERTModel  # noqa: E402
+from mxnet_tpu_torch.models.gpt import GPTModel, gpt_nano  # noqa: E402
+from mxnet_tpu_torch.ops import F  # noqa: E402
 from mxnet_tpu_torch.parallel import P  # noqa: E402
 from mxnet_tpu_torch.parallel import tensor_parallel as tp  # noqa: E402
 from torch_port_dist_worker import main as run_cases  # noqa: E402
@@ -35,11 +37,20 @@ def t(a, grad=False):
     return x.requires_grad_(True) if grad else x
 
 
-def _gpt(inp):
-    net = gpt_nano()
-    params = {k[len("gpt/"):]: v for k, v in inp.items()
-              if k.startswith("gpt/")}
+GPT4 = dict(vocab_size=256, units=64, num_layers=2, num_heads=4,
+            max_length=64, dropout=0.0)
+BERT4 = dict(vocab_size=256, units=64, hidden_size=128, num_layers=2,
+             num_heads=4, max_length=64, dropout=0.0)
+
+
+def _from(inp, net, tag):
+    params = {k[len(tag) + 1:]: v for k, v in inp.items()
+              if k.startswith(tag + "/")}
     return from_jax_params(net, params)
+
+
+def _gpt(inp):
+    return _from(inp, gpt_nano(), "gpt")
 
 
 def _net_loss(net, plist, arrays, toks):
@@ -146,6 +157,167 @@ def case_gpt_tp(inp, out, rank, world):
     out["logits"] = seen["logits"].numpy()
     out["block_shapes"] = np.array([list(b.shape) + [0] * (2 - b.dim())
                                     for b in blocks])
+
+
+def _split_forward(net, mesh, toks):
+    """``net``'s logits with its parameters split by TRANSFORMER_RULES
+    over ``mesh`` and handed over as this rank's blocks inside a
+    tp_scope, and the path counters of that forward."""
+    plist = list(net.collect_params().values())
+    named = [(p.name, p._tensor().detach()) for p in plist]
+    specs = tp.param_specs([(n, tuple(a.shape)) for n, a in named], mesh)
+    blocks = tp.shard_params(named, mesh)
+    tp.reset_counters()
+    with tp.tp_scope(mesh, list(zip(blocks, specs))):
+        logits = _net_loss(net, plist, blocks, toks)
+    return logits.detach(), dict(tp.counters)
+
+
+def case_gpt_split(inp, out, rank, world):
+    """The 4-head GPT at tp = 4 and gpt_nano at tp = 2 (split: heads,
+    FFN columns, vocabulary) and at tp = 4 (its 2 heads do not divide:
+    the attention reads its leaves whole)."""
+    toks = t(inp["gpt_toks"])
+    for tag, net, axes in (
+            ("h4", _from(inp, GPTModel(**GPT4), "gpt4"), {"tp": world}),
+            ("nano2", _gpt(inp), {"dp": 2, "tp": 2}),
+            ("nano4", _gpt(inp), {"tp": world})):
+        logits, counts = _split_forward(net, parallel.make_mesh(axes), toks)
+        out[tag + "_logits"] = logits.numpy()
+        for k, v in counts.items():
+            out["%s_%s" % (tag, k)] = np.array(v)
+
+
+def case_split_steps(inp, out, rank, world):
+    """GPT (4 heads) and BERT steps on {dp: 2, tp: 2} through
+    build_train_step(param_spec=TRANSFORMER_RULES specs): the batch over
+    dp, every split leaf consumed by a split layer; SGD, 2 steps, and the
+    GPT with momentum and the update sharded over dp (ZeRO-1)."""
+    mesh = parallel.make_mesh({"dp": 2, "tp": 2})
+    gnet = _from(inp, GPTModel(**GPT4), "gpt4")
+    gloss, gplist = parallel.block_loss_fn(
+        gnet, gluon.loss.SoftmaxCrossEntropyLoss(), training=False)
+    bnet = _from(inp, BERTModel(**BERT4), "bert4")
+    bloss, bplist = parallel.block_loss_fn(
+        bnet, gluon.loss.SoftmaxCrossEntropyLoss(), training=False,
+        out_index=-1)
+    gbatch = (t(inp["st_gpt_x"]), t(inp["st_gpt_y"]))
+    bbatch = tuple(t(inp["st_bert_" + k])
+                   for k in ("ids", "types", "vl", "pos", "labels"))
+    for tag, loss_fn, plist, batch, kw in (
+            ("gpt", gloss, gplist, gbatch, {}),
+            ("bert", bloss, bplist, bbatch, {}),
+            ("gpt_zero", gloss, gplist, gbatch,
+             {"shard_weight_update": True})):
+        named = [(p.name, p._tensor().detach()) for p in plist]
+        specs = tp.param_specs([(n, tuple(a.shape)) for n, a in named], mesh)
+        blocks = tp.shard_params(named, mesh)
+        sgd = opt.SGD(learning_rate=0.1, momentum=0.9 if kw else 0.0)
+        states = parallel.tree_optimizer_step(sgd)[0](blocks)
+        step = parallel.build_train_step(loss_fn, sgd, mesh=mesh,
+                                         param_spec=specs, **kw)
+        mine = parallel.shard_batch(batch, mesh)
+        tp.reset_counters()
+        losses = []
+        for i in range(2):
+            blocks, states, loss = step(blocks, states, 1 + i, None, mine)
+            losses.append(float(loss))
+        out[tag + "_losses"] = np.array(losses)
+        for k, v in tp.counters.items():
+            out["%s_%s" % (tag, k)] = np.array(v)
+        out[tag + "_specs"] = np.array([str(tuple(s)) for s in specs])
+        for j, b in enumerate(blocks):
+            out["%s_p%d" % (tag, j)] = b.detach().numpy()
+
+
+def case_vocab(inp, out, rank, world):
+    """The vocabulary-parallel loss and embedding at tp = 4 on this rank's
+    quarter of the vocabulary: the loss, dx for a cotangent, the rows for
+    ids in every quarter (and one past the table) and their gradient."""
+    mesh = parallel.make_mesh({"tp": world})
+    x = parallel.shard_array(t(inp["vx_logits"]), mesh, None, "tp").clone()
+    x.requires_grad_(True)
+    V = inp["vx_logits"].shape[1]
+    scope = tp.tp_scope(mesh, [])
+    loss = tp.vocab_parallel_xent([x], t(inp["vx_labels"]),
+                                  [rank * V // world], merge=scope.xent_merge)
+    loss.backward(t(inp["vx_ct"]))
+    out["loss"] = loss.detach().numpy()
+    out["dx"] = x.grad.numpy()
+    w = parallel.shard_array(t(inp["ve_w"]), mesh, "tp", None).clone()
+    w.requires_grad_(True)
+    with tp.tp_scope(mesh, [(w, P("tp", None))]) as sc:
+        rows = sc.embed(F, t(inp["ve_ids"]), w)
+    (rows.nan_to_num(0.0) * t(inp["ve_ct"])).sum().backward()
+    out["rows"] = rows.detach().numpy()
+    out["dw"] = w.grad.numpy()
+
+
+def case_dropout(inp, out, rank, world):
+    """build_train_step on {dp: 2, tp: 2}: the dropout mask of a
+    replicated activation, drawn at steps 1 and 2."""
+    mesh = parallel.make_mesh({"dp": 2, "tp": 2})
+    masks = []
+
+    def loss_fn(params, batch, key):
+        with autograd.record():
+            y = F.Dropout(params["w"] * batch, p=0.5, training=True)
+        masks.append((y != 0).numpy())
+        return y.sum()
+
+    step = parallel.build_train_step(loss_fn, opt.SGD(learning_rate=0.0),
+                                     mesh=mesh)
+    for i in range(2):
+        step({"w": torch.ones(256)}, {"w": ()}, 1 + i, None, torch.ones(256))
+    out["masks"] = np.stack(masks)
+
+
+def case_pipeline_gpt(inp, out, rank, world):
+    """1F1B over two GPT blocks (4 heads) on {tp: 2, pp: 2} with
+    TRANSFORMER_RULES specs (each stage splits its math over tp), and on
+    {dp: 2, pp: 2} unsplit; the loss and each rank's gradient blocks."""
+    net = _from(inp, GPTModel(**GPT4), "gpt4")
+    blks = list(net.blocks)
+    plists = [list(b.collect_params().values()) for b in blks]
+    names = [p.name[len(blks[0].prefix):] for p in plists[0]]
+    stacked = parallel.stack_stage_params([
+        {nm: p._tensor().detach() for nm, p in zip(names, pl)}
+        for pl in plists])
+    xs, tg = t(inp["pg_xs"]), t(inp["pg_tg"])
+
+    def stage_fn(params, x):
+        prev = getattr(_param_store, "params", None)
+        _param_store.params = {id(p): params[nm]
+                               for p, nm in zip(plists[0], names)}
+        try:
+            with autograd.record(train_mode=False):
+                return blks[0](x)
+        finally:
+            _param_store.params = prev
+
+    def mse(y, tt):
+        return ((y - tt) ** 2).mean()
+
+    tmesh = parallel.make_mesh({"tp": 2, "pp": 2})
+
+    class Fake:
+        shape = {"tp": 2}
+
+    spec = {nm: P("pp", *tp.spec_for(nm, tuple(v.shape[1:]),
+                                      tp.TRANSFORMER_RULES, Fake))
+            for nm, v in stacked.items()}
+    for tag, mesh, kw in (("tp", tmesh, {"param_spec": spec}),
+                          ("dp", parallel.make_mesh({"dp": 2, "pp": 2}),
+                           {})):
+        tp.reset_counters()
+        loss, grads = parallel.pipeline_train_step_1f1b(
+            stage_fn, mse, stacked, xs, tg, mesh, **kw)
+        out[tag + "_loss"] = loss.detach().numpy()
+        out[tag + "_counters"] = np.array([tp.counters[k] for k in (
+            "split", "gathered", "gathered_leaves")])
+        for nm, g in grads.items():
+            out["%s_g_%s" % (tag, nm)] = g.numpy()
+    out["specs"] = np.array([str(tuple(spec[nm])) for nm in sorted(spec)])
 
 
 def _attn_grads(fn, q, k, v, ct):
@@ -303,7 +475,9 @@ CASES = [("regions", case_regions), ("dptp", case_dp_tp),
          ("gpt_tp", case_gpt_tp), ("ring", case_ring),
          ("sp_scope", case_sp_scope), ("pipeline", case_pipeline),
          ("compose", case_compose), ("moe", case_moe),
-         ("sync_bn", case_sync_bn)]
+         ("sync_bn", case_sync_bn), ("gpt_split", case_gpt_split),
+         ("split_steps", case_split_steps), ("vocab", case_vocab),
+         ("dropout", case_dropout), ("pipeline_gpt", case_pipeline_gpt)]
 
 
 if __name__ == "__main__":

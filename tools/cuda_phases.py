@@ -43,6 +43,13 @@ built:
   NCCL group of one rank at ZeRO 0-3 and each compression, a planted
   bucket fault, and ``ModelServer(devices=[card, card])``) and
   ``phase_dist_breakdown`` (the attached step under torch.profiler);
+- ``tp``: ``phase_tp_compute`` (Megatron compute sharding: GPT-2 small's
+  forward and backward at tp = 4 replayed on the card against the unsplit
+  step and fp32, BERT-base's MLM head through the vocabulary-parallel
+  loss at tp = 2 with a planted merge fault, ``build_train_step``'s split
+  path at {dp: 1, tp: 1} against the plain step);
+- ``hybridize``: ``phase_hybridize`` (the GPT-2 small step through
+  ``hybridize()`` and the Trainer's step program against the eager step);
 - ``mp``: ``phase_model_parallel`` (the GPT-2 step inside
   ``sequence_parallel_scope`` at sp = 1, ring and Ulysses, against the
   plain step; the n = 4 ring replayed on the card against the
@@ -161,7 +168,9 @@ GROUPS = {"kernels": run_kernels, "spec": run_spec,
           "serve_graph": run_serve_graph, "optim": run_optim,
           "vision": run_vision, "nd": run_nd, "a11": run_a11,
           "dist": run_dist,
-          "mp": lambda cs, dev: cs.phase_model_parallel(dev)}
+          "mp": lambda cs, dev: cs.phase_model_parallel(dev),
+          "tp": lambda cs, dev: cs.phase_tp_compute(dev),
+          "hybridize": lambda cs, dev: cs.phase_hybridize(dev)}
 
 
 def main(argv):
