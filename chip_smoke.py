@@ -525,15 +525,21 @@ def read_counters():
 
 
 class plain_versions:
-    """Within the block, every kernel wrapper's module attribute is its
-    plain version, so the model runs without the kernels. ``faults`` names
-    a wrapper to replace with another function instead (a planted fault)."""
+    """Within the block, every kernel op's implementation (the entries of
+    ``ops.cuda.IMPLS``, which the ``torch.library`` ops call) is its plain
+    version, so the model runs without the kernels. ``faults`` names a
+    wrapper whose implementation is another function instead (a planted
+    fault); a fault of ``flash_attention`` also takes the place of its fp32
+    form, as the public wrapper hands fp32 operands to it."""
 
     def __init__(self, **faults):
-        self.faults = faults
+        self.faults = dict(faults)
+        if "flash_attention" in faults:
+            self.faults.setdefault("flash_attention_f32",
+                                   faults["flash_attention"])
 
     def __enter__(self):
-        from mxnet_tpu_torch.ops import attention
+        from mxnet_tpu_torch.ops.cuda import IMPLS
         from mxnet_tpu_torch.ops.cuda import flash_attention as fa
         from mxnet_tpu_torch.ops.cuda import layernorm as ln
         from mxnet_tpu_torch.ops.cuda import softmax_xent as sx
@@ -541,23 +547,26 @@ class plain_versions:
         def flash_plain(q, k, v, **kw):
             return fa.flash_attention_plain(q, k, v, **kw)
 
-        self._saved = []
-        for mod, name, plain in (
-                (ln, "fused_layernorm", ln.layernorm_plain),
-                (ln, "fused_layernorm_bwd", ln.layernorm_bwd_plain),
-                (attention, "flash_attention", flash_plain),
-                (fa, "flash_attention", flash_plain),
-                (fa, "flash_attention_f32", flash_plain),
-                (fa, "flash_attention_bwd", fa.flash_attention_bwd_plain),
-                (sx, "softmax_xent_fwd", sx.softmax_xent_fwd_plain),
-                (sx, "softmax_xent_bwd", sx.softmax_xent_bwd_plain)):
-            self._saved.append((mod, name, getattr(mod, name)))
-            setattr(mod, name, self.faults.get(name, plain))
+        def flash_bwd_plain(q, k, v, do, lse, delta, **kw):
+            return fa.flash_attention_bwd_plain(q, k, v, do, lse, delta,
+                                                **kw)
+
+        self._saved = dict(IMPLS)
+        for name, plain in (
+                ("fused_layernorm", ln.layernorm_plain),
+                ("fused_layernorm_bwd", ln.layernorm_bwd_plain),
+                ("flash_attention", flash_plain),
+                ("flash_attention_f32", flash_plain),
+                ("flash_attention_bwd", flash_bwd_plain),
+                ("softmax_xent_fwd", sx.softmax_xent_fwd_plain),
+                ("softmax_xent_bwd", sx.softmax_xent_bwd_plain)):
+            IMPLS[name] = self.faults.get(name, plain)
         return self
 
     def __exit__(self, *exc):
-        for mod, name, fn in self._saved:
-            setattr(mod, name, fn)
+        from mxnet_tpu_torch.ops.cuda import IMPLS
+
+        IMPLS.update(self._saved)
 
 
 def phase_build():
@@ -7876,9 +7885,10 @@ def phase_nmt_train(dev):
     # shapes
     bf16, shares = step_against_plain(step, {
         "the LayerNorm forward kernel": (
-            {"fused_layernorm": ln.fused_layernorm}, contextlib.nullcontext),
+            {"fused_layernorm": ln.IMPLS["fused_layernorm"]},
+            contextlib.nullcontext),
         "the LayerNorm backward kernel": (
-            {"fused_layernorm_bwd": ln.fused_layernorm_bwd},
+            {"fused_layernorm_bwd": ln.IMPLS["fused_layernorm_bwd"]},
             contextlib.nullcontext)}, "nmt bf16", hold=False)
     bf16["one_kernel_kept"] = shares
     fp32_step = LMTrainStep(dev, "nmt", dtype="float32")
@@ -10049,6 +10059,860 @@ def phase_hybridize(dev):
     return out
 
 
+# ------------------------------------- A.13 closed and A.14's symbolic core
+# the kernels as torch.library ops at this slice's shapes: LayerNorm rows
+# of BERT-base serving (8 x 512 = 4096) and of the GPT-2 step (8 x 1024 =
+# 8192) at 768; the GPT-2 step's (8192, 50257) logits; the flash forward
+# at BERT-base serving's (8, 12, 512, 64) with valid lengths and the GPT-2
+# step's causal (8, 12, 1024, 64) with its lse, the fp32 form at the
+# serving shape, the backward at the GPT-2 step's
+LIB_SERVE = {"batch": 8, "seq": 512}
+LIB_VL = [512, 300, 1, 77, 511, 256, 128, 400]
+# the ops opcheck holds (schema, autograd registration, fake tensors, the
+# AOT dispatch with dynamic shapes), at small shapes
+LIB_OPCHECK_ROWS = 64
+# the 15-op chain of phase_bulk: 5 x (mul, add, tanh) on a GPT-2 step's
+# activations, (8 x 1024, 768) fp32
+BULK_SHAPE = (8192, 768)
+# a launch-bound chain: one token's row of the same step
+BULK_SMALL_SHAPE = (8, 768)
+BULK_TIMED = 20
+# the torch.compile backend of phase_tape_replay's GPT-2 step
+COMPILE_BACKEND = "inductor"
+
+
+def _lib_flash_inputs(dev, g, B, H, T, D, dtype):
+    import torch
+
+    return [(torch.randn(B, H, T, D, device=dev, generator=g) * 0.5).to(
+        dtype) for _ in range(3)]
+
+
+def _planted_fake_op():
+    """A copy of the softmax-xent forward op whose fake gives the lse in
+    bf16 (the kernel writes fp32): what opcheck's fake-tensor test is to
+    catch."""
+    import torch
+    from mxnet_tpu_torch.ops.cuda import IMPLS
+
+    lib = "mxnet_tpu_torch_planted::xent_fwd_wrong_fake"
+    if not hasattr(_planted_fake_op, "op"):
+        @torch.library.custom_op(lib, mutates_args=())
+        def op(x: torch.Tensor, labels: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+            return tuple(IMPLS["softmax_xent_fwd"](x, labels))
+
+        @op.register_fake
+        def _(x, labels):
+            R = x.shape[0]
+            return (x.new_empty((R,), dtype=torch.float32),
+                    x.new_empty((R,), dtype=torch.bfloat16))
+
+        _planted_fake_op.op = op
+    return _planted_fake_op.op
+
+
+def _opcheck(op, args):
+    """opcheck's verdict a test: {test: "SUCCESS" or the error's first
+    line}."""
+    import torch
+
+    got = torch.library.opcheck(op, args, raise_exception=False)
+    return {k: v if v == "SUCCESS" else (str(v).splitlines() or ["?"])[0]
+            for k, v in got.items()}
+
+
+def _lib_compiled_launches(dev, g):
+    """A function of the three differentiable ops (LayerNorm, the causal
+    flash forward with its backward, softmax-xent), eager and through
+    ``torch.compile(fullgraph=True)`` (aot_eager: the graph is traced
+    through the ops' fakes, no graph break, the ops run as they are): the
+    launches of each, their losses and gradients."""
+    import torch
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    from mxnet_tpu_torch.ops.cuda import layernorm as ln
+    from mxnet_tpu_torch.ops.cuda import softmax_xent as sx
+
+    B, H, T, D, V = 2, 4, 256, 64, 1000
+    x0 = torch.randn(B * T, H * D, device=dev, generator=g).to(
+        torch.bfloat16)
+    gamma = torch.randn(H * D, device=dev, generator=g)
+    beta = torch.randn(H * D, device=dev, generator=g)
+    w = (torch.randn(H * D, V, device=dev, generator=g) * 0.05).to(
+        torch.bfloat16)
+    labels = torch.randint(0, V, (B * T,), device=dev, generator=g)
+
+    def f(x):
+        y = ln.layernorm(x, gamma, beta, 1e-5)
+        q = y.reshape(B, T, H, D).transpose(1, 2).contiguous()
+        o = fa.flash_attention_with_grad(q, q, q, causal=True)
+        h = o.transpose(1, 2).reshape(B * T, H * D)
+        return sx.softmax_xent(h @ w, labels).mean()
+
+    runs = {}
+    for name, fn in (("eager", f), ("compiled", torch.compile(
+            f, backend="aot_eager", fullgraph=True))):
+        x = x0.clone().requires_grad_()
+        reset_counters()
+        loss = fn(x)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[name] = {"launches": read_counters(), "loss": loss.detach(),
+                      "grad": x.grad.detach()}
+    return runs
+
+
+def phase_library_ops(dev):
+    """Each kernel entry called as its ``torch.library`` op
+    (``torch.ops.mxnet_tpu_torch``) at this slice's shapes against its
+    plain version; ``torch.library.opcheck`` of every op on the card;
+    eager against ``torch.compile(fullgraph=True)``: the same launches; a
+    planted fake that gives the lse the wrong dtype, which opcheck must
+    catch."""
+    import torch
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    from mxnet_tpu_torch.ops.cuda import layernorm as ln
+    from mxnet_tpu_torch.ops.cuda import softmax_xent as sx
+
+    t_phase = time.perf_counter()
+    ops = torch.ops.mxnet_tpu_torch
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 181)
+    readings = {}
+    for R in (LIB_SERVE["batch"] * LIB_SERVE["seq"],
+              GPT_TRAIN["batch"] * GPT_TRAIN["seq"]):
+        x, gamma, beta = _ln_inputs(dev, g, R, 768, bf16)
+        readings["layernorm_fwd (%d, 768)" % R] = held(
+            ops.layernorm_fwd(x, gamma, beta, 1e-12),
+            ln.layernorm_plain(x, gamma, beta, 1e-12), BF16_TOL,
+            "op layernorm_fwd (%d, 768) bf16" % R)
+    dy = torch.randn(R, 768, device=dev, generator=g).to(bf16)
+    got = ops.layernorm_bwd(x, gamma, dy, 1e-5)
+    ref = ln.layernorm_bwd_plain(x, gamma, dy, 1e-5)
+    mags = layernorm_bwd_magnitudes(x, gamma, dy, 1e-5)
+    for i, (n, tol) in enumerate((("dx", LN_BWD_DX_TOL["bfloat16"]),
+                                  ("dgamma", LN_BWD_PARAM_TOL),
+                                  ("dbeta", LN_BWD_PARAM_TOL))):
+        readings["layernorm_bwd %s" % n] = held(
+            got[i], ref[i], tol, "op layernorm_bwd (%d, 768) %s" % (R, n),
+            mags[i])
+    del x, dy, got, ref, mags
+    R, V = GPT_TRAIN["batch"] * GPT_TRAIN["seq"], GPT_CONFIG["vocab_size"]
+    logits = (torch.randn(R, V, device=dev, generator=g) * 2).to(bf16)
+    labels = torch.randint(0, V, (R,), device=dev, generator=g,
+                           dtype=torch.int64).to(torch.int32)
+    loss, lse = ops.xent_fwd(logits, labels)
+    ref_loss, ref_lse = sx.softmax_xent_fwd_plain(logits, labels)
+    readings["xent_fwd loss"] = held(loss, ref_loss, XENT_TOL,
+                                     "op xent_fwd (%d, %d) loss" % (R, V))
+    readings["xent_fwd lse"] = held(lse, ref_lse, XENT_TOL,
+                                    "op xent_fwd (%d, %d) lse" % (R, V))
+    dyx = torch.rand(R, device=dev, generator=g)
+    readings["xent_bwd"] = held(
+        ops.xent_bwd(logits, labels, lse, dyx),
+        sx.softmax_xent_bwd_plain(logits, labels, lse, dyx),
+        XENT_DX_TOL["bfloat16"], "op xent_bwd (%d, %d) dx" % (R, V))
+    del logits, labels, loss, lse, ref_loss, ref_lse, dyx
+    torch.cuda.empty_cache()
+    B, T = LIB_SERVE["batch"], LIB_SERVE["seq"]
+    vl = torch.tensor(LIB_VL, dtype=torch.int32, device=dev)
+    scale = 1.0 / 8.0
+    q, k, v = _lib_flash_inputs(dev, g, B, 12, T, 64, bf16)
+    out, _ = ops.flash_fwd(q, k, v, vl, scale, False, False)
+    readings["flash_fwd serving"] = held(
+        out, fa.flash_attention_plain(q, k, v, vl, scale, False), FLASH_TOL,
+        "op flash_fwd %s vl" % ((B, 12, T, 64),),
+        flash_magnitude(q, k, v, vl, False, scale))
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    out, _ = ops.flash_fwd_f32(qf, kf, vf, vl, scale, False, False)
+    readings["flash_fwd_f32 serving"] = held(
+        out, fa.flash_attention_plain(qf, kf, vf, vl, scale, False),
+        FLASH_F32_TOL, "op flash_fwd_f32 %s vl" % ((B, 12, T, 64),),
+        flash_magnitude(qf, kf, vf, vl, False, scale))
+    del q, k, v, qf, kf, vf, out
+    B, T = GPT_TRAIN["batch"], GPT_TRAIN["seq"]
+    q, k, v = _lib_flash_inputs(dev, g, B, 12, T, 64, bf16)
+    out, lse = ops.flash_fwd(q, k, v, None, scale, True, True)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, None, scale, True,
+                                            return_lse=True)
+    readings["flash_fwd causal"] = held(
+        out, ref, FLASH_TOL, "op flash_fwd %s causal" % ((B, 12, T, 64),),
+        flash_magnitude(q, k, v, None, True, scale))
+    readings["flash_fwd causal lse"] = held(
+        lse, ref_lse, (LSE_TOL, 0.0, 0.0), "op flash_fwd causal lse")
+    do = torch.randn(B, 12, T, 64, device=dev, generator=g).to(bf16)
+    delta = (out.float() * do.float()).sum(dim=-1)
+    got = ops.flash_bwd(q, k, v, do, lse, delta, None, scale, True)
+    args = (q, k, v, do, lse, delta)
+    ref = fa.flash_attention_bwd_plain(*args, None, scale, True)
+    mags = flash_bwd_magnitudes(*args, vl=None, causal=True)
+    for i, n in enumerate(("dq", "dk", "dv")):
+        readings["flash_bwd %s" % n] = held(
+            got[i], ref[i], FLASH_BWD_TOL, "op flash_bwd %s causal %s"
+            % ((B, 12, T, 64), n), mags[i])
+    del q, k, v, do, out, lse, delta, got, ref, mags, args
+    torch.cuda.empty_cache()
+    # opcheck: every op, small shapes, its differentiable inputs requiring
+    # grad
+    t0 = time.perf_counter()
+    n = LIB_OPCHECK_ROWS
+    x, gamma, beta = _ln_inputs(dev, g, n, 768, bf16)
+    xg = x.clone().requires_grad_()
+    lg = (torch.randn(n, 1000, device=dev, generator=g)).to(bf16)
+    lab = torch.randint(0, 1000, (n,), device=dev, generator=g).to(
+        torch.int32)
+    _, lse = sx.softmax_xent_fwd(lg, lab)
+    q, k, v = _lib_flash_inputs(dev, g, 2, 4, 256, 64, bf16)
+    vl2 = torch.tensor([256, 100], dtype=torch.int32, device=dev)
+    o, flse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    do = torch.randn_like(q)
+    delta = (o.float() * do.float()).sum(dim=-1)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    cases = {
+        "layernorm_fwd": (ln._layernorm_fwd_op, (xg, gamma, beta, 1e-5)),
+        "layernorm_bwd": (ln._layernorm_bwd_op,
+                          (x, gamma, torch.randn_like(x), 1e-5)),
+        "xent_fwd": (sx._xent_fwd_op, (lg.clone().requires_grad_(), lab)),
+        "xent_bwd": (sx._xent_bwd_op, (lg, lab, lse, torch.rand(
+            n, device=dev, generator=g))),
+        "flash_fwd": (fa._flash_fwd_op, (qg, kg, vg, vl2, 0.125, False,
+                                         True)),
+        "flash_fwd_f32": (fa._flash_fwd_f32_op, (
+            q.float(), k.float(), v.float(), vl2, 0.125, True, True)),
+        "flash_bwd": (fa._flash_bwd_op, (q, k, v, do, flse, delta, None,
+                                         0.125, True))}
+    opcheck = {name: _opcheck(op, args) for name, (op, args) in
+               cases.items()}
+    planted = _opcheck(_planted_fake_op(), (lg, lab))
+    opcheck_s = time.perf_counter() - t0
+    compiled = _lib_compiled_launches(dev, g)
+    e, c = compiled["eager"], compiled["compiled"]
+    out = {"card": card_line(), "held": readings, "opcheck": opcheck,
+           "planted_wrong_fake_dtype": planted, "opcheck_seconds": opcheck_s,
+           "launches_eager": e["launches"],
+           "launches_compiled": c["launches"],
+           "compiled_loss_err": max_err(c["loss"], e["loss"]),
+           "compiled_grad_err": max_err(c["grad"], e["grad"]),
+           "phase_seconds": time.perf_counter() - t_phase}
+    print("library ops: opcheck %s (%.1f s); planted fake with a bf16 lse: "
+          "%s; launches eager %s, under torch.compile(fullgraph=True) %s; "
+          "compiled against eager: loss %.3g, grad %.3g; %.1f s, %s" % (
+              {k: all(r == "SUCCESS" for r in v.values())
+               for k, v in opcheck.items()}, opcheck_s, planted,
+              e["launches"], c["launches"], out["compiled_loss_err"],
+              out["compiled_grad_err"], out["phase_seconds"], out["card"]),
+          flush=True)
+    for name, res in opcheck.items():
+        check(all(r == "SUCCESS" for r in res.values()),
+              "opcheck of the %s op: %s" % (name, res))
+    check(planted.get("test_faketensor", "SUCCESS") != "SUCCESS",
+          "opcheck passed a fake that gives the lse in bf16: %s" % planted)
+    check(e["launches"] == c["launches"] and all(
+        e["launches"][k] == 1 for k in (
+            "layernorm", "layernorm_bwd", "flash_attention_fwd",
+            "flash_attention_bwd", "softmax_xent_fwd", "softmax_xent_bwd")),
+        "library ops: launches eager %s, compiled %s" % (e["launches"],
+                                                          c["launches"]))
+    check(torch.equal(c["loss"], e["loss"]) and bool(
+        torch.isfinite(c["grad"]).all()), "library ops: the compiled loss "
+          "is not the eager one")
+    return out
+
+
+def _bulk_chain(x, a, s1=0.5):
+    y = x
+    for _ in range(5):
+        y = y * a
+        y = y + s1
+        y = y.tanh()
+    return y
+
+
+def phase_bulk(dev):
+    """A.13's bulk window on the card: a 15-op ``nd`` elementwise chain at
+    a GPT-2 step's activation size runs as one program (one CUDA graph of
+    15 kernels: one dispatch, one build), equal to the same chain op by op
+    (``bulk(0)``) bit for bit; run again it builds nothing, and with new
+    scalars neither; the host wall of the chain both ways and the build's
+    wall are readings, at BULK_SMALL_SHAPE (launch-bound) too: they decide
+    the window's default (``engine.DEFAULT_BULK_SIZE``, ROADMAP.md C.2)."""
+    import torch
+    from mxnet_tpu_torch import engine, nd
+    from mxnet_tpu_torch.context import context_from_device
+
+    ctx = context_from_device(dev)
+    rng = np.random.default_rng(SEED + 191)
+    x = nd.array(rng.normal(size=BULK_SHAPE).astype(np.float32), ctx=ctx)
+    a = nd.array(rng.uniform(0.5, 1.5, BULK_SHAPE).astype(np.float32),
+                 ctx=ctx)
+    with engine.bulk(0):
+        engine.dispatch_counter.reset()
+        ref = _bulk_chain(x, a)._data
+        ref2 = _bulk_chain(x, a, 0.25)._data
+        eager_dispatches = engine.dispatch_counter.count
+    torch.cuda.synchronize()
+    with engine.bulk(15):
+        engine.dispatch_counter.reset()
+        engine.bulk_compile_counter.reset()
+        t0 = time.perf_counter()
+        y = _bulk_chain(x, a)
+        got = y._data
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        first = (engine.dispatch_counter.count,
+                 engine.bulk_compile_counter.count)
+        engine.dispatch_counter.reset()
+        engine.bulk_compile_counter.reset()
+        again = _bulk_chain(x, a)._data
+        other = _bulk_chain(x, a, 0.25)._data
+        steady = (engine.dispatch_counter.count,
+                  engine.bulk_compile_counter.count)
+    walls = {}
+    small = [nd.array(rng.uniform(0.5, 1.5, BULK_SMALL_SHAPE).astype(
+        np.float32), ctx=ctx) for _ in range(2)]
+    for tag, (u, w) in (("", (x, a)), ("small_", small)):
+        for size in (0, 15):
+            with engine.bulk(size):
+                _bulk_chain(u, w).wait_to_read()  # the build, untimed
+                ts = []
+                for _ in range(BULK_TIMED):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _bulk_chain(u, w).wait_to_read()
+                    ts.append((time.perf_counter() - t0) * 1e3)
+                walls["%sbulk_%d" % (tag, size)] = float(np.median(ts))
+    out = {"card": card_line(), "shape": list(BULK_SHAPE),
+           "eager_dispatches_two_chains": eager_dispatches,
+           "first_chain": {"dispatches": first[0], "builds": first[1],
+                           "wall_ms_with_build": build_ms},
+           "two_more_chains": {"dispatches": steady[0], "builds": steady[1]},
+           "bitwise": bool(torch.equal(got, ref)),
+           "again_bitwise": bool(torch.equal(again, ref)),
+           "new_scalar_bitwise": bool(torch.equal(other, ref2)),
+           "host_wall_ms_median": walls}
+    print("bulk: a 15-op chain at %s: first run %d dispatch, %d build "
+          "(%.2f ms with the build); two more (one with new scalars) %d "
+          "dispatches, %d builds; bit for bit the op-by-op chain %s, %s, "
+          "%s; host wall a chain (median of %d) op by op %.3f ms, one "
+          "program %.3f ms; at %s op by op %.3f ms, one program %.3f ms; "
+          "%s" % (
+              BULK_SHAPE, first[0], first[1], build_ms, steady[0],
+              steady[1], out["bitwise"], out["again_bitwise"],
+              out["new_scalar_bitwise"], BULK_TIMED, walls["bulk_0"],
+              walls["bulk_15"], BULK_SMALL_SHAPE, walls["small_bulk_0"],
+              walls["small_bulk_15"], out["card"]), flush=True)
+    check(eager_dispatches == 30, "bulk(0): %d dispatches for two 15-op "
+          "chains" % eager_dispatches)
+    check(first == (1, 1) and steady == (2, 0),
+          "bulk: dispatches and builds %s then %s" % (first, steady))
+    check(out["bitwise"] and out["again_bitwise"]
+          and out["new_scalar_bitwise"], "bulk: the one-program chain is "
+          "not the op-by-op chain")
+    return out
+
+
+def _grads_of(params):
+    return [p._tensor().grad.detach().clone() for p in params]
+
+
+def _tape_run(step, steps, compiled):
+    """``steps`` NDArray steps (``_nd_step``) with the tape replay on or
+    off, the generator seeded a step as phase_nd_train seeds it: per step
+    the loss, the launches, the tape counters and the host wall; the first
+    step's gradients."""
+    import torch
+    from mxnet_tpu_torch import autograd, engine, nd
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.context import context_from_device
+
+    ctx = context_from_device(step.inp.device)
+    prev = autograd.set_tape_compile(compiled)
+    rows, grads = [], None
+    try:
+        for i in range(steps):
+            mx_random.seed(SEED + i)
+            for c in (engine.tape_compile_counter,
+                      engine.tape_cache_hit_counter,
+                      engine.tape_eager_counter):
+                c.reset()
+            torch.cuda.synchronize()
+            reset_counters()
+            t0 = time.perf_counter()
+            loss, mean = _nd_step(nd, step, ctx)
+            torch.cuda.synchronize()
+            rows.append({
+                "loss": loss._data.detach(), "mean": mean,
+                "launches": read_counters(),
+                "tape": {"compile": engine.tape_compile_counter.count,
+                         "hit": engine.tape_cache_hit_counter.count,
+                         "eager": engine.tape_eager_counter.count},
+                "host_wall_ms": (time.perf_counter() - t0) * 1e3})
+            if i == 0:
+                grads = _grads_of(step.params)
+    finally:
+        autograd.set_tape_compile(prev)
+    return rows, grads
+
+
+def _compiled_gpt_step(dev):
+    """GPT-2 small's forward and loss through ``torch.compile(fullgraph=
+    True)`` (``COMPILE_BACKEND``) and its backward, against the same eager:
+    launches, loss, gradients, the compile's wall. Dropout 0: its masks
+    come from a ``torch.Generator``, which torch.compile does not
+    trace."""
+    import torch
+    from mxnet_tpu_torch import amp, autograd, gluon
+    from mxnet_tpu_torch.models.gpt import GPTModel
+
+    model = GPTModel(dropout=0.0, **GPT_CONFIG)
+    model.initialize(device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(SEED))
+    amp.convert_hybrid_block(model, "bfloat16")
+    params = list(model.collect_params().values())
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    B, T = GPT_TRAIN["batch"], GPT_TRAIN["seq"]
+    seq = np.random.default_rng(SEED).integers(
+        0, GPT_CONFIG["vocab_size"], (B, T + 1)).astype(np.int32)
+    inp = torch.from_numpy(np.ascontiguousarray(seq[:, :T])).to(dev)
+    tgt = torch.from_numpy(np.ascontiguousarray(seq[:, 1:])).to(dev)
+
+    def f(x, y):
+        return loss_fn(model(x), y)
+
+    out = {}
+    for name, fn in (("eager", f), ("compiled", torch.compile(
+            f, backend=COMPILE_BACKEND, fullgraph=True))):
+        for p in params:
+            p.zero_grad()
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        with autograd.record():
+            loss = fn(inp, tgt)
+        autograd.backward(loss)
+        torch.cuda.synchronize()
+        out[name] = {"launches": read_counters(), "loss": loss.detach(),
+                     "grads": _grads_of(params),
+                     "first_call_s": time.perf_counter() - t0}
+    e, c = out["eager"], out["compiled"]
+    reading = {"launches_eager": e["launches"],
+               "launches_compiled": c["launches"],
+               "loss_rel_err": float((c["loss"].mean() - e["loss"].mean())
+                                     .abs() / e["loss"].mean().abs()),
+               "worst_grad_rel_l2": grad_rel_l2(params, c["grads"],
+                                                e["grads"])[0][0],
+               "worst_row_rel_l2": grad_row_rel_l2(params, c["grads"],
+                                                   e["grads"])[0][0],
+               "compile_and_first_step_s": c["first_call_s"],
+               "eager_first_step_s": e["first_call_s"]}
+    del model, out
+    torch.cuda.empty_cache()
+    return reading
+
+
+def phase_tape_replay(dev):
+    """A.13's compiled tape replay on the NDArray GPT-2 step
+    (phase_nd_train's recipe: 8 x 1024, bf16, dropout 0.1, Adam): three
+    steps with ``set_tape_compile(True)`` against three with the eager
+    walk from the same state and seeds: the first loss bit for bit, the
+    first step's gradients within GPT-2's limits, ``GPT_STEP_LAUNCHES``
+    every step both ways, one tape build and then hits only; the first
+    backward's build time and the host walls are readings. Then GPT-2
+    small's forward and backward through ``torch.compile(fullgraph=True)``:
+    no graph break at a kernel op, the eager launches, the loss within
+    1e-2 of eager and the gradients within GPT-2's limits of eager's (on
+    torch 2.11 they hold only because no port Function returns a tensor an
+    op handed back as it was: ``base.cast_out``)."""
+    import torch
+    from mxnet_tpu_torch import autograd
+
+    t_phase = time.perf_counter()
+    backend = autograd.TAPE_BACKEND
+    eager = GPTTrainStep(dev)
+    seq = np.random.default_rng(SEED).integers(
+        0, GPT_CONFIG["vocab_size"],
+        (GPT_TRAIN["batch"], GPT_TRAIN["seq"] + 1)).astype(np.int32)
+    for s in (eager,):
+        s.inp_np = np.ascontiguousarray(seq[:, :-1])
+        s.tgt_np = np.ascontiguousarray(seq[:, 1:])
+    e_rows, e_grads = _tape_run(eager, GPT_TRAIN_STEPS, False)
+    del eager
+    torch.cuda.empty_cache()
+    replay = GPTTrainStep(dev)
+    replay.inp_np, replay.tgt_np = (np.ascontiguousarray(seq[:, :-1]),
+                                    np.ascontiguousarray(seq[:, 1:]))
+    r_rows, r_grads = _tape_run(replay, GPT_TRAIN_STEPS, True)
+    grads = _grad_reading(replay, r_grads, e_grads)
+    del r_grads, e_grads, replay
+    torch.cuda.empty_cache()
+    first = bool(torch.equal(r_rows[0]["loss"], e_rows[0]["loss"]))
+    compiled = _compiled_gpt_step(dev)
+    out = {"card": card_line(), "backend": backend,
+           "first_loss_bitwise": first, "grads": grads,
+           "losses": [r["mean"] for r in r_rows],
+           "eager_losses": [r["mean"] for r in e_rows],
+           "launches": [r["launches"] for r in r_rows],
+           "eager_launches": [r["launches"] for r in e_rows],
+           "tape": [r["tape"] for r in r_rows],
+           "eager_tape": [r["tape"] for r in e_rows],
+           "host_wall_ms": [r["host_wall_ms"] for r in r_rows],
+           "eager_host_wall_ms": [r["host_wall_ms"] for r in e_rows],
+           "torch_compile_step": compiled,
+           "phase_seconds": None}
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    print("tape replay (%s): NDArray GPT-2 step losses %s (eager walk %s), "
+          "first bit for bit %s; first step's gradients vs the eager walk: "
+          "worst %.3g, worst row %.3g (limits %g, %g); tape counters a step "
+          "%s (eager walk %s); host wall a step %s ms (eager walk %s ms, "
+          "the first with the build); launches a step %s" % (
+              backend, ["%.5f" % x for x in out["losses"]],
+              ["%.5f" % x for x in out["eager_losses"]], first,
+              grads["worst_grad_rel_l2"], grads["worst_row_rel_l2"],
+              GPT_STEP_GRAD_TOL, GPT_STEP_ROW_TOL, out["tape"],
+              out["eager_tape"], ["%.1f" % w for w in out["host_wall_ms"]],
+              ["%.1f" % w for w in out["eager_host_wall_ms"]],
+              out["launches"][0]), flush=True)
+    print("torch.compile(fullgraph=True) GPT-2 small forward and backward "
+          "(dropout 0): launches %s (eager %s); loss relative %.3g, worst "
+          "gradient %.3g, worst row %.3g against eager; compile and first "
+          "step %.1f s (eager first step %.1f s); phase %.1f s; %s" % (
+              compiled["launches_compiled"], compiled["launches_eager"],
+              compiled["loss_rel_err"], compiled["worst_grad_rel_l2"],
+              compiled["worst_row_rel_l2"],
+              compiled["compile_and_first_step_s"],
+              compiled["eager_first_step_s"], out["phase_seconds"],
+              out["card"]), flush=True)
+    check(first, "tape replay: the first loss is not the eager walk's")
+    check(grads["within"], "tape replay: the first step's gradients "
+          "outside GPT-2's limits: %s" % grads)
+    for i, (got, want) in enumerate(zip(out["launches"],
+                                        out["eager_launches"])):
+        for name, n in GPT_STEP_LAUNCHES.items():
+            check(got[name] == n and want[name] == n,
+                  "tape replay step %d: %s launches %d (eager walk %d) != %d"
+                  % (i, name, got[name], want[name], n))
+    check(out["tape"][0] == {"compile": 1, "hit": 0, "eager": 0} and all(
+        t == {"compile": 0, "hit": 1, "eager": 0} for t in out["tape"][1:]),
+        "tape replay: counters %s" % out["tape"])
+    check(all(t == {"compile": 0, "hit": 0, "eager": 1}
+              for t in out["eager_tape"]),
+          "tape replay off: counters %s" % out["eager_tape"])
+    check(compiled["launches_compiled"] == compiled["launches_eager"] and
+          all(compiled["launches_eager"][k] == n
+              for k, n in GPT_STEP_LAUNCHES.items()),
+          "torch.compile GPT-2 step: launches %s, eager %s" % (
+              compiled["launches_compiled"], compiled["launches_eager"]))
+    check(compiled["loss_rel_err"] <= STEP_LOSS_TOL,
+          "torch.compile GPT-2 step's loss against eager: %s" % compiled)
+    check(compiled["worst_grad_rel_l2"] <= GPT_STEP_GRAD_TOL
+          and compiled["worst_row_rel_l2"] <= GPT_STEP_ROW_TOL,
+          "torch.compile GPT-2 step's gradients against eager: %s"
+          % compiled)
+    return out
+
+
+# path (a): BERT-base served from its export layout, one bucket of the
+# export batch (the graph bakes the batch into its reshapes: ROADMAP.md C.2)
+SYMBOL_SERVE_BATCH = 8
+SYMBOL_INPUTS = ["data", "token_types", "valid_length"]
+
+
+def _export_dir(name):
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "_work", "symbol_%s" % name)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    return path
+
+
+def _drop_export(prefix):
+    for suffix in ("-symbol.json", "-0000.params"):
+        if os.path.exists(prefix + suffix):
+            os.remove(prefix + suffix)
+
+
+def _export_served_rows(srv, tok, tt, vl):
+    """The server's outputs for every request, in groups of the bucket."""
+    B = SYMBOL_SERVE_BATCH
+    outs = []
+    for a in range(0, len(tok), B):
+        outs.append(srv.predict(tok[a:a + B], tt[a:a + B], vl[a:a + B]))
+    return [np.concatenate([o[i] for o in outs]) for i in range(len(outs[0]))]
+
+
+def phase_symbol_serve(dev):
+    """Path (a): BERT-base (bf16, seeded) through
+    ``checkpoint.save_for_serving`` at input shapes (8, 512) and
+    ``serve.load`` into a ``SymbolBlock``, served by a ``ModelServer`` with
+    one bucket of 8: one capture at warmup and none in traffic, 25
+    LayerNorm and 12 flash forward launches a forward, its rows equal to
+    the Gluon model's server's on the same padded batches; a load with one
+    weight perturbed (planted) gives rows the comparison catches."""
+    import torch
+    from mxnet_tpu_torch import amp, checkpoint, serve
+    from mxnet_tpu_torch.models.bert import bert_base
+    from mxnet_tpu_torch.serve import ModelServer
+
+    t_phase = time.perf_counter()
+    B = SYMBOL_SERVE_BATCH
+    model = bert_base(dropout=0.1, max_length=SEQ)
+    model.initialize(device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(SEED))
+    amp.convert_hybrid_block(model, "bfloat16")
+    layers = len(model.encoder.cells)
+    prefix = _export_dir("bert")
+    t0 = time.perf_counter()
+    sym_file, params_file = checkpoint.save_for_serving(
+        prefix, model, input_names=SYMBOL_INPUTS,
+        input_shapes=[(B, SEQ), (B, SEQ), (B,)])
+    export_s = time.perf_counter() - t0
+    with open(sym_file) as f:
+        nodes = json.load(f)["nodes"]
+    ops = {}
+    for n in nodes:
+        ops[n["op"]] = ops.get(n["op"], 0) + 1
+    t0 = time.perf_counter()
+    blk = serve.load(prefix, input_names=SYMBOL_INPUTS, ctx=dev)
+    dtypes = sorted({str(p._tensor().dtype)[6:]
+                     for p in blk.collect_params().values()})
+    specs = [((SEQ,), "int32"), ((SEQ,), "int32"), ((), "int32")]
+    srv = ModelServer(blk, specs, buckets=(B,), timeout_ms=120000.0,
+                      device=dev, name="symbol-bert")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    warm = srv.stats()
+    ref_srv = ModelServer(model, specs, buckets=(B,), timeout_ms=120000.0,
+                          device=dev, name="gluon-bert")
+    tok, tt, vl = _bert_requests()
+    reset_counters()
+    t0 = time.perf_counter()
+    got = _export_served_rows(srv, tok, tt, vl)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = read_counters()
+    stats = srv.stats()
+    forwards = len(tok) // B
+    t0 = time.perf_counter()
+    ref = _export_served_rows(ref_srv, tok, tt, vl)
+    ref_wall = (time.perf_counter() - t0) * 1e3
+    equal = all(np.array_equal(a, b) for a, b in zip(got, ref))
+    worst = max(float(np.abs(a.astype(np.float32) - b.astype(np.float32))
+                      .max()) for a, b in zip(got, ref))
+    # planted: the export loaded again with one weight perturbed
+    bad = serve.load(prefix, input_names=SYMBOL_INPUTS, ctx=dev)
+    last = "layer%d_bertpositionwiseffn0_ffn_2_bias" % (layers - 1)
+    p = bad.collect_params()[[n for n in bad.collect_params().keys()
+                              if n.endswith(last)][0]]
+    p.copy_data(p._tensor().detach() + 0.01)
+    bad_srv = ModelServer(bad, specs, buckets=(B,), timeout_ms=120000.0,
+                          device=dev, name="symbol-bert-planted")
+    planted = _export_served_rows(bad_srv, tok[:B], tt[:B], vl[:B])
+    planted_equal = all(np.array_equal(a, b[:B]) for a, b in zip(planted,
+                                                                 ref))
+    for s in (srv, ref_srv, bad_srv):
+        s.stop()
+    del srv, ref_srv, bad_srv, blk, bad, model
+    _drop_export(prefix)
+    torch.cuda.empty_cache()
+    out = {"card": card_line(), "graph_ops": ops, "param_dtypes": dtypes,
+           "export_s": export_s, "load_and_warmup_s": load_s,
+           "warm": {k: warm[k] for k in ("captures", "replays", "drops")},
+           "stats": {k: stats[k] for k in ("captures", "replays", "drops")},
+           "launches": launches, "forwards": forwards,
+           "rows_equal_gluon_server": equal, "max_abs_vs_gluon": worst,
+           "served_wall_ms": wall, "gluon_served_wall_ms": ref_wall,
+           "planted_rows_equal": planted_equal,
+           "phase_seconds": time.perf_counter() - t_phase}
+    print("symbol serve: BERT-base exported at (%d, %d) (%.1f s; graph %s), "
+          "loaded as a SymbolBlock (parameters %s) and warmed in %.1f s: "
+          "server %s after warmup, %s after %d forwards; launches %s; rows "
+          "equal to the Gluon server's %s (max |diff| %.3g); %d requests in "
+          "%.1f ms (Gluon server %.1f ms); one weight perturbed, rows equal "
+          "%s; %.1f s, %s" % (
+              B, SEQ, export_s, ops, dtypes, load_s, out["warm"],
+              out["stats"], forwards, launches, equal, worst, len(tok), wall,
+              ref_wall, planted_equal, out["phase_seconds"], out["card"]),
+          flush=True)
+    check(ops.get("LayerNorm") == 2 * layers + 1 and
+          ops.get("scaled_dot_attention") == layers,
+          "symbol serve: the exported graph's ops %s" % ops)
+    check("bfloat16" in dtypes, "symbol serve: the export reloaded as %s"
+          % dtypes)
+    check(warm["captures"] == 1 and stats["captures"] == 1 and
+          stats["drops"] == 0 and stats["replays"] == warm["replays"]
+          + forwards, "symbol serve: captures %s then %s" % (warm, stats))
+    check(launches["layernorm"] == (2 * layers + 1) * forwards and
+          launches["flash_attention_fwd"] == layers * forwards and
+          sum(launches.values()) == (3 * layers + 1) * forwards,
+          "symbol serve: launches %s in %d forwards" % (launches, forwards))
+    check(equal, "symbol serve: rows differ from the Gluon model's server "
+          "(max %.3g)" % worst)
+    check(not planted_equal, "symbol serve: a perturbed weight left the "
+          "rows equal")
+    return out
+
+
+def xent_dx_last_cols_dropped(x, labels, lse, dy):
+    """A planted fault: the plain softmax-xent backward with the last 8
+    columns of every row left at 0."""
+    from mxnet_tpu_torch.ops.cuda import softmax_xent as sx
+
+    dx = sx.softmax_xent_bwd_plain(x, labels, lse, dy)
+    dx[:, -8:] = 0
+    return dx
+
+
+def _symbol_loss(sym_file):
+    from mxnet_tpu_torch import sym, symbol
+
+    logits = symbol.load(sym_file)
+    label = sym.var("label")
+    return sym.mean(sym.softmax_xent_rows(logits, label))
+
+
+def _symbol_step(ex, inp, tgt):
+    """One executor step: forward with training, backward; returns the
+    loss and the launches."""
+    from mxnet_tpu_torch import nd
+
+    reset_counters()
+    loss = ex.forward(is_train=True, data=nd.NDArray(inp),
+                      label=nd.NDArray(tgt))[0]
+    ex.backward()
+    loss = loss._data.detach().clone()
+    return loss, read_counters()
+
+
+def phase_symbol_train(dev):
+    """Path (b): GPT-2 small (GPT_TRAIN's recipe, bf16, dropout 0.1)
+    exported at (8, 1024), a loss ``mean(softmax_xent_rows(logits,
+    label))`` built in ``sym``, ``simple_bind(grad_req='write')``, the
+    model's parameters copied in, and three steps of ``forward(is_train=
+    True)``, ``backward()`` and an SGD update on the captured executor:
+    25 + 25 LayerNorm, 12 + 12 flash and 1 + 1 softmax-xent launches a
+    step, one forward and one backward capture and no recapture; the first
+    loss against the same loss through the Gluon model eagerly (same
+    generator seed) and the first step's gradients within GPT-2's limits of
+    its; the xent dx without its last 8 columns (planted, the plain
+    versions) read beyond the worst-row limit."""
+    import torch
+    from mxnet_tpu_torch import autograd, checkpoint
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.ops import F
+    from mxnet_tpu_torch.util import load_npz_exact
+
+    t_phase = time.perf_counter()
+    step = GPTTrainStep(dev)
+    model, params = step.model, step.params
+    B, T = GPT_TRAIN["batch"], GPT_TRAIN["seq"]
+    prefix = _export_dir("gpt2")
+    t0 = time.perf_counter()
+    sym_file, params_file = checkpoint.save_for_serving(
+        prefix, model, input_shapes=[(B, T)])
+    export_s = time.perf_counter() - t0
+    # the Gluon model's loss and gradients, eagerly
+    mx_random.seed(SEED)
+    for p in params:
+        p.zero_grad()
+    with autograd.record():
+        ref_loss = F.mean(F.softmax_xent_rows(model(step.inp), step.tgt))
+    autograd.backward(ref_loss)
+    ref_grads = _grads_of(params)
+    ref_loss = ref_loss.detach()
+    loss_sym = _symbol_loss(sym_file)
+    weights = load_npz_exact(params_file)
+    t0 = time.perf_counter()
+    ex = loss_sym.simple_bind(ctx=dev, grad_req="write", data=(B, T),
+                              label=(B, T))
+    ex.copy_params_from({n: w.to(dev) for n, w in weights.items()
+                         if n in ex.arg_dict})
+    bind_s = time.perf_counter() - t0
+    mx_random.seed(SEED)
+    t0 = time.perf_counter()
+    rows = []
+    for i in range(GPT_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss, launches = _symbol_step(ex, step.inp, step.tgt)
+        torch.cuda.synchronize()
+        rows.append({"loss": loss, "launches": launches,
+                     "wall_ms": (time.perf_counter() - t1) * 1e3})
+        if i == 0:
+            grads = [ex.grad_dict[p.name]._data.detach().clone()
+                     for p in params]
+        with torch.no_grad():  # SGD on the executor's arguments
+            for p in params:
+                w = ex.arg_dict[p.name]._data
+                w.sub_((1e-3 * ex.grad_dict[p.name]._data).to(w.dtype))
+    steps_s = time.perf_counter() - t0
+    stats = dict(ex.stats)
+    grad_reading = _grad_reading(step, grads, ref_grads)
+    loss_err = float((rows[0]["loss"] - ref_loss).abs())
+    first_bitwise = bool(torch.equal(rows[0]["loss"], ref_loss))
+    del grads, ex
+    torch.cuda.empty_cache()
+    # planted: a fresh executor on the plain versions, the xent dx without
+    # its last 8 columns
+    ex2 = loss_sym.simple_bind(ctx=dev, grad_req="write", data=(B, T),
+                               label=(B, T))
+    ex2.copy_params_from({n: w.to(dev) for n, w in weights.items()
+                          if n in ex2.arg_dict})
+    mx_random.seed(SEED)
+    with plain_versions(softmax_xent_bwd=xent_dx_last_cols_dropped):
+        _symbol_step(ex2, step.inp, step.tgt)
+    planted = _grad_reading(step, [ex2.grad_dict[p.name]._data
+                                   for p in params], ref_grads)
+    del ex2, ref_grads, step, model, weights
+    _drop_export(prefix)
+    torch.cuda.empty_cache()
+    out = {"card": card_line(), "export_s": export_s, "bind_s": bind_s,
+           "losses": [float(r["loss"]) for r in rows],
+           "gluon_loss": float(ref_loss), "first_loss_abs_err": loss_err,
+           "first_loss_bitwise": first_bitwise, "grads": grad_reading,
+           "launches": [r["launches"] for r in rows],
+           "step_wall_ms": [r["wall_ms"] for r in rows],
+           "steps_s": steps_s, "stats": stats,
+           "planted_xent_dx_last_8_cols": planted,
+           "phase_seconds": time.perf_counter() - t_phase}
+    print("symbol train: GPT-2 small exported at (%d, %d) (%.1f s), bound "
+          "with the loss in %.1f s; losses %s (the Gluon model's first %.6f, "
+          "|diff| %.3g, bit for bit %s); first step's gradients vs the "
+          "Gluon model's: worst %.3g, worst row %.3g (limits %g, %g); "
+          "executor %s; step walls %s ms (the first with the captures); "
+          "launches a step %s; planted xent dx without its last 8 columns: "
+          "worst %.3g, worst row %.3g; %.1f s, %s" % (
+              B, T, export_s, bind_s, ["%.5f" % x for x in out["losses"]],
+              out["gluon_loss"], loss_err, first_bitwise,
+              grad_reading["worst_grad_rel_l2"],
+              grad_reading["worst_row_rel_l2"], GPT_STEP_GRAD_TOL,
+              GPT_STEP_ROW_TOL, stats, ["%.1f" % w for w in
+                                        out["step_wall_ms"]],
+              out["launches"][0], planted["worst_grad_rel_l2"],
+              planted["worst_row_rel_l2"], out["phase_seconds"],
+              out["card"]), flush=True)
+    L = GPT_CONFIG["num_layers"]
+    want = {"layernorm": 2 * L + 1, "layernorm_bwd": 2 * L + 1,
+            "flash_attention_fwd": L, "flash_attention_bwd": L,
+            "softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
+            "flash_attention_fwd_f32": 0}
+    for i, got in enumerate(out["launches"]):
+        check(got == want, "symbol train step %d: launches %s" % (i, got))
+    check(all(np.isfinite(out["losses"])), "symbol train: a loss is not "
+          "finite")
+    check(loss_err <= STEP_LOSS_TOL, "symbol train: the first loss %.6f "
+          "against the Gluon model's %.6f" % (out["losses"][0],
+                                              out["gluon_loss"]))
+    check(grad_reading["within"], "symbol train: the first step's gradients "
+          "outside GPT-2's limits: %s" % grad_reading)
+    check(stats == {"forward_captures": 1, "backward_captures": 1,
+                    "forward_replays": GPT_TRAIN_STEPS,
+                    "backward_replays": GPT_TRAIN_STEPS, "recaptures": 0},
+          "symbol train: executor %s" % stats)
+    check(planted["worst_row_rel_l2"] > GPT_STEP_ROW_TOL,
+          "symbol train: the planted xent fault read within the limits: %s"
+          % planted)
+    return out
+
+
 def card_line():
     """The card's name and power limit, as ``nvidia-smi --query-gpu=
     name,power.limit --format=csv,noheader`` gives them."""
@@ -10180,6 +11044,18 @@ def main():
         model_parallel = phase_model_parallel(dev)
         tp_compute = phase_tp_compute(dev)
         hybridize = phase_hybridize(dev)
+        symbolic = {}
+        for name, phase in (("library_ops", phase_library_ops),
+                            ("bulk", phase_bulk),
+                            ("tape_replay", phase_tape_replay),
+                            ("symbol_serve", phase_symbol_serve),
+                            ("symbol_train", phase_symbol_train)):
+            t0 = time.perf_counter()
+            symbolic[name] = phase(dev)
+            symbolic[name]["phase_seconds"] = time.perf_counter() - t0
+        print("A.13/A.14 phases: %s s" % {
+            k: round(v["phase_seconds"], 1) for k, v in symbolic.items()},
+            flush=True)
         records, crossover = phase_timing(
             dev, train["launches"], train["steps_counted"], errs,
             serve_launches, forwards, serve_vl)
@@ -10237,6 +11113,7 @@ def main():
                       "convert": converted, "dist_train": dist_train,
                       "model_parallel": model_parallel,
                       "tp_compute": tp_compute, "hybridize": hybridize,
+                      "symbolic": symbolic,
                       "decode_step_graphs": graphs, "quantized": quant,
                       "speculative": spec, "chunked_prefill": chunked,
                       "attention_dense_vs_flash": crossover,

@@ -19,7 +19,10 @@ model over ``gluon.rnn``, SSD-512 with the multibox detection ops, and
 the Transformer NMT model with ``translate``, trains data-parallel
 (``kvstore``, ``dist``, ``parallel``) and model-parallel (``parallel``:
 tensor, ring and Ulysses sequence, pipeline and expert parallelism) over
-``torch.distributed``. Entry points run on the
+``torch.distributed``. It has MXNet's symbolic API (``sym``, ``symbol``,
+``Executor``, ``HybridBlock.export`` and ``SymbolBlock``, serving from the
+export layout) and the engine's bulk window and compiled tape replay
+(``engine``, ``autograd.set_tape_compile``). Entry points run on the
 current CUDA device unless the caller passes ``device="cpu"`` (or
 ``ctx=mx.cpu()``, or enters ``with mx.cpu():``). The package imports
 neither JAX nor anything of ``mxnet_tpu``.
@@ -33,5 +36,9 @@ from . import init  # noqa: F401
 from . import checkpoint, quantization, quant  # noqa: F401
 from . import ndarray, nd, linalg, test_utils  # noqa: F401
 from . import kvstore, dist, parallel  # noqa: F401
+from . import engine, name, attribute, symbol, sym, sym_contrib  # noqa: F401
+from . import executor, visualization  # noqa: F401
+from . import visualization as viz  # noqa: F401
+from .attribute import AttrScope  # noqa: F401
 from .context import Context, current_context  # noqa: F401
 from .ndarray import NDArray, waitall  # noqa: F401

@@ -21,18 +21,45 @@ returns gradients without storing them, and with ``create_graph=True``
 records their computation for a higher order. The state is per thread, as
 in the JAX package.
 
-Not here: the compiled tape replay of the JAX package
-(``set_tape_compile``; ``ROADMAP.md`` A.13) and ``get_symbol`` (A.14).
+The compiled tape replay (the JAX package's ``set_tape_compile``,
+``MXNET_TAPE_COMPILE``): the port's tape is torch's autograd graph, and its
+counterpart of the JAX ``tape_jitted`` program is torch's compiled
+autograd. With the replay on, a backward on a CUDA device runs under
+``torch._dynamo.compiled_autograd`` with
+``torch.compile(backend=TAPE_BACKEND)``, which traces the backward graph
+at ``backward()`` time and caches the compiled program by its structure;
+a backward in which torch captured a new graph or compiled one (a
+recompile after a guard failure too) counts in
+``engine.tape_compile_counter``, one that ran a built program in
+``engine.tape_cache_hit_counter``, both read from torch's own counters.
+On the CPU the backward runs eagerly, keyed by the graph's structure (each
+node's kind and wiring, the variables' and heads' shapes and dtypes): a
+new key counts as a build, a known one as a hit; :func:`set_tape_compile`
+given a ``cpu_backend`` compiles there too (tests use ``"aot_eager"``). The JAX package's eager hatches stay explicit and are
+counted in ``engine.tape_eager_counter``: the replay off
+(``set_tape_compile(False)``, ``MXNET_TAPE_COMPILE=0``), a tape holding an
+:class:`Function` node or another Python ``torch.autograd.Function`` that
+is not plain torch compute (a hybridized block's replay node, a
+collective's; the kernels' ``torch.library`` formulas and the Embedding,
+dense attention and SoftmaxOutput Functions are traced), a variable with
+a ``register_post_accumulate_grad_hook`` (the bucketed exchange of
+``mxnet_tpu_torch.dist`` starts there, and its collectives must not be
+traced), and ``grad(create_graph=True)``.
+``grad_req`` holds as on the eager path: the compiled backward is the same
+``torch.autograd.backward`` with ``inputs=``.
+
+Not here: ``get_symbol`` (``ROADMAP.md`` A.14's rest).
 """
 from __future__ import annotations
 
+import os
 import threading
 
 import torch
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "backward", "grad", "mark_variables", "Function",
-           "get_symbol", "set_tape_compile"]
+           "get_symbol", "set_tape_compile", "tape_compile_enabled"]
 
 
 class _State(threading.local):
@@ -62,6 +89,10 @@ class _RecordScope:
 
     def __enter__(self):
         self._prev = (_st.recording, _st.training)
+        if self._rec:
+            from . import engine
+
+            engine.flush()  # recording entry is a sync point
         if self._rec is not None:
             if self._rec and not _st.recording:
                 _st.params = {}  # fresh per outermost record scope
@@ -159,6 +190,140 @@ def _live(heads, head_grads):
     return [h for h, _ in pairs], [s for _, s in pairs]
 
 
+# off by default, where the JAX package's is on (ROADMAP.md C.2): a new
+# backward graph costs a compile of seconds on the card
+_TAPE_COMPILE_DEFAULT = False
+_TAPE_COMPILE = os.environ.get(
+    "MXNET_TAPE_COMPILE", "1" if _TAPE_COMPILE_DEFAULT else "0") != "0"
+# the torch.compile backend of a CUDA backward: AOT autograd's traced graph
+# run as it is. Inductor's code for the GPT-2 backward under compiled
+# autograd fails on torch 2.11 (it reads a python float where its kernel
+# takes a tensor; PERF.md section 6)
+TAPE_BACKEND = "aot_eager"
+_CPU_BACKEND = None
+# structural keys of the backward programs built so far
+_TAPE_KEYS = set()
+_TAPE_KEY_CAP = 1024
+
+
+def set_tape_compile(enabled, cpu_backend=None):
+    """Turn the compiled tape replay on or off; returns the previous
+    setting. ``cpu_backend`` (a ``torch.compile`` backend, ``""`` for
+    none) makes a CPU backward compile too, for tests; by default a CPU
+    backward runs eagerly."""
+    global _TAPE_COMPILE, _CPU_BACKEND
+    prev, _TAPE_COMPILE = _TAPE_COMPILE, bool(enabled)
+    if cpu_backend is not None:
+        _CPU_BACKEND = cpu_backend or None
+    return prev
+
+
+def tape_compile_enabled():
+    return _TAPE_COMPILE
+
+
+def _compiled_autograd():
+    """torch's compiled autograd entry point in the form this module uses
+    (``torch._dynamo.compiled_autograd._enable(compiler_fn)``, torch
+    2.11's); raises ``ImportError`` when the installed torch lacks it."""
+    import torch._dynamo.compiled_autograd as ca
+
+    if not callable(getattr(ca, "_enable", None)):
+        raise ImportError("this torch (%s) has no torch._dynamo."
+                          "compiled_autograd._enable: the compiled tape "
+                          "replay needs it" % torch.__version__)
+    return ca
+
+
+def _compiler(backend):
+    def compile_graph(gm):
+        # no fullgraph: torch 2.11's compiled-autograd graph holds a piece
+        # Dynamo does not trace, which it runs as it is
+        return torch.compile(gm, backend=backend)
+
+    return compile_graph
+
+
+# the port's Python autograd Functions whose backward is torch ops on their
+# saved tensors, which compiled autograd traces
+_TRACED_FUNCTIONS = frozenset(("_EmbeddingBackward", "_DenseAttentionBackward",
+                               "_SoftmaxOutputBackward"))
+
+
+def _opaque(fn):
+    """A Python ``torch.autograd.Function`` node the compiled replay does not
+    trace: a user's :class:`Function`, a hybridized block's graph replay, a
+    collective's; not a kernel op's registered formula nor one of
+    :data:`_TRACED_FUNCTIONS`."""
+    if not isinstance(fn, torch.autograd.function.BackwardCFunction):
+        return False
+    name = type(fn).__name__
+    return not (name in _TRACED_FUNCTIONS or name.startswith(
+        "GeneratedBackwardFor_mxnet_tpu"))
+
+
+def _tape_key(heads, entries):
+    """The backward graph's structural key, or None when it holds an opaque
+    node: every node's kind, in depth-first order, with the positions of
+    the nodes it feeds, the variables' and heads' shapes and dtypes."""
+    order, index, parts = [], {}, []
+    stack = [h.grad_fn for h in heads if h.grad_fn is not None]
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in index:
+            continue
+        if _opaque(fn):
+            return None
+        index[fn] = len(order)
+        order.append(fn)
+        stack.extend(nxt for nxt, _ in fn.next_functions)
+    for fn in order:
+        var = getattr(fn, "variable", None)
+        parts.append((type(fn).__name__,
+                      tuple(index.get(n, -1) for n, _ in fn.next_functions),
+                      None if var is None else (tuple(var.shape),
+                                                var.dtype)))
+    return (tuple(parts), tuple((tuple(h.shape), h.dtype) for h in heads),
+            tuple((tuple(t.shape), t.dtype) for _, t in entries))
+
+
+def _tape_route(heads, entries):
+    """"compiled" (through compiled autograd: a CUDA backward, or a CPU one
+    given a ``cpu_backend``; :func:`_accumulate` counts it), "counted"
+    (keyed by structure and counted here, run eagerly: the CPU) or "eager"
+    (a counted hatch)."""
+    from . import engine
+
+    if not _TAPE_COMPILE or not heads or any(
+            getattr(t, "_post_accumulate_grad_hooks", None)
+            for _, t in entries):
+        engine.tape_eager_counter.count += 1
+        return "eager"
+    key = _tape_key(heads, entries)
+    if key is None:
+        engine.tape_eager_counter.count += 1
+        return "eager"
+    if any(h.is_cuda for h in heads) or _CPU_BACKEND:
+        return "compiled"
+    if key in _TAPE_KEYS:
+        engine.tape_cache_hit_counter.count += 1
+    else:
+        if len(_TAPE_KEYS) >= _TAPE_KEY_CAP:
+            _TAPE_KEYS.clear()
+        _TAPE_KEYS.add(key)
+        engine.tape_compile_counter.count += 1
+    return "counted"
+
+
+def _torch_builds():
+    """torch's counts of compiled-autograd graphs captured and of graphs
+    Dynamo compiled: a backward that moves either built a program."""
+    from torch._dynamo.utils import counters
+
+    return (counters["compiled_autograd"]["captures"],
+            counters["stats"]["unique_graphs"])
+
+
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     """Compute the gradients of ``heads`` (tensors or NDArrays, one or a
     list) with respect to every variable read inside the last ``record()``
@@ -172,12 +337,13 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     if not entries:
         raise RuntimeError("backward: no variable with a gradient was read "
                            "inside autograd.record()")
-    _accumulate(heads, seeds, entries, retain_graph)
+    _accumulate(heads, seeds, entries, retain_graph,
+                _tape_route(heads, entries))
     if not retain_graph:
         _st.params = {}
 
 
-def _accumulate(heads, seeds, entries, retain_graph):
+def _accumulate(heads, seeds, entries, retain_graph, route="eager"):
     """The gradients accumulated into the tensors' ``.grad`` by torch's
     engine (a Parameter's hooks fire as each lands): cleared first unless
     ``grad_req`` is ``"add"``; a variable the heads do not reach keeps its
@@ -189,7 +355,20 @@ def _accumulate(heads, seeds, entries, retain_graph):
         saved.append(t.grad)
         if not (isinstance(var, Parameter) and var.grad_req == "add"):
             t.grad = None
-    if heads:
+    if heads and route == "compiled":
+        from . import engine
+
+        backend = TAPE_BACKEND if any(h.is_cuda for h in heads) \
+            else _CPU_BACKEND
+        before = _torch_builds()
+        with _compiled_autograd()._enable(_compiler(backend), dynamic=False):
+            torch.autograd.backward(heads, seeds, retain_graph=retain_graph,
+                                    inputs=[t for _, t in entries])
+        if _torch_builds() != before:
+            engine.tape_compile_counter.count += 1
+        else:
+            engine.tape_cache_hit_counter.count += 1
+    elif heads:
         torch.autograd.backward(heads, seeds, retain_graph=retain_graph,
                                 inputs=[t for _, t in entries])
     for (var, t), old in zip(entries, saved):
@@ -214,6 +393,10 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     if isinstance(variables, NDArray):
         variables = [variables]
     heads, seeds = _live(heads, head_grads)
+    if create_graph:
+        from . import engine
+
+        engine.tape_eager_counter.count += 1
     vts = [v._data for v in variables]
     live = [i for i, t in enumerate(vts) if t.requires_grad] if heads else []
     gs = torch.autograd.grad(heads, [vts[i] for i in live], seeds,
@@ -307,14 +490,7 @@ class Function:
 
 
 def get_symbol(x):
-    """The recorded history as a Symbol: the symbolic front end is not
-    ported yet."""
-    raise NotImplementedError("autograd.get_symbol needs the symbol front "
-                              "end, not ported yet (ROADMAP.md A.14)")
-
-
-def set_tape_compile(enabled):
-    """The JAX package's compiled tape replay: the port's counterpart, a
-    captured backward, is not ported yet."""
-    raise NotImplementedError("compiled tape replay is not ported yet "
-                              "(ROADMAP.md A.13)")
+    """The recorded history as a Symbol: not ported yet (the symbolic core
+    is, ``symbol.py``; recovering a graph from the tape is A.14's rest)."""
+    raise NotImplementedError("autograd.get_symbol is not ported yet "
+                              "(ROADMAP.md A.14's rest)")

@@ -81,6 +81,16 @@ def next_pow2(n):
     return p
 
 
+def cast_out(t, dtype):
+    """``t`` in ``dtype``, for the return of an ``autograd.Function``'s
+    forward: a new tensor only when the dtype differs, and never a no-op
+    ``.to()``. ``torch.compile`` on torch 2.11 drops the backward of a
+    Function whose forward returns a tensor an op handed back as it was
+    (a ``.to()`` or ``.float()`` to the same dtype, an in-place op): the
+    inputs then get no gradient through it."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
 OP_REGISTRY: Dict[str, Callable] = {}
 
 

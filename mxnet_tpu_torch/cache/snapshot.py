@@ -1,6 +1,6 @@
 """Serving snapshots (``serve.snapshot`` / ``serve.load(snapshot=True)``),
 the counterpart of ``mxnet_tpu/cache/snapshot.py`` for the
-``GenerativeServer``.
+``GenerativeServer`` and the ``ModelServer``.
 
 The JAX package's artifact bundles the checkpoint, the serving config and
 the serialized XLA executable of every warmed program, so a new replica
@@ -27,8 +27,16 @@ Layout, for ``prefix = "export/m"``::
     m-snapshot.json     manifest (config + program index), written atomically
     m-0000.params       checkpoint (``save_parameters``, dtype-exact npz)
 
-A ModelServer artifact needs ``checkpoint.save_for_serving``, which needs
-``symbol`` (ROADMAP.md A.14): not ported.
+A ModelServer artifact (``kind: "model"``) is the served block's export
+layout (``checkpoint.save_for_serving``: ``m-symbol.json`` and
+``m-0000.params``) with the manifest's ``input_names``, ``input_specs``
+and ``buckets``; :func:`load_snapshot` reads the export into a
+``SymbolBlock`` and builds a ``ModelServer`` over it, whose warmup
+captures every bucket's graph before the first request. A JAX model
+artifact's executables are ignored, as a generative one's are; the JAX
+package loads a port artifact's export and config. A Gluon model whose
+trace reads shapes (BERT) is exported at the largest bucket, whose batch
+the graph then bakes in (``ROADMAP.md`` C.2).
 """
 from __future__ import annotations
 
@@ -110,24 +118,61 @@ def _params_path(prefix, epoch):
 
 # ---------------------------------------------------------------- saving
 
-def save_snapshot(server, prefix, epoch=0):
-    """Write the serving artifact of a warmed ``GenerativeServer``: its
-    parameters, its config and the index of its live programs. Returns the
-    manifest path."""
-    from ..serve.batcher import ServeError
+def _save_model_snapshot(server, prefix, input_names, epoch):
+    """A ModelServer's artifact: the export layout of its model and the
+    manifest's config. Returns the manifest."""
+    import numpy as np
+
+    from ..checkpoint import save_for_serving
+    from ..gluon.block import SymbolBlock
+
+    model = server.model
+    shapes = None
+    if isinstance(model, SymbolBlock):
+        if input_names is None:
+            input_names = [s.name for s in model._inputs]
+    else:
+        if input_names is None:
+            input_names = ["data"]
+        shapes = [(server.buckets[-1],) + tuple(shape)
+                  for shape, _ in server._specs]
+    input_names = list(input_names)
+    for lock in server._replica_locks:  # no swap writes mid-export
+        lock.acquire()
+    try:
+        save_for_serving(prefix, model, epoch=epoch,
+                         input_names=input_names, input_shapes=shapes)
+    finally:
+        for lock in reversed(server._replica_locks):
+            lock.release()
+    return {"kind": "model", "input_names": input_names,
+            "input_specs": [[list(shape), str(np.dtype(dt))]
+                            for shape, dt in server._specs],
+            "buckets": list(server.buckets),
+            "quantize": getattr(server, "quantize", None),
+            "pool_state": {}, "executables": {},
+            "format": FORMAT, "fingerprint": fingerprint(server.device),
+            "name": server.name, "epoch": int(epoch)}
+
+
+def save_snapshot(server, prefix, input_names=None, epoch=0):
+    """Write the serving artifact of a warmed ``ModelServer`` (its export
+    layout and config; ``input_names`` name the model's inputs) or
+    ``GenerativeServer`` (its parameters, its config and the index of its
+    live programs). Returns the manifest path."""
     from ..serve.decoder import GenerativeServer
     from ..serve.server import ModelServer
 
-    if isinstance(server, ModelServer):
-        raise ServeError(
-            "serve.snapshot of a ModelServer is not ported: its artifact "
-            "needs checkpoint.save_for_serving, which needs symbol "
-            "(ROADMAP.md A.14)")
-    if not isinstance(server, GenerativeServer):
-        raise TypeError("serve.snapshot takes a GenerativeServer, got %r"
-                        % type(server).__name__)
     os.makedirs(os.path.dirname(os.path.abspath(prefix)) or ".",
                 exist_ok=True)
+    if isinstance(server, ModelServer):
+        manifest = _save_model_snapshot(server, prefix, input_names, epoch)
+        path = _manifest_path(prefix)
+        atomic_write(path, (json.dumps(manifest, indent=1) + "\n").encode())
+        return path
+    if not isinstance(server, GenerativeServer):
+        raise TypeError("serve.snapshot takes a ModelServer or "
+                        "GenerativeServer, got %r" % type(server).__name__)
     with server._params_lock:
         server.model.save_parameters(_params_path(prefix, epoch))
     entries = server.export_executables()
@@ -172,23 +217,42 @@ def load_manifest(prefix):
     return m
 
 
+def _load_model_snapshot(prefix, manifest, server_kwargs):
+    """A warmed ModelServer over the artifact's export, one bucket graph
+    captured a bucket before this returns."""
+    from ..checkpoint import load_for_serving
+    from ..serve.server import ModelServer
+
+    device = resolve_device(server_kwargs.get("device"))
+    if manifest.get("executables"):
+        _warn("snapshot %r carries serialized executables: a CUDA graph "
+              "cannot be read from a file, so its buckets are captured here"
+              % prefix)
+    block = load_for_serving(prefix, epoch=manifest.get("epoch", 0),
+                             input_names=manifest["input_names"],
+                             ctx=device)
+    specs = [(tuple(shape), dt) for shape, dt in manifest["input_specs"]]
+    server_kwargs.setdefault("buckets", tuple(manifest["buckets"]))
+    server_kwargs.setdefault("device", device)
+    return ModelServer(block, specs, **server_kwargs)
+
+
 def load_snapshot(prefix, model=None, **server_kwargs):
-    """A ready ``GenerativeServer`` from a snapshot (either package's):
-    ``model`` is the skeleton (the decode protocol is code; its parameters
-    come from the artifact); extra kwargs reach the server's constructor
+    """A ready server from a snapshot (either package's): a model
+    artifact gives a warmed ``ModelServer`` over its export. For a
+    generative one, a ``GenerativeServer``: ``model`` is the skeleton
+    (the decode protocol is code; its parameters come from the
+    artifact); extra kwargs reach the server's constructor
     (queue and deadline knobs, ``device``, ``draft``). Every listed step
     program is captured before this returns (an eager entry is only kept
     for the next snapshot); a draft program is skipped, with one warning,
     when no ``draft=`` is given, a chunk program when chunking is off."""
     from ..quantization import quantize_model
-    from ..serve.batcher import ServeError
     from ..serve.decoder import GenerativeServer
 
     manifest = load_manifest(prefix)
     if manifest["kind"] == "model":
-        raise ServeError(
-            "snapshot %r is a ModelServer artifact: loading one is not "
-            "ported (ROADMAP.md A.14)" % prefix)
+        return _load_model_snapshot(prefix, manifest, server_kwargs)
     if manifest["kind"] != "generative":
         raise ValueError("unknown snapshot kind %r" % manifest["kind"])
     if model is None:

@@ -1,6 +1,8 @@
 """Checkpoints (counterpart of ``mxnet_tpu/checkpoint.py``): a model's
 parameters, a trainer's state and a step counter in one call, arrays in the
-shared npz format, and the structural gate of a weight hot-swap.
+shared npz format, the serving layout (``save_for_serving``, the export's
+``-symbol.json`` and ``-NNNN.params``, and ``load_for_serving``), and the
+structural gate of a weight hot-swap.
 
 Every file is in the JAX package's format (``util.save_npz_exact`` for
 arrays and parameters, the Trainer's pickle for its state), so a checkpoint
@@ -28,7 +30,8 @@ from .util import load_npz_exact, save_npz_exact, to_tensor
 
 __all__ = ["save_checkpoint", "load_checkpoint", "save_arrays",
            "load_arrays", "SwapError", "validate_swap", "save_sharded",
-           "restore_sharded", "latest_step"]
+           "restore_sharded", "latest_step", "save_for_serving",
+           "load_for_serving"]
 
 
 def save_checkpoint(prefix, epoch, block=None, trainer=None, extra=None):
@@ -56,6 +59,29 @@ def load_checkpoint(prefix, epoch, block=None, trainer=None):
         with open(meta_path) as f:
             return json.load(f)
     return {"epoch": epoch, "extra": {}}
+
+
+def save_for_serving(prefix, block, epoch=0, input_names=("data",),
+                     input_shapes=None):
+    """The serving layout of ``block``: ``prefix-symbol.json`` and
+    ``prefix-NNNN.params`` (``HybridBlock.export``), dtype-exact, so a
+    reload serves with the same parameter dtypes and captures the same
+    bucket graphs. ``input_shapes`` (one per input, batch included) is
+    needed by a model whose trace reads shapes (BERT, GPT), and bakes that
+    batch into the graph (``ROADMAP.md`` C.2). Returns (symbol file,
+    params file)."""
+    return block.export(prefix, epoch=epoch, input_names=input_names,
+                        input_shapes=input_shapes)
+
+
+def load_for_serving(prefix, epoch=0, input_names=("data",), ctx=None):
+    """The exported block as a ``SymbolBlock`` whose parameters carry the
+    file's dtypes and shapes, on ``ctx`` (default: the current CUDA
+    device)."""
+    from .gluon.block import SymbolBlock
+
+    return SymbolBlock.imports("%s-symbol.json" % prefix, list(input_names),
+                               "%s-%04d.params" % (prefix, epoch), ctx=ctx)
 
 
 def save_arrays(path, arrays):

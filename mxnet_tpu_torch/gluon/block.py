@@ -43,6 +43,8 @@ _naming = threading.local()
 # serving_fn's parameter override: {id(Parameter): tensor} while a pure call
 # runs on this thread, else absent
 _param_store = threading.local()
+# a symbolic trace on this thread: .vars {parameter name: its variable}
+_sym_trace = threading.local()
 
 
 def _auto_name(hint):
@@ -109,17 +111,47 @@ def _any_ndarray(args, kwargs):
         _is_nd(v) for v in kwargs.values())
 
 
+def _is_sym(a):
+    from ..symbol import Symbol
+
+    return isinstance(a, Symbol) or (isinstance(a, (list, tuple)) and any(
+        isinstance(x, Symbol) for x in a))
+
+
+def _any_symbol(args, kwargs):
+    return any(_is_sym(a) for a in args) or any(
+        _is_sym(v) for v in kwargs.values())
+
+
 def _unwrap(a, rec):
     if isinstance(a, (list, tuple)):
         return type(a)(unwrap(x, rec) for x in a)
     return unwrap(a, rec)
 
 
+def _trace_var(param):
+    """In a symbolic trace, the parameter's named variable (one per name
+    for the trace: a tied weight is one graph input), else None."""
+    tvars = getattr(_sym_trace, "vars", None)
+    if tvars is None:
+        return None
+    if param.name not in tvars:
+        from .. import symbol
+
+        tvars[param.name] = symbol.var(
+            param.name, shape=param.shape if param._shape_known() else None)
+    return tvars[param.name]
+
+
 def param_block(param):
     """A parameter's tensor as the current call holds it: the serving_fn
     override when one is active on this thread, else ``param._tensor()``.
     Inside a ``tensor_parallel.tp_scope`` that may be this rank's block of
-    a split leaf, which only a split layer reads as it is."""
+    a split leaf, which only a split layer reads as it is. In a symbolic
+    trace, the parameter's variable."""
+    v = _trace_var(param)
+    if v is not None:
+        return v
     store = getattr(_param_store, "params", None)
     if store is not None:
         return store[id(param)]
@@ -130,7 +162,10 @@ def param_value(param):
     """A parameter's whole tensor as the current call sees it
     (:func:`param_block`; inside a ``tp_scope`` a split leaf's block is
     all-gathered). Used for weight tying across blocks (BERT's MLM
-    decoder)."""
+    decoder). In a symbolic trace, the parameter's variable."""
+    v = _trace_var(param)
+    if v is not None:
+        return v
     t = param_block(param)
     scope = _tp.current_scope()
     return t if scope is None else scope.whole(t)
@@ -368,8 +403,14 @@ class HybridBlock(Block):
         return super().__call__(*args, **kwargs)
 
     def forward(self, *args, **kwargs):
+        if _any_symbol(args, kwargs):
+            return self._symbolic_forward(*args, **kwargs)
         self._ensure_params(*args)
-        if self._active and not _hybrid.inside_program() and all(
+        # a serving_fn call reads its own parameter tensors, which a
+        # captured program does not: it runs eagerly (inside the server's
+        # own bucket graph)
+        if self._active and not _hybrid.inside_program() and getattr(
+                _param_store, "params", None) is None and all(
                 p._data is not None for p in self.collect_params().values()):
             if kwargs:
                 raise TypeError("a hybridized %s takes its inputs "
@@ -385,6 +426,52 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, *args, **kwargs):
         raise NotImplementedError
+
+    def _symbolic_forward(self, *args, **kwargs):
+        """Symbols in, a Symbol graph out, as MXNet's
+        ``net(mx.sym.var('data'))``: ``hybrid_forward(sym, ...)`` with each
+        parameter a named variable (its declared shape when known, so a
+        model's shape-dependent code infers through the graph; weight
+        tying through :func:`param_value`)."""
+        from .. import sym
+
+        pkwargs = {n: sym.var(p.name,
+                              shape=p.shape if p._shape_known() else None)
+                   for n, p in self._reg_params.items()}
+        outer = getattr(_sym_trace, "vars", None)
+        if outer is None:
+            _sym_trace.vars = {}
+        try:
+            return self.hybrid_forward(sym, *args, **pkwargs, **kwargs)
+        finally:
+            if outer is None:
+                _sym_trace.vars = None
+
+    def export(self, path, epoch=0, input_names=("data",),
+               input_shapes=None):
+        """Write ``path-symbol.json`` and ``path-%04d.params`` (ref:
+        gluon/block.py:HybridBlock.export): the block traced on one
+        variable per input (with its shape from ``input_shapes``, for a
+        model whose trace reads shapes) and every parameter under its name,
+        dtype-exact (``util.save_npz_exact``), the files the JAX package's
+        ``SymbolBlock.imports`` reads too. A shape the trace reads is baked
+        into the graph's attrs (a ``reshape`` to the export batch), as in
+        the JAX package. Returns the two paths."""
+        from .. import symbol
+
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        shapes = input_shapes or [None] * len(input_names)
+        ins = [symbol.var(n, shape=s) for n, s in zip(input_names, shapes)]
+        out = self(*ins)
+        if isinstance(out, (list, tuple)):
+            out = symbol.Group(list(out))
+        sym_file = "%s-symbol.json" % path
+        out.save(sym_file)
+        params_file = "%s-%04d.params" % (path, epoch)
+        save_npz_exact(params_file, {p.name: p._tensor().detach()
+                                     for p in self.collect_params().values()})
+        return sym_file, params_file
 
     def serving_fn(self):
         """The eval-mode function of this block for the serving pool:
@@ -409,3 +496,92 @@ class HybridBlock(Block):
                 _param_store.params = prev
 
         return pure, [p._tensor() for p in plist]
+
+
+class SymbolBlock(HybridBlock):
+    """A block over a Symbol graph (ref: gluon/block.py:SymbolBlock): the
+    graph's input variables are the call's arguments, every other free
+    variable a parameter of the same name.
+
+    A call with tensors (or NDArrays) evaluates the graph, reading the
+    parameters as ``param_value`` does (so a serving override and a
+    ``ModelServer`` work as for any block); the block is hybridized at
+    construction, so on a CUDA device its calls replay one CUDA graph a
+    key (``gluon/hybrid.py``): the cached eval pool. A call with Symbols
+    splices the graph into the caller's trace (every argument a Symbol,
+    one per input, or it raises)."""
+
+    @classmethod
+    def imports(cls, symbol_file, input_names, param_file=None, ctx=None):
+        """(ref: gluon/block.py:SymbolBlock.imports) The graph of
+        ``symbol_file`` (either package's) as a block, its parameters from
+        ``param_file`` on ``ctx`` (default: the current CUDA device), each
+        in the file's dtype (a bf16 export reloads as bf16)."""
+        from .. import symbol
+
+        out = symbol.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        blk = cls(out, [symbol.var(n) for n in input_names])
+        if param_file is not None:
+            device = resolve_device(ctx)
+            loaded = load_npz_exact(param_file)
+            for name in out.list_arguments():
+                if name in input_names or name not in loaded:
+                    continue
+                arr = loaded[name]
+                p = Parameter(name, shape=tuple(arr.shape), dtype=arr.dtype)
+                p.set_data(arr.to(device))
+                blk._params._params[name] = p
+        blk.hybridize()
+        return blk
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=params)
+        self._outputs = list(outputs) if isinstance(outputs, (list, tuple)) \
+            else [outputs]
+        self._inputs = list(inputs) if isinstance(inputs, (list, tuple)) \
+            else [inputs]
+
+    def _heads(self):
+        from ..symbol import _heads
+
+        return [h for o in self._outputs for h in _heads(o)]
+
+    def forward(self, *args):
+        from ..symbol import Symbol, _substitute
+
+        if any(isinstance(a, Symbol) for a in args):
+            if not all(isinstance(a, Symbol) for a in args):
+                raise TypeError(
+                    "SymbolBlock symbolic call requires ALL inputs to be "
+                    "Symbols; mixing in arrays would splice raw data into "
+                    "the graph (wrap constants in sym.var + bind instead)")
+            if len(args) != len(self._inputs):
+                raise TypeError(
+                    "SymbolBlock symbolic call got %d inputs, graph has %d "
+                    "(%s) — an unbound input var would only fail much later"
+                    % (len(args), len(self._inputs),
+                       ", ".join(s.name for s in self._inputs)))
+            mapping = {s.name: a for s, a in zip(self._inputs, args)}
+            outs = _substitute(self._heads(), mapping)
+            return outs[0] if len(outs) == 1 else outs
+        return super().forward(*args)
+
+    def _eager_forward(self, *args):
+        from ..symbol import _eval_symbols
+
+        feed = {s.name: a for s, a in zip(self._inputs, args)}
+        params = self.collect_params()
+        for name in {a for o in self._outputs for a in o.list_arguments()}:
+            if name not in feed:
+                if name not in params:
+                    raise KeyError("SymbolBlock: variable %r is neither an "
+                                   "input nor a loaded parameter" % name)
+                feed[name] = param_value(params[name])
+        with torch.set_grad_enabled(autograd.is_recording()):
+            outs = _eval_symbols(self._heads(), feed)
+        return outs[0] if len(outs) == 1 else tuple(outs)
+
+    def hybrid_forward(self, F, *args, **kwargs):
+        raise RuntimeError("SymbolBlock executes its graph directly")

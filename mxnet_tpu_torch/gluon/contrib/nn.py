@@ -9,6 +9,7 @@ import torch
 import torch.distributed as dist
 
 from ... import autograd
+from ...base import cast_out
 from ..nn import BatchNorm
 
 __all__ = ["SyncBatchNorm"]
@@ -57,7 +58,7 @@ class _SyncBatchNormFn(torch.autograd.Function):
         y = xhat * gamma.float().reshape(shape) + beta.float().reshape(shape)
         ctx.save_for_backward(xhat, invstd, gamma, count)
         ctx.args = (group, n, x.dtype, beta.dtype)
-        return y.to(x.dtype)
+        return cast_out(y, x.dtype)
 
     @staticmethod
     def backward(ctx, dy):

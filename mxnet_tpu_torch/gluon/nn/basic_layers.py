@@ -8,6 +8,13 @@ import torch
 from ... import autograd, ops
 from ..block import Block, HybridBlock
 
+
+def _symbolic(x):
+    """``x`` is a Symbol: the layer is being traced into a graph."""
+    from ...symbol import Symbol
+
+    return isinstance(x, Symbol)
+
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "Flatten",
            "Lambda", "HybridLambda", "Embedding", "BatchNorm", "LayerNorm",
            "InstanceNorm", "GroupNorm", "Activation", "LeakyReLU", "PReLU",
@@ -102,6 +109,8 @@ class Dropout(HybridBlock):
         self._rate = rate
 
     def hybrid_forward(self, F, x):
+        if _symbolic(x):  # the executor's is_train sets it
+            return F.Dropout(x, p=self._rate)
         return F.Dropout(x, p=self._rate, training=autograd.is_training())
 
 
@@ -235,6 +244,12 @@ class BatchNorm(_NormBase):
             p.shape = (c,)
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        if _symbolic(x):
+            # the visible output only (upstream's NumVisibleOutputs=1); a
+            # graph never writes the moving statistics, and the executor's
+            # is_train sets the training flag
+            return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                               **self._kwargs)
         out, m, v = F.BatchNorm(x, gamma, beta, running_mean, running_var,
                                 training=autograd.is_training(),
                                 **self._kwargs)

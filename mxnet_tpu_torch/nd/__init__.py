@@ -21,6 +21,7 @@ import sys as _sys
 
 from ..base import OP_REGISTRY as _REG
 from .. import ops as _ops  # noqa: F401  (fills the registry)
+from .. import symbol as _symbol  # noqa: F401  (the graph's source ops)
 from ..ndarray import (NDArray, array, zeros, ones, full, empty,  # noqa: F401
                        arange, linspace, eye, concat, stack, waitall, invoke,
                        save, load)
@@ -56,8 +57,7 @@ _NOT_PORTED_BY_ITEM = {
         "spatial_transformer"),
     "A.11/A.17 (pose)": ("heatmap_to_coords", "pose_target"),
     "A.11 (ctc)": ("CTCLoss", "ctc_loss"),
-    "A.14 (symbol)": ("_arange", "_cond", "_const", "_filled", "_foreach",
-                      "_item", "_while"),
+    "A.14 (control flow)": ("_cond", "_foreach", "_while"),
 }
 NOT_PORTED = {name: item for item, names in _NOT_PORTED_BY_ITEM.items()
               for name in names}

@@ -38,7 +38,8 @@ _NOT_PORTED = {
     "interleaved_matmul_selfatt_valatt": "A.17",
     "interleaved_matmul_encdec_qk": "A.17",
     "interleaved_matmul_encdec_valatt": "A.17",
-    "cond": "A.14", "foreach": "A.14", "while_loop": "A.14",
+    "cond": "A.14 (control flow)", "foreach": "A.14 (control flow)",
+    "while_loop": "A.14 (control flow)",
 }
 
 

@@ -19,17 +19,38 @@ its old values, and a recorded graph keeps the tensor it read. The one
 exception is an NDArray that ``Parameter.data()`` returned: a write to it
 goes into the parameter's live tensor, as in MXNet.
 
-The port runs eagerly: torch's CUDA stream gives MXNet's asynchrony, so
-there is no bulk window (the JAX package's ``LazyExpr``; ``ROADMAP.md``
-A.13). A bfloat16 array's ``asnumpy()`` returns float32 values, which hold
-every bfloat16 exactly (numpy has no bfloat16 without ``ml_dtypes``).
+The bulk window (``engine.bulk``, ``MXNET_ENGINE_BULK_SIZE``, off by
+default: ``ROADMAP.md`` C.2; the JAX package's ``LazyExpr``): outside ``autograd.record()``, a fusible op (a
+single-output elementwise, broadcast, shape or reduction op of
+:data:`FUSIBLE`, with arrays and python scalars as operands and static
+keyword arguments) does not run: it returns an array whose value is a node
+of the current thread's window, whose shape and dtype come from the op run
+on ``meta`` tensors (so ``shape``/``dtype`` do not flush). The window runs
+as one program at a sync point: reading the value (``_data``, and so
+``asnumpy``, a scalar read, a non-fusible consumer), mutation, entering
+``autograd.record()``, the watermark, ``waitall``. The program is cached by
+the chain's structure and its leaves' signatures; a python scalar is a
+leaf, not part of the key, so a changed scalar builds nothing. On a CUDA
+device a window of two or more nodes is one CUDA graph (``capture.py``):
+its leaves are copied into the graph's inputs, the graph replays the
+chain's kernels as one launch, and its outputs are copied out; a scalar is
+a 0-d tensor there. On the CPU the same window runs its nodes eagerly, with
+the same keys and counts. A node holds the tensors its inputs had when it
+was issued, so rebinding an input array later does not reach it; a tensor
+written in place before the flush raises there.
+
+A bfloat16 array's ``asnumpy()`` returns float32 values, which hold every
+bfloat16 exactly (numpy has no bfloat16 without ``ml_dtypes``).
 """
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
 
 from . import autograd
+from . import engine as _engine
 from .base import OP_REGISTRY, register_op, resolve_device, resolve_dtype
 from .context import Context, context_from_device, current_context
 from .ops.functional import basic_index
@@ -66,7 +87,8 @@ def np_dtype(tdt):
 
 
 class NDArray:
-    __slots__ = ("_data", "_grad", "_grad_req", "_param", "__weakref__")
+    __slots__ = ("_buf", "_lazy", "_grad", "_grad_req", "_param",
+                 "__weakref__")
 
     def __init__(self, data, ctx=None):
         if isinstance(data, NDArray):
@@ -75,31 +97,55 @@ class NDArray:
             data = torch.as_tensor(data)
         if ctx is not None:
             data = data.to(resolve_device(Context(ctx)))
-        self._data = data
+        self._buf = data
+        self._lazy = None
         self._grad = None
         self._grad_req = "write"
         self._param = None
 
+    @property
+    def _data(self):
+        """The value as a tensor; a deferred value flushes its window."""
+        if self._lazy is not None:
+            _engine.flush()
+            if self._lazy is not None:
+                raise RuntimeError("an array deferred on another thread's "
+                                   "bulk window was read")
+        return self._buf
+
+    @_data.setter
+    def _data(self, tensor):
+        self._buf = tensor
+        self._lazy = None
+
+    def _meta(self):
+        """A tensor with this array's shape and dtype: the value, or a
+        deferred node's ``meta`` tensor (no flush)."""
+        lz = self._lazy
+        return lz.meta if lz is not None else self._buf
+
     # ------------------------------------------------------------ properties
     @property
     def shape(self):
-        return tuple(self._data.shape)
+        return tuple(self._meta().shape)
 
     @property
     def dtype(self):
-        return np_dtype(self._data.dtype)
+        return np_dtype(self._meta().dtype)
 
     @property
     def size(self):
-        return int(self._data.numel())
+        return int(self._meta().numel())
 
     @property
     def ndim(self):
-        return self._data.dim()
+        return self._meta().dim()
 
     @property
     def context(self):
-        return context_from_device(self._data.device)
+        lz = self._lazy
+        return context_from_device(lz.device if lz is not None
+                                   else self._buf.device)
 
     ctx = context
 
@@ -215,6 +261,7 @@ class NDArray:
     def _rebind(self, tensor):
         """Make ``tensor`` this array's value. An array that wraps a
         parameter's live tensor writes into it in place instead."""
+        _engine.flush()  # a deferred op may read the tensor written here
         p = self._param
         if p is not None and p._data is self._data:
             with torch.no_grad():
@@ -226,6 +273,7 @@ class NDArray:
         return _getitem(self, key)
 
     def __setitem__(self, key, value):
+        _engine.flush()
         k = _normalize_key(key)
         v = value._data if isinstance(value, NDArray) else value
         p = self._param
@@ -466,13 +514,20 @@ def wrap(out):
 
 
 def invoke(opname, args, kwargs):
-    """Run registry op ``opname`` on NDArrays: unwrap the arguments, call it
-    with torch's grad mode set from ``autograd.is_recording()`` (off for a
-    ``nondiff`` op), wrap the result. ``out=`` rebinds that array to the
-    (first) result and returns it; an op that reads the training flag
-    gets ``autograd.is_training()`` unless the caller passed
-    ``training``."""
+    """Run registry op ``opname`` on NDArrays: defer it into the bulk
+    window when it is fusible there (module docstring), else unwrap the
+    arguments, call it with torch's grad mode set from
+    ``autograd.is_recording()`` (off for a ``nondiff`` op), wrap the
+    result. ``out=`` rebinds that array to the (first) result and returns
+    it; an op that reads the training flag gets ``autograd.is_training()``
+    unless the caller passed ``training``."""
     fn = OP_REGISTRY[opname]
+    if _engine._bulk_size > 0 and opname in FUSIBLE \
+            and not autograd.is_recording():
+        out = _defer(opname, fn, args, kwargs)
+        if out is not None:
+            return out
+    _engine.dispatch_counter.count += 1
     kwargs = dict(kwargs)
     out = kwargs.pop("out", None)
     if getattr(fn, "needs_training", False) and "training" not in kwargs:
@@ -487,6 +542,267 @@ def invoke(opname, args, kwargs):
         out._rebind(src._data)
         return out
     return res
+
+
+# ---------------------------------------------------------------- bulk window
+
+# the ops the window defers: single output, no random draw or training
+# flag, no host read of a value, so a chain of them is one CUDA graph
+FUSIBLE = frozenset((
+    "abs", "sign", "ceil", "floor", "trunc", "round", "rint", "fix", "exp",
+    "expm1", "log", "log1p", "log2", "log10", "sqrt", "rsqrt", "cbrt",
+    "rcbrt", "square", "reciprocal", "negative", "sin", "cos", "tan",
+    "arcsin", "arccos", "arctan", "sinh", "cosh", "tanh", "arcsinh",
+    "arccosh", "arctanh", "degrees", "radians", "erf", "erfinv", "gammaln",
+    "digamma", "softsign", "relu", "softrelu", "logical_not", "isnan",
+    "isinf", "isfinite", "sigmoid", "relu6", "clip",
+    "add", "subtract", "multiply", "divide", "mod", "power", "maximum",
+    "minimum", "hypot", "arctan2", "equal", "not_equal", "greater",
+    "greater_equal", "lesser", "lesser_equal", "logical_and", "logical_or",
+    "logical_xor", "broadcast_add", "broadcast_sub", "broadcast_mul",
+    "broadcast_div", "broadcast_mod", "broadcast_power",
+    "broadcast_maximum", "broadcast_minimum", "broadcast_hypot",
+    "broadcast_equal", "broadcast_not_equal", "broadcast_greater",
+    "broadcast_greater_equal", "broadcast_lesser", "broadcast_lesser_equal",
+    "broadcast_logical_and", "broadcast_logical_or",
+    "broadcast_logical_xor", "where", "cast", "reshape", "transpose",
+    "expand_dims", "squeeze", "flatten", "swapaxes", "broadcast_to",
+    "broadcast_like", "sum", "mean", "max", "min", "prod", "softmax",
+    "log_softmax", "zeros_like", "ones_like", "dot", "matmul", "batch_dot"))
+# ops whose result dtype follows their first operand: a python scalar
+# there is not the same as a 0-d tensor, so such a call runs eagerly
+_FIRST_OPERAND_DTYPE = frozenset((
+    "equal", "not_equal", "greater", "greater_equal", "lesser",
+    "lesser_equal", "broadcast_equal", "broadcast_not_equal",
+    "broadcast_greater", "broadcast_greater_equal", "broadcast_lesser",
+    "broadcast_lesser_equal"))
+_SCALARS = (bool, int, float)
+_STATIC = (type(None), bool, int, float, str, tuple, list, torch.dtype,
+           np.dtype, type)
+# (op, static attrs, input signatures) -> the output's meta tensor, or None
+# when the op does not run on meta tensors (it then runs eagerly)
+_META = {}
+_META_CAP = 4096
+# window programs by key, least recently used first
+_PROGRAMS = {}
+PROGRAM_CAP = 64
+
+
+class _Node:
+    """One deferred op: its function, static attrs and wiring (``specs``:
+    ``i >= 0`` is node i's result, ``~li`` leaf li), its output's meta
+    tensor, and a weak reference to its output array."""
+
+    __slots__ = ("op", "fn", "kwargs", "specs", "meta", "device", "ref",
+                 "idx")
+
+
+def _freeze(v):
+    if isinstance(v, (list, tuple)):
+        return (type(v).__name__,) + tuple(_freeze(x) for x in v)
+    if isinstance(v, (torch.dtype, np.dtype, type)):
+        return ("dtype", str(v))
+    return (type(v).__name__, v)
+
+
+def _tensor_sig(t):
+    return (tuple(t.shape), t.dtype, tuple(t.stride()))
+
+
+def _defer(opname, fn, args, kwargs):
+    """The output array of ``opname`` deferred into this thread's window,
+    or None when the call cannot be deferred (it then runs eagerly)."""
+    if "out" in kwargs or any(not isinstance(v, _STATIC)
+                              for v in kwargs.values()):
+        return None
+    w = _engine._window()
+    device = w.device
+    plan = []
+    for a in args:
+        if isinstance(a, NDArray):
+            lz = a._lazy
+            if lz is not None:
+                if lz.idx >= len(w.nodes) or w.nodes[lz.idx] is not lz:
+                    return None  # another thread's window
+                dev = lz.device
+            else:
+                dev = a._buf.device
+                if dev.type not in ("cpu", "cuda"):
+                    return None
+            if device is None:
+                device = dev
+            elif dev != device:
+                return None
+            plan.append(a)
+        elif type(a) in _SCALARS:
+            plan.append(a)
+        else:
+            return None
+    if not plan or device is None or (
+            opname in _FIRST_OPERAND_DTYPE and not isinstance(args[0],
+                                                              NDArray)):
+        return None
+    skey = tuple(sorted((k, _freeze(v)) for k, v in kwargs.items()))
+    metas, msigs = [], []
+    for a in plan:
+        if isinstance(a, NDArray):
+            m = a._lazy.meta if a._lazy is not None else a._buf
+            metas.append(m if a._lazy is not None else torch.empty_strided(
+                m.shape, m.stride(), dtype=m.dtype, device="meta"))
+            msigs.append(_tensor_sig(m))
+        else:
+            metas.append(a)
+            msigs.append(type(a))
+    mkey = (opname, skey, tuple(msigs))
+    meta = _META.get(mkey, _META)
+    if meta is _META:
+        try:
+            with torch.no_grad():
+                meta = fn(*metas, **kwargs)
+            if not isinstance(meta, torch.Tensor):
+                meta = None
+        except Exception:  # the op does not run on meta: run it eagerly
+            meta = None
+        if len(_META) >= _META_CAP:
+            _META.clear()
+        _META[mkey] = meta
+    if meta is None:
+        return None
+    w.device = device
+    specs = []
+    for a in plan:
+        if isinstance(a, NDArray) and a._lazy is not None:
+            specs.append(a._lazy.idx)
+            continue
+        if isinstance(a, NDArray):
+            t = a._buf
+            lkey = id(t)
+            sig = _tensor_sig(t) + (str(t.device),)
+        else:
+            t = a
+            lkey = (type(a), a)
+            sig = type(a)
+        li = w.leaf_ids.get(lkey)
+        if li is None:
+            li = w.leaf_ids[lkey] = len(w.leaves)
+            w.leaves.append(t)
+            w.leaf_sigs.append(sig)
+            if isinstance(t, torch.Tensor):
+                w.versions[li] = t._version
+        specs.append(~li)
+    node = _Node()
+    node.op, node.fn, node.kwargs = opname, fn, dict(kwargs)
+    node.specs, node.meta, node.device = tuple(specs), meta, device
+    node.idx = len(w.nodes)
+    out = NDArray.__new__(NDArray)
+    out._buf = None
+    out._lazy = node
+    out._grad = None
+    out._grad_req = "write"
+    out._param = None
+    node.ref = weakref.ref(out)
+    w.nodes.append(node)
+    w.key_parts.append((opname, skey, node.specs))
+    if len(w.nodes) >= _engine._bulk_size:  # the watermark
+        _flush_window()
+    return out
+
+
+def _run_chain(structure, leaves, want):
+    """The chain's nodes run in order on ``leaves``; the results at
+    ``want``."""
+    vals = []
+    with torch.no_grad():
+        for fn, kwargs, specs in structure:
+            vals.append(fn(*[vals[i] if i >= 0 else leaves[~i]
+                             for i in specs], **kwargs))
+    return [vals[i] for i in want]
+
+
+_pools = {}
+
+
+class _WindowProgram:
+    """A chain captured as one CUDA graph over static leaves (a python
+    scalar is a 0-d tensor there, which the registry ops treat as they
+    treat the scalar). Every window program of a device shares one memory
+    pool: a replay's outputs are copied out before any other replays."""
+
+    def __init__(self, structure, leaves, want, device):
+        from .capture import capture_graph
+
+        self.static = []
+        with torch.no_grad():
+            for leaf in leaves:
+                if isinstance(leaf, torch.Tensor):
+                    s = torch.empty_like(leaf)
+                    s.copy_(leaf)
+                else:
+                    s = torch.tensor(leaf, device=device)
+                self.static.append(s)
+        if device.index not in _pools:
+            _pools[device.index] = torch.cuda.graph_pool_handle()
+        self.graph = capture_graph(
+            lambda: _run_chain(structure, self.static, want), device,
+            _pools[device.index])
+
+    def __call__(self, leaves):
+        with torch.no_grad():
+            for s, leaf in zip(self.static, leaves):
+                if isinstance(leaf, torch.Tensor):
+                    s.copy_(leaf)
+                else:
+                    s.fill_(leaf)
+            return [o.clone() for o in self.graph.replay()]
+
+
+def _flush_window():
+    """Run the current thread's window as one program and bind the results
+    to the output arrays still alive (engine module docstring)."""
+    w = _engine._window()
+    nodes = w.nodes
+    if not nodes:
+        return
+    leaves, device = w.leaves, w.device
+    outs = []
+    for node in nodes:
+        arr = node.ref()
+        if arr is not None and arr._lazy is node:
+            outs.append((node.idx, arr))
+    key = (tuple(w.key_parts), tuple(w.leaf_sigs),
+           tuple(i for i, _ in outs))
+    versions = w.versions
+    w.reset()  # first: nothing below may reach the same window
+    for li, ver in versions.items():
+        if leaves[li]._version != ver:
+            raise RuntimeError(
+                "a tensor read by a deferred %s op was written in place "
+                "before the bulk window flushed; flush first "
+                "(engine.flush())" % nodes[0].op)
+    if not outs:
+        return  # every result died unread
+    structure = [(n.fn, n.kwargs, n.specs) for n in nodes]
+    want = [i for i, _ in outs]
+    _engine.dispatch_counter.count += 1
+    if len(nodes) == 1:  # an op and then a sync: the op itself
+        results = _run_chain(structure, leaves, want)
+    else:
+        prog = _PROGRAMS.pop(key, None)
+        if prog is None:
+            _engine.bulk_compile_counter.count += 1
+            prog = _WindowProgram(structure, leaves, want, device) \
+                if device.type == "cuda" else structure
+            if len(_PROGRAMS) >= PROGRAM_CAP:
+                _PROGRAMS.pop(next(iter(_PROGRAMS)))
+        _PROGRAMS[key] = prog
+        results = prog(leaves) if device.type == "cuda" else \
+            _run_chain(structure, leaves, want)
+    for (_, arr), val in zip(outs, results):
+        arr._buf = val
+        arr._lazy = None
+
+
+_engine._flush_hook = _flush_window
 
 
 def _normalize_key(key):
@@ -608,7 +924,9 @@ def stack(*arrays, axis=0):
 
 def waitall():
     """Wait for every launched op (ref: ndarray.py:waitall → the engine's
-    WaitForAll): a device synchronize when CUDA is present."""
+    WaitForAll): the bulk window flushes, then a device synchronize when
+    CUDA is present."""
+    _engine.flush()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
 

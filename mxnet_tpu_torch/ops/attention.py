@@ -31,7 +31,7 @@ import threading
 
 import torch
 
-from ..base import register_op
+from ..base import cast_out, register_op
 from .cuda.flash_attention import (HEAD_DIMS, flash_attention,
                                    flash_attention_with_grad)
 from .lowbit import _const
@@ -72,7 +72,7 @@ class _DenseAttention(torch.autograd.Function):
         pb = torch.softmax(s, dim=-1).to(v.dtype)
         ctx.save_for_backward(q, k, v, pb)
         ctx.scale, ctx.bias = scale, bias
-        return torch.matmul(pb.float(), v.float()).to(q.dtype)
+        return cast_out(torch.matmul(pb.float(), v.float()), q.dtype)
 
     @staticmethod
     def backward(ctx, do):
@@ -214,6 +214,10 @@ def local_attention(q, k, v, mask=None, causal=False, scale=None,
                                         or v.requires_grad)
     if takes_flash(q, mask, prefix_mask, grad):
         vl = None if mask is None else _prefix_mask_to_valid_len(mask)
+        # the kernels read (B, H, T, D) rows: a strided view (heads split
+        # off a fused qkv in a Symbol graph, which has no contiguous op) is
+        # copied once; a contiguous tensor passes as it is
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if grad:
             return flash_attention_with_grad(q, k, v, causal=causal,
                                              scale=scale, kv_valid_len=vl)

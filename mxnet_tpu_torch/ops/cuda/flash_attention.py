@@ -20,13 +20,15 @@ split is :func:`flash_f32_splits`, plain Python), launched and counted by
 attention takes the dense path (``ops/attention.py``).
 
 :func:`flash_attention`, :func:`flash_attention_f32` and
-:func:`flash_attention_bwd` take the plain version for CPU tensors and
-launch the kernel for CUDA tensors, or raise; they never fall back from
-the card to the plain version.
-:func:`flash_attention_with_grad` is the differentiable op (a
-``torch.autograd.Function`` mirroring the JAX ``custom_vjp``): its forward
+:func:`flash_attention_bwd` call the ops ``mxnet_tpu_torch::flash_fwd``,
+``::flash_fwd_f32`` and ``::flash_bwd``, which take the plain version for
+CPU tensors and launch the kernel for CUDA tensors, or raise; they never
+fall back from the card to the plain version. The forward ops always
+return an lse, empty (0 elements) unless it was asked for.
+:func:`flash_attention_with_grad` is the differentiable op (the forward op
+with an autograd formula mirroring the JAX ``custom_vjp``): its forward
 keeps the lse, its backward forms delta = rowsum(dO * O) in PyTorch, as the
-JAX package does outside its kernels, and launches the backward kernel.
+JAX package does outside its kernels, and calls the backward op.
 Layouts are the JAX function's: q (B, H, Tq, D), k and v (B, H, Tk, D), lse
 (B*H, Tq, 1) float32, delta (B, H, Tq) float32.
 """
@@ -38,7 +40,10 @@ import math
 
 import torch
 
-from . import _build, no_second_order
+from typing import Optional
+
+from . import (IMPLS, _build, fake_check, implementation,
+               no_second_order)
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)  # the kernel's template instances
@@ -175,6 +180,16 @@ def flash_attention(q, k, v, causal=False, scale=None, kv_valid_len=None,
         return flash_attention_f32(q, k, v, causal=causal, scale=scale,
                                    kv_valid_len=kv_valid_len,
                                    return_lse=return_lse)
+    out, lse = _flash_fwd_op(q, k, v, _valid_len(kv_valid_len), float(scale),
+                             bool(causal), bool(return_lse))
+    return (out, lse) if return_lse else out
+
+
+@implementation("flash_attention")
+def _flash_fwd(q, k, v, causal=False, scale=None, kv_valid_len=None,
+               return_lse=False):
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_valid_len, scale, causal,
                                      return_lse)
@@ -297,6 +312,14 @@ def flash_attention_f32(q, k, v, causal=False, scale=None, kv_valid_len=None,
     splits * B*H * Tq * (D + 2) floats holds the partial results."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    out, lse = _flash_fwd_f32_op(q, k, v, _valid_len(kv_valid_len),
+                                 float(scale), bool(causal), bool(return_lse))
+    return (out, lse) if return_lse else out
+
+
+@implementation("flash_attention_f32")
+def _flash_fwd_f32(q, k, v, causal=False, scale=None, kv_valid_len=None,
+                   return_lse=False):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_valid_len, scale, causal,
                                      return_lse)
@@ -368,6 +391,20 @@ def flash_attention_bwd(q, k, v, do, lse, delta, kv_valid_len=None,
     second pass rounds dq to bf16."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if torch.is_grad_enabled() and q.device.type == "cpu":
+        # the plain version's torch ops carry a graph (create_graph)
+        return IMPLS["flash_attention_bwd"](
+            q, k, v, do, lse, delta, kv_valid_len=_valid_len(kv_valid_len),
+            scale=float(scale), causal=bool(causal))
+    with torch.no_grad():  # a kernel's outputs carry no graph
+        return tuple(_flash_bwd_op(q, k, v, do, lse, delta,
+                                   _valid_len(kv_valid_len), float(scale),
+                                   bool(causal)))
+
+
+@implementation("flash_attention_bwd")
+def _flash_bwd(q, k, v, do, lse, delta, kv_valid_len=None, scale=None,
+               causal=False):
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, do, lse, delta,
                                          kv_valid_len, scale, causal)
@@ -393,33 +430,88 @@ def flash_attention_bwd(q, k, v, do, lse, delta, kv_valid_len=None,
 flash_attention_bwd.launches = 0
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, kv_valid_len, scale, causal):
-        o, lse = flash_attention(q, k, v, causal=causal, scale=scale,
-                                 kv_valid_len=kv_valid_len, return_lse=True)
-        ctx.save_for_backward(q, k, v, o, lse, kv_valid_len)
-        ctx.scale, ctx.causal = scale, causal
-        return o
+def _fwd_op_body(name, q, k, v, kv_valid_len, scale, causal, return_lse):
+    got = IMPLS[name](q, k, v, causal=causal, scale=scale,
+                      kv_valid_len=kv_valid_len, return_lse=return_lse)
+    if return_lse:
+        return got
+    return got, q.new_empty((0,), dtype=torch.float32)
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse, vl = ctx.saved_tensors
-        do = do.to(q.dtype).contiguous()
-        if torch.is_grad_enabled():  # autograd.grad(create_graph=True)
-            no_second_order("flash_attention_bwd", q)
-            # the saved o and lse carry no graph: recompute them from q, k, v
-            o, lse = flash_attention_plain(q, k, v, vl, ctx.scale,
-                                           ctx.causal, return_lse=True)
-            delta = (o.float() * do.float()).sum(dim=-1)
-            return (*flash_attention_bwd_plain(
-                q, k, v, do, lse, delta, vl, ctx.scale, ctx.causal),
-                None, None, None)
+
+@torch.library.custom_op("mxnet_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kv_valid_len: Optional[torch.Tensor], scale: float,
+                  causal: bool, return_lse: bool
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _fwd_op_body("flash_attention", q, k, v, kv_valid_len, scale,
+                        causal, return_lse)
+
+
+@torch.library.custom_op("mxnet_tpu_torch::flash_fwd_f32", mutates_args=())
+def _flash_fwd_f32_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      kv_valid_len: Optional[torch.Tensor], scale: float,
+                      causal: bool, return_lse: bool
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _fwd_op_body("flash_attention_f32", q, k, v, kv_valid_len, scale,
+                        causal, return_lse)
+
+
+def _fwd_fake(q, k, v, kv_valid_len, scale, causal, return_lse):
+    fake_check("flash_attention", q)
+    B, H, Tq, _ = q.shape
+    lse_shape = (B * H, Tq, 1) if return_lse else (0,)
+    return torch.empty_like(q), q.new_empty(lse_shape, dtype=torch.float32)
+
+
+_flash_fwd_op.register_fake(_fwd_fake)
+_flash_fwd_f32_op.register_fake(_fwd_fake)
+
+
+@torch.library.custom_op("mxnet_tpu_torch::flash_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  kv_valid_len: Optional[torch.Tensor], scale: float,
+                  causal: bool
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return tuple(IMPLS["flash_attention_bwd"](
+        q, k, v, do, lse, delta, kv_valid_len=kv_valid_len, scale=scale,
+        causal=causal))
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, do, lse, delta, kv_valid_len, scale, causal):
+    fake_check("flash_attention_bwd", q)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, vl, scale, causal, _ = inputs
+    ctx.save_for_backward(q, k, v, output[0], output[1], vl)
+    ctx.scale, ctx.causal = scale, causal
+    ctx.mark_non_differentiable(output[1])
+
+
+def _flash_backward(ctx, do, dlse):
+    q, k, v, o, lse, vl = ctx.saved_tensors
+    do = do.to(q.dtype).contiguous()
+    if torch.is_grad_enabled():  # autograd.grad(create_graph=True)
+        no_second_order("flash_attention_bwd", q)
+        # the saved o and lse carry no graph: recompute them from q, k, v
+        o, lse = flash_attention_plain(q, k, v, vl, ctx.scale,
+                                       ctx.causal, return_lse=True)
         delta = (o.float() * do.float()).sum(dim=-1)
-        dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, delta,
-                                         kv_valid_len=vl, scale=ctx.scale,
-                                         causal=ctx.causal)
-        return dq, dk, dv, None, None, None
+        return (*flash_attention_bwd_plain(
+            q, k, v, do, lse, delta, vl, ctx.scale, ctx.causal),
+            None, None, None, None)
+    delta = (o.float() * do.float()).sum(dim=-1)
+    dq, dk, dv = _flash_bwd_op(q, k, v, do, lse, delta, vl, ctx.scale,
+                               ctx.causal)
+    return dq, dk, dv, None, None, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+_flash_fwd_f32_op.register_autograd(_flash_backward,
+                                    setup_context=_flash_setup)
 
 
 def flash_attention_with_grad(q, k, v, causal=False, scale=None,
@@ -428,5 +520,6 @@ def flash_attention_with_grad(q, k, v, causal=False, scale=None,
     launches with the lse, the backward launches the backward kernel."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return _FlashAttention.apply(q, k, v, _valid_len(kv_valid_len),
-                                 float(scale), bool(causal))
+    op = _flash_fwd_f32_op if q.dtype == torch.float32 else _flash_fwd_op
+    return op(q, k, v, _valid_len(kv_valid_len), float(scale), bool(causal),
+              True)[0]

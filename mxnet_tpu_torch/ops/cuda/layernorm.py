@@ -5,18 +5,21 @@ Counterpart of ``mxnet_tpu/ops/pallas/layernorm.py``: the forward
 analytic backward ``_ln_bwd``, which is XLA outside any Pallas kernel there
 and a kernel here (``csrc/layernorm_bwd.cu``); why each is shaped as it is,
 and what bounds it, is written in its source. :func:`fused_layernorm` and
-:func:`fused_layernorm_bwd` take the plain version for a CPU tensor and
+:func:`fused_layernorm_bwd` call the ops ``mxnet_tpu_torch::layernorm_fwd``
+and ``::layernorm_bwd``, which take the plain version for a CPU tensor and
 launch the kernel for a CUDA tensor, or raise; they never fall back from the
 card to the plain version.
 
 :func:`layernorm` is the differentiable op (the JAX ``layernorm``
-``custom_vjp``): the forward kernel, then the backward kernel.
+``custom_vjp``): the forward op with the backward op as its registered
+autograd formula.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _build, no_second_order
+from . import (IMPLS, _build, fake_check, implementation,
+               no_second_order)
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -55,6 +58,11 @@ def _check(x, **params):
 
 def fused_layernorm(x, gamma, beta, eps=1e-5):
     """LayerNorm over the last axis of x (R, C) with gamma/beta (C,)."""
+    return _layernorm_fwd_op(x, gamma, beta, float(eps))
+
+
+@implementation("fused_layernorm")
+def _layernorm_fwd(x, gamma, beta, eps):
     if x.device.type == "cpu":
         return layernorm_plain(x, gamma, beta, eps)
     if x.device.type != "cuda":
@@ -95,7 +103,17 @@ def fused_layernorm_bwd(x, gamma, dy, eps=1e-5):
     """(dx, dgamma, dbeta) of the LayerNorm of x (R, C) with gamma (C,) for
     the output gradient dy (R, C): dx in x's dtype, dgamma and dbeta in
     gamma's. On the card dgamma and dbeta are summed in a fixed order, so
-    two calls on the same inputs give bit-equal results."""
+    two calls on the same inputs give bit-equal results. The kernel's
+    outputs carry no graph; a CPU call under ``create_graph`` runs the plain
+    version's torch ops, which do."""
+    if torch.is_grad_enabled() and x.device.type == "cpu":
+        return IMPLS["fused_layernorm_bwd"](x, gamma, dy, float(eps))
+    with torch.no_grad():
+        return _layernorm_bwd_op(x, gamma, dy, float(eps))
+
+
+@implementation("fused_layernorm_bwd")
+def _layernorm_bwd(x, gamma, dy, eps):
     if x.device.type == "cpu":
         return layernorm_bwd_plain(x, gamma, dy, eps)
     if x.device.type != "cuda":
@@ -123,27 +141,58 @@ def fused_layernorm_bwd(x, gamma, dy, eps=1e-5):
 fused_layernorm_bwd.launches = 0  # kernel launches since the last reset
 
 
-class _LayerNorm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, gamma, beta, eps):
-        ctx.save_for_backward(x, gamma)
-        ctx.eps = eps
-        return fused_layernorm(x, gamma, beta, eps)
+@torch.library.custom_op("mxnet_tpu_torch::layernorm_fwd", mutates_args=())
+def _layernorm_fwd_op(x: torch.Tensor, gamma: torch.Tensor,
+                      beta: torch.Tensor, eps: float) -> torch.Tensor:
+    return IMPLS["fused_layernorm"](x, gamma, beta, eps)
 
-    @staticmethod
-    def backward(ctx, dy):
-        x, gamma = ctx.saved_tensors
-        if torch.is_grad_enabled():  # autograd.grad(create_graph=True)
-            no_second_order("layernorm_bwd", x)
-            return (*layernorm_bwd_plain(x, gamma, dy, ctx.eps), None)
-        # a profiler range: the backward's host time. Its kernels come from
-        # the extension, not from torch ops, so the range holds no device
-        # time; a trace reads that from the kernels' names (layernorm_bwd_)
-        with torch.profiler.record_function("mxnet_tpu_torch::layernorm_bwd"):
-            dx, dg, db = fused_layernorm_bwd(x, gamma, dy, ctx.eps)
-        return dx, dg, db, None
+
+@_layernorm_fwd_op.register_fake
+def _(x, gamma, beta, eps):
+    fake_check("layernorm", x)
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("mxnet_tpu_torch::layernorm_bwd", mutates_args=())
+def _layernorm_bwd_op(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+                      eps: float) -> tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    return tuple(IMPLS["fused_layernorm_bwd"](x, gamma, dy, eps))
+
+
+@_layernorm_bwd_op.register_fake
+def _(x, gamma, dy, eps):
+    fake_check("layernorm_bwd", x)
+    C = x.shape[-1]
+    return (torch.empty_like(x), gamma.new_empty((C,)),
+            gamma.new_empty((C,)))
+
+
+def _ln_setup(ctx, inputs, output):
+    x, gamma, _, eps = inputs
+    ctx.save_for_backward(x, gamma)
+    ctx.eps = eps
+
+
+def _ln_backward(ctx, dy):
+    x, gamma = ctx.saved_tensors
+    if torch.is_grad_enabled():  # autograd.grad(create_graph=True)
+        no_second_order("layernorm_bwd", x)
+        return (*layernorm_bwd_plain(x, gamma, dy, ctx.eps), None)
+    if torch.compiler.is_compiling():  # compiled autograd: no range
+        return (*_layernorm_bwd_op(x, gamma, dy.contiguous(), ctx.eps),
+                None)
+    # a profiler range: the backward's host time. Its kernels come from
+    # the extension, not from torch ops, so the range holds no device
+    # time; a trace reads that from the kernels' names (layernorm_bwd_)
+    with torch.profiler.record_function("mxnet_tpu_torch::layernorm_bwd"):
+        dx, dg, db = _layernorm_bwd_op(x, gamma, dy.contiguous(), ctx.eps)
+    return dx, dg, db, None
+
+
+_layernorm_fwd_op.register_autograd(_ln_backward, setup_context=_ln_setup)
 
 
 def layernorm(x, gamma, beta, eps=1e-5):
     """:func:`fused_layernorm`, differentiable in x, gamma and beta."""
-    return _LayerNorm.apply(x, gamma, beta, eps)
+    return _layernorm_fwd_op(x, gamma, beta, float(eps))

@@ -8,18 +8,20 @@ shaped as they are, and what bounds them, is written there): any V, fp32 or
 bf16 logits, no padding of V, rows at any stride of at least V (a padded
 vocabulary sliced to V is read where it lies, not copied).
 
-:func:`softmax_xent_fwd` and :func:`softmax_xent_bwd` take the plain
+:func:`softmax_xent_fwd` and :func:`softmax_xent_bwd` call the ops
+``mxnet_tpu_torch::xent_fwd`` and ``::xent_bwd``, which take the plain
 version for CPU tensors and launch the kernel for CUDA tensors, or raise;
 they never fall back from the card to the plain version. :func:`softmax_xent`
-is the differentiable op (a ``torch.autograd.Function`` mirroring the JAX
-``custom_vjp``): its forward saves the fp32 lse, its backward launches the
-backward kernel.
+is the differentiable op (the forward op with an autograd formula mirroring
+the JAX ``custom_vjp``): its forward saves the fp32 lse, its backward calls
+the backward op.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _build, no_second_order
+from . import (IMPLS, _build, fake_check, implementation,
+               no_second_order)
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -84,6 +86,11 @@ def _on_card(x):
 def softmax_xent_fwd(x, labels):
     """(loss, lse) of logits x (R, V) under int32 labels (R,), both (R,)
     float32."""
+    return _xent_fwd_op(x, labels)
+
+
+@implementation("softmax_xent_fwd")
+def _xent_fwd(x, labels):
     if x.device.type == "cpu":
         return softmax_xent_fwd_plain(x, labels)
     _on_card(x)
@@ -98,7 +105,17 @@ def softmax_xent_fwd(x, labels):
 
 def softmax_xent_bwd(x, labels, lse, dy):
     """dx (R, V), contiguous, in x's dtype from the logits, labels, the
-    forward's lse and the loss gradient dy (R,) float32."""
+    forward's lse and the loss gradient dy (R,) float32. The kernel's
+    output carries no graph; a CPU call under ``create_graph`` runs the
+    plain version's torch ops, which do."""
+    if torch.is_grad_enabled() and x.device.type == "cpu":
+        return IMPLS["softmax_xent_bwd"](x, labels, lse, dy)
+    with torch.no_grad():
+        return _xent_bwd_op(x, labels, lse, dy)
+
+
+@implementation("softmax_xent_bwd")
+def _xent_bwd(x, labels, lse, dy):
     if x.device.type == "cpu":
         return softmax_xent_bwd_plain(x, labels, lse, dy)
     _on_card(x)
@@ -121,23 +138,50 @@ softmax_xent_fwd.launches = 0  # kernel launches since the last reset
 softmax_xent_bwd.launches = 0
 
 
-class _SoftmaxXent(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, labels):
-        loss, lse = softmax_xent_fwd(x, labels)
-        ctx.save_for_backward(x, labels, lse)
-        return loss
+@torch.library.custom_op("mxnet_tpu_torch::xent_fwd", mutates_args=())
+def _xent_fwd_op(x: torch.Tensor, labels: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    return tuple(IMPLS["softmax_xent_fwd"](x, labels))
 
-    @staticmethod
-    def backward(ctx, dloss):
-        x, labels, lse = ctx.saved_tensors
-        dy = dloss.to(torch.float32).contiguous()
-        if torch.is_grad_enabled():  # autograd.grad(create_graph=True)
-            no_second_order("softmax_xent_bwd", x)
-            # the saved lse carries no graph: recompute it from x
-            lse = torch.logsumexp(x.float(), dim=-1)
-            return softmax_xent_bwd_plain(x, labels, lse, dy), None
-        return softmax_xent_bwd(x, labels, lse, dy), None
+
+@_xent_fwd_op.register_fake
+def _(x, labels):
+    fake_check("softmax-xent", x)
+    R = x.shape[0]
+    return (x.new_empty((R,), dtype=torch.float32),
+            x.new_empty((R,), dtype=torch.float32))
+
+
+@torch.library.custom_op("mxnet_tpu_torch::xent_bwd", mutates_args=())
+def _xent_bwd_op(x: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor,
+                 dy: torch.Tensor) -> torch.Tensor:
+    return IMPLS["softmax_xent_bwd"](x, labels, lse, dy)
+
+
+@_xent_bwd_op.register_fake
+def _(x, labels, lse, dy):
+    fake_check("softmax-xent backward", x)
+    return x.new_empty(x.shape)
+
+
+def _xent_setup(ctx, inputs, output):
+    x, labels = inputs
+    ctx.save_for_backward(x, labels, output[1])
+    ctx.mark_non_differentiable(output[1])
+
+
+def _xent_backward(ctx, dloss, dlse):
+    x, labels, lse = ctx.saved_tensors
+    dy = dloss.to(torch.float32).contiguous()
+    if torch.is_grad_enabled():  # autograd.grad(create_graph=True)
+        no_second_order("softmax_xent_bwd", x)
+        # the saved lse carries no graph: recompute it from x
+        lse = torch.logsumexp(x.float(), dim=-1)
+        return softmax_xent_bwd_plain(x, labels, lse, dy), None
+    return _xent_bwd_op(x, labels, lse, dy), None
+
+
+_xent_fwd_op.register_autograd(_xent_backward, setup_context=_xent_setup)
 
 
 def softmax_xent(logits, labels):
@@ -146,4 +190,4 @@ def softmax_xent(logits, labels):
     are, never copied (a copy of a language model's logits is another
     0.8 GB): the kernels read rows at the view's own row stride, and a view
     whose columns are strided raises in the kernel's check."""
-    return _SoftmaxXent.apply(logits, labels.to(torch.int32).contiguous())
+    return _xent_fwd_op(logits, labels.to(torch.int32).contiguous())[0]

@@ -178,9 +178,9 @@ def _regression_output(transform, grad_fn, opname):
 
 
 LinearRegressionOutput = _regression_output(
-    lambda d: d, lambda out, y: out - y, "LinearRegressionOutput")
+    torch.clone, lambda out, y: out - y, "LinearRegressionOutput")
 MAERegressionOutput = _regression_output(
-    lambda d: d, lambda out, y: torch.sign(out - y), "MAERegressionOutput")
+    torch.clone, lambda out, y: torch.sign(out - y), "MAERegressionOutput")
 LogisticRegressionOutput = _regression_output(
     torch.sigmoid, lambda out, y: out - y, "LogisticRegressionOutput")
 

@@ -75,7 +75,9 @@ class _Embedding(torch.autograd.Function):
         rows = torch.where(flat < 0, flat + n, flat).clamp_(0, n - 1)
         ctx.save_for_backward(rows, valid)
         ctx.table = (weight.shape, weight.dtype)
-        return weight.index_select(0, rows).masked_fill_(
+        # out of place: a Function returning an in-place op's result loses
+        # its backward under torch.compile on torch 2.11 (base.cast_out)
+        return weight.index_select(0, rows).masked_fill(
             ~valid[:, None], float("nan"))
 
     @staticmethod

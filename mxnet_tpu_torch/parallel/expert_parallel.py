@@ -30,7 +30,7 @@ class _Mean(torch.autograd.Function):
         for group, n in groups:
             if n > 1:
                 dist.all_reduce(x, group=group)
-                x /= n
+                x = x / n  # a new tensor, not an in-place op's (cast_out)
         return x
 
     @staticmethod

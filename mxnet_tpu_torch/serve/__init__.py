@@ -27,33 +27,41 @@ def _register(server):
     _SERVERS.add(server)
 
 
-def load(prefix, snapshot=False, model=None, **server_kwargs):
-    """Warm-start a served model. ``snapshot=True``: a ready
-    ``GenerativeServer`` from an artifact ``serve.snapshot`` wrote (this
-    package's or the JAX package's), every program it lists captured
-    before the first request (``mxnet_tpu_torch.cache.snapshot``);
-    ``model=`` is the skeleton, extra kwargs reach the server's
-    constructor. The default, loading an export layout into a
-    ``SymbolBlock`` (``checkpoint.load_for_serving``), needs ``symbol``
-    (ROADMAP.md A.14) and raises."""
+def load(prefix, epoch=0, input_names=("data",), ctx=None, snapshot=False,
+         model=None, **server_kwargs):
+    """Warm-start a served model.
+
+    Default (``snapshot=False``): the export layout ``prefix-symbol.json``
+    and ``prefix-NNNN.params`` (this package's or the JAX package's) as a
+    ``SymbolBlock`` whose parameters carry the file's dtypes, on ``ctx``
+    (``checkpoint.load_for_serving``), ready for ``ModelServer``, which
+    captures the same bucket graphs as the exporting process's server.
+
+    ``snapshot=True``: a ready server from an artifact ``serve.snapshot``
+    wrote (either package's), every program it lists captured before the
+    first request (``mxnet_tpu_torch.cache.snapshot``): a ``ModelServer``
+    for a model artifact, a ``GenerativeServer`` for a generative one,
+    which needs ``model=`` (the skeleton; the decode protocol is code).
+    Extra kwargs reach the server's constructor."""
     if snapshot:
         from ..cache.snapshot import load_snapshot
 
         return load_snapshot(prefix, model=model, **server_kwargs)
-    raise ServeError("serve.load without snapshot=True reads an export "
-                     "layout into a SymbolBlock: not ported (ROADMAP.md "
-                     "A.14, checkpoint.load_for_serving)")
+    from ..checkpoint import load_for_serving
+
+    return load_for_serving(prefix, epoch=epoch, input_names=input_names,
+                            ctx=ctx)
 
 
-def snapshot(server, prefix, epoch=0):
-    """Write the serving artifact of a live, warmed ``GenerativeServer``:
-    its checkpoint, config and the list of its programs (see
-    ``load(prefix, snapshot=True)``). A ``ModelServer`` raises
-    ``ServeError``: its artifact needs ``save_for_serving``, which needs
-    ``symbol`` (ROADMAP.md A.14)."""
+def snapshot(server, prefix, input_names=None, epoch=0):
+    """Write the serving artifact of a live, warmed server: for a
+    ``ModelServer`` its export layout (``checkpoint.save_for_serving``)
+    and config, for a ``GenerativeServer`` its checkpoint, config and the
+    list of its programs (see ``load(prefix, snapshot=True)``)."""
     from ..cache.snapshot import save_snapshot
 
-    return save_snapshot(server, prefix, epoch=epoch)
+    return save_snapshot(server, prefix, input_names=input_names,
+                         epoch=epoch)
 
 
 def stats():

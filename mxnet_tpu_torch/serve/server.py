@@ -32,9 +32,10 @@ bucket graphs: the first runs on the model's parameters, the others on
 copies on their devices (made again if a parameter is given a new
 tensor); batches go round-robin over the replicas, one dispatcher thread
 a replica, ``swap_parameters`` copies into every replica and ``stats()``
-counts each (``replicas``). ``snapshot`` is not ported (it needs
-``save_for_serving``, hence ``symbol``: ROADMAP.md A.14), nor is the
-metrics endpoint (A.16).
+counts each (``replicas``). ``serve.snapshot(srv, prefix)`` writes the
+model's export layout and the server's config, and ``serve.load(prefix,
+snapshot=True)`` builds the server again from it (``cache/snapshot.py``).
+The metrics endpoint is not ported (A.16).
 """
 from __future__ import annotations
 

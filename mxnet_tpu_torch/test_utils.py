@@ -1,6 +1,8 @@
 """Testing helpers (ref: python/mxnet/test_utils.py; the JAX package's
 ``mxnet_tpu/test_utils.py``): comparisons of NDArrays with numpy values,
-random arrays and shapes, and a finite-difference gradient check."""
+random arrays and shapes, a finite-difference gradient check, and the
+symbolic checks (``check_symbolic_forward``/``check_symbolic_backward``,
+through ``Symbol.bind`` and the Executor, on the default context)."""
 from __future__ import annotations
 
 import numpy as np
@@ -92,3 +94,51 @@ def assert_exception(f, exception_type, *args, **kwargs):
     except exception_type:
         return
     raise AssertionError("%r did not raise %s" % (f, exception_type.__name__))
+
+
+def check_symbolic_forward(sym, inputs, expected, rtol=1e-5, atol=1e-8,
+                           ctx=None):
+    """Bind ``sym`` to ``inputs`` (positional, in ``list_arguments`` order)
+    on ``ctx`` and compare its outputs with ``expected`` (ref:
+    test_utils.py:check_symbolic_forward). Returns the outputs."""
+    names = sym.list_arguments()
+    args = {n: array(_np(v), ctx=ctx) for n, v in zip(names, inputs)}
+    outs = sym.bind(ctx=ctx or current_context(), args=args).forward()
+    if not isinstance(expected, (list, tuple)):
+        expected = [expected]
+    assert len(outs) == len(expected), (
+        "%d outputs vs %d expected values" % (len(outs), len(expected)))
+    for o, e in zip(outs, expected):
+        np.testing.assert_allclose(_np(o), _np(e), rtol=rtol, atol=atol)
+    return outs
+
+
+def check_symbolic_backward(sym, inputs, out_grads, expected_grads,
+                            rtol=1e-5, atol=1e-8, grad_req="write",
+                            ctx=None):
+    """Forward and backward ``sym`` on ``inputs`` with the output gradients
+    ``out_grads`` and compare the arguments' gradients with
+    ``expected_grads`` (a list in ``list_arguments`` order, or a dict by
+    name; ref: test_utils.py:check_symbolic_backward). Returns the
+    executor's ``grad_dict``."""
+    names = sym.list_arguments()
+    args = {n: array(_np(v), ctx=ctx) for n, v in zip(names, inputs)}
+    grads = {n: array(np.zeros_like(_np(v)), ctx=ctx)
+             for n, v in zip(names, inputs)}
+    ex = sym.bind(ctx=ctx or current_context(), args=args, args_grad=grads,
+                  grad_req=grad_req)
+    ex.forward(is_train=True)
+    ex.backward([array(_np(g), ctx=ctx) for g in out_grads]
+                if isinstance(out_grads, (list, tuple))
+                else array(_np(out_grads), ctx=ctx))
+    if isinstance(expected_grads, dict):
+        items = expected_grads.items()
+    else:
+        assert len(names) == len(expected_grads), (
+            "%d arguments vs %d expected gradients"
+            % (len(names), len(expected_grads)))
+        items = zip(names, expected_grads)
+    for n, e in items:
+        np.testing.assert_allclose(_np(ex.grad_dict[n]), _np(e), rtol=rtol,
+                                   atol=atol)
+    return ex.grad_dict

@@ -285,8 +285,6 @@ def test_not_ported_surfaces_name_their_items():
 
     with pytest.raises(NotImplementedError, match="A.14"):
         autograd.get_symbol(None)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        autograd.set_tape_compile(True)
 
 
 def _second_order(mx, op_fn, inputs, wrt):

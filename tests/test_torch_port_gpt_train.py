@@ -197,21 +197,23 @@ def test_softmax_xent_loss_at_odd_vocab_matches_jax(jax_trace_state,  # noqa: F8
 
 
 def test_the_loss_hands_the_kernel_the_logits_own_rows(monkeypatch):
-    """The (B*T, V) rows ``softmax_xent_rows`` hands the kernel wrapper are
-    a view of the (B, T, V) logits' own storage (no copy of a language
-    model's logits). A padded vocabulary sliced to V reaches the wrapper as
-    it is and passes the kernel's check (the kernel reads each row at the
-    view's row stride) with the plain version's loss and gradient of the
+    """The (B*T, V) rows ``softmax_xent_rows`` hands the kernel op's
+    implementation (``IMPLS["softmax_xent_fwd"]``, behind the wrapper and
+    its ``torch.library`` op) are a view of the (B, T, V) logits' own
+    storage (no copy of a language model's logits). A padded vocabulary
+    sliced to V reaches the implementation as it is and passes the
+    kernel's check (the kernel reads each row at the view's row stride)
+    with the plain version's loss and gradient of the
     same logits made contiguous; a view with strided columns is refused by
     the check, not copied."""
     seen = []
-    real = sx.softmax_xent_fwd
+    real = sx.IMPLS["softmax_xent_fwd"]
 
     def spy(x, labels):
         seen.append(x)
         return real(x, labels)
 
-    monkeypatch.setattr(sx, "softmax_xent_fwd", spy)
+    monkeypatch.setitem(sx.IMPLS, "softmax_xent_fwd", spy)
     logits = torch.randn(2, 5, 1001)
     labels = torch.randint(0, 1001, (2, 5))
     loss = gluon.loss.SoftmaxCrossEntropyLoss()(logits, labels)

@@ -7,7 +7,8 @@ layers, the model zoo, NDArray and the ``nd`` namespace, ``gluon.rnn``,
 the detection ops and the LSTM, SSD and Transformer models, the kvstore,
 ``dist``, ``parallel``, the converters and the model store, tensor,
 sequence, pipeline and expert parallelism and ``SyncBatchNorm``, the
-shared capture module and ``hybridize``'s programs included) imports
+shared capture module and ``hybridize``'s programs, the engine's bulk
+window and the symbolic API included) imports
 with JAX blocked; and without
 CUDA every entry point refuses to run unless the caller asks for the
 CPU."""
@@ -88,7 +89,11 @@ def test_package_imports_with_jax_blocked():
             "mxnet_tpu_torch.gluon.contrib.nn, mxnet_tpu_torch.init, "
             "mxnet_tpu_torch.gluon.model_zoo.model_store, "
             "mxnet_tpu_torch.capture, mxnet_tpu_torch.gluon.hybrid, "
-            "mxnet_tpu_torch.serve.step_graph; "
+            "mxnet_tpu_torch.serve.step_graph, mxnet_tpu_torch.engine, "
+            "mxnet_tpu_torch.name, mxnet_tpu_torch.attribute, "
+            "mxnet_tpu_torch.symbol, mxnet_tpu_torch.sym, "
+            "mxnet_tpu_torch.sym_contrib, mxnet_tpu_torch.shape_inference, "
+            "mxnet_tpu_torch.executor, mxnet_tpu_torch.visualization; "
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
@@ -241,3 +246,21 @@ def test_split_and_hybridized_paths_on_cuda_tensors_raise_without_a_card(
                                        merge=scope.xent_merge)
         with pytest.raises(DeviceError, match="CUDA"):
             net(x)
+
+
+def test_without_cuda_symbolic_entry_points_raise(monkeypatch, tmp_path):
+    """``simple_bind``, ``SymbolBlock.imports`` and ``serve.load`` run on
+    the card unless the caller asks for the CPU."""
+    from mxnet_tpu_torch import serve, sym
+    from mxnet_tpu_torch.base import DeviceError
+    from mxnet_tpu_torch.gluon import nn
+
+    net = nn.Dense(3, in_units=4)
+    net.initialize(device="cpu")
+    net.export(str(tmp_path / "d"), input_shapes=[(2, 4)])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceError):
+        sym.FullyConnected(sym.var("x"), num_hidden=3).simple_bind(x=(2, 4))
+    with pytest.raises(DeviceError):
+        serve.load(str(tmp_path / "d"))
+    assert serve.load(str(tmp_path / "d"), ctx="cpu") is not None

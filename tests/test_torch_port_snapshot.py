@@ -314,30 +314,35 @@ def test_a_load_without_the_draft_skips_speculative_programs(shared,
 
 
 def test_what_the_port_does_not_snapshot(shared, tmp_path):
-    """A ModelServer artifact needs save_for_serving (symbol, A.14); a
-    load without snapshot=True reads an export layout (A.14); a serialized
-    executable is refused; ``serve.stats()`` carries every live server and
-    the process-wide count of programs made."""
+    """A ModelServer artifact is its model's export layout: it round trips
+    through ``serve.load(snapshot=True)`` to a server with the same rows;
+    a load without ``snapshot=True`` of a missing export layout raises; a
+    serialized executable is refused; ``serve.stats()`` carries every live
+    server and the process-wide count of programs made."""
     from mxnet_tpu_torch import gluon
     from mxnet_tpu_torch.serve import ModelServer
 
     net = gluon.nn.Dense(3, in_units=4)
     net.initialize(device="cpu")
     ms = ModelServer(net, [((4,), "float32")], buckets=(1,), device="cpu")
-    with pytest.raises(ServeError, match="A.14"):
-        serve.snapshot(ms, str(tmp_path / "m"))
+    serve.snapshot(ms, str(tmp_path / "m"))
+    back = serve.load(str(tmp_path / "m"), snapshot=True, device="cpu")
+    x = np.arange(4, dtype=np.float32).reshape(1, 4)
+    np.testing.assert_array_equal(back.predict(x)[0], ms.predict(x)[0])
+    back.stop()
     srv = _port_server(shared["port_model"])
     with pytest.raises(ServeError, match="no serialized executable"):
         srv.preload_executable("decode", 0, srv.cache.capacity,
                                compiled=object())
     with pytest.raises(ServeError, match="no draft"):
         srv.preload_executable("verify", 0, srv.cache.capacity)
-    with pytest.raises(ServeError, match="A.14"):
-        serve.load(str(tmp_path / "x"))
+    with pytest.raises(FileNotFoundError):
+        serve.load(str(tmp_path / "x"), ctx="cpu")
     st = serve.stats()
     assert st["step_capture_counter"] >= srv.stats()["step_captures"] > 0
     assert srv.name in st["servers"] and ms.name in st["servers"]
     srv.stop()
+    ms.stop()
 
 
 def test_a_bare_skeleton_is_quantized_on_the_card_unless_asked(

@@ -50,6 +50,17 @@ built:
   path at {dp: 1, tp: 1} against the plain step);
 - ``hybridize``: ``phase_hybridize`` (the GPT-2 small step through
   ``hybridize()`` and the Trainer's step program against the eager step);
+- ``library_ops``: ``phase_library_ops`` (each kernel as its
+  ``torch.library`` op against its plain version, ``opcheck``, eager
+  against ``torch.compile`` launches, a planted fake);
+- ``bulk``: ``phase_bulk`` (a 15-op ``nd`` chain as one program);
+- ``tape_replay``: ``phase_tape_replay`` (the NDArray GPT-2 step with the
+  compiled tape replay against the eager walk; GPT-2 through
+  ``torch.compile(fullgraph=True)``);
+- ``symbol_serve``: ``phase_symbol_serve`` (BERT-base served from its
+  export layout through ``serve.load`` and a ``SymbolBlock``);
+- ``symbol_train``: ``phase_symbol_train`` (GPT-2 small trained through
+  ``simple_bind`` and the captured ``Executor``);
 - ``mp``: ``phase_model_parallel`` (the GPT-2 step inside
   ``sequence_parallel_scope`` at sp = 1, ring and Ulysses, against the
   plain step; the n = 4 ring replayed on the card against the
@@ -170,7 +181,12 @@ GROUPS = {"kernels": run_kernels, "spec": run_spec,
           "dist": run_dist,
           "mp": lambda cs, dev: cs.phase_model_parallel(dev),
           "tp": lambda cs, dev: cs.phase_tp_compute(dev),
-          "hybridize": lambda cs, dev: cs.phase_hybridize(dev)}
+          "hybridize": lambda cs, dev: cs.phase_hybridize(dev),
+          "library_ops": lambda cs, dev: cs.phase_library_ops(dev),
+          "bulk": lambda cs, dev: cs.phase_bulk(dev),
+          "tape_replay": lambda cs, dev: cs.phase_tape_replay(dev),
+          "symbol_serve": lambda cs, dev: cs.phase_symbol_serve(dev),
+          "symbol_train": lambda cs, dev: cs.phase_symbol_train(dev)}
 
 
 def main(argv):
