@@ -10913,6 +10913,936 @@ def phase_symbol_train(dev):
     return out
 
 
+# ------------------------------------------ A.14 closed, A.15's host I/O
+# path (a): GPT-2 small (GPT_TRAIN's recipe) through Module.fit, Adam
+# lr 1e-4 with fp32 masters, three batches of MODULE_FIT_BATCHES
+MODULE_FIT_BATCHES = 3
+MODULE_OPT = {"learning_rate": 1e-4, "multi_precision": True}
+# path (b): the bench.py bert step fed by the Gluon data path
+PIPELINE_SAMPLES = 256
+PIPELINE_WORKERS = 2
+# path (c): LSTM PTB through the legacy API: sentence lengths a bucket
+LSTM_BUCKETS = (10, 20, 35)
+BUCKET_LENGTHS = {10: (5, 10), 20: (11, 20), 35: (21, 35)}
+BUCKET_EPOCHS = 2
+# control flow at the LSTM's width, fp32 with TF32 off: the foreach LSTM
+# against the fused RNN op, a captured graph against the same graph eagerly
+CF_LSTM_TOL = 1e-4
+CF_EAGER_TOL = 1e-6
+
+
+def _module_loss(sym_file):
+    """``MakeLoss(mean(softmax_xent_rows(logits, label)))`` over an
+    export's logits (``phase_symbol_train``'s loss as a Module head)."""
+    from mxnet_tpu_torch import sym, symbol
+
+    logits = symbol.load(sym_file)
+    return sym.MakeLoss(sym.mean(sym.softmax_xent_rows(logits,
+                                                       sym.var("label"))))
+
+
+def _programs_read_current_weights(mod):
+    """How many of the module's parameters the program of its last
+    training forward read at values other than the parameters' current
+    ones (a stale weight)."""
+    import torch
+    from mxnet_tpu_torch.symbol import _Program
+
+    ex = mod._exec
+    state = ex._last[0]
+    read = state.static if isinstance(state, _Program) else state[0]
+    return sum(not torch.equal(t.detach(), mod._arg_params[n]._data)
+               for n, t in zip(ex._names, read) if n in mod._arg_params)
+
+
+def _stale_update(mod):
+    """A planted fault: ``Module.update`` stepping copies of the weights
+    (new arrays the executor does not hold), the stale-weight trap."""
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.module import Module
+
+    def update():
+        for n in list(mod._arg_params):
+            mod._arg_params[n] = nd.NDArray(mod._arg_params[n]._data.clone())
+        Module.update(mod)
+
+    return update
+
+
+def phase_module_fit(dev):
+    """Path (a): GPT-2 small exported at (8, 1024), the loss
+    ``MakeLoss(mean(softmax_xent_rows))`` as a ``Module`` fed by
+    ``io.PrefetchingIter(io.NDArrayIter(...))`` over three seeded batches,
+    ``fit(optimizer="adam")``; then ``score`` (``metric.Loss``),
+    ``predict``, ``save_checkpoint``/``Module.load`` and a forward. Held to
+    the Gluon model's two eager steps from the same generator seed (loss
+    1e-2, first gradients GPT-2's limits), the first update to a
+    ``gluon.Trainer``'s Adam on the module's own gradients (1e-4), every
+    weight a training program read to the module's current one (a planted
+    update into copies must show), 25/25 LayerNorm, 12/12 flash and 1/1
+    softmax-xent a step, one forward and one backward capture; the loaded
+    module's eval forward bit for bit the saving module's."""
+    import torch
+    from mxnet_tpu_torch import autograd, checkpoint, gluon, io, metric, nd
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.context import context_from_device
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.ops import F
+    from mxnet_tpu_torch.util import load_npz_exact
+
+    t_phase = time.perf_counter()
+    step = GPTTrainStep(dev, "adam", dict(MODULE_OPT))
+    model, params = step.model, step.params
+    B, T = GPT_TRAIN["batch"], GPT_TRAIN["seq"]
+    ctx = context_from_device(dev)
+    prefix = _export_dir("gpt2_module")
+    sym_file, params_file = checkpoint.save_for_serving(
+        prefix, model, input_shapes=[(B, T)])
+    weights = load_npz_exact(params_file)
+    seq = np.random.default_rng(SEED + 19).integers(
+        0, GPT_CONFIG["vocab_size"],
+        (MODULE_FIT_BATCHES * B, T + 1)).astype(np.int32)
+    X, Y = np.ascontiguousarray(seq[:, :-1]), np.ascontiguousarray(seq[:, 1:])
+
+    def batch_tensors(i):
+        return [torch.from_numpy(a[i * B:(i + 1) * B]).to(dev)
+                for a in (X, Y)]
+
+    # the Gluon model: two eager steps from the seed, the Trainer between
+    mx_random.seed(SEED)
+    ref_losses = []
+    for i in range(2):
+        xb, yb = batch_tensors(i)
+        for p in params:
+            p.zero_grad()
+        with autograd.record():
+            loss = F.mean(F.softmax_xent_rows(model(xb), yb))
+        autograd.backward(loss)
+        ref_losses.append(float(loss))
+        if i == 0:
+            ref_grads = _grads_of(params)
+            step.trainer.step(1)
+
+    class StepLosses(metric.Loss):
+        def __init__(self):
+            super().__init__()
+            self.steps = []
+
+        def update(self, labels, preds):
+            self.steps.append(float(preds[0].asnumpy()))
+            super().update(labels, preds)
+
+    mod = Module(_module_loss(sym_file), data_names=("data",),
+                 label_names=("label",), context=ctx)
+    with ctx:
+        train_iter = io.PrefetchingIter(io.NDArrayIter(
+            X, Y, batch_size=B, label_name="label"))
+    mod.bind([("data", (B, T))], [("label", (B, T))])
+    mod.init_params(arg_params={n: nd.NDArray(w.to(dev))
+                                for n, w in weights.items()})
+    rows, first = [], {}
+    plain_fb, plain_update = mod.forward_backward, mod.update
+
+    def forward_backward(batch):
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        plain_fb(batch)
+        torch.cuda.synchronize()
+        rows.append({"launches": read_counters(),
+                     "wall_ms": (time.perf_counter() - t0) * 1e3,
+                     "stale_weights": _programs_read_current_weights(mod)})
+
+    def update():
+        if not first:
+            first["p0"] = {n: a._data.detach().clone()
+                           for n, a in mod._arg_params.items()}
+            first["grads"] = {n: g._data.detach().clone()
+                              for n, g in mod._exec.grad_dict.items()}
+        plain_update()
+        first.setdefault("p1", {n: a._data.detach().clone()
+                                for n, a in mod._arg_params.items()})
+
+    mod.forward_backward, mod.update = forward_backward, update
+    losses = StepLosses()
+    mx_random.seed(SEED)
+    t0 = time.perf_counter()
+    fit_result = mod.fit(train_iter, eval_metric=losses, optimizer="adam",
+                         optimizer_params=dict(MODULE_OPT))
+    fit_s = time.perf_counter() - t0
+    stats = dict(mod._exec.stats)
+    grads = [first["grads"][p.name] for p in params]
+    grad_reading = _grad_reading(step, grads, ref_grads)
+    # the first update against a gluon.Trainer's on the same gradients
+    tr = gluon.Trainer(model.collect_params(), "adam", dict(MODULE_OPT))
+    with torch.no_grad():
+        for p in params:
+            p._tensor().copy_(first["p0"][p.name])
+            p._tensor().grad = first["grads"][p.name].clone()
+    tr.step(1)
+    update_err = max(max_err(p._tensor(), first["p1"][p.name])
+                     for p in params)
+    del first, grads, ref_grads
+    # score and predict (eval forwards), then the checkpoint round trip
+    with ctx:
+        eval_iter = io.NDArrayIter(X, Y, batch_size=B, label_name="label")
+        (score_name, score), = mod.score(eval_iter, metric.Loss())
+        preds = mod.predict(eval_iter, merge_batches=False)
+    pred_mean = float(np.mean([float(o[0].asnumpy()) for o in preds]))
+    ck = _export_dir("gpt2_module_ck")
+    mod.save_checkpoint(ck, MODULE_FIT_BATCHES)
+    mod2 = Module.load(ck, MODULE_FIT_BATCHES, data_names=("data",),
+                       label_names=("label",), context=ctx)
+    mod2.bind([("data", (B, T))], [("label", (B, T))])
+    mod2.init_params()
+    loaded_dtypes = sorted({str(a._data.dtype)
+                            for a in mod2._arg_params.values()})
+    dtypes_kept = all(a._data.dtype == mod._arg_params[n]._data.dtype
+                      for n, a in mod2._arg_params.items())
+    xb, yb = batch_tensors(0)
+    b0 = io.DataBatch([nd.NDArray(xb)], [nd.NDArray(yb)])
+    saved_out = mod.forward(b0, is_train=False)[0]._data.clone()
+    loaded_out = mod2.forward(b0, is_train=False)[0]._data.clone()
+    loaded_bitwise = bool(torch.equal(saved_out, loaded_out))
+    del mod2
+    for suffix in ("-symbol.json", "-%04d.params" % MODULE_FIT_BATCHES):
+        if os.path.exists(ck + suffix):
+            os.remove(ck + suffix)
+    # planted: Module.update into copies of the weights
+    mod.update = _stale_update(mod)
+    planted_stale = []
+    with ctx:
+        for batch in io.NDArrayIter(X[:2 * B], Y[:2 * B], batch_size=B,
+                                    label_name="label"):
+            mod.forward(batch, is_train=True)
+            planted_stale.append(_programs_read_current_weights(mod))
+            mod.backward()
+            mod.update()
+    del mod, step, model
+    torch.cuda.empty_cache()
+    routes = _predict_routes(dev, ctx, sym_file, weights, X)
+    _drop_export(prefix)
+    torch.cuda.empty_cache()
+    out = {"card": card_line(), "losses": losses.steps,
+           "fit_result": list(fit_result), "fit_s": fit_s,
+           "gluon_losses": ref_losses,
+           "first_loss_abs_err": abs(losses.steps[0] - ref_losses[0]),
+           "first_loss_bitwise": losses.steps[0] == ref_losses[0],
+           "second_loss_abs_err": abs(losses.steps[1] - ref_losses[1]),
+           "grads": grad_reading, "first_update_max_err": update_err,
+           "launches": [r["launches"] for r in rows],
+           "step_wall_ms": [r["wall_ms"] for r in rows],
+           "stale_weights": [r["stale_weights"] for r in rows],
+           "planted_stale_weights": planted_stale, "stats": stats,
+           "score": [score_name, score], "predict_mean": pred_mean,
+           "loaded_dtypes": loaded_dtypes, "loaded_dtypes_kept": dtypes_kept,
+           "loaded_bitwise": loaded_bitwise, "predict_routes": routes,
+           "phase_seconds": time.perf_counter() - t_phase}
+    print("module fit: GPT-2 small, 3 steps of Module.fit over a "
+          "PrefetchingIter: losses %s (Gluon %s; first |diff| %.3g, bit for "
+          "bit %s; second |diff| %.3g); first gradients vs Gluon: worst %.3g,"
+          " row %.3g; first update vs gluon.Trainer %.3g; stale weights read "
+          "%s, planted %s; executor %s; launches a step %s; score %s = %.6f, "
+          "predict mean %.6f; checkpoint reload %s bit for bit %s; step walls"
+          " %s ms; logits predict by route %s; %.1f s, %s" % (
+              ["%.6f" % v for v in losses.steps],
+              ["%.6f" % v for v in ref_losses], out["first_loss_abs_err"],
+              out["first_loss_bitwise"], out["second_loss_abs_err"],
+              grad_reading["worst_grad_rel_l2"],
+              grad_reading["worst_row_rel_l2"], update_err,
+              out["stale_weights"], planted_stale, stats, out["launches"][0],
+              score_name, score, pred_mean, loaded_dtypes, loaded_bitwise,
+              ["%.1f" % w for w in out["step_wall_ms"]], routes,
+              out["phase_seconds"], out["card"]), flush=True)
+    L = GPT_CONFIG["num_layers"]
+    want = {"layernorm": 2 * L + 1, "layernorm_bwd": 2 * L + 1,
+            "flash_attention_fwd": L, "flash_attention_bwd": L,
+            "softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
+            "flash_attention_fwd_f32": 0}
+    check(len(rows) == MODULE_FIT_BATCHES,
+          "module fit: %d steps, not %d" % (len(rows), MODULE_FIT_BATCHES))
+    for i, got in enumerate(out["launches"]):
+        check(got == want, "module fit step %d: launches %s" % (i, got))
+    check(all(np.isfinite(losses.steps)), "module fit: a loss not finite")
+    check(out["first_loss_abs_err"] <= STEP_LOSS_TOL,
+          "module fit: first loss %.6f, the Gluon model's %.6f"
+          % (losses.steps[0], ref_losses[0]))
+    check(out["second_loss_abs_err"] <= STEP_LOSS_TOL,
+          "module fit: second loss %.6f, the Gluon Trainer's %.6f"
+          % (losses.steps[1], ref_losses[1]))
+    check(grad_reading["within"], "module fit: the first gradients outside "
+          "GPT-2's limits: %s" % grad_reading)
+    check(update_err <= 1e-4, "module fit: the first update %.3g from "
+          "gluon.Trainer's on the same gradients" % update_err)
+    check(stats == {"forward_captures": 1, "backward_captures": 1,
+                    "forward_replays": MODULE_FIT_BATCHES,
+                    "backward_replays": MODULE_FIT_BATCHES,
+                    "recaptures": 0}, "module fit: executor %s" % stats)
+    check(all(s == 0 for s in out["stale_weights"]),
+          "module fit: a program read a stale weight: %s"
+          % out["stale_weights"])
+    check(planted_stale[-1] > 0, "module fit: the planted update into "
+          "copies of the weights went unseen: %s" % planted_stale)
+    check(score_name == "loss" and abs(score - pred_mean) <= 1e-6 * abs(
+        score), "module fit: score %.7f against predict's %.7f"
+          % (score, pred_mean))
+    check(dtypes_kept and "torch.bfloat16" in loaded_dtypes
+          and loaded_bitwise, "module fit: the loaded module's eval forward "
+          "(dtypes %s, kept %s) is not the saving module's bit for bit"
+          % (loaded_dtypes, dtypes_kept))
+    check(routes["stats"] == {"pool": MODULE_FIT_BATCHES,
+                              "per_batch": MODULE_FIT_BATCHES}
+          and routes["dtypes"] == ["torch.bfloat16"] * 2
+          and routes["devices"] == [torch.device(dev).type] * 2
+          and routes["rel_err"] <= 1e-2,
+          "module fit: predict's pool and per-batch routes apart: %s"
+          % routes)
+    return out
+
+
+def _predict_routes(dev, ctx, sym_file, weights, X):
+    """GPT-2 small's logits (8 x 1024 x 50257, bf16) through
+    ``Module.predict`` both ways over the fit's three batches: the pool (a
+    hybridized ``SymbolBlock`` under ``BucketedExecutor``, its inputs and
+    outputs on the card) and the per-batch forward (the ``Executor``'s
+    captured eval program). Each route's second, warm call timed; the
+    rows of one against the other's."""
+    import torch
+    from mxnet_tpu_torch import io, nd, symbol
+    from mxnet_tpu_torch.module import Module
+
+    B, T = GPT_TRAIN["batch"], GPT_TRAIN["seq"]
+    pm = Module(symbol.load(sym_file), data_names=("data",), label_names=(),
+                context=ctx)
+    pm.bind([("data", (B, T))], for_training=False)
+    pm.init_params(arg_params={n: nd.NDArray(w.to(dev))
+                               for n, w in weights.items()})
+    with ctx:
+        it = io.NDArrayIter(X, batch_size=B)
+    got, ms = {}, {}
+    for route in ("pool", "per_batch"):
+        pm._pred_pool = None if route == "pool" else (None, None)
+        for _ in range(2):
+            pm.predict_stats = {"pool": 0, "per_batch": 0}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ctx:
+                outs = pm.predict(it, merge_batches=False)
+            torch.cuda.synchronize()
+        ms[route] = (time.perf_counter() - t0) * 1e3
+        got[route] = ([o[0]._data for o in outs],
+                      pm.predict_stats[route])
+    pool, per = got["pool"][0], got["per_batch"][0]
+    err = max(max_err(a, b) for a, b in zip(pool, per))
+    mag = max(float(b.float().abs().max()) for b in per)
+    out = {"pool_ms": ms["pool"], "per_batch_ms": ms["per_batch"],
+           "max_abs_err": err, "rel_err": err / mag,
+           "dtypes": [str(pool[0].dtype), str(per[0].dtype)],
+           "devices": [pool[0].device.type, per[0].device.type],
+           "stats": {k: v[1] for k, v in got.items()}}
+    del pm, got, pool, per, outs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pipeline_step(step, parts, seed):
+    """One step of the bert recipe on a batch as NDArrays (the idiom):
+    record, backward; the per-sample loss and the launches."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch import random as mx_random
+
+    tok, tt, vl, mp, mlm_y, nsp_y = parts
+    mx_random.seed(seed)
+    reset_counters()
+    with autograd.record():
+        _, _, nsp, mlm = step.model(tok, tt, vl, mp)
+        loss = step.mlm_loss(mlm, mlm_y) + step.nsp_loss(nsp, nsp_y)
+    loss.backward()
+    return loss, read_counters()
+
+
+def _rebinding_clip(arrays, max_norm):
+    """A planted fault: ``clip_global_norm`` as the JAX package writes it,
+    each array rebound to a scaled copy (a Parameter's gradient, which the
+    Trainer reads, stays unscaled)."""
+    import math
+
+    total = 0.0
+    for a in arrays:
+        total += float((a._data.float() ** 2).sum())
+    norm = math.sqrt(total)
+    scale = max_norm / (norm + 1e-8)
+    if scale < 1.0:
+        for a in arrays:
+            a._data = a._data * scale
+    return norm
+
+
+def phase_data_pipeline(dev):
+    """Path (b): the ``bench.py`` ``bert`` step (BERT128, ``TrainStep``'s
+    model, amp and Adam) fed by ``DataLoader(ArrayDataset(256 seeded
+    samples), batch 64, a seeded RandomSampler, last_batch="discard",
+    num_workers=2, pin_memory=True)``, ``split_and_load(batch, [gpu(0)])``,
+    ``record``/``backward``, ``clip_global_norm`` at half the first step's
+    norm and ``trainer.step(64)``. Each consumed batch equals the same
+    loader's on the CPU byte for byte; the first loss equals ``TrainStep``
+    fed the same batch directly bit for bit; the norm is within 1e-6 of an
+    fp64 norm; the update equals one from gradients scaled by hand (bit for
+    bit), which a planted rebinding clip must miss; 26/26 LayerNorm and
+    2/2 softmax-xent a step, no flash; the process-worker loader gives the
+    same batches and its workers saw no CUDA device."""
+    import torch
+    from mxnet_tpu_torch import cpu, gluon
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.context import context_from_device
+    from mxnet_tpu_torch.gluon import data as gdata
+    from mxnet_tpu_torch.gluon import utils as gutils
+
+    t_phase = time.perf_counter()
+    step = TrainStep(dev, BERT128)
+    params = step.params
+    B = BERT128["batch"]
+    arrays = make_batch(np.random.default_rng(SEED + 31), PIPELINE_SAMPLES,
+                        BERT128["seq"], BERT128["masked"])
+    ds = gdata.ArrayDataset(*arrays)
+
+    def loader(**kw):
+        return gdata.DataLoader(
+            ds, batch_size=B, last_batch="discard",
+            sampler=gdata.RandomSampler(PIPELINE_SAMPLES, seed=SEED), **kw)
+
+    with cpu():
+        want = [[a.asnumpy() for a in b] for b in loader()]
+    ctx = context_from_device(dev)
+    consumed, rows = [], []
+    t0 = time.perf_counter()
+    for i, batch in enumerate(loader(num_workers=PIPELINE_WORKERS,
+                                     pin_memory=True)):
+        parts = [gutils.split_and_load(b, [ctx])[0] for b in batch]
+        consumed.append([p.asnumpy() for p in parts])
+        if i == 0:  # TrainStep fed the same batch directly
+            step.batch = [p._data for p in parts]
+            mx_random.seed(SEED + 40)
+            direct = step(update=False)
+        loss, launches = _pipeline_step(step, parts, SEED + 40 + i)
+        grads = [p.grad() for p in params]
+        row = {"loss": float(loss.mean().asscalar()), "launches": launches}
+        if i == 0:
+            row["loss_bitwise_direct"] = bool(torch.equal(loss._data,
+                                                          direct))
+            g0 = [g._data.detach().clone() for g in grads]
+            p0 = [p._tensor().detach().clone() for p in params]
+            norm0 = gutils.clip_global_norm(grads, float("inf"))
+            max_norm = norm0 / 2
+            fp64 = float(np.sqrt(sum(float((g.double() ** 2).sum())
+                                     for g in g0)))
+            row["norm"], row["norm_fp64"] = norm0, fp64
+        norm = gutils.clip_global_norm(grads, max_norm)
+        step.trainer.step(B)
+        row["clip_norm"] = norm
+        if i == 0:
+            pa = [p._tensor().detach().clone() for p in params]
+            scale = max_norm / (norm0 + 1e-8)
+            readings = {}
+            for label, clip in (("by_hand", None),
+                                ("planted_rebinding_clip", _rebinding_clip)):
+                tr = gluon.Trainer(step.model.collect_params(), "adam", {
+                    "learning_rate": 1e-4, "wd": 0.01,
+                    "multi_precision": True})
+                with torch.no_grad():
+                    for p, w, g in zip(params, p0, g0):
+                        p._tensor().copy_(w)
+                        p._tensor().grad = g * scale if clip is None \
+                            else g.clone()
+                if clip is not None:
+                    clip([p.grad() for p in params], max_norm)
+                tr.step(B)
+                readings[label] = sum(not torch.equal(p._tensor(), a)
+                                      for p, a in zip(params, pa))
+            with torch.no_grad():
+                for p, a in zip(params, pa):
+                    p._tensor().copy_(a)
+            row["params_apart"] = readings
+            del g0, p0, pa
+        rows.append(row)
+    pipeline_s = time.perf_counter() - t0
+    same = len(consumed) == len(want) and all(
+        all(np.array_equal(a, b) for a, b in zip(c, w))
+        for c, w in zip(consumed, want))
+    procs = loader(num_workers=PIPELINE_WORKERS, thread_pool=False)
+    t0 = time.perf_counter()
+    with ctx:
+        proc_batches = [[a.asnumpy() for a in b] for b in procs]
+    proc_s = time.perf_counter() - t0
+    reports = procs.worker_reports + procs.worker_probe()
+    procs.close()
+    proc_same = len(proc_batches) == len(want) and all(
+        all(np.array_equal(a, b) for a, b in zip(c, w))
+        for c, w in zip(proc_batches, want))
+    del step
+    torch.cuda.empty_cache()
+    out = {"card": card_line(), "steps": rows, "batches_equal_cpu": same,
+           "pipeline_s": pipeline_s, "process_batches_equal_cpu": proc_same,
+           "process_loader_s": proc_s, "worker_reports": reports,
+           "phase_seconds": time.perf_counter() - t_phase}
+    r0 = rows[0]
+    print("data pipeline: bert128 fed by DataLoader(pin_memory, %d threads):"
+          " %d batches equal the CPU loader's %s; losses %s, the first bit "
+          "for bit TrainStep's %s; norm %.9g against fp64 %.9g, clipped to "
+          "%.6g; parameters apart from the hand-scaled update %s; launches a "
+          "step %s; process workers: batches equal %s, reports %s; %.1f s, "
+          "%s" % (PIPELINE_WORKERS, len(rows), same,
+                  ["%.5f" % r["loss"] for r in rows],
+                  r0["loss_bitwise_direct"], r0["norm"], r0["norm_fp64"],
+                  max_norm, r0["params_apart"], r0["launches"], proc_same,
+                  reports, out["phase_seconds"], out["card"]), flush=True)
+    want_l = dict(STEP_LAUNCHES, flash_attention_fwd=0, flash_attention_bwd=0,
+                  flash_attention_fwd_f32=0)
+    check(len(rows) == PIPELINE_SAMPLES // B, "data pipeline: %d steps"
+          % len(rows))
+    for i, r in enumerate(rows):
+        check(all(r["launches"][k] == n for k, n in want_l.items()),
+              "data pipeline step %d: launches %s" % (i, r["launches"]))
+        check(np.isfinite(r["loss"]), "data pipeline: loss not finite")
+    check(same, "data pipeline: a consumed batch differs from the CPU "
+          "loader's")
+    check(r0["loss_bitwise_direct"], "data pipeline: the first loss is not "
+          "TrainStep's on the same batch bit for bit")
+    check(abs(r0["norm"] - r0["norm_fp64"]) <= 1e-6 * r0["norm_fp64"],
+          "data pipeline: norm %.9g against fp64 %.9g" % (r0["norm"],
+                                                          r0["norm_fp64"]))
+    check(r0["params_apart"]["by_hand"] == 0, "data pipeline: the clipped "
+          "update differs from the hand-scaled one in %d parameters"
+          % r0["params_apart"]["by_hand"])
+    check(r0["params_apart"]["planted_rebinding_clip"] > 0,
+          "data pipeline: the planted rebinding clip went unseen")
+    check(proc_same, "data pipeline: the process-worker loader's batches "
+          "differ")
+    check(all(r["CUDA_VISIBLE_DEVICES"] == "" and not r["cuda_initialized"]
+              and r["device_count"] == 0 for r in reports),
+          "data pipeline: a worker process saw the card: %s" % reports)
+    return out
+
+
+def _bucket_sentences():
+    rng = np.random.default_rng(SEED + 37)
+    out = []
+    for b in LSTM_BUCKETS:
+        lo, hi = BUCKET_LENGTHS[b]
+        for _ in range(LSTM_RECIPE["batch"]):
+            out.append(list(rng.integers(1, LSTM_RECIPE["vocab"],
+                                         int(rng.integers(lo, hi + 1)))))
+    return out
+
+
+def _sym_lstm_cell(S, x, h, c, layer, H):
+    """One LSTM step (gates i, f, g, o, as the fused op) in Symbols over
+    the layer's variables ``l<layer>_{i2h,h2h}_{weight,bias}``."""
+    def fc(inp, kind):
+        return S.FullyConnected(inp, S.var("l%d_%s_weight" % (layer, kind)),
+                                S.var("l%d_%s_bias" % (layer, kind)),
+                                num_hidden=4 * H)
+
+    gates = fc(x, "i2h") + fc(h, "h2h")
+
+    def gate(k):
+        return S.slice_axis(gates, axis=1, begin=k * H, end=(k + 1) * H)
+
+    c2 = S.sigmoid(gate(1)) * c + S.sigmoid(gate(0)) * S.tanh(gate(2))
+    return S.sigmoid(gate(3)) * S.tanh(c2), c2
+
+
+def phase_control_flow(dev, tokens):
+    """Control flow at the LSTM's width (650, batch 32, 35 steps), fp32
+    with TF32 off: a 2-layer LSTMCell unrolled by ``sym.contrib.foreach``
+    over the bucket-35 batch's embeddings, bound and captured, against the
+    fused ``RNN`` op on the same weights; a ``while_loop`` graph and a
+    ``cond`` graph through the captured Executor against the same graphs
+    eagerly; the cond's gradient where its unselected branch (log at 0 and
+    below) has an infinite derivative; a predicate computed once a run in
+    the program (``_cond_predicate_runs``)."""
+    import torch
+    from mxnet_tpu_torch import gluon, nd, sym
+
+    H, N = 650, LSTM_RECIPE["batch"]
+    T = tokens.shape[0]
+    g = torch.Generator(device=dev).manual_seed(SEED + 43)
+    lstm = gluon.rnn.LSTM(H, num_layers=2, input_size=H)
+    lstm.initialize(device=dev, generator=g)
+    emb = torch.randn(LSTM_RECIPE["vocab"], H, device=dev, generator=g)
+    x = emb[tokens.long()]
+    zeros = torch.zeros(2, N, H, device=dev)
+    with torch.no_grad():
+        ref, (hn, cn) = lstm(x, [zeros, zeros])
+
+    def body(xt, states):
+        h0, c0, h1, c1 = states
+        h0, c0 = _sym_lstm_cell(sym, xt, h0, c0, 0, H)
+        h1, c1 = _sym_lstm_cell(sym, h0, h1, c1, 1, H)
+        return h1, [h0, c0, h1, c1]
+
+    names = ["h0", "c0", "h1", "c1"]
+    outs, states = sym.contrib.foreach(body, sym.var("x"),
+                                       [sym.var(n) for n in names])
+    graph = sym.Group([outs] + states)
+    args = {"x": nd.NDArray(x)}
+    args.update({n: nd.NDArray(torch.zeros(N, H, device=dev))
+                 for n in names})
+    for p in lstm.collect_params().values():
+        args[p.name[len(lstm.prefix):]] = nd.NDArray(p._tensor().detach())
+    ex = graph.bind(dev, args)
+    got = [o._data for o in ex.forward(is_train=False)]
+    foreach_err = max(max_err(got[0], ref), max_err(got[1], hn[0]),
+                      max_err(got[2], cn[0]), max_err(got[3], hn[1]),
+                      max_err(got[4], cn[1]))
+    foreach_captured = ex.stats["forward_captures"] == 1
+    # a while_loop and a cond graph: captured against eager
+    w = torch.randn(H, H, device=dev, generator=g) / H ** 0.5
+    i0 = sym.var("i0")
+    xv = sym.var("xv")
+
+    def wl_func(vs):
+        i, v = vs
+        nv = sym.tanh(sym.FullyConnected(v, sym.var("w"), num_hidden=H,
+                                         no_bias=True))
+        return nv, [i + 1.0, nv]
+
+    wl_out, (wl_i, wl_x) = sym.contrib.while_loop(
+        lambda vs: vs[0] < 20.0, wl_func, [i0, xv], max_iterations=25)
+    wl_graph = sym.Group([wl_out, wl_i, wl_x])
+    wl_args = {"i0": nd.NDArray(torch.zeros(1, device=dev)),
+               "xv": nd.NDArray(x[0]), "w": nd.NDArray(w)}
+    wl_ex = wl_graph.bind(dev, wl_args)
+    wl_cap = [o._data for o in wl_ex.forward(is_train=False)]
+    wl_eager = [o._data for o in wl_graph.eval(**wl_args)]
+    wl_err = max(max_err(a, b) for a, b in zip(wl_cap, wl_eager))
+    p, xc = sym.var("p"), sym.var("xc")
+    cond_graph = sym.contrib.cond(p, lambda: xc * 3.0 + 1.0,
+                                  lambda: sym.log(xc))
+    xcv = x[0].clone()
+    xcv[:, :8] = 0.0
+    xcv[:, 8:16] = -1.0
+    c_args = {"p": nd.NDArray(torch.ones(1, device=dev)),
+              "xc": nd.NDArray(xcv)}
+    c_grads = {"xc": nd.NDArray(torch.zeros_like(xcv)),
+               "p": nd.NDArray(torch.zeros(1, device=dev))}
+    c_ex = cond_graph.bind(dev, c_args, c_grads)
+    c_cap = c_ex.forward(is_train=True)[0]._data.clone()
+    c_ex.backward()
+    c_grad = c_ex.grad_dict["xc"]._data
+    c_eager = cond_graph.eval(**c_args)[0]._data
+    cond_err = max_err(c_cap, c_eager)
+    cond_grad_finite = bool(torch.isfinite(c_grad).all())
+    cond_grad_err = float((c_grad - 3.0).abs().max())
+    pred_reading = _cond_predicate_runs(dev, x[0], xcv)
+    out = {"foreach_lstm_max_err": foreach_err,
+           "foreach_captured": foreach_captured,
+           "foreach_stats": dict(ex.stats),
+           "while_captured_vs_eager": wl_err,
+           "while_stats": dict(wl_ex.stats),
+           "cond_captured_vs_eager": cond_err,
+           "cond_grad_finite": cond_grad_finite,
+           "cond_grad_max_err": cond_grad_err,
+           "cond_stats": dict(c_ex.stats), "cond_predicates": pred_reading}
+    print("control flow at (%d, %d, %d), fp32: foreach LSTM against the "
+          "fused RNN op %.3g (captured %s); while_loop captured against "
+          "eager %.3g; cond %.3g, its gradient finite %s (|g - 3| %.3g) "
+          "with log at 0 and -1 in the unselected branch; predicates "
+          "computed in the program %s" % (
+              T, N, H, foreach_err, foreach_captured, wl_err, cond_err,
+              cond_grad_finite, cond_grad_err, pred_reading), flush=True)
+    check(foreach_captured and foreach_err <= CF_LSTM_TOL,
+          "control flow: foreach LSTM %.3g from the fused RNN op"
+          % foreach_err)
+    check(wl_err <= CF_EAGER_TOL, "control flow: the captured while_loop "
+          "%.3g from eager" % wl_err)
+    check(cond_err <= CF_EAGER_TOL, "control flow: the captured cond %.3g "
+          "from eager" % cond_err)
+    check(cond_grad_finite and cond_grad_err == 0.0,
+          "control flow: the cond's gradient %s (finite %s)"
+          % (cond_grad_err, cond_grad_finite))
+    r = pred_reading
+    check(r["steady_launches"] == {"layernorm": 1}
+          and r["flip_launches"] == {"layernorm": 2},
+          "control flow: a cond's predicate launched %s in a steady forward "
+          "and %s in a flipped one" % (r["steady_launches"],
+                                      r["flip_launches"]))
+    check(r["steady_reruns"] == 0 and r["flip_reruns"] == 1
+          and r["flip_err"] <= CF_EAGER_TOL,
+          "control flow: a cond forward ran again %d times steady, %d "
+          "flipped; flipped %.3g from eager" % (
+              r["steady_reruns"], r["flip_reruns"], r["flip_err"]))
+    check(r["dropout_branch_mismatches"] == 0 and 0 < r["dropout_then"]
+          < r["dropout_forwards"],
+          "control flow: a predicate over a dropout: %d forwards took the "
+          "branch their own mask did not pick, then taken %d of %d"
+          % (r["dropout_branch_mismatches"], r["dropout_then"],
+             r["dropout_forwards"]))
+    return out
+
+
+def _cond_predicate_runs(dev, xrow, xcv):
+    """A captured cond whose predicate launches the LayerNorm kernel
+    (``mean(LayerNorm(x)) > t``): one launch a steady forward, two and one
+    run again where the predicate flips, the flipped output equal to eager.
+    Then a predicate over a Dropout the branches share, 16 captured
+    training forwards: each takes the branch its own mask picks."""
+    import torch
+    from mxnet_tpu_torch import engine, nd, sym
+
+    def nonzero(d):
+        return {k: v for k, v in d.items() if v}
+
+    xs, g, b, t = sym.var("xs"), sym.var("g"), sym.var("b"), sym.var("t")
+    pred = sym.mean(sym.LayerNorm(xs, g, b)) > t
+    graph = sym.contrib.cond(pred, lambda: xs * 3.0 + 1.0,
+                             lambda: sym.log(xs))
+    H = xrow.shape[-1]
+    args = {"xs": nd.NDArray(xrow.abs() + 0.5),
+            "g": nd.NDArray(torch.ones(H, device=dev)),
+            "b": nd.NDArray(torch.zeros(H, device=dev)),
+            "t": nd.NDArray(torch.full((1,), -1.0, device=dev))}
+    ex = graph.bind(dev, args)
+    for _ in range(2):
+        ex.forward(is_train=False)
+    torch.cuda.synchronize()
+    reset_counters()
+    reruns = engine.cond_rerun_counter.count
+    ex.forward(is_train=False)
+    torch.cuda.synchronize()
+    out = {"steady_launches": nonzero(read_counters()),
+           "steady_reruns": engine.cond_rerun_counter.count - reruns}
+    flipped = dict(args, t=nd.NDArray(torch.ones(1, device=dev)))
+    reset_counters()
+    reruns = engine.cond_rerun_counter.count
+    got = ex.forward(is_train=False, t=flipped["t"])[0]._data
+    torch.cuda.synchronize()
+    out.update(flip_launches=nonzero(read_counters()),
+               flip_reruns=engine.cond_rerun_counter.count - reruns,
+               flip_err=max_err(got, graph.eval(**flipped)[0]._data))
+    xd = sym.var("xd")
+    d = sym.Dropout(xd, p=0.5)
+    n = xcv.numel()
+    dg = sym.Group([sym.contrib.cond(sym.sum(d) > float(n), lambda: d * 2.0,
+                                     lambda: d * 3.0), d])
+    dex = dg.bind(dev, {"xd": nd.NDArray(torch.ones(n, device=dev))})
+    bad = then = 0
+    for _ in range(16):
+        o, dv = [a._data for a in dex.forward(is_train=True)]
+        took = bool(dv.sum() > n)
+        then += took
+        bad += int(not torch.equal(o, dv * (2.0 if took else 3.0)))
+    out.update(dropout_forwards=16, dropout_then=then,
+               dropout_branch_mismatches=bad,
+               dropout_stats=dict(dex.stats))
+    return out
+
+
+def phase_bucketing_lstm(dev):
+    """Path (c): LSTM PTB (``lstm_ptb``, 650 x 2, vocab 10000, tied, bf16;
+    batch 32, dropout 0.5) through the legacy API: ``rnn.BucketSentenceIter``
+    (buckets 10, 20, 35, ``invalid_label=0``, layout ``TN``) feeding
+    ``BucketingModule(sym_gen, default_bucket_key=35)`` whose ``sym_gen``
+    traces the model with Symbols under ``MakeLoss(mean(
+    softmax_xent_rows))``, SGD lr 1.0 with fp32 masters, two epochs. One
+    executor a bucket sharing the parameter and optimizer-state dicts, one
+    forward and one backward capture each, 1/1 softmax-xent a step; each
+    bucket's first loss within 1e-2 of the Gluon model's eager loss on the
+    same batch from the same generator seed (the masks of the embedding,
+    between-layer and output dropouts then agree) and its gradients within
+    PR 14's LSTM limits. Then ``phase_control_flow`` at the same width."""
+    import torch
+    from mxnet_tpu_torch import amp, autograd, nd, rnn, sym
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.context import context_from_device
+    from mxnet_tpu_torch.models.lstm_lm import lstm_ptb
+    from mxnet_tpu_torch.module import BucketingModule
+    from mxnet_tpu_torch.ops import F
+
+    t_phase = time.perf_counter()
+    V, N, H = LSTM_RECIPE["vocab"], LSTM_RECIPE["batch"], 650
+    model = lstm_ptb(vocab_size=V, tie_weights=True, dropout=0.5)
+    model.initialize(device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    amp.convert_hybrid_block(model, "bfloat16")
+    params = list(model.collect_params().values())
+    ctx = context_from_device(dev)
+    with ctx:
+        it = rnn.BucketSentenceIter(
+            _bucket_sentences(), N, buckets=list(LSTM_BUCKETS),
+            invalid_label=0, label_name="label", layout="TN", dtype="int32")
+
+    def sym_gen(T):
+        data = sym.var("data", shape=(T, N), dtype="int32")
+        states = [sym.zeros((2, N, H)), sym.zeros((2, N, H))]
+        logits, _ = model(data, states)
+        loss = sym.MakeLoss(sym.mean(sym.softmax_xent_rows(
+            logits, sym.var("label"))))
+        return loss, ("data",), ("label",)
+
+    bm = BucketingModule(sym_gen, default_bucket_key=max(LSTM_BUCKETS),
+                         context=ctx)
+    bm.bind(it.provide_data, it.provide_label)
+    bm.init_params(arg_params={p.name: nd.NDArray(p._tensor().detach()
+                                                   .clone())
+                               for p in params})
+    bm.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 1.0, "multi_precision": True})
+    rows, firsts, tokens35 = [], {}, None
+    with ctx:
+        for epoch in range(BUCKET_EPOCHS):
+            it.reset()
+            for batch in it:
+                key = batch.bucket_key
+                x, y = batch.data[0]._data, batch.label[0]._data
+                if key == max(LSTM_BUCKETS):
+                    tokens35 = x
+                if key not in firsts:  # the Gluon model, the module's weights
+                    with torch.no_grad():
+                        for p in params:
+                            p._tensor().copy_(bm._arg_params[p.name]._data)
+                            p.zero_grad()
+                    mx_random.seed(SEED + key)
+                    with autograd.record():
+                        ref = F.softmax_xent_rows(model(x), y).mean()
+                    autograd.backward(ref)
+                    firsts[key] = {"ref_loss": float(ref),
+                                   "ref_grads": _grads_of(params)}
+                    mx_random.seed(SEED + key)
+                torch.cuda.synchronize()
+                reset_counters()
+                loss = float(bm.forward(batch, is_train=True)[0].asscalar())
+                bm.backward()
+                launches = read_counters()
+                if "loss" not in firsts[key]:
+                    ex = bm._curr_module._exec
+                    grads = [ex.grad_dict[p.name]._data for p in params]
+                    f = firsts.pop(key)
+                    firsts[key] = {
+                        "loss": loss, "ref_loss": f["ref_loss"],
+                        "loss_abs_err": abs(loss - f["ref_loss"]),
+                        "worst_grad_rel_l2": grad_rel_l2(
+                            params, grads, f["ref_grads"])[0][0],
+                        "worst_row_rel_l2": grad_row_rel_l2(
+                            params, grads, f["ref_grads"])[0][0]}
+                bm.update()
+                rows.append({"epoch": epoch, "bucket": key, "loss": loss,
+                             "launches": launches, "rows": int(x.numel())})
+    shared = all(m._arg_params is bm._arg_params
+                 and m._opt_states is bm._opt_states
+                 for m in bm._buckets.values())
+    stats = {k: dict(m._exec.stats) for k, m in sorted(bm._buckets.items())}
+    control = phase_control_flow(dev, tokens35.to(dev))
+    del bm, model
+    torch.cuda.empty_cache()
+    out = {"card": card_line(), "steps": rows, "first_steps": firsts,
+           "buckets": sorted(stats), "shared_dicts": shared,
+           "executor_stats": stats, "control_flow": control,
+           "phase_seconds": time.perf_counter() - t_phase}
+    print("bucketing lstm: lstm_ptb through BucketingModule, buckets %s, %d "
+          "steps: losses %s; first steps against the Gluon model %s; "
+          "executors %s, sharing the dicts %s; launches a step %s; %.1f s, "
+          "%s" % (list(LSTM_BUCKETS), len(rows),
+                  ["%.4f" % r["loss"] for r in rows],
+                  {k: {n: "%.3g" % v for n, v in f.items()}
+                   for k, f in firsts.items()}, stats, shared,
+                  rows[0]["launches"], out["phase_seconds"], out["card"]),
+          flush=True)
+    for r in rows:
+        ln = {k: v for k, v in r["launches"].items()
+              if k not in ("softmax_xent_fwd", "softmax_xent_bwd")}
+        check(r["launches"]["softmax_xent_fwd"] == 1
+              and r["launches"]["softmax_xent_bwd"] == 1
+              and not any(ln.values()),
+              "bucketing lstm: launches %s" % r["launches"])
+        check(np.isfinite(r["loss"]), "bucketing lstm: a loss not finite")
+    check(sorted(stats) == sorted(LSTM_BUCKETS) and shared,
+          "bucketing lstm: executors %s, shared %s" % (sorted(stats),
+                                                       shared))
+    for k, s in stats.items():
+        check(s == {"forward_captures": 1, "backward_captures": 1,
+                    "forward_replays": BUCKET_EPOCHS,
+                    "backward_replays": BUCKET_EPOCHS, "recaptures": 0},
+              "bucketing lstm: bucket %s executor %s" % (k, s))
+    for k, f in firsts.items():
+        check(f["loss_abs_err"] <= STEP_LOSS_TOL,
+              "bucketing lstm: bucket %s first loss %.6f, Gluon %.6f"
+              % (k, f["loss"], f["ref_loss"]))
+        check(f["worst_grad_rel_l2"] <= A11_GRAD_TOL
+              and f["worst_row_rel_l2"] <= A11_ROW_TOL,
+              "bucketing lstm: bucket %s gradients %s" % (k, f))
+    return out
+
+
+def phase_get_symbol(dev):
+    """Path (d): the NDArray GPT-2 small forward and loss
+    (``phase_nd_train``'s recipe, recorded in predict mode so no dropout
+    draws) through ``autograd.get_symbol``, bound and run on the card: its
+    output equals the recorded loss bit for bit, with 25 LayerNorm, 12
+    flash and 1 softmax-xent forward launches; ``tojson`` refuses it."""
+    import torch
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.context import context_from_device
+
+    t_phase = time.perf_counter()
+    step = GPTTrainStep(dev)
+    ctx = context_from_device(dev)
+    x = nd.NDArray(step.inp)
+    y = nd.NDArray(step.tgt)
+    with autograd.record(train_mode=False):
+        loss = step.loss_fn(step.model(x), y)
+    s = autograd.get_symbol(loss)
+    args = s.list_arguments()
+    ex = s.bind(ctx, {"arg0": x, "arg1": y})
+    ex.forward(is_train=False)  # the capture
+    torch.cuda.synchronize()
+    reset_counters()
+    got = ex.forward(is_train=False)[0]._data.clone()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    bitwise = bool(torch.equal(got, loss._data.detach()))
+    try:
+        s.tojson()
+        refused = False
+    except ValueError:
+        refused = True
+    del step, ex
+    torch.cuda.empty_cache()
+    L = GPT_CONFIG["num_layers"]
+    want = {"layernorm": 2 * L + 1, "layernorm_bwd": 0,
+            "flash_attention_fwd": L, "flash_attention_bwd": 0,
+            "softmax_xent_fwd": 1, "softmax_xent_bwd": 0,
+            "flash_attention_fwd_f32": 0}
+    out = {"card": card_line(), "arguments": args, "bitwise": bitwise,
+           "launches": launches, "tojson_refused": refused,
+           "phase_seconds": time.perf_counter() - t_phase}
+    print("get_symbol: GPT-2 small's recorded forward and loss as a Symbol "
+          "over %s, bound on the card: equal to the recorded loss bit for "
+          "bit %s; launches a forward %s; tojson refused %s; %.1f s, %s" % (
+              args, bitwise, launches, refused, out["phase_seconds"],
+              out["card"]), flush=True)
+    check(args == ["arg0", "arg1"], "get_symbol: arguments %s" % args)
+    check(bitwise, "get_symbol: the graph's output is not the recorded loss")
+    check(launches == want, "get_symbol: launches %s" % launches)
+    check(refused, "get_symbol: tojson accepted a host closure")
+    return out
+
+
+def run_slice19(dev):
+    """The four paths of A.14's close and A.15's host I/O, each timed."""
+    out = {}
+    for name, phase in (("module_fit", phase_module_fit),
+                        ("data_pipeline", phase_data_pipeline),
+                        ("bucketing_lstm", phase_bucketing_lstm),
+                        ("get_symbol", phase_get_symbol)):
+        t0 = time.perf_counter()
+        out[name] = phase(dev)
+        out[name]["phase_seconds"] = time.perf_counter() - t0
+    print("A.14/A.15 phases: %s s" % {
+        k: round(v["phase_seconds"], 1) for k, v in out.items()}, flush=True)
+    return out
+
+
 def card_line():
     """The card's name and power limit, as ``nvidia-smi --query-gpu=
     name,power.limit --format=csv,noheader`` gives them."""
@@ -11056,6 +11986,7 @@ def main():
         print("A.13/A.14 phases: %s s" % {
             k: round(v["phase_seconds"], 1) for k, v in symbolic.items()},
             flush=True)
+        slice19 = run_slice19(dev)
         records, crossover = phase_timing(
             dev, train["launches"], train["steps_counted"], errs,
             serve_launches, forwards, serve_vl)
@@ -11113,7 +12044,7 @@ def main():
                       "convert": converted, "dist_train": dist_train,
                       "model_parallel": model_parallel,
                       "tp_compute": tp_compute, "hybridize": hybridize,
-                      "symbolic": symbolic,
+                      "symbolic": symbolic, "module_and_data": slice19,
                       "decode_step_graphs": graphs, "quantized": quant,
                       "speculative": spec, "chunked_prefill": chunked,
                       "attention_dense_vs_flash": crossover,

@@ -22,7 +22,11 @@ tensor, ring and Ulysses sequence, pipeline and expert parallelism) over
 ``torch.distributed``. It has MXNet's symbolic API (``sym``, ``symbol``,
 ``Executor``, ``HybridBlock.export`` and ``SymbolBlock``, serving from the
 export layout) and the engine's bulk window and compiled tape replay
-(``engine``, ``autograd.set_tape_compile``). Entry points run on the
+(``engine``, ``autograd.set_tape_compile``), symbol and ``nd`` control
+flow and ``autograd.get_symbol``, the Module API (``mod``/``module``,
+``model``, ``callback``, ``monitor``, ``metric``, the legacy ``rnn``), and
+the host I/O (``io`` iterators, ``recordio``, ``gluon.data`` with the
+DataLoader and the device prefetcher, ``gluon.utils``). Entry points run on the
 current CUDA device unless the caller passes ``device="cpu"`` (or
 ``ctx=mx.cpu()``, or enters ``with mx.cpu():``). The package imports
 neither JAX nor anything of ``mxnet_tpu``.
@@ -38,6 +42,9 @@ from . import ndarray, nd, linalg, test_utils  # noqa: F401
 from . import kvstore, dist, parallel  # noqa: F401
 from . import engine, name, attribute, symbol, sym, sym_contrib  # noqa: F401
 from . import executor, visualization  # noqa: F401
+from . import io, recordio, metric, model, module, callback  # noqa: F401
+from . import monitor, rnn  # noqa: F401
+from . import module as mod  # noqa: F401
 from . import visualization as viz  # noqa: F401
 from .attribute import AttrScope  # noqa: F401
 from .context import Context, current_context  # noqa: F401

@@ -48,14 +48,24 @@ traced), and ``grad(create_graph=True)``.
 ``grad_req`` holds as on the eager path: the compiled backward is the same
 ``torch.autograd.backward`` with ``inputs=``.
 
-Not here: ``get_symbol`` (``ROADMAP.md`` A.14's rest).
+:func:`get_symbol` reads a forward record of its own: torch's graph keeps
+no op's forward function, where the JAX tape keeps each op's primal. Under
+``record()`` each ``nd`` op (its registry function and attrs), each
+NDArray call of a Gluon block (its eager forward: a hybridized block's
+program is replayed through the block's own ops) and each
+:class:`Function` (opaque) appends an entry naming its inputs and outputs
+by tokens, serial numbers held for each tensor in a weak-keyed map: an
+entry pins no tensor, and a freed tensor's reused ``id()`` gets a new
+token. The record starts afresh at each outermost ``record()``.
 """
 from __future__ import annotations
 
+import itertools
 import os
 import threading
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "backward", "grad", "mark_variables", "Function",
@@ -69,6 +79,9 @@ class _State(threading.local):
         # id(variable) -> (Parameter or NDArray, the tensor the recorded
         # graph read)
         self.params = {}
+        # get_symbol's forward record: _Entry list, and tensor -> token
+        self.record = []
+        self.tokens = WeakIdKeyDictionary()
 
 
 _st = _State()
@@ -96,6 +109,7 @@ class _RecordScope:
         if self._rec is not None:
             if self._rec and not _st.recording:
                 _st.params = {}  # fresh per outermost record scope
+                _st.record = []
             _st.recording = self._rec
             self._grad_mode = torch.set_grad_enabled(self._rec)
         if self._train is not None:
@@ -485,12 +499,145 @@ class Function:
         ts = [unwrap(a, rec) for a in inputs]
         with torch.set_grad_enabled(rec):
             outs = _FunctionNode.apply(self, *ts)
+        if rec:
+            _record_entry(None, ts, {}, outs)
         wrapped = [NDArray(o) for o in outs]
         return wrapped[0] if len(wrapped) == 1 else tuple(wrapped)
 
 
+# ------------------------------------------------------------ forward record
+
+_tokens = itertools.count(1)
+
+
+class _Tok:
+    """A tensor argument of a recorded entry: its token, shape and dtype."""
+
+    __slots__ = ("tok", "shape", "dtype", "produced")
+
+    def __init__(self, t):
+        tok = _st.tokens.get(t)
+        if tok is None:
+            tok = _st.tokens[t] = next(_tokens)
+        self.tok = tok
+        self.shape = tuple(t.shape)
+        self.dtype = t.dtype
+        # a tensor some unrecorded op computed under record(): it cannot be
+        # a leaf of the recovered graph
+        self.produced = t.grad_fn is not None
+
+
+def _template(x):
+    """``x`` with each tensor replaced by its :class:`_Tok`."""
+    if isinstance(x, torch.Tensor):
+        return _Tok(x)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_template(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _template(v) for k, v in x.items()}
+    return x
+
+
+def _fill(x, env):
+    if isinstance(x, _Tok):
+        return env[x.tok]
+    if isinstance(x, (list, tuple)):
+        return type(x)(_fill(v, env) for v in x)
+    if isinstance(x, dict):
+        return {k: _fill(v, env) for k, v in x.items()}
+    return x
+
+
+def _toks(x):
+    if isinstance(x, _Tok):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _toks(v)]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _toks(v)]
+    return []
+
+
+def _flat_tensors(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _flat_tensors(o)]
+    return []
+
+
+class _Entry:
+    __slots__ = ("fn", "args", "kwargs", "training", "outs")
+
+    def __init__(self, fn, args, kwargs, outs):
+        self.fn = fn
+        self.args = _template(list(args))
+        self.kwargs = _template(dict(kwargs))
+        self.training = _st.training
+        self.outs = [_Tok(o).tok for o in _flat_tensors(outs)]
+
+
+def _record_entry(fn, args, kwargs, outs):
+    """Append an entry to this thread's forward record: ``fn(*args,
+    **kwargs)`` gave ``outs`` (tensors, through lists and tuples); ``fn``
+    None for an opaque node."""
+    _st.record.append(_Entry(fn, args, kwargs, outs))
+
+
 def get_symbol(x):
-    """The recorded history as a Symbol: not ported yet (the symbolic core
-    is, ``symbol.py``; recovering a graph from the tape is A.14's rest)."""
-    raise NotImplementedError("autograd.get_symbol is not ported yet "
-                              "(ROADMAP.md A.14's rest)")
+    """The recorded history of ``x`` as a Symbol (ref:
+    python/mxnet/autograd.py:get_symbol): the forward record pruned to what
+    ``x`` depends on, replayed as one ``_callable`` node over the record's
+    leaf arrays, the variables ``arg0..argN`` in first-use order. It
+    evaluates, binds and differentiates like any Symbol; ``tojson`` refuses
+    it. Raises ``ValueError`` without a history and ``NotImplementedError``
+    across an opaque node (an :class:`Function`, ``nd.contrib`` control
+    flow) or a leaf an unrecorded op computed under ``record()``."""
+    from . import symbol as _symbol
+    from .ndarray import NDArray
+
+    if not isinstance(x, NDArray):
+        raise TypeError("get_symbol expects an NDArray, got %r" % type(x))
+    x_tok = _st.tokens.get(x._data)
+    needed = set() if x_tok is None else {x_tok}
+    tape = []
+    for e in reversed(_st.record):
+        if any(o in needed for o in e.outs):
+            if e.fn is None:
+                raise NotImplementedError(
+                    "get_symbol across an imperative CustomOp tape node is "
+                    "not supported (its forward is not replayable)")
+            tape.append(e)
+            needed.update(t.tok for t in _toks((e.args, e.kwargs)))
+    tape.reverse()
+    if not tape:
+        raise ValueError(
+            "array has no recorded computation history; call get_symbol on "
+            "an output computed under autograd.record()")
+    produced, leaves, seen = set(), [], set()
+    for e in tape:
+        for t in _toks((e.args, e.kwargs)):
+            if t.tok not in produced and t.tok not in seen:
+                if t.produced:
+                    raise NotImplementedError(
+                        "get_symbol: an input of the history was computed "
+                        "under record() by an operation the record does not "
+                        "hold")
+                seen.add(t.tok)
+                leaves.append(t)
+        produced.update(e.outs)
+    leaf_toks = [t.tok for t in leaves]
+    arg_vars = [_symbol.var("arg%d" % k, shape=t.shape, dtype=t.dtype)
+                for k, t in enumerate(leaves)]
+
+    def replay(*leaf_vals):
+        env = dict(zip(leaf_toks, leaf_vals))
+        for e in tape:
+            with _RecordScope(None, e.training):
+                out = e.fn(*_fill(e.args, env), **_fill(e.kwargs, env))
+            for o, v in zip(e.outs, _flat_tensors(out)):
+                env[o] = v
+        return env[x_tok]
+
+    return _symbol.Symbol(op="_callable", inputs=arg_vars,
+                          attrs={"fn": replay}, name="autograd_history")

@@ -71,6 +71,14 @@ tape_cache_hit_counter = DispatchCounter("tape_cache_hit")
 tape_eager_counter = DispatchCounter("tape_eager")
 # symbolic executors: one bump per program captured
 symbol_compile_counter = DispatchCounter("symbol_compile")
+# control flow's host reads: a cond's predicate (an Executor keys its
+# program on it; nd.contrib.cond reads it each call) and each step of an
+# unbounded nd.contrib.while_loop
+cond_host_read_counter = DispatchCounter("cond_host_read")
+while_host_read_counter = DispatchCounter("while_host_read")
+# an Executor's forward run again because a predicate its program computed
+# picked another branch than the program was keyed on
+cond_rerun_counter = DispatchCounter("cond_rerun")
 
 # off by default, where upstream's and the JAX package's window holds 15
 # ops (ROADMAP.md C.2): on the card a window's program measured slower than

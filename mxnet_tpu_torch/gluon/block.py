@@ -25,6 +25,7 @@ keyed by global names (``ParameterDict.save``).
 """
 from __future__ import annotations
 
+import functools
 import re
 import threading
 from collections import OrderedDict
@@ -116,6 +117,13 @@ def _is_sym(a):
 
     return isinstance(a, Symbol) or (isinstance(a, (list, tuple)) and any(
         isinstance(x, Symbol) for x in a))
+
+
+def _replay_call(block, *args, **kwargs):
+    """``block``'s call run through its own ops, its programs (and its
+    children's) set aside: what ``autograd.get_symbol`` replays."""
+    with _hybrid._Body():
+        return torch.nn.Module.__call__(block, *args, **kwargs)
 
 
 def _any_symbol(args, kwargs):
@@ -399,7 +407,11 @@ class HybridBlock(Block):
             rec = autograd.is_recording()
             args = [_unwrap(a, rec) for a in args]
             kwargs = {k: _unwrap(v, rec) for k, v in kwargs.items()}
-            return wrap(super().__call__(*args, **kwargs))
+            out = super().__call__(*args, **kwargs)
+            if rec:  # autograd.get_symbol replays the block's own ops
+                autograd._record_entry(functools.partial(_replay_call, self),
+                                       args, kwargs, out)
+            return wrap(out)
         return super().__call__(*args, **kwargs)
 
     def forward(self, *args, **kwargs):

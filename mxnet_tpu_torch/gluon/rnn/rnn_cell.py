@@ -14,6 +14,7 @@ import torch
 from ... import autograd
 from ...ndarray import NDArray, unwrap, wrap
 from ..block import HybridBlock
+from ..nn.basic_layers import _symbolic
 
 __all__ = ["RecurrentCell", "RNNCell", "LSTMCell", "GRUCell",
            "SequentialRNNCell", "HybridSequentialRNNCell",
@@ -229,8 +230,9 @@ class DropoutCell(RecurrentCell):
 
     def hybrid_forward(self, F, inputs, states):
         if self._rate > 0:
-            inputs = F.Dropout(inputs, p=self._rate,
-                               training=autograd.is_training())
+            kw = {} if _symbolic(inputs) else {
+                "training": autograd.is_training()}  # a graph: is_train
+            inputs = F.Dropout(inputs, p=self._rate, **kw)
         return inputs, states
 
 

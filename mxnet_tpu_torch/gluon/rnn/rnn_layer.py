@@ -17,6 +17,7 @@ import torch
 from ... import autograd
 from ...ops.rnn import GATES
 from ..block import HybridBlock
+from ..nn.basic_layers import _symbolic
 
 __all__ = ["RNN", "LSTM", "GRU"]
 
@@ -94,10 +95,11 @@ class _RNNLayer(HybridBlock):
             h0 = states[0] if isinstance(states, (list, tuple)) else states
             c0 = torch.zeros_like(h0)
         weights = [params[n] for n in self._weight_names()]
-        out, hn, cn = F.RNN(x, h0, c0, *weights, mode=self._mode,
-                            num_layers=self._num_layers,
-                            bidirectional=self._dir == 2, p=self._dropout,
-                            training=autograd.is_training())
+        kw = dict(mode=self._mode, num_layers=self._num_layers,
+                  bidirectional=self._dir == 2, p=self._dropout)
+        if not _symbolic(x):  # in a graph the executor's is_train sets it
+            kw["training"] = autograd.is_training()
+        out, hn, cn = F.RNN(x, h0, c0, *weights, **kw)
         if self._layout == "NTC":
             out = out.transpose(0, 1)
         if not return_states:

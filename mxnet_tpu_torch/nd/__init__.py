@@ -57,7 +57,6 @@ _NOT_PORTED_BY_ITEM = {
         "spatial_transformer"),
     "A.11/A.17 (pose)": ("heatmap_to_coords", "pose_target"),
     "A.11 (ctc)": ("CTCLoss", "ctc_loss"),
-    "A.14 (control flow)": ("_cond", "_foreach", "_while"),
 }
 NOT_PORTED = {name: item for item, names in _NOT_PORTED_BY_ITEM.items()
               for name in names}

@@ -1,13 +1,14 @@
 """``mx.nd.contrib`` (counterpart of ``mxnet_tpu/nd/contrib.py``): the
-contrib names of the ported ops; the rest, and the control flow
-(``cond``/``foreach``/``while_loop``), raise ``NotImplementedError`` with
-the ``ROADMAP.md`` item that owns them."""
+contrib names of the ported ops and the control flow (``cond``,
+``foreach``, ``while_loop``, ``ops/control_flow.py``); the rest raise
+``NotImplementedError`` with the ``ROADMAP.md`` item that owns them."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from ..ndarray import NDArray, invoke
+from ..ops.control_flow import cond, foreach, while_loop  # noqa: F401
 
 # contrib name → registry name, ported ops only
 _PORTED = {
@@ -38,8 +39,6 @@ _NOT_PORTED = {
     "interleaved_matmul_selfatt_valatt": "A.17",
     "interleaved_matmul_encdec_qk": "A.17",
     "interleaved_matmul_encdec_valatt": "A.17",
-    "cond": "A.14 (control flow)", "foreach": "A.14 (control flow)",
-    "while_loop": "A.14 (control flow)",
 }
 
 

@@ -536,7 +536,10 @@ def invoke(opname, args, kwargs):
     targs = [unwrap(a, rec) for a in args]
     tkw = {k: unwrap(v, rec) for k, v in kwargs.items()}
     with torch.set_grad_enabled(rec and not getattr(fn, "nondiff", False)):
-        res = wrap(fn(*targs, **tkw))
+        raw = fn(*targs, **tkw)
+    if rec:
+        autograd._record_entry(fn, targs, tkw, raw)
+    res = wrap(raw)
     if out is not None:
         src = res if isinstance(res, NDArray) else res[0]
         out._rebind(src._data)

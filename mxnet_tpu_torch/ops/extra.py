@@ -228,7 +228,9 @@ class _MakeLoss(torch.autograd.Function):
     def backward(ctx, g):
         (d,) = ctx.saved_tensors
         grad_scale, normalization, valid_thresh = ctx.cfg
-        scale = torch.tensor(grad_scale, dtype=d.dtype, device=d.device)
+        # made on the device (no host copy: the backward may run inside a
+        # CUDA graph capture)
+        scale = torch.full((), grad_scale, dtype=d.dtype, device=d.device)
         if normalization == "batch":
             scale = scale / d.shape[0]
         elif normalization == "valid":

@@ -116,8 +116,10 @@ class BucketedExecutor:
 
     def _pin_specs(self, inputs):
         if self._in_specs is None:
-            self._in_specs = [(tuple(np.shape(x)[1:]), np.asarray(x).dtype)
-                              for x in inputs]
+            self._in_specs = [
+                (tuple(x.shape[1:]), x.dtype) if isinstance(x, torch.Tensor)
+                else (tuple(np.shape(x)[1:]), np.asarray(x).dtype)
+                for x in inputs]
         return self._in_specs
 
     def _forward(self, params, xs):
@@ -165,6 +167,10 @@ class BucketedExecutor:
 
     def _replay(self, prog, params, inputs, n):
         for i, (x, (_, dt)) in enumerate(zip(inputs, self._in_specs)):
+            if isinstance(x, torch.Tensor):  # already on the device
+                prog.dev[i][:n].copy_(x)
+                prog.dev[i][n:].zero_()
+                continue
             buf = prog.host[i] if self.graphed else prog.dev[i]
             buf[:n].copy_(torch.from_numpy(np.asarray(x, dtype=dt)))
             buf[n:].zero_()
@@ -177,12 +183,14 @@ class BucketedExecutor:
         add_launches(prog.deltas)
         return prog.outs
 
-    def run(self, inputs, n_real=None, eager=False):
+    def run(self, inputs, n_real=None, eager=False, to_host=True):
         """Pad to the bucket, one forward through the bucket's program (or
         eagerly, on new tensors, with ``eager``), copy back, slice off the
-        pad rows. ``inputs`` share the leading batch dim; returns numpy
-        outputs with ``n_real`` rows each (outputs without a batch axis
-        come back whole)."""
+        pad rows. ``inputs`` share the leading batch dim: numpy arrays, or
+        tensors on the device, copied into the program's inputs there.
+        Returns numpy outputs with ``n_real`` rows each (outputs without a
+        batch axis come back whole); with ``to_host=False``, copies on the
+        device in the outputs' own dtype."""
         n = int(np.shape(inputs[0])[0])
         n_real = n if n_real is None else int(n_real)
         bucket = self.pick_bucket(n)
@@ -199,7 +207,8 @@ class BucketedExecutor:
             self._check_params(params)
             outs = self._replay(self._program(bucket, params), params,
                                 inputs, n)
-        outs = [to_numpy(o) for o in outs]
+        outs = [to_numpy(o) if to_host else o.detach().clone()
+                for o in outs]
         if self._row_outputs is None:
             self._row_outputs = [o.ndim >= 1 and o.shape[0] == bucket
                                  for o in outs]

@@ -17,7 +17,7 @@ from .base import OP_REGISTRY as _REG
 from . import ops as _ops  # noqa: F401  (fills the registry)
 from . import sym_contrib as contrib  # noqa: F401
 from .symbol import (N_OUTPUTS, Symbol, var, Variable, Group,  # noqa: F401
-                     _make, load, loads)
+                     _make, cond, load, loads)
 
 _mod = _sys.modules[__name__]
 

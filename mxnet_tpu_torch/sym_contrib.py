@@ -1,11 +1,12 @@
 """``mx.sym.contrib`` (counterpart of ``mxnet_tpu/sym_contrib.py``; ref:
 python/mxnet/symbol/contrib.py): the symbolic forms of the contrib ops
-``mx.nd.contrib`` has ported, under the same names; the rest raise with
+``mx.nd.contrib`` has ported, under the same names, and the symbolic
+control flow (``cond``, ``foreach``, ``while_loop``); the rest raise with
 the ``ROADMAP.md`` item that owns them, as ``nd.contrib`` does."""
 from __future__ import annotations
 
 from .nd.contrib import _NOT_PORTED, _PORTED
-from .symbol import _make
+from .symbol import _make, cond, foreach, while_loop  # noqa: F401
 
 
 def _wrap(opname):

@@ -6,9 +6,30 @@ variable (``op`` None), an op with its inputs and attrs (the op's keyword
 arguments), ``_group`` (several heads) or ``_item`` (one output of a
 multi-output op). Evaluation walks the DAG once, each node once, so a
 stochastic node (``Dropout`` in training) draws once per forward however
-many nodes read it (the JAX package's ``_shared_stochastic_ids`` hoists
-draws out of control-flow branches; the port has one region until symbol
-control flow lands).
+many nodes read it.
+
+Control flow (``cond``, ``foreach``, ``while_loop``; ref:
+python/mxnet/symbol/contrib.py) is the JAX package's: ``_cond``,
+``_foreach`` and ``_while`` nodes hold their bodies as Symbol-valued
+attrs, which ``tojson`` writes into the same node table
+(``{"__sym__": i}``, ``{"__symlist__": [...]}``) and ``loads`` reads back.
+A body references the outer graph by variable name; a loop body runs once
+a step (``foreach`` over axis 0 of its data; ``while_loop`` a masked scan
+of ``max_iterations`` steps that re-evaluates its predicate each step).
+A stochastic node a body shares with the outer graph draws once a
+forward, before the loop; a node private to a body draws again at each
+step (``_shared_stochastic_ids``). ``cond`` runs, and differentiates, the
+branch its predicate picks: eagerly the predicate is read on the host;
+an :class:`Executor` keys its program on the branches of its graph's
+top-level conds, so a captured program holds one branch. It runs the
+program of the branches the last forward took (the ``then`` branches at
+first), which also returns the predicates it computed, and reads them
+(one sync, each read counted in ``engine.cond_host_read_counter``). Where
+one picks the other branch, the generator is put back and the forward
+runs again with the branches read (``engine.cond_rerun_counter``), so a
+predicate is computed once a run and a dropout under it draws the same
+mask as the branch it picked. A cond inside a loop body cannot be
+captured and raises there.
 
 Shapes: :attr:`Symbol.shape` and :meth:`Symbol.infer_shape` run the
 registry ops on ``meta`` tensors (``shape_inference.py``), the port's
@@ -30,8 +51,9 @@ inputs at each forward. On the CPU the same keys run eagerly, with the
 same counts. ``is_train`` sets ``training`` on every op that reads it and
 does not pin it (``_with_training``).
 
-Not here yet (``ROADMAP.md`` A.14's rest): ``cond``/``foreach``/
-``while_loop`` (symbol control flow) and ``autograd.get_symbol``.
+A ``_callable`` node (``autograd.get_symbol``'s recorded history) runs a
+host function; it evaluates, binds and differentiates like any node and
+``tojson`` refuses it.
 """
 from __future__ import annotations
 
@@ -47,7 +69,8 @@ import torch
 from .base import OP_REGISTRY, resolve_device, resolve_dtype
 from .ndarray import NDArray
 
-__all__ = ["Symbol", "var", "Variable", "Group", "load", "loads", "Executor"]
+__all__ = ["Symbol", "var", "Variable", "Group", "load", "loads", "Executor",
+           "cond", "foreach", "while_loop"]
 
 # the registry ops that return several outputs, and how many (a copy of the
 # JAX registry's ``n_outputs``; every other op returns one)
@@ -153,6 +176,16 @@ class Symbol:
         """A graph value lies on no device (``ctx=x.device`` in a model's
         trace reaches ``sym.arange``, which ignores it)."""
         return None
+
+    def reshape(self, *shape):
+        """A ``reshape`` node (a model's ``x.reshape(T * N, H)``)."""
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        return _make("reshape", self, shape=tuple(shape))
+
+    def t(self):
+        """A ``transpose`` node of a matrix (a model's ``w.t()``)."""
+        return _make("transpose", self)
 
     # ------------------------------------------------------------- build ops
     def __add__(self, o):
@@ -295,29 +328,31 @@ class Symbol:
         return Executor(self, device, args, args_grad, grad_req)
 
     def tojson(self):
-        """The JAX package's graph JSON (ref: nnvm SaveJSON): inputs first,
-        attrs as Python reprs."""
+        """The JAX package's graph JSON (ref: nnvm SaveJSON): inputs, then
+        subgraph attrs, before each node; attrs as Python reprs."""
         nodes, index = [], {}
-
-        def ser(s):
-            if id(s) in index:
-                return index[id(s)]
-            child_ids = [ser(i) for i in s._inputs]
-            nid = len(nodes)
-            index[id(s)] = nid
-            node = {"op": s._op or "null", "name": s.name,
-                    "attrs": {k: repr(_jsonable(v))
-                              for k, v in s._attrs.items()},
+        for s in _topo_all(self):
+            if s._op == "_callable":
+                raise ValueError(
+                    "symbol %r wraps a host closure (autograd.get_symbol "
+                    "tape capture) and cannot be serialized to json; "
+                    "rebuild the graph with symbol ops to save it" % s.name)
+            attrs = {}
+            for k, v in s._attrs.items():
+                if isinstance(v, Symbol):
+                    attrs[k] = {"__sym__": index[id(v)]}
+                elif isinstance(v, list) and any(isinstance(e, Symbol)
+                                                 for e in v):
+                    attrs[k] = {"__symlist__": [index[id(e)] for e in v]}
+                else:
+                    attrs[k] = repr(_jsonable(v))
+            node = {"op": s._op or "null", "name": s.name, "attrs": attrs,
                     "shape": list(s._shape) if s._shape else None,
-                    "inputs": child_ids}
+                    "inputs": [index[id(i)] for i in s._inputs]}
             if s._annotations:
                 node["annotations"] = dict(s._annotations)
+            index[id(s)] = len(nodes)
             nodes.append(node)
-            return nid
-
-        # iterative: a deep graph would overflow Python's recursion limit
-        for s in _topo(self):
-            ser(s)
         return json.dumps({"nodes": nodes, "head": len(nodes) - 1}, indent=2)
 
     def save(self, fname):
@@ -359,6 +394,41 @@ def _topo(root):
     return order
 
 
+def _attr_symbols(attrs):
+    """The Symbol-valued attrs of a node (a control-flow body), lists
+    included, in attr order."""
+    for v in attrs.values():
+        if isinstance(v, Symbol):
+            yield v
+        elif isinstance(v, list):
+            for e in v:
+                if isinstance(e, Symbol):
+                    yield e
+
+
+def _topo_all(root):
+    """``_topo`` over inputs and then control-flow bodies: every node
+    reachable either way, each after its inputs and bodies (the order the
+    JAX package's ``tojson`` writes)."""
+    order, state = [], {}
+    stack = [(root, False)]
+    while stack:
+        s, done = stack.pop()
+        if done:
+            if state.get(id(s)) != 2:
+                state[id(s)] = 2
+                order.append(s)
+            continue
+        if id(s) in state:
+            continue
+        state[id(s)] = 1
+        stack.append((s, True))
+        for i in reversed(list(s._inputs) + list(_attr_symbols(s._attrs))):
+            if id(i) not in state:
+                stack.append((i, False))
+    return order
+
+
 def _heads(sym):
     return list(sym._inputs) if sym._op == "_group" else [sym]
 
@@ -376,12 +446,70 @@ def _node_is_stochastic(sym):
 
 
 def _graph_has_rng(sym):
-    return any(_node_is_stochastic(s) for s in _topo(sym))
+    return any(_node_is_stochastic(s) for s in _topo_all(sym))
 
 
-def _eval(sym, env, cache):
+def _shared_stochastic_ids(roots):
+    """Ids of the nodes reachable from more than one region: the outer
+    graph (every root, through inputs, stopping at bodies) and each
+    control-flow body (a cond branch, a loop's subgraphs; nested bodies
+    are regions of their own). Of these, the stochastic ones draw once a
+    forward, before the control flow that reads them."""
+    subgraphs, owners = [], set()
+
+    def walk(s, acc, seen):
+        stack = [s]
+        while stack:
+            s = stack.pop()
+            if id(s) in seen:
+                continue
+            seen.add(id(s))
+            acc.add(id(s))
+            if id(s) not in owners and s._op in _CONTROL_FLOW:
+                owners.add(id(s))
+                if s._op == "_cond":
+                    subgraphs.append([s._attrs["then_sym"]])
+                    subgraphs.append([s._attrs["else_sym"]])
+                else:
+                    subgraphs.append(list(_attr_symbols(s._attrs)))
+            stack.extend(s._inputs)
+
+    regions, main, seen = [], set(), set()
+    for r in roots:
+        walk(r, main, seen)
+    regions.append(main)
+    i = 0
+    while i < len(subgraphs):  # a walk may find nested bodies
+        acc, seen = set(), set()
+        for b in subgraphs[i]:
+            walk(b, acc, seen)
+        regions.append(acc)
+        i += 1
+    counts = {}
+    for r in regions:
+        for nid in r:
+            counts[nid] = counts.get(nid, 0) + 1
+    return frozenset(nid for nid, n in counts.items() if n > 1)
+
+
+def _shared_for(outputs):
+    """``_shared_stochastic_ids`` of ``outputs``, memoized on the first
+    output (which outlives the memo)."""
+    if not outputs:
+        return frozenset()
+    key = tuple(id(o) for o in outputs)
+    memo = outputs[0].__dict__.get("_shared_memo")
+    if memo is not None and memo[0] == key:
+        return memo[1]
+    shared = _shared_stochastic_ids(outputs)
+    outputs[0]._shared_memo = (key, shared)
+    return shared
+
+
+def _eval(sym, env, cache, shared=frozenset()):
     """The value of ``sym`` for the variables' values in ``env``, each node
-    evaluated once (``cache`` by node id)."""
+    evaluated once (``cache`` by node id); ``shared``: the nodes the outer
+    graph shares with control-flow bodies (``_shared_stochastic_ids``)."""
     for s in _topo(sym):
         if id(s) in cache:
             continue
@@ -401,6 +529,12 @@ def _eval(sym, env, cache):
                                                       s._inputs[0]._op))
             val = parent[idx] if isinstance(parent, (list, tuple)) \
                 else parent
+        elif s._op in _CONTROL_FLOW:
+            val = _CONTROL_FLOW[s._op](
+                s._attrs, [cache[id(i)] for i in s._inputs], env, cache,
+                shared, s)
+        elif s._op == "_callable":
+            val = s._attrs["fn"](*[cache[id(i)] for i in s._inputs])
         else:
             fn = _registry()[s._op]
             val = fn(*[cache[id(i)] for i in s._inputs], **s._attrs)
@@ -414,12 +548,130 @@ def _eval_symbols(outputs, feed):
     fed tensors."""
     device = next((v.device for v in feed.values()
                    if isinstance(v, torch.Tensor)), None)
+    shared = _shared_for(outputs)
     cache, outs = {}, []
     with _on_device(device):
         for s in outputs:
-            o = _eval(s, feed, cache)
+            o = _eval(s, feed, cache, shared)
             outs.extend(o if isinstance(o, list) else [o])
     return outs
+
+
+# ----------------------------------------------------------- control flow
+
+def _hoist_shared_draws(roots, env, cache, shared):
+    """Evaluate into the outer cache the stochastic nodes of ``roots`` (a
+    body's subgraphs) that the outer graph shares: one draw a forward,
+    whichever evaluates them first."""
+    for r in roots:
+        for n in _topo_all(r):
+            if id(n) in shared and _node_is_stochastic(n) \
+                    and id(n) not in cache:
+                _eval(n, env, cache, shared)
+
+
+def _steps(n, first):
+    """How many loop steps to run: one on ``meta`` tensors (shape
+    inference; every step has the first's shapes), else ``n``."""
+    return 1 if first.device.type == "meta" else n
+
+
+def _stacked(outs, n):
+    if len(outs) == n:
+        return torch.stack(outs)
+    return outs[0].unsqueeze(0).expand((n,) + tuple(outs[0].shape))
+
+
+def _foreach_eval(a, ins, env, cache, shared, node=None):
+    """(ref: control_flow.cc:foreach) ``out_sym`` and ``state_syms`` once a
+    step over axis 0 of the data: [stacked outputs, *final states]."""
+    n = a["n_states"]
+    data, states, free = ins[0], list(ins[1:1 + n]), ins[1 + n:]
+    free_env = dict(zip(a["free_names"], free))
+    out_sym, state_syms = a["out_sym"], a["state_syms"]
+    _hoist_shared_draws([out_sym] + list(state_syms), env, cache, shared)
+    T = data.shape[0]
+    outs = []
+    for t in range(_steps(T, data)):
+        senv = {a["slice_name"]: data[t],
+                **dict(zip(a["state_names"], states)), **free_env}
+        sc = dict(cache)
+        outs.append(_eval(out_sym, senv, sc, shared))
+        states = [_eval(s, senv, sc, shared) for s in state_syms]
+    return [_stacked(outs, T)] + states
+
+
+def _while_eval(a, ins, env, cache, shared, node=None):
+    """(ref: control_flow.cc:while_loop) The JAX package's masked scan of
+    ``max_iterations`` steps: each step re-evaluates the predicate, keeps
+    the loop vars where it is false and emits zeros there."""
+    n = a["n_vars"]
+    vs, free = list(ins[:n]), ins[n:]
+    free_env = dict(zip(a["free_names"], free))
+    pred_sym, out_sym, var_syms = a["pred_sym"], a["out_sym"], a["var_syms"]
+    _hoist_shared_draws([pred_sym, out_sym] + list(var_syms), env, cache,
+                        shared)
+    steps = a["max_iterations"]
+    outs = []
+    for _ in range(_steps(steps, vs[0])):
+        senv = {**dict(zip(a["var_names"], vs)), **free_env}
+        sc = dict(cache)
+        pred = _eval(pred_sym, senv, sc, shared).reshape(()).to(torch.bool)
+        o = _eval(out_sym, senv, sc, shared)
+        new = [_eval(s, senv, sc, shared) for s in var_syms]
+        vs = [torch.where(pred, nv, v) for nv, v in zip(new, vs)]
+        outs.append(torch.where(pred, o, torch.zeros_like(o)))
+    return [_stacked(outs, steps)] + vs
+
+
+def _decided_branch(pred, node):
+    """Which branch a cond takes: ``then`` on meta tensors (shapes), the
+    executor's decision for its node, else the predicate read on the host
+    (counted); inside a CUDA graph capture with no decision it raises."""
+    from . import engine
+
+    if pred.device.type == "meta":
+        return True
+    decided = (getattr(_where, "decisions", None) or {}).get(id(node))
+    if decided is not None:
+        return decided
+    if pred.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "cond %r: its predicate is not known before the capture (a cond "
+            "inside a loop body cannot be captured)"
+            % getattr(node, "name", "cond"))
+    engine.cond_host_read_counter.count += 1
+    return bool(pred.reshape(()).item())
+
+
+def _cond_eval(a, ins, env, cache, shared, node=None):
+    """(ref: control_flow.cc:cond) The branch the predicate picks, alone:
+    it alone runs and takes gradient."""
+    benv = dict(zip(a["arg_names"], ins[1:]))
+    then_sym, else_sym = a["then_sym"], a["else_sym"]
+    _hoist_shared_draws([then_sym, else_sym], {**env, **benv}, cache,
+                        shared)
+    branch = then_sym if _decided_branch(ins[0], node) else else_sym
+    return _eval(branch, benv, dict(cache), shared)
+
+
+_CONTROL_FLOW = {"_cond": _cond_eval, "_foreach": _foreach_eval,
+                 "_while": _while_eval}
+
+
+class _decisions:
+    """The cond decisions (node id → bool) an executor read for a forward,
+    while its program runs or is captured."""
+
+    def __init__(self, decisions):
+        self._d = decisions
+
+    def __enter__(self):
+        self._prev = getattr(_where, "decisions", None)
+        _where.decisions = self._d
+
+    def __exit__(self, *exc):
+        _where.decisions = self._prev
 
 
 def _substitute(outputs, mapping):
@@ -514,10 +766,35 @@ def _item(x, *, index):
     return x[index]
 
 
+def _cond(pred, *vals, then_sym, else_sym, arg_names):
+    """The ``_cond`` node as an op on arrays (``nd._cond``, shape
+    inference): the chosen branch over ``vals``."""
+    return _cond_eval(dict(then_sym=then_sym, else_sym=else_sym,
+                           arg_names=arg_names), (pred,) + vals, {}, {},
+                      frozenset())
+
+
+def _foreach(data, *rest, out_sym, state_syms, slice_name, state_names,
+             free_names, n_states):
+    return _foreach_eval(dict(out_sym=out_sym, state_syms=state_syms,
+                              slice_name=slice_name, state_names=state_names,
+                              free_names=free_names, n_states=n_states),
+                         (data,) + rest, {}, {}, frozenset())
+
+
+def _while(*rest, pred_sym, out_sym, var_syms, var_names, free_names,
+           n_vars, max_iterations):
+    return _while_eval(dict(pred_sym=pred_sym, out_sym=out_sym,
+                            var_syms=var_syms, var_names=var_names,
+                            free_names=free_names, n_vars=n_vars,
+                            max_iterations=max_iterations),
+                       rest, {}, {}, frozenset())
+
+
 def _register_graph_ops():
     from .base import register_op
 
-    for fn in (_const, _filled, _arange, _item):
+    for fn in (_const, _filled, _arange, _item, _cond, _foreach, _while):
         register_op(fn.__name__)(fn)
 
 
@@ -538,6 +815,136 @@ Variable = var
 
 def Group(symbols):
     return Symbol("_group", list(symbols), name="group")
+
+
+_loop_uid = [0]
+
+
+def _next_uid():
+    _loop_uid[0] += 1
+    return _loop_uid[0]
+
+
+def _free_args(roots, loop_names):
+    """The free variables of a body's subgraphs that are not loop
+    variables, in the outer graph's order, once each."""
+    free, seen = [], set()
+    for s in roots:
+        if not isinstance(s, Symbol):
+            raise TypeError(
+                "loop body must return Symbols, got %s — nd.contrib offers "
+                "the eager NDArray form" % type(s).__name__)
+        for a in s._arg_symbols():
+            if a.name not in loop_names and a.name not in seen:
+                seen.add(a.name)
+                free.append(a)
+    return free
+
+
+def cond(pred, then_sym, else_sym, name=None):
+    """(ref: symbol/contrib.py:cond) ``then_sym`` where the scalar ``pred``
+    is true, else ``else_sym`` (Symbols, or zero-argument callables
+    returning one). The branches read the outer graph's variables."""
+    if callable(then_sym) and not isinstance(then_sym, Symbol):
+        then_sym = then_sym()
+    if callable(else_sym) and not isinstance(else_sym, Symbol):
+        else_sym = else_sym()
+    for b in (then_sym, else_sym):
+        if not isinstance(b, Symbol):
+            raise NotImplementedError(
+                "cond branches must be (or return) a single Symbol, got %s "
+                "— multi-output branches are not supported yet (Group them "
+                "or use several conds)" % type(b).__name__)
+    seen = {}
+    for branch in (then_sym, else_sym):
+        for a in branch._arg_symbols():
+            seen.setdefault(a.name, a)
+    arg_names = list(seen)
+    return Symbol("_cond", [pred] + [seen[n] for n in arg_names],
+                  {"then_sym": then_sym, "else_sym": else_sym,
+                   "arg_names": arg_names}, name=name or "cond")
+
+
+def foreach(body, data, init_states, name=None):
+    """(ref: symbol/contrib.py:foreach) ``body(slice, states) -> (out,
+    new_states)`` traced once over loop variables and run once a step over
+    axis 0 of ``data``; returns (stacked outputs, final states)."""
+    single_state = not isinstance(init_states, (list, tuple))
+    states = [init_states] if single_state else list(init_states)
+    for s in [data] + states:
+        if not isinstance(s, Symbol):
+            raise TypeError("foreach data/init_states must be Symbols, got "
+                            "%s — nd.contrib.foreach is the eager form"
+                            % type(s).__name__)
+    uid = _next_uid()
+    slice_v = Symbol(None, name="_fe%d_x" % uid,
+                     shape=(data._shape[1:] if data._shape else None))
+    state_vs = [Symbol(None, name="_fe%d_s%d" % (uid, j), shape=s._shape)
+                for j, s in enumerate(states)]
+    out_sym, new_states = body(slice_v,
+                               state_vs[0] if single_state else state_vs)
+    if isinstance(out_sym, (list, tuple)):
+        raise NotImplementedError(
+            "foreach bodies with multiple per-step outputs are not "
+            "supported yet — return one Symbol (stack/concat inside the "
+            "body, or run several foreach loops)")
+    new_states = [new_states] if not isinstance(new_states, (list, tuple)) \
+        else list(new_states)
+    if len(new_states) != len(states):
+        raise ValueError("body returned %d states, expected %d"
+                         % (len(new_states), len(states)))
+    state_names = [v.name for v in state_vs]
+    free = _free_args([out_sym] + new_states,
+                      {slice_v.name} | set(state_names))
+    node = Symbol("_foreach", [data] + states + free,
+                  {"out_sym": out_sym, "state_syms": new_states,
+                   "slice_name": slice_v.name, "state_names": state_names,
+                   "free_names": [a.name for a in free],
+                   "n_states": len(states)}, name=name)
+    out_states = [node[i + 1] for i in range(len(states))]
+    return node[0], (out_states[0] if single_state else out_states)
+
+
+def while_loop(cond_fn, func, loop_vars, max_iterations, name=None):
+    """(ref: symbol/contrib.py:while_loop) ``cond_fn(vars) -> pred``,
+    ``func(vars) -> (out, new_vars)``, a masked scan of ``max_iterations``
+    steps (steps after the predicate turns false keep the vars and emit
+    zeros); returns (stacked outputs, final vars)."""
+    if max_iterations is None:
+        raise ValueError("symbolic while_loop needs max_iterations (static "
+                         "output stacking; the nd.contrib form allows None)")
+    single = not isinstance(loop_vars, (list, tuple))
+    vars_in = [loop_vars] if single else list(loop_vars)
+    for v in vars_in:
+        if not isinstance(v, Symbol):
+            raise TypeError("while_loop loop_vars must be Symbols, got %s — "
+                            "nd.contrib.while_loop is the eager form"
+                            % type(v).__name__)
+    uid = _next_uid()
+    var_vs = [Symbol(None, name="_wl%d_v%d" % (uid, j), shape=v._shape)
+              for j, v in enumerate(vars_in)]
+    packed = var_vs[0] if single else var_vs
+    pred_sym = cond_fn(packed)
+    out_sym, new_vars = func(packed)
+    if isinstance(out_sym, (list, tuple)):
+        raise NotImplementedError(
+            "while_loop bodies with multiple per-step outputs are not "
+            "supported yet — return one Symbol")
+    new_vars = [new_vars] if not isinstance(new_vars, (list, tuple)) \
+        else list(new_vars)
+    if len(new_vars) != len(vars_in):
+        raise ValueError("func returned %d loop vars, expected %d"
+                         % (len(new_vars), len(vars_in)))
+    var_names = [v.name for v in var_vs]
+    free = _free_args([pred_sym, out_sym] + new_vars, set(var_names))
+    node = Symbol("_while", vars_in + free,
+                  {"pred_sym": pred_sym, "out_sym": out_sym,
+                   "var_syms": new_vars, "var_names": var_names,
+                   "free_names": [a.name for a in free],
+                   "n_vars": len(vars_in),
+                   "max_iterations": int(max_iterations)}, name=name)
+    out_vars = [node[i + 1] for i in range(len(vars_in))]
+    return node[0], (out_vars[0] if single else out_vars)
 
 
 def load(fname):
@@ -562,12 +969,12 @@ def loads(json_str):
     for node in blob["nodes"]:
         attrs = {}
         for k, v in node["attrs"].items():
-            if isinstance(v, dict):
-                raise NotImplementedError(
-                    "the graph holds a control-flow subgraph (%s of %s): "
-                    "symbol control flow is not ported yet (ROADMAP.md "
-                    "A.14's rest)" % (k, node["name"]))
-            attrs[k] = _literal(v)
+            if isinstance(v, dict) and "__sym__" in v:
+                attrs[k] = built[v["__sym__"]]  # a control-flow body
+            elif isinstance(v, dict) and "__symlist__" in v:
+                attrs[k] = [built[i] for i in v["__symlist__"]]
+            else:
+                attrs[k] = _literal(v)
         if node["op"] == "null":
             s = Symbol(None, name=node["name"], shape=node.get("shape"))
         else:
@@ -584,18 +991,21 @@ def _with_training(sym, training):
     ``mode='always'`` dropout): how ``forward(is_train=...)`` governs
     Dropout and BatchNorm."""
     memo = {}
-    for s in _topo(sym):
+    for s in _topo_all(sym):
         if s._op in (None, "_const"):
             memo[id(s)] = s  # variables keep their identity
             continue
         c = copy.copy(s)
         c._inputs = [memo[id(i)] for i in s._inputs]
-        attrs = dict(s._attrs)
+        attrs = {k: memo[id(v)] if isinstance(v, Symbol) else
+                 [memo[id(e)] if isinstance(e, Symbol) else e for e in v]
+                 if isinstance(v, list) else v for k, v in s._attrs.items()}
         fn = OP_REGISTRY.get(s._op)
         if getattr(fn, "needs_training", False) and "training" not in attrs:
             attrs["training"] = bool(training)
         c._attrs = attrs
         c.__dict__.pop("_meta_cache", None)
+        c.__dict__.pop("_shared_memo", None)
         memo[id(s)] = c
     return memo[id(sym)]
 
@@ -606,13 +1016,20 @@ def _signature(values):
 
 class _Program:
     """One key's captured graphs: the static arguments, the forward graph
-    and, when some argument takes a gradient, the backward graph with its
-    static output cotangents."""
+    with its outputs and the predicates of the top-level conds, the
+    generator registered with it and, when some argument takes a gradient,
+    the backward graph with its static output cotangents."""
 
     def __init__(self):
-        self.static = self.fwd = self.bwd = None
-        self.outs = self.gouts = self.grads = None
+        self.static = self.fwd = self.bwd = self.gen = None
+        self.outs = self.preds = self.gouts = self.grads = None
         self.generation = 0
+
+
+def _split(outs, n):
+    """(heads, the last ``n`` values: the top-level conds' predicates)."""
+    outs = list(outs)
+    return outs[:len(outs) - n], outs[len(outs) - n:]
 
 
 class Executor:
@@ -629,6 +1046,8 @@ class Executor:
         self._grad_req = grad_req
         self._names = [a.name for a in sym._arg_symbols()]
         self._modes = {}
+        self._conds = {}
+        self._guesses = {}  # (is_train, diff, signature) -> last decisions
         self._programs = {}
         self._seen = set()
         self._last = None  # (program or eager state, generation, is_train)
@@ -678,7 +1097,52 @@ class Executor:
             raise KeyError("unbound variables %s" % missing)
         vals = [self.arg_dict[n]._data for n in self._names]
         diff = self._diff_names() if is_train else []
-        key = (bool(is_train), tuple(diff), _signature(vals))
+        mode = self._mode(is_train)
+        conds = self._top_conds(mode)
+        guess_key = (bool(is_train), tuple(diff), _signature(vals))
+        decisions = self._guesses.get(guess_key) or {id(c): True
+                                                     for c in conds}
+        # each run reads the predicates its program computed; a wrong guess
+        # runs again from the same draws with what was read. A cond whose
+        # predicate reads an earlier cond's output settles one run later.
+        for _ in range(len(conds) + 1):
+            outs, state, prog, read = self._run(mode, vals, diff, is_train,
+                                                decisions, conds)
+            if read == decisions:
+                break
+            engine.cond_rerun_counter.count += 1
+            decisions = read
+        else:
+            raise RuntimeError("the cond predicates did not settle in %d "
+                               "runs" % (len(conds) + 1))
+        self._guesses[guess_key] = decisions
+        if is_train:  # an eval forward in between keeps it
+            self._last = (state, prog.generation, diff)
+        self.outputs = [NDArray(o) for o in outs]
+        return self.outputs
+
+    def _top_conds(self, s):
+        """The graph's top-level cond nodes (a cond in a loop body is not
+        one: it raises under capture)."""
+        conds = self._conds.get(id(s))
+        if conds is None:
+            conds = self._conds[id(s)] = [n for n in _topo(s)
+                                          if n._op == "_cond"]
+        return conds
+
+    def _run(self, s, vals, diff, is_train, decisions, conds):
+        """One forward through the program keyed on ``decisions`` (captured
+        at its first use on the card): (head outputs, backward state,
+        program, {id(cond): branch} read from the predicates it computed,
+        one sync). When the read differs, the generator the run drew from
+        is put back, so the run that follows draws the same masks."""
+        from . import engine
+        from . import random as _random
+
+        key = (bool(is_train), tuple(diff), _signature(vals),
+               tuple(decisions.values()))
+        preds = [c._inputs[0] for c in conds]
+        device = vals[0].device if vals else torch.device("cpu")
         prog = self._programs.get(key)
         if prog is None:
             prog = self._programs[key] = _Program()
@@ -687,40 +1151,54 @@ class Executor:
             self.stats["recaptures"] += int(key in self._seen)
             self._seen.add(key)
             engine.symbol_compile_counter.count += 1
-            device = vals[0].device if vals else torch.device("cpu")
             if device.type == "cuda":
-                self._capture(prog, self._mode(is_train), vals, diff,
-                              device)
+                with _decisions(decisions):
+                    self._capture(prog, s, vals, diff, device, preds)
         self.stats["forward_replays"] += 1
+        gen = None
+        if conds:
+            gen = prog.gen if prog.fwd is not None else \
+                _random.generator(device)
+            drawn_from = gen.get_state()
         if prog.fwd is None:  # the CPU: the same key, eagerly
-            outs, state = self._eager_forward(self._mode(is_train), vals,
-                                              diff)
+            with _decisions(decisions):
+                outs, got, state = self._eager_forward(s, vals, diff, preds)
         else:
             with torch.no_grad():
-                for s, v in zip(prog.static, vals):
-                    s.copy_(v)
+                for t, v in zip(prog.static, vals):
+                    t.copy_(v)
             prog.fwd.replay()
             prog.generation += 1
             outs = [o.detach().clone() for o in prog.outs]
-            state = prog
-        if is_train:  # an eval forward in between keeps it
-            self._last = (state, prog.generation, diff)
-        self.outputs = [NDArray(o) for o in outs]
-        return self.outputs
+            got, state = prog.preds, prog
+        if not conds:
+            return outs, state, prog, {}
+        with torch.no_grad():
+            branches = torch.stack([p.reshape(()).to(torch.bool)
+                                    for p in got]).tolist()
+        engine.cond_host_read_counter.count += len(conds)
+        read = {id(c): bool(b) for c, b in zip(conds, branches)}
+        if read != decisions:
+            gen.set_state(drawn_from)
+        return outs, state, prog, read
 
-    def _eager_forward(self, s, vals, diff):
+    def _eager_forward(self, s, vals, diff, preds):
+        """(head outputs, predicate values, backward state) in one walk."""
+        heads = _heads(s)
         if not diff:
             with torch.no_grad():
-                return _eval_symbols(_heads(s), dict(zip(self._names,
-                                                         vals))), None
+                outs = _eval_symbols(heads + preds, dict(zip(self._names,
+                                                            vals)))
+            return _split(outs, len(preds)) + (None,)
         ins = [v.detach().requires_grad_(n in diff)
                if v.is_floating_point() else v
                for n, v in zip(self._names, vals)]
         with torch.enable_grad():
-            outs = _eval_symbols(_heads(s), dict(zip(self._names, ins)))
-        return [o.detach() for o in outs], (ins, outs)
+            outs, got = _split(_eval_symbols(
+                heads + preds, dict(zip(self._names, ins))), len(preds))
+        return [o.detach() for o in outs], got, (ins, outs)
 
-    def _capture(self, prog, s, vals, diff, device):
+    def _capture(self, prog, s, vals, diff, device, preds):
         from . import random as _random
         from .capture import capture_graph
 
@@ -731,10 +1209,10 @@ class Executor:
 
         def run():
             with torch.set_grad_enabled(bool(diff)):
-                return _eval_symbols(_heads(s), env)
+                return _eval_symbols(_heads(s) + preds, env)
 
         def warm():
-            outs = run()
+            outs, _ = _split(run(), len(preds))
             live = [o for o in outs if o.requires_grad]
             if live:
                 torch.autograd.grad(live, dins,
@@ -742,9 +1220,10 @@ class Executor:
                                     allow_unused=True)
 
         pool = torch.cuda.graph_pool_handle()
+        prog.gen = _random.generator(device)
         prog.fwd = capture_graph(run, device, pool, warmup=warm,
-                                 generators=[_random.generator(device)])
-        prog.outs = prog.fwd.out
+                                 generators=[prog.gen])
+        prog.outs, prog.preds = _split(prog.fwd.out, len(preds))
         if not diff:
             return
         live = [o for o in prog.outs if o.requires_grad]

@@ -8,7 +8,8 @@ the detection ops and the LSTM, SSD and Transformer models, the kvstore,
 ``dist``, ``parallel``, the converters and the model store, tensor,
 sequence, pipeline and expert parallelism and ``SyncBatchNorm``, the
 shared capture module and ``hybridize``'s programs, the engine's bulk
-window and the symbolic API included) imports
+window, the symbolic API, the Module family, control flow and the host
+I/O included) imports
 with JAX blocked; and without
 CUDA every entry point refuses to run unless the caller asks for the
 CPU."""
@@ -93,7 +94,13 @@ def test_package_imports_with_jax_blocked():
             "mxnet_tpu_torch.name, mxnet_tpu_torch.attribute, "
             "mxnet_tpu_torch.symbol, mxnet_tpu_torch.sym, "
             "mxnet_tpu_torch.sym_contrib, mxnet_tpu_torch.shape_inference, "
-            "mxnet_tpu_torch.executor, mxnet_tpu_torch.visualization; "
+            "mxnet_tpu_torch.executor, mxnet_tpu_torch.visualization, "
+            "mxnet_tpu_torch.io, mxnet_tpu_torch.recordio, "
+            "mxnet_tpu_torch.metric, mxnet_tpu_torch.model, "
+            "mxnet_tpu_torch.module, mxnet_tpu_torch.callback, "
+            "mxnet_tpu_torch.monitor, mxnet_tpu_torch.rnn, "
+            "mxnet_tpu_torch.ops.control_flow, mxnet_tpu_torch.gluon.data, "
+            "mxnet_tpu_torch.gluon.utils; "
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
@@ -163,6 +170,18 @@ def test_without_cuda_entry_points_raise(monkeypatch):
                  lambda: nd.random_uniform(shape=(2,))):
         with pytest.raises(DeviceError):
             make()
+    import numpy as np
+    from mxnet_tpu_torch import io, module, rnn, sym
+    from mxnet_tpu_torch.gluon import data as gdata
+
+    x = np.ones((4, 2), np.float32)
+    for run in (lambda: next(iter(io.NDArrayIter(x, batch_size=2))),
+                lambda: module.Module(sym.var("data")),
+                lambda: next(iter(gdata.DataLoader(gdata.ArrayDataset(x),
+                                                   batch_size=2))),
+                lambda: next(iter(rnn.BucketSentenceIter([[1, 2]] * 2, 2)))):
+        with pytest.raises(DeviceError):
+            run()
     from mxnet_tpu_torch.gluon.model_zoo import convert
     from mxnet_tpu_torch.parallel import distributed
 

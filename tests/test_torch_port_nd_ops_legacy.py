@@ -101,7 +101,10 @@ def test_every_jax_op_is_ported_or_listed():
                  "shuffle",  # shuffle: test_multinomial_prob_and_shuffle
                  # the graph's source and projection ops:
                  # tests/test_torch_port_symbol.py test_graph_ops
-                 "_const", "_filled", "_arange", "_item"}
+                 "_const", "_filled", "_arange", "_item",
+                 # the control-flow nodes as ops: tests/
+                 # test_torch_port_control_flow.py test_nd_registry_nodes
+                 "_cond", "_foreach", "_while"}
     unheld = [n for n in REG if n in JAX_REG and n not in held
               and id(REG[n]) not in held_fns and n not in elsewhere]
     assert not unheld, unheld
@@ -110,11 +113,15 @@ def test_every_jax_op_is_ported_or_listed():
 def test_nd_contrib_and_control_flow_name_their_items():
     import mxnet_tpu_torch as mx
 
-    for name, item in (("foreach", "A.14"), ("while_loop", "A.14"),
-                       ("cond", "A.14"), ("ROIAlign", "A.11/A.17"),
-                       ("fft", "A.17")):
+    for name, item in (("ROIAlign", "A.11/A.17"), ("fft", "A.17")):
         with pytest.raises(NotImplementedError, match=item):
             getattr(mx.nd.contrib, name)()
+    with mx.cpu():  # the control flow is ported (A.14)
+        outs, last = mx.nd.contrib.foreach(
+            lambda x, s: (x + s, s + 1.0), mx.nd.ones((3, 2)),
+            mx.nd.zeros((2,)))
+        np.testing.assert_array_equal(outs.asnumpy()[:, 0], [1, 2, 3])
+        np.testing.assert_array_equal(last.asnumpy(), [3, 3])
     with mx.cpu():
         x = mx.nd.array(np.arange(12, dtype=np.float32).reshape(4, 3))
         m = mx.nd.contrib.boolean_mask(x, mx.nd.array([1, 0, 1, 0]))

@@ -51,24 +51,26 @@ def few_threads():
     torch.set_num_threads(n)
 
 
+# The JAX package reads ``jax.core.trace_state_clean``, which newer jax
+# releases keep only under ``jax._src.core``. It reads it on every op that
+# compiles something new, so whether one of its tests meets the missing name
+# depended on what the tests before it in the same process had compiled.
+# Expose it once, for the whole session, as soon as this module is
+# collected (the package itself is left as it is). The JAX package's tests
+# that run in the same process get it too; a run of those files alone does
+# not import this module and does not.
+if not hasattr(jax.core, "trace_state_clean"):
+    jax.core.trace_state_clean = _jax_core.trace_state_clean
+
+
 @pytest.fixture
-def jax_trace_state(monkeypatch):
-    """The JAX package reads ``jax.core.trace_state_clean``, which newer
-    jax releases keep only under ``jax._src.core``; expose it there for the
-    duration of a test (the package itself is left as it is)."""
-    if not hasattr(jax.core, "trace_state_clean"):
-        monkeypatch.setattr(jax.core, "trace_state_clean",
-                            _jax_core.trace_state_clean, raising=False)
+def jax_trace_state():
+    """Kept for the tests that name it: the alias above is set at import."""
 
 
 @pytest.fixture(scope="module")
 def jax_trace_state_module():
     """``jax_trace_state`` for a module's shared fixtures."""
-    with pytest.MonkeyPatch.context() as mp:
-        if not hasattr(jax.core, "trace_state_clean"):
-            mp.setattr(jax.core, "trace_state_clean",
-                       _jax_core.trace_state_clean, raising=False)
-        yield
 
 
 def bert_inputs(seed, batch, seq=SEQ, vocab=SMALL_BERT["vocab_size"]):

@@ -61,6 +61,18 @@ built:
   export layout through ``serve.load`` and a ``SymbolBlock``);
 - ``symbol_train``: ``phase_symbol_train`` (GPT-2 small trained through
   ``simple_bind`` and the captured ``Executor``);
+- ``module_fit``: ``phase_module_fit`` (GPT-2 small's loss symbol through
+  ``Module.fit`` over a PrefetchingIter, score, predict, the checkpoint
+  round trip, a planted stale-weight update);
+- ``data_pipeline``: ``phase_data_pipeline`` (the bert128 step fed by the
+  DataLoader with pinned memory, ``split_and_load``, ``clip_global_norm``
+  with a planted rebinding clip, the process-worker loader);
+- ``bucketing_lstm``: ``phase_bucketing_lstm`` (LSTM PTB through
+  ``BucketSentenceIter`` and ``BucketingModule``, then
+  ``phase_control_flow``: a foreach LSTM, while_loop and cond captured);
+- ``get_symbol``: ``phase_get_symbol`` (GPT-2 small's recorded forward
+  and loss as a Symbol, bound on the card);
+- ``slice19``: the four above in one run (``run_slice19``);
 - ``mp``: ``phase_model_parallel`` (the GPT-2 step inside
   ``sequence_parallel_scope`` at sp = 1, ring and Ulysses, against the
   plain step; the n = 4 ring replayed on the card against the
@@ -186,7 +198,12 @@ GROUPS = {"kernels": run_kernels, "spec": run_spec,
           "bulk": lambda cs, dev: cs.phase_bulk(dev),
           "tape_replay": lambda cs, dev: cs.phase_tape_replay(dev),
           "symbol_serve": lambda cs, dev: cs.phase_symbol_serve(dev),
-          "symbol_train": lambda cs, dev: cs.phase_symbol_train(dev)}
+          "symbol_train": lambda cs, dev: cs.phase_symbol_train(dev),
+          "module_fit": lambda cs, dev: cs.phase_module_fit(dev),
+          "data_pipeline": lambda cs, dev: cs.phase_data_pipeline(dev),
+          "bucketing_lstm": lambda cs, dev: cs.phase_bucketing_lstm(dev),
+          "get_symbol": lambda cs, dev: cs.phase_get_symbol(dev),
+          "slice19": lambda cs, dev: cs.run_slice19(dev)}
 
 
 def main(argv):
