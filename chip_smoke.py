@@ -320,7 +320,25 @@ Run from the root of a checkout on a machine with a CUDA card. It
     residual add, pooling, layout transforms, SGD's foreach, the
     softmax-xent kernels), the LSTM, SSD-512 and NMT steps, and times the
     bert512 step once more. The profiler windows come last: after one, an
-    eager step's host wall may not return to what it was.
+    eager step's host wall may not return to what it was;
+15. runs A.15's image half and A.16's observability (``run_slice20``):
+    the machine's JPEG decoders (``phase_image_probe``); each fixture
+    record's decode against the JAX package's (sha256) and a planted Cb/Cr
+    swap (``phase_image_decode``); ResNet-50 fed 8 batches of 128 by
+    ``ImageRecordIter`` over 1024 records repacked from the fixture's JPEGs
+    (the fixture's own first batch equal to its digest by this machine's
+    route, the first loss bit for bit the directly fed step's, 1 + 1
+    softmax-xent launches a step, no CUDA allocation to decode and augment
+    an image; ``phase_image_record_resnet``), then by
+    ``ImageRecordDataset``, the vision transforms and ``DataLoader(pin_memory
+    =True)`` at 0, 4 thread and 2 process workers, byte for byte the CPU
+    loader's (``phase_vision_loader``); SSD-512 fed 10 batches of 32 by
+    ``ImageDetRecordIter(rand_crop, rand_pad, rand_mirror,
+    label_pad_width=8)`` (``phase_image_det_ssd``); BERT-base and GPT-2
+    small served with ``metrics_port=0``: the scrape against ``stats()``,
+    the request traces, the retrace watchdog around a planted retune, the
+    profiler's trace against the launch counters, the TTFT count
+    (``phase_observability``).
 
 It prints the card's name and power limit and one JSON line of kernel
 records, and ends with ``{"ok": true, "device": {...}}``. Any failed phase
@@ -5292,10 +5310,10 @@ def swap_burst(srv, reqs, path):
     run = srv._pool.run
     records = []
 
-    def recording_run(ins, n_real=None, eager=False):
+    def recording_run(ins, n_real=None, eager=False, traces=None):
         # called under the server's dispatch lock: the epoch read here is
         # the one the batch ran under
-        outs = run(ins, n_real=n_real, eager=eager)
+        outs = run(ins, n_real=n_real, eager=eager, traces=traces)
         records.append((srv._swap_epoch, [np.array(x) for x in ins], outs))
         return outs
 
@@ -11843,6 +11861,725 @@ def run_slice19(dev):
     return out
 
 
+IMAGE_LIB = os.path.join("src", "engine_cc", "libmxtpu_im.so")
+CUDA_HOME = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+
+
+def phase_image_probe():
+    """Which JPEG decoders this machine offers, on one line: whether the
+    committed ``libmxtpu_im.so`` loads (its ``libjpeg.so.62`` resolves),
+    whether PIL imports, and whether the CUDA toolkit has nvJPEG's header
+    and library. The port's decode routes follow from it."""
+    import ctypes
+    import glob
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    try:
+        ctypes.CDLL(os.path.join(repo, IMAGE_LIB))
+        out["libmxtpu_im"] = "loads"
+    except OSError as e:
+        out["libmxtpu_im"] = "fails: %s" % e
+    try:
+        import PIL
+
+        out["PIL"] = "imports %s" % PIL.__version__
+    except ImportError as e:
+        out["PIL"] = "fails: %s" % e
+    heads = sorted(glob.glob(os.path.join(CUDA_HOME, "include", "nvjpeg.h"))
+                   + glob.glob(os.path.join(CUDA_HOME, "targets", "*",
+                                            "include", "nvjpeg.h")))
+    libs = sorted(glob.glob(os.path.join(CUDA_HOME, "lib64", "libnvjpeg.so*"))
+                  + glob.glob(os.path.join(CUDA_HOME, "targets", "*", "lib",
+                                           "libnvjpeg.so*")))
+    out["nvjpeg_h"] = heads
+    out["libnvjpeg"] = libs
+    print("image probe: %s" % json.dumps(out), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Slice 20: A.15's image half feeding ResNet-50 and SSD-512, and A.16's
+# observability core and profiler
+# ---------------------------------------------------------------------------
+
+IMAGE_FIXTURE = os.path.join("tests", "fixtures")
+# the fixture's ImageRecordIter reading (tools/gen_torch_image_fixture.py)
+IMAGE_FIXTURE_KW = dict(data_shape=(3, 224, 224), batch_size=16, resize=256,
+                        rand_mirror=True, shuffle=True, mean_r=123.68,
+                        mean_g=116.28, mean_b=103.53, std_r=58.395,
+                        std_g=57.12, std_b=57.375)
+IMAGE_RECORDS = 1024   # the repacked ImageNet-shaped file of path (a)
+# paths (a) and (c): the crop and the shorter edge it is cut from
+IMAGE_TRAIN = {"size": 224, "resize": 256}
+IMAGE_STEPS = 8
+IMAGE_THREADS = 8
+DET_PAD = SSD_RECIPE["boxes"]  # label_pad_width: K fixed a batch
+# ToTensor's 0-1 scale: ImageNet's mean and std
+VISION_MEAN = (0.485, 0.456, 0.406)
+VISION_STD = (0.229, 0.224, 0.225)
+LOADER_BATCHES = 2
+LOADER_THREADS = 4
+LOADER_PROCS = 2
+OBS_REQUESTS = 24
+OBS_BUCKETS_RETUNED = (2, 4, 8)   # a planted retune: captures 2 and the
+OBS_STREAMS = 8                   # two others again
+OBS_NEW_TOKENS = 8
+
+_slice20_tmp = []
+
+
+def _slice20_dir():
+    """One scratch directory for slice 20's record files (under the
+    ignored build directory), removed by ``run_slice20``."""
+    import tempfile
+
+    from mxnet_tpu_torch.ops.cuda import _build
+
+    if not _slice20_tmp:
+        os.makedirs(_build.BUILD_DIR, exist_ok=True)
+        _slice20_tmp.append(tempfile.mkdtemp(prefix="slice20_",
+                                             dir=_build.BUILD_DIR))
+    return _slice20_tmp[0]
+
+
+def _fixture(name):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        IMAGE_FIXTURE, name)
+
+
+def _image_ref():
+    return np.load(_fixture("torch_images_ref.npz"))
+
+
+def image_digest(data, labels):
+    """The fixture's digest: sha256 of the float32 data bytes, then the
+    float32 label bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(data, np.float32).tobytes())
+    h.update(np.ascontiguousarray(labels, np.float32).tobytes())
+    return h.hexdigest()
+
+
+def _sha(a):
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a, np.uint8)
+                          .tobytes()).hexdigest()
+
+
+def repack_records(src_name, n, seed, det=False):
+    """``n`` records cycling the fixture's JPEG payloads (the card has no
+    encoder), each with a seeded class below ``RESNET["classes"]`` (or,
+    ``det``, its own detection label, each class taken modulo
+    ``SSD_RECIPE["classes"]``), written by ``recordio.pack``; returns the
+    path."""
+    from mxnet_tpu_torch import recordio
+
+    dst = os.path.join(_slice20_dir(), "%s_%d.rec" % (src_name, n))
+    if os.path.exists(dst):
+        return dst
+    src = recordio.RecordSource(_fixture(src_name + ".rec"))
+    rng = np.random.RandomState(seed)
+    w = recordio.MXIndexedRecordIO(dst[:-4] + ".idx", dst, "w")
+    for i in range(n):
+        header, payload = src.read(i % len(src))
+        if det:
+            label = np.array(header.label, np.float32)
+            hw, ow = int(label[0]), int(label[1])
+            label[hw::ow] %= SSD_RECIPE["classes"]
+        else:
+            label = float(rng.randint(0, RESNET["classes"]))
+        w.write_idx(i, recordio.pack(recordio.IRHeader(0, label, i, 0),
+                                     payload))
+    w.close()
+    return dst
+
+
+def _on_device_context(phase):
+    """Run ``phase(dev, ...)`` with ``dev`` the current context, where the
+    iterators and loaders make their batches (on the card it is the
+    default already)."""
+    import functools
+
+    @functools.wraps(phase)
+    def run(dev, *args, **kw):
+        from mxnet_tpu_torch.context import context_from_device
+
+        with context_from_device(dev):
+            return phase(dev, *args, **kw)
+
+    return run
+
+
+def _chroma_swapped(a):
+    """The planted decode fault: Cb and Cr exchanged."""
+    from PIL import Image
+
+    y, cb, cr = Image.fromarray(a).convert("YCbCr").split()
+    return np.asarray(Image.merge("YCbCr", (y, cr, cb)).convert("RGB"))
+
+
+def phase_image_decode(dev):
+    """Path (d): each fixture record's decode on this machine against the
+    JAX package's PIL decode (sha256 of the pixels, bit for bit), the
+    decode counted by route; a planted chroma swap must part from every
+    record."""
+    from mxnet_tpu_torch import image, io, recordio
+
+    ref = _image_ref()
+    out = {"decode_route": image.decode_route(),
+           "native_pipeline": io.image_native_error() or "loads"}
+    check(out["decode_route"] is not None, "no JPEG decoder on this machine")
+    n0 = image.counters["decode_pil"]
+    t0 = time.perf_counter()
+    for name, key in (("torch_images", "decode_sha"),
+                      ("torch_images_det", "det_decode_sha")):
+        src = recordio.RecordSource(_fixture(name + ".rec"))
+        same, planted = [], []
+        for i in range(len(src)):
+            a = image.imdecode(src.read(i)[1]).asnumpy()
+            same.append(_sha(a) == str(ref[key][i]))
+            planted.append(_sha(_chroma_swapped(a)) == str(ref[key][i]))
+        out[name] = {"records": len(src), "bit_equal": int(sum(same)),
+                     "planted_fault_equal": int(sum(planted))}
+        check(all(same), "%s: %d of %d decodes part from the JAX package's"
+              % (name, len(same) - sum(same), len(same)))
+        check(not any(planted), "%s: the planted chroma swap matched %d "
+              "records" % (name, sum(planted)))
+    out["decodes_counted"] = image.counters["decode_pil"] - n0
+    out["seconds"] = time.perf_counter() - t0
+    check(out["decodes_counted"] == 32, "decodes counted %d != 32"
+          % out["decodes_counted"])
+    print("image decode (d): route %s, native pipeline %s; %s" % (
+        out["decode_route"], out["native_pipeline"],
+        {k: out[k] for k in ("torch_images", "torch_images_det")}),
+        flush=True)
+    return out
+
+
+def _device_allocs(dev):
+    import torch
+
+    if dev.type != "cuda":
+        return 0
+    return torch.cuda.memory_stats(dev).get("allocation.all.allocated", 0)
+
+
+def _fixture_batch_route():
+    """The fixture's own file read as the fixture tool reads it, by the
+    route this machine takes: (route, reason, digest, the fixture's
+    digest for that route)."""
+    from mxnet_tpu_torch import cpu, io
+
+    ref = _image_ref()
+    np.random.seed(int(ref["iter_seed"]))
+    with cpu():
+        it = io.ImageRecordIter(_fixture("torch_images.rec"),
+                                preprocess_threads=IMAGE_THREADS,
+                                **IMAGE_FIXTURE_KW)
+        b = it.next()
+    got = image_digest(b.data[0].asnumpy(), b.label[0].asnumpy())
+    # the Python route here: the native library does not load, and the
+    # iterator drew the pipe's seed before it found that out
+    want = str(ref["jax_native_batch0"] if it.route == "native"
+               else ref["port_fallback_batch0"])
+    return it.route, it.route_reason, got, want
+
+
+@_on_device_context
+def phase_image_record_resnet(dev, step=None):
+    """Path (a): ResNet-50 (``RESNET``, bf16, ``RESNET_SGD``) fed by
+    ``ImageRecordIter(data_shape=(3, 224, 224), resize=256,
+    rand_mirror=True)`` with ImageNet's mean and std, ``shuffle=True`` and
+    8 ``preprocess_threads``, over IMAGE_RECORDS records repacked from the
+    fixture, IMAGE_STEPS steps. Before it the fixture's own file gives the
+    fixture's digest by this machine's route; the first loss is bit for
+    bit the same step's fed the same batch directly; 1 + 1 softmax-xent
+    launches a step and no other kernel; finite losses, weights that move;
+    decoding and augmenting an image allocates nothing on the card."""
+    import torch
+    from mxnet_tpu_torch import image, io
+    from mxnet_tpu_torch import random as mx_random
+
+    out = {}
+    route, reason, got, want = _fixture_batch_route()
+    out["fixture_route"], out["fixture_route_reason"] = route, reason
+    out["fixture_digest_equal"] = got == want
+    print("image record (a): the fixture's first batch by the %s route "
+          "(%s): digest %s the fixture's" % (
+              route, reason or "the native pipeline loads",
+              "equals" if got == want else "PARTS FROM"), flush=True)
+    check(got == want, "the fixture's first batch by the %s route parts "
+          "from the fixture's digest" % route)
+    path = repack_records("torch_images", IMAGE_RECORDS, SEED + 51)
+    S = IMAGE_TRAIN["size"]
+    kw = dict(IMAGE_FIXTURE_KW, batch_size=RESNET["batch"],
+              data_shape=(3, S, S), resize=IMAGE_TRAIN["resize"],
+              preprocess_threads=IMAGE_THREADS)
+    # one image decoded and augmented: nothing on the card
+    from mxnet_tpu_torch import recordio
+
+    payload = recordio.RecordSource(_fixture("torch_images.rec")).read(0)[1]
+    augs = image.CreateAugmenter((3, S, S), resize=IMAGE_TRAIN["resize"],
+                                 rand_mirror=True, mean=True, std=True)
+    a0 = _device_allocs(dev)
+    img = image.imdecode(payload)
+    for aug in augs:
+        img = aug(img)
+    out["image_device_allocs"] = _device_allocs(dev) - a0
+    out["image_on"] = str(img._data.device)
+    check(out["image_device_allocs"] == 0 and out["image_on"] == "cpu",
+          "decoding and augmenting one image touched the card: %d "
+          "allocations, the image on %s" % (out["image_device_allocs"],
+                                            out["image_on"]))
+    if step is None:
+        step = ResNetTrainStep(dev)
+    # the same batch fed directly: the host numpy of the same iterator
+    np.random.seed(SEED + 52)
+    data, labels = io.ImageRecordIter(path, **kw).host_batch()
+    saved = step.saved_stats()
+    step.x = torch.from_numpy(data).to(dev)
+    step.y = torch.from_numpy(labels).to(dev).to(torch.int32)
+    mx_random.seed(SEED)
+    direct = step(update=False).float().mean()
+    step.restore_stats(saved)
+    watch = [step.params[0], step.params[-1]]
+    before = [p._tensor().detach().clone() for p in watch]
+    np.random.seed(SEED + 52)
+    it = io.ImageRecordIter(path, **kw)
+    out["route"], out["route_reason"] = it.route, it.route_reason
+    counted0 = dict(io.counters)
+    mx_random.seed(SEED)
+    losses, iter_ms, step_ms = [], [], []
+    reset_counters()
+    for _ in range(IMAGE_STEPS):
+        t0 = time.perf_counter()
+        b = it.next()
+        t1 = time.perf_counter()
+        step.x = b.data[0]._data
+        step.y = b.label[0]._data.to(torch.int32)
+        losses.append(step().float().mean())
+        torch.cuda.synchronize()
+        iter_ms.append((t1 - t0) * 1e3)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    launches = read_counters()
+    losses = [float(v) for v in losses]
+    out.update(losses=losses, launches=launches,
+               iter_ms_per_batch=iter_ms, step_ms=step_ms,
+               iter_ms_median=float(np.median(iter_ms)),
+               step_ms_median=float(np.median(step_ms)),
+               batches_by_route={k: io.counters[k] - counted0[k]
+                                 for k in ("image_native", "image_python")},
+               first_loss_bit_equal=bool(float(direct) == losses[0]))
+    print("image record (a): resnet50 fed by ImageRecordIter (%s route, %s)"
+          ": losses %s; launches %s; iterator %.1f ms a batch against the "
+          "step's %.1f ms (medians); batches by route %s" % (
+              it.route, it.route_reason, ["%.4f" % v for v in losses],
+              launches, out["iter_ms_median"], out["step_ms_median"],
+              out["batches_by_route"]), flush=True)
+    check(out["first_loss_bit_equal"], "(a) the first loss %r is not the "
+          "directly fed step's %r" % (losses[0], float(direct)))
+    check(all(np.isfinite(losses)), "(a) non-finite loss")
+    for p, b0 in zip(watch, before):
+        check(not torch.equal(p._tensor(), b0), "(a) %s did not move"
+              % p.name)
+    for name, n in launches.items():
+        want_n = RESNET_STEP_LAUNCHES.get(name, 0) * IMAGE_STEPS
+        check(n == want_n, "(a) %s launches %d != %d" % (name, n, want_n))
+    check(out["batches_by_route"]["image_%s" % it.route] == IMAGE_STEPS,
+          "(a) batches not counted by their route: %s"
+          % out["batches_by_route"])
+    return step, out
+
+
+@_on_device_context
+def phase_image_det_ssd(dev):
+    """Path (b): SSD-512 (``SSD_RECIPE``) fed by ``ImageDetRecordIter(
+    rand_crop=1, rand_pad=1, rand_mirror=True, label_pad_width=DET_PAD)``
+    over the fixture's detection records repacked (the Python route): the
+    labels (B, K, 5) with -1 padding rows and every real box in [0, 1];
+    the first loss bit for bit the same step's fed the same batch
+    directly; no kernel launches; the last of SSD_STEPS losses under the
+    first."""
+    import torch
+    from mxnet_tpu_torch import io
+    from mxnet_tpu_torch import random as mx_random
+
+    B = SSD_RECIPE["batch"]
+    path = repack_records("torch_images_det", B * SSD_STEPS, SEED + 53,
+                          det=True)
+    S = SSD_RECIPE["size"]
+    kw = dict(data_shape=(3, S, S), batch_size=B, rand_crop=1, rand_pad=1,
+              rand_mirror=True, label_pad_width=DET_PAD, mean_r=123.68,
+              mean_g=116.28, mean_b=103.53, std_r=58.395, std_g=57.12,
+              std_b=57.375, preprocess_threads=IMAGE_THREADS)
+    step = SSDTrainStep(dev)
+    np.random.seed(SEED + 54)
+    data, labels = io.ImageDetRecordIter(path, **kw).host_batch()
+    real = labels[..., 0] >= 0
+    out = {"label_shape": list(labels.shape),
+           "padding_rows_all_minus_one": bool((labels[~real] == -1).all()),
+           "real_boxes_in_unit": bool(((labels[real][:, 1:] >= 0)
+                                       & (labels[real][:, 1:] <= 1)).all()),
+           "objects_a_batch": int(real.sum())}
+    check(out["label_shape"] == [B, DET_PAD, 5], "(b) labels %s"
+          % out["label_shape"])
+    check(out["padding_rows_all_minus_one"] and out["real_boxes_in_unit"],
+          "(b) label layout: %s" % out)
+    step.x = torch.from_numpy(data).to(dev)
+    step.labels = torch.from_numpy(labels).to(dev)
+    mx_random.seed(SEED)
+    direct = step(update=False).float()
+    np.random.seed(SEED + 54)
+    it = io.ImageDetRecordIter(path, **kw)
+    counted0 = io.counters["image_python"]
+    mx_random.seed(SEED)
+    losses, iter_ms = [], []
+    reset_counters()
+    for _ in range(SSD_STEPS):
+        t0 = time.perf_counter()
+        b = it.next()
+        iter_ms.append((time.perf_counter() - t0) * 1e3)
+        step.x = b.data[0]._data
+        step.labels = b.label[0]._data
+        losses.append(step().float())
+    launches = read_counters()
+    losses = [float(v) for v in losses]
+    out.update(losses=losses, launches=launches, iter_ms_per_batch=iter_ms,
+               iter_ms_median=float(np.median(iter_ms)),
+               batches_python_route=io.counters["image_python"] - counted0,
+               first_loss_bit_equal=bool(float(direct) == losses[0]))
+    print("image det (b): ssd512 fed by ImageDetRecordIter: losses %s; "
+          "launches %s; iterator %.1f ms a batch (median); label %s, %d "
+          "objects in the first batch" % (
+              ["%.4f" % v for v in losses],
+              {k: v for k, v in launches.items() if v},
+              out["iter_ms_median"], out["label_shape"],
+              out["objects_a_batch"]), flush=True)
+    check(out["first_loss_bit_equal"], "(b) the first loss %r is not the "
+          "directly fed step's %r" % (losses[0], float(direct)))
+    check(all(np.isfinite(losses)), "(b) non-finite loss")
+    check(not any(launches.values()), "(b) the ssd512 step launched %s"
+          % launches)
+    check(losses[-1] < losses[0], "(b) the ssd512 loss did not fall: %s"
+          % losses)
+    check(out["batches_python_route"] == SSD_STEPS, "(b) batches counted "
+          "%d != %d" % (out["batches_python_route"], SSD_STEPS))
+    return out
+
+
+def _loader_batches(loader, n):
+    got = []
+    for i, b in enumerate(loader):
+        if i >= n:
+            break
+        got.append(b)
+    return got
+
+
+@_on_device_context
+def phase_vision_loader(dev, step):
+    """Path (c): ResNet-50 through ``gluon.Trainer`` fed by
+    ``ImageRecordDataset`` with ``transforms.Compose([RandomResizedCrop(224),
+    RandomFlipLeftRight(), ToTensor(), Normalize(...)])``,
+    ``DataLoader(batch 128, pin_memory=True)`` and its DevicePrefetcher:
+    at ``num_workers=0`` each batch byte for byte the same loader's on the
+    CPU under the same numpy seed, 1 + 1 softmax-xent launches a step;
+    then a deterministic ``Resize`` + ``CenterCrop`` chain through 4
+    thread workers and 2 process workers, byte for byte against the CPU
+    (random transforms draw from one global numpy state in no fixed order
+    across workers, as in the JAX package)."""
+    import torch
+    from mxnet_tpu_torch import cpu
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.gluon import data as gdata
+    from mxnet_tpu_torch.gluon.data.vision import transforms as T
+
+    B = RESNET["batch"]
+    path = repack_records("torch_images", IMAGE_RECORDS, SEED + 51)
+    ds = gdata.vision.ImageRecordDataset(path)
+    S = IMAGE_TRAIN["size"]
+    rand_chain = T.Compose([T.RandomResizedCrop(S), T.RandomFlipLeftRight(),
+                            T.ToTensor(), T.Normalize(VISION_MEAN,
+                                                      VISION_STD)])
+    det_chain = T.Compose([T.Resize(IMAGE_TRAIN["resize"]), T.CenterCrop(S),
+                           T.ToTensor(), T.Normalize(VISION_MEAN, VISION_STD)])
+
+    def loader(chain, **kw):
+        return gdata.DataLoader(
+            ds.transform_first(chain), batch_sampler=gdata.BatchSampler(
+                gdata.SequentialSampler(LOADER_BATCHES * B), B, "discard"),
+            **kw)
+
+    def host(batches):
+        return [[a.asnumpy() for a in b] for b in batches]
+
+    def same(a, b):
+        return all(x.dtype == y.dtype and x.shape == y.shape
+                   and x.tobytes() == y.tobytes()
+                   for ba, bb in zip(a, b) for x, y in zip(ba, bb)) \
+            and len(a) == len(b)
+
+    out = {}
+    np.random.seed(SEED + 55)
+    with cpu():
+        want = host(_loader_batches(loader(rand_chain), LOADER_BATCHES))
+    np.random.seed(SEED + 55)
+    t0 = time.perf_counter()
+    got = _loader_batches(loader(rand_chain, pin_memory=True),
+                          LOADER_BATCHES)
+    out["serial_seconds"] = time.perf_counter() - t0
+    out["serial_on"] = str(got[0][0]._data.device)
+    out["serial_byte_equal"] = same(host(got), want)
+    mx_random.seed(SEED)
+    reset_counters()
+    losses = []
+    for x, y in got:
+        step.x = x._data
+        step.y = y._data.to(torch.int32)
+        losses.append(float(step().float().mean()))
+    out["losses"], out["launches"] = losses, read_counters()
+    for name, n in out["launches"].items():
+        want_n = RESNET_STEP_LAUNCHES.get(name, 0) * LOADER_BATCHES
+        check(n == want_n, "(c) %s launches %d != %d" % (name, n, want_n))
+    check(out["serial_byte_equal"], "(c) the num_workers=0 batches part "
+          "from the CPU's")
+    check(all(np.isfinite(losses)), "(c) non-finite loss")
+    with cpu():
+        want_det = host(_loader_batches(loader(det_chain), LOADER_BATCHES))
+    for label, kw in (("threads", {"num_workers": LOADER_THREADS}),
+                      ("processes", {"num_workers": LOADER_PROCS,
+                                     "thread_pool": False})):
+        ld = loader(det_chain, pin_memory=True, **kw)
+        t0 = time.perf_counter()
+        try:
+            got = host(_loader_batches(ld, LOADER_BATCHES))
+            out[label] = {"seconds": time.perf_counter() - t0,
+                          "byte_equal": same(got, want_det),
+                          "worker_reports": ld.worker_reports}
+        finally:
+            ld.close()
+        check(out[label]["byte_equal"], "(c) the %s loader's batches part "
+              "from the CPU's" % label)
+    for r in out["processes"]["worker_reports"]:
+        check(r["device_count"] == 0, "(c) a process worker saw a card: %s"
+              % r)
+    print("vision loader (c): batches on %s, num_workers=0 byte-equal %s "
+          "(%.1f s for %d batches); losses %s, launches %s; thread workers "
+          "%s, process workers %s" % (
+              out["serial_on"], out["serial_byte_equal"],
+              out["serial_seconds"], LOADER_BATCHES, losses, out["launches"],
+              out["threads"]["byte_equal"], out["processes"]["byte_equal"]),
+          flush=True)
+    return out
+
+
+def _scrape(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        text = r.read().decode()
+    samples = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            samples[name] = float(value)
+    return samples
+
+
+def _trace_reading(handles):
+    """Each handle's spans in order (queue, coalesce, pad, dispatch), each
+    starting where the last ended or later, and their sum within the
+    request's latency."""
+    bad = []
+    for h, lat_s in handles:
+        spans = h.trace.spans
+        names = [s[0] for s in spans]
+        ordered = names == ["queue", "coalesce", "pad", "dispatch"] and all(
+            b[1] >= a[2] - 1e-9 for a, b in zip(spans, spans[1:]))
+        total = sum(s[2] - s[1] for s in spans)
+        if not ordered or total > lat_s:
+            bad.append({"spans": names, "sum_s": total, "latency_s": lat_s})
+    return bad
+
+
+def phase_observability(dev):
+    """Path (e): BERT-base served at ``phase_serve``'s recipe with
+    ``metrics_port=0`` and tracing: a burst of OBS_REQUESTS requests; the
+    scrape of ``/metrics`` gives ``stats()``'s counts; every trace's
+    stages in order and within its latency; the watchdog, armed after
+    warmup, 0 events in traffic and one event naming each bucket a
+    planted ``retune_buckets`` captures. GPT-2 small's
+    ``GenerativeServer``: its TTFT histogram counts each stream once.
+    ``profiler.start``/``stop`` around two served batches: the Chrome
+    trace holds the serve scopes, and its LayerNorm and flash-forward
+    kernel events count what the launch counters count."""
+    import json as _json
+
+    import torch
+    from mxnet_tpu_torch import amp, observability, profiler
+    from mxnet_tpu_torch.models.bert import bert_base
+    from mxnet_tpu_torch.serve import ModelServer
+
+    out = {}
+    model = bert_base(dropout=0.1, max_length=SEQ)
+    model.initialize(device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(SEED))
+    amp.convert_hybrid_block(model, "bfloat16")
+    specs = [((SEQ,), "int32"), ((SEQ,), "int32"), ((), "int32")]
+    observability.set_tracing(True)
+    srv = ModelServer(model, specs, buckets=BUCKETS, max_wait_ms=5.0,
+                      timeout_ms=120000.0, device=dev, metrics_port=0,
+                      name="serve:observability")
+    observability.watchdog.reset_events()
+    observability.arm_watchdog()
+    rng = np.random.RandomState(SEED + 56)
+    vl = rng.randint(1, SEQ + 1, OBS_REQUESTS).astype(np.int32)
+    tok = rng.randint(0, VOCAB, (OBS_REQUESTS, SEQ)).astype(np.int32)
+    tt = (np.arange(SEQ)[None, :] >= vl[:, None] // 2).astype(np.int32)
+    try:
+        with srv:
+            handles = [srv.submit(tok[i], tt[i], vl[i])
+                       for i in range(OBS_REQUESTS)]
+            done = []
+            for h in handles:
+                h.result(timeout_s=300)
+                done.append((h, time.perf_counter() - h.t_submit))
+            traffic_events = observability.watchdog.snapshot()["events"]
+            stats = srv.stats()
+            scraped = _scrape(srv.metrics_http.url())
+            label = '{server="%s"}' % srv.name
+            keys = ("requests", "completed", "batches", "captures",
+                    "replays")
+            out["scrape"] = {k: [stats[k], scraped.get(
+                "mxtpu_serve_server_%s%s" % (k, label))] for k in keys}
+            out["trace_faults"] = _trace_reading(done)
+            out["trace_example"] = done[0][0].timing()
+            # two served batches under the profiler
+            profiler.set_config(filename=os.path.join(
+                _slice20_dir(), "profile.json"), aggregate_stats=True)
+            reset_counters()
+            profiler.start()
+            for lo, hi in ((0, 8), (8, 16)):
+                hs = [srv.submit(tok[i], tt[i], vl[i]) for i in range(lo, hi)]
+                for h in hs:
+                    h.result(timeout_s=300)
+            profiler.stop()
+            launches = read_counters()
+        trace = _json.load(open(profiler.dump()))["traceEvents"]
+        table = profiler.dumps(reset=True)
+        kernels = [e["name"] for e in trace if e["cat"] == "kernel"]
+        out["profile"] = {
+            "serve_scopes": sum(e["name"].startswith("serve[")
+                                for e in trace),
+            "request_spans": sum(e["cat"] == "request" for e in trace),
+            "layernorm_events": sum(_kernel_class(k) == "layernorm"
+                                    for k in kernels),
+            "flash_events": sum(_kernel_class(k) == "flash"
+                                for k in kernels),
+            "launches": launches, "kernel_events": len(kernels),
+            "table_lines": len(table.splitlines())}
+        # the planted retune: one event for each bucket it captures
+        observability.watchdog.reset_events()
+        srv.retune_buckets(OBS_BUCKETS_RETUNED)
+        events = list(observability.watchdog.events)
+        out["retune_events"] = [e["key"] for e in events]
+    finally:
+        observability.disarm_watchdog()
+        srv.stop()
+    out["traffic_events"] = traffic_events
+    # GPT-2 small's GenerativeServer: one TTFT observation a stream
+    gmodel = _gpt_model(dev, SEED + 57)
+    gen = _gen_server(gmodel, dev, metrics_port=0, name="gen:observability")
+    gen.warmup(prompt_buckets=(64,), max_tokens=128)
+    n0 = gen.stats()["ttft_count"]
+    prng = np.random.RandomState(SEED + 58)
+    with gen:
+        streams = [gen.submit(prng.randint(0, GPT_VOCAB, 40 + 3 * i),
+                              max_new_tokens=OBS_NEW_TOKENS)
+                   for i in range(OBS_STREAMS)]
+        for s in streams:
+            s.result(timeout_s=300)
+        g = gen.stats()
+        gscraped = _scrape(gen.metrics_http.url())
+    out["ttft"] = {"count": g["ttft_count"] - n0,
+                   "scraped": gscraped.get('mxtpu_serve_server_ttft_count'
+                                           '{server="%s"}' % gen.name),
+                   "stats_count": g["ttft_count"],
+                   "decode_spans": sum(
+                       1 for s in streams for sp in s.trace.spans
+                       if sp[0] == "decode")}
+    del gen, gmodel
+    print("observability (e): scrape vs stats %s; trace faults %d of %d "
+          "(first: %s); watchdog events in traffic %d, after the planted "
+          "retune %s; profiler: %s; TTFT %s" % (
+              out["scrape"], len(out["trace_faults"]), OBS_REQUESTS,
+              out["trace_example"], out["traffic_events"],
+              out["retune_events"], out["profile"], out["ttft"]), flush=True)
+    for k, (want, got) in out["scrape"].items():
+        check(got == want, "(e) scraped %s %r != stats() %r" % (k, got,
+                                                                want))
+    check(not out["trace_faults"], "(e) traces out of order or over their "
+          "latency: %s" % out["trace_faults"][:3])
+    check(out["traffic_events"] == 0, "(e) the watchdog saw %d events in "
+          "traffic" % out["traffic_events"])
+    want_keys = ["serve[%s bucket=%d]" % (srv.name, b)
+                 for b in sorted(OBS_BUCKETS_RETUNED, reverse=True)]
+    check(sorted(out["retune_events"]) == sorted(want_keys),
+          "(e) the retune's watchdog events %s != %s"
+          % (out["retune_events"], want_keys))
+    p = out["profile"]
+    check(p["serve_scopes"] >= 2, "(e) %d serve scopes in the trace"
+          % p["serve_scopes"])
+    check(p["layernorm_events"] == launches.get("layernorm", 0)
+          and p["flash_events"] == launches.get("flash_attention_fwd", 0)
+          and p["layernorm_events"] > 0,
+          "(e) the trace's kernel events (layernorm %d, flash %d) do not "
+          "count the launches %s" % (p["layernorm_events"],
+                                     p["flash_events"], launches))
+    check(out["ttft"]["count"] == OBS_STREAMS
+          and out["ttft"]["scraped"] == out["ttft"]["stats_count"],
+          "(e) the TTFT histogram counts %s for %d streams"
+          % (out["ttft"], OBS_STREAMS))
+    return out
+
+
+def run_slice20(dev):
+    """Slice 20's paths, each timed: (d) decode, (a) ImageRecordIter into
+    ResNet-50, (b) ImageDetRecordIter into SSD-512, (c) the vision
+    DataLoader, (e) observability and the profiler."""
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        out["image_probe"] = phase_image_probe()
+        out["decode"] = phase_image_decode(dev)
+        out["decode"]["phase_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step, out["image_record_resnet"] = phase_image_record_resnet(dev)
+        out["image_record_resnet"]["phase_seconds"] = \
+            time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["vision_loader"] = phase_vision_loader(dev, step)
+        out["vision_loader"]["phase_seconds"] = time.perf_counter() - t0
+        del step
+        for name, phase in (("image_det_ssd", phase_image_det_ssd),
+                            ("observability", phase_observability)):
+            t0 = time.perf_counter()
+            out[name] = phase(dev)
+            out[name]["phase_seconds"] = time.perf_counter() - t0
+    finally:
+        for d in _slice20_tmp:
+            shutil.rmtree(d, ignore_errors=True)
+        del _slice20_tmp[:]
+    print("A.15 image / A.16 phases: %s s" % {
+        k: round(v["phase_seconds"], 1) for k, v in out.items()
+        if "phase_seconds" in v}, flush=True)
+    return out
+
+
 def card_line():
     """The card's name and power limit, as ``nvidia-smi --query-gpu=
     name,power.limit --format=csv,noheader`` gives them."""
@@ -12030,6 +12767,9 @@ def main():
         train["step_wall_ms_median_after_profiler"] = wall
         print("bert512 step after the profiler sessions: median wall %.3f ms"
               % wall, flush=True)
+        # after the timings too: phase_observability runs a profiler
+        # session
+        slice20 = run_slice20(dev)
     except SmokeFailure as e:
         print("chip_smoke FAILED: %s" % e, file=sys.stderr)
         return 1
@@ -12045,6 +12785,7 @@ def main():
                       "model_parallel": model_parallel,
                       "tp_compute": tp_compute, "hybridize": hybridize,
                       "symbolic": symbolic, "module_and_data": slice19,
+                      "image_and_observability": slice20,
                       "decode_step_graphs": graphs, "quantized": quant,
                       "speculative": spec, "chunked_prefill": chunked,
                       "attention_dense_vs_flash": crossover,

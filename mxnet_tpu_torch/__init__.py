@@ -26,7 +26,10 @@ export layout) and the engine's bulk window and compiled tape replay
 flow and ``autograd.get_symbol``, the Module API (``mod``/``module``,
 ``model``, ``callback``, ``monitor``, ``metric``, the legacy ``rnn``), and
 the host I/O (``io`` iterators, ``recordio``, ``gluon.data`` with the
-DataLoader and the device prefetcher, ``gluon.utils``). Entry points run on the
+DataLoader and the device prefetcher, ``gluon.utils``), the image path
+(``image``, ``image_det``, the image record iterators, ``pack_img``,
+``gluon.data.vision``), and the tooling's first part (``profiler`` over
+``torch.profiler``, ``observability`` with the servers' ``/metrics``). Entry points run on the
 current CUDA device unless the caller passes ``device="cpu"`` (or
 ``ctx=mx.cpu()``, or enters ``with mx.cpu():``). The package imports
 neither JAX nor anything of ``mxnet_tpu``.
@@ -44,6 +47,7 @@ from . import engine, name, attribute, symbol, sym, sym_contrib  # noqa: F401
 from . import executor, visualization  # noqa: F401
 from . import io, recordio, metric, model, module, callback  # noqa: F401
 from . import monitor, rnn  # noqa: F401
+from . import image, image_det, profiler, observability  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import visualization as viz  # noqa: F401
 from .attribute import AttrScope  # noqa: F401

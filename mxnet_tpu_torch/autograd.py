@@ -60,6 +60,7 @@ token. The record starts afresh at each outermost ``record()``.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 import threading
@@ -325,8 +326,20 @@ def _tape_route(heads, entries):
         if len(_TAPE_KEYS) >= _TAPE_KEY_CAP:
             _TAPE_KEYS.clear()
         _TAPE_KEYS.add(key)
-        engine.tape_compile_counter.count += 1
+        engine.tape_compile_counter.bump(note="tape[%x]" % (
+            hash(key) & 0xFFFFFFFF))
     return "counted"
+
+
+def _backward_scope(heads):
+    """The profiler's ``backward[...]`` record of a compiled replay, named
+    after the head nodes' kinds, while the profiler runs."""
+    from . import profiler
+
+    if not profiler.is_running():
+        return contextlib.nullcontext()
+    return profiler.backward_scope([type(h.grad_fn).__name__
+                                    for h in heads if h.grad_fn is not None])
 
 
 def _torch_builds():
@@ -375,11 +388,12 @@ def _accumulate(heads, seeds, entries, retain_graph, route="eager"):
         backend = TAPE_BACKEND if any(h.is_cuda for h in heads) \
             else _CPU_BACKEND
         before = _torch_builds()
-        with _compiled_autograd()._enable(_compiler(backend), dynamic=False):
+        with _compiled_autograd()._enable(_compiler(backend), dynamic=False), \
+                _backward_scope(heads):
             torch.autograd.backward(heads, seeds, retain_graph=retain_graph,
                                     inputs=[t for _, t in entries])
         if _torch_builds() != before:
-            engine.tape_compile_counter.count += 1
+            engine.tape_compile_counter.bump(note="tape[compiled]")
         else:
             engine.tape_cache_hit_counter.count += 1
     elif heads:

@@ -26,9 +26,13 @@ is one dispatch), ``bulk_compile`` (a window program built), ``tape_compile``
 and ``tape_cache_hit`` (the compiled backward, ``autograd.py``),
 ``symbol_compile`` (an executor program captured, ``symbol.py``). The
 port adds ``tape_eager``: backwards that took one of the counted eager
-routes of the tape replay. The JAX module's serving, compile-cache and
-``dist`` counters count programs the port keeps elsewhere: a server's
-captures in ``serve.stats()`` and its ``stats()``, the gradient buckets in
+routes of the tape replay, and the capture counters in place of the JAX
+module's serving and decode compile counters: ``serve_capture`` (a served
+bucket's graph), ``decode_capture`` (a decode step program) and
+``hybrid_capture`` (a hybridized block's key). Each build bumps its
+counter with the key of what it built (``bump(note=...)``), which the
+retrace watchdog names. The compile-cache and ``dist`` counters count
+programs the port keeps elsewhere: the gradient buckets in
 ``dist.bucketer``'s counters.
 """
 from __future__ import annotations
@@ -43,16 +47,22 @@ __all__ = ["DispatchCounter", "bulk", "bulk_size", "set_bulk_size", "flush",
 
 class DispatchCounter:
     """A named host counter: ``bump()`` adds, ``reset()`` zeroes,
-    ``count`` reads. Tests reset one before a region and read it after."""
+    ``count`` reads. Tests reset one before a region and read it after.
+    ``bump(note=key)`` also calls the watch hook, when one is set
+    (``observability.watchdog``), with the key of what was built."""
 
-    __slots__ = ("count", "name")
+    __slots__ = ("count", "name", "_watch")
 
     def __init__(self, name=""):
         self.count = 0
         self.name = name
+        self._watch = None
 
-    def bump(self, n=1):
+    def bump(self, n=1, note=None):
         self.count += n
+        watch = self._watch
+        if watch is not None:
+            watch(self, n, note)
 
     def reset(self):
         self.count = 0
@@ -79,6 +89,13 @@ while_host_read_counter = DispatchCounter("while_host_read")
 # an Executor's forward run again because a predicate its program computed
 # picked another branch than the program was keyed on
 cond_rerun_counter = DispatchCounter("cond_rerun")
+# the port's CUDA-graph captures, one bump per program made: a served
+# bucket (serve/executor_pool.py), a decode step program
+# (serve/step_graph.py), a hybridized block's key (gluon/hybrid.py); the
+# retrace watchdog watches them with the compile counters above
+serve_capture_counter = DispatchCounter("serve_capture")
+decode_capture_counter = DispatchCounter("decode_capture")
+hybrid_capture_counter = DispatchCounter("hybrid_capture")
 
 # off by default, where upstream's and the JAX package's window holds 15
 # ops (ROADMAP.md C.2): on the card a window's program measured slower than

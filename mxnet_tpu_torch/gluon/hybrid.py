@@ -53,7 +53,7 @@ import threading
 
 import torch
 
-from .. import autograd
+from .. import autograd, engine
 from .. import random as _random
 from ..base import resolve_device
 from ..capture import AddressBook, capture_graph
@@ -218,6 +218,10 @@ class BlockPrograms:
             self.stats["forward_captures"] += 1
             self.stats["backward_captures"] += int(grad)
             self.stats["recaptures"] += int(key in self._seen_keys)
+            engine.hybrid_capture_counter.bump(note="hybridize[%s train=%s "
+                                               "grad=%s]" % (
+                                                   type(block).__name__,
+                                                   key[0], key[1]))
             self._seen_keys.add(key)
         self.stats["forward_replays"] += 1
         if prog.fwd is None:  # the CPU: the same call, eagerly

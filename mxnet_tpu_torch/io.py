@@ -14,13 +14,25 @@ the JAX package does (``NDArrayIter`` from numpy's global state,
 ``MNISTIter`` from ``RandomState(seed)``), so one seed gives one order in
 both packages.
 
-The image iterators (``ImageRecordIter``, ``ImageDetRecordIter``) are
-``ROADMAP.md`` A.15's image half; ``LibSVMIter`` yields CSR batches and
-waits for ``sparse.py`` (A.17).
+The image iterators over ``.rec`` files: ``ImageRecordIter`` (and its
+uint8 twin ``ImageRecordUInt8Iter``) takes the native route where it can,
+the committed ``src/engine_cc/libmxtpu_im.so`` (threads that read, decode
+with libjpeg, resize, crop and mirror into CHW uint8 batches), loaded
+read-only and bit for bit the JAX package's native route; else the Python
+route, ``image.imdecode`` and the augmenters of ``image.py`` per image
+(the decodes on ``preprocess_threads`` threads, the augmenters in record
+order, so the random draws come in the JAX package's order).
+``ImageDetRecordIter`` always takes the Python route. The JAX package
+falls back to the Python route silently; here every batch is counted by
+its route (``counters["image_native"]``, ``["image_python"]``) and each
+iterator that could not take the native route records why
+(``iterator.route_reason``, and ``route_reasons`` by reason).
+``LibSVMIter`` yields CSR batches and waits for ``sparse.py`` (A.17).
 """
 from __future__ import annotations
 
 import ctypes
+import os
 import queue
 import threading
 
@@ -29,10 +41,16 @@ import numpy as np
 from .ndarray import NDArray, array
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "CSVIter",
-           "MNISTIter", "PrefetchingIter", "ResizeIter", "counters"]
+           "MNISTIter", "PrefetchingIter", "ResizeIter", "ImageRecordIter",
+           "ImageRecordUInt8Iter", "ImageDetRecordIter", "pack_det_label",
+           "counters", "route_reasons", "image_lib_path"]
 
-# the explicit routes, counted: CSV files the native reader declined
-counters = {"csv_native": 0, "csv_loadtxt": 0}
+# the explicit routes, counted: CSV files the native reader declined, and
+# image batches by the route that made them
+counters = {"csv_native": 0, "csv_loadtxt": 0, "image_native": 0,
+            "image_python": 0}
+# why image record iterators took the Python route: reason -> iterators
+route_reasons = {}
 
 
 class DataDesc:
@@ -384,3 +402,348 @@ class ResizeIter(DataIter):
         except StopIteration:
             self._iter.reset()
             return self._iter.next()
+
+
+# ---------------------------------------------------------------------------
+# Image record iterators (ref: src/io/iter_image_recordio_2.cc,
+# iter_image_det_recordio.cc)
+# ---------------------------------------------------------------------------
+
+def image_lib_path():
+    """Where the prebuilt ``libmxtpu_im.so`` lies in the checkout."""
+    return os.path.abspath(os.path.join(
+        os.path.dirname(__file__), "..", "src", "engine_cc",
+        "libmxtpu_im.so"))
+
+
+_im_lib = None     # the typed library, once loaded
+_im_error = None   # or why it does not load: fixed once a process
+_im_lock = threading.Lock()
+
+
+def image_native_error():
+    """None where the native image pipeline loads, else why not."""
+    _image_lib()
+    return _im_error
+
+
+def _image_lib():
+    global _im_lib, _im_error
+    with _im_lock:
+        if _im_lib is None and _im_error is None:
+            so = image_lib_path()
+            try:
+                if not os.path.exists(so):
+                    raise OSError("%s is missing (it is prebuilt and "
+                                  "committed; the port does not build it)"
+                                  % so)
+                lib = ctypes.CDLL(so)
+                lib.mxtpu_impipe_create.restype = ctypes.c_void_p
+                lib.mxtpu_impipe_create.argtypes = [
+                    ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_uint64,
+                    ctypes.c_int]
+                lib.mxtpu_impipe_next.restype = ctypes.c_int
+                lib.mxtpu_impipe_next.argtypes = [
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                lib.mxtpu_impipe_reset.argtypes = [ctypes.c_void_p]
+                lib.mxtpu_impipe_destroy.argtypes = [ctypes.c_void_p]
+                lib.mxtpu_impipe_errors.restype = ctypes.c_long
+                lib.mxtpu_impipe_errors.argtypes = [ctypes.c_void_p]
+                _im_lib = lib
+            except (OSError, AttributeError) as e:
+                _im_error = "libmxtpu_im.so does not load: %s" % e
+        return _im_lib
+
+
+class _NativeImagePipe:
+    """The C++ decode pipeline of ``src/engine_cc/image_pipeline.cc``:
+    threads that pread, decode with libjpeg, resize the shorter edge,
+    center crop and mirror into ordered CHW uint8 batches."""
+
+    def __init__(self, lib, handle, batch, shape, label_width):
+        self._lib, self._h = lib, handle
+        self._batch, self._shape, self._lw = batch, shape, label_width
+
+    @staticmethod
+    def try_create(path, threads, batch, data_shape, label_width, shuffle,
+                   mirror, resize, seed=0, depth=4):
+        """(pipe, None), or (None, why the native route is not taken)."""
+        lib = _image_lib()
+        if lib is None:
+            return None, _im_error
+        c, h, w = data_shape
+        if c != 3:
+            return None, "the native pipeline decodes RGB only (data_shape " \
+                         "has %d channels)" % c
+        handle = lib.mxtpu_impipe_create(
+            str(path).encode(), int(threads), int(batch), int(h), int(w),
+            int(label_width), int(bool(shuffle)), int(bool(mirror)),
+            int(resize), int(seed), int(depth))
+        if not handle:
+            return None, "mxtpu_impipe_create refused %s" % path
+        return _NativeImagePipe(lib, handle, batch, (c, h, w),
+                                label_width), None
+
+    def next(self):
+        c, h, w = self._shape
+        data = np.empty((self._batch, c, h, w), np.uint8)
+        labels = np.empty((self._batch, self._lw), np.float32)
+        n = self._lib.mxtpu_impipe_next(
+            self._h, data.ctypes.data_as(ctypes.c_void_p),
+            labels.ctypes.data_as(ctypes.c_void_p))
+        errs = self._lib.mxtpu_impipe_errors(self._h)
+        if errs:
+            raise RuntimeError(
+                "native image pipeline: %d record(s) failed to read/decode "
+                "(corrupt or non-JPEG payloads); use force_python=True to "
+                "locate them through the Python route's exception" % errs)
+        if n <= 0:
+            return None
+        return data, labels
+
+    def reset(self):
+        self._lib.mxtpu_impipe_reset(self._h)
+
+    def __del__(self):
+        try:
+            self._lib.mxtpu_impipe_destroy(self._h)
+        except Exception:
+            pass
+
+
+class _RecordIterBase(DataIter):
+    """Shared ``.rec`` machinery: reads by byte offset, the shuffle order
+    (numpy's global state, as the JAX package draws it), the cursor, and
+    the Python route: decodes on ``threads`` threads, then each record's
+    ``_augment_one(img, label)`` in order, one device copy a batch.
+    Subclasses give ``_augment_one`` and ``_collate_labels``."""
+
+    def __init__(self, path_imgrec, batch_size, shuffle, path_imgidx,
+                 threads=1):
+        super().__init__(batch_size)
+        from .recordio import RecordSource
+
+        self._src = RecordSource(path_imgrec, path_imgidx)
+        self._shuffle = shuffle
+        self._threads = max(1, int(threads))
+        self._pool = None
+        self._order = np.arange(len(self._src))
+        self.reset()
+
+    def reset(self):
+        if self._shuffle:
+            np.random.shuffle(self._order)
+        self._cursor = 0
+
+    def iter_next(self):
+        return self._cursor + self.batch_size <= len(self._src)
+
+    def _decoded(self, idx):
+        """(header, HWC uint8) of each record in ``idx``, in order."""
+        from .image import imdecode_np
+
+        def one(i):
+            header, img_bytes = self._src.read(i)
+            return header, imdecode_np(img_bytes)
+
+        if self._threads == 1 or len(idx) == 1:
+            return [one(i) for i in idx]
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pool = ThreadPoolExecutor(self._threads)
+        return list(self._pool.map(one, idx))
+
+    def host_batch(self):
+        """The next batch as host numpy (data, labels) by the Python
+        route, or StopIteration."""
+        from .image import _asnp
+
+        if not self.iter_next():
+            raise StopIteration
+        datas, labels = [], []
+        idx = self._order[self._cursor:self._cursor + self.batch_size]
+        for header, img in self._decoded(idx):
+            img, label = self._augment_one(img, header.label)
+            datas.append(_asnp(img).transpose(2, 0, 1))
+            labels.append(label)
+        self._cursor += self.batch_size
+        counters["image_python"] += 1
+        return np.stack(datas), self._collate_labels(labels)
+
+    def next(self):
+        data, labels = self.host_batch()
+        return DataBatch([array(data)], [array(labels)])
+
+    def __del__(self):
+        pool = self.__dict__.get("_pool")
+        if pool is not None:
+            pool.shutdown(wait=False)
+
+
+class ImageRecordIter(_RecordIterBase):
+    """Image record iterator over ``.rec`` files (ref:
+    src/io/iter_image_recordio_2.cc). The native route where the library
+    loads and the augmentation is the standard resize, center crop,
+    mirror and normalize; the Python route for ``rand_crop``,
+    ``force_python=True``, a non-RGB shape or a library that does not
+    load, with ``route_reason`` saying which."""
+
+    _raw_uint8 = False
+
+    def __init__(self, path_imgrec, data_shape, batch_size, label_width=1,
+                 shuffle=False, rand_crop=False, rand_mirror=False,
+                 mean_r=0.0, mean_g=0.0, mean_b=0.0, std_r=1.0, std_g=1.0,
+                 std_b=1.0, resize=0, path_imgidx=None, preprocess_threads=4,
+                 **kwargs):
+        from .image import CreateAugmenter
+
+        self._augs = CreateAugmenter(data_shape, resize=resize,
+                                     rand_crop=rand_crop,
+                                     rand_mirror=rand_mirror,
+                                     mean=(mean_r, mean_g, mean_b),
+                                     std=(std_r, std_g, std_b))
+        self._label_width = label_width
+        self._mean = np.asarray([mean_r, mean_g, mean_b],
+                                np.float32).reshape(1, 3, 1, 1)
+        self._std = np.asarray([std_r, std_g, std_b],
+                               np.float32).reshape(1, 3, 1, 1)
+        self._pipe = None
+        # the pipe starts after the base reset(), which would otherwise
+        # restart it at once and drop its first batches
+        super().__init__(path_imgrec, batch_size, shuffle, path_imgidx,
+                         threads=preprocess_threads)
+        if rand_crop:
+            reason = "rand_crop takes the Python route"
+        elif kwargs.get("force_python", False):
+            reason = "force_python=True"
+        else:
+            # drawn whether or not the library loads, as the JAX package
+            # draws it before it tries
+            seed = int(np.random.randint(1, 2 ** 31)) if shuffle else 1
+            self._pipe, reason = _NativeImagePipe.try_create(
+                path_imgrec, preprocess_threads, batch_size, data_shape,
+                label_width, shuffle, rand_mirror, resize, seed=seed)
+        self.route = "native" if self._pipe is not None else "python"
+        self.route_reason = reason
+        if reason is not None:
+            route_reasons[reason] = route_reasons.get(reason, 0) + 1
+
+    def host_batch(self):
+        if self._pipe is None:
+            data, labels = super().host_batch()
+            if self._raw_uint8:
+                data = data.astype(np.uint8)
+            return data, labels
+        if not self.iter_next():
+            raise StopIteration
+        got = self._pipe.next()
+        if got is None:
+            raise StopIteration
+        self._cursor += self.batch_size
+        counters["image_native"] += 1
+        data, labels = got
+        if not self._raw_uint8:
+            data = (data.astype(np.float32) - self._mean) / self._std
+        if self._label_width == 1:
+            labels = labels.ravel()
+        return data, labels
+
+    def reset(self):
+        super().reset()
+        if getattr(self, "_pipe", None) is not None:
+            self._pipe.reset()
+
+    def _augment_one(self, img, label):
+        for aug in self._augs:
+            img = aug(img)
+        if self._label_width > 1:
+            vec = np.zeros((self._label_width,), np.float32)
+            flat = np.asarray(label, np.float32).ravel()
+            vec[:min(len(flat), self._label_width)] = \
+                flat[:self._label_width]
+            return img, vec
+        scalar = (np.asarray(label, np.float32).ravel()[0]
+                  if np.ndim(label) else float(label))
+        return img, scalar
+
+    def _collate_labels(self, labels):
+        return np.asarray(labels, np.float32)
+
+
+class ImageRecordUInt8Iter(ImageRecordIter):
+    """The uint8 twin of ImageRecordIter (ref: iter_image_recordio_2.cc
+    ImageRecordUInt8Iter): pixels as decoded, not normalized; it refuses
+    ``mean_*`` and ``std_*``."""
+
+    _raw_uint8 = True
+
+    def __init__(self, path_imgrec, data_shape, batch_size, **kwargs):
+        bad = [k for k in kwargs if k.startswith(("mean_", "std_"))]
+        if bad:
+            raise TypeError("ImageRecordUInt8Iter takes no normalization "
+                            "parameters (got %s); it yields raw uint8"
+                            % bad)
+        super().__init__(path_imgrec, data_shape, batch_size, **kwargs)
+
+
+class ImageDetRecordIter(_RecordIterBase):
+    """Detection record iterator (ref: src/io/iter_image_det_recordio.cc),
+    always the Python route. A record's label is the flat upstream layout
+    ``[header_width, obj_width, <header pad...>, cls, x1, y1, x2, y2, ...]``
+    (``pack_det_label``); batches carry (B, K, 5) labels padded with class
+    -1 rows, K fixed at ``label_pad_width`` (a record with more objects
+    raises) or else each batch's own largest count (at least 1)."""
+
+    def __init__(self, path_imgrec, data_shape, batch_size, path_imgidx=None,
+                 shuffle=False, rand_crop=0, rand_pad=0, rand_mirror=False,
+                 mean_r=0.0, mean_g=0.0, mean_b=0.0, std_r=1.0, std_g=1.0,
+                 std_b=1.0, resize=0, label_pad_width=None, rng=None,
+                 preprocess_threads=4, **kwargs):
+        from .image import CreateDetAugmenter
+
+        self._augs = CreateDetAugmenter(
+            data_shape, resize=resize, rand_crop=rand_crop, rand_pad=rand_pad,
+            rand_mirror=rand_mirror, mean=(mean_r, mean_g, mean_b),
+            std=(std_r, std_g, std_b), rng=rng)
+        self._label_pad_width = label_pad_width
+        self.route, self.route_reason = "python", None
+        super().__init__(path_imgrec, batch_size, shuffle, path_imgidx,
+                         threads=preprocess_threads)
+
+    @staticmethod
+    def _parse_label(flat):
+        flat = np.asarray(flat, np.float32).ravel()
+        hw = int(flat[0])
+        ow = int(flat[1])
+        body = flat[hw:]
+        n = len(body) // ow
+        return body[:n * ow].reshape(n, ow)[:, :5]
+
+    def _augment_one(self, img, label):
+        label = self._parse_label(label)
+        for aug in self._augs:
+            img, label = aug(img, label)
+        return img, np.asarray(label, np.float32)
+
+    def _collate_labels(self, labels):
+        width = self._label_pad_width or max(1, max(len(l) for l in labels))
+        out = np.full((len(labels), width, 5), -1.0, np.float32)
+        for j, l in enumerate(labels):
+            if len(l) > width:
+                raise ValueError("record has %d objects > label_pad_width=%d"
+                                 % (len(l), width))
+            out[j, :len(l)] = l
+        return out
+
+
+def pack_det_label(boxes, header_width=2):
+    """Boxes (N, 5) [cls, x1, y1, x2, y2] as the flat detection label of the
+    upstream layout (ref: tools/im2rec's detection packing)."""
+    boxes = np.asarray(boxes, np.float32).reshape(-1, 5)
+    head = np.zeros(header_width, np.float32)
+    head[0] = header_width
+    head[1] = 5
+    return np.concatenate([head, boxes.ravel()])

@@ -51,6 +51,7 @@ import torch
 
 from . import autograd
 from . import engine as _engine
+from . import profiler as _profiler
 from .base import OP_REGISTRY, register_op, resolve_device, resolve_dtype
 from .context import Context, context_from_device, current_context
 from .ops.functional import basic_index
@@ -513,6 +514,12 @@ def wrap(out):
     return out
 
 
+# per-op dispatch counts (observability.enable_op_telemetry): off, the hot
+# loop reads one module boolean
+_obs_on = False
+_obs_counts = {}
+
+
 def invoke(opname, args, kwargs):
     """Run registry op ``opname`` on NDArrays: defer it into the bulk
     window when it is fusible there (module docstring), else unwrap the
@@ -528,6 +535,8 @@ def invoke(opname, args, kwargs):
         if out is not None:
             return out
     _engine.dispatch_counter.count += 1
+    if _obs_on:
+        _obs_counts[opname] = _obs_counts.get(opname, 0) + 1
     kwargs = dict(kwargs)
     out = kwargs.pop("out", None)
     if getattr(fn, "needs_training", False) and "training" not in kwargs:
@@ -792,14 +801,20 @@ def _flush_window():
     else:
         prog = _PROGRAMS.pop(key, None)
         if prog is None:
-            _engine.bulk_compile_counter.count += 1
+            _engine.bulk_compile_counter.bump(
+                note="bulk[%s]" % ",".join(n.op for n in nodes))
             prog = _WindowProgram(structure, leaves, want, device) \
                 if device.type == "cuda" else structure
             if len(_PROGRAMS) >= PROGRAM_CAP:
                 _PROGRAMS.pop(next(iter(_PROGRAMS)))
         _PROGRAMS[key] = prog
-        results = prog(leaves) if device.type == "cuda" else \
-            _run_chain(structure, leaves, want)
+        if _profiler.is_running():
+            with _profiler.bulk_scope([n.op for n in nodes]):
+                results = prog(leaves) if device.type == "cuda" else \
+                    _run_chain(structure, leaves, want)
+        else:
+            results = prog(leaves) if device.type == "cuda" else \
+                _run_chain(structure, leaves, want)
     for (_, arr), val in zip(outs, results):
         arr._buf = val
         arr._lazy = None

@@ -35,6 +35,7 @@ import math
 import numpy as np
 import torch
 
+from . import profiler
 from . import random as _random
 
 __all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "AdaGrad", "AdaDelta",
@@ -219,8 +220,8 @@ class Optimizer:
         """One multi-tensor step with the per-parameter rates, decays and
         update counts given: gradients rescaled and clipped in fp32,
         masters stepped and cast back into the weights."""
-        # a profiler range, so a trace can sum the step's kernels
-        with torch.no_grad(), torch.profiler.record_function(
+        # a profiler scope, so a trace can sum the step's kernels
+        with torch.no_grad(), profiler.scope(
                 "mxnet_tpu_torch::optimizer_step"):
             # fp32 gradients, rescaled (out of place: never the params' own
             # gradient tensors) and clipped

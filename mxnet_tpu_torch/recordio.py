@@ -1,5 +1,5 @@
-"""RecordIO (counterpart of ``mxnet_tpu/recordio.py`` without the image
-packing; ref: src/recordio.cc, python/mxnet/recordio.py).
+"""RecordIO (counterpart of ``mxnet_tpu/recordio.py``; ref:
+src/recordio.cc, python/mxnet/recordio.py).
 
 The same on-disk framing: little-endian kMagic 0xced7230a, a u32 length,
 the payload, zero padding to 4 bytes; ``.idx`` files map a key to a byte
@@ -8,8 +8,9 @@ reads back byte for byte in the other. ``read_all_native`` scans a file
 with the C++ reader of the committed ``src/engine_cc/libmxtpu.so``
 (``recordio.cc``), loaded read-only through ``engine.py``.
 
-``pack_img``/``unpack_img`` decode JPEG and belong to ``ROADMAP.md`` A.15's
-image half.
+``pack_img`` encodes through PIL (JPEG, or PNG for another ``img_fmt``)
+and ``unpack_img`` decodes through ``image.imdecode``, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -21,8 +22,8 @@ import threading
 import numpy as np
 
 __all__ = ["MXRecordIO", "MXIndexedRecordIO", "IndexedRecordIO", "IRHeader",
-           "pack", "unpack", "load_offsets", "read_all_native",
-           "RecordSource"]
+           "pack", "unpack", "pack_img", "unpack_img", "load_offsets",
+           "read_all_native", "RecordSource"]
 
 _MAGIC = 0xCED7230A
 
@@ -205,6 +206,31 @@ def unpack(s):
         label = np.frombuffer(s[:flag * 4], dtype=np.float32)
         s = s[flag * 4:]
     return IRHeader(flag, label, id_, id2), s
+
+
+def pack_img(header, img, quality=95, img_fmt=".jpg"):
+    """``pack`` of ``img`` (HWC uint8) encoded by PIL."""
+    import io as _io
+
+    from PIL import Image
+
+    from .ndarray import NDArray
+
+    if isinstance(img, NDArray):
+        img = img.asnumpy()
+    buf = _io.BytesIO()
+    Image.fromarray(np.asarray(img)).save(
+        buf, format="JPEG" if img_fmt in (".jpg", ".jpeg") else "PNG",
+        quality=quality)
+    return pack(header, buf.getvalue())
+
+
+def unpack_img(s, iscolor=1):
+    """(IRHeader, the decoded image as an NDArray on the CPU)."""
+    from .image import imdecode
+
+    header, img_bytes = unpack(s)
+    return header, imdecode(img_bytes, flag=iscolor)
 
 
 def _typed_native():

@@ -32,13 +32,18 @@ class ServeTimeout(ServeError):
 
 
 class _Request:
-    __slots__ = ("inputs", "n", "t_submit", "deadline", "priority", "_event",
-                 "_result", "_error", "_done", "_lock")
+    __slots__ = ("inputs", "n", "t_submit", "t_dequeue", "deadline",
+                 "priority", "trace", "_event", "_result", "_error", "_done",
+                 "_lock")
 
     def __init__(self, inputs, n, timeout_ms, priority=0):
         self.inputs = inputs
         self.n = n  # rows this request contributes to a batch
         self.t_submit = time.perf_counter()
+        self.t_dequeue = None  # stamped when a batch claims the request
+        # observability.RequestTrace: the queue, coalesce, pad and
+        # dispatch spans as the request moves through
+        self.trace = None
         self.deadline = (self.t_submit + timeout_ms / 1e3
                          if timeout_ms else None)
         self.priority = int(priority)  # higher = more urgent
@@ -47,6 +52,15 @@ class _Request:
         self._error = None
         self._done = False
         self._lock = threading.Lock()
+
+    @property
+    def trace_id(self):
+        return self.trace.trace_id if self.trace is not None else None
+
+    def timing(self):
+        """The request's breakdown (``queue_ms``, ``pad_ms``,
+        ``dispatch_ms``, ``tokens``); None with tracing off."""
+        return self.trace.timing() if self.trace is not None else None
 
     def finish(self, result=None, error=None):
         """First writer wins (a result racing the timeout sweep); returns
@@ -135,7 +149,8 @@ class DynamicBatcher:
         if pool is not None:
             pool.shutdown(wait=True)
 
-    def submit(self, inputs, n_rows, timeout_ms=None, priority=0):
+    def submit(self, inputs, n_rows, timeout_ms=None, priority=0,
+               trace=None):
         """Enqueue one request of ``n_rows`` rows.
 
         ``priority`` (higher = more urgent) orders the queue: dispatch
@@ -146,6 +161,7 @@ class DynamicBatcher:
         and the new request takes its place; otherwise the new request is
         shed (ServerBusy raised here)."""
         req = _Request(inputs, int(n_rows), timeout_ms, priority)
+        req.trace = trace
         evicted = []
         with self._cond:
             if self._stop:
@@ -216,6 +232,9 @@ class DynamicBatcher:
                     if self._metrics:
                         self._metrics.record_queue_depth(self._queued_rows)
                     if batch:
+                        t_deq = time.perf_counter()  # the queue spans end
+                        for req in batch:
+                            req.t_dequeue = t_deq
                         return batch, rows
                     # the head alone exceeds max_batch: fail it
                     req = self._queue.popleft()

@@ -62,7 +62,9 @@ from collections import deque
 import numpy as np
 import torch
 
+from .. import profiler
 from ..base import next_pow2, resolve_device
+from ..observability import MetricsHTTPServer, new_trace
 from ..checkpoint import validate_swap
 from ..ops import functional as F
 from ..ops.attention import quantize_page
@@ -77,10 +79,6 @@ __all__ = ["sample_tokens", "GenerationStream", "GenerativeServer"]
 
 _DONE = object()
 _M32 = 0xFFFFFFFF
-# what the slice does not carry: option -> the ROADMAP.md item it waits for
-_NOT_PORTED = {
-    "metrics_port": "A.16 (observability, the /metrics endpoint)",
-}
 
 
 def _mix32(h):
@@ -141,6 +139,9 @@ class GenerationStream:
         self.seed = int(seed)
         self.priority = int(priority)
         self.tokens = []          # generated ids, in order
+        # observability.RequestTrace: queue, pad and dispatch spans at the
+        # join, then the decode steps, one aggregate span at retire
+        self.trace = None
         self._q = queue.Queue()
         self._done = threading.Event()
         self._error = None
@@ -248,9 +249,10 @@ class GenerativeServer:
         before the tick's decode step, and bypasses the prefix cache. At
         least ``spec_k`` when a draft is set (a verify window of a slot
         waiting for its chunks must land where the next chunk writes).
-    metrics_port
-        Not ported yet: any value but None raises ``ServeError`` naming
-        the ROADMAP.md item.
+    metrics_port : int or None
+        Serve the observability endpoint (``/metrics``, ``/snapshot``,
+        ``/health``) on this loopback port while the server runs (0: a free
+        one, read back from ``srv.metrics_http.port``).
     """
 
     def __init__(self, model, slots=8, top_k=0, eos_id=None,
@@ -258,9 +260,6 @@ class GenerativeServer:
                  prefix_cache=True, name=None, device=None,
                  metrics_port=None, quantize=None, draft=None, spec_k=4,
                  prefill_chunk=None):
-        if metrics_port is not None:
-            raise ServeError("metrics_port= is not ported yet (ROADMAP.md "
-                             "%s)" % _NOT_PORTED["metrics_port"])
         self._quantize = quantize or None
         if self._quantize is not None \
                 and not hasattr(model, "decode_step_fixed_quant"):
@@ -370,6 +369,8 @@ class GenerativeServer:
             max_queue=max_queue, num_dispatchers=1, metrics=self.metrics)
         self._loop_thread = None
         self._stop_flag = False
+        self._metrics_port = metrics_port
+        self.metrics_http = None
         from . import _register
 
         _register(self)
@@ -380,6 +381,9 @@ class GenerativeServer:
         over and over) on a background thread. Tests drive the same tick
         synchronously with :meth:`step`."""
         self._batcher.start()
+        if self._metrics_port is not None and self.metrics_http is None:
+            self.metrics_http = MetricsHTTPServer(self._metrics_port,
+                                                  health_fn=self.health)
         if self._loop_thread is None or not self._loop_thread.is_alive():
             self._stop_flag = False
             self._loop_thread = threading.Thread(
@@ -408,6 +412,9 @@ class GenerativeServer:
             err = ServeError(reason)
             if req.finish(error=err):
                 req.inputs._finish(err)
+        if self.metrics_http is not None:
+            self.metrics_http.close()
+            self.metrics_http = None
 
     def __enter__(self):
         return self.start()
@@ -490,6 +497,7 @@ class GenerativeServer:
         self.cache.capacity_bucket(stream.prompt.size + stream.max_new_tokens
                                    + self._spec_margin)
         self._batcher.start()
+        stream.trace = new_trace(self.name)
         req = self._batcher.submit(stream, 1, timeout_ms=tmo,
                                    priority=priority)
         stream._admission = req
@@ -588,8 +596,9 @@ class GenerativeServer:
         padded = np.zeros((1, tp), np.int64)
         padded[0, :n] = prompt
         tokens = torch.from_numpy(padded).to(self.device)
-        with self._params_lock, torch.no_grad(), \
-                torch.profiler.record_function("mxnet_tpu_torch::prefill"):
+        with self._params_lock, torch.no_grad(), profiler.decode_scope(
+                "prefill%d" % tp, self.slots, 1,
+                torch_name="mxnet_tpu_torch::prefill"):
             logits, kvs = self.model.forward_collect_kv(F, tokens)
             self._write_pages(slot, [k for k, _ in kvs],
                               [v for _, v in kvs], n, tp)
@@ -606,7 +615,7 @@ class GenerativeServer:
         sampled from the stored logits. Returns the first token (1,)."""
         k_stack, v_stack, plen, last = hit
         n = min(k_stack.shape[2], self.cache.capacity)
-        with torch.no_grad(), torch.profiler.record_function(
+        with torch.no_grad(), profiler.scope(
                 "mxnet_tpu_torch::prefix_inject"):
             dev = self.device
             self._write_pages(slot,
@@ -656,6 +665,10 @@ class GenerativeServer:
                                  for i, p in enumerate(c.v)]))
 
     def _join(self, req, stream):
+        t_join = time.perf_counter()
+        tr = stream.trace
+        if tr is not None:
+            tr.add_span("queue", req.t_submit, t_join)
         n = int(stream.prompt.size)
         self.cache.ensure_capacity(n + stream.max_new_tokens
                                    + self._spec_margin)
@@ -673,6 +686,7 @@ class GenerativeServer:
         try:
             hit = self.prefix.get(stream.prompt) \
                 if self.prefix is not None else None
+            t_disp0 = time.perf_counter()
             if hit is not None:
                 first = self._inject(slot, hit, stream.seed,
                                      stream.temperature)
@@ -694,6 +708,10 @@ class GenerativeServer:
         except BaseException:
             self.cache.release(slot)
             raise
+        if tr is not None:
+            tr.add_span("pad", t_join, t_disp0)
+            tr.add_span("dispatch", t_disp0, time.perf_counter(),
+                        prefix_hit=hit is not None)
         self._activate(slot, req, stream, first)
 
     def _activate(self, slot, req, stream, first):
@@ -875,9 +893,9 @@ class GenerativeServer:
         return body
 
     def _run(self, kind, key, body, eager):
-        with self._params_lock, torch.no_grad(), \
-                torch.profiler.record_function("mxnet_tpu_torch::%s_step"
-                                               % kind):
+        with self._params_lock, torch.no_grad(), profiler.decode_scope(
+                kind, self.slots, len(self.cache.active_slots),
+                torch_name="mxnet_tpu_torch::%s_step" % kind):
             return self._steps.run(
                 key, body, self._step_state(kind),
                 params=[p._tensor() for p in self._plist], eager=eager)
@@ -926,6 +944,9 @@ class GenerativeServer:
                                  under_prefill=bool(self._chunk_jobs))
         now = time.perf_counter()
         for slot in np.flatnonzero(active):
+            tr = self.cache.owner(int(slot)).trace
+            if tr is not None:
+                tr.note_decode_step(dt, now)
             self._deliver(int(slot), int(nxt_host[slot]), now)
         return n_active
 
@@ -1037,6 +1058,8 @@ class GenerativeServer:
         stream = self.cache.owner(slot)
         req = self._slot_req[slot]
         if stream is not None:
+            if stream.trace is not None:
+                stream.trace.close_decode()
             stream._finish(error)
             if error is None and req is not None:
                 self.metrics.record_latency(

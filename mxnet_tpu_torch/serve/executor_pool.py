@@ -32,9 +32,12 @@ be tested there.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from .. import engine
 from ..base import resolve_dtype
 from ..capture import add_launches, capture_graph
 
@@ -87,12 +90,13 @@ class BucketedExecutor:
     times a parameter moved and every program was dropped.
     """
 
-    def __init__(self, fn, params_fn, buckets, device):
+    def __init__(self, fn, params_fn, buckets, device, name="pool"):
         if not buckets:
             raise PoolError("BucketedExecutor needs at least one bucket")
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         self.device = torch.device(device)
         self.graphed = self.device.type == "cuda"
+        self.name = name
         self._fn = fn
         self._params_fn = params_fn
         self._in_specs = None    # [(sample shape, dtype)], pinned at first use
@@ -150,6 +154,8 @@ class BucketedExecutor:
                 self._capture(prog, bucket, params)
             self._programs[bucket] = prog
             self.captures += 1
+            engine.serve_capture_counter.bump(
+                note="serve[%s bucket=%d]" % (self.name, bucket))
         return prog
 
     def _capture(self, prog, bucket, params):
@@ -183,14 +189,21 @@ class BucketedExecutor:
         add_launches(prog.deltas)
         return prog.outs
 
-    def run(self, inputs, n_real=None, eager=False, to_host=True):
+    def run(self, inputs, n_real=None, eager=False, to_host=True,
+            traces=None):
         """Pad to the bucket, one forward through the bucket's program (or
         eagerly, on new tensors, with ``eager``), copy back, slice off the
         pad rows. ``inputs`` share the leading batch dim: numpy arrays, or
         tensors on the device, copied into the program's inputs there.
         Returns numpy outputs with ``n_real`` rows each (outputs without a
         batch axis come back whole); with ``to_host=False``, copies on the
-        device in the outputs' own dtype."""
+        device in the outputs' own dtype. ``traces``: the batch's
+        RequestTraces, each given the ``pad`` span (the bucket's program
+        found, its inputs' shapes pinned) and the ``dispatch`` span (the
+        copy in, the forward, the copy out)."""
+        from .. import profiler
+
+        t_pad0 = time.perf_counter() if traces else None
         n = int(np.shape(inputs[0])[0])
         n_real = n if n_real is None else int(n_real)
         bucket = self.pick_bucket(n)
@@ -205,10 +218,21 @@ class BucketedExecutor:
             outs = self._forward(params, xs)
         else:
             self._check_params(params)
-            outs = self._replay(self._program(bucket, params), params,
-                                inputs, n)
+            prog = self._program(bucket, params)
+            t_disp0 = time.perf_counter() if traces else None
+            if profiler.is_running():
+                with profiler.serve_scope(bucket, n_real):
+                    outs = self._replay(prog, params, inputs, n)
+            else:
+                outs = self._replay(prog, params, inputs, n)
         outs = [to_numpy(o) if to_host else o.detach().clone()
                 for o in outs]
+        if traces and not eager:
+            t_done = time.perf_counter()
+            for tr in traces:
+                tr.add_span("pad", t_pad0, t_disp0, bucket=bucket)
+                tr.add_span("dispatch", t_disp0, t_done, bucket=bucket,
+                            rows=n_real)
         if self._row_outputs is None:
             self._row_outputs = [o.ndim >= 1 and o.shape[0] == bucket
                                  for o in outs]

@@ -253,6 +253,7 @@ class GenerativeMetrics(ServeMetrics):
                                       / self.drafted_tokens, 4)
                                 if self.drafted_tokens else None),
             })
+            snap["ttft_count"] = self._ttft_n
             snap.update(_ring_percentiles(
                 self._ttft, min(self._ttft_n, self._window), "ttft"))
             snap.update(_ring_percentiles(

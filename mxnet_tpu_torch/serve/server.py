@@ -35,7 +35,12 @@ a replica, ``swap_parameters`` copies into every replica and ``stats()``
 counts each (``replicas``). ``serve.snapshot(srv, prefix)`` writes the
 model's export layout and the server's config, and ``serve.load(prefix,
 snapshot=True)`` builds the server again from it (``cache/snapshot.py``).
-The metrics endpoint is not ported (A.16).
+``metrics_port=`` serves ``/metrics`` (the Prometheus text of
+``observability.snapshot()``), ``/snapshot`` and ``/health`` from a
+background thread while the server runs (0 takes a free port, read back
+from ``srv.metrics_http.port``). Each request carries a
+``RequestTrace`` (``handle.trace``, ``handle.timing()``) with its queue,
+coalesce, pad and dispatch spans, unless ``observability.set_tracing(False)``.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ import torch
 from ..base import resolve_device
 from ..checkpoint import validate_swap
 from ..ir.tune import fit_buckets
+from ..observability import MetricsHTTPServer, new_trace
 from ..quantization import quantize_model
 from .batcher import DynamicBatcher, ServeError, ServeTimeout
 from .executor_pool import BucketedExecutor
@@ -89,12 +95,16 @@ class ModelServer:
         or ``"entropy"``) against ``calib_data`` (batches of the model's
         inputs, e.g. a warm-up batch shaped like real traffic); ignored
         unless ``quantize`` is set.
+    metrics_port : int or None
+        Serve the observability endpoint on this loopback port while the
+        server runs (0: a free one).
     """
 
     def __init__(self, model, input_specs, buckets=DEFAULT_BUCKETS,
                  max_wait_ms=2.0, max_queue=256, timeout_ms=1000.0,
                  device=None, name=None, warmup=True, quantize=None,
-                 calib_mode="none", calib_data=None, devices=None):
+                 calib_mode="none", calib_data=None, devices=None,
+                 metrics_port=None):
         self.devices = [resolve_device(d) for d in devices] if devices \
             else [resolve_device(device)]
         self.device = self.devices[0]
@@ -126,6 +136,8 @@ class ModelServer:
         self._batch_idx = 0
         self._batch_lock = threading.Lock()
         self.inject_fault = None  # drill hook: callable(batch_idx) may raise
+        self._metrics_port = metrics_port
+        self.metrics_http = None
         self._build()
         self._started = False
         self._start_lock = threading.Lock()
@@ -144,10 +156,11 @@ class ModelServer:
         self._copies = {}
         self._pools = [BucketedExecutor(
             fn, lambda: [p._tensor() for p in plist], self.buckets,
-            self.device)]
+            self.device, name=self.name)]
         for r, dev in enumerate(self.devices[1:], 1):
             self._pools.append(BucketedExecutor(
-                fn, self._replica_params_fn(r), self.buckets, dev))
+                fn, self._replica_params_fn(r), self.buckets, dev,
+                name="%s:r%d" % (self.name, r)))
         self._pool = self._pools[0]
         self._replica_batches = [0] * len(self._pools)
         self._batcher = DynamicBatcher(
@@ -187,6 +200,9 @@ class ModelServer:
     def start(self):
         with self._start_lock:
             self._batcher.start()
+            if self._metrics_port is not None and self.metrics_http is None:
+                self.metrics_http = MetricsHTTPServer(
+                    self._metrics_port, health_fn=self.health)
             self._started = True
         return self
 
@@ -198,6 +214,9 @@ class ModelServer:
             self._started = False
             self._batcher.stop(drain=drain, timeout_s=timeout_s,
                                reason=reason)
+            if self.metrics_http is not None:
+                self.metrics_http.close()
+                self.metrics_http = None
 
     def health(self):
         """Cheap liveness payload, the JAX server's keys: warm flag, the
@@ -306,7 +325,8 @@ class ModelServer:
         if n > self.buckets[-1]:
             raise ServeError("request of %d rows exceeds the largest bucket "
                              "%d" % (n, self.buckets[-1]))
-        return self._batcher.submit(arrays, n, timeout_ms=timeout_ms)
+        return self._batcher.submit(arrays, n, timeout_ms=timeout_ms,
+                                    trace=new_trace(self.name))
 
     def submit(self, *xs, timeout_ms=None):
         """Asynchronous enqueue; returns a handle with ``.result(timeout_s)``
@@ -342,11 +362,23 @@ class ModelServer:
         try:
             if self.inject_fault is not None:
                 self.inject_fault(idx)
+            traces = []
+            t_co = time.perf_counter()
+            for r in requests:
+                if r.trace is not None:
+                    r.trace.add_span("queue", r.t_submit, r.t_dequeue or t_co)
+                    traces.append(r)
             ins = [np.concatenate([r.inputs[i] for r in requests], axis=0)
                    for i in range(len(self._specs))]
+            if traces:
+                t_co1 = time.perf_counter()
+                for r in traces:
+                    r.trace.add_span("coalesce", r.t_dequeue or t_co, t_co1,
+                                     rows=total_rows)
+                traces = [r.trace for r in traces]
             pool = self._pools[replica]
             with self._replica_locks[replica]:
-                outs = pool.run(ins, n_real=total_rows)
+                outs = pool.run(ins, n_real=total_rows, traces=traces)
                 self._replica_batches[replica] += 1
             self.metrics.record_batch(total_rows,
                                       pool.pick_bucket(total_rows))

@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import engine
 from ..capture import (AddressBook, Graph, capture_counter,  # noqa: F401
                        capture_graph, clone_state, collector_paused)
 
@@ -115,6 +116,7 @@ class StepPrograms:
             self._programs[key] = prog
             self.captures += 1
             capture_counter.count += 1
+            engine.decode_capture_counter.bump(note="decode[%s]" % (key,))
         self.replays += 1
         if prog.graph is None:
             return body(state)

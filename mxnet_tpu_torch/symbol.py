@@ -1150,7 +1150,9 @@ class Executor:
             self.stats["backward_captures"] += int(bool(diff))
             self.stats["recaptures"] += int(key in self._seen)
             self._seen.add(key)
-            engine.symbol_compile_counter.count += 1
+            engine.symbol_compile_counter.bump(
+                note="executor[train=%s grads=%d]" % (bool(is_train),
+                                                      len(diff)))
             if device.type == "cuda":
                 with _decisions(decisions):
                     self._capture(prog, s, vals, diff, device, preds)

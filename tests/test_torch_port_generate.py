@@ -280,8 +280,21 @@ def test_stats_carry_the_jax_keys_the_slice_covers(shared):
 
 @pytest.mark.parametrize("option,value,item", [("metrics_port", 0, "A.16")])
 def test_options_the_slice_does_not_carry_raise(shared, option, value, item):
-    with pytest.raises(ServeError, match=item):
-        _server(shared["port_model"], **{option: value})
+    """The options a slice left out raised, naming their ROADMAP item; the
+    last of them, ``metrics_port`` (A.16), is carried now: the server
+    serves ``/metrics`` while it runs and closes it at ``stop()``."""
+    import urllib.request
+
+    srv = _server(shared["port_model"], **{option: value})
+    srv.start()
+    try:
+        assert srv.metrics_http is not None, item
+        with urllib.request.urlopen(srv.metrics_http.url(), timeout=30) as r:
+            body = r.read().decode()
+        assert "mxtpu_serve_server_" in body
+    finally:
+        srv.stop()
+    assert srv.metrics_http is None
 
 
 def test_without_a_device_it_needs_cuda(shared, monkeypatch):

@@ -8,8 +8,9 @@ the detection ops and the LSTM, SSD and Transformer models, the kvstore,
 ``dist``, ``parallel``, the converters and the model store, tensor,
 sequence, pipeline and expert parallelism and ``SyncBatchNorm``, the
 shared capture module and ``hybridize``'s programs, the engine's bulk
-window, the symbolic API, the Module family, control flow and the host
-I/O included) imports
+window, the symbolic API, the Module family, control flow, the host
+I/O, the image path, the observability core and the profiler included)
+imports
 with JAX blocked; and without
 CUDA every entry point refuses to run unless the caller asks for the
 CPU."""
@@ -100,7 +101,16 @@ def test_package_imports_with_jax_blocked():
             "mxnet_tpu_torch.module, mxnet_tpu_torch.callback, "
             "mxnet_tpu_torch.monitor, mxnet_tpu_torch.rnn, "
             "mxnet_tpu_torch.ops.control_flow, mxnet_tpu_torch.gluon.data, "
-            "mxnet_tpu_torch.gluon.utils; "
+            "mxnet_tpu_torch.gluon.utils, mxnet_tpu_torch.image, "
+            "mxnet_tpu_torch.image_det, mxnet_tpu_torch.gluon.data.vision, "
+            "mxnet_tpu_torch.gluon.data.vision.datasets, "
+            "mxnet_tpu_torch.gluon.data.vision.transforms, "
+            "mxnet_tpu_torch.observability, "
+            "mxnet_tpu_torch.observability.registry, "
+            "mxnet_tpu_torch.observability.tracing, "
+            "mxnet_tpu_torch.observability.http, "
+            "mxnet_tpu_torch.observability.watchdog, "
+            "mxnet_tpu_torch.profiler; "
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,

@@ -17,11 +17,9 @@ import mxnet_tpu_torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MISSING = {
-    # A.15's image half: JPEG decode, augmenters, image iterators
-    "image": "A.15 (image)", "image_det": "A.15 (image)",
-    # A.16: tooling
-    "analysis": "A.16", "observability": "A.16", "profiler": "A.16",
-    "runtime": "A.16", "libinfo": "A.16", "kvstore_server": "A.16",
+    # A.16's rest: tooling
+    "analysis": "A.16", "runtime": "A.16", "libinfo": "A.16",
+    "kvstore_server": "A.16",
     # A.17: the rest
     "contrib": "A.17", "numpy_api": "A.17", "np": "A.17",
     "npx": "A.17", "np_array": "A.17", "np_shape": "A.17",
@@ -82,6 +80,13 @@ def test_bound_at_import():
     assert mx.recordio.MXRecordIO is not None
     assert mx.gluon.data.DataLoader is not None
     assert callable(mx.gluon.utils.split_and_load)
+    assert mx.image.ImageIter is not None
+    assert mx.image_det.CreateDetAugmenter is mx.image.CreateDetAugmenter
+    assert mx.image.ImageDetIter is mx.io.ImageDetRecordIter
+    assert callable(mx.recordio.pack_img)
+    assert mx.gluon.data.vision.transforms.ToTensor is not None
+    assert callable(mx.profiler.set_config)
+    assert callable(mx.observability.snapshot)
 
 
 def test_parallel_exports_match_the_jax_package(names):

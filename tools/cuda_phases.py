@@ -73,6 +73,22 @@ built:
 - ``get_symbol``: ``phase_get_symbol`` (GPT-2 small's recorded forward
   and loss as a Symbol, bound on the card);
 - ``slice19``: the four above in one run (``run_slice19``);
+- ``image_probe``: ``phase_image_probe`` (which JPEG decoders the
+  machine has: the committed ``libmxtpu_im.so`` and its libjpeg, PIL,
+  nvJPEG's header and library; no build);
+- ``image_decode``: ``phase_image_decode`` (path (d): each fixture
+  record's decode against the JAX package's, a planted chroma swap);
+- ``image_record``: ``phase_image_record_resnet`` (path (a): ResNet-50 fed
+  by ``ImageRecordIter`` over 1024 repacked records);
+- ``image_det``: ``phase_image_det_ssd`` (path (b): SSD-512 fed by
+  ``ImageDetRecordIter``);
+- ``vision_loader``: ``phase_vision_loader`` (path (c): ResNet-50 fed by
+  ``ImageRecordDataset``, the vision transforms and the DataLoader with
+  0, 4 thread and 2 process workers);
+- ``observability``: ``phase_observability`` (path (e): ``/metrics`` of a
+  BERT ModelServer and a GPT-2 GenerativeServer, traces, the watchdog,
+  the profiler's trace);
+- ``slice20``: the probe and the five above in one run (``run_slice20``);
 - ``mp``: ``phase_model_parallel`` (the GPT-2 step inside
   ``sequence_parallel_scope`` at sp = 1, ring and Ulysses, against the
   plain step; the n = 4 ring replayed on the card against the
@@ -203,7 +219,18 @@ GROUPS = {"kernels": run_kernels, "spec": run_spec,
           "data_pipeline": lambda cs, dev: cs.phase_data_pipeline(dev),
           "bucketing_lstm": lambda cs, dev: cs.phase_bucketing_lstm(dev),
           "get_symbol": lambda cs, dev: cs.phase_get_symbol(dev),
-          "slice19": lambda cs, dev: cs.run_slice19(dev)}
+          "slice19": lambda cs, dev: cs.run_slice19(dev),
+          "image_probe": lambda cs, dev: cs.phase_image_probe(),
+          "image_decode": lambda cs, dev: cs.phase_image_decode(dev),
+          "image_record": lambda cs, dev: cs.phase_image_record_resnet(
+              dev)[1],
+          "image_det": lambda cs, dev: cs.phase_image_det_ssd(dev),
+          "vision_loader": lambda cs, dev: cs.phase_vision_loader(
+              dev, cs.ResNetTrainStep(dev)),
+          "observability": lambda cs, dev: cs.phase_observability(dev),
+          "slice20": lambda cs, dev: cs.run_slice20(dev)}
+# groups that need no kernel
+NO_BUILD = {"image_probe"}
 
 
 def main(argv):
@@ -234,7 +261,8 @@ def main(argv):
     t0 = time.perf_counter()
     out = {"device": torch.cuda.get_device_name(0)}
     try:
-        cs.phase_build()
+        if any(g not in NO_BUILD for g in groups):
+            cs.phase_build()
         for g in groups:
             out[g] = GROUPS[g](cs, dev)
     except cs.SmokeFailure as e:
