@@ -12580,6 +12580,812 @@ def run_slice20(dev):
     return out
 
 
+# ------------------------------------------------- slice 21: A.16's rest
+# the fleet: two BERT-base workers from a serving snapshot and one GPT-2
+# small worker (tools/torch_fleet_factory.py). A served export runs the
+# batch it was traced at (C.2: an export bakes its trace's batch into its
+# reshapes), so the snapshot's server has the one bucket of 8; shorter
+# batches are padded to it
+FLEET_BERT_BUCKETS = (8,)
+FLEET_PREDICTS = 64
+FLEET_GENERATES = 16
+FLEET_SESSIONS = 4
+FLEET_NEW_TOKENS = 16
+FLEET_PROMPT_LENS = (40, 60, 90, 120)
+FLEET_THREADS = 16
+# the analytic flops of a BERT-base encoder token (12 layers: the four
+# 768 x 768 projections and the two FFN products, 2 flops a multiply-add)
+# and of its attention at seq 512 (4 T D a head, 12 heads, 12 layers:
+# torch's SDPA formula, which counts the whole key range)
+BERT_TOKEN_FLOPS = 12 * 2 * (4 * 768 * 768 + 2 * 768 * 3072)
+BERT_ATTN_TOKEN_FLOPS = 12 * 12 * 4 * SEQ * 64
+COSTS_FLOP_TOL = 0.01
+_slice21_tmp = []
+
+
+def _slice21_dir():
+    """One scratch directory for slice 21's files (snapshots, swap
+    checkpoints), under the ignored build directory; removed by
+    ``run_slice21``."""
+    import tempfile
+
+    from mxnet_tpu_torch.ops.cuda import _build
+
+    if not _slice21_tmp:
+        os.makedirs(_build.BUILD_DIR, exist_ok=True)
+        _slice21_tmp.append(tempfile.mkdtemp(prefix="slice21_",
+                                             dir=_build.BUILD_DIR))
+    return _slice21_tmp[0]
+
+
+def _fleet_factory():
+    """``tools/torch_fleet_factory.py``, loaded by path (``tools/`` is not a
+    package)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_fleet_factory.py")
+    spec = importlib.util.spec_from_file_location("torch_fleet_factory",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, path
+
+
+def _bert_rows(outs, vl, i):
+    """Request i's sequence rows up to its valid length, pooled, NSP."""
+    n = int(vl[i])
+    return outs[0][i, :n], outs[1][i], outs[2][i]
+
+
+def _rows_gap(served, direct, vl):
+    """Max abs difference of the real rows of each request."""
+    worst = 0.0
+    for i in range(len(vl)):
+        for a, b in zip(_bert_rows(served, vl, i), _bert_rows(direct, vl, i)):
+            check(np.isfinite(a).all(), "non-finite served row")
+            worst = max(worst, float(np.abs(a - b).max()))
+    return worst
+
+
+def _direct_bert(model, tok, tt, vl, dev):
+    """The parent's forward of ``model`` over the requests, 8 at a time:
+    [seq, pooled, nsp] float32 numpy."""
+    import torch
+
+    parts = [[], [], []]
+    with torch.inference_mode():
+        for lo in range(0, len(vl), 8):
+            ins = [torch.from_numpy(a[lo:lo + 8]).to(dev)
+                   for a in (tok, tt, vl)]
+            for j, o in enumerate(model(*ins)):
+                parts[j].append(o.float().cpu().numpy())
+    return [np.concatenate(p) for p in parts]
+
+
+def _stack_served(rows):
+    """Per-request predict outputs ([seq, pooled, nsp] tensors of one row)
+    stacked as float32 numpy."""
+    return [np.concatenate([r[j].float().numpy() for r in rows])
+            for j in range(3)]
+
+
+def _worker_snapshot(w):
+    return json.loads(w._checked("GET", "/snapshot", timeout=120.0))
+
+
+def _spawn_all(specs):
+    """Spawn each (model, spec) worker at once; returns [(model, handle,
+    spawn-to-ready seconds)]."""
+    import threading
+
+    from mxnet_tpu_torch.serve import WorkerHandle
+
+    got, errs = [None] * len(specs), []
+
+    def one(i, spec):
+        t0 = time.perf_counter()
+        try:
+            h = WorkerHandle.spawn(spec, timeout_s=600.0)
+        except Exception as e:  # reported below, after every thread ended
+            errs.append("%s: %s" % (type(e).__name__, e))
+            return
+        got[i] = (h, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=one, args=(i, s))
+               for i, (_, s) in enumerate(specs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for g in got:
+        if errs and g is not None:
+            g[0].kill9()
+            g[0].reap()
+    check(not errs, "fleet: a worker did not become ready: %s" % errs)
+    return [(m, h, s) for (m, _), (h, s) in zip(specs, got)]
+
+
+def _wave(router, tok, tt, vl, prompts, sessions, kill=None):
+    """FLEET_PREDICTS predicts (one request each) and the generates, on
+    FLEET_THREADS threads; ``kill`` () is called once a quarter of the
+    predicts answered. Returns (predict rows, generate token lists,
+    failures, wall seconds)."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    done, lock, killed = [0], threading.Lock(), threading.Event()
+
+    def predict(i):
+        out = router.predict([tok[i:i + 1], tt[i:i + 1], vl[i:i + 1]],
+                             model="bert", timeout=300.0)
+        with lock:
+            done[0] += 1
+            fire = kill is not None and done[0] >= len(vl) // 4 \
+                and not killed.is_set()
+            if fire:
+                killed.set()
+        if fire:
+            kill()
+        return out
+
+    def generate(j):
+        return router.generate(prompts[j], model="gpt", session=sessions[j],
+                               max_new_tokens=FLEET_NEW_TOKENS,
+                               temperature=0.0, timeout=300.0)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(FLEET_THREADS) as pool:
+        pf = [pool.submit(predict, i) for i in range(len(vl))]
+        gf = [pool.submit(generate, j) for j in range(len(prompts))]
+        rows, toks, fails = [], [], []
+        for f in pf:
+            try:
+                rows.append(f.result())
+            except Exception as e:  # counted: the check is zero failures
+                rows.append(None)
+                fails.append("predict: %s: %s" % (type(e).__name__, e))
+        for f in gf:
+            try:
+                toks.append(f.result())
+            except Exception as e:  # counted: the check is zero failures
+                toks.append(None)
+                fails.append("generate: %s: %s" % (type(e).__name__, e))
+    return rows, toks, fails, time.perf_counter() - t0
+
+
+def phase_fleet(dev):
+    """The replica fleet on the one card (``serve.fleet``, ``serve.worker``):
+    two BERT-base ``ModelServer`` workers from a serving snapshot (bf16, seq
+    512, the bucket of 8: a served export runs its trace's batch, C.2) and
+    one GPT-2 small ``GenerativeServer`` worker (bf16, 8 slots, the prefix
+    cache, warmed), spawned after the build. Checks: each ready; with the
+    watchdog armed at each ready line, the traffic builds nothing; a wave
+    of 64 predicts and 16 session-bound generates completes, each row
+    within MODEL_TOL of the parent's direct forward of the same weights and
+    each greedy stream equal to the parent's ``generate`` under
+    GREEDY_TIE_TOL; a second wave with ``kill -9`` of one BERT worker after
+    a quarter of it answered fails no request; a BERT replica scaled out
+    from the snapshot, with a GPT-2 sibling; ``hot_swap`` of a new
+    checkpoint: every BERT worker
+    serves the parent's rows of it; a pushed reshaped parameter is refused
+    (409) and every worker keeps the new rows; ``retire`` of the GPT-2
+    worker moves its prefixes to the sibling, where a repeated session's
+    prompt hits the prefix cache; each worker's ``/snapshot`` cost section
+    names the LayerNorm op in its served programs (and the BERT workers'
+    the flash forward): the kernels ran in the workers. Readings: each
+    worker's spawn-to-ready seconds and the waves' walls."""
+    import torch
+    from mxnet_tpu_torch import serve
+    from mxnet_tpu_torch.checkpoint import SwapError
+    from mxnet_tpu_torch.serve import FleetRouter, WorkerSpec
+    from mxnet_tpu_torch.util import load_npz_exact, save_npz_exact
+
+    ff, ff_path = _fleet_factory()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {"PYTHONPATH": repo, "MXTPU_FLEET_DEBUG": "1"}
+    work = _slice21_dir()
+    out = {}
+    model = ff.bert_base_model(dev, max_length=SEQ)
+    specs = [((SEQ,), "int32"), ((SEQ,), "int32"), ((), "int32")]
+    srv = serve.ModelServer(model, specs, buckets=FLEET_BERT_BUCKETS,
+                            device=dev, timeout_ms=120000.0,
+                            name="serve:fleet_bert")
+    prefix = os.path.join(work, "bert")
+    srv.snapshot(prefix, input_names=SYMBOL_INPUTS)
+    srv.stop()
+    del srv
+    kwargs = {"device": "cuda", "buckets": list(FLEET_BERT_BUCKETS),
+              "timeout_ms": 120000.0, "max_wait_ms": 2.0,
+              "name": "serve:fleet_bert"}
+    bert_spec = WorkerSpec(snapshot=prefix, kwargs=kwargs, env=env)
+    gpt_spec = WorkerSpec(factory="%s:gpt2_small_fleet_server" % ff_path,
+                          env=env)
+    router = FleetRouter()
+    try:
+        router.register("bert", bert_spec)
+        router.register("gpt", gpt_spec)
+        spawned = _spawn_all([("bert", bert_spec), ("bert", bert_spec),
+                              ("gpt", gpt_spec)])
+        for m, h, _ in spawned:
+            router.adopt(h, model=m)
+        out["spawn_to_ready_s"] = {h.name: s for _, h, s in spawned}
+        for _, h, _ in spawned:
+            hl = h.health()
+            check(hl.get("ok", True) and hl.get("warm"),
+                  "fleet: worker %s not warm at ready: %s" % (h.name, hl))
+        tok, tt, vl = _fleet_requests()
+        prng = np.random.RandomState(SEED + 71)
+        base = [prng.randint(0, GPT_VOCAB, n).astype(np.int32)
+                for n in FLEET_PROMPT_LENS]
+        prompts = [base[j % len(base)] for j in range(FLEET_GENERATES)]
+        sessions = ["s%d" % (j % FLEET_SESSIONS)
+                    for j in range(FLEET_GENERATES)]
+        # the first request alone, then the wave
+        router.predict([tok[:1], tt[:1], vl[:1]], model="bert",
+                       timeout=300.0)
+        rows, toks, fails, wall = _wave(router, tok, tt, vl, prompts,
+                                        sessions)
+        out["wave_wall_s"] = wall
+        check(not fails, "fleet: the wave failed %d requests: %s"
+              % (len(fails), fails[:3]))
+        direct = _direct_bert(model, tok, tt, vl, dev)
+        out["rows_max_abs"] = _rows_gap(_stack_served(rows), direct, vl)
+        check(out["rows_max_abs"] <= MODEL_TOL,
+              "fleet: routed BERT rows part from the parent's forward by "
+              "%.4g > %g" % (out["rows_max_abs"], MODEL_TOL))
+        gmodel = ff.gpt2_small_model(dev)
+        refs, parted = {}, 0
+        for j, got in enumerate(toks):
+            key = len(prompts[j])
+            if key not in refs:
+                ref, logits = greedy_reference(gmodel, prompts[j],
+                                               FLEET_NEW_TOKENS, dev)
+                refs[key] = (ref, logits.cpu().numpy())
+            _, margin = compare_greedy(got, refs[key][0], refs[key][1],
+                                       "fleet gpt stream %d" % j)
+            parted += margin is not None
+        out["greedy_parted"] = parted
+        events = {}
+        for m in ("bert", "gpt"):
+            for w in router.workers(m):
+                snap = _worker_snapshot(w)
+                events[w.name] = snap["watchdog"]["events"]
+                costs_sec = snap["costs"]["profiles"]
+                ops = set()
+                for prof in costs_sec.values():
+                    if prof["tier"] in ("serve_capture", "decode_capture"):
+                        ops.update(prof["ops"])
+                has_ln = "mxnet_tpu_torch.layernorm_fwd.default" in ops
+                has_fa = "mxnet_tpu_torch.flash_fwd.default" in ops
+                out.setdefault("worker_kernel_ops", {})[w.name] = {
+                    "layernorm_fwd": has_ln, "flash_fwd": has_fa,
+                    "programs": len(costs_sec)}
+                check(has_ln and (has_fa or m == "gpt"),
+                      "fleet: %s's served programs name no %s op: %s"
+                      % (w.name, "LayerNorm" if not has_ln else
+                         "flash forward", sorted(ops)[:20]))
+        out["watchdog_events"] = events
+        check(not any(events.values()), "fleet: the watchdog saw builds in "
+              "traffic: %s" % events)
+        # kill -9 of a BERT worker a quarter into a wave
+        victim = router.workers("bert")[0]
+        rows2, toks2, fails2, wall2 = _wave(
+            router, tok, tt, vl, prompts, sessions, kill=victim.kill9)
+        out["kill9"] = {"failed": len(fails2), "wall_s": wall2,
+                        "retries": router.retries,
+                        "workers_lost": router.workers_lost}
+        check(not fails2, "fleet: kill -9 mid-wave failed %d requests: %s"
+              % (len(fails2), fails2[:3]))
+        check(router.workers_lost >= 1, "fleet: the killed worker was not "
+              "removed")
+        gap2 = _rows_gap(_stack_served(rows2), direct, vl)
+        check(gap2 <= MODEL_TOL, "fleet: rows across the kill part by %.4g"
+              % gap2)
+        # a BERT replica scaled out from the snapshot and the GPT-2
+        # worker's sibling (the heir of its retirement below), at once
+        from concurrent.futures import ThreadPoolExecutor
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            fb = pool.submit(router.scale_out, "bert")
+            fg = pool.submit(router.scale_out, "gpt")
+            fb.result()
+            heir = fg.result()
+        out["scale_out_s"] = time.perf_counter() - t0
+        # hot swap a new checkpoint
+        ref_srv = serve.load(prefix, snapshot=True, device=dev,
+                             buckets=FLEET_BERT_BUCKETS,
+                             name="serve:fleet_ref")
+        # the served export's parameters (the MLM head, unused by the
+        # served forward, is not in it), each moved by seeded noise
+        served = set(ref_srv.model.collect_params().keys())
+        params = load_npz_exact("%s-0000.params" % prefix)
+        g = torch.Generator().manual_seed(SEED + 72)
+        new = {k: (v + 0.02 * torch.randn(v.shape, generator=g)
+                   .to(v.dtype)) if v.is_floating_point() else v
+               for k, v in sorted(params.items()) if k in served}
+        swap_file = os.path.join(work, "bert-swap.params")
+        save_npz_exact(swap_file, new)
+        with ref_srv:
+            ref_srv.swap_parameters(swap_file)
+            sel = list(range(8))
+            want = _stack_served([
+                [torch.from_numpy(np.asarray(o)) for o in ref_srv.predict(
+                    tok[i:i + 1], tt[i:i + 1], vl[i:i + 1])] for i in sel])
+        del ref_srv
+        epochs = router.hot_swap(swap_file, model="bert")
+        out["hot_swap_epochs"] = epochs
+        swapped = {}
+        for w in router.workers("bert"):
+            got = _stack_served([w.predict([tok[i:i + 1], tt[i:i + 1],
+                                            vl[i:i + 1]]) for i in sel])
+            swapped[w.name] = (_rows_gap(got, want, vl[:8]),
+                               _rows_gap(got, [d[:8] for d in direct],
+                                         vl[:8]))
+        out["hot_swap_rows"] = swapped
+        for name, (to_new, to_old) in swapped.items():
+            check(to_new <= MODEL_TOL and to_old > MODEL_TOL,
+                  "fleet: %s after hot_swap: %.4g from the new rows, %.4g "
+                  "from the old (tol %g)" % (name, to_new, to_old,
+                                            MODEL_TOL))
+        # a reshaped parameter: refused everywhere, the new rows stay
+        bad = dict(new)
+        name0 = sorted(k for k, v in new.items() if v.dim() == 2)[0]
+        bad[name0] = new[name0].reshape(-1)
+        bad_file = os.path.join(work, "bert-bad.params")
+        save_npz_exact(bad_file, bad)
+        refused = 0
+        for w in router.workers("bert"):
+            with open(bad_file, "rb") as f:
+                blob = f.read()
+            try:
+                w.swap(blob)
+            except SwapError:
+                refused += 1
+        out["rejected_push_refused"] = refused
+        check(refused == len(router.workers("bert")),
+              "fleet: a reshaped parameter was taken by %d workers"
+              % (len(router.workers("bert")) - refused))
+        for w in router.workers("bert"):
+            got = _stack_served([w.predict([tok[i:i + 1], tt[i:i + 1],
+                                            vl[i:i + 1]]) for i in sel])
+            gap = _rows_gap(got, want, vl[:8])
+            check(gap <= MODEL_TOL, "fleet: %s after the refused push: "
+                  "%.4g from the new rows" % (w.name, gap))
+        # retire the GPT-2 worker: its prefixes move to its sibling
+        old_gpt = next(w for w in router.workers("gpt") if w is not heir)
+        hits0 = heir.server_stats().get("prefix_hits") or 0
+        router.retire(old_gpt, model="gpt")
+        again = router.generate(prompts[0], model="gpt",
+                                session=sessions[0],
+                                max_new_tokens=FLEET_NEW_TOKENS,
+                                temperature=0.0, timeout=300.0)
+        hits1 = heir.server_stats().get("prefix_hits") or 0
+        migrated = [e for e in router.events
+                    if e["event"] == "prefix_migrate"]
+        out["retire"] = {"migrated_entries": [e["entries"]
+                                              for e in migrated],
+                         "heir_prefix_hits": hits1 - hits0,
+                         "same_tokens": again == toks[0]}
+        check(migrated and migrated[-1]["entries"] > 0,
+              "fleet: retire moved no prefix: %s" % migrated)
+        check(hits1 > hits0, "fleet: the repeated session missed the "
+              "migrated prefix cache (%d hits)" % (hits1 - hits0))
+        compare_greedy(again, refs[len(prompts[0])][0],
+                       refs[len(prompts[0])][1], "fleet gpt after retire")
+        out["router_events"] = len(router.events)
+    finally:
+        router.close()
+    print("fleet: spawn-to-ready %s s; wave %.2f s (%d predicts, %d "
+          "generates), rows max abs %.4g, greedy parted %d; kill -9 %s; "
+          "scale-out %.1f s; hot swap rows %s; refused %d; retire %s; "
+          "kernel ops %s" % (
+              {k: round(v, 1) for k, v in out["spawn_to_ready_s"].items()},
+              out["wave_wall_s"], FLEET_PREDICTS, FLEET_GENERATES,
+              out["rows_max_abs"], out["greedy_parted"], out["kill9"],
+              out["scale_out_s"], out["hot_swap_rows"],
+              out["rejected_push_refused"], out["retire"],
+              out["worker_kernel_ops"]), flush=True)
+    return out
+
+
+def _fleet_requests():
+    """FLEET_PREDICTS BERT requests: (tokens, token types, valid lengths)."""
+    rng = np.random.RandomState(SEED + 70)
+    vl = rng.randint(1, SEQ + 1, FLEET_PREDICTS).astype(np.int32)
+    tok = rng.randint(0, VOCAB, (FLEET_PREDICTS, SEQ)).astype(np.int32)
+    tt = (np.arange(SEQ)[None, :] >= vl[:, None] // 2).astype(np.int32)
+    return tok, tt, vl
+
+
+def _bucket_profiles(srv_name):
+    """{bucket: profile} of a server's serve_capture programs."""
+    from mxnet_tpu_torch.observability import costs
+
+    out = {}
+    for prof in costs.profiles().values():
+        if prof["tier"] != "serve_capture" or \
+                not prof["hint"].startswith("serve[%s bucket=" % srv_name):
+            continue
+        out[int(prof["hint"].rsplit("=", 1)[1].rstrip("]"))] = prof
+    return out
+
+
+def _replay_ms(graph, iters=20, rounds=3):
+    """Device ms of one replay of a captured graph: CUDA events around
+    ``iters`` replays, the median of ``rounds``."""
+    import torch
+
+    for _ in range(3):
+        graph.replay()
+    got = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            graph.replay()
+        b.record()
+        b.synchronize()
+        got.append(a.elapsed_time(b) / iters)
+    return float(np.median(got))
+
+
+def _costs_key_subprocess(bucket):
+    """A fresh process's key of the BERT-base bucket program (same seeded
+    weights' shapes, same recipe)."""
+    code = (
+        "import sys, json, torch\n"
+        "sys.path.insert(0, %r)\n"
+        "import chip_smoke as cs\n"
+        "from mxnet_tpu_torch.observability import costs\n"
+        "ff, _ = cs._fleet_factory()\n"
+        "dev = torch.device('cuda', 0)\n"
+        "m = ff.bert_base_model(dev, max_length=cs.SEQ)\n"
+        "specs = [((cs.SEQ,), 'int32'), ((cs.SEQ,), 'int32'), ((), 'int32')]\n"
+        "from mxnet_tpu_torch.serve import ModelServer\n"
+        "srv = ModelServer(m, specs, buckets=(%d,), device=dev,\n"
+        "                  name='serve:costs')\n"
+        "print('KEYS=' + json.dumps({b: p['key'] for b, p in\n"
+        "      cs._bucket_profiles('serve:costs').items()}))\n"
+        % (os.path.dirname(os.path.abspath(__file__)), bucket))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600)
+    check(r.returncode == 0, "costs: the key subprocess failed: %s"
+          % r.stderr[-2000:])
+    line = [l for l in r.stdout.splitlines() if l.startswith("KEYS=")]
+    check(line, "costs: the key subprocess printed no keys")
+    return {int(k): v for k, v in json.loads(line[-1][5:]).items()}
+
+
+def phase_costs(dev):
+    """``observability.costs`` on the card. BERT-base (the fleet's seeded
+    weights, bf16, seq 512) served at buckets (1, 4, 8): each bucket
+    program's flops within 1% of the analytic count, B 512 (token products
+    + attention), 7.73e11 at bucket 8; its ``peak_bytes`` non-zero; its
+    bucket-1 key equal to a fresh process's. ``FlopCounterMode`` over the
+    port's flash op equals it over SDPA at the bucket-8 shape. The flash
+    formulas taken out (a planted fault): the bucket-8 count drops by the
+    attention share and fails the 1% check. The GPT-2 small training step
+    (phase_gpt_train's recipe, hybridized, Adam's step program): its
+    programs' flops beside the analytic forward count (a reading).
+    Readings: the host seconds counting adds to building the bucket-8
+    program (attribution on against off) and a bucket-8 replay's device
+    time with attribution off and on."""
+    import torch
+    import torch.nn.functional as Fnn
+    from torch.utils.flop_counter import FlopCounterMode
+    from mxnet_tpu_torch.observability import costs
+    from mxnet_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from mxnet_tpu_torch.serve import ModelServer
+
+    ff, _ = _fleet_factory()
+    out = {}
+    model = ff.bert_base_model(dev, max_length=SEQ)
+    specs = [((SEQ,), "int32"), ((SEQ,), "int32"), ((), "int32")]
+    costs.reset()
+    reset_counters()
+    srv = ModelServer(model, specs, buckets=BUCKETS, device=dev,
+                      timeout_ms=120000.0, name="serve:costs")
+    torch.cuda.synchronize()
+    out["launches"] = read_counters()
+    profs = _bucket_profiles("serve:costs")
+    check(sorted(profs) == sorted(BUCKETS), "costs: bucket profiles %s"
+          % sorted(profs))
+    rows = {}
+    for b, prof in sorted(profs.items()):
+        want = b * SEQ * (BERT_TOKEN_FLOPS + BERT_ATTN_TOKEN_FLOPS)
+        rel = abs(prof["flops"] - want) / want
+        rows[b] = {"flops": prof["flops"], "analytic": want, "rel": rel,
+                   "bytes": prof["bytes"], "peak_bytes": prof["peak_bytes"],
+                   "key": prof["key"],
+                   "kernel_ops": {k: v for k, v in prof["ops"].items()
+                                  if k.startswith("mxnet_tpu_torch.")}}
+        check(rel <= COSTS_FLOP_TOL, "costs: bucket %d flops %.6g vs "
+              "analytic %.6g (%.4f)" % (b, prof["flops"], want, rel))
+        check(prof["peak_bytes"], "costs: bucket %d peak_bytes %r"
+              % (b, prof["peak_bytes"]))
+    out["buckets"] = rows
+    # the flash op against SDPA at the bucket-8 shape
+    q, k, v = (torch.randn(8, 12, SEQ, 64, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    costs.register_kernel_flops()
+    with FlopCounterMode(display=False) as fc:
+        flash_attention(q, k, v)
+    with FlopCounterMode(display=False) as fs:
+        Fnn.scaled_dot_product_attention(q, k, v)
+    out["flash_vs_sdpa"] = [fc.get_total_flops(), fs.get_total_flops()]
+    check(fc.get_total_flops() == fs.get_total_flops() > 0,
+          "costs: flash op %d flops, SDPA %d" % tuple(out["flash_vs_sdpa"]))
+    # keys across two processes
+    other = _costs_key_subprocess(1)
+    out["keys_across_processes"] = [rows[1]["key"], other.get(1)]
+    check(other.get(1) == rows[1]["key"], "costs: bucket-1 keys differ "
+          "across processes: %s" % out["keys_across_processes"])
+    # readings: the replay time with attribution off and on, and what the
+    # counting adds to a build
+    times = {}
+    for on in (False, True):
+        costs.set_enabled(on)
+        costs.reset()
+        t0 = time.perf_counter()
+        s8 = ModelServer(model, specs, buckets=(8,), device=dev,
+                         timeout_ms=120000.0, name="serve:costs8")
+        torch.cuda.synchronize()
+        times[on] = {"build_s": time.perf_counter() - t0,
+                     "replay_ms": _replay_ms(s8._pool._programs[8].graph)}
+        del s8
+    costs.set_enabled(True)
+    out["attribution"] = {"off": times[False], "on": times[True],
+                          "build_added_s": times[True]["build_s"]
+                          - times[False]["build_s"]}
+    # the planted fault: no flash formulas
+    costs.unregister_kernel_flops()
+    try:
+        costs.reset()
+        s8 = ModelServer(model, specs, buckets=(8,), device=dev,
+                         timeout_ms=120000.0, name="serve:costs8")
+        planted = _bucket_profiles("serve:costs8")[8]["flops"]
+        del s8
+    finally:
+        costs.register_kernel_flops()
+    want8 = rows[8]["analytic"]
+    attn8 = 8 * SEQ * BERT_ATTN_TOKEN_FLOPS
+    out["planted_no_flash_formula"] = {
+        "flops": planted, "drop": rows[8]["flops"] - planted,
+        "attention_share": attn8}
+    check(abs((rows[8]["flops"] - planted) - attn8) <= 1e-6 * attn8,
+          "costs: without the flash formulas the count dropped by %.6g, "
+          "not the attention share %.6g" % (rows[8]["flops"] - planted,
+                                            attn8))
+    check(abs(planted - want8) / want8 > COSTS_FLOP_TOL,
+          "costs: the planted count passed the 1% check")
+    srv.stop()
+    del srv, model
+    # the GPT-2 small training step, hybridized
+    step = _LMLoss(dev)
+    step.fresh_trainer(_param_snapshot(step))
+    step.net.hybridize()
+    costs.reset()
+    reset_counters()
+    step()
+    torch.cuda.synchronize()
+    gpt_launches = read_counters()
+    B, T = GPT_TRAIN["batch"], GPT_TRAIN["seq"]
+    gpt_fwd = B * T * (BERT_TOKEN_FLOPS + 12 * 12 * 4 * T * 64
+                       + 2 * 768 * GPT_VOCAB)
+    out["gpt2_step"] = {
+        "programs": {k: {"flops": p["flops"], "bytes": p["bytes"],
+                         "peak_bytes": p["peak_bytes"], "hint": p["hint"],
+                         "counted": p["counted"]}
+                     for k, p in costs.profiles().items()},
+        "analytic_forward_flops": gpt_fwd, "launches": gpt_launches}
+    check(any(p["tier"] == "hybrid_capture" and p["flops"]
+              for p in costs.profiles().values()),
+          "costs: the hybridized GPT-2 step recorded no forward program")
+    del step
+    print("costs: buckets %s; flash vs SDPA %s; keys %s; planted %s; "
+          "attribution %s; gpt2 step %s" % (
+              {b: (r["flops"], round(r["rel"], 6), r["peak_bytes"])
+               for b, r in rows.items()}, out["flash_vs_sdpa"],
+              out["keys_across_processes"], out["planted_no_flash_formula"],
+              out["attribution"], out["gpt2_step"]), flush=True)
+    return out
+
+
+def _planted_blocks():
+    """Four blocks, each with one hazard: GL101 (a host read), GL102 (a
+    per-call Python counter in the math), GL103 (a dead layer), GL104 (an
+    ``if`` on the input's value)."""
+    from mxnet_tpu_torch.gluon import nn
+
+    class HostRead(nn.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.d = nn.Dense(64, in_units=64)
+
+        def hybrid_forward(self, F, x):
+            y = self.d(x)
+            return y * float(y.abs().max())
+
+    class PerCall(nn.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.calls = 0
+            with self.name_scope():
+                self.d = nn.Dense(64, in_units=64)
+
+        def hybrid_forward(self, F, x):
+            self.calls += 1
+            return self.d(x) * self.calls
+
+    class Dead(nn.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.d = nn.Dense(64, in_units=64)
+                self.unused = nn.Dense(64, in_units=64)
+
+        def hybrid_forward(self, F, x):
+            return self.d(x)
+
+    class Branch(nn.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.d = nn.Dense(64, in_units=64)
+
+        def hybrid_forward(self, F, x):
+            y = self.d(x)
+            if x.sum() > 0:
+                return y
+            return -y
+
+    return {"GL101": HostRead, "GL102": PerCall, "GL103": Dead,
+            "GL104": Branch}
+
+
+def phase_validate(dev):
+    """``analysis`` on the card: BERT-base (the fleet's seeded weights,
+    bf16, seq 512, its MLM head fed masked positions) hybridized with
+    ``validate=True`` finds nothing at its first forward, and a forward's
+    kernel launches after it equal those of the same model hybridized
+    without it; the four planted blocks raise ``GraphlintError`` naming
+    GL101, GL102, GL103 and GL104; under the lock check (``MXNET_LOCK_CHECK``'s
+    switch) a BERT-base ``ModelServer`` burst and a GPT-2 small
+    ``GenerativeServer`` burst report no lock-order cycle and no race, and
+    a planted two-lock inversion is reported as a cycle."""
+    import threading
+
+    import torch
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.analysis import GraphlintError, concurrency
+    from mxnet_tpu_torch.serve import ModelServer
+
+    ff, _ = _fleet_factory()
+    out = {}
+    tok, tt, vl = _fleet_requests()
+    rng = np.random.RandomState(SEED + 73)
+    masked = np.sort(rng.randint(0, SEQ, (8, 20)), axis=1).astype(np.int32)
+    ins = [torch.from_numpy(a[:8]).to(dev) for a in (tok, tt, vl)] + [
+        torch.from_numpy(masked).to(dev)]
+    launches = {}
+    for validate in (True, False):
+        model = ff.bert_base_model(dev, max_length=SEQ)
+        model.hybridize(validate=validate)
+        with torch.inference_mode(False):
+            model(*ins)  # validate=True: the check runs here first
+            torch.cuda.synchronize()
+            reset_counters()
+            model(*ins)
+            torch.cuda.synchronize()
+        launches[validate] = read_counters()
+        del model
+    out["bert_launches"] = {"validated": launches[True],
+                            "plain": launches[False]}
+    check(launches[True] == launches[False] and launches[True].get(
+        "layernorm"), "validate: a validated forward's launches %s != %s"
+        % (launches[True], launches[False]))
+    caught = {}
+    for rule, cls in _planted_blocks().items():
+        blk = cls()
+        blk.initialize(device=dev)
+        blk.hybridize(validate=True)
+        x = torch.randn(4, 64, device=dev).abs()
+        try:
+            blk(x)
+            caught[rule] = []
+        except GraphlintError as e:
+            caught[rule] = sorted({f.rule for f in e.findings})
+    out["planted"] = caught
+    for rule, got in caught.items():
+        check(rule in got, "validate: the planted %s block raised %s"
+              % (rule, got))
+    # the lock check over a ModelServer and a GenerativeServer burst
+    prev = concurrency.enable_lock_check(True)
+    concurrency.reset_runtime()
+    try:
+        concurrency.instrument_locks()
+        model = ff.bert_base_model(dev, max_length=SEQ)
+        specs = [((SEQ,), "int32"), ((SEQ,), "int32"), ((), "int32")]
+        srv = ModelServer(model, specs, buckets=(1, 4, 8), device=dev,
+                          timeout_ms=120000.0, name="serve:lockcheck")
+        with srv:
+            hs = [srv.submit(tok[i], tt[i], vl[i]) for i in range(16)]
+            for h in hs:
+                h.result(timeout_s=300)
+        srv.stop()
+        gen = ff.gpt2_small_fleet_server(dev)
+        with gen:
+            prng = np.random.RandomState(SEED + 74)
+            streams = [gen.submit(prng.randint(0, GPT_VOCAB, 30 + 7 * i),
+                                  max_new_tokens=FLEET_NEW_TOKENS)
+                       for i in range(8)]
+            for s in streams:
+                s.result(timeout_s=300)
+        serving = concurrency.runtime_stats()
+        out["lock_check_serving"] = {
+            k: serving[k] for k in ("graph_nodes", "graph_edges",
+                                    "cycles", "races", "watched")}
+        check(not serving["cycles"] and not serving["races"]
+              and serving["graph_nodes"] > 0,
+              "validate: the lock check over the servers: %s"
+              % out["lock_check_serving"])
+        a = concurrency.InstrumentedLock("planted.A")
+        b = concurrency.InstrumentedLock("planted.B")
+
+        def ab():
+            with a:
+                with b:
+                    pass
+
+        def ba():
+            with b:
+                with a:
+                    pass
+
+        for fn in (ab, ba):  # one after the other: a cycle, no deadlock
+            t = threading.Thread(target=fn)
+            t.start()
+            t.join()
+        planted = concurrency.runtime_stats()["cycles"]
+        out["planted_inversion"] = planted
+        check(any({"planted.A", "planted.B"} <= set(c["cycle"])
+                  for c in planted),
+              "validate: the planted lock inversion was not reported: %s"
+              % planted)
+    finally:
+        concurrency.reset_runtime()
+        concurrency.enable_lock_check(prev)
+    print("validate: BERT-base launches validated %s plain %s; planted %s; "
+          "lock check %s; planted inversion %s" % (
+              launches[True], launches[False], caught,
+              out["lock_check_serving"], out["planted_inversion"]),
+          flush=True)
+    return out
+
+
+def run_slice21(dev):
+    """Slice 21's paths, each timed: the fleet, costs, validate."""
+    out = {}
+    try:
+        for name, phase in (("fleet", phase_fleet), ("costs", phase_costs),
+                            ("validate", phase_validate)):
+            t0 = time.perf_counter()
+            out[name] = phase(dev)
+            out[name]["phase_seconds"] = time.perf_counter() - t0
+    finally:
+        for d in _slice21_tmp:
+            shutil.rmtree(d, ignore_errors=True)
+        del _slice21_tmp[:]
+    print("A.16 rest phases: %s s" % {
+        k: round(v["phase_seconds"], 1) for k, v in out.items()},
+        flush=True)
+    return out
+
+
 def card_line():
     """The card's name and power limit, as ``nvidia-smi --query-gpu=
     name,power.limit --format=csv,noheader`` gives them."""
@@ -12770,6 +13576,7 @@ def main():
         # after the timings too: phase_observability runs a profiler
         # session
         slice20 = run_slice20(dev)
+        slice21 = run_slice21(dev)
     except SmokeFailure as e:
         print("chip_smoke FAILED: %s" % e, file=sys.stderr)
         return 1
@@ -12786,6 +13593,7 @@ def main():
                       "tp_compute": tp_compute, "hybridize": hybridize,
                       "symbolic": symbolic, "module_and_data": slice19,
                       "image_and_observability": slice20,
+                      "fleet_costs_validate": slice21,
                       "decode_step_graphs": graphs, "quantized": quant,
                       "speculative": spec, "chunked_prefill": chunked,
                       "attention_dense_vs_flash": crossover,

@@ -28,10 +28,12 @@ flow and ``autograd.get_symbol``, the Module API (``mod``/``module``,
 the host I/O (``io`` iterators, ``recordio``, ``gluon.data`` with the
 DataLoader and the device prefetcher, ``gluon.utils``), the image path
 (``image``, ``image_det``, the image record iterators, ``pack_img``,
-``gluon.data.vision``), and the tooling's first part (``profiler`` over
-``torch.profiler``, ``observability`` with the servers' ``/metrics``). Entry points run on the
-current CUDA device unless the caller passes ``device="cpu"`` (or
-``ctx=mx.cpu()``, or enters ``with mx.cpu():``). The package imports
+``gluon.data.vision``), and the tooling (``profiler`` over
+``torch.profiler``, ``observability`` with the servers' ``/metrics`` and
+per-program cost attribution, the replica fleet ``serve.fleet``, and
+``analysis``: graphlint, validate, racecheck, the program lint). Entry
+points run on the current CUDA device unless the caller passes
+``device="cpu"`` (or ``ctx=mx.cpu()``, or enters ``with mx.cpu():``). The package imports
 neither JAX nor anything of ``mxnet_tpu``.
 """
 from . import base, context, util  # noqa: F401
@@ -48,6 +50,7 @@ from . import executor, visualization  # noqa: F401
 from . import io, recordio, metric, model, module, callback  # noqa: F401
 from . import monitor, rnn  # noqa: F401
 from . import image, image_det, profiler, observability  # noqa: F401
+from . import analysis  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import visualization as viz  # noqa: F401
 from .attribute import AttrScope  # noqa: F401

@@ -323,11 +323,15 @@ def _tape_route(heads, entries):
     if key in _TAPE_KEYS:
         engine.tape_cache_hit_counter.count += 1
     else:
+        from .observability import costs
+
         if len(_TAPE_KEYS) >= _TAPE_KEY_CAP:
             _TAPE_KEYS.clear()
         _TAPE_KEYS.add(key)
-        engine.tape_compile_counter.bump(note="tape[%x]" % (
-            hash(key) & 0xFFFFFFFF))
+        note = "tape[%x]" % (hash(key) & 0xFFFFFFFF)
+        engine.tape_compile_counter.bump(note=note)
+        # the backward's first run, in _accumulate, is counted
+        _st.tape_meter = costs.meter("tape_compile", note, heads[0].device)
     return "counted"
 
 
@@ -393,12 +397,25 @@ def _accumulate(heads, seeds, entries, retain_graph, route="eager"):
             torch.autograd.backward(heads, seeds, retain_graph=retain_graph,
                                     inputs=[t for _, t in entries])
         if _torch_builds() != before:
+            from .observability import costs
+
             engine.tape_compile_counter.bump(note="tape[compiled]")
+            costs.note_uncounted(
+                "tape_compile", "tape[compiled]",
+                _tape_key(heads, entries),
+                "built by torch.compile from the backward it runs, which "
+                "that run consumes: there is no eager first run to count, "
+                "and a FlopCounterMode over a compiled callable sees none "
+                "of its ops")
         else:
             engine.tape_cache_hit_counter.count += 1
     elif heads:
-        torch.autograd.backward(heads, seeds, retain_graph=retain_graph,
-                                inputs=[t for _, t in entries])
+        from .observability import costs
+
+        m, _st.tape_meter = getattr(_st, "tape_meter", None), None
+        costs.run_counted(m, lambda: torch.autograd.backward(
+            heads, seeds, retain_graph=retain_graph,
+            inputs=[t for _, t in entries]))
     for (var, t), old in zip(entries, saved):
         if not isinstance(var, Parameter):
             g, t.grad = t.grad, old

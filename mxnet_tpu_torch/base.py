@@ -55,13 +55,20 @@ def resolve_dtype(dtype):
 
 def resolve_device(device=None):
     """The device an entry point runs on: ``device`` when given (a string,
-    ``torch.device`` or ``context.Context``), else the current CUDA device.
-    Raises ``DeviceError`` when CUDA is needed and absent."""
+    ``torch.device`` or ``context.Context``), else the innermost ``with
+    ctx:`` of this thread, else ``test_utils.set_default_context``'s, else
+    the current CUDA device. Raises ``DeviceError`` when CUDA is needed and
+    absent."""
+    if device is None:
+        from . import context
+
+        stack = getattr(context._tls, "stack", None)
+        device = stack[-1] if stack else context._default
     if device is None:
         if not torch.cuda.is_available():
             raise DeviceError(
-                "no CUDA device is available; pass device='cpu' to run on "
-                "the CPU")
+                "no CUDA device is available; pass device='cpu' (or enter "
+                "`with mx.cpu():`) to run on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     if hasattr(device, "torch_device"):
         device = device.torch_device()

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import time
 
 import torch
 
@@ -127,13 +128,18 @@ def add_launches(deltas):
 
 
 def capture_graph(fn, device, pool, warmup=None, generators=(),
-                  error_mode="thread_local"):
+                  error_mode="thread_local", meter=None):
     """``fn()`` captured into a new ``torch.cuda.CUDAGraph`` in memory pool
     ``pool``, after ``warmup()`` (default ``fn``) ran :data:`WARMUP_RUNS`
     times on a side stream. ``generators`` are registered with the graph
     (graph-safe philox state) and put back as they were before the
-    warm-up. The launch counters are left as they were. Returns a
-    :class:`Graph`."""
+    warm-up. ``meter`` (``observability.costs.meter``): the first warm-up
+    run is counted into the program's cost profile (never the capture).
+    The launch counters are left as they were. Returns a :class:`Graph`;
+    the host seconds it took go to ``observability.note_compile``."""
+    from .observability import costs, note_compile
+
+    t0 = time.perf_counter()
     found = counters()
     before = {name: f.launches for name, f in found.items()}
     states = [g.get_state() for g in generators]
@@ -142,7 +148,7 @@ def capture_graph(fn, device, pool, warmup=None, generators=(),
     side.wait_stream(cur)
     with torch.cuda.stream(side):
         for _ in range(WARMUP_RUNS):
-            (warmup or fn)()
+            costs.run_counted(meter, warmup or fn)
     cur.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     for g, st in zip(generators, states):
@@ -156,4 +162,5 @@ def capture_graph(fn, device, pool, warmup=None, generators=(),
               if f.launches != mid[name]}
     for name, f in found.items():
         f.launches = before[name]
+    note_compile(time.perf_counter() - t0)
     return Graph(graph, out, deltas)

@@ -268,3 +268,21 @@ def latest_step(directory):
     steps = [int(m.group(1)) for m in map(_STEP_RE.match,
                                           os.listdir(directory)) if m]
     return max(steps) if steps else None
+
+
+def save_serving_snapshot(server, prefix, input_names=None, epoch=0):
+    """The serving artifact of a live, warmed server (``serve.snapshot``):
+    this checkpoint layout plus the server's config and program list."""
+    from .cache.snapshot import save_snapshot
+
+    return save_snapshot(server, prefix, input_names=input_names,
+                         epoch=epoch)
+
+
+def load_serving_snapshot(prefix, model=None, **server_kwargs):
+    """A ready server from ``save_serving_snapshot``'s artifact, every
+    program it lists captured before the first request
+    (``serve.load(prefix, snapshot=True)``)."""
+    from .cache.snapshot import load_snapshot
+
+    return load_snapshot(prefix, model=model, **server_kwargs)

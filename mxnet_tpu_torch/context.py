@@ -24,14 +24,24 @@ _default = None
 
 
 class Context:
+    # MXNet's device type ids (ref: python/mxnet/context.py)
+    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
+    devstr2type = {"cpu": 1, "gpu": 2, "cpu_pinned": 3}
+
     def __init__(self, device_type, device_id=0):
         if isinstance(device_type, Context):
             device_type, device_id = (device_type.device_type,
                                       device_type.device_id)
-        if device_type not in ("cpu", "gpu", "cpu_pinned"):
+        if isinstance(device_type, int):
+            device_type = self.devtype2str.get(device_type, device_type)
+        if device_type not in self.devstr2type:
             raise ValueError("unknown device type %r" % (device_type,))
         self.device_type = device_type
         self.device_id = int(device_id)
+
+    @property
+    def device_typeid(self):
+        return self.devstr2type[self.device_type]
 
     def torch_device(self):
         if self.device_type in ("cpu", "cpu_pinned"):
@@ -103,3 +113,13 @@ def context_from_device(dev):
         return cpu(0)
     return gpu(torch.cuda.current_device() if dev.index is None
                else dev.index)
+
+
+def gpu_memory_info(device_id=0):
+    """(free, total) bytes of CUDA device ``device_id``
+    (``torch.cuda.mem_get_info``); raises ``DeviceError`` without one, as
+    upstream raises on a host with no GPU."""
+    if not 0 <= device_id < num_gpus():
+        raise DeviceError("no CUDA device %d" % device_id)
+    free, total = torch.cuda.mem_get_info(device_id)
+    return int(free), int(total)

@@ -322,17 +322,22 @@ class Block(torch.nn.Module):
             if extra:
                 raise KeyError("Extra parameters in file: %s" % sorted(extra))
 
-    def initialize(self, init=None, device=None, generator=None,
-                   force_reinit=False):
-        """Initialize every parameter on ``device`` (default: the current
-        CUDA device; raises without one unless ``device='cpu'``). Random
-        draws come from ``generator``, by default a generator on that device
-        seeded with 0."""
-        device = resolve_device(device)
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, device=None, generator=None):
+        """Initialize every parameter on ``ctx`` or ``device`` (a Context, a
+        device or its name). Without either: the innermost ``with ctx:``,
+        then ``test_utils.set_default_context``'s, then the current CUDA
+        device; with none of them it raises. Random draws come from
+        ``generator``, by default a generator on that device seeded with 0.
+        ``verbose`` is accepted as MXNet's and prints nothing."""
+        from .parameter import _one_device
+
+        device = _one_device(ctx, device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        self.collect_params().initialize(init, device, generator,
-                                         force_reinit)
+        self.collect_params().initialize(init, device=device,
+                                         generator=generator,
+                                         force_reinit=force_reinit)
 
     def hybridize(self, active=True, **kwargs):
         """Hybridize every HybridBlock below (``HybridBlock.hybridize``)."""
@@ -348,12 +353,22 @@ class Block(torch.nn.Module):
     def forward(self, *args, **kwargs):
         raise NotImplementedError
 
+    def summary(self, *inputs):
+        """Run the block on ``inputs``, print its parameter count and
+        return the output (the JAX package's summary)."""
+        out = self(*inputs)
+        n = sum(p._data.numel() for p in self.collect_params().values()
+                if p._data is not None)
+        print("Total params: %d" % n)
+        return out
+
 
 class HybridBlock(Block):
     """(ref: gluon/block.py:HybridBlock)"""
 
     _programs = None  # gluon.hybrid.BlockPrograms once hybridized
     _active = False
+    _validate_pending = False  # hybridize(validate=True), first forward
 
     def hybridize(self, active=True, static_alloc=False, static_shape=False,
                   validate=False, **kwargs):
@@ -364,8 +379,9 @@ class HybridBlock(Block):
         ``hybridize``, ``hybridize(False)`` and ``cast`` drop the
         programs. On the CPU the calls run eagerly with the same keys and
         counts. ``static_alloc`` and ``static_shape`` are what a CUDA graph
-        is anyway; ``validate`` (the JAX package's trace-time lint) has no
-        counterpart yet (``ROADMAP.md`` A.16)."""
+        is anyway. ``validate``: the first forward runs
+        ``analysis.check_hybridizable`` on its inputs first and raises
+        ``analysis.GraphlintError`` on a finding (GL101-GL104)."""
         from .hybrid import BlockPrograms
 
         if self._programs is None:
@@ -373,6 +389,7 @@ class HybridBlock(Block):
         else:
             self._programs.drop()
         self._active = bool(active)
+        self._validate_pending = self._active and bool(validate)
         for p in self.collect_params().values():
             p._hybridized = self._active
         super().hybridize(active, static_alloc=static_alloc,
@@ -428,6 +445,15 @@ class HybridBlock(Block):
                 raise TypeError("a hybridized %s takes its inputs "
                                 "positionally, got %s" % (
                                     type(self).__name__, sorted(kwargs)))
+            if self._validate_pending:
+                self._validate_pending = False
+                from ..analysis.validate import (GraphlintError,
+                                                 check_hybridizable)
+
+                found = check_hybridizable(
+                    self, *args, training=autograd.is_training())
+                if found:
+                    raise GraphlintError(found)
             return self._programs(args)
         return self._eager_forward(*args, **kwargs)
 
@@ -458,6 +484,13 @@ class HybridBlock(Block):
         finally:
             if outer is None:
                 _sym_trace.vars = None
+
+    def serve(self, input_specs, **kwargs):
+        """A dynamic-batching ``serve.ModelServer`` over this block (its
+        knobs are the kwargs)."""
+        from .. import serve as _serve
+
+        return _serve.ModelServer(self, input_specs, **kwargs)
 
     def export(self, path, epoch=0, input_names=("data",),
                input_shapes=None):

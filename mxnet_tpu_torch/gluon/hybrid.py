@@ -57,6 +57,7 @@ from .. import autograd, engine
 from .. import random as _random
 from ..base import resolve_device
 from ..capture import AddressBook, capture_graph
+from ..observability import costs
 
 _tls = threading.local()
 
@@ -108,12 +109,13 @@ class _Program:
     outputs, and with ``grad`` the backward graph, its static output
     cotangents and the gradients it writes."""
 
-    def __init__(self, training, grad):
+    def __init__(self, training, grad, meter=None):
         self.training, self.grad = training, grad
         self.fwd = self.bwd = None
         self.inputs = self.outs = self.kind = None
         self.gouts = self.grads = None
         self.generation = 0
+        self.meter = meter  # the forward's pending cost count
 
 
 class _Replay(torch.autograd.Function):
@@ -211,22 +213,23 @@ class BlockPrograms:
         key = (training, grad, _signature(args))
         prog = self._programs.get(key)
         if prog is None:
-            prog = _Program(training, grad)
+            note = "hybridize[%s train=%s grad=%s]" % (
+                type(block).__name__, key[0], key[1])
+            prog = _Program(training, grad,
+                            costs.meter("hybrid_capture", note, device))
             if device.type == "cuda":
                 self._capture(prog, args, params, device)
             self._programs[key] = prog
             self.stats["forward_captures"] += 1
             self.stats["backward_captures"] += int(grad)
             self.stats["recaptures"] += int(key in self._seen_keys)
-            engine.hybrid_capture_counter.bump(note="hybridize[%s train=%s "
-                                               "grad=%s]" % (
-                                                   type(block).__name__,
-                                                   key[0], key[1]))
+            engine.hybrid_capture_counter.bump(note=note)
             self._seen_keys.add(key)
         self.stats["forward_replays"] += 1
         if prog.fwd is None:  # the CPU: the same call, eagerly
             with _Body():
-                flat, kind = _flatten(block._eager_forward(*args))
+                flat, kind = _flatten(costs.run_counted(
+                    prog.meter, lambda: block._eager_forward(*args)))
             live = [i for i, o in enumerate(flat) if o.requires_grad]
             if live:
                 counted = _CountBackward.apply(self, *[flat[i] for i in live])
@@ -256,7 +259,11 @@ class BlockPrograms:
         gens = [_random.generator(device)]
 
         def warm():
-            flat, _ = self._run(prog, prog.inputs)
+            # the forward alone is the program counted
+            with costs.counting(prog.meter) as box:
+                flat, _ = self._run(prog, prog.inputs)
+                if box is not None:
+                    box["result"] = flat
             live = [o for o in flat if o.requires_grad]
             if prog.grad and live:
                 torch.autograd.grad(live, diff, [torch.ones_like(o)

@@ -38,21 +38,51 @@ class DeferredInitializationError(RuntimeError):
     pass
 
 
+def _one_device(ctx, device):
+    """The device of an ``initialize`` call given ``ctx=`` (MXNet's name)
+    or ``device=``: one context, or a list of one (the port keeps one copy
+    of a parameter a process)."""
+    if ctx is not None and device is not None and \
+            resolve_device(ctx) != resolve_device(device):
+        raise ValueError("initialize: ctx=%r and device=%r differ"
+                         % (ctx, device))
+    dev = device if device is not None else ctx
+    if isinstance(dev, (list, tuple)):
+        if len(dev) != 1:
+            raise ValueError(
+                "initialize: one context a process (got %d); replicas are "
+                "gluon.utils.split_and_load's and parallel's" % len(dev))
+        dev = dev[0]
+    return resolve_device(dev)
+
+
 class Parameter:
     # set by HybridBlock.hybridize: the Trainer steps a set of such
     # parameters through one captured optimizer step
     _hybridized = False
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
-                 init=None, allow_deferred_init=False):
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
         self.name = name
         self._data = None
         self._grad_req = "null"
-        self.grad_req = grad_req
+        self.grad_req = grad_req if differentiable else "null"
         self._shape = tuple(shape) if shape is not None else None
         self.dtype = resolve_dtype(dtype)
+        # the Trainer scales this parameter's rate and decay by these
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
         self.init = init
         self.allow_deferred_init = allow_deferred_init
+        self._differentiable = differentiable
+        if stype != "default" or grad_stype != "default":
+            raise NotImplementedError(
+                "Parameter %s: sparse storage (stype=%r, grad_stype=%r) is "
+                "ROADMAP.md A.17" % (name, stype, grad_stype))
+        self._stype = stype
+        self._grad_stype = grad_stype
         self._deferred_init = None  # (initializer, device, generator)
 
     @property
@@ -94,10 +124,14 @@ class Parameter:
     def _shape_known(self):
         return self._shape is not None and all(s > 0 for s in self._shape)
 
-    def initialize(self, init=None, device=None, default_init=None,
-                   generator=None, force_reinit=False):
+    def initialize(self, init=None, ctx=None, default_init=None,
+                   force_reinit=False, device=None, generator=None):
+        """Initialize on ``ctx`` or ``device`` (a Context, a device or its
+        name; default ``base.resolve_device``'s: the innermost ``with
+        ctx:``, then the default context, then the card)."""
         if self._data is not None and not force_reinit:
             return
+        device = _one_device(ctx, device)
         if isinstance(init, str):
             init = init_mod.create(init)
         own = init_mod.create(self.init) if isinstance(self.init, str) \
@@ -198,6 +232,27 @@ class Parameter:
         if self._data is not None:
             self._attach(self._data.to(resolve_device(device)))
 
+    def reset_ctx(self, ctx):
+        """Move the value to ``ctx`` (MXNet's name for
+        :meth:`reset_device`)."""
+        self.reset_device(ctx)
+
+    def list_ctx(self):
+        """The contexts holding this parameter: one, or none before
+        initialization."""
+        from ..context import context_from_device
+
+        if self._data is None:
+            return []
+        return [context_from_device(self._data.device)]
+
+    def var(self):
+        """A ``Symbol`` variable of this parameter's name, shape and
+        dtype."""
+        from ..symbol import var
+
+        return var(self.name, shape=self.shape, dtype=self.dtype)
+
     def cast(self, dtype):
         self.dtype = resolve_dtype(dtype)
         if self._data is not None:
@@ -222,11 +277,12 @@ class Constant(Parameter):
                          dtype=value.dtype)
         self._value = value
 
-    def initialize(self, init=None, device=None, default_init=None,
-                   generator=None, force_reinit=False):
+    def initialize(self, init=None, ctx=None, default_init=None,
+                   force_reinit=False, device=None, generator=None):
         if self._data is not None and not force_reinit:
             return
-        self._attach(self._value.to(device=resolve_device(device),
+        device = _one_device(ctx, device)
+        self._attach(self._value.to(device=device,
                                     dtype=self.dtype))
         self._deferred_init = None
 
@@ -293,11 +349,25 @@ class ParameterDict:
         for k, v in other.items():
             self._params[k] = v
 
-    def initialize(self, init=None, device=None, generator=None,
-                   force_reinit=False):
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, device=None, generator=None):
+        """Initialize every parameter on ``ctx`` or ``device``
+        (``Parameter.initialize``); ``verbose`` is accepted as MXNet's
+        and prints nothing."""
+        if ctx is not None or device is not None:
+            device = _one_device(ctx, device)
         for p in self.values():
-            p.initialize(None, device, default_init=init, generator=generator,
-                         force_reinit=force_reinit)
+            p.initialize(None, device=device, default_init=init,
+                         generator=generator, force_reinit=force_reinit)
+
+    def reset_ctx(self, ctx):
+        self.reset_device(ctx)
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` of every parameter, as in
+        ``collect_params().setattr('grad_req', 'null')``."""
+        for p in self.values():
+            setattr(p, name, value)
 
     def zero_grad(self):
         for p in self.values():

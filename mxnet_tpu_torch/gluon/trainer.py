@@ -118,6 +118,7 @@ class Trainer:
             self._optimizer = opt.create(optimizer, **(optimizer_params or {}))
         self._optimizer.idx2name = {i: p.name
                                     for i, p in enumerate(self._params)}
+        self._optimizer.param_dict = dict(enumerate(self._params))
         self._states = {}
         self._scale = self._optimizer.rescale_grad
         self._program = None  # optimizer.StepProgram, when hybridized

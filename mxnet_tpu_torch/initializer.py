@@ -18,9 +18,21 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
-           "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear", "LSTMBias",
-           "Mixed", "Load", "create"]
+__all__ = ["Initializer", "InitDesc", "Zero", "Zeros", "One", "Ones",
+           "Constant", "Uniform", "Normal", "Orthogonal", "Xavier",
+           "MSRAPrelu", "Bilinear", "LSTMBias", "Mixed", "Load", "create",
+           "register"]
+
+
+class InitDesc(str):
+    """A parameter's name with its attributes (ref: initializer.py:
+    InitDesc): what an initializer is called with."""
+
+    def __new__(cls, name, attrs=None, global_init=None):
+        ret = super().__new__(cls, name)
+        ret.attrs = attrs or {}
+        ret.global_init = global_init
+        return ret
 
 
 class Initializer:
@@ -38,6 +50,18 @@ class Initializer:
         else:
             out = self._init_weight(shape, device, generator)
         return out.to(dtype)
+
+    def init_array(self, name, arr):
+        """Fill ``arr`` (an NDArray or a tensor) in place with what this
+        initializer gives the parameter ``name``, drawing from this
+        thread's generator of ``arr``'s device (``random.generator``)."""
+        from . import random as _random
+
+        t = getattr(arr, "_data", arr)
+        value = self(name, tuple(t.shape), t.dtype, t.device,
+                     _random.generator(t.device))
+        with torch.no_grad():
+            t.copy_(value)
 
     def _init_bias(self, shape, device):
         return torch.zeros(shape, device=device)
@@ -215,11 +239,21 @@ class Load:
         return self.default_init(name, shape, dtype, device, generator)
 
 
+Zeros = Zero
+Ones = One
+
 _BY_NAME = {"zeros": Zero, "zero": Zero, "ones": One, "one": One,
             "constant": Constant, "uniform": Uniform, "normal": Normal,
             "orthogonal": Orthogonal, "xavier": Xavier,
             "msraprelu": MSRAPrelu, "bilinear": Bilinear,
             "lstmbias": LSTMBias}
+
+
+def register(klass):
+    """Make ``klass`` (an Initializer) creatable by its lower-cased class
+    name, as upstream's ``@mx.init.register`` does; returns it."""
+    _BY_NAME[klass.__name__.lower()] = klass
+    return klass
 
 
 def create(name, **kwargs):

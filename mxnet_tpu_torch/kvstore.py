@@ -121,6 +121,25 @@ class KVStore:
                             % (optimizer,))
         self._updater = get_updater(optimizer)
 
+    def set_weight_update_sharding(self, mesh, axis="dp"):
+        """ZeRO-1 weight-update sharding of the store-side update over
+        ``axis`` of ``mesh`` (``mesh=None`` switches it off). Call after
+        :meth:`set_optimizer`. This store updates in one process, so an
+        axis of one rank is all it can take; across ranks the update is
+        sharded by ``Trainer.set_weight_update_sharding`` over
+        ``torch.distributed``, and a larger axis raises."""
+        if self._updater is None:
+            raise RuntimeError("set_optimizer first: weight-update sharding "
+                               "configures the store-side updater")
+        if mesh is not None and axis is not None and \
+                int(mesh.shape.get(axis, 1)) > 1:
+            raise ValueError(
+                "KVStore(%r) updates in this process: a %d-rank %r axis "
+                "needs Trainer.set_weight_update_sharding"
+                % (self.type, int(mesh.shape[axis]), axis))
+        self._updater.wu_mesh = mesh
+        self._updater.wu_axis = axis
+
     def set_gradient_compression(self, compression_params):
         """2-bit compression with error feedback (ref:
         src/kvstore/gradient_compression.cc): ``{"type": "2bit",

@@ -18,7 +18,8 @@ from ..gluon import nn
 from ..gluon.block import HybridBlock, param_block, param_value
 from ..parallel import tensor_parallel as tp
 
-__all__ = ["BERTModel", "BERTEncoder", "bert_base"]
+__all__ = ["BERTModel", "BERTEncoder", "BERTClassifier", "bert_base",
+           "bert_large"]
 
 
 class BERTAttention(HybridBlock):
@@ -218,3 +219,26 @@ def bert_base(vocab_size=30522, dropout=0.1, max_length=512, **kwargs):
     return BERTModel(vocab_size=vocab_size, units=768, hidden_size=3072,
                      num_layers=12, num_heads=12, dropout=dropout,
                      max_length=max_length, **kwargs)
+
+
+def bert_large(vocab_size=30522, dropout=0.1, max_length=512, **kwargs):
+    return BERTModel(vocab_size=vocab_size, units=1024, hidden_size=4096,
+                     num_layers=24, num_heads=16, dropout=dropout,
+                     max_length=max_length, **kwargs)
+
+
+class BERTClassifier(HybridBlock):
+    """Fine-tuning head (ref: gluonnlp bert.py:BERTClassifier): dropout and
+    a Dense over the pooled output."""
+
+    def __init__(self, bert, num_classes=2, dropout=0.1, **kwargs):
+        super().__init__(**kwargs)
+        self.bert = bert
+        with self.name_scope():
+            self.dropout = nn.Dropout(dropout)
+            self.classifier = nn.Dense(num_classes, in_units=bert._units)
+
+    def hybrid_forward(self, F, inputs, token_types=None, valid_length=None):
+        out = self.bert(inputs, token_types, valid_length)
+        pooled = out[1] if isinstance(out, tuple) else out
+        return self.classifier(self.dropout(pooled))

@@ -740,7 +740,7 @@ class _WindowProgram:
     treat the scalar). Every window program of a device shares one memory
     pool: a replay's outputs are copied out before any other replays."""
 
-    def __init__(self, structure, leaves, want, device):
+    def __init__(self, structure, leaves, want, device, meter=None):
         from .capture import capture_graph
 
         self.static = []
@@ -756,7 +756,7 @@ class _WindowProgram:
             _pools[device.index] = torch.cuda.graph_pool_handle()
         self.graph = capture_graph(
             lambda: _run_chain(structure, self.static, want), device,
-            _pools[device.index])
+            _pools[device.index], meter=meter)
 
     def __call__(self, leaves):
         with torch.no_grad():
@@ -800,21 +800,32 @@ def _flush_window():
         results = _run_chain(structure, leaves, want)
     else:
         prog = _PROGRAMS.pop(key, None)
+        first = None
         if prog is None:
-            _engine.bulk_compile_counter.bump(
-                note="bulk[%s]" % ",".join(n.op for n in nodes))
-            prog = _WindowProgram(structure, leaves, want, device) \
+            from .observability import costs
+
+            note = "bulk[%s]" % ",".join(n.op for n in nodes)
+            _engine.bulk_compile_counter.bump(note=note)
+            first = costs.meter("bulk_compile", note, device)
+            prog = _WindowProgram(structure, leaves, want, device, first) \
                 if device.type == "cuda" else structure
             if len(_PROGRAMS) >= PROGRAM_CAP:
                 _PROGRAMS.pop(next(iter(_PROGRAMS)))
         _PROGRAMS[key] = prog
+
+        def run():
+            if device.type == "cuda":
+                return prog(leaves)
+            if first is None:
+                return _run_chain(structure, leaves, want)
+            return costs.run_counted(
+                first, lambda: _run_chain(structure, leaves, want))
+
         if _profiler.is_running():
             with _profiler.bulk_scope([n.op for n in nodes]):
-                results = prog(leaves) if device.type == "cuda" else \
-                    _run_chain(structure, leaves, want)
+                results = run()
         else:
-            results = prog(leaves) if device.type == "cuda" else \
-                _run_chain(structure, leaves, want)
+            results = run()
     for (_, arr), val in zip(outs, results):
         arr._buf = val
         arr._lazy = None

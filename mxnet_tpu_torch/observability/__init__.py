@@ -15,7 +15,10 @@ record buffer — and exports them two ways from one ``snapshot()``:
 Per-request tracing (tracing.py) threads a trace id from ``submit()``
 through queue, coalesce, pad, dispatch and the decode steps; the retrace
 watchdog (watchdog.py) reports every CUDA-graph capture or program build
-after warmup. ``device_section()`` reads ``torch.cuda.memory_stats``.
+after warmup; cost attribution (costs.py) counts each program's flops,
+bytes and peak memory on its first run, and ``analysis.hlolint`` lints the
+op records it keeps; ``analysis.concurrency`` reports the runtime lock
+order. ``device_section()`` reads ``torch.cuda.memory_stats``.
 
 The sections the port lacks are named in ``NOT_PORTED`` with their
 ``ROADMAP.md`` item, and ``snapshot()`` lists them under ``not_ported``.
@@ -24,7 +27,7 @@ from __future__ import annotations
 
 import sys
 
-from . import watchdog  # noqa: F401
+from . import costs, watchdog  # noqa: F401
 from .http import MetricsHTTPServer  # noqa: F401
 from .registry import (Counter, Gauge, Histogram,  # noqa: F401
                        MetricsRegistry, render_prometheus)
@@ -36,15 +39,11 @@ __all__ = ["registry", "snapshot", "prometheus", "MetricsRegistry",
            "set_tracing", "tracing_enabled", "arm_watchdog",
            "disarm_watchdog", "MetricsHTTPServer", "enable_op_telemetry",
            "op_telemetry_enabled", "render_prometheus", "device_section",
-           "NOT_PORTED"]
+           "note_compile", "NOT_PORTED"]
 
 # the JAX package's sections the port does not have: section -> the
 # ROADMAP.md item that brings it
 NOT_PORTED = {
-    "costs": "A.16 (observability/costs.py: a FLOP counter in place of "
-             "XLA's cost_analysis)",
-    "hlolint": "A.16 (analysis/: program lint)",
-    "concurrency": "A.16 (analysis/: the lock-order checker)",
     "comp_cache": "A.16 (cache/aot.py and store.py: the compile cache)",
     "ir": "A.16 (ir/: the graph IR)",
 }
@@ -54,6 +53,20 @@ registry = MetricsRegistry()
 
 arm_watchdog = watchdog.arm
 disarm_watchdog = watchdog.disarm
+
+# build accounting: how many programs this process built and the host
+# seconds they took (a capture, a compile), the "is this replica building
+# under traffic" gauge the watchdog's events add up to
+_compiles_total = registry.counter(
+    "compiles_total", "program builds (captures and compiles)")
+_compile_seconds = registry.counter(
+    "compile_seconds_total", "host seconds spent building programs")
+
+
+def note_compile(seconds):
+    """Count one program build that took ``seconds``."""
+    _compiles_total.inc()
+    _compile_seconds.inc(float(seconds))
 
 def enable_op_telemetry(on=True):
     """Count imperative ``nd`` dispatches per op name
@@ -155,6 +168,23 @@ registry.register_collector("profiler", _collect_profiler)
 registry.register_collector("ops", _collect_ops)
 registry.register_collector("tune", _collect_tune)
 registry.register_collector("watchdog", watchdog.snapshot)
+registry.register_collector("costs", costs.snapshot_section)
+
+
+def _collect_concurrency():
+    from ..analysis import concurrency
+
+    return concurrency.runtime_stats()
+
+
+def _collect_hlolint():
+    from ..analysis import hlolint
+
+    return hlolint.snapshot_section()
+
+
+registry.register_collector("concurrency", _collect_concurrency)
+registry.register_collector("hlolint", _collect_hlolint)
 registry.register_collector(
     "tracing", lambda: {"enabled": tracing_enabled()})
 registry.register_collector("not_ported", lambda: dict(NOT_PORTED))

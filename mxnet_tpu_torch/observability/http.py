@@ -15,8 +15,8 @@ with ``ModelServer(..., metrics_port=9090)`` /
 back from ``.port`` — how tests avoid collisions).
 
 Extra GET/POST routes registered on ``get_routes``/``post_routes`` ride
-the same listener (the JAX package's fleet worker uses them; the port's
-fleet is ROADMAP A.16's rest).
+the same listener: the fleet worker's data and control routes
+(``serve.worker``).
 """
 from __future__ import annotations
 

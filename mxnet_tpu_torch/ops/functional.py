@@ -976,7 +976,7 @@ def flip(x, *, axis):
                       else tuple(axis))
 
 
-register_op("reverse")(flip)
+reverse = register_op("reverse")(flip)
 
 
 @register_op("stack")

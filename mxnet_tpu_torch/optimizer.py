@@ -165,6 +165,7 @@ class Optimizer:
         self.idx2name = param_idx2name or {}
         self.lr_mult = {}
         self.wd_mult = {}
+        self.param_dict = {}
         self._index_update_count = {}
 
     def set_learning_rate(self, lr):
@@ -189,14 +190,23 @@ class Optimizer:
         self._index_update_count[index] += 1
         self.num_update = max(self.num_update, self._index_update_count[index])
 
-    def _get_lr(self, index):
+    def _mult(self, table, attr, index):
+        """A parameter's own ``lr_mult``/``wd_mult`` (``param_dict``, which
+        the Trainer fills) where it is not 1, else ``set_lr_mult``'s or
+        ``set_wd_mult``'s by name or index, as upstream reads them."""
+        p = self.param_dict.get(index)
+        own = getattr(p, attr, 1.0) if p is not None else 1.0
+        if own != 1.0:
+            return own
         name = self.idx2name.get(index, index)
-        return self.learning_rate * self.lr_mult.get(
-            name, self.lr_mult.get(index, 1.0))
+        return table.get(name, table.get(index, 1.0))
+
+    def _get_lr(self, index):
+        return self.learning_rate * self._mult(self.lr_mult, "lr_mult",
+                                               index)
 
     def _get_wd(self, index):
-        name = self.idx2name.get(index, index)
-        return self.wd * self.wd_mult.get(name, self.wd_mult.get(index, 1.0))
+        return self.wd * self._mult(self.wd_mult, "wd_mult", index)
 
     def create_state(self, index, weight):
         """The state of one weight; with ``multi_precision`` a low-precision
@@ -307,9 +317,11 @@ class StepProgram:
         self.key = None
         self.captures = self.replays = self.recaptures = 0
         self._addresses = None
+        self._meter = None
 
     def run(self, params, grads, states, indices):
         from .capture import capture_graph
+        from .observability import costs
         from .util import map_state, tree_leaves
 
         opt = self.opt
@@ -338,20 +350,24 @@ class StepProgram:
             self._grads = [torch.empty_like(g) for g in grads]
             body = self._body(params, states)
             self._write(lrs, wds, ts)
+            self._meter = costs.meter(
+                "step_program", "step[%s n=%d groups=%d]" % (
+                    type(opt).__name__.lower(), len(indices), len(groups)),
+                dev)
             if dev.type == "cuda":
                 torch._foreach_copy_(self._grads, list(grads))
                 ws = [w.clone() for w in params]
                 ss = [map_state(x, torch.clone) for x in states]
                 self.graph = capture_graph(
                     body, dev, torch.cuda.graph_pool_handle(),
-                    warmup=self._body(ws, ss))
+                    warmup=self._body(ws, ss), meter=self._meter)
             self.captures += 1
         else:
             self._write(lrs, wds, ts)
         torch._foreach_copy_(self._grads, list(grads))
         self.replays += 1
         if self.graph is None:
-            self._body(params, states)()
+            costs.run_counted(self._meter, self._body(params, states))
         else:
             self.graph.replay()
         return list(states)

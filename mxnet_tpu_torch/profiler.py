@@ -223,6 +223,13 @@ def scope(name="<unk>"):
     return _timed(name, "host")
 
 
+def op_scope(name):
+    """One imperative op's dispatch as an ``operator`` event: host time
+    only (the launch is asynchronous), as upstream's operator issue
+    events."""
+    return _timed(name, "operator")
+
+
 def _fused_label(op_names):
     """``mul x5,add x5,tanh x5``: a fused program's constituents."""
     counts = {}

@@ -19,12 +19,13 @@ The implementation lives in :mod:`mxnet_tpu_torch.quantization`::
     quant.quantize_model(net, mode="int8", calib_mode="entropy",
                          calib_data=[batch])
 """
-from ..quantization import (QuantizedDense, calibrate_model,  # noqa: F401
-                            dequantize, fp8_supported, lowbit_matmul,
-                            quant_dtype, quantize, quantize_model,
-                            quantize_weight, quantized_fully_connected, stats)
+from ..quantization import (QuantizedConv2D, QuantizedDense,  # noqa: F401
+                            calibrate_model, dequantize, fp8_supported,
+                            lowbit_matmul, quant_dtype, quantize,
+                            quantize_model, quantize_weight, quantized_conv,
+                            quantized_fully_connected, stats)
 
 __all__ = ["quantize", "dequantize", "quantize_weight",
-           "quantized_fully_connected", "QuantizedDense", "quantize_model",
-           "calibrate_model", "fp8_supported", "quant_dtype", "stats",
-           "lowbit_matmul"]
+           "quantized_fully_connected", "quantized_conv", "QuantizedDense",
+           "QuantizedConv2D", "quantize_model", "calibrate_model",
+           "fp8_supported", "quant_dtype", "stats", "lowbit_matmul"]

@@ -273,6 +273,12 @@ def _param_device(block):
 
 
 def _as_input(x, device):
+    """A calibration input on ``device``: a tensor, an ``NDArray`` (its
+    tensor) or anything numpy takes."""
+    from .ndarray import NDArray
+
+    if isinstance(x, NDArray):
+        x = x._data
     return x.to(device) if isinstance(x, torch.Tensor) \
         else torch.as_tensor(np.asarray(x), device=device)
 
@@ -281,8 +287,8 @@ def calibrate_model(block, calib_data, mode="naive", num_bins=8001):
     """Freeze static activation scales from calibration batches
     (``naive``: the amax; ``entropy``: the KL threshold of a second,
     histogram pass over the same batches). ``calib_data`` is an iterable
-    of the net's positional input (or tuples of them), tensors or numpy
-    arrays, moved to the parameters' device. The port runs eagerly, so the
+    of the net's positional input (or tuples of them), tensors, NDArrays
+    or numpy arrays, moved to the parameters' device. The port runs eagerly, so the
     collectors see every forward and no compiled program needs dropping."""
     if mode not in ("naive", "entropy"):
         raise ValueError("calib mode must be 'naive' or 'entropy', got %r"

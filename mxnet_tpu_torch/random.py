@@ -79,3 +79,42 @@ def fork(device, seed_state):
             gens.pop(dev, None)
         else:
             gens[dev] = saved
+
+
+# ---------------------------------------------------------------- samplers
+# mx.random re-exports the nd.random samplers (upstream's python/mxnet/
+# random.py; the JAX package delegates the same way), lazily: nd imports
+# this module.
+def _delegate(name):
+    def f(*args, **kwargs):
+        from . import nd
+
+        return getattr(nd.random, name)(*args, **kwargs)
+
+    f.__name__ = name
+    f.__doc__ = "mx.random.%s: delegates to nd.random.%s" % (name, name)
+    return f
+
+
+uniform = _delegate("uniform")
+normal = _delegate("normal")
+randn = _delegate("randn")
+randint = _delegate("randint")
+exponential = _delegate("exponential")
+gamma = _delegate("gamma")
+poisson = _delegate("poisson")
+negative_binomial = _delegate("negative_binomial")
+multinomial = _delegate("multinomial")
+
+
+def shuffle(data):
+    """Permute ``data`` (an NDArray) along its first axis in place and
+    return None, as upstream's ``mx.random.shuffle`` does."""
+    from . import nd
+
+    data._data = nd.random.shuffle(data)._data
+
+
+__all__ += ["uniform", "normal", "randn", "randint", "exponential",
+            "gamma", "poisson", "negative_binomial", "multinomial",
+            "shuffle"]

@@ -3,9 +3,10 @@ dynamic-batching ModelServer (DynamicBatcher, BucketedExecutor with one
 CUDA graph per bucket, ServeMetrics; ``health``, ``swap_parameters`` and
 ``retune_buckets``) and the continuous-batching GenerativeServer over a paged KV
 cache (PagedKVCache, PrefixCache, GenerativeMetrics), with speculative
-decode through a draft (NGramDraft, ModelDraft) and chunked prefill;
-``snapshot`` and ``load(snapshot=True)`` for a warm restart, ``stats()``
-over the live servers."""
+decode through a draft (NGramDraft, ModelDraft) and chunked prefill; the
+multi-process replica fleet (FleetRouter over serve.worker subprocesses,
+Autoscaler); ``snapshot`` and ``load(snapshot=True)`` for a warm restart,
+``stats()`` over the live servers."""
 import weakref
 
 from .batcher import (DynamicBatcher, ServeError, ServerBusy,  # noqa: F401
@@ -13,6 +14,8 @@ from .batcher import (DynamicBatcher, ServeError, ServerBusy,  # noqa: F401
 from .decoder import (GenerationStream, GenerativeServer,  # noqa: F401
                       sample_tokens)
 from .executor_pool import BucketedExecutor, PoolError  # noqa: F401
+from .fleet import (Autoscaler, FleetRouter, WorkerGone,  # noqa: F401
+                    WorkerHandle, WorkerSpec)
 from .kv_cache import CacheError, PagedKVCache, PrefixCache  # noqa: F401
 from .metrics import GenerativeMetrics, ServeMetrics  # noqa: F401
 from .server import DEFAULT_BUCKETS, ModelServer  # noqa: F401
@@ -24,7 +27,13 @@ _SERVERS = weakref.WeakSet()
 
 
 def _register(server):
+    """Track a live server for ``stats()``; under ``MXNET_LOCK_CHECK=1``
+    (``analysis.concurrency``) arm its locks and shared tables."""
+    from ..analysis import concurrency
+
     _SERVERS.add(server)
+    if concurrency.lock_check_enabled():
+        concurrency.instrument_server(server)
 
 
 def load(prefix, epoch=0, input_names=("data",), ctx=None, snapshot=False,

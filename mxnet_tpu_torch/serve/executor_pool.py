@@ -40,6 +40,7 @@ import torch
 from .. import engine
 from ..base import resolve_dtype
 from ..capture import add_launches, capture_graph
+from ..observability import costs
 
 
 class PoolError(RuntimeError):
@@ -61,14 +62,16 @@ class _Bucket:
     pinned, on CUDA only; ``dev``), the graph and its outputs (CUDA only)
     and the launch counts its replay adds back."""
 
-    __slots__ = ("host", "dev", "graph", "outs", "deltas")
+    __slots__ = ("host", "dev", "graph", "outs", "deltas", "meter")
 
-    def __init__(self, host, dev):
+    def __init__(self, host, dev, meter=None):
         self.host = host
         self.dev = dev
         self.graph = None
         self.outs = None
         self.deltas = {}
+        # the program's pending cost count (observability.costs)
+        self.meter = meter
 
 
 class BucketedExecutor:
@@ -149,13 +152,14 @@ class BucketedExecutor:
                    for shape, dt in self._in_specs]
             host = [torch.zeros_like(d, device="cpu").pin_memory()
                     for d in dev] if self.graphed else None
-            prog = _Bucket(host, dev)
+            note = "serve[%s bucket=%d]" % (self.name, bucket)
+            prog = _Bucket(host, dev, costs.meter("serve_capture", note,
+                                                  self.device))
             if self.graphed:
                 self._capture(prog, bucket, params)
             self._programs[bucket] = prog
             self.captures += 1
-            engine.serve_capture_counter.bump(
-                note="serve[%s bucket=%d]" % (self.name, bucket))
+            engine.serve_capture_counter.bump(note=note)
         return prog
 
     def _capture(self, prog, bucket, params):
@@ -165,7 +169,7 @@ class BucketedExecutor:
             # thread_local: the server's admission thread does host work
             # while the dispatcher captures
             got = capture_graph(lambda: self._forward(params, prog.dev),
-                                self.device, self._pool)
+                                self.device, self._pool, meter=prog.meter)
         except RuntimeError as e:
             raise PoolError("capturing bucket %d failed: %s" % (bucket, e)) \
                 from e
@@ -184,7 +188,8 @@ class BucketedExecutor:
                 prog.dev[i].copy_(buf, non_blocking=True)
         self.replays += 1
         if prog.graph is None:
-            return self._forward(params, prog.dev)
+            return costs.run_counted(
+                prog.meter, lambda: self._forward(params, prog.dev))
         prog.graph.replay()
         add_launches(prog.deltas)
         return prog.outs

@@ -197,6 +197,16 @@ class ModelServer:
                              "axis 0 — padded serving cannot slice rows")
         return self
 
+    def snapshot(self, prefix, input_names=None, epoch=0):
+        """Write this server's serving artifact (its export layout and
+        config); ``serve.load(prefix, snapshot=True)`` rebuilds it with
+        every bucket captured before the first request
+        (``mxnet_tpu_torch.cache.snapshot``). Returns the manifest path."""
+        from ..cache.snapshot import save_snapshot
+
+        return save_snapshot(self, prefix, input_names=input_names,
+                             epoch=epoch)
+
     def start(self):
         with self._start_lock:
             self._batcher.start()

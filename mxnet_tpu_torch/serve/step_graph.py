@@ -57,6 +57,7 @@ from __future__ import annotations
 import torch
 
 from .. import engine
+from ..observability import costs
 from ..capture import (AddressBook, Graph, capture_counter,  # noqa: F401
                        capture_graph, clone_state, collector_paused)
 
@@ -111,22 +112,28 @@ class StepPrograms:
             self._pool = None
             self.drops += 1
         prog = self._programs.get(key)
+        first = None
         if prog is None:
-            prog = self._capture(body, state) if self.graphed else Graph()
+            note = "decode[%s]" % (key,)
+            m = costs.meter("decode_capture", note, self.device)
+            if self.graphed:
+                prog = self._capture(body, state, m)
+            else:
+                prog, first = Graph(), m
             self._programs[key] = prog
             self.captures += 1
             capture_counter.count += 1
-            engine.decode_capture_counter.bump(note="decode[%s]" % (key,))
+            engine.decode_capture_counter.bump(note=note)
         self.replays += 1
         if prog.graph is None:
-            return body(state)
+            return costs.run_counted(first, lambda: body(state))
         return prog.replay()
 
-    def _capture(self, body, state):
+    def _capture(self, body, state, meter=None):
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         scratch = clone_state(state)
         # thread_local: the server's other threads (admission, readers) do
         # host work while the step thread captures
         return capture_graph(lambda: body(state), self.device, self._pool,
-                             warmup=lambda: body(scratch))
+                             warmup=lambda: body(scratch), meter=meter)

@@ -1020,10 +1020,11 @@ class _Program:
     generator registered with it and, when some argument takes a gradient,
     the backward graph with its static output cotangents."""
 
-    def __init__(self):
+    def __init__(self, meter=None):
         self.static = self.fwd = self.bwd = self.gen = None
         self.outs = self.preds = self.gouts = self.grads = None
         self.generation = 0
+        self.meter = meter  # the forward's pending cost count
 
 
 def _split(outs, n):
@@ -1138,6 +1139,7 @@ class Executor:
         is put back, so the run that follows draws the same masks."""
         from . import engine
         from . import random as _random
+        from .observability import costs
 
         key = (bool(is_train), tuple(diff), _signature(vals),
                tuple(decisions.values()))
@@ -1145,14 +1147,15 @@ class Executor:
         device = vals[0].device if vals else torch.device("cpu")
         prog = self._programs.get(key)
         if prog is None:
-            prog = self._programs[key] = _Program()
+            note = "executor[train=%s grads=%d]" % (bool(is_train),
+                                                    len(diff))
+            prog = self._programs[key] = _Program(
+                costs.meter("symbol_compile", note, device))
             self.stats["forward_captures"] += 1
             self.stats["backward_captures"] += int(bool(diff))
             self.stats["recaptures"] += int(key in self._seen)
             self._seen.add(key)
-            engine.symbol_compile_counter.bump(
-                note="executor[train=%s grads=%d]" % (bool(is_train),
-                                                      len(diff)))
+            engine.symbol_compile_counter.bump(note=note)
             if device.type == "cuda":
                 with _decisions(decisions):
                     self._capture(prog, s, vals, diff, device, preds)
@@ -1164,7 +1167,9 @@ class Executor:
             drawn_from = gen.get_state()
         if prog.fwd is None:  # the CPU: the same key, eagerly
             with _decisions(decisions):
-                outs, got, state = self._eager_forward(s, vals, diff, preds)
+                outs, got, state = costs.run_counted(
+                    prog.meter,
+                    lambda: self._eager_forward(s, vals, diff, preds))
         else:
             with torch.no_grad():
                 for t, v in zip(prog.static, vals):
@@ -1203,6 +1208,7 @@ class Executor:
     def _capture(self, prog, s, vals, diff, device, preds):
         from . import random as _random
         from .capture import capture_graph
+        from .observability import costs
 
         prog.static = [v.detach().clone().requires_grad_(n in diff)
                        for n, v in zip(self._names, vals)]
@@ -1214,7 +1220,11 @@ class Executor:
                 return _eval_symbols(_heads(s) + preds, env)
 
         def warm():
-            outs, _ = _split(run(), len(preds))
+            # the forward alone is the program counted
+            with costs.counting(prog.meter) as box:
+                outs, _ = _split(run(), len(preds))
+                if box is not None:
+                    box["result"] = outs
             live = [o for o in outs if o.requires_grad]
             if live:
                 torch.autograd.grad(live, dins,

@@ -1,4 +1,5 @@
-"""Checkpoint arrays in the JAX package's exact npz format.
+"""Checkpoint arrays in the JAX package's exact npz format, in files and
+as bytes, and the environment helpers of upstream's ``mx.util``.
 
 A copy of the format of ``mxnet_tpu/util.py`` ``save_npz_exact`` /
 ``load_npz_exact``: dtypes the ``.npy`` header cannot hold (bfloat16, fp8)
@@ -80,6 +81,43 @@ def save_npz_exact(filename, arrays):
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+
+
+def dumps_npz_exact(arrays):
+    """:func:`save_npz_exact`'s format as bytes: the fleet's wire format
+    (a worker's ``/predict`` bodies and replies, prefix-cache migration),
+    so bfloat16 and fp8 cross processes exactly, to either package."""
+    import io
+
+    enc = {}
+    for k, v in arrays.items():
+        arr, name = _encode(v)
+        if name is not None:
+            enc[_NPZ_DTYPE_PREFIX + k] = np.asarray(name)
+        enc[k] = arr
+    buf = io.BytesIO()
+    np.savez(buf, **enc)
+    return buf.getvalue()
+
+
+def loads_npz_exact(data):
+    """Decode :func:`dumps_npz_exact` bytes (either package's): dict[name →
+    CPU tensor]."""
+    import io
+
+    return load_npz_exact(io.BytesIO(data))
+
+
+def makedirs(d):
+    os.makedirs(os.path.expanduser(d), exist_ok=True)
+
+
+def getenv(name):
+    return os.environ.get(name)
+
+
+def setenv(name, value):
+    os.environ[name] = value
 
 
 def load_npz_exact(filename):

@@ -9,8 +9,8 @@ the detection ops and the LSTM, SSD and Transformer models, the kvstore,
 sequence, pipeline and expert parallelism and ``SyncBatchNorm``, the
 shared capture module and ``hybridize``'s programs, the engine's bulk
 window, the symbolic API, the Module family, control flow, the host
-I/O, the image path, the observability core and the profiler included)
-imports
+I/O, the image path, the observability core and the profiler, cost
+attribution, the analysis tools and the replica fleet included) imports
 with JAX blocked; and without
 CUDA every entry point refuses to run unless the caller asks for the
 CPU."""
@@ -36,6 +36,8 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tools", "nd_op_cases.py")  # chip_smoke's
     yield os.path.join(REPO, "tools", "torch_resnet_ref.py")  # and this
+    yield os.path.join(REPO, "tools", "torch_fleet_factory.py")  # workers'
+    yield os.path.join(REPO, "tools", "cuda_phases.py")
 
 
 def _imported_roots(path):
@@ -110,6 +112,12 @@ def test_package_imports_with_jax_blocked():
             "mxnet_tpu_torch.observability.tracing, "
             "mxnet_tpu_torch.observability.http, "
             "mxnet_tpu_torch.observability.watchdog, "
+            "mxnet_tpu_torch.observability.costs, "
+            "mxnet_tpu_torch.analysis, mxnet_tpu_torch.analysis.graphlint, "
+            "mxnet_tpu_torch.analysis.validate, "
+            "mxnet_tpu_torch.analysis.concurrency, "
+            "mxnet_tpu_torch.analysis.hlolint, "
+            "mxnet_tpu_torch.serve.fleet, mxnet_tpu_torch.serve.worker, "
             "mxnet_tpu_torch.profiler; "
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -293,3 +301,37 @@ def test_without_cuda_symbolic_entry_points_raise(monkeypatch, tmp_path):
     with pytest.raises(DeviceError):
         serve.load(str(tmp_path / "d"))
     assert serve.load(str(tmp_path / "d"), ctx="cpu") is not None
+
+
+def test_spawned_worker_imports_no_jax():
+    """A fleet worker process, JAX and the JAX package blocked in it, comes
+    up from the factory twin, serves and shuts down: nothing it imports
+    reaches either."""
+    import json
+
+    from mxnet_tpu_torch.serve import WorkerHandle
+
+    code = ("import sys, runpy; sys.modules['jax'] = None; "
+            "sys.modules['mxnet_tpu'] = None; "
+            "sys.argv = ['worker', '--factory', %r]; "
+            "runpy.run_module('mxnet_tpu_torch.serve.worker', "
+            "run_name='__main__')" % (os.path.join(
+                REPO, "tools", "torch_fleet_factory.py")
+                + ":model_server_cpu"))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env, cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("{"), proc.stderr.read()[-2000:]
+        ready = json.loads(line)
+        h = WorkerHandle("127.0.0.1", ready["port"], proc=proc)
+        y = h.predict([torch.zeros(16).numpy()])
+        assert tuple(y.shape) == (10,)
+        h.shutdown()
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()

@@ -1,6 +1,8 @@
-"""The port's top-level names against the JAX package's: ``dir(mxnet_tpu)``
-less ``dir(mxnet_tpu_torch)`` is exactly ``MISSING``, each name with the
-ROADMAP.md item that ports it (or why it has none). A name the port gains
+"""The port's names against the JAX package's: ``dir(mxnet_tpu)`` less
+``dir(mxnet_tpu_torch)`` is exactly ``MISSING``, each name with the
+ROADMAP.md item that ports it (or why it has none); the same for every
+submodule both packages have (``MISSING_IN``: the names a JAX module
+defines itself) and for the main classes (``MISSING_ATTRS``). A name the port gains
 must leave the list, and a name the JAX package gains must join it: the
 test fails until the list says so. Both packages are read in a fresh
 interpreter: a submodule that another test imported joins its package's
@@ -18,8 +20,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MISSING = {
     # A.16's rest: tooling
-    "analysis": "A.16", "runtime": "A.16", "libinfo": "A.16",
-    "kvstore_server": "A.16",
+    "runtime": "A.16", "libinfo": "A.16", "kvstore_server": "A.16",
     # A.17: the rest
     "contrib": "A.17", "numpy_api": "A.17", "np": "A.17",
     "npx": "A.17", "np_array": "A.17", "np_shape": "A.17",
@@ -29,6 +30,208 @@ MISSING = {
     # the JAX package's TPU context: the port's accelerator is mx.gpu
     "tpu": "not applicable", "num_tpus": "not applicable",
 }
+
+
+JAX_INTERNAL = ("not applicable, because it is the JAX package's machinery "
+                "over XLA (jit funnels, threefry keys, XLA compile "
+                "counters), which the port's torch programs do not have")
+
+# submodule -> {name the JAX module defines and the port's lacks: its item}
+# ("ops" keeps its functional ops in ops.functional, compared there)
+MISSING_IN = {
+    "autograd": {"TapeNode": JAX_INTERNAL, "append_node": JAX_INTERNAL,
+                 "mark_grad_private": JAX_INTERNAL,
+                 "mark_grad_shared": JAX_INTERNAL},
+    "base": {n: JAX_INTERNAL for n in (
+        "BoundedCache", "OpDef", "bulk_jitted", "check_call", "env_cap",
+        "is_tpu_backend", "jitted", "tape_jitted")},
+    "analysis.hlolint": dict(
+        {n: "not applicable, because the port has no StableHLO text: it "
+            "lints the op records observability.costs keeps (lint_record, "
+            "Program)" for n in ("HloOp", "TType", "Arg", "parse_program",
+                                 "parse_type", "lint_text")},
+        DONATE_MIN_BYTES="not applicable, because it is GL022's threshold "
+                         "and torch has no buffer donation",
+        **{n: "not applicable, because the corpus is observability.costs' "
+              "op records, kept at the cost seam (costs.records, "
+              "costs.reset)" for n in ("capture", "corpus", "reset")}),
+    "observability.costs": {
+        n: "not applicable, because the port counts a program on its "
+           "first run at the capture seam (costs.counting), not from an "
+           "XLA executable parked for later analysis"
+        for n in ("materialize", "record_compiled", "tracked")},
+    "cache": {n: "A.16" for n in (
+        "AotFn", "CompCacheStore", "active_store", "configure", "disable",
+        "enabled", "persistent_backed", "stats", "traceable")},
+    "context": {"tpu": "not applicable, because the port's accelerator is "
+                       "mx.gpu", "num_tpus": "not applicable, because the "
+                       "port's accelerator is mx.gpu"},
+    "engine": {n: JAX_INTERNAL for n in (
+        "comp_cache_deserialize_counter", "comp_cache_hit_counter",
+        "comp_cache_miss_counter", "decode_compile_counter",
+        "dist_bucket_counter", "dist_compile_counter",
+        "serve_compile_counter", "verify_dispatch_counter")},
+    "gluon.block": {"builtins_sum": "not applicable, because it is a "
+                                    "helper of the JAX summary()"},
+    "gluon.contrib.nn": {n: "A.17" for n in (
+        "Concurrent", "HybridConcurrent", "Identity", "PixelShuffle1D",
+        "PixelShuffle2D", "PixelShuffle3D", "SparseEmbedding")},
+    "io": {"LibSVMIter": "A.17"},
+    "ir": {n: "A.16" for n in (
+        "DEFAULT_PASSES", "Graph", "GraphBuilder", "Node", "PassManager",
+        "UnsupportedGraph", "build_runner", "canonical_key", "canonicalize",
+        "from_symbol", "from_window", "lower_forward", "pass_stats",
+        "prepare", "stats", "symbol_skeleton", "tape_program")},
+    "ir.tune": {n: "A.16" for n in (
+        "TUNED_BY", "TunedStore", "candidate_configs", "config_key",
+        "example_leaves", "flash_block_candidates", "get_store", "install",
+        "lookup", "paired_step_ms", "pass_manager_for", "rank_candidates",
+        "reset_stats", "reset_store", "search", "stats", "store_path",
+        "tune_buckets", "tune_bulk_watermark", "tune_flash_blocks")},
+    "linalg": {n: JAX_INTERNAL for n in (
+        "k_gelqf", "k_gemm2", "k_potri", "k_syrk", "k_trmm", "k_trsm")},
+    "nd.contrib": {"CONTRIB_OPS": "A.17"},
+    "sym_contrib": {"CONTRIB_OPS": "A.17"},
+    "ndarray": {"LazyExpr": "not applicable, because the port's bulk "
+                            "window keeps its own record of deferred ops"},
+    "observability.watchdog": {
+        "compile_context": "not applicable, because each port build site "
+                           "names its key in the counter's bump(note=)",
+        "current_context": "not applicable, because each port build site "
+                           "names its key in the counter's bump(note=)"},
+    "ops": "not applicable, because the port keeps its functional ops in "
+           "ops.functional (ops.F), compared there",
+    "ops.detection": {n: "A.17" for n in (
+        "onnx_gather_nd", "onnx_nms", "onnx_scatter_nd", "yolo3_decode",
+        "yolo3_target")},
+    "ops.functional": {"linalg_gemm2": "not applicable, because the port "
+                                       "defines it in ops.legacy_ops with "
+                                       "the other linalg ops"},
+    "parallel": {"get_shard_map": "not applicable, because each torch rank "
+                                  "runs its own program"},
+    "parallel.mesh": {"get_shard_map": "not applicable, because each torch "
+                                       "rank runs its own program"},
+    "random": {n: JAX_INTERNAL for n in (
+        "get_state", "next_key", "set_state", "split")},
+    "serve": {"symbol_infer_fn": "not applicable, because the port's "
+                                 "SymbolBlock is hybridized at "
+                                 "construction (A.14)"},
+    "serve.executor_pool": {"symbol_infer_fn": "not applicable, because "
+                                               "the port's SymbolBlock is "
+                                               "hybridized at construction "
+                                               "(A.14)"},
+    "sym": dict({n: "A.17" for n in (
+        "BilinearSampler", "CTCLoss", "DeformableConvolution",
+        "GridGenerator", "ModulatedDeformableConvolution", "MultiProposal",
+        "PSROIPooling", "Proposal", "ROIAlign", "ROIPooling",
+        "SpatialTransformer", "allclose", "arange_like", "bilinear_sampler",
+        "box_decode", "box_encode", "contrib_fft", "contrib_ifft",
+        "ctc_loss", "deformable_convolution", "div_sqrt_dim",
+        "gradientmultiplier", "grid_generator", "group_adagrad_update",
+        "index_array", "index_copy", "interleaved_matmul_encdec_qk",
+        "interleaved_matmul_encdec_valatt", "interleaved_matmul_selfatt_qk",
+        "interleaved_matmul_selfatt_valatt", "modulated_deformable_convolution",
+        "multi_proposal", "proposal", "psroi_pooling", "quantize_v2",
+        "roi_align", "roi_pooling", "spatial_transformer", "yolo3_decode",
+        "yolo3_target")},
+        space_to_depth_stem_conv="not applicable, because the space-to-depth "
+                                 "stem only re-lays the TPU's input lanes "
+                                 "(A.11)"),
+    "util": {n: "A.17" for n in (
+        "is_np_array", "is_np_shape", "np_array", "np_shape", "reset_np",
+        "set_np", "use_np", "use_np_array", "use_np_shape")},
+}
+
+# class -> {public attribute the JAX class has and the port's lacks: item}
+MISSING_ATTRS = {
+    "gluon.Parameter": {}, "gluon.ParameterDict": {}, "gluon.Block": {},
+    "gluon.HybridBlock": {}, "gluon.SymbolBlock": {}, "gluon.Trainer": {},
+    "Context": {"jax_device": JAX_INTERNAL},
+    "serve.ModelServer": {}, "serve.GenerativeServer": {},
+    "serve.PagedKVCache": {"update": JAX_INTERNAL},
+    "serve.DynamicBatcher": {}, "serve.FleetRouter": {},
+    "serve.WorkerHandle": {}, "serve.Autoscaler": {},
+    "kvstore.KVStore": {}, "nd.NDArray": {}, "optimizer.Optimizer": {},
+    "module.Module": {}, "sym.Symbol": {}, "initializer.Initializer": {},
+    "io.DataIter": {}, "metric.EvalMetric": {}, "amp.LossScaler": {},
+    "gluon.data.DataLoader": {},
+}
+
+_SUBMODULE_NAMES = r"""
+import importlib, json, pkgutil, types, functools
+import mxnet_tpu, mxnet_tpu_torch
+def own(mod, name, n):
+    o = getattr(mod, n)
+    if isinstance(o, types.ModuleType):
+        return False
+    m = getattr(o, "__module__", None)
+    if not isinstance(m, str):
+        return n.isupper()
+    if hasattr(mod, "__path__"):
+        return m == name or m.startswith(name + ".")
+    return m == name
+mods, attrs = {}, {}
+for info in pkgutil.walk_packages(mxnet_tpu_torch.__path__,
+                                  "mxnet_tpu_torch."):
+    sub = info.name[len("mxnet_tpu_torch."):]
+    if any(part.startswith("_") for part in sub.split(".")):
+        continue
+    try:
+        jm = importlib.import_module("mxnet_tpu." + sub)
+    except ImportError:
+        continue
+    pm = importlib.import_module(info.name)
+    mods[sub] = sorted(n for n in dir(jm) if n[0] != "_"
+                       and own(jm, "mxnet_tpu." + sub, n)
+                       and not hasattr(pm, n))
+get = lambda m, p: functools.reduce(getattr, p.split("."), m)
+for cls in json.loads(CLASSES):
+    a, b = get(mxnet_tpu, cls), get(mxnet_tpu_torch, cls)
+    attrs[cls] = sorted(n for n in dir(a) if n[0] != "_"
+                        and not hasattr(b, n))
+print(json.dumps({"mods": mods, "attrs": attrs}))
+"""
+
+
+@pytest.fixture(scope="module")
+def sub_names():
+    """{"mods": {submodule: names the JAX one defines that the port's
+    lacks}, "attrs": {class: attributes likewise}}, in a fresh
+    interpreter."""
+    code = "CLASSES = %r\n" % json.dumps(sorted(MISSING_ATTRS)) + \
+        _SUBMODULE_NAMES
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def _valid_item(v):
+    return v.startswith("A.") or v.startswith("not applicable, because ")
+
+
+def test_submodule_names_are_listed_with_their_item(sub_names):
+    got = sub_names["mods"]
+    for mod, lacking in got.items():
+        table = MISSING_IN.get(mod, {})
+        if isinstance(table, str):
+            assert _valid_item(table), mod
+            continue
+        assert set(lacking) - set(table) == set(), \
+            "%s: names the port lacks and MISSING_IN does not list" % mod
+    for mod, table in MISSING_IN.items():
+        if isinstance(table, str):
+            continue
+        assert set(table) - set(got.get(mod, ())) == set(), \
+            "%s: names MISSING_IN lists that the port has" % mod
+        assert all(_valid_item(v) for v in table.values()), mod
+
+
+def test_class_attributes_are_listed_with_their_item(sub_names):
+    for cls, lacking in sub_names["attrs"].items():
+        assert set(lacking) == set(MISSING_ATTRS[cls]), cls
+        assert all(_valid_item(v) for v in MISSING_ATTRS[cls].values())
 
 
 @pytest.fixture(scope="module")

@@ -189,10 +189,10 @@ def test_snapshot_sections_and_op_telemetry():
 
     snap = observability.snapshot()
     for k in ("schema", "metrics", "engine", "caches", "serve", "profiler",
-              "ops", "watchdog", "tracing", "dist", "quant", "tune"):
+              "ops", "watchdog", "tracing", "dist", "quant", "tune",
+              "costs", "concurrency", "hlolint"):
         assert k in snap, k
-    assert set(snap["not_ported"]) == {"costs", "hlolint", "concurrency",
-                                       "comp_cache", "ir"}
+    assert set(snap["not_ported"]) == {"comp_cache", "ir"}
     assert all(v.startswith("A.16") for v in snap["not_ported"].values())
     assert "device" not in snap
     assert observability.snapshot(device=True)["device"][

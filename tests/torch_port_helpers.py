@@ -280,3 +280,20 @@ def assert_resized_close(got, want, level=1.0, share=RESIZE_PARTED_SHARE,
         parted = parted.any(axis=-1)
     assert parted.mean() <= share, parted.mean()
     assert (diff <= level * 1.0001 + tol).all(), diff.max()
+
+
+@pytest.fixture
+def keep_block_names():
+    """Both packages' automatic block names (``hybridsequential0_``, ...)
+    counted on after the test as if it had made no block: a test that
+    builds blocks in one package only leaves the two counters as they
+    were, so a later test in the same process that compares the names
+    both packages give sees them in step."""
+    from mxnet_tpu.gluon import block as jblock
+    from mxnet_tpu_torch.gluon import block as tblock
+
+    saved = [(m, dict(getattr(m._naming, "counters", {})))
+             for m in (jblock, tblock)]
+    yield
+    for m, counters in saved:
+        m._naming.counters = counters

@@ -89,6 +89,17 @@ built:
   BERT ModelServer and a GPT-2 GenerativeServer, traces, the watchdog,
   the profiler's trace);
 - ``slice20``: the probe and the five above in one run (``run_slice20``);
+- ``fleet``: ``phase_fleet`` (two BERT-base workers from a serving
+  snapshot and a GPT-2 small worker on the card: a wave, ``kill -9``
+  mid-wave, scale-out, ``hot_swap`` and a refused push, ``retire`` with
+  prefix migration, the workers' cost sections);
+- ``costs``: ``phase_costs`` (BERT-base bucket programs' flops against the
+  analytic count, the flash op against SDPA, keys across two processes,
+  the planted missing formula, the GPT-2 step's programs);
+- ``validate``: ``phase_validate`` (``hybridize(validate=True)`` on
+  BERT-base, four planted blocks, the lock check over two servers and a
+  planted inversion);
+- ``slice21``: the three above in one run (``run_slice21``);
 - ``mp``: ``phase_model_parallel`` (the GPT-2 step inside
   ``sequence_parallel_scope`` at sp = 1, ring and Ulysses, against the
   plain step; the n = 4 ring replayed on the card against the
@@ -228,7 +239,11 @@ GROUPS = {"kernels": run_kernels, "spec": run_spec,
           "vision_loader": lambda cs, dev: cs.phase_vision_loader(
               dev, cs.ResNetTrainStep(dev)),
           "observability": lambda cs, dev: cs.phase_observability(dev),
-          "slice20": lambda cs, dev: cs.run_slice20(dev)}
+          "slice20": lambda cs, dev: cs.run_slice20(dev),
+          "fleet": lambda cs, dev: cs.phase_fleet(dev),
+          "costs": lambda cs, dev: cs.phase_costs(dev),
+          "validate": lambda cs, dev: cs.phase_validate(dev),
+          "slice21": lambda cs, dev: cs.run_slice21(dev)}
 # groups that need no kernel
 NO_BUILD = {"image_probe"}
 
