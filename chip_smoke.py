@@ -1583,6 +1583,7 @@ def phase_train_breakdown(step, n_prof=2, label="bert512 step"):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _settle_window()
         t0 = time.perf_counter()
         for _ in range(n_prof):
             step()
@@ -4396,6 +4397,18 @@ def phase_quant_timing(dev, records, quant):
                       tile=f32_tile(D))), flush=True)
 
 
+def _settle_window():
+    """Idle a fresh torch.profiler window for the port profiler's margin
+    (``profiler.EDGE_S``) before its work: kineto drops a kernel whose
+    start, read from the device's clock, falls before the session's, and
+    that reading can run several ms early."""
+    import torch
+    from mxnet_tpu_torch import profiler
+
+    torch.cuda.synchronize()
+    time.sleep(profiler.EDGE_S)
+
+
 def _profile(fn, n):
     """Kernel ms by class a call of ``fn`` over ``n`` calls under
     torch.profiler (also by finer kind), the profiled wall a call, the
@@ -4406,6 +4419,7 @@ def _profile(fn, n):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _settle_window()
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
@@ -6414,6 +6428,7 @@ def phase_resnet_breakdown(step, n_prof=2, label="resnet50 train step"):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _settle_window()
         t0 = time.perf_counter()
         for _ in range(n_prof):
             step()
@@ -10472,14 +10487,13 @@ def _tape_run(step, steps, compiled):
     return rows, grads
 
 
-def _compiled_gpt_step(dev):
-    """GPT-2 small's forward and loss through ``torch.compile(fullgraph=
-    True)`` (``COMPILE_BACKEND``) and its backward, against the same eager:
-    launches, loss, gradients, the compile's wall. Dropout 0: its masks
-    come from a ``torch.Generator``, which torch.compile does not
-    trace."""
+def _gpt_compile_setup(dev):
+    """GPT-2 small (bf16, dropout 0: its masks come from a
+    ``torch.Generator``, which torch.compile does not trace) seeded, its
+    loss function ``f(x, y)`` and the step's batch: what the compiled
+    step and ``phase_comp_cache``'s warm process both compile."""
     import torch
-    from mxnet_tpu_torch import amp, autograd, gluon
+    from mxnet_tpu_torch import amp, gluon
     from mxnet_tpu_torch.models.gpt import GPTModel
 
     model = GPTModel(dropout=0.0, **GPT_CONFIG)
@@ -10497,22 +10511,81 @@ def _compiled_gpt_step(dev):
     def f(x, y):
         return loss_fn(model(x), y)
 
-    out = {}
-    for name, fn in (("eager", f), ("compiled", torch.compile(
-            f, backend=COMPILE_BACKEND, fullgraph=True))):
-        for p in params:
-            p.zero_grad()
-        torch.cuda.synchronize()
-        reset_counters()
-        t0 = time.perf_counter()
-        with autograd.record():
-            loss = fn(inp, tgt)
-        autograd.backward(loss)
-        torch.cuda.synchronize()
-        out[name] = {"launches": read_counters(), "loss": loss.detach(),
-                     "grads": _grads_of(params),
-                     "first_call_s": time.perf_counter() - t0}
+    return model, params, f, inp, tgt
+
+
+def _gpt_compiled_run(fn, params, inp, tgt, after=None):
+    """One step of ``fn`` (forward under ``record()``, backward): launches,
+    loss, gradients and the wall of the first call with its backward;
+    ``after()`` runs after the backward, inside the timed window (an
+    AotFn's persist)."""
+    import torch
+    from mxnet_tpu_torch import autograd
+
+    for p in params:
+        p.zero_grad()
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    with autograd.record():
+        loss = fn(inp, tgt)
+    autograd.backward(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if after is not None:
+        after()
+    return {"launches": read_counters(), "loss": loss.detach(),
+            "grads": _grads_of(params), "first_call_s": wall}
+
+
+# the compile store phase_tape_replay's compiled step writes, which
+# phase_comp_cache's fresh process reads; removed by run_slice22
+_slice22_tmp = []
+
+
+def _slice22_dir():
+    """One scratch directory for slice 22's files (the compile store, the
+    tuned store, the BERT export), under the ignored build directory."""
+    import tempfile
+
+    from mxnet_tpu_torch.ops.cuda import _build
+
+    if not _slice22_tmp:
+        os.makedirs(_build.BUILD_DIR, exist_ok=True)
+        _slice22_tmp.append(tempfile.mkdtemp(prefix="slice22_",
+                                             dir=_build.BUILD_DIR))
+    return _slice22_tmp[0]
+
+
+def _compiled_gpt_step(dev):
+    """GPT-2 small's forward and loss through ``torch.compile(fullgraph=
+    True)`` (``COMPILE_BACKEND``), through ``cache.AotFn`` under a compile
+    store in slice 22's directory, and its backward, against the same
+    eager: launches, loss, gradients, the compile's wall. The store keeps
+    the program's Inductor artifacts (persisted after the backward, when
+    the backward has compiled), and the compiled step's loss, gradients
+    and launches go beside it for ``phase_comp_cache``."""
+    import torch
+    from mxnet_tpu_torch import cache, engine
+
+    model, params, f, inp, tgt = _gpt_compile_setup(dev)
+    store_dir = os.path.join(_slice22_dir(), "comp_cache")
+    store = cache.configure(store_dir)
+    aot0 = engine.aot_compile_counter.count
+    try:
+        fn = cache.AotFn(f, backend=COMPILE_BACKEND, hint="gpt2_small_step")
+        out = {"eager": _gpt_compiled_run(f, params, inp, tgt),
+               "compiled": _gpt_compiled_run(fn, params, inp, tgt,
+                                             after=fn.persist)}
+        scan = store.scan()
+    finally:
+        cache.disable()
     e, c = out["eager"], out["compiled"]
+    os.makedirs(store_dir, exist_ok=True)
+    torch.save({"loss": c["loss"].cpu(), "launches": c["launches"],
+                "grads": [g.cpu() for g in c["grads"]],
+                "first_call_s": c["first_call_s"]},
+               os.path.join(store_dir, "cold.pt"))
     reading = {"launches_eager": e["launches"],
                "launches_compiled": c["launches"],
                "loss_rel_err": float((c["loss"].mean() - e["loss"].mean())
@@ -10522,7 +10595,10 @@ def _compiled_gpt_step(dev):
                "worst_row_rel_l2": grad_row_rel_l2(params, c["grads"],
                                                    e["grads"])[0][0],
                "compile_and_first_step_s": c["first_call_s"],
-               "eager_first_step_s": e["first_call_s"]}
+               "eager_first_step_s": e["first_call_s"],
+               "aot_compiles": engine.aot_compile_counter.count - aot0,
+               "store": {"dir": store_dir, "entries": scan["entries"],
+                         "bytes": scan["bytes"]}}
     del model, out
     torch.cuda.empty_cache()
     return reading
@@ -10591,15 +10667,18 @@ def phase_tape_replay(dev):
               ["%.1f" % w for w in out["eager_host_wall_ms"]],
               out["launches"][0]), flush=True)
     print("torch.compile(fullgraph=True) GPT-2 small forward and backward "
-          "(dropout 0): launches %s (eager %s); loss relative %.3g, worst "
-          "gradient %.3g, worst row %.3g against eager; compile and first "
-          "step %.1f s (eager first step %.1f s); phase %.1f s; %s" % (
+          "(dropout 0) through cache.AotFn: launches %s (eager %s); loss "
+          "relative %.3g, worst gradient %.3g, worst row %.3g against "
+          "eager; compile and first step %.1f s (eager first step %.1f s); "
+          "%d AotFn compile, compile store %d entries, %d bytes; phase "
+          "%.1f s; %s" % (
               compiled["launches_compiled"], compiled["launches_eager"],
               compiled["loss_rel_err"], compiled["worst_grad_rel_l2"],
               compiled["worst_row_rel_l2"],
               compiled["compile_and_first_step_s"],
-              compiled["eager_first_step_s"], out["phase_seconds"],
-              out["card"]), flush=True)
+              compiled["eager_first_step_s"], compiled["aot_compiles"],
+              compiled["store"]["entries"], compiled["store"]["bytes"],
+              out["phase_seconds"], out["card"]), flush=True)
     check(first, "tape replay: the first loss is not the eager walk's")
     check(grads["within"], "tape replay: the first step's gradients "
           "outside GPT-2's limits: %s" % grads)
@@ -10626,6 +10705,12 @@ def phase_tape_replay(dev):
           and compiled["worst_row_rel_l2"] <= GPT_STEP_ROW_TOL,
           "torch.compile GPT-2 step's gradients against eager: %s"
           % compiled)
+    # Inductor's artifacts on the card (an aot_eager compile on the CPU
+    # generates no code to keep)
+    check(compiled["aot_compiles"] == 1 and (
+        dev.type != "cuda" or compiled["store"]["entries"] == 1),
+        "torch.compile GPT-2 step through AotFn: %d compiles, store %s"
+        % (compiled["aot_compiles"], compiled["store"]))
     return out
 
 
@@ -13386,6 +13471,722 @@ def run_slice21(dev):
     return out
 
 
+# slice 22: the graph IR, the tuner, the compile store (ROADMAP.md A.16)
+IR_SHAPE = (8192, 768)
+IR_STEADY_RUNS = 3
+
+
+def _mlp_math(nd_or_sym, x, w1, b1, w2, b2):
+    """The IR tests' MLP (x @ w1 + b1, relu, @ w2 + b2) with every
+    intermediate: the same ops in ``nd`` and as Symbols."""
+    a = nd_or_sym.matmul(x, w1)
+    b = nd_or_sym.add(a, b1)
+    c = nd_or_sym.relu(b)
+    d = nd_or_sym.matmul(c, w2)
+    e = nd_or_sym.add(d, b2)
+    return [a, b, c, d, e]
+
+
+def _ir_mlp(dev):
+    """The MLP at IR_SHAPE in bf16 through ``engine.bulk(32)`` and as a
+    ``Symbol.eval`` of the same math (builds, programs, cache entries),
+    both against the op-by-op chain (``bulk(0)``)."""
+    import torch
+    from mxnet_tpu_torch import base, engine, nd, sym
+    from mxnet_tpu_torch.context import context_from_device
+    from mxnet_tpu_torch.ir import lower
+
+    ctx = context_from_device(dev)
+    rng = np.random.default_rng(SEED + 221)
+    R, C = IR_SHAPE
+    shapes = {"x": (R, C), "w1": (C, C), "b1": (C,), "w2": (C, C),
+              "b2": (C,)}
+    vals = {n: nd.array((rng.normal(size=s) * (0.05 if n[0] == "w" else 1))
+                        .astype(np.float32), ctx=ctx).astype("bfloat16")
+            for n, s in shapes.items()}
+    order = ("x", "w1", "b1", "w2", "b2")
+    with engine.bulk(0):
+        ref = [o._data for o in _mlp_math(nd, *[vals[n] for n in order])]
+    torch.cuda.synchronize()
+    base._IR_CACHE.clear()
+    lower.reset_stats()
+    for c in (engine.bulk_compile_counter, engine.symbol_compile_counter):
+        c.reset()
+    with engine.bulk(32):
+        keep = _mlp_math(nd, *[vals[n] for n in order])
+        window = [o._data for o in keep]
+    group = sym.Group(_mlp_math(sym, *[sym.var(n) for n in order]))
+    got = [o._data for o in group.eval(**vals)]
+    torch.cuda.synchronize()
+    out = {"builds": {"bulk": engine.bulk_compile_counter.count,
+                      "symbol": engine.symbol_compile_counter.count},
+           "programs": lower.program_count(),
+           "ir_entries": len(base._IR_CACHE),
+           "window_bitwise_chain": all(torch.equal(a, b)
+                                       for a, b in zip(window, ref)),
+           "symbol_bitwise_window": all(torch.equal(a, b)
+                                        for a, b in zip(got, window))}
+
+    def steady():
+        with engine.bulk(32):  # every output alive, as in the built key
+            again = _mlp_math(nd, *[vals[n] for n in order])
+            again[-1].wait_to_read()
+        group.eval(**vals)
+
+    return out, steady
+
+
+def _bert_export(dev, name):
+    """BERT-base (bf16, seeded) exported at (SYMBOL_SERVE_BATCH, SEQ):
+    (prefix, model, the exported graph's op histogram)."""
+    import torch
+    from mxnet_tpu_torch import amp, checkpoint
+    from mxnet_tpu_torch.models.bert import bert_base
+
+    model = bert_base(dropout=0.1, max_length=SEQ)
+    model.initialize(device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(SEED))
+    amp.convert_hybrid_block(model, "bfloat16")
+    prefix = _export_dir(name)
+    B = SYMBOL_SERVE_BATCH
+    checkpoint.save_for_serving(prefix, model, input_names=SYMBOL_INPUTS,
+                                input_shapes=[(B, SEQ), (B, SEQ), (B,)])
+    return prefix, model
+
+
+def _symbolblock_graph(blk, dev):
+    """The typed IR graph a SymbolBlock's call at the bucket of
+    SYMBOL_SERVE_BATCH lowers (its skeleton at the live parameters' and
+    the inputs' signatures): what ``ir.tune.search`` takes."""
+    import torch
+    from mxnet_tpu_torch import ir
+    from mxnet_tpu_torch.gluon.block import param_value
+    from mxnet_tpu_torch.ir import graph as irgraph
+
+    B = SYMBOL_SERVE_BATCH
+    feed = {"data": torch.zeros((B, SEQ), dtype=torch.int32, device=dev),
+            "token_types": torch.zeros((B, SEQ), dtype=torch.int32,
+                                       device=dev),
+            "valid_length": torch.full((B,), SEQ, dtype=torch.int32,
+                                       device=dev)}
+    params = blk.collect_params()
+    sk = ir.symbol_skeleton(blk._heads())
+    vals = [feed[n] if n in feed else param_value(params[n]) for n in sk[1]]
+    sigs = [irgraph._sig_id(irgraph.tensor_sig(v)) for v in vals]
+    return ir.from_symbol(sk, sigs)
+
+
+def phase_ir(dev, prefix, model):
+    """The graph IR on the card: the MLP's bf16 math at IR_SHAPE through
+    the bulk window and as a Symbol.eval (one build, one program, the two
+    bit for bit each other and the op-by-op chain); BERT-base's export
+    served through ``ir.lower`` (a SymbolBlock runs the pass-optimized
+    graph inside the server's bucket capture: rows bit for bit the Gluon
+    server's, 25 LayerNorm and 12 flash launches a forward, one capture
+    at warmup and none in traffic, the per-pass deltas); the watchdog
+    armed over steady runs of all three (0 events); a planted cast_sink
+    that also collapses fp32 -> bf16 -> fp32 reads above ``ir.tune``'s
+    1e-6 parity gate."""
+    import torch
+    from mxnet_tpu_torch import observability, serve
+    from mxnet_tpu_torch.ir import graph as irgraph
+    from mxnet_tpu_torch.ir import lower, passes, tune
+    from mxnet_tpu_torch.serve import ModelServer
+
+    t_phase = time.perf_counter()
+    mlp, steady_mlp = _ir_mlp(dev)
+    B = SYMBOL_SERVE_BATCH
+    specs = [((SEQ,), "int32"), ((SEQ,), "int32"), ((), "int32")]
+    stats0 = passes.pass_stats()
+    builds0 = lower.stats()["builds"]["graph_builds"]
+    blk = serve.load(prefix, input_names=SYMBOL_INPUTS, ctx=dev)
+    srv = ModelServer(blk, specs, buckets=(B,), timeout_ms=120000.0,
+                      device=dev, name="ir-bert")
+    warm = srv.stats()
+    last = lower.stats()["builds"]["last_build"]
+    deltas = {k: {f: v[f] - stats0[k][f] for f in v}
+              for k, v in passes.pass_stats().items()}
+    ref_srv = ModelServer(model, specs, buckets=(B,), timeout_ms=120000.0,
+                          device=dev, name="ir-gluon-bert")
+    tok, tt, vl = _bert_requests()
+    _export_served_rows(ref_srv, tok[:B], tt[:B], vl[:B])  # warm
+    observability.watchdog.reset_events()
+    observability.arm_watchdog()
+    try:
+        reset_counters()
+        got = _export_served_rows(srv, tok, tt, vl)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        for _ in range(IR_STEADY_RUNS):
+            steady_mlp()
+        torch.cuda.synchronize()
+        events = observability.watchdog.snapshot()["events"]
+    finally:
+        observability.disarm_watchdog()
+    stats = srv.stats()
+    ref = _export_served_rows(ref_srv, tok, tt, vl)
+    equal = all(np.array_equal(a, b) for a, b in zip(got, ref))
+    forwards = len(tok) // B
+    for s_ in (srv, ref_srv):
+        s_.stop()
+    del srv, ref_srv, blk
+    # planted: cast_sink that also takes fp32 -> bf16 as lossless
+    rng = np.random.default_rng(SEED + 222)
+    xs = torch.from_numpy(rng.normal(size=IR_SHAPE).astype(np.float32)).to(
+        dev)
+    ws = torch.from_numpy(rng.normal(size=IR_SHAPE).astype(np.float32)).to(
+        dev)
+    from mxnet_tpu_torch.base import OP_REGISTRY
+
+    b_ = irgraph.GraphBuilder()
+    lx = b_.leaf("x", sig=irgraph.tensor_sig(xs))
+    lw = b_.leaf("w", sig=irgraph.tensor_sig(ws))
+    n1 = b_.add("cast", OP_REGISTRY["cast"], {"dtype": "bfloat16"},
+                irgraph.freeze_attrs({"dtype": "bfloat16"}), (lx,))
+    n2 = b_.add("cast", OP_REGISTRY["cast"], {"dtype": "float32"},
+                irgraph.freeze_attrs({"dtype": "float32"}), (n1,))
+    n3 = b_.add("multiply", OP_REGISTRY["multiply"], {}, (), (n2, lw))
+    g = b_.build((n3,))
+    honest = passes.optimize(g, device=dev)[0]
+    orig = passes._lossless_widen
+    passes._lossless_widen = lambda src, mid: True
+    try:
+        planted = passes.optimize(g, device=dev)[0]
+    finally:
+        passes._lossless_widen = orig
+    with torch.no_grad():
+        h_out = irgraph.build_runner(honest)([xs, ws])[0].cpu()
+        p_out = irgraph.build_runner(planted)([xs, ws])[0].cpu()
+    planted_err = float((h_out - p_out).abs().max())
+    planted_gate = tune._parity_ok([h_out], [p_out])
+    out = {"card": card_line(), "mlp": mlp, "serve": {
+        "warm": {k: warm[k] for k in ("captures", "replays", "drops")},
+        "stats": {k: stats[k] for k in ("captures", "replays", "drops")},
+        "launches": launches, "forwards": forwards,
+        "rows_equal_gluon_server": equal,
+        "ir_graph_builds": lower.stats()["builds"]["graph_builds"] - builds0,
+        "last_build": last, "pass_deltas": deltas},
+        "watchdog_events_steady": events,
+        "planted_cast_sink": {"nodes": [honest.n_nodes, planted.n_nodes],
+                              "max_abs_err": planted_err,
+                              "passes_gate": planted_gate},
+        "phase_seconds": time.perf_counter() - t_phase}
+    print("ir: the MLP at %s bf16 through the window and a Symbol.eval: "
+          "builds %s, %d program, %d IR entry; window bit for bit the "
+          "op-by-op chain %s, Symbol.eval bit for bit the window %s" % (
+              IR_SHAPE, mlp["builds"], mlp["programs"], mlp["ir_entries"],
+              mlp["window_bitwise_chain"], mlp["symbol_bitwise_window"]),
+          flush=True)
+    print("ir: BERT-base's export served through ir.lower: graph %s "
+          "nodes captured, %s after the passes (deltas %s); server %s at "
+          "warmup, %s after %d forwards; launches %s; rows equal the Gluon "
+          "server's %s; watchdog events in steady state %d; planted "
+          "cast_sink (fp32 -> bf16 -> fp32 collapsed): %s nodes, max |diff| "
+          "%.3g, passes the 1e-6 gate %s; %.1f s, %s" % (
+              last and last["nodes_captured"],
+              last and last["nodes_final"],
+              {k: v for k, v in deltas.items() if v["runs"]},
+              out["serve"]["warm"], out["serve"]["stats"], forwards,
+              launches, equal, events,
+              out["planted_cast_sink"]["nodes"], planted_err, planted_gate,
+              out["phase_seconds"], out["card"]), flush=True)
+    check(mlp["builds"]["bulk"] + mlp["builds"]["symbol"] == 1
+          and mlp["programs"] == 1 and mlp["ir_entries"] == 1,
+          "ir: the window and Symbol.eval built %s, %d programs, %d "
+          "entries (want 1 build, 1 program)" % (
+              mlp["builds"], mlp["programs"], mlp["ir_entries"]))
+    check(mlp["window_bitwise_chain"] and mlp["symbol_bitwise_window"],
+          "ir: the lowered MLP is not the op-by-op chain bit for bit")
+    check(out["serve"]["ir_graph_builds"] >= 1 and last is not None,
+          "ir: the SymbolBlock built no IR graph")
+    check(warm["captures"] == 1 and stats["captures"] == 1
+          and stats["drops"] == 0,
+          "ir: served export captures %s then %s" % (warm, stats))
+    check(launches["layernorm"] == 25 * forwards
+          and launches["flash_attention_fwd"] == 12 * forwards,
+          "ir: served export launches %s in %d forwards" % (launches,
+                                                            forwards))
+    check(equal, "ir: the IR-served export's rows differ from the Gluon "
+          "server's")
+    check(events == 0, "ir: %d watchdog events in steady state" % events)
+    check(planted_err > 1e-6 and not planted_gate,
+          "ir: the planted cast_sink passed the parity gate (%.3g)"
+          % planted_err)
+    return out
+
+
+def _flash_within(out, ref, q, k, v, scale, causal, vl=None):
+    """Is the fp32 form's ``out`` within FLASH_F32_TOL of its plain
+    version (held's limit, without its print)?"""
+    atol, rtol, mtol = FLASH_F32_TOL
+    mag = flash_magnitude(q, k, v, vl=vl, causal=causal, scale=scale)
+    lim = atol + rtol * ref.abs() + mtol * mag.abs()
+    return bool(((out - ref).abs() <= lim).all())
+
+
+TUNE_FLASH_SHAPES = ((1, 12, 256, 64, True, None),
+                     (1, 12, 512, 64, True, None),
+                     (1, 12, 1024, 64, True, None),
+                     (8, 12, 512, 64, False,
+                      [512, 400, 300, 200, 128, 64, 17, 1]))
+TUNE_PAIRS = 5
+
+
+def _child_start(args, env_extra):
+    """Start ``python chip_smoke.py ARGS`` in a fresh process with
+    ``env_extra``, its output into unnamed temporary files;
+    :func:`_child_result` waits for it."""
+    import tempfile
+
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__)] + args,
+        env=dict(os.environ, **env_extra), stdout=out, stderr=err, text=True)
+    child = {"proc": proc, "args": args, "out": out, "err": err,
+             "t0": time.perf_counter()}
+
+    def note_end():  # its wall, also while the caller is busy elsewhere
+        proc.wait()
+        child["t_end"] = time.perf_counter()
+
+    threading.Thread(target=note_end, daemon=True).start()
+    return child
+
+
+def _child_result(child, timeout):
+    """The started process's last stdout line as JSON, its wall from its
+    start to its exit and its stderr; killed if it outlives ``timeout``
+    seconds."""
+    proc = child["proc"]
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    wall = child.get("t_end", time.perf_counter()) - child["t0"]
+    texts = []
+    for f in (child["out"], child["err"]):
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    check(proc.returncode == 0, "child %s exited %d after %.1f s: %s" % (
+        child["args"], proc.returncode, wall, texts[1][-3000:]))
+    return json.loads(texts[0].strip().splitlines()[-1]), wall, texts[1]
+
+
+def _child_stop(child):
+    """Kill a started process that is still running (a phase beside it
+    failed) and close its files."""
+    if child["proc"].poll() is None:
+        child["proc"].kill()
+        child["proc"].wait()
+    for f in (child["out"], child["err"]):
+        f.close()
+
+
+def _child_json(args, env_extra, timeout):
+    """Run ``python chip_smoke.py ARGS`` in a fresh process with
+    ``env_extra``: its last stdout line as JSON, and its wall."""
+    return _child_result(_child_start(args, env_extra), timeout)
+
+
+def phase_tune(dev, prefix, fresh=True):
+    """ir.tune on the card: ``search`` over BERT-base's bucket-8 program
+    (candidates, pruned and timed counts, the winner against the default
+    in paired ms), the winner (or, when none beat the default, the
+    default's record) installed in a temporary store and reloaded by a
+    fresh process with no search and no watchdog event (``fresh=False``:
+    ``run_slice22`` starts that process with phase_comp_cache's, one
+    process for both, and holds it with :func:`check_tune_fresh`);
+    ``tune_bulk_watermark`` at BULK_SHAPE and BULK_SMALL_SHAPE (a reading
+    beside C.2's 0); ``tune_flash_blocks`` over the fp32 form at
+    TUNE_FLASH_SHAPES, each winner within FLASH_F32_TOL of the plain
+    version, beside the cost model's choice, and installed winners read by
+    ``flash_f32_splits``."""
+    import torch
+    from mxnet_tpu_torch import base, serve
+    from mxnet_tpu_torch.ir import graph as irgraph
+    from mxnet_tpu_torch.ir import tune
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    store_path = os.path.join(_slice22_dir(), "tuned.json")
+    prev_env = os.environ.get("MXNET_TUNE_STORE")
+    key = None
+    os.environ["MXNET_TUNE_STORE"] = store_path
+    tune.reset_store()
+    tune.reset_stats()
+    try:
+        blk = serve.load(prefix, input_names=SYMBOL_INPUTS, ctx=dev)
+        g = _symbolblock_graph(blk, dev)
+        del blk
+        t0 = time.perf_counter()
+        rep = tune.search(g, pairs=TUNE_PAIRS, top_k=3, device=dev,
+                          install_winner=False)
+        search_s = time.perf_counter() - t0
+        key = rep["key"]
+        win = rep["winner"]
+        cfg = win["config"] if win else {"passes": list(
+            tune._p.DEFAULT_PASSES)}
+        tune.install(rep["key"], cfg, objective=None if win is None else {
+            "delta_ms": win["delta_ms"], "pairs": TUNE_PAIRS},
+            tuned_by=tune.TUNED_BY + ".search" + (
+                "" if win else " (no candidate beat the default)"))
+        torch.cuda.empty_cache()
+        child, child_wall = None, None
+        if fresh:
+            got, child_wall, _ = _child_json(
+                ["--fresh-child", prefix, "-"],
+                {"MXNET_TUNE_STORE": store_path}, 600)
+            child = got["tune"]
+        bulk = {}
+        for shape in (BULK_SHAPE, BULK_SMALL_SHAPE):
+            bulk["x".join(map(str, shape))] = tune.tune_bulk_watermark(
+                shape=shape, device=dev, install_record=False)
+        if dev.type != "cuda":  # a CPU rehearsal: the kernel is card-only
+            return _tune_flash_off_card(rep, child, bulk, t_phase,
+                                        store_path)
+        flash = tune.tune_flash_blocks(
+            TUNE_FLASH_SHAPES, pairs=TUNE_PAIRS, apply=True, device=dev,
+            within=lambda o, r, q, k, v, sc, ca: _flash_within(
+                o, r, q, k, v, sc, ca,
+                None if q.shape[0] == 1 else torch.tensor(
+                    TUNE_FLASH_SHAPES[-1][5], dtype=torch.int32,
+                    device=dev)))
+        read_back = {}
+        for B, H, T, D, causal, _ in TUNE_FLASH_SHAPES:
+            read_back["%dx%dx%d" % (B * H, T, D) + ("c" if causal else "")] \
+                = list(fa.flash_f32_splits(B * H, T, T, causal,
+                                           fa._sms(dev), D,
+                                           tile=fa.f32_tile(D)))
+        winners = [w["split"] for w in flash["winners"].values()]
+    finally:
+        if prev_env is None:
+            os.environ.pop("MXNET_TUNE_STORE", None)
+        else:
+            os.environ["MXNET_TUNE_STORE"] = prev_env
+        tune.reset_store()
+        if key is not None:  # built on the installed record: drop it
+            base._IR_CACHE.pop(key, None)
+    out = {"card": card_line(), "search": {
+        "key": rep["key"][:16], "candidates": rep["candidates"],
+        "parity_rejects": rep["parity_rejects"], "pruned": rep["pruned"],
+        "timed": rep["timed"], "winner": win,
+        "baseline_cost": rep["baseline_cost"], "search_s": search_s},
+        "installed": cfg, "store": store_path, "bulk_watermark": bulk,
+        "flash": flash, "flash_read_back": read_back,
+        "phase_seconds": time.perf_counter() - t_phase}
+    print("tune: search over BERT-base's bucket-%d program: %d candidates, "
+          "%d parity rejects, %d pruned by the cost ledger, %d timed (%s); "
+          "winner %s; %.1f s; installed %s" % (
+              SYMBOL_SERVE_BATCH, rep["candidates"], rep["parity_rejects"],
+              rep["pruned"], len(rep["timed"]),
+              ["%s: %.4f vs %.4f ms" % (t["config_key"], t["tuned_step_ms"],
+                                        t["baseline_step_ms"])
+               for t in rep["timed"]],
+              None if win is None else win["config_key"], search_s, cfg),
+          flush=True)
+    print("tune: bulk watermark medians (ms) %s, winners %s (the default "
+          "stays 0, ROADMAP C.2)" % (
+              {k: v["medians_ms"] for k, v in bulk.items()},
+              {k: v["winner"] for k, v in bulk.items()}), flush=True)
+    print("tune: fp32 flash splits: %s; read back by flash_f32_splits %s; "
+          "%.1f s, %s" % (
+              {k: (v["split"], "%.4f ms" % v["ms"], "cost model %s"
+                   % v["cost_model_split"])
+               for k, v in flash["winners"].items()}, read_back,
+              out["phase_seconds"], out["card"]), flush=True)
+    check(rep["candidates"] == len(tune.candidate_configs())
+          and rep["parity_rejects"] == 0,
+          "tune: search candidates %d, parity rejects %d" % (
+              rep["candidates"], rep["parity_rejects"]))
+    if fresh:
+        check_tune_fresh(out, child, child_wall)
+    check(all(r["within_tol"] for r in flash["rows"]
+              if r["split"] in winners),
+          "tune: a flash winner outside FLASH_F32_TOL: %s" % flash["rows"])
+    check(sorted(read_back.values()) == sorted(winners),
+          "tune: flash_f32_splits read %s, installed %s" % (read_back,
+                                                            winners))
+    return out
+
+
+def check_tune_fresh(out, child, wall):
+    """phase_tune's fresh process, read: no search, the installed record
+    found and built on, no watchdog event, finite rows."""
+    out["fresh_process"], out["fresh_process_wall_s"] = child, wall
+    print("tune: a fresh process reloading the installed record: %s "
+          "(%.1f s)" % (child, wall), flush=True)
+    check(child["searches"] == 0 and child["store_hits"] >= 1
+          and child["tuned_builds"] >= 1 and child["watchdog_events"] == 0
+          and child["rows_finite"],
+          "tune: the fresh process %s" % child)
+
+
+def _tune_flash_off_card(rep, child, bulk, t_phase, store_path):
+    """phase_tune's reading off the card (a CPU rehearsal): the flash
+    search must refuse."""
+    from mxnet_tpu_torch.ir import tune
+
+    try:
+        tune.tune_flash_blocks()
+        refused = False
+    except RuntimeError:
+        refused = True
+    check(refused, "tune: tune_flash_blocks ran without a card")
+    out = {"search": {k: rep[k] for k in ("candidates", "parity_rejects",
+                                          "pruned")},
+           "store": store_path, "bulk_watermark": bulk,
+           "flash_refused_off_card": refused,
+           "phase_seconds": time.perf_counter() - t_phase}
+    if child is not None:
+        check_tune_fresh(out, child, 0.0)
+    return out
+
+
+def tune_child(prefix, dev=None):
+    """The fresh process's tune part: it loads the export, serves
+    two forwards of the bucket (the watchdog armed after the first) and
+    reports the tuner's and the IR's counts from its start: no search,
+    the installed record found."""
+    import torch
+    from mxnet_tpu_torch import observability, serve
+    from mxnet_tpu_torch.ir import lower, tune
+
+    dev = dev or torch.device("cuda", 0)
+    st0 = tune.stats()
+    tb0 = lower.stats()["builds"]["tuned_builds"]
+    ev0 = observability.watchdog.snapshot()["events"]
+    blk = serve.load(prefix, input_names=SYMBOL_INPUTS, ctx=dev)
+    B = SYMBOL_SERVE_BATCH
+    tok, tt, vl = _bert_requests()
+    args = [torch.from_numpy(a[:B]).to(dev) for a in (tok, tt, vl)]
+    blk(*args)
+    torch.cuda.synchronize()
+    observability.arm_watchdog()
+    out = blk(*args)
+    torch.cuda.synchronize()
+    events = observability.watchdog.snapshot()["events"] - ev0
+    observability.disarm_watchdog()
+    st = tune.stats()
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    return {"searches": st["searches"] - st0["searches"],
+            "store_hits": st["store_hits"] - st0["store_hits"],
+            "tuned_builds": lower.stats()["builds"]["tuned_builds"] - tb0,
+            "watchdog_events": events,
+            "rows_finite": all(bool(torch.isfinite(o.float()).all())
+                               for o in outs)}
+
+
+def fresh_child(prefix, store_dir, dev=None):
+    """``--fresh-child PREFIX STORE_DIR`` (``-`` for none): the fresh
+    process of phase_tune (:func:`tune_child`) and of phase_comp_cache
+    (:func:`comp_cache_child`), one process for whichever is given."""
+    import torch
+
+    dev = dev or torch.device("cuda", 0)
+    if dev.type == "cuda":
+        phase_build()
+    out = {}
+    if prefix != "-":
+        out["tune"] = tune_child(prefix, dev)
+    if store_dir != "-":
+        out["comp_cache"] = comp_cache_child(store_dir, dev)
+    return out
+
+
+REQUIRED_FEATURES = ("CUDA", "CUDNN", "NCCL", "TRITON", "NVCC", "CUTLASS",
+                     "CUDA_KERNELS", "HOPPER")
+
+
+def _fresh_child_args(cold, tune=None, prefix=None):
+    """The arguments and environment of phase_comp_cache's fresh process:
+    phase_tape_replay's store (``cold``), an empty Inductor cache, and,
+    given phase_tune's output and the export, its tuned store."""
+    import tempfile
+
+    inductor = tempfile.mkdtemp(prefix="inductor_", dir=_slice22_dir())
+    env = {"TORCHINDUCTOR_CACHE_DIR": inductor}
+    if tune is not None:
+        env["MXNET_TUNE_STORE"] = tune["store"]
+    return ["--fresh-child", prefix or "-", cold["store"]["dir"]], env
+
+
+def phase_comp_cache(dev, cold, tune=None, prefix=None, child=None):
+    """The compile store across processes: a fresh process with an empty
+    ``TORCHINDUCTOR_CACHE_DIR`` loads phase_tape_replay's store and
+    compiles the same GPT-2 small step through ``cache.AotFn`` (store
+    hits, Inductor FX-graph cache misses 0, the loss bit for bit the cold
+    process's, every gradient within GPT-2's limits of it: the flash
+    backward's dq adds in no fixed order, so no run's gradients are bit
+    for bit another's; the same launches); cold against warm compile
+    wall; then in that process the entry truncated and a new AotFn of the
+    step: one warning, one compile without the store (Dynamo's in-process
+    cache may serve its trace), the same loss. ``runtime.Features()`` and
+    ``libinfo.find_lib_path()``. Given phase_tune's output (``tune``) and
+    the export (``prefix``), the same process first reloads the tuned
+    record (:func:`check_tune_fresh`): one process start for both.
+    ``child``: that process, already started (:func:`_child_start`) by
+    ``run_slice22``, which then runs other phases while it works; the
+    phase's seconds then count from the wait for it."""
+    import mxnet_tpu_torch as mx
+
+    t_phase = time.perf_counter()
+    if child is None:
+        both, child_wall, _ = _child_json(
+            *_fresh_child_args(cold, tune, prefix), 900)
+    else:
+        both, child_wall, _ = _child_result(child, 900)
+    if tune is not None:
+        check_tune_fresh(tune, both["tune"], child_wall)
+    child = both["comp_cache"]
+    feats = mx.runtime.Features()
+    libs = mx.libinfo.find_lib_path()
+    out = {"card": card_line(), "fresh_process": child,
+           "fresh_process_wall_s": child_wall,
+           "cold_compile_and_first_step_s": cold["compile_and_first_step_s"],
+           "features": {k: f.enabled for k, f in feats.items()},
+           "lib_paths": libs,
+           "phase_seconds": time.perf_counter() - t_phase}
+    w, t = child["warm"], child["truncated"]
+    print("comp_cache: a fresh process (empty TORCHINDUCTOR_CACHE_DIR) "
+          "compiling the GPT-2 small step through the store: hits %d, "
+          "artifacts loaded %d, FX-graph cache hits %d misses %d, loss bit "
+          "for bit the cold process's %s, gradients %d of %d bit for bit, "
+          "worst %.3g, worst row %.3g; launches equal %s; compile and first "
+          "step %.1f s warm against %.1f s cold; truncated entry: %d "
+          "warning(s), %d compile, loss bit for bit %s; process %.1f s" % (
+              w["hits"], w["deserializes"], w["fxgraph_cache_hit"],
+              w["fxgraph_cache_miss"], w["loss_bitwise"], w["grads_bitwise"],
+              w["grads_total"], w["worst_grad_rel_l2"],
+              w["worst_row_rel_l2"], w["launches_equal"], w["first_call_s"],
+              cold["compile_and_first_step_s"], t["warnings"],
+              t["aot_compiles"], t["loss_bitwise"], child_wall), flush=True)
+    print("runtime.Features(): %s; libinfo.find_lib_path(): %s; %.1f s, %s"
+          % (feats, libs, out["phase_seconds"], out["card"]), flush=True)
+    check(w["hits"] >= 1 and w["deserializes"] >= 1
+          and w["fxgraph_cache_miss"] == 0,
+          "comp_cache: the warm process %s" % w)
+    check(w["loss_bitwise"] and w["launches_equal"]
+          and w["worst_grad_rel_l2"] <= GPT_STEP_GRAD_TOL
+          and w["worst_row_rel_l2"] <= GPT_STEP_ROW_TOL,
+          "comp_cache: the warm step against the cold one %s" % w)
+    check(t["warnings"] == 1 and t["aot_compiles"] == 1
+          and t["loss_bitwise"],
+          "comp_cache: the truncated entry %s" % t)
+    check(all(out["features"][k] for k in REQUIRED_FEATURES),
+          "comp_cache: features %s" % feats)
+    check(any(p.endswith(".so") and "_build" in p for p in libs),
+          "comp_cache: find_lib_path lists no built extension: %s" % libs)
+    return out
+
+
+def comp_cache_child(store_dir, dev=None):
+    """The fresh process's compile-store part: the warm process of
+    phase_comp_cache (its environment carries an empty
+    TORCHINDUCTOR_CACHE_DIR)."""
+    import warnings
+
+    import torch
+    from torch._dynamo.utils import counters
+    from mxnet_tpu_torch import cache, engine
+
+    dev = dev or torch.device("cuda", 0)
+    fx0 = dict(counters["inductor"])
+    cold = torch.load(os.path.join(store_dir, "cold.pt"))
+    model, params, f, inp, tgt = _gpt_compile_setup(dev)
+    cache.configure(store_dir)
+
+    def versus(run):
+        gs = [g.cpu() for g in run["grads"]]
+        return {"loss_bitwise": bool(torch.equal(run["loss"].cpu(),
+                                                 cold["loss"])),
+                "grads_bitwise": sum(bool(torch.equal(a, b))
+                                     for a, b in zip(gs, cold["grads"])),
+                "grads_total": len(gs),
+                "worst_grad_rel_l2": grad_rel_l2(params, gs,
+                                                 cold["grads"])[0][0],
+                "worst_row_rel_l2": grad_row_rel_l2(params, gs,
+                                                    cold["grads"])[0][0],
+                "launches_equal": run["launches"] == cold["launches"],
+                "first_call_s": run["first_call_s"]}
+
+    c0 = {k: engine.__dict__[k].count for k in (
+        "comp_cache_hit_counter", "comp_cache_deserialize_counter",
+        "aot_compile_counter")}
+    fn = cache.AotFn(f, backend=COMPILE_BACKEND, hint="gpt2_small_step")
+    warm = versus(_gpt_compiled_run(fn, params, inp, tgt))
+    warm.update({
+        "hits": engine.comp_cache_hit_counter.count
+        - c0["comp_cache_hit_counter"],
+        "deserializes": engine.comp_cache_deserialize_counter.count
+        - c0["comp_cache_deserialize_counter"],
+        "fxgraph_cache_hit": counters["inductor"]["fxgraph_cache_hit"]
+        - fx0.get("fxgraph_cache_hit", 0),
+        "fxgraph_cache_miss": counters["inductor"]["fxgraph_cache_miss"]
+        - fx0.get("fxgraph_cache_miss", 0)})
+    tier = os.path.join(store_dir, "aot")
+    entries = [os.path.join(tier, n) for n in os.listdir(tier)] \
+        if os.path.isdir(tier) else []
+    for p in entries:
+        with open(p, "rb") as fh:
+            data = fh.read()
+        with open(p, "wb") as fh:
+            fh.write(data[:len(data) // 2])
+    a0 = engine.aot_compile_counter.count
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fn2 = cache.AotFn(f, backend=COMPILE_BACKEND, hint="gpt2_small_step")
+        trunc = versus(_gpt_compiled_run(fn2, params, inp, tgt))
+    trunc.update({"warnings": sum("compile store" in str(w.message)
+                                  for w in caught),
+                  "aot_compiles": engine.aot_compile_counter.count - a0,
+                  "entries_truncated": len(entries)})
+    cache.disable()
+    return {"warm": warm, "truncated": trunc}
+
+
+def run_slice22(dev, cold, meanwhile=None):
+    """Slice 22's paths, each timed: the graph IR, the tuner, the compile
+    store (``cold``: phase_tape_replay's compiled step). Given
+    ``meanwhile``, phase_comp_cache's fresh process (mostly a compile on
+    the host) starts once the tuner has installed its record, and
+    ``meanwhile()`` runs while it works."""
+    out = {}
+    prefix = None
+    child = None
+    try:
+        t0 = time.perf_counter()
+        prefix, model = _bert_export(dev, "ir_bert")
+        export_s = time.perf_counter() - t0
+        out["ir"] = phase_ir(dev, prefix, model)
+        del model
+        out["tune"] = phase_tune(dev, prefix, fresh=False)
+        if meanwhile is not None:
+            child = _child_start(*_fresh_child_args(cold, out["tune"],
+                                                    prefix))
+            t0 = time.perf_counter()
+            meanwhile()
+            out["meanwhile_s"] = time.perf_counter() - t0
+        out["comp_cache"] = phase_comp_cache(dev, cold, out["tune"], prefix,
+                                             child=child)
+        out["export_s"] = export_s
+    finally:
+        if child is not None:
+            _child_stop(child)
+        if prefix is not None:
+            _drop_export(prefix)
+        for d in _slice22_tmp:
+            shutil.rmtree(d, ignore_errors=True)
+        del _slice22_tmp[:]
+    print("A.16 close phases: %s s (the export %.1f s; %.1f s of other "
+          "phases while the fresh process ran)" % (
+              {k: round(v["phase_seconds"], 1) for k, v in out.items()
+               if isinstance(v, dict)}, out.get("export_s", 0.0),
+              out.get("meanwhile_s", 0.0)), flush=True)
+    return out
+
+
 def card_line():
     """The card's name and power limit, as ``nvidia-smi --query-gpu=
     name,power.limit --format=csv,noheader`` gives them."""
@@ -13412,6 +14213,16 @@ def print_optimizer_summary(optim, gpt_train, card):
         for label, r in rows)), flush=True)
 
 
+_walls = {"mark": None, "s": {}}
+
+
+def mark(name):
+    """``main``'s wall since the previous mark, kept under ``name``."""
+    now = time.perf_counter()
+    _walls["s"][name] = round(now - _walls["mark"], 1)
+    _walls["mark"] = now
+
+
 def main():
     try:
         import torch
@@ -13430,13 +14241,18 @@ def main():
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if len(sys.argv) == 4 and sys.argv[1] == "--fresh-child":
+        print(json.dumps(fresh_child(sys.argv[2], sys.argv[3])))
+        return 0
     card = card_line()
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                      torch.cuda.get_device_name(0)),
           flush=True)
     t_start = time.perf_counter()
+    _walls["mark"] = t_start
     try:
         phase_build()
+        mark("build")
         ln_fwd, ln_bwd = phase_layernorm(dev)
         checks = {"layernorm": ln_fwd, "layernorm_bwd": ln_bwd,
                   "flash_attention_fwd": phase_flash(dev),
@@ -13456,14 +14272,17 @@ def main():
                      "softmax_xent_bwd": xent0["bwd"]["max_abs_err"],
                      "flash_attention_bwd": max(
                          bwd0[n]["max_abs_err"] for n in ("dq", "dk", "dv"))})
+        mark("kernels")
         model, serve_launches, forwards, serve_vl, serving, bert_srv = \
             phase_serve(dev)
         serve_graph = {"bf16": phase_serve_graph(dev, bert_srv,
                                                  "bf16 BERT server")}
         del bert_srv
+        mark("serve")
         step, train = phase_train(dev)
         bert128 = phase_bert128(dev)
         gpt_step, gpt_train = phase_gpt_train(dev)
+        mark("train")
         nd_phases = {}
         for name, phase in (("phase_nd_train", phase_nd_train),
                             ("phase_nd_ops", phase_nd_ops),
@@ -13474,19 +14293,24 @@ def main():
         print("nd phases: %s s" % {k: round(v["phase_seconds"], 1)
                                    for k, v in nd_phases.items()},
               flush=True)
+        mark("nd")
         optim = {"one_step": phase_optimizers(dev)}
         optim_steps, optim["gpt2_steps"] = phase_gpt_train_optimizers(dev)
+        mark("optimizers")
         gen_srv, gen_model, gen = phase_generate(dev)
         check_generate_launches(gen)
         gen["single_requests"] = phase_generate_launches(dev, gen_srv)
         gen_srv.stop()
         del gen_srv
         bad_ids = phase_bad_ids(dev, gen_model)
+        mark("generate")
         graphs = phase_graph(dev)
+        mark("decode_graphs")
         spec, plains = phase_speculative(dev)
         chunked = phase_chunked_prefill(dev, plains)
         del plains
         print_spec_summary(spec, chunked, card)
+        mark("speculative_chunked")
         lowbit = phase_lowbit(dev)
         quant_model, quant = phase_generate_quant(dev)
         quant["products"] = lowbit
@@ -13494,7 +14318,9 @@ def main():
         serve_graph["int8"] = phase_serve_graph(dev, qsrv, "int8 BERT server",
                                                 "int8")
         del qsrv
+        mark("quantized")
         snapshots = phase_snapshot(dev)
+        mark("snapshot")
         vision_s = {}
         t0 = time.perf_counter()
         resnet_step, resnet = phase_resnet_train(dev)
@@ -13509,14 +14335,18 @@ def main():
         print("vision phases: %s, %.1f s together" % (
             {k: round(v, 1) for k, v in vision_s.items()},
             sum(vision_s.values())), flush=True)
+        mark("vision")
         a11_steps, a11 = run_a11(dev)
+        mark("a11")
         t0 = time.perf_counter()
         converted = phase_convert(dev)
         converted["phase_seconds"] = time.perf_counter() - t0
         dist_train = phase_dist_train(dev)
+        mark("convert_dist")
         model_parallel = phase_model_parallel(dev)
         tp_compute = phase_tp_compute(dev)
         hybridize = phase_hybridize(dev)
+        mark("mp_tp_hybridize")
         symbolic = {}
         for name, phase in (("library_ops", phase_library_ops),
                             ("bulk", phase_bulk),
@@ -13529,7 +14359,9 @@ def main():
         print("A.13/A.14 phases: %s s" % {
             k: round(v["phase_seconds"], 1) for k, v in symbolic.items()},
             flush=True)
+        mark("symbolic")
         slice19 = run_slice19(dev)
+        mark("slice19")
         records, crossover = phase_timing(
             dev, train["launches"], train["steps_counted"], errs,
             serve_launches, forwards, serve_vl)
@@ -13541,6 +14373,7 @@ def main():
         phase_gpt_train_timing(dev, records, gpt_train)
         phase_resnet_timing(dev, records, resnet)
         phase_a11_timing(dev, records, a11["lstm_train"], a11["nmt_train"])
+        mark("timing")
         # the profiler windows come last: once a profiler session has run,
         # an eager step's host wall may not return to what it was before
         breakdown = phase_breakdown(dev, model)
@@ -13573,13 +14406,21 @@ def main():
         train["step_wall_ms_median_after_profiler"] = wall
         print("bert512 step after the profiler sessions: median wall %.3f ms"
               % wall, flush=True)
+        mark("breakdowns")
         # after the timings too: phase_observability runs a profiler
         # session
         slice20 = run_slice20(dev)
-        slice21 = run_slice21(dev)
+        mark("slice20")
+        # slice 21's phases run while slice 22's fresh process compiles
+        slice21 = {}
+        slice22 = run_slice22(
+            dev, symbolic["tape_replay"]["torch_compile_step"],
+            meanwhile=lambda: slice21.update(run_slice21(dev)))
+        mark("slice21_22")
     except SmokeFailure as e:
         print("chip_smoke FAILED: %s" % e, file=sys.stderr)
         return 1
+    print("phase walls: %s s" % _walls["s"])
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"checks": checks, "serving": serving,
                       "breakdown": breakdown, "train_bert512": train,
@@ -13594,11 +14435,12 @@ def main():
                       "symbolic": symbolic, "module_and_data": slice19,
                       "image_and_observability": slice20,
                       "fleet_costs_validate": slice21,
+                      "ir_tune_comp_cache": slice22,
                       "decode_step_graphs": graphs, "quantized": quant,
                       "speculative": spec, "chunked_prefill": chunked,
                       "attention_dense_vs_flash": crossover,
                       "attention_fwd_bwd_dense_vs_flash": train_crossover,
-                      "card": card}))
+                      "phase_walls_s": _walls["s"], "card": card}))
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -1015,6 +1015,8 @@ def instrument_locks():
     that cannot arm must not look like a clean run."""
     from .. import profiler as _prof
     from .. import serve as _serve
+    from ..ir import lower as _irlower
+    from ..ir import tune as _tune
     from ..observability import costs as _costs
     from ..observability import registry as _registry
     from ..observability import watchdog as _watchdog
@@ -1023,6 +1025,9 @@ def instrument_locks():
     n += _wrap_module_lock(_prof, "_lock", "profiler._lock")
     n += _wrap_module_lock(_watchdog, "_lock", "watchdog._lock")
     n += _wrap_module_lock(_costs, "_lock", "costs._lock")
+    n += _wrap_module_lock(_irlower, "_lock", "ir.lower._lock")
+    n += _wrap_module_lock(_irlower, "_run_lock", "ir.lower._run_lock")
+    n += _wrap_module_lock(_tune, "_lock", "ir.tune._lock")
     n += _wrap_attr_lock(_registry, "_lock", "MetricsRegistry._lock")
     for srv in list(_serve._SERVERS):
         n += instrument_server(srv)

@@ -32,6 +32,10 @@ a backward in which torch captured a new graph or compiled one (a
 recompile after a guard failure too) counts in
 ``engine.tape_compile_counter``, one that ran a built program in
 ``engine.tape_cache_hit_counter``, both read from torch's own counters.
+The compiler hook turns each new backward graph into the typed IR
+(``ir.graph.from_fx``): its canonical key files the program in the shared
+IR cache (``ir.lower.tape_program``) and names it in the counter's note
+and its cost profile. No pass runs on it.
 On the CPU the backward runs eagerly, keyed by the graph's structure (each
 node's kind and wiring, the variables' and heads' shapes and dtypes): a
 new key counts as a build, a known one as a hit; :func:`set_tape_compile`
@@ -252,9 +256,19 @@ def _compiled_autograd():
 
 def _compiler(backend):
     def compile_graph(gm):
+        # the backward graph's canonical IR key (ir.graph.from_fx; no pass
+        # runs on it: it calls hooks and Python functions the passes cannot
+        # see through) files the program in the shared IR cache and names
+        # it in the build counter's note and the cost profile
+        from .ir import graph as _irg
+        from .ir import lower as _irl
+
+        _, ent = _irl.prepare(_irg.from_fx(gm), passes=False)
+        _st.tape_ir_key = ent.key
         # no fullgraph: torch 2.11's compiled-autograd graph holds a piece
         # Dynamo does not trace, which it runs as it is
-        return torch.compile(gm, backend=backend)
+        return _irl.tape_program(
+            ent, backend, lambda: torch.compile(gm, backend=backend))
 
     return compile_graph
 
@@ -392,23 +406,24 @@ def _accumulate(heads, seeds, entries, retain_graph, route="eager"):
         backend = TAPE_BACKEND if any(h.is_cuda for h in heads) \
             else _CPU_BACKEND
         before = _torch_builds()
+        counted = engine.tape_compile_counter.count
         with _compiled_autograd()._enable(_compiler(backend), dynamic=False), \
                 _backward_scope(heads):
             torch.autograd.backward(heads, seeds, retain_graph=retain_graph,
                                     inputs=[t for _, t in entries])
-        if _torch_builds() != before:
+        if _torch_builds() == before:
+            engine.tape_cache_hit_counter.count += 1
+        elif engine.tape_compile_counter.count == counted:
+            # torch built again under a graph the hook had already filed
+            # (a recompile after a guard failure): one build, its key
             from .observability import costs
 
-            engine.tape_compile_counter.bump(note="tape[compiled]")
+            key = getattr(_st, "tape_ir_key", None) or "recompile"
+            engine.tape_compile_counter.bump(note="tape:%s" % key[:16])
             costs.note_uncounted(
-                "tape_compile", "tape[compiled]",
-                _tape_key(heads, entries),
-                "built by torch.compile from the backward it runs, which "
-                "that run consumes: there is no eager first run to count, "
-                "and a FlopCounterMode over a compiled callable sees none "
-                "of its ops")
-        else:
-            engine.tape_cache_hit_counter.count += 1
+                "tape_compile", "tape[recompile]", key,
+                "rebuilt by torch.compile inside the program it runs, which "
+                "that run consumes: there is no eager first run to count")
     elif heads:
         from .observability import costs
 

@@ -11,6 +11,8 @@ carries on silently on the CPU.
 """
 from __future__ import annotations
 
+import os
+import threading
 from typing import Callable, Dict
 
 import torch
@@ -117,3 +119,45 @@ def register_op(name=None, needs_training=False, nondiff=False):
         return fn
 
     return deco
+
+
+def env_cap(name, default):
+    """An integer cache cap from the environment (graphlint GL006's
+    knobs), ``default`` when unset or not an integer."""
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+class BoundedCache(dict):
+    """A capped dict for module-level program and metadata caches (a copy
+    of the JAX package's): insertion-order eviction on insert only, so a
+    hit stays a plain dict read. Entries are pure caches: evicting one
+    costs a rebuild, never correctness. ``evictions`` counts the drops
+    (``observability.snapshot()`` shows them). Inserts take a lock, so two
+    threads cannot evict twice or overfill."""
+
+    __slots__ = ("cap", "evictions", "_lk")
+
+    def __init__(self, cap):
+        super().__init__()
+        self.cap = max(int(cap), 1)
+        self.evictions = 0
+        self._lk = threading.Lock()
+
+    def __setitem__(self, key, value):
+        with self._lk:
+            self._insert_locked(key, value)
+
+    def _insert_locked(self, key, value):
+        if key not in self and len(self) >= self.cap:
+            del self[next(iter(self))]
+            self.evictions += 1
+        dict.__setitem__(self, key, value)
+
+
+# the one canonical program cache (``ir.lower``): canonical graph key ->
+# IREntry, the optimized graph and every program lowered from it. The bulk window's, Symbol.eval's, the Executor's inference and the
+# tape's keys all land here; MXNET_IR_CACHE_CAP bounds it
+_IR_CACHE: Dict = BoundedCache(env_cap("MXNET_IR_CACHE_CAP", 2048))

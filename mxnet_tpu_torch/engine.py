@@ -16,9 +16,10 @@ responsibilities remain, as in the JAX package:
   one; the window
   flushes as ONE program at a sync point (``asnumpy``/``wait_to_read``, a
   scalar read, mutation, ``autograd.record`` entry, a non-fusible
-  consumer, the watermark, ``waitall``). ``ndarray.py`` owns the node type
-  and the flush; this module owns the window, the size knob and the
-  counters. ``set_bulk_size(0)`` / ``bulk(0)`` restore per-op dispatch.
+  consumer, the watermark, ``waitall``): its graph lowered through
+  ``ir.lower``, shared with any capture of the same math. ``ndarray.py``
+  owns the node type and the flush; this module owns the window, the size
+  knob and the counters. ``set_bulk_size(0)`` / ``bulk(0)`` restore per-op dispatch.
 
 The counters are the JAX module's, with the same meanings where the port
 has the thing they count: ``dispatch`` (an eager op, or a flushed window,
@@ -31,9 +32,10 @@ module's serving and decode compile counters: ``serve_capture`` (a served
 bucket's graph), ``decode_capture`` (a decode step program) and
 ``hybrid_capture`` (a hybridized block's key). Each build bumps its
 counter with the key of what it built (``bump(note=...)``), which the
-retrace watchdog names. The compile-cache and ``dist`` counters count
-programs the port keeps elsewhere: the gradient buckets in
-``dist.bucketer``'s counters.
+retrace watchdog names. ``aot_compile`` counts ``cache.AotFn``'s compiles
+and the ``comp_cache_*`` counters the compile store's lookups
+(``cache/``). The ``dist`` counters count programs the port keeps
+elsewhere: the gradient buckets in ``dist.bucketer``'s counters.
 """
 from __future__ import annotations
 
@@ -96,6 +98,13 @@ cond_rerun_counter = DispatchCounter("cond_rerun")
 serve_capture_counter = DispatchCounter("serve_capture")
 decode_capture_counter = DispatchCounter("decode_capture")
 hybrid_capture_counter = DispatchCounter("hybrid_capture")
+# the compile store (cache/): a cache.AotFn compile (one bump a program,
+# watched by the retrace watchdog) and the store's lookups: an entry found
+# and loaded, an entry missing or rejected, Inductor artifacts loaded
+aot_compile_counter = DispatchCounter("aot_compile")
+comp_cache_hit_counter = DispatchCounter("comp_cache_hit")
+comp_cache_miss_counter = DispatchCounter("comp_cache_miss")
+comp_cache_deserialize_counter = DispatchCounter("comp_cache_deserialize")
 
 # off by default, where upstream's and the JAX package's window holds 15
 # ops (ROADMAP.md C.2): on the card a window's program measured slower than
@@ -121,8 +130,9 @@ class _BulkWindow:
     nodes:     the deferred nodes in creation (so topological) order
     leaves:    the program's inputs: tensors captured at invocation (a later
                rebind of an input array does not reach them) and scalars
-    leaf_sigs: a hashable signature per leaf (shape, dtype, strides,
-               device; or the scalar's type)
+    leaf_sigs: a hashable signature per leaf: its interned (dtype, shape,
+               strides) id and its device, or the scalar type's id
+               (``ir.graph``)
     leaf_ids:  id(tensor) or (type, value) -> leaf index
     versions:  each tensor leaf's version counter at invocation (a leaf
                written in place before the flush raises)

@@ -548,8 +548,9 @@ class SymbolBlock(HybridBlock):
     graph's input variables are the call's arguments, every other free
     variable a parameter of the same name.
 
-    A call with tensors (or NDArrays) evaluates the graph, reading the
-    parameters as ``param_value`` does (so a serving override and a
+    A call with tensors (or NDArrays) evaluates the graph (a deterministic
+    one in its pass-optimized IR form, ``ir.lower.runner_for``), reading
+    the parameters as ``param_value`` does (so a serving override and a
     ``ModelServer`` work as for any block); the block is hybridized at
     construction, so on a CUDA device its calls replay one CUDA graph a
     key (``gluon/hybrid.py``): the cached eval pool. A call with Symbols
@@ -614,7 +615,7 @@ class SymbolBlock(HybridBlock):
         return super().forward(*args)
 
     def _eager_forward(self, *args):
-        from ..symbol import _eval_symbols
+        from ..symbol import _eval_symbols, _ir_call
 
         feed = {s.name: a for s, a in zip(self._inputs, args)}
         params = self.collect_params()
@@ -625,7 +626,12 @@ class SymbolBlock(HybridBlock):
                                    "input nor a loaded parameter" % name)
                 feed[name] = param_value(params[name])
         with torch.set_grad_enabled(autograd.is_recording()):
-            outs = _eval_symbols(self._heads(), feed)
+            # a deterministic graph runs its pass-optimized IR form (exact
+            # passes: the walk's bits), inside the caller's capture
+            outs = _ir_call(self, self._heads(), feed, "symbolblock",
+                            runner=True)
+            if outs is None:
+                outs = _eval_symbols(self._heads(), feed)
         return outs[0] if len(outs) == 1 else tuple(outs)
 
     def hybrid_forward(self, F, *args, **kwargs):

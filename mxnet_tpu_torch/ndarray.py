@@ -28,14 +28,16 @@ of the current thread's window, whose shape and dtype come from the op run
 on ``meta`` tensors (so ``shape``/``dtype`` do not flush). The window runs
 as one program at a sync point: reading the value (``_data``, and so
 ``asnumpy``, a scalar read, a non-fusible consumer), mutation, entering
-``autograd.record()``, the watermark, ``waitall``. The program is cached by
-the chain's structure and its leaves' signatures; a python scalar is a
-leaf, not part of the key, so a changed scalar builds nothing. On a CUDA
-device a window of two or more nodes is one CUDA graph (``capture.py``):
-its leaves are copied into the graph's inputs, the graph replays the
-chain's kernels as one launch, and its outputs are copied out; a scalar is
-a 0-d tensor there. On the CPU the same window runs its nodes eagerly, with
-the same keys and counts. A node holds the tensors its inputs had when it
+``autograd.record()``, the watermark, ``waitall``. A window of two or
+more nodes converts into the typed IR (``ir.graph.from_window``) and
+lowers through ``ir.lower``: one program a canonical graph, shared with a
+``Symbol.eval`` of the same math, behind a front memo keyed by the
+chain's structure and its leaves' signatures; a python scalar is a leaf,
+not part of the key, so a changed scalar builds nothing. On a CUDA device
+the program is one CUDA graph (``capture.py``): its leaves are copied into
+the graph's inputs, the graph replays the chain's kernels as one launch,
+and its outputs are copied out; a scalar is a 0-d tensor there. On the CPU
+the program runs its nodes eagerly, with the same keys and counts. A node holds the tensors its inputs had when it
 was issued, so rebinding an input array later does not reach it; a tensor
 written in place before the flush raises there.
 
@@ -52,8 +54,10 @@ import torch
 from . import autograd
 from . import engine as _engine
 from . import profiler as _profiler
-from .base import OP_REGISTRY, register_op, resolve_device, resolve_dtype
+from .base import (OP_REGISTRY, BoundedCache, env_cap, register_op,
+                   resolve_device, resolve_dtype)
 from .context import Context, context_from_device, current_context
+from .ir import graph as _irgraph
 from .ops.functional import basic_index
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
@@ -591,34 +595,20 @@ _FIRST_OPERAND_DTYPE = frozenset((
 _SCALARS = (bool, int, float)
 _STATIC = (type(None), bool, int, float, str, tuple, list, torch.dtype,
            np.dtype, type)
-# (op, static attrs, input signatures) -> the output's meta tensor, or None
-# when the op does not run on meta tensors (it then runs eagerly)
-_META = {}
-_META_CAP = 4096
-# window programs by key, least recently used first
-_PROGRAMS = {}
-PROGRAM_CAP = 64
+# the window's key -> (program, argument selection) from ir.lower: the key
+# is built as the ops defer, so a steady flush is a hash and a lookup in
+# this front memo over the canonical cache
+_FRONT = BoundedCache(env_cap("MXNET_BULK_CACHE_CAP", 1024))
 
 
 class _Node:
     """One deferred op: its function, static attrs and wiring (``specs``:
     ``i >= 0`` is node i's result, ``~li`` leaf li), its output's meta
-    tensor, and a weak reference to its output array."""
+    tensor and interned signature (``ir.graph``), and a weak reference to
+    its output array."""
 
-    __slots__ = ("op", "fn", "kwargs", "specs", "meta", "device", "ref",
-                 "idx")
-
-
-def _freeze(v):
-    if isinstance(v, (list, tuple)):
-        return (type(v).__name__,) + tuple(_freeze(x) for x in v)
-    if isinstance(v, (torch.dtype, np.dtype, type)):
-        return ("dtype", str(v))
-    return (type(v).__name__, v)
-
-
-def _tensor_sig(t):
-    return (tuple(t.shape), t.dtype, tuple(t.stride()))
+    __slots__ = ("op", "fn", "kwargs", "specs", "meta", "sig", "device",
+                 "ref", "idx")
 
 
 def _defer(opname, fn, args, kwargs):
@@ -654,46 +644,36 @@ def _defer(opname, fn, args, kwargs):
             opname in _FIRST_OPERAND_DTYPE and not isinstance(args[0],
                                                               NDArray)):
         return None
-    skey = tuple(sorted((k, _freeze(v)) for k, v in kwargs.items()))
-    metas, msigs = [], []
+    skey = _irgraph.freeze_attrs(kwargs)
+    sids = []
     for a in plan:
         if isinstance(a, NDArray):
-            m = a._lazy.meta if a._lazy is not None else a._buf
-            metas.append(m if a._lazy is not None else torch.empty_strided(
-                m.shape, m.stride(), dtype=m.dtype, device="meta"))
-            msigs.append(_tensor_sig(m))
+            sid = a._lazy.sig if a._lazy is not None else \
+                _irgraph._sig_id(_irgraph.tensor_sig(a._buf))
         else:
-            metas.append(a)
-            msigs.append(type(a))
-    mkey = (opname, skey, tuple(msigs))
-    meta = _META.get(mkey, _META)
-    if meta is _META:
-        try:
-            with torch.no_grad():
-                meta = fn(*metas, **kwargs)
-            if not isinstance(meta, torch.Tensor):
-                meta = None
-        except Exception:  # the op does not run on meta: run it eagerly
-            meta = None
-        if len(_META) >= _META_CAP:
-            _META.clear()
-        _META[mkey] = meta
-    if meta is None:
+            sid = _irgraph._sig_id(type(a))
+        if sid is None:
+            return None  # the signature interner is at its cap
+        sids.append(sid)
+    # the output on meta inputs (ir.graph's shared aval cache); None when
+    # the op does not run on meta tensors to one tensor: it runs eagerly
+    entry = _irgraph.infer_aval_cached(opname, skey, kwargs, sids, fn)
+    if entry is None:
         return None
     w.device = device
     specs = []
-    for a in plan:
+    for a, sid in zip(plan, sids):
         if isinstance(a, NDArray) and a._lazy is not None:
             specs.append(a._lazy.idx)
             continue
         if isinstance(a, NDArray):
             t = a._buf
             lkey = id(t)
-            sig = _tensor_sig(t) + (str(t.device),)
+            sig = (sid, str(t.device))
         else:
             t = a
             lkey = (type(a), a)
-            sig = type(a)
+            sig = sid
         li = w.leaf_ids.get(lkey)
         if li is None:
             li = w.leaf_ids[lkey] = len(w.leaves)
@@ -704,7 +684,8 @@ def _defer(opname, fn, args, kwargs):
         specs.append(~li)
     node = _Node()
     node.op, node.fn, node.kwargs = opname, fn, dict(kwargs)
-    node.specs, node.meta, node.device = tuple(specs), meta, device
+    node.meta, node.sig = entry
+    node.specs, node.device = tuple(specs), device
     node.idx = len(w.nodes)
     out = NDArray.__new__(NDArray)
     out._buf = None
@@ -731,46 +712,27 @@ def _run_chain(structure, leaves, want):
     return [vals[i] for i in want]
 
 
-_pools = {}
+def _lowered(nodes, key, leaves, device):
+    """The front memo's (program, argument selection) for a window key,
+    lowered through ``ir.lower`` on a miss (or when the canonical cache
+    dropped the program's entry: a tuned config installed since)."""
+    from .ir import lower as _irlower
 
-
-class _WindowProgram:
-    """A chain captured as one CUDA graph over static leaves (a python
-    scalar is a 0-d tensor there, which the registry ops treat as they
-    treat the scalar). Every window program of a device shares one memory
-    pool: a replay's outputs are copied out before any other replays."""
-
-    def __init__(self, structure, leaves, want, device, meter=None):
-        from .capture import capture_graph
-
-        self.static = []
-        with torch.no_grad():
-            for leaf in leaves:
-                if isinstance(leaf, torch.Tensor):
-                    s = torch.empty_like(leaf)
-                    s.copy_(leaf)
-                else:
-                    s = torch.tensor(leaf, device=device)
-                self.static.append(s)
-        if device.index not in _pools:
-            _pools[device.index] = torch.cuda.graph_pool_handle()
-        self.graph = capture_graph(
-            lambda: _run_chain(structure, self.static, want), device,
-            _pools[device.index], meter=meter)
-
-    def __call__(self, leaves):
-        with torch.no_grad():
-            for s, leaf in zip(self.static, leaves):
-                if isinstance(leaf, torch.Tensor):
-                    s.copy_(leaf)
-                else:
-                    s.fill_(leaf)
-            return [o.clone() for o in self.graph.replay()]
+    got = _FRONT.get(key)
+    if got is not None and _irlower.live(got[0]):
+        return got
+    g = _irgraph.from_window(nodes, key[0], key[1], key[2])
+    got = _FRONT[key] = _irlower.lower_forward(
+        g, "bulk", leaves, hint="bulk[%s]" % ",".join(n.op for n in nodes),
+        device=device)
+    return got
 
 
 def _flush_window():
     """Run the current thread's window as one program and bind the results
-    to the output arrays still alive (engine module docstring)."""
+    to the output arrays still alive (engine module docstring). The
+    program is the window's graph lowered through ``ir.lower``: a CUDA
+    graph on the card shared with any capture of the same math."""
     w = _engine._window()
     nodes = w.nodes
     if not nodes:
@@ -799,33 +761,13 @@ def _flush_window():
     if len(nodes) == 1:  # an op and then a sync: the op itself
         results = _run_chain(structure, leaves, want)
     else:
-        prog = _PROGRAMS.pop(key, None)
-        first = None
-        if prog is None:
-            from .observability import costs
-
-            note = "bulk[%s]" % ",".join(n.op for n in nodes)
-            _engine.bulk_compile_counter.bump(note=note)
-            first = costs.meter("bulk_compile", note, device)
-            prog = _WindowProgram(structure, leaves, want, device, first) \
-                if device.type == "cuda" else structure
-            if len(_PROGRAMS) >= PROGRAM_CAP:
-                _PROGRAMS.pop(next(iter(_PROGRAMS)))
-        _PROGRAMS[key] = prog
-
-        def run():
-            if device.type == "cuda":
-                return prog(leaves)
-            if first is None:
-                return _run_chain(structure, leaves, want)
-            return costs.run_counted(
-                first, lambda: _run_chain(structure, leaves, want))
-
+        prog, sel = _lowered(nodes, key, leaves, device)
+        args = [leaves[i] for i in sel]
         if _profiler.is_running():
             with _profiler.bulk_scope([n.op for n in nodes]):
-                results = run()
+                results = prog(args)
         else:
-            results = run()
+            results = prog(args)
     for (_, arr), val in zip(outs, results):
         arr._buf = val
         arr._lazy = None

@@ -3,8 +3,10 @@
 
 One registry reads the signals the port already keeps — the engine
 counters (dispatch, the bulk, tape and symbol builds, the capture
-counters), the servers' ``stats()``, the program caches, the profiler's
-record buffer — and exports them two ways from one ``snapshot()``:
+counters), the servers' ``stats()``, the program caches, the graph IR
+(``ir``: the canonical cache, the passes), the compile store
+(``comp_cache``), the tuner (``tune``), the profiler's record buffer —
+and exports them two ways from one ``snapshot()``:
 
 * ``observability.snapshot()`` — stable JSON, the JAX package's key layout
   for the sections the port has;
@@ -20,8 +22,9 @@ bytes and peak memory on its first run, and ``analysis.hlolint`` lints the
 op records it keeps; ``analysis.concurrency`` reports the runtime lock
 order. ``device_section()`` reads ``torch.cuda.memory_stats``.
 
-The sections the port lacks are named in ``NOT_PORTED`` with their
-``ROADMAP.md`` item, and ``snapshot()`` lists them under ``not_ported``.
+``NOT_PORTED`` names the JAX package's sections the port lacks, with
+their ``ROADMAP.md`` item (none now); ``snapshot()`` lists them under
+``not_ported``.
 """
 from __future__ import annotations
 
@@ -42,11 +45,8 @@ __all__ = ["registry", "snapshot", "prometheus", "MetricsRegistry",
            "note_compile", "NOT_PORTED"]
 
 # the JAX package's sections the port does not have: section -> the
-# ROADMAP.md item that brings it
-NOT_PORTED = {
-    "comp_cache": "A.16 (cache/aot.py and store.py: the compile cache)",
-    "ir": "A.16 (ir/: the graph IR)",
-}
+# ROADMAP.md item that brings it (none left)
+NOT_PORTED = {}
 
 # the process-wide registry
 registry = MetricsRegistry()
@@ -98,19 +98,45 @@ def _collect_engine():
         "serve_capture": engine.serve_capture_counter.count,
         "decode_capture": engine.decode_capture_counter.count,
         "hybrid_capture": engine.hybrid_capture_counter.count,
+        "aot_compile": engine.aot_compile_counter.count,
+        "comp_cache_hit": engine.comp_cache_hit_counter.count,
+        "comp_cache_miss": engine.comp_cache_miss_counter.count,
+        "comp_cache_deserialize": engine.comp_cache_deserialize_counter.count,
     }
 
 
 def _collect_caches():
-    from .. import autograd, ndarray
+    from .. import autograd, base, ndarray
+    from ..ir import graph as irgraph
 
     return {
-        "bulk": {"entries": len(ndarray._PROGRAMS),
-                 "cap": ndarray.PROGRAM_CAP},
+        "bulk": {"entries": len(ndarray._FRONT), "cap": ndarray._FRONT.cap,
+                 "evictions": ndarray._FRONT.evictions},
         "tape": {"entries": len(autograd._TAPE_KEYS),
                  "cap": autograd._TAPE_KEY_CAP,
                  "compile_enabled": autograd.tape_compile_enabled()},
+        "ir": {"entries": len(base._IR_CACHE), "cap": base._IR_CACHE.cap,
+               "evictions": base._IR_CACHE.evictions},
+        "aval": {"entries": len(irgraph._AVAL_CACHE),
+                 "cap": irgraph._AVAL_CACHE.cap,
+                 "evictions": irgraph._AVAL_CACHE.evictions},
+        "sig_intern": {"entries": len(irgraph._SIG_IDS),
+                       "cap": irgraph._SIG_INTERN_CAP},
     }
+
+
+def _collect_ir():
+    # the graph IR: the canonical cache, the interner, the build tallies
+    # and the per-pass deltas (tools/torch_diagnose.py's "Graph IR")
+    from ..ir import lower as irlower
+
+    return irlower.stats()
+
+
+def _collect_comp_cache():
+    from .. import cache
+
+    return cache.stats()
 
 
 def _collect_serve():
@@ -153,10 +179,9 @@ def _collect_quant():
 
 
 def _collect_tune():
-    t = sys.modules.get("mxnet_tpu_torch.ir.tune")
-    if t is None or not hasattr(t, "stats"):
-        return {"subsystem": "not loaded"}
-    return t.stats()
+    from ..ir import tune
+
+    return tune.stats()
 
 
 registry.register_collector("engine", _collect_engine)
@@ -167,6 +192,8 @@ registry.register_collector("serve", _collect_serve)
 registry.register_collector("profiler", _collect_profiler)
 registry.register_collector("ops", _collect_ops)
 registry.register_collector("tune", _collect_tune)
+registry.register_collector("ir", _collect_ir)
+registry.register_collector("comp_cache", _collect_comp_cache)
 registry.register_collector("watchdog", watchdog.snapshot)
 registry.register_collector("costs", costs.snapshot_section)
 

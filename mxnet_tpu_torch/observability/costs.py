@@ -37,8 +37,9 @@ or chunk step), ``bulk_compile`` (a bulk window), ``tape_compile`` (a tape
 backward: counted on the CPU's eager route; the compiled route's backward
 is consumed by the run that compiles it, so its profile says it was not
 counted and why), ``symbol_compile`` (an ``Executor`` program),
-``hybrid_capture`` (a hybridized block's forward) and ``step_program``
-(the optimizer's fused step). The data-parallel buckets are eager
+``hybrid_capture`` (a hybridized block's forward), ``step_program``
+(the optimizer's fused step) and ``aot_compile`` (a ``cache.AotFn``
+compile: Inductor's, uncounted, with its reason). The data-parallel buckets are eager
 collectives in the port, built into no program, so they have none.
 
 Surfaced as ``observability.snapshot()["costs"]`` and, in the Prometheus
@@ -73,7 +74,7 @@ _records = {}           # (tier, key) -> the op record (hlolint's input)
 _dropped = 0            # profiles evicted past the cap
 
 TIERS = ("serve_capture", "decode_capture", "bulk_compile", "tape_compile",
-         "symbol_compile", "hybrid_capture", "step_program")
+         "symbol_compile", "hybrid_capture", "step_program", "aot_compile")
 
 _FIELDS = ("flops", "bytes", "peak_bytes")
 
@@ -137,13 +138,16 @@ class _Recorder(torch.utils._python_dispatch.TorchDispatchMode):
         self.ops = []
         self._ids = {}      # id(tensor) -> (weakref, value id)
         self._args = 0
+        self._made = 0      # values produced (a freed tensor's id is reused:
+        #                     the count of ids would issue a value id twice)
 
     def _vid(self, t, produced):
         ent = self._ids.get(id(t))
         if ent is not None and ent[0]() is t:
             return ent[1]
         if produced:
-            vid = "%%%d" % len(self._ids)
+            vid = "%%%d" % self._made
+            self._made += 1
         else:
             vid = "arg%d" % self._args
             self._args += 1
@@ -341,6 +345,32 @@ def run_counted(m, fn):
     return out
 
 
+def measure(fn, device):
+    """``(fn(), {"flops", "bytes", "peak_bytes"})``: one run counted as
+    :func:`counting` counts a program's first run, recorded nowhere (the
+    tuner's candidate probes, which are no program of the process);
+    ``peak_bytes`` is the run's high-water mark above its start."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    if not _formulas[0]:
+        register_kernel_flops()
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+        start = torch.cuda.memory_allocated(device)
+    rec = _Recorder()
+    with FlopCounterMode(display=False) as fc:
+        with rec:
+            out = fn()
+    # the run's own high-water mark above what was allocated at its start
+    # (the absolute mark moves with whatever earlier runs left cached)
+    peak = int(torch.cuda.max_memory_allocated(device)) - start if cuda \
+        else None
+    return out, {"flops": int(fc.get_total_flops()),
+                 "bytes": record_bytes(rec.ops), "peak_bytes": peak}
+
+
 def _histogram(ops):
     hist = {}
     for o in ops:
@@ -371,14 +401,15 @@ def _put(tier, hint, ops, flops, peak):
         return prof
 
 
-def note_uncounted(tier, hint, what, reason):
-    """Record a program that could not be counted: its key is over
-    ``what`` (the build site's own key), its columns are None and
+def note_uncounted(tier, hint, what, reason, key=None):
+    """Record a program that could not be counted: its key is ``key``, or
+    one over ``what`` (the build site's own key), its columns are None and
     ``reason`` says why."""
     global _dropped
     if not _enabled:
         return None
-    key = hashlib.sha256(repr(what).encode("utf-8")).hexdigest()[:16]
+    if key is None:
+        key = hashlib.sha256(repr(what).encode("utf-8")).hexdigest()[:16]
     with _lock:
         prof = _profiles.get((tier, key))
         if prof is not None:

@@ -6,9 +6,9 @@ are CUDA graphs and compiled backwards, so it watches their counters
 (``engine``): ``serve_capture`` (a served bucket's graph), ``decode_capture``
 (a decode, verify or chunk step program), ``bulk_compile`` (a bulk window
 program), ``tape_compile`` (a compiled backward built), ``symbol_compile``
-(an ``Executor`` program captured) and ``hybrid_capture`` (a hybridized
-block's key captured). After warmup (``arm()``), every bump logs ONE
-structured warning naming the key the build site passed
+(an ``Executor`` program captured), ``hybrid_capture`` (a hybridized
+block's key captured) and ``aot_compile`` (a ``cache.AotFn`` compile).
+After warmup (``arm()``), every bump logs ONE structured warning naming the key the build site passed
 (``bump(note=...)``, e.g. ``serve[serve:bertmodel bucket=8]``), through the
 stdlib ``logging`` module (logger ``mxnet_tpu_torch.observability.
 watchdog``), and goes into a bounded ``events`` ring that the registry
@@ -59,7 +59,8 @@ def _compile_counters():
 
     return (engine.serve_capture_counter, engine.decode_capture_counter,
             engine.bulk_compile_counter, engine.tape_compile_counter,
-            engine.symbol_compile_counter, engine.hybrid_capture_counter)
+            engine.symbol_compile_counter, engine.hybrid_capture_counter,
+            engine.aot_compile_counter)
 
 
 def arm():

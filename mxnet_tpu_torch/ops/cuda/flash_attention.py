@@ -240,8 +240,15 @@ def flash_f32_splits(batch_heads, tq, tk, causal, sms, head_dim=64,
     kernel computes a causal diagonal tile whole, so a key tile is the
     unit of pairs. Every example counts all ``tk`` keys: the valid
     lengths are on the card. ``tile`` (query rows, keys, CTAs an SM)
-    defaults to ``F32_TILES[head_dim]``."""
+    defaults to ``F32_TILES[head_dim]``. A split ``ir.tune.
+    tune_flash_blocks`` installed for this shape is taken before the cost
+    model."""
     tile = tuple(tile or F32_TILES[head_dim])
+    from ...ir import tune
+
+    tuned = tune.flash_split(batch_heads, tq, tk, causal, head_dim, tile)
+    if tuned is not None:
+        return tuned
     return _f32_splits(batch_heads, tq, tk, bool(causal), sms, tile)
 
 
@@ -348,6 +355,25 @@ def _flash_fwd_f32(q, k, v, causal=False, scale=None, kv_valid_len=None,
 
 
 flash_attention_f32.launches = 0
+
+
+def flash_attention_f32_split(q, k, v, split, scale, causal,
+                              kv_valid_len=None):
+    """The fp32 form at a given ``(splits, chunk)`` (``ir.tune``'s
+    candidates; the wrapper takes :func:`flash_f32_splits`'). Card only;
+    counted in ``flash_attention_f32.launches``."""
+    _check(q, k, v, kv_valid_len, torch.float32)
+    B, H, Tq, D = q.shape
+    splits, chunk = (int(x) for x in split)
+    out = torch.empty_like(q)
+    work = torch.empty(splits * B * H * Tq * (D + 2), dtype=torch.float32,
+                       device=q.device) if splits > 1 else None
+    _build.extension().flash_fwd_f32(
+        q, k, v, _valid_len(kv_valid_len), out, None, work, H, float(scale),
+        bool(causal), splits, chunk,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    flash_attention_f32.launches += 1
+    return out
 
 
 def _check_bwd(q, k, v, do, lse, delta, kv_valid_len):

@@ -37,6 +37,7 @@ _records = []          # {"name", "ts_us", "dur_ms", "cat", "ph", ...}
 _lock = threading.Lock()
 _epoch = time.perf_counter()
 _session = None        # the torch.profiler session while running
+EDGE_S = 0.05          # the idle margin at each end of a device session
 _t_session = 0.0       # when it started (perf_counter)
 
 try:
@@ -78,6 +79,17 @@ def is_running():
     return _running
 
 
+def _settle():
+    """Let the device drain, then wait ``EDGE_S``. kineto keeps a kernel
+    only if its timestamp, read from the device's clock into the host's,
+    falls inside the session, and that reading can be off by more than the
+    time between ``start()`` and the first launch: the session opens and
+    closes this far from the work it holds."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        time.sleep(EDGE_S)
+
+
 def start(profile_process="worker"):
     """Start recording: host scopes, and a ``torch.profiler`` session for
     the device's kernels."""
@@ -90,6 +102,7 @@ def start(profile_process="worker"):
     _session = torch.profiler.profile(activities=acts)
     _session.__enter__()
     _t_session = time.perf_counter()
+    _settle()
     _running = True
 
 
@@ -100,8 +113,7 @@ def stop(profile_process="worker"):
         return
     _running = False
     session, _session = _session, None
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+    _settle()
     session.__exit__(None, None, None)
     base = (_t_session - _epoch) * 1e6
     cuda = torch.autograd.DeviceType.CUDA

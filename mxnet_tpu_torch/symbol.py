@@ -41,6 +41,13 @@ names from the registry and attrs written as Python reprs (``"'float32'"``,
 ``"True"``, ``"(2, 16, 3, 2, 16)"``) and read back with
 ``ast.literal_eval``, so a file either package writes loads in the other.
 
+``Symbol.eval`` and the :class:`Executor`'s inference forward
+(``is_train=False``, no cond) of a deterministic graph lower through
+``mxnet_tpu_torch.ir``: one program a canonical graph, shared with any
+other capture of the same math (the bulk window's), counted in
+``engine.symbol_compile_counter`` only when it is built. Every other
+forward takes the paths below.
+
 :class:`Executor` is the JAX package's "two programs plus the VJP". On a
 CUDA device each (``is_train``, input signature) is captured
 (``capture.py``) as a forward CUDA graph and, when some argument takes a
@@ -265,7 +272,9 @@ class Symbol:
             feed[n] = v._data if isinstance(v, NDArray) else \
                 torch.as_tensor(np.asarray(v))
         with torch.no_grad():
-            out = _eval_symbols(_heads(self), feed)
+            out = _ir_call(self, _heads(self), feed, "symbol.eval")
+            if out is None:
+                out = _eval_symbols(_heads(self), feed)
         return [NDArray(o) for o in out]
 
     def infer_shape(self, **kwargs):
@@ -555,6 +564,76 @@ def _eval_symbols(outputs, feed):
             o = _eval(s, feed, cache, shared)
             outs.extend(o if isinstance(o, list) else [o])
     return outs
+
+
+# ----------------------------------------------------------- the graph IR
+#
+# A deterministic graph (no node that draws, no control flow, single-output
+# ops) converts into mxnet_tpu_torch.ir's typed canonical form and lowers
+# through its shared cache: Symbol.eval and the Executor's inference
+# forward run the lowered program (shared with any capture of the same
+# math), SymbolBlock runs the optimized graph inside its caller's capture.
+# A graph the IR cannot represent keeps the walk above; the probe's answer
+# is kept on the holder, so it costs once.
+
+
+def _ir_skeleton_of(holder, roots):
+    """The IR skeleton of ``roots``, memoized on ``holder`` (False: not
+    representable)."""
+    sk = holder.__dict__.get("_ir_skel")
+    if sk is None:
+        from . import ir
+
+        try:
+            sk = ir.symbol_skeleton(roots)
+        except ir.UnsupportedGraph:
+            sk = False
+        holder.__dict__["_ir_skel"] = sk
+    return sk
+
+
+def _ir_call(holder, roots, values, hint, runner=False):
+    """The outputs of ``roots`` for ``values`` ({variable name: tensor})
+    through the IR, or None when the graph (or these signatures) cannot
+    lower. ``runner=False`` runs the lowered program (a build counts in
+    ``engine.symbol_compile_counter``); ``runner=True`` the optimized
+    graph op by op, under the caller's grad mode and capture."""
+    from .base import BoundedCache
+    from .ir import graph as _irg
+    from .ir import lower as _irl
+
+    sk = _ir_skeleton_of(holder, roots)
+    if sk is False:
+        return None
+    vals = []
+    for n in sk[1]:
+        v = values[n]
+        if not isinstance(v, torch.Tensor):
+            return None
+        vals.append(v)
+    sigids = tuple(_irg._sig_id(_irg.tensor_sig(v)) for v in vals)
+    if None in sigids:
+        return None  # the interner is at its cap: the walk still works
+    device = next((v.device for v in vals), None)
+    memo = holder.__dict__.get("_ir_execs")
+    if memo is None:
+        memo = holder.__dict__["_ir_execs"] = BoundedCache(32)
+    mk = (sigids, str(device), runner)
+    got = memo.get(mk)
+    if got is None or (got is not False and not runner
+                       and not _irl.live(got[0])):
+        try:
+            g = _irg.from_symbol(sk, sigids)
+        except _irg.UnsupportedGraph:
+            memo[mk] = False
+            return None
+        got = memo[mk] = _irl.runner_for(g, device) if runner else \
+            _irl.lower_forward(g, "symbol", vals, hint=hint, device=device)
+    if got is False:
+        return None
+    fn, sel = got
+    args = [vals[i] for i in sel]
+    return list(fn(args))
 
 
 # ----------------------------------------------------------- control flow
@@ -1100,6 +1179,11 @@ class Executor:
         diff = self._diff_names() if is_train else []
         mode = self._mode(is_train)
         conds = self._top_conds(mode)
+        if not is_train and not conds:
+            outs = self._ir_forward(mode, vals)
+            if outs is not None:
+                self.outputs = [NDArray(o) for o in outs]
+                return self.outputs
         guess_key = (bool(is_train), tuple(diff), _signature(vals))
         decisions = self._guesses.get(guess_key) or {id(c): True
                                                      for c in conds}
@@ -1121,6 +1205,22 @@ class Executor:
             self._last = (state, prog.generation, diff)
         self.outputs = [NDArray(o) for o in outs]
         return self.outputs
+
+    def _ir_forward(self, s, vals):
+        """The inference forward through the IR's lowered program (one
+        program a canonical graph, shared with ``Symbol.eval`` and the bulk
+        window), or None when the graph does not lower."""
+        with torch.no_grad():
+            outs = _ir_call(s, _heads(s), dict(zip(self._names, vals)),
+                            "executor")
+        if outs is None:
+            return None
+        key = ("ir", _signature(vals))
+        if key not in self._seen:
+            self._seen.add(key)
+            self.stats["forward_captures"] += 1
+        self.stats["forward_replays"] += 1
+        return outs
 
     def _top_conds(self, s):
         """The graph's top-level cond nodes (a cond in a loop body is not

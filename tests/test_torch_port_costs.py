@@ -248,8 +248,9 @@ def test_ledgers_snapshot_and_prometheus():
     assert trow["optimizer_state_bytes"] == 2 * 4 * n  # Adam's m and v
     snap = observability.snapshot()
     assert snap["costs"]["enabled"] and snap["costs"]["profiles"]
-    assert set(snap["not_ported"]) == {"comp_cache", "ir"}
-    assert {"costs", "concurrency", "hlolint"} <= set(snap)
+    assert snap["not_ported"] == {}
+    assert {"costs", "concurrency", "hlolint", "ir", "comp_cache"} <= \
+        set(snap)
     text = observability.prometheus()
     key = next(iter(snap["costs"]["profiles"]))
     assert 'program="%s"' % key in text

@@ -66,6 +66,11 @@ def test_package_imports_with_jax_blocked():
             "mxnet_tpu_torch.serve, mxnet_tpu_torch.ops.cuda._build, "
             "mxnet_tpu_torch.cache.snapshot, mxnet_tpu_torch.optimizer, "
             "mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.ir.tune, "
+            "mxnet_tpu_torch.ir, mxnet_tpu_torch.ir.graph, "
+            "mxnet_tpu_torch.ir.passes, mxnet_tpu_torch.ir.lower, "
+            "mxnet_tpu_torch.cache, mxnet_tpu_torch.cache.store, "
+            "mxnet_tpu_torch.cache.aot, mxnet_tpu_torch.runtime, "
+            "mxnet_tpu_torch.libinfo, mxnet_tpu_torch.kvstore_server, "
             "mxnet_tpu_torch.parallel.data_parallel, "
             "mxnet_tpu_torch.gluon.nn.conv_layers, "
             "mxnet_tpu_torch.gluon.model_zoo.vision, "

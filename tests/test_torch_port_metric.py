@@ -9,7 +9,7 @@ import pytest
 
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import metric as tmetric
-from torch_port_helpers import jax_trace_state  # noqa: F401
+from torch_port_helpers import jax_trace_state, same_block_names  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("jax_trace_state")
 
@@ -216,6 +216,7 @@ def _copy_weights(jnet, tnet):
         tv.set_data(torch.from_numpy(np.asarray(jv.data()._data)))
 
 
+@pytest.mark.usefixtures("same_block_names")
 @pytest.mark.parametrize("hybridize", [False, True])
 def test_monitor_entries_match(hybridize):
     from mxnet_tpu import nd as jnd

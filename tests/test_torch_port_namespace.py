@@ -19,8 +19,6 @@ import mxnet_tpu_torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MISSING = {
-    # A.16's rest: tooling
-    "runtime": "A.16", "libinfo": "A.16", "kvstore_server": "A.16",
     # A.17: the rest
     "contrib": "A.17", "numpy_api": "A.17", "np": "A.17",
     "npx": "A.17", "np_array": "A.17", "np_shape": "A.17",
@@ -43,8 +41,8 @@ MISSING_IN = {
                  "mark_grad_private": JAX_INTERNAL,
                  "mark_grad_shared": JAX_INTERNAL},
     "base": {n: JAX_INTERNAL for n in (
-        "BoundedCache", "OpDef", "bulk_jitted", "check_call", "env_cap",
-        "is_tpu_backend", "jitted", "tape_jitted")},
+        "OpDef", "bulk_jitted", "check_call", "is_tpu_backend", "jitted",
+        "tape_jitted")},
     "analysis.hlolint": dict(
         {n: "not applicable, because the port has no StableHLO text: it "
             "lints the op records observability.costs keeps (lint_record, "
@@ -60,15 +58,11 @@ MISSING_IN = {
            "first run at the capture seam (costs.counting), not from an "
            "XLA executable parked for later analysis"
         for n in ("materialize", "record_compiled", "tracked")},
-    "cache": {n: "A.16" for n in (
-        "AotFn", "CompCacheStore", "active_store", "configure", "disable",
-        "enabled", "persistent_backed", "stats", "traceable")},
     "context": {"tpu": "not applicable, because the port's accelerator is "
                        "mx.gpu", "num_tpus": "not applicable, because the "
                        "port's accelerator is mx.gpu"},
     "engine": {n: JAX_INTERNAL for n in (
-        "comp_cache_deserialize_counter", "comp_cache_hit_counter",
-        "comp_cache_miss_counter", "decode_compile_counter",
+        "decode_compile_counter",
         "dist_bucket_counter", "dist_compile_counter",
         "serve_compile_counter", "verify_dispatch_counter")},
     "gluon.block": {"builtins_sum": "not applicable, because it is a "
@@ -77,23 +71,14 @@ MISSING_IN = {
         "Concurrent", "HybridConcurrent", "Identity", "PixelShuffle1D",
         "PixelShuffle2D", "PixelShuffle3D", "SparseEmbedding")},
     "io": {"LibSVMIter": "A.17"},
-    "ir": {n: "A.16" for n in (
-        "DEFAULT_PASSES", "Graph", "GraphBuilder", "Node", "PassManager",
-        "UnsupportedGraph", "build_runner", "canonical_key", "canonicalize",
-        "from_symbol", "from_window", "lower_forward", "pass_stats",
-        "prepare", "stats", "symbol_skeleton", "tape_program")},
-    "ir.tune": {n: "A.16" for n in (
-        "TUNED_BY", "TunedStore", "candidate_configs", "config_key",
-        "example_leaves", "flash_block_candidates", "get_store", "install",
-        "lookup", "paired_step_ms", "pass_manager_for", "rank_candidates",
-        "reset_stats", "reset_store", "search", "stats", "store_path",
-        "tune_buckets", "tune_bulk_watermark", "tune_flash_blocks")},
     "linalg": {n: JAX_INTERNAL for n in (
         "k_gelqf", "k_gemm2", "k_potri", "k_syrk", "k_trmm", "k_trsm")},
     "nd.contrib": {"CONTRIB_OPS": "A.17"},
     "sym_contrib": {"CONTRIB_OPS": "A.17"},
     "ndarray": {"LazyExpr": "not applicable, because the port's bulk "
-                            "window keeps its own record of deferred ops"},
+                            "window keeps its own record of deferred ops, "
+                            "which it converts into the IR at its flush "
+                            "(ir.graph.from_window)"},
     "observability.watchdog": {
         "compile_context": "not applicable, because each port build site "
                            "names its key in the counter's bump(note=)",

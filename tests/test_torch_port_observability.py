@@ -190,10 +190,17 @@ def test_snapshot_sections_and_op_telemetry():
     snap = observability.snapshot()
     for k in ("schema", "metrics", "engine", "caches", "serve", "profiler",
               "ops", "watchdog", "tracing", "dist", "quant", "tune",
-              "costs", "concurrency", "hlolint"):
+              "costs", "concurrency", "hlolint", "ir", "comp_cache"):
         assert k in snap, k
-    assert set(snap["not_ported"]) == {"comp_cache", "ir"}
-    assert all(v.startswith("A.16") for v in snap["not_ported"].values())
+    assert snap["not_ported"] == {}
+    for k in ("cache", "interner", "builds", "passes"):
+        assert k in snap["ir"], k
+    assert set(snap["ir"]["passes"]) == {"cse", "fold", "cast_sink", "dce",
+                                         "quant"}
+    assert snap["comp_cache"]["enabled"] is False
+    assert "store" in snap["tune"] and "searches" in snap["tune"]
+    for k in ("ir", "aval", "sig_intern"):
+        assert k in snap["caches"], k
     assert "device" not in snap
     assert observability.snapshot(device=True)["device"][
         "hbm_bytes_in_use"] is None  # no card here

@@ -151,3 +151,26 @@ def test_a_flushed_bulk_window_is_a_bulk_scope(both):
         tp._running = False
     names = [r["name"] for r in tp._records]
     assert any(n.startswith("bulk[") for n in names), names
+
+
+def test_a_device_session_idles_its_margin_at_each_end(both, monkeypatch):
+    """With a card, ``start()`` and ``stop()`` each drain the device and
+    then wait ``EDGE_S`` inside the session (kineto drops a kernel whose
+    start, read from the device's clock, falls before the session's), and
+    the session's time zero is taken before that wait."""
+    calls = []
+    monkeypatch.setattr(tp.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tp.torch.cuda, "synchronize",
+                        lambda *a: calls.append("sync"))
+    monkeypatch.setattr(tp.time, "sleep", lambda s: calls.append(s))
+    tp._settle()
+    assert calls == ["sync", tp.EDGE_S] and tp.EDGE_S > 0
+    settles = []
+    monkeypatch.setattr(tp, "_settle", lambda: settles.append(
+        (tp._session is not None, tp._running)))
+    monkeypatch.setattr(tp.torch.cuda, "is_available", lambda: False)
+    tp.start()
+    tp.stop()
+    # at start once the session is open and before recording begins; at
+    # stop once recording has ended
+    assert settles == [(True, False), (False, False)]

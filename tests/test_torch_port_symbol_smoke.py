@@ -30,6 +30,7 @@ def small(monkeypatch, tmp_path):
     monkeypatch.setattr(cs, "BULK_TIMED", 2)
     monkeypatch.setattr(cs, "COMPILE_BACKEND", "aot_eager")
     monkeypatch.setattr(cs, "_export_dir", lambda name: str(tmp_path / name))
+    monkeypatch.setattr(cs, "_slice22_dir", lambda: str(tmp_path))
     monkeypatch.setattr(bert, "bert_base", lambda dropout=0.1, max_length=512:
                         bert.BERTModel(vocab_size=cs.VOCAB, units=128,
                                        hidden_size=256, num_layers=2,

@@ -297,3 +297,21 @@ def keep_block_names():
     yield
     for m, counters in saved:
         m._naming.counters = counters
+
+
+@pytest.fixture
+def same_block_names():
+    """Both packages' automatic block names counted from zero for the test,
+    then as they were: a test that compares the names both packages give
+    does not depend on which tests ran before it in its process (the JAX
+    package's own test files build JAX blocks only)."""
+    from mxnet_tpu.gluon import block as jblock
+    from mxnet_tpu_torch.gluon import block as tblock
+
+    saved = [(m, dict(getattr(m._naming, "counters", {})))
+             for m in (jblock, tblock)]
+    for m, _ in saved:
+        m._naming.counters = {}
+    yield
+    for m, counters in saved:
+        m._naming.counters = counters

@@ -88,6 +88,11 @@ built:
 - ``observability``: ``phase_observability`` (path (e): ``/metrics`` of a
   BERT ModelServer and a GPT-2 GenerativeServer, traces, the watchdog,
   the profiler's trace);
+- ``profiler_drift``: ``phase_observability``'s profiler window for 480
+  s, in turns under ``mx.profiler`` and under a bare ``torch.profiler``
+  session: the windows whose trace lost a LayerNorm or flash event, where
+  the names part from a whole window's, each kernel's start against its
+  launch call's, the session's margins;
 - ``slice20``: the probe and the five above in one run (``run_slice20``);
 - ``fleet``: ``phase_fleet`` (two BERT-base workers from a serving
   snapshot and a GPT-2 small worker on the card: a wave, ``kill -9``
@@ -100,6 +105,17 @@ built:
   BERT-base, four planted blocks, the lock check over two servers and a
   planted inversion);
 - ``slice21``: the three above in one run (``run_slice21``);
+- ``ir``: ``phase_ir`` (the MLP's bf16 math through the bulk window and a
+  Symbol.eval: one build; BERT-base's export served through ``ir.lower``;
+  the watchdog; a planted cast_sink);
+- ``tune``: ``phase_tune`` (``ir.tune.search`` over BERT-base's bucket-8
+  program and a fresh process reloading the record, the bulk watermark,
+  the fp32 flash split);
+- ``comp_cache``: GPT-2 small's compiled step through ``cache.AotFn``
+  (phase_tape_replay's) and ``phase_comp_cache`` (a fresh process with an
+  empty Inductor cache compiling it from the store, a truncated entry,
+  ``runtime.Features()``);
+- ``slice22``: the compiled step and the three above (``run_slice22``);
 - ``mp``: ``phase_model_parallel`` (the GPT-2 step inside
   ``sequence_parallel_scope`` at sp = 1, ring and Ulysses, against the
   plain step; the n = 4 ring replayed on the card against the
@@ -113,8 +129,11 @@ without it the first failed check ends the run with exit code 1.
 """
 import json
 import os
+import shutil
 import sys
 import time
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(REPO, "chiprun_out", "cuda_phases.json")
@@ -205,6 +224,165 @@ def run_a11(cs, dev):
     return out
 
 
+def run_slice22_part(cs, dev, part):
+    """Slice 22's phases, alone or together, with the BERT-base export
+    and the compiled GPT-2 step they read; the scratch files removed."""
+    out = {}
+    prefix = None
+    try:
+        if part in ("comp_cache", "slice22"):
+            cold = cs._compiled_gpt_step(dev)
+            if part == "slice22":
+                return cs.run_slice22(dev, cold)
+            return cs.phase_comp_cache(dev, cold)
+        prefix, model = cs._bert_export(dev, "ir_bert")
+        if part == "ir":
+            out = cs.phase_ir(dev, prefix, model)
+        else:
+            del model
+            out = cs.phase_tune(dev, prefix)
+    finally:
+        if prefix is not None:
+            cs._drop_export(prefix)
+        for d in cs._slice22_tmp:
+            shutil.rmtree(d, ignore_errors=True)
+        del cs._slice22_tmp[:]
+    return out
+
+
+def _window_kernels(cs, names, launches, ref):
+    """One profiled window's reading: its LayerNorm and flash-forward
+    events against the launch counters, and where its kernel names part
+    from ``ref`` (a window that lost none)."""
+    got = {"layernorm": sum(cs._kernel_class(k) == "layernorm"
+                            for k in names),
+           "flash": sum(cs._kernel_class(k) == "flash" for k in names)}
+    want = {"layernorm": launches.get("layernorm", 0),
+            "flash": launches.get("flash_attention_fwd", 0)}
+    r = {"kernels": len(names), "events": got, "launches": want,
+         "lost": got != want}
+    if r["lost"] and ref:
+        head = next((i for i, (a, b) in enumerate(zip(names, ref))
+                     if a != b), min(len(names), len(ref)))
+        r["first_difference"] = head
+        r["ref_around"] = ref[max(0, head - 2):head + 6]
+        r["got_around"] = names[max(0, head - 2):head + 6]
+    return r
+
+
+def run_profiler_window(cs, dev, seconds=480.0):
+    """``phase_observability``'s profiler window, repeated for ``seconds``:
+    BERT-base served at ``phase_serve``'s recipe, two batches of 8 in each
+    window, in turns under ``mx.profiler`` (form ``mx``) and under a bare
+    ``torch.profiler`` session (form ``raw``), whose kineto events give
+    each kernel's start against its launch call's (a negative gap is an
+    error of the device's clock as the trace reads it), and the margins
+    between the session's ends (host clock) and the first kernel's start
+    and the last kernel's end."""
+    import torch
+    from mxnet_tpu_torch import amp, profiler
+    from mxnet_tpu_torch.models.bert import bert_base
+    from mxnet_tpu_torch.serve import ModelServer
+
+    model = bert_base(dropout=0.1, max_length=cs.SEQ)
+    model.initialize(device=dev, generator=torch.Generator(
+        device=dev).manual_seed(cs.SEED))
+    amp.convert_hybrid_block(model, "bfloat16")
+    specs = [((cs.SEQ,), "int32"), ((cs.SEQ,), "int32"), ((), "int32")]
+    srv = ModelServer(model, specs, buckets=cs.BUCKETS, max_wait_ms=5.0,
+                      timeout_ms=120000.0, device=dev,
+                      name="serve:profiler_window")
+    rng = np.random.RandomState(cs.SEED + 56)
+    n = 16
+    vl = rng.randint(1, cs.SEQ + 1, n).astype(np.int32)
+    tok = rng.randint(0, cs.VOCAB, (n, cs.SEQ)).astype(np.int32)
+    tt = (np.arange(cs.SEQ)[None, :] >= vl[:, None] // 2).astype(np.int32)
+
+    def two_batches():
+        for lo, hi in ((0, 8), (8, 16)):
+            hs = [srv.submit(tok[i], tt[i], vl[i]) for i in range(lo, hi)]
+            for h in hs:
+                h.result(timeout_s=300)
+
+    profiler.set_config(filename=os.path.join(
+        REPO, "chiprun_out", "profiler_window.json"), aggregate_stats=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = {"mx": [], "raw": []}
+    ref = None
+    t0 = time.perf_counter()
+    with srv:
+        two_batches()
+        i = 0
+        while time.perf_counter() - t0 < seconds:
+            form = ("mx", "raw")[i % 2]
+            i += 1
+            cs.reset_counters()
+            extra = {}
+            if form == "mx":
+                profiler.start()
+                two_batches()
+                profiler.stop()
+                trace = json.load(open(profiler.dump()))["traceEvents"]
+                profiler.dumps(reset=True)
+                names = [e["name"] for e in sorted(
+                    trace, key=lambda e: e["ts"]) if e["cat"] == "kernel"]
+            else:
+                with torch.profiler.profile(activities=acts) as prof:
+                    t_in = time.time_ns()
+                    two_batches()
+                    torch.cuda.synchronize()
+                    t_out = time.time_ns()
+                evs = prof.profiler.kineto_results.events()
+                launch = {e.correlation_id(): e.start_ns() for e in evs
+                          if e.device_type() != cuda
+                          and e.name() in ("cudaGraphLaunch",
+                                           "cudaLaunchKernel",
+                                           "cudaLaunchKernelExC",
+                                           "cuLaunchKernel")}
+                dev_evs = sorted((e for e in evs if e.device_type() == cuda),
+                                 key=lambda e: e.start_ns())
+                kern = [e for e in dev_evs if "emcpy" not in e.name()
+                        and "emset" not in e.name()]
+                names = [e.name() for e in kern]
+                gaps = [e.start_ns() - launch[e.correlation_id()]
+                        for e in kern if e.correlation_id() in launch]
+                extra = {
+                    "min_gap_us": min(gaps) / 1e3 if gaps else None,
+                    "first_margin_us": (dev_evs[0].start_ns() - t_in) / 1e3
+                    if dev_evs else None,
+                    "last_margin_us": (t_out - max(e.end_ns()
+                                                   for e in dev_evs)) / 1e3
+                    if dev_evs else None}
+            r = _window_kernels(cs, names, cs.read_counters(), ref)
+            if not r["lost"] and ref is None:
+                ref = names
+            r.update(extra, t_s=round(time.perf_counter() - t0, 1))
+            rows[form].append(r)
+    srv.stop()
+    out = {"edge_s": profiler.EDGE_S}
+    for form, rs in rows.items():
+        lost = [r for r in rs if r["lost"]]
+        out[form] = {"windows": len(rs), "lost": len(lost),
+                     "lost_rows": lost[:6]}
+        if form == "raw":
+            for k in ("min_gap_us", "first_margin_us", "last_margin_us"):
+                v = [r[k] for r in rs if r[k] is not None]
+                out[form][k] = {"min": min(v), "median": float(np.median(v)),
+                                "max": max(v)} if v else None
+            # the worst gap in each minute: a drift shows as a trend
+            by_min = {}
+            for r in rs:
+                if r["min_gap_us"] is not None:
+                    m = int(r["t_s"] // 60)
+                    by_min[m] = min(by_min.get(m, 1e18), r["min_gap_us"])
+            out[form]["worst_gap_us_by_minute"] = by_min
+        print("profiler window %s: %d of %d windows lost kernel events; %s"
+              % (form, len(lost), len(rs), out[form]), flush=True)
+    return out
+
+
 def run_dist(cs, dev):
     out = {"convert": cs.phase_convert(dev),
            "dist_train": cs.phase_dist_train(dev)}
@@ -239,11 +417,17 @@ GROUPS = {"kernels": run_kernels, "spec": run_spec,
           "vision_loader": lambda cs, dev: cs.phase_vision_loader(
               dev, cs.ResNetTrainStep(dev)),
           "observability": lambda cs, dev: cs.phase_observability(dev),
+          "profiler_drift": run_profiler_window,
           "slice20": lambda cs, dev: cs.run_slice20(dev),
           "fleet": lambda cs, dev: cs.phase_fleet(dev),
           "costs": lambda cs, dev: cs.phase_costs(dev),
           "validate": lambda cs, dev: cs.phase_validate(dev),
-          "slice21": lambda cs, dev: cs.run_slice21(dev)}
+          "slice21": lambda cs, dev: cs.run_slice21(dev),
+          "ir": lambda cs, dev: run_slice22_part(cs, dev, "ir"),
+          "tune": lambda cs, dev: run_slice22_part(cs, dev, "tune"),
+          "comp_cache": lambda cs, dev: run_slice22_part(cs, dev,
+                                                         "comp_cache"),
+          "slice22": lambda cs, dev: run_slice22_part(cs, dev, "slice22")}
 # groups that need no kernel
 NO_BUILD = {"image_probe"}
 
