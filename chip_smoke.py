@@ -14187,6 +14187,357 @@ def run_slice22(dev, cold, meanwhile=None):
     return out
 
 
+# the example twins and onnx/ (ROADMAP.md A.18's first part and A.17's
+# first entry)
+FINETUNE_ARGV = ["--seq", "512", "--batch", "8", "--steps", "3"]
+# kernel launches a fine-tuning step of BERT-base at seq 512: the embedding
+# LayerNorm and two a layer (no MLM head), the 12 attention layers, the
+# classifier's loss
+FINETUNE_LAUNCHES = {"layernorm": 25, "layernorm_bwd": 25,
+                     "flash_attention_fwd": 12, "flash_attention_bwd": 12,
+                     "softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
+# the run's losses with the kernels against the same run on the plain
+# versions (the bert512 step's limit, STEP_LOSS_TOL): the first loss, and
+# the later ones, which read the earlier steps' updates
+PTB_ARGV = ["--max-batches", "3"]
+LONG_CONTEXT_ARGV = ["--dtype", "bfloat16", "--steps", "3"]
+# a step of the long-context twin in a group of one: its 2 layers each run
+# the ring's one (diagonal) block through the flash kernels
+LONG_CONTEXT_LAUNCHES = {"flash_attention_fwd": 2, "flash_attention_bwd": 2}
+SERVE_ARGV = ["--layers", "50", "--image-size", "224", "--classes", "1000",
+              "--no-thumbnail", "--requests", "64"]
+# ResNet-50 fp32 (TF32 off) served against a direct forward: max |diff| /
+# max |logit| (cuDNN's algorithms differ by batch size; honest reading
+# 9.57e-07 on an H100 80GB HBM3 at 700 W)
+SERVE_ROW_TOL = 1e-4
+ONNX_BATCH = 8
+ONNX_REQUESTS = 16
+# BERT-base fp32 served from its ONNX file (attention as MatMul/Softmax)
+# against the Gluon model's direct forward (the fp32 flash form): max
+# |diff| of the sequence output's real rows (honest readings: 3.6e-07 for
+# the CPU rehearsal's 2-layer model, 8.23e-06 for BERT-base on an H100;
+# the planted initializer reads 2.99 there)
+ONNX_ROW_TOL = 1e-4
+ONNX_PERTURBED = "token_type_embed_weight"  # the planted fault's tensor
+
+
+def _twin(name):
+    """``examples/torch_<name>.py``, loaded by path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "torch_%s.py" % name)
+    spec = importlib.util.spec_from_file_location("_twin_" + name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def xent_dx_last_col_dropped(x, labels, lse, dy):
+    """A planted fault: the plain softmax-xent backward with the last
+    column of every row left at 0."""
+    from mxnet_tpu_torch.ops.cuda import softmax_xent as sx
+
+    dx = sx.softmax_xent_bwd_plain(x, labels, lse, dy)
+    dx[:, -1:] = 0
+    return dx
+
+
+def _argv_with(argv, flag, value):
+    """``argv`` with ``flag``'s value replaced (or appended)."""
+    argv = list(argv)
+    if flag in argv:
+        argv[argv.index(flag) + 1] = str(value)
+    else:
+        argv += [flag, str(value)]
+    return argv
+
+
+def _argv_int(argv, flag):
+    return int(argv[argv.index(flag) + 1])
+
+
+def _launch_check(counts, per_step, steps, what, unit="steps"):
+    for name in kernel_counters():
+        want = per_step.get(name, 0) * steps
+        check(counts[name] == want, "%s: %s launches %d != %d x %d %s"
+              % (what, name, counts[name], per_step.get(name, 0), steps, unit))
+
+
+def phase_examples(dev):
+    """The example twins on the card: BERT-base fine-tuned at seq 512
+    (exact launches a step, finite losses, the weights move, the run
+    against the same run on the plain versions, a planted softmax-xent
+    fault above the limit), the PTB LSTM at its defaults, the long-context
+    ring in a group of one (NCCL), ResNet-50 served with buckets 1, 8 and
+    32 (each bucket's program against an eager run of the same padded
+    batch, no capture in traffic, rows against a direct forward)."""
+    import torch
+    from mxnet_tpu_torch.parallel import distributed
+
+    out = {}
+    steps = _argv_int(FINETUNE_ARGV, "--steps")
+    ft = _twin("finetune_bert")
+    # (a) fine-tune: the main path, every counter at 0 just before it
+    t0 = time.perf_counter()
+    reset_counters()
+    run = ft.main(FINETUNE_ARGV)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    wall = time.perf_counter() - t0
+    print("finetune_bert (BERT-base, seq 512, batch 8): losses %s, "
+          "launches in %d steps %s, %.1f s" % (
+              ["%.4f" % x for x in run["losses"]], steps, counts, wall),
+          flush=True)
+    check(all(np.isfinite(run["losses"])), "finetune_bert: non-finite loss")
+    _launch_check(counts, FINETUNE_LAUNCHES, steps, "finetune_bert")
+    net = run.pop("net")
+    init = ft.main(_argv_with(FINETUNE_ARGV, "--steps", 0))["net"]
+    moved = [p.name for p, q in zip(net.collect_params().values(),
+                                    init.collect_params().values())
+             if not torch.equal(p._tensor(), q._tensor())]
+    check(len(moved) > 0.9 * len(list(net.collect_params())),
+          "finetune_bert: %d weights moved" % len(moved))
+    del net, init
+    reset_counters()
+    with plain_versions():
+        plain = ft.main(FINETUNE_ARGV)
+    check(not any(read_counters().values()),
+          "the plain-version fine-tune launched a kernel: %s"
+          % read_counters())
+    gap = [abs(a - b) for a, b in zip(run["losses"], plain["losses"])]
+    with plain_versions(softmax_xent_bwd=xent_dx_last_col_dropped):
+        fault = ft.main(FINETUNE_ARGV)
+    fault_gap = [abs(a - b) for a, b in zip(fault["losses"],
+                                            plain["losses"])]
+    print("finetune_bert with kernels vs plain versions: losses |diff| %s "
+          "(limit %g); planted softmax-xent dx without its last column: "
+          "%s" % (["%.3g" % g for g in gap], STEP_LOSS_TOL,
+                  ["%.3g" % g for g in fault_gap]), flush=True)
+    check(gap[0] <= STEP_LOSS_TOL and max(gap) <= STEP_LOSS_TOL,
+          "finetune_bert disagrees with the plain versions: %s" % gap)
+    check(max(fault_gap) > STEP_LOSS_TOL, "the fine-tune's limit misses "
+          "the planted softmax-xent fault: %s" % fault_gap)
+    out["finetune_bert"] = {
+        "losses": run["losses"], "launches": counts, "steps": steps,
+        "loss_gap_vs_plain": gap, "planted_xent_gap": fault_gap,
+        "wall_s": wall, "accuracy": run["accuracy"]}
+    del plain, fault
+
+    # (b) the PTB LSTM at its defaults, a few batches
+    t0 = time.perf_counter()
+    reset_counters()
+    ptb = _twin("train_ptb_lm").main(PTB_ARGV)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    n = _argv_int(PTB_ARGV, "--max-batches")
+    print("train_ptb_lm (2x200 LSTM, bptt 35, batch 32, vocab 10000): "
+          "losses %s, launches %s, %.1f s" % (
+              ["%.4f" % x for x in ptb["losses"]], counts,
+              time.perf_counter() - t0), flush=True)
+    check(len(ptb["losses"]) == n and all(np.isfinite(ptb["losses"])),
+          "train_ptb_lm losses: %s" % ptb["losses"])
+    _launch_check(counts, {"softmax_xent_fwd": 1, "softmax_xent_bwd": 1}, n,
+                  "train_ptb_lm")
+    out["train_ptb_lm"] = {"losses": ptb["losses"], "launches": counts,
+                           "wall_s": time.perf_counter() - t0}
+
+    # (c) long context: the ring in a group of one, NCCL
+    t0 = time.perf_counter()
+    started = not distributed.is_initialized()
+    try:
+        reset_counters()
+        lc = _twin("train_long_context").main(LONG_CONTEXT_ARGV)
+        torch.cuda.synchronize()
+        counts = read_counters()
+    finally:
+        if started:
+            distributed.shutdown()
+    n = _argv_int(LONG_CONTEXT_ARGV, "--steps")
+    print("train_long_context (ring, sp 1, T %d, d %d, %d heads, bf16): "
+          "losses %s, launches %s, %.1f s" % (
+              lc["T"], lc["d"], lc["heads"],
+              ["%.4f" % x for x in lc["losses"]], counts,
+              time.perf_counter() - t0), flush=True)
+    check(all(np.isfinite(lc["losses"])) and lc["world"] == 1,
+          "train_long_context: %s" % lc)
+    _launch_check(counts, LONG_CONTEXT_LAUNCHES, n, "train_long_context")
+    out["train_long_context"] = dict(lc, launches=counts,
+                                     wall_s=time.perf_counter() - t0)
+
+    # (d) ResNet-50 served through the exported, reloaded block
+    t0 = time.perf_counter()
+    reset_counters()
+    sv = _twin("serve_model").main(SERVE_ARGV)
+    counts = read_counters()
+    srv, blk = sv.pop("server"), sv.pop("block")
+    warm, stats = sv["warm_stats"], sv["stats"]
+    buckets = srv._pool.buckets
+    check_warm_graphs(warm, buckets, "serve_model")
+    check(stats["captures"] == warm["captures"] and stats["drops"] == 0
+          and stats["replays"] > warm["replays"],
+          "serve_model traffic captured a graph or ran without one: %s"
+          % {k: stats[k] for k in GRAPH_KEYS})
+    check(stats["errors"] == 0 and stats["shed"] == 0
+          and stats["timeouts"] == 0, "serve_model: %s" % stats)
+    check(not any(counts.values()), "serve_model launched a port kernel: "
+          "%s" % counts)
+    reqs = np.stack(sv["samples"])
+    eq = {}
+    for b in buckets:
+        eq[b] = outputs_equal(srv._pool.run([reqs[:b]]),
+                              srv._pool.run([reqs[:b]], eager=True))
+        check(eq[b], "serve_model bucket %d: the program differs from an "
+              "eager run of the same padded batch" % b)
+    served = np.concatenate([np.asarray(r[0]) for r in sv["rows"]])
+    with torch.inference_mode():
+        direct = np.concatenate([
+            blk(torch.from_numpy(reqs[i:i + 16]).to(dev)).float().cpu()
+            .numpy() for i in range(0, len(reqs), 16)])
+    err = float(np.abs(served - direct).max() / np.abs(direct).max())
+    print("serve_model (ResNet-50, fp32, buckets %s): %d requests in %.1f "
+          "ms, %d batches; each bucket's program equal to an eager run %s; "
+          "rows vs a direct forward %.3g (limit %g); %.1f s" % (
+              list(buckets), len(reqs), sv["seconds"] * 1e3,
+              stats["batches"], eq, err, SERVE_ROW_TOL,
+              time.perf_counter() - t0), flush=True)
+    check(np.isfinite(served).all() and err <= SERVE_ROW_TOL,
+          "serve_model rows disagree with a direct forward: %g" % err)
+    out["serve_model"] = {"rows_vs_direct": err, "bucket_equal_eager": eq,
+                          "serve_s": sv["seconds"],
+                          "server_stats": {k: stats[k] for k in GRAPH_KEYS},
+                          "wall_s": time.perf_counter() - t0}
+    del srv, blk
+    return out
+
+
+def _onnx_perturbed(buf, name, arr):
+    """A planted fault: ``buf`` with the raw bytes of initializer ``name``
+    (values ``arr``) replaced by those of ``arr`` with 0.5 added to every
+    other element (a shift of all would cancel in the LayerNorm after
+    it)."""
+    raw = np.ascontiguousarray(arr, np.float32).tobytes()
+    at = buf.find(raw)
+    check(at >= 0 and buf.find(raw, at + 1) < 0,
+          "the initializer %r is not found once in the ONNX bytes" % name)
+    bad = np.array(arr, np.float32)
+    bad.flat[::2] += 0.5
+    bad = bad.tobytes()
+    return buf[:at] + bad + buf[at + len(raw):]
+
+
+def _onnx_served(blk, dev, tok, tt, vl):
+    """Requests through a ModelServer over ``blk`` at bucket ONNX_BATCH:
+    (the sequence rows, warmup stats, traffic stats, launches in
+    traffic)."""
+    from mxnet_tpu_torch.serve import ModelServer
+
+    specs = [((SEQ,), "int32"), ((SEQ,), "int32"), ((), "float32")]
+    srv = ModelServer(blk, specs, buckets=(ONNX_BATCH,), max_wait_ms=5.0,
+                      timeout_ms=300000.0, device=dev)
+    warm = srv.stats()
+    with srv:
+        reset_counters()
+        b0 = srv.metrics.batches
+        handles = [srv.submit(tok[i], tt[i], vl[i]) for i in range(len(tok))]
+        rows = [h.result(timeout_s=300)[0] for h in handles]
+        forwards = srv.metrics.batches - b0
+        counts = read_counters()
+        stats = srv.stats()
+    return np.concatenate([np.asarray(r) for r in rows]), warm, stats, counts, \
+        forwards
+
+
+def phase_onnx(dev):
+    """BERT-base fp32 at seq 512 exported to ONNX bytes from the port,
+    imported back with ``import_to_gluon`` on the card and served through
+    ModelServer (bucket 8, the export's batch): 25 LayerNorm launches a
+    forward and no flash (the attention is MatMul/Softmax in the file), one
+    capture at warmup and none in traffic, rows against the Gluon model's
+    direct forward, and a planted perturbed initializer above the
+    limit."""
+    import torch
+    from mxnet_tpu_torch import onnx as tonnx
+    from mxnet_tpu_torch.models.bert import bert_base
+
+    t_phase = time.perf_counter()
+    model = bert_base(dropout=0.0, max_length=SEQ, use_decoder=False,
+                      use_classifier=False)
+    model.initialize(device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(SEED))
+    rng = np.random.RandomState(SEED + 23)
+    vl = rng.randint(1, SEQ + 1, ONNX_REQUESTS).astype(np.float32)
+    vl[0] = SEQ
+    tok = rng.randint(0, 30522, (ONNX_REQUESTS, SEQ)).astype(np.int32)
+    tt = (np.arange(SEQ)[None, :] >= vl[:, None] // 2).astype(np.int32)
+    ins = [torch.from_numpy(a).to(dev) for a in (tok, tt, vl)]
+    with torch.inference_mode():
+        direct = model(*ins)[0].float().cpu().numpy()
+    t0 = time.perf_counter()
+    buf = tonnx.export_model(
+        model, input_shapes=[(ONNX_BATCH, SEQ), (ONNX_BATCH, SEQ),
+                             (ONNX_BATCH,)],
+        input_types=[np.int32, np.int32, np.float32],
+        input_names=("data", "token_types", "valid_length"))
+    export_s = time.perf_counter() - t0
+    tt_name, tt_arr = [(p.name, p._tensor().detach().float().cpu().numpy())
+                       for p in model.collect_params().values()
+                       if p.name.endswith(ONNX_PERTURBED)][0]
+    del model
+    t0 = time.perf_counter()
+    blk = tonnx.import_to_gluon(buf, ctx=dev)
+    import_s = time.perf_counter() - t0
+    served, warm, stats, counts, forwards = _onnx_served(blk, dev, tok, tt,
+                                                         vl)
+    check_warm_graphs(warm, (ONNX_BATCH,), "ONNX BERT server")
+    check(stats["captures"] == warm["captures"] and stats["drops"] == 0
+          and stats["replays"] == warm["replays"] + forwards,
+          "ONNX BERT traffic captured a graph or ran without one: %s"
+          % {k: stats[k] for k in GRAPH_KEYS})
+    check(stats["errors"] == 0, "ONNX BERT serving errors: %s" % stats)
+    _launch_check(counts, {"layernorm": 25}, forwards, "ONNX BERT server",
+                  "forwards")
+
+    def row_err(rows):
+        return max(float(np.abs(rows[i, :int(n)] - direct[i, :int(n)])
+                         .max()) for i, n in enumerate(vl))
+
+    err = row_err(served)
+    del blk
+    bad = tonnx.import_to_gluon(_onnx_perturbed(buf, tt_name, tt_arr),
+                                ctx=dev)
+    bad_rows = _onnx_served(bad, dev, tok, tt, vl)[0]
+    bad_err = row_err(bad_rows)
+    print("onnx (BERT-base fp32, seq %d, %d bytes; export %.1f s, import "
+          "%.1f s): %d requests in %d forwards of bucket %d, launches %s; "
+          "rows vs the Gluon model's direct forward max |diff| %.3g (limit "
+          "%g); planted %s + 0.5 at every other element: %.3g; %.1f s" % (
+              SEQ, len(buf), export_s, import_s, ONNX_REQUESTS, forwards,
+              ONNX_BATCH, counts, err, ONNX_ROW_TOL, ONNX_PERTURBED, bad_err,
+              time.perf_counter() - t_phase), flush=True)
+    check(np.isfinite(served).all() and err <= ONNX_ROW_TOL,
+          "ONNX BERT rows disagree with the direct forward: %g" % err)
+    check(bad_err > ONNX_ROW_TOL, "the ONNX rows' limit misses the "
+          "perturbed initializer: %g" % bad_err)
+    return {"bytes": len(buf), "export_s": export_s, "import_s": import_s,
+            "forwards": forwards, "launches": counts, "rows_max_abs": err,
+            "planted_rows_max_abs": bad_err,
+            "server_stats": {k: stats[k] for k in GRAPH_KEYS}}
+
+
+def run_slice23(dev):
+    """Slice 23's paths, each timed: the example twins, onnx/."""
+    out = {}
+    for name, phase in (("examples", phase_examples), ("onnx", phase_onnx)):
+        t0 = time.perf_counter()
+        out[name] = phase(dev)
+        out[name]["phase_seconds"] = time.perf_counter() - t0
+    print("A.18/A.17 phases: %s s" % {
+        k: round(v["phase_seconds"], 1) for k, v in out.items()},
+        flush=True)
+    return out
+
+
 def card_line():
     """The card's name and power limit, as ``nvidia-smi --query-gpu=
     name,power.limit --format=csv,noheader`` gives them."""
@@ -14417,6 +14768,8 @@ def main():
             dev, symbolic["tape_replay"]["torch_compile_step"],
             meanwhile=lambda: slice21.update(run_slice21(dev)))
         mark("slice21_22")
+        slice23 = run_slice23(dev)
+        mark("slice23")
     except SmokeFailure as e:
         print("chip_smoke FAILED: %s" % e, file=sys.stderr)
         return 1
@@ -14436,6 +14789,7 @@ def main():
                       "image_and_observability": slice20,
                       "fleet_costs_validate": slice21,
                       "ir_tune_comp_cache": slice22,
+                      "examples_and_onnx": slice23,
                       "decode_step_graphs": graphs, "quantized": quant,
                       "speculative": spec, "chunked_prefill": chunked,
                       "attention_dense_vs_flash": crossover,

@@ -52,6 +52,7 @@ from . import monitor, rnn  # noqa: F401
 from . import image, image_det, profiler, observability  # noqa: F401
 from . import analysis  # noqa: F401
 from . import runtime, libinfo, kvstore_server, cache, ir  # noqa: F401
+from . import onnx  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import visualization as viz  # noqa: F401
 from .attribute import AttrScope  # noqa: F401

@@ -52,12 +52,43 @@ def from_jax_params(block, params):
         raise KeyError("parameter names differ: missing %s, extra %s"
                        % (missing, extra))
     for local, p in mine.items():
-        value = to_tensor(params[theirs[local]])
-        if p._shape_known() and tuple(value.shape) != p.shape:
-            raise ValueError("parameter %r: shape %s, expected %s"
-                             % (p.name, tuple(value.shape), tuple(p.shape)))
-        device = p.device
-        p.dtype = value.dtype
-        p._data = None
-        p.set_data(value if device is None else value.to(device))
+        _set(p, params[theirs[local]])
+    return block
+
+
+def _set(p, arr):
+    """``p`` holds ``arr``'s values and dtype, on ``p``'s device."""
+    value = to_tensor(arr)
+    if p._shape_known() and tuple(value.shape) != p.shape:
+        raise ValueError("parameter %r: shape %s, expected %s"
+                         % (p.name, tuple(value.shape), tuple(p.shape)))
+    device = p.device
+    p.dtype = value.dtype
+    p._data = None
+    p.set_data(value if device is None else value.to(device))
+
+
+def _below_root(name):
+    """A parameter's name below its outermost auto-named block
+    (``bertmodel3_word_embed_weight`` -> ``word_embed_weight``)."""
+    m = re.match(r"[a-z_]*?\d+_", name)
+    return name[m.end():] if m else name
+
+
+def carry_params(block, params):
+    """Set ``block``'s parameters from ``params`` ({name: array} in the
+    JAX model's ``collect_params()`` order), one for one in order: for a
+    model whose parameters sit under more than one root block (a
+    ``BERTClassifier`` over a trunk built outside its scope, a
+    ``HybridSequential`` made without a prefix), which
+    :func:`from_jax_params` refuses. Each pair must hold the same name
+    below its root and the same shape, or it raises. Returns the block."""
+    mine = list(block.collect_params().values())
+    theirs = list(params.items())
+    if len(mine) != len(theirs):
+        raise KeyError("%d parameters, %d given" % (len(mine), len(theirs)))
+    for p, (name, arr) in zip(mine, theirs):
+        if _below_root(p.name) != _below_root(name):
+            raise KeyError("parameter %r paired with %r" % (p.name, name))
+        _set(p, arr)
     return block

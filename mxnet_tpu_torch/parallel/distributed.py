@@ -8,8 +8,10 @@ Each rank is one process with one device, joined into one
 arguments, ``DMLC_PS_ROOT_URI``/``DMLC_PS_ROOT_PORT`` give the
 coordinator, ``DMLC_NUM_WORKER`` the world size and ``DMLC_WORKER_ID`` the
 rank, so ``python tools/launch.py -n 4 python script.py`` starts a port
-script unchanged. A group of one process needs no coordinator (an
-in-process store).
+script unchanged. Without them torch's own launcher environment does the
+same (``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``), which
+``tools/torch_launch.py`` sets beside the ``DMLC_*`` one. A group of one
+process needs no coordinator (an in-process store).
 """
 from __future__ import annotations
 
@@ -37,15 +39,19 @@ def init_process_group(coordinator_address=None, num_processes=None,
     global _device
     if dist.is_initialized():
         return
+    env = os.environ
     if coordinator_address is None:
-        uri = os.environ.get("DMLC_PS_ROOT_URI")
-        port = os.environ.get("DMLC_PS_ROOT_PORT", "9000")
-        if uri:
-            coordinator_address = "%s:%s" % (uri, port)
+        if env.get("DMLC_PS_ROOT_URI"):
+            coordinator_address = "%s:%s" % (
+                env["DMLC_PS_ROOT_URI"], env.get("DMLC_PS_ROOT_PORT", "9000"))
+        elif env.get("MASTER_ADDR"):
+            coordinator_address = "%s:%s" % (
+                env["MASTER_ADDR"], env.get("MASTER_PORT", "29500"))
     if num_processes is None:
-        num_processes = int(os.environ.get("DMLC_NUM_WORKER", "1"))
+        num_processes = int(env.get("DMLC_NUM_WORKER",
+                                    env.get("WORLD_SIZE", "1")))
     if process_id is None:
-        process_id = int(os.environ.get("DMLC_WORKER_ID", "0"))
+        process_id = int(env.get("DMLC_WORKER_ID", env.get("RANK", "0")))
     if device is None:
         dev = resolve_device(None)
         dev = torch.device("cuda", process_id % torch.cuda.device_count())

@@ -99,7 +99,7 @@ def _run_seeded(body):
             "conc.enable_lock_check(True)\n" + body)
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
-                       capture_output=True, text=True, timeout=120)
+                       capture_output=True, text=True, timeout=30)
     assert r.returncode == 0, r.stderr[-2000:]
     return json.loads(r.stdout.strip().splitlines()[-1])
 
@@ -113,11 +113,11 @@ def test_off_by_default():
             "print(c.lock_check_enabled())" % os.path.join(
                 REPO, "mxnet_tpu_torch", "analysis", "concurrency.py"))
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
-                       capture_output=True, text=True, timeout=120)
+                       capture_output=True, text=True, timeout=30)
     assert r.stdout.strip() == "False"
     env["MXNET_LOCK_CHECK"] = "1"
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
-                       capture_output=True, text=True, timeout=120)
+                       capture_output=True, text=True, timeout=30)
     assert r.stdout.strip() == "True"
 
 

@@ -32,6 +32,9 @@ pytestmark = pytest.mark.usefixtures("keep_block_names")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = os.path.join(REPO, "tools")
 FACTORY = os.path.join(TOOLS, "torch_fleet_factory.py")
+# spawning the module's three workers takes about 10 s here: a worker
+# that does not come up fails the module in about three times that
+SPAWN_TIMEOUT = 45
 ENV = {"PYTHONPATH": REPO}
 
 
@@ -68,7 +71,7 @@ def fleet():
                              ("mlp", "model_server_cpu"),
                              ("gen", "generative_server_cpu"))]
         for m, f in futs:
-            router.adopt(f.result(), model=m)
+            router.adopt(f.result(timeout=SPAWN_TIMEOUT), model=m)
     yield router
     router.close()
 
@@ -86,7 +89,8 @@ def jax_rows(jax_trace_state_module):
 
     t = threading.Thread(target=build)
     t.start()
-    t.join()
+    t.join(timeout=SPAWN_TIMEOUT)
+    assert not t.is_alive(), "the JAX model server was not built in time"
     srv = got["srv"]
     try:
         return np.stack([np.asarray(srv.predict(x)) for x in _xs(8)])
@@ -248,7 +252,7 @@ def test_kill9_mid_wave_zero_failed_requests(fleet):
         fails = []
         for f in futs:
             try:
-                f.result()
+                f.result(timeout=SPAWN_TIMEOUT)
             except (WorkerGone, Exception) as e:  # counted, must be none
                 fails.append(repr(e))
     assert fails == []

@@ -338,7 +338,7 @@ def test_canonical_keys_are_equal_across_processes():
     (here,) = list(base._IR_CACHE)
     env = dict(os.environ, PYTHONPATH=REPO, PYTHONHASHSEED="123")
     r = subprocess.run([sys.executable, "-c", _KEY_SCRIPT], env=env,
-                       cwd=REPO, capture_output=True, text=True, timeout=300)
+                       cwd=REPO, capture_output=True, text=True, timeout=40)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip().splitlines()[-1] == here
 

@@ -10,8 +10,9 @@ sequence, pipeline and expert parallelism and ``SyncBatchNorm``, the
 shared capture module and ``hybridize``'s programs, the engine's bulk
 window, the symbolic API, the Module family, control flow, the host
 I/O, the image path, the observability core and the profiler, cost
-attribution, the analysis tools and the replica fleet included) imports
-with JAX blocked; and without
+attribution, the analysis tools, the replica fleet and ``onnx``
+included) imports with JAX blocked; the example and tool twins
+(``examples/torch_*.py``, ``tools/torch_*.py``) import neither; and without
 CUDA every entry point refuses to run unless the caller asks for the
 CPU."""
 import ast
@@ -38,6 +39,11 @@ def _port_sources():
     yield os.path.join(REPO, "tools", "torch_resnet_ref.py")  # and this
     yield os.path.join(REPO, "tools", "torch_fleet_factory.py")  # workers'
     yield os.path.join(REPO, "tools", "cuda_phases.py")
+    # the example and tool twins
+    for d in ("examples", "tools"):
+        for f in sorted(os.listdir(os.path.join(REPO, d))):
+            if f.startswith("torch_") and f.endswith(".py"):
+                yield os.path.join(REPO, d, f)
 
 
 def _imported_roots(path):
@@ -50,7 +56,7 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("path", sorted(_port_sources()),
+@pytest.mark.parametrize("path", sorted(set(_port_sources())),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_import(path):
     roots = set(_imported_roots(path))
@@ -123,11 +129,13 @@ def test_package_imports_with_jax_blocked():
             "mxnet_tpu_torch.analysis.concurrency, "
             "mxnet_tpu_torch.analysis.hlolint, "
             "mxnet_tpu_torch.serve.fleet, mxnet_tpu_torch.serve.worker, "
-            "mxnet_tpu_torch.profiler; "
+            "mxnet_tpu_torch.profiler, mxnet_tpu_torch.onnx, "
+            "mxnet_tpu_torch.onnx.proto, mxnet_tpu_torch.onnx.export, "
+            "mxnet_tpu_torch.onnx.import_model; "
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
-                       capture_output=True, text=True, timeout=120)
+                       capture_output=True, text=True, timeout=30)
     assert r.returncode == 0, r.stderr
 
 
@@ -335,7 +343,7 @@ def test_spawned_worker_imports_no_jax():
         y = h.predict([torch.zeros(16).numpy()])
         assert tuple(y.shape) == (10,)
         h.shutdown()
-        assert proc.wait(timeout=60) == 0
+        assert proc.wait(timeout=35) == 0
     finally:
         if proc.poll() is None:
             proc.kill()

@@ -272,7 +272,7 @@ def test_launch_py_starts_a_port_script(tmp_path):
     r = subprocess.run([sys.executable, os.path.join(repo, "tools",
                                                      "launch.py"),
                         "-n", "2", sys.executable, str(script), repo],
-                       capture_output=True, text=True, timeout=180, env=env)
+                       capture_output=True, text=True, timeout=30, env=env)
     assert r.returncode == 0, r.stdout + r.stderr
     for rank in (0, 1):
         assert "RANK%d_SUM[3.0, 3.0]" % rank in r.stdout, r.stdout

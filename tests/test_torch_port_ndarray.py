@@ -213,7 +213,7 @@ def test_context_scope_and_device_error(monkeypatch):
         t = threading.Thread(target=lambda: seen.append(
             getattr(tmx.context._tls, "stack", [])))
         t.start()
-        t.join()
+        t.join(timeout=30)
     assert seen == [[]]
 
 

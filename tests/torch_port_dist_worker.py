@@ -456,6 +456,13 @@ CASES = [("hier", case_hierarchical), ("ef", case_error_feedback),
          ("elastic", case_elastic)]
 
 
+# a collective of a case that failed on another rank gives up after this
+# long (a worker's group is up and through its cases in 10-25 s here), so
+# the rank reports its traceback before the test's limit
+# (torch_port_helpers.RANK_TIMEOUT) kills it
+GROUP_TIMEOUT = 45
+
+
 def main(argv, cases=None):
     """Run ``cases`` (default ``CASES``) on this rank."""
     cases = CASES if cases is None else cases
@@ -465,7 +472,8 @@ def main(argv, cases=None):
     env_cap = dist.default_bucket_mb()
     distributed.init_process_group(
         init_method="file://" + os.path.join(workdir, "store"),
-        num_processes=world, process_id=rank, device="cpu", timeout_s=120)
+        num_processes=world, process_id=rank, device="cpu",
+        timeout_s=GROUP_TIMEOUT)
     inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
     results = {"env_bucket_mb": np.array(env_cap),
                "rank_size": np.array([distributed.rank(),

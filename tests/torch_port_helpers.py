@@ -200,32 +200,69 @@ def jax_rng_kept():
     jrandom.set_state(state)
 
 
+# a group of the multi-rank workers starts and runs its cases in 19-28 s
+# under the suite's six workers (the dist and example workers' are the
+# longest): a stuck rank fails its module in about three times that, not
+# at the suite's limit
+RANK_TIMEOUT = 80
+
+
 def run_ranks(worker, workdir, inp, world):
     """Write ``inp`` to ``workdir``/inputs.npz, run ``world`` processes of
     the multi-rank ``worker`` (``tests/torch_port_dist_worker.py``'s
     protocol: ``worker RANK WORLD WORKDIR``, a gloo group through a file
     store in ``workdir``) and return {case: [rank 0's results, ...]}; a
     rank that failed, or a case that raised on one, fails the caller."""
+    return run_rank_groups([(worker, workdir, inp, world)])[0]
+
+
+def run_rank_groups(groups, timeout=RANK_TIMEOUT, meanwhile=None):
+    """:func:`run_ranks` for several ``(worker, workdir, inp, world)``
+    groups at once, each in its own directory and store; every process
+    gets ``timeout`` seconds from the start, then is killed and fails
+    the caller. ``meanwhile()`` runs in this process while they do (a
+    reference computation). Returns one result a group."""
     import os
     import subprocess
     import sys
+    import time
 
-    np.savez(workdir / "inputs.npz", **inp)
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("MXNET_DIST", "JAX", "XLA"))}
     env["OMP_NUM_THREADS"] = "1"
-    procs = [subprocess.Popen([sys.executable, worker, str(r), str(world),
-                               str(workdir)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, env=env, text=True)
-             for r in range(world)]
-    logs = []
+    started = []
+    for worker, workdir, inp, world in groups:
+        np.savez(workdir / "inputs.npz", **inp)
+        started.append([subprocess.Popen(
+            [sys.executable, worker, str(r), str(world), str(workdir)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
+            text=True) for r in range(world)])
+    deadline = time.monotonic() + timeout
+    logs = [[] for _ in groups]
     try:
-        for p in procs:
-            logs.append(p.communicate(timeout=300)[0])
+        if meanwhile is not None:
+            meanwhile()
+        for g, procs in enumerate(started):
+            for p in procs:
+                try:
+                    logs[g].append(p.communicate(
+                        timeout=max(1.0, deadline - time.monotonic()))[0])
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    logs[g].append(p.communicate()[0] + "\n[killed after "
+                                   "%d s]" % timeout)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
+        for procs in started:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    return [_rank_results(workdir, world, procs, log)
+            for (_, workdir, _, world), procs, log in zip(groups, started,
+                                                           logs)]
+
+
+def _rank_results(workdir, world, procs, logs):
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, "rank %d failed:\n%s" % (r, log[-4000:])
     res = [dict(np.load(workdir / ("rank%d.npz" % r))) for r in range(world)]

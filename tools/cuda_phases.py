@@ -116,6 +116,14 @@ built:
   empty Inductor cache compiling it from the store, a truncated entry,
   ``runtime.Features()``);
 - ``slice22``: the compiled step and the three above (``run_slice22``);
+- ``examples``: ``phase_examples`` (the fine-tune twin on BERT-base at
+  seq 512 with its launches a step, against the plain versions and a
+  planted softmax-xent fault; the PTB LSTM; the long-context ring in a
+  group of one; ResNet-50 served through the serve twin);
+- ``onnx``: ``phase_onnx`` (BERT-base fp32 exported to ONNX bytes,
+  imported on the card and served at bucket 8, against the Gluon model's
+  direct forward, with a planted perturbed initializer);
+- ``slice23``: the two above (``run_slice23``);
 - ``mp``: ``phase_model_parallel`` (the GPT-2 step inside
   ``sequence_parallel_scope`` at sp = 1, ring and Ulysses, against the
   plain step; the n = 4 ring replayed on the card against the
@@ -427,7 +435,10 @@ GROUPS = {"kernels": run_kernels, "spec": run_spec,
           "tune": lambda cs, dev: run_slice22_part(cs, dev, "tune"),
           "comp_cache": lambda cs, dev: run_slice22_part(cs, dev,
                                                          "comp_cache"),
-          "slice22": lambda cs, dev: run_slice22_part(cs, dev, "slice22")}
+          "slice22": lambda cs, dev: run_slice22_part(cs, dev, "slice22"),
+          "examples": lambda cs, dev: cs.phase_examples(dev),
+          "onnx": lambda cs, dev: cs.phase_onnx(dev),
+          "slice23": lambda cs, dev: cs.run_slice23(dev)}
 # groups that need no kernel
 NO_BUILD = {"image_probe"}
 
