@@ -14538,6 +14538,661 @@ def run_slice23(dev):
     return out
 
 
+# slice 24: sparse storage and the contrib half of ROADMAP.md A.17. The PTB
+# LSTM LM at LSTM_RECIPE's full widths with a row-sparse embedding
+# (gluon.contrib.nn.SparseEmbedding) and an untied decoder, in fp32,
+# trained by Estimator.fit; the CSR path LibSVMIter -> sparse.dot
+SPARSE_LM = dict(LSTM_RECIPE, hidden=650, layers=2, dropout=0.5)
+SPARSE_LM_STEPS = 3
+SPARSE_LM_OPT = {"learning_rate": 1.0, "momentum": 0.9}
+SPARSE_LM_LAUNCHES = {"softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
+# the step-1 lazy update of the touched rows against a dense-gradient SGD
+# step of the whole table: the same fp32 arithmetic on each row, so the
+# gap is 0 up to a rounding step of |w| ~ 0.07
+SPARSE_UPDATE_TOL = 1e-6
+# a checkpoint loaded into a fresh model: the same first-batch loss
+SPARSE_CKPT_TOL = 1e-6
+# Criteo's layout: 39 fields (13 numeric, 26 categorical), one feature a
+# field, 1,000,000 features in all; 512-row batches
+CSR_RECIPE = {"batch": 512, "batches": 2, "features": 1000000,
+              "fields": 39, "numeric": 13, "cols": 16}
+# sparse.dot against torch's CSR product, both fp32 sums of 39 terms in
+# other orders: each within a few fp32 steps of the terms' sizes, mag =
+# |csr| @ |W| (terms up to ~100 here: an absolute 1e-5 is one step of
+# them), as held()'s (atol, rtol, mtol)
+CSR_TOL = (1e-6, 0.0, 1e-5)
+SPARSE_TIMED = 20
+_slice24_tmp = []
+
+
+def _slice24_dir():
+    """One scratch directory for slice 24's files (the libsvm file, the
+    checkpoints) under the ignored build directory; removed by
+    ``run_slice24``."""
+    import tempfile
+
+    from mxnet_tpu_torch.ops.cuda import _build
+
+    if not _slice24_tmp:
+        os.makedirs(_build.BUILD_DIR, exist_ok=True)
+        _slice24_tmp.append(tempfile.mkdtemp(prefix="slice24_",
+                                             dir=_build.BUILD_DIR))
+    return _slice24_tmp[0]
+
+
+def _sparse_lm(dev, seed):
+    """The PTB LSTM LM of ``SPARSE_LM`` with a ``SparseEmbedding`` and an
+    untied ``Dense(vocab, flatten=False)`` decoder, fp32, initialized from
+    ``seed``: (bptt, batch) ids -> (bptt, batch, vocab) logits."""
+    import torch
+    from mxnet_tpu_torch.gluon import HybridBlock, nn, rnn
+    from mxnet_tpu_torch.gluon.contrib.nn import SparseEmbedding
+
+    r = SPARSE_LM
+
+    class SparseLM(HybridBlock):
+        def __init__(self):
+            super().__init__(prefix="sparse_lm_")
+            with self.name_scope():
+                self.embed = SparseEmbedding(r["vocab"], r["hidden"])
+                self.drop = nn.Dropout(r["dropout"])
+                self.rnn = rnn.LSTM(r["hidden"], r["layers"],
+                                    dropout=r["dropout"],
+                                    input_size=r["hidden"])
+                self.decoder = nn.Dense(r["vocab"], flatten=False,
+                                        in_units=r["hidden"])
+
+        def hybrid_forward(self, F, x):
+            return self.decoder(self.drop(self.rnn(self.drop(
+                self.embed(x)))))
+
+    net = SparseLM()
+    net.initialize(device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(seed))
+    return net
+
+
+class _RowSparseSpy:
+    """Stands in for the optimizer's ``_update_rsp``: records the first
+    call's row-sparse gradient (stype, rows, ids), the parameter's dense
+    gradient, the weight before and after and the rescale, and the second
+    call's gradients, weight and momentum before and after; with
+    ``drop_id`` it first drops the id of the gradient's largest row from
+    the row-sparse gradient (the planted fault)."""
+
+    def __init__(self, opt, drop_id=False):
+        self.opt, self.real = opt, opt._update_rsp
+        self.drop_id = drop_id
+        self.first = self.second = None
+        self.calls = 0
+
+    def __call__(self, index, weight, grad, state):
+        from mxnet_tpu_torch import sparse
+
+        self.calls += 1
+        if self.first is None:
+            dense = self.opt.param_dict[index]._data.grad.detach().clone()
+            dropped = None
+            if self.drop_id:
+                rows = grad.indices._data.long()
+                peak = dense.index_select(0, rows).abs().amax(1)
+                keep = _without(len(rows), int(peak.argmax()), rows.device)
+                dropped = int(rows[int(peak.argmax())])
+                grad = sparse.RowSparseNDArray(
+                    grad.data._data.index_select(0, keep),
+                    grad.indices._data.index_select(0, keep), grad.shape)
+            self.first = {"stype": grad.stype, "rows": grad.nnz_rows,
+                          "ids": grad.indices.asnumpy(), "dense": dense,
+                          "before": weight.detach().clone(),
+                          "rescale": self.opt.rescale_grad,
+                          "lr": self.opt._get_lr(index), "dropped": dropped}
+            state = self.real(index, weight, grad, state)
+            self.first["after"] = weight.detach().clone()
+            return state
+        if self.calls == 2:
+            self.second = {
+                "ids": grad.indices._data.long(),
+                "dense": self.opt.param_dict[index]._data.grad.detach()
+                .clone(), "before": weight.detach().clone(),
+                "mom_before": state.detach().clone(),
+                "rescale": self.opt.rescale_grad,
+                "lr": self.opt._get_lr(index)}
+            state = self.real(index, weight, grad, state)
+            self.second.update(after=weight.detach().clone(),
+                               mom_after=state.detach().clone())
+            return state
+        return self.real(index, weight, grad, state)
+
+    def gap(self):
+        """max |lazy step - dense SGD step| over the whole table at step
+        1 (momentum 0 there: w - lr * rescale * g on every row)."""
+        f = self.first
+        ref = f["before"] - (f["dense"] * f["rescale"]) * f["lr"]
+        return float((f["after"] - ref).abs().max())
+
+    def gap2(self, momentum):
+        """max |lazy step - dense SGD step| of the weight and the momentum
+        at step 2, where the momentum is step 1's: the dense step (mom =
+        momentum * mom - lr * rescale * g, w += mom) on the gradient's
+        rows, every other row as it was."""
+        s = self.second
+        rows = s["ids"]
+        mom = momentum * s["mom_before"] - (s["dense"] * s["rescale"]) \
+            * s["lr"]
+        ref_m = s["mom_before"].index_copy(0, rows, mom.index_select(
+            0, rows))
+        ref_w = s["before"].index_copy(0, rows, (s["before"] + mom)
+                                       .index_select(0, rows))
+        return max(float((s["after"] - ref_w).abs().max()),
+                   float((s["mom_after"] - ref_m).abs().max()))
+
+
+def _without(n, skip, device):
+    """The positions 0..n-1 less ``skip``."""
+    import torch
+
+    idx = torch.arange(n, device=device)
+    return idx[idx != skip]
+
+
+def _sparse_lm_batches(dev):
+    """``SPARSE_LM_STEPS`` seeded (ids, labels) batches of (bptt, batch)
+    on ``dev``, as NDArrays."""
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.context import context_from_device
+
+    r = SPARSE_LM
+    rng = np.random.default_rng(SEED + 24)
+    ctx = context_from_device(dev)
+    shape = (r["bptt"], r["batch"])
+    return [(nd.array(rng.integers(0, r["vocab"], shape), ctx=ctx,
+                      dtype="int32"),
+             nd.array(rng.integers(0, r["vocab"], shape), ctx=ctx,
+                      dtype="float32")) for _ in range(SPARSE_LM_STEPS)]
+
+
+def _sparse_lm_fit(net, batches, n, handlers=(), drop_id=False):
+    """``Estimator.fit`` of ``net`` over the first ``n`` batches with a
+    fresh SGD Trainer (momentum, lazy update on): (per-batch losses, the
+    spy of the embedding's lazy updates, the trainer)."""
+    from mxnet_tpu_torch import gluon, metric
+    from mxnet_tpu_torch.gluon.contrib.estimator import BatchEnd, Estimator
+
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            dict(SPARSE_LM_OPT))
+    check(trainer._optimizer.lazy_update,
+          "sparse lm: the SGD optimizer has lazy_update off")
+    spy = _RowSparseSpy(trainer._optimizer, drop_id)
+    trainer._optimizer._update_rsp = spy
+    losses = []
+
+    class Losses(BatchEnd):
+        def batch_end(self, estimator, batch=None):
+            losses.append(float(estimator._last_loss.mean().asscalar()))
+
+    est = Estimator(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                    train_metrics=metric.Loss(), trainer=trainer)
+    est.fit(batches[:n], epochs=1, event_handlers=[Losses()] +
+            list(handlers))
+    return losses, spy, trainer
+
+
+def _first_batch_loss(net, batch):
+    from mxnet_tpu_torch import gluon
+
+    ids, labels = batch
+    return float(gluon.loss.SoftmaxCrossEntropyLoss()(
+        net(ids), labels).mean().asscalar())
+
+
+def _host_ms(fn, n=SPARSE_TIMED):
+    """Median host wall of ``fn`` in ms, the card synchronized around each
+    call (the lazy update reads its row count back, so it cannot be
+    captured into a CUDA graph)."""
+    import torch
+
+    fn()
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def _lazy_update_timing(dev, spy, card):
+    """The embedding's lazy row update on step 1's gradient against one
+    dense SGD step of the whole (vocab, hidden) table, on copies."""
+    import torch
+    from mxnet_tpu_torch import optimizer, sparse
+
+    f = spy.first
+    opt = optimizer.SGD(**SPARSE_LM_OPT)
+    w = f["before"].clone()
+    state = opt.create_state(0, w)
+    g = f["dense"]
+    rsp = sparse.dense_to_row_sparse(g)
+    out = {"rows": rsp.nnz_rows, "table": list(w.shape),
+           "lazy_ms": _host_ms(lambda: opt.update(0, w, rsp, state)),
+           "dense_ms": _host_ms(lambda: opt.update(1, w, g, state)),
+           "to_row_sparse_ms": _host_ms(
+               lambda: sparse.dense_to_row_sparse(g)),
+           "card": card}
+    print("lazy embedding update of %d rows of a (%d, %d) table: %.4f ms "
+          "host wall (the row gather, the SGD step, the scatter); a dense "
+          "SGD step of the whole table %.4f ms; the dense gradient to its "
+          "rows %.4f ms; %s" % (out["rows"], w.shape[0], w.shape[1],
+                                out["lazy_ms"], out["dense_ms"],
+                                out["to_row_sparse_ms"], card), flush=True)
+    del w, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _xent_f32_timing(dev, records, launches, steps):
+    """The softmax-xent kernels at the sparse LM's (1120, 10000) fp32
+    logits, held to their plain versions and timed against them,
+    ``F.cross_entropy`` in fp32 and their bound, added to the kernels'
+    records under ``sparse_lm_train``."""
+    import torch
+    import torch.nn.functional as TF
+    from mxnet_tpu_torch.ops.cuda import softmax_xent as sx
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 24)
+    R = SPARSE_LM["batch"] * SPARSE_LM["bptt"]
+    V = SPARSE_LM["vocab"]
+    x = torch.randn(R, V, device=dev, generator=g) * 3
+    labels = torch.randint(0, V, (R,), device=dev, generator=g,
+                           dtype=torch.int32)
+    dy = torch.full((R,), 1.0 / R, device=dev)
+    what = "sparse lm softmax-xent (%d, %d) fp32" % (R, V)
+    loss, lse = sx.softmax_xent_fwd(x, labels)
+    torch.cuda.synchronize()
+    ref_loss, ref_lse = sx.softmax_xent_fwd_plain(x, labels)
+    fwd = held(loss, ref_loss, XENT_TOL, what + " loss")
+    dx = sx.softmax_xent_bwd(x, labels, ref_lse, dy)
+    torch.cuda.synchronize()
+    bwd = held(dx, sx.softmax_xent_bwd_plain(x, labels, ref_lse, dy),
+               XENT_DX_TOL["float32"], what + " dx")
+    xf = x.clone().requires_grad_()
+    lab64 = labels.long()
+
+    def lib_fwd():
+        return TF.cross_entropy(xf, lab64, reduction="none")
+
+    def lib_fwd_bwd():
+        return torch.autograd.grad(lib_fwd(), xf, dy)
+
+    ms, plain_ms, lib_ms, lib_both = time_ms(
+        lambda: sx.softmax_xent_fwd(x, labels),
+        lambda: sx.softmax_xent_fwd_plain(x, labels), lib_fwd, lib_fwd_bwd)
+    bwd_ms, bwd_plain_ms = time_ms(
+        lambda: sx.softmax_xent_bwd(x, labels, ref_lse, dy),
+        lambda: sx.softmax_xent_bwd_plain(x, labels, ref_lse, dy))
+    ops, xbytes = 5 * R * V, R * V * 4
+    rec = {r["name"]: r for r in records}
+    out = {}
+    for name, times, reading, t_bytes, library in (
+            ("softmax_xent_fwd", (ms, plain_ms, lib_ms), fwd,
+             (xbytes + 3 * R * 4) / PEAK_BYTES,
+             "F.cross_entropy(reduction='none') on fp32 logits"),
+            ("softmax_xent_bwd", (bwd_ms, bwd_plain_ms, lib_both - lib_ms),
+             bwd, (2 * xbytes + 3 * R * 4) / PEAK_BYTES,
+             "backward of F.cross_entropy on fp32 logits (forward + "
+             "backward less forward)")):
+        t_ops = ops / PEAK_FP32
+        entry = dict(zip(("ms", "plain_ms", "library_ms"), times),
+                     launches=launches.get(name, 0),
+                     launches_per_step=launches.get(name, 0) / steps,
+                     shape=[R, V], dtype="float32",
+                     max_abs_err=reading["max_abs_err"], check=reading,
+                     bound_ms=max(t_ops, t_bytes) * 1e3,
+                     bound_by="operations" if t_ops >= t_bytes else "bytes",
+                     library=library)
+        out[name] = entry
+        if name in rec:
+            rec[name]["sparse_lm_train"] = entry
+        print("time sparse_lm_train %-17s at %s fp32: kernel %.4f ms, plain "
+              "%.4f ms, library %.4f ms, bound %.4f ms (%s), %g launches a "
+              "step" % (name, [R, V], entry["ms"], entry["plain_ms"],
+                        entry["library_ms"], entry["bound_ms"],
+                        entry["bound_by"], entry["launches_per_step"]),
+              flush=True)
+    del x, xf, dx, loss, lse, ref_loss, ref_lse
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sparse_lm(dev, records=None):
+    """The PTB LSTM LM at ``LSTM_RECIPE``'s full widths (vocabulary 10000,
+    batch 32 x bptt 35, 650 wide, 2 layers, dropout 0.5) with a row-sparse
+    ``SparseEmbedding`` and an untied decoder, fp32, trained by
+    ``Estimator.fit`` over ``SPARSE_LM_STEPS`` seeded batches with SGD
+    (lr 1.0, momentum 0.9, lazy update), a ``LoggingHandler`` and a
+    ``CheckpointHandler``. Checks: (a) exactly one softmax-xent forward
+    and backward a step and no other kernel; (b) the embedding's gradient
+    reaches the optimizer row-sparse with one row for each unique id of
+    the batch; (c) the rows and momentum rows no batch touched are their
+    initial values bit for bit; (d) step 1's lazy update equals a
+    dense-gradient SGD step within ``SPARSE_UPDATE_TOL``, and so do step
+    2's weight and momentum rows, the momentum then nonzero; (e) the losses
+    equal the same run's on the plain versions within ``STEP_LOSS_TOL``;
+    (f) a planted fault (one id dropped from the row-sparse gradient) is
+    caught by (d); (g) the checkpoint loaded into a fresh model gives the
+    same first-batch loss. Then ``row_sparse_pull`` of the trained rows,
+    ``tostype`` and ``cast_storage`` on the card, and the CSR path: ``LibSVMIter`` over a
+    seeded file of Criteo's layout into ``sparse.dot`` with a (1000000,
+    16) weight on the card, against torch's CSR product within
+    ``CSR_TOL`` of the terms' sizes (and read against scipy's in fp64);
+    the
+    lazy update's time against a dense step's; the softmax-xent kernels
+    at the fp32 logits."""
+    import torch
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.context import context_from_device
+    from mxnet_tpu_torch.gluon.contrib.estimator import (CheckpointHandler,
+                                                         LoggingHandler)
+
+    t0 = time.perf_counter()
+    card = card_line()
+    out = {"recipe": dict(SPARSE_LM, steps=SPARSE_LM_STEPS, dtype="float32",
+                          optimizer="sgd lr 1.0 momentum 0.9 lazy_update",
+                          embedding="SparseEmbedding", tied=False)}
+    with context_from_device(dev):
+        batches = _sparse_lm_batches(dev)
+        net = _sparse_lm(dev, SEED)
+        params = list(net.collect_params().values())
+        emb = net.embed.embed.weight
+        check(emb._grad_stype == "row_sparse",
+              "sparse lm: the SparseEmbedding's weight is not row-sparse")
+        init = [p._tensor().detach().clone() for p in params]
+
+        def restore():
+            with torch.no_grad():
+                for p, t in zip(params, init):
+                    p._tensor().copy_(t)
+
+        ckpt = os.path.join(_slice24_dir(), "ckpt")
+        mx_random.seed(SEED)
+        reset_counters()
+        losses, spy, trainer = _sparse_lm_fit(
+            net, batches, SPARSE_LM_STEPS,
+            [LoggingHandler(log_interval=1),
+             CheckpointHandler(ckpt, model_prefix="sparse_lm")])
+        torch.cuda.synchronize()
+        launches = read_counters()
+        out.update(losses=losses, launches=launches)
+        print("sparse lm (Estimator.fit) losses %s; kernel launches in %d "
+              "steps: %s" % (["%.4f" % v for v in losses], SPARSE_LM_STEPS,
+                             {k: v for k, v in launches.items() if v}),
+              flush=True)
+        check(len(losses) == SPARSE_LM_STEPS and all(np.isfinite(losses)),
+              "sparse lm: losses %s" % losses)
+        # (a)
+        for name, n in launches.items():
+            check(n == SPARSE_LM_LAUNCHES.get(name, 0) * SPARSE_LM_STEPS,
+                  "sparse lm %s launches %d != %d x %d steps"
+                  % (name, n, SPARSE_LM_LAUNCHES.get(name, 0),
+                     SPARSE_LM_STEPS))
+        # (b)
+        f = spy.first
+        unique = np.unique(batches[0][0].asnumpy())
+        out["row_sparse_grad"] = {"stype": f["stype"], "rows": f["rows"],
+                                  "unique_ids": int(len(unique)),
+                                  "calls": spy.calls}
+        print("sparse lm: the embedding's gradient reached the optimizer "
+              "%s with %d rows, the batch has %d unique ids of %d; %d lazy "
+              "updates" % (f["stype"], f["rows"], len(unique),
+                           batches[0][0].size, spy.calls),
+              flush=True)
+        check(f["stype"] == "row_sparse" and spy.calls == SPARSE_LM_STEPS,
+              "sparse lm: the embedding's gradient did not take the lazy "
+              "row update each step")
+        check(f["rows"] == len(unique)
+              and np.array_equal(np.sort(f["ids"]), unique),
+              "sparse lm: the row-sparse gradient has %d rows, the batch "
+              "%d unique ids" % (f["rows"], len(unique)))
+        # (c)
+        seen = np.unique(np.concatenate([b[0].asnumpy().ravel()
+                                         for b in batches]))
+        untouched = torch.from_numpy(np.setdiff1d(
+            np.arange(SPARSE_LM["vocab"]), seen)).to(dev)
+        i_emb = params.index(emb)
+        mom = trainer._states[trainer._params.index(emb)]
+        kept_w = torch.equal(emb._tensor().detach().index_select(
+            0, untouched), init[i_emb].index_select(0, untouched))
+        kept_m = not bool(mom.index_select(0, untouched).any())
+        out["untouched"] = {"rows": int(untouched.numel()),
+                            "weight_kept": kept_w, "momentum_kept": kept_m}
+        print("sparse lm: %d rows no batch touched: weight kept bit for "
+              "bit %s, momentum kept at 0 %s" % (untouched.numel(), kept_w,
+                                                 kept_m), flush=True)
+        check(kept_w and kept_m, "sparse lm: an untouched row moved")
+        # (d)
+        gap = spy.gap()
+        out["step1_gap"] = gap
+        print("sparse lm step 1: lazy update vs a dense-gradient SGD step "
+              "of the table, max |diff| %.3g (limit %g)"
+              % (gap, SPARSE_UPDATE_TOL), flush=True)
+        check(gap <= SPARSE_UPDATE_TOL,
+              "sparse lm: the lazy update disagrees with a dense step: %g"
+              % gap)
+        # (d) at step 2, the momentum rows gathered and scattered too
+        gap2 = spy.gap2(SPARSE_LM_OPT["momentum"])
+        out["step2_gap"] = gap2
+        print("sparse lm step 2: lazy update vs a dense-gradient SGD step "
+              "of the %d touched rows of the weight and the momentum, "
+              "max |diff| %.3g (limit %g)"
+              % (len(spy.second["ids"]), gap2, SPARSE_UPDATE_TOL),
+              flush=True)
+        check(gap2 <= SPARSE_UPDATE_TOL,
+              "sparse lm: the step-2 lazy update (momentum) disagrees with "
+              "a dense step: %g" % gap2)
+        # (g): the checkpoint into a fresh model, both in predict mode
+        with autograd.predict_mode():
+            trained = _first_batch_loss(net, batches[0])
+            fresh = _sparse_lm(dev, SEED + 1)
+            fresh.load_parameters(os.path.join(ckpt,
+                                               "sparse_lm-epoch0.params"))
+            loaded = _first_batch_loss(fresh, batches[0])
+        del fresh
+        out["checkpoint"] = {"trained": trained, "loaded": loaded,
+                             "files": sorted(os.listdir(ckpt))}
+        print("sparse lm checkpoint: first-batch loss %.6f trained, %.6f "
+              "loaded into a fresh model; files %s" % (
+                  trained, loaded, out["checkpoint"]["files"]), flush=True)
+        check(abs(trained - loaded) <= SPARSE_CKPT_TOL,
+              "sparse lm: the checkpoint gives another loss")
+        # (e): the same run on the plain versions
+        restore()
+        mx_random.seed(SEED)
+        reset_counters()
+        with plain_versions():
+            plain_losses, _, _ = _sparse_lm_fit(net, batches,
+                                                SPARSE_LM_STEPS)
+        torch.cuda.synchronize()
+        check(not any(read_counters().values()),
+              "the plain-version sparse lm run launched a kernel: %s"
+              % read_counters())
+        gaps = [abs(a - b) for a, b in zip(losses, plain_losses)]
+        out["vs_plain"] = {"losses": plain_losses, "gaps": gaps}
+        print("sparse lm losses vs the plain versions: %s (limit %g)"
+              % (["%.3g" % v for v in gaps], STEP_LOSS_TOL), flush=True)
+        check(max(gaps) <= STEP_LOSS_TOL,
+              "sparse lm disagrees with the plain versions: %s" % gaps)
+        # (f): one id dropped from step 1's row-sparse gradient
+        restore()
+        mx_random.seed(SEED)
+        _, fault, _ = _sparse_lm_fit(net, batches, 1, drop_id=True)
+        fgap = fault.gap()
+        out["planted_fault"] = {"dropped_id": fault.first["dropped"],
+                                "gap": fgap,
+                                "caught": fgap > SPARSE_UPDATE_TOL}
+        print("sparse lm planted fault (id %d dropped from the row-sparse "
+              "gradient): max |diff| %.3g vs the dense step; caught %s"
+              % (fault.first["dropped"], fgap, fgap > SPARSE_UPDATE_TOL),
+              flush=True)
+        check(fgap > SPARSE_UPDATE_TOL,
+              "sparse lm: the limit misses the dropped row")
+        out["lazy_update_timing"] = _lazy_update_timing(dev, spy, card)
+        out["storage"] = _storage_on_card(dev, emb, unique)
+        del net, trainer, spy, fault, init
+        torch.cuda.empty_cache()
+        out["csr"] = _csr_path(dev, card)
+    out["xent_f32"] = _xent_f32_timing(dev, records or [], launches,
+                                       SPARSE_LM_STEPS)
+    out["phase_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _storage_on_card(dev, emb, ids):
+    """The trained embedding's rows ``ids`` through ``KVStore.
+    row_sparse_pull`` into a dense array on the card, that array to
+    row-sparse storage by ``tostype`` and back by ``nd.cast_storage``:
+    the pulled rows are the table's, every other row 0, the row-sparse
+    form holds exactly ``ids``, and the round trip is bit for bit."""
+    import torch
+    from mxnet_tpu_torch import kvstore, nd
+    from mxnet_tpu_torch.context import context_from_device
+
+    ctx = context_from_device(dev)
+    table = emb.data()
+    kv = kvstore.create("local")
+    kv.init("embed", table)
+    pulled = nd.zeros(table.shape, ctx=ctx)
+    kv.row_sparse_pull("embed", out=pulled, row_ids=nd.array(
+        ids, ctx=ctx, dtype="int32"))
+    rows = torch.from_numpy(ids).to(dev).long()
+    want = torch.zeros_like(table._data).index_copy_(
+        0, rows, table._data.detach().index_select(0, rows))
+    rsp = pulled.tostype("row_sparse")
+    back = nd.cast_storage(rsp, "default")
+    out = {"pulled_equal": torch.equal(pulled._data, want),
+           "rows": rsp.nnz_rows,
+           "ids_equal": np.array_equal(rsp.indices.asnumpy(), ids),
+           "round_trip_equal": torch.equal(back._data, pulled._data),
+           "device": str(rsp.data._data.device)}
+    print("sparse storage on the card: row_sparse_pull of %d rows equal "
+          "%s; tostype('row_sparse') holds %d rows, the ids %s; "
+          "cast_storage back bit for bit %s (%s)"
+          % (len(ids), out["pulled_equal"], out["rows"], out["ids_equal"],
+             out["round_trip_equal"], out["device"]), flush=True)
+    check(out["pulled_equal"] and out["ids_equal"]
+          and out["round_trip_equal"]
+          and rsp.data._data.device.type == dev.type
+          and rsp.indices._data.device.type == dev.type,
+          "sparse storage on the card: %s" % out)
+    return out
+
+
+def _write_libsvm(path, rng):
+    """``batches`` x ``batch`` rows of Criteo's layout: a 0/1 label, then
+    one feature of each of the 39 fields (field f's ids in its own range
+    of the 1,000,000), the 13 numeric ones valued, the 26 categorical ones
+    1."""
+    r = CSR_RECIPE
+    n = r["batch"] * r["batches"]
+    width = r["features"] // r["fields"]
+    ids = (np.arange(r["fields"]) * width)[None, :] + rng.integers(
+        0, width, (n, r["fields"]))
+    vals = np.ones((n, r["fields"]), np.float32)
+    vals[:, :r["numeric"]] = rng.gamma(1.0, 2.0, (n, r["numeric"]))
+    labels = rng.integers(0, 2, n)
+    with open(path, "w") as f:
+        for lab, row, v in zip(labels, ids, vals):
+            f.write("%d %s\n" % (lab, " ".join(
+                "%d:%.6g" % (i, x) for i, x in zip(row, v))))
+    return ids, vals
+
+
+def _csr_path(dev, card):
+    """``LibSVMIter`` over the written file into ``sparse.dot(csr, W)``
+    with W (features, cols) on the card: each batch held to torch's own
+    CSR product (``torch.sparse_csr_tensor`` @ W, fp32 on the card)
+    within ``CSR_TOL`` of the terms' sizes, and read against scipy's in
+    fp64; the iterator's columns against the file."""
+    import scipy.sparse as sps
+    import torch
+    from mxnet_tpu_torch import io, nd, sparse
+
+    r = CSR_RECIPE
+    rng = np.random.default_rng(SEED + 39)
+    path = os.path.join(_slice24_dir(), "criteo_like.libsvm")
+    t0 = time.perf_counter()
+    ids, vals = _write_libsvm(path, rng)
+    t_write = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    w = torch.randn(r["features"], r["cols"], device=dev, generator=g)
+    w_host = w.double().cpu().numpy()
+    W = nd.NDArray(w)
+    t0 = time.perf_counter()
+    it = io.LibSVMIter(path, (r["features"],), batch_size=r["batch"])
+    t_parse = time.perf_counter() - t0
+    worst, ratio, worst64, n_batches, nnz = 0.0, 0.0, 0.0, 0, 0
+    for b, batch in enumerate(it):
+        csr = batch.data[0]
+        check(csr.stype == "csr" and csr.data._data.device.type ==
+              dev.type, "LibSVMIter: the batch is not CSR on the card")
+        lo = b * r["batch"]
+        check(np.array_equal(csr.indices.asnumpy(),
+                             ids[lo:lo + r["batch"]].ravel()),
+              "LibSVMIter: batch %d's columns differ from the file" % b)
+        got = sparse.dot(csr, W)
+
+        def product(vals, rhs):
+            return torch.sparse_csr_tensor(
+                csr.indptr._data.long(), csr.indices._data.long(), vals,
+                size=csr.shape).matmul(rhs)
+
+        plain = product(csr.data._data, w)
+        mag = product(csr.data._data.abs(), w.abs())
+        reading = error_reading(got._data, plain, CSR_TOL,
+                                "sparse.dot batch %d vs torch's CSR "
+                                "product" % b, mag)
+        worst = max(worst, reading["max_abs_err"])
+        ratio = max(ratio, reading["worst_ratio"])
+        ref = sps.csr_matrix((csr.data.asnumpy().astype(np.float64),
+                              csr.indices.asnumpy(), csr.indptr.asnumpy()),
+                             shape=csr.shape) @ w_host
+        worst64 = max(worst64, float(np.abs(got.asnumpy() - ref).max()))
+        n_batches += 1
+        nnz += csr.nnz
+    dot_ms = _host_ms(lambda: sparse.dot(csr, W))
+    out = {"batches": n_batches, "nnz": nnz, "max_abs_err": worst,
+           "worst_ratio": ratio, "max_abs_err_fp64": worst64, "write_s": t_write,
+           "parse_s": t_parse, "dot_ms": dot_ms, "card": card}
+    print("csr path: LibSVMIter %d batches of %d rows x %d features, %d "
+          "non-zeros (parse %.2f s); sparse.dot with a (%d, %d) weight on "
+          "the card vs torch's CSR product max |diff| %.3g, worst "
+          "error/limit %.3f; vs scipy fp64 %.3g; %.4f ms a batch host wall; "
+          "%s" % (n_batches, r["batch"], r["features"], nnz, t_parse,
+                  r["features"], r["cols"], worst, ratio, worst64, dot_ms,
+                  card), flush=True)
+    check(n_batches == r["batches"] and nnz == n_batches * r["batch"]
+          * r["fields"], "LibSVMIter: %d batches, %d non-zeros"
+          % (n_batches, nnz))
+    check(ratio <= 1.0, "sparse.dot disagrees with torch's CSR product: "
+          "%g, %.3f of its limit" % (worst, ratio))
+    del w, W
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_slice24(dev, records=None):
+    """Slice 24's path, timed: the row-sparse LM and the CSR path."""
+    try:
+        out = phase_sparse_lm(dev, records)
+    finally:
+        for d in _slice24_tmp:
+            shutil.rmtree(d, ignore_errors=True)
+        del _slice24_tmp[:]
+    print("A.17 sparse phase: %.1f s" % out["phase_seconds"], flush=True)
+    return out
+
+
 def card_line():
     """The card's name and power limit, as ``nvidia-smi --query-gpu=
     name,power.limit --format=csv,noheader`` gives them."""
@@ -14770,6 +15425,8 @@ def main():
         mark("slice21_22")
         slice23 = run_slice23(dev)
         mark("slice23")
+        slice24 = run_slice24(dev, records)
+        mark("slice24")
     except SmokeFailure as e:
         print("chip_smoke FAILED: %s" % e, file=sys.stderr)
         return 1
@@ -14790,6 +15447,7 @@ def main():
                       "fleet_costs_validate": slice21,
                       "ir_tune_comp_cache": slice22,
                       "examples_and_onnx": slice23,
+                      "sparse_and_contrib": slice24,
                       "decode_step_graphs": graphs, "quantized": quant,
                       "speculative": spec, "chunked_prefill": chunked,
                       "attention_dense_vs_flash": crossover,

@@ -31,7 +31,12 @@ DataLoader and the device prefetcher, ``gluon.utils``), the image path
 ``gluon.data.vision``), and the tooling (``profiler`` over
 ``torch.profiler``, ``observability`` with the servers' ``/metrics`` and
 per-program cost attribution, the replica fleet ``serve.fleet``, and
-``analysis``: graphlint, validate, racecheck, the program lint). Entry
+``analysis``: graphlint, validate, racecheck, the program lint), sparse
+storage (``sparse``: CSR and row-sparse arrays, the lazy row update of a
+row-sparse gradient, ``io.LibSVMIter``), ``gluon.contrib`` (the contrib
+blocks, convolutional cells and the ``Estimator``), the contrib and CTC
+ops, ``operator`` (``CustomOp``, ``register_torch_op``), ``registry``,
+``np``/``npx`` with the numpy-mode switches, and ``contrib.text``. Entry
 points run on the current CUDA device unless the caller passes
 ``device="cpu"`` (or ``ctx=mx.cpu()``, or enters ``with mx.cpu():``). The package imports
 neither JAX nor anything of ``mxnet_tpu``.
@@ -53,6 +58,11 @@ from . import image, image_det, profiler, observability  # noqa: F401
 from . import analysis  # noqa: F401
 from . import runtime, libinfo, kvstore_server, cache, ir  # noqa: F401
 from . import onnx  # noqa: F401
+from . import sparse, operator, registry, npx, contrib  # noqa: F401
+from . import numpy_api  # noqa: F401
+from . import numpy_api as np  # noqa: F401  (mx.np)
+from .util import (use_np, use_np_array, use_np_shape, np_array,  # noqa: F401
+                   np_shape)
 from . import module as mod  # noqa: F401
 from . import visualization as viz  # noqa: F401
 from .attribute import AttrScope  # noqa: F401

@@ -1,18 +1,134 @@
 """contrib layers (ref: python/mxnet/gluon/contrib/nn/basic_layers.py;
-counterpart of ``mxnet_tpu/gluon/contrib/nn.py``). Only
-:class:`SyncBatchNorm` so far: ``Identity``, ``SparseEmbedding``,
-``HybridConcurrent``/``Concurrent`` and ``PixelShuffle*`` are ROADMAP.md
-A.17."""
+counterpart of ``mxnet_tpu/gluon/contrib/nn.py``): the sub-pixel
+upsamplers ``PixelShuffle1D/2D/3D`` (a reshape and a transpose),
+``Identity``, ``SparseEmbedding`` (an ``Embedding`` whose gradient takes
+the Trainer's lazy row update), ``HybridConcurrent``/``Concurrent``
+(branches concatenated) and ``SyncBatchNorm`` (batch statistics
+all-reduced over a process group)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ... import autograd
 from ...base import cast_out
+from ..block import HybridBlock
 from ..nn import BatchNorm
 
-__all__ = ["SyncBatchNorm"]
+__all__ = ["Identity", "SparseEmbedding", "SyncBatchNorm", "HybridConcurrent",
+           "Concurrent", "PixelShuffle1D", "PixelShuffle2D", "PixelShuffle3D"]
+
+
+def _factors(factor, n):
+    f = tuple(factor) if isinstance(factor, (tuple, list)) else (factor,) * n
+    if len(f) != n or not all(isinstance(x, (int, np.integer)) and x > 0
+                              for x in f):
+        raise ValueError("factor must be a positive int or a tuple of %d "
+                         "positive ints, got %r" % (n, factor))
+    return tuple(int(x) for x in f)
+
+
+class PixelShuffle1D(HybridBlock):
+    """(N, C·f, W) → (N, C, W·f) sub-pixel upsampling (ref: contrib/nn
+    basic_layers.py:PixelShuffle1D)."""
+
+    def __init__(self, factor, **kwargs):
+        super().__init__(**kwargs)
+        (self._f,) = _factors(factor, 1)
+
+    def hybrid_forward(self, F, x):
+        f = self._f
+        n, c, w = x.shape
+        y = F.reshape(x, shape=(n, c // f, f, w))
+        y = F.transpose(y, axes=(0, 1, 3, 2))        # (N, C, W, f)
+        return F.reshape(y, shape=(n, c // f, w * f))
+
+    def __repr__(self):
+        return "%s(factor=%d)" % (type(self).__name__, self._f)
+
+
+class PixelShuffle2D(HybridBlock):
+    """(N, C·f1·f2, H, W) → (N, C, H·f1, W·f2); ``factor`` an int or (f1,
+    f2) (ref: contrib/nn basic_layers.py:PixelShuffle2D)."""
+
+    def __init__(self, factor, **kwargs):
+        super().__init__(**kwargs)
+        self._fs = _factors(factor, 2)
+
+    def hybrid_forward(self, F, x):
+        f1, f2 = self._fs
+        n, c, h, w = x.shape
+        cc = c // (f1 * f2)
+        y = F.reshape(x, shape=(n, cc, f1, f2, h, w))
+        y = F.transpose(y, axes=(0, 1, 4, 2, 5, 3))  # (N, C, H, f1, W, f2)
+        return F.reshape(y, shape=(n, cc, h * f1, w * f2))
+
+    def __repr__(self):
+        return "%s(factor=%s)" % (type(self).__name__, self._fs)
+
+
+class PixelShuffle3D(HybridBlock):
+    """(N, C·f1·f2·f3, D, H, W) → (N, C, D·f1, H·f2, W·f3) (ref: contrib/nn
+    basic_layers.py:PixelShuffle3D)."""
+
+    def __init__(self, factor, **kwargs):
+        super().__init__(**kwargs)
+        self._fs = _factors(factor, 3)
+
+    def hybrid_forward(self, F, x):
+        f1, f2, f3 = self._fs
+        n, c, d, h, w = x.shape
+        cc = c // (f1 * f2 * f3)
+        y = F.reshape(x, shape=(n, cc, f1, f2, f3, d, h, w))
+        y = F.transpose(y, axes=(0, 1, 5, 2, 6, 3, 7, 4))
+        return F.reshape(y, shape=(n, cc, d * f1, h * f2, w * f3))
+
+    def __repr__(self):
+        return "%s(factor=%s)" % (type(self).__name__, self._fs)
+
+
+class Identity(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return x
+
+
+class SparseEmbedding(HybridBlock):
+    """An embedding with a row-sparse gradient (ref:
+    contrib/nn:SparseEmbedding): ``Embedding(sparse_grad=True)``, whose
+    weight the Trainer steps by the optimizer's lazy row update, reading
+    and writing only the rows a batch touched."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32", **kwargs):
+        super().__init__(**kwargs)
+        from ..nn import Embedding
+
+        with self.name_scope():
+            self.embed = Embedding(input_dim, output_dim, dtype=dtype,
+                                   sparse_grad=True)
+
+    def hybrid_forward(self, F, x):
+        return self.embed(x)
+
+
+class HybridConcurrent(HybridBlock):
+    """Parallel branches on one input, their outputs concatenated along
+    ``axis`` (ref: contrib/nn:HybridConcurrent)."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+
+    def add(self, *blocks):
+        for b in blocks:
+            self.register_child(b)
+
+    def hybrid_forward(self, F, x):
+        return F.concat(*[b(x) for b in self._children.values()],
+                        dim=self._axis)
+
+
+Concurrent = HybridConcurrent
 
 
 def _channel_dims(x):

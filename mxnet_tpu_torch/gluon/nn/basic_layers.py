@@ -146,17 +146,20 @@ class HybridLambda(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """(ref: basic_layers.py:Embedding)"""
+    """(ref: basic_layers.py:Embedding). ``sparse_grad=True`` gives the
+    weight ``grad_stype="row_sparse"``: the Trainer steps it through the
+    optimizer's lazy row update on the rows the batch touched."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
-                 weight_initializer=None, **kwargs):
+                 weight_initializer=None, sparse_grad=False, **kwargs):
         super().__init__(**kwargs)
         self._input_dim = input_dim
         self._output_dim = output_dim
         with self.name_scope():
-            self.weight = self.params.get("weight",
-                                          shape=(input_dim, output_dim),
-                                          init=weight_initializer, dtype=dtype)
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim),
+                init=weight_initializer, dtype=dtype,
+                grad_stype="row_sparse" if sparse_grad else "default")
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, input_dim=self._input_dim,

@@ -17,6 +17,11 @@ that wrap the live tensors without a copy, as in the JAX package; a write
 into ``data()``'s NDArray goes into the parameter. The port's own code
 reads the tensor through ``_tensor()``.
 
+``stype``/``grad_stype`` are kept as MXNet's: the tensor is dense, and a
+``grad_stype="row_sparse"`` parameter (``nn.Embedding(sparse_grad=True)``)
+is stepped by the Trainer through the optimizer's lazy row update on the
+gradient's nonzero rows.
+
 ``ParameterDict.save``/``load`` write and read the legacy files keyed by
 global parameter names (``<prefix>dense0_weight``), in the JAX package's
 exact npz format.
@@ -32,6 +37,7 @@ from .. import initializer as init_mod
 from ..base import resolve_device, resolve_dtype
 
 GRAD_REQS = ("write", "add", "null")
+STYPES = ("default", "row_sparse", "csr")
 
 
 class DeferredInitializationError(RuntimeError):
@@ -77,10 +83,12 @@ class Parameter:
         self.init = init
         self.allow_deferred_init = allow_deferred_init
         self._differentiable = differentiable
-        if stype != "default" or grad_stype != "default":
-            raise NotImplementedError(
-                "Parameter %s: sparse storage (stype=%r, grad_stype=%r) is "
-                "ROADMAP.md A.17" % (name, stype, grad_stype))
+        for what, st in (("stype", stype), ("grad_stype", grad_stype)):
+            if st not in STYPES:
+                raise ValueError("Parameter %s: %s must be one of %s, got %r"
+                                 % (name, what, STYPES, st))
+        # the weight is held dense; a row_sparse grad_stype sends its
+        # gradient through the Trainer's lazy row update (trainer.py)
         self._stype = stype
         self._grad_stype = grad_stype
         self._deferred_init = None  # (initializer, device, generator)

@@ -27,6 +27,16 @@ all-gathered; the optimizer state holds only the rank's blocks.
 either way. ``update_on_kvstore`` is taken for the reference's signature;
 the update always runs in the trainer, as in the JAX package.
 
+A parameter of ``grad_stype="row_sparse"`` (``nn.Embedding(sparse_grad=
+True)``, ``contrib.nn.SparseEmbedding``) under an optimizer with
+``lazy_update`` (the default) leaves the multi-tensor step: its dense
+gradient is carried as the row-sparse array of its nonzero rows
+(``sparse.dense_to_row_sparse``, unpadded: an eager step compiles nothing
+for each row count, where the JAX package pads to a power of two) and
+stepped by the optimizer's lazy row update (``Optimizer._update_rsp``,
+``mxnet_tpu/gluon/trainer.py`` ``_update``). Such a parameter cannot be
+stepped under weight-update sharding.
+
 When every parameter belongs to a hybridized block (``hybridize()``) and
 the optimizer allows it (``Optimizer.graph_safe``: SGD, NAG, Adam, AdamW,
 AdaGrad, AdaDelta, RMSProp, Ftrl), a local whole update runs as one
@@ -237,6 +247,7 @@ class Trainer:
         shards = dist.grad_shards if dist is not None else {}
         manager = dist.manager if dist is not None else None
         idx, ws, gs, ss = [], [], [], []
+        lazy = []
         for i, p in enumerate(self._params):
             if p._data is None:
                 continue
@@ -246,6 +257,15 @@ class Trainer:
                     continue
                 raise RuntimeError("gradient of %s not attached; call "
                                    "attach_grad/initialize" % p.name)
+            if p._grad_stype == "row_sparse" and getattr(
+                    self._optimizer, "lazy_update", True):
+                if self._layout_fn() is not None or manager is not None:
+                    raise ValueError(
+                        "%s has a row-sparse gradient, which the lazy row "
+                        "update steps whole: it cannot be stepped under "
+                        "weight-update sharding" % p.name)
+                lazy.append(i)
+                continue
             w = manager.shard(p) if manager is not None else p._tensor()
             if i not in self._states:
                 state = self._optimizer.create_state(i, w)
@@ -273,12 +293,26 @@ class Trainer:
                              for i in idx])
         for i, s in zip(idx, new):
             self._states[i] = s
+        for i in lazy:
+            self._step_row_sparse(i)
         if dist is not None:
             dist.grad_shards = {}
         if manager is not None:
             # the blocks moved: the whole weights are stale until the
             # next gather_params()
             manager.release()
+
+    def _step_row_sparse(self, i):
+        """Parameter ``i``'s lazy row update on the nonzero rows of its
+        gradient."""
+        from ..sparse import dense_to_row_sparse
+
+        p = self._params[i]
+        w = p._tensor()
+        if i not in self._states:
+            self._states[i] = self._optimizer.create_state(i, w)
+        g = dense_to_row_sparse(p._data.grad)
+        self._states[i] = self._optimizer.update(i, w, g, self._states[i])
 
     def _graphed(self, idx):
         """Whether this step runs as the optimizer's step program: every

@@ -27,7 +27,8 @@ falls back to the Python route silently; here every batch is counted by
 its route (``counters["image_native"]``, ``["image_python"]``) and each
 iterator that could not take the native route records why
 (``iterator.route_reason``, and ``route_reasons`` by reason).
-``LibSVMIter`` yields CSR batches and waits for ``sparse.py`` (A.17).
+``LibSVMIter`` reads libsvm text files into ``sparse.CSRNDArray`` data
+batches on the current context (a host parse, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from .ndarray import NDArray, array
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "CSVIter",
            "MNISTIter", "PrefetchingIter", "ResizeIter", "ImageRecordIter",
            "ImageRecordUInt8Iter", "ImageDetRecordIter", "pack_det_label",
+           "LibSVMIter",
            "counters", "route_reasons", "image_lib_path"]
 
 # the explicit routes, counted: CSV files the native reader declined, and
@@ -687,6 +689,70 @@ class ImageRecordUInt8Iter(ImageRecordIter):
                             "parameters (got %s); it yields raw uint8"
                             % bad)
         super().__init__(path_imgrec, data_shape, batch_size, **kwargs)
+
+
+class LibSVMIter(DataIter):
+    """Sparse batches from libsvm text files (ref: src/io/iter_libsvm.cc):
+    each line ``label idx:val idx:val ...`` with 0-based feature indices.
+    Each batch's data is a ``sparse.CSRNDArray`` of ``(batch_size,
+    data_shape[0])``, its label a float32 NDArray; a short last batch is
+    dropped. ``label_libsvm`` takes the labels from another file's first
+    column. A feature index outside ``[0, data_shape[0])`` raises
+    ``ValueError`` naming its line (on the card it would fault the
+    gather of ``sparse.dot``)."""
+
+    def __init__(self, data_libsvm, data_shape, batch_size, label_libsvm=None,
+                 **kwargs):
+        super().__init__(batch_size)
+        self._num_features = int(data_shape[0] if np.ndim(data_shape)
+                                 else data_shape)
+        self._labels = []
+        self._rows = []  # (indices, values) a line
+        with open(data_libsvm) as f:
+            for lineno, line in enumerate(f, 1):
+                parts = line.split()
+                if not parts:
+                    continue
+                self._labels.append(float(parts[0]))
+                pairs = [tok.split(":") for tok in parts[1:]]
+                idx = np.asarray([int(i) for i, _ in pairs], np.int64)
+                if idx.size and (idx.min() < 0
+                                 or idx.max() >= self._num_features):
+                    raise ValueError(
+                        "%s:%d: a feature index outside [0, %d)"
+                        % (data_libsvm, lineno, self._num_features))
+                self._rows.append(
+                    (idx.astype(np.int32),
+                     np.asarray([float(v) for _, v in pairs], np.float32)))
+        if label_libsvm is not None:
+            with open(label_libsvm) as f:
+                self._labels = [float(line.split()[0]) for line in f
+                                if line.strip()]
+        self.reset()
+
+    def reset(self):
+        self._cursor = 0
+
+    def iter_next(self):
+        return self._cursor + self.batch_size <= len(self._rows)
+
+    def next(self):
+        if not self.iter_next():
+            raise StopIteration
+        from .sparse import CSRNDArray
+
+        rows = self._rows[self._cursor:self._cursor + self.batch_size]
+        labels = self._labels[self._cursor:self._cursor + self.batch_size]
+        self._cursor += self.batch_size
+        indptr = np.zeros(len(rows) + 1, np.int32)
+        np.cumsum([len(idx) for idx, _ in rows], out=indptr[1:])
+        indices = np.concatenate([idx for idx, _ in rows]) if rows else \
+            np.zeros(0, np.int32)
+        values = np.concatenate([v for _, v in rows]) if rows else \
+            np.zeros(0, np.float32)
+        data = CSRNDArray(values, indices, indptr,
+                          (len(rows), self._num_features))
+        return DataBatch([data], [array(np.asarray(labels, np.float32))])
 
 
 class ImageDetRecordIter(_RecordIterBase):

@@ -18,7 +18,9 @@ python/mxnet/kvstore.py; counterpart of ``mxnet_tpu/kvstore.py``).
 (:meth:`KVStore.set_gradient_compression`) quantizes each push to
 {-t, 0, +t} and keeps what it dropped in a per-key residual that the next
 push adds back; in the dist store the compressed value is what crosses the
-ranks. ``row_sparse_pull`` raises: row-sparse storage is ROADMAP.md A.17.
+ranks. ``row_sparse_pull`` gathers the requested rows of a stored value
+on its device into a dense ``out`` of the value's shape, every other row
+zeroed (the dense view of the row-sparse result, as in the JAX package).
 
 Values are NDArrays or tensors; the store keeps tensors on the device of
 the first value given for a key.
@@ -111,9 +113,37 @@ class KVStore:
         return self.pull(key, out if out is not None else value, priority)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        raise NotImplementedError(
-            "row_sparse_pull needs row-sparse storage, which is not ported "
-            "yet (ROADMAP.md A.17)")
+        """Pull only the rows ``row_ids`` of each key (ref:
+        python/mxnet/kvstore/kvstore.py:row_sparse_pull): ``out`` (an
+        NDArray or tensor of the value's shape) receives them, its other
+        rows zeroed. One ``row_ids`` serves every key of a list; a row id
+        outside the value's rows raises ``ValueError``."""
+        if out is None or row_ids is None:
+            raise ValueError("row_sparse_pull requires out= and row_ids=")
+        keys, outs = _normalize(key, out)
+        rids = row_ids if isinstance(row_ids, (list, tuple)) else [row_ids]
+        if len(rids) == 1 and len(outs) > 1:
+            rids = rids * len(outs)
+        if len(rids) != len(outs):
+            raise ValueError("row_sparse_pull: %d row_ids for %d keys"
+                             % (len(rids), len(outs)))
+        results = []
+        for k, o, r in zip(keys, outs, rids):
+            v = self._store[k]
+            idx = _tensor(r).to(device=v.device, dtype=torch.int64)
+            if idx.numel() and (int(idx.min()) < 0
+                                or int(idx.max()) >= v.shape[0]):
+                raise ValueError("row_sparse_pull: a row id of key %r "
+                                 "outside [0, %d)" % (k, v.shape[0]))
+            dense = torch.zeros_like(v).index_copy_(0, idx,
+                                                    v.index_select(0, idx))
+            if isinstance(o, NDArray):
+                o._rebind(dense.to(o._data.device))
+            else:
+                with torch.no_grad():
+                    o.copy_(dense)
+            results.append(o)
+        return results if len(results) > 1 else results[0]
 
     def set_optimizer(self, optimizer):
         if not isinstance(optimizer, Optimizer):

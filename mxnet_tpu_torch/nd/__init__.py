@@ -14,6 +14,12 @@ were. The KV-cache writes (``cache_write``, ``quant_cache_write``,
 ``quant_cache_write_read``) write in place at the tensor level, where the
 decode steps' captured graphs need fixed buffers; here they write into a
 copy and return it, as the JAX package's functional ops do.
+
+``nd.sparse`` is the sparse storage module (``cast_storage``, the CSR and
+row-sparse classes, ``dot``); ``nd.cast_storage`` converts between storage
+types, ``nd.Custom`` runs a registered ``operator.CustomOp``, and an op
+registered after import (``operator.register_torch_op``) resolves on first
+use.
 """
 from __future__ import annotations
 
@@ -28,35 +34,28 @@ from ..ndarray import (NDArray, array, zeros, ones, full, empty,  # noqa: F401
 from . import random  # noqa: F401
 from . import contrib  # noqa: F401
 from .. import linalg  # noqa: F401
+from .. import sparse  # noqa: F401  (mx.nd.sparse)
+from ..sparse import cast_storage  # noqa: F401  (ref: cast_storage.cc)
+from ..operator import Custom  # noqa: F401  (ref: custom/custom.cc)
 
 _mod = _sys.modules[__name__]
 
 # the JAX registry's names the port has not ported, by ROADMAP.md item
 _NOT_PORTED_BY_ITEM = {
-    "A.17 (contrib ops)": (
-        "allclose", "arange_like", "box_decode", "box_encode", "contrib_fft",
-        "contrib_ifft", "div_sqrt_dim", "gradientmultiplier",
-        "group_adagrad_update", "index_array", "index_copy",
-        "interleaved_matmul_encdec_qk", "interleaved_matmul_encdec_valatt",
-        "interleaved_matmul_selfatt_qk", "interleaved_matmul_selfatt_valatt",
-        "quantize_v2"),
-    "A.17 (sparse)": ("_csr_dot",),
     "A.17 (detection)": (
         "_onnx_gather_nd", "_onnx_nms", "_onnx_scatter_nd", "yolo3_decode",
         "yolo3_target"),
-    "A.11/A.17 (rcnn)": (
+    "A.17 (rcnn)": (
         "DeformableConvolution", "ModulatedDeformableConvolution",
         "MultiProposal", "PSROIPooling", "Proposal",
         "deformable_convolution", "modulated_deformable_convolution",
         "multi_proposal", "proposal", "psroi_pooling"),
-    "A.11/A.17 (roi)": ("ROIAlign", "ROIPooling", "roi_align",
-                        "roi_pooling"),
-    "A.11/A.17 (spatial)": (
+    "A.17 (roi)": ("ROIAlign", "ROIPooling", "roi_align", "roi_pooling"),
+    "A.17 (spatial)": (
         "BilinearSampler", "GridGenerator", "SpatialTransformer",
         "bilinear_sampler", "grid_generator", "space_to_depth_stem_conv",
         "spatial_transformer"),
-    "A.11/A.17 (pose)": ("heatmap_to_coords", "pose_target"),
-    "A.11 (ctc)": ("CTCLoss", "ctc_loss"),
+    "A.17 (pose)": ("heatmap_to_coords", "pose_target"),
 }
 NOT_PORTED = {name: item for item, names in _NOT_PORTED_BY_ITEM.items()
               for name in names}
@@ -210,4 +209,14 @@ def sample_multinomial(data, *args, get_prob=False, **kwargs):
     return invoke("sample_multinomial", (data,) + args, kwargs)
 
 
+def __getattr__(name):
+    """An op registered after import (``operator.register_torch_op``)."""
+    if name in _REG:
+        f = _make(name)
+        setattr(_mod, name, f)
+        return f
+    raise AttributeError(name)
+
+
+_sys.modules[__name__ + ".sparse"] = sparse  # import mxnet_tpu_torch.nd.sparse
 del _name, _owner, _pos, _layout, _written

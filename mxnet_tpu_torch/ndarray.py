@@ -69,7 +69,8 @@ _NUMPY_DTYPES = {
     torch.float16: np.float16, torch.float32: np.float32,
     torch.float64: np.float64, torch.int8: np.int8, torch.uint8: np.uint8,
     torch.int16: np.int16, torch.int32: np.int32, torch.int64: np.int64,
-    torch.bool: np.bool_,
+    torch.bool: np.bool_, torch.complex64: np.complex64,
+    torch.complex128: np.complex128,
 }
 
 
@@ -479,7 +480,11 @@ class NDArray:
         return invoke("ones_like", (self,), {})
 
     def tostype(self, stype):
-        return self  # dense only; sparse storage is ROADMAP.md A.17
+        """This array in storage ``stype`` (``default`` is itself; ``csr``
+        and ``row_sparse`` are ``sparse`` arrays)."""
+        from .sparse import cast_storage
+
+        return cast_storage(self, stype)
 
     def __repr__(self):
         return "%s\n<NDArray %s @%s>" % (

@@ -4,6 +4,7 @@ import re as _re
 from . import functional as F  # noqa: F401
 from . import attention  # noqa: F401
 from . import extra, legacy_ops  # noqa: F401
+from . import contrib_extra, ctc  # noqa: F401
 from ..base import OP_REGISTRY as _R
 
 

@@ -108,12 +108,16 @@ def softmax_with_length(data, length, *, axis=-1, temperature=None):
 
 @register_op("cast_storage")
 def cast_storage(data, *, stype="default"):
-    """Dense storage only: ``default`` is the identity (sparse storage is
-    ``ROADMAP.md`` A.17)."""
+    """The symbolic form (ref: tensor/cast_storage.cc): inside a graph
+    every array is dense, so ``default`` is the identity and a sparse
+    target refuses, as in the JAX package. The imperative
+    ``nd.cast_storage`` (``sparse.cast_storage``) converts between the
+    storage classes."""
     if stype != "default":
-        raise NotImplementedError(
-            "cast_storage(stype=%r): sparse storage is not ported yet "
-            "(ROADMAP.md A.17)" % (stype,))
+        raise ValueError(
+            "cast_storage(stype=%r) inside a graph: the symbolic executor "
+            "is dense-only; convert imperatively with nd.cast_storage"
+            % (stype,))
     return data
 
 

@@ -25,8 +25,13 @@ master and casts it back into the weight. Gradients are rescaled and
 clipped in fp32. A low-precision weight without a master is stepped in
 fp32 and cast back once.
 
-A row-sparse gradient (the JAX package's lazy ``_update_rsp``) waits for
-``sparse.py`` (ROADMAP.md A.17) and raises.
+A row-sparse gradient (``sparse.RowSparseNDArray``) takes the lazy row
+update (:meth:`Optimizer._update_rsp`, the JAX package's): the step runs on
+the gradient's rows only, gathered from the weight and from every state
+leaf of the weight's shape, and they are scattered back; every other row,
+and its state, stays as it was. Padding rows (an id equal to the row
+count) are dropped. An optimizer with ``lazy_update=False`` densifies the
+gradient and steps every row.
 """
 from __future__ import annotations
 
@@ -277,19 +282,52 @@ class Optimizer:
 
     def update(self, index, weight, grad, state):
         """The per-index update (ref: optimizer.py:Optimizer.update): the
-        weight in place; returns the state."""
-        if getattr(grad, "stype", "default") == "row_sparse" \
-                or getattr(grad, "is_sparse", False):
-            return self._update_rsp(index, weight, grad, state)
+        weight (a tensor or an NDArray) in place; returns the state. A
+        row-sparse gradient (a ``sparse.RowSparseNDArray``, or a torch
+        sparse tensor, taken as the rows of its nonzeros) takes
+        :meth:`_update_rsp`, or is densified with ``lazy_update=False``."""
+        weight = getattr(weight, "_data", weight)
+        if getattr(grad, "is_sparse", False):  # a torch sparse tensor
+            from .sparse import dense_to_row_sparse
+
+            grad = dense_to_row_sparse(grad.to_dense())
+        if getattr(grad, "stype", "default") == "row_sparse":
+            if getattr(self, "lazy_update", True):
+                return self._update_rsp(index, weight, grad, state)
+            grad = grad.todense()
+        grad = getattr(grad, "_data", grad)
         return self.fused_update([weight], [grad], [state], [index])[0]
 
     def update_multi_precision(self, index, weight, grad, state):
         return self.update(index, weight, grad, state)
 
     def _update_rsp(self, index, weight, grad, state):
-        raise NotImplementedError(
-            "a row-sparse gradient takes the lazy row update, which waits "
-            "for sparse.py (ROADMAP.md A.17)")
+        """The lazy row update (ref: src/operator/optimizer_op.cc
+        SGDUpdateRsp / AdamUpdateRsp): gather the gradient's rows of the
+        weight and of each state leaf of the weight's shape, run the dense
+        step (:meth:`fused_update`) on those rows, scatter them back. Other
+        leaves (a scalar state) are stepped as they are. Returns the
+        state."""
+        from .util import map_state, tree_leaves
+
+        rows, vals = grad._rows()
+        shape = tuple(weight.shape)
+
+        def row_shaped(t):
+            return isinstance(t, torch.Tensor) and tuple(t.shape) == shape
+
+        with torch.no_grad():
+            rows = rows.to(weight.device)
+            w_rows = weight.index_select(0, rows)
+            sub = map_state(state, lambda t: t.index_select(0, rows)
+                            if row_shaped(t) else t)
+            self.fused_update([w_rows], [vals.to(weight.device)], [sub],
+                              [index])
+            weight.index_copy_(0, rows, w_rows)
+            for leaf, stepped in zip(tree_leaves(state), tree_leaves(sub)):
+                if row_shaped(leaf):
+                    leaf.index_copy_(0, rows, stepped)
+        return state
 
 
 class StepProgram:

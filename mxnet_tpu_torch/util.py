@@ -1,5 +1,7 @@
 """Checkpoint arrays in the JAX package's exact npz format, in files and
-as bytes, and the environment helpers of upstream's ``mx.util``.
+as bytes, the environment helpers of upstream's ``mx.util``, and its
+numpy-mode switches (``set_np``/``reset_np``, the ``use_np`` family,
+MXNet 2.x's opt-in to numpy semantics; the flag lives in ``npx``).
 
 A copy of the format of ``mxnet_tpu/util.py`` ``save_npz_exact`` /
 ``load_npz_exact``: dtypes the ``.npy`` header cannot hold (bfloat16, fp8)
@@ -13,6 +15,7 @@ numpy arrays.
 """
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -118,6 +121,94 @@ def getenv(name):
 
 def setenv(name, value):
     os.environ[name] = value
+
+
+# ------------------------------------------------------------- numpy mode
+def set_np(shape=True, array=True):
+    from . import npx
+
+    npx.set_np(shape=shape, array=array)
+
+
+def reset_np():
+    from . import npx
+
+    npx.reset_np()
+
+
+def is_np_array():
+    from . import npx
+
+    return npx.is_np_array()
+
+
+def is_np_shape():
+    """The array mode's flag: zero-size and scalar shapes are always
+    allowed here, so the shape mode follows the array mode, as in the JAX
+    package."""
+    return is_np_array()
+
+
+class _NpScope:
+    """A context manager and decorator that sets numpy mode inside and
+    restores it after (ref: util.py np_array/np_shape)."""
+
+    def __init__(self, active=True):
+        self._active = active
+        self._prev = None
+
+    def __enter__(self):
+        self._prev = is_np_array()
+        set_np() if self._active else reset_np()
+        return self
+
+    def __exit__(self, *exc):
+        set_np() if self._prev else reset_np()
+
+    def __call__(self, fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            with _NpScope(self._active):
+                return fn(*args, **kwargs)
+
+        return wrapped
+
+
+def np_array(active=True):
+    return _NpScope(active)
+
+
+def np_shape(active=True):
+    return _NpScope(active)
+
+
+def use_np_array(fn):
+    """Decorator: run ``fn`` in numpy-array mode (ref:
+    util.py:use_np_array)."""
+    return _NpScope(True)(fn)
+
+
+def use_np_shape(fn):
+    return _NpScope(True)(fn)
+
+
+def use_np(fn):
+    """Decorator: numpy shape and array semantics (ref: util.py:use_np). On
+    a class, every plain method (``__init__`` and ``__call__`` too) and
+    every static and class method runs in the scope."""
+    import inspect
+
+    if isinstance(fn, type):
+        for attr, v in list(vars(fn).items()):
+            if inspect.isfunction(v) and (not attr.startswith("__")
+                                          or attr in ("__init__", "__call__")):
+                setattr(fn, attr, _NpScope(True)(v))
+            elif isinstance(v, staticmethod):
+                setattr(fn, attr, staticmethod(_NpScope(True)(v.__func__)))
+            elif isinstance(v, classmethod):
+                setattr(fn, attr, classmethod(_NpScope(True)(v.__func__)))
+        return fn
+    return _NpScope(True)(fn)
 
 
 def load_npz_exact(filename):

@@ -75,8 +75,13 @@ def test_parameter_constructor_and_dict_helpers():
         p = mx.gluon.Parameter("w", shape=(2, 3), lr_mult=0.1, wd_mult=0.0,
                                differentiable=False)
         assert (p.lr_mult, p.wd_mult, p.grad_req) == (0.1, 0.0, "null")
-        with pytest.raises(NotImplementedError):
-            mx.gluon.Parameter("s", shape=(2,), stype="row_sparse")
+        # sparse storage types are kept (A.17); an unknown one
+        # raises
+        sp = mx.gluon.Parameter("s", shape=(2,), stype="row_sparse",
+                                grad_stype="row_sparse")
+        assert (sp._stype, sp._grad_stype) == ("row_sparse", "row_sparse")
+        with pytest.raises(ValueError):
+            mx.gluon.Parameter("s", shape=(2,), grad_stype="dense")
         assert p.list_ctx() == []
         p.initialize(mx.init.One())
         assert p.list_ctx() == [mx.cpu()]

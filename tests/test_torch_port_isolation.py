@@ -10,8 +10,10 @@ sequence, pipeline and expert parallelism and ``SyncBatchNorm``, the
 shared capture module and ``hybridize``'s programs, the engine's bulk
 window, the symbolic API, the Module family, control flow, the host
 I/O, the image path, the observability core and the profiler, cost
-attribution, the analysis tools, the replica fleet and ``onnx``
-included) imports with JAX blocked; the example and tool twins
+attribution, the analysis tools, the replica fleet, ``onnx``, sparse
+storage, ``operator``, ``registry``, ``np``/``npx``, ``contrib`` and
+``gluon.contrib``'s cells and Estimator included) imports with JAX
+blocked; the example and tool twins
 (``examples/torch_*.py``, ``tools/torch_*.py``) import neither; and without
 CUDA every entry point refuses to run unless the caller asks for the
 CPU."""
@@ -102,6 +104,13 @@ def test_package_imports_with_jax_blocked():
             "mxnet_tpu_torch.parallel.pipeline, "
             "mxnet_tpu_torch.parallel.expert_parallel, "
             "mxnet_tpu_torch.gluon.contrib.nn, mxnet_tpu_torch.init, "
+            "mxnet_tpu_torch.sparse, mxnet_tpu_torch.operator, "
+            "mxnet_tpu_torch.registry, mxnet_tpu_torch.npx, "
+            "mxnet_tpu_torch.numpy_api, mxnet_tpu_torch.contrib, "
+            "mxnet_tpu_torch.contrib.text, mxnet_tpu_torch._contrib_ops, "
+            "mxnet_tpu_torch.ops.contrib_extra, mxnet_tpu_torch.ops.ctc, "
+            "mxnet_tpu_torch.gluon.contrib.rnn, "
+            "mxnet_tpu_torch.gluon.contrib.estimator, "
             "mxnet_tpu_torch.gluon.model_zoo.model_store, "
             "mxnet_tpu_torch.capture, mxnet_tpu_torch.gluon.hybrid, "
             "mxnet_tpu_torch.serve.step_graph, mxnet_tpu_torch.engine, "

@@ -120,9 +120,15 @@ def test_refusals_and_names():
         kvstore.create("bogus")
     assert type(kvstore.create("dist_sync")) is kvstore.DistKVStore
     assert type(kvstore.create("nccl")) is kvstore.KVStore
-    with pytest.raises(NotImplementedError, match="A.17"):
-        kvstore.create("local").row_sparse_pull("w", out=torch.zeros(2),
-                                                row_ids=torch.zeros(1))
+    # row_sparse_pull is ported (tests/test_torch_port_sparse.py): it
+    # refuses a call without out= or row_ids=
+    local = kvstore.create("local")
+    local.init("w", torch.arange(4.0).reshape(2, 2))
+    with pytest.raises(ValueError, match="row_ids"):
+        local.row_sparse_pull("w", out=torch.zeros(2, 2))
+    out = torch.zeros(2, 2)
+    local.row_sparse_pull("w", out=out, row_ids=torch.ones(1))
+    np.testing.assert_array_equal(out.numpy(), [[0.0, 0.0], [2.0, 3.0]])
     # a group of one (no process group): dist_sync is the local store
     kv = kvstore.create("dist_sync")
     kv.init("w", torch.zeros(2))

@@ -16,6 +16,7 @@ from mxnet_tpu.gluon.model_zoo import vision as jvision
 from mxnet_tpu_torch.convert import from_jax_params
 from mxnet_tpu_torch.gluon.model_zoo import vision
 from torch_port_helpers import jax_params, jax_trace_state  # noqa: F401
+from torch_port_helpers import numpy_uniform
 from torch_port_helpers import few_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_threads")
@@ -55,7 +56,7 @@ def family_forward_matches_jax(name, size):
     x = np.random.RandomState(size).randn(1, 3, size, size).astype(
         np.float32)
     j = jvision.get_model(name, classes=10)
-    j.initialize()
+    j.initialize(numpy_uniform())
     jy = np.asarray(j(mx.nd.array(x)).asnumpy())
     t = from_jax_params(vision.get_model(name, classes=10), jax_params(j))
     ty = t(torch.from_numpy(x)).detach().numpy()
@@ -80,7 +81,7 @@ def test_s2d_stem_is_the_plain_convolution(jax_trace_state,  # noqa: F811
     JAX s2d model's forward."""
     x = np.random.RandomState(2).randn(2, 3, 64, 64).astype(np.float32)
     j = jvision.get_resnet(1, 18, classes=7, stem_s2d=True)
-    j.initialize()
+    j.initialize(numpy_uniform())
     jy = np.asarray(j(mx.nd.array(x)).asnumpy())
     s2d = from_jax_params(vision.get_resnet(1, 18, classes=7, stem_s2d=True),
                           jax_params(j))
@@ -109,7 +110,7 @@ def test_pretrained_true_raises_and_a_path_loads(jax_trace_state,  # noqa: F811
         vision.resnet18_v1(pretrained=True)
     x = np.random.RandomState(3).randn(1, 3, 32, 32).astype(np.float32)
     j = jvision.get_model("squeezenet1.1", classes=5)
-    j.initialize()
+    j.initialize(numpy_uniform())
     jy = np.asarray(j(mx.nd.array(x)).asnumpy())
     path = str(tmp_path / "sq.params")
     j.save_parameters(path)

@@ -19,12 +19,6 @@ import mxnet_tpu_torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MISSING = {
-    # A.17: the rest
-    "contrib": "A.17", "numpy_api": "A.17", "np": "A.17",
-    "npx": "A.17", "np_array": "A.17", "np_shape": "A.17",
-    "use_np": "A.17", "use_np_array": "A.17", "use_np_shape": "A.17",
-    "operator": "A.17", "registry": "A.17",
-    "sparse": "A.17",
     # the JAX package's TPU context: the port's accelerator is mx.gpu
     "tpu": "not applicable", "num_tpus": "not applicable",
 }
@@ -67,14 +61,8 @@ MISSING_IN = {
         "serve_compile_counter", "verify_dispatch_counter")},
     "gluon.block": {"builtins_sum": "not applicable, because it is a "
                                     "helper of the JAX summary()"},
-    "gluon.contrib.nn": {n: "A.17" for n in (
-        "Concurrent", "HybridConcurrent", "Identity", "PixelShuffle1D",
-        "PixelShuffle2D", "PixelShuffle3D", "SparseEmbedding")},
-    "io": {"LibSVMIter": "A.17"},
     "linalg": {n: JAX_INTERNAL for n in (
         "k_gelqf", "k_gemm2", "k_potri", "k_syrk", "k_trmm", "k_trsm")},
-    "nd.contrib": {"CONTRIB_OPS": "A.17"},
-    "sym_contrib": {"CONTRIB_OPS": "A.17"},
     "ndarray": {"LazyExpr": "not applicable, because the port's bulk "
                             "window keeps its own record of deferred ops, "
                             "which it converts into the IR at its flush "
@@ -84,6 +72,14 @@ MISSING_IN = {
                            "names its key in the counter's bump(note=)",
         "current_context": "not applicable, because each port build site "
                            "names its key in the counter's bump(note=)"},
+    "operator": {
+        "register_jax_op": "not applicable, because it registers a JAX "
+                           "function: its torch counterpart is "
+                           "operator.register_torch_op",
+        "as_jax_fn": "not applicable, because it wraps a host CustomOp in "
+                     "jax.pure_callback for traced JAX code: a torch "
+                     "program calls nd.Custom directly, and a CUDA graph "
+                     "capture of it raises"},
     "ops": "not applicable, because the port keeps its functional ops in "
            "ops.functional (ops.F), compared there",
     "ops.detection": {n: "A.17" for n in (
@@ -106,25 +102,16 @@ MISSING_IN = {
                                                "hybridized at construction "
                                                "(A.14)"},
     "sym": dict({n: "A.17" for n in (
-        "BilinearSampler", "CTCLoss", "DeformableConvolution",
-        "GridGenerator", "ModulatedDeformableConvolution", "MultiProposal",
-        "PSROIPooling", "Proposal", "ROIAlign", "ROIPooling",
-        "SpatialTransformer", "allclose", "arange_like", "bilinear_sampler",
-        "box_decode", "box_encode", "contrib_fft", "contrib_ifft",
-        "ctc_loss", "deformable_convolution", "div_sqrt_dim",
-        "gradientmultiplier", "grid_generator", "group_adagrad_update",
-        "index_array", "index_copy", "interleaved_matmul_encdec_qk",
-        "interleaved_matmul_encdec_valatt", "interleaved_matmul_selfatt_qk",
-        "interleaved_matmul_selfatt_valatt", "modulated_deformable_convolution",
-        "multi_proposal", "proposal", "psroi_pooling", "quantize_v2",
-        "roi_align", "roi_pooling", "spatial_transformer", "yolo3_decode",
-        "yolo3_target")},
+        "BilinearSampler", "DeformableConvolution", "GridGenerator",
+        "ModulatedDeformableConvolution", "MultiProposal", "PSROIPooling",
+        "Proposal", "ROIAlign", "ROIPooling", "SpatialTransformer",
+        "bilinear_sampler", "deformable_convolution", "grid_generator",
+        "modulated_deformable_convolution", "multi_proposal", "proposal",
+        "psroi_pooling", "roi_align", "roi_pooling", "spatial_transformer",
+        "yolo3_decode", "yolo3_target")},
         space_to_depth_stem_conv="not applicable, because the space-to-depth "
                                  "stem only re-lays the TPU's input lanes "
                                  "(A.11)"),
-    "util": {n: "A.17" for n in (
-        "is_np_array", "is_np_shape", "np_array", "np_shape", "reset_np",
-        "set_np", "use_np", "use_np_array", "use_np_shape")},
 }
 
 # class -> {public attribute the JAX class has and the port's lacks: item}

@@ -14,7 +14,7 @@ from tools.nd_op_cases import CASES, RANDOM_CASES, SAMPLE_CASES
 # torch on 2 threads: the suite runs a worker a core or so
 pytestmark = pytest.mark.usefixtures("few_threads")
 
-LEGACY = cases_between("all_finite", None)
+LEGACY = cases_between("all_finite", "arange_like")
 
 
 @cases_param(LEGACY)
@@ -113,9 +113,17 @@ def test_every_jax_op_is_ported_or_listed():
 def test_nd_contrib_and_control_flow_name_their_items():
     import mxnet_tpu_torch as mx
 
-    for name, item in (("ROIAlign", "A.11/A.17"), ("fft", "A.17")):
+    for name, item in (("ROIAlign", "A.17"), ("PSROIPooling", "A.17")):
         with pytest.raises(NotImplementedError, match=item):
             getattr(mx.nd.contrib, name)()
+    with pytest.raises(NotImplementedError, match="A.17"):
+        mx.sym.contrib.ROIPooling()
+    # the contrib names of A.17's first half are ported (ops/contrib_extra)
+    from mxnet_tpu._contrib_ops import CONTRIB_OPS as JAX_CONTRIB
+    assert mx.nd.contrib.CONTRIB_OPS == JAX_CONTRIB
+    with mx.cpu():
+        spec = mx.nd.contrib.fft(mx.nd.array([[1.0, 0.0, 0.0, 0.0]]))
+        np.testing.assert_array_equal(spec.asnumpy(), [[1, 0] * 4])
     with mx.cpu():  # the control flow is ported (A.14)
         outs, last = mx.nd.contrib.foreach(
             lambda x, s: (x + s, s + 1.0), mx.nd.ones((3, 2)),

@@ -136,11 +136,17 @@ def test_sgld_noise_moments_match_jax(jax_trace_state):  # noqa: F811
 
 
 def test_row_sparse_gradient_raises_naming_sparse():
-    o = topt.SGD(momentum=0.9)
-    w = torch.zeros(4, 3)
+    """A sparse gradient takes the lazy row update (sparse storage is
+    ported): the rows it holds are stepped, the others keep their weight
+    and momentum (tests/test_torch_port_sparse.py holds it to the JAX
+    package's)."""
+    o = topt.SGD(momentum=0.9, learning_rate=0.5)
+    w = torch.ones(4, 3)
     g = torch.eye(4, 3).to_sparse()
-    with pytest.raises(NotImplementedError, match="A.17"):
-        o.update(0, w, g, o.create_state(0, w))
+    state = o.update(0, w, g, o.create_state(0, w))
+    np.testing.assert_allclose(w[:3].numpy(), 1.0 - 0.5 * np.eye(3))
+    np.testing.assert_array_equal(w[3].numpy(), [1.0, 1.0, 1.0])
+    assert not state[3].any()
 
 
 @pytest.mark.parametrize("name", ["sgd", "lamb", "adam"])

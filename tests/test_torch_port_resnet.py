@@ -29,6 +29,7 @@ from torch_port_helpers import local_params as _local
 from torch_port_helpers import port_class_step as _port_step
 from torch_port_helpers import rel_l2 as _rel_l2
 from torch_port_helpers import jax_params, jax_trace_state  # noqa: F401
+from torch_port_helpers import numpy_uniform
 
 SGD = {"learning_rate": 0.1, "momentum": 0.9, "multi_precision": True,
        "wd": 1e-4}
@@ -37,11 +38,12 @@ from torch_port_helpers import few_threads  # noqa: F401
 pytestmark = pytest.mark.usefixtures("few_threads")
 
 
-def _pair(name, x, **kw):
-    """The JAX zoo model ``name`` initialized and shaped by one forward of
-    x, and the port's with its parameters."""
+def _pair(name, x, init=None, **kw):
+    """The JAX zoo model ``name`` initialized (by ``init``, else its default
+    draw) and shaped by one forward of x, and the port's with its
+    parameters."""
     jm = jvision.get_model(name, **kw)
-    jm.initialize()
+    jm.initialize(init)
     jm(mx.nd.array(x))
     return jm, from_jax_params(vision.get_model(name, **kw), jax_params(jm))
 
@@ -58,8 +60,8 @@ def test_resnet_forward_matches_jax(jax_trace_state, version, depth):  # noqa: F
     statistics within 1e-4 in relative L2 (a batch mean is a sum that
     cancels to about 1e-3 of its terms)."""
     x = np.random.RandomState(depth).randn(4, 3, 32, 32).astype(np.float32)
-    jm, tm = _pair("resnet%d_%s" % (depth, version), x, classes=10,
-                   thumbnail=True)
+    jm, tm = _pair("resnet%d_%s" % (depth, version), x, numpy_uniform(),
+                   classes=10, thumbnail=True)
     jy = _f32(jm(mx.nd.array(x)))
     ty = _f32(tm(torch.from_numpy(x)))
     assert np.abs(ty - jy).max() <= 1e-5 * max(np.abs(jy).max(), 1)
@@ -99,7 +101,7 @@ def test_parameter_files_cross_both_ways(jax_trace_state, tmp_path,  # noqa: F81
     every array's bits and dtype."""
     x = np.zeros((1, 3, 32, 32), np.float32)
     jm = jvision.resnet50_v1(classes=10)
-    jm.initialize()
+    jm.initialize(numpy_uniform())
     jm(mx.nd.array(x))
     jamp.convert_hybrid_block(jm, "bfloat16")
     path = str(tmp_path / "r50.params")
@@ -115,7 +117,7 @@ def test_parameter_files_cross_both_ways(jax_trace_state, tmp_path,  # noqa: F81
         tm = from_jax_params(vision.resnet50_v1(classes=10), jax_params(jm))
         tm.save_parameters(path)
         jm2 = jvision.resnet50_v1(classes=10)
-        jm2.initialize()
+        jm2.initialize(numpy_uniform())
         jm2(mx.nd.array(x))
         jamp.convert_hybrid_block(jm2, "bfloat16")
         jm2.load_parameters(path)

@@ -32,6 +32,7 @@ from torch_port_helpers import f32 as _f32
 from torch_port_helpers import jax_class_step as _jax_step
 from torch_port_helpers import jax_trace_state_module  # noqa: F401
 from torch_port_helpers import local_params as _local
+from torch_port_helpers import numpy_uniform
 from torch_port_helpers import port_class_step as _port_step
 from torch_port_helpers import rel_l2 as _rel_l2
 
@@ -65,7 +66,7 @@ def _resnet50_step(side, params, x, y, bf16):
     jax_side = side == "jax"
     if jax_side:
         m = jvision.resnet50_v1(classes=10)
-        m.initialize()
+        m.initialize(numpy_uniform())
         m(mx.nd.array(x))
         for n, p in _local(m).items():
             p.set_data(mx.nd.array(params[n]))
@@ -96,7 +97,7 @@ def resnet50_case(jax_trace_state_module):  # noqa: F811
     rng = np.random.RandomState(0)
     x = rng.randn(2, 3, 64, 64).astype(np.float32)
     jm = jvision.resnet50_v1(classes=10)
-    jm.initialize()
+    jm.initialize(numpy_uniform())
     jm(mx.nd.array(x))
     params = {n: _f32(p.data()) for n, p in _local(jm).items()}
     return params, x, np.array([3, 7], np.int32), {}

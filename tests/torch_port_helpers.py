@@ -26,6 +26,32 @@ SMALL_GPT = dict(vocab_size=256, units=128, num_layers=2, num_heads=2,
 JAX_DOUBLE_DONATION = ("ftml", "dcasgd")
 
 
+def numpy_uniform(scale=0.07, seed=0):
+    """The JAX package's default initializer, ``Uniform(0.07)``, drawn by
+    numpy: weights uniform in +-``scale``; biases, betas and moving means
+    0, gammas and moving variances 1, as ``Initializer`` sets them. It
+    compiles no threefry draw or fill for each shape, which is most of a
+    deep model's first forward in the JAX package on the CPU."""
+    import mxnet_tpu as jmx
+
+    class NumpyUniform(jmx.init.Initializer):
+        def __init__(self):
+            super().__init__(scale=scale)
+            self._rng = np.random.default_rng(seed)
+
+        def _init_zero(self, name, arr):
+            self._set(arr, np.zeros(tuple(arr.shape), np.float32))
+
+        def _init_one(self, name, arr):
+            self._set(arr, np.ones(tuple(arr.shape), np.float32))
+
+        def _init_weight(self, name, arr):
+            self._set(arr, self._rng.uniform(-scale, scale, tuple(arr.shape))
+                      .astype(np.float32))
+
+    return NumpyUniform()
+
+
 @pytest.fixture
 def sgld_without_noise(monkeypatch):
     """SGLD's noise drawn as zeros in both packages (their streams, threefry

@@ -124,6 +124,14 @@ built:
   imported on the card and served at bucket 8, against the Gluon model's
   direct forward, with a planted perturbed initializer);
 - ``slice23``: the two above (``run_slice23``);
+- ``sparse_lm`` or ``slice24``: ``phase_sparse_lm`` (the PTB LSTM LM at
+  full widths with a row-sparse ``SparseEmbedding`` trained by
+  ``Estimator.fit``: the launches a step, the row-sparse gradient, the
+  untouched rows, the lazy update against a dense step with a planted
+  dropped row, the plain-version run, the checkpoint; the CSR path
+  ``LibSVMIter`` into ``sparse.dot``; the lazy update's time; the
+  softmax-xent kernels at the fp32 (1120, 10000) logits, written into the
+  two records under ``sparse_lm_train``) through ``run_slice24``;
 - ``mp``: ``phase_model_parallel`` (the GPT-2 step inside
   ``sequence_parallel_scope`` at sp = 1, ring and Ulysses, against the
   plain step; the n = 4 ring replayed on the card against the
@@ -398,6 +406,15 @@ def run_dist(cs, dev):
     return out
 
 
+def run_slice24(cs, dev):
+    """``run_slice24`` with the two softmax-xent kernel records it adds
+    its fp32 timings to."""
+    records = [{"name": "softmax_xent_fwd"}, {"name": "softmax_xent_bwd"}]
+    out = cs.run_slice24(dev, records)
+    out["kernel_records"] = records
+    return out
+
+
 GROUPS = {"kernels": run_kernels, "spec": run_spec,
           "gpt_train": run_gpt_train,
           "snapshot": lambda cs, dev: cs.phase_snapshot(dev),
@@ -438,7 +455,8 @@ GROUPS = {"kernels": run_kernels, "spec": run_spec,
           "slice22": lambda cs, dev: run_slice22_part(cs, dev, "slice22"),
           "examples": lambda cs, dev: cs.phase_examples(dev),
           "onnx": lambda cs, dev: cs.phase_onnx(dev),
-          "slice23": lambda cs, dev: cs.run_slice23(dev)}
+          "slice23": lambda cs, dev: cs.run_slice23(dev),
+          "sparse_lm": run_slice24, "slice24": run_slice24}
 # groups that need no kernel
 NO_BUILD = {"image_probe"}
 

@@ -759,6 +759,74 @@ _add(C("preloaded_multi_mp_sgd_mom_update",
        [_W, _G, _M, _W, F(2), F(2), F(2), F(2), A(_LR), A(_WD)],
        {"momentum": 0.9}, **_UPD))
 
+# ---- the contrib ops of A.17 (ops/contrib_extra.py), the CTC loss's nd
+# names (ops/ctc.py) and the sparse dot (sparse.py)
+_add(C("arange_like", "arange_like", [F(3, 4)],
+       {"start": 1.0, "step": 0.5, "repeat": 2}, grad=False))
+_add(C("arange_like_axis", "arange_like", [F(3, 4)], {"axis": 1},
+       grad=False))
+_add(C("index_array", "index_array", [F(2, 3, 2)], grad=False))
+_add(C("index_array_axes", "index_array", [F(2, 3)], {"axes": (1, -2)},
+       grad=False))
+_add(C("index_copy", "index_copy", [F(5, 3), A([4, 1], "int32"), F(2, 3)],
+       grad=False))
+_add(C("allclose", "allclose", [A([[1.0, 2.0]]), A([[1.0, 2.000001]])],
+       grad=False))
+_add(C("allclose_far", "allclose", [F(3, 4), F(3, 4)], {"atol": 1e-3},
+       grad=False))
+_add(C("div_sqrt_dim", "div_sqrt_dim", [F(2, 3, 4)]))
+_add(C("gradientmultiplier", "gradientmultiplier", [F(3, 4)],
+       {"scalar": -0.5}))
+_add(C("quantize_v2", "quantize_v2", [F(3, 4, lo=-2, hi=2)],
+       {"out_type": "int8"}, grad=False))
+_add(C("quantize_v2_uint8", "quantize_v2", [F(3, 4, lo=-2, hi=2)],
+       {"out_type": "uint8"}, grad=False))
+_add(C("quantize_v2_calibrated", "quantize_v2", [F(3, 4, lo=0, hi=2)],
+       {"out_type": "auto", "min_calib_range": 0.0,
+        "max_calib_range": 1.5}, grad=False))
+_add(C("group_adagrad_update", "group_adagrad_update",
+       [F(4, 3), F(4, 3), F(4, 1, lo=0.1, hi=1.0)],
+       {"lr": 0.1, "rescale_grad": 0.5, "clip_gradient": 0.4}, grad=False))
+_ANCHORS = A([[[0.1, 0.1, 0.4, 0.5], [0.2, 0.3, 0.6, 0.7],
+               [0.5, 0.5, 0.9, 0.8], [0.0, 0.2, 0.3, 0.9]]])
+_add(C("box_encode", "box_encode",
+       [A([[1.0, 0.0, -1.0, 1.0]]), A([[0.0, 1.0, 0.0, 1.0]]), _ANCHORS,
+        A([[[0.15, 0.1, 0.45, 0.6], [0.3, 0.35, 0.7, 0.75]]])],
+       {"means": (0.0, 0.1, 0.0, 0.0), "stds": (0.1, 0.1, 0.2, 0.2)},
+       grad=False))
+_add(C("box_decode", "box_decode", [F(1, 4, 4, lo=-0.5, hi=0.5), _ANCHORS],
+       {"clip": 0.3}, grad=False))
+_add(C("box_decode_center", "box_decode",
+       [F(1, 4, 4, lo=-0.5, hi=0.5), F(1, 4, 4, lo=0.2, hi=0.8)],
+       {"format": "center", "std0": 0.2}, grad=False))
+_add(C("contrib_fft", "contrib_fft", [F(2, 8)], grad=False,
+       tol=SPECIAL_TOL))
+_add(C("contrib_ifft", "contrib_ifft", [F(2, 8)], grad=False,
+       tol=SPECIAL_TOL))
+_add(C("interleaved_matmul_selfatt_qk", "interleaved_matmul_selfatt_qk",
+       [F(3, 2, 24)], {"heads": 2}))
+_add(C("interleaved_matmul_selfatt_valatt",
+       "interleaved_matmul_selfatt_valatt", [F(3, 2, 24), F(4, 3, 3)],
+       {"heads": 2}))
+_add(C("interleaved_matmul_encdec_qk", "interleaved_matmul_encdec_qk",
+       [F(3, 2, 8), F(5, 2, 16)], {"heads": 2}))
+_add(C("interleaved_matmul_encdec_valatt",
+       "interleaved_matmul_encdec_valatt", [F(5, 2, 16), F(4, 3, 5)],
+       {"heads": 2}))
+# the CTC recursion in fp32 over 6 steps: SPECIAL_TOL
+_add(C("CTCLoss", "CTCLoss",
+       [F(2, 6, 5, lo=-2, hi=2), A([[1, 2, 2], [3, 1, 0]], "int32"),
+        A([6, 5], "int32"), A([3, 2], "int32")], grad=(0,),
+       tol=SPECIAL_TOL))
+_add(C("ctc_loss", "ctc_loss",
+       [F(2, 5, 4, lo=-2, hi=2), A([[1, 2], [3, 3]], "int32")],
+       {"blank": 0}, grad=(0,), tol=SPECIAL_TOL))
+_CSR = [F(5), A([0, 2, 1, 3, 2], "int32"), A([0, 2, 3, 5], "int32")]
+_add(C("_csr_dot", "_csr_dot", _CSR + [F(4, 3)],
+       {"nrows": 3, "ncols": 4}, grad=(0, 3)))
+_add(C("_csr_dot_transpose", "_csr_dot", _CSR + [F(3, 2)],
+       {"nrows": 3, "ncols": 4, "transpose_a": True}, grad=(0, 3)))
+
 # the random draws: the streams cannot match JAX's; each is held to its
 # distribution's moments and to itself under one seed. (op, kwargs, the
 # mean and variance of one draw, or None where only the mean is known)
